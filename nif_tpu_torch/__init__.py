@@ -1,0 +1,40 @@
+"""nif_tpu_torch — the PyTorch/CUDA port of ``nif_tpu`` for NVIDIA Hopper.
+
+A second package beside ``nif_tpu``, which stays as the reference it is held
+against. It mirrors ``nif_tpu``'s module tree and public names; inside it is
+PyTorch: ``nn.Module`` models, plain tensor functions for the ShapeNet ops,
+``torch.Generator`` init, and hand-written CUDA kernels under ``csrc/`` in
+place of the Pallas TPU kernels, built by ``nvcc`` on first use.
+
+Entry points run on CUDA unless the caller passes ``device="cpu"``.
+This slice covers serving: ``NIF``/``NIFMultiScale`` construction, init,
+point-wise and grouped forward, subnetwork extraction, config IO, and
+``serving.predict``/``predict_grouped`` through the fused forward kernel.
+"""
+from .__about__ import __version__
+from . import convert
+from . import layers
+from . import models
+from . import ops
+from . import serving
+from . import utils
+from .config import NIFConfig, ParameterNetConfig, ShapeNetConfig
+from .models import NIF, NIFMultiScale
+from .utils.policy import Policy, get_policy
+
+__all__ = [
+    "__version__",
+    "NIF",
+    "NIFMultiScale",
+    "NIFConfig",
+    "ShapeNetConfig",
+    "ParameterNetConfig",
+    "Policy",
+    "get_policy",
+    "convert",
+    "layers",
+    "models",
+    "ops",
+    "serving",
+    "utils",
+]
