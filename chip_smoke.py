@@ -5,19 +5,31 @@
 
 Phases, each of which raises on failure:
 
-1. Print the card's name and power limit; build the serving path's CUDA
-   kernel from ``nif_tpu_torch/csrc``.
-2. Hold each kernel against its plain PyTorch version on the card: K1 (the
-   grouped ShapeNet forward) over the six chain configs of the JAX package's
-   kernel tests at G=3, P=256, and the flagship chain at G=32, P=32768, in
-   float32 and bfloat16.
+1. Print the card's name and power limit; build the CUDA kernels from
+   ``nif_tpu_torch/csrc`` (one nvcc per source, all started together) and
+   print each build's registers and spills.
+2. Hold K1 (the grouped ShapeNet forward) against its plain PyTorch version
+   over the six chain configs of the JAX package's kernel tests at G=3,
+   P=256, and the flagship chain at G=32, P=32768, in float32 and bfloat16.
+2b. Hold K2 (forward + weighted MSE + backward) against plain K2 over the
+   same configs, with and without point weights, and at the flagship shape
+   in bfloat16; run it twice there and require bitwise-equal results.
+2c. Hold K3 (the backward of K1) against plain K3 over the same configs;
+   differentiate ``apply_grouped`` on the card through K1 + K3 and through
+   the eager path, and compare the ParameterNet gradients.
 3. Serve the flagship NIFMultiScale (``nif_tpu_torch.utils.bench``, random
    weights from a seed) through ``serving.predict_grouped``: a full request, a
    ragged one (point padding) and a 70-snapshot one (chunking). Check shapes,
    finiteness, agreement with the plain K1 and the eager path, and that the
    K1 launch count rose by the number of chunks served.
+3b. Train the flagship: ``GroupedTrainer.step`` with Adam at G=32, P=32768
+   (one K2 launch per step, the first step's loss and gradients against
+   plain K2 and autograd through the ParameterNet), then a short ``fit`` on
+   a smooth traveling wave whose last epoch loss must be below its first.
 4. Time K1, its plain version and the end-to-end ``apply_grouped`` with CUDA
    events, and compute K1's bound on this card.
+4b. Time the flagship train step, K2 and K3 with their plain versions, and
+   compute their bounds on this card.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the
 ``{"kernels": [...]}`` record. Exits non-zero without CUDA or without the
@@ -28,6 +40,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -42,6 +55,14 @@ PEAKS = {
 # f32 operations of one bf16 sine activation: bias add, range reduction
 # (mul, rint, sub), t*t, four Horner steps and the final product.
 SINE_FLOPS = 14
+# ... and of the sine with its derivative (K2, K3): the derivative adds three
+# Horner steps and the factor 1/2pi.
+SINE_GRAD_FLOPS = 21
+# bf16 bounds on a kernel against its plain version: two bf16 ulps of the
+# largest entry (an f32 last-bit difference in a sum can flip the bf16
+# rounding of one activation, derivative or dz), and a relative loss bound.
+BF16_REL = 2.0 ** -6
+BF16_LOSS_REL = 1e-3
 
 # The chain configs of tests/test_pallas_kernel.py (variant, ShapeNetConfig args).
 CASES = [
@@ -70,6 +91,27 @@ def chain_data(torch, cfg, G, P, dtype, seed):
     return to(wb), to(x)
 
 
+def side_data(torch, cfg, G, P, seed):
+    """Targets, point weights and an output cotangent, float32 on the card."""
+    rng = np.random.default_rng(seed + 1000)
+    to = lambda a: torch.from_numpy(a.astype(np.float32)).cuda()  # noqa: E731
+    return (to(rng.standard_normal((G, P, cfg.output_dim))), to(rng.uniform(0.5, 1.5, (G, P))),
+            to(rng.standard_normal((G, P, cfg.output_dim)) * 0.1))
+
+
+def describe(cfg, variant, G, P, dtype) -> str:
+    return (f"{variant:7s} si={cfg.input_dim} so={cfg.output_dim} n={cfg.units} "
+            f"l={cfg.nlayers} res={cfg.use_resblock} G={G} P={P} {str(dtype):14s}")
+
+
+def max_diff(torch, out, ref, what: str):
+    """(max|out - ref|, max|ref|) in f32; raises on a non-finite output."""
+    o, r = out.float(), ref.float()
+    if not bool(torch.isfinite(o).all()):
+        raise AssertionError(f"{what}: non-finite output")
+    return float((o - r).abs().max()), float(r.abs().max())
+
+
 def check_k1(torch, cfg, variant, G, P, dtype, seed) -> float:
     """Kernel vs plain version on one input; returns max |kernel - plain|.
 
@@ -86,19 +128,129 @@ def check_k1(torch, cfg, variant, G, P, dtype, seed) -> float:
     torch.cuda.synchronize()
     if out.shape != ref.shape or out.dtype != ref.dtype:
         raise AssertionError(f"K1 {variant} {cfg}: {out.shape}/{out.dtype} vs {ref.shape}/{ref.dtype}")
-    o, r = out.float(), ref.float()
-    if not bool(torch.isfinite(o).all()):
-        raise AssertionError(f"K1 {variant} {cfg} {dtype}: non-finite output")
-    err = float((o - r).abs().max())
-    scale = float(r.abs().max())
+    err, scale = max_diff(torch, out, ref, f"K1 {variant} {cfg} {dtype}")
     if dtype == torch.float32:
-        torch.testing.assert_close(o, r, rtol=2e-4, atol=1e-5)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2e-4, atol=1e-5)
     elif err > 1e-2 * scale:
         raise AssertionError(f"K1 {variant} {cfg} bf16: max|d| {err} > 1e-2 * {scale}")
-    log(f"K1 {variant:7s} si={cfg.input_dim} so={cfg.output_dim} n={cfg.units} "
-        f"l={cfg.nlayers} res={cfg.use_resblock} G={G} P={P} {str(dtype):14s} "
-        f"max|d|={err:.3e} max|plain|={scale:.3e}")
+    log(f"K1 {describe(cfg, variant, G, P, dtype)} max|d|={err:.3e} max|plain|={scale:.3e}")
     return err
+
+
+def check_k2(torch, cfg, variant, G, P, dtype, weighted, seed) -> float:
+    """K2 vs plain K2; returns max |d_wb - plain d_wb|.
+
+    float32: loss rel 1e-5 and max|d| <= 5e-6 max|plain| for d_wb, the JAX
+    kernel test's bound. bfloat16: loss rel BF16_LOSS_REL and max|d| <=
+    BF16_REL max|plain|."""
+    from nif_tpu_torch.ops.fused_shapenet import (
+        shapenet_mse_grads_cuda, shapenet_mse_grads_reference, train_geometry)
+
+    wb, x = chain_data(torch, cfg, G, P, dtype, seed)
+    tgt, w, _ = side_data(torch, cfg, G, P, seed)
+    w = w if weighted else None
+    loss, d_wb = shapenet_mse_grads_cuda(wb, x, tgt, cfg, variant, w)
+    l_ref, g_ref = shapenet_mse_grads_reference(wb, x, tgt, cfg, variant, w)
+    torch.cuda.synchronize()
+    what = f"K2 {describe(cfg, variant, G, P, dtype)} weighted={weighted}"
+    if d_wb.dtype != wb.dtype or d_wb.shape != g_ref.shape or loss.dtype != torch.float32:
+        raise AssertionError(f"{what}: {d_wb.shape}/{d_wb.dtype} vs {g_ref.shape}/{g_ref.dtype}")
+    err, scale = max_diff(torch, d_wb, g_ref, what)
+    l_rel = abs(float(loss) - float(l_ref)) / max(abs(float(l_ref)), 1e-30)
+    bound, l_bound = (5e-6, 1e-5) if dtype == torch.float32 else (BF16_REL, BF16_LOSS_REL)
+    geo = train_geometry(cfg, G, P, dtype)
+    log(f"{what} loss {float(loss):.6e} (rel {l_rel:.2e}) d_wb max|d|={err:.3e} "
+        f"max|plain|={scale:.3e} ({err / scale:.2e} of it); residuals in {geo['residuals']} "
+        f"memory, {geo['splits']} splits of {geo['tile']}-point tiles")
+    if not np.isfinite(float(loss)) or l_rel > l_bound or err > bound * scale:
+        raise AssertionError(f"{what}: loss rel {l_rel} (bound {l_bound}), d_wb max|d| "
+                             f"{err} > {bound} * {scale}")
+    return err
+
+
+def check_k3(torch, cfg, variant, G, P, dtype, seed) -> float:
+    """K3 vs plain K3 on d_wb and dx; returns max |d_wb - plain d_wb|.
+
+    float32: max|d| <= 5e-5 max|plain| (the JAX package's bound for its
+    fused backward); bfloat16: BF16_REL."""
+    from nif_tpu_torch.ops.fused_shapenet import (
+        shapenet_bwd_cuda, shapenet_fused_bwd_reference)
+
+    wb, x = chain_data(torch, cfg, G, P, dtype, seed)
+    g = side_data(torch, cfg, G, P, seed)[2].to(dtype)
+    d_wb, dx = shapenet_bwd_cuda(wb, x, g, cfg, variant)
+    r_wb, r_dx = shapenet_fused_bwd_reference(wb, x, g, cfg, variant)
+    torch.cuda.synchronize()
+    what = f"K3 {describe(cfg, variant, G, P, dtype)}"
+    if d_wb.dtype != wb.dtype or dx.dtype != x.dtype or dx.shape != x.shape:
+        raise AssertionError(f"{what}: d_wb {d_wb.dtype}, dx {dx.shape}/{dx.dtype}")
+    err, scale = max_diff(torch, d_wb, r_wb, what + " d_wb")
+    e_dx, s_dx = max_diff(torch, dx, r_dx, what + " dx")
+    bound = 5e-5 if dtype == torch.float32 else BF16_REL
+    log(f"{what} d_wb max|d|={err:.3e} ({err / scale:.2e} of max|plain|), dx max|d|="
+        f"{e_dx:.3e} ({e_dx / s_dx:.2e} of max|plain|)")
+    if err > bound * scale or e_dx > bound * s_dx:
+        raise AssertionError(f"{what}: beyond {bound} of max|plain|")
+    return err
+
+
+def build_all(names):
+    """Build every kernel source at once, one nvcc each; returns seconds
+    per name. Raises the first build failure."""
+    from nif_tpu_torch.ops import _build
+
+    secs, errors = {}, []
+
+    def one(name):
+        t0 = time.perf_counter()
+        try:
+            _build.build(name)
+        except Exception as e:  # noqa: BLE001 - re-raised below
+            errors.append(e)
+        secs[name] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=one, args=(n,)) for n in names]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if errors:
+        raise errors[0]
+    for name in names:
+        log(f"build {name}: {secs[name]:.1f} s")
+        for line in _build.BUILD_LOGS.get(name, "").splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(f"  ptxas: {line.strip()}")
+    return secs
+
+
+def traveling_wave(G, P, seed):
+    """A smooth field u = sin(pi (x0 - t/2)) cos(pi x1 / 2) on x in [-1, 1]^3
+    at G times t in [0, 1] (t is the first of the 4 parameters)."""
+    rng = np.random.default_rng(seed)
+    ts = np.linspace(0.0, 1.0, G)
+    t = np.stack([ts, np.zeros(G), np.zeros(G), np.zeros(G)], 1).astype(np.float32)
+    x = rng.uniform(-1, 1, (G, P, 3)).astype(np.float32)
+    u = np.sin(np.pi * (x[..., :1] - 0.5 * ts[:, None, None])) * np.cos(0.5 * np.pi * x[..., 1:2])
+    return t, x, u.astype(np.float32)
+
+
+def train_bounds(cfg, G, P, peak_mma, peak_f32, peak_bw, dx: bool):
+    """(bound ms, bound_by, products GFLOP) of K2 (dx=False) or K3 (dx=True)
+    at this shape in bf16: products over the tensor-core peak, sine and
+    derivative evaluations over the f32 peak, bytes over bandwidth (wb, x
+    and the target or g_out in, d_wb and dx out, each once)."""
+    n, si, so, nm = cfg.units, cfg.input_dim, cfg.output_dim, 2 * cfg.nlayers if cfg.use_resblock else cfg.nlayers
+    fwd = 2 * G * P * (si * n + nm * n * n + n * so)
+    dw = fwd
+    du = 2 * G * P * (nm * n * n + n * so) + (2 * G * P * si * n if dx else 0)
+    flops = fwd + dw + du
+    act = SINE_GRAD_FLOPS * G * P * n * (1 + nm)
+    po = nm * n * n + (si + so + 1 + nm) * n + so
+    nbytes = 2 * (2 * G * po + G * P * si + G * P * so + (G * P * si if dx else 0))
+    t_ops = max(flops / peak_mma, act / peak_f32) * 1e3
+    t_bytes = nbytes / peak_bw * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops / 1e9
 
 
 def main() -> int:
@@ -111,18 +263,21 @@ def main() -> int:
     from nif_tpu_torch.config import ShapeNetConfig
     from nif_tpu_torch.ops import _build
     from nif_tpu_torch.ops.fused_shapenet import (
-        shapenet_fwd_cuda, shapenet_grouped_fused_reference)
+        shapenet_bwd_cuda, shapenet_fused_bwd_reference, shapenet_fwd_cuda,
+        shapenet_grouped_fused_reference, shapenet_mse_grads_cuda,
+        shapenet_mse_grads_reference)
     from nif_tpu_torch.ops.shapenet import shapenet_grouped
     from nif_tpu_torch.serving import predict_grouped
+    from nif_tpu_torch.training import GroupedTrainer
     from nif_tpu_torch.utils import rel_l2
-    from nif_tpu_torch.utils.bench import (FLAGSHIP_PNET, FLAGSHIP_POLICY,
-                                           FLAGSHIP_SHAPE, cuda_ms)
+    from nif_tpu_torch.utils.bench import (FLAGSHIP_PNET, FLAGSHIP_POLICY, FLAGSHIP_SHAPE,
+                                           FLAGSHIP_TRAIN_LR, cuda_ms, flagship_train_step)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
 
-    # ---- phase 1: the card and the build
+    # ---- phase 1: the card and the builds
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -130,25 +285,63 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {name}")
     log(f"card: {smi}")
-    t0 = time.perf_counter()
-    _build.build("shapenet_fwd")
-    log(f"build: {time.perf_counter() - t0:.1f} s")
-    for line in _build.BUILD_LOGS.get("shapenet_fwd", "").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    build_all(["shapenet_fwd", "shapenet_bwd"])
     peak_mma, peak_f32, peak_bw = PEAKS["H100 PCIe" if "PCIe" in name else "H100 SXM"]
+    flag_cfg = ShapeNetConfig.from_dict(FLAGSHIP_SHAPE)
 
     # ---- phase 2: K1 against its plain version
     for i, (variant, args) in enumerate(CASES):
         for dtype in (torch.float32, torch.bfloat16):
             check_k1(torch, ShapeNetConfig(*args), variant, 3, 256, dtype, seed=i)
-    flag_cfg = ShapeNetConfig.from_dict(FLAGSHIP_SHAPE)
     check_k1(torch, flag_cfg, "siren", 32, 32768, torch.float32, seed=10)
     k1_err = check_k1(torch, flag_cfg, "siren", 32, 32768, torch.bfloat16, seed=11)
 
-    # ---- phase 3: serve the flagship model
+    # ---- phase 2b: K2 against its plain version, and its determinism
+    for i, (variant, args) in enumerate(CASES):
+        for dtype in (torch.float32, torch.bfloat16):
+            for weighted in (False, True):
+                check_k2(torch, ShapeNetConfig(*args), variant, 3, 256, dtype, weighted, seed=i)
+    k2_err = check_k2(torch, flag_cfg, "siren", 32, 32768, torch.bfloat16, False, seed=12)
+    wb, x = chain_data(torch, flag_cfg, 32, 32768, torch.bfloat16, seed=13)
+    tgt = side_data(torch, flag_cfg, 32, 32768, seed=13)[0]
+    runs = [shapenet_mse_grads_cuda(wb, x, tgt, flag_cfg, "siren") for _ in range(2)]
+    if not (torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])):
+        raise AssertionError("K2 is not deterministic: two runs on one input differ")
+    log("K2 flagship bf16: two runs give bitwise-equal loss and d_wb")
+
+    # ---- phase 2c: K3 against its plain version; autograd through K1 + K3
+    for i, (variant, args) in enumerate(CASES):
+        for dtype in (torch.float32, torch.bfloat16):
+            check_k3(torch, ShapeNetConfig(*args), variant, 3, 256, dtype, seed=i)
+    k3_err = check_k3(torch, flag_cfg, "siren", 32, 32768, torch.bfloat16, seed=14)
     model = nif_tpu_torch.NIFMultiScale(FLAGSHIP_SHAPE, FLAGSHIP_PNET,
                                         mixed_policy=FLAGSHIP_POLICY, device="cuda", seed=0)
+    rng = np.random.default_rng(1)
+    t_g = torch.from_numpy(rng.standard_normal((8, 4)).astype(np.float32)).cuda()
+    x_g = torch.from_numpy(rng.uniform(-1, 1, (8, 4096, 3)).astype(np.float32)).cuda()
+    g_g = torch.from_numpy(rng.standard_normal((8, 4096, 1)).astype(np.float32)).cuda()
+    params = [p for _, p in model.param_items()]
+    _build.reset_launches()
+    fused_grads = torch.autograd.grad(model.apply_grouped(t_g, x_g), params, g_g)
+    torch.cuda.synchronize()
+    bwd_path = dict(_build.LAUNCHES)
+    eager_grads = torch.autograd.grad(model.apply_grouped(t_g, x_g, fused=False), params, g_g)
+    if bwd_path["shapenet_bwd"] != 1 or bwd_path["shapenet_fwd"] != 1:
+        raise AssertionError(f"apply_grouped under autograd launched {bwd_path}, "
+                             f"not one K1 and one K3")
+    worst = 0.0
+    for (path, _), a, b in zip(model.param_items(), fused_grads, eager_grads):
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"fused gradient of {path} is not finite")
+        worst = max(worst, float(rel_l2(a, b)))
+    log(f"apply_grouped backward on the card (G=8, P=4096, bf16): launches {bwd_path}; "
+        f"ParameterNet grads fused (K1+K3) vs eager: worst rel-L2 {worst:.4f}")
+    # The bf16 eager chain rounds omega*(u@W) to bf16 and takes the exact
+    # sine: the two paths' grads differ by 3-4% rel-L2 on the CPU at these widths.
+    if worst > 0.15:
+        raise AssertionError(f"fused and eager ParameterNet grads differ by rel-L2 {worst}")
+
+    # ---- phase 3: serve the flagship model
     if model.po_dim != 33665:
         raise AssertionError(f"flagship po_dim {model.po_dim} != 33665")
     info = model.fast_path_info(32768)
@@ -165,11 +358,11 @@ def main() -> int:
     t0 = time.perf_counter()
     outs = [predict_grouped(model, t, x) for t, x in inputs]
     serve_s = time.perf_counter() - t0
-    launches = dict(_build.LAUNCHES)
+    serve_launches = dict(_build.LAUNCHES)
     log(f"served {len(requests)} requests ({sum(G * P for G, P in requests)} points) "
-        f"in {serve_s:.3f} s; launches {launches}, chunks {chunks}")
-    if launches["shapenet_fwd"] != chunks:
-        raise AssertionError(f"K1 launched {launches['shapenet_fwd']} times for {chunks} chunks")
+        f"in {serve_s:.3f} s; launches {serve_launches}, chunks {chunks}")
+    if serve_launches["shapenet_fwd"] != chunks:
+        raise AssertionError(f"K1 launched {serve_launches['shapenet_fwd']} times for {chunks} chunks")
     with torch.inference_mode():
         for (G, P), (t, x), out in zip(requests, inputs, outs):
             if out.shape != (G, P, 1) or out.dtype != np.float32:
@@ -196,7 +389,60 @@ def main() -> int:
             if r_eager > 0.15 or d_eager > 0.3 * float(eager.abs().max()):
                 raise AssertionError(f"request G={G} P={P}: served output departs from eager")
 
-    # ---- phase 4: times at the flagship shape (bf16, as served)
+    # ---- phase 3b: train the flagship
+    G, P = 32, 32768
+    trainer, state, (t_tr, x_tr, u_tr) = flagship_train_step(G, P)
+    tmodel = trainer.model
+    if tmodel.fast_path_info(P)["path"] != "fused":
+        raise AssertionError(f"flagship training would not take K2: {tmodel.fast_path_info(P)}")
+    loss_k, grads_k = tmodel.mse_value_and_grad(t_tr, x_tr, u_tr)
+    wb_tr, _ = tmodel.pnet(tmodel._compute(t_tr))
+    loss_p, d_wb_p = shapenet_mse_grads_reference(
+        wb_tr.detach(), tmodel._compute(x_tr), u_tr, tmodel.cfg_shape_net, "siren")
+    grads_p = torch.autograd.grad(wb_tr, [p for _, p in tmodel.param_items()], d_wb_p)
+    l_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    worst = 0.0
+    for (path, _), b in zip(tmodel.param_items(), grads_p):
+        a = grads_k
+        for key in path:
+            a = a[key]
+        worst = max(worst, float(rel_l2(a, b)))
+    log(f"flagship step 0: loss {float(loss_k):.6e} vs plain K2 {float(loss_p):.6e} (rel "
+        f"{l_rel:.2e}); ParameterNet grads vs plain K2 + autograd: worst rel-L2 {worst:.2e}")
+    if l_rel > BF16_LOSS_REL or worst > 1e-2:
+        raise AssertionError("the flagship step's loss or grads depart from plain K2")
+    n_steps = 5
+    _build.reset_launches()
+    losses = []
+    for _ in range(n_steps):
+        state, loss = trainer.step(state, t_tr, x_tr, u_tr)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    train_launches = dict(_build.LAUNCHES)
+    losses = [float(v) for v in losses]
+    log(f"flagship train: {n_steps} steps, losses {losses}, launches {train_launches}, "
+        f"path {trainer.history.get('path')}")
+    if train_launches["shapenet_mse_grads"] != n_steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"train steps launched K2 {train_launches['shapenet_mse_grads']} "
+                             f"times for {n_steps} steps, losses {losses}")
+    log(f"step 0's loss equals the K2 call above bit for bit: {losses[0] == float(loss_k)}")
+    t_w, x_w, u_w = traveling_wave(16, 8192, seed=2)
+    fmodel = nif_tpu_torch.NIFMultiScale(FLAGSHIP_SHAPE, FLAGSHIP_PNET, FLAGSHIP_POLICY,
+                                         device="cuda", seed=1)
+    fitter = GroupedTrainer(fmodel, lambda p: torch.optim.Adam(p, lr=FLAGSHIP_TRAIN_LR))
+    fstate = fitter.init(1)
+    _build.reset_launches()
+    fstate = fitter.fit(fstate, t_w, x_w, u_w, epochs=30, group_batch=8, point_batch=4096)
+    fit_launches = dict(_build.LAUNCHES)
+    metrics = fitter.evaluate_metrics(fstate, t_w, x_w, u_w)
+    hist = fitter.history["loss"]
+    log(f"fit on a traveling wave (G=16, P=8192, 4096-point batches, 30 epochs): epoch "
+        f"losses first {hist[0]:.6e} last {hist[-1]:.6e}; K2 launches {fit_launches}; "
+        f"evaluate_metrics {metrics}")
+    if fit_launches["shapenet_mse_grads"] != 60 or not hist[-1] < hist[0]:
+        raise AssertionError("the fit did not take K2 for every step or did not lower the loss")
+
+    # ---- phase 4: K1 times at the flagship shape (bf16, as served)
     G, P = requests[0]
     t, x = inputs[0]
     with torch.inference_mode():
@@ -226,18 +472,69 @@ def main() -> int:
     log(f"end to end apply_grouped (f32 inputs on the card) G={G} P={P}: {e2e_ms:.4f} ms = "
         f"{G * P / e2e_ms * 1e3:.4e} points/s; predict_grouped from host arrays: "
         f"{serve_ms:.4f} ms = {G * P / serve_ms * 1e3:.4e} points/s")
+
+    # ---- phase 4b: train-step, K2 and K3 times at the flagship shape (bf16)
+    G, P = 32, 32768
+    step_box = [state]
+
+    def one_step():
+        step_box[0], _ = trainer.step(step_box[0], t_tr, x_tr, u_tr)
+
+    step_ms = cuda_ms(one_step, reps=10)
+    wb, x = chain_data(torch, flag_cfg, G, P, torch.bfloat16, seed=15)
+    tgt, _, g = side_data(torch, flag_cfg, G, P, seed=15)
+    g = g.to(torch.bfloat16)
+    k2_ms = cuda_ms(lambda: shapenet_mse_grads_cuda(wb, x, tgt, flag_cfg, "siren"), reps=10)
+    k2_plain_ms = cuda_ms(lambda: shapenet_mse_grads_reference(wb, x, tgt, flag_cfg, "siren"),
+                          reps=3, warmup=1)
+    k3_ms = cuda_ms(lambda: shapenet_bwd_cuda(wb, x, g, flag_cfg, "siren"), reps=10)
+    k3_plain_ms = cuda_ms(lambda: shapenet_fused_bwd_reference(wb, x, g, flag_cfg, "siren"),
+                          reps=3, warmup=1)
+    k2_bound, k2_by, k2_gf = train_bounds(flag_cfg, G, P, peak_mma, peak_f32, peak_bw, dx=False)
+    k3_bound, k3_by, k3_gf = train_bounds(flag_cfg, G, P, peak_mma, peak_f32, peak_bw, dx=True)
+    log(f"flagship train step (GroupedTrainer.step, Adam, bf16, G={G} P={P}): {step_ms:.4f} ms "
+        f"= {G * P / step_ms * 1e3:.4e} train points/s")
+    log(f"K2 {k2_ms:.4f} ms (wrapper incl. prescale, workspace and reduce), plain "
+        f"{k2_plain_ms:.4f} ms, bound {k2_bound:.4f} ms by {k2_by} ({k2_gf:.1f} GFLOP of "
+        f"products); K3 {k3_ms:.4f} ms, plain {k3_plain_ms:.4f} ms, bound {k3_bound:.4f} ms "
+        f"by {k3_by} ({k3_gf:.1f} GFLOP); library_ms null: no single PyTorch call computes "
+        f"these chains")
     log(f"card: {smi}")
     log(json.dumps({"kernels": [{
         "name": "shapenet_fwd",
         "route": "cuda",
         "source": "nif_tpu_torch/csrc/shapenet_fwd.cu",
         "replaces": "nif_tpu/ops/pallas_shapenet.py:489",
-        "launches": launches["shapenet_fwd"],
+        "launches": serve_launches["shapenet_fwd"],
         "max_abs_err": k1_err,
         "ms": k1_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": None,
+    }, {
+        "name": "shapenet_mse_grads",
+        "route": "cuda",
+        "source": "nif_tpu_torch/csrc/shapenet_bwd.cu",
+        "replaces": "nif_tpu/ops/pallas_shapenet.py:786",
+        "launches": train_launches["shapenet_mse_grads"],
+        "max_abs_err": k2_err,
+        "ms": k2_ms,
+        "plain_ms": k2_plain_ms,
+        "bound_ms": k2_bound,
+        "bound_by": k2_by,
+        "library_ms": None,
+    }, {
+        "name": "shapenet_bwd",
+        "route": "cuda",
+        "source": "nif_tpu_torch/csrc/shapenet_bwd.cu",
+        "replaces": "nif_tpu/ops/pallas_shapenet.py:702",
+        "launches": bwd_path["shapenet_bwd"],
+        "max_abs_err": k3_err,
+        "ms": k3_ms,
+        "plain_ms": k3_plain_ms,
+        "bound_ms": k3_bound,
+        "bound_by": k3_by,
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -7,9 +7,12 @@ PyTorch: ``nn.Module`` models, plain tensor functions for the ShapeNet ops,
 place of the Pallas TPU kernels, built by ``nvcc`` on first use.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
-This slice covers serving: ``NIF``/``NIFMultiScale`` construction, init,
-point-wise and grouped forward, subnetwork extraction, config IO, and
+Serving: ``NIF``/``NIFMultiScale`` construction, init, point-wise and grouped
+forward, subnetwork extraction, config IO, and
 ``serving.predict``/``predict_grouped`` through the fused forward kernel.
+Training: ``NIF.mse_value_and_grad`` through the fused train kernel,
+``regularization_loss``, and ``training.GroupedTrainer`` (``step``, ``fit``,
+``evaluate``) with callbacks and checkpoints.
 """
 from .__about__ import __version__
 from . import convert
@@ -17,6 +20,7 @@ from . import layers
 from . import models
 from . import ops
 from . import serving
+from . import training
 from . import utils
 from .config import NIFConfig, ParameterNetConfig, ShapeNetConfig
 from .models import NIF, NIFMultiScale
@@ -36,5 +40,6 @@ __all__ = [
     "models",
     "ops",
     "serving",
+    "training",
     "utils",
 ]

@@ -6,7 +6,12 @@ Each model holds its configuration and its ParameterNet's parameters:
 * ``apply(inputs)``          — point-wise forward on ``[B, pi_dim + si_dim]``.
 * ``apply_grouped(t, x)``    — grouped forward: the P points of a snapshot
   share one generated weight vector, so the ShapeNet runs as batched
-  matmuls, through the fused CUDA kernel on the card (the serving path).
+  matmuls, through the fused CUDA kernel on the card (the serving path),
+  differentiable through the fused backward kernel.
+* ``mse_value_and_grad(t, x, u)`` — the grouped weighted-MSE loss and its
+  gradient, through the fused train kernel on the card (the train path).
+* ``regularization_loss`` — the configured L1/L2, activity and
+  latent-Jacobian terms.
 * ``p_to_w / p_to_lr / lr_to_w / x_to_u_given_w(_grouped)`` — subnetwork
   extraction for ROM workflows.
 * ``save_config`` / ``from_config`` — the JAX package's JSON schema.
@@ -19,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -34,10 +39,11 @@ from ..ops.fused_shapenet import (
     fused_unsupported_reason,
     kernel_geometry,
     shapenet_grouped_fused,
+    shapenet_mse_grads,
 )
 from ..ops.shapenet import shapenet_grouped, shapenet_pointwise
 from ..utils.policy import get_policy
-from .parameter_net import ParameterNet, parameter_net_kind
+from .parameter_net import ParameterNet, parameter_net_apply, parameter_net_kind, parameter_net_latent
 
 __all__ = ["NIF", "NIFMultiScale", "resolve_device"]
 
@@ -152,19 +158,14 @@ class NIF(nn.Module):
         Args:
           t: ``[G, pi_dim]`` parameters, one row per snapshot/group.
           x: ``[G, P, si_dim]`` coordinates, P points per group.
-          fused: run the ShapeNet through K1 (the CUDA kernel on the card,
-            its plain version on the CPU). Default (None): fused when the
-            tensors are on CUDA, the compute dtype is f32 or bf16 and the
-            config is supported; eager otherwise. ``False`` runs eager.
+          fused: run the ShapeNet through K1, with K3 as its backward under
+            autograd (the CUDA kernels on the card, their plain versions on
+            the CPU). Default (None): fused when the tensors are on CUDA, the
+            compute dtype is f32 or bf16 and the config is supported; eager
+            otherwise. ``False`` runs eager.
 
         Returns:
           ``[G, P, so_dim]`` in the param dtype.
-
-        Raises:
-          RuntimeError: on the fused CUDA path when gradients are needed. K1
-            has no backward until K3 (the fused backward) is ported: call
-            under ``torch.inference_mode()``, or pass ``fused=False`` for
-            eager autograd.
         """
         t = self._compute(t)
         x = self._compute(x)
@@ -172,12 +173,6 @@ class NIF(nn.Module):
         if fused is None:
             self._announce_path(x.shape[1])
             fused = self.fast_path_info(x.shape[1])["path"] == "fused"
-            if fused and (wb.requires_grad or x.requires_grad):
-                raise RuntimeError(
-                    "apply_grouped: the fused CUDA forward (K1) has no backward "
-                    "until K3, the fused backward, is ported; call it under "
-                    "torch.inference_mode(), or pass fused=False for eager autograd"
-                )
         if fused:
             u = shapenet_grouped_fused(wb, x, self.cfg_shape_net, self.shapenet_variant)
         else:
@@ -193,6 +188,8 @@ class NIF(nn.Module):
         compute dtype, or simply not running on CUDA."""
         reason = fused_unsupported_reason(self.cfg_shape_net, self.shapenet_variant, P,
                                           self.device)
+        if reason is None and self._any_f64():
+            reason = "float64 parameters (the kernels take float32 or bfloat16)"
         if reason is None and self.policy.compute_dtype not in (torch.float32,
                                                                 torch.bfloat16):
             reason = (f"compute dtype {self.policy.compute_dtype} (the kernel "
@@ -214,7 +211,7 @@ class NIF(nn.Module):
         info = self.fast_path_info(P)
         if info["path"] == "fused":
             logger.info(
-                "grouped fast path: fused CUDA forward kernel "
+                "grouped fast path: fused CUDA kernels "
                 "(P=%d, point tile %s)", P, info["tile"],
             )
         elif info["reason"].startswith("not on CUDA"):
@@ -224,6 +221,151 @@ class NIF(nn.Module):
                 "grouped path FALLING BACK to eager for P=%d: %s. The fused "
                 "kernel is the serving fast path — see PERF.md.", P, info["reason"],
             )
+
+    def _any_f64(self) -> bool:
+        """True when any parameter is float64: the kernels are f32/bf16, so
+        auto-selection keeps an f64 model (e.g. f64 fine-tuning) eager."""
+        return any(p.dtype == torch.float64 for p in self.parameters())
+
+    # ------------------------------------------------------------ training
+    def param_items(self) -> List[Tuple[Tuple[str, ...], nn.Parameter]]:
+        """``[(path, parameter)]`` in the order of :meth:`parameters`, each
+        path a key path of the JAX params tree, e.g.
+        ``("pnet", "hidden_0", "dense", "w")``."""
+        return [(("pnet",) + tuple(name.split(".")), p)
+                for name, p in self.pnet.params.named_parameters()]
+
+    def _grad_tree(self, grads) -> Dict[str, Any]:
+        """Gradients in :meth:`param_items` order -> the JAX params tree's
+        nested dicts (the ``to_numpy_params`` layout)."""
+        tree: Dict[str, Any] = {}
+        for (path, _), g in zip(self.param_items(), grads):
+            node = tree
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = g
+        return tree
+
+    def mse_value_and_grad(self, t, x, u, weight=None, fused: Optional[bool] = None,
+                           use_reg: bool = True, reg_weight=None):
+        """The grouped weighted-MSE loss and its gradient: ``(loss, grads)``.
+
+        ``t [G, pi]``, ``x [G, P, si]``, ``u [G, P, so]``, ``weight [G, P]``
+        (optional) as arrays or tensors. ``loss`` is a 0-dim tensor on the
+        model's device (no host sync) and ``grads`` a tree of tensors keyed
+        like the JAX params tree (``{"pnet": {"first": {"w", "b"}, ...}}``).
+
+        The fused path runs the ParameterNet forward, then K2 (forward +
+        weighted MSE + backward of the ShapeNet in one kernel on the card,
+        its plain version on the CPU), then sends ``d_wb`` back through the
+        ParameterNet with autograd. The eager path (``fused=False``) is plain
+        autograd over ``apply_grouped(fused=False)``. Default (None): fused
+        where :meth:`fast_path_info` says so (CUDA, f32/bf16, a supported
+        config, no f64 parameter). The configured regularization is added
+        (``use_reg``) on both paths; ``reg_weight [G]`` reweights its
+        batch-mean rows (see :meth:`regularization_loss`)."""
+        params = [p for _, p in self.param_items()]
+        u = torch.as_tensor(u, device=self.device)
+        weight = None if weight is None else torch.as_tensor(weight, device=self.device)
+        if fused is None:
+            P = x.shape[1]
+            self._announce_path(P)
+            fused = self.fast_path_info(P)["path"] == "fused"
+        reg = use_reg and self.has_regularization
+        if not fused:
+            pred = self.apply_grouped(t, x, fused=False)
+            err = torch.square(pred - u.to(pred.dtype))
+            if weight is not None:
+                err = err * weight.unsqueeze(-1).to(pred.dtype)
+            loss = torch.mean(err)
+            if reg:
+                loss = loss + self.regularization_loss(t=t, reg_weight=reg_weight)
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+            return loss.detach(), self._grad_tree(grads)
+        wb, _ = self.pnet(self._compute(t))
+        loss, d_wb = shapenet_mse_grads(wb, self._compute(x), u, self.cfg_shape_net,
+                                        self.shapenet_variant, weight)
+        grads = torch.autograd.grad(wb, params, d_wb)
+        if reg:
+            reg_loss = self.regularization_loss(t=t, reg_weight=reg_weight)
+            reg_grads = torch.autograd.grad(reg_loss, params, allow_unused=True)
+            grads = [g if r is None else g + r for g, r in zip(grads, reg_grads)]
+            loss = loss + reg_loss.detach()
+        return loss, self._grad_tree(grads)
+
+    # ------------------------------------------------------- regularization
+    @property
+    def has_regularization(self) -> bool:
+        """True when any regularization term is configured: one source of
+        truth for the fused and the eager training paths."""
+        cfg_p = self.cfg_parameter_net
+        return any(v is not None for v in (cfg_p.l1_reg, cfg_p.l2_reg, cfg_p.act_l1_reg,
+                                           cfg_p.act_l2_reg, cfg_p.jac_reg))
+
+    def regularization_loss(self, inputs=None, t=None, reg_weight=None,
+                            parts: str = "all") -> torch.Tensor:
+        """Sum of the configured regularization terms, as the JAX package
+        computes them: ``l2_reg`` (else ``l1_reg``) times the sum of squares
+        (absolute values) of every ParameterNet parameter; ``act_l2_reg``
+        (else ``act_l1_reg``) times the batch mean of each row's sum of
+        squares (absolute values) of the generated weight vector (the Keras
+        activity regularizer's division by the batch); and ``jac_reg`` times
+        the batch mean of ``mean((d latent / d t)^2)`` per row.
+
+        ``t`` (parameter rows) or ``inputs`` (point-wise rows, whose first
+        ``pi_dim`` columns are taken) is needed for the activity and Jacobian
+        terms. ``reg_weight [batch]`` makes each batch mean
+        ``mean(per_row * reg_weight)`` (the trainers pass ``reg_row_weights``
+        so zero-weight padding changes nothing). ``parts``: ``"all"``,
+        ``"params"`` (the L1/L2 term only) or ``"batch"`` (the batch terms
+        only)."""
+        if parts not in ("all", "params", "batch"):
+            raise ValueError(f"unknown parts {parts!r}")
+        cfg_p = self.cfg_parameter_net
+        loss = torch.zeros((), dtype=self.policy.param_dtype, device=self.device)
+        if parts in ("all", "params"):
+            leaves = [p for _, p in self.param_items()]
+            if cfg_p.l2_reg is not None:
+                loss = loss + cfg_p.l2_reg * sum(torch.sum(torch.square(p)) for p in leaves)
+            elif cfg_p.l1_reg is not None:
+                loss = loss + cfg_p.l1_reg * sum(torch.sum(torch.abs(p)) for p in leaves)
+        if parts == "params":
+            return loss
+        needs_act = cfg_p.act_l1_reg is not None or cfg_p.act_l2_reg is not None
+        needs_jac = cfg_p.jac_reg is not None
+        if not (needs_act or needs_jac):
+            return loss
+        if inputs is None and t is None:
+            raise ValueError(
+                "regularization_loss needs `inputs` (point-wise rows) or `t` "
+                "(parameter rows) when activity or jacobian regularization "
+                "is configured"
+            )
+        if t is None:
+            t = torch.as_tensor(inputs)[..., : self.pi_dim]
+        t = self._compute(t)
+        rw = None if reg_weight is None else torch.as_tensor(reg_weight, device=self.device).to(t.dtype)
+
+        def batch_mean(per_row):
+            return torch.mean(per_row if rw is None else per_row * rw)
+
+        if needs_act:
+            wb, _ = parameter_net_apply(self.pnet.params, t, cfg_p, self.pnet_kind)
+            if cfg_p.act_l2_reg is not None:
+                per_row, coef = torch.sum(torch.square(wb), dim=-1), cfg_p.act_l2_reg
+            else:
+                per_row, coef = torch.sum(torch.abs(wb), dim=-1), cfg_p.act_l1_reg
+            loss = loss + coef * batch_mean(per_row)
+        if needs_jac:
+            def latent_fn(ti):
+                return parameter_net_latent(self.pnet.params, ti, cfg_p, self.pnet_kind)
+
+            # d latent / d t per row, forward mode (pi_dim is tiny)
+            jac = torch.func.vmap(torch.func.jacfwd(latent_fn))(t)
+            per_row = torch.mean(torch.square(jac), dim=tuple(range(1, jac.dim())))
+            loss = loss + cfg_p.jac_reg * batch_mean(per_row)
+        return loss
 
     # ------------------------------------------------- subnetwork extraction
     def p_to_w(self, t):

@@ -32,7 +32,7 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-LAUNCHES: Dict[str, int] = {"shapenet_fwd": 0}
+LAUNCHES: Dict[str, int] = {"shapenet_fwd": 0, "shapenet_mse_grads": 0, "shapenet_bwd": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

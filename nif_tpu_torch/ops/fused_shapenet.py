@@ -1,26 +1,41 @@
-"""K1: the fused forward of the grouped ShapeNet chain (counterpart of
-``nif_tpu/ops/pallas_shapenet.py::shapenet_grouped_fused``'s forward).
+"""The fused kernels of the grouped ShapeNet chain (counterparts of
+``nif_tpu/ops/pallas_shapenet.py``):
 
-:func:`shapenet_grouped_fused` takes ``wb [G, po]`` and ``x [G, P, si]`` to
-``[G, P, so]`` in x's dtype (float32 or bfloat16) and computes what the
-Pallas kernel's ``_forward_layers(save=False)`` computes:
+* **K1**, :func:`shapenet_grouped_fused`: ``wb [G, po]``, ``x [G, P, si]`` ->
+  ``[G, P, so]`` in x's dtype (float32 or bfloat16), what the Pallas
+  kernel's ``_forward_layers(save=False)`` computes. It is differentiable:
+  its backward is K3.
+* **K2**, :func:`shapenet_mse_grads`: forward + weighted MSE + backward in
+  one pass, ``(loss, d_wb)`` (the Pallas ``_train_kernel``).
+* **K3**, the backward of K1 (the Pallas ``_bwd_kernel`` behind
+  ``_fused_bwd``): it recomputes the forward and takes ``g_out`` to
+  ``(d_wb, dx)``.
+
+Rounding points, shared by all three:
 
 * omega_0 is folded into every sine-fed weight matrix (all but the last
-  layer) at the compute dtype before the kernel (:func:`_prescale`);
+  layer) at the compute dtype before the kernel (:func:`_prescale`), and
+  the sine-fed weight grads are multiplied back by omega_0 in f32
+  (:func:`_unscale_grads`);
 * every product is summed in f32 and every bias added in f32; activations
   are rounded to the compute dtype before each matmul;
 * resblock and shortcut sums are taken in f32;
 * the sine is the degree-7 polynomial of :func:`fast_sin` for bf16 compute
-  (degree 9 under ``NIF_SIN_DEGREE=9``) and exact for f32 compute;
-* the output is cast to x's dtype.
+  (degree 9 under ``NIF_SIN_DEGREE=9``) and exact for f32 compute; the
+  backward uses the exact derivative of the function the forward computes
+  (:func:`fast_sin_grad` for the polynomial), saved by the forward at the
+  compute dtype;
+* the backward carries ``du`` in f32 and rounds each ``dz = du * act'`` to
+  the compute dtype before its weight product and bias sum.
 
-On a CUDA tensor it launches the hand-written kernel in
-``nif_tpu_torch/csrc/shapenet_fwd.cu`` (:func:`shapenet_fwd_cuda`), or raises.
-On a CPU tensor it runs :func:`shapenet_grouped_fused_reference`, the plain
-PyTorch version of the same function, which the CPU tests hold against the
-JAX package's interpret-mode kernel and ``chip_smoke.py`` holds the CUDA
-kernel against. A config the kernel cannot take goes to the eager
-:func:`~nif_tpu_torch.ops.shapenet.shapenet_grouped`, as in the JAX package.
+On a CUDA tensor each entry launches its hand-written kernel
+(``nif_tpu_torch/csrc/shapenet_fwd.cu`` for K1, ``shapenet_bwd.cu`` for K2
+and K3), or raises. On a CPU tensor it runs the plain PyTorch version of the
+same function (``*_reference``), which the CPU tests hold against the JAX
+package's interpret-mode kernels and ``chip_smoke.py`` holds the CUDA
+kernels against. A config the kernels cannot take goes to the eager
+:func:`~nif_tpu_torch.ops.shapenet.shapenet_grouped` (and autograd), as in
+the JAX package.
 """
 from __future__ import annotations
 
@@ -41,10 +56,19 @@ __all__ = [
     "shapenet_grouped_fused",
     "shapenet_grouped_fused_reference",
     "shapenet_fwd_cuda",
+    "shapenet_mse_grads",
+    "shapenet_mse_grads_reference",
+    "shapenet_mse_grads_cuda",
+    "shapenet_fused_bwd_reference",
+    "shapenet_bwd_cuda",
+    "backward_chain_reference",
     "fused_supported",
     "fused_unsupported_reason",
     "fast_sin",
+    "fast_sin_grad",
+    "fast_sin_and_grad",
     "kernel_geometry",
+    "train_geometry",
 ]
 
 # sin(2*pi*t) ~ t*(c1 + c3 t^2 + c5 t^4 + c7 t^6 [+ c9 t^8]), t in [-0.5, 0.5]
@@ -57,18 +81,47 @@ def _sin_degree() -> int:
     return 9 if os.environ.get("NIF_SIN_DEGREE") == "9" else 7
 
 
-def fast_sin(y: torch.Tensor) -> torch.Tensor:
-    """The bf16 kernels' sine: range-reduce to t = y/2pi - round(y/2pi)
-    (half to even), then an odd minimax polynomial in t. Degree 7 (max error
-    2.5e-4) by default, degree 9 (1.7e-5) under ``NIF_SIN_DEGREE=9``."""
+def _reduce(y: torch.Tensor) -> torch.Tensor:
+    """t = y/2pi - round(y/2pi), rounding half to even, in [-0.5, 0.5]."""
     t = y * _INV2PI
-    t = t - torch.round(t)
+    return t - torch.round(t)
+
+
+def _sin_poly(t: torch.Tensor) -> torch.Tensor:
     s = t * t
     if _sin_degree() == 7:
         c1, c3, c5, c7 = _SIN_C7
         return t * (c1 + s * (c3 + s * (c5 + s * c7)))
     c1, c3, c5, c7, c9 = _SIN_C
     return t * (c1 + s * (c3 + s * (c5 + s * (c7 + s * c9))))
+
+
+def _dsin_poly(t: torch.Tensor) -> torch.Tensor:
+    """d/dt of :func:`_sin_poly` (the caller multiplies by dt/dy = 1/2pi)."""
+    s = t * t
+    if _sin_degree() == 7:
+        c1, c3, c5, c7 = _SIN_C7
+        return c1 + s * (3 * c3 + s * (5 * c5 + s * (7 * c7)))
+    c1, c3, c5, c7, c9 = _SIN_C
+    return c1 + s * (3 * c3 + s * (5 * c5 + s * (7 * c7 + s * (9 * c9))))
+
+
+def fast_sin(y: torch.Tensor) -> torch.Tensor:
+    """The bf16 kernels' sine: range-reduce to t = y/2pi - round(y/2pi)
+    (half to even), then an odd minimax polynomial in t. Degree 7 (max error
+    2.5e-4) by default, degree 9 (1.7e-5) under ``NIF_SIN_DEGREE=9``."""
+    return _sin_poly(_reduce(y))
+
+
+def fast_sin_grad(y: torch.Tensor) -> torch.Tensor:
+    """d/dy of :func:`fast_sin`: the exact derivative of the polynomial."""
+    return _dsin_poly(_reduce(y)) * _INV2PI
+
+
+def fast_sin_and_grad(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(fast_sin(y), fast_sin_grad(y)) from one range reduction."""
+    t = _reduce(y)
+    return _sin_poly(t), _dsin_poly(t) * _INV2PI
 
 
 # Vanilla-chain activations the kernel implements (the JAX kernel's
@@ -83,7 +136,31 @@ _VANILLA_ACTS = {
     "linear": lambda z: z,
 }
 
-# Codes shared with csrc/shapenet_fwd.cu (enum Act, enum Chain).
+
+def _d_swish(z):
+    s = torch.sigmoid(z)
+    return s * (1.0 + z * (1.0 - s))
+
+
+def _d_sigmoid(z):
+    s = torch.sigmoid(z)
+    return s * (1.0 - s)
+
+
+# Their derivatives, as functions of the pre-activation (the JAX kernel's
+# _act_pair derivative column).
+_VANILLA_DERIVS = {
+    "sine": torch.cos,
+    "tanh": lambda z: 1.0 - torch.square(torch.tanh(z)),
+    "relu": lambda z: (z > 0.0).to(z.dtype),
+    "swish": _d_swish,
+    "silu": _d_swish,
+    "sigmoid": _d_sigmoid,
+    "linear": torch.ones_like,
+}
+
+# Codes shared with csrc/shapenet_fwd.cu and csrc/shapenet_bwd.cu (enum
+# Act, enum Chain).
 _ACT_CODES = {"poly7": 0, "poly9": 1, "sine": 2, "tanh": 3, "relu": 4,
               "swish": 5, "silu": 5, "sigmoid": 6, "linear": 7}
 _CHAIN_CODES = {"siren": 0, "siren_resblock": 1, "vanilla": 2}
@@ -149,7 +226,7 @@ def _prescale(wb: torch.Tensor, cfg: ShapeNetConfig, variant: str) -> torch.Tens
     in the flat order, so this scales one leading slice of each row."""
     if variant != "siren":
         return wb
-    k = cfg.input_dim * cfg.units + _n_mats(cfg) * cfg.units ** 2
+    k = _n_scaled(cfg, variant)
     return torch.cat([wb[..., :k] * omega_in(wb.dtype, cfg.omega_0), wb[..., k:]], dim=-1)
 
 
@@ -165,6 +242,190 @@ def _act_code(cfg: ShapeNetConfig, variant: str, cdt: torch.dtype) -> int:
             return _ACT_CODES["poly9" if _sin_degree() == 9 else "poly7"]
         return _ACT_CODES["sine"]
     return _ACT_CODES[cfg.activation]
+
+
+def _train_act_code(cfg: ShapeNetConfig, variant: str, cdt: torch.dtype) -> int:
+    """The activation of the residual-saving forward (K2, K3). As in the
+    JAX package's ``_act_with_grad``, a bf16 sine is the polynomial in
+    the vanilla chain too (its K1 forward takes the exact sine there)."""
+    if variant == "siren" or cfg.activation == "sine":
+        return _act_code(cfg, "siren", cdt)
+    return _ACT_CODES[cfg.activation]
+
+
+def _act_with_grad(cfg: ShapeNetConfig, variant: str,
+                   cdt: torch.dtype) -> Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]:
+    """z -> (act(z), act'(z)) of the residual-saving forward, on f32 z."""
+    if variant == "siren" or cfg.activation == "sine":
+        if cdt == torch.bfloat16:
+            return fast_sin_and_grad
+        return lambda z: (torch.sin(z), torch.cos(z))
+    act, dact = _VANILLA_ACTS[cfg.activation], _VANILLA_DERIVS[cfg.activation]
+    return lambda z: (act(z), dact(z))
+
+
+def _n_scaled(cfg: ShapeNetConfig, variant: str) -> int:
+    """How many leading entries of wb :func:`_prescale` scales (the weight
+    matrices of every sine-fed layer; 0 for the vanilla chain)."""
+    if variant != "siren":
+        return 0
+    return cfg.input_dim * cfg.units + _n_mats(cfg) * cfg.units ** 2
+
+
+def _unscale_grads(d_flat: torch.Tensor, cfg: ShapeNetConfig, variant: str) -> torch.Tensor:
+    """Chain rule back to the unscaled weights, dL/dW = omega_0 * dL/dW',
+    on a flat f32 gradient in wb's layout (multiplied in f32 by omega_0)."""
+    k = _n_scaled(cfg, variant)
+    if k == 0:
+        return d_flat
+    return torch.cat([d_flat[..., :k] * cfg.omega_0, d_flat[..., k:]], dim=-1)
+
+
+def _flat_grads(dws, dbs, G: int) -> torch.Tensor:
+    """Per-layer weight and bias grads -> ``[G, po]`` in wb's flat order."""
+    return torch.cat([d.reshape(G, -1) for d in dws] + [d.reshape(G, -1) for d in dbs], dim=-1)
+
+
+def _chain_lists(parts):
+    """The unpack dict as per-layer (weights, biases) lists in chain order."""
+    return ([parts["w_first"], *parts["w_hidden"], parts["w_last"]],
+            [parts["b_first"], *parts["b_hidden"], parts["b_last"]])
+
+
+def _forward_saved(wbp: torch.Tensor, x: torch.Tensor, cfg: ShapeNetConfig, variant: str):
+    """The residual-saving forward (``_forward_layers(save=True)``) on
+    prescaled weights: ``(out f32 [G, P, so], ins, dacts, ws)``. ``ins`` are
+    the layer inputs at the compute dtype (x first, the last layer's input
+    last); ``dacts`` the activation derivatives at the compute dtype, one per
+    activated layer; ``ws`` the weight matrices in chain order."""
+    cdt = x.dtype
+    acc = torch.promote_types(cdt, torch.float32)
+    ws, bs = _chain_lists(unpack_shapenet_weights(wbp, cfg))
+    pair = _act_with_grad(cfg, variant, cdt)
+    ins, dacts = [], []
+
+    def layer(u, i):
+        u_c = u.to(cdt)
+        z = torch.matmul(u_c.to(acc), ws[i].to(acc)) + bs[i].to(acc).unsqueeze(-2)
+        ins.append(u_c)
+        a, d = pair(z)
+        dacts.append(d.to(cdt))
+        return a
+
+    u = layer(x, 0)
+    if variant == "siren" and cfg.use_resblock:
+        for i in range(cfg.nlayers):
+            h = layer(u, 1 + 2 * i)
+            u = 0.5 * (u + layer(h, 2 + 2 * i))
+    elif variant == "siren":
+        for i in range(cfg.nlayers):
+            u = layer(u, 1 + i)
+    elif variant == "vanilla":
+        for i in range(cfg.nlayers):
+            u = layer(u, 1 + i) + u
+    else:
+        raise ValueError(f"unknown shapenet variant {variant!r}")
+    u_last = u.to(cdt)
+    ins.append(u_last)
+    out = torch.matmul(u_last.to(acc), ws[-1].to(acc)) + bs[-1].to(acc).unsqueeze(-2)
+    return out, ins, dacts, ws
+
+
+def backward_chain_reference(go: torch.Tensor, ws, ins, dacts, cfg: ShapeNetConfig,
+                             variant: str, need_dx: bool = True):
+    """The plain backward of the chain (``_backward_chain``), with its
+    rounding points rather than autograd's: from ``go = dL/dout`` (f32,
+    ``[G, P, so]``) and the saved residuals to ``(dws, dbs, dx)``, each
+    summed over P in f32 (``dx`` is None unless ``need_dx``)."""
+    cdt = ins[-1].dtype
+    acc = torch.promote_types(cdt, torch.float32)
+
+    def lift(a):
+        return a.to(cdt).to(acc)
+
+    def d32(k):
+        return dacts[k].to(acc)
+
+    def w_grad(a, dz_c):  # a^T @ dz over the points: [G, K, n]
+        return torch.matmul(a.to(acc).transpose(-1, -2), dz_c)
+
+    def back(dz_c, w):  # dz @ w^T: [G, P, K]
+        return torch.matmul(dz_c, w.to(acc).transpose(-1, -2))
+
+    n_w = len(ws)
+    dws, dbs = [None] * n_w, [None] * n_w
+    go_c = lift(go)
+    dws[-1] = w_grad(ins[-1], go_c)
+    dbs[-1] = go_c.sum(dim=-2)
+    if ws[-1].shape[-1] == 1:
+        # so == 1: a broadcast product with the last weight column, on the
+        # f32 go (not a matmul of the lifted go)
+        du = go.to(acc) * ws[-1][..., 0].to(acc).unsqueeze(-2)
+    else:
+        du = back(go_c, ws[-1])
+
+    l = cfg.nlayers
+    if variant == "siren" and cfg.use_resblock:
+        for i in range(l - 1, -1, -1):
+            dz2_c = lift(0.5 * du * d32(2 + 2 * i))
+            dws[2 + 2 * i] = w_grad(ins[2 + 2 * i], dz2_c)
+            dbs[2 + 2 * i] = dz2_c.sum(dim=-2)
+            dh = back(dz2_c, ws[2 + 2 * i])
+            dz1_c = lift(dh * d32(1 + 2 * i))
+            dws[1 + 2 * i] = w_grad(ins[1 + 2 * i], dz1_c)
+            dbs[1 + 2 * i] = dz1_c.sum(dim=-2)
+            du = 0.5 * du + back(dz1_c, ws[1 + 2 * i])
+    else:
+        for i in range(l - 1, -1, -1):
+            dz_c = lift(du * d32(1 + i))
+            dws[1 + i] = w_grad(ins[1 + i], dz_c)
+            dbs[1 + i] = dz_c.sum(dim=-2)
+            back_i = back(dz_c, ws[1 + i])
+            # the vanilla shortcut adds the gradient straight through
+            du = du + back_i if variant == "vanilla" else back_i
+
+    dz0_c = lift(du * d32(0))
+    dws[0] = w_grad(ins[0], dz0_c)
+    dbs[0] = dz0_c.sum(dim=-2)
+    dx = back(dz0_c, ws[0]) if need_dx else None
+    return dws, dbs, dx
+
+
+def shapenet_mse_grads_reference(wb: torch.Tensor, x: torch.Tensor, target: torch.Tensor,
+                                 cfg: ShapeNetConfig, variant: str = "siren",
+                                 weight: Optional[torch.Tensor] = None):
+    """The plain PyTorch version of K2: ``(loss, d_wb)`` of
+    ``mean(weight * (shapenet(wb, x) - target)^2)`` over the G*P*so
+    outputs, with K2's rounding points. The target and the weight are cast
+    to x's dtype; the error is taken against the f32 output; the loss is f32
+    and ``d_wb`` is in wb's dtype."""
+    G, P, _ = x.shape
+    acc = torch.promote_types(x.dtype, torch.float32)
+    out, ins, dacts, ws = _forward_saved(_prescale(wb, cfg, variant), x, cfg, variant)
+    err = out - target.to(x.dtype).to(acc)
+    if weight is None:
+        loss = torch.sum(torch.square(err))
+        go = 2.0 * err
+    else:
+        w = weight.to(x.dtype).to(acc).unsqueeze(-1)
+        loss = torch.sum(torch.square(err) * w)
+        go = 2.0 * err * w
+    dws, dbs, _ = backward_chain_reference(go, ws, ins, dacts, cfg, variant, need_dx=False)
+    n_elem = G * P * cfg.output_dim
+    d_wb = _unscale_grads(_flat_grads(dws, dbs, G), cfg, variant) / n_elem
+    return loss / n_elem, d_wb.to(wb.dtype)
+
+
+def shapenet_fused_bwd_reference(wb: torch.Tensor, x: torch.Tensor, g_out: torch.Tensor,
+                                 cfg: ShapeNetConfig, variant: str = "siren"):
+    """The plain PyTorch version of K3: recompute the forward with its
+    residuals, then take ``g_out [G, P, so]`` to ``(d_wb, dx)`` in wb's and
+    x's dtypes. ``dx`` goes through the prescaled first matrix."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    _, ins, dacts, ws = _forward_saved(_prescale(wb, cfg, variant), x, cfg, variant)
+    dws, dbs, dx = backward_chain_reference(g_out.to(acc), ws, ins, dacts, cfg, variant)
+    d_wb = _unscale_grads(_flat_grads(dws, dbs, x.shape[0]), cfg, variant)
+    return d_wb.to(wb.dtype), dx.to(x.dtype)
 
 
 def shapenet_grouped_fused_reference(wb: torch.Tensor, x: torch.Tensor,
@@ -216,68 +477,265 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def shapenet_fwd_cuda(wb: torch.Tensor, x: torch.Tensor, cfg: ShapeNetConfig,
-                      variant: str = "siren") -> torch.Tensor:
-    """Launch the CUDA kernel on ``torch.cuda.current_stream()``.
+def _bwd_library() -> ctypes.CDLL:
+    lib = _build.load_library("shapenet_bwd")
+    if lib.nif_shapenet_mse_grads.argtypes is None:
+        c_int, ptr, c_ll = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
+        shape = [c_int] * 8 + [c_ll, c_ll, ctypes.c_float, c_int, ptr]
+        lib.nif_shapenet_mse_grads.argtypes = [ptr] * 8 + shape
+        lib.nif_shapenet_mse_grads.restype = c_int
+        lib.nif_shapenet_bwd.argtypes = [ptr] * 7 + shape
+        lib.nif_shapenet_bwd.restype = c_int
+        lib.nif_shapenet_bwd_workspace.argtypes = [c_int] * 7 + [ptr] * 5
+        lib.nif_shapenet_bwd_workspace.restype = c_int
+        lib.nif_cuda_error_string.argtypes = [c_int]
+        lib.nif_cuda_error_string.restype = ctypes.c_char_p
+    return lib
 
-    Raises on anything the kernel does not take: a tensor not on CUDA, a
-    dtype other than float32/bfloat16 (wb and x must share it), a shape that
-    does not match ``cfg``, an unsupported config, or an input that requires
-    grad (the fused backward is not ported yet). A build or launch failure
-    raises too; nothing here falls back to another path."""
+
+def train_geometry(cfg: ShapeNetConfig, G: int, P: int, dtype: torch.dtype) -> dict:
+    """The launch geometry K2 and K3 take for ``[G, P]`` at this width and
+    dtype, from the kernels' library (it needs nvcc): points per tile, P
+    splits per group, shared memory per block, whether the residuals of a
+    tile sit in shared memory or in a per-block global scratch, and the
+    workspace sizes the wrappers allocate."""
+    tile, splits = ctypes.c_int(), ctypes.c_int()
+    smem, partial_floats, scratch = ctypes.c_longlong(), ctypes.c_longlong(), ctypes.c_longlong()
+    status = _bwd_library().nif_shapenet_bwd_workspace(
+        cfg.units, cfg.input_dim, cfg.output_dim, _n_mats(cfg), G, P, _DTYPE_CODES[dtype],
+        ctypes.byref(tile), ctypes.byref(splits), ctypes.byref(smem),
+        ctypes.byref(partial_floats), ctypes.byref(scratch))
+    if status != 0:
+        raise ValueError(f"the CUDA train kernels cannot take {cfg} at G={G}, P={P} "
+                         f"(geometry status {status})")
+    return {"tile": tile.value, "splits": splits.value, "smem_bytes": smem.value,
+            "residuals": "global" if scratch.value else "shared",
+            "partial_floats": partial_floats.value, "scratch_bytes": scratch.value}
+
+
+def _check_cuda_inputs(name: str, wb: torch.Tensor, x: torch.Tensor, cfg: ShapeNetConfig,
+                       variant: str) -> None:
+    """What every CUDA wrapper refuses: tensors off CUDA, a dtype other than
+    float32/bfloat16 (wb and x must share it), shapes that do not match
+    ``cfg``, or a config the kernels cannot take."""
     if variant not in ("siren", "vanilla"):
         raise ValueError(f"unknown shapenet variant {variant!r}")
     if not (x.is_cuda and wb.is_cuda and wb.device == x.device):
-        raise ValueError(f"shapenet_fwd_cuda needs wb and x on one CUDA device, "
+        raise ValueError(f"{name} needs wb and x on one CUDA device, "
                          f"got {wb.device} and {x.device}")
     if x.dtype not in _DTYPE_CODES or wb.dtype != x.dtype:
-        raise TypeError(f"shapenet_fwd_cuda takes float32 or bfloat16 wb and x of "
+        raise TypeError(f"{name} takes float32 or bfloat16 wb and x of "
                         f"one dtype, got {wb.dtype} and {x.dtype}")
     if wb.requires_grad or x.requires_grad:
-        raise RuntimeError("shapenet_fwd_cuda has no backward yet: call it under "
-                           "torch.no_grad() or torch.inference_mode()")
+        raise RuntimeError(f"{name} has no backward of its own: call it on detached "
+                           f"tensors, or differentiate through shapenet_grouped_fused")
     if x.dim() != 3 or wb.dim() != 2 or wb.shape[0] != x.shape[0]:
         raise ValueError(f"expected wb [G, po] and x [G, P, si], got "
                          f"{tuple(wb.shape)} and {tuple(x.shape)}")
-    G, P, si = x.shape
-    po = wb.shape[1]
-    reason = fused_unsupported_reason(cfg, variant, P, x.device)
+    reason = fused_unsupported_reason(cfg, variant, x.shape[1], x.device)
     if reason is not None:
-        raise ValueError(f"shapenet_fwd_cuda cannot take this config: {reason}")
-    if si != cfg.input_dim or po != shapenet_param_count(cfg, 0):
+        raise ValueError(f"{name} cannot take this config: {reason}")
+    if x.shape[2] != cfg.input_dim or wb.shape[1] != shapenet_param_count(cfg, 0):
         raise ValueError(f"wb {tuple(wb.shape)} / x {tuple(x.shape)} do not match {cfg}")
+
+
+def _chain_code(cfg: ShapeNetConfig, variant: str) -> int:
+    if variant == "siren":
+        return _CHAIN_CODES["siren_resblock" if cfg.use_resblock else "siren"]
+    return _CHAIN_CODES["vanilla"]
+
+
+def _raise_on_error(lib: ctypes.CDLL, name: str, err: int) -> None:
+    if err != 0:
+        msg = lib.nif_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} ({msg})")
+
+
+def shapenet_fwd_cuda(wb: torch.Tensor, x: torch.Tensor, cfg: ShapeNetConfig,
+                      variant: str = "siren") -> torch.Tensor:
+    """Launch K1 on ``torch.cuda.current_stream()``.
+
+    Raises on anything the kernel does not take (:func:`_check_cuda_inputs`),
+    including an input that requires grad: :func:`shapenet_grouped_fused`
+    is the differentiable entry. A build or launch failure raises too;
+    nothing here falls back to another path."""
+    _check_cuda_inputs("shapenet_fwd_cuda", wb, x, cfg, variant)
+    G, P, si = x.shape
     out = torch.empty((G, P, cfg.output_dim), dtype=x.dtype, device=x.device)
     if G == 0 or P == 0:
         return out
     wbp = _prescale(wb, cfg, variant).contiguous()
     x = x.contiguous()
-    chain = ("siren_resblock" if cfg.use_resblock else "siren") if variant == "siren" else "vanilla"
-    n_steps = cfg.nlayers * (2 if chain == "siren_resblock" else 1)
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.nif_shapenet_fwd(
             wbp.data_ptr(), x.data_ptr(), out.data_ptr(), G, P, si, cfg.output_dim,
-            cfg.units, _n_mats(cfg), n_steps, _CHAIN_CODES[chain],
-            _act_code(cfg, variant, x.dtype), po, _DTYPE_CODES[x.dtype], stream,
+            cfg.units, _n_mats(cfg), _n_mats(cfg), _chain_code(cfg, variant),
+            _act_code(cfg, variant, x.dtype), wb.shape[1], _DTYPE_CODES[x.dtype], stream,
         )
-    if err != 0:
-        msg = lib.nif_cuda_error_string(err).decode()
-        raise RuntimeError(f"shapenet_fwd kernel launch failed: CUDA error {err} ({msg})")
+    _raise_on_error(lib, "shapenet_fwd", err)
     _build.LAUNCHES["shapenet_fwd"] += 1
     return out
+
+
+def _workspace(cfg: ShapeNetConfig, x: torch.Tensor):
+    """The f32 partials (weight grads and loss per group and P split) and
+    the residual scratch K2/K3 need, allocated on x's device."""
+    geo = train_geometry(cfg, x.shape[0], x.shape[1], x.dtype)
+    partials = torch.empty(geo["partial_floats"], dtype=torch.float32, device=x.device)
+    scratch = torch.empty(max(geo["scratch_bytes"], 1), dtype=torch.uint8, device=x.device)
+    return partials, scratch
+
+
+def _shape_args(cfg: ShapeNetConfig, variant: str, x: torch.Tensor, po: int):
+    G, P, si = x.shape
+    return (G, P, si, cfg.output_dim, cfg.units, _n_mats(cfg), _chain_code(cfg, variant),
+            _train_act_code(cfg, variant, x.dtype), po, _n_scaled(cfg, variant),
+            float(cfg.omega_0) if variant == "siren" else 1.0, _DTYPE_CODES[x.dtype])
+
+
+def shapenet_mse_grads_cuda(wb: torch.Tensor, x: torch.Tensor, target: torch.Tensor,
+                            cfg: ShapeNetConfig, variant: str = "siren",
+                            weight: Optional[torch.Tensor] = None):
+    """Launch K2 on ``torch.cuda.current_stream()``: ``(loss, d_wb)`` as
+    :func:`shapenet_mse_grads_reference` computes them. ``target`` must be
+    ``[G, P, so]`` and ``weight`` (optional) ``[G, P]``; both are cast to x's
+    dtype. Raises on anything the kernel does not take; never falls back."""
+    _check_cuda_inputs("shapenet_mse_grads_cuda", wb, x, cfg, variant)
+    G, P, _ = x.shape
+    if tuple(target.shape) != (G, P, cfg.output_dim) or target.device != x.device:
+        raise ValueError(f"target {tuple(target.shape)} on {target.device} is not "
+                         f"[G, P, so] = {(G, P, cfg.output_dim)} on {x.device}")
+    if weight is not None and (tuple(weight.shape) != (G, P) or weight.device != x.device):
+        raise ValueError(f"weight {tuple(weight.shape)} on {weight.device} is not "
+                         f"[G, P] = {(G, P)} on {x.device}")
+    d_wb = torch.empty_like(wb, memory_format=torch.contiguous_format)
+    loss = torch.empty((), dtype=torch.float32, device=x.device)
+    if G == 0 or P == 0:
+        return loss.fill_(float("nan")), d_wb.zero_()
+    wbp = _prescale(wb, cfg, variant).contiguous()
+    x = x.contiguous()
+    target = target.to(x.dtype).contiguous()
+    weight = None if weight is None else weight.to(x.dtype).contiguous()
+    partials, scratch = _workspace(cfg, x)
+    lib = _bwd_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.nif_shapenet_mse_grads(
+            wbp.data_ptr(), x.data_ptr(), target.data_ptr(),
+            None if weight is None else weight.data_ptr(), loss.data_ptr(), d_wb.data_ptr(),
+            partials.data_ptr(), scratch.data_ptr(), *_shape_args(cfg, variant, x, wb.shape[1]),
+            stream,
+        )
+    _raise_on_error(lib, "shapenet_mse_grads", err)
+    _build.LAUNCHES["shapenet_mse_grads"] += 1
+    return loss, d_wb
+
+
+def shapenet_bwd_cuda(wb: torch.Tensor, x: torch.Tensor, g_out: torch.Tensor,
+                      cfg: ShapeNetConfig, variant: str = "siren"):
+    """Launch K3 on ``torch.cuda.current_stream()``: ``(d_wb, dx)`` as
+    :func:`shapenet_fused_bwd_reference` computes them, from ``g_out
+    [G, P, so]`` (cast to x's dtype). Raises on anything the kernel does not
+    take; never falls back."""
+    _check_cuda_inputs("shapenet_bwd_cuda", wb, x, cfg, variant)
+    G, P, _ = x.shape
+    if tuple(g_out.shape) != (G, P, cfg.output_dim) or g_out.device != x.device:
+        raise ValueError(f"g_out {tuple(g_out.shape)} on {g_out.device} is not "
+                         f"[G, P, so] = {(G, P, cfg.output_dim)} on {x.device}")
+    d_wb = torch.empty_like(wb, memory_format=torch.contiguous_format)
+    dx = torch.empty_like(x, memory_format=torch.contiguous_format)
+    if G == 0 or P == 0:
+        return d_wb.zero_(), dx
+    wbp = _prescale(wb, cfg, variant).contiguous()
+    x = x.contiguous()
+    g_out = g_out.to(x.dtype).contiguous()
+    partials, scratch = _workspace(cfg, x)
+    lib = _bwd_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.nif_shapenet_bwd(
+            wbp.data_ptr(), x.data_ptr(), g_out.data_ptr(), d_wb.data_ptr(), dx.data_ptr(),
+            partials.data_ptr(), scratch.data_ptr(), *_shape_args(cfg, variant, x, wb.shape[1]),
+            stream,
+        )
+    _raise_on_error(lib, "shapenet_bwd", err)
+    _build.LAUNCHES["shapenet_bwd"] += 1
+    return d_wb, dx
+
+
+def _fused_forward(wb, x, cfg, variant):
+    """K1 with no graph: plain K1 on the CPU, the kernel on CUDA."""
+    if x.device.type == "cpu":
+        return shapenet_grouped_fused_reference(wb, x, cfg, variant)
+    return shapenet_fwd_cuda(wb.detach(), x.detach(), cfg, variant)
+
+
+class _FusedShapeNet(torch.autograd.Function):
+    """K1 forward, K3 backward (plain K1 and plain K3 on the CPU): the
+    counterpart of the JAX package's ``jax.custom_vjp`` around
+    ``shapenet_grouped_fused``. Only wb and x are saved; the backward
+    recomputes the forward with its residuals, as the JAX kernel does."""
+
+    @staticmethod
+    def forward(ctx, wb, x, cfg, variant):
+        ctx.cfg, ctx.variant = cfg, variant
+        ctx.save_for_backward(wb, x)
+        return _fused_forward(wb, x, cfg, variant)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_out):
+        wb, x = (t.detach() for t in ctx.saved_tensors)
+        g_out = g_out.detach()
+        if x.device.type == "cpu":
+            d_wb, dx = shapenet_fused_bwd_reference(wb, x, g_out, ctx.cfg, ctx.variant)
+        else:
+            d_wb, dx = shapenet_bwd_cuda(wb, x, g_out, ctx.cfg, ctx.variant)
+        return (d_wb if ctx.needs_input_grad[0] else None,
+                dx if ctx.needs_input_grad[1] else None, None, None)
 
 
 def shapenet_grouped_fused(wb: torch.Tensor, x: torch.Tensor, cfg: ShapeNetConfig,
                            variant: str = "siren") -> torch.Tensor:
     """Fused replacement for :func:`shapenet_grouped`: ``wb [G, po]``,
-    ``x [G, P, si]`` -> ``[G, P, so]``.
+    ``x [G, P, si]`` -> ``[G, P, so]``, differentiable in wb and x.
 
     A config the kernel cannot take (:func:`fused_unsupported_reason`) runs
     the eager path, as the JAX package's does. Otherwise a CUDA tensor
-    launches the kernel and a CPU tensor runs the plain version."""
+    launches K1 (and K3 in the backward) and a CPU tensor runs the plain
+    versions."""
     if not fused_supported(cfg, variant, x.shape[1], x.device):
         return shapenet_grouped(wb, x, cfg, variant)
+    if torch.is_grad_enabled() and (wb.requires_grad or x.requires_grad):
+        return _FusedShapeNet.apply(wb, x, cfg, variant)
+    return _fused_forward(wb, x, cfg, variant)
+
+
+def shapenet_mse_grads(wb: torch.Tensor, x: torch.Tensor, target: torch.Tensor,
+                       cfg: ShapeNetConfig, variant: str = "siren",
+                       weight: Optional[torch.Tensor] = None):
+    """Fused train-step core: ``(loss, d_wb)`` of the weighted MSE
+    ``mean(weight * (shapenet(wb, x) - target)^2)`` over the grouped layout
+    (``wb [G, po]``, ``x [G, P, si]``, ``target [G, P, so]``, ``weight
+    [G, P]`` optional). Not differentiable itself: the caller sends ``d_wb``
+    on through the ParameterNet.
+
+    A config the kernel cannot take runs eager autograd over
+    :func:`shapenet_grouped`, as the JAX package's does; otherwise a CUDA
+    tensor launches K2 and a CPU tensor runs the plain K2."""
+    wb, x = wb.detach(), x.detach()
+    if not fused_supported(cfg, variant, x.shape[1], x.device):
+        with torch.enable_grad():
+            wb_ = wb.requires_grad_()
+            pred = shapenet_grouped(wb_, x, cfg, variant)
+            err = torch.square(pred - target.to(pred.dtype))
+            if weight is not None:
+                err = err * weight.unsqueeze(-1).to(pred.dtype)
+            loss = torch.mean(err)
+            (d_wb,) = torch.autograd.grad(loss, wb_)
+        return loss.detach(), d_wb
     if x.device.type == "cpu":
-        return shapenet_grouped_fused_reference(wb, x, cfg, variant)
-    return shapenet_fwd_cuda(wb, x, cfg, variant)
+        return shapenet_mse_grads_reference(wb, x, target, cfg, variant, weight)
+    return shapenet_mse_grads_cuda(wb, x, target, cfg, variant, weight)

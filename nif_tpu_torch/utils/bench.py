@@ -1,5 +1,6 @@
-"""The flagship serving model and a device timer, shared by the scripts that
-drive the port on a card (``chip_smoke.py``, ``scripts/port_serving_profile.py``).
+"""The flagship model, its train step and a device timer, shared by the
+scripts that drive the port on a card (``chip_smoke.py``,
+``scripts/port_serving_profile.py``, ``scripts/port_train_profile.py``).
 
 The flagship is the JAX package's ``bench.py`` model: NIFMultiScale with a
 SIREN ShapeNet 3 -> 1 of width 128 and two hidden layers (omega_0 = 30) and
@@ -10,9 +11,11 @@ from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 
-__all__ = ["FLAGSHIP_SHAPE", "FLAGSHIP_PNET", "FLAGSHIP_POLICY", "cuda_ms"]
+__all__ = ["FLAGSHIP_SHAPE", "FLAGSHIP_PNET", "FLAGSHIP_POLICY", "FLAGSHIP_TRAIN_LR",
+           "cuda_ms", "flagship_train_step"]
 
 FLAGSHIP_SHAPE = {"input_dim": 3, "output_dim": 1, "units": 128, "nlayers": 2,
                   "activation": "sine", "use_resblock": False, "omega_0": 30.0,
@@ -20,6 +23,28 @@ FLAGSHIP_SHAPE = {"input_dim": 3, "output_dim": 1, "units": 128, "nlayers": 2,
 FLAGSHIP_PNET = {"input_dim": 4, "latent_dim": 128, "units": 128, "nlayers": 2,
                  "activation": "swish", "use_resblock": False, "omega_0": 30.0}
 FLAGSHIP_POLICY = "mixed_bfloat16"
+FLAGSHIP_TRAIN_LR = 1e-4
+
+
+def flagship_train_step(G: int = 32, P: int = 32768, device="cuda", seed: int = 0):
+    """The JAX bench's train step (``bench.py:131-150``): the flagship model
+    with random weights from ``seed`` under a ``GroupedTrainer`` with Adam
+    (lr 1e-4), and the bench's random batch, ``t [G, 4]``, ``x [G, P, 3]``,
+    ``u [G, P, 1]`` from ``np.random.default_rng(0)``, as float32 tensors on
+    ``device``. Returns ``(trainer, state, (t, x, u))``; one step is
+    ``trainer.step(state, t, x, u)``."""
+    from ..models import NIFMultiScale
+    from ..training import GroupedTrainer
+
+    model = NIFMultiScale(FLAGSHIP_SHAPE, FLAGSHIP_PNET, FLAGSHIP_POLICY, device=device,
+                          seed=seed)
+    trainer = GroupedTrainer(model, lambda p: torch.optim.Adam(p, lr=FLAGSHIP_TRAIN_LR))
+    state = trainer.init(seed)
+    rng = np.random.default_rng(0)
+    batch = (rng.standard_normal((G, 4)), rng.standard_normal((G, P, 3)),
+             rng.standard_normal((G, P, 1)))
+    return trainer, state, tuple(torch.from_numpy(a.astype(np.float32)).to(device)
+                                 for a in batch)
 
 
 def cuda_ms(fn: Callable[[], object], reps: int = 20, warmup: int = 3) -> float:

@@ -72,9 +72,11 @@ def main() -> int:
             b.record()
             torch.cuda.synchronize()
     window_us = a.elapsed_time(b) * 1e3
-    # device-side entries only: a CPU op's self device time repeats its kernels'
+    # device-side kernels only: a CPU op's self device time repeats its
+    # kernels', and a user annotation (e.g. the optimizer's step range) spans them
     events = [e for e in prof.key_averages()
-              if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
+              if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0
+              and not getattr(e, "is_user_annotation", False)]
     busy_us = sum(e.self_device_time_total for e in events)
     print(f"profiler window {window_us:.1f} us over 5 calls; device busy "
           f"{busy_us:.1f} us = {busy_us / window_us:.4f} of the window")

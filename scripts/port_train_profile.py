@@ -1,0 +1,107 @@
+#!/usr/bin/env python3
+"""Where the time of one flagship train step goes on a CUDA card (the
+PyTorch/CUDA port, ``nif_tpu_torch``).
+
+    python3 scripts/port_train_profile.py
+
+The flagship NIFMultiScale under ``GroupedTrainer`` with Adam (lr 1e-4), on
+the JAX bench's random batch G=32 x P=32768 (``nif_tpu_torch.utils.bench.
+flagship_train_step``). Each stage of ``GroupedTrainer.step`` is timed alone
+with CUDA events (mean of 10 calls after warm-up): the input casts, the
+ParameterNet forward, K2 (prescale, workspace, kernel and the split
+reduction), the ParameterNet backward of ``d_wb``, the Adam update; then
+the whole step, on the device clock and on the host clock (each step
+synchronized). Last, ``torch.profiler`` sums device time by kernel over 5
+steps and gives the device's busy share of that window. Prints plain text;
+nothing here is compared or asserted.
+"""
+from __future__ import annotations
+
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+from nif_tpu_torch.ops import fused_shapenet as fs  # noqa: E402
+from nif_tpu_torch.utils.bench import cuda_ms, flagship_train_step  # noqa: E402
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("needs a CUDA card", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout.strip()
+    print(f"card: {smi}; torch {torch.__version__}")
+    G, P = 32, 32768
+    trainer, state, (t, x, u) = flagship_train_step(G, P)
+    model = trainer.model
+    cfg = model.cfg_shape_net
+    params = [p for _, p in model.param_items()]
+    opt = state.opt_state
+
+    tc, xc = model._compute(t), model._compute(x)
+    wb, _ = model.pnet(tc)
+    loss, d_wb = fs.shapenet_mse_grads(wb, xc, u, cfg, "siren")
+    grads = torch.autograd.grad(wb, params, d_wb, retain_graph=True)
+
+    def adam():
+        for p, g in zip(params, grads):
+            p.grad = g
+        opt.step()
+
+    box = [state]
+
+    def step():
+        box[0], _ = trainer.step(box[0], t, x, u)
+
+    stages = {
+        "cast t, x to bf16": lambda: (model._compute(t), model._compute(x)),
+        "ParameterNet forward (t -> wb)": lambda: model.pnet(tc),
+        "K2 wrapper (prescale + kernel + reduce)": lambda: fs.shapenet_mse_grads(
+            wb, xc, u, cfg, "siren"),
+        "ParameterNet backward (d_wb -> grads)": lambda: torch.autograd.grad(
+            wb, params, d_wb, retain_graph=True),
+        "Adam update": adam,
+        "GroupedTrainer.step (whole)": step,
+    }
+    for name, fn in stages.items():
+        print(f"{name:42s} {cuda_ms(fn, reps=10):9.4f} ms")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        step()
+        torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / 10 * 1e3
+    print(f"{'step, host clock, synchronized each step':42s} {host_ms:9.4f} ms "
+          f"= {G * P / host_ms * 1e3:.4e} train points/s")
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with torch.profiler.profile(activities=acts) as prof:
+        a.record()
+        for _ in range(5):
+            step()
+        b.record()
+        torch.cuda.synchronize()
+    window_us = a.elapsed_time(b) * 1e3
+    # device-side kernels only: a CPU op's self device time repeats its
+    # kernels', and a user annotation (e.g. the optimizer's step range) spans them
+    events = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0
+              and not getattr(e, "is_user_annotation", False)]
+    busy_us = sum(e.self_device_time_total for e in events)
+    print(f"profiler window {window_us:.1f} us over 5 steps; device busy "
+          f"{busy_us:.1f} us = {busy_us / window_us:.4f} of the window")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
+        print(f"  {e.self_device_time_total / 5:10.1f} us/step  {e.count // 5:3d}x  {e.key[:90]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

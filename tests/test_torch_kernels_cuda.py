@@ -7,7 +7,11 @@ where JAX is not installed:
 Inputs are made with numpy from a seed. K1 is held against its plain
 version on the same card: f32 rtol 2e-4 / atol 1e-5 (the JAX kernel tests'
 bound; both sum in f32 in different orders); bf16 max|d| <= 1e-2 * max|plain|
-(an f32 last-bit difference can flip the bf16 rounding of one activation)."""
+(an f32 last-bit difference can flip the bf16 rounding of one activation).
+K2 and K3 against their plain versions: f32 loss rel 1e-5 and gradients
+max|d| <= 5e-6 (K2) / 5e-5 (K3) of max|plain| (the JAX kernel tests'
+bounds); bf16 loss rel 1e-3 and max|d| <= 2^-6 of max|plain| (two bf16
+ulps at the top of the range)."""
 import numpy as np
 import pytest
 import torch
@@ -123,9 +127,175 @@ def test_model_on_the_card_routes_through_k1(card):
     assert _build.LAUNCHES["shapenet_fwd"] == before + 1
     err, scale = _max_diff(out, ref)
     assert out.dtype == torch.float32 and err <= 1e-2 * scale
-    # with gradients needed, auto routing refuses (no K3 yet); fused=False
-    # is the explicit eager autograd path
-    with pytest.raises(RuntimeError, match="K3"):
-        model.apply_grouped(t, x)
+    # with gradients needed, auto routing runs K1 forward and K3 backward;
+    # fused=False is the eager autograd path and launches neither
+    bwd = _build.LAUNCHES["shapenet_bwd"]
+    out = model.apply_grouped(t, x)
+    assert out.requires_grad and _build.LAUNCHES["shapenet_fwd"] == before + 2
+    out.sum().backward()
+    assert _build.LAUNCHES["shapenet_bwd"] == bwd + 1
     out = model.apply_grouped(t, x, fused=False)
-    assert out.requires_grad and _build.LAUNCHES["shapenet_fwd"] == before + 1
+    assert out.requires_grad and _build.LAUNCHES["shapenet_fwd"] == before + 2
+
+
+def _side(cfg, G, P, dtype, seed):
+    rng = np.random.default_rng(seed + 1000)
+    to = lambda a: torch.from_numpy(a.astype(np.float32)).cuda()  # noqa: E731
+    return (to(rng.standard_normal((G, P, cfg.output_dim))), to(rng.uniform(0.5, 1.5, (G, P))),
+            to(rng.standard_normal((G, P, cfg.output_dim)) * 0.1).to(dtype))
+
+
+def _bounds(dtype):
+    """(loss rel, K2 gradient, K3 gradient) bounds, as the docstring says."""
+    return (1e-5, 5e-6, 5e-5) if dtype == torch.float32 else (1e-3, 2.0 ** -6, 2.0 ** -6)
+
+
+@pytest.mark.parametrize("weighted", [False, True], ids=["unweighted", "weighted"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("variant,args", CASES)
+def test_k2_matches_plain(card, variant, args, dtype, weighted):
+    cfg = ShapeNetConfig(*args)
+    wb, x = _data(cfg, 3, 256, dtype, seed=9)
+    tgt, w, _ = _side(cfg, 3, 256, dtype, seed=9)
+    w = w if weighted else None
+    before = _build.LAUNCHES["shapenet_mse_grads"]
+    loss, d_wb = fs.shapenet_mse_grads(wb, x, tgt, cfg, variant, w)
+    assert _build.LAUNCHES["shapenet_mse_grads"] == before + 1
+    l_ref, g_ref = fs.shapenet_mse_grads_reference(wb, x, tgt, cfg, variant, w)
+    l_rel, g_bound, _ = _bounds(dtype)
+    assert loss.dtype == torch.float32 and d_wb.dtype == dtype
+    assert float(loss) == pytest.approx(float(l_ref), rel=l_rel)
+    err, scale = _max_diff(d_wb, g_ref)
+    assert err <= g_bound * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("variant,args", CASES)
+def test_k3_matches_plain(card, variant, args, dtype):
+    cfg = ShapeNetConfig(*args)
+    wb, x = _data(cfg, 3, 256, dtype, seed=10)
+    g = _side(cfg, 3, 256, dtype, seed=10)[2]
+    d_wb, dx = fs.shapenet_bwd_cuda(wb, x, g, cfg, variant)
+    r_wb, r_dx = fs.shapenet_fused_bwd_reference(wb, x, g, cfg, variant)
+    bound = _bounds(dtype)[2]
+    assert d_wb.dtype == dtype and dx.dtype == dtype and dx.shape == x.shape
+    for mine, ref in ((d_wb, r_wb), (dx, r_dx)):
+        err, scale = _max_diff(mine, ref)
+        assert err <= bound * scale
+
+
+def test_k2_k3_ragged_tiles_and_determinism(card):
+    """P = 264 leaves 8 rows in the last tile; K2 twice on one input gives
+    the same bits (fixed P splits, no float atomics)."""
+    cfg = ShapeNetConfig(3, 1, 128, 2, "sine", False, 30.0)
+    wb, x = _data(cfg, 5, 264, torch.bfloat16, seed=11)
+    tgt, w, g = _side(cfg, 5, 264, torch.bfloat16, seed=11)
+    runs = [fs.shapenet_mse_grads_cuda(wb, x, tgt, cfg, "siren", w) for _ in range(2)]
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+    l_ref, g_ref = fs.shapenet_mse_grads_reference(wb, x, tgt, cfg, "siren", w)
+    err, scale = _max_diff(runs[0][1], g_ref)
+    assert float(runs[0][0]) == pytest.approx(float(l_ref), rel=1e-3) and err <= 2.0 ** -6 * scale
+    d_wb, dx = fs.shapenet_bwd_cuda(wb.float(), x.float(), g.float(), cfg, "siren")
+    r_wb, r_dx = fs.shapenet_fused_bwd_reference(wb.float(), x.float(), g.float(), cfg, "siren")
+    for mine, ref in ((d_wb, r_wb), (dx, r_dx)):
+        err, scale = _max_diff(mine, ref)
+        assert err <= 5e-5 * scale
+
+
+def test_train_geometry(card):
+    """At the flagship width the bf16 residuals of a 64-point tile fit in
+    shared memory; f32 ones live in the per-block global scratch."""
+    cfg = ShapeNetConfig(3, 1, 128, 2, "sine", False, 30.0)
+    bf16 = fs.train_geometry(cfg, 32, 32768, torch.bfloat16)
+    f32 = fs.train_geometry(cfg, 32, 32768, torch.float32)
+    assert (bf16["tile"], bf16["splits"], bf16["residuals"]) == (64, 8, "shared")
+    assert (f32["residuals"], bf16["scratch_bytes"]) == ("global", 0) and f32["scratch_bytes"] > 0
+    assert fs.train_geometry(cfg, 2, 100, torch.bfloat16)["splits"] == 2
+    # bf16 at width 256: four hidden layers fit beside the dz tile, five do not
+    deep = lambda l: ShapeNetConfig(3, 1, 256, l, "sine", False, 30.0)  # noqa: E731
+    assert fs.train_geometry(deep(4), 2, 64, torch.bfloat16)["residuals"] == "shared"
+    assert fs.train_geometry(deep(5), 2, 64, torch.bfloat16)["residuals"] == "global"
+
+
+def test_train_wrappers_refuse_what_they_cannot_take(card):
+    cfg = ShapeNetConfig(2, 1, 16, 1, "sine")
+    wb, x = _data(cfg, 2, 16, torch.float32, seed=12)
+    tgt, w, g = _side(cfg, 2, 16, torch.float32, seed=12)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fs.shapenet_mse_grads_cuda(wb.clone().requires_grad_(), x, tgt, cfg, "siren")
+    with pytest.raises(ValueError, match="target"):
+        fs.shapenet_mse_grads_cuda(wb, x, tgt[:, :8], cfg, "siren")
+    with pytest.raises(ValueError, match="weight"):
+        fs.shapenet_mse_grads_cuda(wb, x, tgt, cfg, "siren", w[:, :8])
+    with pytest.raises(ValueError, match="g_out"):
+        fs.shapenet_bwd_cuda(wb, x, g[:1], cfg, "siren")
+    with pytest.raises(TypeError):
+        fs.shapenet_bwd_cuda(wb, x.bfloat16(), g, cfg, "siren")
+
+
+def test_model_train_step_on_the_card_launches_k2(card):
+    """One GroupedTrainer step at a small shape: exactly one K2 launch, and
+    the step's loss and grads match plain K2 + autograd through the
+    ParameterNet on the same card."""
+    from nif_tpu_torch.training import GroupedTrainer
+
+    cfg_s = {"input_dim": 3, "output_dim": 1, "units": 128, "nlayers": 2,
+             "activation": "sine", "omega_0": 30.0}
+    cfg_p = {"input_dim": 4, "latent_dim": 128, "units": 128, "nlayers": 2,
+             "activation": "swish"}
+    model = nif_tpu_torch.NIFMultiScale(cfg_s, cfg_p, "mixed_bfloat16", seed=0)
+    rng = np.random.default_rng(13)
+    t = torch.from_numpy(rng.standard_normal((4, 4)).astype(np.float32)).cuda()
+    x = torch.from_numpy(rng.uniform(-1, 1, (4, 512, 3)).astype(np.float32)).cuda()
+    u = torch.from_numpy(rng.standard_normal((4, 512, 1)).astype(np.float32)).cuda()
+    loss, grads = model.mse_value_and_grad(t, x, u)
+    wb, _ = model.pnet(model._compute(t))
+    l_ref, d_ref = fs.shapenet_mse_grads_reference(wb.detach(), model._compute(x), u,
+                                                   model.cfg_shape_net, "siren")
+    refs = torch.autograd.grad(wb, [p for _, p in model.param_items()], d_ref)
+    assert float(loss) == pytest.approx(float(l_ref), rel=1e-3)
+    for (path, _), ref in zip(model.param_items(), refs):
+        mine = grads
+        for key in path:
+            mine = mine[key]
+        assert float((mine - ref).norm()) <= 1e-2 * float(ref.norm()) + 1e-12
+    trainer = GroupedTrainer(model, lambda p: torch.optim.Adam(p, lr=1e-4))
+    state = trainer.init(0)
+    before = dict(_build.LAUNCHES)
+    state, loss = trainer.step(state, t, x, u)
+    assert _build.LAUNCHES["shapenet_mse_grads"] == before["shapenet_mse_grads"] + 1
+    assert _build.LAUNCHES["shapenet_fwd"] == before["shapenet_fwd"]
+    assert bool(torch.isfinite(loss)) and trainer.history["path"] == "fused"
+
+
+# Widths past the flagship run the wider template instances (8, 16 and 32
+# columns per thread; TP = 32, 16 and 8 points per tile) and, for the deep
+# resblock chain and every f32 chain here, the residuals in global scratch.
+WIDE = [
+    ("siren", (3, 1, 256, 2, "sine", False, 30.0)),
+    ("siren", (3, 1, 128, 2, "sine", True, 30.0)),
+    ("siren", (2, 2, 512, 1, "sine", False, 30.0)),
+    ("vanilla", (3, 2, 1024, 1, "tanh")),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("variant,args", WIDE)
+def test_wide_chains_match_plain(card, variant, args, dtype):
+    cfg = ShapeNetConfig(*args)
+    wb, x = _data(cfg, 2, 200, dtype, seed=14)
+    tgt, w, g = _side(cfg, 2, 200, dtype, seed=14)
+    l_rel, g_bound, k3_bound = _bounds(dtype)
+    out = fs.shapenet_fwd_cuda(wb, x, cfg, variant)
+    err, scale = _max_diff(out, fs.shapenet_grouped_fused_reference(wb, x, cfg, variant))
+    assert err <= (1e-5 + 2e-4 * scale if dtype == torch.float32 else 1e-2 * scale)
+    loss, d_wb = fs.shapenet_mse_grads_cuda(wb, x, tgt, cfg, variant, w)
+    l_ref, g_ref = fs.shapenet_mse_grads_reference(wb, x, tgt, cfg, variant, w)
+    assert float(loss) == pytest.approx(float(l_ref), rel=l_rel)
+    err, scale = _max_diff(d_wb, g_ref)
+    assert err <= g_bound * scale
+    d_wb, dx = fs.shapenet_bwd_cuda(wb, x, g, cfg, variant)
+    r_wb, r_dx = fs.shapenet_fused_bwd_reference(wb, x, g, cfg, variant)
+    for mine, ref in ((d_wb, r_wb), (dx, r_dx)):
+        err, scale = _max_diff(mine, ref)
+        assert err <= k3_bound * scale

@@ -189,20 +189,34 @@ def test_fast_path_info_and_routing(flagship, caplog):
 
 
 def test_fused_cuda_routing_refuses_gradients(flagship, monkeypatch):
-    """Auto routing that picks K1 (forced here, as on a card) raises when
-    gradients are needed, since K1 has no backward yet; ``fused=False``
-    is the explicit way to eager autograd."""
+    """Auto routing that picks K1 (forced here, as on a card) no longer
+    refuses gradients: the backward reaches K3's path (plain K3 on the
+    CPU, the kernel on a card) and agrees with eager autograd in f32."""
+    from nif_tpu_torch.ops import fused_shapenet as fs
+
     _, _, tm = flagship
     fused = {"path": "fused", "tile": 64, "reason": None}
     monkeypatch.setattr(tm, "fast_path_info", lambda P: fused)
     monkeypatch.setattr(tm, "_announce_path", lambda P: None)
+    calls = []
+    real_bwd = fs.shapenet_fused_bwd_reference
+    monkeypatch.setattr(fs, "shapenet_fused_bwd_reference",
+                        lambda *a: calls.append(1) or real_bwd(*a))
     t, x = _inputs(1, 64)
-    with pytest.raises(RuntimeError, match="K3"):
-        tm.apply_grouped(t, x)
-    out = tm.apply_grouped(t, x, fused=False)
+    params = [p for _, p in tm.param_items()]
+    out = tm.apply_grouped(t, x)
     assert out.requires_grad and tuple(out.shape) == (1, 64, 1)
+    g = torch.from_numpy(np.random.default_rng(3).standard_normal((1, 64, 1)).astype(np.float32))
+    fused_grads = torch.autograd.grad(out, params, g)
+    assert calls == [1]
+    eager_grads = torch.autograd.grad(tm.apply_grouped(t, x, fused=False), params, g)
+    assert calls == [1]
+    for a, b in zip(fused_grads, eager_grads):
+        scale = float(b.abs().max()) + 1e-12
+        np.testing.assert_allclose(a.numpy() / scale, b.numpy() / scale, atol=5e-5)
     with torch.inference_mode():
         assert tuple(tm.apply_grouped(t, x).shape) == (1, 64, 1)
+    assert calls == [1]
 
 
 def test_flagship_is_the_smoke_scripts_model():
