@@ -31,6 +31,23 @@ Phases, each of which raises on failure:
 4b. Time the flagship train step, K2 and K3 with their plain versions, and
    compute their bounds on this card.
 
+Phases of the Sobolev slice:
+
+2d. Hold K5 (the fused Jacobian) against plain K5 over the same configs and
+   one more with so >= si (the forward-tangent body), in float32 and
+   bfloat16, and at the flagship shape in bfloat16 (the reverse body).
+2e. Hold K6 (the fused Sobolev train pass) against plain K6 over the same
+   configs, weighted or not, with value and Jacobian masks on the
+   multi-output configs, and at the flagship width in bfloat16, where two
+   runs must give bitwise-equal results.
+3c. Sobolev-train the flagship: ``sobolev_value_and_grad`` at step 0
+   against plain K6 + autograd, five ``GroupedTrainer.step(...,
+   target_jac=...)`` at G=32, P=32768 (five K6 launches, no K2), a short
+   Sobolev ``fit`` on the traveling wave with its analytic Jacobian that must
+   lower both terms, and ``evaluate_sobolev`` (one K5 launch per chunk).
+4c. Time the flagship Sobolev step, K5 and K6 with their plain versions,
+   and compute their bounds on this card.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the
 ``{"kernels": [...]}`` record. Exits non-zero without CUDA or without the
 package beside it.
@@ -58,6 +75,10 @@ SINE_FLOPS = 14
 # ... and of the sine with its derivative (K2, K3): the derivative adds three
 # Horner steps and the factor 1/2pi.
 SINE_GRAD_FLOPS = 21
+# ... and of the curvature act'' beside act' (K6's backward): the range
+# reduction again, the derivative's and the curvature's Horner steps and
+# their scale factors.
+SINE_GRAD2_FLOPS = 28
 # bf16 bounds on a kernel against its plain version: two bf16 ulps of the
 # largest entry (an f32 last-bit difference in a sum can flip the bf16
 # rounding of one activation, derivative or dz), and a relative loss bound.
@@ -73,6 +94,9 @@ CASES = [
     ("vanilla", (1, 1, 16, 1, "tanh")),
     ("vanilla", (2, 1, 64, 2, "relu")),
 ]
+# K5 takes its forward-tangent body where so >= si; of CASES only the
+# so=si ones do, so one more SIREN config with so > si.
+JAC_EXTRA = [("siren", (2, 3, 64, 2, "sine", False, 30.0))]
 
 
 def log(msg: str) -> None:
@@ -194,6 +218,81 @@ def check_k3(torch, cfg, variant, G, P, dtype, seed) -> float:
     return err
 
 
+def check_k5(torch, cfg, variant, G, P, dtype, seed) -> float:
+    """K5 vs plain K5 on y and jac; returns max |jac - plain jac|.
+
+    float32: max|d| <= 2e-4 max|plain| + 1e-5 (K1's bound; both sum in f32
+    in other orders); bfloat16: BF16_REL of max|plain| (the sweeps round
+    each dz, the tangents each stacked input, to bf16)."""
+    from nif_tpu_torch.ops.fused_derivatives import (
+        derivative_geometry, shapenet_fwd_jac_cuda, shapenet_fwd_jac_reference)
+
+    wb, x = chain_data(torch, cfg, G, P, dtype, seed)
+    y, jac = shapenet_fwd_jac_cuda(wb, x, cfg, variant)
+    y_ref, jac_ref = shapenet_fwd_jac_reference(wb, x, cfg, variant)
+    torch.cuda.synchronize()
+    mode = "reverse" if cfg.output_dim < cfg.input_dim else "tangent"
+    what = f"K5 ({mode}) {describe(cfg, variant, G, P, dtype)}"
+    if y.dtype != dtype or jac.shape != (G, P, cfg.output_dim, cfg.input_dim):
+        raise AssertionError(f"{what}: y {y.dtype}, jac {jac.shape}/{jac.dtype}")
+    worst = 0.0
+    for name, out, ref in (("y", y, y_ref), ("jac", jac, jac_ref)):
+        err, scale = max_diff(torch, out, ref, f"{what} {name}")
+        bound = 2e-4 * scale + 1e-5 if dtype == torch.float32 else BF16_REL * scale
+        if err > bound:
+            raise AssertionError(f"{what}: {name} max|d| {err} > {bound}")
+        worst = err
+    geo = derivative_geometry(mode, cfg, variant, G, P, dtype)
+    log(f"{what} y/jac agree; jac max|d|={worst:.3e} ({worst / scale:.2e} of max|plain|); "
+        f"{geo['tile']}-point tiles, residuals in {geo['residuals']} memory")
+    return worst
+
+
+def check_k6(torch, cfg, variant, G, P, dtype, weighted, masked, seed) -> float:
+    """K6 vs plain K6; returns max |d_wb - plain d_wb|.
+
+    float32: both terms rel 1e-5, d_wb max|d| <= 5e-5 max|plain| (the fused
+    backward's bound: the stacked backward sums (1 + si) times the rows);
+    bfloat16: terms rel BF16_LOSS_REL, d_wb BF16_REL."""
+    from nif_tpu_torch.ops.fused_derivatives import (
+        derivative_geometry, shapenet_sobolev_grads_cuda, shapenet_sobolev_grads_reference)
+
+    wb, x = chain_data(torch, cfg, G, P, dtype, seed)
+    tgt, w, jt = sobolev_data(torch, cfg, G, P, seed)
+    si, so = cfg.input_dim, cfg.output_dim
+    kw = dict(w_value=0.7, w_jac=1.3, weight=w if weighted else None)
+    if masked:
+        kw.update(y_mask=np.eye(1, so, dtype=np.float32)[0],
+                  jac_mask=(np.arange(si * so) % 2 == 0).astype(np.float32))
+    lv, lj, d_wb = shapenet_sobolev_grads_cuda(wb, x, tgt, jt, cfg, variant, **kw)
+    rv, rj, r_wb = shapenet_sobolev_grads_reference(wb, x, tgt, jt, cfg, variant, **kw)
+    torch.cuda.synchronize()
+    what = f"K6 {describe(cfg, variant, G, P, dtype)} weighted={weighted} masked={masked}"
+    if d_wb.dtype != wb.dtype or d_wb.shape != r_wb.shape:
+        raise AssertionError(f"{what}: {d_wb.shape}/{d_wb.dtype} vs {r_wb.shape}")
+    err, scale = max_diff(torch, d_wb, r_wb, what)
+    rels = [abs(float(a) - float(b)) / max(abs(float(b)), 1e-30) for a, b in ((lv, rv), (lj, rj))]
+    bound, l_bound = (5e-5, 1e-5) if dtype == torch.float32 else (BF16_REL, BF16_LOSS_REL)
+    geo = derivative_geometry("sobolev", cfg, variant, G, P, dtype)
+    log(f"{what} value {float(lv):.6e} jac {float(lj):.6e} (rel {rels[0]:.2e}, {rels[1]:.2e}) "
+        f"d_wb max|d|={err:.3e} ({err / scale:.2e} of max|plain|); {geo['tile']}-point tiles, "
+        f"residuals in {geo['residuals']} memory, {geo['splits']} splits")
+    if (not all(np.isfinite([float(lv), float(lj)])) or max(rels) > l_bound
+            or err > bound * scale):
+        raise AssertionError(f"{what}: term rel {rels} (bound {l_bound}), d_wb max|d| {err} > "
+                             f"{bound} * {scale}")
+    return err
+
+
+def sobolev_data(torch, cfg, G, P, seed):
+    """Value targets, point weights and flat Jacobian targets, float32 on the card."""
+    rng = np.random.default_rng(seed + 2000)
+    to = lambda a: torch.from_numpy(a.astype(np.float32)).cuda()  # noqa: E731
+    si, so = cfg.input_dim, cfg.output_dim
+    return (to(rng.standard_normal((G, P, so))), to(rng.uniform(0.5, 1.5, (G, P))),
+            to(rng.standard_normal((G, P, si * so))))
+
+
 def build_all(names):
     """Build every kernel source at once, one nvcc each; returns seconds
     per name. Raises the first build failure."""
@@ -235,6 +334,44 @@ def traveling_wave(G, P, seed):
     return t, x, u.astype(np.float32)
 
 
+def wave_jacobian(t, x):
+    """d u / d x of :func:`traveling_wave`, ``[G, P, 1, 3]``."""
+    a = np.pi * (x[..., 0] - 0.5 * t[:, None, 0])
+    b = 0.5 * np.pi * x[..., 1]
+    jac = np.stack([np.pi * np.cos(a) * np.cos(b), -0.5 * np.pi * np.sin(a) * np.sin(b),
+                    np.zeros_like(a)], axis=-1)
+    return jac[:, :, None, :].astype(np.float32)
+
+
+def derivative_bounds(cfg, G, P, peak_mma, peak_f32, peak_bw, sobolev: bool):
+    """(bound ms, bound_by, products GFLOP) of K6 (sobolev) or K5's reverse
+    body at this shape in bf16. K6: three passes (forward, dW, dS) of the
+    stacked chain's hidden and last products over all 1 + si streams, 3 x 2
+    G P (1 + si)(nm n^2 + n so), and the first layer's x @ W0 on the value
+    rows only, in the forward and in dW0, 2 x 2 G P si n (the tangent seeds
+    are elementwise and no dx is formed); activations with derivative and
+    curvature and the tangent products over the f32 peak; bytes of wb, x,
+    the value and Jacobian targets in and d_wb out. K5: the forward (2 G P
+    (si n + nm n^2 + n so))
+    and so dx sweeps (2 G P (nm n^2 + n si) each), sine-with-derivative
+    evaluations over the f32 peak, bytes of wb and x in, y and jac out."""
+    n, si, so = cfg.units, cfg.input_dim, cfg.output_dim
+    nm = 2 * cfg.nlayers if cfg.use_resblock else cfg.nlayers
+    po = nm * n * n + (si + so + 1 + nm) * n + so
+    elems = G * P * n * (1 + nm)
+    if sobolev:
+        flops = 3 * 2 * G * P * (1 + si) * (nm * n * n + n * so) + 2 * 2 * G * P * si * n
+        act = elems * (SINE_GRAD_FLOPS + SINE_GRAD2_FLOPS + 6 * si)
+        nbytes = 2 * (2 * G * po + G * P * (si + so + si * so))
+    else:
+        flops = 2 * G * P * (si * n + nm * n * n + n * so) + so * 2 * G * P * (nm * n * n + n * si)
+        act = elems * SINE_GRAD_FLOPS
+        nbytes = 2 * (G * po + G * P * (si + so + so * si))
+    t_ops = max(flops / peak_mma, act / peak_f32) * 1e3
+    t_bytes = nbytes / peak_bw * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops / 1e9
+
+
 def train_bounds(cfg, G, P, peak_mma, peak_f32, peak_bw, dx: bool):
     """(bound ms, bound_by, products GFLOP) of K2 (dx=False) or K3 (dx=True)
     at this shape in bf16: products over the tensor-core peak, sine and
@@ -262,6 +399,9 @@ def main() -> int:
     import nif_tpu_torch
     from nif_tpu_torch.config import ShapeNetConfig
     from nif_tpu_torch.ops import _build
+    from nif_tpu_torch.ops.fused_derivatives import (
+        shapenet_fwd_jac_cuda, shapenet_fwd_jac_reference, shapenet_sobolev_grads_cuda,
+        shapenet_sobolev_grads_reference)
     from nif_tpu_torch.ops.fused_shapenet import (
         shapenet_bwd_cuda, shapenet_fused_bwd_reference, shapenet_fwd_cuda,
         shapenet_grouped_fused_reference, shapenet_mse_grads_cuda,
@@ -271,7 +411,8 @@ def main() -> int:
     from nif_tpu_torch.training import GroupedTrainer
     from nif_tpu_torch.utils import rel_l2
     from nif_tpu_torch.utils.bench import (FLAGSHIP_PNET, FLAGSHIP_POLICY, FLAGSHIP_SHAPE,
-                                           FLAGSHIP_TRAIN_LR, cuda_ms, flagship_train_step)
+                                           FLAGSHIP_TRAIN_LR, cuda_ms, flagship_sobolev_step,
+                                           flagship_train_step)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -285,7 +426,7 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {name}")
     log(f"card: {smi}")
-    build_all(["shapenet_fwd", "shapenet_bwd"])
+    build_all(["shapenet_fwd", "shapenet_bwd", "shapenet_jac"])
     peak_mma, peak_f32, peak_bw = PEAKS["H100 PCIe" if "PCIe" in name else "H100 SXM"]
     flag_cfg = ShapeNetConfig.from_dict(FLAGSHIP_SHAPE)
 
@@ -340,6 +481,29 @@ def main() -> int:
     # sine: the two paths' grads differ by 3-4% rel-L2 on the CPU at these widths.
     if worst > 0.15:
         raise AssertionError(f"fused and eager ParameterNet grads differ by rel-L2 {worst}")
+
+    # ---- phase 2d: K5 against its plain version (both bodies)
+    for i, (variant, args) in enumerate(CASES + JAC_EXTRA):
+        for dtype in (torch.float32, torch.bfloat16):
+            check_k5(torch, ShapeNetConfig(*args), variant, 3, 256, dtype, seed=20 + i)
+    k5_err = check_k5(torch, flag_cfg, "siren", 32, 32768, torch.bfloat16, seed=30)
+
+    # ---- phase 2e: K6 against its plain version, and its determinism
+    for i, (variant, args) in enumerate(CASES):
+        cfg = ShapeNetConfig(*args)
+        for dtype in (torch.float32, torch.bfloat16):
+            for weighted in (False, True):
+                check_k6(torch, cfg, variant, 3, 256, dtype, weighted, cfg.output_dim > 1,
+                         seed=40 + i)
+    k6_err = check_k6(torch, flag_cfg, "siren", 32, 32768, torch.bfloat16, False, False, seed=50)
+    wb, x = chain_data(torch, flag_cfg, 32, 32768, torch.bfloat16, seed=51)
+    tgt, w, jt = sobolev_data(torch, flag_cfg, 32, 32768, seed=51)
+    runs = [shapenet_sobolev_grads_cuda(wb, x, tgt, jt, flag_cfg, "siren", weight=w)
+            for _ in range(2)]
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        raise AssertionError("K6 is not deterministic: two runs on one input differ")
+    log("K6 flagship bf16 (weighted): two runs give bitwise-equal terms and d_wb")
+    del wb, x, tgt, w, jt, runs
 
     # ---- phase 3: serve the flagship model
     if model.po_dim != 33665:
@@ -442,6 +606,74 @@ def main() -> int:
     if fit_launches["shapenet_mse_grads"] != 60 or not hist[-1] < hist[0]:
         raise AssertionError("the fit did not take K2 for every step or did not lower the loss")
 
+    # ---- phase 3c: Sobolev-train the flagship
+    strainer, sstate, (t_s, x_s, u_s, j_s) = flagship_sobolev_step(G, P)
+    smodel = strainer.model
+    sinfo = smodel.sobolev_path_info(P, 3)
+    if sinfo["path"] != "fused":
+        raise AssertionError(f"flagship Sobolev training would not take K6: {sinfo}")
+    total_k, terms_k, sgrads_k = smodel.sobolev_value_and_grad(t_s, x_s, u_s, target_jac=j_s)
+    wb_s, _ = smodel.pnet(smodel._compute(t_s))
+    jt_flat = j_s.transpose(2, 3).reshape(G, P, 3)  # column k*so + j, as the kernel takes it
+    rv, rj, r_wb = shapenet_sobolev_grads_reference(
+        wb_s.detach(), smodel._compute(x_s), u_s, jt_flat, smodel.cfg_shape_net, "siren")
+    sgrads_p = torch.autograd.grad(wb_s, [p for _, p in smodel.param_items()], r_wb)
+    t_rel = [abs(float(a) - float(b)) / abs(float(b))
+             for a, b in ((terms_k["value_mse"], rv), (terms_k["jacobian_mse"], rj))]
+    worst = 0.0
+    for (path, _), b in zip(smodel.param_items(), sgrads_p):
+        a = sgrads_k
+        for key in path:
+            a = a[key]
+        worst = max(worst, float(rel_l2(a, b)))
+    log(f"flagship Sobolev step 0 ({sinfo}): value {float(terms_k['value_mse']):.6e} jac "
+        f"{float(terms_k['jacobian_mse']):.6e} vs plain K6 (rel {t_rel[0]:.2e}, {t_rel[1]:.2e}); "
+        f"ParameterNet grads vs plain K6 + autograd: worst rel-L2 {worst:.2e}")
+    if max(t_rel) > BF16_LOSS_REL or worst > 1e-2 or not np.isfinite(float(total_k)):
+        raise AssertionError("the flagship Sobolev step's terms or grads depart from plain K6")
+    del wb_s, r_wb, sgrads_p, sgrads_k
+    _build.reset_launches()
+    slosses = []
+    for _ in range(n_steps):
+        sstate, loss = strainer.step(sstate, t_s, x_s, u_s, target_jac=j_s)
+        slosses.append(loss)
+    torch.cuda.synchronize()
+    sob_launches = dict(_build.LAUNCHES)
+    slosses = [float(v) for v in slosses]
+    log(f"flagship Sobolev train: {n_steps} steps, losses {slosses}, launches {sob_launches}, "
+        f"path {strainer.history.get('sobolev_path')}")
+    if (sob_launches["shapenet_sobolev_grads"] != n_steps or sob_launches["shapenet_mse_grads"]
+            or not all(np.isfinite(slosses))):
+        raise AssertionError(f"{n_steps} Sobolev steps launched {sob_launches}, losses {slosses}")
+    j_w = wave_jacobian(t_w, x_w)
+    smodel_w = nif_tpu_torch.NIFMultiScale(FLAGSHIP_SHAPE, FLAGSHIP_PNET, FLAGSHIP_POLICY,
+                                           device="cuda", seed=1)
+    sfitter = GroupedTrainer(smodel_w, lambda p: torch.optim.Adam(p, lr=FLAGSHIP_TRAIN_LR))
+    sfstate = sfitter.init(1)
+    eval_chunks = 4
+    before = sfitter.evaluate_sobolev(sfstate, t_w, x_w, u_w, j_w, group_batch=16 // eval_chunks)
+    _build.reset_launches()
+    sfstate = sfitter.fit(sfstate, t_w, x_w, u_w, epochs=30, group_batch=8, point_batch=4096,
+                          target_jac=j_w)
+    sfit_launches = dict(_build.LAUNCHES)
+    _build.reset_launches()
+    after = sfitter.evaluate_sobolev(sfstate, t_w, x_w, u_w, j_w, group_batch=16 // eval_chunks)
+    eval_launches = dict(_build.LAUNCHES)
+    shist = sfitter.history["loss"]
+    log(f"Sobolev fit on the traveling wave (G=16, P=8192, 4096-point batches, 30 epochs, "
+        f"w_value = w_jac = 1): epoch losses first {shist[0]:.6e} last {shist[-1]:.6e}; "
+        f"launches {sfit_launches}; evaluate_sobolev before {before}, after {after} "
+        f"({eval_chunks} chunks, launches {eval_launches})")
+    if sfit_launches["shapenet_sobolev_grads"] != 60 or not shist[-1] < shist[0]:
+        raise AssertionError("the Sobolev fit did not take K6 for every step or did not lower "
+                             "its loss")
+    if not (after["value_mse"] < before["value_mse"]
+            and after["jacobian_mse"] < before["jacobian_mse"]):
+        raise AssertionError(f"the Sobolev fit did not lower both terms: {before} -> {after}")
+    if eval_launches["shapenet_fwd_jac"] != eval_chunks:
+        raise AssertionError(f"evaluate_sobolev launched K5 {eval_launches['shapenet_fwd_jac']} "
+                             f"times for {eval_chunks} chunks")
+
     # ---- phase 4: K1 times at the flagship shape (bf16, as served)
     G, P = requests[0]
     t, x = inputs[0]
@@ -499,6 +731,34 @@ def main() -> int:
         f"products); K3 {k3_ms:.4f} ms, plain {k3_plain_ms:.4f} ms, bound {k3_bound:.4f} ms "
         f"by {k3_by} ({k3_gf:.1f} GFLOP); library_ms null: no single PyTorch call computes "
         f"these chains")
+
+    # ---- phase 4c: Sobolev-step, K5 and K6 times at the flagship shape (bf16)
+    sbox = [sstate]
+
+    def one_sobolev_step():
+        sbox[0], _ = strainer.step(sbox[0], t_s, x_s, u_s, target_jac=j_s)
+
+    sstep_ms = cuda_ms(one_sobolev_step, reps=5, warmup=1)
+    wb, x = chain_data(torch, flag_cfg, G, P, torch.bfloat16, seed=52)
+    tgt, _, jt = sobolev_data(torch, flag_cfg, G, P, seed=52)
+    k5_ms = cuda_ms(lambda: shapenet_fwd_jac_cuda(wb, x, flag_cfg, "siren"), reps=10)
+    k5_plain_ms = cuda_ms(lambda: shapenet_fwd_jac_reference(wb, x, flag_cfg, "siren"),
+                          reps=3, warmup=1)
+    k6_ms = cuda_ms(lambda: shapenet_sobolev_grads_cuda(wb, x, tgt, jt, flag_cfg, "siren"),
+                    reps=5, warmup=1)
+    k6_plain_ms = cuda_ms(lambda: shapenet_sobolev_grads_reference(
+        wb, x, tgt, jt, flag_cfg, "siren"), reps=2, warmup=1)
+    k5_bound, k5_by, k5_gf = derivative_bounds(flag_cfg, G, P, peak_mma, peak_f32, peak_bw,
+                                               sobolev=False)
+    k6_bound, k6_by, k6_gf = derivative_bounds(flag_cfg, G, P, peak_mma, peak_f32, peak_bw,
+                                               sobolev=True)
+    log(f"flagship Sobolev step (GroupedTrainer.step with target_jac, Adam, bf16, G={G} "
+        f"P={P}): {sstep_ms:.4f} ms = {G * P / sstep_ms * 1e3:.4e} train points/s")
+    log(f"K5 (reverse) {k5_ms:.4f} ms, plain {k5_plain_ms:.4f} ms, bound {k5_bound:.4f} ms by "
+        f"{k5_by} ({k5_gf:.1f} GFLOP of products); K6 {k6_ms:.4f} ms (wrapper incl. prescale, "
+        f"workspace and reduce), plain {k6_plain_ms:.4f} ms, bound {k6_bound:.4f} ms by "
+        f"{k6_by} ({k6_gf:.1f} GFLOP); library_ms null: no single PyTorch call computes "
+        f"these chains")
     log(f"card: {smi}")
     log(json.dumps({"kernels": [{
         "name": "shapenet_fwd",
@@ -535,6 +795,30 @@ def main() -> int:
         "plain_ms": k3_plain_ms,
         "bound_ms": k3_bound,
         "bound_by": k3_by,
+        "library_ms": None,
+    }, {
+        "name": "shapenet_fwd_jac",
+        "route": "cuda",
+        "source": "nif_tpu_torch/csrc/shapenet_jac.cu",
+        "replaces": "nif_tpu/ops/pallas_shapenet.py:1445",
+        "launches": eval_launches["shapenet_fwd_jac"],
+        "max_abs_err": k5_err,
+        "ms": k5_ms,
+        "plain_ms": k5_plain_ms,
+        "bound_ms": k5_bound,
+        "bound_by": k5_by,
+        "library_ms": None,
+    }, {
+        "name": "shapenet_sobolev_grads",
+        "route": "cuda",
+        "source": "nif_tpu_torch/csrc/shapenet_jac.cu",
+        "replaces": "nif_tpu/ops/pallas_shapenet.py:1698",
+        "launches": sob_launches["shapenet_sobolev_grads"],
+        "max_abs_err": k6_err,
+        "ms": k6_ms,
+        "plain_ms": k6_plain_ms,
+        "bound_ms": k6_bound,
+        "bound_by": k6_by,
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -11,8 +11,12 @@ Serving: ``NIF``/``NIFMultiScale`` construction, init, point-wise and grouped
 forward, subnetwork extraction, config IO, and
 ``serving.predict``/``predict_grouped`` through the fused forward kernel.
 Training: ``NIF.mse_value_and_grad`` through the fused train kernel,
-``regularization_loss``, and ``training.GroupedTrainer`` (``step``, ``fit``,
-``evaluate``) with callbacks and checkpoints.
+``NIF.sobolev_value_and_grad`` (value and Jacobian targets) through the fused
+Sobolev train kernel, ``regularization_loss``, and
+``training.GroupedTrainer`` (``step``, ``fit``, ``evaluate``,
+``evaluate_sobolev``) with callbacks and checkpoints. Derivatives:
+``ops.output_and_jacobian_grouped`` through the fused Jacobian kernel, and
+the eager ``torch.func`` derivatives and Sobolev losses of ``ops``.
 """
 from .__about__ import __version__
 from . import convert

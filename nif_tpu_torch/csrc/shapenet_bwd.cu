@@ -46,251 +46,12 @@
 // tile's points) gives thread (tr, tc) rows k of dW and the same columns;
 // du = dz W^T stages W^T through shared memory (rows padded to n+1 floats
 // to keep the transposing store free of bank conflicts).
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "shapenet_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kLanes = 32;
-constexpr int kWarps = kThreads / kLanes;
-constexpr size_t kMaxSmem = 232448;  // 227 KB, the most a block may opt in to
 constexpr int kMaxSplits = 8;        // point-tile runs per group
-constexpr int kMaxRn = 32;
 constexpr int kWChunkFloats = 4096;  // staged weight floats per chunk
-
-// Activation codes: keep in step with _ACT_CODES in ops/fused_shapenet.py.
-enum Act : int {
-  kSinePoly7 = 0,
-  kSinePoly9 = 1,
-  kSineExact = 2,
-  kTanh = 3,
-  kRelu = 4,
-  kSwish = 5,
-  kSigmoid = 6,
-  kLinear = 7,
-};
-
-// Chain codes: keep in step with _CHAIN_CODES in ops/fused_shapenet.py.
-enum Chain : int { kSirenPlain = 0, kSirenResblock = 1, kVanilla = 2 };
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// Round to the compute dtype and back: the reference's `lift`.
-template <typename T> __device__ __forceinline__ float lift(float v);
-template <> __device__ __forceinline__ float lift<float>(float v) { return v; }
-template <> __device__ __forceinline__ float lift<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// (act(z), act'(z)) as _act_with_grad evaluates them on f32 z. The bf16
-// sine is _fast_sin_and_grad: one range reduction t = z/2pi - rint(z/2pi),
-// the odd polynomial of degree 7 (_SIN_C7) or 9 (_SIN_C), and its exact
-// derivative times 1/2pi.
-__device__ __forceinline__ float act_grad(float z, int act, float* d) {
-  constexpr float kInv2Pi = 0.15915494309189535f;
-  switch (act) {
-    case kSinePoly7:
-    case kSinePoly9: {
-      float t = z * kInv2Pi;
-      t = t - rintf(t);
-      const float s = t * t;
-      if (act == kSinePoly9) {
-        *d = (6.28308846f +
-              s * (-123.99974262f + s * (407.00044885f + s * (-522.73118709f + s * 298.51285149f)))) *
-             kInv2Pi;
-        return t * (6.28308846f +
-                    s * (-41.33324754f + s * (81.40008977f + s * (-74.67588387f + s * 33.16809461f))));
-      }
-      *d = (6.27863546f + s * (-123.28119216f + s * (389.6517492f + s * -392.60476409f))) * kInv2Pi;
-      return t * (6.27863546f + s * (-41.09373072f + s * (77.93034984f + s * -56.08639487f)));
-    }
-    case kSineExact: {
-      float sn, cs;
-      sincosf(z, &sn, &cs);
-      *d = cs;
-      return sn;
-    }
-    case kTanh: {
-      const float a = tanhf(z);
-      *d = 1.f - a * a;
-      return a;
-    }
-    case kRelu:
-      *d = z > 0.f ? 1.f : 0.f;
-      return fmaxf(z, 0.f);
-    case kSwish: {
-      const float s = 1.f / (1.f + expf(-z));
-      *d = s * (1.f + z * (1.f - s));
-      return z * s;
-    }
-    case kSigmoid: {
-      const float s = 1.f / (1.f + expf(-z));
-      *d = s * (1.f - s);
-      return s;
-    }
-    default:
-      *d = 1.f;
-      return z;
-  }
-}
-
-// acc[i][j] = sum_{k<K} A[r0+i][k] * W[k][tc + 32 j]: A is a [TP, lda] tile
-// of T (a residual buffer), W row-major [K, n] in global memory, staged
-// through ws in chunks of kc rows. Begins and ends with a barrier.
-template <typename T, int RM, int RN>
-__device__ __forceinline__ void matmul_fwd(const T* A, int lda, int K, const T* __restrict__ wg,
-                                           int n, float* __restrict__ ws, int kc, int r0, int tc,
-                                           float (&acc)[RM][RN]) {
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int j = 0; j < RN; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < K; k0 += kc) {
-    const int kn = min(kc, K - k0);
-    __syncthreads();  // A is complete and the previous chunk of ws is consumed
-    for (int idx = threadIdx.x; idx < kn * n; idx += kThreads)
-      ws[idx] = to_f32(wg[(size_t)k0 * n + idx]);
-    __syncthreads();
-#pragma unroll 2
-    for (int k = 0; k < kn; ++k) {
-      float w[RN];
-#pragma unroll
-      for (int j = 0; j < RN; ++j) {
-        const int c = tc + j * kLanes;
-        w[j] = c < n ? ws[k * n + c] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        const float a = to_f32(A[(r0 + i) * lda + k0 + k]);
-#pragma unroll
-        for (int j = 0; j < RN; ++j) acc[i][j] = fmaf(a, w[j], acc[i][j]);
-      }
-    }
-  }
-  __syncthreads();
-}
-
-// acc[i][j] = sum_{c<n_out} DZ[r0+i][c] * W[tc + 32 j][c]: du = dz @ W^T,
-// with W row-major [K_in, n_out] in global memory. Each chunk of kc columns
-// of W is staged transposed, ws[cc][k] = W[k][c0 + cc] with rows of ldw =
-// K_in + 1 floats, so lanes read consecutive k. Begins and ends with a barrier.
-template <typename T, int RM, int RN>
-__device__ __forceinline__ void matmul_bwd(const float* __restrict__ DZ, int n_out,
-                                           const T* __restrict__ wg, int K_in,
-                                           float* __restrict__ ws, int kc, int r0, int tc,
-                                           float (&acc)[RM][RN]) {
-  const int ldw = K_in + 1;
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int j = 0; j < RN; ++j) acc[i][j] = 0.f;
-  for (int c0 = 0; c0 < n_out; c0 += kc) {
-    const int cn = min(kc, n_out - c0);
-    __syncthreads();  // DZ is complete and the previous chunk of ws is consumed
-    for (int idx = threadIdx.x; idx < K_in * cn; idx += kThreads) {
-      const int k = idx / cn;
-      const int cc = idx - k * cn;
-      ws[cc * ldw + k] = to_f32(wg[(size_t)k * n_out + c0 + cc]);
-    }
-    __syncthreads();
-#pragma unroll 2
-    for (int cc = 0; cc < cn; ++cc) {
-      float w[RN];
-#pragma unroll
-      for (int j = 0; j < RN; ++j) {
-        const int k = tc + j * kLanes;
-        w[j] = k < K_in ? ws[cc * ldw + k] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        const float a = DZ[(r0 + i) * n_out + c0 + cc];
-#pragma unroll
-        for (int j = 0; j < RN; ++j) acc[i][j] = fmaf(a, w[j], acc[i][j]);
-      }
-    }
-  }
-  __syncthreads();
-}
-
-// Add one tile's contribution to a block partial: write on the block's
-// first tile, accumulate after it (the block owns the partial).
-__device__ __forceinline__ void accumulate(float* p, float v, bool first) {
-  *p = first ? v : *p + v;
-}
-
-// dW[k][c] = sum_{r<rows} A[r][k] * DZ[r][c] for k < K, c < n, added into
-// out (row-major [K, n]). Thread (warp, tc) takes RK rows k of each chunk of
-// kWarps*RK rows and the columns tc + 32 j; A is read as a broadcast, DZ
-// along the lanes. The caller has synchronized DZ.
-template <typename T, int RK, int RN>
-__device__ __forceinline__ void weight_grad(const T* A, int lda, int K, const float* __restrict__ DZ,
-                                            int n, int rows, float* __restrict__ out, bool first,
-                                            int warp, int tc) {
-  for (int kb = 0; kb < K; kb += kWarps * RK) {
-    const int k0 = kb + warp * RK;
-    if (k0 >= K) continue;
-    float acc[RK][RN];
-#pragma unroll
-    for (int i = 0; i < RK; ++i)
-#pragma unroll
-      for (int j = 0; j < RN; ++j) acc[i][j] = 0.f;
-    for (int r = 0; r < rows; ++r) {
-      float dz[RN];
-#pragma unroll
-      for (int j = 0; j < RN; ++j) {
-        const int c = tc + j * kLanes;
-        dz[j] = c < n ? DZ[r * n + c] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < RK; ++i) {
-        const float a = k0 + i < K ? to_f32(A[r * lda + k0 + i]) : 0.f;
-#pragma unroll
-        for (int j = 0; j < RN; ++j) acc[i][j] = fmaf(a, dz[j], acc[i][j]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < RK; ++i)
-#pragma unroll
-      for (int j = 0; j < RN; ++j) {
-        const int c = tc + j * kLanes;
-        if (k0 + i < K && c < n) accumulate(out + (size_t)(k0 + i) * n + c, acc[i][j], first);
-      }
-  }
-}
-
-// db[c] = sum_{r<rows} DZ[r][c], added into out.
-__device__ __forceinline__ void bias_grad(const float* __restrict__ DZ, int n, int rows,
-                                          float* __restrict__ out, bool first) {
-  for (int c = threadIdx.x; c < n; c += kThreads) {
-    float s = 0.f;
-    for (int r = 0; r < rows; ++r) s += DZ[r * n + c];
-    accumulate(out + c, s, first);
-  }
-}
-
-// The thread's dz = lift(scale * g * D) into the DZ tile (g is du or dh).
-template <typename T, int RM, int RN>
-__device__ __forceinline__ void store_dz(float* __restrict__ DZ, const T* D, int n, int r0, int tc,
-                                         const float (&g)[RM][RN], float scale) {
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int j = 0; j < RN; ++j) {
-      const int c = tc + j * kLanes;
-      if (c < n) {
-        const int o = (r0 + i) * n + c;
-        DZ[o] = lift<T>(scale * g[i][j] * to_f32(D[o]));
-      }
-    }
-}
 
 struct Args {
   const void* wb;      // wb' [G, po], T
@@ -355,7 +116,7 @@ __global__ void __launch_bounds__(kThreads) shapenet_bwd_kernel(const Args a) {
       // ---- forward, saving H[m] (input of hidden matrix m, or of the last
       // layer for m = n_mats) and D[m] (derivative of activated layer m)
       float acc[RM][RN], u[RM][RN], bias[RN];
-      matmul_fwd<T, RM, RN>(X, si, si, wg, n, ws, a.kc, r0, tc, acc);
+      matmul_fwd<T, T, RM, RN, false>(X, si, si, TP, wg, n, ws, a.kc, r0, tc, acc);
 #pragma unroll
       for (int j = 0; j < RN; ++j) {
         const int c = tc + j * kLanes;
@@ -374,8 +135,8 @@ __global__ void __launch_bounds__(kThreads) shapenet_bwd_kernel(const Args a) {
           }
         }
       for (int m = 0; m < n_mats; ++m) {
-        matmul_fwd<T, RM, RN>(H + m * plane, n, n, wg + o_wh + (long long)m * n * n, n, ws, a.kc,
-                              r0, tc, acc);
+        matmul_fwd<T, T, RM, RN, false>(H + m * plane, n, n, TP, wg + o_wh + (long long)m * n * n,
+                                        n, ws, a.kc, r0, tc, acc);
 #pragma unroll
         for (int j = 0; j < RN; ++j) {
           const int c = tc + j * kLanes;
@@ -494,7 +255,8 @@ __global__ void __launch_bounds__(kThreads) shapenet_bwd_kernel(const Args a) {
         weight_grad<T, RM, RN>(H + m * plane, n, n, DZ, n, rows, part + o_wh + (long long)m * n * n,
                                first, warp, tc);
         bias_grad(DZ, n, rows, part + o_bh + (long long)m * n, first);
-        matmul_bwd<T, RM, RN>(DZ, n, wg + o_wh + (long long)m * n * n, n, ws, a.kc, r0, tc, acc);
+        matmul_bwd<T, RM, RN, false>(DZ, n, wg + o_wh + (long long)m * n * n, n, TP, ws, a.kc, r0,
+                                     tc, acc);
 #pragma unroll
         for (int i = 0; i < RM; ++i)
 #pragma unroll
@@ -578,8 +340,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-constexpr int rows_per_thread(int rn) { return rn <= 4 ? 8 : 32 / rn; }
-
 struct Geometry {
   int rn, tile, kc, splits, grid_g, resid_in_smem;
   size_t smem, resid_bytes;
@@ -592,9 +352,8 @@ struct Geometry {
 // scratch, so no input width is refused here.
 int geometry(int n, int si, int so, int n_mats, int G, int P, int elem, Geometry* g) {
   if (n < 1 || si < 1 || so < 1 || n_mats < 0 || G < 1 || P < 1) return 3;
-  int rn = 1;
-  while (kLanes * rn < n) rn *= 2;
-  if (rn > kMaxRn) return 1;
+  const int rn = columns_per_thread(n);
+  if (rn == 0) return 1;
   g->rn = rn;
   g->tile = rows_per_thread(rn) * kWarps;
   g->kc = kWChunkFloats / n > 1 ? kWChunkFloats / n : 1;
@@ -625,9 +384,7 @@ int launch(const Geometry& geo, Args a, T* d_wb, float* loss, long long n_scaled
   kernel<<<dim3(geo.splits, geo.grid_g), kThreads, geo.smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const long long total = (long long)a.G * a.po;
-  const long long want = (total + kThreads - 1) / kThreads;
-  const int blocks = (int)(want < 132 * 16 ? want : 132 * 16);
+  const int blocks = stride_blocks((long long)a.G * a.po);
   const float n_elem = (float)((long long)a.G * a.P * a.so);
   reduce_kernel<T><<<blocks, kThreads, 0, stream>>>(a.partials, a.G, geo.splits, a.po, n_scaled,
                                                     omega, a.train, n_elem, d_wb, loss);
@@ -638,15 +395,9 @@ template <typename T>
 int dispatch(const Geometry& g, const Args& a, void* d_wb, float* loss, long long n_scaled,
              float omega, cudaStream_t s) {
   T* out = static_cast<T*>(d_wb);
-  switch (g.rn) {
-    case 1: return launch<T, 1>(g, a, out, loss, n_scaled, omega, s);
-    case 2: return launch<T, 2>(g, a, out, loss, n_scaled, omega, s);
-    case 4: return launch<T, 4>(g, a, out, loss, n_scaled, omega, s);
-    case 8: return launch<T, 8>(g, a, out, loss, n_scaled, omega, s);
-    case 16: return launch<T, 16>(g, a, out, loss, n_scaled, omega, s);
-    case 32: return launch<T, 32>(g, a, out, loss, n_scaled, omega, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return with_rn(g.rn, [&](auto rn) {
+    return launch<T, decltype(rn)::value>(g, a, out, loss, n_scaled, omega, s);
+  });
 }
 
 int run(Args a, void* d_wb, float* loss, long long n_scaled, float omega, int dtype, void* stream) {

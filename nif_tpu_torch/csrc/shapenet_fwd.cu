@@ -32,110 +32,9 @@
 // rows tr*RM .. tr*RM+RM-1 and columns tc, tc+32, ..., so a warp reads one
 // weight row without bank conflicts and broadcasts each activation. Rows
 // past P are computed on zeros and never stored.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "shapenet_common.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kLanes = 32;
-constexpr int kWarps = kThreads / kLanes;
-constexpr size_t kMaxSmem = 232448;  // 227 KB, the most a block may opt in to
-
-// Activation codes: keep in step with _ACT_CODES in ops/fused_shapenet.py.
-enum Act : int {
-  kSinePoly7 = 0,
-  kSinePoly9 = 1,
-  kSineExact = 2,
-  kTanh = 3,
-  kRelu = 4,
-  kSwish = 5,
-  kSigmoid = 6,
-  kLinear = 7,
-};
-
-// Chain codes: keep in step with _CHAIN_CODES in ops/fused_shapenet.py.
-enum Chain : int { kSirenPlain = 0, kSirenResblock = 1, kVanilla = 2 };
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// Round to the compute dtype and back: the reference's cast before a matmul.
-template <typename T> __device__ __forceinline__ float lift(float v);
-template <> __device__ __forceinline__ float lift<float>(float v) { return v; }
-template <> __device__ __forceinline__ float lift<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// sin(y) as the reference's bf16 kernels compute it (_fast_sin): reduce
-// t = y/2pi - rint(y/2pi) (rint rounds half to even, as jnp.round does),
-// then an odd minimax polynomial in t, degree 7 (_SIN_C7) or 9 (_SIN_C).
-__device__ __forceinline__ float poly_sin(float y, bool degree9) {
-  float t = y * 0.15915494309189535f;
-  t = t - rintf(t);
-  const float s = t * t;
-  if (degree9) {
-    return t * (6.28308846f +
-                s * (-41.33324754f + s * (81.40008977f + s * (-74.67588387f + s * 33.16809461f))));
-  }
-  return t * (6.27863546f + s * (-41.09373072f + s * (77.93034984f + s * -56.08639487f)));
-}
-
-__device__ __forceinline__ float activate(float z, int act) {
-  switch (act) {
-    case kSinePoly7: return poly_sin(z, false);
-    case kSinePoly9: return poly_sin(z, true);
-    case kSineExact: return sinf(z);
-    case kTanh: return tanhf(z);
-    case kRelu: return fmaxf(z, 0.f);
-    case kSwish: return z * (1.f / (1.f + expf(-z)));
-    case kSigmoid: return 1.f / (1.f + expf(-z));
-    default: return z;
-  }
-}
-
-// acc[i][j] = sum_{k<K} A[r0+i][k] * W[k][tc + 32 j], W row-major [K, n] at
-// wg in global memory, staged through ws in chunks of kc rows. Begins and
-// ends with a barrier, so the caller may overwrite A as soon as it returns.
-template <typename T, int RM, int RN>
-__device__ __forceinline__ void tile_matmul(const float* __restrict__ A, int lda, int K,
-                                            const T* __restrict__ wg, int n,
-                                            float* __restrict__ ws, int kc, int r0, int tc,
-                                            float (&acc)[RM][RN]) {
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int j = 0; j < RN; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < K; k0 += kc) {
-    const int kn = min(kc, K - k0);
-    __syncthreads();  // A is complete and the previous chunk of ws is consumed
-    for (int idx = threadIdx.x; idx < kn * n; idx += kThreads)
-      ws[idx] = to_f32(wg[(size_t)k0 * n + idx]);
-    __syncthreads();
-#pragma unroll 4
-    for (int k = 0; k < kn; ++k) {
-      float w[RN];
-#pragma unroll
-      for (int j = 0; j < RN; ++j) {
-        const int c = tc + j * kLanes;
-        w[j] = c < n ? ws[k * n + c] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        const float a = A[(r0 + i) * lda + k0 + k];
-#pragma unroll
-        for (int j = 0; j < RN; ++j) acc[i][j] = fmaf(a, w[j], acc[i][j]);
-      }
-    }
-  }
-  __syncthreads();  // every thread has finished reading A
-}
 
 template <typename T, int RN>
 __device__ __forceinline__ void load_bias(float (&bias)[RN], const T* __restrict__ bg, int n,
@@ -191,7 +90,7 @@ __global__ void __launch_bounds__(kThreads)
 
     float acc[RM][RN], u[RM][RN], bias[RN];
     // First layer, K = si: z = x @ W0' + b0, u = act(z).
-    tile_matmul<T, RM, RN>(A, lda, si, wg, n, ws, kc, r0, tc, acc);
+    matmul_fwd<float, T, RM, RN, false, 4>(A, lda, si, TP, wg, n, ws, kc, r0, tc, acc);
     load_bias<T, RN>(bias, wg + o_b0, n, tc);
 #pragma unroll
     for (int i = 0; i < RM; ++i)
@@ -200,7 +99,8 @@ __global__ void __launch_bounds__(kThreads)
     store_tile<T, RM, RN>(A, lda, n, r0, tc, u);
 
     for (int m = 0; m < n_steps; ++m) {
-      tile_matmul<T, RM, RN>(A, lda, n, wg + o_wh + (long long)m * n * n, n, ws, kc, r0, tc, acc);
+      matmul_fwd<float, T, RM, RN, false, 4>(A, lda, n, TP, wg + o_wh + (long long)m * n * n, n,
+                                             ws, kc, r0, tc, acc);
       load_bias<T, RN>(bias, wg + o_bh + (long long)m * n, n, tc);
       if (chain == kSirenResblock && m % 2 == 0) {
         // h = sin(z) feeds the block's second matmul; u waits in registers.
@@ -249,9 +149,7 @@ __global__ void __launch_bounds__(kThreads)
 // owns RN = ceil(n / 32) (rounded up to a power of two) columns and RM rows,
 // at most 32 output elements; a block takes TP = RM * 8 points. Weights are
 // staged kc rows at a time, kc * n <= kWChunkFloats.
-constexpr int kMaxRn = 32;
 constexpr int kWChunkFloats = 8192;
-constexpr int rows_per_thread(int rn) { return rn <= 4 ? 8 : 32 / rn; }
 
 struct Geometry {
   int rn, tile, kc;
@@ -263,9 +161,8 @@ enum GeomStatus : int { kGeomOk = 0, kGeomTooWide = 1, kGeomTooMuchSmem = 2, kGe
 
 int geometry(int n, int si, Geometry* g) {
   if (n < 1 || si < 1) return kGeomBadShape;
-  int rn = 1;
-  while (kLanes * rn < n) rn *= 2;
-  if (rn > kMaxRn) return kGeomTooWide;
+  const int rn = columns_per_thread(n);
+  if (rn == 0) return kGeomTooWide;
   g->rn = rn;
   g->tile = rows_per_thread(rn) * kWarps;
   g->kc = kWChunkFloats / n > 1 ? kWChunkFloats / n : 1;
@@ -294,15 +191,10 @@ template <typename T>
 int dispatch(const Geometry& g, const void* wb, const void* x, void* out, int G, int P, int si,
              int so, int n, int n_mats, int n_steps, int chain, int act, long long po,
              cudaStream_t s) {
-  switch (g.rn) {
-    case 1: return launch<T, 1>(g, wb, x, out, G, P, si, so, n, n_mats, n_steps, chain, act, po, s);
-    case 2: return launch<T, 2>(g, wb, x, out, G, P, si, so, n, n_mats, n_steps, chain, act, po, s);
-    case 4: return launch<T, 4>(g, wb, x, out, G, P, si, so, n, n_mats, n_steps, chain, act, po, s);
-    case 8: return launch<T, 8>(g, wb, x, out, G, P, si, so, n, n_mats, n_steps, chain, act, po, s);
-    case 16: return launch<T, 16>(g, wb, x, out, G, P, si, so, n, n_mats, n_steps, chain, act, po, s);
-    case 32: return launch<T, 32>(g, wb, x, out, G, P, si, so, n, n_mats, n_steps, chain, act, po, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return with_rn(g.rn, [&](auto rn) {
+    return launch<T, decltype(rn)::value>(g, wb, x, out, G, P, si, so, n, n_mats, n_steps, chain,
+                                          act, po, s);
+  });
 }
 
 }  // namespace

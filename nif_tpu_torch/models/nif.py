@@ -10,6 +10,9 @@ Each model holds its configuration and its ParameterNet's parameters:
   differentiable through the fused backward kernel.
 * ``mse_value_and_grad(t, x, u)`` — the grouped weighted-MSE loss and its
   gradient, through the fused train kernel on the card (the train path).
+* ``sobolev_value_and_grad(t, x, u, target_jac=...)`` — the grouped Sobolev
+  loss (values and Jacobians) and its gradient, through the fused Sobolev
+  train kernel on the card.
 * ``regularization_loss`` — the configured L1/L2, activity and
   latent-Jacobian terms.
 * ``p_to_w / p_to_lr / lr_to_w / x_to_u_given_w(_grouped)`` — subnetwork
@@ -26,6 +29,7 @@ import dataclasses
 import logging
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -40,6 +44,12 @@ from ..ops.fused_shapenet import (
     kernel_geometry,
     shapenet_grouped_fused,
     shapenet_mse_grads,
+)
+from ..ops.derivatives import sobolev_loss_grouped
+from ..ops.fused_derivatives import (
+    derivative_geometry,
+    shapenet_sobolev_grads,
+    sobolev_fused_unsupported_reason,
 )
 from ..ops.shapenet import shapenet_grouped, shapenet_pointwise
 from ..utils.policy import get_policy
@@ -109,6 +119,7 @@ class NIF(nn.Module):
         self.po_dim = shapenet_param_count(self.cfg_shape_net, self.pi_hidden)
         self.pnet_kind = parameter_net_kind(self.cfg_parameter_net, self._vanilla_pnet)
         self._announced_paths = set()
+        self._announced_sobolev_paths = set()
         self.init(seed)
 
     # ---------------------------------------------------------------- init
@@ -293,6 +304,165 @@ class NIF(nn.Module):
             grads = [g if r is None else g + r for g, r in zip(grads, reg_grads)]
             loss = loss + reg_loss.detach()
         return loss, self._grad_tree(grads)
+
+    # ------------------------------------------------------ Sobolev training
+    def _derivative_kernel_cfg(self):
+        """(cfg, variant) of the chain the fused derivative kernels take:
+        the generated ShapeNet chain (NIF-linear's effective chain is not
+        ported yet)."""
+        return self.cfg_shape_net, self.shapenet_variant
+
+    def sobolev_path_info(self, P: int, si: int, hess: bool = False) -> Dict[str, Any]:
+        """Which path :meth:`sobolev_value_and_grad` takes for ``[G, P, si]``
+        batches under auto selection: ``{"path": "fused"|"eager", "tile":
+        int|None, "reason": str|None}``, the Sobolev counterpart of
+        :meth:`fast_path_info`. ``hess=True`` asks about Hessian targets,
+        whose fused kernel (K8) is not ported yet."""
+        if hess:
+            return {"path": "eager", "tile": None,
+                    "reason": "the fused Hessian train kernel (K8) is not ported yet "
+                              "(ROADMAP Slice D2)"}
+        cfg_k, variant_k = self._derivative_kernel_cfg()
+        reason = sobolev_fused_unsupported_reason(cfg_k, variant_k, P, si, self.device)
+        if reason is None and self._any_f64():
+            reason = "float64 parameters (the kernels take float32 or bfloat16)"
+        if reason is None and self.policy.compute_dtype not in (torch.float32, torch.bfloat16):
+            reason = (f"compute dtype {self.policy.compute_dtype} (the kernel takes float32 "
+                      f"or bfloat16)")
+        if reason is None and self.device.type != "cuda":
+            return {"path": "eager", "tile": None,
+                    "reason": f"not on CUDA (device {str(self.device)!r})"}
+        tile = None
+        if reason is None:
+            tile = derivative_geometry("sobolev", cfg_k, variant_k, 1, P,
+                                       self.policy.compute_dtype, si)["tile"]
+        return {"path": "fused" if reason is None else "eager", "tile": tile,
+                "reason": reason}
+
+    def _announce_sobolev_path(self, P: int, si: int, hess: bool = False) -> None:
+        """One-time log of the Sobolev train path for ``[G, P, si]``
+        batches (the Sobolev kernel's rules differ from the MSE kernel's)."""
+        if (P, si, hess) in self._announced_sobolev_paths:
+            return
+        self._announced_sobolev_paths.add((P, si, hess))
+        info = self.sobolev_path_info(P, si, hess=hess)
+        if info["path"] == "fused":
+            logger.info("sobolev fast path: fused CUDA kernel (P=%d, point tile %s)", P,
+                        info["tile"])
+        elif info["reason"].startswith("not on CUDA"):
+            logger.debug("sobolev path: eager (%s)", info["reason"])
+        else:
+            logger.warning("sobolev path FALLING BACK to eager for P=%d: %s — see PERF.md.",
+                           P, info["reason"])
+
+    def sobolev_value_and_grad(self, t, x, u, target_jac=None, target_hess=None,
+                               w_value: float = 1.0, w_jac: float = 1.0, w_hess: float = 1.0,
+                               y_index=None, x_index=None, fused: Optional[bool] = None,
+                               use_reg: bool = True, reg_weight=None, weight=None):
+        """The grouped Sobolev loss and its gradient: ``(total, terms,
+        grads)``, ``terms`` the value and Jacobian (and Hessian) MSEs as
+        0-dim tensors, ``grads`` keyed like the JAX params tree.
+
+        ``t [G, pi]``, ``x [G, P, si]``, ``u [G, P, so]`` (or the y_index
+        columns), ``target_jac [G, P, |y_index|, |x_index|]``, ``weight [G,
+        P]`` (optional; it multiplies every term's squared error under a
+        plain mean). The fused path runs the ParameterNet forward, then K6
+        (forward, Jacobian tangents, both MSE terms and the backward through
+        the tangent chain in one kernel on the card, its plain version on
+        the CPU), then sends ``d_wb`` back through the ParameterNet with
+        autograd; index subsets become 0/1 masks over full-width targets.
+        The eager path (``fused=False``, or no ``target_jac``) is autograd
+        over :func:`~nif_tpu_torch.ops.derivatives.sobolev_loss_grouped`.
+        Default (None): fused where :meth:`sobolev_path_info` says so.
+        ``target_hess`` (Hessian targets) needs the fused Hessian train
+        kernel K8, not ported yet: it raises unless ``fused=False``."""
+        G, P, si = x.shape
+        so = self.cfg_shape_net.output_dim
+        cfg_k, variant_k = self._derivative_kernel_cfg()
+        if target_hess is not None and fused is not False:
+            raise NotImplementedError(
+                "Hessian-target training through the fused kernel (K8, "
+                "shapenet_hessian_grads) is not ported to nif_tpu_torch yet (ROADMAP Slice "
+                "D2); pass fused=False for the eager path")
+        yi = None if y_index is None else np.atleast_1d(np.asarray(y_index))
+        xi = None if x_index is None else np.atleast_1d(np.asarray(x_index))
+        yi_full = np.arange(so) if yi is None else yi
+        xi_full = np.arange(si) if xi is None else xi
+        if target_jac is not None:
+            expect = (G, P, len(yi_full), len(xi_full))
+            if tuple(target_jac.shape) != expect:
+                raise ValueError(f"sobolev_value_and_grad: target_jac shape "
+                                 f"{tuple(target_jac.shape)} != {expect} for the given "
+                                 f"y_index/x_index")
+        if fused:
+            if target_jac is None:
+                raise ValueError("sobolev_value_and_grad: fused=True requires target_jac "
+                                 "(value-only training is mse_value_and_grad)")
+            bad = sobolev_fused_unsupported_reason(cfg_k, variant_k, P, si, self.device)
+            if bad is not None:
+                raise ValueError(f"sobolev_value_and_grad: fused=True unsupported here: {bad}")
+        if fused is None:
+            self._announce_sobolev_path(P, si, hess=target_hess is not None)
+            fused = (target_jac is not None
+                     and self.sobolev_path_info(P, si)["path"] == "fused")
+        params = [p for _, p in self.param_items()]
+        dev = self.device
+        u = torch.as_tensor(u, device=dev)
+        weight = None if weight is None else torch.as_tensor(weight, device=dev)
+        reg = use_reg and self.has_regularization
+        if not fused:
+            total, terms = sobolev_loss_grouped(
+                self, t, x, u, target_jac=target_jac, target_hess=target_hess,
+                w_value=w_value, w_jac=w_jac, w_hess=w_hess, y_index=y_index,
+                x_index=x_index, weight=weight)
+            if reg:
+                total = total + self.regularization_loss(t=t, reg_weight=reg_weight)
+            grads = torch.autograd.grad(total, params, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+            return (total.detach(), {k: v.detach() for k, v in terms.items()},
+                    self._grad_tree(grads))
+
+        # scatter index-subset targets to full width; 0/1 masks select them
+        if tuple(u.shape) == (G, P, so):
+            tgt, y_mask = u, None
+        elif yi is not None and tuple(u.shape) == (G, P, len(yi)):
+            tgt = torch.zeros((G, P, so), dtype=u.dtype, device=dev)
+            tgt[:, :, torch.as_tensor(yi, device=dev)] = u
+            y_mask = np.zeros(so, np.float32)
+            y_mask[yi] = 1.0
+        else:
+            raise ValueError(f"sobolev_value_and_grad: value targets shape {tuple(u.shape)} "
+                             f"matches neither the full output {(G, P, so)} nor the "
+                             f"y_index-selected columns")
+        jt = torch.as_tensor(target_jac, device=dev)
+        full_sel = (len(yi_full) == so and len(xi_full) == si
+                    and np.array_equal(yi_full, np.arange(so))
+                    and np.array_equal(xi_full, np.arange(si)))
+        if full_sel:
+            jac_mask = None
+        else:
+            full = torch.zeros((G, P, so, si), dtype=jt.dtype, device=dev)
+            full[:, :, torch.as_tensor(yi_full, device=dev)[:, None],
+                 torch.as_tensor(xi_full, device=dev)[None, :]] = jt
+            jt = full
+            mask = np.zeros((so, si), np.float32)
+            mask[yi_full[:, None], xi_full[None, :]] = 1.0
+            jac_mask = mask.T.reshape(si * so)  # the kernel's column k*so + j
+        jt_flat = jt.transpose(2, 3).reshape(G, P, si * so)
+
+        wb, _ = self.pnet(self._compute(t))
+        value_mse, jac_mse, d_wb = shapenet_sobolev_grads(
+            wb, self._compute(x), tgt, jt_flat, cfg_k, variant_k, w_value=w_value,
+            w_jac=w_jac, y_mask=y_mask, jac_mask=jac_mask, weight=weight)
+        grads = torch.autograd.grad(wb, params, d_wb)
+        terms = {"value_mse": value_mse, "jacobian_mse": jac_mse}
+        total = w_value * value_mse + w_jac * jac_mse
+        if reg:
+            reg_loss = self.regularization_loss(t=t, reg_weight=reg_weight)
+            reg_grads = torch.autograd.grad(reg_loss, params, allow_unused=True)
+            grads = [g if r is None else g + r for g, r in zip(grads, reg_grads)]
+            total = total + reg_loss.detach()
+        return total, terms, self._grad_tree(grads)
 
     # ------------------------------------------------------- regularization
     @property

@@ -1,4 +1,13 @@
 from ._build import LAUNCHES, reset_launches
+from .derivatives import (
+    jacobian_regularization,
+    output_and_jacobian,
+    output_and_jacobian_grouped,
+    output_jacobian_hessian,
+    output_jacobian_hessian_grouped,
+    sobolev_loss,
+    sobolev_loss_grouped,
+)
 from .fused_shapenet import (
     fused_supported,
     fused_unsupported_reason,
@@ -11,6 +20,13 @@ __all__ = [
     "shapenet_pointwise",
     "shapenet_grouped",
     "unpack_shapenet_weights",
+    "output_and_jacobian",
+    "output_and_jacobian_grouped",
+    "output_jacobian_hessian",
+    "output_jacobian_hessian_grouped",
+    "jacobian_regularization",
+    "sobolev_loss",
+    "sobolev_loss_grouped",
     "shapenet_grouped_fused",
     "shapenet_grouped_fused_reference",
     "fused_supported",

@@ -3,8 +3,10 @@
 Each ``nif_tpu_torch/csrc/<name>.cu`` has a plain C interface. On first use
 it is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library
 under ``build/nif_tpu_torch/`` at the root of the checkout, and loaded with
-``ctypes``. The library's file name carries a hash of the source and the
-flags, so an edited source is rebuilt and a stale library is never loaded.
+``ctypes``. The sources share device helpers through ``csrc/*.cuh``. The
+library's file name carries a hash of the source, the shared headers and
+the flags, so an edited source or header is rebuilt and a stale library is
+never loaded.
 Nothing here runs at import time: this module imports on a CPU-only torch.
 
 ``LAUNCHES`` counts kernel launches by kernel name. Each wrapper adds one
@@ -32,7 +34,8 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-LAUNCHES: Dict[str, int] = {"shapenet_fwd": 0, "shapenet_mse_grads": 0, "shapenet_bwd": 0}
+LAUNCHES: Dict[str, int] = {"shapenet_fwd": 0, "shapenet_mse_grads": 0, "shapenet_bwd": 0,
+                            "shapenet_fwd_jac": 0, "shapenet_sobolev_grads": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -56,8 +59,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256()
+    # the source and every shared header it may include, in a fixed order
+    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

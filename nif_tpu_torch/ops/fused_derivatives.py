@@ -1,0 +1,536 @@
+"""The fused derivative kernels of the grouped ShapeNet chain (counterparts
+of ``nif_tpu/ops/pallas_shapenet.py``):
+
+* **K5**, :func:`shapenet_fwd_jac`: ``wb [G, po]``, ``x [G, P, si]`` ->
+  ``(y [G, P, so], jac [G, P, so, si])`` in x's dtype. With ``so < si`` it
+  runs the residual-saving forward and ``so`` dx-only cotangent sweeps (the
+  Pallas ``_jac_rev_layers``); otherwise the ``si`` forward tangent streams
+  ride the forward, stacked under the value rows of every product (the
+  Pallas ``_fwd_jac_layers``).
+* **K6**, :func:`shapenet_sobolev_grads`: the stacked forward with its
+  residuals, the masked, weighted value and Jacobian MSE, and the backward
+  through the tangent chain (which multiplies by ``act''``) in one pass,
+  ``(value_mse, jac_mse, d_wb)`` (the Pallas ``_sobolev_kernel``).
+
+Rounding points, beyond those of K1-K3 (``fused_shapenet``): the tangent
+streams are kept in f32 and rounded to the compute dtype at every product
+(the stacked state S is stored rounded, since every use rounds it); the raw
+products Z stay f32; the reverse sweeps carry ``du`` in f32 and round each
+``dz`` before its product; the targets are rounded to x's dtype; K5's
+outputs are cast to x's dtype; K6's bias gradients sum the unrounded ``dz``.
+
+On a CUDA tensor each entry launches its hand-written kernel
+(``nif_tpu_torch/csrc/shapenet_jac.cu``), or raises. On a CPU tensor it
+runs the plain PyTorch version (``*_reference``), which the CPU tests hold
+against the JAX package's interpret-mode kernels and ``chip_smoke.py`` holds
+the CUDA kernels against. Nothing here falls back to another path: callers
+route (``ops.derivatives``, ``NIF.sobolev_value_and_grad``) with the
+``*_supported`` gates.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..config import ShapeNetConfig
+from . import _build
+from .fused_shapenet import (
+    _DTYPE_CODES,
+    _act_code,
+    _act_triple,
+    _chain_code,
+    _chain_lists,
+    _check_cuda_inputs,
+    _flat_grads,
+    _forward_saved,
+    _n_mats,
+    _n_scaled,
+    _prescale,
+    _raise_on_error,
+    _unscale_grads,
+    _train_act_code,
+    fused_unsupported_reason,
+)
+from .shapenet import unpack_shapenet_weights
+
+__all__ = [
+    "shapenet_fwd_jac",
+    "shapenet_fwd_jac_reference",
+    "shapenet_fwd_jac_cuda",
+    "shapenet_sobolev_grads",
+    "shapenet_sobolev_grads_reference",
+    "shapenet_sobolev_grads_cuda",
+    "fwd_jac_supported",
+    "fwd_jac_unsupported_reason",
+    "sobolev_fused_supported",
+    "sobolev_fused_unsupported_reason",
+    "derivative_geometry",
+]
+
+# Kernel bodies of csrc/shapenet_jac.cu (its enum Mode).
+_MODES = {"reverse": 0, "tangent": 1, "sobolev": 2}
+
+
+def _jac_mode(cfg: ShapeNetConfig, si: int) -> str:
+    """K5's body: reverse sweeps when there are fewer outputs than inputs."""
+    return "reverse" if cfg.output_dim < si else "tangent"
+
+
+# --------------------------------------------------------------- geometry
+def _library() -> ctypes.CDLL:
+    lib = _build.load_library("shapenet_jac")
+    if lib.nif_shapenet_fwd_jac.argtypes is None:
+        c_int, ptr, c_ll, c_f = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
+        lib.nif_shapenet_jac_workspace.argtypes = [c_int] * 9 + [ptr] * 5
+        lib.nif_shapenet_jac_workspace.restype = c_int
+        lib.nif_shapenet_fwd_jac.argtypes = [ptr] * 5 + [c_int] * 8 + [c_ll, c_int, ptr]
+        lib.nif_shapenet_fwd_jac.restype = c_int
+        lib.nif_shapenet_sobolev_grads.argtypes = (
+            [ptr] * 11 + [c_int] * 8 + [c_ll, c_ll] + [c_f] * 5 + [c_int, ptr])
+        lib.nif_shapenet_sobolev_grads.restype = c_int
+        lib.nif_cuda_error_string.argtypes = [c_int]
+        lib.nif_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _geometry_status(mode: str, cfg: ShapeNetConfig, variant: str, si: int, G: int, P: int,
+                     dtype: torch.dtype):
+    tile, splits = ctypes.c_int(), ctypes.c_int()
+    smem, partial_floats, scratch = ctypes.c_longlong(), ctypes.c_longlong(), ctypes.c_longlong()
+    status = _library().nif_shapenet_jac_workspace(
+        _MODES[mode], cfg.units, si, cfg.output_dim, _n_mats(cfg), _chain_code(cfg, variant),
+        G, P, _DTYPE_CODES[dtype], ctypes.byref(tile), ctypes.byref(splits),
+        ctypes.byref(smem), ctypes.byref(partial_floats), ctypes.byref(scratch))
+    geo = {"mode": mode, "tile": tile.value, "splits": splits.value,
+           "smem_bytes": smem.value, "residuals": "global" if scratch.value else "shared",
+           "partial_floats": partial_floats.value, "scratch_bytes": scratch.value}
+    return status, geo
+
+
+def _status_reason(status: int, cfg: ShapeNetConfig, si: int, geo: dict) -> Optional[str]:
+    if status == 0:
+        return None
+    if status == 1:
+        return (f"units={cfg.units} is wider than the CUDA derivative kernels take (a "
+                f"thread keeps its columns of a layer in registers)")
+    if status == 2:
+        return (f"units={cfg.units} needs {geo['smem_bytes']} bytes of shared memory per "
+                f"block, more than a block may have")
+    if status == 4:
+        return (f"si={si}: {1 + si} stacked streams do not fit the CUDA kernel's point "
+                f"tile at units={cfg.units}")
+    return f"the CUDA derivative kernels cannot take {cfg} with si={si} (status {status})"
+
+
+def derivative_geometry(mode: str, cfg: ShapeNetConfig, variant: str, G: int, P: int,
+                        dtype: torch.dtype, si: Optional[int] = None) -> dict:
+    """The launch geometry of one body of ``csrc/shapenet_jac.cu`` (``mode``
+    "reverse" or "tangent" for K5, "sobolev" for K6) at ``[G, P]``, from the
+    kernels' library (it needs nvcc): points per tile, P splits per group,
+    shared memory per block, whether a tile's residuals sit in shared memory
+    or in a per-block global scratch, and the workspace sizes the wrappers
+    allocate."""
+    si = cfg.input_dim if si is None else si
+    status, geo = _geometry_status(mode, cfg, variant, si, G, P, dtype)
+    if status != 0:
+        raise ValueError(_status_reason(status, cfg, si, geo))
+    return geo
+
+
+def _cuda_reason(mode: str, cfg: ShapeNetConfig, variant: str, si: int) -> Optional[str]:
+    """The CUDA body's own limits (width, streams, shared memory); they do
+    not depend on the dtype, G or P."""
+    status, geo = _geometry_status(mode, cfg, variant, si, 1, 1, torch.bfloat16)
+    return _status_reason(status, cfg, si, geo)
+
+
+def fwd_jac_unsupported_reason(cfg: ShapeNetConfig, variant: str, P: int, si: int,
+                               device=None) -> Optional[str]:
+    """Why K5 can NOT take this config (None = it can). The reasons and
+    their strings are the JAX package's (its P rule kept for routing
+    parity, though the kernel masks a ragged tile); on a CUDA ``device``
+    the CUDA body's own limits apply too."""
+    base = fused_unsupported_reason(cfg, variant, P)
+    if base is None and device is not None and torch.device(device).type == "cuda":
+        return _cuda_reason(_jac_mode(cfg, si), cfg, variant, si)
+    return base
+
+
+def fwd_jac_supported(cfg: ShapeNetConfig, variant: str, P: int, si: int,
+                      device=None) -> bool:
+    return fwd_jac_unsupported_reason(cfg, variant, P, si, device) is None
+
+
+def sobolev_fused_unsupported_reason(cfg: ShapeNetConfig, variant: str, P: int, si: int,
+                                     device=None) -> Optional[str]:
+    """Why K6 can NOT take this config (None = it can); as
+    :func:`fwd_jac_unsupported_reason`."""
+    base = fused_unsupported_reason(cfg, variant, P)
+    if base is None and device is not None and torch.device(device).type == "cuda":
+        return _cuda_reason("sobolev", cfg, variant, si)
+    return base
+
+
+def sobolev_fused_supported(cfg: ShapeNetConfig, variant: str, P: int, si: int,
+                            device=None) -> bool:
+    return sobolev_fused_unsupported_reason(cfg, variant, P, si, device) is None
+
+
+# ----------------------------------------------------------- plain versions
+def _acc(dtype: torch.dtype) -> torch.dtype:
+    return torch.promote_types(dtype, torch.float32)
+
+
+def _lifter(cdt: torch.dtype):
+    acc = _acc(cdt)
+    return lambda a: a.to(cdt).to(acc)
+
+
+def _jac_reverse(wbp, x, cfg, variant):
+    """``_jac_rev_layers``: the residual-saving forward, then one dx-only
+    cotangent sweep per output from the one-hot last-layer column. Returns
+    ``(out f32 [G, P, so], jac f32 [G, P, so, si])``."""
+    cdt = x.dtype
+    acc, lift = _acc(cdt), _lifter(cdt)
+    out, _ins, dacts, ws = _forward_saved(wbp, x, cfg, variant)
+    d1s = [d.to(acc) for d in dacts]
+
+    def back(dz, w):  # lift(dz) @ w^T, f32
+        return torch.matmul(lift(dz), w.to(acc).transpose(-1, -2))
+
+    l = cfg.nlayers
+    cols = []
+    for j in range(cfg.output_dim):
+        du = ws[-1][..., j].to(acc).unsqueeze(-2)  # [G, 1, n]
+        if variant == "siren" and cfg.use_resblock:
+            for i in range(l - 1, -1, -1):
+                dh = back(0.5 * du * d1s[2 + 2 * i], ws[2 + 2 * i])
+                du = 0.5 * du + back(dh * d1s[1 + 2 * i], ws[1 + 2 * i])
+        elif variant == "siren":
+            for i in range(l - 1, -1, -1):
+                du = back(du * d1s[1 + i], ws[1 + i])
+        else:
+            for i in range(l - 1, -1, -1):
+                du = du + back(du * d1s[1 + i], ws[1 + i])
+        cols.append(back(du * d1s[0], ws[0]))  # [G, P, si]
+    return out, torch.stack(cols, dim=2)
+
+
+def _tangent_forward(wbp, x, cfg, variant, save: bool):
+    """``_fwd_jac_layers``: the chain with ``si`` tangent streams stacked
+    under the value rows, ``S [G, 1 + si, P, n]`` (stream 0 the values,
+    stream 1 + k the tangent d/dx_k). Returns ``(out f32 [G, P, so], O f32
+    [G, 1 + si, P, so], saved)`` where ``O[:, 1 + k]`` is d out / d x_k and
+    ``saved = (z0, S_list, Z_list, ws, bs)`` when ``save`` (``S_list`` the
+    lifted input of every hidden product and of the last one, ``Z_list``
+    the f32 product of every hidden matrix)."""
+    cdt = x.dtype
+    acc, lift = _acc(cdt), _lifter(cdt)
+    act, d1, _ = _act_triple(cfg, variant, cdt)
+    ws, bs = _chain_lists(unpack_shapenet_weights(wbp, cfg))
+    si = x.shape[-1]
+    w0 = ws[0].to(acc)
+    z0 = torch.matmul(x.to(acc), w0) + bs[0].to(acc).unsqueeze(-2)
+    g0 = d1(z0)
+    S = torch.stack([act(z0)] + [g0 * w0[:, k].unsqueeze(-2) for k in range(si)], dim=1)
+    S_list, Z_list = [], []
+
+    def app(S, i):
+        Z = torch.matmul(lift(S), ws[i].to(acc).unsqueeze(1))
+        if save:
+            S_list.append(lift(S))
+            Z_list.append(Z)
+        z = Z[:, 0] + bs[i].to(acc).unsqueeze(-2)
+        return Z, z, d1(z)
+
+    def stacked(value, tangents):
+        return torch.cat([value.unsqueeze(1), tangents], dim=1)
+
+    l = cfg.nlayers
+    if variant == "siren" and cfg.use_resblock:
+        for i in range(l):
+            Z1, z1, g1 = app(S, 1 + 2 * i)
+            Sh = stacked(act(z1), g1.unsqueeze(1) * Z1[:, 1:])
+            Z2, z2, g2 = app(Sh, 2 + 2 * i)
+            S = stacked(0.5 * (S[:, 0] + act(z2)), 0.5 * (S[:, 1:] + g2.unsqueeze(1) * Z2[:, 1:]))
+    elif variant == "siren":
+        for i in range(l):
+            Z, z, g = app(S, 1 + i)
+            S = stacked(act(z), g.unsqueeze(1) * Z[:, 1:])
+    elif variant == "vanilla":
+        for i in range(l):
+            Z, z, g = app(S, 1 + i)
+            S = stacked(act(z) + S[:, 0], g.unsqueeze(1) * Z[:, 1:] + S[:, 1:])
+    else:
+        raise ValueError(f"unknown shapenet variant {variant!r}")
+    if save:
+        S_list.append(lift(S))
+    O = torch.matmul(lift(S), ws[-1].to(acc).unsqueeze(1))
+    out = O[:, 0] + bs[-1].to(acc).unsqueeze(-2)
+    return out, O, ((z0, S_list, Z_list, ws, bs) if save else None)
+
+
+def shapenet_fwd_jac_reference(wb: torch.Tensor, x: torch.Tensor, cfg: ShapeNetConfig,
+                               variant: str = "siren"):
+    """The plain PyTorch version of K5: ``(y [G, P, so], jac [G, P, so,
+    si])`` in x's dtype, with the kernel's mode rule (reverse sweeps when
+    so < si, forward tangents otherwise) and rounding points."""
+    wbp = _prescale(wb, cfg, variant)
+    if _jac_mode(cfg, x.shape[-1]) == "reverse":
+        out, jac = _jac_reverse(wbp, x, cfg, variant)
+    else:
+        out, O, _ = _tangent_forward(wbp, x, cfg, variant, save=False)
+        jac = O[:, 1:].permute(0, 2, 3, 1)  # [G, si, P, so] -> [G, P, so, si]
+    return out.to(x.dtype), jac.to(x.dtype)
+
+
+def _mask_tensor(mask, n: int, like: torch.Tensor) -> Optional[torch.Tensor]:
+    if mask is None:
+        return None
+    m = torch.as_tensor(np.asarray(mask, np.float32).reshape(-1), device=like.device)
+    if m.numel() != n:
+        raise ValueError(f"mask has {m.numel()} entries, expected {n}")
+    return m
+
+
+def _sobolev_scales(G, P, si, so, w_value, w_jac, y_mask, jac_mask):
+    """``(n_y, n_j, ky, kj)``: the selected entries of each term and the
+    factors 2 w / n of their cotangents (the JAX wrapper's)."""
+    n_y = G * P * (int(np.sum(y_mask)) if y_mask is not None else so)
+    n_j = G * P * (int(np.sum(jac_mask)) if jac_mask is not None else si * so)
+    return n_y, n_j, 2.0 * float(w_value) / n_y, 2.0 * float(w_jac) / n_j
+
+
+def _sobolev_backward(D_out, x, saved, cfg, variant):
+    """``_sobolev_backward_chain``: reverse the stacked chain from the
+    stacked cotangent ``D_out [G, 1 + si, P, so]`` of the last product.
+    Returns the per-layer ``(dws, dbs)`` in f32."""
+    cdt = x.dtype
+    acc, lift = _acc(cdt), _lifter(cdt)
+    z0, S_list, Z_list, ws, bs = saved
+    _, d1, d2 = _act_triple(cfg, variant, cdt)
+    G, NS, P, _ = D_out.shape
+    n_w = len(ws)
+    dws, dbs = [None] * n_w, [None] * n_w
+
+    def w_grad(S_in, D):  # lift(S_in)^T lift(D), summed over streams and points
+        return torch.matmul(S_in.reshape(G, NS * P, -1).transpose(-1, -2),
+                            lift(D).reshape(G, NS * P, -1))
+
+    def back(D, w):
+        return torch.matmul(lift(D), w.to(acc).transpose(-1, -2).unsqueeze(1))
+
+    def curvature(dS, Z, b, scale):
+        """(dz, dts, g): dz = scale du g + sum_k scale dt_k Z_k act''(z)."""
+        z = Z[:, 0] + b.to(acc).unsqueeze(-2)
+        g, h = d1(z), d2(z)
+        dts = scale * dS[:, 1:] if scale != 1.0 else dS[:, 1:]
+        dz = (scale * dS[:, 0]) * g if scale != 1.0 else dS[:, 0] * g
+        for k in range(NS - 1):
+            dz = dz + dts[:, k] * Z[:, 1 + k] * h
+        return dz, dts, g
+
+    def app_bwd(dz, dts, g, S_in, w):
+        D = torch.cat([dz.unsqueeze(1), dts * g.unsqueeze(1)], dim=1)
+        return w_grad(S_in, D), dz.sum(dim=-2), back(D, w)
+
+    dws[-1] = w_grad(S_list[-1], D_out)
+    dbs[-1] = D_out[:, 0].sum(dim=-2)
+    dS = back(D_out, ws[-1])
+    l = cfg.nlayers
+    if variant == "siren" and cfg.use_resblock:
+        for i in range(l - 1, -1, -1):
+            dz2, dts2, g2 = curvature(dS, Z_list[2 * i + 1], bs[2 + 2 * i], 0.5)
+            dws[2 + 2 * i], dbs[2 + 2 * i], dSh = app_bwd(dz2, dts2, g2, S_list[2 * i + 1],
+                                                          ws[2 + 2 * i])
+            dz1, dts1, g1 = curvature(dSh, Z_list[2 * i], bs[1 + 2 * i], 1.0)
+            dws[1 + 2 * i], dbs[1 + 2 * i], dS_new = app_bwd(dz1, dts1, g1, S_list[2 * i],
+                                                             ws[1 + 2 * i])
+            dS = dS_new + 0.5 * dS  # the skip path
+    else:
+        for i in range(l - 1, -1, -1):
+            dz, dts, g = curvature(dS, Z_list[i], bs[1 + i], 1.0)
+            dws[1 + i], dbs[1 + i], dS_new = app_bwd(dz, dts, g, S_list[i], ws[1 + i])
+            # the vanilla shortcut passes the gradient straight through
+            dS = dS_new + dS if variant == "vanilla" else dS_new
+    # first layer: z0 = x @ W0 + b0, tangent seeds t_k = act'(z0) W0[k, :]
+    g0, h0 = d1(z0), d2(z0)
+    w0 = ws[0].to(acc)
+    dz0 = dS[:, 0] * g0
+    for k in range(NS - 1):
+        dz0 = dz0 + dS[:, 1 + k] * w0[:, k].unsqueeze(-2) * h0
+    dw0 = torch.matmul(lift(x).transpose(-1, -2), lift(dz0))
+    seed_rows = torch.stack([(dS[:, 1 + k] * g0).sum(dim=-2) for k in range(NS - 1)], dim=1)
+    dws[0] = dw0 + seed_rows
+    dbs[0] = dz0.sum(dim=-2)
+    return dws, dbs
+
+
+def shapenet_sobolev_grads_reference(wb: torch.Tensor, x: torch.Tensor, target: torch.Tensor,
+                                     jac_target: torch.Tensor, cfg: ShapeNetConfig,
+                                     variant: str = "siren", w_value: float = 1.0,
+                                     w_jac: float = 1.0, y_mask=None, jac_mask=None,
+                                     weight: Optional[torch.Tensor] = None):
+    """The plain PyTorch version of K6: ``(value_mse, jac_mse, d_wb)`` of
+    ``w_value mean_sel(weight (y - target)^2) + w_jac mean_sel(weight (jac -
+    jac_target)^2)``, with the kernel's rounding points.
+
+    ``target [G, P, so]``, ``jac_target [G, P, si*so]`` in the kernel's flat
+    layout (column ``k*so + j`` = d y_j / d x_k), both zero outside the 0/1
+    masks ``y_mask [so]`` and ``jac_mask [si*so]`` (None = every entry) and
+    cast to x's dtype; ``weight [G, P]`` (optional, cast to x's dtype)
+    multiplies both squared errors. The means run over the selected
+    entries; ``d_wb`` (wb's dtype) carries both term weights."""
+    G, P, si = x.shape
+    so = cfg.output_dim
+    cdt = x.dtype
+    acc, lift = _acc(cdt), _lifter(cdt)
+    n_y, n_j, ky, kj = _sobolev_scales(G, P, si, so, w_value, w_jac, y_mask, jac_mask)
+    out, O, saved = _tangent_forward(_prescale(wb, cfg, variant), x, cfg, variant, save=True)
+    err_y = out - lift(target)
+    jt = lift(jac_target).reshape(G, P, si, so).permute(0, 2, 1, 3)  # [G, si, P, so]
+    err_j = O[:, 1:] - jt
+    ym = _mask_tensor(y_mask, so, x)
+    if ym is not None:
+        err_y = err_y * ym
+    jm = _mask_tensor(jac_mask, si * so, x)
+    if jm is not None:
+        err_j = err_j * jm.reshape(si, 1, so)
+    if weight is None:
+        lv = torch.sum(torch.square(err_y))
+        lj = torch.sum(torch.square(err_j))
+        D_out = torch.cat([(ky * err_y).unsqueeze(1), kj * err_j], dim=1)
+    else:
+        w = lift(weight).unsqueeze(-1)
+        lv = torch.sum(torch.square(err_y) * w)
+        lj = torch.sum(torch.square(err_j) * w.unsqueeze(1))
+        D_out = torch.cat([(ky * err_y * w).unsqueeze(1), kj * err_j * w.unsqueeze(1)], dim=1)
+    dws, dbs = _sobolev_backward(D_out, x, saved, cfg, variant)
+    d_wb = _unscale_grads(_flat_grads(dws, dbs, G), cfg, variant)
+    return lv / n_y, lj / n_j, d_wb.to(wb.dtype)
+
+
+# ----------------------------------------------------------- CUDA wrappers
+def _workspace(mode: str, cfg: ShapeNetConfig, variant: str, x: torch.Tensor):
+    geo = derivative_geometry(mode, cfg, variant, x.shape[0], x.shape[1], x.dtype)
+    partials = torch.empty(max(geo["partial_floats"], 1), dtype=torch.float32, device=x.device)
+    scratch = torch.empty(max(geo["scratch_bytes"], 1), dtype=torch.uint8, device=x.device)
+    return partials, scratch
+
+
+def shapenet_fwd_jac_cuda(wb: torch.Tensor, x: torch.Tensor, cfg: ShapeNetConfig,
+                          variant: str = "siren"):
+    """Launch K5 on ``torch.cuda.current_stream()``: ``(y, jac)`` as
+    :func:`shapenet_fwd_jac_reference` computes them. Raises on anything the
+    kernel does not take; never falls back."""
+    si = x.shape[-1] if x.dim() == 3 else cfg.input_dim
+    _check_cuda_inputs("shapenet_fwd_jac_cuda", wb, x, cfg, variant,
+                       lambda c, v, P, d: fwd_jac_unsupported_reason(c, v, P, si, d))
+    G, P, si = x.shape
+    so = cfg.output_dim
+    y = torch.empty((G, P, so), dtype=x.dtype, device=x.device)
+    jac = torch.empty((G, P, so, si), dtype=x.dtype, device=x.device)
+    if G == 0 or P == 0:
+        return y, jac
+    mode = _jac_mode(cfg, si)
+    act = _train_act_code(cfg, variant, x.dtype) if mode == "reverse" else _act_code(
+        cfg, variant, x.dtype)
+    wbp = _prescale(wb, cfg, variant).contiguous()
+    x = x.contiguous()
+    lib = _library()
+    with torch.cuda.device(x.device):  # the geometry reads this device's SM count
+        _, scratch = _workspace(mode, cfg, variant, x)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.nif_shapenet_fwd_jac(
+            wbp.data_ptr(), x.data_ptr(), y.data_ptr(), jac.data_ptr(), scratch.data_ptr(),
+            G, P, si, so, cfg.units, _n_mats(cfg), _chain_code(cfg, variant), act,
+            wb.shape[1], _DTYPE_CODES[x.dtype], stream,
+        )
+    _raise_on_error(lib, "shapenet_fwd_jac", err)
+    _build.LAUNCHES["shapenet_fwd_jac"] += 1
+    return y, jac
+
+
+def _device_tensor(a, name: str, shape, x: torch.Tensor, dtype) -> torch.Tensor:
+    if tuple(a.shape) != tuple(shape) or a.device != x.device:
+        raise ValueError(f"{name} {tuple(a.shape)} on {a.device} is not {tuple(shape)} "
+                         f"on {x.device}")
+    return a.to(dtype).contiguous()
+
+
+def shapenet_sobolev_grads_cuda(wb: torch.Tensor, x: torch.Tensor, target: torch.Tensor,
+                                jac_target: torch.Tensor, cfg: ShapeNetConfig,
+                                variant: str = "siren", w_value: float = 1.0,
+                                w_jac: float = 1.0, y_mask=None, jac_mask=None,
+                                weight: Optional[torch.Tensor] = None):
+    """Launch K6 on ``torch.cuda.current_stream()``: ``(value_mse, jac_mse,
+    d_wb)`` as :func:`shapenet_sobolev_grads_reference` computes them.
+    Raises on anything the kernel does not take; never falls back."""
+    si = x.shape[-1] if x.dim() == 3 else cfg.input_dim
+    _check_cuda_inputs("shapenet_sobolev_grads_cuda", wb, x, cfg, variant,
+                       lambda c, v, P, d: sobolev_fused_unsupported_reason(c, v, P, si, d))
+    G, P, si = x.shape
+    so = cfg.output_dim
+    target = _device_tensor(target, "target", (G, P, so), x, x.dtype)
+    jac_target = _device_tensor(jac_target, "jac_target", (G, P, si * so), x, x.dtype)
+    if weight is not None:
+        weight = _device_tensor(weight, "weight", (G, P), x, x.dtype)
+    ym = _mask_tensor(y_mask, so, x)
+    jm = _mask_tensor(jac_mask, si * so, x)
+    d_wb = torch.empty_like(wb, memory_format=torch.contiguous_format)
+    losses = torch.empty(2, dtype=torch.float32, device=x.device)
+    if G == 0 or P == 0:
+        return losses[0].fill_(float("nan")), losses[1].fill_(float("nan")), d_wb.zero_()
+    n_y, n_j, ky, kj = _sobolev_scales(G, P, si, so, w_value, w_jac, y_mask, jac_mask)
+    wbp = _prescale(wb, cfg, variant).contiguous()
+    x = x.contiguous()
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    lib = _library()
+    with torch.cuda.device(x.device):
+        partials, scratch = _workspace("sobolev", cfg, variant, x)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.nif_shapenet_sobolev_grads(
+            wbp.data_ptr(), x.data_ptr(), target.data_ptr(), jac_target.data_ptr(), ptr(ym),
+            ptr(jm), ptr(weight), losses.data_ptr(), d_wb.data_ptr(), partials.data_ptr(),
+            scratch.data_ptr(), G, P, si, so, cfg.units, _n_mats(cfg),
+            _chain_code(cfg, variant), _act_code(cfg, variant, x.dtype), wb.shape[1],
+            _n_scaled(cfg, variant), float(cfg.omega_0) if variant == "siren" else 1.0,
+            ky, kj, float(n_y), float(n_j), _DTYPE_CODES[x.dtype], stream,
+        )
+    _raise_on_error(lib, "shapenet_sobolev_grads", err)
+    _build.LAUNCHES["shapenet_sobolev_grads"] += 1
+    return losses[0], losses[1], d_wb
+
+
+# ---------------------------------------------------------------- entries
+def shapenet_fwd_jac(wb: torch.Tensor, x: torch.Tensor, cfg: ShapeNetConfig,
+                     variant: str = "siren"):
+    """Fused ``(y, dy/dx)`` of the grouped chain: ``wb [G, po]``, ``x [G, P,
+    si]`` -> ``y [G, P, so]``, ``jac [G, P, so, si]`` in x's dtype. Not
+    differentiable (an evaluation kernel, as in the JAX package). A CUDA
+    tensor launches K5, a CPU tensor runs plain K5; callers check
+    :func:`fwd_jac_supported` first."""
+    wb, x = wb.detach(), x.detach()
+    if x.device.type == "cpu":
+        return shapenet_fwd_jac_reference(wb, x, cfg, variant)
+    return shapenet_fwd_jac_cuda(wb, x, cfg, variant)
+
+
+def shapenet_sobolev_grads(wb: torch.Tensor, x: torch.Tensor, target: torch.Tensor,
+                           jac_target: torch.Tensor, cfg: ShapeNetConfig,
+                           variant: str = "siren", w_value: float = 1.0, w_jac: float = 1.0,
+                           y_mask=None, jac_mask=None, weight: Optional[torch.Tensor] = None):
+    """Fused Sobolev train-step core: ``(value_mse, jac_mse, d_wb)`` (see
+    :func:`shapenet_sobolev_grads_reference` for the arguments). The caller
+    combines ``w_value value_mse + w_jac jac_mse`` and sends ``d_wb`` on
+    through the ParameterNet. A CUDA tensor launches K6, a CPU tensor runs
+    plain K6; callers check :func:`sobolev_fused_supported` first."""
+    wb, x = wb.detach(), x.detach()
+    if x.device.type == "cpu":
+        return shapenet_sobolev_grads_reference(wb, x, target, jac_target, cfg, variant,
+                                                w_value, w_jac, y_mask, jac_mask, weight)
+    return shapenet_sobolev_grads_cuda(wb, x, target, jac_target, cfg, variant, w_value,
+                                       w_jac, y_mask, jac_mask, weight)

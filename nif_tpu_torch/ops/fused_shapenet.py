@@ -67,6 +67,7 @@ __all__ = [
     "fast_sin",
     "fast_sin_grad",
     "fast_sin_and_grad",
+    "fast_sin_grad2",
     "kernel_geometry",
     "train_geometry",
 ]
@@ -124,6 +125,21 @@ def fast_sin_and_grad(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return _sin_poly(t), _dsin_poly(t) * _INV2PI
 
 
+def fast_sin_grad2(y: torch.Tensor) -> torch.Tensor:
+    """d2/dy2 of :func:`fast_sin`, the exact curvature of the polynomial:
+    P''(t) = t (6 c3 + 20 c5 s + 42 c7 s^2 [+ 72 c9 s^3]), s = t^2, times
+    (1/2pi)^2."""
+    t = _reduce(y)
+    s = t * t
+    if _sin_degree() == 7:
+        _, c3, c5, c7 = _SIN_C7
+        poly = 6 * c3 + s * (20 * c5 + s * (42 * c7))
+    else:
+        _, c3, c5, c7, c9 = _SIN_C
+        poly = 6 * c3 + s * (20 * c5 + s * (42 * c7 + s * (72 * c9)))
+    return t * poly * (_INV2PI * _INV2PI)
+
+
 # Vanilla-chain activations the kernel implements (the JAX kernel's
 # _act_pair table), evaluated on f32 pre-activations.
 _VANILLA_ACTS = {
@@ -157,6 +173,34 @@ _VANILLA_DERIVS = {
     "silu": _d_swish,
     "sigmoid": _d_sigmoid,
     "linear": torch.ones_like,
+}
+
+
+def _d2_tanh(z):
+    a = torch.tanh(z)
+    return -2.0 * a * (1.0 - torch.square(a))
+
+
+def _d2_swish(z):
+    s = torch.sigmoid(z)
+    return s * (1.0 - s) * (2.0 + z * (1.0 - 2.0 * s))
+
+
+def _d2_sigmoid(z):
+    s = torch.sigmoid(z)
+    return s * (1.0 - s) * (1.0 - 2.0 * s)
+
+
+# Their second derivatives (the JAX kernel's _act_triple): reverse mode
+# through a forward-mode tangent multiplies by act''.
+_VANILLA_DERIVS2 = {
+    "sine": lambda z: -torch.sin(z),
+    "tanh": _d2_tanh,
+    "relu": torch.zeros_like,
+    "swish": _d2_swish,
+    "silu": _d2_swish,
+    "sigmoid": _d2_sigmoid,
+    "linear": torch.zeros_like,
 }
 
 # Codes shared with csrc/shapenet_fwd.cu and csrc/shapenet_bwd.cu (enum
@@ -262,6 +306,19 @@ def _act_with_grad(cfg: ShapeNetConfig, variant: str,
         return lambda z: (torch.sin(z), torch.cos(z))
     act, dact = _VANILLA_ACTS[cfg.activation], _VANILLA_DERIVS[cfg.activation]
     return lambda z: (act(z), dact(z))
+
+
+def _act_triple(cfg: ShapeNetConfig, variant: str, cdt: torch.dtype):
+    """(act, act', act'') on f32 z of the tangent chains (K5's forward
+    tangents, K6): the activation K1 takes (:func:`_act_code`), i.e. the
+    JAX kernel's ``_trig2_for`` (the polynomial for a bf16 SIREN chain, the
+    true sine in f32) or ``_act_triple`` (vanilla chains, exact)."""
+    if variant == "siren":
+        if cdt == torch.bfloat16:
+            return fast_sin, fast_sin_grad, fast_sin_grad2
+        return torch.sin, torch.cos, lambda z: -torch.sin(z)
+    name = cfg.activation
+    return _VANILLA_ACTS[name], _VANILLA_DERIVS[name], _VANILLA_DERIVS2[name]
 
 
 def _n_scaled(cfg: ShapeNetConfig, variant: str) -> int:
@@ -514,10 +571,12 @@ def train_geometry(cfg: ShapeNetConfig, G: int, P: int, dtype: torch.dtype) -> d
 
 
 def _check_cuda_inputs(name: str, wb: torch.Tensor, x: torch.Tensor, cfg: ShapeNetConfig,
-                       variant: str) -> None:
+                       variant: str, unsupported: Callable = None) -> None:
     """What every CUDA wrapper refuses: tensors off CUDA, a dtype other than
     float32/bfloat16 (wb and x must share it), shapes that do not match
-    ``cfg``, or a config the kernels cannot take."""
+    ``cfg``, or a config the kernel cannot take: ``unsupported(cfg, variant,
+    P, device)`` says why (default :func:`fused_unsupported_reason`)."""
+    unsupported = unsupported or fused_unsupported_reason
     if variant not in ("siren", "vanilla"):
         raise ValueError(f"unknown shapenet variant {variant!r}")
     if not (x.is_cuda and wb.is_cuda and wb.device == x.device):
@@ -532,7 +591,7 @@ def _check_cuda_inputs(name: str, wb: torch.Tensor, x: torch.Tensor, cfg: ShapeN
     if x.dim() != 3 or wb.dim() != 2 or wb.shape[0] != x.shape[0]:
         raise ValueError(f"expected wb [G, po] and x [G, P, si], got "
                          f"{tuple(wb.shape)} and {tuple(x.shape)}")
-    reason = fused_unsupported_reason(cfg, variant, x.shape[1], x.device)
+    reason = unsupported(cfg, variant, x.shape[1], x.device)
     if reason is not None:
         raise ValueError(f"{name} cannot take this config: {reason}")
     if x.shape[2] != cfg.input_dim or wb.shape[1] != shapenet_param_count(cfg, 0):

@@ -10,10 +10,15 @@ of points within them, drawn from a numpy generator in the same calls and
 order as the JAX package's loop, so one seed feeds both packages the same
 batches.
 
-Not ported yet, and refused with ``NotImplementedError``: Sobolev targets
-(``target_jac``/``target_hess``, ROADMAP Slice D), residual point sampling
-and the device-resident ``fit_resident`` loop (ROADMAP Slice A2), and
-``mesh``/``shard_model_axis`` (ROADMAP Slice G).
+Sobolev training: ``target_jac [G, P, so, si]`` switches a step to
+``w_value * value_mse + w_jac * jacobian_mse`` through
+``model.sobolev_value_and_grad`` (one K6 launch per step on the card), and
+``evaluate_sobolev`` evaluates both terms through K5.
+
+Not ported yet, and refused with ``NotImplementedError``: Hessian targets
+through the fused kernels (``target_hess``, ROADMAP Slice D2), residual
+point sampling and the device-resident ``fit_resident`` loop (ROADMAP Slice
+A2), and ``mesh``/``shard_model_axis`` (ROADMAP Slice G).
 """
 from __future__ import annotations
 
@@ -33,12 +38,6 @@ def _not_ported(what: str, where: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported to nif_tpu_torch yet (ROADMAP {where})")
 
 
-def _refuse_targets(target_jac, target_hess) -> None:
-    if target_jac is not None or target_hess is not None:
-        raise _not_ported("Sobolev training (target_jac / target_hess)",
-                          "Slice D: derivatives and Sobolev training")
-
-
 class GroupedTrainer:
     """Trainer over the grouped layout (t: [G, pi], x: [G, P, si], u: [G, P, so]).
 
@@ -52,12 +51,16 @@ class GroupedTrainer:
     ``optimizer`` is a factory, ``parameters -> torch.optim.Optimizer`` (the
     counterpart of an optax transformation), so :meth:`init` can draw fresh
     parameters and build a fresh optimizer over them. ``fused=None`` (auto)
-    takes the fused train kernel where ``model.fast_path_info`` says so.
+    takes the fused train kernels where ``model.fast_path_info`` (MSE) or
+    ``model.sobolev_path_info`` (Sobolev) says so. ``w_value``, ``w_jac``
+    and ``w_hess`` weigh the Sobolev terms when a step gets ``target_jac``
+    (or ``target_hess``).
     """
 
     def __init__(self, model, optimizer: Callable, mesh=None, use_reg: bool = True,
                  seed: int = 0, fused: Optional[bool] = None,
-                 shard_model_axis: bool = False):
+                 shard_model_axis: bool = False, w_value: float = 1.0,
+                 w_jac: float = 1.0, w_hess: float = 1.0):
         if mesh is not None or shard_model_axis:
             raise _not_ported("GroupedTrainer over a mesh (mesh / shard_model_axis)",
                               "Slice G: multi-GPU")
@@ -65,6 +68,7 @@ class GroupedTrainer:
         self.make_optimizer = optimizer
         self.use_reg = use_reg
         self.fused = fused
+        self.w_value, self.w_jac, self.w_hess = w_value, w_jac, w_hess
         self._rng = np.random.default_rng(seed)
         self.history: Dict[str, List] = {"epoch": [], "loss": []}
 
@@ -75,29 +79,43 @@ class GroupedTrainer:
         optimizer = self.make_optimizer([p for _, p in self.model.param_items()])
         return TrainState(self.model.pnet.params, optimizer, 0)
 
-    def _record_path(self, P: int) -> None:
-        """Record once which path P-point group batches take
-        (``history["path"]``, and ``history["path_reason"]`` for an eager
-        fallback), and let the model log its one-time path message."""
-        if "path" in self.history:
+    def _record_path(self, P: int, si: Optional[int] = None, sobolev: bool = False,
+                     hess: bool = False) -> None:
+        """Record once per mode which path P-point group batches take
+        (``history["path"]`` for MSE steps, ``history["sobolev_path"]`` for
+        Sobolev steps, each with a ``..._reason`` for an eager fallback), and
+        let the model log its one-time path message."""
+        key = "sobolev_path" if sobolev else "path"
+        if key in self.history:
             return
-        info = self.model.fast_path_info(P)
-        self.model._announce_path(P)
-        self.history["path"] = info["path"]
+        if sobolev:
+            info = self.model.sobolev_path_info(P, si, hess=hess)
+            self.model._announce_sobolev_path(P, si, hess=hess)
+        else:
+            info = self.model.fast_path_info(P)
+            self.model._announce_path(P)
+        self.history[key] = info["path"]
         if info["reason"]:
-            self.history["path_reason"] = info["reason"]
+            self.history[key + "_reason"] = info["reason"]
 
     def step(self, state: TrainState, t, x, u, w=None, rw=None,
              target_jac=None, target_hess=None):
         """One training step on a ``(t, x, u[, w])`` group batch (arrays or
         tensors; tensors already on the model's device are used as they
         are). ``w [Gb, Pb]`` weights the points, ``rw [Gb]`` the rows of the
-        batch-mean regularization terms. Returns ``(state, loss)`` with the
-        loss as a 0-dim device tensor: no host sync."""
-        _refuse_targets(target_jac, target_hess)
-        self._record_path(x.shape[1])
-        loss, grads = self.model.mse_value_and_grad(
-            t, x, u, weight=w, fused=self.fused, use_reg=self.use_reg, reg_weight=rw)
+        batch-mean regularization terms; ``target_jac [Gb, Pb, so, si]``
+        switches the step to the Sobolev loss. Returns ``(state, loss)``
+        with the loss as a 0-dim device tensor: no host sync."""
+        sobolev = target_jac is not None or target_hess is not None
+        self._record_path(x.shape[1], x.shape[2], sobolev, hess=target_hess is not None)
+        if sobolev:
+            loss, _terms, grads = self.model.sobolev_value_and_grad(
+                t, x, u, target_jac=target_jac, target_hess=target_hess,
+                w_value=self.w_value, w_jac=self.w_jac, w_hess=self.w_hess, weight=w,
+                fused=self.fused, use_reg=self.use_reg, reg_weight=rw)
+        else:
+            loss, grads = self.model.mse_value_and_grad(
+                t, x, u, weight=w, fused=self.fused, use_reg=self.use_reg, reg_weight=rw)
         for path, p in self.model.param_items():
             g = grads
             for key in path:
@@ -131,18 +149,23 @@ class GroupedTrainer:
         zero-weight filler groups (:func:`pad_batch`) so every step has one
         shape and the loss and gradient stay the exact means. The epoch loss
         is the group-weighted mean of the step losses, read from the device
-        once per epoch."""
-        _refuse_targets(target_jac, target_hess)
+        once per epoch. ``target_jac [G, P, so, si]`` switches every step to
+        the Sobolev loss (its batches drawn with no extra generator calls,
+        as in the JAX loop)."""
         if point_sampling == "residual":
             raise _not_ported("point_sampling='residual'", "Slice A2, after the step")
         if point_sampling != "uniform":
             raise ValueError(f"unknown point_sampling {point_sampling!r}")
         t, x, u = np.asarray(t), np.asarray(x), np.asarray(u)
+        target_jac = None if target_jac is None else np.asarray(target_jac)
+        target_hess = None if target_hess is None else np.asarray(target_hess)
         G, P = x.shape[0], x.shape[1]
         group_batch = min(group_batch or G, G)
         point_batch = min(point_batch or P, P)
         needs_pad = (G % group_batch != 0) or sample_weight is not None
-        self._record_path(point_batch)
+        self._record_path(point_batch, x.shape[2],
+                          target_jac is not None or target_hess is not None,
+                          hess=target_hess is not None)
 
         for cb in callbacks:
             cb.on_train_begin(self)
@@ -156,9 +179,16 @@ class GroupedTrainer:
                 psel = self._rng.choice(P, size=point_batch, replace=False)
                 w = None if sample_weight is None else sample_weight[gsel][:, psel]
                 bt, bx, bu = t[gsel], x[gsel][:, psel], u[gsel][:, psel]
+                bju = None if target_jac is None else target_jac[gsel][:, psel]
+                bhu = None if target_hess is None else target_hess[gsel][:, psel]
                 rw = None
                 if needs_pad:
-                    (bt, bx, bu), w_rows = pad_batch((bt, bx, bu), None, b, group_batch)
+                    opts = tuple(a for a in (bju, bhu) if a is not None)
+                    arrs, w_rows = pad_batch((bt, bx, bu) + opts, None, b, group_batch)
+                    bt, bx, bu = arrs[:3]
+                    rest = iter(arrs[3:])
+                    bju = None if bju is None else next(rest)
+                    bhu = None if bhu is None else next(rest)
                     w_full = (
                         np.broadcast_to(w_rows[:, None], (group_batch, point_batch))
                         if w is None
@@ -169,7 +199,7 @@ class GroupedTrainer:
                     w = np.ascontiguousarray(w_full, dtype=np.float32)
                     if self.use_reg:
                         rw = reg_row_weights(b, group_batch)
-                state, loss = self.step(state, *self._put(bt, bx, bu, w, rw))
+                state, loss = self.step(state, *self._put(bt, bx, bu, w, rw, bju, bhu))
                 losses.append(loss)
                 sizes.append(b)
             epoch_loss = (
@@ -238,3 +268,45 @@ class GroupedTrainer:
         sse, sst, n_el = self._eval_sums(state, t, x, u, sample_weight, group_batch)
         sse, sst, n_el = global_sums(sse, sst, n_el)
         return metrics_from_sums(sse, sst, n_el)
+
+    def evaluate_sobolev(self, state: TrainState, t, x, u, target_jac, sample_weight=None,
+                         group_batch: Optional[int] = None,
+                         target_hess=None) -> Dict[str, float]:
+        """``{"value_mse", "jacobian_mse", "total"}`` over the full grouped
+        dataset, ``total`` weighted by the trainer's ``w_value``/``w_jac``:
+        the per-term monitoring of Sobolev training. Evaluated in chunks of
+        ``group_batch`` groups (default: about 4M points per chunk) through
+        ``output_and_jacobian_grouped``, which runs one K5 launch per chunk
+        on the card. Hessian targets need the fused Hessian evaluation
+        kernel (K7), not ported yet."""
+        if target_hess is not None:
+            raise _not_ported("evaluate_sobolev with target_hess (the fused Hessian "
+                              "evaluation, K7)", "Slice D2")
+        from ..ops.derivatives import output_and_jacobian_grouped
+
+        t, x = np.asarray(t), np.asarray(x)
+        u, ju = np.asarray(u), np.asarray(target_jac)
+        G, P = x.shape[0], x.shape[1]
+        gb = min(group_batch or max(1, 4_000_000 // max(P, 1)), G)
+        se_y = se_j = 0.0
+        with torch.no_grad():
+            for s in range(0, G, gb):
+                sl = slice(s, min(s + gb, G))
+                bt, bx, bu, bj = self._put(t[sl], x[sl], u[sl], ju[sl])
+                y, jac = output_and_jacobian_grouped(self.model, bt, bx)
+                ey = torch.square(y.float() - bu.float())
+                ej = torch.square(jac.float() - bj.float())
+                if sample_weight is not None:
+                    w = torch.as_tensor(np.asarray(sample_weight[sl], np.float32),
+                                        device=y.device)
+                    ey = ey * w[..., None]
+                    ej = ej * w[..., None, None]
+                se_y += float(torch.sum(ey))
+                se_j += float(torch.sum(ej))
+        n_y = float(G * P * u.shape[-1])
+        n_j = float(G * P * ju.shape[-2] * ju.shape[-1])
+        se_y, se_j, n_y, n_j = global_sums(se_y, se_j, n_y, n_j)
+        value_mse = se_y / max(n_y, 1.0)
+        jac_mse = se_j / max(n_j, 1.0)
+        return {"value_mse": value_mse, "jacobian_mse": jac_mse,
+                "total": self.w_value * value_mse + self.w_jac * jac_mse}

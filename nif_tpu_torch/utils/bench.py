@@ -1,5 +1,5 @@
-"""The flagship model, its train step and a device timer, shared by the
-scripts that drive the port on a card (``chip_smoke.py``,
+"""The flagship model, its MSE and Sobolev train steps and a device timer,
+shared by the scripts that drive the port on a card (``chip_smoke.py``,
 ``scripts/port_serving_profile.py``, ``scripts/port_train_profile.py``).
 
 The flagship is the JAX package's ``bench.py`` model: NIFMultiScale with a
@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 __all__ = ["FLAGSHIP_SHAPE", "FLAGSHIP_PNET", "FLAGSHIP_POLICY", "FLAGSHIP_TRAIN_LR",
-           "cuda_ms", "flagship_train_step"]
+           "cuda_ms", "flagship_sobolev_step", "flagship_train_step"]
 
 FLAGSHIP_SHAPE = {"input_dim": 3, "output_dim": 1, "units": 128, "nlayers": 2,
                   "activation": "sine", "use_resblock": False, "omega_0": 30.0,
@@ -33,6 +33,19 @@ def flagship_train_step(G: int = 32, P: int = 32768, device="cuda", seed: int = 
     ``u [G, P, 1]`` from ``np.random.default_rng(0)``, as float32 tensors on
     ``device``. Returns ``(trainer, state, (t, x, u))``; one step is
     ``trainer.step(state, t, x, u)``."""
+    return _flagship(G, P, device, seed, sobolev=False)
+
+
+def flagship_sobolev_step(G: int = 32, P: int = 32768, device="cuda", seed: int = 0):
+    """The JAX bench's Sobolev step (``bench.py:480-491``): as
+    :func:`flagship_train_step`, with a random ``target_jac [G, P, 1, 3]``
+    drawn after the batch. Returns ``(trainer, state, (t, x, u,
+    target_jac))``; one step is ``trainer.step(state, t, x, u,
+    target_jac=target_jac)``."""
+    return _flagship(G, P, device, seed, sobolev=True)
+
+
+def _flagship(G, P, device, seed, sobolev):
     from ..models import NIFMultiScale
     from ..training import GroupedTrainer
 
@@ -43,6 +56,8 @@ def flagship_train_step(G: int = 32, P: int = 32768, device="cuda", seed: int = 
     rng = np.random.default_rng(0)
     batch = (rng.standard_normal((G, 4)), rng.standard_normal((G, P, 3)),
              rng.standard_normal((G, P, 1)))
+    if sobolev:
+        batch += (rng.standard_normal((G, P, 1, 3)),)
     return trainer, state, tuple(torch.from_numpy(a.astype(np.float32)).to(device)
                                  for a in batch)
 

@@ -2,21 +2,24 @@
 """Where the time of one flagship train step goes on a CUDA card (the
 PyTorch/CUDA port, ``nif_tpu_torch``).
 
-    python3 scripts/port_train_profile.py
+    python3 scripts/port_train_profile.py [--sobolev]
 
 The flagship NIFMultiScale under ``GroupedTrainer`` with Adam (lr 1e-4), on
 the JAX bench's random batch G=32 x P=32768 (``nif_tpu_torch.utils.bench.
-flagship_train_step``). Each stage of ``GroupedTrainer.step`` is timed alone
-with CUDA events (mean of 10 calls after warm-up): the input casts, the
-ParameterNet forward, K2 (prescale, workspace, kernel and the split
-reduction), the ParameterNet backward of ``d_wb``, the Adam update; then
-the whole step, on the device clock and on the host clock (each step
-synchronized). Last, ``torch.profiler`` sums device time by kernel over 5
-steps and gives the device's busy share of that window. Prints plain text;
-nothing here is compared or asserted.
+flagship_train_step``; with ``--sobolev``, ``flagship_sobolev_step``, whose
+steps also take a random ``target_jac [G, P, 1, 3]``). Each stage of
+``GroupedTrainer.step`` is timed alone with CUDA events (mean of 10 calls
+after warm-up): the input casts, the ParameterNet forward, the fused train
+kernel's wrapper (K2, or K6 with ``--sobolev``: prescale, workspace, kernel
+and the split reduction), the ParameterNet backward of ``d_wb``, the Adam
+update; then the whole step, on the device clock and on the host clock
+(each step synchronized). Last, ``torch.profiler`` sums device time by
+kernel over 5 steps and gives the device's busy share of that window.
+Prints plain text; nothing here is compared or asserted.
 """
 from __future__ import annotations
 
+import argparse
 import subprocess
 import sys
 import time
@@ -26,11 +29,17 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
+from nif_tpu_torch.ops import fused_derivatives as fd  # noqa: E402
 from nif_tpu_torch.ops import fused_shapenet as fs  # noqa: E402
-from nif_tpu_torch.utils.bench import cuda_ms, flagship_train_step  # noqa: E402
+from nif_tpu_torch.utils.bench import (  # noqa: E402
+    cuda_ms, flagship_sobolev_step, flagship_train_step)
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--sobolev", action="store_true",
+                    help="profile the Sobolev step (K6) instead of the MSE step (K2)")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 1
@@ -39,7 +48,12 @@ def main() -> int:
                          check=True, timeout=60).stdout.strip()
     print(f"card: {smi}; torch {torch.__version__}")
     G, P = 32, 32768
-    trainer, state, (t, x, u) = flagship_train_step(G, P)
+    if args.sobolev:
+        trainer, state, (t, x, u, jt) = flagship_sobolev_step(G, P)
+        step_kw = {"target_jac": jt}
+    else:
+        trainer, state, (t, x, u) = flagship_train_step(G, P)
+        step_kw = {}
     model = trainer.model
     cfg = model.cfg_shape_net
     params = [p for _, p in model.param_items()]
@@ -47,7 +61,14 @@ def main() -> int:
 
     tc, xc = model._compute(t), model._compute(x)
     wb, _ = model.pnet(tc)
-    loss, d_wb = fs.shapenet_mse_grads(wb, xc, u, cfg, "siren")
+    if args.sobolev:
+        jt_flat = jt.transpose(2, 3).reshape(G, P, 3)  # column k*so + j
+        kernel_name = "K6 wrapper (prescale + kernel + reduce)"
+        kernel = lambda: fd.shapenet_sobolev_grads(wb, xc, u, jt_flat, cfg, "siren")  # noqa: E731
+    else:
+        kernel_name = "K2 wrapper (prescale + kernel + reduce)"
+        kernel = lambda: fs.shapenet_mse_grads(wb, xc, u, cfg, "siren")  # noqa: E731
+    d_wb = kernel()[-1]
     grads = torch.autograd.grad(wb, params, d_wb, retain_graph=True)
 
     def adam():
@@ -58,13 +79,12 @@ def main() -> int:
     box = [state]
 
     def step():
-        box[0], _ = trainer.step(box[0], t, x, u)
+        box[0], _ = trainer.step(box[0], t, x, u, **step_kw)
 
     stages = {
         "cast t, x to bf16": lambda: (model._compute(t), model._compute(x)),
         "ParameterNet forward (t -> wb)": lambda: model.pnet(tc),
-        "K2 wrapper (prescale + kernel + reduce)": lambda: fs.shapenet_mse_grads(
-            wb, xc, u, cfg, "siren"),
+        kernel_name: kernel,
         "ParameterNet backward (d_wb -> grads)": lambda: torch.autograd.grad(
             wb, params, d_wb, retain_graph=True),
         "Adam update": adam,

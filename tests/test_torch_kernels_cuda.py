@@ -11,7 +11,11 @@ bound; both sum in f32 in different orders); bf16 max|d| <= 1e-2 * max|plain|
 K2 and K3 against their plain versions: f32 loss rel 1e-5 and gradients
 max|d| <= 5e-6 (K2) / 5e-5 (K3) of max|plain| (the JAX kernel tests'
 bounds); bf16 loss rel 1e-3 and max|d| <= 2^-6 of max|plain| (two bf16
-ulps at the top of the range)."""
+ulps at the top of the range). K5 and K6 against theirs: f32 y and jac
+rtol 2e-4 / atol 1e-5 of max|plain| (as K1), K6 terms rel 1e-5 and d_wb
+max|d| <= 5e-5 of max|plain| (the fused-backward bound: the stacked
+backward sums over (1 + si) times the rows); bf16 y, jac and d_wb within
+2^-6 of max|plain| and the terms rel 1e-3."""
 import numpy as np
 import pytest
 import torch
@@ -19,6 +23,7 @@ import torch
 import nif_tpu_torch
 from nif_tpu_torch.config import ShapeNetConfig, shapenet_param_count
 from nif_tpu_torch.ops import _build
+from nif_tpu_torch.ops import fused_derivatives as fd
 from nif_tpu_torch.ops import fused_shapenet as fs
 
 pytestmark = pytest.mark.cuda
@@ -299,3 +304,110 @@ def test_wide_chains_match_plain(card, variant, args, dtype):
     for mine, ref in ((d_wb, r_wb), (dx, r_dx)):
         err, scale = _max_diff(mine, ref)
         assert err <= k3_bound * scale
+
+
+# K5's tangent body runs where so >= si; the configs with so < si (and the
+# flagship) take the reverse body.
+JAC_EXTRA = [("siren", (2, 3, 64, 2, "sine", False, 30.0))]
+
+
+def _close_rel(mine, ref, dtype):
+    err, scale = _max_diff(mine, ref)
+    bound = 2e-4 * scale + 1e-5 if dtype == torch.float32 else 2.0 ** -6 * scale
+    assert err <= bound, (err, scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("variant,args", CASES + JAC_EXTRA)
+def test_k5_matches_plain(card, variant, args, dtype):
+    cfg = ShapeNetConfig(*args)
+    wb, x = _data(cfg, 3, 264, dtype, seed=15)
+    before = _build.LAUNCHES["shapenet_fwd_jac"]
+    y, jac = fd.shapenet_fwd_jac(wb, x, cfg, variant)
+    assert _build.LAUNCHES["shapenet_fwd_jac"] == before + 1
+    y_ref, jac_ref = fd.shapenet_fwd_jac_reference(wb, x, cfg, variant)
+    assert y.dtype == jac.dtype == dtype and jac.shape == (3, 264, cfg.output_dim, cfg.input_dim)
+    _close_rel(y, y_ref, dtype)
+    _close_rel(jac, jac_ref, dtype)
+
+
+def _sobolev_side(cfg, G, P, seed):
+    rng = np.random.default_rng(seed + 2000)
+    si, so = cfg.input_dim, cfg.output_dim
+    to = lambda a: torch.from_numpy(a.astype(np.float32)).cuda()  # noqa: E731
+    return (to(rng.standard_normal((G, P, so))), to(rng.standard_normal((G, P, si * so))),
+            to(rng.uniform(0.5, 1.5, (G, P))))
+
+
+@pytest.mark.parametrize("weighted", [False, True], ids=["unweighted", "weighted"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("variant,args", CASES)
+def test_k6_matches_plain(card, variant, args, dtype, weighted):
+    cfg = ShapeNetConfig(*args)
+    wb, x = _data(cfg, 3, 264, dtype, seed=16)
+    tgt, jt, w = _sobolev_side(cfg, 3, 264, seed=16)
+    w = w if weighted else None
+    si, so = cfg.input_dim, cfg.output_dim
+    # masks on the multi-output configs: the first output, every other jac entry
+    y_mask = np.eye(1, so, dtype=np.float32)[0] if so > 1 else None
+    jac_mask = (np.arange(si * so) % 2 == 0).astype(np.float32) if so > 1 else None
+    kw = dict(w_value=0.7, w_jac=1.3, y_mask=y_mask, jac_mask=jac_mask, weight=w)
+    before = _build.LAUNCHES["shapenet_sobolev_grads"]
+    lv, lj, d_wb = fd.shapenet_sobolev_grads(wb, x, tgt, jt, cfg, variant, **kw)
+    assert _build.LAUNCHES["shapenet_sobolev_grads"] == before + 1
+    rv, rj, r_wb = fd.shapenet_sobolev_grads_reference(wb, x, tgt, jt, cfg, variant, **kw)
+    rel = 1e-5 if dtype == torch.float32 else 1e-3
+    assert float(lv) == pytest.approx(float(rv), rel=rel)
+    assert float(lj) == pytest.approx(float(rj), rel=rel)
+    assert d_wb.dtype == dtype
+    err, scale = _max_diff(d_wb, r_wb)
+    assert err <= (5e-5 if dtype == torch.float32 else 2.0 ** -6) * scale, (err, scale)
+
+
+def test_k6_flagship_width_is_deterministic(card):
+    """G=4, P=2048 at the flagship width in bf16: two runs give the same
+    bits (fixed P splits, an ordered reduce) and agree with plain K6."""
+    cfg = ShapeNetConfig(3, 1, 128, 2, "sine", False, 30.0)
+    wb, x = _data(cfg, 4, 2048, torch.bfloat16, seed=17)
+    tgt, jt, _ = _sobolev_side(cfg, 4, 2048, seed=17)
+    runs = [fd.shapenet_sobolev_grads_cuda(wb, x, tgt, jt, cfg, "siren") for _ in range(2)]
+    for a, b in zip(runs[0], runs[1]):
+        assert torch.equal(a, b)
+    rv, rj, r_wb = fd.shapenet_sobolev_grads_reference(wb, x, tgt, jt, cfg, "siren")
+    assert float(runs[0][0]) == pytest.approx(float(rv), rel=1e-3)
+    assert float(runs[0][1]) == pytest.approx(float(rj), rel=1e-3)
+    err, scale = _max_diff(runs[0][2], r_wb)
+    assert err <= 2.0 ** -6 * scale
+
+
+def test_derivative_geometry(card):
+    """At the flagship width in bf16 K6 takes 16-point tiles (64 stacked
+    rows) with its residuals in shared memory; in f32 they go to the global
+    scratch. The reverse K5 body takes K2's 64-point tile, and splits P to
+    give about two blocks per SM of this card (8 to 64 splits a group)."""
+    cfg = ShapeNetConfig(3, 1, 128, 2, "sine", False, 30.0)
+    sob = fd.derivative_geometry("sobolev", cfg, "siren", 32, 32768, torch.bfloat16)
+    assert (sob["tile"], sob["splits"], sob["residuals"]) == (16, 8, "shared")
+    f32 = fd.derivative_geometry("sobolev", cfg, "siren", 32, 32768, torch.float32)
+    assert f32["residuals"] == "global" and f32["scratch_bytes"] > 0
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    for G in (1, 4, 32):
+        rev = fd.derivative_geometry("reverse", cfg, "siren", G, 32768, torch.bfloat16)
+        assert rev["tile"] == 64
+        assert rev["splits"] == min(512, max(8, min(64, (2 * sms + G - 1) // G)))
+    assert "streams" in fd.sobolev_fused_unsupported_reason(
+        ShapeNetConfig(9, 1, 1024, 1, "sine"), "siren", 256, 9, card)
+
+
+def test_derivative_wrappers_refuse_what_they_cannot_take(card):
+    cfg = ShapeNetConfig(2, 1, 16, 1, "sine")
+    wb, x = _data(cfg, 2, 16, torch.float32, seed=18)
+    tgt, jt, w = _sobolev_side(cfg, 2, 16, seed=18)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fd.shapenet_fwd_jac_cuda(wb.clone().requires_grad_(), x, cfg, "siren")
+    with pytest.raises(ValueError, match="jac_target"):
+        fd.shapenet_sobolev_grads_cuda(wb, x, tgt, jt[..., :1], cfg, "siren")
+    with pytest.raises(ValueError, match="weight"):
+        fd.shapenet_sobolev_grads_cuda(wb, x, tgt, jt, cfg, "siren", weight=w[:, :8])
+    with pytest.raises(TypeError):
+        fd.shapenet_sobolev_grads_cuda(wb, x.bfloat16(), tgt, jt, cfg, "siren")

@@ -358,18 +358,20 @@ def test_tb_events_is_a_copy_of_the_jax_module():
 
 
 # ------------------------------------------------------- not ported: refusals
-@pytest.mark.parametrize("kwargs,match", [
-    ({"target_jac": np.zeros((4, 32, 1, 2), np.float32)}, "Slice D"),
-    ({"target_hess": np.zeros((4, 32, 1, 2, 2), np.float32)}, "Slice D"),
-    ({"point_sampling": "residual"}, "Slice A2"),
+@pytest.mark.parametrize("kwargs,error,match", [
+    # Sobolev training is ported; a target_jac of the wrong shape is refused
+    ({"target_jac": np.zeros((4, 32, 1, 3), np.float32)}, ValueError, "target_jac shape"),
+    ({"target_hess": np.zeros((4, 32, 1, 2, 2), np.float32)}, NotImplementedError,
+     "Slice D2"),
+    ({"point_sampling": "residual"}, NotImplementedError, "Slice A2"),
 ], ids=["target_jac", "target_hess", "residual"])
-def test_fit_refuses_what_is_not_ported(kwargs, match):
+def test_fit_refuses_what_is_not_ported(kwargs, error, match):
     t, x, u = _dataset(G=4, P=32)
     _, _, tt, ts = _trainers()
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         tt.fit(ts, t, x, u, **kwargs)
     if "point_sampling" not in kwargs:
-        with pytest.raises(NotImplementedError, match=match):
+        with pytest.raises(error, match=match):
             tt.step(ts, t, x, u, **kwargs)
     assert ts.step == 0
 
