@@ -48,6 +48,25 @@ Phases of the Sobolev slice:
 4c. Time the flagship Sobolev step, K5 and K6 with their plain versions,
    and compute their bounds on this card.
 
+Phases of the Hessian slice:
+
+2f. Hold K7 (the fused Hessian evaluation) against plain K7 over the SIREN
+   configs (the Hessian kernels take sine chains only) in float32 and
+   bfloat16, and at the flagship width in bfloat16 (G=8: plain K7's f32
+   stacked tensors of ten streams take 1.3 GB each there).
+2g. Hold K8 (the fused Hessian train pass) against plain K8 likewise, with
+   value, Jacobian and Hessian masks on the multi-output configs; two
+   flagship runs at G=32, P=32768 must give bitwise-equal results.
+3d. Hessian-train the flagship (``flagship_hessian_step``): step 0's terms
+   and gradients against plain K8 (in chunks of 8 groups: each group's
+   d_wb is its own) + autograd, five steps (five K8 launches, no K6, no K2),
+   a short Hessian ``fit`` on the traveling wave with its analytic Jacobian
+   and Hessian that must lower the Hessian term of ``evaluate_sobolev``,
+   which launches K7 once per chunk.
+4d. Time the flagship Hessian step, K7 and K8 (G=32, P=32768) and their
+   plain versions over the same inputs in chunks of 8 groups, and compute
+   their bounds on this card.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the
 ``{"kernels": [...]}`` record. Exits non-zero without CUDA or without the
 package beside it.
@@ -97,6 +116,14 @@ CASES = [
 # K5 takes its forward-tangent body where so >= si; of CASES only the
 # so=si ones do, so one more SIREN config with so > si.
 JAC_EXTRA = [("siren", (2, 3, 64, 2, "sine", False, 30.0))]
+# The Hessian kernels (K7, K8) take sine chains only.
+HESS_CASES = [c for c in CASES if c[0] == "siren"] + JAC_EXTRA
+# f32 operations of one bf16 sine with act' and act'' from one range
+# reduction (K7's epilogues, K8's forward), and with act''' too (K8's
+# backward): SINE_GRAD_FLOPS plus the curvature's and the third
+# derivative's Horner steps and scale factors.
+SINE3_FLOPS = 28
+SINE4_FLOPS = 34
 
 
 def log(msg: str) -> None:
@@ -284,6 +311,108 @@ def check_k6(torch, cfg, variant, G, P, dtype, weighted, masked, seed) -> float:
     return err
 
 
+def check_k7(torch, cfg, variant, G, P, dtype, seed) -> float:
+    """K7 vs plain K7 on y, jac and hess; returns max |hess - plain hess|.
+    The Hessian must be exactly symmetric. Bounds as K5's: float32 max|d|
+    <= 2e-4 max|plain| + 1e-5, bfloat16 BF16_REL of max|plain|."""
+    from nif_tpu_torch.ops.fused_hessian import (
+        hessian_geometry, shapenet_fwd_hess_cuda, shapenet_fwd_hess_reference)
+
+    wb, x = chain_data(torch, cfg, G, P, dtype, seed)
+    outs = shapenet_fwd_hess_cuda(wb, x, cfg, variant)
+    refs = shapenet_fwd_hess_reference(wb, x, cfg, variant)
+    torch.cuda.synchronize()
+    what = f"K7 {describe(cfg, variant, G, P, dtype)}"
+    si, so = cfg.input_dim, cfg.output_dim
+    if outs[2].shape != (G, P, so, si, si) or any(o.dtype != dtype for o in outs):
+        raise AssertionError(f"{what}: hess {outs[2].shape}/{outs[2].dtype}")
+    if not torch.equal(outs[2], outs[2].transpose(-1, -2)):
+        raise AssertionError(f"{what}: the Hessian is not exactly symmetric")
+    for name, out, ref in zip(("y", "jac", "hess"), outs, refs):
+        err, scale = max_diff(torch, out, ref, f"{what} {name}")
+        bound = 2e-4 * scale + 1e-5 if dtype == torch.float32 else BF16_REL * scale
+        if err > bound:
+            raise AssertionError(f"{what}: {name} max|d| {err} > {bound}")
+    geo = hessian_geometry("eval", cfg, variant, G, P, dtype)
+    log(f"{what} y/jac/hess agree, hess symmetric; hess max|d|={err:.3e} ({err / scale:.2e} "
+        f"of max|plain|); {geo['tile']}-point tiles, residuals in {geo['residuals']} memory")
+    return err
+
+
+def hessian_data(torch, cfg, G, P, seed):
+    """Value targets, point weights, flat Jacobian and flat unique-pair
+    Hessian targets, float32 on the card."""
+    rng = np.random.default_rng(seed + 3000)
+    to = lambda a: torch.from_numpy(a.astype(np.float32)).cuda()  # noqa: E731
+    si, so = cfg.input_dim, cfg.output_dim
+    return (to(rng.standard_normal((G, P, so))), to(rng.uniform(0.5, 1.5, (G, P))),
+            to(rng.standard_normal((G, P, si * so))),
+            to(rng.standard_normal((G, P, si * (si + 1) // 2 * so))))
+
+
+def check_k8(torch, cfg, variant, G, P, dtype, weighted, masked, seed) -> float:
+    """K8 vs plain K8; returns max |d_wb - plain d_wb|.
+
+    float32: the three terms rel 1e-5, d_wb max|d| <= 1e-4 max|plain| (the
+    JAX package's bound for its fused Hessian train pass: the backward sums
+    ten times the rows at si = 3); bfloat16: terms rel BF16_LOSS_REL, d_wb
+    BF16_REL."""
+    from nif_tpu_torch.ops.fused_hessian import (
+        hessian_geometry, shapenet_hessian_grads_cuda, shapenet_hessian_grads_reference)
+
+    wb, x = chain_data(torch, cfg, G, P, dtype, seed)
+    tgt, w, jt, ht = hessian_data(torch, cfg, G, P, seed)
+    si, so = cfg.input_dim, cfg.output_dim
+    kw = dict(w_value=0.7, w_jac=1.3, w_hess=0.4, weight=w if weighted else None)
+    if masked:
+        kw.update(y_mask=np.eye(1, so, dtype=np.float32)[0],
+                  jac_mask=(np.arange(si * so) % 2 == 0).astype(np.float32),
+                  hess_mask=(np.arange(si * (si + 1) // 2 * so) % 3 != 1).astype(np.float32))
+    *terms, d_wb = shapenet_hessian_grads_cuda(wb, x, tgt, jt, ht, cfg, variant, **kw)
+    *refs, r_wb = shapenet_hessian_grads_reference(wb, x, tgt, jt, ht, cfg, variant, **kw)
+    torch.cuda.synchronize()
+    what = f"K8 {describe(cfg, variant, G, P, dtype)} weighted={weighted} masked={masked}"
+    if d_wb.dtype != wb.dtype or d_wb.shape != r_wb.shape:
+        raise AssertionError(f"{what}: {d_wb.shape}/{d_wb.dtype} vs {r_wb.shape}")
+    err, scale = max_diff(torch, d_wb, r_wb, what)
+    rels = [abs(float(a) - float(b)) / max(abs(float(b)), 1e-30) for a, b in zip(terms, refs)]
+    bound, l_bound = (1e-4, 1e-5) if dtype == torch.float32 else (BF16_REL, BF16_LOSS_REL)
+    geo = hessian_geometry("train", cfg, variant, G, P, dtype)
+    log(f"{what} terms {[f'{float(v):.6e}' for v in terms]} (rel "
+        f"{', '.join(f'{r:.2e}' for r in rels)}) d_wb max|d|={err:.3e} ({err / scale:.2e} of "
+        f"max|plain|); {geo['tile']}-point tiles, residuals in {geo['residuals']} memory, "
+        f"{geo['splits']} splits")
+    if (not all(np.isfinite([float(v) for v in terms])) or max(rels) > l_bound
+            or err > bound * scale):
+        raise AssertionError(f"{what}: term rel {rels} (bound {l_bound}), d_wb max|d| {err} > "
+                             f"{bound} * {scale}")
+    return err
+
+
+def plain_k8_chunked(torch, wb, x, tgt, jt, ht, cfg, chunk=8, **kw):
+    """Plain K8 over [G, P] in chunks of ``chunk`` groups (its f32 stacked
+    tensors of a whole flagship batch would not fit the card): each group's
+    d_wb is its own, scaled by chunk / G to the whole batch's mean, and the
+    terms are the means of the chunks' (equal chunks)."""
+    from nif_tpu_torch.ops.fused_hessian import shapenet_hessian_grads_reference
+
+    G = x.shape[0]
+    parts = [shapenet_hessian_grads_reference(wb[s:s + chunk], x[s:s + chunk],
+                                              tgt[s:s + chunk], jt[s:s + chunk],
+                                              ht[s:s + chunk], cfg, "siren", **kw)
+             for s in range(0, G, chunk)]
+    terms = [sum(p[i] for p in parts) / len(parts) for i in range(3)]
+    return terms, torch.cat([p[3] for p in parts]) * (chunk / G)
+
+
+def plain_k7_chunked(torch, wb, x, cfg, chunk=8):
+    """Plain K7 over [G, P] in chunks of ``chunk`` groups."""
+    from nif_tpu_torch.ops.fused_hessian import shapenet_fwd_hess_reference
+
+    return [shapenet_fwd_hess_reference(wb[s:s + chunk], x[s:s + chunk], cfg, "siren")
+            for s in range(0, x.shape[0], chunk)]
+
+
 def sobolev_data(torch, cfg, G, P, seed):
     """Value targets, point weights and flat Jacobian targets, float32 on the card."""
     rng = np.random.default_rng(seed + 2000)
@@ -343,6 +472,17 @@ def wave_jacobian(t, x):
     return jac[:, :, None, :].astype(np.float32)
 
 
+def wave_hessian(t, x):
+    """d2 u / dx2 of :func:`traveling_wave`, ``[G, P, 1, 3, 3]``."""
+    a = np.pi * (x[..., 0] - 0.5 * t[:, None, 0])
+    b = 0.5 * np.pi * x[..., 1]
+    h = np.zeros(x.shape[:2] + (3, 3))
+    h[..., 0, 0] = -np.pi ** 2 * np.sin(a) * np.cos(b)
+    h[..., 0, 1] = h[..., 1, 0] = -0.5 * np.pi ** 2 * np.cos(a) * np.sin(b)
+    h[..., 1, 1] = -0.25 * np.pi ** 2 * np.sin(a) * np.cos(b)
+    return h[:, :, None].astype(np.float32)
+
+
 def derivative_bounds(cfg, G, P, peak_mma, peak_f32, peak_bw, sobolev: bool):
     """(bound ms, bound_by, products GFLOP) of K6 (sobolev) or K5's reverse
     body at this shape in bf16. K6: three passes (forward, dW, dS) of the
@@ -367,6 +507,38 @@ def derivative_bounds(cfg, G, P, peak_mma, peak_f32, peak_bw, sobolev: bool):
         flops = 2 * G * P * (si * n + nm * n * n + n * so) + so * 2 * G * P * (nm * n * n + n * si)
         act = elems * SINE_GRAD_FLOPS
         nbytes = 2 * (G * po + G * P * (si + so + so * si))
+    t_ops = max(flops / peak_mma, act / peak_f32) * 1e3
+    t_bytes = nbytes / peak_bw * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops / 1e9
+
+
+def hessian_bounds(cfg, G, P, peak_mma, peak_f32, peak_bw, train: bool):
+    """(bound ms, bound_by, products GFLOP) of K8 (train) or K7 at this
+    shape in bf16, over ns = 1 + si + si(si+1)/2 stacked streams. K7: the
+    hidden and last products over all streams, 2 G P ns (nm n^2 + n so), and
+    x @ W0 on the value rows only, 2 G P si n (the stream seeds are
+    elementwise). K8: three passes (forward, dW, dS) of the former, and x @
+    W0 in the forward and in dW0 (no dx). Activations (with act', act''; in
+    K8's backward act''' too) and the stream epilogues over the f32 peak;
+    bytes of wb and x in and y, jac and the pair columns out (K7), or of wb,
+    x and the three targets in and d_wb out (K8)."""
+    n, si, so = cfg.units, cfg.input_dim, cfg.output_dim
+    nm = 2 * cfg.nlayers if cfg.use_resblock else cfg.nlayers
+    npairs = si * (si + 1) // 2
+    ns = 1 + si + npairs
+    po = nm * n * n + (si + so + 1 + nm) * n + so
+    elems = G * P * n * (1 + nm)
+    stacked = 2 * G * P * ns * (nm * n * n + n * so)
+    first = 2 * G * P * si * n
+    epilogue = si + 4 * npairs  # a tangent's product, a pair's three and a sum
+    if train:
+        flops = 3 * stacked + 2 * first
+        act = elems * (SINE3_FLOPS + SINE4_FLOPS + 3 * epilogue)
+        nbytes = 2 * (2 * G * po + G * P * (si + so + si * so + npairs * so))
+    else:
+        flops = stacked + first
+        act = elems * (SINE3_FLOPS + epilogue)
+        nbytes = 2 * (G * po + G * P * (si + so + si * so + npairs * so))
     t_ops = max(flops / peak_mma, act / peak_f32) * 1e3
     t_bytes = nbytes / peak_bw * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops / 1e9
@@ -402,6 +574,8 @@ def main() -> int:
     from nif_tpu_torch.ops.fused_derivatives import (
         shapenet_fwd_jac_cuda, shapenet_fwd_jac_reference, shapenet_sobolev_grads_cuda,
         shapenet_sobolev_grads_reference)
+    from nif_tpu_torch.ops.fused_hessian import (
+        shapenet_fwd_hess_cuda, shapenet_hessian_grads_cuda)
     from nif_tpu_torch.ops.fused_shapenet import (
         shapenet_bwd_cuda, shapenet_fused_bwd_reference, shapenet_fwd_cuda,
         shapenet_grouped_fused_reference, shapenet_mse_grads_cuda,
@@ -411,8 +585,8 @@ def main() -> int:
     from nif_tpu_torch.training import GroupedTrainer
     from nif_tpu_torch.utils import rel_l2
     from nif_tpu_torch.utils.bench import (FLAGSHIP_PNET, FLAGSHIP_POLICY, FLAGSHIP_SHAPE,
-                                           FLAGSHIP_TRAIN_LR, cuda_ms, flagship_sobolev_step,
-                                           flagship_train_step)
+                                           FLAGSHIP_TRAIN_LR, cuda_ms, flagship_hessian_step,
+                                           flagship_sobolev_step, flagship_train_step)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -426,7 +600,7 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {name}")
     log(f"card: {smi}")
-    build_all(["shapenet_fwd", "shapenet_bwd", "shapenet_jac"])
+    build_all(["shapenet_fwd", "shapenet_bwd", "shapenet_jac", "shapenet_hess"])
     peak_mma, peak_f32, peak_bw = PEAKS["H100 PCIe" if "PCIe" in name else "H100 SXM"]
     flag_cfg = ShapeNetConfig.from_dict(FLAGSHIP_SHAPE)
 
@@ -504,6 +678,29 @@ def main() -> int:
         raise AssertionError("K6 is not deterministic: two runs on one input differ")
     log("K6 flagship bf16 (weighted): two runs give bitwise-equal terms and d_wb")
     del wb, x, tgt, w, jt, runs
+
+    # ---- phase 2f: K7 against its plain version
+    for i, (variant, args) in enumerate(HESS_CASES):
+        for dtype in (torch.float32, torch.bfloat16):
+            check_k7(torch, ShapeNetConfig(*args), variant, 3, 256, dtype, seed=60 + i)
+    k7_err = check_k7(torch, flag_cfg, "siren", 8, 32768, torch.bfloat16, seed=70)
+
+    # ---- phase 2g: K8 against its plain version, and its determinism
+    for i, (variant, args) in enumerate(HESS_CASES):
+        cfg = ShapeNetConfig(*args)
+        for dtype in (torch.float32, torch.bfloat16):
+            for weighted in (False, True):
+                check_k8(torch, cfg, variant, 3, 256, dtype, weighted, cfg.output_dim > 1,
+                         seed=80 + i)
+    k8_err = check_k8(torch, flag_cfg, "siren", 8, 32768, torch.bfloat16, False, False, seed=90)
+    wb, x = chain_data(torch, flag_cfg, 32, 32768, torch.bfloat16, seed=91)
+    tgt, w, jt, ht = hessian_data(torch, flag_cfg, 32, 32768, seed=91)
+    runs = [shapenet_hessian_grads_cuda(wb, x, tgt, jt, ht, flag_cfg, "siren", weight=w)
+            for _ in range(2)]
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        raise AssertionError("K8 is not deterministic: two runs on one input differ")
+    log("K8 flagship bf16 (G=32, P=32768, weighted): two runs give bitwise-equal terms and d_wb")
+    del wb, x, tgt, w, jt, ht, runs
 
     # ---- phase 3: serve the flagship model
     if model.po_dim != 33665:
@@ -674,6 +871,80 @@ def main() -> int:
         raise AssertionError(f"evaluate_sobolev launched K5 {eval_launches['shapenet_fwd_jac']} "
                              f"times for {eval_chunks} chunks")
 
+    # ---- phase 3d: Hessian-train the flagship
+    htrainer, hstate, (t_h, x_h, u_h, j_h, h_h) = flagship_hessian_step(G, P)
+    hmodel = htrainer.model
+    hinfo = hmodel.sobolev_path_info(P, 3, hess=True)
+    if hinfo["path"] != "fused":
+        raise AssertionError(f"flagship Hessian training would not take K8: {hinfo}")
+    hkw = dict(w_jac=htrainer.w_jac, w_hess=htrainer.w_hess)
+    _, hterms_k, hgrads_k = hmodel.sobolev_value_and_grad(t_h, x_h, u_h, target_jac=j_h,
+                                                          target_hess=h_h, **hkw)
+    wb_h, _ = hmodel.pnet(hmodel._compute(t_h))
+    jt_h = j_h.transpose(2, 3).reshape(G, P, 3)  # column k*so + j
+    ht_h = hmodel._hessian_targets(h_h, G, P, 3, 1, np.arange(1), np.arange(3), True, None)[0]
+    hterms_p, r_wb = plain_k8_chunked(torch, wb_h.detach(), hmodel._compute(x_h), u_h, jt_h,
+                                      ht_h, hmodel.cfg_shape_net, **hkw)
+    hgrads_p = torch.autograd.grad(wb_h, [p for _, p in hmodel.param_items()], r_wb)
+    h_rel = [abs(float(hterms_k[k]) - float(b)) / abs(float(b)) for k, b in
+             zip(("value_mse", "jacobian_mse", "hessian_mse"), hterms_p)]
+    worst = 0.0
+    for (path, _), b in zip(hmodel.param_items(), hgrads_p):
+        a = hgrads_k
+        for key in path:
+            a = a[key]
+        worst = max(worst, float(rel_l2(a, b)))
+    log(f"flagship Hessian step 0 ({hinfo}): terms "
+        f"{ {k: f'{float(v):.6e}' for k, v in hterms_k.items()} } vs plain K8 (rel "
+        f"{', '.join(f'{r:.2e}' for r in h_rel)}); ParameterNet grads vs plain K8 + autograd: "
+        f"worst rel-L2 {worst:.2e}")
+    if max(h_rel) > BF16_LOSS_REL or worst > 1e-2:
+        raise AssertionError("the flagship Hessian step's terms or grads depart from plain K8")
+    del wb_h, r_wb, hgrads_p, hgrads_k
+    _build.reset_launches()
+    hlosses = []
+    for _ in range(n_steps):
+        hstate, loss = htrainer.step(hstate, t_h, x_h, u_h, target_jac=j_h, target_hess=h_h)
+        hlosses.append(loss)
+    torch.cuda.synchronize()
+    hess_launches = dict(_build.LAUNCHES)
+    hlosses = [float(v) for v in hlosses]
+    log(f"flagship Hessian train: {n_steps} steps, losses {hlosses}, launches {hess_launches}, "
+        f"path {htrainer.history.get('hessian_path')}")
+    if (hess_launches["shapenet_hessian_grads"] != n_steps
+            or hess_launches["shapenet_sobolev_grads"] or hess_launches["shapenet_mse_grads"]
+            or not all(np.isfinite(hlosses))):
+        raise AssertionError(f"{n_steps} Hessian steps launched {hess_launches}, losses {hlosses}")
+    h_w = wave_hessian(t_w, x_w)
+    hmodel_w = nif_tpu_torch.NIFMultiScale(FLAGSHIP_SHAPE, FLAGSHIP_PNET, FLAGSHIP_POLICY,
+                                           device="cuda", seed=1)
+    hfitter = GroupedTrainer(hmodel_w, lambda p: torch.optim.Adam(p, lr=FLAGSHIP_TRAIN_LR), **hkw)
+    hfstate = hfitter.init(1)
+    hbefore = hfitter.evaluate_sobolev(hfstate, t_w, x_w, u_w, j_w, target_hess=h_w,
+                                       group_batch=16 // eval_chunks)
+    _build.reset_launches()
+    hfstate = hfitter.fit(hfstate, t_w, x_w, u_w, epochs=30, group_batch=8, point_batch=4096,
+                          target_jac=j_w, target_hess=h_w)
+    hfit_launches = dict(_build.LAUNCHES)
+    _build.reset_launches()
+    hafter = hfitter.evaluate_sobolev(hfstate, t_w, x_w, u_w, j_w, target_hess=h_w,
+                                      group_batch=16 // eval_chunks)
+    heval_launches = dict(_build.LAUNCHES)
+    hhist = hfitter.history["loss"]
+    log(f"Hessian fit on the traveling wave (G=16, P=8192, 4096-point batches, 30 epochs, "
+        f"w_jac={hkw['w_jac']}, w_hess={hkw['w_hess']}): epoch losses first {hhist[0]:.6e} last "
+        f"{hhist[-1]:.6e}; launches {hfit_launches}; evaluate_sobolev before {hbefore}, after "
+        f"{hafter} ({eval_chunks} chunks, launches {heval_launches})")
+    if hfit_launches["shapenet_hessian_grads"] != 60 or not hhist[-1] < hhist[0]:
+        raise AssertionError("the Hessian fit did not take K8 for every step or did not lower "
+                             "its loss")
+    if not hafter["hessian_mse"] < hbefore["hessian_mse"]:
+        raise AssertionError(f"the Hessian fit did not lower the Hessian term: {hbefore} -> "
+                             f"{hafter}")
+    if heval_launches["shapenet_fwd_hess"] != eval_chunks:
+        raise AssertionError(f"evaluate_sobolev launched K7 {heval_launches['shapenet_fwd_hess']}"
+                             f" times for {eval_chunks} chunks")
+
     # ---- phase 4: K1 times at the flagship shape (bf16, as served)
     G, P = requests[0]
     t, x = inputs[0]
@@ -759,6 +1030,39 @@ def main() -> int:
         f"workspace and reduce), plain {k6_plain_ms:.4f} ms, bound {k6_bound:.4f} ms by "
         f"{k6_by} ({k6_gf:.1f} GFLOP); library_ms null: no single PyTorch call computes "
         f"these chains")
+
+    # ---- phase 4d: Hessian-step, K7 and K8 times at the flagship shape (bf16)
+    hbox = [hstate]
+
+    def one_hessian_step():
+        hbox[0], _ = htrainer.step(hbox[0], t_h, x_h, u_h, target_jac=j_h, target_hess=h_h)
+
+    hstep_ms = cuda_ms(one_hessian_step, reps=3, warmup=1)
+    wb, x = chain_data(torch, flag_cfg, G, P, torch.bfloat16, seed=92)
+    tgt, _, jt, ht = hessian_data(torch, flag_cfg, G, P, seed=92)
+    k7_ms = cuda_ms(lambda: shapenet_fwd_hess_cuda(wb, x, flag_cfg, "siren"), reps=5, warmup=1)
+    k7_plain_ms = cuda_ms(lambda: plain_k7_chunked(torch, wb, x, flag_cfg), reps=2, warmup=1)
+    k8_ms = cuda_ms(lambda: shapenet_hessian_grads_cuda(wb, x, tgt, jt, ht, flag_cfg, "siren"),
+                    reps=3, warmup=1)
+    k8_plain_ms = cuda_ms(lambda: plain_k8_chunked(torch, wb, x, tgt, jt, ht, flag_cfg),
+                          reps=2, warmup=1)
+    torch.cuda.reset_peak_memory_stats()
+    plain_k8_chunked(torch, wb, x, tgt, jt, ht, flag_cfg)
+    torch.cuda.synchronize()
+    plain_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del wb, x, tgt, jt, ht
+    k7_bound, k7_by, k7_gf = hessian_bounds(flag_cfg, G, P, peak_mma, peak_f32, peak_bw,
+                                            train=False)
+    k8_bound, k8_by, k8_gf = hessian_bounds(flag_cfg, G, P, peak_mma, peak_f32, peak_bw,
+                                            train=True)
+    log(f"flagship Hessian step (GroupedTrainer.step with target_jac and target_hess, Adam, "
+        f"bf16, G={G} P={P}): {hstep_ms:.4f} ms = {G * P / hstep_ms * 1e3:.4e} train points/s")
+    log(f"K7 {k7_ms:.4f} ms, plain {k7_plain_ms:.4f} ms, bound {k7_bound:.4f} ms by {k7_by} "
+        f"({k7_gf:.1f} GFLOP of products); K8 {k8_ms:.4f} ms (wrapper incl. prescale, workspace "
+        f"and reduce), plain {k8_plain_ms:.4f} ms, bound {k8_bound:.4f} ms by {k8_by} "
+        f"({k8_gf:.1f} GFLOP); the plain versions ran in 4 chunks of 8 groups (peak "
+        f"{plain_peak_gb:.1f} GB allocated for plain K8); library_ms null: no single PyTorch "
+        f"call computes these chains")
     log(f"card: {smi}")
     log(json.dumps({"kernels": [{
         "name": "shapenet_fwd",
@@ -819,6 +1123,30 @@ def main() -> int:
         "plain_ms": k6_plain_ms,
         "bound_ms": k6_bound,
         "bound_by": k6_by,
+        "library_ms": None,
+    }, {
+        "name": "shapenet_fwd_hess",
+        "route": "cuda",
+        "source": "nif_tpu_torch/csrc/shapenet_hess.cu",
+        "replaces": "nif_tpu/ops/pallas_shapenet.py:2223",
+        "launches": heval_launches["shapenet_fwd_hess"],
+        "max_abs_err": k7_err,
+        "ms": k7_ms,
+        "plain_ms": k7_plain_ms,
+        "bound_ms": k7_bound,
+        "bound_by": k7_by,
+        "library_ms": None,
+    }, {
+        "name": "shapenet_hessian_grads",
+        "route": "cuda",
+        "source": "nif_tpu_torch/csrc/shapenet_hess.cu",
+        "replaces": "nif_tpu/ops/pallas_shapenet.py:2326",
+        "launches": hess_launches["shapenet_hessian_grads"],
+        "max_abs_err": k8_err,
+        "ms": k8_ms,
+        "plain_ms": k8_plain_ms,
+        "bound_ms": k8_bound,
+        "bound_by": k8_by,
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -163,6 +163,42 @@ __device__ __forceinline__ float act3(float z, int act, float* d1, float* d2) {
   }
 }
 
+// The polynomial's third derivative in t (_fast_sin_grad3): 6 c3 + 60 c5 s
+// + 210 c7 s^2 [+ 504 c9 s^3]; times (1/2pi)^3 it is the one in z.
+constexpr float kInv2Pi3 =
+    (float)(0.15915494309189535 * 0.15915494309189535 * 0.15915494309189535);
+
+__device__ __forceinline__ float sin_poly_dt3(float s, bool degree9) {
+  if (degree9)
+    return (float)(6.0 * -41.33324754) +
+           s * ((float)(60.0 * 81.40008977) +
+                s * ((float)(210.0 * -74.67588387) + s * (float)(504.0 * 33.16809461)));
+  return (float)(6.0 * -41.09373072) +
+         s * ((float)(60.0 * 77.93034984) + s * (float)(210.0 * -56.08639487));
+}
+
+// (act(z), act', act'', act''') of a sine activation on f32 z, the Hessian
+// kernels' _trig3_for: the polynomial with its exact derivatives from one
+// range reduction (kSinePoly7/9), or the true sine (kSineExact). The
+// Hessian kernels take sine chains only; their entries refuse other codes.
+__device__ __forceinline__ float sine4(float z, int act, float* d1, float* d2, float* d3) {
+  if (act == kSineExact) {
+    float sn, cs;
+    sincosf(z, &sn, &cs);
+    *d1 = cs;
+    *d2 = -sn;
+    *d3 = -cs;
+    return sn;
+  }
+  const bool deg9 = act == kSinePoly9;
+  const float t = sin_turns(z);
+  const float s = t * t;
+  *d1 = sin_poly_dt(s, deg9) * kInv2Pi;
+  *d2 = sin_poly_dt2(t, s, deg9) * kInv2Pi2;
+  *d3 = sin_poly_dt3(s, deg9) * kInv2Pi3;
+  return sin_poly(t, s, deg9);
+}
+
 // (act(z), act'(z)) on f32 z: _act_with_grad.
 __device__ __forceinline__ float act_grad(float z, int act, float* d) {
   float unused;
@@ -324,6 +360,74 @@ __device__ __forceinline__ void store_dz(float* __restrict__ DZ, const T* D, int
     }
 }
 
+// A block's residual region (the stacked train kernels, K6 and K8): in
+// shared memory after its working buffers, or the block's slice of a global
+// scratch. A is the kernel's argument struct.
+template <typename A>
+__device__ __forceinline__ unsigned char* residuals(const A& a, unsigned char* after_work) {
+  return a.resid_in_smem ? after_work
+                         : static_cast<unsigned char*>(a.scratch) +
+                               ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * a.resid_bytes;
+}
+
+// Write a block's NL loss sums to out[0..NL): each warp's lanes summed by
+// shuffles, then the warps in order by thread 0, through ws (NL * kWarps
+// floats, which every thread must be done with). Same bits on every run.
+template <int NL>
+__device__ __forceinline__ void store_loss_partials(float (&loss)[NL], float* ws, float* out) {
+  const int tc = threadIdx.x % kLanes;
+  const int warp = threadIdx.x / kLanes;
+  __syncthreads();  // every thread is done with ws
+#pragma unroll
+  for (int off = kLanes / 2; off > 0; off >>= 1)
+#pragma unroll
+    for (int l = 0; l < NL; ++l) loss[l] += __shfl_xor_sync(0xffffffffu, loss[l], off);
+  if (tc == 0)
+#pragma unroll
+    for (int l = 0; l < NL; ++l) ws[l * kWarps + warp] = loss[l];
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int l = 0; l < NL; ++l) {
+      float total = 0.f;
+      for (int w = 0; w < kWarps; ++w) total += ws[l * kWarps + w];
+      out[l] = total;
+    }
+}
+
+// The divisor of each loss sum (the selected entries of its term).
+struct LossNorms {
+  float n[4];
+};
+
+// The split reduce of the stacked train kernels (K6, K8): d_wb[g][p] =
+// T((sum_s partial[g][s][p]) * (p < n_scaled ? omega : 1)), the S splits
+// summed in order; then one thread per loss sums its G*S partials (laid out
+// [G, S, NL] after the [G, S, po] weight grads) in order and divides by its
+// norm. No float atomics: two runs give the same bits.
+template <typename T, int NL>
+__global__ void __launch_bounds__(kThreads)
+    split_reduce_kernel(const float* __restrict__ partials, int G, int S, long long po,
+                        long long n_scaled, float omega, LossNorms norms, T* __restrict__ d_wb,
+                        float* __restrict__ losses) {
+  const long long total = (long long)G * po;
+  for (long long idx = (long long)blockIdx.x * kThreads + threadIdx.x; idx < total;
+       idx += (long long)gridDim.x * kThreads) {
+    const long long g = idx / po;
+    const long long p = idx - g * po;
+    const float* src = partials + g * S * po + p;
+    float sum = 0.f;
+    for (int s = 0; s < S; ++s) sum += src[s * po];
+    if (p < n_scaled) sum = sum * omega;
+    d_wb[idx] = from_f32<T>(sum);
+  }
+  if (blockIdx.x == 0 && threadIdx.x < NL) {
+    const float* lp = partials + (long long)G * S * po + threadIdx.x;
+    float sum = 0.f;
+    for (long long i = 0; i < (long long)G * S; ++i) sum += lp[NL * i];
+    losses[threadIdx.x] = sum / norms.n[threadIdx.x];
+  }
+}
+
 // The columns per thread of width n (0 when n is wider than kMaxRn * 32).
 inline int columns_per_thread(int n) {
   int rn = 1;
@@ -365,6 +469,17 @@ inline int stride_blocks(long long total) {
   const int sms = sm_count();
   const long long cap = 16LL * (sms > 0 ? sms : 1);
   return (int)(want < cap ? want : cap);
+}
+
+// Launch split_reduce_kernel over G * po weight grads on `stream`; returns
+// the CUDA error of the launch.
+template <typename T, int NL>
+int launch_split_reduce(const float* partials, int G, int S, long long po, long long n_scaled,
+                        float omega, LossNorms norms, T* d_wb, float* losses,
+                        cudaStream_t stream) {
+  split_reduce_kernel<T, NL><<<stride_blocks((long long)G * po), kThreads, 0, stream>>>(
+      partials, G, S, po, n_scaled, omega, norms, d_wb, losses);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace

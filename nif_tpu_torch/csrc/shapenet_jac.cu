@@ -78,14 +78,6 @@ struct Args {
   int resid_in_smem;
 };
 
-// Per-block residual region: in shared memory after `work`, or the block's
-// slice of the global scratch.
-__device__ __forceinline__ unsigned char* residuals(const Args& a, unsigned char* after_work) {
-  return a.resid_in_smem ? after_work
-                         : static_cast<unsigned char*>(a.scratch) +
-                               ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * a.resid_bytes;
-}
-
 // K5, reverse body. Per tile: the forward of K2, keeping the layer input H
 // (one buffer) and each activated layer's derivative D[m] rounded to T; y
 // from the last layer; then for each output j a dx-only sweep from du =
@@ -302,7 +294,7 @@ __global__ void __launch_bounds__(kThreads) stacked_kernel(const Args a) {
     const T* wg = static_cast<const T*>(a.wb) + (long long)g * a.po;
     const T* wl = wg + o_wl;
     float* part = SOB ? a.partials + ((long long)g * S + s) * a.po : nullptr;
-    float loss_v = 0.f, loss_j = 0.f;
+    float loss[2] = {0.f, 0.f};  // value, Jacobian
     for (int tile = t_begin; tile < t_end; ++tile) {
       const bool first = tile == t_begin;
       const int p0 = tile * tp;
@@ -425,7 +417,7 @@ __global__ void __launch_bounds__(kThreads) stacked_kernel(const Args a) {
           if (live) {
             float err = O[idx] + to_f32(wg[o_bl + j]) - to_f32(tg[idx]);
             if (a.y_mask) err = err * a.y_mask[j];
-            loss_v += err * err * w;
+            loss[0] += err * err * w;
             dv = a.ky * err * w;
           }
           O[idx] = dv;
@@ -435,7 +427,7 @@ __global__ void __launch_bounds__(kThreads) stacked_kernel(const Args a) {
             if (live) {
               float e = O[o] - to_f32(jtg[(long long)r * si * so + k * so + j]);
               if (a.jac_mask) e = e * a.jac_mask[k * so + j];
-              loss_j += e * e * w;
+              loss[1] += e * e * w;
               dj = a.kj * e * w;
             }
             O[o] = dj;
@@ -552,57 +544,9 @@ __global__ void __launch_bounds__(kThreads) stacked_kernel(const Args a) {
       bias_grad(DZV, n, tp, part + o_b0, first);
     }
 
-    if (SOB) {
-      // the block's two loss partials: warps in order, then their sums
-      __syncthreads();  // every thread is done with ws
-#pragma unroll
-      for (int off = kLanes / 2; off > 0; off >>= 1) {
-        loss_v += __shfl_xor_sync(0xffffffffu, loss_v, off);
-        loss_j += __shfl_xor_sync(0xffffffffu, loss_j, off);
-      }
-      if (tc == 0) {
-        ws[warp] = loss_v;
-        ws[kWarps + warp] = loss_j;
-      }
-      __syncthreads();
-      if (threadIdx.x == 0) {
-        float tv = 0.f, tj = 0.f;
-        for (int w = 0; w < kWarps; ++w) {
-          tv += ws[w];
-          tj += ws[kWarps + w];
-        }
-        float* lp = a.partials + (long long)a.G * S * a.po + ((long long)g * S + s) * 2;
-        lp[0] = tv;
-        lp[1] = tj;
-      }
-    }
-  }
-}
-
-// d_wb[g][p] = T((sum_s partial[g][s][p]) * (p < n_scaled ? omega : 1)),
-// the S splits summed in order; one thread per loss sums its G*S partials
-// in order and divides by n_y (value) or n_j (Jacobian).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    sobolev_reduce_kernel(const float* __restrict__ partials, int G, int S, long long po,
-                          long long n_scaled, float omega, float n_y, float n_j,
-                          T* __restrict__ d_wb, float* __restrict__ losses) {
-  const long long total = (long long)G * po;
-  for (long long idx = (long long)blockIdx.x * kThreads + threadIdx.x; idx < total;
-       idx += (long long)gridDim.x * kThreads) {
-    const long long g = idx / po;
-    const long long p = idx - g * po;
-    const float* src = partials + g * S * po + p;
-    float sum = 0.f;
-    for (int s = 0; s < S; ++s) sum += src[s * po];
-    if (p < n_scaled) sum = sum * omega;
-    d_wb[idx] = from_f32<T>(sum);
-  }
-  if (blockIdx.x == 0 && threadIdx.x < 2) {
-    const float* lp = partials + (long long)G * S * po + threadIdx.x;
-    float sum = 0.f;
-    for (long long i = 0; i < (long long)G * S; ++i) sum += lp[2 * i];
-    losses[threadIdx.x] = sum / (threadIdx.x == 0 ? n_y : n_j);
+    if (SOB)  // the block's two loss partials, after its [G, S, po] weight grads
+      store_loss_partials(loss, ws,
+                          a.partials + (long long)a.G * S * a.po + ((long long)g * S + s) * 2);
   }
 }
 
@@ -677,11 +621,8 @@ int launch_sobolev(const Geometry& geo, Args a, T* d_wb, float* losses, long lon
   kernel<<<dim3(geo.splits, geo.grid_g), kThreads, geo.smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int blocks = stride_blocks((long long)a.G * a.po);
-  sobolev_reduce_kernel<T><<<blocks, kThreads, 0, stream>>>(a.partials, a.G, geo.splits, a.po,
-                                                            n_scaled, omega, n_y, n_j, d_wb,
-                                                            losses);
-  return (int)cudaGetLastError();
+  return launch_split_reduce<T, 2>(a.partials, a.G, geo.splits, a.po, n_scaled, omega,
+                                   LossNorms{{n_y, n_j}}, d_wb, losses, stream);
 }
 
 Args prepared(Args a, const Geometry& g) {

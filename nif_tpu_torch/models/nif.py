@@ -10,9 +10,10 @@ Each model holds its configuration and its ParameterNet's parameters:
   differentiable through the fused backward kernel.
 * ``mse_value_and_grad(t, x, u)`` — the grouped weighted-MSE loss and its
   gradient, through the fused train kernel on the card (the train path).
-* ``sobolev_value_and_grad(t, x, u, target_jac=...)`` — the grouped Sobolev
-  loss (values and Jacobians) and its gradient, through the fused Sobolev
-  train kernel on the card.
+* ``sobolev_value_and_grad(t, x, u, target_jac=..., target_hess=...)`` —
+  the grouped Sobolev loss (values, Jacobians and Hessians) and its
+  gradient, through the fused Sobolev train kernel (K6), or with Hessian
+  targets the fused Hessian train kernel (K8), on the card.
 * ``regularization_loss`` — the configured L1/L2, activity and
   latent-Jacobian terms.
 * ``p_to_w / p_to_lr / lr_to_w / x_to_u_given_w(_grouped)`` — subnetwork
@@ -50,6 +51,12 @@ from ..ops.fused_derivatives import (
     derivative_geometry,
     shapenet_sobolev_grads,
     sobolev_fused_unsupported_reason,
+)
+from ..ops.fused_hessian import (
+    _hess_pairs,
+    hessian_fused_unsupported_reason,
+    hessian_geometry,
+    shapenet_hessian_grads,
 )
 from ..ops.shapenet import shapenet_grouped, shapenet_pointwise
 from ..utils.policy import get_policy
@@ -316,14 +323,11 @@ class NIF(nn.Module):
         """Which path :meth:`sobolev_value_and_grad` takes for ``[G, P, si]``
         batches under auto selection: ``{"path": "fused"|"eager", "tile":
         int|None, "reason": str|None}``, the Sobolev counterpart of
-        :meth:`fast_path_info`. ``hess=True`` asks about Hessian targets,
-        whose fused kernel (K8) is not ported yet."""
-        if hess:
-            return {"path": "eager", "tile": None,
-                    "reason": "the fused Hessian train kernel (K8) is not ported yet "
-                              "(ROADMAP Slice D2)"}
+        :meth:`fast_path_info`: K6's gate and geometry, or with ``hess=True``
+        (Hessian targets) K8's."""
         cfg_k, variant_k = self._derivative_kernel_cfg()
-        reason = sobolev_fused_unsupported_reason(cfg_k, variant_k, P, si, self.device)
+        gate = hessian_fused_unsupported_reason if hess else sobolev_fused_unsupported_reason
+        reason = gate(cfg_k, variant_k, P, si, self.device)
         if reason is None and self._any_f64():
             reason = "float64 parameters (the kernels take float32 or bfloat16)"
         if reason is None and self.policy.compute_dtype not in (torch.float32, torch.bfloat16):
@@ -334,26 +338,58 @@ class NIF(nn.Module):
                     "reason": f"not on CUDA (device {str(self.device)!r})"}
         tile = None
         if reason is None:
-            tile = derivative_geometry("sobolev", cfg_k, variant_k, 1, P,
-                                       self.policy.compute_dtype, si)["tile"]
+            dtype = self.policy.compute_dtype
+            tile = (hessian_geometry("train", cfg_k, variant_k, 1, P, dtype, si) if hess else
+                    derivative_geometry("sobolev", cfg_k, variant_k, 1, P, dtype, si))["tile"]
         return {"path": "fused" if reason is None else "eager", "tile": tile,
                 "reason": reason}
 
     def _announce_sobolev_path(self, P: int, si: int, hess: bool = False) -> None:
         """One-time log of the Sobolev train path for ``[G, P, si]``
-        batches (the Sobolev kernel's rules differ from the MSE kernel's)."""
+        batches (the Sobolev kernels' rules differ from the MSE kernel's)."""
         if (P, si, hess) in self._announced_sobolev_paths:
             return
         self._announced_sobolev_paths.add((P, si, hess))
         info = self.sobolev_path_info(P, si, hess=hess)
         if info["path"] == "fused":
-            logger.info("sobolev fast path: fused CUDA kernel (P=%d, point tile %s)", P,
-                        info["tile"])
+            logger.info("sobolev fast path: fused CUDA kernel %s (P=%d, point tile %s)",
+                        "K8" if hess else "K6", P, info["tile"])
         elif info["reason"].startswith("not on CUDA"):
             logger.debug("sobolev path: eager (%s)", info["reason"])
         else:
             logger.warning("sobolev path FALLING BACK to eager for P=%d: %s — see PERF.md.",
                            P, info["reason"])
+
+    def _hessian_targets(self, target_hess, G, P, si, so, yi, xi, full_sel, weight):
+        """K8's Hessian targets from ``target_hess [G, P, |yi|, |xi|, |xi|]``
+        (``yi``, ``xi`` the selected output and input indices):
+        ``(ht_flat [G, P, n_pairs*so], hess_mask, asym_const)``. Index
+        subsets are scattered to full width under a 0/1 mask over the unique
+        pairs; the targets are symmetrized, since the kernel carries one
+        column per unique pair (the gradient is unchanged), and
+        ``asym_const``, the parameter-independent mean of their asymmetric
+        part, makes ``hess_mse + asym_const`` the full-grid mean."""
+        dev = self.device
+        pairs = _hess_pairs(si)
+        ht = torch.as_tensor(target_hess, device=dev)
+        cells = (yi[:, None, None], xi[None, :, None], xi[None, None, :])
+        sel = np.zeros((so, si, si), np.float32)
+        sel[cells] = 1.0
+        if full_sel:
+            hess_mask = None
+        else:
+            o, j, k = (torch.as_tensor(c, device=dev) for c in cells)
+            full = torch.zeros((G, P, so, si, si), dtype=ht.dtype, device=dev)
+            full[:, :, o, j, k] = ht
+            ht = full
+            hess_mask = np.concatenate([sel[:, j, k] for j, k in pairs])  # [n_pairs*so]
+        ht_sym = 0.5 * (ht + ht.transpose(-1, -2))
+        asym = torch.square(ht - ht_sym) * torch.as_tensor(sel, device=dev)
+        if weight is not None:
+            asym = asym * weight[..., None, None, None]
+        asym_const = torch.sum(asym) / (G * P * int(np.sum(sel)))
+        ht_flat = torch.cat([ht_sym[..., j, k] for j, k in pairs], dim=-1)
+        return ht_flat, hess_mask, asym_const
 
     def sobolev_value_and_grad(self, t, x, u, target_jac=None, target_hess=None,
                                w_value: float = 1.0, w_jac: float = 1.0, w_hess: float = 1.0,
@@ -371,40 +407,42 @@ class NIF(nn.Module):
         the tangent chain in one kernel on the card, its plain version on
         the CPU), then sends ``d_wb`` back through the ParameterNet with
         autograd; index subsets become 0/1 masks over full-width targets.
-        The eager path (``fused=False``, or no ``target_jac``) is autograd
-        over :func:`~nif_tpu_torch.ops.derivatives.sobolev_loss_grouped`.
-        Default (None): fused where :meth:`sobolev_path_info` says so.
-        ``target_hess`` (Hessian targets) needs the fused Hessian train
-        kernel K8, not ported yet: it raises unless ``fused=False``."""
+        ``target_hess [G, P, |y_index|, |x_index|, |x_index|]`` (Hessian
+        targets, with or without ``target_jac``) takes K8 in place of K6: the
+        second-order streams ride the same kernel, the off-diagonal targets
+        are symmetrized (the gradient is the same) and the
+        parameter-independent asymmetry constant is added back to
+        ``hessian_mse``, so it equals the full-grid mean; without
+        ``target_jac`` the Jacobian streams carry zero targets at zero weight.
+        The eager path (``fused=False``, or no derivative target) is
+        autograd over :func:`~nif_tpu_torch.ops.derivatives.sobolev_loss_grouped`.
+        Default (None): fused where :meth:`sobolev_path_info` says so."""
         G, P, si = x.shape
         so = self.cfg_shape_net.output_dim
         cfg_k, variant_k = self._derivative_kernel_cfg()
-        if target_hess is not None and fused is not False:
-            raise NotImplementedError(
-                "Hessian-target training through the fused kernel (K8, "
-                "shapenet_hessian_grads) is not ported to nif_tpu_torch yet (ROADMAP Slice "
-                "D2); pass fused=False for the eager path")
+        hess = target_hess is not None
         yi = None if y_index is None else np.atleast_1d(np.asarray(y_index))
         xi = None if x_index is None else np.atleast_1d(np.asarray(x_index))
         yi_full = np.arange(so) if yi is None else yi
         xi_full = np.arange(si) if xi is None else xi
-        if target_jac is not None:
-            expect = (G, P, len(yi_full), len(xi_full))
-            if tuple(target_jac.shape) != expect:
-                raise ValueError(f"sobolev_value_and_grad: target_jac shape "
-                                 f"{tuple(target_jac.shape)} != {expect} for the given "
-                                 f"y_index/x_index")
+        for name, target, expect in (
+                ("target_jac", target_jac, (G, P, len(yi_full), len(xi_full))),
+                ("target_hess", target_hess, (G, P, len(yi_full), len(xi_full), len(xi_full)))):
+            if target is not None and tuple(target.shape) != expect:
+                raise ValueError(f"sobolev_value_and_grad: {name} shape {tuple(target.shape)} "
+                                 f"!= {expect} for the given y_index/x_index")
         if fused:
-            if target_jac is None:
-                raise ValueError("sobolev_value_and_grad: fused=True requires target_jac "
-                                 "(value-only training is mse_value_and_grad)")
-            bad = sobolev_fused_unsupported_reason(cfg_k, variant_k, P, si, self.device)
+            if target_jac is None and not hess:
+                raise ValueError("sobolev_value_and_grad: fused=True requires target_jac or "
+                                 "target_hess (value-only training is mse_value_and_grad)")
+            gate = hessian_fused_unsupported_reason if hess else sobolev_fused_unsupported_reason
+            bad = gate(cfg_k, variant_k, P, si, self.device)
             if bad is not None:
                 raise ValueError(f"sobolev_value_and_grad: fused=True unsupported here: {bad}")
         if fused is None:
-            self._announce_sobolev_path(P, si, hess=target_hess is not None)
-            fused = (target_jac is not None
-                     and self.sobolev_path_info(P, si)["path"] == "fused")
+            self._announce_sobolev_path(P, si, hess=hess)
+            fused = ((target_jac is not None or hess)
+                     and self.sobolev_path_info(P, si, hess=hess)["path"] == "fused")
         params = [p for _, p in self.param_items()]
         dev = self.device
         u = torch.as_tensor(u, device=dev)
@@ -434,29 +472,50 @@ class NIF(nn.Module):
             raise ValueError(f"sobolev_value_and_grad: value targets shape {tuple(u.shape)} "
                              f"matches neither the full output {(G, P, so)} nor the "
                              f"y_index-selected columns")
-        jt = torch.as_tensor(target_jac, device=dev)
         full_sel = (len(yi_full) == so and len(xi_full) == si
                     and np.array_equal(yi_full, np.arange(so))
                     and np.array_equal(xi_full, np.arange(si)))
-        if full_sel:
-            jac_mask = None
+        if target_jac is None:
+            # Hessian-only training: the Jacobian streams still ride the
+            # kernel (they carry the second-order state), at zero weight
+            jt_flat, jac_mask = torch.zeros((G, P, si * so), device=dev), None
         else:
-            full = torch.zeros((G, P, so, si), dtype=jt.dtype, device=dev)
-            full[:, :, torch.as_tensor(yi_full, device=dev)[:, None],
-                 torch.as_tensor(xi_full, device=dev)[None, :]] = jt
-            jt = full
-            mask = np.zeros((so, si), np.float32)
-            mask[yi_full[:, None], xi_full[None, :]] = 1.0
-            jac_mask = mask.T.reshape(si * so)  # the kernel's column k*so + j
-        jt_flat = jt.transpose(2, 3).reshape(G, P, si * so)
+            jt = torch.as_tensor(target_jac, device=dev)
+            if full_sel:
+                jac_mask = None
+            else:
+                full = torch.zeros((G, P, so, si), dtype=jt.dtype, device=dev)
+                full[:, :, torch.as_tensor(yi_full, device=dev)[:, None],
+                     torch.as_tensor(xi_full, device=dev)[None, :]] = jt
+                jt = full
+                mask = np.zeros((so, si), np.float32)
+                mask[yi_full[:, None], xi_full[None, :]] = 1.0
+                jac_mask = mask.T.reshape(si * so)  # the kernel's column k*so + j
+            jt_flat = jt.transpose(2, 3).reshape(G, P, si * so)
 
         wb, _ = self.pnet(self._compute(t))
-        value_mse, jac_mse, d_wb = shapenet_sobolev_grads(
-            wb, self._compute(x), tgt, jt_flat, cfg_k, variant_k, w_value=w_value,
-            w_jac=w_jac, y_mask=y_mask, jac_mask=jac_mask, weight=weight)
+        terms = {}
+        if not hess:
+            value_mse, jac_mse, d_wb = shapenet_sobolev_grads(
+                wb, self._compute(x), tgt, jt_flat, cfg_k, variant_k, w_value=w_value,
+                w_jac=w_jac, y_mask=y_mask, jac_mask=jac_mask, weight=weight)
+        else:
+            ht_flat, hess_mask, asym_const = self._hessian_targets(
+                target_hess, G, P, si, so, yi_full, xi_full, full_sel, weight)
+            value_mse, jac_mse, hess_mse, d_wb = shapenet_hessian_grads(
+                wb, self._compute(x), tgt, jt_flat, ht_flat, cfg_k, variant_k,
+                w_value=w_value, w_jac=w_jac if target_jac is not None else 0.0,
+                w_hess=w_hess, y_mask=y_mask, jac_mask=jac_mask, hess_mask=hess_mask,
+                weight=weight)
+            terms["hessian_mse"] = hess_mse + asym_const
         grads = torch.autograd.grad(wb, params, d_wb)
-        terms = {"value_mse": value_mse, "jacobian_mse": jac_mse}
-        total = w_value * value_mse + w_jac * jac_mse
+        terms["value_mse"] = value_mse
+        total = w_value * value_mse
+        if target_jac is not None:
+            terms["jacobian_mse"] = jac_mse
+            total = total + w_jac * jac_mse
+        if hess:
+            total = total + w_hess * terms["hessian_mse"]
         if reg:
             reg_loss = self.regularization_loss(t=t, reg_weight=reg_weight)
             reg_grads = torch.autograd.grad(reg_loss, params, allow_unused=True)

@@ -8,6 +8,12 @@ from .derivatives import (
     sobolev_loss,
     sobolev_loss_grouped,
 )
+from .fused_hessian import (
+    fwd_hess_supported,
+    hessian_fused_supported,
+    shapenet_fwd_hess,
+    shapenet_hessian_grads,
+)
 from .fused_shapenet import (
     fused_supported,
     fused_unsupported_reason,
@@ -31,6 +37,10 @@ __all__ = [
     "shapenet_grouped_fused_reference",
     "fused_supported",
     "fused_unsupported_reason",
+    "shapenet_fwd_hess",
+    "shapenet_hessian_grads",
+    "fwd_hess_supported",
+    "hessian_fused_supported",
     "LAUNCHES",
     "reset_launches",
 ]

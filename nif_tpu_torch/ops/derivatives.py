@@ -6,20 +6,23 @@ NIF inputs are tiny (a handful of coordinates per point), so forward mode
 it over the points. The point-wise functions take a batched function
 ``fn: [B, d_in] -> [B, d_out]``. The grouped ones take a model: its
 ParameterNet runs once per group, and on the card ``(y, dy/dx)`` runs
-through the fused Jacobian kernel K5 (``ops.fused_derivatives``) where the
-config allows it. Everything on the eager path stays differentiable in the
-model's parameters (the Sobolev training loss rides it off the card).
+through the fused Jacobian kernel K5 (``ops.fused_derivatives``) and ``(y,
+dy/dx, d2y/dx2)`` through the fused Hessian kernel K7 (``ops.fused_hessian``)
+where the config allows it. Everything on the eager path stays
+differentiable in the model's parameters (the Sobolev training loss rides
+it off the card).
 """
 from __future__ import annotations
 
 import inspect
+import logging
 from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 from torch.func import jacfwd, vmap
 
-from .fused_derivatives import fwd_jac_supported, shapenet_fwd_jac
-from .fused_shapenet import fused_unsupported_reason
+from .fused_derivatives import fwd_jac_unsupported_reason, shapenet_fwd_jac
+from .fused_hessian import fwd_hess_unsupported_reason, shapenet_fwd_hess
 from .shapenet import shapenet_pointwise
 
 __all__ = [
@@ -33,6 +36,8 @@ __all__ = [
 ]
 
 Index = Union[int, Sequence[int], None]
+
+logger = logging.getLogger("nif_tpu_torch")
 
 
 def _as_index(idx: Index, dim: int, device) -> torch.Tensor:
@@ -125,19 +130,27 @@ def _kernel_dtype_ok(model) -> bool:
             and not model._any_f64())
 
 
-def _fwd_jac_fusable(model, x: torch.Tensor, fused: Optional[bool]) -> bool:
-    """Route ``(y, dy/dx)`` through K5? ``fused=False`` never; ``True`` when
-    the config passes :func:`fwd_jac_supported` (plain K5 on the CPU);
-    ``None`` (auto) additionally needs CUDA."""
+def _fusable(model, x, fused: Optional[bool], kernel: str, reason_fn) -> bool:
+    """Route a derivative evaluation through ``kernel``? ``fused=False``
+    never; ``True`` when ``reason_fn`` (its gate) takes the config (the
+    plain version on the CPU); ``None`` (auto) additionally needs CUDA, and
+    where the config sends a CUDA batch to the eager path it logs why, at
+    WARNING, once per model and shape."""
     if fused is False:
         return False
     cfg, variant = _chain(model)
     device = x.device if torch.is_tensor(x) else model.device
-    supported = _kernel_dtype_ok(model) and fwd_jac_supported(
-        cfg, variant, x.shape[1], x.shape[2], device)
+    P, si = x.shape[1], x.shape[2]
+    reason = (reason_fn(cfg, variant, P, si, device) if _kernel_dtype_ok(model) else
+              "float64 parameters or a compute dtype the kernels do not take")
     if fused is True:
-        return supported
-    return supported and torch.device(device).type == "cuda"
+        return reason is None
+    on_cuda = torch.device(device).type == "cuda"
+    if on_cuda and reason is not None and (kernel, P, si) not in model._announced_sobolev_paths:
+        model._announced_sobolev_paths.add((kernel, P, si))
+        logger.warning("%s path FALLING BACK to eager for P=%d: %s — see PERF.md.", kernel, P,
+                       reason)
+    return on_cuda and reason is None
 
 
 def output_and_jacobian_grouped(model, t, x, y_index: Index = None, x_index: Index = None,
@@ -151,7 +164,7 @@ def output_and_jacobian_grouped(model, t, x, y_index: Index = None, x_index: Ind
     in the compute dtype. ``fused=False`` forces the eager ``jacfwd`` path
     (param dtype, differentiable in the parameters); ``fused=True`` forces
     the kernel path (plain K5 on the CPU)."""
-    if _fwd_jac_fusable(model, x, fused):
+    if _fusable(model, x, fused, "K5", fwd_jac_unsupported_reason):
         cfg, variant = _chain(model)
         wb = model.p_to_w(t)  # the hypernetwork runs once per group
         y, jac = shapenet_fwd_jac(wb, model._compute(x), cfg, variant)
@@ -172,27 +185,22 @@ def output_and_jacobian_grouped(model, t, x, y_index: Index = None, x_index: Ind
     return y, _select_jac(jac, y_index, x_index)
 
 
-def _k7_would_take(model, x) -> bool:
-    """Whether the JAX package's fused Hessian evaluation (K7) would take
-    this config: a SIREN chain the fused kernels take, si <= 4."""
-    cfg, variant = _chain(model)
-    return (variant == "siren" and x.shape[2] <= 4
-            and fused_unsupported_reason(cfg, variant, x.shape[1]) is None)
-
-
 def output_jacobian_hessian_grouped(model, t, x, y_index: Index = None,
                                     x_index: Index = None, fused: Optional[bool] = None):
-    """Grouped ``(y, dy/dx, d2y/dx2)``, the ParameterNet once per group,
-    by nested ``jacfwd`` (eager). The fused forward-over-forward Hessian
-    kernel (K7) is not ported yet: where it would run (``fused=True``, or
-    auto on CUDA with a config it takes) this raises rather than going
-    eager quietly; ``fused=False`` is the eager path."""
-    device = x.device if torch.is_tensor(x) else model.device
-    if fused is not False and _k7_would_take(model, x) and (
-            fused is True or torch.device(device).type == "cuda"):
-        raise NotImplementedError(
-            "the fused Hessian evaluation kernel (K7, shapenet_fwd_hess) is not ported to "
-            "nif_tpu_torch yet (ROADMAP Slice D2); pass fused=False for the eager path")
+    """Grouped ``(y, dy/dx, d2y/dx2)``, the ParameterNet once per group.
+
+    On the card ``(y, jac, hess)`` runs in one launch of K7 (the value rows,
+    the si tangents and the si(si+1)/2 unique second-order streams stacked
+    in every product; the Hessian mirrored, exactly symmetric), in the
+    compute dtype, for sine chains with si <= 4. ``fused=False`` forces the
+    eager nested ``jacfwd`` path (param dtype, differentiable in the
+    parameters); ``fused=True`` forces the kernel path (plain K7 on the
+    CPU)."""
+    if _fusable(model, x, fused, "K7", fwd_hess_unsupported_reason):
+        cfg, variant = _chain(model)
+        wb = model.p_to_w(t)  # the hypernetwork runs once per group
+        y, jac, hess = shapenet_fwd_hess(wb, model._compute(x), cfg, variant)
+        return y, _select_jac(jac, y_index, x_index), _select_hess(hess, y_index, x_index)
     wb = model.p_to_w(t)
     x = model._compute(x).to(model.policy.param_dtype)
 

@@ -40,6 +40,7 @@ from . import _build
 from .fused_shapenet import (
     _DTYPE_CODES,
     _act_code,
+    _act_quad,
     _act_triple,
     _chain_code,
     _chain_lists,
@@ -219,23 +220,33 @@ def _jac_reverse(wbp, x, cfg, variant):
     return out, torch.stack(cols, dim=2)
 
 
-def _tangent_forward(wbp, x, cfg, variant, save: bool):
+def _tangent_forward(wbp, x, cfg, variant, save: bool, pairs=()):
     """``_fwd_jac_layers``: the chain with ``si`` tangent streams stacked
     under the value rows, ``S [G, 1 + si, P, n]`` (stream 0 the values,
     stream 1 + k the tangent d/dx_k). Returns ``(out f32 [G, P, so], O f32
     [G, 1 + si, P, so], saved)`` where ``O[:, 1 + k]`` is d out / d x_k and
     ``saved = (z0, S_list, Z_list, ws, bs)`` when ``save`` (``S_list`` the
     lifted input of every hidden product and of the last one, ``Z_list``
-    the f32 product of every hidden matrix)."""
+    the f32 product of every hidden matrix).
+
+    ``pairs`` (K7, K8: ``_hess_fwd_layers``) adds one second-order stream
+    per unique pair (j, k) after the tangents, d2/dx_j dx_k: seeded with
+    ``act''(z0) W0[j] W0[k]`` and carried by ``act'(z) Z_a + act''(z) Z_j
+    Z_k``, so ``O[:, 1 + si + a]`` is d2 out / dx_j dx_k."""
     cdt = x.dtype
     acc, lift = _acc(cdt), _lifter(cdt)
-    act, d1, _ = _act_triple(cfg, variant, cdt)
+    act, d1, d2 = _act_triple(cfg, variant, cdt)
     ws, bs = _chain_lists(unpack_shapenet_weights(wbp, cfg))
     si = x.shape[-1]
     w0 = ws[0].to(acc)
     z0 = torch.matmul(x.to(acc), w0) + bs[0].to(acc).unsqueeze(-2)
     g0 = d1(z0)
-    S = torch.stack([act(z0)] + [g0 * w0[:, k].unsqueeze(-2) for k in range(si)], dim=1)
+    rows = [w0[:, k].unsqueeze(-2) for k in range(si)]
+    seeds = [act(z0)] + [g0 * r for r in rows]
+    if pairs:
+        h0 = d2(z0)
+        seeds += [h0 * (rows[j] * rows[k]) for j, k in pairs]
+    S = torch.stack(seeds, dim=1)
     S_list, Z_list = [], []
 
     def app(S, i):
@@ -243,27 +254,30 @@ def _tangent_forward(wbp, x, cfg, variant, save: bool):
         if save:
             S_list.append(lift(S))
             Z_list.append(Z)
-        z = Z[:, 0] + bs[i].to(acc).unsqueeze(-2)
-        return Z, z, d1(z)
+        return Z, Z[:, 0] + bs[i].to(acc).unsqueeze(-2)
 
-    def stacked(value, tangents):
-        return torch.cat([value.unsqueeze(1), tangents], dim=1)
+    def epilogue(Z, z):
+        """The streams one product leaves: [act(z); act'(z) Z_k; act'(z)
+        Z_a + act''(z) Z_j Z_k]."""
+        g = d1(z)
+        parts = [act(z).unsqueeze(1), g.unsqueeze(1) * Z[:, 1:1 + si]]
+        if pairs:
+            h = d2(z)
+            parts.append(torch.stack([g * Z[:, 1 + si + a] + h * Z[:, 1 + j] * Z[:, 1 + k]
+                                      for a, (j, k) in enumerate(pairs)], dim=1))
+        return torch.cat(parts, dim=1)
 
     l = cfg.nlayers
     if variant == "siren" and cfg.use_resblock:
         for i in range(l):
-            Z1, z1, g1 = app(S, 1 + 2 * i)
-            Sh = stacked(act(z1), g1.unsqueeze(1) * Z1[:, 1:])
-            Z2, z2, g2 = app(Sh, 2 + 2 * i)
-            S = stacked(0.5 * (S[:, 0] + act(z2)), 0.5 * (S[:, 1:] + g2.unsqueeze(1) * Z2[:, 1:]))
+            Sh = epilogue(*app(S, 1 + 2 * i))
+            S = 0.5 * (S + epilogue(*app(Sh, 2 + 2 * i)))
     elif variant == "siren":
         for i in range(l):
-            Z, z, g = app(S, 1 + i)
-            S = stacked(act(z), g.unsqueeze(1) * Z[:, 1:])
+            S = epilogue(*app(S, 1 + i))
     elif variant == "vanilla":
         for i in range(l):
-            Z, z, g = app(S, 1 + i)
-            S = stacked(act(z) + S[:, 0], g.unsqueeze(1) * Z[:, 1:] + S[:, 1:])
+            S = epilogue(*app(S, 1 + i)) + S
     else:
         raise ValueError(f"unknown shapenet variant {variant!r}")
     if save:
@@ -304,15 +318,23 @@ def _sobolev_scales(G, P, si, so, w_value, w_jac, y_mask, jac_mask):
     return n_y, n_j, 2.0 * float(w_value) / n_y, 2.0 * float(w_jac) / n_j
 
 
-def _sobolev_backward(D_out, x, saved, cfg, variant):
+def _sobolev_backward(D_out, x, saved, cfg, variant, pairs=()):
     """``_sobolev_backward_chain``: reverse the stacked chain from the
     stacked cotangent ``D_out [G, 1 + si, P, so]`` of the last product.
-    Returns the per-layer ``(dws, dbs)`` in f32."""
+    Returns the per-layer ``(dws, dbs)`` in f32.
+
+    With ``pairs`` (K8: ``_hessian_backward_chain``) ``D_out`` also holds
+    the second-order streams' rows; their epilogue sends ``act'''`` into dz
+    and, by the product rule, ``act''`` terms into the tangent streams."""
     cdt = x.dtype
     acc, lift = _acc(cdt), _lifter(cdt)
     z0, S_list, Z_list, ws, bs = saved
-    _, d1, d2 = _act_triple(cfg, variant, cdt)
+    if pairs:
+        _, d1, d2, d3 = _act_quad(cfg, variant, cdt)
+    else:
+        (_, d1, d2), d3 = _act_triple(cfg, variant, cdt), None
     G, NS, P, _ = D_out.shape
+    si = NS - 1 - len(pairs)
     n_w = len(ws)
     dws, dbs = [None] * n_w, [None] * n_w
 
@@ -324,17 +346,33 @@ def _sobolev_backward(D_out, x, saved, cfg, variant):
         return torch.matmul(lift(D), w.to(acc).transpose(-1, -2).unsqueeze(1))
 
     def curvature(dS, Z, b, scale):
-        """(dz, dts, g): dz = scale du g + sum_k scale dt_k Z_k act''(z)."""
+        """(dz, D): the reverse of one product's epilogue from the scaled
+        cotangent of its output streams. dz = du g + sum_k dt_k Z_k act''
+        + sum_a dh_a (Z_a act'' + Z_j Z_k act'''); D stacks dz, the tangent
+        rows dt_k g (plus the pairs' product-rule terms) and dh_a g."""
         z = Z[:, 0] + b.to(acc).unsqueeze(-2)
         g, h = d1(z), d2(z)
-        dts = scale * dS[:, 1:] if scale != 1.0 else dS[:, 1:]
-        dz = (scale * dS[:, 0]) * g if scale != 1.0 else dS[:, 0] * g
-        for k in range(NS - 1):
-            dz = dz + dts[:, k] * Z[:, 1 + k] * h
-        return dz, dts, g
+        if scale != 1.0:
+            dS = scale * dS
+        dz = dS[:, 0] * g
+        for k in range(si):
+            dz = dz + dS[:, 1 + k] * Z[:, 1 + k] * h
+        dT = [dS[:, 1 + k] * g for k in range(si)]
+        dH = []
+        if pairs:
+            q = d3(z)
+            for a, (j, k) in enumerate(pairs):
+                dh = dS[:, 1 + si + a]
+                dz = dz + dh * (Z[:, 1 + si + a] * h + Z[:, 1 + j] * Z[:, 1 + k] * q)
+                dH.append(dh * g)
+                if j == k:
+                    dT[j] = dT[j] + 2.0 * dh * h * Z[:, 1 + j]
+                else:
+                    dT[j] = dT[j] + dh * h * Z[:, 1 + k]
+                    dT[k] = dT[k] + dh * h * Z[:, 1 + j]
+        return dz, torch.stack([dz] + dT + dH, dim=1)
 
-    def app_bwd(dz, dts, g, S_in, w):
-        D = torch.cat([dz.unsqueeze(1), dts * g.unsqueeze(1)], dim=1)
+    def app_bwd(dz, D, S_in, w):
         return w_grad(S_in, D), dz.sum(dim=-2), back(D, w)
 
     dws[-1] = w_grad(S_list[-1], D_out)
@@ -343,28 +381,40 @@ def _sobolev_backward(D_out, x, saved, cfg, variant):
     l = cfg.nlayers
     if variant == "siren" and cfg.use_resblock:
         for i in range(l - 1, -1, -1):
-            dz2, dts2, g2 = curvature(dS, Z_list[2 * i + 1], bs[2 + 2 * i], 0.5)
-            dws[2 + 2 * i], dbs[2 + 2 * i], dSh = app_bwd(dz2, dts2, g2, S_list[2 * i + 1],
+            dz2, D2 = curvature(dS, Z_list[2 * i + 1], bs[2 + 2 * i], 0.5)
+            dws[2 + 2 * i], dbs[2 + 2 * i], dSh = app_bwd(dz2, D2, S_list[2 * i + 1],
                                                           ws[2 + 2 * i])
-            dz1, dts1, g1 = curvature(dSh, Z_list[2 * i], bs[1 + 2 * i], 1.0)
-            dws[1 + 2 * i], dbs[1 + 2 * i], dS_new = app_bwd(dz1, dts1, g1, S_list[2 * i],
+            dz1, D1 = curvature(dSh, Z_list[2 * i], bs[1 + 2 * i], 1.0)
+            dws[1 + 2 * i], dbs[1 + 2 * i], dS_new = app_bwd(dz1, D1, S_list[2 * i],
                                                              ws[1 + 2 * i])
             dS = dS_new + 0.5 * dS  # the skip path
     else:
         for i in range(l - 1, -1, -1):
-            dz, dts, g = curvature(dS, Z_list[i], bs[1 + i], 1.0)
-            dws[1 + i], dbs[1 + i], dS_new = app_bwd(dz, dts, g, S_list[i], ws[1 + i])
+            dz, D = curvature(dS, Z_list[i], bs[1 + i], 1.0)
+            dws[1 + i], dbs[1 + i], dS_new = app_bwd(dz, D, S_list[i], ws[1 + i])
             # the vanilla shortcut passes the gradient straight through
             dS = dS_new + dS if variant == "vanilla" else dS_new
-    # first layer: z0 = x @ W0 + b0, tangent seeds t_k = act'(z0) W0[k, :]
+    # first layer: z0 = x @ W0 + b0, tangent seeds t_k = act'(z0) W0[k, :],
+    # second-order seeds act''(z0) W0[j, :] W0[k, :]
     g0, h0 = d1(z0), d2(z0)
     w0 = ws[0].to(acc)
+    rows = [w0[:, k].unsqueeze(-2) for k in range(si)]
     dz0 = dS[:, 0] * g0
-    for k in range(NS - 1):
-        dz0 = dz0 + dS[:, 1 + k] * w0[:, k].unsqueeze(-2) * h0
+    for k in range(si):
+        dz0 = dz0 + dS[:, 1 + k] * rows[k] * h0
+    seed_rows = [(dS[:, 1 + k] * g0).sum(dim=-2) for k in range(si)]
+    if pairs:
+        q0 = d3(z0)
+        for a, (j, k) in enumerate(pairs):
+            dh = dS[:, 1 + si + a]
+            dz0 = dz0 + dh * (rows[j] * rows[k]) * q0
+            if j == k:
+                seed_rows[j] = seed_rows[j] + 2.0 * (dh * h0 * rows[j]).sum(dim=-2)
+            else:
+                seed_rows[j] = seed_rows[j] + (dh * h0 * rows[k]).sum(dim=-2)
+                seed_rows[k] = seed_rows[k] + (dh * h0 * rows[j]).sum(dim=-2)
     dw0 = torch.matmul(lift(x).transpose(-1, -2), lift(dz0))
-    seed_rows = torch.stack([(dS[:, 1 + k] * g0).sum(dim=-2) for k in range(NS - 1)], dim=1)
-    dws[0] = dw0 + seed_rows
+    dws[0] = dw0 + torch.stack(seed_rows, dim=1)
     dbs[0] = dz0.sum(dim=-2)
     return dws, dbs
 

@@ -68,6 +68,7 @@ __all__ = [
     "fast_sin_grad",
     "fast_sin_and_grad",
     "fast_sin_grad2",
+    "fast_sin_grad3",
     "kernel_geometry",
     "train_geometry",
 ]
@@ -138,6 +139,21 @@ def fast_sin_grad2(y: torch.Tensor) -> torch.Tensor:
         _, c3, c5, c7, c9 = _SIN_C
         poly = 6 * c3 + s * (20 * c5 + s * (42 * c7 + s * (72 * c9)))
     return t * poly * (_INV2PI * _INV2PI)
+
+
+def fast_sin_grad3(y: torch.Tensor) -> torch.Tensor:
+    """d3/dy3 of :func:`fast_sin`, the polynomial's third derivative (the
+    Hessian train kernel's backward multiplies by it): P'''(t) = 6 c3 +
+    60 c5 s + 210 c7 s^2 [+ 504 c9 s^3], s = t^2, times (1/2pi)^3."""
+    t = _reduce(y)
+    s = t * t
+    if _sin_degree() == 7:
+        _, c3, c5, c7 = _SIN_C7
+        poly = 6 * c3 + s * (60 * c5 + s * (210 * c7))
+    else:
+        _, c3, c5, c7, c9 = _SIN_C
+        poly = 6 * c3 + s * (60 * c5 + s * (210 * c7 + s * (504 * c9)))
+    return poly * (_INV2PI * _INV2PI * _INV2PI)
 
 
 # Vanilla-chain activations the kernel implements (the JAX kernel's
@@ -319,6 +335,17 @@ def _act_triple(cfg: ShapeNetConfig, variant: str, cdt: torch.dtype):
         return torch.sin, torch.cos, lambda z: -torch.sin(z)
     name = cfg.activation
     return _VANILLA_ACTS[name], _VANILLA_DERIVS[name], _VANILLA_DERIVS2[name]
+
+
+def _act_quad(cfg: ShapeNetConfig, variant: str, cdt: torch.dtype):
+    """(act, act', act'', act''') on f32 z of the Hessian chains (K7, K8),
+    the JAX kernel's ``_trig3_for``: the polynomial for a bf16 SIREN chain,
+    the true sine in f32. Sine chains only, as the kernels."""
+    if variant != "siren":
+        raise ValueError("the Hessian kernels run sine chains only")
+    if cdt == torch.bfloat16:
+        return fast_sin, fast_sin_grad, fast_sin_grad2, fast_sin_grad3
+    return torch.sin, torch.cos, lambda z: -torch.sin(z), lambda z: -torch.cos(z)
 
 
 def _n_scaled(cfg: ShapeNetConfig, variant: str) -> int:

@@ -13,12 +13,14 @@ batches.
 Sobolev training: ``target_jac [G, P, so, si]`` switches a step to
 ``w_value * value_mse + w_jac * jacobian_mse`` through
 ``model.sobolev_value_and_grad`` (one K6 launch per step on the card), and
-``evaluate_sobolev`` evaluates both terms through K5.
+``evaluate_sobolev`` evaluates both terms through K5. ``target_hess [G, P,
+so, si, si]`` adds ``w_hess * hessian_mse`` (one K8 launch per step on the
+card), and ``evaluate_sobolev(..., target_hess=...)`` evaluates the three
+terms through K7.
 
-Not ported yet, and refused with ``NotImplementedError``: Hessian targets
-through the fused kernels (``target_hess``, ROADMAP Slice D2), residual
-point sampling and the device-resident ``fit_resident`` loop (ROADMAP Slice
-A2), and ``mesh``/``shard_model_axis`` (ROADMAP Slice G).
+Not ported yet, and refused with ``NotImplementedError``: residual point
+sampling and the device-resident ``fit_resident`` loop (ROADMAP Slice A2),
+and ``mesh``/``shard_model_axis`` (ROADMAP Slice G).
 """
 from __future__ import annotations
 
@@ -83,9 +85,10 @@ class GroupedTrainer:
                      hess: bool = False) -> None:
         """Record once per mode which path P-point group batches take
         (``history["path"]`` for MSE steps, ``history["sobolev_path"]`` for
-        Sobolev steps, each with a ``..._reason`` for an eager fallback), and
-        let the model log its one-time path message."""
-        key = "sobolev_path" if sobolev else "path"
+        Sobolev steps with Jacobian targets only, ``history["hessian_path"]``
+        for steps with Hessian targets, each with a ``..._reason`` for an
+        eager fallback), and let the model log its one-time path message."""
+        key = "hessian_path" if hess else "sobolev_path" if sobolev else "path"
         if key in self.history:
             return
         if sobolev:
@@ -104,7 +107,8 @@ class GroupedTrainer:
         tensors; tensors already on the model's device are used as they
         are). ``w [Gb, Pb]`` weights the points, ``rw [Gb]`` the rows of the
         batch-mean regularization terms; ``target_jac [Gb, Pb, so, si]``
-        switches the step to the Sobolev loss. Returns ``(state, loss)``
+        (and/or ``target_hess [Gb, Pb, so, si, si]``) switches the step to the
+        Sobolev loss. Returns ``(state, loss)``
         with the loss as a 0-dim device tensor: no host sync."""
         sobolev = target_jac is not None or target_hess is not None
         self._record_path(x.shape[1], x.shape[2], sobolev, hess=target_hess is not None)
@@ -150,8 +154,9 @@ class GroupedTrainer:
         shape and the loss and gradient stay the exact means. The epoch loss
         is the group-weighted mean of the step losses, read from the device
         once per epoch. ``target_jac [G, P, so, si]`` switches every step to
-        the Sobolev loss (its batches drawn with no extra generator calls,
-        as in the JAX loop)."""
+        the Sobolev loss, and ``target_hess [G, P, so, si, si]`` adds the
+        Hessian term (their batches drawn with no extra generator calls, as
+        in the JAX loop)."""
         if point_sampling == "residual":
             raise _not_ported("point_sampling='residual'", "Slice A2, after the step")
         if point_sampling != "uniform":
@@ -277,36 +282,49 @@ class GroupedTrainer:
         the per-term monitoring of Sobolev training. Evaluated in chunks of
         ``group_batch`` groups (default: about 4M points per chunk) through
         ``output_and_jacobian_grouped``, which runs one K5 launch per chunk
-        on the card. Hessian targets need the fused Hessian evaluation
-        kernel (K7), not ported yet."""
-        if target_hess is not None:
-            raise _not_ported("evaluate_sobolev with target_hess (the fused Hessian "
-                              "evaluation, K7)", "Slice D2")
-        from ..ops.derivatives import output_and_jacobian_grouped
+        on the card. ``target_hess [G, P, so, si, si]`` adds a
+        ``"hessian_mse"`` term and its ``w_hess`` share of ``total``; the
+        chunks then go through ``output_jacobian_hessian_grouped``, one K7
+        launch per chunk on the card."""
+        from ..ops.derivatives import (output_and_jacobian_grouped,
+                                       output_jacobian_hessian_grouped)
 
         t, x = np.asarray(t), np.asarray(x)
         u, ju = np.asarray(u), np.asarray(target_jac)
+        hu = None if target_hess is None else np.asarray(target_hess)
         G, P = x.shape[0], x.shape[1]
         gb = min(group_batch or max(1, 4_000_000 // max(P, 1)), G)
-        se_y = se_j = 0.0
+        se_y = se_j = se_h = 0.0
         with torch.no_grad():
             for s in range(0, G, gb):
                 sl = slice(s, min(s + gb, G))
                 bt, bx, bu, bj = self._put(t[sl], x[sl], u[sl], ju[sl])
-                y, jac = output_and_jacobian_grouped(self.model, bt, bx)
-                ey = torch.square(y.float() - bu.float())
-                ej = torch.square(jac.float() - bj.float())
-                if sample_weight is not None:
-                    w = torch.as_tensor(np.asarray(sample_weight[sl], np.float32),
-                                        device=y.device)
-                    ey = ey * w[..., None]
-                    ej = ej * w[..., None, None]
-                se_y += float(torch.sum(ey))
-                se_j += float(torch.sum(ej))
+                if hu is None:
+                    y, jac = output_and_jacobian_grouped(self.model, bt, bx)
+                else:
+                    y, jac, hess = output_jacobian_hessian_grouped(self.model, bt, bx)
+                w = (None if sample_weight is None else
+                     torch.as_tensor(np.asarray(sample_weight[sl], np.float32), device=y.device))
+
+                def wsum(pred, target):
+                    sq = torch.square(pred.float() - target.float())
+                    if w is not None:
+                        sq = sq * w.reshape(w.shape + (1,) * (sq.dim() - 2))
+                    return float(torch.sum(sq))
+
+                se_y += wsum(y, bu)
+                se_j += wsum(jac, bj)
+                if hu is not None:
+                    se_h += wsum(hess, self._put(hu[sl])[0])
         n_y = float(G * P * u.shape[-1])
         n_j = float(G * P * ju.shape[-2] * ju.shape[-1])
         se_y, se_j, n_y, n_j = global_sums(se_y, se_j, n_y, n_j)
         value_mse = se_y / max(n_y, 1.0)
         jac_mse = se_j / max(n_j, 1.0)
-        return {"value_mse": value_mse, "jacobian_mse": jac_mse,
-                "total": self.w_value * value_mse + self.w_jac * jac_mse}
+        out = {"value_mse": value_mse, "jacobian_mse": jac_mse,
+               "total": self.w_value * value_mse + self.w_jac * jac_mse}
+        if hu is not None:
+            se_h, n_h = global_sums(se_h, float(G * P * int(np.prod(hu.shape[-3:]))))
+            out["hessian_mse"] = se_h / max(n_h, 1.0)
+            out["total"] += self.w_hess * out["hessian_mse"]
+        return out

@@ -1,4 +1,4 @@
-"""The flagship model, its MSE and Sobolev train steps and a device timer,
+"""The flagship model, its MSE, Sobolev and Hessian train steps and a device timer,
 shared by the scripts that drive the port on a card (``chip_smoke.py``,
 ``scripts/port_serving_profile.py``, ``scripts/port_train_profile.py``).
 
@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 __all__ = ["FLAGSHIP_SHAPE", "FLAGSHIP_PNET", "FLAGSHIP_POLICY", "FLAGSHIP_TRAIN_LR",
-           "cuda_ms", "flagship_sobolev_step", "flagship_train_step"]
+           "cuda_ms", "flagship_hessian_step", "flagship_sobolev_step", "flagship_train_step"]
 
 FLAGSHIP_SHAPE = {"input_dim": 3, "output_dim": 1, "units": 128, "nlayers": 2,
                   "activation": "sine", "use_resblock": False, "omega_0": 30.0,
@@ -45,19 +45,34 @@ def flagship_sobolev_step(G: int = 32, P: int = 32768, device="cuda", seed: int 
     return _flagship(G, P, device, seed, sobolev=True)
 
 
-def _flagship(G, P, device, seed, sobolev):
+def flagship_hessian_step(G: int = 32, P: int = 32768, device="cuda", seed: int = 0):
+    """The JAX bench's Hessian step (``bench.py:493-512``): as
+    :func:`flagship_sobolev_step`, then a random ``ht0 [G, P, 1, 3, 3]``
+    symmetrized as ``0.5 (ht0 + ht0^T)``, under a trainer with ``w_jac=0.1``
+    and ``w_hess=0.01``. Returns ``(trainer, state, (t, x, u, target_jac,
+    target_hess))``; one step is ``trainer.step(state, t, x, u,
+    target_jac=target_jac, target_hess=target_hess)``."""
+    return _flagship(G, P, device, seed, sobolev=True, hessian=True)
+
+
+def _flagship(G, P, device, seed, sobolev, hessian=False):
     from ..models import NIFMultiScale
     from ..training import GroupedTrainer
 
     model = NIFMultiScale(FLAGSHIP_SHAPE, FLAGSHIP_PNET, FLAGSHIP_POLICY, device=device,
                           seed=seed)
-    trainer = GroupedTrainer(model, lambda p: torch.optim.Adam(p, lr=FLAGSHIP_TRAIN_LR))
+    weights = dict(w_jac=0.1, w_hess=0.01) if hessian else {}
+    trainer = GroupedTrainer(model, lambda p: torch.optim.Adam(p, lr=FLAGSHIP_TRAIN_LR),
+                             **weights)
     state = trainer.init(seed)
     rng = np.random.default_rng(0)
     batch = (rng.standard_normal((G, 4)), rng.standard_normal((G, P, 3)),
              rng.standard_normal((G, P, 1)))
     if sobolev:
         batch += (rng.standard_normal((G, P, 1, 3)),)
+    if hessian:
+        ht0 = rng.standard_normal((G, P, 1, 3, 3)).astype(np.float32)
+        batch += (0.5 * (ht0 + ht0.transpose(0, 1, 2, 4, 3)),)
     return trainer, state, tuple(torch.from_numpy(a.astype(np.float32)).to(device)
                                  for a in batch)
 

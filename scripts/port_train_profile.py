@@ -2,19 +2,24 @@
 """Where the time of one flagship train step goes on a CUDA card (the
 PyTorch/CUDA port, ``nif_tpu_torch``).
 
-    python3 scripts/port_train_profile.py [--sobolev]
+    python3 scripts/port_train_profile.py [--sobolev | --hessian]
 
 The flagship NIFMultiScale under ``GroupedTrainer`` with Adam (lr 1e-4), on
 the JAX bench's random batch G=32 x P=32768 (``nif_tpu_torch.utils.bench.
 flagship_train_step``; with ``--sobolev``, ``flagship_sobolev_step``, whose
-steps also take a random ``target_jac [G, P, 1, 3]``). Each stage of
-``GroupedTrainer.step`` is timed alone with CUDA events (mean of 10 calls
-after warm-up): the input casts, the ParameterNet forward, the fused train
-kernel's wrapper (K2, or K6 with ``--sobolev``: prescale, workspace, kernel
-and the split reduction), the ParameterNet backward of ``d_wb``, the Adam
-update; then the whole step, on the device clock and on the host clock
-(each step synchronized). Last, ``torch.profiler`` sums device time by
-kernel over 5 steps and gives the device's busy share of that window.
+steps also take a random ``target_jac [G, P, 1, 3]``; with ``--hessian``,
+``flagship_hessian_step``, whose steps also take a random symmetric
+``target_hess [G, P, 1, 3, 3]`` at ``w_jac=0.1``, ``w_hess=0.01``). Each
+stage of ``GroupedTrainer.step`` is timed alone with CUDA events (mean of 10
+calls after warm-up; 5 with ``--hessian``): the input casts, the
+ParameterNet forward, the target preparation of the Hessian step
+(symmetrized pair columns), the fused train kernel's wrapper (K2, K6 with
+``--sobolev`` or K8 with ``--hessian``: prescale, workspace, kernel and the
+split reduction), the ParameterNet backward of ``d_wb``, the Adam update;
+then the whole step, on the device clock and on the host clock (each step
+synchronized). Last, ``torch.profiler`` sums device time by kernel over 5
+steps and gives the device's busy share of that window and the fused
+kernel's share of the busy time.
 Prints plain text; nothing here is compared or asserted.
 """
 from __future__ import annotations
@@ -25,20 +30,25 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from nif_tpu_torch.ops import fused_derivatives as fd  # noqa: E402
+from nif_tpu_torch.ops import fused_hessian as fh  # noqa: E402
 from nif_tpu_torch.ops import fused_shapenet as fs  # noqa: E402
 from nif_tpu_torch.utils.bench import (  # noqa: E402
-    cuda_ms, flagship_sobolev_step, flagship_train_step)
+    cuda_ms, flagship_hessian_step, flagship_sobolev_step, flagship_train_step)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--sobolev", action="store_true",
-                    help="profile the Sobolev step (K6) instead of the MSE step (K2)")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--sobolev", action="store_true",
+                      help="profile the Sobolev step (K6) instead of the MSE step (K2)")
+    mode.add_argument("--hessian", action="store_true",
+                      help="profile the Hessian step (K8) instead of the MSE step (K2)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -48,7 +58,10 @@ def main() -> int:
                          check=True, timeout=60).stdout.strip()
     print(f"card: {smi}; torch {torch.__version__}")
     G, P = 32, 32768
-    if args.sobolev:
+    if args.hessian:
+        trainer, state, (t, x, u, jt, ht) = flagship_hessian_step(G, P)
+        step_kw = {"target_jac": jt, "target_hess": ht}
+    elif args.sobolev:
         trainer, state, (t, x, u, jt) = flagship_sobolev_step(G, P)
         step_kw = {"target_jac": jt}
     else:
@@ -61,7 +74,21 @@ def main() -> int:
 
     tc, xc = model._compute(t), model._compute(x)
     wb, _ = model.pnet(tc)
-    if args.sobolev:
+    stages = {
+        "cast t, x to bf16": lambda: (model._compute(t), model._compute(x)),
+        "ParameterNet forward (t -> wb)": lambda: model.pnet(tc),
+    }
+    if args.hessian:
+        def targets():  # so = 1, si = 3, every index selected, no weight
+            return model._hessian_targets(ht, G, P, 3, 1, np.arange(1), np.arange(3), True, None)
+
+        ht_flat = targets()[0]
+        jt_flat = jt.transpose(2, 3).reshape(G, P, 3)  # column k*so + j
+        stages["Hessian targets (symmetrized pair columns)"] = targets
+        kernel_name = "K8 wrapper (prescale + kernel + reduce)"
+        kernel = lambda: fh.shapenet_hessian_grads(  # noqa: E731
+            wb, xc, u, jt_flat, ht_flat, cfg, "siren", w_jac=0.1, w_hess=0.01)
+    elif args.sobolev:
         jt_flat = jt.transpose(2, 3).reshape(G, P, 3)  # column k*so + j
         kernel_name = "K6 wrapper (prescale + kernel + reduce)"
         kernel = lambda: fd.shapenet_sobolev_grads(wb, xc, u, jt_flat, cfg, "siren")  # noqa: E731
@@ -81,23 +108,22 @@ def main() -> int:
     def step():
         box[0], _ = trainer.step(box[0], t, x, u, **step_kw)
 
-    stages = {
-        "cast t, x to bf16": lambda: (model._compute(t), model._compute(x)),
-        "ParameterNet forward (t -> wb)": lambda: model.pnet(tc),
+    stages.update({
         kernel_name: kernel,
         "ParameterNet backward (d_wb -> grads)": lambda: torch.autograd.grad(
             wb, params, d_wb, retain_graph=True),
         "Adam update": adam,
         "GroupedTrainer.step (whole)": step,
-    }
+    })
+    reps = 5 if args.hessian else 10
     for name, fn in stages.items():
-        print(f"{name:42s} {cuda_ms(fn, reps=10):9.4f} ms")
+        print(f"{name:42s} {cuda_ms(fn, reps=reps):9.4f} ms")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(10):
+    for _ in range(reps):
         step()
         torch.cuda.synchronize()
-    host_ms = (time.perf_counter() - t0) / 10 * 1e3
+    host_ms = (time.perf_counter() - t0) / reps * 1e3
     print(f"{'step, host clock, synchronized each step':42s} {host_ms:9.4f} ms "
           f"= {G * P / host_ms * 1e3:.4e} train points/s")
 
@@ -118,6 +144,9 @@ def main() -> int:
     busy_us = sum(e.self_device_time_total for e in events)
     print(f"profiler window {window_us:.1f} us over 5 steps; device busy "
           f"{busy_us:.1f} us = {busy_us / window_us:.4f} of the window")
+    top = max(events, key=lambda e: e.self_device_time_total)
+    print(f"largest kernel {top.key[:60]}: {top.self_device_time_total / busy_us:.4f} of the "
+          f"busy time")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"  {e.self_device_time_total / 5:10.1f} us/step  {e.count // 5:3d}x  {e.key[:90]}")
     return 0

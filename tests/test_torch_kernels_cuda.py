@@ -15,7 +15,11 @@ ulps at the top of the range). K5 and K6 against theirs: f32 y and jac
 rtol 2e-4 / atol 1e-5 of max|plain| (as K1), K6 terms rel 1e-5 and d_wb
 max|d| <= 5e-5 of max|plain| (the fused-backward bound: the stacked
 backward sums over (1 + si) times the rows); bf16 y, jac and d_wb within
-2^-6 of max|plain| and the terms rel 1e-3."""
+2^-6 of max|plain| and the terms rel 1e-3. K7 and K8 against theirs, on
+the SIREN configs (they take sine chains only): f32 y, jac and hess as K5,
+K8 terms rel 1e-5 and d_wb max|d| <= 1e-4 of max|plain| (the JAX package's
+bound for its fused Hessian train pass, whose backward sums ten times the
+rows at si = 3); bf16 as K5/K6."""
 import numpy as np
 import pytest
 import torch
@@ -24,6 +28,7 @@ import nif_tpu_torch
 from nif_tpu_torch.config import ShapeNetConfig, shapenet_param_count
 from nif_tpu_torch.ops import _build
 from nif_tpu_torch.ops import fused_derivatives as fd
+from nif_tpu_torch.ops import fused_hessian as fh
 from nif_tpu_torch.ops import fused_shapenet as fs
 
 pytestmark = pytest.mark.cuda
@@ -411,3 +416,173 @@ def test_derivative_wrappers_refuse_what_they_cannot_take(card):
         fd.shapenet_sobolev_grads_cuda(wb, x, tgt, jt, cfg, "siren", weight=w[:, :8])
     with pytest.raises(TypeError):
         fd.shapenet_sobolev_grads_cuda(wb, x.bfloat16(), tgt, jt, cfg, "siren")
+
+
+# The Hessian kernels take sine chains only: the SIREN configs, and one with
+# so > si.
+HESS_CASES = [c for c in CASES if c[0] == "siren"] + JAC_EXTRA
+
+
+def _hessian_side(cfg, G, P, seed):
+    rng = np.random.default_rng(seed + 3000)
+    si, so = cfg.input_dim, cfg.output_dim
+    npairs = si * (si + 1) // 2
+    to = lambda a: torch.from_numpy(a.astype(np.float32)).cuda()  # noqa: E731
+    return (to(rng.standard_normal((G, P, so))), to(rng.standard_normal((G, P, si * so))),
+            to(rng.standard_normal((G, P, npairs * so))), to(rng.uniform(0.5, 1.5, (G, P))))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("variant,args", HESS_CASES)
+def test_k7_matches_plain(card, variant, args, dtype):
+    cfg = ShapeNetConfig(*args)
+    wb, x = _data(cfg, 3, 264, dtype, seed=19)
+    before = _build.LAUNCHES["shapenet_fwd_hess"]
+    y, jac, hess = fh.shapenet_fwd_hess(wb, x, cfg, variant)
+    assert _build.LAUNCHES["shapenet_fwd_hess"] == before + 1
+    refs = fh.shapenet_fwd_hess_reference(wb, x, cfg, variant)
+    si, so = cfg.input_dim, cfg.output_dim
+    assert y.dtype == jac.dtype == hess.dtype == dtype and hess.shape == (3, 264, so, si, si)
+    assert torch.equal(hess, hess.transpose(-1, -2))
+    for mine, ref in zip((y, jac, hess), refs):
+        _close_rel(mine, ref, dtype)
+
+
+@pytest.mark.parametrize("weighted", [False, True], ids=["unweighted", "weighted"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("variant,args", HESS_CASES)
+def test_k8_matches_plain(card, variant, args, dtype, weighted):
+    cfg = ShapeNetConfig(*args)
+    wb, x = _data(cfg, 3, 264, dtype, seed=20)
+    tgt, jt, ht, w = _hessian_side(cfg, 3, 264, seed=20)
+    si, so = cfg.input_dim, cfg.output_dim
+    npairs = si * (si + 1) // 2
+    kw = dict(w_value=0.7, w_jac=1.3, w_hess=0.4, weight=w if weighted else None)
+    if so > 1:  # the first output, every other jac entry, two of three hess entries
+        kw.update(y_mask=np.eye(1, so, dtype=np.float32)[0],
+                  jac_mask=(np.arange(si * so) % 2 == 0).astype(np.float32),
+                  hess_mask=(np.arange(npairs * so) % 3 != 1).astype(np.float32))
+    before = _build.LAUNCHES["shapenet_hessian_grads"]
+    *terms, d_wb = fh.shapenet_hessian_grads(wb, x, tgt, jt, ht, cfg, variant, **kw)
+    assert _build.LAUNCHES["shapenet_hessian_grads"] == before + 1
+    *refs, r_wb = fh.shapenet_hessian_grads_reference(wb, x, tgt, jt, ht, cfg, variant, **kw)
+    rel = 1e-5 if dtype == torch.float32 else 1e-3
+    for mine, ref in zip(terms, refs):
+        assert float(mine) == pytest.approx(float(ref), rel=rel)
+    assert d_wb.dtype == dtype
+    err, scale = _max_diff(d_wb, r_wb)
+    assert err <= (1e-4 if dtype == torch.float32 else 2.0 ** -6) * scale, (err, scale)
+
+
+def test_k8_flagship_width_is_deterministic(card):
+    """G=4, P=2048 at the flagship width in bf16: two runs give the same
+    bits (fixed P splits, an ordered reduce) and agree with plain K8."""
+    cfg = ShapeNetConfig(3, 1, 128, 2, "sine", False, 30.0)
+    wb, x = _data(cfg, 4, 2048, torch.bfloat16, seed=21)
+    tgt, jt, ht, w = _hessian_side(cfg, 4, 2048, seed=21)
+    runs = [fh.shapenet_hessian_grads_cuda(wb, x, tgt, jt, ht, cfg, "siren", weight=w)
+            for _ in range(2)]
+    for a, b in zip(runs[0], runs[1]):
+        assert torch.equal(a, b)
+    *refs, r_wb = fh.shapenet_hessian_grads_reference(wb, x, tgt, jt, ht, cfg, "siren",
+                                                      weight=w)
+    for mine, ref in zip(runs[0][:3], refs):
+        assert float(mine) == pytest.approx(float(ref), rel=1e-3)
+    err, scale = _max_diff(runs[0][3], r_wb)
+    assert err <= 2.0 ** -6 * scale
+
+
+def test_hessian_geometry(card):
+    """At the flagship width (si = 3: ten streams) both bodies take 6-point
+    tiles (60 of 64 rows); K8's bf16 residuals fit in shared memory beside
+    its working buffers, its f32 ones go to the global scratch. si = 4 (15
+    streams) still fits a 64-row tile; at width 1024 (8 rows) it does not."""
+    cfg = ShapeNetConfig(3, 1, 128, 2, "sine", False, 30.0)
+    train = fh.hessian_geometry("train", cfg, "siren", 32, 32768, torch.bfloat16)
+    assert (train["tile"], train["splits"], train["residuals"]) == (6, 8, "shared")
+    f32 = fh.hessian_geometry("train", cfg, "siren", 32, 32768, torch.float32)
+    assert f32["residuals"] == "global" and f32["scratch_bytes"] > 0
+    assert fh.hessian_geometry("eval", cfg, "siren", 32, 32768, torch.bfloat16)["tile"] == 6
+    assert fh.hessian_geometry("train", ShapeNetConfig(4, 1, 128, 2, "sine"), "siren", 2, 64,
+                               torch.bfloat16)["tile"] == 4
+    assert "streams" in fh.hessian_fused_unsupported_reason(
+        ShapeNetConfig(4, 1, 1024, 1, "sine"), "siren", 256, 4, card)
+    assert "streams" in fh.fwd_hess_unsupported_reason(
+        ShapeNetConfig(4, 1, 1024, 1, "sine"), "siren", 256, 4, card)
+
+
+def test_hessian_wrappers_refuse_what_they_cannot_take(card):
+    cfg = ShapeNetConfig(2, 1, 16, 1, "sine")
+    wb, x = _data(cfg, 2, 16, torch.float32, seed=22)
+    tgt, jt, ht, w = _hessian_side(cfg, 2, 16, seed=22)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fh.shapenet_fwd_hess_cuda(wb.clone().requires_grad_(), x, cfg, "siren")
+    with pytest.raises(ValueError, match="hess_target"):
+        fh.shapenet_hessian_grads_cuda(wb, x, tgt, jt, ht[..., :1], cfg, "siren")
+    with pytest.raises(ValueError, match="weight"):
+        fh.shapenet_hessian_grads_cuda(wb, x, tgt, jt, ht, cfg, "siren", weight=w[:, :8])
+    with pytest.raises(ValueError, match="sine chains only"):
+        fh.shapenet_fwd_hess_cuda(wb, x, ShapeNetConfig(2, 1, 16, 1, "tanh"), "vanilla")
+
+
+def test_model_hessian_step_on_the_card_launches_k8(card):
+    """One GroupedTrainer step with Jacobian and Hessian targets at a small
+    shape: exactly one K8 launch (no K6, no K2), recorded as the Hessian
+    path; evaluate_sobolev with Hessian targets launches K7 once per chunk."""
+    from nif_tpu_torch.training import GroupedTrainer
+
+    cfg_s = {"input_dim": 3, "output_dim": 1, "units": 128, "nlayers": 2,
+             "activation": "sine", "omega_0": 30.0}
+    cfg_p = {"input_dim": 4, "latent_dim": 128, "units": 128, "nlayers": 2,
+             "activation": "swish"}
+    model = nif_tpu_torch.NIFMultiScale(cfg_s, cfg_p, "mixed_bfloat16", seed=0)
+    rng = np.random.default_rng(23)
+    t = rng.standard_normal((4, 4)).astype(np.float32)
+    x = rng.uniform(-1, 1, (4, 512, 3)).astype(np.float32)
+    u = rng.standard_normal((4, 512, 1)).astype(np.float32)
+    jt = rng.standard_normal((4, 512, 1, 3)).astype(np.float32)
+    ht = rng.standard_normal((4, 512, 1, 3, 3)).astype(np.float32)
+    ht = 0.5 * (ht + ht.transpose(0, 1, 2, 4, 3))
+    trainer = GroupedTrainer(model, lambda p: torch.optim.Adam(p, lr=1e-4), w_jac=0.1,
+                             w_hess=0.01)
+    state = trainer.init(0)
+    before = dict(_build.LAUNCHES)
+    state, loss = trainer.step(state, *(torch.from_numpy(a).cuda() for a in (t, x, u)),
+                               target_jac=torch.from_numpy(jt).cuda(),
+                               target_hess=torch.from_numpy(ht).cuda())
+    after = dict(_build.LAUNCHES)
+    assert after["shapenet_hessian_grads"] == before["shapenet_hessian_grads"] + 1
+    assert after["shapenet_sobolev_grads"] == before["shapenet_sobolev_grads"]
+    assert after["shapenet_mse_grads"] == before["shapenet_mse_grads"]
+    assert bool(torch.isfinite(loss)) and trainer.history["hessian_path"] == "fused"
+    out = trainer.evaluate_sobolev(state, t, x, u, jt, group_batch=2, target_hess=ht)
+    assert _build.LAUNCHES["shapenet_fwd_hess"] == after["shapenet_fwd_hess"] + 2
+    assert all(np.isfinite(v) for v in out.values()) and "hessian_mse" in out
+
+
+def test_hessian_evaluation_routing_logs_eager_fallbacks(card, caplog):
+    """Auto routing on the card: a vanilla chain's ``(y, jac, hess)`` goes
+    eager with one WARNING (per model and shape) naming K7 and the gate's
+    reason, and launches nothing; a sine chain takes K7."""
+    import logging
+
+    from nif_tpu_torch.ops.derivatives import output_jacobian_hessian_grouped
+
+    cfg_p = {"input_dim": 2, "latent_dim": 3, "units": 16, "nlayers": 1, "activation": "swish"}
+    rng = np.random.default_rng(24)
+    t = torch.from_numpy(rng.standard_normal((2, 2)).astype(np.float32)).cuda()
+    x = torch.from_numpy(rng.uniform(-1, 1, (2, 64, 2)).astype(np.float32)).cuda()
+    vanilla = nif_tpu_torch.NIF({"input_dim": 2, "output_dim": 1, "units": 16, "nlayers": 1,
+                                 "activation": "tanh"}, cfg_p, seed=0)
+    before = dict(_build.LAUNCHES)
+    with caplog.at_level(logging.WARNING, logger="nif_tpu_torch"):
+        for _ in range(2):
+            output_jacobian_hessian_grouped(vanilla, t, x)
+    assert _build.LAUNCHES == before
+    msgs = [r.getMessage() for r in caplog.records if "K7 path FALLING BACK" in r.getMessage()]
+    assert len(msgs) == 1 and "sine chains only" in msgs[0]
+    siren = nif_tpu_torch.NIFMultiScale({"input_dim": 2, "output_dim": 1, "units": 16,
+                                         "nlayers": 1, "activation": "sine"}, cfg_p, seed=0)
+    _, _, hess = output_jacobian_hessian_grouped(siren, t, x)
+    assert _build.LAUNCHES["shapenet_fwd_hess"] == before["shapenet_fwd_hess"] + 1
+    assert hess.shape == (2, 64, 1, 2, 2) and bool(torch.isfinite(hess).all())

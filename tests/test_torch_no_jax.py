@@ -43,6 +43,7 @@ def _forbidden(names):
 def test_the_port_has_modules_to_check():
     assert "nif_tpu_torch/__init__.py" in FILES and "chip_smoke.py" in FILES
     assert "nif_tpu_torch/ops/fused_shapenet.py" in FILES
+    assert "nif_tpu_torch/ops/fused_hessian.py" in FILES
     assert any(f.startswith("scripts/port_") for f in FILES)
 
 

@@ -359,10 +359,10 @@ def test_tb_events_is_a_copy_of_the_jax_module():
 
 # ------------------------------------------------------- not ported: refusals
 @pytest.mark.parametrize("kwargs,error,match", [
-    # Sobolev training is ported; a target_jac of the wrong shape is refused
+    # Sobolev and Hessian training are ported; derivative targets of the
+    # wrong shape are refused
     ({"target_jac": np.zeros((4, 32, 1, 3), np.float32)}, ValueError, "target_jac shape"),
-    ({"target_hess": np.zeros((4, 32, 1, 2, 2), np.float32)}, NotImplementedError,
-     "Slice D2"),
+    ({"target_hess": np.zeros((4, 32, 1, 3, 3), np.float32)}, ValueError, "target_hess shape"),
     ({"point_sampling": "residual"}, NotImplementedError, "Slice A2"),
 ], ids=["target_jac", "target_hess", "residual"])
 def test_fit_refuses_what_is_not_ported(kwargs, error, match):
