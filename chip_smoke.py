@@ -67,6 +67,25 @@ Phases of the Hessian slice:
    plain versions over the same inputs in chunks of 8 groups, and compute
    their bounds on this card.
 
+Phases of the NIF-linear slice:
+
+2h. Hold K4 (the fused NIF-linear train pass) against plain K4 on the SIREN
+   configs of ``CASES`` as trunks with so * K outputs (so = 1, 2, 3; plain
+   and resblock), weighted or not, in float32 and bfloat16, and on the
+   flagship NIF-linear trunk at G=32, P=32768 in bfloat16, where two runs
+   must give bitwise-equal results.
+3e. Serve and train the JAX bench's NIF-linear model
+   (``flagship_linear_step``): ``apply_grouped(fused=True)`` (one K1 launch)
+   against plain K1 and the eager trunk; ``predict_shared_mesh`` against
+   ``apply_grouped`` on a repeated mesh; step 0's loss and grads against
+   plain K4 + autograd through the ParameterNet; five ``GroupedTrainer.step``
+   (five K4 launches, no K2); a 30-epoch ``fit`` on the traveling wave that
+   must lower the loss; one Sobolev step (one K6 launch on the effective
+   chain, its terms and grads against plain K6 + autograd) and an
+   ``evaluate_sobolev`` that launches K5 once per chunk.
+4e. Time the NIF-linear step, K4, plain K4 and the eager step (autograd over
+   the eager trunk + Adam), and compute K4's bound on this card.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the
 ``{"kernels": [...]}`` record. Exits non-zero without CUDA or without the
 package beside it.
@@ -124,6 +143,14 @@ HESS_CASES = [c for c in CASES if c[0] == "siren"] + JAC_EXTRA
 # derivative's Horner steps and scale factors.
 SINE3_FLOPS = 28
 SINE4_FLOPS = 34
+# K4's trunks: the SIREN configs of CASES with a bottleneck of so * K outputs,
+# so in {1, 2, 3}, resblock and plain, so * K within the kernel's width:
+# (si, so, K, units, nlayers, resblock, omega_0).
+LINEAR_CASES = [
+    (3, 1, 128, 128, 2, False, 30.0),
+    (2, 2, 32, 64, 1, True, 10.0),
+    (1, 3, 8, 16, 3, False, 5.0),
+]
 
 
 def log(msg: str) -> None:
@@ -413,6 +440,91 @@ def plain_k7_chunked(torch, wb, x, cfg, chunk=8):
             for s in range(0, x.shape[0], chunk)]
 
 
+def linear_data(torch, case, G, P, dtype, seed):
+    """K4's inputs from a LINEAR_CASES entry: the trunk config, so, the
+    chain-order weights and biases (SIREN-regime, 0.3/omega_0), a [G, K],
+    bias [so] and x in ``dtype``, targets and point weights in float32, made
+    with numpy from a seed, on the card."""
+    from nif_tpu_torch.config import ShapeNetConfig
+
+    si, so, K, n, l, res, om = case
+    cfg = ShapeNetConfig(si, so * K, n, l, "sine", res, om)
+    n_mats = 2 * l if res else l
+    rng = np.random.default_rng(seed + 4000)
+    to = lambda a, dt=dtype: torch.from_numpy(np.asarray(a, np.float32)).to("cuda", dt)  # noqa: E731
+    ws = [to(rng.standard_normal(s) * (0.3 / om))
+          for s in [(si, n)] + [(n, n)] * n_mats + [(n, so * K)]]
+    bs = [to(rng.standard_normal(s) * (0.3 / om)) for s in [(n,)] * (n_mats + 1) + [(so * K,)]]
+    return (cfg, so, ws, bs, to(rng.standard_normal((G, K)) * 0.5),
+            to(rng.standard_normal(so) * 0.1), to(rng.standard_normal((G, P, si))),
+            to(rng.standard_normal((G, P, so)), torch.float32),
+            to(rng.uniform(0.5, 1.5, (G, P)), torch.float32))
+
+
+def k4_outputs(out):
+    """K4's ``(loss, d_ws, d_bs, d_a, d_bias)`` as one flat list."""
+    return [out[0], *out[1], *out[2], out[3], out[4]]
+
+
+def check_k4(torch, case, G, P, dtype, weighted, seed) -> float:
+    """K4 vs plain K4; returns the largest max|d| over its gradients.
+
+    float32: loss rel 1e-5 and every gradient max|d| <= 5e-5 of its
+    max|plain| (the JAX package's bound for its fused NIF-linear kernel: the
+    trunk grads sum over every group); bfloat16: loss rel BF16_LOSS_REL and
+    BF16_REL of max|plain|."""
+    from nif_tpu_torch.ops.fused_linear import (
+        linear_geometry, niflinear_mse_grads_cuda, niflinear_mse_grads_reference)
+
+    cfg, so, ws, bs, a, bias, x, tgt, w = linear_data(torch, case, G, P, dtype, seed)
+    w = w if weighted else None
+    outs = k4_outputs(niflinear_mse_grads_cuda(ws, bs, a, bias, x, tgt, cfg, so, w))
+    refs = k4_outputs(niflinear_mse_grads_reference(ws, bs, a, bias, x, tgt, cfg, so, w))
+    torch.cuda.synchronize()
+    what = (f"K4 si={cfg.input_dim} so={so} K={cfg.output_dim // so} n={cfg.units} "
+            f"l={cfg.nlayers} res={cfg.use_resblock} G={G} P={P} {str(dtype):14s} "
+            f"weighted={weighted}")
+    bound, l_bound = (5e-5, 1e-5) if dtype == torch.float32 else (BF16_REL, BF16_LOSS_REL)
+    l_rel = abs(float(outs[0]) - float(refs[0])) / max(abs(float(refs[0])), 1e-30)
+    worst, worst_rel = 0.0, 0.0
+    for out, ref in zip(outs[1:], refs[1:]):
+        if out.dtype != torch.float32 or out.shape != ref.shape:
+            raise AssertionError(f"{what}: {out.shape}/{out.dtype} vs {ref.shape}")
+        err, scale = max_diff(torch, out, ref, what)
+        worst = max(worst, err)
+        worst_rel = max(worst_rel, err / max(scale, 1e-30))
+        if err > bound * scale + 1e-12:
+            raise AssertionError(f"{what}: a gradient's max|d| {err} > {bound} * {scale}")
+    geo = linear_geometry(cfg, so, G, P, dtype)
+    log(f"{what} loss {float(outs[0]):.6e} (rel {l_rel:.2e}) grads worst max|d|={worst:.3e} "
+        f"({worst_rel:.2e} of max|plain|); residuals in {geo['residuals']} memory, "
+        f"{geo['splits']} splits of {geo['tile']}-point tiles")
+    if not np.isfinite(float(outs[0])) or l_rel > l_bound:
+        raise AssertionError(f"{what}: loss rel {l_rel} (bound {l_bound})")
+    return worst
+
+
+def linear_bounds(cfg, so, G, P, peak_mma, peak_f32, peak_bw):
+    """(bound ms, bound_by, products GFLOP) of K4 at this shape in bf16: the
+    trunk's products forward (x @ W0, the hidden matrices, the bottleneck
+    of nk = so*K outputs), its weight grads and its du products (no dx), 2 G
+    P (2 (si n + nm n^2 + n nk) + nm n^2 + n nk), over the tensor-core
+    peak; the sine-with-derivative evaluations and the contraction, d_a and
+    d_phi (5 G P nk) over the f32 peak; bytes of the trunk, a, bias, x and
+    the target in (bf16) and of the f32 grads and loss out."""
+    n, si = cfg.units, cfg.input_dim
+    nk = cfg.output_dim
+    nm = 2 * cfg.nlayers if cfg.use_resblock else cfg.nlayers
+    K = nk // so
+    po = nm * n * n + (si + 1 + nm) * n + n * nk + nk
+    flops = 2 * G * P * (2 * (si * n + nm * n * n + n * nk) + nm * n * n + n * nk)
+    act = SINE_GRAD_FLOPS * G * P * n * (1 + nm) + 5 * G * P * nk
+    nbytes = 2 * (po + G * K + so + G * P * (si + so)) + 4 * (po + G * K + so + 1)
+    t_ops = max(flops / peak_mma, act / peak_f32) * 1e3
+    t_bytes = nbytes / peak_bw * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops / 1e9
+
+
 def sobolev_data(torch, cfg, G, P, seed):
     """Value targets, point weights and flat Jacobian targets, float32 on the card."""
     rng = np.random.default_rng(seed + 2000)
@@ -576,16 +688,19 @@ def main() -> int:
         shapenet_sobolev_grads_reference)
     from nif_tpu_torch.ops.fused_hessian import (
         shapenet_fwd_hess_cuda, shapenet_hessian_grads_cuda)
+    from nif_tpu_torch.ops.fused_linear import (
+        niflinear_mse_grads_cuda, niflinear_mse_grads_reference)
     from nif_tpu_torch.ops.fused_shapenet import (
         shapenet_bwd_cuda, shapenet_fused_bwd_reference, shapenet_fwd_cuda,
         shapenet_grouped_fused_reference, shapenet_mse_grads_cuda,
         shapenet_mse_grads_reference)
     from nif_tpu_torch.ops.shapenet import shapenet_grouped
-    from nif_tpu_torch.serving import predict_grouped
+    from nif_tpu_torch.serving import predict_grouped, predict_shared_mesh
     from nif_tpu_torch.training import GroupedTrainer
     from nif_tpu_torch.utils import rel_l2
     from nif_tpu_torch.utils.bench import (FLAGSHIP_PNET, FLAGSHIP_POLICY, FLAGSHIP_SHAPE,
-                                           FLAGSHIP_TRAIN_LR, cuda_ms, flagship_hessian_step,
+                                           FLAGSHIP_TRAIN_LR, LINEAR_SHAPE, cuda_ms,
+                                           flagship_hessian_step, flagship_linear_step,
                                            flagship_sobolev_step, flagship_train_step)
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -600,7 +715,8 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {name}")
     log(f"card: {smi}")
-    build_all(["shapenet_fwd", "shapenet_bwd", "shapenet_jac", "shapenet_hess"])
+    build_all(["shapenet_fwd", "shapenet_bwd", "shapenet_jac", "shapenet_hess",
+               "shapenet_linear"])
     peak_mma, peak_f32, peak_bw = PEAKS["H100 PCIe" if "PCIe" in name else "H100 SXM"]
     flag_cfg = ShapeNetConfig.from_dict(FLAGSHIP_SHAPE)
 
@@ -701,6 +817,22 @@ def main() -> int:
         raise AssertionError("K8 is not deterministic: two runs on one input differ")
     log("K8 flagship bf16 (G=32, P=32768, weighted): two runs give bitwise-equal terms and d_wb")
     del wb, x, tgt, w, jt, ht, runs
+
+    # ---- phase 2h: K4 against its plain version, and its determinism
+    for i, case in enumerate(LINEAR_CASES):
+        for dtype in (torch.float32, torch.bfloat16):
+            for weighted in (False, True):
+                check_k4(torch, case, 3, 256, dtype, weighted, seed=100 + i)
+    k4_err = check_k4(torch, LINEAR_CASES[0], 32, 32768, torch.bfloat16, False, seed=110)
+    lcfg, lso, lws, lbs, la, lbias, lx, ltgt, lw = linear_data(
+        torch, LINEAR_CASES[0], 32, 32768, torch.bfloat16, seed=111)
+    runs = [k4_outputs(niflinear_mse_grads_cuda(lws, lbs, la, lbias, lx, ltgt, lcfg, lso, lw))
+            for _ in range(2)]
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        raise AssertionError("K4 is not deterministic: two runs on one input differ")
+    log("K4 flagship trunk bf16 (G=32, P=32768, weighted): two runs give bitwise-equal loss "
+        "and grads")
+    del lws, lbs, la, lbias, lx, ltgt, lw, runs
 
     # ---- phase 3: serve the flagship model
     if model.po_dim != 33665:
@@ -945,6 +1077,144 @@ def main() -> int:
         raise AssertionError(f"evaluate_sobolev launched K7 {heval_launches['shapenet_fwd_hess']}"
                              f" times for {eval_chunks} chunks")
 
+    # ---- phase 3e: serve and train the NIF-linear model
+    ltrainer, lstate, (t_l, x_l, u_l) = flagship_linear_step(G, P)
+    lmodel = ltrainer.model
+    linfo = lmodel.fast_path_info(P)
+    if linfo["path"] != "fused":
+        raise AssertionError(f"NIF-linear training would not take K4: {linfo}")
+    x_lc = lmodel._compute(x_l)
+    _build.reset_launches()
+    with torch.inference_mode():
+        served = lmodel.apply_grouped(t_l, x_l, fused=True)
+        torch.cuda.synchronize()
+        lserve_launches = dict(_build.LAUNCHES)
+        trunk_wb = lmodel._trunk_flat_weights().to(x_lc.dtype).expand(G, -1)
+        phi_plain = shapenet_grouped_fused_reference(trunk_wb, x_lc, lmodel._trunk_cfg, "siren")
+        a_l = lmodel.p_to_lr(t_l)
+        plain = (torch.einsum("gpok,gk->gpo", phi_plain.reshape(G, P, 1, -1), a_l)
+                 + lmodel.snet.bias.to(a_l.dtype)).float()
+        eager = lmodel.apply_grouped(t_l, x_l, fused=False).float()
+    if served.shape != (G, P, 1) or not bool(torch.isfinite(served).all()):
+        raise AssertionError(f"NIF-linear apply_grouped(fused=True): {served.shape}, or not finite")
+    d_plain = float((served - plain).abs().max())
+    r_eager = float(rel_l2(served, eager))
+    log(f"NIF-linear apply_grouped(fused=True) G={G} P={P}: launches {lserve_launches}; "
+        f"max|u| {float(plain.abs().max()):.4f}, max|d| vs plain K1 trunk {d_plain:.3e}, "
+        f"rel-L2 vs the eager trunk {r_eager:.4f}")
+    if lserve_launches["shapenet_fwd"] != 1 or sum(lserve_launches.values()) != 1:
+        raise AssertionError(f"apply_grouped(fused=True) launched {lserve_launches}, not one K1")
+    if d_plain > 1e-2 * float(plain.abs().max()) or r_eager > 0.15:
+        raise AssertionError("NIF-linear apply_grouped(fused=True) departs from plain K1 or eager")
+    del served, plain, eager, phi_plain, trunk_wb
+    rng = np.random.default_rng(3)
+    t_m = rng.standard_normal((40, 4)).astype(np.float32)
+    x_m = rng.uniform(-1, 1, (8192, 3)).astype(np.float32)
+    _build.reset_launches()
+    mesh_out = predict_shared_mesh(lmodel, t_m, x_m, group_batch=16)
+    mesh_launches = dict(_build.LAUNCHES)
+    with torch.inference_mode():
+        x_rep = np.ascontiguousarray(np.broadcast_to(x_m, (40, 8192, 3)))
+        mesh_ref = lmodel.apply_grouped(t_m, x_rep).float().cpu()
+    d_mesh = float((torch.from_numpy(mesh_out) - mesh_ref).abs().max())
+    log(f"predict_shared_mesh (40 snapshots onto one 8192-point mesh, chunks of 16): "
+        f"{mesh_out.shape} {mesh_out.dtype}, max|d| vs apply_grouped on the repeated mesh "
+        f"{d_mesh:.3e} (max|u| {float(mesh_ref.abs().max()):.4f}); launches {mesh_launches}")
+    if (mesh_out.shape != (40, 8192, 1) or not np.isfinite(mesh_out).all()
+            or d_mesh > 1e-2 * float(mesh_ref.abs().max())):
+        raise AssertionError("predict_shared_mesh departs from apply_grouped")
+    loss_k, lgrads_k = lmodel.mse_value_and_grad(t_l, x_l, u_l)
+    a_l = lmodel.pnet(lmodel._compute(t_l))[0]
+    cdt = x_lc.dtype
+    lws, lbs = lmodel._trunk_lists()
+    lp = niflinear_mse_grads_reference([w.detach().to(cdt) for w in lws],
+                                       [b.detach().to(cdt) for b in lbs], a_l.detach().to(cdt),
+                                       lmodel.snet.bias.detach().to(cdt), x_lc, u_l,
+                                       lmodel._trunk_cfg, 1)
+    pnet_params = list(lmodel.pnet.params.parameters())
+    plain_grads = dict(zip(map(id, pnet_params),
+                           torch.autograd.grad(a_l, pnet_params, lp[3].to(a_l.dtype))))
+    plain_grads.update(zip(map(id, [*lws, *lbs, lmodel.snet.bias]), [*lp[1], *lp[2], lp[4]]))
+    l_rel = abs(float(loss_k) - float(lp[0])) / abs(float(lp[0]))
+    worst = 0.0
+    for path, p in lmodel.param_items():
+        got = lgrads_k
+        for key in path:
+            got = got[key]
+        worst = max(worst, float(rel_l2(got, plain_grads[id(p)])))
+    log(f"NIF-linear step 0 ({linfo}): loss {float(loss_k):.6e} vs plain K4 {float(lp[0]):.6e} "
+        f"(rel {l_rel:.2e}); ParameterNet and trunk grads vs plain K4 + autograd: worst "
+        f"rel-L2 {worst:.2e}")
+    if l_rel > BF16_LOSS_REL or worst > 1e-2:
+        raise AssertionError("the NIF-linear step's loss or grads depart from plain K4")
+    del lp, plain_grads, lgrads_k
+    _build.reset_launches()
+    llosses = []
+    for _ in range(n_steps):
+        lstate, loss = ltrainer.step(lstate, t_l, x_l, u_l)
+        llosses.append(loss)
+    torch.cuda.synchronize()
+    lin_launches = dict(_build.LAUNCHES)
+    llosses = [float(v) for v in llosses]
+    log(f"NIF-linear train: {n_steps} steps, losses {llosses}, launches {lin_launches}, "
+        f"path {ltrainer.history.get('path')}")
+    if (lin_launches["niflinear_mse_grads"] != n_steps or lin_launches["shapenet_mse_grads"]
+            or not all(np.isfinite(llosses))):
+        raise AssertionError(f"{n_steps} NIF-linear steps launched {lin_launches}, "
+                             f"losses {llosses}")
+    lmodel_w = nif_tpu_torch.NIFMultiScaleLastLayerParameterized(
+        LINEAR_SHAPE, FLAGSHIP_PNET, FLAGSHIP_POLICY, device="cuda", seed=1)
+    lfitter = GroupedTrainer(lmodel_w, lambda p: torch.optim.Adam(p, lr=FLAGSHIP_TRAIN_LR))
+    lfstate = lfitter.init(1)
+    _build.reset_launches()
+    lfstate = lfitter.fit(lfstate, t_w, x_w, u_w, epochs=30, group_batch=8, point_batch=4096)
+    lfit_launches = dict(_build.LAUNCHES)
+    lhist = lfitter.history["loss"]
+    log(f"NIF-linear fit on the traveling wave (G=16, P=8192, 4096-point batches, 30 epochs): "
+        f"epoch losses first {lhist[0]:.6e} last {lhist[-1]:.6e}; launches {lfit_launches}; "
+        f"evaluate_metrics {lfitter.evaluate_metrics(lfstate, t_w, x_w, u_w)}")
+    if lfit_launches["niflinear_mse_grads"] != 60 or not lhist[-1] < lhist[0]:
+        raise AssertionError("the NIF-linear fit did not take K4 for every step or did not "
+                             "lower the loss")
+    lsinfo = lmodel.sobolev_path_info(P, 3)
+    if lsinfo["path"] != "fused":
+        raise AssertionError(f"NIF-linear Sobolev training would not take K6: {lsinfo}")
+    wb_eff, cfg_eff = lmodel._fwd_jac_effective_chain(t_s)
+    rv, rj, r_wb = shapenet_sobolev_grads_reference(
+        wb_eff.detach(), lmodel._compute(x_s), u_s, j_s.transpose(2, 3).reshape(G, P, 3),
+        cfg_eff, "siren")
+    lsgrads_p = torch.autograd.grad(wb_eff, [p for _, p in lmodel.param_items()], r_wb)
+    _build.reset_launches()
+    _, lterms_k, lsgrads_k = lmodel.sobolev_value_and_grad(t_s, x_s, u_s, target_jac=j_s)
+    torch.cuda.synchronize()
+    lsob_launches = dict(_build.LAUNCHES)
+    ls_rel = [abs(float(a) - float(b)) / abs(float(b))
+              for a, b in ((lterms_k["value_mse"], rv), (lterms_k["jacobian_mse"], rj))]
+    worst = 0.0
+    for (path, _), b in zip(lmodel.param_items(), lsgrads_p):
+        got = lsgrads_k
+        for key in path:
+            got = got[key]
+        worst = max(worst, float(rel_l2(got, b)))
+    log(f"NIF-linear Sobolev step ({lsinfo}): launches {lsob_launches}; value "
+        f"{float(lterms_k['value_mse']):.6e} jac {float(lterms_k['jacobian_mse']):.6e} vs plain "
+        f"K6 on the effective chain (rel {ls_rel[0]:.2e}, {ls_rel[1]:.2e}); trunk and "
+        f"ParameterNet grads vs plain K6 + autograd: worst rel-L2 {worst:.2e}")
+    if (lsob_launches["shapenet_sobolev_grads"] != 1 or sum(lsob_launches.values()) != 1
+            or max(ls_rel) > BF16_LOSS_REL or worst > 1e-2):
+        raise AssertionError("the NIF-linear Sobolev step did not take one K6 or departs from "
+                             "plain K6")
+    del wb_eff, r_wb, lsgrads_p, lsgrads_k
+    _build.reset_launches()
+    lafter = lfitter.evaluate_sobolev(lfstate, t_w, x_w, u_w, j_w,
+                                      group_batch=16 // eval_chunks)
+    leval_launches = dict(_build.LAUNCHES)
+    log(f"NIF-linear evaluate_sobolev after the fit ({eval_chunks} chunks): {lafter}; "
+        f"launches {leval_launches}")
+    if (leval_launches["shapenet_fwd_jac"] != eval_chunks
+            or not all(np.isfinite(v) for v in lafter.values())):
+        raise AssertionError(f"NIF-linear evaluate_sobolev launched {leval_launches}")
+
     # ---- phase 4: K1 times at the flagship shape (bf16, as served)
     G, P = requests[0]
     t, x = inputs[0]
@@ -1063,6 +1333,30 @@ def main() -> int:
         f"({k8_gf:.1f} GFLOP); the plain versions ran in 4 chunks of 8 groups (peak "
         f"{plain_peak_gb:.1f} GB allocated for plain K8); library_ms null: no single PyTorch "
         f"call computes these chains")
+
+    # ---- phase 4e: NIF-linear step, K4 and eager-step times (bf16)
+    lbox = [lstate]
+
+    def one_linear_step():
+        lbox[0], _ = ltrainer.step(lbox[0], t_l, x_l, u_l)
+
+    lstep_ms = cuda_ms(one_linear_step, reps=10)
+    eager_trainer = GroupedTrainer(lmodel, ltrainer.make_optimizer, fused=False)
+    eager_ms = cuda_ms(lambda: eager_trainer.step(lbox[0], t_l, x_l, u_l), reps=5, warmup=2)
+    lcfg, lso, lws, lbs, la, lbias, lx, ltgt, _ = linear_data(
+        torch, LINEAR_CASES[0], G, P, torch.bfloat16, seed=112)
+    k4_ms = cuda_ms(lambda: niflinear_mse_grads_cuda(lws, lbs, la, lbias, lx, ltgt, lcfg, lso),
+                    reps=10)
+    k4_plain_ms = cuda_ms(lambda: niflinear_mse_grads_reference(lws, lbs, la, lbias, lx, ltgt,
+                                                                lcfg, lso), reps=3, warmup=1)
+    del lws, lbs, la, lbias, lx, ltgt
+    k4_bound, k4_by, k4_gf = linear_bounds(lcfg, lso, G, P, peak_mma, peak_f32, peak_bw)
+    log(f"NIF-linear train step (GroupedTrainer.step, Adam, bf16, G={G} P={P}): {lstep_ms:.4f} "
+        f"ms = {G * P / lstep_ms * 1e3:.4e} train points/s; eager step (autograd over the eager "
+        f"trunk + Adam): {eager_ms:.4f} ms = {G * P / eager_ms * 1e3:.4e} train points/s")
+    log(f"K4 {k4_ms:.4f} ms (wrapper incl. prescale, workspace and reduce), plain "
+        f"{k4_plain_ms:.4f} ms, bound {k4_bound:.4f} ms by {k4_by} ({k4_gf:.1f} GFLOP of "
+        f"products); library_ms null: no single PyTorch call computes this pass")
     log(f"card: {smi}")
     log(json.dumps({"kernels": [{
         "name": "shapenet_fwd",
@@ -1147,6 +1441,18 @@ def main() -> int:
         "plain_ms": k8_plain_ms,
         "bound_ms": k8_bound,
         "bound_by": k8_by,
+        "library_ms": None,
+    }, {
+        "name": "niflinear_mse_grads",
+        "route": "cuda",
+        "source": "nif_tpu_torch/csrc/shapenet_linear.cu",
+        "replaces": "nif_tpu/ops/pallas_shapenet.py:1044",
+        "launches": lin_launches["niflinear_mse_grads"],
+        "max_abs_err": k4_err,
+        "ms": k4_ms,
+        "plain_ms": k4_plain_ms,
+        "bound_ms": k4_bound,
+        "bound_by": k4_by,
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -7,10 +7,12 @@ PyTorch: ``nn.Module`` models, plain tensor functions for the ShapeNet ops,
 place of the Pallas TPU kernels, built by ``nvcc`` on first use.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
-Serving: ``NIF``/``NIFMultiScale`` construction, init, point-wise and grouped
-forward, subnetwork extraction, config IO, and
-``serving.predict``/``predict_grouped`` through the fused forward kernel.
-Training: ``NIF.mse_value_and_grad`` through the fused train kernel,
+Serving: ``NIF``/``NIFMultiScale``/``NIFMultiScaleLastLayerParameterized``
+(NIF-linear) construction, init, point-wise and grouped forward, subnetwork
+extraction, config IO, ``serving.predict``/``predict_grouped`` through the
+fused forward kernel, and NIF-linear's ``predict_shared_mesh``.
+Training: ``NIF.mse_value_and_grad`` through the fused train kernel (NIF-linear
+through its own fused train kernel),
 ``NIF.sobolev_value_and_grad`` (value and Jacobian targets) through the fused
 Sobolev train kernel, ``regularization_loss``, and
 ``training.GroupedTrainer`` (``step``, ``fit``, ``evaluate``,
@@ -27,13 +29,14 @@ from . import serving
 from . import training
 from . import utils
 from .config import NIFConfig, ParameterNetConfig, ShapeNetConfig
-from .models import NIF, NIFMultiScale
+from .models import NIF, NIFMultiScale, NIFMultiScaleLastLayerParameterized
 from .utils.policy import Policy, get_policy
 
 __all__ = [
     "__version__",
     "NIF",
     "NIFMultiScale",
+    "NIFMultiScaleLastLayerParameterized",
     "NIFConfig",
     "ShapeNetConfig",
     "ParameterNetConfig",

@@ -2,8 +2,9 @@
 
 ``jax.random`` streams cannot be reproduced in torch, so the two packages
 are compared by handing the same parameters to both. A ``nif_tpu`` params
-pytree (``{"pnet": {"first": {"w", "b"}, "hidden_0": ..., ...}}``) crosses as
-nested dicts of numpy arrays, e.g.
+pytree (``{"pnet": {"first": {"w", "b"}, "hidden_0": ..., ...}}``, plus the
+trunk under ``"snet"`` for NIF-linear) crosses as nested dicts of numpy
+arrays, e.g.
 ``jax.tree_util.tree_map(np.asarray, params)``. Both packages keep dense
 weights as ``[fan_in, fan_out]`` (``y = x @ w``), so no transpose is needed.
 """
@@ -24,24 +25,23 @@ def _load(module: nn.Module, tree: Dict[str, Any], path: str) -> None:
         raise KeyError(f"params at {path or '<root>'} have keys {sorted(tree)}, "
                        f"the model has {sorted(names)}")
     for k, v in tree.items():
-        target = module[k]
+        target, where = module[k], f"{path}/{k}" if path else k
         if isinstance(target, nn.Parameter):
             v = np.asarray(v)
             if tuple(v.shape) != tuple(target.shape):
-                raise ValueError(f"{path}/{k}: shape {v.shape} != {tuple(target.shape)}")
+                raise ValueError(f"{where}: shape {v.shape} != {tuple(target.shape)}")
             with torch.no_grad():
                 target.copy_(torch.from_numpy(np.array(v)))
         else:
-            _load(target, v, f"{path}/{k}")
+            _load(target, v, where)
 
 
 def from_jax_params(model, params: Dict[str, Any]):
-    """Load a ``nif_tpu`` params tree (nested dicts of arrays) into ``model``
-    in place, casting to the model's param dtype and device. Returns the
-    model. Raises on a missing or extra key or a shape mismatch."""
-    if set(params) != {"pnet"}:
-        raise KeyError(f"expected params {{'pnet': ...}}, got keys {sorted(params)}")
-    _load(model.pnet.params, params["pnet"], "pnet")
+    """Load a ``nif_tpu`` params tree (nested dicts of arrays, with the
+    model's own top-level keys) into ``model`` in place, casting to the
+    model's param dtype and device. Returns the model. Raises on a missing or
+    extra key or a shape mismatch."""
+    _load(model.param_tree(), params, "")
     return model
 
 
@@ -52,4 +52,4 @@ def _dump(module: nn.Module) -> Dict[str, Any]:
 
 def to_numpy_params(model) -> Dict[str, Any]:
     """The model's parameters as a ``nif_tpu``-shaped tree of numpy arrays."""
-    return {"pnet": _dump(model.pnet.params)}
+    return _dump(model.param_tree())

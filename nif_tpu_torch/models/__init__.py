@@ -1,3 +1,4 @@
+from .linear import NIFMultiScaleLastLayerParameterized
 from .nif import NIF, NIFMultiScale
 from .parameter_net import (
     ParameterNet,
@@ -9,6 +10,7 @@ from .parameter_net import (
 __all__ = [
     "NIF",
     "NIFMultiScale",
+    "NIFMultiScaleLastLayerParameterized",
     "ParameterNet",
     "parameter_net_init",
     "parameter_net_apply",

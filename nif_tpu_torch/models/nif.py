@@ -133,13 +133,16 @@ class NIF(nn.Module):
     def init(self, seed: int = 0) -> "NIF":
         """(Re)draw every parameter from ``seed``. The draw runs on a CPU
         generator, so one seed gives the same weights on every device."""
-        generator = torch.Generator(device="cpu").manual_seed(seed)
+        self._init_params(torch.Generator(device="cpu").manual_seed(seed))
+        return self
+
+    def _init_params(self, generator: torch.Generator) -> None:
+        """Draw the ParameterNet from ``generator``."""
         self.pnet = ParameterNet(
             self.cfg_parameter_net, self.cfg_shape_net, self.po_dim,
             self.pnet_kind, generator, dtype=self.policy.param_dtype,
             device=self.device,
         )
-        return self
 
     def _compute(self, a) -> torch.Tensor:
         return self.policy.cast_to_compute(a, device=self.device)
@@ -206,6 +209,13 @@ class NIF(nn.Module):
         compute dtype, or simply not running on CUDA."""
         reason = fused_unsupported_reason(self.cfg_shape_net, self.shapenet_variant, P,
                                           self.device)
+        return self._path_info(reason, lambda: kernel_geometry(self.cfg_shape_net)[0])
+
+    def _path_info(self, reason: Optional[str], tile_fn) -> Dict[str, Any]:
+        """A kernel gate's ``reason`` -> ``{"path", "tile", "reason"}``: the
+        kernels also refuse f64 parameters and a compute dtype other than
+        f32/bf16, and run only on CUDA; ``tile_fn()`` gives the kernel's
+        point tile when it runs."""
         if reason is None and self._any_f64():
             reason = "float64 parameters (the kernels take float32 or bfloat16)"
         if reason is None and self.policy.compute_dtype not in (torch.float32,
@@ -215,9 +225,8 @@ class NIF(nn.Module):
         if reason is None and self.device.type != "cuda":
             return {"path": "eager", "tile": None,
                     "reason": f"not on CUDA (device {str(self.device)!r})"}
-        tile = kernel_geometry(self.cfg_shape_net)[0] if reason is None else None
         return {"path": "fused" if reason is None else "eager",
-                "tile": tile, "reason": reason}
+                "tile": tile_fn() if reason is None else None, "reason": reason}
 
     def _announce_path(self, P: int) -> None:
         """One-time (per model instance and P) log of the chosen grouped
@@ -252,6 +261,12 @@ class NIF(nn.Module):
         ``("pnet", "hidden_0", "dense", "w")``."""
         return [(("pnet",) + tuple(name.split(".")), p)
                 for name, p in self.pnet.params.named_parameters()]
+
+    def param_tree(self) -> nn.ModuleDict:
+        """Every parameter in one module keyed like the JAX params tree
+        (``{"pnet": ...}``; NIF-linear adds ``"snet"``): what a train state
+        and its checkpoints carry."""
+        return nn.ModuleDict({"pnet": self.pnet.params})
 
     def _grad_tree(self, grads) -> Dict[str, Any]:
         """Gradients in :meth:`param_items` order -> the JAX params tree's
@@ -315,9 +330,13 @@ class NIF(nn.Module):
     # ------------------------------------------------------ Sobolev training
     def _derivative_kernel_cfg(self):
         """(cfg, variant) of the chain the fused derivative kernels take:
-        the generated ShapeNet chain (NIF-linear's effective chain is not
-        ported yet)."""
+        the generated ShapeNet chain (NIF-linear: its effective chain)."""
         return self.cfg_shape_net, self.shapenet_variant
+
+    def _derivative_weights(self, t) -> torch.Tensor:
+        """The ``[G, po]`` weights of that chain for parameter rows ``t``,
+        differentiable in the parameters: the generated weight vector."""
+        return self.pnet(self._compute(t))[0]
 
     def sobolev_path_info(self, P: int, si: int, hess: bool = False) -> Dict[str, Any]:
         """Which path :meth:`sobolev_value_and_grad` takes for ``[G, P, si]``
@@ -328,21 +347,10 @@ class NIF(nn.Module):
         cfg_k, variant_k = self._derivative_kernel_cfg()
         gate = hessian_fused_unsupported_reason if hess else sobolev_fused_unsupported_reason
         reason = gate(cfg_k, variant_k, P, si, self.device)
-        if reason is None and self._any_f64():
-            reason = "float64 parameters (the kernels take float32 or bfloat16)"
-        if reason is None and self.policy.compute_dtype not in (torch.float32, torch.bfloat16):
-            reason = (f"compute dtype {self.policy.compute_dtype} (the kernel takes float32 "
-                      f"or bfloat16)")
-        if reason is None and self.device.type != "cuda":
-            return {"path": "eager", "tile": None,
-                    "reason": f"not on CUDA (device {str(self.device)!r})"}
-        tile = None
-        if reason is None:
-            dtype = self.policy.compute_dtype
-            tile = (hessian_geometry("train", cfg_k, variant_k, 1, P, dtype, si) if hess else
-                    derivative_geometry("sobolev", cfg_k, variant_k, 1, P, dtype, si))["tile"]
-        return {"path": "fused" if reason is None else "eager", "tile": tile,
-                "reason": reason}
+        dtype = self.policy.compute_dtype
+        return self._path_info(reason, lambda: (
+            hessian_geometry("train", cfg_k, variant_k, 1, P, dtype, si) if hess else
+            derivative_geometry("sobolev", cfg_k, variant_k, 1, P, dtype, si))["tile"])
 
     def _announce_sobolev_path(self, P: int, si: int, hess: bool = False) -> None:
         """One-time log of the Sobolev train path for ``[G, P, si]``
@@ -493,7 +501,7 @@ class NIF(nn.Module):
                 jac_mask = mask.T.reshape(si * so)  # the kernel's column k*so + j
             jt_flat = jt.transpose(2, 3).reshape(G, P, si * so)
 
-        wb, _ = self.pnet(self._compute(t))
+        wb = self._derivative_weights(t)
         terms = {}
         if not hess:
             value_mse, jac_mse, d_wb = shapenet_sobolev_grads(
@@ -554,7 +562,7 @@ class NIF(nn.Module):
         cfg_p = self.cfg_parameter_net
         loss = torch.zeros((), dtype=self.policy.param_dtype, device=self.device)
         if parts in ("all", "params"):
-            leaves = [p for _, p in self.param_items()]
+            leaves = list(self.pnet.params.parameters())
             if cfg_p.l2_reg is not None:
                 loss = loss + cfg_p.l2_reg * sum(torch.sum(torch.square(p)) for p in leaves)
             elif cfg_p.l1_reg is not None:

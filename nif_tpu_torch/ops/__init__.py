@@ -14,6 +14,12 @@ from .fused_hessian import (
     shapenet_fwd_hess,
     shapenet_hessian_grads,
 )
+from .fused_linear import (
+    linear_fused_supported,
+    linear_fused_unsupported_reason,
+    niflinear_mse_grads,
+    niflinear_mse_grads_reference,
+)
 from .fused_shapenet import (
     fused_supported,
     fused_unsupported_reason,
@@ -41,6 +47,10 @@ __all__ = [
     "shapenet_hessian_grads",
     "fwd_hess_supported",
     "hessian_fused_supported",
+    "niflinear_mse_grads",
+    "niflinear_mse_grads_reference",
+    "linear_fused_supported",
+    "linear_fused_unsupported_reason",
     "LAUNCHES",
     "reset_launches",
 ]

@@ -14,7 +14,6 @@ it off the card).
 """
 from __future__ import annotations
 
-import inspect
 import logging
 from typing import Callable, Optional, Sequence, Tuple, Union
 
@@ -100,27 +99,20 @@ def output_jacobian_hessian(fn: Callable, inputs: torch.Tensor, y_index: Index =
     return y, _select_jac(jac, y_index, x_index), _select_hess(hess, y_index, x_index)
 
 
-def _needs_params(model) -> bool:
-    return "params" in inspect.signature(model.x_to_u_given_w).parameters
-
-
-def _chain(model):
-    """(cfg, variant) of the model's generated chain. NIF-linear (whose
-    trunk carries trainable parameters and whose kernels route through an
-    effective chain) is not ported yet."""
-    if _needs_params(model) or not hasattr(model, "cfg_shape_net"):
-        raise NotImplementedError(
-            "derivatives of NIF-linear (its effective generated chain) are not ported to "
-            "nif_tpu_torch yet (ROADMAP Slice C)")
-    return model.cfg_shape_net, model.shapenet_variant
+def _is_linear(model) -> bool:
+    """NIF-linear: its trunk carries trainable parameters, and the kernels
+    take its effective generated chain."""
+    return hasattr(model, "_fwd_jac_effective_chain")
 
 
 def _grouped_point_fn(model, wb_g: torch.Tensor) -> Callable:
-    """One point's ShapeNet given one group's generated weights, as the
-    model's ``x_to_u_given_w`` computes it (compute dtype in, param dtype
-    out)."""
-    cfg, variant = _chain(model)
+    """One point's field given one group's generated weights (NIF-linear:
+    its ``a(t)`` row, contracted with the trunk), as the model's
+    ``x_to_u_given_w`` computes it (compute dtype in, param dtype out)."""
     cdt, pdt = model.policy.compute_dtype, model.policy.param_dtype
+    if _is_linear(model):
+        return lambda r: model._x_to_u(r[None].to(cdt), wb_g[None].to(cdt))[0].to(pdt)
+    cfg, variant = model.cfg_shape_net, model.shapenet_variant
     return lambda r: shapenet_pointwise(wb_g[None].to(cdt), r[None].to(cdt), cfg,
                                         variant)[0].to(pdt)
 
@@ -138,7 +130,7 @@ def _fusable(model, x, fused: Optional[bool], kernel: str, reason_fn) -> bool:
     WARNING, once per model and shape."""
     if fused is False:
         return False
-    cfg, variant = _chain(model)
+    cfg, variant = model._derivative_kernel_cfg()
     device = x.device if torch.is_tensor(x) else model.device
     P, si = x.shape[1], x.shape[2]
     reason = (reason_fn(cfg, variant, P, si, device) if _kernel_dtype_ok(model) else
@@ -165,8 +157,8 @@ def output_and_jacobian_grouped(model, t, x, y_index: Index = None, x_index: Ind
     (param dtype, differentiable in the parameters); ``fused=True`` forces
     the kernel path (plain K5 on the CPU)."""
     if _fusable(model, x, fused, "K5", fwd_jac_unsupported_reason):
-        cfg, variant = _chain(model)
-        wb = model.p_to_w(t)  # the hypernetwork runs once per group
+        cfg, variant = model._derivative_kernel_cfg()
+        wb = model._derivative_weights(t)  # the hypernetwork runs once per group
         y, jac = shapenet_fwd_jac(wb, model._compute(x), cfg, variant)
     else:
         wb = model.p_to_w(t)
@@ -197,8 +189,8 @@ def output_jacobian_hessian_grouped(model, t, x, y_index: Index = None,
     parameters); ``fused=True`` forces the kernel path (plain K7 on the
     CPU)."""
     if _fusable(model, x, fused, "K7", fwd_hess_unsupported_reason):
-        cfg, variant = _chain(model)
-        wb = model.p_to_w(t)  # the hypernetwork runs once per group
+        cfg, variant = model._derivative_kernel_cfg()
+        wb = model._derivative_weights(t)  # the hypernetwork runs once per group
         y, jac, hess = shapenet_fwd_hess(wb, model._compute(x), cfg, variant)
         return y, _select_jac(jac, y_index, x_index), _select_hess(hess, y_index, x_index)
     wb = model.p_to_w(t)

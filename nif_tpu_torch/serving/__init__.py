@@ -1,3 +1,3 @@
-from .export import predict, predict_grouped
+from .export import predict, predict_grouped, predict_shared_mesh
 
-__all__ = ["predict", "predict_grouped"]
+__all__ = ["predict", "predict_grouped", "predict_shared_mesh"]

@@ -79,7 +79,7 @@ class GroupedTrainer:
         optimizer over them: step 0."""
         self.model.init(seed)
         optimizer = self.make_optimizer([p for _, p in self.model.param_items()])
-        return TrainState(self.model.pnet.params, optimizer, 0)
+        return TrainState(self.model.param_tree(), optimizer, 0)
 
     def _record_path(self, P: int, si: Optional[int] = None, sobolev: bool = False,
                      hess: bool = False) -> None:

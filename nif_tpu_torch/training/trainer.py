@@ -46,8 +46,9 @@ def reg_row_weights(n_real: int, n_target: int) -> np.ndarray:
 
 
 class TrainState:
-    """The train state: ``params`` (the model's ParameterNet parameters, an
-    ``nn.ModuleDict`` keyed like the JAX params tree), ``opt_state`` (the
+    """The train state: ``params`` (every parameter of the model, an
+    ``nn.ModuleDict`` keyed like the JAX params tree: ``"pnet"``, and
+    ``"snet"`` for NIF-linear's trunk), ``opt_state`` (the
     ``torch.optim.Optimizer`` over them) and ``step``. PyTorch updates the
     parameters and the optimizer in place, so a new state shares both with
     the one it was made from and carries the next step count."""

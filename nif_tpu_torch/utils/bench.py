@@ -1,11 +1,15 @@
-"""The flagship model, its MSE, Sobolev and Hessian train steps and a device timer,
-shared by the scripts that drive the port on a card (``chip_smoke.py``,
-``scripts/port_serving_profile.py``, ``scripts/port_train_profile.py``).
+"""The flagship model, its MSE, Sobolev and Hessian train steps, the NIF-linear
+train step and a device timer, shared by the scripts that drive the port on a
+card (``chip_smoke.py``, ``scripts/port_serving_profile.py``,
+``scripts/port_train_profile.py``).
 
 The flagship is the JAX package's ``bench.py`` model: NIFMultiScale with a
 SIREN ShapeNet 3 -> 1 of width 128 and two hidden layers (omega_0 = 30) and
 an ``mlp_hyper`` ParameterNet 4 -> 128 x 2 (swish, latent 128), so
-po = 33665, under ``mixed_bfloat16``.
+po = 33665, under ``mixed_bfloat16``. The NIF-linear model is the JAX bench's
+too (``bench.py:289-317``): a SIREN trunk 3 -> 128 x 2 -> bottleneck 128
+(so = 1, K = 128; omega_0 = 30, weight_init_factor 1.0) contracted with the
+same ParameterNet's latent output, under ``mixed_bfloat16``.
 """
 from __future__ import annotations
 
@@ -15,7 +19,8 @@ import numpy as np
 import torch
 
 __all__ = ["FLAGSHIP_SHAPE", "FLAGSHIP_PNET", "FLAGSHIP_POLICY", "FLAGSHIP_TRAIN_LR",
-           "cuda_ms", "flagship_hessian_step", "flagship_sobolev_step", "flagship_train_step"]
+           "LINEAR_SHAPE", "cuda_ms", "flagship_hessian_step", "flagship_linear_step",
+           "flagship_sobolev_step", "flagship_train_step"]
 
 FLAGSHIP_SHAPE = {"input_dim": 3, "output_dim": 1, "units": 128, "nlayers": 2,
                   "activation": "sine", "use_resblock": False, "omega_0": 30.0,
@@ -24,6 +29,9 @@ FLAGSHIP_PNET = {"input_dim": 4, "latent_dim": 128, "units": 128, "nlayers": 2,
                  "activation": "swish", "use_resblock": False, "omega_0": 30.0}
 FLAGSHIP_POLICY = "mixed_bfloat16"
 FLAGSHIP_TRAIN_LR = 1e-4
+LINEAR_SHAPE = {"input_dim": 3, "output_dim": 1, "units": 128, "nlayers": 2,
+                "activation": "sine", "use_resblock": False, "omega_0": 30.0,
+                "connectivity": "last_layer", "weight_init_factor": 1.0}
 
 
 def flagship_train_step(G: int = 32, P: int = 32768, device="cuda", seed: int = 0):
@@ -55,12 +63,22 @@ def flagship_hessian_step(G: int = 32, P: int = 32768, device="cuda", seed: int 
     return _flagship(G, P, device, seed, sobolev=True, hessian=True)
 
 
-def _flagship(G, P, device, seed, sobolev, hessian=False):
-    from ..models import NIFMultiScale
+def flagship_linear_step(G: int = 32, P: int = 32768, device="cuda", seed: int = 1):
+    """The JAX bench's NIF-linear train step (``bench.py:289-317``): the
+    NIF-linear model (``LINEAR_SHAPE``, ``FLAGSHIP_PNET``) with random
+    weights from ``seed`` under a ``GroupedTrainer`` with Adam (lr 1e-4), on
+    the batch of :func:`flagship_train_step`. Returns ``(trainer, state, (t,
+    x, u))``; one step is ``trainer.step(state, t, x, u)`` (K4 on the card)."""
+    return _flagship(G, P, device, seed, sobolev=False, linear=True)
+
+
+def _flagship(G, P, device, seed, sobolev, hessian=False, linear=False):
+    from ..models import NIFMultiScale, NIFMultiScaleLastLayerParameterized
     from ..training import GroupedTrainer
 
-    model = NIFMultiScale(FLAGSHIP_SHAPE, FLAGSHIP_PNET, FLAGSHIP_POLICY, device=device,
-                          seed=seed)
+    cls, shape = ((NIFMultiScaleLastLayerParameterized, LINEAR_SHAPE) if linear else
+                  (NIFMultiScale, FLAGSHIP_SHAPE))
+    model = cls(shape, FLAGSHIP_PNET, FLAGSHIP_POLICY, device=device, seed=seed)
     weights = dict(w_jac=0.1, w_hess=0.01) if hessian else {}
     trainer = GroupedTrainer(model, lambda p: torch.optim.Adam(p, lr=FLAGSHIP_TRAIN_LR),
                              **weights)

@@ -19,7 +19,10 @@ backward sums over (1 + si) times the rows); bf16 y, jac and d_wb within
 the SIREN configs (they take sine chains only): f32 y, jac and hess as K5,
 K8 terms rel 1e-5 and d_wb max|d| <= 1e-4 of max|plain| (the JAX package's
 bound for its fused Hessian train pass, whose backward sums ten times the
-rows at si = 3); bf16 as K5/K6."""
+rows at si = 3); bf16 as K5/K6. K4 (the NIF-linear train pass) against its
+plain version on SIREN trunks with so = 1, 2, 3: f32 loss rel 1e-5 and each
+gradient max|d| <= 5e-5 of its max|plain| (the JAX package's bound for its
+fused NIF-linear kernel: the trunk grads sum over every group); bf16 as K2."""
 import numpy as np
 import pytest
 import torch
@@ -29,6 +32,7 @@ from nif_tpu_torch.config import ShapeNetConfig, shapenet_param_count
 from nif_tpu_torch.ops import _build
 from nif_tpu_torch.ops import fused_derivatives as fd
 from nif_tpu_torch.ops import fused_hessian as fh
+from nif_tpu_torch.ops import fused_linear as fl
 from nif_tpu_torch.ops import fused_shapenet as fs
 
 pytestmark = pytest.mark.cuda
@@ -586,3 +590,151 @@ def test_hessian_evaluation_routing_logs_eager_fallbacks(card, caplog):
     _, _, hess = output_jacobian_hessian_grouped(siren, t, x)
     assert _build.LAUNCHES["shapenet_fwd_hess"] == before["shapenet_fwd_hess"] + 1
     assert hess.shape == (2, 64, 1, 2, 2) and bool(torch.isfinite(hess).all())
+
+
+# K4's trunks: the SIREN configs above with a bottleneck of so * K outputs,
+# so in {1, 2, 3}, resblock and plain, K chosen so that so * K stays within
+# the kernel's width.
+LINEAR_CASES = [
+    # (si, so, K, units, nlayers, resblock, omega_0)
+    (3, 1, 128, 128, 2, False, 30.0),
+    (2, 2, 32, 64, 1, True, 10.0),
+    (1, 3, 8, 16, 3, False, 5.0),
+]
+
+
+def _linear_data(case, G, P, dtype, seed):
+    """The trunk's chain-order weights and biases (SIREN-regime, 0.3/omega_0),
+    a, bias, x, target and point weights, made with numpy from a seed."""
+    si, so, K, n, l, res, om = case
+    cfg = ShapeNetConfig(si, so * K, n, l, "sine", res, om)
+    n_mats = 2 * l if res else l
+    w_shapes = [(si, n)] + [(n, n)] * n_mats + [(n, so * K)]
+    b_shapes = [(n,)] * (n_mats + 1) + [(so * K,)]
+    rng = np.random.default_rng(seed)
+    to = lambda a, dt=dtype: torch.from_numpy(np.asarray(a, np.float32)).to("cuda", dt)  # noqa: E731
+    ws = [to(rng.standard_normal(s) * (0.3 / om)) for s in w_shapes]
+    bs = [to(rng.standard_normal(s) * (0.3 / om)) for s in b_shapes]
+    a = to(rng.standard_normal((G, K)) * 0.5)
+    bias = to(rng.standard_normal(so) * 0.1)
+    x = to(rng.standard_normal((G, P, si)))
+    tgt = to(rng.standard_normal((G, P, so)), torch.float32)
+    w = to(rng.uniform(0.5, 1.5, (G, P)), torch.float32)
+    return cfg, so, ws, bs, a, bias, x, tgt, w
+
+
+def _k4_close(outs, refs, dtype):
+    """K4's outputs against plain K4's, with the bounds of the docstring."""
+    l_rel, bound = (1e-5, 5e-5) if dtype == torch.float32 else (1e-3, 2.0 ** -6)
+    loss, *grads = outs
+    l_ref, *g_refs = refs
+    assert loss.dtype == torch.float32 and float(loss) == pytest.approx(float(l_ref), rel=l_rel)
+    flat = lambda gs: [g for x in gs for g in (x if isinstance(x, list) else [x])]  # noqa: E731
+    for mine, ref in zip(flat(grads), flat(g_refs)):
+        assert mine.dtype == torch.float32 and mine.shape == ref.shape
+        err, scale = _max_diff(mine, ref)
+        assert err <= bound * scale + 1e-12
+
+
+@pytest.mark.parametrize("weighted", [False, True], ids=["unweighted", "weighted"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", LINEAR_CASES, ids=["so1", "so2-res", "so3"])
+def test_k4_matches_plain(card, case, dtype, weighted):
+    cfg, so, ws, bs, a, bias, x, tgt, w = _linear_data(case, 3, 256, dtype, seed=30)
+    w = w if weighted else None
+    before = _build.LAUNCHES["niflinear_mse_grads"]
+    outs = fl.niflinear_mse_grads(ws, bs, a, bias, x, tgt, cfg, so, w)
+    assert _build.LAUNCHES["niflinear_mse_grads"] == before + 1
+    refs = fl.niflinear_mse_grads_reference(ws, bs, a, bias, x, tgt, cfg, so, w)
+    _k4_close(outs, refs, dtype)
+
+
+def test_k4_ragged_tiles_and_determinism(card):
+    """The flagship trunk in bf16 at P = 264 (8 rows in the last tile), G=5,
+    weighted: two runs give the same bits and agree with plain K4."""
+    cfg, so, ws, bs, a, bias, x, tgt, w = _linear_data(LINEAR_CASES[0], 5, 264, torch.bfloat16,
+                                                       seed=31)
+    runs = [fl.niflinear_mse_grads_cuda(ws, bs, a, bias, x, tgt, cfg, so, w) for _ in range(2)]
+    flat = lambda r: [r[0], *r[1], *r[2], r[3], r[4]]  # noqa: E731
+    assert all(torch.equal(p, q) for p, q in zip(flat(runs[0]), flat(runs[1])))
+    _k4_close(runs[0], fl.niflinear_mse_grads_reference(ws, bs, a, bias, x, tgt, cfg, so, w),
+              torch.bfloat16)
+
+
+def test_linear_geometry(card):
+    """At the flagship trunk the bf16 residuals of a 64-point tile fit in
+    shared memory; f32 ones live in the per-block global scratch."""
+    cfg = ShapeNetConfig(3, 128, 128, 2, "sine", False, 30.0)
+    bf16 = fl.linear_geometry(cfg, 1, 32, 32768, torch.bfloat16)
+    f32 = fl.linear_geometry(cfg, 1, 32, 32768, torch.float32)
+    assert (bf16["tile"], bf16["splits"], bf16["residuals"]) == (64, 8, "shared")
+    assert f32["residuals"] == "global" and f32["scratch_bytes"] > 0
+    too_wide = ShapeNetConfig(3, 2048, 128, 2, "sine", False, 30.0)
+    assert "wider" in fl.linear_fused_unsupported_reason(too_wide, 1, 256, "cuda")
+
+
+def test_k4_wrapper_refuses_what_it_cannot_take(card):
+    cfg, so, ws, bs, a, bias, x, tgt, w = _linear_data(LINEAR_CASES[2], 2, 16, torch.float32,
+                                                       seed=32)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fl.niflinear_mse_grads_cuda(ws, bs, a.clone().requires_grad_(), bias, x, tgt, cfg, so)
+    with pytest.raises(ValueError, match="shapes"):
+        fl.niflinear_mse_grads_cuda(ws, bs, a, bias, x, tgt[:, :8], cfg, so)
+    with pytest.raises(ValueError, match="shapes"):
+        fl.niflinear_mse_grads_cuda(ws, bs, a, bias, x, tgt, cfg, so, w[:, :8])
+    with pytest.raises(TypeError):
+        fl.niflinear_mse_grads_cuda(ws, bs, a, bias, x.bfloat16(), tgt, cfg, so)
+    with pytest.raises(ValueError, match="point tile"):
+        fl.niflinear_mse_grads_cuda(ws, bs, a, bias, x[:, :13], tgt[:, :13], cfg, so)
+
+
+def test_linear_model_on_the_card_launches_k4_and_k6(card):
+    """NIF-linear on the card: one GroupedTrainer step launches K4 once (no
+    K2), with its loss and grads against plain K4 + autograd through the
+    ParameterNet; apply_grouped(fused=True) launches K1 once; a Sobolev step
+    launches K6 once on the effective chain."""
+    from nif_tpu_torch.training import GroupedTrainer
+
+    cfg_s = {"input_dim": 3, "output_dim": 1, "units": 128, "nlayers": 2, "activation": "sine",
+             "omega_0": 30.0, "connectivity": "last_layer", "weight_init_factor": 1.0}
+    cfg_p = {"input_dim": 4, "latent_dim": 128, "units": 128, "nlayers": 2,
+             "activation": "swish"}
+    model = nif_tpu_torch.NIFMultiScaleLastLayerParameterized(cfg_s, cfg_p, "mixed_bfloat16",
+                                                              seed=0)
+    assert model.fast_path_info(512)["path"] == "fused"
+    rng = np.random.default_rng(33)
+    t = torch.from_numpy(rng.standard_normal((4, 4)).astype(np.float32)).cuda()
+    x = torch.from_numpy(rng.uniform(-1, 1, (4, 512, 3)).astype(np.float32)).cuda()
+    u = torch.from_numpy(rng.standard_normal((4, 512, 1)).astype(np.float32)).cuda()
+    jt = torch.from_numpy(rng.standard_normal((4, 512, 1, 3)).astype(np.float32)).cuda()
+    loss, grads = model.mse_value_and_grad(t, x, u)
+    a = model.pnet(model._compute(t))[0]
+    ws, bs = model._trunk_lists()
+    cdt = torch.bfloat16
+    ref = fl.niflinear_mse_grads_reference(
+        [w.detach().to(cdt) for w in ws], [b.detach().to(cdt) for b in bs], a.detach().to(cdt),
+        model.snet.bias.detach().to(cdt), model._compute(x), u, model._trunk_cfg, 1)
+    pnet = list(model.pnet.params.parameters())
+    refs = dict(zip(map(id, pnet), torch.autograd.grad(a, pnet, ref[3].to(a.dtype))))
+    refs.update(zip(map(id, [*ws, *bs, model.snet.bias]), [*ref[1], *ref[2], ref[4]]))
+    assert float(loss) == pytest.approx(float(ref[0]), rel=1e-3)
+    for path, p in model.param_items():
+        mine = grads
+        for key in path:
+            mine = mine[key]
+        assert float((mine - refs[id(p)]).norm()) <= 1e-2 * float(refs[id(p)].norm()) + 1e-12
+    trainer = GroupedTrainer(model, lambda p: torch.optim.Adam(p, lr=1e-4))
+    state = trainer.init(0)
+    before = dict(_build.LAUNCHES)
+    state, loss = trainer.step(state, t, x, u)
+    after = dict(_build.LAUNCHES)
+    assert after["niflinear_mse_grads"] == before["niflinear_mse_grads"] + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+    assert bool(torch.isfinite(loss)) and trainer.history["path"] == "fused"
+    with torch.inference_mode():
+        out = model.apply_grouped(t, x, fused=True)
+    assert _build.LAUNCHES["shapenet_fwd"] == after["shapenet_fwd"] + 1
+    assert tuple(out.shape) == (4, 512, 1) and bool(torch.isfinite(out).all())
+    state, loss = trainer.step(state, t, x, u, target_jac=jt)
+    assert _build.LAUNCHES["shapenet_sobolev_grads"] == after["shapenet_sobolev_grads"] + 1
+    assert bool(torch.isfinite(loss)) and trainer.history["sobolev_path"] == "fused"
