@@ -71,20 +71,25 @@ Phases of the NIF-linear slice:
 
 2h. Hold K4 (the fused NIF-linear train pass) against plain K4 on the SIREN
    configs of ``CASES`` as trunks with so * K outputs (so = 1, 2, 3; plain
-   and resblock), weighted or not, in float32 and bfloat16, and on the
-   flagship NIF-linear trunk at G=32, P=32768 in bfloat16, where two runs
-   must give bitwise-equal results.
+   and resblock), weighted or not: bfloat16 through the tensor-core kernel
+   (``shapenet_linear_tc.cu``), float32 through the CUDA-core one
+   (``shapenet_linear.cu``), each checked by its launch counter; then on the
+   flagship NIF-linear trunk at G=32, P=32768 in both dtypes, where two
+   bfloat16 runs must give bitwise-equal results.
 3e. Serve and train the JAX bench's NIF-linear model
    (``flagship_linear_step``): ``apply_grouped(fused=True)`` (one K1 launch)
    against plain K1 and the eager trunk; ``predict_shared_mesh`` against
    ``apply_grouped`` on a repeated mesh; step 0's loss and grads against
    plain K4 + autograd through the ParameterNet; five ``GroupedTrainer.step``
-   (five K4 launches, no K2); a 30-epoch ``fit`` on the traveling wave that
+   (five launches of the tensor-core K4, no K2), and two steps of the same
+   model under the float32 policy (two of the CUDA-core K4, none of the
+   tensor-core one); a 30-epoch ``fit`` on the traveling wave that
    must lower the loss; one Sobolev step (one K6 launch on the effective
    chain, its terms and grads against plain K6 + autograd) and an
    ``evaluate_sobolev`` that launches K5 once per chunk.
-4e. Time the NIF-linear step, K4, plain K4 and the eager step (autograd over
-   the eager trunk + Adam), and compute K4's bound on this card.
+4e. Time the NIF-linear step, the bfloat16 tensor-core K4, the float32
+   CUDA-core K4, plain K4 and the eager step (autograd over the eager trunk +
+   Adam), and compute both K4 bounds on this card.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the
 ``{"kernels": [...]}`` record. Exits non-zero without CUDA or without the
@@ -467,18 +472,26 @@ def k4_outputs(out):
 
 
 def check_k4(torch, case, G, P, dtype, weighted, seed) -> float:
-    """K4 vs plain K4; returns the largest max|d| over its gradients.
+    """K4 vs plain K4; returns the largest max|d| over its gradients. A
+    bfloat16 call must launch the tensor-core kernel, a float32 one the
+    CUDA-core kernel only.
 
     float32: loss rel 1e-5 and every gradient max|d| <= 5e-5 of its
     max|plain| (the JAX package's bound for its fused NIF-linear kernel: the
     trunk grads sum over every group); bfloat16: loss rel BF16_LOSS_REL and
     BF16_REL of max|plain|."""
+    from nif_tpu_torch.ops import _build
     from nif_tpu_torch.ops.fused_linear import (
         linear_geometry, niflinear_mse_grads_cuda, niflinear_mse_grads_reference)
 
     cfg, so, ws, bs, a, bias, x, tgt, w = linear_data(torch, case, G, P, dtype, seed)
     w = w if weighted else None
+    before = dict(_build.LAUNCHES)
     outs = k4_outputs(niflinear_mse_grads_cuda(ws, bs, a, bias, x, tgt, cfg, so, w))
+    tc = _build.LAUNCHES["niflinear_mse_grads_tc"] - before["niflinear_mse_grads_tc"]
+    if (_build.LAUNCHES["niflinear_mse_grads"] - before["niflinear_mse_grads"] != 1
+            or tc != (dtype == torch.bfloat16)):
+        raise AssertionError(f"K4 in {dtype} launched {_build.LAUNCHES} (before {before})")
     refs = k4_outputs(niflinear_mse_grads_reference(ws, bs, a, bias, x, tgt, cfg, so, w))
     torch.cuda.synchronize()
     what = (f"K4 si={cfg.input_dim} so={so} K={cfg.output_dim // so} n={cfg.units} "
@@ -497,21 +510,23 @@ def check_k4(torch, case, G, P, dtype, weighted, seed) -> float:
             raise AssertionError(f"{what}: a gradient's max|d| {err} > {bound} * {scale}")
     geo = linear_geometry(cfg, so, G, P, dtype)
     log(f"{what} loss {float(outs[0]):.6e} (rel {l_rel:.2e}) grads worst max|d|={worst:.3e} "
-        f"({worst_rel:.2e} of max|plain|); residuals in {geo['residuals']} memory, "
-        f"{geo['splits']} splits of {geo['tile']}-point tiles")
+        f"({worst_rel:.2e} of max|plain|); {geo['variant']} kernel, residuals in "
+        f"{geo['residuals']} memory, {geo['splits']} splits of {geo['tile']}-point tiles")
     if not np.isfinite(float(outs[0])) or l_rel > l_bound:
         raise AssertionError(f"{what}: loss rel {l_rel} (bound {l_bound})")
     return worst
 
 
-def linear_bounds(cfg, so, G, P, peak_mma, peak_f32, peak_bw):
-    """(bound ms, bound_by, products GFLOP) of K4 at this shape in bf16: the
-    trunk's products forward (x @ W0, the hidden matrices, the bottleneck
-    of nk = so*K outputs), its weight grads and its du products (no dx), 2 G
-    P (2 (si n + nm n^2 + n nk) + nm n^2 + n nk), over the tensor-core
-    peak; the sine-with-derivative evaluations and the contraction, d_a and
-    d_phi (5 G P nk) over the f32 peak; bytes of the trunk, a, bias, x and
-    the target in (bf16) and of the f32 grads and loss out."""
+def linear_bounds(cfg, so, G, P, peak_mma, peak_f32, peak_bw, f32=False):
+    """(bound ms, bound_by, products GFLOP) of K4 at this shape: the trunk's
+    products forward (x @ W0, the hidden matrices, the bottleneck of nk =
+    so*K outputs), its weight grads and its du products (no dx), 2 G P (2
+    (si n + nm n^2 + n nk) + nm n^2 + n nk), over the bf16 tensor-core peak;
+    the sine-with-derivative evaluations and the contraction, d_a and d_phi
+    (5 G P nk) over the f32 peak; bytes of the trunk, a, bias, x and the
+    target in and of the f32 grads and loss out. ``f32``: the float32 kernel,
+    whose products must not use the tensor cores (no TF32), so products and
+    activations together over the f32 peak, and 4-byte inputs."""
     n, si = cfg.units, cfg.input_dim
     nk = cfg.output_dim
     nm = 2 * cfg.nlayers if cfg.use_resblock else cfg.nlayers
@@ -519,8 +534,8 @@ def linear_bounds(cfg, so, G, P, peak_mma, peak_f32, peak_bw):
     po = nm * n * n + (si + 1 + nm) * n + n * nk + nk
     flops = 2 * G * P * (2 * (si * n + nm * n * n + n * nk) + nm * n * n + n * nk)
     act = SINE_GRAD_FLOPS * G * P * n * (1 + nm) + 5 * G * P * nk
-    nbytes = 2 * (po + G * K + so + G * P * (si + so)) + 4 * (po + G * K + so + 1)
-    t_ops = max(flops / peak_mma, act / peak_f32) * 1e3
+    nbytes = (4 if f32 else 2) * (po + G * K + so + G * P * (si + so)) + 4 * (po + G * K + so + 1)
+    t_ops = ((flops + act) / peak_f32 if f32 else max(flops / peak_mma, act / peak_f32)) * 1e3
     t_bytes = nbytes / peak_bw * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops / 1e9
 
@@ -716,7 +731,7 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {name}")
     log(f"card: {smi}")
     build_all(["shapenet_fwd", "shapenet_bwd", "shapenet_jac", "shapenet_hess",
-               "shapenet_linear"])
+               "shapenet_linear", "shapenet_linear_tc"])
     peak_mma, peak_f32, peak_bw = PEAKS["H100 PCIe" if "PCIe" in name else "H100 SXM"]
     flag_cfg = ShapeNetConfig.from_dict(FLAGSHIP_SHAPE)
 
@@ -824,6 +839,7 @@ def main() -> int:
             for weighted in (False, True):
                 check_k4(torch, case, 3, 256, dtype, weighted, seed=100 + i)
     k4_err = check_k4(torch, LINEAR_CASES[0], 32, 32768, torch.bfloat16, False, seed=110)
+    k4f_err = check_k4(torch, LINEAR_CASES[0], 32, 32768, torch.float32, False, seed=113)
     lcfg, lso, lws, lbs, la, lbias, lx, ltgt, lw = linear_data(
         torch, LINEAR_CASES[0], 32, 32768, torch.bfloat16, seed=111)
     runs = [k4_outputs(niflinear_mse_grads_cuda(lws, lbs, la, lbias, lx, ltgt, lcfg, lso, lw))
@@ -1042,7 +1058,7 @@ def main() -> int:
     hess_launches = dict(_build.LAUNCHES)
     hlosses = [float(v) for v in hlosses]
     log(f"flagship Hessian train: {n_steps} steps, losses {hlosses}, launches {hess_launches}, "
-        f"path {htrainer.history.get('hessian_path')}")
+        f"path {htrainer.history.get('sobolev_path')}")
     if (hess_launches["shapenet_hessian_grads"] != n_steps
             or hess_launches["shapenet_sobolev_grads"] or hess_launches["shapenet_mse_grads"]
             or not all(np.isfinite(hlosses))):
@@ -1158,10 +1174,31 @@ def main() -> int:
     llosses = [float(v) for v in llosses]
     log(f"NIF-linear train: {n_steps} steps, losses {llosses}, launches {lin_launches}, "
         f"path {ltrainer.history.get('path')}")
-    if (lin_launches["niflinear_mse_grads"] != n_steps or lin_launches["shapenet_mse_grads"]
-            or not all(np.isfinite(llosses))):
+    if (lin_launches["niflinear_mse_grads"] != n_steps
+            or lin_launches["niflinear_mse_grads_tc"] != n_steps
+            or lin_launches["shapenet_mse_grads"] or not all(np.isfinite(llosses))):
         raise AssertionError(f"{n_steps} NIF-linear steps launched {lin_launches}, "
                              f"losses {llosses}")
+    # the float32 policy: the CUDA-core K4, full f32 products
+    f32_trainer = GroupedTrainer(
+        nif_tpu_torch.NIFMultiScaleLastLayerParameterized(LINEAR_SHAPE, FLAGSHIP_PNET, "float32",
+                                                          device="cuda", seed=1),
+        lambda p: torch.optim.Adam(p, lr=FLAGSHIP_TRAIN_LR))
+    f32_state = f32_trainer.init(1)
+    _build.reset_launches()
+    f32_losses = []
+    for _ in range(2):
+        f32_state, loss = f32_trainer.step(f32_state, t_l, x_l, u_l)
+        f32_losses.append(loss)
+    torch.cuda.synchronize()
+    f32_launches = dict(_build.LAUNCHES)
+    f32_losses = [float(v) for v in f32_losses]
+    log(f"NIF-linear train, float32 policy: 2 steps, losses {f32_losses}, launches "
+        f"{f32_launches}")
+    if (f32_launches["niflinear_mse_grads"] != 2 or f32_launches["niflinear_mse_grads_tc"]
+            or not all(np.isfinite(f32_losses))):
+        raise AssertionError(f"2 float32 NIF-linear steps launched {f32_launches}")
+    del f32_trainer, f32_state
     lmodel_w = nif_tpu_torch.NIFMultiScaleLastLayerParameterized(
         LINEAR_SHAPE, FLAGSHIP_PNET, FLAGSHIP_POLICY, device="cuda", seed=1)
     lfitter = GroupedTrainer(lmodel_w, lambda p: torch.optim.Adam(p, lr=FLAGSHIP_TRAIN_LR))
@@ -1349,14 +1386,22 @@ def main() -> int:
                     reps=10)
     k4_plain_ms = cuda_ms(lambda: niflinear_mse_grads_reference(lws, lbs, la, lbias, lx, ltgt,
                                                                 lcfg, lso), reps=3, warmup=1)
-    del lws, lbs, la, lbias, lx, ltgt
+    f32_in = [[v.float() for v in lws], [v.float() for v in lbs], la.float(), lbias.float(),
+              lx.float(), ltgt]
+    k4f_ms = cuda_ms(lambda: niflinear_mse_grads_cuda(*f32_in, lcfg, lso), reps=3, warmup=1)
+    k4f_plain_ms = cuda_ms(lambda: niflinear_mse_grads_reference(*f32_in, lcfg, lso), reps=3,
+                           warmup=1)
+    del lws, lbs, la, lbias, lx, ltgt, f32_in
     k4_bound, k4_by, k4_gf = linear_bounds(lcfg, lso, G, P, peak_mma, peak_f32, peak_bw)
+    k4f_bound, k4f_by, _ = linear_bounds(lcfg, lso, G, P, peak_mma, peak_f32, peak_bw, f32=True)
     log(f"NIF-linear train step (GroupedTrainer.step, Adam, bf16, G={G} P={P}): {lstep_ms:.4f} "
         f"ms = {G * P / lstep_ms * 1e3:.4e} train points/s; eager step (autograd over the eager "
         f"trunk + Adam): {eager_ms:.4f} ms = {G * P / eager_ms * 1e3:.4e} train points/s")
-    log(f"K4 {k4_ms:.4f} ms (wrapper incl. prescale, workspace and reduce), plain "
-        f"{k4_plain_ms:.4f} ms, bound {k4_bound:.4f} ms by {k4_by} ({k4_gf:.1f} GFLOP of "
-        f"products); library_ms null: no single PyTorch call computes this pass")
+    log(f"K4 bf16, tensor cores: {k4_ms:.4f} ms (wrapper incl. prescale, workspace and "
+        f"reduce) = {k4_gf / k4_ms:.2f} TFLOP/s of products, plain {k4_plain_ms:.4f} ms, bound "
+        f"{k4_bound:.4f} ms by {k4_by} ({k4_gf:.1f} GFLOP of products); K4 f32, CUDA cores: "
+        f"{k4f_ms:.4f} ms, plain {k4f_plain_ms:.4f} ms, bound {k4f_bound:.4f} ms by {k4f_by} "
+        f"(f32 peak); library_ms null: no single PyTorch call computes this pass")
     log(f"card: {smi}")
     log(json.dumps({"kernels": [{
         "name": "shapenet_fwd",
@@ -1445,14 +1490,26 @@ def main() -> int:
     }, {
         "name": "niflinear_mse_grads",
         "route": "cuda",
-        "source": "nif_tpu_torch/csrc/shapenet_linear.cu",
+        "source": "nif_tpu_torch/csrc/shapenet_linear_tc.cu",
         "replaces": "nif_tpu/ops/pallas_shapenet.py:1044",
-        "launches": lin_launches["niflinear_mse_grads"],
+        "launches": lin_launches["niflinear_mse_grads_tc"],
         "max_abs_err": k4_err,
         "ms": k4_ms,
         "plain_ms": k4_plain_ms,
         "bound_ms": k4_bound,
         "bound_by": k4_by,
+        "library_ms": None,
+    }, {
+        "name": "niflinear_mse_grads_f32",
+        "route": "cuda",
+        "source": "nif_tpu_torch/csrc/shapenet_linear.cu",
+        "replaces": "nif_tpu/ops/pallas_shapenet.py:1044",
+        "launches": f32_launches["niflinear_mse_grads"],
+        "max_abs_err": k4f_err,
+        "ms": k4f_ms,
+        "plain_ms": k4f_plain_ms,
+        "bound_ms": k4f_bound,
+        "bound_by": k4f_by,
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

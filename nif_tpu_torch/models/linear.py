@@ -232,7 +232,8 @@ class NIFMultiScaleLastLayerParameterized(NIFMultiScale):
         """Which path :meth:`mse_value_and_grad` takes for P-point groups
         under auto selection: K4, gated by ``linear_fused_unsupported_reason``
         (its reasons are the JAX package's), or eager."""
-        reason = linear_fused_unsupported_reason(self._trunk_cfg, self.so_dim, P, self.device)
+        reason = linear_fused_unsupported_reason(self._trunk_cfg, self.so_dim, P, self.device,
+                                                 self.policy.compute_dtype)
         return self._path_info(reason, lambda: linear_geometry(
             self._trunk_cfg, self.so_dim, 1, P, self.policy.compute_dtype)["tile"])
 

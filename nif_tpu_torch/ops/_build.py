@@ -4,8 +4,9 @@ Each ``nif_tpu_torch/csrc/<name>.cu`` has a plain C interface. On first use
 it is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library
 under ``build/nif_tpu_torch/`` at the root of the checkout, and loaded with
 ``ctypes``. The sources share device helpers through ``csrc/*.cuh``. The
-library's file name carries a hash of the source, the shared headers and
-the flags, so an edited source or header is rebuilt and a stale library is
+library's file name carries a hash of the source, the headers it includes
+(followed transitively) and the flags, so an edited source or header
+rebuilds the libraries that use it, and only those, and a stale library is
 never loaded.
 Nothing here runs at import time: this module imports on a CPU-only torch.
 
@@ -18,12 +19,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 __all__ = ["LAUNCHES", "build", "load_library", "reset_launches"]
 
@@ -37,7 +39,7 @@ NVCC_FLAGS = [
 LAUNCHES: Dict[str, int] = {"shapenet_fwd": 0, "shapenet_mse_grads": 0, "shapenet_bwd": 0,
                             "shapenet_fwd_jac": 0, "shapenet_sobolev_grads": 0,
                             "shapenet_fwd_hess": 0, "shapenet_hessian_grads": 0,
-                            "niflinear_mse_grads": 0}
+                            "niflinear_mse_grads": 0, "niflinear_mse_grads_tc": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -60,10 +62,31 @@ def _nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _sources(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and the ``csrc`` headers it ``#include``s in
+    quotes, followed transitively, each once, in the order first reached."""
+    seen: List[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            header = CSRC / inc.decode()
+            if header.exists():
+                todo.append(header)
+    return seen
+
+
 def _target(name: str) -> Path:
     digest = hashlib.sha256()
-    # the source and every shared header it may include, in a fixed order
-    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+    # the source and the headers it includes, so a header's edit rebuilds
+    # only the libraries that use it
+    for path in _sources(name):
         digest.update(path.name.encode() + b"\0" + path.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"

@@ -15,11 +15,14 @@ output ``phi`` stays f32 and is not rounded before the contraction; ``a`` and
 weight are rounded to x's dtype; ``d_phi = go_o * a`` is f32 and the backward
 starts from its rounding to the compute dtype.
 
-On a CUDA tensor :func:`niflinear_mse_grads` launches the hand-written kernel
-(``nif_tpu_torch/csrc/shapenet_linear.cu``), or raises. On a CPU tensor it
-runs the plain PyTorch version (:func:`niflinear_mse_grads_reference`), which
-the CPU tests hold against the JAX package's interpret-mode kernel and
-``chip_smoke.py`` holds the CUDA kernel against. Nothing here falls back to
+On a CUDA tensor :func:`niflinear_mse_grads` launches a hand-written kernel,
+or raises: bfloat16 goes to the tensor-core kernel
+(``nif_tpu_torch/csrc/shapenet_linear_tc.cu``, variant ``"tc"``), float32 to
+the CUDA-core one (``csrc/shapenet_linear.cu``, variant ``"simt"``), whose f32
+products never round to TF32; :func:`k4_variant` names the variant. On a CPU
+tensor it runs the plain PyTorch version (:func:`niflinear_mse_grads_reference`),
+which the CPU tests hold against the JAX package's interpret-mode kernel and
+``chip_smoke.py`` holds both CUDA kernels against. Nothing here falls back to
 another path: the model routes with :func:`linear_fused_supported`.
 """
 from __future__ import annotations
@@ -48,6 +51,7 @@ __all__ = [
     "niflinear_mse_grads",
     "niflinear_mse_grads_reference",
     "niflinear_mse_grads_cuda",
+    "k4_variant",
     "linear_fused_supported",
     "linear_fused_unsupported_reason",
     "linear_geometry",
@@ -55,29 +59,55 @@ __all__ = [
 
 
 # --------------------------------------------------------------- geometry
-def _library() -> ctypes.CDLL:
-    lib = _build.load_library("shapenet_linear")
-    if lib.nif_linear_mse_grads.argtypes is None:
-        c_int, ptr, c_ll = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
-        lib.nif_linear_workspace.argtypes = [c_int] * 8 + [ptr] * 5
-        lib.nif_linear_workspace.restype = c_int
-        lib.nif_linear_mse_grads.argtypes = (
-            [ptr] * 12 + [c_int] * 9 + [c_ll, ctypes.c_float, c_int, ptr])
-        lib.nif_linear_mse_grads.restype = c_int
+def k4_variant(dtype: torch.dtype) -> str:
+    """Which CUDA kernel K4 runs for inputs of ``dtype``: ``"tc"`` (the
+    tensor-core kernel, ``csrc/shapenet_linear_tc.cu``) for bfloat16,
+    ``"simt"`` (the CUDA-core kernel, ``csrc/shapenet_linear.cu``) for
+    float32, whose products stay full f32 (and for any other dtype, which
+    the wrapper refuses)."""
+    return "tc" if dtype == torch.bfloat16 else "simt"
+
+
+def _library(variant: str = "simt") -> ctypes.CDLL:
+    c_int, ptr, c_ll = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
+    if variant == "tc":
+        lib = _build.load_library("shapenet_linear_tc")
+        if lib.nif_linear_mse_grads_tc.argtypes is None:
+            lib.nif_linear_tc_workspace.argtypes = [c_int] * 7 + [ptr] * 4
+            lib.nif_linear_tc_workspace.restype = c_int
+            lib.nif_linear_mse_grads_tc.argtypes = (
+                [ptr] * 11 + [c_int] * 9 + [c_ll, ctypes.c_float, ptr])
+            lib.nif_linear_mse_grads_tc.restype = c_int
+    else:
+        lib = _build.load_library("shapenet_linear")
+        if lib.nif_linear_mse_grads.argtypes is None:
+            lib.nif_linear_workspace.argtypes = [c_int] * 8 + [ptr] * 5
+            lib.nif_linear_workspace.restype = c_int
+            lib.nif_linear_mse_grads.argtypes = (
+                [ptr] * 12 + [c_int] * 9 + [c_ll, ctypes.c_float, c_int, ptr])
+            lib.nif_linear_mse_grads.restype = c_int
+    if lib.nif_cuda_error_string.argtypes is None:
         lib.nif_cuda_error_string.argtypes = [c_int]
         lib.nif_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def _geometry_status(trunk_cfg: ShapeNetConfig, so: int, G: int, P: int, dtype: torch.dtype):
+    variant = k4_variant(dtype)
     tile, splits = ctypes.c_int(), ctypes.c_int()
     smem, partial_floats, scratch = ctypes.c_longlong(), ctypes.c_longlong(), ctypes.c_longlong()
-    status = _library().nif_linear_workspace(
-        trunk_cfg.units, trunk_cfg.input_dim, so, trunk_cfg.output_dim // so, _n_mats(trunk_cfg),
-        G, P, _DTYPE_CODES[dtype], ctypes.byref(tile), ctypes.byref(splits),
-        ctypes.byref(smem), ctypes.byref(partial_floats), ctypes.byref(scratch))
-    geo = {"tile": tile.value, "splits": splits.value, "smem_bytes": smem.value,
-           "residuals": "global" if scratch.value else "shared",
+    dims = (trunk_cfg.units, trunk_cfg.input_dim, so, trunk_cfg.output_dim // so,
+            _n_mats(trunk_cfg), G, P)
+    if variant == "tc":
+        status = _library("tc").nif_linear_tc_workspace(
+            *dims, ctypes.byref(tile), ctypes.byref(splits), ctypes.byref(smem),
+            ctypes.byref(partial_floats))
+    else:
+        status = _library("simt").nif_linear_workspace(
+            *dims, _DTYPE_CODES[dtype], ctypes.byref(tile), ctypes.byref(splits),
+            ctypes.byref(smem), ctypes.byref(partial_floats), ctypes.byref(scratch))
+    geo = {"variant": variant, "tile": tile.value, "splits": splits.value,
+           "smem_bytes": smem.value, "residuals": "global" if scratch.value else "shared",
            "partial_floats": partial_floats.value, "scratch_bytes": scratch.value}
     return status, geo
 
@@ -86,22 +116,25 @@ def _status_reason(status: int, trunk_cfg: ShapeNetConfig, geo: dict) -> Optiona
     if status == 0:
         return None
     width = max(trunk_cfg.units, trunk_cfg.output_dim)
+    kernel = ("tensor-core NIF-linear kernel" if geo["variant"] == "tc"
+              else "CUDA NIF-linear kernel")
     if status == 1:
-        return (f"trunk width {width} (units or so*latent_dim) is wider than the CUDA "
-                f"NIF-linear kernel takes (a thread keeps its columns of a layer in registers)")
+        return (f"trunk width {width} (units or so*latent_dim) is wider than the {kernel} "
+                f"takes (a {'warp' if geo['variant'] == 'tc' else 'thread'} keeps its "
+                f"columns of a layer in registers)")
     if status == 2:
         return (f"trunk width {width} needs {geo['smem_bytes']} bytes of shared memory per "
-                f"block, more than a block may have")
-    return f"the CUDA NIF-linear kernel cannot take {trunk_cfg} (status {status})"
+                f"block in the {kernel}, more than a block may have")
+    return f"the {kernel} cannot take {trunk_cfg} (status {status})"
 
 
 def linear_geometry(trunk_cfg: ShapeNetConfig, so: int, G: int, P: int,
                     dtype: torch.dtype) -> dict:
     """The launch geometry K4 takes for ``[G, P]`` in ``dtype``, from the
-    kernel's library (it needs nvcc): points per tile, P splits per group,
-    shared memory per block, whether a tile's residuals sit in shared memory
-    or in a per-block global scratch, and the workspace sizes the wrapper
-    allocates."""
+    library of its variant (it needs nvcc): the variant, points per tile, P
+    splits per group, shared memory per block, whether a tile's residuals
+    sit in shared memory or in a per-block global scratch, and the workspace
+    sizes the wrapper allocates."""
     status, geo = _geometry_status(trunk_cfg, so, G, P, dtype)
     if status != 0:
         raise ValueError(_status_reason(status, trunk_cfg, geo))
@@ -109,21 +142,24 @@ def linear_geometry(trunk_cfg: ShapeNetConfig, so: int, G: int, P: int,
 
 
 def linear_fused_unsupported_reason(trunk_cfg: ShapeNetConfig, so: int, P: int,
-                                    device=None) -> Optional[str]:
+                                    device=None,
+                                    dtype: torch.dtype = torch.bfloat16) -> Optional[str]:
     """Why K4 can NOT take this config (None = it can). ``trunk_cfg`` is the
     phi trunk viewed as a full-connectivity chain (output_dim = so * K). The
     reasons and their strings are the JAX package's, in its order (the P
     rule kept for routing parity: its kernel tiles P in multiples of 8, this
-    one masks a ragged tile); on a CUDA ``device`` the CUDA kernel's own
-    width and shared-memory limits apply too."""
+    one masks a ragged tile); on a CUDA ``device`` the width and
+    shared-memory limits of the kernel that ``dtype`` runs
+    (:func:`k4_variant`) apply too."""
     if so > 8:
         return f"output_dim={so} > 8 (per-output contraction loop is static)"
     if trunk_cfg.output_dim % so != 0:
         return "trunk output width is not a multiple of output_dim"
     if trunk_cfg.units < 8:
         return f"units={trunk_cfg.units} < 8 (tiny widths gain nothing from the kernel)"
-    if device is not None and torch.device(device).type == "cuda":
-        status, geo = _geometry_status(trunk_cfg, so, 1, 1, torch.bfloat16)
+    if (device is not None and torch.device(device).type == "cuda"
+            and dtype in _DTYPE_CODES):  # the wrapper refuses other dtypes itself
+        status, geo = _geometry_status(trunk_cfg, so, 1, 1, dtype)
         reason = _status_reason(status, trunk_cfg, geo)
         if reason is not None:
             return reason
@@ -135,9 +171,10 @@ def linear_fused_unsupported_reason(trunk_cfg: ShapeNetConfig, so: int, P: int,
     return None
 
 
-def linear_fused_supported(trunk_cfg: ShapeNetConfig, so: int, P: int, device=None) -> bool:
+def linear_fused_supported(trunk_cfg: ShapeNetConfig, so: int, P: int, device=None,
+                           dtype: torch.dtype = torch.bfloat16) -> bool:
     """Whether K4 takes this config (else the model's eager path)."""
-    return linear_fused_unsupported_reason(trunk_cfg, so, P, device) is None
+    return linear_fused_unsupported_reason(trunk_cfg, so, P, device, dtype) is None
 
 
 # ----------------------------------------------------------- plain version
@@ -222,8 +259,10 @@ def niflinear_mse_grads_cuda(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tens
                              target: torch.Tensor, trunk_cfg: ShapeNetConfig, so: int,
                              weight: Optional[torch.Tensor] = None):
     """Launch K4 on ``torch.cuda.current_stream()``: what
-    :func:`niflinear_mse_grads_reference` computes, from the same arguments.
-    Raises on anything the kernel does not take (tensors off one CUDA
+    :func:`niflinear_mse_grads_reference` computes, from the same arguments,
+    through the tensor-core kernel for bfloat16 and the CUDA-core kernel for
+    float32 (:func:`k4_variant`). Raises on anything the kernel does not
+    take (tensors off one CUDA
     device, a dtype other than float32/bfloat16 shared by x, the trunk, a
     and bias, inputs that require grad, mismatched shapes, a config the gate
     refuses); a build or launch failure raises too. Never falls back."""
@@ -242,7 +281,7 @@ def niflinear_mse_grads_cuda(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tens
                            "detached tensors")
     G, P, si = x.shape
     K = a.shape[-1]
-    reason = linear_fused_unsupported_reason(trunk_cfg, so, P, x.device)
+    reason = linear_fused_unsupported_reason(trunk_cfg, so, P, x.device, x.dtype)
     if reason is not None:
         raise ValueError(f"niflinear_mse_grads_cuda cannot take this config: {reason}")
     dev = x.device
@@ -260,21 +299,25 @@ def niflinear_mse_grads_cuda(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tens
     weight = None if weight is None else weight.to(x.dtype).contiguous()
     geo = linear_geometry(trunk_cfg, so, G, P, x.dtype)
     partials = torch.empty(geo["partial_floats"], dtype=torch.float32, device=dev)
-    scratch = torch.empty(max(geo["scratch_bytes"], 1), dtype=torch.uint8, device=dev)
-    lib = _library()
+    lib = _library(geo["variant"])
+    ptrs = (wbp.data_ptr(), a.data_ptr(), bias.data_ptr(), x.data_ptr(), target.data_ptr(),
+            None if weight is None else weight.data_ptr(), loss.data_ptr(), d_flat.data_ptr(),
+            d_a.data_ptr(), d_bias.data_ptr(), partials.data_ptr())
+    dims = (G, P, si, so, K, trunk_cfg.units, _n_mats(trunk_cfg),
+            _chain_code(trunk_cfg, "siren"), _train_act_code(trunk_cfg, "siren", x.dtype),
+            _n_scaled(trunk_cfg, "siren"), float(trunk_cfg.omega_0))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.nif_linear_mse_grads(
-            wbp.data_ptr(), a.data_ptr(), bias.data_ptr(), x.data_ptr(), target.data_ptr(),
-            None if weight is None else weight.data_ptr(), loss.data_ptr(), d_flat.data_ptr(),
-            d_a.data_ptr(), d_bias.data_ptr(), partials.data_ptr(), scratch.data_ptr(),
-            G, P, si, so, K, trunk_cfg.units, _n_mats(trunk_cfg),
-            _chain_code(trunk_cfg, "siren"), _train_act_code(trunk_cfg, "siren", x.dtype),
-            _n_scaled(trunk_cfg, "siren"), float(trunk_cfg.omega_0), _DTYPE_CODES[x.dtype],
-            stream,
-        )
+        if geo["variant"] == "tc":
+            err = lib.nif_linear_mse_grads_tc(*ptrs, *dims, stream)
+        else:
+            scratch = torch.empty(max(geo["scratch_bytes"], 1), dtype=torch.uint8, device=dev)
+            err = lib.nif_linear_mse_grads(*ptrs, scratch.data_ptr(), *dims,
+                                           _DTYPE_CODES[x.dtype], stream)
     _raise_on_error(lib, "niflinear_mse_grads", err)
     _build.LAUNCHES["niflinear_mse_grads"] += 1
+    if geo["variant"] == "tc":
+        _build.LAUNCHES["niflinear_mse_grads_tc"] += 1
     d_ws, d_bs = _split_trunk(d_flat, ws, bs)
     return loss, d_ws, d_bs, d_a, d_bias
 

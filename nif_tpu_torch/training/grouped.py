@@ -85,10 +85,11 @@ class GroupedTrainer:
                      hess: bool = False) -> None:
         """Record once per mode which path P-point group batches take
         (``history["path"]`` for MSE steps, ``history["sobolev_path"]`` for
-        Sobolev steps with Jacobian targets only, ``history["hessian_path"]``
-        for steps with Hessian targets, each with a ``..._reason`` for an
-        eager fallback), and let the model log its one-time path message."""
-        key = "hessian_path" if hess else "sobolev_path" if sobolev else "path"
+        every step with Jacobian or Hessian targets, as the JAX package keys
+        them; ``hess`` only picks the gate that answers; each with a
+        ``..._reason`` for an eager fallback), and let the model log its
+        one-time path message. The first record of a mode stands."""
+        key = "sobolev_path" if sobolev else "path"
         if key in self.history:
             return
         if sobolev:

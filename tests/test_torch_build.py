@@ -1,0 +1,50 @@
+"""The port's kernel build cache on the CPU (no nvcc needed): a library's
+name hashes its source and the ``csrc`` headers the source includes,
+followed transitively, so editing a header rebuilds only the libraries that
+include it."""
+import pytest
+
+from nif_tpu_torch.ops import _build
+
+
+@pytest.fixture
+def csrc(tmp_path, monkeypatch):
+    (tmp_path / "common.cuh").write_text("// shared helpers\n#pragma once\n")
+    (tmp_path / "mma.cuh").write_text('#pragma once\n#include "inner.cuh"\n')
+    (tmp_path / "inner.cuh").write_text("#pragma once\n// v1\n")
+    (tmp_path / "a.cu").write_text('#include "common.cuh"\n#include <cuda_runtime.h>\n')
+    (tmp_path / "b.cu").write_text('#include "mma.cuh"\n  #  include "common.cuh"\n')
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    return tmp_path
+
+
+def test_sources_follow_includes(csrc):
+    assert [p.name for p in _build._sources("a")] == ["a.cu", "common.cuh"]
+    assert [p.name for p in _build._sources("b")] == ["b.cu", "mma.cuh", "common.cuh",
+                                                      "inner.cuh"]
+
+
+@pytest.mark.parametrize("header", ["mma.cuh", "inner.cuh"])
+def test_header_edit_renames_only_its_users(csrc, header):
+    a0, b0 = _build._target("a"), _build._target("b")
+    (csrc / header).write_text((csrc / header).read_text() + "// edited\n")
+    assert _build._target("a") == a0
+    assert _build._target("b") != b0
+
+
+def test_shared_header_edit_renames_every_user(csrc):
+    a0, b0 = _build._target("a"), _build._target("b")
+    (csrc / "common.cuh").write_text("// shared helpers, edited\n#pragma once\n")
+    assert _build._target("a") != a0 and _build._target("b") != b0
+
+
+def test_new_header_renames_nothing(csrc):
+    a0, b0 = _build._target("a"), _build._target("b")
+    (csrc / "new.cuh").write_text("#pragma once\n")
+    assert (_build._target("a"), _build._target("b")) == (a0, b0)
+
+
+def test_port_sources_include_what_they_use():
+    names = {p.name for p in _build._sources("shapenet_linear_tc")}
+    assert names == {"shapenet_linear_tc.cu", "mma_sm90.cuh", "shapenet_common.cuh"}
+    assert "mma_sm90.cuh" not in {p.name for p in _build._sources("shapenet_linear")}

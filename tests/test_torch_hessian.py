@@ -420,7 +420,13 @@ def test_hessian_fit_and_evaluate_match_jax(fused):
     ts = tt.fit(ts, t, x, u, **kw)
     assert ts.step == js.step == 8
     np.testing.assert_allclose(tt.history["loss"], jt.history["loss"], rtol=1e-4)
-    assert tt.history["hessian_path"] == "eager" and "sobolev_path" not in tt.history
+    # JAX's path keys: every step with Hessian targets under "sobolev_path"
+    # (the port says "eager" where JAX says "xla"; the reasons name each
+    # package's platform)
+    mine = {k: v for k, v in tt.history.items() if "path" in k}
+    ref = {k: v for k, v in jt.history.items() if "path" in k}
+    assert mine.keys() == ref.keys() == {"sobolev_path", "sobolev_path_reason"}
+    assert mine["sobolev_path"] == {"xla": "eager"}.get(ref["sobolev_path"], ref["sobolev_path"])
     mine = tt.evaluate_sobolev(ts, t, x, u, ju, group_batch=2, target_hess=hu)
     ref = jt.evaluate_sobolev(js, t, x, u, ju, group_batch=2, target_hess=hu)
     assert mine.keys() == ref.keys() and "hessian_mse" in mine
@@ -430,8 +436,8 @@ def test_hessian_fit_and_evaluate_match_jax(fused):
 
 def test_hessian_fit_lowers_the_hessian_term():
     """A small CPU Hessian-target fit through plain K8 lowers the Hessian
-    term that ``evaluate_sobolev`` reports; Jacobian steps after it keep
-    their own path record."""
+    term that ``evaluate_sobolev`` reports; Hessian and Jacobian steps share
+    one path record, ``history["sobolev_path"]``, whose first entry stands."""
     t, x, u, ju, hu = _wave(G_=4, P_=128, seed=9)
     _, _, tm = _models({**CFG_RES, "use_resblock": False, "omega_0": 3.0}, seed=2)
     tt = GroupedTrainer(tm, lambda p: torch.optim.Adam(p, lr=3e-3), seed=0, fused=True,
@@ -443,6 +449,6 @@ def test_hessian_fit_lowers_the_hessian_term():
     after = tt.evaluate_sobolev(ts, t, x, u, ju, target_hess=hu)
     assert after["hessian_mse"] < before["hessian_mse"]
     assert after["total"] < before["total"]
-    assert tt.history["hessian_path"] == "eager"
+    assert tt.history["sobolev_path"] == "eager" and "path" not in tt.history
     tt.fit(ts, t, x, u, epochs=1, group_batch=2, point_batch=64, target_jac=ju)
     assert tt.history["sobolev_path"] == "eager"

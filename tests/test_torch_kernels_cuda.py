@@ -22,7 +22,9 @@ bound for its fused Hessian train pass, whose backward sums ten times the
 rows at si = 3); bf16 as K5/K6. K4 (the NIF-linear train pass) against its
 plain version on SIREN trunks with so = 1, 2, 3: f32 loss rel 1e-5 and each
 gradient max|d| <= 5e-5 of its max|plain| (the JAX package's bound for its
-fused NIF-linear kernel: the trunk grads sum over every group); bf16 as K2."""
+fused NIF-linear kernel: the trunk grads sum over every group); bf16 as K2.
+bf16 K4 runs the tensor-core kernel (``shapenet_linear_tc.cu``), f32 K4 the
+CUDA-core one (``shapenet_linear.cu``); both are held to the same bounds."""
 import numpy as np
 import pytest
 import torch
@@ -558,7 +560,7 @@ def test_model_hessian_step_on_the_card_launches_k8(card):
     assert after["shapenet_hessian_grads"] == before["shapenet_hessian_grads"] + 1
     assert after["shapenet_sobolev_grads"] == before["shapenet_sobolev_grads"]
     assert after["shapenet_mse_grads"] == before["shapenet_mse_grads"]
-    assert bool(torch.isfinite(loss)) and trainer.history["hessian_path"] == "fused"
+    assert bool(torch.isfinite(loss)) and trainer.history["sobolev_path"] == "fused"
     out = trainer.evaluate_sobolev(state, t, x, u, jt, group_batch=2, target_hess=ht)
     assert _build.LAUNCHES["shapenet_fwd_hess"] == after["shapenet_fwd_hess"] + 2
     assert all(np.isfinite(v) for v in out.values()) and "hessian_mse" in out
@@ -640,11 +642,15 @@ def _k4_close(outs, refs, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("case", LINEAR_CASES, ids=["so1", "so2-res", "so3"])
 def test_k4_matches_plain(card, case, dtype, weighted):
+    """Each dtype's variant against plain K4; the tensor-core counter moves
+    for bf16 only."""
     cfg, so, ws, bs, a, bias, x, tgt, w = _linear_data(case, 3, 256, dtype, seed=30)
     w = w if weighted else None
-    before = _build.LAUNCHES["niflinear_mse_grads"]
+    before = dict(_build.LAUNCHES)
     outs = fl.niflinear_mse_grads(ws, bs, a, bias, x, tgt, cfg, so, w)
-    assert _build.LAUNCHES["niflinear_mse_grads"] == before + 1
+    assert _build.LAUNCHES["niflinear_mse_grads"] == before["niflinear_mse_grads"] + 1
+    tc = 1 if dtype == torch.bfloat16 else 0
+    assert _build.LAUNCHES["niflinear_mse_grads_tc"] == before["niflinear_mse_grads_tc"] + tc
     refs = fl.niflinear_mse_grads_reference(ws, bs, a, bias, x, tgt, cfg, so, w)
     _k4_close(outs, refs, dtype)
 
@@ -661,13 +667,46 @@ def test_k4_ragged_tiles_and_determinism(card):
               torch.bfloat16)
 
 
+# Trunks the tensor-core K4 zero-pads (n or so * K not a multiple of 16, nk
+# == 1) or tiles with 32 or 16 points (widths of 256).
+PADDED_CASES = [
+    # (si, so, K, units, nlayers, resblock, omega_0)
+    (2, 1, 20, 24, 1, False, 5.0),
+    (3, 3, 5, 40, 2, True, 10.0),
+    (2, 1, 1, 16, 1, False, 5.0),
+    (3, 1, 256, 256, 1, False, 30.0),
+    (3, 2, 128, 256, 2, False, 30.0),
+]
+
+
+@pytest.mark.parametrize("case", PADDED_CASES, ids=["n24-nk20", "n40-nk15-res", "nk1",
+                                                    "n256-tile32", "n256-tile16"])
+def test_k4_tc_padded_widths_and_ragged_tile(card, case):
+    """The tensor-core K4 on widths it pads, at P = 200 (a ragged last tile),
+    weighted, against plain K4; its tile is the largest that fits."""
+    cfg, so, ws, bs, a, bias, x, tgt, w = _linear_data(case, 3, 200, torch.bfloat16, seed=34)
+    geo = fl.linear_geometry(cfg, so, 3, 200, torch.bfloat16)
+    assert geo["variant"] == "tc"
+    assert geo["tile"] == {256: 32 if case[4] == 1 else 16}.get(case[3], 64)
+    before = _build.LAUNCHES["niflinear_mse_grads_tc"]
+    outs = fl.niflinear_mse_grads_cuda(ws, bs, a, bias, x, tgt, cfg, so, w)
+    assert _build.LAUNCHES["niflinear_mse_grads_tc"] == before + 1
+    _k4_close(outs, fl.niflinear_mse_grads_reference(ws, bs, a, bias, x, tgt, cfg, so, w),
+              torch.bfloat16)
+
+
 def test_linear_geometry(card):
-    """At the flagship trunk the bf16 residuals of a 64-point tile fit in
-    shared memory; f32 ones live in the per-block global scratch."""
+    """At the flagship trunk bf16 takes the tensor-core kernel with 64-point
+    tiles in shared memory and one wave of SMs / G splits per group; f32
+    takes the CUDA-core kernel, whose residuals live in the per-block global
+    scratch."""
     cfg = ShapeNetConfig(3, 128, 128, 2, "sine", False, 30.0)
     bf16 = fl.linear_geometry(cfg, 1, 32, 32768, torch.bfloat16)
     f32 = fl.linear_geometry(cfg, 1, 32, 32768, torch.float32)
-    assert (bf16["tile"], bf16["splits"], bf16["residuals"]) == (64, 8, "shared")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert (bf16["variant"], bf16["tile"], bf16["residuals"]) == ("tc", 64, "shared")
+    assert bf16["splits"] == max(1, min(64, sms // 32))
+    assert f32["variant"] == "simt"
     assert f32["residuals"] == "global" and f32["scratch_bytes"] > 0
     too_wide = ShapeNetConfig(3, 2048, 128, 2, "sine", False, 30.0)
     assert "wider" in fl.linear_fused_unsupported_reason(too_wide, 1, 256, "cuda")
@@ -729,7 +768,8 @@ def test_linear_model_on_the_card_launches_k4_and_k6(card):
     state, loss = trainer.step(state, t, x, u)
     after = dict(_build.LAUNCHES)
     assert after["niflinear_mse_grads"] == before["niflinear_mse_grads"] + 1
-    assert sum(after.values()) == sum(before.values()) + 1
+    assert after["niflinear_mse_grads_tc"] == before["niflinear_mse_grads_tc"] + 1
+    assert sum(after.values()) == sum(before.values()) + 2
     assert bool(torch.isfinite(loss)) and trainer.history["path"] == "fused"
     with torch.inference_mode():
         out = model.apply_grouped(t, x, fused=True)

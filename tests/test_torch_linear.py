@@ -243,6 +243,23 @@ def test_gate_matches_jax():
                                     tcfg.ShapeNetConfig(2, 8, 16, 0, "sine"), 1)
 
 
+@pytest.mark.parametrize("dtype,variant", [(torch.bfloat16, "tc"), (torch.float32, "simt")],
+                         ids=["bf16", "f32"])
+def test_k4_variant_and_gate_per_dtype(dtype, variant):
+    """bf16 K4 runs the tensor-core kernel, f32 the CUDA-core one; off the
+    card the gate's reasons for either dtype are the JAX package's, byte for
+    byte."""
+    assert fl.k4_variant(dtype) == variant
+    for so, K, n, P_ in [(9, 8, 16, 64), (1, 8, 4, 64), (2, 8, 16, 100), (1, 8, 16, 256),
+                         (3, 8, 16, 64)]:
+        args = (2, so * K, n, 2, "sine", False, 5.0)
+        mine = fl.linear_fused_unsupported_reason(tcfg.ShapeNetConfig(*args), so, P_, "cpu",
+                                                  dtype)
+        assert mine == jps.linear_fused_unsupported_reason(jcfg.ShapeNetConfig(*args), so, P_)
+    assert fl.linear_fused_supported(tcfg.ShapeNetConfig(2, 8, 16, 2, "sine"), 1, 64, None,
+                                     dtype)
+
+
 # ------------------------------------------------------- mse_value_and_grad
 @pytest.mark.parametrize("fused", [False, True], ids=["eager", "plain-K4"])
 @pytest.mark.parametrize("so,resblock,weighted", [(1, False, False), (2, True, True)],
