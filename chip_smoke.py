@@ -55,17 +55,26 @@ Phases of the Hessian slice:
    bfloat16, and at the flagship width in bfloat16 (G=8: plain K7's f32
    stacked tensors of ten streams take 1.3 GB each there).
 2g. Hold K8 (the fused Hessian train pass) against plain K8 likewise, with
-   value, Jacobian and Hessian masks on the multi-output configs; two
-   flagship runs at G=32, P=32768 must give bitwise-equal results.
+   value, Jacobian and Hessian masks on the multi-output configs: bfloat16
+   through the tensor-core kernel (``shapenet_hess_tc.cu``), float32 through
+   the CUDA-core one (``shapenet_hess.cu``), each checked by its launch
+   counter; the tensor-core kernel also on padded and narrow shapes (widths
+   24, 40, 256, 512; si = 1, 2, 4; resblock chains; P = 200, a ragged last
+   tile), which take each of its geometries; the flagship width at G=8 in
+   both dtypes; two bfloat16 flagship runs at G=32, P=32768 must give
+   bitwise-equal results.
 3d. Hessian-train the flagship (``flagship_hessian_step``): step 0's terms
    and gradients against plain K8 (in chunks of 8 groups: each group's
-   d_wb is its own) + autograd, five steps (five K8 launches, no K6, no K2),
-   a short Hessian ``fit`` on the traveling wave with its analytic Jacobian
+   d_wb is its own) + autograd, five steps (five launches of the
+   tensor-core K8, no K6, no K2), one step of the same model under the
+   float32 policy (one of the CUDA-core K8, none of the tensor-core one), a
+   short Hessian ``fit`` on the traveling wave with its analytic Jacobian
    and Hessian that must lower the Hessian term of ``evaluate_sobolev``,
    which launches K7 once per chunk.
-4d. Time the flagship Hessian step, K7 and K8 (G=32, P=32768) and their
-   plain versions over the same inputs in chunks of 8 groups, and compute
-   their bounds on this card.
+4d. Time the flagship Hessian step and its stages, K7, the bfloat16
+   tensor-core K8, the CUDA-core K8 on the same bfloat16 inputs and in
+   float32 (G=32, P=32768), and their plain versions over the same inputs
+   in chunks of 8 groups, and compute their bounds on this card.
 
 Phases of the NIF-linear slice:
 
@@ -148,6 +157,19 @@ HESS_CASES = [c for c in CASES if c[0] == "siren"] + JAC_EXTRA
 # derivative's Horner steps and scale factors.
 SINE3_FLOPS = 28
 SINE4_FLOPS = 34
+# Shapes the tensor-core K8 pads, tiles raggedly or lays out otherwise: widths
+# 24 and 40 (zero-padded to 16), si = 1, 2 and 4, resblock chains, and widths
+# 256 and 512, whose S planes go to the global scratch and whose W is read
+# from global memory (ShapeNetConfig args; each run at P = 200).
+HESS_TC_EXTRA = [
+    (3, 1, 24, 2, "sine", False, 30.0),
+    (2, 2, 40, 2, "sine", True, 10.0),
+    (1, 1, 64, 2, "sine", False, 30.0),
+    (4, 1, 128, 2, "sine", False, 30.0),
+    (3, 1, 128, 2, "sine", True, 30.0),
+    (3, 1, 256, 2, "sine", True, 30.0),
+    (1, 1, 512, 1, "sine", False, 30.0),
+]
 # K4's trunks: the SIREN configs of CASES with a bottleneck of so * K outputs,
 # so in {1, 2, 3}, resblock and plain, so * K within the kernel's width:
 # (si, so, K, units, nlayers, resblock, omega_0).
@@ -383,12 +405,14 @@ def hessian_data(torch, cfg, G, P, seed):
 
 
 def check_k8(torch, cfg, variant, G, P, dtype, weighted, masked, seed) -> float:
-    """K8 vs plain K8; returns max |d_wb - plain d_wb|.
+    """K8 vs plain K8; returns max |d_wb - plain d_wb|. A bfloat16 call must
+    launch the tensor-core kernel, a float32 one the CUDA-core kernel.
 
     float32: the three terms rel 1e-5, d_wb max|d| <= 1e-4 max|plain| (the
     JAX package's bound for its fused Hessian train pass: the backward sums
     ten times the rows at si = 3); bfloat16: terms rel BF16_LOSS_REL, d_wb
     BF16_REL."""
+    from nif_tpu_torch.ops import _build
     from nif_tpu_torch.ops.fused_hessian import (
         hessian_geometry, shapenet_hessian_grads_cuda, shapenet_hessian_grads_reference)
 
@@ -400,10 +424,16 @@ def check_k8(torch, cfg, variant, G, P, dtype, weighted, masked, seed) -> float:
         kw.update(y_mask=np.eye(1, so, dtype=np.float32)[0],
                   jac_mask=(np.arange(si * so) % 2 == 0).astype(np.float32),
                   hess_mask=(np.arange(si * (si + 1) // 2 * so) % 3 != 1).astype(np.float32))
+    before = dict(_build.LAUNCHES)
     *terms, d_wb = shapenet_hessian_grads_cuda(wb, x, tgt, jt, ht, cfg, variant, **kw)
     *refs, r_wb = shapenet_hessian_grads_reference(wb, x, tgt, jt, ht, cfg, variant, **kw)
     torch.cuda.synchronize()
     what = f"K8 {describe(cfg, variant, G, P, dtype)} weighted={weighted} masked={masked}"
+    tc = 1 if dtype == torch.bfloat16 else 0
+    if (_build.LAUNCHES["shapenet_hessian_grads"] != before["shapenet_hessian_grads"] + 1
+            or _build.LAUNCHES["shapenet_hessian_grads_tc"]
+            != before["shapenet_hessian_grads_tc"] + tc):
+        raise AssertionError(f"{what}: launched {_build.LAUNCHES} after {before}")
     if d_wb.dtype != wb.dtype or d_wb.shape != r_wb.shape:
         raise AssertionError(f"{what}: {d_wb.shape}/{d_wb.dtype} vs {r_wb.shape}")
     err, scale = max_diff(torch, d_wb, r_wb, what)
@@ -412,8 +442,9 @@ def check_k8(torch, cfg, variant, G, P, dtype, weighted, masked, seed) -> float:
     geo = hessian_geometry("train", cfg, variant, G, P, dtype)
     log(f"{what} terms {[f'{float(v):.6e}' for v in terms]} (rel "
         f"{', '.join(f'{r:.2e}' for r in rels)}) d_wb max|d|={err:.3e} ({err / scale:.2e} of "
-        f"max|plain|); {geo['tile']}-point tiles, residuals in {geo['residuals']} memory, "
-        f"{geo['splits']} splits")
+        f"max|plain|); {geo['kernel']} kernel, {geo['tile']}-point tiles, residuals in "
+        f"{geo['residuals']} memory, weights from {geo['weights']} memory, {geo['splits']} "
+        f"splits")
     if (not all(np.isfinite([float(v) for v in terms])) or max(rels) > l_bound
             or err > bound * scale):
         raise AssertionError(f"{what}: term rel {rels} (bound {l_bound}), d_wb max|d| {err} > "
@@ -443,6 +474,46 @@ def plain_k7_chunked(torch, wb, x, cfg, chunk=8):
 
     return [shapenet_fwd_hess_reference(wb[s:s + chunk], x[s:s + chunk], cfg, "siren")
             for s in range(0, x.shape[0], chunk)]
+
+
+def hessian_step_stages(torch, trainer, state, batch):
+    """The flagship Hessian step's stages, each timed alone with CUDA events
+    (ms): the input casts, the ParameterNet forward, the Hessian target
+    preparation, K8's wrapper, the ParameterNet backward and the Adam
+    update (as ``scripts/port_train_profile.py --hessian`` splits it)."""
+    from nif_tpu_torch.ops.fused_hessian import shapenet_hessian_grads
+    from nif_tpu_torch.utils.bench import cuda_ms
+
+    model = trainer.model
+    t, x, u, jt, ht = batch
+    G, P = x.shape[:2]
+    params = [p for _, p in model.param_items()]
+    tc, xc = model._compute(t), model._compute(x)
+    wb, _ = model.pnet(tc)
+    ht_flat = model._hessian_targets(ht, G, P, 3, 1, np.arange(1), np.arange(3), True, None)[0]
+    jt_flat = jt.transpose(2, 3).reshape(G, P, 3)  # column k*so + j
+    kernel = lambda: shapenet_hessian_grads(  # noqa: E731
+        wb, xc, u, jt_flat, ht_flat, model.cfg_shape_net, "siren", w_jac=trainer.w_jac,
+        w_hess=trainer.w_hess)
+    d_wb = kernel()[3]
+    grads = torch.autograd.grad(wb, params, d_wb, retain_graph=True)
+
+    def adam():
+        for p, g in zip(params, grads):
+            p.grad = g
+        state.opt_state.step()
+
+    stages = {
+        "cast t, x": lambda: (model._compute(t), model._compute(x)),
+        "ParameterNet forward": lambda: model.pnet(tc),
+        "Hessian targets": lambda: model._hessian_targets(ht, G, P, 3, 1, np.arange(1),
+                                                          np.arange(3), True, None),
+        "K8 wrapper": kernel,
+        "ParameterNet backward": lambda: torch.autograd.grad(wb, params, d_wb,
+                                                             retain_graph=True),
+        "Adam update": adam,
+    }
+    return {k: cuda_ms(f, reps=3, warmup=1) for k, f in stages.items()}
 
 
 def linear_data(torch, case, G, P, dtype, seed):
@@ -639,7 +710,7 @@ def derivative_bounds(cfg, G, P, peak_mma, peak_f32, peak_bw, sobolev: bool):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops / 1e9
 
 
-def hessian_bounds(cfg, G, P, peak_mma, peak_f32, peak_bw, train: bool):
+def hessian_bounds(cfg, G, P, peak_mma, peak_f32, peak_bw, train: bool, f32: bool = False):
     """(bound ms, bound_by, products GFLOP) of K8 (train) or K7 at this
     shape in bf16, over ns = 1 + si + si(si+1)/2 stacked streams. K7: the
     hidden and last products over all streams, 2 G P ns (nm n^2 + n so), and
@@ -648,7 +719,9 @@ def hessian_bounds(cfg, G, P, peak_mma, peak_f32, peak_bw, train: bool):
     W0 in the forward and in dW0 (no dx). Activations (with act', act''; in
     K8's backward act''' too) and the stream epilogues over the f32 peak;
     bytes of wb and x in and y, jac and the pair columns out (K7), or of wb,
-    x and the three targets in and d_wb out (K8)."""
+    x and the three targets in and d_wb out (K8). ``f32``: the float32 K8,
+    whose products must not use the tensor cores (no TF32), so products and
+    activations together over the f32 peak, and 4-byte inputs and outputs."""
     n, si, so = cfg.units, cfg.input_dim, cfg.output_dim
     nm = 2 * cfg.nlayers if cfg.use_resblock else cfg.nlayers
     npairs = si * (si + 1) // 2
@@ -658,15 +731,16 @@ def hessian_bounds(cfg, G, P, peak_mma, peak_f32, peak_bw, train: bool):
     stacked = 2 * G * P * ns * (nm * n * n + n * so)
     first = 2 * G * P * si * n
     epilogue = si + 4 * npairs  # a tangent's product, a pair's three and a sum
+    elem = 4 if f32 else 2
     if train:
         flops = 3 * stacked + 2 * first
         act = elems * (SINE3_FLOPS + SINE4_FLOPS + 3 * epilogue)
-        nbytes = 2 * (2 * G * po + G * P * (si + so + si * so + npairs * so))
+        nbytes = elem * (2 * G * po + G * P * (si + so + si * so + npairs * so))
     else:
         flops = stacked + first
         act = elems * (SINE3_FLOPS + epilogue)
-        nbytes = 2 * (G * po + G * P * (si + so + si * so + npairs * so))
-    t_ops = max(flops / peak_mma, act / peak_f32) * 1e3
+        nbytes = elem * (G * po + G * P * (si + so + si * so + npairs * so))
+    t_ops = ((flops + act) / peak_f32 if f32 else max(flops / peak_mma, act / peak_f32)) * 1e3
     t_bytes = nbytes / peak_bw * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops / 1e9
 
@@ -702,7 +776,7 @@ def main() -> int:
         shapenet_fwd_jac_cuda, shapenet_fwd_jac_reference, shapenet_sobolev_grads_cuda,
         shapenet_sobolev_grads_reference)
     from nif_tpu_torch.ops.fused_hessian import (
-        shapenet_fwd_hess_cuda, shapenet_hessian_grads_cuda)
+        _shapenet_hessian_grads_simt, shapenet_fwd_hess_cuda, shapenet_hessian_grads_cuda)
     from nif_tpu_torch.ops.fused_linear import (
         niflinear_mse_grads_cuda, niflinear_mse_grads_reference)
     from nif_tpu_torch.ops.fused_shapenet import (
@@ -731,7 +805,7 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {name}")
     log(f"card: {smi}")
     build_all(["shapenet_fwd", "shapenet_bwd", "shapenet_jac", "shapenet_hess",
-               "shapenet_linear", "shapenet_linear_tc"])
+               "shapenet_hess_tc", "shapenet_linear", "shapenet_linear_tc"])
     peak_mma, peak_f32, peak_bw = PEAKS["H100 PCIe" if "PCIe" in name else "H100 SXM"]
     flag_cfg = ShapeNetConfig.from_dict(FLAGSHIP_SHAPE)
 
@@ -823,7 +897,13 @@ def main() -> int:
             for weighted in (False, True):
                 check_k8(torch, cfg, variant, 3, 256, dtype, weighted, cfg.output_dim > 1,
                          seed=80 + i)
+    for i, args in enumerate(HESS_TC_EXTRA):
+        cfg = ShapeNetConfig(*args)
+        for weighted in (False, True):
+            check_k8(torch, cfg, "siren", 3, 200, torch.bfloat16, weighted, cfg.output_dim > 1,
+                     seed=120 + i)
     k8_err = check_k8(torch, flag_cfg, "siren", 8, 32768, torch.bfloat16, False, False, seed=90)
+    k8f_err = check_k8(torch, flag_cfg, "siren", 8, 32768, torch.float32, False, False, seed=93)
     wb, x = chain_data(torch, flag_cfg, 32, 32768, torch.bfloat16, seed=91)
     tgt, w, jt, ht = hessian_data(torch, flag_cfg, 32, 32768, seed=91)
     runs = [shapenet_hessian_grads_cuda(wb, x, tgt, jt, ht, flag_cfg, "siren", weight=w)
@@ -1060,9 +1140,27 @@ def main() -> int:
     log(f"flagship Hessian train: {n_steps} steps, losses {hlosses}, launches {hess_launches}, "
         f"path {htrainer.history.get('sobolev_path')}")
     if (hess_launches["shapenet_hessian_grads"] != n_steps
+            or hess_launches["shapenet_hessian_grads_tc"] != n_steps
             or hess_launches["shapenet_sobolev_grads"] or hess_launches["shapenet_mse_grads"]
             or not all(np.isfinite(hlosses))):
         raise AssertionError(f"{n_steps} Hessian steps launched {hess_launches}, losses {hlosses}")
+    # the float32 policy: the CUDA-core K8, full f32 products
+    hf32_trainer = GroupedTrainer(
+        nif_tpu_torch.NIFMultiScale(FLAGSHIP_SHAPE, FLAGSHIP_PNET, "float32", device="cuda",
+                                    seed=0),
+        lambda p: torch.optim.Adam(p, lr=FLAGSHIP_TRAIN_LR), **hkw)
+    hf32_state = hf32_trainer.init(0)
+    _build.reset_launches()
+    hf32_state, hf32_loss = hf32_trainer.step(hf32_state, t_h, x_h, u_h, target_jac=j_h,
+                                              target_hess=h_h)
+    torch.cuda.synchronize()
+    hf32_launches = dict(_build.LAUNCHES)
+    log(f"flagship Hessian train, float32 policy: 1 step, loss {float(hf32_loss):.6e}, launches "
+        f"{hf32_launches}")
+    if (hf32_launches["shapenet_hessian_grads"] != 1 or hf32_launches["shapenet_hessian_grads_tc"]
+            or not np.isfinite(float(hf32_loss))):
+        raise AssertionError(f"a float32 Hessian step launched {hf32_launches}")
+    del hf32_trainer, hf32_state
     h_w = wave_hessian(t_w, x_w)
     hmodel_w = nif_tpu_torch.NIFMultiScale(FLAGSHIP_SHAPE, FLAGSHIP_PNET, FLAGSHIP_POLICY,
                                            device="cuda", seed=1)
@@ -1345,31 +1443,44 @@ def main() -> int:
         hbox[0], _ = htrainer.step(hbox[0], t_h, x_h, u_h, target_jac=j_h, target_hess=h_h)
 
     hstep_ms = cuda_ms(one_hessian_step, reps=3, warmup=1)
+    hstages = hessian_step_stages(torch, htrainer, hbox[0], (t_h, x_h, u_h, j_h, h_h))
     wb, x = chain_data(torch, flag_cfg, G, P, torch.bfloat16, seed=92)
     tgt, _, jt, ht = hessian_data(torch, flag_cfg, G, P, seed=92)
     k7_ms = cuda_ms(lambda: shapenet_fwd_hess_cuda(wb, x, flag_cfg, "siren"), reps=5, warmup=1)
     k7_plain_ms = cuda_ms(lambda: plain_k7_chunked(torch, wb, x, flag_cfg), reps=2, warmup=1)
     k8_ms = cuda_ms(lambda: shapenet_hessian_grads_cuda(wb, x, tgt, jt, ht, flag_cfg, "siren"),
-                    reps=3, warmup=1)
+                    reps=5, warmup=1)
+    k8_simt_ms = cuda_ms(lambda: _shapenet_hessian_grads_simt(wb, x, tgt, jt, ht, flag_cfg,
+                                                              "siren"), reps=3, warmup=1)
     k8_plain_ms = cuda_ms(lambda: plain_k8_chunked(torch, wb, x, tgt, jt, ht, flag_cfg),
                           reps=2, warmup=1)
     torch.cuda.reset_peak_memory_stats()
     plain_k8_chunked(torch, wb, x, tgt, jt, ht, flag_cfg)
     torch.cuda.synchronize()
     plain_peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    del wb, x, tgt, jt, ht
+    f32_in = (wb.float(), x.float(), tgt, jt, ht)
+    k8f_ms = cuda_ms(lambda: shapenet_hessian_grads_cuda(*f32_in, flag_cfg, "siren"), reps=3,
+                     warmup=1)
+    k8f_plain_ms = cuda_ms(lambda: plain_k8_chunked(torch, *f32_in, flag_cfg), reps=2, warmup=1)
+    del wb, x, tgt, jt, ht, f32_in
     k7_bound, k7_by, k7_gf = hessian_bounds(flag_cfg, G, P, peak_mma, peak_f32, peak_bw,
                                             train=False)
     k8_bound, k8_by, k8_gf = hessian_bounds(flag_cfg, G, P, peak_mma, peak_f32, peak_bw,
                                             train=True)
+    k8f_bound, k8f_by, _ = hessian_bounds(flag_cfg, G, P, peak_mma, peak_f32, peak_bw,
+                                          train=True, f32=True)
     log(f"flagship Hessian step (GroupedTrainer.step with target_jac and target_hess, Adam, "
-        f"bf16, G={G} P={P}): {hstep_ms:.4f} ms = {G * P / hstep_ms * 1e3:.4e} train points/s")
+        f"bf16, G={G} P={P}): {hstep_ms:.4f} ms = {G * P / hstep_ms * 1e3:.4e} train points/s; "
+        f"stages timed alone: {', '.join(f'{k} {v:.4f} ms' for k, v in hstages.items())}")
     log(f"K7 {k7_ms:.4f} ms, plain {k7_plain_ms:.4f} ms, bound {k7_bound:.4f} ms by {k7_by} "
-        f"({k7_gf:.1f} GFLOP of products); K8 {k8_ms:.4f} ms (wrapper incl. prescale, workspace "
-        f"and reduce), plain {k8_plain_ms:.4f} ms, bound {k8_bound:.4f} ms by {k8_by} "
-        f"({k8_gf:.1f} GFLOP); the plain versions ran in 4 chunks of 8 groups (peak "
-        f"{plain_peak_gb:.1f} GB allocated for plain K8); library_ms null: no single PyTorch "
-        f"call computes these chains")
+        f"({k7_gf:.1f} GFLOP of products); K8 bf16, tensor cores: {k8_ms:.4f} ms (wrapper incl. "
+        f"prescale, workspace and reduce) = {k8_gf / k8_ms:.2f} TFLOP/s of products, the "
+        f"CUDA-core K8 on the same bf16 inputs {k8_simt_ms:.4f} ms, plain {k8_plain_ms:.4f} ms, "
+        f"bound {k8_bound:.4f} ms by {k8_by} ({k8_gf:.1f} GFLOP); K8 f32, CUDA cores: "
+        f"{k8f_ms:.4f} ms, plain {k8f_plain_ms:.4f} ms, bound {k8f_bound:.4f} ms by {k8f_by} "
+        f"(f32 peak); the plain versions ran in 4 chunks of 8 groups (peak {plain_peak_gb:.1f} "
+        f"GB allocated for plain K8); library_ms null: no single PyTorch call computes these "
+        f"chains")
 
     # ---- phase 4e: NIF-linear step, K4 and eager-step times (bf16)
     lbox = [lstate]
@@ -1478,14 +1589,26 @@ def main() -> int:
     }, {
         "name": "shapenet_hessian_grads",
         "route": "cuda",
-        "source": "nif_tpu_torch/csrc/shapenet_hess.cu",
+        "source": "nif_tpu_torch/csrc/shapenet_hess_tc.cu",
         "replaces": "nif_tpu/ops/pallas_shapenet.py:2326",
-        "launches": hess_launches["shapenet_hessian_grads"],
+        "launches": hess_launches["shapenet_hessian_grads_tc"],
         "max_abs_err": k8_err,
         "ms": k8_ms,
         "plain_ms": k8_plain_ms,
         "bound_ms": k8_bound,
         "bound_by": k8_by,
+        "library_ms": None,
+    }, {
+        "name": "shapenet_hessian_grads_f32",
+        "route": "cuda",
+        "source": "nif_tpu_torch/csrc/shapenet_hess.cu",
+        "replaces": "nif_tpu/ops/pallas_shapenet.py:2326",
+        "launches": hf32_launches["shapenet_hessian_grads"],
+        "max_abs_err": k8f_err,
+        "ms": k8f_ms,
+        "plain_ms": k8f_plain_ms,
+        "bound_ms": k8f_bound,
+        "bound_by": k8f_by,
         "library_ms": None,
     }, {
         "name": "niflinear_mse_grads",

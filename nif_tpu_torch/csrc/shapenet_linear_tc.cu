@@ -73,7 +73,7 @@ struct Warp {
   int lane, g, q, wm, wn, WN, row0;
 };
 
-// Built with -DK4_PHASE_CLOCKS (by scripts/port_k4_phase_probe.py only),
+// Built with -DK4_PHASE_CLOCKS (by scripts/port_phase_probe.py only),
 // thread 0 of every block adds the clock64() cycles from one barrier to the
 // next into eight phase counters, which split the block's critical path.
 #ifdef K4_PHASE_CLOCKS

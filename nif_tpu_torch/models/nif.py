@@ -345,12 +345,19 @@ class NIF(nn.Module):
         :meth:`fast_path_info`: K6's gate and geometry, or with ``hess=True``
         (Hessian targets) K8's."""
         cfg_k, variant_k = self._derivative_kernel_cfg()
-        gate = hessian_fused_unsupported_reason if hess else sobolev_fused_unsupported_reason
-        reason = gate(cfg_k, variant_k, P, si, self.device)
         dtype = self.policy.compute_dtype
+        reason = self._sobolev_gate(cfg_k, variant_k, P, si, hess)
         return self._path_info(reason, lambda: (
             hessian_geometry("train", cfg_k, variant_k, 1, P, dtype, si) if hess else
             derivative_geometry("sobolev", cfg_k, variant_k, 1, P, dtype, si))["tile"])
+
+    def _sobolev_gate(self, cfg_k, variant_k, P: int, si: int, hess: bool) -> Optional[str]:
+        """K6's gate, or K8's (Hessian targets) for the kernel variant of the
+        compute dtype."""
+        if hess:
+            return hessian_fused_unsupported_reason(cfg_k, variant_k, P, si, self.device,
+                                                    self.policy.compute_dtype)
+        return sobolev_fused_unsupported_reason(cfg_k, variant_k, P, si, self.device)
 
     def _announce_sobolev_path(self, P: int, si: int, hess: bool = False) -> None:
         """One-time log of the Sobolev train path for ``[G, P, si]``
@@ -443,8 +450,7 @@ class NIF(nn.Module):
             if target_jac is None and not hess:
                 raise ValueError("sobolev_value_and_grad: fused=True requires target_jac or "
                                  "target_hess (value-only training is mse_value_and_grad)")
-            gate = hessian_fused_unsupported_reason if hess else sobolev_fused_unsupported_reason
-            bad = gate(cfg_k, variant_k, P, si, self.device)
+            bad = self._sobolev_gate(cfg_k, variant_k, P, si, hess)
             if bad is not None:
                 raise ValueError(f"sobolev_value_and_grad: fused=True unsupported here: {bad}")
         if fused is None:

@@ -19,8 +19,12 @@ products Z stay f32, the epilogues run in f32 from Z, each D is rounded
 before its product, the bias gradients sum the unrounded dz, the targets
 are rounded to x's dtype and K7's outputs are cast to it.
 
-On a CUDA tensor each entry launches its hand-written kernel
-(``nif_tpu_torch/csrc/shapenet_hess.cu``), or raises. On a CPU tensor it
+On a CUDA tensor each entry launches its hand-written kernel, or raises. K7
+runs ``nif_tpu_torch/csrc/shapenet_hess.cu``. K8 has two variants
+(:func:`k8_variant`): bfloat16 runs the tensor-core kernel
+(``csrc/shapenet_hess_tc.cu``, variant ``"tc"``), float32 the CUDA-core one
+(``csrc/shapenet_hess.cu``, variant ``"simt"``), whose f32 products never
+round to TF32. On a CPU tensor it
 runs the plain PyTorch version (``*_reference``), which the CPU tests hold
 against the JAX package's interpret-mode kernels and ``chip_smoke.py`` holds
 the CUDA kernels against. Nothing here falls back to another path: callers
@@ -72,6 +76,7 @@ __all__ = [
     "hessian_fused_supported",
     "hessian_fused_unsupported_reason",
     "hessian_geometry",
+    "k8_variant",
 ]
 
 # Kernel bodies of csrc/shapenet_hess.cu (its enum Mode).
@@ -92,32 +97,69 @@ def _mirror(hp: torch.Tensor, si: int) -> torch.Tensor:
 
 
 # --------------------------------------------------------------- geometry
-def _library() -> ctypes.CDLL:
-    lib = _build.load_library("shapenet_hess")
-    if lib.nif_shapenet_fwd_hess.argtypes is None:
-        c_int, ptr, c_ll, c_f = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
-        lib.nif_shapenet_hess_workspace.argtypes = [c_int] * 9 + [ptr] * 5
-        lib.nif_shapenet_hess_workspace.restype = c_int
-        lib.nif_shapenet_fwd_hess.argtypes = [ptr] * 6 + [c_int] * 8 + [c_ll, c_int, ptr]
-        lib.nif_shapenet_fwd_hess.restype = c_int
-        lib.nif_shapenet_hessian_grads.argtypes = (
-            [ptr] * 13 + [c_int] * 8 + [c_ll, c_ll] + [c_f] * 7 + [c_int, ptr])
-        lib.nif_shapenet_hessian_grads.restype = c_int
+def k8_variant(dtype: torch.dtype) -> str:
+    """Which CUDA kernel K8 runs for inputs of ``dtype``: ``"tc"`` (the
+    tensor-core kernel, ``csrc/shapenet_hess_tc.cu``) for bfloat16,
+    ``"simt"`` (the CUDA-core kernel, ``csrc/shapenet_hess.cu``) for
+    float32, whose products stay full f32 (and for any other dtype, which
+    the wrapper refuses)."""
+    return "tc" if dtype == torch.bfloat16 else "simt"
+
+
+def _library(kernel: str = "simt") -> ctypes.CDLL:
+    c_int, ptr, c_ll, c_f = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
+    if kernel == "tc":
+        lib = _build.load_library("shapenet_hess_tc")
+        if lib.nif_shapenet_hessian_grads_tc.argtypes is None:
+            lib.nif_shapenet_hess_tc_workspace.argtypes = [c_int] * 7 + [ptr] * 7
+            lib.nif_shapenet_hess_tc_workspace.restype = c_int
+            lib.nif_shapenet_hessian_grads_tc.argtypes = (
+                [ptr] * 13 + [c_int] * 8 + [c_ll] * 3 + [c_f] * 7 + [ptr])
+            lib.nif_shapenet_hessian_grads_tc.restype = c_int
+    else:
+        lib = _build.load_library("shapenet_hess")
+        if lib.nif_shapenet_fwd_hess.argtypes is None:
+            lib.nif_shapenet_hess_workspace.argtypes = [c_int] * 9 + [ptr] * 5
+            lib.nif_shapenet_hess_workspace.restype = c_int
+            lib.nif_shapenet_fwd_hess.argtypes = [ptr] * 6 + [c_int] * 8 + [c_ll, c_int, ptr]
+            lib.nif_shapenet_fwd_hess.restype = c_int
+            lib.nif_shapenet_hessian_grads.argtypes = (
+                [ptr] * 13 + [c_int] * 8 + [c_ll, c_ll] + [c_f] * 7 + [c_int, ptr])
+            lib.nif_shapenet_hessian_grads.restype = c_int
+    if lib.nif_cuda_error_string.argtypes is None:
         lib.nif_cuda_error_string.argtypes = [c_int]
         lib.nif_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def _kernel(mode: str, dtype: torch.dtype, kernel: Optional[str]) -> str:
+    """The library of a body: K7 ("eval") always the CUDA-core one, K8
+    ("train") the variant of ``dtype`` unless ``kernel`` names one."""
+    if mode == "eval":
+        return "simt"
+    return kernel or k8_variant(dtype)
+
+
 def _geometry_status(mode: str, cfg: ShapeNetConfig, variant: str, si: int, G: int, P: int,
-                     dtype: torch.dtype):
-    tile, splits = ctypes.c_int(), ctypes.c_int()
+                     dtype: torch.dtype, kernel: Optional[str] = None):
+    kernel = _kernel(mode, dtype, kernel)
+    tile, splits, resident, staged_w = (ctypes.c_int() for _ in range(4))
     smem, partial_floats, scratch = ctypes.c_longlong(), ctypes.c_longlong(), ctypes.c_longlong()
-    status = _library().nif_shapenet_hess_workspace(
-        _MODES[mode], cfg.units, si, cfg.output_dim, _n_mats(cfg), _chain_code(cfg, variant),
-        G, P, _DTYPE_CODES[dtype], ctypes.byref(tile), ctypes.byref(splits),
-        ctypes.byref(smem), ctypes.byref(partial_floats), ctypes.byref(scratch))
-    geo = {"mode": mode, "tile": tile.value, "splits": splits.value,
-           "smem_bytes": smem.value, "residuals": "global" if scratch.value else "shared",
+    dims = (cfg.units, si, cfg.output_dim, _n_mats(cfg), _chain_code(cfg, variant), G, P)
+    if kernel == "tc":
+        status = _library("tc").nif_shapenet_hess_tc_workspace(
+            *dims, ctypes.byref(tile), ctypes.byref(splits), ctypes.byref(smem),
+            ctypes.byref(resident), ctypes.byref(staged_w), ctypes.byref(partial_floats),
+            ctypes.byref(scratch))
+        residuals = "shared" if resident.value else "global"
+    else:
+        status = _library("simt").nif_shapenet_hess_workspace(
+            _MODES[mode], *dims, _DTYPE_CODES[dtype], ctypes.byref(tile), ctypes.byref(splits),
+            ctypes.byref(smem), ctypes.byref(partial_floats), ctypes.byref(scratch))
+        residuals = "global" if scratch.value else "shared"
+    geo = {"mode": mode, "kernel": kernel, "tile": tile.value, "splits": splits.value,
+           "smem_bytes": smem.value, "residuals": residuals,
+           "weights": "shared" if kernel == "simt" or staged_w.value else "global",
            "partial_floats": partial_floats.value, "scratch_bytes": scratch.value}
     return status, geo
 
@@ -125,6 +167,13 @@ def _geometry_status(mode: str, cfg: ShapeNetConfig, variant: str, si: int, G: i
 def _status_reason(status: int, cfg: ShapeNetConfig, si: int, geo: dict) -> Optional[str]:
     if status == 0:
         return None
+    if geo["kernel"] == "tc":
+        if status == 2:
+            return (f"units={cfg.units} with si={si} needs {geo['smem_bytes']} bytes of shared "
+                    f"memory per block in the tensor-core Hessian kernel (two stacked planes "
+                    f"of 16 points), more than a block may have")
+        return (f"the tensor-core Hessian kernel cannot take {cfg} with si={si} "
+                f"(status {status})")
     if status == 1:
         return (f"units={cfg.units} is wider than the CUDA Hessian kernels take (a "
                 f"thread keeps its columns of a layer in registers)")
@@ -140,31 +189,42 @@ def _status_reason(status: int, cfg: ShapeNetConfig, si: int, geo: dict) -> Opti
 
 def hessian_geometry(mode: str, cfg: ShapeNetConfig, variant: str, G: int, P: int,
                      dtype: torch.dtype, si: Optional[int] = None) -> dict:
-    """The launch geometry of one body of ``csrc/shapenet_hess.cu`` ("eval"
-    for K7, "train" for K8) at ``[G, P]``, from the kernels' library (it
-    needs nvcc): points per tile, P splits per group, shared memory per
-    block, whether a tile's residuals sit in shared memory or in a
-    per-block global scratch, and the workspace sizes the wrappers
-    allocate."""
+    """The launch geometry of one body ("eval" for K7, "train" for K8) at
+    ``[G, P]`` in ``dtype``, from its kernel's library (it needs nvcc): K7's
+    from ``csrc/shapenet_hess.cu``, K8's from the library of its variant
+    (:func:`k8_variant`): the kernel, points per tile, P splits per group,
+    shared memory per block, whether a tile's residuals and the staged
+    weights sit in shared memory or in global memory, and the workspace
+    sizes the wrappers allocate."""
+    return _geometry(mode, cfg, variant, G, P, dtype, si)
+
+
+def _geometry(mode: str, cfg: ShapeNetConfig, variant: str, G: int, P: int,
+              dtype: torch.dtype, si: Optional[int] = None, kernel: Optional[str] = None) -> dict:
     si = cfg.input_dim if si is None else si
-    status, geo = _geometry_status(mode, cfg, variant, si, G, P, dtype)
+    status, geo = _geometry_status(mode, cfg, variant, si, G, P, dtype, kernel)
     if status != 0:
         raise ValueError(_status_reason(status, cfg, si, geo))
     return geo
 
 
-def _cuda_reason(mode: str, cfg: ShapeNetConfig, variant: str, si: int) -> Optional[str]:
-    """The CUDA body's own limits (width, streams, shared memory)."""
-    status, geo = _geometry_status(mode, cfg, variant, si, 1, 1, torch.bfloat16)
+def _cuda_reason(mode: str, cfg: ShapeNetConfig, variant: str, si: int, dtype: torch.dtype,
+                 kernel: Optional[str] = None) -> Optional[str]:
+    """The CUDA body's own limits (width, streams, shared memory) in the
+    kernel that ``dtype`` runs."""
+    if dtype not in _DTYPE_CODES:  # the wrapper refuses other dtypes itself
+        return None
+    status, geo = _geometry_status(mode, cfg, variant, si, 1, 1, dtype, kernel)
     return _status_reason(status, cfg, si, geo)
 
 
 def _unsupported(mode: str, not_sine: str, cfg: ShapeNetConfig, variant: str, P: int,
-                 si: int, device) -> Optional[str]:
+                 si: int, device, dtype: torch.dtype = torch.bfloat16,
+                 kernel: Optional[str] = None) -> Optional[str]:
     """The JAX package's gate and its strings (``not_sine`` for a vanilla
     chain; its P-tile rule always passes once P is a multiple of 8, which
     the base gate asks), then the CUDA body's own limits on a CUDA
-    ``device``."""
+    ``device``, in the kernel that ``dtype`` (or ``kernel``) runs."""
     if variant != "siren":
         return f"variant {variant!r}: {not_sine}"
     base = fused_unsupported_reason(cfg, variant, P)
@@ -174,7 +234,7 @@ def _unsupported(mode: str, not_sine: str, cfg: ShapeNetConfig, variant: str, P:
         return (f"si={si}: {si * (si + 1) // 2} second-order streams exceed the practical "
                 f"VMEM budget — XLA path")
     if device is not None and torch.device(device).type == "cuda":
-        return _cuda_reason(mode, cfg, variant, si)
+        return _cuda_reason(mode, cfg, variant, si, dtype, kernel)
     return None
 
 
@@ -190,17 +250,22 @@ def fwd_hess_supported(cfg: ShapeNetConfig, variant: str, P: int, si: int,
     return fwd_hess_unsupported_reason(cfg, variant, P, si, device) is None
 
 
+_K8_NOT_SINE = ("the hessian kernel runs sine chains only (f''' of the vanilla "
+                "activations stays on the XLA path)")
+
+
 def hessian_fused_unsupported_reason(cfg: ShapeNetConfig, variant: str, P: int, si: int,
-                                     device=None) -> Optional[str]:
-    """Why K8 can NOT take this config (None = it can)."""
-    return _unsupported("train", "the hessian kernel runs sine chains only (f''' of the "
-                        "vanilla activations stays on the XLA path)", cfg, variant, P, si,
-                        device)
+                                     device=None,
+                                     dtype: torch.dtype = torch.bfloat16) -> Optional[str]:
+    """Why K8 can NOT take this config (None = it can): the JAX package's
+    reasons, then on a CUDA ``device`` the limits of the kernel that
+    ``dtype`` runs (:func:`k8_variant`)."""
+    return _unsupported("train", _K8_NOT_SINE, cfg, variant, P, si, device, dtype)
 
 
 def hessian_fused_supported(cfg: ShapeNetConfig, variant: str, P: int, si: int,
-                            device=None) -> bool:
-    return hessian_fused_unsupported_reason(cfg, variant, P, si, device) is None
+                            device=None, dtype: torch.dtype = torch.bfloat16) -> bool:
+    return hessian_fused_unsupported_reason(cfg, variant, P, si, device, dtype) is None
 
 
 # ----------------------------------------------------------- plain versions
@@ -291,8 +356,9 @@ def shapenet_hessian_grads_reference(wb: torch.Tensor, x: torch.Tensor, target: 
 
 
 # ----------------------------------------------------------- CUDA wrappers
-def _workspace(mode: str, cfg: ShapeNetConfig, variant: str, x: torch.Tensor):
-    geo = hessian_geometry(mode, cfg, variant, x.shape[0], x.shape[1], x.dtype)
+def _workspace(mode: str, cfg: ShapeNetConfig, variant: str, x: torch.Tensor,
+               kernel: Optional[str] = None):
+    geo = _geometry(mode, cfg, variant, x.shape[0], x.shape[1], x.dtype, kernel=kernel)
     partials = torch.empty(max(geo["partial_floats"], 1), dtype=torch.float32, device=x.device)
     scratch = torch.empty(max(geo["scratch_bytes"], 1), dtype=torch.uint8, device=x.device)
     return partials, scratch
@@ -330,18 +396,16 @@ def shapenet_fwd_hess_cuda(wb: torch.Tensor, x: torch.Tensor, cfg: ShapeNetConfi
     return y, jac, _mirror(hp, si)
 
 
-def shapenet_hessian_grads_cuda(wb: torch.Tensor, x: torch.Tensor, target: torch.Tensor,
-                                jac_target: torch.Tensor, hess_target: torch.Tensor,
-                                cfg: ShapeNetConfig, variant: str = "siren",
-                                w_value: float = 1.0, w_jac: float = 1.0, w_hess: float = 1.0,
-                                y_mask=None, jac_mask=None, hess_mask=None,
-                                weight: Optional[torch.Tensor] = None):
-    """Launch K8 on ``torch.cuda.current_stream()``: ``(value_mse, jac_mse,
-    hess_mse, d_wb)`` as :func:`shapenet_hessian_grads_reference` computes
-    them. Raises on anything the kernel does not take; never falls back."""
+def _launch_k8(kernel: str, wb: torch.Tensor, x: torch.Tensor, target: torch.Tensor,
+               jac_target: torch.Tensor, hess_target: torch.Tensor, cfg: ShapeNetConfig,
+               variant: str, w_value: float, w_jac: float, w_hess: float, y_mask, jac_mask,
+               hess_mask, weight: Optional[torch.Tensor]):
+    """K8 through the library of ``kernel`` ("tc" or "simt"), after the
+    wrapper's checks; counts the launch."""
     si = x.shape[-1] if x.dim() == 3 else cfg.input_dim
     _check_cuda_inputs("shapenet_hessian_grads_cuda", wb, x, cfg, variant,
-                       lambda c, v, P, d: hessian_fused_unsupported_reason(c, v, P, si, d))
+                       lambda c, v, P, d: _unsupported("train", _K8_NOT_SINE, c, v, P, si, d,
+                                                       x.dtype, kernel))
     G, P, si = x.shape
     so = cfg.output_dim
     npairs = len(_hess_pairs(si))
@@ -361,23 +425,58 @@ def shapenet_hessian_grads_cuda(wb: torch.Tensor, x: torch.Tensor, target: torch
     n_y, n_j, ky, kj = _sobolev_scales(G, P, si, so, w_value, w_jac, y_mask, jac_mask)
     n_h, kh = _hess_scale(G, P, si, so, w_hess, hess_mask)
     wbp = _prescale(wb, cfg, variant).contiguous()
+    if kernel == "tc":  # rows padded to 16 bytes, so every group's W_m stages with cp.async
+        wbp = torch.nn.functional.pad(wbp, (0, -wbp.shape[1] % 8))
     x = x.contiguous()
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    lib = _library()
+    lib = _library(kernel)
     with torch.cuda.device(x.device):
-        partials, scratch = _workspace("train", cfg, variant, x)
+        partials, scratch = _workspace("train", cfg, variant, x, kernel)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.nif_shapenet_hessian_grads(
-            wbp.data_ptr(), x.data_ptr(), target.data_ptr(), jac_target.data_ptr(),
-            hess_target.data_ptr(), ptr(ym), ptr(jm), ptr(hm), ptr(weight), losses.data_ptr(),
-            d_wb.data_ptr(), partials.data_ptr(), scratch.data_ptr(), G, P, si, so, cfg.units,
-            _n_mats(cfg), _chain_code(cfg, variant), _act_code(cfg, variant, x.dtype),
-            wb.shape[1], _n_scaled(cfg, variant), float(cfg.omega_0), ky, kj, kh, float(n_y),
-            float(n_j), float(n_h), _DTYPE_CODES[x.dtype], stream,
-        )
+        args = (wbp.data_ptr(), x.data_ptr(), target.data_ptr(), jac_target.data_ptr(),
+                hess_target.data_ptr(), ptr(ym), ptr(jm), ptr(hm), ptr(weight),
+                losses.data_ptr(), d_wb.data_ptr(), partials.data_ptr(), scratch.data_ptr(), G,
+                P, si, so, cfg.units, _n_mats(cfg), _chain_code(cfg, variant),
+                _act_code(cfg, variant, x.dtype), wb.shape[1])
+        rest = (_n_scaled(cfg, variant), float(cfg.omega_0), ky, kj, kh, float(n_y), float(n_j),
+                float(n_h))
+        if kernel == "tc":
+            err = lib.nif_shapenet_hessian_grads_tc(*args, wbp.shape[1], *rest, stream)
+        else:
+            err = lib.nif_shapenet_hessian_grads(*args, *rest, _DTYPE_CODES[x.dtype], stream)
     _raise_on_error(lib, "shapenet_hessian_grads", err)
     _build.LAUNCHES["shapenet_hessian_grads"] += 1
+    if kernel == "tc":
+        _build.LAUNCHES["shapenet_hessian_grads_tc"] += 1
     return losses[0], losses[1], losses[2], d_wb
+
+
+def shapenet_hessian_grads_cuda(wb: torch.Tensor, x: torch.Tensor, target: torch.Tensor,
+                                jac_target: torch.Tensor, hess_target: torch.Tensor,
+                                cfg: ShapeNetConfig, variant: str = "siren",
+                                w_value: float = 1.0, w_jac: float = 1.0, w_hess: float = 1.0,
+                                y_mask=None, jac_mask=None, hess_mask=None,
+                                weight: Optional[torch.Tensor] = None):
+    """Launch K8 on ``torch.cuda.current_stream()``: ``(value_mse, jac_mse,
+    hess_mse, d_wb)`` as :func:`shapenet_hessian_grads_reference` computes
+    them, through the tensor-core kernel for bfloat16 and the CUDA-core
+    kernel for float32 (:func:`k8_variant`). Raises on anything the kernel
+    does not take; never falls back."""
+    return _launch_k8(k8_variant(x.dtype), wb, x, target, jac_target, hess_target, cfg, variant,
+                      w_value, w_jac, w_hess, y_mask, jac_mask, hess_mask, weight)
+
+
+def _shapenet_hessian_grads_simt(wb: torch.Tensor, x: torch.Tensor, target: torch.Tensor,
+                                 jac_target: torch.Tensor, hess_target: torch.Tensor,
+                                 cfg: ShapeNetConfig, variant: str = "siren",
+                                 w_value: float = 1.0, w_jac: float = 1.0, w_hess: float = 1.0,
+                                 y_mask=None, jac_mask=None, hess_mask=None,
+                                 weight: Optional[torch.Tensor] = None):
+    """K8 on the CUDA-core kernel whatever the dtype. Its bf16 instance is
+    on no path of the port; ``chip_smoke.py`` times it beside the
+    tensor-core kernel."""
+    return _launch_k8("simt", wb, x, target, jac_target, hess_target, cfg, variant, w_value,
+                      w_jac, w_hess, y_mask, jac_mask, hess_mask, weight)
 
 
 # ---------------------------------------------------------------- entries

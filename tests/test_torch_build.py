@@ -48,3 +48,11 @@ def test_port_sources_include_what_they_use():
     names = {p.name for p in _build._sources("shapenet_linear_tc")}
     assert names == {"shapenet_linear_tc.cu", "mma_sm90.cuh", "shapenet_common.cuh"}
     assert "mma_sm90.cuh" not in {p.name for p in _build._sources("shapenet_linear")}
+
+
+def test_k8_tensor_core_sources():
+    """The tensor-core K8 builds against the mma helpers and the shared
+    header; the CUDA-core K7/K8 library does not include the mma helpers."""
+    names = {p.name for p in _build._sources("shapenet_hess_tc")}
+    assert names == {"shapenet_hess_tc.cu", "mma_sm90.cuh", "shapenet_common.cuh"}
+    assert "mma_sm90.cuh" not in {p.name for p in _build._sources("shapenet_hess")}

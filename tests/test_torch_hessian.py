@@ -215,6 +215,28 @@ def test_hessian_gates_match_jax():
     assert fh.hessian_fused_supported(tcfg.ShapeNetConfig(*siren), "siren", 64, 3)
 
 
+@pytest.mark.parametrize("dtype,variant", [(torch.bfloat16, "tc"), (torch.float32, "simt"),
+                                           (torch.float16, "simt")], ids=["bf16", "f32", "f16"])
+def test_k8_variant_and_gate_per_dtype(dtype, variant):
+    """bf16 K8 runs the tensor-core kernel, f32 (and any other dtype, which
+    the wrapper refuses) the CUDA-core one; off the card the gate's reasons
+    for each dtype are the JAX package's, byte for byte, and a dtype the
+    wrapper refuses asks no kernel library for its limits."""
+    assert fh.k8_variant(dtype) == variant
+    siren = (3, 1, 16, 2, "sine", False, 30.0)
+    cases = [("vanilla", (2, 1, 16, 1, "tanh"), 64, 2), ("siren", siren, 64, 5),
+             ("siren", siren, 100, 3), ("siren", siren, 64, 3)]
+    for variant_, args, P_, si in cases:
+        mine = fh.hessian_fused_unsupported_reason(tcfg.ShapeNetConfig(*args), variant_, P_, si,
+                                                   "cpu", dtype)
+        assert mine == jps.hessian_fused_unsupported_reason(jcfg.ShapeNetConfig(*args), variant_,
+                                                            P_, si)
+    assert fh.hessian_fused_supported(tcfg.ShapeNetConfig(*siren), "siren", 64, 3, None, dtype)
+    if dtype == torch.float16:
+        assert fh.hessian_fused_unsupported_reason(tcfg.ShapeNetConfig(*siren), "siren", 64, 3,
+                                                   "cuda", dtype) is None
+
+
 def test_hessian_entries_route_by_device_and_refuse_off_cuda():
     cfg = tcfg.ShapeNetConfig(2, 1, 16, 1, "sine")
     wb, x, tgt, jt, ht, _ = _chain_data((2, 1, 16, 1, "sine"), seed=4)

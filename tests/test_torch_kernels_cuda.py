@@ -24,7 +24,9 @@ plain version on SIREN trunks with so = 1, 2, 3: f32 loss rel 1e-5 and each
 gradient max|d| <= 5e-5 of its max|plain| (the JAX package's bound for its
 fused NIF-linear kernel: the trunk grads sum over every group); bf16 as K2.
 bf16 K4 runs the tensor-core kernel (``shapenet_linear_tc.cu``), f32 K4 the
-CUDA-core one (``shapenet_linear.cu``); both are held to the same bounds."""
+CUDA-core one (``shapenet_linear.cu``); both are held to the same bounds.
+Likewise bf16 K8 runs the tensor-core kernel (``shapenet_hess_tc.cu``), f32 K8
+the CUDA-core one (``shapenet_hess.cu``), each checked by its launch counter."""
 import numpy as np
 import pytest
 import torch
@@ -468,9 +470,12 @@ def test_k8_matches_plain(card, variant, args, dtype, weighted):
         kw.update(y_mask=np.eye(1, so, dtype=np.float32)[0],
                   jac_mask=(np.arange(si * so) % 2 == 0).astype(np.float32),
                   hess_mask=(np.arange(npairs * so) % 3 != 1).astype(np.float32))
-    before = _build.LAUNCHES["shapenet_hessian_grads"]
+    before = dict(_build.LAUNCHES)
     *terms, d_wb = fh.shapenet_hessian_grads(wb, x, tgt, jt, ht, cfg, variant, **kw)
-    assert _build.LAUNCHES["shapenet_hessian_grads"] == before + 1
+    assert _build.LAUNCHES["shapenet_hessian_grads"] == before["shapenet_hessian_grads"] + 1
+    tc = 1 if dtype == torch.bfloat16 else 0
+    assert (_build.LAUNCHES["shapenet_hessian_grads_tc"]
+            == before["shapenet_hessian_grads_tc"] + tc)
     *refs, r_wb = fh.shapenet_hessian_grads_reference(wb, x, tgt, jt, ht, cfg, variant, **kw)
     rel = 1e-5 if dtype == torch.float32 else 1e-3
     for mine, ref in zip(terms, refs):
@@ -481,13 +486,16 @@ def test_k8_matches_plain(card, variant, args, dtype, weighted):
 
 
 def test_k8_flagship_width_is_deterministic(card):
-    """G=4, P=2048 at the flagship width in bf16: two runs give the same
-    bits (fixed P splits, an ordered reduce) and agree with plain K8."""
+    """G=4, P=2048 at the flagship width in bf16, on the tensor-core kernel:
+    two runs give the same bits (fixed P splits, an ordered reduce) and
+    agree with plain K8."""
     cfg = ShapeNetConfig(3, 1, 128, 2, "sine", False, 30.0)
     wb, x = _data(cfg, 4, 2048, torch.bfloat16, seed=21)
     tgt, jt, ht, w = _hessian_side(cfg, 4, 2048, seed=21)
+    before = _build.LAUNCHES["shapenet_hessian_grads_tc"]
     runs = [fh.shapenet_hessian_grads_cuda(wb, x, tgt, jt, ht, cfg, "siren", weight=w)
             for _ in range(2)]
+    assert _build.LAUNCHES["shapenet_hessian_grads_tc"] == before + 2
     for a, b in zip(runs[0], runs[1]):
         assert torch.equal(a, b)
     *refs, r_wb = fh.shapenet_hessian_grads_reference(wb, x, tgt, jt, ht, cfg, "siren",
@@ -499,22 +507,91 @@ def test_k8_flagship_width_is_deterministic(card):
 
 
 def test_hessian_geometry(card):
-    """At the flagship width (si = 3: ten streams) both bodies take 6-point
-    tiles (60 of 64 rows); K8's bf16 residuals fit in shared memory beside
-    its working buffers, its f32 ones go to the global scratch. si = 4 (15
-    streams) still fits a 64-row tile; at width 1024 (8 rows) it does not."""
+    """At the flagship width (si = 3: ten streams) bf16 K8 takes the
+    tensor-core kernel: 16-point tiles (160 stacked rows) with every S plane
+    and the staged W in shared memory, and one wave of SMs / G splits per
+    group; its f32 body (the CUDA-core kernel) and K7 take 6-point tiles (60
+    of 64 rows), f32 K8's residuals in the global scratch. At si = 4 (15
+    streams) the tensor-core kernel's S planes go to the global scratch. At
+    width 1024 the tensor-core kernel's two planes exceed shared memory, and
+    the CUDA-core kernels' 8-row tile cannot hold 15 streams."""
     cfg = ShapeNetConfig(3, 1, 128, 2, "sine", False, 30.0)
     train = fh.hessian_geometry("train", cfg, "siren", 32, 32768, torch.bfloat16)
-    assert (train["tile"], train["splits"], train["residuals"]) == (6, 8, "shared")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert (train["kernel"], train["tile"], train["residuals"], train["weights"]) == (
+        "tc", 16, "shared", "shared")
+    assert train["splits"] == max(1, min(64, sms // 32))
     f32 = fh.hessian_geometry("train", cfg, "siren", 32, 32768, torch.float32)
+    assert (f32["kernel"], f32["tile"]) == ("simt", 6)
     assert f32["residuals"] == "global" and f32["scratch_bytes"] > 0
     assert fh.hessian_geometry("eval", cfg, "siren", 32, 32768, torch.bfloat16)["tile"] == 6
-    assert fh.hessian_geometry("train", ShapeNetConfig(4, 1, 128, 2, "sine"), "siren", 2, 64,
-                               torch.bfloat16)["tile"] == 4
-    assert "streams" in fh.hessian_fused_unsupported_reason(
-        ShapeNetConfig(4, 1, 1024, 1, "sine"), "siren", 256, 4, card)
-    assert "streams" in fh.fwd_hess_unsupported_reason(
-        ShapeNetConfig(4, 1, 1024, 1, "sine"), "siren", 256, 4, card)
+    si4 = fh.hessian_geometry("train", ShapeNetConfig(4, 1, 128, 2, "sine"), "siren", 2, 64,
+                              torch.bfloat16)
+    assert (si4["tile"], si4["residuals"]) == (16, "global")
+    wide = ShapeNetConfig(4, 1, 1024, 1, "sine")
+    assert "tensor-core" in fh.hessian_fused_unsupported_reason(wide, "siren", 256, 4, card)
+    assert "streams" in fh.hessian_fused_unsupported_reason(wide, "siren", 256, 4, card,
+                                                            torch.float32)
+    assert "streams" in fh.fwd_hess_unsupported_reason(wide, "siren", 256, 4, card)
+
+
+# Shapes the tensor-core K8 pads, tiles raggedly or lays out otherwise
+# (ShapeNetConfig args): widths 24 and 40, si = 1, 2, 4, resblock chains, and
+# widths whose S planes go to the global scratch or whose W is read from
+# global memory.
+K8_TC_SHAPES = [
+    (3, 1, 24, 2, "sine", False, 30.0),
+    (2, 2, 40, 2, "sine", True, 10.0),
+    (1, 1, 64, 2, "sine", False, 30.0),
+    (4, 1, 128, 2, "sine", False, 30.0),
+    (3, 1, 128, 2, "sine", True, 30.0),
+    (3, 1, 256, 2, "sine", True, 30.0),
+    (1, 1, 512, 1, "sine", False, 30.0),
+]
+
+
+@pytest.mark.parametrize("args", K8_TC_SHAPES, ids=["n24", "n40-res", "si1", "si4",
+                                                    "n128-res", "n256-res", "n512"])
+def test_k8_tc_padded_and_ragged_shapes(card, args):
+    """The tensor-core K8 on shapes it pads or lays out otherwise, at P =
+    200 (a ragged last tile), weighted, masked where so > 1, against plain
+    K8 within the bf16 bounds."""
+    cfg = ShapeNetConfig(*args)
+    wb, x = _data(cfg, 3, 200, torch.bfloat16, seed=24)
+    tgt, jt, ht, w = _hessian_side(cfg, 3, 200, seed=24)
+    si, so = cfg.input_dim, cfg.output_dim
+    kw = dict(w_value=0.7, w_jac=1.3, w_hess=0.4, weight=w)
+    if so > 1:
+        kw.update(y_mask=np.eye(1, so, dtype=np.float32)[0],
+                  jac_mask=(np.arange(si * so) % 2 == 0).astype(np.float32),
+                  hess_mask=(np.arange(si * (si + 1) // 2 * so) % 3 != 1).astype(np.float32))
+    assert fh.hessian_geometry("train", cfg, "siren", 3, 200, torch.bfloat16)["kernel"] == "tc"
+    before = _build.LAUNCHES["shapenet_hessian_grads_tc"]
+    *terms, d_wb = fh.shapenet_hessian_grads_cuda(wb, x, tgt, jt, ht, cfg, "siren", **kw)
+    assert _build.LAUNCHES["shapenet_hessian_grads_tc"] == before + 1
+    *refs, r_wb = fh.shapenet_hessian_grads_reference(wb, x, tgt, jt, ht, cfg, "siren", **kw)
+    for mine, ref in zip(terms, refs):
+        assert float(mine) == pytest.approx(float(ref), rel=1e-3)
+    err, scale = _max_diff(d_wb, r_wb)
+    assert err <= 2.0 ** -6 * scale, (err, scale)
+
+
+def test_k8_cuda_core_kernel_on_bf16_inputs(card):
+    """The private launcher that times the CUDA-core K8 beside the
+    tensor-core one on the same bf16 inputs: it launches the CUDA-core
+    kernel and agrees with plain K8 within the bf16 bounds."""
+    cfg = ShapeNetConfig(3, 1, 128, 2, "sine", False, 30.0)
+    wb, x = _data(cfg, 2, 256, torch.bfloat16, seed=25)
+    tgt, jt, ht, _ = _hessian_side(cfg, 2, 256, seed=25)
+    before = dict(_build.LAUNCHES)
+    *terms, d_wb = fh._shapenet_hessian_grads_simt(wb, x, tgt, jt, ht, cfg, "siren")
+    assert _build.LAUNCHES["shapenet_hessian_grads"] == before["shapenet_hessian_grads"] + 1
+    assert _build.LAUNCHES["shapenet_hessian_grads_tc"] == before["shapenet_hessian_grads_tc"]
+    *refs, r_wb = fh.shapenet_hessian_grads_reference(wb, x, tgt, jt, ht, cfg, "siren")
+    for mine, ref in zip(terms, refs):
+        assert float(mine) == pytest.approx(float(ref), rel=1e-3)
+    err, scale = _max_diff(d_wb, r_wb)
+    assert err <= 2.0 ** -6 * scale, (err, scale)
 
 
 def test_hessian_wrappers_refuse_what_they_cannot_take(card):
@@ -533,8 +610,10 @@ def test_hessian_wrappers_refuse_what_they_cannot_take(card):
 
 def test_model_hessian_step_on_the_card_launches_k8(card):
     """One GroupedTrainer step with Jacobian and Hessian targets at a small
-    shape: exactly one K8 launch (no K6, no K2), recorded as the Hessian
-    path; evaluate_sobolev with Hessian targets launches K7 once per chunk."""
+    shape: exactly one K8 launch (no K6, no K2), of the tensor-core kernel
+    under the bf16 policy and of the CUDA-core one under float32, recorded
+    as the Sobolev path; evaluate_sobolev with Hessian targets launches K7
+    once per chunk."""
     from nif_tpu_torch.training import GroupedTrainer
 
     cfg_s = {"input_dim": 3, "output_dim": 1, "units": 128, "nlayers": 2,
@@ -558,12 +637,22 @@ def test_model_hessian_step_on_the_card_launches_k8(card):
                                target_hess=torch.from_numpy(ht).cuda())
     after = dict(_build.LAUNCHES)
     assert after["shapenet_hessian_grads"] == before["shapenet_hessian_grads"] + 1
+    assert after["shapenet_hessian_grads_tc"] == before["shapenet_hessian_grads_tc"] + 1
     assert after["shapenet_sobolev_grads"] == before["shapenet_sobolev_grads"]
     assert after["shapenet_mse_grads"] == before["shapenet_mse_grads"]
     assert bool(torch.isfinite(loss)) and trainer.history["sobolev_path"] == "fused"
     out = trainer.evaluate_sobolev(state, t, x, u, jt, group_batch=2, target_hess=ht)
     assert _build.LAUNCHES["shapenet_fwd_hess"] == after["shapenet_fwd_hess"] + 2
     assert all(np.isfinite(v) for v in out.values()) and "hessian_mse" in out
+    f32 = GroupedTrainer(nif_tpu_torch.NIFMultiScale(cfg_s, cfg_p, "float32", seed=0),
+                         lambda p: torch.optim.Adam(p, lr=1e-4), w_jac=0.1, w_hess=0.01)
+    before = dict(_build.LAUNCHES)
+    _, loss = f32.step(f32.init(0), *(torch.from_numpy(a).cuda() for a in (t, x, u)),
+                       target_jac=torch.from_numpy(jt).cuda(),
+                       target_hess=torch.from_numpy(ht).cuda())
+    assert _build.LAUNCHES["shapenet_hessian_grads"] == before["shapenet_hessian_grads"] + 1
+    assert _build.LAUNCHES["shapenet_hessian_grads_tc"] == before["shapenet_hessian_grads_tc"]
+    assert bool(torch.isfinite(loss))
 
 
 def test_hessian_evaluation_routing_logs_eager_fallbacks(card, caplog):
