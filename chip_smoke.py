@@ -38,15 +38,25 @@ Phases of the Sobolev slice:
    bfloat16, and at the flagship shape in bfloat16 (the reverse body).
 2e. Hold K6 (the fused Sobolev train pass) against plain K6 over the same
    configs, weighted or not, with value and Jacobian masks on the
-   multi-output configs, and at the flagship width in bfloat16, where two
-   runs must give bitwise-equal results.
+   multi-output configs: bfloat16 sine chains through the tensor-core
+   kernel (``shapenet_jac_tc.cu``), float32 and vanilla chains through the
+   CUDA-core one (``shapenet_jac.cu``), each checked by its launch counter;
+   the tensor-core kernel also on the padded, narrow and wide shapes of
+   K8's (``HESS_TC_EXTRA``, P = 200); at the flagship shape in bfloat16 the
+   tensor-core kernel and the CUDA-core one on the same inputs, and at the
+   flagship width at G=8 in float32; two bfloat16 flagship runs must give
+   bitwise-equal results.
 3c. Sobolev-train the flagship: ``sobolev_value_and_grad`` at step 0
    against plain K6 + autograd, five ``GroupedTrainer.step(...,
-   target_jac=...)`` at G=32, P=32768 (five K6 launches, no K2), a short
-   Sobolev ``fit`` on the traveling wave with its analytic Jacobian that must
-   lower both terms, and ``evaluate_sobolev`` (one K5 launch per chunk).
-4c. Time the flagship Sobolev step, K5 and K6 with their plain versions,
-   and compute their bounds on this card.
+   target_jac=...)`` at G=32, P=32768 (five launches of the tensor-core K6,
+   none of the CUDA-core one, no K2), one step of the same model under the
+   float32 policy (one of the CUDA-core K6, none of the tensor-core one), a
+   short Sobolev ``fit`` on the traveling wave with its analytic Jacobian
+   (60 tensor-core launches) that must lower both terms, and
+   ``evaluate_sobolev`` (one K5 launch per chunk).
+4c. Time the flagship Sobolev step, K5, the bfloat16 tensor-core K6, the
+   CUDA-core K6 on the same bfloat16 inputs and in float32, with their plain
+   versions, and compute their bounds on this card.
 
 Phases of the Hessian slice:
 
@@ -93,8 +103,9 @@ Phases of the NIF-linear slice:
    (five launches of the tensor-core K4, no K2), and two steps of the same
    model under the float32 policy (two of the CUDA-core K4, none of the
    tensor-core one); a 30-epoch ``fit`` on the traveling wave that
-   must lower the loss; one Sobolev step (one K6 launch on the effective
-   chain, its terms and grads against plain K6 + autograd) and an
+   must lower the loss; one Sobolev step (one launch of the tensor-core K6
+   on the effective chain, its terms and grads against plain K6 + autograd)
+   and an
    ``evaluate_sobolev`` that launches K5 once per chunk.
 4e. Time the NIF-linear step, the bfloat16 tensor-core K4, the float32
    CUDA-core K4, plain K4 and the eager step (autograd over the eager trunk +
@@ -136,6 +147,9 @@ SINE_GRAD2_FLOPS = 28
 # rounding of one activation, derivative or dz), and a relative loss bound.
 BF16_REL = 2.0 ** -6
 BF16_LOSS_REL = 1e-3
+# ... and of the tensor-core K6 against plain K6 on the terms: each product
+# is exact, only the order of the f32 sums differs.
+TC_LOSS_REL = 1e-4
 
 # The chain configs of tests/test_pallas_kernel.py (variant, ShapeNetConfig args).
 CASES = [
@@ -329,14 +343,20 @@ def check_k5(torch, cfg, variant, G, P, dtype, seed) -> float:
     return worst
 
 
-def check_k6(torch, cfg, variant, G, P, dtype, weighted, masked, seed) -> float:
-    """K6 vs plain K6; returns max |d_wb - plain d_wb|.
+def check_k6(torch, cfg, variant, G, P, dtype, weighted, masked, seed, simt=False) -> float:
+    """K6 vs plain K6; returns max |d_wb - plain d_wb|. A bfloat16 call on a
+    sine chain must launch the tensor-core kernel (``simt``: the CUDA-core
+    kernel on the same inputs, through its private launcher), a float32 or
+    vanilla one the CUDA-core kernel.
 
     float32: both terms rel 1e-5, d_wb max|d| <= 5e-5 max|plain| (the fused
     backward's bound: the stacked backward sums (1 + si) times the rows);
-    bfloat16: terms rel BF16_LOSS_REL, d_wb BF16_REL."""
+    bfloat16: terms rel TC_LOSS_REL on the tensor-core kernel and
+    BF16_LOSS_REL on the CUDA-core one, d_wb BF16_REL."""
+    from nif_tpu_torch.ops import _build
     from nif_tpu_torch.ops.fused_derivatives import (
-        derivative_geometry, shapenet_sobolev_grads_cuda, shapenet_sobolev_grads_reference)
+        _geometry, _shapenet_sobolev_grads_simt, shapenet_sobolev_grads_cuda,
+        shapenet_sobolev_grads_reference)
 
     wb, x = chain_data(torch, cfg, G, P, dtype, seed)
     tgt, w, jt = sobolev_data(torch, cfg, G, P, seed)
@@ -345,19 +365,29 @@ def check_k6(torch, cfg, variant, G, P, dtype, weighted, masked, seed) -> float:
     if masked:
         kw.update(y_mask=np.eye(1, so, dtype=np.float32)[0],
                   jac_mask=(np.arange(si * so) % 2 == 0).astype(np.float32))
-    lv, lj, d_wb = shapenet_sobolev_grads_cuda(wb, x, tgt, jt, cfg, variant, **kw)
+    before = dict(_build.LAUNCHES)
+    launch = _shapenet_sobolev_grads_simt if simt else shapenet_sobolev_grads_cuda
+    lv, lj, d_wb = launch(wb, x, tgt, jt, cfg, variant, **kw)
     rv, rj, r_wb = shapenet_sobolev_grads_reference(wb, x, tgt, jt, cfg, variant, **kw)
     torch.cuda.synchronize()
-    what = f"K6 {describe(cfg, variant, G, P, dtype)} weighted={weighted} masked={masked}"
+    tc = int(dtype == torch.bfloat16 and variant == "siren" and not simt)
+    what = (f"K6 {describe(cfg, variant, G, P, dtype)} weighted={weighted} masked={masked}"
+            f"{' (CUDA-core kernel)' if simt else ''}")
+    if (_build.LAUNCHES["shapenet_sobolev_grads"] != before["shapenet_sobolev_grads"] + 1
+            or _build.LAUNCHES["shapenet_sobolev_grads_tc"]
+            != before["shapenet_sobolev_grads_tc"] + tc):
+        raise AssertionError(f"{what}: launched {_build.LAUNCHES} after {before}")
     if d_wb.dtype != wb.dtype or d_wb.shape != r_wb.shape:
         raise AssertionError(f"{what}: {d_wb.shape}/{d_wb.dtype} vs {r_wb.shape}")
     err, scale = max_diff(torch, d_wb, r_wb, what)
     rels = [abs(float(a) - float(b)) / max(abs(float(b)), 1e-30) for a, b in ((lv, rv), (lj, rj))]
-    bound, l_bound = (5e-5, 1e-5) if dtype == torch.float32 else (BF16_REL, BF16_LOSS_REL)
-    geo = derivative_geometry("sobolev", cfg, variant, G, P, dtype)
+    bound, l_bound = ((5e-5, 1e-5) if dtype == torch.float32 else
+                      (BF16_REL, TC_LOSS_REL if tc else BF16_LOSS_REL))
+    geo = _geometry("sobolev", cfg, variant, G, P, dtype, kernel="simt" if simt else None)
     log(f"{what} value {float(lv):.6e} jac {float(lj):.6e} (rel {rels[0]:.2e}, {rels[1]:.2e}) "
-        f"d_wb max|d|={err:.3e} ({err / scale:.2e} of max|plain|); {geo['tile']}-point tiles, "
-        f"residuals in {geo['residuals']} memory, {geo['splits']} splits")
+        f"d_wb max|d|={err:.3e} ({err / scale:.2e} of max|plain|); {geo['kernel']} kernel, "
+        f"{geo['tile']}-point tiles, residuals in {geo['residuals']} memory, weights from "
+        f"{geo['weights']} memory, {geo['splits']} splits")
     if (not all(np.isfinite([float(lv), float(lj)])) or max(rels) > l_bound
             or err > bound * scale):
         raise AssertionError(f"{what}: term rel {rels} (bound {l_bound}), d_wb max|d| {err} > "
@@ -681,7 +711,7 @@ def wave_hessian(t, x):
     return h[:, :, None].astype(np.float32)
 
 
-def derivative_bounds(cfg, G, P, peak_mma, peak_f32, peak_bw, sobolev: bool):
+def derivative_bounds(cfg, G, P, peak_mma, peak_f32, peak_bw, sobolev: bool, f32: bool = False):
     """(bound ms, bound_by, products GFLOP) of K6 (sobolev) or K5's reverse
     body at this shape in bf16. K6: three passes (forward, dW, dS) of the
     stacked chain's hidden and last products over all 1 + si streams, 3 x 2
@@ -692,7 +722,10 @@ def derivative_bounds(cfg, G, P, peak_mma, peak_f32, peak_bw, sobolev: bool):
     the value and Jacobian targets in and d_wb out. K5: the forward (2 G P
     (si n + nm n^2 + n so))
     and so dx sweeps (2 G P (nm n^2 + n si) each), sine-with-derivative
-    evaluations over the f32 peak, bytes of wb and x in, y and jac out."""
+    evaluations over the f32 peak, bytes of wb and x in, y and jac out.
+    ``f32``: the float32 K6, whose products must not use the tensor cores
+    (no TF32), so products and activations together over the f32 peak, and
+    4-byte inputs and outputs."""
     n, si, so = cfg.units, cfg.input_dim, cfg.output_dim
     nm = 2 * cfg.nlayers if cfg.use_resblock else cfg.nlayers
     po = nm * n * n + (si + so + 1 + nm) * n + so
@@ -700,12 +733,12 @@ def derivative_bounds(cfg, G, P, peak_mma, peak_f32, peak_bw, sobolev: bool):
     if sobolev:
         flops = 3 * 2 * G * P * (1 + si) * (nm * n * n + n * so) + 2 * 2 * G * P * si * n
         act = elems * (SINE_GRAD_FLOPS + SINE_GRAD2_FLOPS + 6 * si)
-        nbytes = 2 * (2 * G * po + G * P * (si + so + si * so))
+        nbytes = (4 if f32 else 2) * (2 * G * po + G * P * (si + so + si * so))
     else:
         flops = 2 * G * P * (si * n + nm * n * n + n * so) + so * 2 * G * P * (nm * n * n + n * si)
         act = elems * SINE_GRAD_FLOPS
         nbytes = 2 * (G * po + G * P * (si + so + so * si))
-    t_ops = max(flops / peak_mma, act / peak_f32) * 1e3
+    t_ops = ((flops + act) / peak_f32 if f32 else max(flops / peak_mma, act / peak_f32)) * 1e3
     t_bytes = nbytes / peak_bw * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops / 1e9
 
@@ -773,8 +806,8 @@ def main() -> int:
     from nif_tpu_torch.config import ShapeNetConfig
     from nif_tpu_torch.ops import _build
     from nif_tpu_torch.ops.fused_derivatives import (
-        shapenet_fwd_jac_cuda, shapenet_fwd_jac_reference, shapenet_sobolev_grads_cuda,
-        shapenet_sobolev_grads_reference)
+        _shapenet_sobolev_grads_simt, shapenet_fwd_jac_cuda, shapenet_fwd_jac_reference,
+        shapenet_sobolev_grads_cuda, shapenet_sobolev_grads_reference)
     from nif_tpu_torch.ops.fused_hessian import (
         _shapenet_hessian_grads_simt, shapenet_fwd_hess_cuda, shapenet_hessian_grads_cuda)
     from nif_tpu_torch.ops.fused_linear import (
@@ -804,8 +837,8 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {name}")
     log(f"card: {smi}")
-    build_all(["shapenet_fwd", "shapenet_bwd", "shapenet_jac", "shapenet_hess",
-               "shapenet_hess_tc", "shapenet_linear", "shapenet_linear_tc"])
+    build_all(["shapenet_fwd", "shapenet_bwd", "shapenet_jac", "shapenet_jac_tc",
+               "shapenet_hess", "shapenet_hess_tc", "shapenet_linear", "shapenet_linear_tc"])
     peak_mma, peak_f32, peak_bw = PEAKS["H100 PCIe" if "PCIe" in name else "H100 SXM"]
     flag_cfg = ShapeNetConfig.from_dict(FLAGSHIP_SHAPE)
 
@@ -874,14 +907,26 @@ def main() -> int:
             for weighted in (False, True):
                 check_k6(torch, cfg, variant, 3, 256, dtype, weighted, cfg.output_dim > 1,
                          seed=40 + i)
+    for i, args in enumerate(HESS_TC_EXTRA):
+        cfg = ShapeNetConfig(*args)
+        for weighted in (False, True):
+            check_k6(torch, cfg, "siren", 3, 200, torch.bfloat16, weighted, cfg.output_dim > 1,
+                     seed=130 + i)
     k6_err = check_k6(torch, flag_cfg, "siren", 32, 32768, torch.bfloat16, False, False, seed=50)
+    check_k6(torch, flag_cfg, "siren", 32, 32768, torch.bfloat16, False, False, seed=50,
+             simt=True)
+    k6f_err = check_k6(torch, flag_cfg, "siren", 8, 32768, torch.float32, False, False, seed=53)
     wb, x = chain_data(torch, flag_cfg, 32, 32768, torch.bfloat16, seed=51)
     tgt, w, jt = sobolev_data(torch, flag_cfg, 32, 32768, seed=51)
+    before = _build.LAUNCHES["shapenet_sobolev_grads_tc"]
     runs = [shapenet_sobolev_grads_cuda(wb, x, tgt, jt, flag_cfg, "siren", weight=w)
             for _ in range(2)]
+    if _build.LAUNCHES["shapenet_sobolev_grads_tc"] != before + 2:
+        raise AssertionError("the flagship bf16 K6 runs did not take the tensor-core kernel")
     if not all(torch.equal(a, b) for a, b in zip(*runs)):
         raise AssertionError("K6 is not deterministic: two runs on one input differ")
-    log("K6 flagship bf16 (weighted): two runs give bitwise-equal terms and d_wb")
+    log("K6 flagship bf16 (G=32, P=32768, weighted, tensor cores): two runs give bitwise-equal "
+        "terms and d_wb")
     del wb, x, tgt, w, jt, runs
 
     # ---- phase 2f: K7 against its plain version
@@ -1067,9 +1112,26 @@ def main() -> int:
     slosses = [float(v) for v in slosses]
     log(f"flagship Sobolev train: {n_steps} steps, losses {slosses}, launches {sob_launches}, "
         f"path {strainer.history.get('sobolev_path')}")
-    if (sob_launches["shapenet_sobolev_grads"] != n_steps or sob_launches["shapenet_mse_grads"]
-            or not all(np.isfinite(slosses))):
+    if (sob_launches["shapenet_sobolev_grads"] != n_steps
+            or sob_launches["shapenet_sobolev_grads_tc"] != n_steps
+            or sob_launches["shapenet_mse_grads"] or not all(np.isfinite(slosses))):
         raise AssertionError(f"{n_steps} Sobolev steps launched {sob_launches}, losses {slosses}")
+    # the float32 policy: the CUDA-core K6, full f32 products
+    sf32_trainer = GroupedTrainer(
+        nif_tpu_torch.NIFMultiScale(FLAGSHIP_SHAPE, FLAGSHIP_PNET, "float32", device="cuda",
+                                    seed=0),
+        lambda p: torch.optim.Adam(p, lr=FLAGSHIP_TRAIN_LR))
+    sf32_state = sf32_trainer.init(0)
+    _build.reset_launches()
+    sf32_state, sf32_loss = sf32_trainer.step(sf32_state, t_s, x_s, u_s, target_jac=j_s)
+    torch.cuda.synchronize()
+    sf32_launches = dict(_build.LAUNCHES)
+    log(f"flagship Sobolev train, float32 policy: 1 step, loss {float(sf32_loss):.6e}, launches "
+        f"{sf32_launches}, path {sf32_trainer.model.sobolev_path_info(P, 3)}")
+    if (sf32_launches["shapenet_sobolev_grads"] != 1 or sf32_launches["shapenet_sobolev_grads_tc"]
+            or not np.isfinite(float(sf32_loss))):
+        raise AssertionError(f"a float32 Sobolev step launched {sf32_launches}")
+    del sf32_trainer, sf32_state
     j_w = wave_jacobian(t_w, x_w)
     smodel_w = nif_tpu_torch.NIFMultiScale(FLAGSHIP_SHAPE, FLAGSHIP_PNET, FLAGSHIP_POLICY,
                                            device="cuda", seed=1)
@@ -1089,9 +1151,10 @@ def main() -> int:
         f"w_value = w_jac = 1): epoch losses first {shist[0]:.6e} last {shist[-1]:.6e}; "
         f"launches {sfit_launches}; evaluate_sobolev before {before}, after {after} "
         f"({eval_chunks} chunks, launches {eval_launches})")
-    if sfit_launches["shapenet_sobolev_grads"] != 60 or not shist[-1] < shist[0]:
-        raise AssertionError("the Sobolev fit did not take K6 for every step or did not lower "
-                             "its loss")
+    if (sfit_launches["shapenet_sobolev_grads"] != 60
+            or sfit_launches["shapenet_sobolev_grads_tc"] != 60 or not shist[-1] < shist[0]):
+        raise AssertionError("the Sobolev fit did not take the tensor-core K6 for every step or "
+                             "did not lower its loss")
     if not (after["value_mse"] < before["value_mse"]
             and after["jacobian_mse"] < before["jacobian_mse"]):
         raise AssertionError(f"the Sobolev fit did not lower both terms: {before} -> {after}")
@@ -1335,10 +1398,11 @@ def main() -> int:
         f"{float(lterms_k['value_mse']):.6e} jac {float(lterms_k['jacobian_mse']):.6e} vs plain "
         f"K6 on the effective chain (rel {ls_rel[0]:.2e}, {ls_rel[1]:.2e}); trunk and "
         f"ParameterNet grads vs plain K6 + autograd: worst rel-L2 {worst:.2e}")
-    if (lsob_launches["shapenet_sobolev_grads"] != 1 or sum(lsob_launches.values()) != 1
+    if (lsob_launches["shapenet_sobolev_grads"] != 1
+            or lsob_launches["shapenet_sobolev_grads_tc"] != 1 or sum(lsob_launches.values()) != 2
             or max(ls_rel) > BF16_LOSS_REL or worst > 1e-2):
-        raise AssertionError("the NIF-linear Sobolev step did not take one K6 or departs from "
-                             "plain K6")
+        raise AssertionError("the NIF-linear Sobolev step did not take one tensor-core K6 or "
+                             "departs from plain K6")
     del wb_eff, r_wb, lsgrads_p, lsgrads_k
     _build.reset_launches()
     lafter = lfitter.evaluate_sobolev(lfstate, t_w, x_w, u_w, j_w,
@@ -1408,7 +1472,8 @@ def main() -> int:
         f"by {k3_by} ({k3_gf:.1f} GFLOP); library_ms null: no single PyTorch call computes "
         f"these chains")
 
-    # ---- phase 4c: Sobolev-step, K5 and K6 times at the flagship shape (bf16)
+    # ---- phase 4c: Sobolev-step, K5 and K6 times at the flagship shape (bf16;
+    # K6 also on the CUDA-core kernel on the same inputs, and in float32)
     sbox = [sstate]
 
     def one_sobolev_step():
@@ -1421,20 +1486,33 @@ def main() -> int:
     k5_plain_ms = cuda_ms(lambda: shapenet_fwd_jac_reference(wb, x, flag_cfg, "siren"),
                           reps=3, warmup=1)
     k6_ms = cuda_ms(lambda: shapenet_sobolev_grads_cuda(wb, x, tgt, jt, flag_cfg, "siren"),
-                    reps=5, warmup=1)
+                    reps=10, warmup=2)
+    k6_simt_ms = cuda_ms(lambda: _shapenet_sobolev_grads_simt(wb, x, tgt, jt, flag_cfg,
+                                                              "siren"), reps=3, warmup=1)
     k6_plain_ms = cuda_ms(lambda: shapenet_sobolev_grads_reference(
         wb, x, tgt, jt, flag_cfg, "siren"), reps=2, warmup=1)
+    f32_in = (wb.float(), x.float(), tgt, jt)
+    k6f_ms = cuda_ms(lambda: shapenet_sobolev_grads_cuda(*f32_in, flag_cfg, "siren"), reps=3,
+                     warmup=1)
+    k6f_plain_ms = cuda_ms(lambda: shapenet_sobolev_grads_reference(*f32_in, flag_cfg, "siren"),
+                           reps=2, warmup=1)
+    del wb, x, tgt, jt, f32_in
     k5_bound, k5_by, k5_gf = derivative_bounds(flag_cfg, G, P, peak_mma, peak_f32, peak_bw,
                                                sobolev=False)
     k6_bound, k6_by, k6_gf = derivative_bounds(flag_cfg, G, P, peak_mma, peak_f32, peak_bw,
                                                sobolev=True)
+    k6f_bound, k6f_by, _ = derivative_bounds(flag_cfg, G, P, peak_mma, peak_f32, peak_bw,
+                                             sobolev=True, f32=True)
     log(f"flagship Sobolev step (GroupedTrainer.step with target_jac, Adam, bf16, G={G} "
         f"P={P}): {sstep_ms:.4f} ms = {G * P / sstep_ms * 1e3:.4e} train points/s")
     log(f"K5 (reverse) {k5_ms:.4f} ms, plain {k5_plain_ms:.4f} ms, bound {k5_bound:.4f} ms by "
-        f"{k5_by} ({k5_gf:.1f} GFLOP of products); K6 {k6_ms:.4f} ms (wrapper incl. prescale, "
-        f"workspace and reduce), plain {k6_plain_ms:.4f} ms, bound {k6_bound:.4f} ms by "
-        f"{k6_by} ({k6_gf:.1f} GFLOP); library_ms null: no single PyTorch call computes "
-        f"these chains")
+        f"{k5_by} ({k5_gf:.1f} GFLOP of products); K6 bf16, tensor cores: {k6_ms:.4f} ms "
+        f"(wrapper incl. prescale, workspace and reduce) = {k6_gf / k6_ms:.2f} TFLOP/s of "
+        f"products, the CUDA-core K6 on the same bf16 inputs {k6_simt_ms:.4f} ms "
+        f"({k6_simt_ms / k6_ms:.2f}x), plain {k6_plain_ms:.4f} ms, bound {k6_bound:.4f} ms by "
+        f"{k6_by} ({k6_gf:.1f} GFLOP); K6 f32, CUDA cores: {k6f_ms:.4f} ms, plain "
+        f"{k6f_plain_ms:.4f} ms, bound {k6f_bound:.4f} ms by {k6f_by} (f32 peak); library_ms "
+        f"null: no single PyTorch call computes these chains")
 
     # ---- phase 4d: Hessian-step, K7 and K8 times at the flagship shape (bf16)
     hbox = [hstate]
@@ -1565,14 +1643,26 @@ def main() -> int:
     }, {
         "name": "shapenet_sobolev_grads",
         "route": "cuda",
-        "source": "nif_tpu_torch/csrc/shapenet_jac.cu",
+        "source": "nif_tpu_torch/csrc/shapenet_jac_tc.cu",
         "replaces": "nif_tpu/ops/pallas_shapenet.py:1698",
-        "launches": sob_launches["shapenet_sobolev_grads"],
+        "launches": sob_launches["shapenet_sobolev_grads_tc"],
         "max_abs_err": k6_err,
         "ms": k6_ms,
         "plain_ms": k6_plain_ms,
         "bound_ms": k6_bound,
         "bound_by": k6_by,
+        "library_ms": None,
+    }, {
+        "name": "shapenet_sobolev_grads_f32",
+        "route": "cuda",
+        "source": "nif_tpu_torch/csrc/shapenet_jac.cu",
+        "replaces": "nif_tpu/ops/pallas_shapenet.py:1698",
+        "launches": sf32_launches["shapenet_sobolev_grads"],
+        "max_abs_err": k6f_err,
+        "ms": k6f_ms,
+        "plain_ms": k6f_plain_ms,
+        "bound_ms": k6f_bound,
+        "bound_by": k6f_by,
         "library_ms": None,
     }, {
         "name": "shapenet_fwd_hess",

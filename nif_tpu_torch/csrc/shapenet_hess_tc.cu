@@ -53,23 +53,22 @@
 //   stacked rows, each added into the block's f32 partial in tile order (the
 //   partials loaded before the products, moved in float2 pairs: a block's
 //   partial has an even stride, so its dW regions are 8-byte aligned); a
-//   split reduce (shapenet_common.cuh's, over that stride) sums the partials
+//   split reduce (stack_reduce_kernel, over that stride) sums the partials
 //   of each group in a fixed order. No float atomics: two runs on the same
 //   inputs give the same bits.
 // - The last product and the last layer's grads (so <= a few columns) stay
 //   f32 FMAs from shared memory: a thread per output; the last layer's dS
 //   lands in the registers of the column blocks' owners.
 // The grid is (S, G) with S = SMs / G splits: one wave of one block per SM.
-#include "mma_sm90.cuh"
-#include "shapenet_common.cuh"
+// The tile machinery (stack_mma, W staging, weight_grad_stack, the carry,
+// the geometry and the reduce) is stack_tc.cuh's, shared with K6's
+// tensor-core kernel (shapenet_jac_tc.cu); this file keeps K8's own body.
+#include "stack_tc.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
 constexpr int kTp = 16;            // points of a tile: one 16-row slab per stream
 constexpr int kMaxSiTc = 4;
-constexpr int kMaxSplitsTc = 64;   // point-tile runs per group
 
 struct TcArgs {
   const bf16* wb;          // wb' [G, wb_ld] (rows of po, padded to 16 bytes)
@@ -87,10 +86,6 @@ struct TcArgs {
   int G, P, so, n, n_mats, n16, ld, n_cb, resident, stage_w;
   bool deg9;
   long long po, ps, wb_ld, block_bytes, carry_offset;  // ps: po rounded up to even
-};
-
-struct Lane {
-  int lane, g, q, warp;
 };
 
 // Built with -DK8_PHASE_CLOCKS (by scripts/port_phase_probe.py only), thread
@@ -131,286 +126,14 @@ __host__ __device__ constexpr int pair_k(int a, int si) {
   return j + a;
 }
 
-// The bf16 sine (the polynomial of degree 7 or 9) with its derivatives, the
-// only activation this kernel takes: act3's and sine4's kSinePoly7/9 cases
-// without their switch, which inlined at every epilogue would swell the code.
-__device__ __forceinline__ float sine3(float z, bool deg9, float* d1, float* d2) {
-  const float t = sin_turns(z);
-  const float s = t * t;
-  *d1 = sin_poly_dt(s, deg9) * kInv2Pi;
-  *d2 = sin_poly_dt2(t, s, deg9) * kInv2Pi2;
-  return sin_poly(t, s, deg9);
-}
-
+// The bf16 sine's first three derivatives from one range reduction: the
+// backward's epilogues (sine3 of stack_tc.cuh, and the third).
 __device__ __forceinline__ void sine_d123(float z, bool deg9, float* d1, float* d2, float* d3) {
   const float t = sin_turns(z);
   const float s = t * t;
   *d1 = sin_poly_dt(s, deg9) * kInv2Pi;
   *d2 = sin_poly_dt2(t, s, deg9) * kInv2Pi2;
   *d3 = sin_poly_dt3(s, deg9) * kInv2Pi3;
-}
-
-// f(std::integral_constant<int, I>{}) for I = B .. E - 1, unrolled at
-// compile time: the register arrays a body indexes by I (the streams of a
-// pair) stay in registers.
-template <int B, int E, typename F>
-__device__ __forceinline__ void static_for(F&& f) {
-  if constexpr (B < E) {
-    f(std::integral_constant<int, B>{});
-    static_for<B + 1, E>(f);
-  }
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-__device__ __forceinline__ bf16 load_or_zero(const bf16* __restrict__ p, bool ok) {
-  return ok ? *p : __float2bfloat16_rn(0.f);
-}
-
-__device__ __forceinline__ void store_pair(bf16* p, float v0, float v1) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
-}
-
-// acc[s][t][i] = sum over k < n of A[(s0 + s) 16 + r][k] B[k][c] for the NSL
-// slabs from s0 and the warp's 16-column block cb: A is a stacked bf16 plane
-// in shared memory (row stride ld, columns from n to 16 k16 zero); B is the
-// group's W [n, n], B[k][c] = W[k][c] (the forward and the recompute) or,
-// TRANS_W, W[c][k] (the backward's D @ W^T), read from WS (W staged
-// zero-padded, row stride ld) where it is staged, else from W in global
-// memory. Accumulator tile t covers column cb 16 + 8 t + 2q (+1), rows g
-// (+8) of each slab: the layout of mma_sm90.cuh's C fragment. The same
-// operands in the same order give the same bits.
-template <int NSL, bool TRANS_W>
-__device__ __forceinline__ void stack_mma(const bf16* A, int ld, int s0, const bf16* WS,
-                                          const bf16* __restrict__ W, int n, int k16, int cb,
-                                          const Lane& l, float (&acc)[NSL][2][4]) {
-#pragma unroll
-  for (int s = 0; s < NSL; ++s)
-#pragma unroll
-    for (int t = 0; t < 2; ++t)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[s][t][i] = 0.f;
-  const bf16* a_row = A + (s0 * 16 + (l.lane & 15)) * ld + 8 * (l.lane >> 4);
-  auto products = [&](int kk, const uint32_t (&b)[2][2]) {
-#pragma unroll
-    for (int s = 0; s < NSL; ++s) {
-      uint32_t af[4];
-      ldsm_x4(af, a_row + s * 16 * ld + kk * 16);
-      mma_bf16_16816(acc[s][0], af, b[0][0], b[0][1]);
-      mma_bf16_16816(acc[s][1], af, b[1][0], b[1][1]);
-    }
-  };
-  if (WS) {
-    const bf16* b_row =
-        TRANS_W ? WS + (cb * 16 + (l.lane & 7) + 8 * (l.lane >> 4)) * ld + 8 * ((l.lane >> 3) & 1)
-                : WS + ((l.lane & 7) + 8 * ((l.lane >> 3) & 1)) * ld + cb * 16 + 8 * (l.lane >> 4);
-#pragma unroll 2
-    for (int kk = 0; kk < k16; ++kk) {
-      uint32_t bf[4];
-      if (TRANS_W)
-        ldsm_x4(bf, b_row + kk * 16);
-      else
-        ldsm_x4_trans(bf, b_row + kk * 16 * ld);
-      const uint32_t b[2][2] = {{bf[0], bf[1]}, {bf[2], bf[3]}};
-      products(kk, b);
-    }
-    return;
-  }
-  int col[2];
-  bool cok[2];
-#pragma unroll
-  for (int t = 0; t < 2; ++t) {
-    col[t] = cb * 16 + 8 * t + l.g;
-    cok[t] = col[t] < n;
-  }
-#pragma unroll 2
-  for (int kk = 0; kk < k16; ++kk) {
-    const int k0 = kk * 16 + 2 * l.q;
-    uint32_t b[2][2];
-#pragma unroll
-    for (int t = 0; t < 2; ++t)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int k = k0 + 8 * h;
-        const bool ok0 = cok[t] && k < n, ok1 = cok[t] && k + 1 < n;
-        if (TRANS_W) {
-          const bf16* p = W + (size_t)col[t] * n + k;
-          b[t][h] = pack_bf16(load_or_zero(p, ok0), load_or_zero(p + 1, ok1));
-        } else {
-          const bf16* p = W + (size_t)k * n + col[t];
-          b[t][h] = pack_bf16(load_or_zero(p, ok0), load_or_zero(p + n, ok1));
-        }
-      }
-    products(kk, b);
-  }
-}
-
-// Stage W [rows, cols] (row-major, global) into S [rows_p, ld], zero-padded
-// to rows_p x cols_p: 16-byte cp.async copies, all in flight at once, where
-// the rows allow them (shapenet_linear_tc.cu's). The caller waits for them
-// (cp_async_wait_all) before its next barrier, which shows S to the block.
-__device__ __forceinline__ void stage_matrix(bf16* S, int ld, const bf16* __restrict__ W, int rows,
-                                             int cols, int rows_p, int cols_p) {
-  if (cols % 8 == 0 && (reinterpret_cast<uintptr_t>(W) & 15) == 0) {
-    const int cpr = cols_p / 8;
-    for (int idx = threadIdx.x; idx < rows_p * cpr; idx += kThreads) {
-      const int r = idx / cpr;
-      const int c = (idx - r * cpr) * 8;
-      const bool valid = r < rows && c < cols;
-      cp_async16(S + r * ld + c, valid ? W + (size_t)r * cols + c : W, valid);
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < rows_p * cols_p; idx += kThreads) {
-      const int r = idx / cols_p;
-      const int c = idx - r * cols_p;
-      S[r * ld + c] = r < rows && c < cols ? W[(size_t)r * cols + c] : __float2bfloat16_rn(0.f);
-    }
-  }
-}
-
-// out[i][c] (+)= sum over the tile's stacked rows p < tr of A[p][i] D[p][c]
-// for i, c < n (row-major [n, n] in the block's partial; written on its
-// first tile): A and D are bf16 planes (row stride ld) whose columns are zero
-// from n up to 16 n16. Tasks of 16 x 32 outputs, the warps in turn
-// (shapenet_linear_tc.cu's, without its bias row block). A task loads its
-// partial values before its products, so their L2 latency overlaps the
-// products instead of following each store. For even n (out 8-byte
-// aligned) a thread's two neighbouring columns move as one float2, so each
-// 32-byte sector of the partial is written whole by one instruction.
-__device__ __forceinline__ void weight_grad_stack(const bf16* A, const bf16* D, int ld, int n,
-                                                  int n16, int tr, float* out, bool first,
-                                                  const Lane& l) {
-  const int n32 = (n16 + 1) / 2;
-  const bool pairs = n % 2 == 0;
-  for (int task = l.warp; task < n16 * n32; task += kWarps) {
-    const int mb = task / n32;
-    const int nb2 = task - mb * n32;
-    int at[4][4];  // offset of each output in out, -1 where there is none
-    float d[4][4], old[4][4];
-#pragma unroll
-    for (int t = 0; t < 4; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = nb2 * 32 + t * 8 + 2 * l.q + (e & 1);
-        const int i = mb * 16 + l.g + 8 * (e >> 1);
-        at[t][e] = i < n && c < n ? i * n + c : -1;
-        d[t][e] = 0.f;
-      }
-#pragma unroll
-    for (int t = 0; t < 4; ++t)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int* o = &at[t][2 * h];
-        float* v = &old[t][2 * h];
-        if (pairs) {  // c even and n even: both columns live or neither
-          const float2 w = !first && o[0] >= 0 ? *reinterpret_cast<const float2*>(out + o[0])
-                                               : make_float2(0.f, 0.f);
-          v[0] = w.x;
-          v[1] = w.y;
-        } else {
-          v[0] = !first && o[0] >= 0 ? out[o[0]] : 0.f;
-          v[1] = !first && o[1] >= 0 ? out[o[1]] : 0.f;
-        }
-      }
-    for (int p = 0; p < tr; p += 16) {
-      uint32_t af[4];
-      ldsm_x4_trans(af, A + (p + (l.lane & 7) + 8 * (l.lane >> 4)) * ld + mb * 16 +
-                            8 * ((l.lane >> 3) & 1));
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int nb = nb2 * 2 + h;
-        if (nb < n16) {
-          uint32_t bf[4];
-          ldsm_x4_trans(bf, D + (p + (l.lane & 7) + 8 * ((l.lane >> 3) & 1)) * ld + nb * 16 +
-                                8 * (l.lane >> 4));
-          mma_bf16_16816(d[2 * h], af, bf[0], bf[1]);
-          mma_bf16_16816(d[2 * h + 1], af, bf[2], bf[3]);
-        }
-      }
-    }
-#pragma unroll
-    for (int t = 0; t < 4; ++t)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int e = 2 * h;
-        const float v0 = first ? d[t][e] : old[t][e] + d[t][e];
-        const float v1 = first ? d[t][e + 1] : old[t][e + 1] + d[t][e + 1];
-        if (pairs) {
-          if (at[t][e] >= 0) *reinterpret_cast<float2*>(out + at[t][e]) = make_float2(v0, v1);
-        } else {
-          if (at[t][e] >= 0) out[at[t][e]] = v0;
-          if (at[t][e + 1] >= 0) out[at[t][e + 1]] = v1;
-        }
-      }
-  }
-}
-
-// Sum v over the 16 points of a column: the thread's two rows (g, g + 8),
-// then the eight lanes of its quad position q. Every lane gets the sum.
-__device__ __forceinline__ float column_sum(float v_g, float v_g8) {
-  float s = v_g + v_g8;
-  s += __shfl_xor_sync(0xffffffffu, s, 4);
-  s += __shfl_xor_sync(0xffffffffu, s, 8);
-  s += __shfl_xor_sync(0xffffffffu, s, 16);
-  return s;
-}
-
-// A thread's f32 carry (NS x 8 values per column block): in the block's
-// scratch, element-major over the block's threads, so a warp's accesses are
-// coalesced. Slot 0: a resblock's running state U (forward) and its block
-// cotangent (backward); slot 1: the cotangent of a further column block.
-template <int NS>
-__device__ __forceinline__ float* carry_slot(float* carry, int slot, int cbl, int n_cb) {
-  return carry + ((size_t)(slot * n_cb + cbl) * NS * 8) * kThreads + threadIdx.x;
-}
-
-template <int NS>
-__device__ __forceinline__ void carry_store(float* c, const float (&v)[NS][2][4]) {
-#pragma unroll
-  for (int s = 0; s < NS; ++s)
-#pragma unroll
-    for (int t = 0; t < 2; ++t)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) c[((s * 2 + t) * 4 + i) * kThreads] = v[s][t][i];
-}
-
-template <int NS>
-__device__ __forceinline__ void carry_load(const float* c, float (&v)[NS][2][4]) {
-#pragma unroll
-  for (int s = 0; s < NS; ++s)
-#pragma unroll
-    for (int t = 0; t < 2; ++t)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) v[s][t][i] = c[((s * 2 + t) * 4 + i) * kThreads];
-}
-
-// The thread's values v of every slab into a stacked bf16 plane (and a copy
-// in global memory when `copy` is set): rows st 16 + g (+8), columns cb 16 +
-// 8 t + 2q (+1), zero from column n on.
-template <int NS>
-__device__ __forceinline__ void store_stack(bf16* plane, bf16* copy, int ld, int n, int cb,
-                                            const Lane& l, const float (&v)[NS][2][4]) {
-#pragma unroll
-  for (int st = 0; st < NS; ++st)
-#pragma unroll
-    for (int t = 0; t < 2; ++t) {
-      const int c0 = cb * 16 + 8 * t + 2 * l.q;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int o = (st * 16 + l.g + 8 * h) * ld + c0;
-        const float v0 = c0 < n ? v[st][t][2 * h] : 0.f;
-        const float v1 = c0 + 1 < n ? v[st][t][2 * h + 1] : 0.f;
-        store_pair(plane + o, v0, v1);
-        if (copy) store_pair(copy + o, v0, v1);
-      }
-    }
-}
-
-// The column of accumulator element (t, i) of column block cb.
-__device__ __forceinline__ int frag_col(int cb, int t, int i, const Lane& l) {
-  return cb * 16 + 8 * t + 2 * l.q + (i & 1);
 }
 
 template <int SI, bool RES>
@@ -444,11 +167,7 @@ __global__ void __launch_bounds__(kThreads, 1) hess_tc_kernel(const TcArgs a) {
   // ... and in the backward (scratch mode: copied back into plane 0 first)
   auto bwd_plane = [&](int m) { return a.resident ? planes + m * plane : planes; };
 
-  Lane l;
-  l.lane = threadIdx.x % kLanes;
-  l.g = l.lane >> 2;
-  l.q = l.lane & 3;
-  l.warp = threadIdx.x / kLanes;
+  const Lane l = lane_of_thread();
 
   const int S = gridDim.x, s = blockIdx.x;
   const int n_tiles = (a.P + kTp - 1) / kTp;
@@ -900,79 +619,21 @@ __global__ void __launch_bounds__(kThreads, 1) hess_tc_kernel(const TcArgs a) {
 #endif
 }
 
-// The split reduce of shapenet_common.cuh (split_reduce_kernel) over
-// partials whose rows have the even stride ps >= po: d_wb[g][p] =
-// bf16((sum_s partial[g][s][p]) * (p < n_scaled ? omega : 1)), the S splits
-// in order; then one thread per loss sums its G*S partials in order and
-// divides by its norm. No float atomics: two runs give the same bits.
-__global__ void __launch_bounds__(kThreads)
-    hess_tc_reduce_kernel(const float* __restrict__ partials, int G, int S, long long po,
-                          long long ps, long long n_scaled, float omega, LossNorms norms,
-                          bf16* __restrict__ d_wb, float* __restrict__ losses) {
-  const long long total = (long long)G * po;
-  for (long long idx = (long long)blockIdx.x * kThreads + threadIdx.x; idx < total;
-       idx += (long long)gridDim.x * kThreads) {
-    const long long g = idx / po;
-    const long long p = idx - g * po;
-    const float* src = partials + g * S * ps + p;
-    float sum = 0.f;
-    for (int s = 0; s < S; ++s) sum += src[s * ps];
-    if (p < n_scaled) sum = sum * omega;
-    d_wb[idx] = __float2bfloat16_rn(sum);
-  }
-  if (blockIdx.x == 0 && threadIdx.x < 3) {
-    const float* lp = partials + (long long)G * S * ps + threadIdx.x;
-    float sum = 0.f;
-    for (long long i = 0; i < (long long)G * S; ++i) sum += lp[3 * i];
-    losses[threadIdx.x] = sum / norms.n[threadIdx.x];
-  }
-}
-
-struct TcGeometry {
-  int n16, ld, n_cb, splits, grid_g, resident, stage_w;
-  size_t smem, block_bytes, carry_offset;
-};
-
-constexpr int round16(int v) { return (v + 15) / 16 * 16; }
 
 // Status of a shape: 0 = ok, 2 = even two working planes exceed a block's
-// shared memory, 3 = bad shape (or a chain or si the kernel does not take).
-// In order of preference: every S plane, D and the staged W_m in shared
-// memory (resident); two working planes and W_m, the S planes in the block's
-// global scratch; two working planes alone, W_m read from global memory.
-int tc_geometry(int n, int si, int so, int n_mats, int chain, int G, int P, TcGeometry* g) {
+// shared memory, 3 = bad shape (or a chain or si the kernel does not take);
+// the layout is stack_geometry()'s, over 16-point tiles of ten streams at
+// si = 3.
+int tc_geometry(int n, int si, int so, int n_mats, int chain, int G, int P, StackGeometry* g) {
   if (n < 1 || si < 1 || si > kMaxSiTc || so < 1 || n_mats < 0 || G < 1 || P < 1 ||
       (chain != kSirenPlain && chain != kSirenResblock) || (chain == kSirenResblock && n_mats % 2))
     return 3;
   const int ns = 1 + si + si * (si + 1) / 2;
-  const size_t tr = (size_t)ns * kTp;
-  g->n16 = round16(n) / 16;
-  g->ld = round16(n) + 8;
-  g->n_cb = (g->n16 + kWarps - 1) / kWarps;
-  const size_t plane = 2 * tr * g->ld;
-  const size_t wplane = 2 * (size_t)g->n16 * 16 * g->ld;
-  const size_t params = (size_t)(si + 1 + n_mats + so) * n + so;
-  const size_t small = 4 * (2 * tr * so + kTp + 3 * kWarps + params) + 2 * (size_t)kTp * si;
-  const size_t resident = (n_mats + 2) * plane + wplane + small;
-  g->resident = resident <= kMaxSmem;
-  g->stage_w = g->resident || 2 * plane + wplane + small <= kMaxSmem;
-  g->smem = g->resident ? resident : 2 * plane + (g->stage_w ? wplane : 0) + small;
-  const size_t planes_bytes = g->resident ? 0 : (size_t)n_mats * plane;
-  const bool carry = chain == kSirenResblock || g->n_cb > 1;
-  const size_t carry_bytes = carry ? 4 * (size_t)2 * g->n_cb * ns * 8 * kThreads : 0;
-  g->carry_offset = (planes_bytes + 15) / 16 * 16;
-  g->block_bytes = (g->carry_offset + carry_bytes + 15) / 16 * 16;
-  const int n_tiles = (P + kTp - 1) / kTp;
-  const int sms = sm_count();
-  int splits = sms > G ? sms / G : 1;
-  splits = splits < kMaxSplitsTc ? splits : kMaxSplitsTc;
-  g->splits = splits < n_tiles ? splits : n_tiles;
-  g->grid_g = G < 65535 ? G : 65535;
-  return g->smem > kMaxSmem ? 2 : 0;
+  return stack_geometry(n, si, so, n_mats, chain, G, P, kTp, ns * kTp, 3, g);
 }
 
 template <int SI, bool RES>
-int launch_tc(const TcGeometry& geo, const TcArgs& a, cudaStream_t stream) {
+int launch_tc(const StackGeometry& geo, const TcArgs& a, cudaStream_t stream) {
   auto kernel = hess_tc_kernel<SI, RES>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)geo.smem);
@@ -982,7 +643,7 @@ int launch_tc(const TcGeometry& geo, const TcArgs& a, cudaStream_t stream) {
 }
 
 template <bool RES>
-int launch_si(int si, const TcGeometry& geo, const TcArgs& a, cudaStream_t stream) {
+int launch_si(int si, const StackGeometry& geo, const TcArgs& a, cudaStream_t stream) {
   switch (si) {
     case 1: return launch_tc<1, RES>(geo, a, stream);
     case 2: return launch_tc<2, RES>(geo, a, stream);
@@ -1007,7 +668,7 @@ int nif_shapenet_hess_tc_workspace(int n, int si, int so, int n_mats, int chain,
                                    int* tile, int* splits, long long* smem_bytes, int* resident,
                                    int* staged_w, long long* partial_floats,
                                    long long* scratch_bytes) {
-  TcGeometry g{};
+  StackGeometry g{};
   const int status = tc_geometry(n, si, so, n_mats, chain, G, P, &g);
   if (status == 3) return status;
   const long long po = (long long)n_mats * n * n + (long long)(si + so + 1 + n_mats) * n + so;
@@ -1037,7 +698,7 @@ int nif_shapenet_hessian_grads_tc(const void* wb, const void* x, const void* tar
                                   long long po, long long wb_ld, long long n_scaled, float omega,
                                   float ky, float kj, float kh, float n_y, float n_j, float n_h,
                                   void* stream) {
-  TcGeometry geo{};
+  StackGeometry geo{};
   if ((act != kSinePoly7 && act != kSinePoly9) || wb_ld < po ||
       tc_geometry(n, si, so, n_mats, chain, G, P, &geo) != 0)
     return (int)cudaErrorInvalidValue;
@@ -1070,10 +731,8 @@ int nif_shapenet_hessian_grads_tc(const void* wb, const void* x, const void* tar
                                           : launch_si<false>(si, geo, a, s);
   if (err != 0) return err;
   const LossNorms norms{{n_y, n_j, n_h}};
-  hess_tc_reduce_kernel<<<stride_blocks((long long)G * po), kThreads, 0, s>>>(
-      a.partials, G, geo.splits, po, a.ps, n_scaled, omega, norms, static_cast<bf16*>(d_wb),
-      static_cast<float*>(losses));
-  return (int)cudaGetLastError();
+  return launch_stack_reduce<3>(a.partials, G, geo.splits, po, n_scaled, omega, norms,
+                                static_cast<bf16*>(d_wb), static_cast<float*>(losses), s);
 }
 
 #ifdef K8_PHASE_CLOCKS

@@ -341,23 +341,26 @@ class NIF(nn.Module):
     def sobolev_path_info(self, P: int, si: int, hess: bool = False) -> Dict[str, Any]:
         """Which path :meth:`sobolev_value_and_grad` takes for ``[G, P, si]``
         batches under auto selection: ``{"path": "fused"|"eager", "tile":
-        int|None, "reason": str|None}``, the Sobolev counterpart of
-        :meth:`fast_path_info`: K6's gate and geometry, or with ``hess=True``
-        (Hessian targets) K8's."""
+        int|None, "reason": str|None, "kernel": "tc"|"simt"|None}``, the
+        Sobolev counterpart of :meth:`fast_path_info`: K6's gate and
+        geometry, or with ``hess=True`` (Hessian targets) K8's, and which of
+        the kernel's variants runs (the tensor-core or the CUDA-core one)."""
         cfg_k, variant_k = self._derivative_kernel_cfg()
         dtype = self.policy.compute_dtype
         reason = self._sobolev_gate(cfg_k, variant_k, P, si, hess)
-        return self._path_info(reason, lambda: (
-            hessian_geometry("train", cfg_k, variant_k, 1, P, dtype, si) if hess else
-            derivative_geometry("sobolev", cfg_k, variant_k, 1, P, dtype, si))["tile"])
+        info = self._path_info(reason, lambda: None)
+        info["kernel"] = None
+        if info["path"] == "fused":
+            geo = (hessian_geometry("train", cfg_k, variant_k, 1, P, dtype, si) if hess else
+                   derivative_geometry("sobolev", cfg_k, variant_k, 1, P, dtype, si))
+            info.update(tile=geo["tile"], kernel=geo["kernel"])
+        return info
 
     def _sobolev_gate(self, cfg_k, variant_k, P: int, si: int, hess: bool) -> Optional[str]:
-        """K6's gate, or K8's (Hessian targets) for the kernel variant of the
-        compute dtype."""
-        if hess:
-            return hessian_fused_unsupported_reason(cfg_k, variant_k, P, si, self.device,
-                                                    self.policy.compute_dtype)
-        return sobolev_fused_unsupported_reason(cfg_k, variant_k, P, si, self.device)
+        """K6's gate, or K8's (Hessian targets), for the kernel variant of
+        the compute dtype and the chain."""
+        gate = hessian_fused_unsupported_reason if hess else sobolev_fused_unsupported_reason
+        return gate(cfg_k, variant_k, P, si, self.device, self.policy.compute_dtype)
 
     def _announce_sobolev_path(self, P: int, si: int, hess: bool = False) -> None:
         """One-time log of the Sobolev train path for ``[G, P, si]``
@@ -367,8 +370,8 @@ class NIF(nn.Module):
         self._announced_sobolev_paths.add((P, si, hess))
         info = self.sobolev_path_info(P, si, hess=hess)
         if info["path"] == "fused":
-            logger.info("sobolev fast path: fused CUDA kernel %s (P=%d, point tile %s)",
-                        "K8" if hess else "K6", P, info["tile"])
+            logger.info("sobolev fast path: fused CUDA kernel %s, %s variant (P=%d, point "
+                        "tile %s)", "K8" if hess else "K6", info["kernel"], P, info["tile"])
         elif info["reason"].startswith("not on CUDA"):
             logger.debug("sobolev path: eager (%s)", info["reason"])
         else:

@@ -20,12 +20,16 @@ products Z stay f32; the reverse sweeps carry ``du`` in f32 and round each
 outputs are cast to x's dtype; K6's bias gradients sum the unrounded ``dz``.
 
 On a CUDA tensor each entry launches its hand-written kernel
-(``nif_tpu_torch/csrc/shapenet_jac.cu``), or raises. On a CPU tensor it
-runs the plain PyTorch version (``*_reference``), which the CPU tests hold
-against the JAX package's interpret-mode kernels and ``chip_smoke.py`` holds
-the CUDA kernels against. Nothing here falls back to another path: callers
-route (``ops.derivatives``, ``NIF.sobolev_value_and_grad``) with the
-``*_supported`` gates.
+(``nif_tpu_torch/csrc/shapenet_jac.cu``), or raises. K6 has two variants
+(:func:`k6_variant`): bfloat16 runs the tensor-core kernel
+(``csrc/shapenet_jac_tc.cu``, variant ``"tc"``) wherever its geometry takes
+the shape, and the CUDA-core one (``csrc/shapenet_jac.cu``, variant
+``"simt"``) otherwise and for float32, whose f32 products never round to
+TF32. On a CPU tensor it runs the plain PyTorch version (``*_reference``),
+which the CPU tests hold against the JAX package's interpret-mode kernels
+and ``chip_smoke.py`` holds the CUDA kernels against. Nothing here falls
+back to another path: callers route (``ops.derivatives``,
+``NIF.sobolev_value_and_grad``) with the ``*_supported`` gates.
 """
 from __future__ import annotations
 
@@ -69,6 +73,7 @@ __all__ = [
     "sobolev_fused_supported",
     "sobolev_fused_unsupported_reason",
     "derivative_geometry",
+    "k6_variant",
 ]
 
 # Kernel bodies of csrc/shapenet_jac.cu (its enum Mode).
@@ -81,39 +86,101 @@ def _jac_mode(cfg: ShapeNetConfig, si: int) -> str:
 
 
 # --------------------------------------------------------------- geometry
-def _library() -> ctypes.CDLL:
-    lib = _build.load_library("shapenet_jac")
-    if lib.nif_shapenet_fwd_jac.argtypes is None:
-        c_int, ptr, c_ll, c_f = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
-        lib.nif_shapenet_jac_workspace.argtypes = [c_int] * 9 + [ptr] * 5
-        lib.nif_shapenet_jac_workspace.restype = c_int
-        lib.nif_shapenet_fwd_jac.argtypes = [ptr] * 5 + [c_int] * 8 + [c_ll, c_int, ptr]
-        lib.nif_shapenet_fwd_jac.restype = c_int
-        lib.nif_shapenet_sobolev_grads.argtypes = (
-            [ptr] * 11 + [c_int] * 8 + [c_ll, c_ll] + [c_f] * 5 + [c_int, ptr])
-        lib.nif_shapenet_sobolev_grads.restype = c_int
+def _library(kernel: str = "simt") -> ctypes.CDLL:
+    c_int, ptr, c_ll, c_f = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
+    if kernel == "tc":
+        lib = _build.load_library("shapenet_jac_tc")
+        if lib.nif_shapenet_sobolev_grads_tc.argtypes is None:
+            lib.nif_shapenet_sobolev_tc_workspace.argtypes = [c_int] * 7 + [ptr] * 7
+            lib.nif_shapenet_sobolev_tc_workspace.restype = c_int
+            lib.nif_shapenet_sobolev_grads_tc.argtypes = (
+                [ptr] * 11 + [c_int] * 8 + [c_ll] * 3 + [c_f] * 5 + [ptr])
+            lib.nif_shapenet_sobolev_grads_tc.restype = c_int
+    else:
+        lib = _build.load_library("shapenet_jac")
+        if lib.nif_shapenet_fwd_jac.argtypes is None:
+            lib.nif_shapenet_jac_workspace.argtypes = [c_int] * 9 + [ptr] * 5
+            lib.nif_shapenet_jac_workspace.restype = c_int
+            lib.nif_shapenet_fwd_jac.argtypes = [ptr] * 5 + [c_int] * 8 + [c_ll, c_int, ptr]
+            lib.nif_shapenet_fwd_jac.restype = c_int
+            lib.nif_shapenet_sobolev_grads.argtypes = (
+                [ptr] * 11 + [c_int] * 8 + [c_ll, c_ll] + [c_f] * 5 + [c_int, ptr])
+            lib.nif_shapenet_sobolev_grads.restype = c_int
+    if lib.nif_cuda_error_string.argtypes is None:
         lib.nif_cuda_error_string.argtypes = [c_int]
         lib.nif_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def _stack_tc_status(workspace, mode: str, cfg: ShapeNetConfig, variant: str, si: int, G: int,
+                     P: int):
+    """``(status, geometry)`` of a stacked-stream tensor-core kernel (K6 or
+    K8) from its library's ``workspace`` entry."""
+    tile, splits, resident, staged_w = (ctypes.c_int() for _ in range(4))
+    smem, partial_floats, scratch = ctypes.c_longlong(), ctypes.c_longlong(), ctypes.c_longlong()
+    status = workspace(
+        cfg.units, si, cfg.output_dim, _n_mats(cfg), _chain_code(cfg, variant), G, P,
+        ctypes.byref(tile), ctypes.byref(splits), ctypes.byref(smem), ctypes.byref(resident),
+        ctypes.byref(staged_w), ctypes.byref(partial_floats), ctypes.byref(scratch))
+    geo = {"mode": mode, "kernel": "tc", "tile": tile.value, "splits": splits.value,
+           "smem_bytes": smem.value, "residuals": "shared" if resident.value else "global",
+           "weights": "shared" if staged_w.value else "global",
+           "partial_floats": partial_floats.value, "scratch_bytes": scratch.value}
+    return status, geo
+
+
+def _tc_status(cfg: ShapeNetConfig, variant: str, si: int, G: int, P: int):
+    """``(status, geometry)`` of the tensor-core K6 (``csrc/shapenet_jac_tc.cu``)."""
+    return _stack_tc_status(_library("tc").nif_shapenet_sobolev_tc_workspace, "sobolev", cfg,
+                            variant, si, G, P)
+
+
+def k6_variant(dtype: torch.dtype, cfg: Optional[ShapeNetConfig] = None, variant: str = "siren",
+               si: Optional[int] = None) -> str:
+    """Which CUDA kernel K6 runs for inputs of ``dtype``: ``"tc"`` (the
+    tensor-core kernel, ``csrc/shapenet_jac_tc.cu``) for bfloat16 and
+    ``"simt"`` (the CUDA-core kernel, ``csrc/shapenet_jac.cu``) for float32,
+    whose products stay full f32 (and for any other dtype, which the wrapper
+    refuses). Given a chain (``cfg``, ``variant``, ``si``; this asks the
+    tensor-core kernel's library, so it needs nvcc), bfloat16 runs the
+    CUDA-core kernel where the tensor-core one does not take the shape: a
+    vanilla chain, si > 4, or a width whose stacked planes exceed a block's
+    shared memory."""
+    if dtype != torch.bfloat16:
+        return "simt"
+    if cfg is None:
+        return "tc"
+    si = cfg.input_dim if si is None else si
+    return "tc" if _tc_status(cfg, variant, si, 1, 1)[0] == 0 else "simt"
+
+
 def _geometry_status(mode: str, cfg: ShapeNetConfig, variant: str, si: int, G: int, P: int,
-                     dtype: torch.dtype):
+                     dtype: torch.dtype, kernel: Optional[str] = None):
+    if mode == "sobolev" and (kernel or k6_variant(dtype, cfg, variant, si)) == "tc":
+        return _tc_status(cfg, variant, si, G, P)
     tile, splits = ctypes.c_int(), ctypes.c_int()
     smem, partial_floats, scratch = ctypes.c_longlong(), ctypes.c_longlong(), ctypes.c_longlong()
     status = _library().nif_shapenet_jac_workspace(
         _MODES[mode], cfg.units, si, cfg.output_dim, _n_mats(cfg), _chain_code(cfg, variant),
         G, P, _DTYPE_CODES[dtype], ctypes.byref(tile), ctypes.byref(splits),
         ctypes.byref(smem), ctypes.byref(partial_floats), ctypes.byref(scratch))
-    geo = {"mode": mode, "tile": tile.value, "splits": splits.value,
+    geo = {"mode": mode, "kernel": "simt", "tile": tile.value, "splits": splits.value,
            "smem_bytes": smem.value, "residuals": "global" if scratch.value else "shared",
-           "partial_floats": partial_floats.value, "scratch_bytes": scratch.value}
+           "weights": "shared", "partial_floats": partial_floats.value,
+           "scratch_bytes": scratch.value}
     return status, geo
 
 
 def _status_reason(status: int, cfg: ShapeNetConfig, si: int, geo: dict) -> Optional[str]:
     if status == 0:
         return None
+    if geo["kernel"] == "tc":
+        if status == 2:
+            return (f"units={cfg.units} with si={si} needs {geo['smem_bytes']} bytes of shared "
+                    f"memory per block in the tensor-core Sobolev kernel (two stacked planes "
+                    f"of 32 points), more than a block may have")
+        return (f"the tensor-core Sobolev kernel cannot take {cfg} with si={si} "
+                f"(status {status})")
     if status == 1:
         return (f"units={cfg.units} is wider than the CUDA derivative kernels take (a "
                 f"thread keeps its columns of a layer in registers)")
@@ -128,23 +195,34 @@ def _status_reason(status: int, cfg: ShapeNetConfig, si: int, geo: dict) -> Opti
 
 def derivative_geometry(mode: str, cfg: ShapeNetConfig, variant: str, G: int, P: int,
                         dtype: torch.dtype, si: Optional[int] = None) -> dict:
-    """The launch geometry of one body of ``csrc/shapenet_jac.cu`` (``mode``
-    "reverse" or "tangent" for K5, "sobolev" for K6) at ``[G, P]``, from the
-    kernels' library (it needs nvcc): points per tile, P splits per group,
-    shared memory per block, whether a tile's residuals sit in shared memory
-    or in a per-block global scratch, and the workspace sizes the wrappers
-    allocate."""
+    """The launch geometry of one body (``mode`` "reverse" or "tangent" for
+    K5, "sobolev" for K6) at ``[G, P]`` in ``dtype``, from its kernel's
+    library (it needs nvcc): K5's from ``csrc/shapenet_jac.cu``, K6's from
+    the library of its variant (:func:`k6_variant`): the kernel, points per
+    tile, P splits per group, shared memory per block, whether a tile's
+    residuals and the staged weights sit in shared memory or in global
+    memory, and the workspace sizes the wrappers allocate."""
+    return _geometry(mode, cfg, variant, G, P, dtype, si)
+
+
+def _geometry(mode: str, cfg: ShapeNetConfig, variant: str, G: int, P: int,
+              dtype: torch.dtype, si: Optional[int] = None, kernel: Optional[str] = None) -> dict:
     si = cfg.input_dim if si is None else si
-    status, geo = _geometry_status(mode, cfg, variant, si, G, P, dtype)
+    status, geo = _geometry_status(mode, cfg, variant, si, G, P, dtype, kernel)
     if status != 0:
         raise ValueError(_status_reason(status, cfg, si, geo))
     return geo
 
 
-def _cuda_reason(mode: str, cfg: ShapeNetConfig, variant: str, si: int) -> Optional[str]:
-    """The CUDA body's own limits (width, streams, shared memory); they do
-    not depend on the dtype, G or P."""
-    status, geo = _geometry_status(mode, cfg, variant, si, 1, 1, torch.bfloat16)
+def _cuda_reason(mode: str, cfg: ShapeNetConfig, variant: str, si: int,
+                 dtype: torch.dtype = torch.bfloat16,
+                 kernel: Optional[str] = None) -> Optional[str]:
+    """The CUDA body's own limits (width, streams, shared memory) in the
+    kernel that ``dtype`` (or ``kernel``) runs; they do not depend on G or
+    P."""
+    if dtype not in _DTYPE_CODES:  # the wrapper refuses other dtypes itself
+        return None
+    status, geo = _geometry_status(mode, cfg, variant, si, 1, 1, dtype, kernel)
     return _status_reason(status, cfg, si, geo)
 
 
@@ -166,18 +244,20 @@ def fwd_jac_supported(cfg: ShapeNetConfig, variant: str, P: int, si: int,
 
 
 def sobolev_fused_unsupported_reason(cfg: ShapeNetConfig, variant: str, P: int, si: int,
-                                     device=None) -> Optional[str]:
+                                     device=None, dtype: torch.dtype = torch.bfloat16,
+                                     kernel: Optional[str] = None) -> Optional[str]:
     """Why K6 can NOT take this config (None = it can); as
-    :func:`fwd_jac_unsupported_reason`."""
+    :func:`fwd_jac_unsupported_reason`, in the kernel that ``dtype`` runs
+    (:func:`k6_variant`) or ``kernel``."""
     base = fused_unsupported_reason(cfg, variant, P)
     if base is None and device is not None and torch.device(device).type == "cuda":
-        return _cuda_reason("sobolev", cfg, variant, si)
+        return _cuda_reason("sobolev", cfg, variant, si, dtype, kernel)
     return base
 
 
 def sobolev_fused_supported(cfg: ShapeNetConfig, variant: str, P: int, si: int,
-                            device=None) -> bool:
-    return sobolev_fused_unsupported_reason(cfg, variant, P, si, device) is None
+                            device=None, dtype: torch.dtype = torch.bfloat16) -> bool:
+    return sobolev_fused_unsupported_reason(cfg, variant, P, si, device, dtype) is None
 
 
 # ----------------------------------------------------------- plain versions
@@ -464,8 +544,9 @@ def shapenet_sobolev_grads_reference(wb: torch.Tensor, x: torch.Tensor, target: 
 
 
 # ----------------------------------------------------------- CUDA wrappers
-def _workspace(mode: str, cfg: ShapeNetConfig, variant: str, x: torch.Tensor):
-    geo = derivative_geometry(mode, cfg, variant, x.shape[0], x.shape[1], x.dtype)
+def _workspace(mode: str, cfg: ShapeNetConfig, variant: str, x: torch.Tensor,
+               kernel: Optional[str] = None):
+    geo = _geometry(mode, cfg, variant, x.shape[0], x.shape[1], x.dtype, kernel=kernel)
     partials = torch.empty(max(geo["partial_floats"], 1), dtype=torch.float32, device=x.device)
     scratch = torch.empty(max(geo["scratch_bytes"], 1), dtype=torch.uint8, device=x.device)
     return partials, scratch
@@ -511,17 +592,15 @@ def _device_tensor(a, name: str, shape, x: torch.Tensor, dtype) -> torch.Tensor:
     return a.to(dtype).contiguous()
 
 
-def shapenet_sobolev_grads_cuda(wb: torch.Tensor, x: torch.Tensor, target: torch.Tensor,
-                                jac_target: torch.Tensor, cfg: ShapeNetConfig,
-                                variant: str = "siren", w_value: float = 1.0,
-                                w_jac: float = 1.0, y_mask=None, jac_mask=None,
-                                weight: Optional[torch.Tensor] = None):
-    """Launch K6 on ``torch.cuda.current_stream()``: ``(value_mse, jac_mse,
-    d_wb)`` as :func:`shapenet_sobolev_grads_reference` computes them.
-    Raises on anything the kernel does not take; never falls back."""
+def _launch_k6(kernel: str, wb: torch.Tensor, x: torch.Tensor, target: torch.Tensor,
+               jac_target: torch.Tensor, cfg: ShapeNetConfig, variant: str, w_value: float,
+               w_jac: float, y_mask, jac_mask, weight: Optional[torch.Tensor]):
+    """K6 through the library of ``kernel`` ("tc" or "simt"), after the
+    wrapper's checks; counts the launch."""
     si = x.shape[-1] if x.dim() == 3 else cfg.input_dim
     _check_cuda_inputs("shapenet_sobolev_grads_cuda", wb, x, cfg, variant,
-                       lambda c, v, P, d: sobolev_fused_unsupported_reason(c, v, P, si, d))
+                       lambda c, v, P, d: sobolev_fused_unsupported_reason(c, v, P, si, d,
+                                                                           x.dtype, kernel))
     G, P, si = x.shape
     so = cfg.output_dim
     target = _device_tensor(target, "target", (G, P, so), x, x.dtype)
@@ -536,23 +615,57 @@ def shapenet_sobolev_grads_cuda(wb: torch.Tensor, x: torch.Tensor, target: torch
         return losses[0].fill_(float("nan")), losses[1].fill_(float("nan")), d_wb.zero_()
     n_y, n_j, ky, kj = _sobolev_scales(G, P, si, so, w_value, w_jac, y_mask, jac_mask)
     wbp = _prescale(wb, cfg, variant).contiguous()
+    if kernel == "tc":  # rows padded to 16 bytes, so every group's W_m stages with cp.async
+        wbp = torch.nn.functional.pad(wbp, (0, -wbp.shape[1] % 8))
     x = x.contiguous()
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    lib = _library()
-    with torch.cuda.device(x.device):
-        partials, scratch = _workspace("sobolev", cfg, variant, x)
+    lib = _library(kernel)
+    with torch.cuda.device(x.device):  # the geometry reads this device's SM count
+        partials, scratch = _workspace("sobolev", cfg, variant, x, kernel)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.nif_shapenet_sobolev_grads(
-            wbp.data_ptr(), x.data_ptr(), target.data_ptr(), jac_target.data_ptr(), ptr(ym),
-            ptr(jm), ptr(weight), losses.data_ptr(), d_wb.data_ptr(), partials.data_ptr(),
-            scratch.data_ptr(), G, P, si, so, cfg.units, _n_mats(cfg),
-            _chain_code(cfg, variant), _act_code(cfg, variant, x.dtype), wb.shape[1],
-            _n_scaled(cfg, variant), float(cfg.omega_0) if variant == "siren" else 1.0,
-            ky, kj, float(n_y), float(n_j), _DTYPE_CODES[x.dtype], stream,
-        )
+        args = (wbp.data_ptr(), x.data_ptr(), target.data_ptr(), jac_target.data_ptr(),
+                ptr(ym), ptr(jm), ptr(weight), losses.data_ptr(), d_wb.data_ptr(),
+                partials.data_ptr(), scratch.data_ptr(), G, P, si, so, cfg.units, _n_mats(cfg),
+                _chain_code(cfg, variant), _act_code(cfg, variant, x.dtype), wb.shape[1])
+        rest = (_n_scaled(cfg, variant), float(cfg.omega_0) if variant == "siren" else 1.0,
+                ky, kj, float(n_y), float(n_j))
+        if kernel == "tc":
+            err = lib.nif_shapenet_sobolev_grads_tc(*args, wbp.shape[1], *rest, stream)
+        else:
+            err = lib.nif_shapenet_sobolev_grads(*args, *rest, _DTYPE_CODES[x.dtype], stream)
     _raise_on_error(lib, "shapenet_sobolev_grads", err)
     _build.LAUNCHES["shapenet_sobolev_grads"] += 1
+    if kernel == "tc":
+        _build.LAUNCHES["shapenet_sobolev_grads_tc"] += 1
     return losses[0], losses[1], d_wb
+
+
+def shapenet_sobolev_grads_cuda(wb: torch.Tensor, x: torch.Tensor, target: torch.Tensor,
+                                jac_target: torch.Tensor, cfg: ShapeNetConfig,
+                                variant: str = "siren", w_value: float = 1.0,
+                                w_jac: float = 1.0, y_mask=None, jac_mask=None,
+                                weight: Optional[torch.Tensor] = None):
+    """Launch K6 on ``torch.cuda.current_stream()``: ``(value_mse, jac_mse,
+    d_wb)`` as :func:`shapenet_sobolev_grads_reference` computes them,
+    through the kernel :func:`k6_variant` picks for the dtype and the chain.
+    Raises on anything that kernel does not take; never falls back."""
+    si = x.shape[-1] if x.dim() == 3 else cfg.input_dim
+    # off the card the wrapper's checks refuse x without asking a library
+    kernel = k6_variant(x.dtype, cfg, variant, si) if x.is_cuda else "simt"
+    return _launch_k6(kernel, wb, x, target, jac_target, cfg, variant, w_value, w_jac, y_mask,
+                      jac_mask, weight)
+
+
+def _shapenet_sobolev_grads_simt(wb: torch.Tensor, x: torch.Tensor, target: torch.Tensor,
+                                 jac_target: torch.Tensor, cfg: ShapeNetConfig,
+                                 variant: str = "siren", w_value: float = 1.0,
+                                 w_jac: float = 1.0, y_mask=None, jac_mask=None,
+                                 weight: Optional[torch.Tensor] = None):
+    """K6 on the CUDA-core kernel whatever the dtype and width.
+    ``chip_smoke.py`` times its bf16 instance beside the tensor-core kernel
+    on the same inputs."""
+    return _launch_k6("simt", wb, x, target, jac_target, cfg, variant, w_value, w_jac, y_mask,
+                      jac_mask, weight)
 
 
 # ---------------------------------------------------------------- entries

@@ -22,14 +22,14 @@ are rounded to x's dtype and K7's outputs are cast to it.
 On a CUDA tensor each entry launches its hand-written kernel, or raises. K7
 runs ``nif_tpu_torch/csrc/shapenet_hess.cu``. K8 has two variants
 (:func:`k8_variant`): bfloat16 runs the tensor-core kernel
-(``csrc/shapenet_hess_tc.cu``, variant ``"tc"``), float32 the CUDA-core one
-(``csrc/shapenet_hess.cu``, variant ``"simt"``), whose f32 products never
-round to TF32. On a CPU tensor it
-runs the plain PyTorch version (``*_reference``), which the CPU tests hold
-against the JAX package's interpret-mode kernels and ``chip_smoke.py`` holds
-the CUDA kernels against. Nothing here falls back to another path: callers
-route (``ops.derivatives``, ``NIF.sobolev_value_and_grad``) with the
-``*_supported`` gates.
+(``csrc/shapenet_hess_tc.cu``, variant ``"tc"``) wherever its geometry takes
+the shape, and the CUDA-core one (``csrc/shapenet_hess.cu``, variant
+``"simt"``) otherwise and for float32, whose f32 products never round to
+TF32. On a CPU tensor it runs the plain PyTorch version (``*_reference``),
+which the CPU tests hold against the JAX package's interpret-mode kernels
+and ``chip_smoke.py`` holds the CUDA kernels against. Nothing here falls
+back to another path: callers route (``ops.derivatives``,
+``NIF.sobolev_value_and_grad``) with the ``*_supported`` gates.
 """
 from __future__ import annotations
 
@@ -48,6 +48,7 @@ from .fused_derivatives import (
     _mask_tensor,
     _sobolev_backward,
     _sobolev_scales,
+    _stack_tc_status,
     _tangent_forward,
 )
 from .fused_shapenet import (
@@ -97,13 +98,23 @@ def _mirror(hp: torch.Tensor, si: int) -> torch.Tensor:
 
 
 # --------------------------------------------------------------- geometry
-def k8_variant(dtype: torch.dtype) -> str:
+def k8_variant(dtype: torch.dtype, cfg: Optional[ShapeNetConfig] = None, variant: str = "siren",
+               si: Optional[int] = None) -> str:
     """Which CUDA kernel K8 runs for inputs of ``dtype``: ``"tc"`` (the
-    tensor-core kernel, ``csrc/shapenet_hess_tc.cu``) for bfloat16,
+    tensor-core kernel, ``csrc/shapenet_hess_tc.cu``) for bfloat16 and
     ``"simt"`` (the CUDA-core kernel, ``csrc/shapenet_hess.cu``) for
     float32, whose products stay full f32 (and for any other dtype, which
-    the wrapper refuses)."""
-    return "tc" if dtype == torch.bfloat16 else "simt"
+    the wrapper refuses). Given a chain (``cfg``, ``variant``, ``si``; this
+    asks the tensor-core kernel's library, so it needs nvcc), bfloat16 runs
+    the CUDA-core kernel where the tensor-core one does not take the shape:
+    a width whose two working planes exceed a block's shared memory (above
+    544 at si = 2, 336 at si = 3, 224 at si = 4 with two hidden layers)."""
+    if dtype != torch.bfloat16:
+        return "simt"
+    if cfg is None:
+        return "tc"
+    si = cfg.input_dim if si is None else si
+    return "tc" if _tc_status(cfg, variant, si, 1, 1)[0] == 0 else "simt"
 
 
 def _library(kernel: str = "simt") -> ctypes.CDLL:
@@ -132,35 +143,28 @@ def _library(kernel: str = "simt") -> ctypes.CDLL:
     return lib
 
 
-def _kernel(mode: str, dtype: torch.dtype, kernel: Optional[str]) -> str:
-    """The library of a body: K7 ("eval") always the CUDA-core one, K8
-    ("train") the variant of ``dtype`` unless ``kernel`` names one."""
-    if mode == "eval":
-        return "simt"
-    return kernel or k8_variant(dtype)
+def _tc_status(cfg: ShapeNetConfig, variant: str, si: int, G: int, P: int):
+    """``(status, geometry)`` of the tensor-core K8 (``csrc/shapenet_hess_tc.cu``)."""
+    return _stack_tc_status(_library("tc").nif_shapenet_hess_tc_workspace, "train", cfg, variant,
+                            si, G, P)
 
 
 def _geometry_status(mode: str, cfg: ShapeNetConfig, variant: str, si: int, G: int, P: int,
                      dtype: torch.dtype, kernel: Optional[str] = None):
-    kernel = _kernel(mode, dtype, kernel)
-    tile, splits, resident, staged_w = (ctypes.c_int() for _ in range(4))
+    """K7 ("eval") always runs the CUDA-core kernel, K8 ("train") ``kernel``
+    or the variant :func:`k8_variant` picks."""
+    if mode == "train" and (kernel or k8_variant(dtype, cfg, variant, si)) == "tc":
+        return _tc_status(cfg, variant, si, G, P)
+    tile, splits = ctypes.c_int(), ctypes.c_int()
     smem, partial_floats, scratch = ctypes.c_longlong(), ctypes.c_longlong(), ctypes.c_longlong()
-    dims = (cfg.units, si, cfg.output_dim, _n_mats(cfg), _chain_code(cfg, variant), G, P)
-    if kernel == "tc":
-        status = _library("tc").nif_shapenet_hess_tc_workspace(
-            *dims, ctypes.byref(tile), ctypes.byref(splits), ctypes.byref(smem),
-            ctypes.byref(resident), ctypes.byref(staged_w), ctypes.byref(partial_floats),
-            ctypes.byref(scratch))
-        residuals = "shared" if resident.value else "global"
-    else:
-        status = _library("simt").nif_shapenet_hess_workspace(
-            _MODES[mode], *dims, _DTYPE_CODES[dtype], ctypes.byref(tile), ctypes.byref(splits),
-            ctypes.byref(smem), ctypes.byref(partial_floats), ctypes.byref(scratch))
-        residuals = "global" if scratch.value else "shared"
-    geo = {"mode": mode, "kernel": kernel, "tile": tile.value, "splits": splits.value,
-           "smem_bytes": smem.value, "residuals": residuals,
-           "weights": "shared" if kernel == "simt" or staged_w.value else "global",
-           "partial_floats": partial_floats.value, "scratch_bytes": scratch.value}
+    status = _library("simt").nif_shapenet_hess_workspace(
+        _MODES[mode], cfg.units, si, cfg.output_dim, _n_mats(cfg), _chain_code(cfg, variant), G,
+        P, _DTYPE_CODES[dtype], ctypes.byref(tile), ctypes.byref(splits), ctypes.byref(smem),
+        ctypes.byref(partial_floats), ctypes.byref(scratch))
+    geo = {"mode": mode, "kernel": "simt", "tile": tile.value, "splits": splits.value,
+           "smem_bytes": smem.value, "residuals": "global" if scratch.value else "shared",
+           "weights": "shared", "partial_floats": partial_floats.value,
+           "scratch_bytes": scratch.value}
     return status, geo
 
 
@@ -192,10 +196,10 @@ def hessian_geometry(mode: str, cfg: ShapeNetConfig, variant: str, G: int, P: in
     """The launch geometry of one body ("eval" for K7, "train" for K8) at
     ``[G, P]`` in ``dtype``, from its kernel's library (it needs nvcc): K7's
     from ``csrc/shapenet_hess.cu``, K8's from the library of its variant
-    (:func:`k8_variant`): the kernel, points per tile, P splits per group,
-    shared memory per block, whether a tile's residuals and the staged
-    weights sit in shared memory or in global memory, and the workspace
-    sizes the wrappers allocate."""
+    (:func:`k8_variant`, which asks the shape): the kernel, points per tile,
+    P splits per group, shared memory per block, whether a tile's residuals
+    and the staged weights sit in shared memory or in global memory, and the
+    workspace sizes the wrappers allocate."""
     return _geometry(mode, cfg, variant, G, P, dtype, si)
 
 
@@ -459,11 +463,14 @@ def shapenet_hessian_grads_cuda(wb: torch.Tensor, x: torch.Tensor, target: torch
                                 weight: Optional[torch.Tensor] = None):
     """Launch K8 on ``torch.cuda.current_stream()``: ``(value_mse, jac_mse,
     hess_mse, d_wb)`` as :func:`shapenet_hessian_grads_reference` computes
-    them, through the tensor-core kernel for bfloat16 and the CUDA-core
-    kernel for float32 (:func:`k8_variant`). Raises on anything the kernel
-    does not take; never falls back."""
-    return _launch_k8(k8_variant(x.dtype), wb, x, target, jac_target, hess_target, cfg, variant,
-                      w_value, w_jac, w_hess, y_mask, jac_mask, hess_mask, weight)
+    them, through the kernel :func:`k8_variant` picks for the dtype and the
+    chain. Raises on anything that kernel does not take; never falls
+    back."""
+    si = x.shape[-1] if x.dim() == 3 else cfg.input_dim
+    # off the card the wrapper's checks refuse x without asking a library
+    kernel = k8_variant(x.dtype, cfg, variant, si) if x.is_cuda else "simt"
+    return _launch_k8(kernel, wb, x, target, jac_target, hess_target, cfg, variant, w_value,
+                      w_jac, w_hess, y_mask, jac_mask, hess_mask, weight)
 
 
 def _shapenet_hessian_grads_simt(wb: torch.Tensor, x: torch.Tensor, target: torch.Tensor,
@@ -472,9 +479,9 @@ def _shapenet_hessian_grads_simt(wb: torch.Tensor, x: torch.Tensor, target: torc
                                  w_value: float = 1.0, w_jac: float = 1.0, w_hess: float = 1.0,
                                  y_mask=None, jac_mask=None, hess_mask=None,
                                  weight: Optional[torch.Tensor] = None):
-    """K8 on the CUDA-core kernel whatever the dtype. Its bf16 instance is
-    on no path of the port; ``chip_smoke.py`` times it beside the
-    tensor-core kernel."""
+    """K8 on the CUDA-core kernel whatever the dtype and width.
+    ``chip_smoke.py`` times its bf16 instance beside the tensor-core kernel
+    on the same inputs."""
     return _launch_k8("simt", wb, x, target, jac_target, hess_target, cfg, variant, w_value,
                       w_jac, w_hess, y_mask, jac_mask, hess_mask, weight)
 

@@ -1,26 +1,28 @@
 #!/usr/bin/env python3
 """Where a tensor-core kernel spends its time, phase by phase, on a CUDA
-card: K4 (``nif_tpu_torch/csrc/shapenet_linear_tc.cu``) or K8
-(``csrc/shapenet_hess_tc.cu``).
+card: K4 (``nif_tpu_torch/csrc/shapenet_linear_tc.cu``), K6
+(``csrc/shapenet_jac_tc.cu``) or K8 (``csrc/shapenet_hess_tc.cu``).
 
-    python3 scripts/port_phase_probe.py [--kernel k4|k8] [--ablate]
+    python3 scripts/port_phase_probe.py [--kernel k4|k6|k8] [--ablate]
 
-Builds the kernel's source once more with ``-DK4_PHASE_CLOCKS`` or
-``-DK8_PHASE_CLOCKS`` (into ``build/nif_tpu_torch/probe/``), in which thread 0
-of every block adds the ``clock64()`` cycles between consecutive barriers into
-eight phase counters, and runs it through the usual wrapper at the kernel's
-flagship shape (G=32, P=32768, bf16, random weights from a seed: the
-NIF-linear trunk for K4, the flagship chain with Jacobian and Hessian targets
-for K8). Prints the kernel's time (CUDA events, the instrumented build beside
+Builds the kernel's source once more with ``-DK4_PHASE_CLOCKS``,
+``-DK6_PHASE_CLOCKS`` or ``-DK8_PHASE_CLOCKS`` (into
+``build/nif_tpu_torch/probe/``), in which thread 0 of every block adds the
+``clock64()`` cycles between consecutive barriers into eight phase counters,
+and runs it through the usual wrapper at the kernel's flagship shape (G=32,
+P=32768, bf16, random weights from a seed: the NIF-linear trunk for K4, the
+flagship chain with Jacobian targets for K6 and with Jacobian and Hessian
+targets for K8). Prints the kernel's time (CUDA events, the instrumented build beside
 the plain one) and each phase's share of the blocks' critical path. The
 counters cost a few instructions at each barrier; the plain build's time says
 how much. Nothing is asserted.
 
-With ``--kernel k8 --ablate`` it also builds three variants of K8's source
-(text edits of a copy, checked to apply) and times them beside the source as
-it is, in turns: without the loads of the f32 dW partials, without their
-loads and stores (the products kept alive), and without the hidden dW at all.
-The variants compute wrong gradients; only their times mean anything.
+With ``--kernel k6|k8 --ablate`` it also builds three variants of the
+kernel's source and its shared header ``stack_tc.cuh`` (text edits of a copy,
+checked to apply) and times them beside the source as it is, in turns:
+without the loads of the f32 dW partials, without their loads and stores (the
+products kept alive), and without the hidden dW at all. The variants compute
+wrong gradients; only their times mean anything.
 """
 from __future__ import annotations
 
@@ -38,6 +40,7 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
 from nif_tpu_torch.config import ShapeNetConfig  # noqa: E402
 from nif_tpu_torch.ops import _build  # noqa: E402
+from nif_tpu_torch.ops import fused_derivatives as fd  # noqa: E402
 from nif_tpu_torch.ops import fused_hessian as fh  # noqa: E402
 from nif_tpu_torch.ops import fused_linear as fl  # noqa: E402
 from nif_tpu_torch.utils.bench import FLAGSHIP_SHAPE, cuda_ms  # noqa: E402
@@ -52,6 +55,16 @@ KERNELS = {
         "d_bias, d_a sums, d_phi",
         "d_a, bottleneck dW/db, du",
         "hidden layers' backward",
+        "first layer's backward (dW0, db0)",
+    ]),
+    "k6": ("shapenet_jac_tc", "K6_PHASE_CLOCKS", "nif_sob_tc_phase_cycles", [
+        "x tile + first layer (all streams)",
+        "hidden forward (products + epilogues)",
+        "last product + loss",
+        "last layer's backward (dW_l, db_l, dS)",
+        "S copy-back + Z recompute + epilogue",
+        "hidden dW (thread 0's own tasks)",
+        "dS = D @ W^T (and the wait for dW)",
         "first layer's backward (dW0, db0)",
     ]),
     "k8": ("shapenet_hess_tc", "K8_PHASE_CLOCKS", "nif_hess_tc_phase_cycles", [
@@ -84,37 +97,37 @@ def build_probe(name: str, define: str, entry: str) -> ctypes.CDLL:
     return lib
 
 
-# K8's ablation variants: (snippet of the source, its replacement) pairs
+# The ablation variants of K6 and K8: (file, snippet, replacement) edits of
+# their shared header (the dW partials) or of the kernel's own source (the
+# hidden dW call, the same line in both)
+_LOAD = ("""          const float2 w = !first && o[0] >= 0 ? *reinterpret_cast<const float2*>(out + o[0])
+                                               : make_float2(0.f, 0.f);""",
+         "          const float2 w = make_float2(0.f, 0.f);")
+_STORE = ("          if (at[t][e] >= 0) *reinterpret_cast<float2*>(out + at[t][e]) = make_float2(v0, v1);",
+          "          if (at[t][e] >= 0 && v0 == 12345.f) out[at[t][e]] = v1;")
 ABLATIONS = {
-    "no dW partial loads": [(
-        """          const float2 w = !first && o[0] >= 0 ? *reinterpret_cast<const float2*>(out + o[0])
-                                               : make_float2(0.f, 0.f);""",
-        "          const float2 w = make_float2(0.f, 0.f);")],
-    "no dW partial loads or stores": [(
-        """          const float2 w = !first && o[0] >= 0 ? *reinterpret_cast<const float2*>(out + o[0])
-                                               : make_float2(0.f, 0.f);""",
-        "          const float2 w = make_float2(0.f, 0.f);"), (
-        "          if (at[t][e] >= 0) *reinterpret_cast<float2*>(out + at[t][e]) = make_float2(v0, v1);",
-        "          if (at[t][e] >= 0 && v0 == 12345.f) out[at[t][e]] = v1;")],
-    "no hidden dW": [(
+    "no dW partial loads": [("stack_tc.cuh", *_LOAD)],
+    "no dW partial loads or stores": [("stack_tc.cuh", *_LOAD), ("stack_tc.cuh", *_STORE)],
+    "no hidden dW": [(None,
         "        weight_grad_stack(Sm, Dp, ld, n, n16, TR, part + o_wh + (long long)m * n * n, first, l);",
         "")],
 }
+HEADERS = ("stack_tc.cuh", "mma_sm90.cuh", "shapenet_common.cuh")
 
 
-def build_variant(label: str, edits) -> ctypes.CDLL:
-    """K8's source with ``edits`` applied, built beside its headers."""
-    src = (_build.CSRC / "shapenet_hess_tc.cu").read_text()
-    for old, new in edits:
-        if src.count(old) != 1:
-            raise RuntimeError(f"ablation {label!r}: its snippet is not in the source once")
-        src = src.replace(old, new)
-    out = _build.BUILD_DIR / "probe" / "ablate"
+def build_variant(name: str, label: str, edits) -> ctypes.CDLL:
+    """``csrc/<name>.cu`` and its headers with ``edits`` applied (file None:
+    the source), built in a directory of their own."""
+    files = {f: (_build.CSRC / f).read_text() for f in (f"{name}.cu", *HEADERS)}
+    for file, old, new in edits:
+        file = file or f"{name}.cu"
+        if files[file].count(old) != 1:
+            raise RuntimeError(f"ablation {label!r}: its snippet is not in {file} once")
+        files[file] = files[file].replace(old, new)
+    out = _build.BUILD_DIR / "probe" / "ablate" / label.replace(" ", "_")
     out.mkdir(parents=True, exist_ok=True)
-    for header in ("mma_sm90.cuh", "shapenet_common.cuh"):
-        (out / header).write_text((_build.CSRC / header).read_text())
-    name = label.replace(" ", "_")
-    (out / f"{name}.cu").write_text(src)
+    for file, text in files.items():
+        (out / file).write_text(text)
     proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out / f"lib{name}.so"),
                            str(out / f"{name}.cu")],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -123,17 +136,17 @@ def build_variant(label: str, edits) -> ctypes.CDLL:
     return ctypes.CDLL(str(out / f"lib{name}.so"))
 
 
-def ablate(run) -> None:
-    """Time K8 as built and its ablation variants, in turns, twice."""
-    libs = {"as built": _build.load_library("shapenet_hess_tc")}
-    libs.update((label, build_variant(label, edits)) for label, edits in ABLATIONS.items())
+def ablate(name: str, module, run) -> None:
+    """Time the kernel as built and its ablation variants, in turns, twice."""
+    libs = {"as built": _build.load_library(name)}
+    libs.update((label, build_variant(name, label, edits)) for label, edits in ABLATIONS.items())
     for rnd in range(2):
         for label, lib in libs.items():
-            _build._LIBS["shapenet_hess_tc"] = lib
-            fh._library("tc")  # its argument types
+            _build._LIBS[name] = lib
+            module._library("tc")  # its argument types
             print(f"ablation round {rnd}: {label:32s} {cuda_ms(run, reps=5, warmup=1):.4f} ms",
                   flush=True)
-    _build._LIBS["shapenet_hess_tc"] = libs["as built"]
+    _build._LIBS[name] = libs["as built"]
 
 
 def k4_case(G: int, P: int):
@@ -142,6 +155,15 @@ def k4_case(G: int, P: int):
         torch, chip_smoke.LINEAR_CASES[0], G, P, torch.bfloat16, seed=200)
     geo = fl.linear_geometry(cfg, so, G, P, torch.bfloat16)
     return lambda: fl.niflinear_mse_grads_cuda(ws, bs, a, bias, x, tgt, cfg, so), geo
+
+
+def k6_case(G: int, P: int):
+    """K6's launcher and (tile, splits) at the flagship chain."""
+    cfg = ShapeNetConfig.from_dict(FLAGSHIP_SHAPE)
+    wb, x = chip_smoke.chain_data(torch, cfg, G, P, torch.bfloat16, seed=202)
+    tgt, w, jt = chip_smoke.sobolev_data(torch, cfg, G, P, seed=202)
+    geo = fd.derivative_geometry("sobolev", cfg, "siren", G, P, torch.bfloat16)
+    return lambda: fd.shapenet_sobolev_grads_cuda(wb, x, tgt, jt, cfg, "siren", weight=w), geo
 
 
 def k8_case(G: int, P: int):
@@ -158,10 +180,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", choices=sorted(KERNELS), default="k4")
     ap.add_argument("--ablate", action="store_true",
-                    help="K8 only: also time variants without parts of its dW")
+                    help="K6 and K8 only: also time variants without parts of their dW")
     args = ap.parse_args()
-    if args.ablate and args.kernel != "k8":
-        ap.error("--ablate takes --kernel k8")
+    if args.ablate and args.kernel == "k4":
+        ap.error("--ablate takes --kernel k6 or k8")
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 1
@@ -170,14 +192,15 @@ def main() -> int:
     print(f"card: {smi}")
     name, define, entry, phases = KERNELS[args.kernel]
     G, P = 32, 32768
-    run, geo = (k4_case if args.kernel == "k4" else k8_case)(G, P)
-    reps = 10 if args.kernel == "k4" else 3
+    run, geo = {"k4": k4_case, "k6": k6_case, "k8": k8_case}[args.kernel](G, P)
+    reps = 3 if args.kernel == "k8" else 10
     plain_build_ms = cuda_ms(run, reps=reps, warmup=1)
+    module = {"k4": fl, "k6": fd, "k8": fh}[args.kernel]
     if args.ablate:
-        ablate(run)
+        ablate(name, module, run)
     probe = build_probe(name, define, entry)
     _build._LIBS[name] = probe  # the wrapper now launches the probe build
-    (fl._library("tc") if args.kernel == "k4" else fh._library("tc"))  # its argument types
+    module._library("tc")  # its argument types
     counters = (ctypes.c_ulonglong * len(phases))()
     read = getattr(probe, entry)
     run()

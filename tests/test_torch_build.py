@@ -50,9 +50,30 @@ def test_port_sources_include_what_they_use():
     assert "mma_sm90.cuh" not in {p.name for p in _build._sources("shapenet_linear")}
 
 
+TC_HEADERS = {"stack_tc.cuh", "mma_sm90.cuh"}
+
+
 def test_k8_tensor_core_sources():
-    """The tensor-core K8 builds against the mma helpers and the shared
-    header; the CUDA-core K7/K8 library does not include the mma helpers."""
+    """The tensor-core K8 builds against the stacked-stream machinery it
+    shares with the tensor-core K6, the mma helpers and the shared header;
+    the CUDA-core K7/K8 library includes neither tensor-core header."""
     names = {p.name for p in _build._sources("shapenet_hess_tc")}
-    assert names == {"shapenet_hess_tc.cu", "mma_sm90.cuh", "shapenet_common.cuh"}
-    assert "mma_sm90.cuh" not in {p.name for p in _build._sources("shapenet_hess")}
+    assert names == {"shapenet_hess_tc.cu", "stack_tc.cuh", "mma_sm90.cuh",
+                     "shapenet_common.cuh"}
+    assert not TC_HEADERS & {p.name for p in _build._sources("shapenet_hess")}
+
+
+def test_k6_tensor_core_sources():
+    """The tensor-core K6 builds against the same headers as the tensor-core
+    K8; the CUDA-core K5/K6 library and the header every kernel includes
+    include neither tensor-core header, so an edit to those rebuilds only
+    the two tensor-core libraries."""
+    names = {p.name for p in _build._sources("shapenet_jac_tc")}
+    assert names == {"shapenet_jac_tc.cu", "stack_tc.cuh", "mma_sm90.cuh",
+                     "shapenet_common.cuh"}
+    assert not TC_HEADERS & {p.name for p in _build._sources("shapenet_jac")}
+    common = (_build.CSRC / "shapenet_common.cuh").read_bytes()
+    assert not TC_HEADERS & {inc.decode() for inc in _build._INCLUDE.findall(common)}
+    users = {path.stem for path in _build.CSRC.glob("*.cu")
+             if "stack_tc.cuh" in {p.name for p in _build._sources(path.stem)}}
+    assert users == {"shapenet_hess_tc", "shapenet_jac_tc"}

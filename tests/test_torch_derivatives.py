@@ -220,6 +220,53 @@ def test_derivative_entries_route_by_device_and_refuse_off_cuda():
             assert mine == ref
 
 
+@pytest.mark.parametrize("dtype,variant", [(torch.bfloat16, "tc"), (torch.float32, "simt"),
+                                           (torch.float16, "simt")], ids=["bf16", "f32", "f16"])
+def test_k6_variant_and_gate_per_dtype(dtype, variant):
+    """bf16 K6 prefers the tensor-core kernel, f32 (and any other dtype,
+    which the wrapper refuses) runs the CUDA-core one, and only bf16 asks
+    the tensor-core library whether a chain fits; off the card the gate's
+    reasons for each dtype are the JAX package's, byte for byte, and a dtype
+    the wrapper refuses asks no kernel library for its limits."""
+    siren = (3, 1, 16, 2, "sine", False, 30.0)
+    assert fd.k6_variant(dtype) == variant
+    if dtype != torch.bfloat16:
+        assert fd.k6_variant(dtype, tcfg.ShapeNetConfig(*siren), "siren", 3) == "simt"
+    cases = [("vanilla", (2, 1, 16, 1, "tanh"), 64, 2), ("vanilla", (2, 1, 16, 1, "gelu"), 64, 2),
+             ("siren", siren, 100, 3), ("siren", siren, 64, 3), ("siren", siren, 64, 9)]
+    for variant_, args, P_, si in cases:
+        mine = fd.sobolev_fused_unsupported_reason(tcfg.ShapeNetConfig(*args), variant_, P_, si,
+                                                   "cpu", dtype)
+        assert mine == jps.sobolev_fused_unsupported_reason(jcfg.ShapeNetConfig(*args),
+                                                             variant_, P_, si)
+    assert fd.sobolev_fused_supported(tcfg.ShapeNetConfig(*siren), "siren", 64, 3, None, dtype)
+    if dtype == torch.float16:
+        assert fd.sobolev_fused_unsupported_reason(tcfg.ShapeNetConfig(*siren), "siren", 64, 3,
+                                                   "cuda", dtype) is None
+
+
+@pytest.mark.parametrize("weighted", [False, True], ids=["unweighted", "weighted"])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_k6_entry_on_cpu_tensors_runs_plain_k6_and_launches_nothing(dtype, weighted):
+    """``shapenet_sobolev_grads`` on CPU tensors is plain K6, bit for bit,
+    and counts no launch of either CUDA kernel."""
+    args = (3, 1, 16, 2, "sine", False, 30.0)
+    cfg = tcfg.ShapeNetConfig(*args)
+    wb, x, tgt, jt, w = _chain_data(args, seed=9)
+    tdt = DTYPES[dtype][0]
+    wt, xt = torch.from_numpy(wb).to(tdt), torch.from_numpy(x).to(tdt)
+    kw = dict(w_value=0.7, w_jac=1.3, weight=torch.from_numpy(w) if weighted else None)
+    before = dict(_build.LAUNCHES)
+    got = fd.shapenet_sobolev_grads(wt, xt, torch.from_numpy(tgt), torch.from_numpy(jt), cfg,
+                                    "siren", **kw)
+    assert _build.LAUNCHES == before
+    ref = fd.shapenet_sobolev_grads_reference(wt, xt, torch.from_numpy(tgt),
+                                              torch.from_numpy(jt), cfg, "siren", **kw)
+    assert got[2].dtype == tdt
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
 # ------------------------------------------------------- eager derivatives
 def _models(cfg_s=None, cfg_p=None, policy="float32", seed=0):
     cfg_s = CFG_S if cfg_s is None else cfg_s

@@ -26,7 +26,12 @@ fused NIF-linear kernel: the trunk grads sum over every group); bf16 as K2.
 bf16 K4 runs the tensor-core kernel (``shapenet_linear_tc.cu``), f32 K4 the
 CUDA-core one (``shapenet_linear.cu``); both are held to the same bounds.
 Likewise bf16 K8 runs the tensor-core kernel (``shapenet_hess_tc.cu``), f32 K8
-the CUDA-core one (``shapenet_hess.cu``), each checked by its launch counter."""
+the CUDA-core one (``shapenet_hess.cu``), and bf16 K6 on sine chains the
+tensor-core kernel (``shapenet_jac_tc.cu``), f32 K6 and vanilla chains the
+CUDA-core one (``shapenet_jac.cu``), each checked by its launch counter; the
+tensor-core kernels' terms within rel 1e-4 of the plain version's. A bf16
+chain the tensor-core kernel refuses for shared memory runs on the CUDA-core
+one."""
 import numpy as np
 import pytest
 import torch
@@ -365,11 +370,15 @@ def test_k6_matches_plain(card, variant, args, dtype, weighted):
     y_mask = np.eye(1, so, dtype=np.float32)[0] if so > 1 else None
     jac_mask = (np.arange(si * so) % 2 == 0).astype(np.float32) if so > 1 else None
     kw = dict(w_value=0.7, w_jac=1.3, y_mask=y_mask, jac_mask=jac_mask, weight=w)
-    before = _build.LAUNCHES["shapenet_sobolev_grads"]
+    before = dict(_build.LAUNCHES)
     lv, lj, d_wb = fd.shapenet_sobolev_grads(wb, x, tgt, jt, cfg, variant, **kw)
-    assert _build.LAUNCHES["shapenet_sobolev_grads"] == before + 1
+    assert _build.LAUNCHES["shapenet_sobolev_grads"] == before["shapenet_sobolev_grads"] + 1
+    # bf16 sine chains on the tensor-core K6; f32 and vanilla chains on the CUDA-core one
+    tc = dtype == torch.bfloat16 and variant == "siren"
+    assert (_build.LAUNCHES["shapenet_sobolev_grads_tc"]
+            == before["shapenet_sobolev_grads_tc"] + int(tc))
     rv, rj, r_wb = fd.shapenet_sobolev_grads_reference(wb, x, tgt, jt, cfg, variant, **kw)
-    rel = 1e-5 if dtype == torch.float32 else 1e-3
+    rel = 1e-5 if dtype == torch.float32 else (1e-4 if tc else 1e-3)
     assert float(lv) == pytest.approx(float(rv), rel=rel)
     assert float(lj) == pytest.approx(float(rj), rel=rel)
     assert d_wb.dtype == dtype
@@ -378,34 +387,43 @@ def test_k6_matches_plain(card, variant, args, dtype, weighted):
 
 
 def test_k6_flagship_width_is_deterministic(card):
-    """G=4, P=2048 at the flagship width in bf16: two runs give the same
-    bits (fixed P splits, an ordered reduce) and agree with plain K6."""
+    """G=4, P=2048 at the flagship width in bf16, on the tensor-core kernel:
+    two runs give the same bits (fixed P splits, an ordered reduce) and
+    agree with plain K6."""
     cfg = ShapeNetConfig(3, 1, 128, 2, "sine", False, 30.0)
     wb, x = _data(cfg, 4, 2048, torch.bfloat16, seed=17)
     tgt, jt, _ = _sobolev_side(cfg, 4, 2048, seed=17)
+    before = _build.LAUNCHES["shapenet_sobolev_grads_tc"]
     runs = [fd.shapenet_sobolev_grads_cuda(wb, x, tgt, jt, cfg, "siren") for _ in range(2)]
+    assert _build.LAUNCHES["shapenet_sobolev_grads_tc"] == before + 2
     for a, b in zip(runs[0], runs[1]):
         assert torch.equal(a, b)
     rv, rj, r_wb = fd.shapenet_sobolev_grads_reference(wb, x, tgt, jt, cfg, "siren")
-    assert float(runs[0][0]) == pytest.approx(float(rv), rel=1e-3)
-    assert float(runs[0][1]) == pytest.approx(float(rj), rel=1e-3)
+    assert float(runs[0][0]) == pytest.approx(float(rv), rel=1e-4)
+    assert float(runs[0][1]) == pytest.approx(float(rj), rel=1e-4)
     err, scale = _max_diff(runs[0][2], r_wb)
     assert err <= 2.0 ** -6 * scale
 
 
 def test_derivative_geometry(card):
-    """At the flagship width in bf16 K6 takes 16-point tiles (64 stacked
-    rows) with its residuals in shared memory; in f32 they go to the global
-    scratch. The reverse K5 body takes K2's 64-point tile, and splits P to
-    give about two blocks per SM of this card (8 to 64 splits a group)."""
+    """At the flagship width bf16 K6 takes the tensor-core kernel: 32-point
+    tiles (128 stacked rows) with every S plane and the staged W in shared
+    memory, and one wave of SMs / G splits per group; f32 K6 takes the
+    CUDA-core kernel, its residuals in the global scratch. The reverse K5
+    body takes K2's 64-point tile, and splits P to give about two blocks per
+    SM of this card (8 to 64 splits a group)."""
     cfg = ShapeNetConfig(3, 1, 128, 2, "sine", False, 30.0)
-    sob = fd.derivative_geometry("sobolev", cfg, "siren", 32, 32768, torch.bfloat16)
-    assert (sob["tile"], sob["splits"], sob["residuals"]) == (16, 8, "shared")
-    f32 = fd.derivative_geometry("sobolev", cfg, "siren", 32, 32768, torch.float32)
-    assert f32["residuals"] == "global" and f32["scratch_bytes"] > 0
     sms = torch.cuda.get_device_properties(card).multi_processor_count
+    sob = fd.derivative_geometry("sobolev", cfg, "siren", 32, 32768, torch.bfloat16)
+    assert (sob["kernel"], sob["tile"], sob["residuals"], sob["weights"]) == (
+        "tc", 32, "shared", "shared")
+    assert sob["splits"] == max(1, min(64, sms // 32))
+    f32 = fd.derivative_geometry("sobolev", cfg, "siren", 32, 32768, torch.float32)
+    assert f32["kernel"] == "simt" and fd.k6_variant(torch.float32, cfg) == "simt"
+    assert f32["residuals"] == "global" and f32["scratch_bytes"] > 0
     for G in (1, 4, 32):
         rev = fd.derivative_geometry("reverse", cfg, "siren", G, 32768, torch.bfloat16)
+        assert rev["kernel"] == "simt"
         assert rev["tile"] == 64
         assert rev["splits"] == min(512, max(8, min(64, (2 * sms + G - 1) // G)))
     assert "streams" in fd.sobolev_fused_unsupported_reason(
@@ -529,7 +547,10 @@ def test_hessian_geometry(card):
                               torch.bfloat16)
     assert (si4["tile"], si4["residuals"]) == (16, "global")
     wide = ShapeNetConfig(4, 1, 1024, 1, "sine")
-    assert "tensor-core" in fh.hessian_fused_unsupported_reason(wide, "siren", 256, 4, card)
+    # bf16 falls back to the CUDA-core kernel, whose 8-row tile refuses too
+    assert "tensor-core" in fh._cuda_reason("train", wide, "siren", 4, torch.bfloat16, "tc")
+    assert fh.k8_variant(torch.bfloat16, wide, "siren", 4) == "simt"
+    assert "streams" in fh.hessian_fused_unsupported_reason(wide, "siren", 256, 4, card)
     assert "streams" in fh.hessian_fused_unsupported_reason(wide, "siren", 256, 4, card,
                                                             torch.float32)
     assert "streams" in fh.fwd_hess_unsupported_reason(wide, "siren", 256, 4, card)
@@ -592,6 +613,100 @@ def test_k8_cuda_core_kernel_on_bf16_inputs(card):
         assert float(mine) == pytest.approx(float(ref), rel=1e-3)
     err, scale = _max_diff(d_wb, r_wb)
     assert err <= 2.0 ** -6 * scale, (err, scale)
+
+
+@pytest.mark.parametrize("args", K8_TC_SHAPES, ids=["n24", "n40-res", "si1", "si4",
+                                                    "n128-res", "n256-res", "n512"])
+def test_k6_tc_padded_and_ragged_shapes(card, args):
+    """The tensor-core K6 on the shapes K8's is checked on (padded widths,
+    si = 1, 2, 4, resblock chains, S planes in the global scratch, W from
+    global memory), at P = 200 (a ragged last tile), weighted, masked where
+    so > 1, against plain K6: d_wb within 2^-6 of max|plain|, terms rel
+    1e-4."""
+    cfg = ShapeNetConfig(*args)
+    wb, x = _data(cfg, 3, 200, torch.bfloat16, seed=26)
+    tgt, jt, w = _sobolev_side(cfg, 3, 200, seed=26)
+    si, so = cfg.input_dim, cfg.output_dim
+    kw = dict(w_value=0.7, w_jac=1.3, weight=w)
+    if so > 1:
+        kw.update(y_mask=np.eye(1, so, dtype=np.float32)[0],
+                  jac_mask=(np.arange(si * so) % 2 == 0).astype(np.float32))
+    assert fd.derivative_geometry("sobolev", cfg, "siren", 3, 200, torch.bfloat16)["kernel"] == "tc"
+    before = _build.LAUNCHES["shapenet_sobolev_grads_tc"]
+    lv, lj, d_wb = fd.shapenet_sobolev_grads_cuda(wb, x, tgt, jt, cfg, "siren", **kw)
+    assert _build.LAUNCHES["shapenet_sobolev_grads_tc"] == before + 1
+    rv, rj, r_wb = fd.shapenet_sobolev_grads_reference(wb, x, tgt, jt, cfg, "siren", **kw)
+    assert float(lv) == pytest.approx(float(rv), rel=1e-4)
+    assert float(lj) == pytest.approx(float(rj), rel=1e-4)
+    err, scale = _max_diff(d_wb, r_wb)
+    assert err <= 2.0 ** -6 * scale, (err, scale)
+
+
+def test_k6_cuda_core_kernel_on_bf16_inputs(card):
+    """The private launcher that times the CUDA-core K6 beside the
+    tensor-core one on the same bf16 inputs: it launches the CUDA-core
+    kernel and agrees with plain K6 within the bf16 bounds."""
+    cfg = ShapeNetConfig(3, 1, 128, 2, "sine", False, 30.0)
+    wb, x = _data(cfg, 2, 256, torch.bfloat16, seed=27)
+    tgt, jt, _ = _sobolev_side(cfg, 2, 256, seed=27)
+    before = dict(_build.LAUNCHES)
+    lv, lj, d_wb = fd._shapenet_sobolev_grads_simt(wb, x, tgt, jt, cfg, "siren")
+    assert _build.LAUNCHES["shapenet_sobolev_grads"] == before["shapenet_sobolev_grads"] + 1
+    assert _build.LAUNCHES["shapenet_sobolev_grads_tc"] == before["shapenet_sobolev_grads_tc"]
+    rv, rj, r_wb = fd.shapenet_sobolev_grads_reference(wb, x, tgt, jt, cfg, "siren")
+    assert float(lv) == pytest.approx(float(rv), rel=1e-3)
+    assert float(lj) == pytest.approx(float(rj), rel=1e-3)
+    err, scale = _max_diff(d_wb, r_wb)
+    assert err <= 2.0 ** -6 * scale, (err, scale)
+
+
+def test_bf16_chains_the_tensor_core_kernels_refuse_train_on_the_cuda_core_kernels(card):
+    """Width 384 at si = 3 with two hidden layers: the tensor-core K8's two
+    working planes of ten streams exceed shared memory, so bf16 K8 takes the
+    CUDA-core kernel (one launch, none of the tensor-core one) and the
+    Sobolev path of a model at that width says so; K6's four streams still
+    fit the tensor-core kernel there, and at width 512 they do not, so bf16
+    K6 takes the CUDA-core kernel. Each agrees with its plain version."""
+    cfg = ShapeNetConfig(3, 1, 384, 2, "sine", False, 30.0)
+    wb, x = _data(cfg, 2, 96, torch.bfloat16, seed=28)
+    tgt, jt, ht, w = _hessian_side(cfg, 2, 96, seed=28)
+    assert fh.k8_variant(torch.bfloat16, cfg, "siren") == "simt"
+    assert fh.hessian_geometry("train", cfg, "siren", 2, 96, torch.bfloat16)["kernel"] == "simt"
+    assert fh.hessian_fused_unsupported_reason(cfg, "siren", 96, 3, card) is None
+    before = dict(_build.LAUNCHES)
+    *terms, d_wb = fh.shapenet_hessian_grads(wb, x, tgt, jt, ht, cfg, "siren", weight=w)
+    assert _build.LAUNCHES["shapenet_hessian_grads"] == before["shapenet_hessian_grads"] + 1
+    assert _build.LAUNCHES["shapenet_hessian_grads_tc"] == before["shapenet_hessian_grads_tc"]
+    *refs, r_wb = fh.shapenet_hessian_grads_reference(wb, x, tgt, jt, ht, cfg, "siren", weight=w)
+    for mine, ref in zip(terms, refs):
+        assert float(mine) == pytest.approx(float(ref), rel=1e-3)
+    err, scale = _max_diff(d_wb, r_wb)
+    assert err <= 2.0 ** -6 * scale, (err, scale)
+    cfg_p = {"input_dim": 2, "latent_dim": 4, "units": 16, "nlayers": 1, "activation": "swish"}
+    model = nif_tpu_torch.NIFMultiScale({"input_dim": 3, "output_dim": 1, "units": 384,
+                                         "nlayers": 2, "activation": "sine", "omega_0": 30.0},
+                                        cfg_p, "mixed_bfloat16", seed=0)
+    info = model.sobolev_path_info(96, 3, hess=True)
+    assert (info["path"], info["kernel"]) == ("fused", "simt")
+    assert model.sobolev_path_info(96, 3)["kernel"] == "tc"
+    for units, kernel in ((384, "tc"), (512, "simt")):
+        cfg = ShapeNetConfig(3, 1, units, 2, "sine", False, 30.0)
+        wb, x = _data(cfg, 2, 96, torch.bfloat16, seed=29)
+        tgt, jt, w = _sobolev_side(cfg, 2, 96, seed=29)
+        assert fd.k6_variant(torch.bfloat16, cfg, "siren") == kernel
+        assert fd.sobolev_fused_unsupported_reason(cfg, "siren", 96, 3, card) is None
+        before = dict(_build.LAUNCHES)
+        lv, lj, d_wb = fd.shapenet_sobolev_grads(wb, x, tgt, jt, cfg, "siren", weight=w)
+        assert _build.LAUNCHES["shapenet_sobolev_grads"] == before["shapenet_sobolev_grads"] + 1
+        assert (_build.LAUNCHES["shapenet_sobolev_grads_tc"]
+                == before["shapenet_sobolev_grads_tc"] + int(kernel == "tc"))
+        rv, rj, r_wb = fd.shapenet_sobolev_grads_reference(wb, x, tgt, jt, cfg, "siren",
+                                                           weight=w)
+        rel = 1e-4 if kernel == "tc" else 1e-3
+        assert float(lv) == pytest.approx(float(rv), rel=rel)
+        assert float(lj) == pytest.approx(float(rj), rel=rel)
+        err, scale = _max_diff(d_wb, r_wb)
+        assert err <= 2.0 ** -6 * scale, (err, scale)
 
 
 def test_hessian_wrappers_refuse_what_they_cannot_take(card):
@@ -820,7 +935,7 @@ def test_linear_model_on_the_card_launches_k4_and_k6(card):
     """NIF-linear on the card: one GroupedTrainer step launches K4 once (no
     K2), with its loss and grads against plain K4 + autograd through the
     ParameterNet; apply_grouped(fused=True) launches K1 once; a Sobolev step
-    launches K6 once on the effective chain."""
+    launches the tensor-core K6 once on the effective chain."""
     from nif_tpu_torch.training import GroupedTrainer
 
     cfg_s = {"input_dim": 3, "output_dim": 1, "units": 128, "nlayers": 2, "activation": "sine",
@@ -866,4 +981,5 @@ def test_linear_model_on_the_card_launches_k4_and_k6(card):
     assert tuple(out.shape) == (4, 512, 1) and bool(torch.isfinite(out).all())
     state, loss = trainer.step(state, t, x, u, target_jac=jt)
     assert _build.LAUNCHES["shapenet_sobolev_grads"] == after["shapenet_sobolev_grads"] + 1
+    assert _build.LAUNCHES["shapenet_sobolev_grads_tc"] == after["shapenet_sobolev_grads_tc"] + 1
     assert bool(torch.isfinite(loss)) and trainer.history["sobolev_path"] == "fused"
