@@ -12,8 +12,14 @@ Phases, each of which raises on failure:
    over the six chain configs of the JAX package's kernel tests at G=3,
    P=256, and the flagship chain at G=32, P=32768, in float32 and bfloat16.
 2b. Hold K2 (forward + weighted MSE + backward) against plain K2 over the
-   same configs, with and without point weights, and at the flagship shape
-   in bfloat16; run it twice there and require bitwise-equal results.
+   same configs, with and without point weights: bfloat16 sine chains
+   through the tensor-core kernel (``shapenet_bwd_tc.cu``), float32 and
+   vanilla chains through the CUDA-core one (``shapenet_bwd.cu``), each
+   checked by its launch counter; the tensor-core kernel also on the padded,
+   narrow and wide shapes of K8's (``K2_TC_EXTRA``, P = 200); at the
+   flagship shape in bfloat16 the tensor-core kernel and the CUDA-core one on
+   the same inputs, and the CUDA-core kernel in float32 at G=8; two bfloat16
+   flagship runs must give bitwise-equal results.
 2c. Hold K3 (the backward of K1) against plain K3 over the same configs;
    differentiate ``apply_grouped`` on the card through K1 + K3 and through
    the eager path, and compare the ParameterNet gradients.
@@ -23,13 +29,17 @@ Phases, each of which raises on failure:
    finiteness, agreement with the plain K1 and the eager path, and that the
    K1 launch count rose by the number of chunks served.
 3b. Train the flagship: ``GroupedTrainer.step`` with Adam at G=32, P=32768
-   (one K2 launch per step, the first step's loss and gradients against
-   plain K2 and autograd through the ParameterNet), then a short ``fit`` on
-   a smooth traveling wave whose last epoch loss must be below its first.
+   (one launch of the tensor-core K2 per step, the first step's loss and
+   gradients against plain K2 and autograd through the ParameterNet), one
+   step of the same model under the float32 policy (one launch of the
+   CUDA-core K2, none of the tensor-core one), then a short ``fit`` on a
+   smooth traveling wave (60 tensor-core launches) whose last epoch loss
+   must be below its first.
 4. Time K1, its plain version and the end-to-end ``apply_grouped`` with CUDA
    events, and compute K1's bound on this card.
-4b. Time the flagship train step, K2 and K3 with their plain versions, and
-   compute their bounds on this card.
+4b. Time the flagship train step and its stages, the bfloat16 tensor-core
+   K2, the CUDA-core K2 on the same bfloat16 inputs and in float32, K3, with
+   their plain versions, and compute their bounds on this card.
 
 Phases of the Sobolev slice:
 
@@ -61,9 +71,14 @@ Phases of the Sobolev slice:
 Phases of the Hessian slice:
 
 2f. Hold K7 (the fused Hessian evaluation) against plain K7 over the SIREN
-   configs (the Hessian kernels take sine chains only) in float32 and
-   bfloat16, and at the flagship width in bfloat16 (G=8: plain K7's f32
-   stacked tensors of ten streams take 1.3 GB each there).
+   configs (the Hessian kernels take sine chains only): bfloat16 through the
+   tensor-core kernel (``shapenet_hess_tc.cu``), float32 through the
+   CUDA-core one (``shapenet_hess.cu``), each checked by its launch counter;
+   the tensor-core kernel also on the shapes of ``HESS_TC_EXTRA`` (P = 200);
+   at the flagship width at G=8 (plain K7's f32 stacked tensors of ten
+   streams take 1.3 GB each there) the tensor-core kernel, the CUDA-core one
+   on the same bfloat16 inputs, and the CUDA-core one in float32; two
+   bfloat16 flagship runs at G=32 must give bitwise-equal results.
 2g. Hold K8 (the fused Hessian train pass) against plain K8 likewise, with
    value, Jacobian and Hessian masks on the multi-output configs: bfloat16
    through the tensor-core kernel (``shapenet_hess_tc.cu``), float32 through
@@ -80,11 +95,12 @@ Phases of the Hessian slice:
    float32 policy (one of the CUDA-core K8, none of the tensor-core one), a
    short Hessian ``fit`` on the traveling wave with its analytic Jacobian
    and Hessian that must lower the Hessian term of ``evaluate_sobolev``,
-   which launches K7 once per chunk.
-4d. Time the flagship Hessian step and its stages, K7, the bfloat16
-   tensor-core K8, the CUDA-core K8 on the same bfloat16 inputs and in
-   float32 (G=32, P=32768), and their plain versions over the same inputs
-   in chunks of 8 groups, and compute their bounds on this card.
+   which launches the tensor-core K7 once per chunk (the float32 policy's
+   ``evaluate_sobolev``: the CUDA-core K7 once per chunk).
+4d. Time the flagship Hessian step and its stages, the bfloat16 tensor-core
+   K7 and K8, the CUDA-core K7 and K8 on the same bfloat16 inputs and in
+   float32 (G=32, P=32768), and their plain versions over the same inputs in
+   chunks of 8 groups, and compute their bounds on this card.
 
 Phases of the NIF-linear slice:
 
@@ -112,8 +128,9 @@ Phases of the NIF-linear slice:
    Adam), and compute both K4 bounds on this card.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the
-``{"kernels": [...]}`` record. Exits non-zero without CUDA or without the
-package beside it.
+``{"kernels": [...]}`` record, and before that the card's name and power
+limit and the run's wall-clock seconds. Exits non-zero without CUDA or
+without the package beside it.
 """
 from __future__ import annotations
 
@@ -184,6 +201,10 @@ HESS_TC_EXTRA = [
     (3, 1, 256, 2, "sine", True, 30.0),
     (1, 1, 512, 1, "sine", False, 30.0),
 ]
+# ... and those of the tensor-core K2, whose two working planes of 128 rows
+# exceed shared memory at width 512: width 384 (three column blocks a warp)
+# takes that case's place.
+K2_TC_EXTRA = HESS_TC_EXTRA[:-1] + [(1, 1, 384, 1, "sine", False, 30.0)]
 # K4's trunks: the SIREN configs of CASES with a bottleneck of so * K outputs,
 # so in {1, 2, 3}, resblock and plain, so * K within the kernel's width:
 # (si, so, K, units, nlayers, resblock, omega_0).
@@ -256,31 +277,44 @@ def check_k1(torch, cfg, variant, G, P, dtype, seed) -> float:
     return err
 
 
-def check_k2(torch, cfg, variant, G, P, dtype, weighted, seed) -> float:
-    """K2 vs plain K2; returns max |d_wb - plain d_wb|.
+def check_k2(torch, cfg, variant, G, P, dtype, weighted, seed, simt=False,
+             f32_bound=5e-6) -> float:
+    """K2 vs plain K2; returns max |d_wb - plain d_wb|. A bfloat16 call on a
+    sine chain must launch the tensor-core kernel (``simt``: the CUDA-core
+    kernel on the same inputs, through its private launcher), a float32 or
+    vanilla one the CUDA-core kernel.
 
-    float32: loss rel 1e-5 and max|d| <= 5e-6 max|plain| for d_wb, the JAX
-    kernel test's bound. bfloat16: loss rel BF16_LOSS_REL and max|d| <=
-    BF16_REL max|plain|."""
+    float32: loss rel 1e-5 and max|d| <= f32_bound max|plain| for d_wb (by
+    default 5e-6, the JAX kernel test's bound at its shapes). bfloat16: loss
+    rel BF16_LOSS_REL and max|d| <= BF16_REL max|plain|."""
+    from nif_tpu_torch.ops import _build
     from nif_tpu_torch.ops.fused_shapenet import (
-        shapenet_mse_grads_cuda, shapenet_mse_grads_reference, train_geometry)
+        _shapenet_mse_grads_simt, k2_geometry, shapenet_mse_grads_cuda,
+        shapenet_mse_grads_reference)
 
     wb, x = chain_data(torch, cfg, G, P, dtype, seed)
     tgt, w, _ = side_data(torch, cfg, G, P, seed)
     w = w if weighted else None
-    loss, d_wb = shapenet_mse_grads_cuda(wb, x, tgt, cfg, variant, w)
+    before = dict(_build.LAUNCHES)
+    launch = _shapenet_mse_grads_simt if simt else shapenet_mse_grads_cuda
+    loss, d_wb = launch(wb, x, tgt, cfg, variant, w)
     l_ref, g_ref = shapenet_mse_grads_reference(wb, x, tgt, cfg, variant, w)
     torch.cuda.synchronize()
-    what = f"K2 {describe(cfg, variant, G, P, dtype)} weighted={weighted}"
+    tc = int(dtype == torch.bfloat16 and variant == "siren" and not simt)
+    what = (f"K2 {describe(cfg, variant, G, P, dtype)} weighted={weighted}"
+            f"{' (CUDA-core kernel)' if simt else ''}")
+    if (_build.LAUNCHES["shapenet_mse_grads"] != before["shapenet_mse_grads"] + 1
+            or _build.LAUNCHES["shapenet_mse_grads_tc"] != before["shapenet_mse_grads_tc"] + tc):
+        raise AssertionError(f"{what}: launched {_build.LAUNCHES} after {before}")
     if d_wb.dtype != wb.dtype or d_wb.shape != g_ref.shape or loss.dtype != torch.float32:
         raise AssertionError(f"{what}: {d_wb.shape}/{d_wb.dtype} vs {g_ref.shape}/{g_ref.dtype}")
     err, scale = max_diff(torch, d_wb, g_ref, what)
     l_rel = abs(float(loss) - float(l_ref)) / max(abs(float(l_ref)), 1e-30)
-    bound, l_bound = (5e-6, 1e-5) if dtype == torch.float32 else (BF16_REL, BF16_LOSS_REL)
-    geo = train_geometry(cfg, G, P, dtype)
+    bound, l_bound = (f32_bound, 1e-5) if dtype == torch.float32 else (BF16_REL, BF16_LOSS_REL)
+    geo = k2_geometry(cfg, variant, G, P, dtype, kernel="simt" if simt else None)
     log(f"{what} loss {float(loss):.6e} (rel {l_rel:.2e}) d_wb max|d|={err:.3e} "
-        f"max|plain|={scale:.3e} ({err / scale:.2e} of it); residuals in {geo['residuals']} "
-        f"memory, {geo['splits']} splits of {geo['tile']}-point tiles")
+        f"max|plain|={scale:.3e} ({err / scale:.2e} of it); {geo['kernel']} kernel, residuals "
+        f"in {geo['residuals']} memory, {geo['splits']} splits of {geo['tile']}-point tiles")
     if not np.isfinite(float(loss)) or l_rel > l_bound or err > bound * scale:
         raise AssertionError(f"{what}: loss rel {l_rel} (bound {l_bound}), d_wb max|d| "
                              f"{err} > {bound} * {scale}")
@@ -395,32 +429,45 @@ def check_k6(torch, cfg, variant, G, P, dtype, weighted, masked, seed, simt=Fals
     return err
 
 
-def check_k7(torch, cfg, variant, G, P, dtype, seed) -> float:
-    """K7 vs plain K7 on y, jac and hess; returns max |hess - plain hess|.
-    The Hessian must be exactly symmetric. Bounds as K5's: float32 max|d|
-    <= 2e-4 max|plain| + 1e-5, bfloat16 BF16_REL of max|plain|."""
+def check_k7(torch, cfg, variant, G, P, dtype, seed, simt=False) -> float:
+    """K7 vs plain K7 on y, jac and hess; returns the largest max|d| of the
+    three. A bfloat16 call must launch the tensor-core kernel (``simt``: the
+    CUDA-core kernel on the same inputs, through its private launcher), a
+    float32 one the CUDA-core kernel. The Hessian must be exactly symmetric.
+    Bounds as K5's: float32 max|d| <= 2e-4 max|plain| + 1e-5, bfloat16
+    BF16_REL of max|plain|."""
+    from nif_tpu_torch.ops import _build
     from nif_tpu_torch.ops.fused_hessian import (
-        hessian_geometry, shapenet_fwd_hess_cuda, shapenet_fwd_hess_reference)
+        _geometry, _shapenet_fwd_hess_simt, shapenet_fwd_hess_cuda, shapenet_fwd_hess_reference)
 
     wb, x = chain_data(torch, cfg, G, P, dtype, seed)
-    outs = shapenet_fwd_hess_cuda(wb, x, cfg, variant)
+    before = dict(_build.LAUNCHES)
+    outs = (_shapenet_fwd_hess_simt if simt else shapenet_fwd_hess_cuda)(wb, x, cfg, variant)
     refs = shapenet_fwd_hess_reference(wb, x, cfg, variant)
     torch.cuda.synchronize()
-    what = f"K7 {describe(cfg, variant, G, P, dtype)}"
+    tc = int(dtype == torch.bfloat16 and not simt)
+    what = f"K7 {describe(cfg, variant, G, P, dtype)}{' (CUDA-core kernel)' if simt else ''}"
+    if (_build.LAUNCHES["shapenet_fwd_hess"] != before["shapenet_fwd_hess"] + 1
+            or _build.LAUNCHES["shapenet_fwd_hess_tc"] != before["shapenet_fwd_hess_tc"] + tc):
+        raise AssertionError(f"{what}: launched {_build.LAUNCHES} after {before}")
     si, so = cfg.input_dim, cfg.output_dim
     if outs[2].shape != (G, P, so, si, si) or any(o.dtype != dtype for o in outs):
         raise AssertionError(f"{what}: hess {outs[2].shape}/{outs[2].dtype}")
     if not torch.equal(outs[2], outs[2].transpose(-1, -2)):
         raise AssertionError(f"{what}: the Hessian is not exactly symmetric")
+    worst, rels = 0.0, []
     for name, out, ref in zip(("y", "jac", "hess"), outs, refs):
         err, scale = max_diff(torch, out, ref, f"{what} {name}")
         bound = 2e-4 * scale + 1e-5 if dtype == torch.float32 else BF16_REL * scale
         if err > bound:
             raise AssertionError(f"{what}: {name} max|d| {err} > {bound}")
-    geo = hessian_geometry("eval", cfg, variant, G, P, dtype)
-    log(f"{what} y/jac/hess agree, hess symmetric; hess max|d|={err:.3e} ({err / scale:.2e} "
-        f"of max|plain|); {geo['tile']}-point tiles, residuals in {geo['residuals']} memory")
-    return err
+        worst = max(worst, err)
+        rels.append(f"{name} {err / max(scale, 1e-30):.2e}")
+    geo = _geometry("eval", cfg, variant, G, P, dtype, kernel="simt" if simt else None)
+    log(f"{what} y/jac/hess agree, hess symmetric; max|d| of max|plain|: {', '.join(rels)}; "
+        f"{geo['kernel']} kernel, {geo['tile']}-point tiles, weights from {geo['weights']} "
+        f"memory, {geo['splits']} splits")
+    return worst
 
 
 def hessian_data(torch, cfg, G, P, seed):
@@ -544,6 +591,39 @@ def hessian_step_stages(torch, trainer, state, batch):
         "Adam update": adam,
     }
     return {k: cuda_ms(f, reps=3, warmup=1) for k, f in stages.items()}
+
+
+def mse_step_stages(torch, trainer, state, batch):
+    """The flagship MSE step's stages, each timed alone with CUDA events
+    (ms): the input casts, the ParameterNet forward, K2's wrapper, the
+    ParameterNet backward and the Adam update (as
+    ``scripts/port_train_profile.py`` splits it)."""
+    from nif_tpu_torch.ops.fused_shapenet import shapenet_mse_grads
+    from nif_tpu_torch.utils.bench import cuda_ms
+
+    model = trainer.model
+    t, x, u = batch
+    params = [p for _, p in model.param_items()]
+    tc, xc = model._compute(t), model._compute(x)
+    wb, _ = model.pnet(tc)
+    kernel = lambda: shapenet_mse_grads(wb, xc, u, model.cfg_shape_net, "siren")  # noqa: E731
+    d_wb = kernel()[1]
+    grads = torch.autograd.grad(wb, params, d_wb, retain_graph=True)
+
+    def adam():
+        for p, g in zip(params, grads):
+            p.grad = g
+        state.opt_state.step()
+
+    stages = {
+        "cast t, x": lambda: (model._compute(t), model._compute(x)),
+        "ParameterNet forward": lambda: model.pnet(tc),
+        "K2 wrapper": kernel,
+        "ParameterNet backward": lambda: torch.autograd.grad(wb, params, d_wb,
+                                                             retain_graph=True),
+        "Adam update": adam,
+    }
+    return {k: cuda_ms(f, reps=10, warmup=2) for k, f in stages.items()}
 
 
 def linear_data(torch, case, G, P, dtype, seed):
@@ -778,11 +858,14 @@ def hessian_bounds(cfg, G, P, peak_mma, peak_f32, peak_bw, train: bool, f32: boo
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops / 1e9
 
 
-def train_bounds(cfg, G, P, peak_mma, peak_f32, peak_bw, dx: bool):
+def train_bounds(cfg, G, P, peak_mma, peak_f32, peak_bw, dx: bool, f32: bool = False):
     """(bound ms, bound_by, products GFLOP) of K2 (dx=False) or K3 (dx=True)
     at this shape in bf16: products over the tensor-core peak, sine and
     derivative evaluations over the f32 peak, bytes over bandwidth (wb, x
-    and the target or g_out in, d_wb and dx out, each once)."""
+    and the target or g_out in, d_wb and dx out, each once). ``f32``: the
+    float32 kernel, whose products must not use the tensor cores (no TF32),
+    so products and activations together over the f32 peak, and 4-byte
+    inputs and outputs."""
     n, si, so, nm = cfg.units, cfg.input_dim, cfg.output_dim, 2 * cfg.nlayers if cfg.use_resblock else cfg.nlayers
     fwd = 2 * G * P * (si * n + nm * n * n + n * so)
     dw = fwd
@@ -790,8 +873,9 @@ def train_bounds(cfg, G, P, peak_mma, peak_f32, peak_bw, dx: bool):
     flops = fwd + dw + du
     act = SINE_GRAD_FLOPS * G * P * n * (1 + nm)
     po = nm * n * n + (si + so + 1 + nm) * n + so
-    nbytes = 2 * (2 * G * po + G * P * si + G * P * so + (G * P * si if dx else 0))
-    t_ops = max(flops / peak_mma, act / peak_f32) * 1e3
+    nbytes = ((4 if f32 else 2)
+              * (2 * G * po + G * P * si + G * P * so + (G * P * si if dx else 0)))
+    t_ops = ((flops + act) / peak_f32 if f32 else max(flops / peak_mma, act / peak_f32)) * 1e3
     t_bytes = nbytes / peak_bw * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops / 1e9
 
@@ -802,6 +886,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    wall0 = time.perf_counter()
     import nif_tpu_torch
     from nif_tpu_torch.config import ShapeNetConfig
     from nif_tpu_torch.ops import _build
@@ -809,12 +894,13 @@ def main() -> int:
         _shapenet_sobolev_grads_simt, shapenet_fwd_jac_cuda, shapenet_fwd_jac_reference,
         shapenet_sobolev_grads_cuda, shapenet_sobolev_grads_reference)
     from nif_tpu_torch.ops.fused_hessian import (
-        _shapenet_hessian_grads_simt, shapenet_fwd_hess_cuda, shapenet_hessian_grads_cuda)
+        _shapenet_fwd_hess_simt, _shapenet_hessian_grads_simt, shapenet_fwd_hess_cuda,
+        shapenet_hessian_grads_cuda)
     from nif_tpu_torch.ops.fused_linear import (
         niflinear_mse_grads_cuda, niflinear_mse_grads_reference)
     from nif_tpu_torch.ops.fused_shapenet import (
-        shapenet_bwd_cuda, shapenet_fused_bwd_reference, shapenet_fwd_cuda,
-        shapenet_grouped_fused_reference, shapenet_mse_grads_cuda,
+        _shapenet_mse_grads_simt, shapenet_bwd_cuda, shapenet_fused_bwd_reference,
+        shapenet_fwd_cuda, shapenet_grouped_fused_reference, shapenet_mse_grads_cuda,
         shapenet_mse_grads_reference)
     from nif_tpu_torch.ops.shapenet import shapenet_grouped
     from nif_tpu_torch.serving import predict_grouped, predict_shared_mesh
@@ -837,8 +923,9 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {name}")
     log(f"card: {smi}")
-    build_all(["shapenet_fwd", "shapenet_bwd", "shapenet_jac", "shapenet_jac_tc",
-               "shapenet_hess", "shapenet_hess_tc", "shapenet_linear", "shapenet_linear_tc"])
+    build_all(["shapenet_fwd", "shapenet_bwd", "shapenet_bwd_tc", "shapenet_jac",
+               "shapenet_jac_tc", "shapenet_hess", "shapenet_hess_tc", "shapenet_linear",
+               "shapenet_linear_tc"])
     peak_mma, peak_f32, peak_bw = PEAKS["H100 PCIe" if "PCIe" in name else "H100 SXM"]
     flag_cfg = ShapeNetConfig.from_dict(FLAGSHIP_SHAPE)
 
@@ -854,13 +941,28 @@ def main() -> int:
         for dtype in (torch.float32, torch.bfloat16):
             for weighted in (False, True):
                 check_k2(torch, ShapeNetConfig(*args), variant, 3, 256, dtype, weighted, seed=i)
+    for i, args in enumerate(K2_TC_EXTRA):
+        for weighted in (False, True):
+            check_k2(torch, ShapeNetConfig(*args), "siren", 3, 200, torch.bfloat16, weighted,
+                     seed=140 + i)
     k2_err = check_k2(torch, flag_cfg, "siren", 32, 32768, torch.bfloat16, False, seed=12)
+    check_k2(torch, flag_cfg, "siren", 32, 32768, torch.bfloat16, False, seed=12, simt=True)
+    # f32 at the flagship width over 262144 points a group: the weight grads
+    # sum that many f32 terms in another order than plain K2's, so the
+    # fused backward's bound (K3's, the f32 K6's) holds there
+    k2f_err = check_k2(torch, flag_cfg, "siren", 8, 32768, torch.float32, False, seed=16,
+                       f32_bound=5e-5)
     wb, x = chain_data(torch, flag_cfg, 32, 32768, torch.bfloat16, seed=13)
-    tgt = side_data(torch, flag_cfg, 32, 32768, seed=13)[0]
-    runs = [shapenet_mse_grads_cuda(wb, x, tgt, flag_cfg, "siren") for _ in range(2)]
+    tgt, w = side_data(torch, flag_cfg, 32, 32768, seed=13)[:2]
+    before = _build.LAUNCHES["shapenet_mse_grads_tc"]
+    runs = [shapenet_mse_grads_cuda(wb, x, tgt, flag_cfg, "siren", w) for _ in range(2)]
+    if _build.LAUNCHES["shapenet_mse_grads_tc"] != before + 2:
+        raise AssertionError("the flagship bf16 K2 runs did not take the tensor-core kernel")
     if not (torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])):
         raise AssertionError("K2 is not deterministic: two runs on one input differ")
-    log("K2 flagship bf16: two runs give bitwise-equal loss and d_wb")
+    log("K2 flagship bf16 (G=32, P=32768, weighted, tensor cores): two runs give bitwise-equal "
+        "loss and d_wb")
+    del wb, x, tgt, w, runs
 
     # ---- phase 2c: K3 against its plain version; autograd through K1 + K3
     for i, (variant, args) in enumerate(CASES):
@@ -929,11 +1031,25 @@ def main() -> int:
         "terms and d_wb")
     del wb, x, tgt, w, jt, runs
 
-    # ---- phase 2f: K7 against its plain version
+    # ---- phase 2f: K7 against its plain version, and its determinism
     for i, (variant, args) in enumerate(HESS_CASES):
         for dtype in (torch.float32, torch.bfloat16):
             check_k7(torch, ShapeNetConfig(*args), variant, 3, 256, dtype, seed=60 + i)
+    for i, args in enumerate(HESS_TC_EXTRA):
+        check_k7(torch, ShapeNetConfig(*args), "siren", 3, 200, torch.bfloat16, seed=150 + i)
     k7_err = check_k7(torch, flag_cfg, "siren", 8, 32768, torch.bfloat16, seed=70)
+    check_k7(torch, flag_cfg, "siren", 8, 32768, torch.bfloat16, seed=70, simt=True)
+    k7f_err = check_k7(torch, flag_cfg, "siren", 8, 32768, torch.float32, seed=71)
+    wb, x = chain_data(torch, flag_cfg, 32, 32768, torch.bfloat16, seed=72)
+    before = _build.LAUNCHES["shapenet_fwd_hess_tc"]
+    runs = [shapenet_fwd_hess_cuda(wb, x, flag_cfg, "siren") for _ in range(2)]
+    if _build.LAUNCHES["shapenet_fwd_hess_tc"] != before + 2:
+        raise AssertionError("the flagship bf16 K7 runs did not take the tensor-core kernel")
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        raise AssertionError("K7 is not deterministic: two runs on one input differ")
+    log("K7 flagship bf16 (G=32, P=32768, tensor cores): two runs give bitwise-equal y, jac "
+        "and hess")
+    del wb, x, runs
 
     # ---- phase 2g: K8 against its plain version, and its determinism
     for i, (variant, args) in enumerate(HESS_CASES):
@@ -1056,10 +1172,27 @@ def main() -> int:
     losses = [float(v) for v in losses]
     log(f"flagship train: {n_steps} steps, losses {losses}, launches {train_launches}, "
         f"path {trainer.history.get('path')}")
-    if train_launches["shapenet_mse_grads"] != n_steps or not all(np.isfinite(losses)):
-        raise AssertionError(f"train steps launched K2 {train_launches['shapenet_mse_grads']} "
-                             f"times for {n_steps} steps, losses {losses}")
+    if (train_launches["shapenet_mse_grads"] != n_steps
+            or train_launches["shapenet_mse_grads_tc"] != n_steps
+            or not all(np.isfinite(losses))):
+        raise AssertionError(f"{n_steps} train steps launched {train_launches}, losses {losses}")
     log(f"step 0's loss equals the K2 call above bit for bit: {losses[0] == float(loss_k)}")
+    # the float32 policy: the CUDA-core K2, full f32 products
+    f32_mse_trainer = GroupedTrainer(
+        nif_tpu_torch.NIFMultiScale(FLAGSHIP_SHAPE, FLAGSHIP_PNET, "float32", device="cuda",
+                                    seed=0),
+        lambda p: torch.optim.Adam(p, lr=FLAGSHIP_TRAIN_LR))
+    f32_mse_state = f32_mse_trainer.init(0)
+    _build.reset_launches()
+    f32_mse_state, f32_mse_loss = f32_mse_trainer.step(f32_mse_state, t_tr, x_tr, u_tr)
+    torch.cuda.synchronize()
+    mse_f32_launches = dict(_build.LAUNCHES)
+    log(f"flagship train, float32 policy: 1 step, loss {float(f32_mse_loss):.6e}, launches "
+        f"{mse_f32_launches}")
+    if (mse_f32_launches["shapenet_mse_grads"] != 1 or mse_f32_launches["shapenet_mse_grads_tc"]
+            or not np.isfinite(float(f32_mse_loss))):
+        raise AssertionError(f"a float32 train step launched {mse_f32_launches}")
+    del f32_mse_trainer, f32_mse_state
     t_w, x_w, u_w = traveling_wave(16, 8192, seed=2)
     fmodel = nif_tpu_torch.NIFMultiScale(FLAGSHIP_SHAPE, FLAGSHIP_PNET, FLAGSHIP_POLICY,
                                          device="cuda", seed=1)
@@ -1073,8 +1206,10 @@ def main() -> int:
     log(f"fit on a traveling wave (G=16, P=8192, 4096-point batches, 30 epochs): epoch "
         f"losses first {hist[0]:.6e} last {hist[-1]:.6e}; K2 launches {fit_launches}; "
         f"evaluate_metrics {metrics}")
-    if fit_launches["shapenet_mse_grads"] != 60 or not hist[-1] < hist[0]:
-        raise AssertionError("the fit did not take K2 for every step or did not lower the loss")
+    if (fit_launches["shapenet_mse_grads"] != 60 or fit_launches["shapenet_mse_grads_tc"] != 60
+            or not hist[-1] < hist[0]):
+        raise AssertionError("the fit did not take the tensor-core K2 for every step or did not "
+                             "lower the loss")
 
     # ---- phase 3c: Sobolev-train the flagship
     strainer, sstate, (t_s, x_s, u_s, j_s) = flagship_sobolev_step(G, P)
@@ -1223,8 +1358,18 @@ def main() -> int:
     if (hf32_launches["shapenet_hessian_grads"] != 1 or hf32_launches["shapenet_hessian_grads_tc"]
             or not np.isfinite(float(hf32_loss))):
         raise AssertionError(f"a float32 Hessian step launched {hf32_launches}")
-    del hf32_trainer, hf32_state
     h_w = wave_hessian(t_w, x_w)
+    _build.reset_launches()
+    hf32_eval = hf32_trainer.evaluate_sobolev(hf32_state, t_w, x_w, u_w, j_w, target_hess=h_w,
+                                              group_batch=16 // eval_chunks)
+    hf32_eval_launches = dict(_build.LAUNCHES)
+    log(f"float32-policy evaluate_sobolev with Hessian targets ({eval_chunks} chunks): "
+        f"{hf32_eval}; launches {hf32_eval_launches}")
+    if (hf32_eval_launches["shapenet_fwd_hess"] != eval_chunks
+            or hf32_eval_launches["shapenet_fwd_hess_tc"]
+            or not all(np.isfinite(v) for v in hf32_eval.values())):
+        raise AssertionError(f"a float32 Hessian evaluation launched {hf32_eval_launches}")
+    del hf32_trainer, hf32_state
     hmodel_w = nif_tpu_torch.NIFMultiScale(FLAGSHIP_SHAPE, FLAGSHIP_PNET, FLAGSHIP_POLICY,
                                            device="cuda", seed=1)
     hfitter = GroupedTrainer(hmodel_w, lambda p: torch.optim.Adam(p, lr=FLAGSHIP_TRAIN_LR), **hkw)
@@ -1250,9 +1395,10 @@ def main() -> int:
     if not hafter["hessian_mse"] < hbefore["hessian_mse"]:
         raise AssertionError(f"the Hessian fit did not lower the Hessian term: {hbefore} -> "
                              f"{hafter}")
-    if heval_launches["shapenet_fwd_hess"] != eval_chunks:
-        raise AssertionError(f"evaluate_sobolev launched K7 {heval_launches['shapenet_fwd_hess']}"
-                             f" times for {eval_chunks} chunks")
+    if (heval_launches["shapenet_fwd_hess"] != eval_chunks
+            or heval_launches["shapenet_fwd_hess_tc"] != eval_chunks):
+        raise AssertionError(f"evaluate_sobolev launched {heval_launches} for {eval_chunks} "
+                             f"chunks, not one tensor-core K7 each")
 
     # ---- phase 3e: serve and train the NIF-linear model
     ltrainer, lstate, (t_l, x_l, u_l) = flagship_linear_step(G, P)
@@ -1453,22 +1599,38 @@ def main() -> int:
         step_box[0], _ = trainer.step(step_box[0], t_tr, x_tr, u_tr)
 
     step_ms = cuda_ms(one_step, reps=10)
+    mstages = mse_step_stages(torch, trainer, step_box[0], (t_tr, x_tr, u_tr))
     wb, x = chain_data(torch, flag_cfg, G, P, torch.bfloat16, seed=15)
     tgt, _, g = side_data(torch, flag_cfg, G, P, seed=15)
     g = g.to(torch.bfloat16)
-    k2_ms = cuda_ms(lambda: shapenet_mse_grads_cuda(wb, x, tgt, flag_cfg, "siren"), reps=10)
+    k2_ms = cuda_ms(lambda: shapenet_mse_grads_cuda(wb, x, tgt, flag_cfg, "siren"), reps=10,
+                    warmup=2)
+    k2_simt_ms = cuda_ms(lambda: _shapenet_mse_grads_simt(wb, x, tgt, flag_cfg, "siren"),
+                         reps=5, warmup=1)
     k2_plain_ms = cuda_ms(lambda: shapenet_mse_grads_reference(wb, x, tgt, flag_cfg, "siren"),
                           reps=3, warmup=1)
+    f32_in = (wb.float(), x.float(), tgt)
+    k2f_ms = cuda_ms(lambda: shapenet_mse_grads_cuda(*f32_in, flag_cfg, "siren"), reps=5,
+                     warmup=1)
+    k2f_plain_ms = cuda_ms(lambda: shapenet_mse_grads_reference(*f32_in, flag_cfg, "siren"),
+                           reps=3, warmup=1)
+    del f32_in
     k3_ms = cuda_ms(lambda: shapenet_bwd_cuda(wb, x, g, flag_cfg, "siren"), reps=10)
     k3_plain_ms = cuda_ms(lambda: shapenet_fused_bwd_reference(wb, x, g, flag_cfg, "siren"),
                           reps=3, warmup=1)
     k2_bound, k2_by, k2_gf = train_bounds(flag_cfg, G, P, peak_mma, peak_f32, peak_bw, dx=False)
+    k2f_bound, k2f_by, _ = train_bounds(flag_cfg, G, P, peak_mma, peak_f32, peak_bw, dx=False,
+                                        f32=True)
     k3_bound, k3_by, k3_gf = train_bounds(flag_cfg, G, P, peak_mma, peak_f32, peak_bw, dx=True)
     log(f"flagship train step (GroupedTrainer.step, Adam, bf16, G={G} P={P}): {step_ms:.4f} ms "
-        f"= {G * P / step_ms * 1e3:.4e} train points/s")
-    log(f"K2 {k2_ms:.4f} ms (wrapper incl. prescale, workspace and reduce), plain "
-        f"{k2_plain_ms:.4f} ms, bound {k2_bound:.4f} ms by {k2_by} ({k2_gf:.1f} GFLOP of "
-        f"products); K3 {k3_ms:.4f} ms, plain {k3_plain_ms:.4f} ms, bound {k3_bound:.4f} ms "
+        f"= {G * P / step_ms * 1e3:.4e} train points/s; stages timed alone: "
+        f"{', '.join(f'{k} {v:.4f} ms' for k, v in mstages.items())}")
+    log(f"K2 bf16, tensor cores: {k2_ms:.4f} ms (wrapper incl. prescale, workspace and reduce) "
+        f"= {k2_gf / k2_ms:.2f} TFLOP/s of products, the CUDA-core K2 on the same bf16 inputs "
+        f"{k2_simt_ms:.4f} ms ({k2_simt_ms / k2_ms:.2f}x), plain {k2_plain_ms:.4f} ms, bound "
+        f"{k2_bound:.4f} ms by {k2_by} ({k2_gf:.1f} GFLOP of products); K2 f32, CUDA cores: "
+        f"{k2f_ms:.4f} ms, plain {k2f_plain_ms:.4f} ms, bound {k2f_bound:.4f} ms by {k2f_by} "
+        f"(f32 peak); K3 {k3_ms:.4f} ms, plain {k3_plain_ms:.4f} ms, bound {k3_bound:.4f} ms "
         f"by {k3_by} ({k3_gf:.1f} GFLOP); library_ms null: no single PyTorch call computes "
         f"these chains")
 
@@ -1524,7 +1686,9 @@ def main() -> int:
     hstages = hessian_step_stages(torch, htrainer, hbox[0], (t_h, x_h, u_h, j_h, h_h))
     wb, x = chain_data(torch, flag_cfg, G, P, torch.bfloat16, seed=92)
     tgt, _, jt, ht = hessian_data(torch, flag_cfg, G, P, seed=92)
-    k7_ms = cuda_ms(lambda: shapenet_fwd_hess_cuda(wb, x, flag_cfg, "siren"), reps=5, warmup=1)
+    k7_ms = cuda_ms(lambda: shapenet_fwd_hess_cuda(wb, x, flag_cfg, "siren"), reps=10, warmup=2)
+    k7_simt_ms = cuda_ms(lambda: _shapenet_fwd_hess_simt(wb, x, flag_cfg, "siren"), reps=3,
+                         warmup=1)
     k7_plain_ms = cuda_ms(lambda: plain_k7_chunked(torch, wb, x, flag_cfg), reps=2, warmup=1)
     k8_ms = cuda_ms(lambda: shapenet_hessian_grads_cuda(wb, x, tgt, jt, ht, flag_cfg, "siren"),
                     reps=5, warmup=1)
@@ -1537,12 +1701,18 @@ def main() -> int:
     torch.cuda.synchronize()
     plain_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     f32_in = (wb.float(), x.float(), tgt, jt, ht)
+    k7f_ms = cuda_ms(lambda: shapenet_fwd_hess_cuda(*f32_in[:2], flag_cfg, "siren"), reps=3,
+                     warmup=1)
+    k7f_plain_ms = cuda_ms(lambda: plain_k7_chunked(torch, *f32_in[:2], flag_cfg), reps=2,
+                           warmup=1)
     k8f_ms = cuda_ms(lambda: shapenet_hessian_grads_cuda(*f32_in, flag_cfg, "siren"), reps=3,
                      warmup=1)
     k8f_plain_ms = cuda_ms(lambda: plain_k8_chunked(torch, *f32_in, flag_cfg), reps=2, warmup=1)
     del wb, x, tgt, jt, ht, f32_in
     k7_bound, k7_by, k7_gf = hessian_bounds(flag_cfg, G, P, peak_mma, peak_f32, peak_bw,
                                             train=False)
+    k7f_bound, k7f_by, _ = hessian_bounds(flag_cfg, G, P, peak_mma, peak_f32, peak_bw,
+                                          train=False, f32=True)
     k8_bound, k8_by, k8_gf = hessian_bounds(flag_cfg, G, P, peak_mma, peak_f32, peak_bw,
                                             train=True)
     k8f_bound, k8f_by, _ = hessian_bounds(flag_cfg, G, P, peak_mma, peak_f32, peak_bw,
@@ -1550,8 +1720,12 @@ def main() -> int:
     log(f"flagship Hessian step (GroupedTrainer.step with target_jac and target_hess, Adam, "
         f"bf16, G={G} P={P}): {hstep_ms:.4f} ms = {G * P / hstep_ms * 1e3:.4e} train points/s; "
         f"stages timed alone: {', '.join(f'{k} {v:.4f} ms' for k, v in hstages.items())}")
-    log(f"K7 {k7_ms:.4f} ms, plain {k7_plain_ms:.4f} ms, bound {k7_bound:.4f} ms by {k7_by} "
-        f"({k7_gf:.1f} GFLOP of products); K8 bf16, tensor cores: {k8_ms:.4f} ms (wrapper incl. "
+    log(f"K7 bf16, tensor cores: {k7_ms:.4f} ms = {k7_gf / k7_ms:.2f} TFLOP/s of products, "
+        f"the CUDA-core K7 on the same bf16 inputs {k7_simt_ms:.4f} ms "
+        f"({k7_simt_ms / k7_ms:.2f}x), plain {k7_plain_ms:.4f} ms, bound {k7_bound:.4f} ms by "
+        f"{k7_by} ({k7_gf:.1f} GFLOP of products); K7 f32, CUDA cores: {k7f_ms:.4f} ms, plain "
+        f"{k7f_plain_ms:.4f} ms, bound {k7f_bound:.4f} ms by {k7f_by} (f32 peak); K8 bf16, "
+        f"tensor cores: {k8_ms:.4f} ms (wrapper incl. "
         f"prescale, workspace and reduce) = {k8_gf / k8_ms:.2f} TFLOP/s of products, the "
         f"CUDA-core K8 on the same bf16 inputs {k8_simt_ms:.4f} ms, plain {k8_plain_ms:.4f} ms, "
         f"bound {k8_bound:.4f} ms by {k8_by} ({k8_gf:.1f} GFLOP); K8 f32, CUDA cores: "
@@ -1592,6 +1766,7 @@ def main() -> int:
         f"{k4f_ms:.4f} ms, plain {k4f_plain_ms:.4f} ms, bound {k4f_bound:.4f} ms by {k4f_by} "
         f"(f32 peak); library_ms null: no single PyTorch call computes this pass")
     log(f"card: {smi}")
+    log(f"chip_smoke wall clock: {time.perf_counter() - wall0:.1f} s (builds included)")
     log(json.dumps({"kernels": [{
         "name": "shapenet_fwd",
         "route": "cuda",
@@ -1607,14 +1782,26 @@ def main() -> int:
     }, {
         "name": "shapenet_mse_grads",
         "route": "cuda",
-        "source": "nif_tpu_torch/csrc/shapenet_bwd.cu",
+        "source": "nif_tpu_torch/csrc/shapenet_bwd_tc.cu",
         "replaces": "nif_tpu/ops/pallas_shapenet.py:786",
-        "launches": train_launches["shapenet_mse_grads"],
+        "launches": train_launches["shapenet_mse_grads_tc"],
         "max_abs_err": k2_err,
         "ms": k2_ms,
         "plain_ms": k2_plain_ms,
         "bound_ms": k2_bound,
         "bound_by": k2_by,
+        "library_ms": None,
+    }, {
+        "name": "shapenet_mse_grads_f32",
+        "route": "cuda",
+        "source": "nif_tpu_torch/csrc/shapenet_bwd.cu",
+        "replaces": "nif_tpu/ops/pallas_shapenet.py:786",
+        "launches": mse_f32_launches["shapenet_mse_grads"],
+        "max_abs_err": k2f_err,
+        "ms": k2f_ms,
+        "plain_ms": k2f_plain_ms,
+        "bound_ms": k2f_bound,
+        "bound_by": k2f_by,
         "library_ms": None,
     }, {
         "name": "shapenet_bwd",
@@ -1667,14 +1854,26 @@ def main() -> int:
     }, {
         "name": "shapenet_fwd_hess",
         "route": "cuda",
-        "source": "nif_tpu_torch/csrc/shapenet_hess.cu",
+        "source": "nif_tpu_torch/csrc/shapenet_hess_tc.cu",
         "replaces": "nif_tpu/ops/pallas_shapenet.py:2223",
-        "launches": heval_launches["shapenet_fwd_hess"],
+        "launches": heval_launches["shapenet_fwd_hess_tc"],
         "max_abs_err": k7_err,
         "ms": k7_ms,
         "plain_ms": k7_plain_ms,
         "bound_ms": k7_bound,
         "bound_by": k7_by,
+        "library_ms": None,
+    }, {
+        "name": "shapenet_fwd_hess_f32",
+        "route": "cuda",
+        "source": "nif_tpu_torch/csrc/shapenet_hess.cu",
+        "replaces": "nif_tpu/ops/pallas_shapenet.py:2223",
+        "launches": hf32_eval_launches["shapenet_fwd_hess"],
+        "max_abs_err": k7f_err,
+        "ms": k7f_ms,
+        "plain_ms": k7f_plain_ms,
+        "bound_ms": k7f_bound,
+        "bound_by": k7f_by,
         "library_ms": None,
     }, {
         "name": "shapenet_hessian_grads",

@@ -1,11 +1,13 @@
-// K8's bf16 path on Hopper's tensor cores: the fused Hessian train pass of
-// the grouped ShapeNet chain, with every stacked product a warp-level
-// mma.sync.m16n8k16 (bf16 in, f32 accumulation).
+// K8's and K7's bf16 paths on Hopper's tensor cores: the fused Hessian
+// train pass and the fused Hessian evaluation of the grouped ShapeNet chain,
+// with every stacked product a warp-level mma.sync.m16n8k16 (bf16 in, f32
+// accumulation). K7's kernel (fwd_hess_tc_kernel, below K8's) is K8's
+// forward half; its own note follows K8's code.
 //
-// Replaces nif_tpu/ops/pallas_shapenet.py::_hessian_kernel (reached through
+// K8 replaces nif_tpu/ops/pallas_shapenet.py::_hessian_kernel (reached through
 // shapenet_hessian_grads; its backward is _hessian_backward_chain) for
 // bfloat16 inputs; float32 stays on shapenet_hess.cu, whose f32 products
-// must not round to TF32, and so does K7. What it computes, and where it
+// must not round to TF32. What it computes, and where it
 // rounds, is shapenet_hess.cu's (see its header): S, the input of each
 // product, is stored in bf16; the raw products Z stay f32 and every epilogue
 // runs in f32 from Z; the backward's D rows are rounded before their
@@ -60,9 +62,12 @@
 //   f32 FMAs from shared memory: a thread per output; the last layer's dS
 //   lands in the registers of the column blocks' owners.
 // The grid is (S, G) with S = SMs / G splits: one wave of one block per SM.
-// The tile machinery (stack_mma, W staging, weight_grad_stack, the carry,
-// the geometry and the reduce) is stack_tc.cuh's, shared with K6's
-// tensor-core kernel (shapenet_jac_tc.cu); this file keeps K8's own body.
+// The tile machinery (the sine, stack_mma, W staging, weight_grad_stack,
+// the carry, the geometry and the reduce) is stack_tc.cuh's, shared with the
+// tensor-core K6 (shapenet_jac_tc.cu) and K2 (shapenet_bwd_tc.cu); this file
+// keeps K8's body and K7's (below), whose forwards share the first layer
+// and the hidden epilogues (first_layer_stack, hidden_epilogue,
+// res_average).
 #include "stack_tc.cuh"
 
 namespace {
@@ -126,14 +131,80 @@ __host__ __device__ constexpr int pair_k(int a, int si) {
   return j + a;
 }
 
-// The bf16 sine's first three derivatives from one range reduction: the
-// backward's epilogues (sine3 of stack_tc.cuh, and the third).
-__device__ __forceinline__ void sine_d123(float z, bool deg9, float* d1, float* d2, float* d3) {
-  const float t = sin_turns(z);
-  const float s = t * t;
-  *d1 = sin_poly_dt(s, deg9) * kInv2Pi;
-  *d2 = sin_poly_dt2(t, s, deg9) * kInv2Pi2;
-  *d3 = sin_poly_dt3(s, deg9) * kInv2Pi3;
+// The first layer of column block cb in the thread's fragment of every
+// stream: z0 = x @ W0' + b0 (f32 FMAs from the tile X and the group's f32
+// W0' and b0 in shared memory); the value f(z0), the tangent seeds f'(z0)
+// W0'[k] and the pair seeds f''(z0) (W0'[j] W0'[k]). K8's and K7's.
+template <int SI, int NS>
+__device__ __forceinline__ void first_layer_stack(const bf16* X, const float* W0f,
+                                                  const float* B0f, int n, int cb, const Lane& l,
+                                                  const SinePoly& sp, float (&v)[NS][2][4]) {
+  constexpr int NP = SI * (SI + 1) / 2;
+  constexpr int NVT = 1 + SI;
+#pragma unroll
+  for (int t = 0; t < 2; ++t)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = frag_col(cb, t, i, l);
+      const int r = l.g + 8 * (i >> 1);
+      float w0[SI];
+      float z = 0.f;
+#pragma unroll
+      for (int k = 0; k < SI; ++k) {
+        w0[k] = c < n ? W0f[k * n + c] : 0.f;
+        z = fmaf(__bfloat162float(X[r * SI + k]), w0[k], z);
+      }
+      z += c < n ? B0f[c] : 0.f;
+      float d1, d2;
+      v[0][t][i] = sine3(z, sp, &d1, &d2);
+#pragma unroll
+      for (int k = 0; k < SI; ++k) v[1 + k][t][i] = d1 * w0[k];
+      static_for<0, NP>([&](auto pc) {
+        constexpr int pa = decltype(pc)::value;
+        v[NVT + pa][t][i] = d2 * (w0[pair_j(pa, SI)] * w0[pair_k(pa, SI)]);
+      });
+    }
+}
+
+// The forward's epilogue of a hidden app over column block cb, in place on
+// the raw products z of every stream: the new value f(z + b), tangent f'
+// Z_k, pair f' Z_a + f'' Z_j Z_k. K8's and K7's.
+template <int SI, int NS>
+__device__ __forceinline__ void hidden_epilogue(const float* bm, int n, int cb, const Lane& l,
+                                                const SinePoly& sp, float (&z)[NS][2][4]) {
+  constexpr int NP = SI * (SI + 1) / 2;
+  constexpr int NVT = 1 + SI;
+#pragma unroll
+  for (int t = 0; t < 2; ++t)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = frag_col(cb, t, i, l);
+      float gd, hd;
+      const float av = sine3(z[0][t][i] + (c < n ? bm[c] : 0.f), sp, &gd, &hd);
+      static_for<0, NP>([&](auto pc) {
+        constexpr int pa = decltype(pc)::value;
+        z[NVT + pa][t][i] = gd * z[NVT + pa][t][i] +
+                            hd * z[1 + pair_j(pa, SI)][t][i] * z[1 + pair_k(pa, SI)][t][i];
+      });
+#pragma unroll
+      for (int k = 0; k < SI; ++k) z[1 + k][t][i] = gd * z[1 + k][t][i];
+      z[0][t][i] = av;
+    }
+}
+
+// A resblock's second app: z becomes the average with the block's input
+// held in the carry slot cs, which then holds it.
+template <int NS>
+__device__ __forceinline__ void res_average(float* cs, float (&z)[NS][2][4]) {
+  float u[NS][2][4];
+  carry_load<NS>(cs, u);
+#pragma unroll
+  for (int st = 0; st < NS; ++st)
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) z[st][t][i] = 0.5f * (u[st][t][i] + z[st][t][i]);
+  carry_store<NS>(cs, z);
 }
 
 template <int SI, bool RES>
@@ -145,7 +216,7 @@ __global__ void __launch_bounds__(kThreads, 1) hess_tc_kernel(const TcArgs a) {
   constexpr int PG = NP % 3 == 0 ? 3 : (NP % 2 == 0 ? 2 : 1);  // pair slabs recomputed together
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int n = a.n, so = a.so, n_mats = a.n_mats, ld = a.ld, n16 = a.n16, n_cb = a.n_cb;
-  const bool deg9 = a.deg9;
+  const SinePoly sp = sine_poly(a.deg9);
   const size_t plane = (size_t)TR * ld;
   bf16* planes = reinterpret_cast<bf16*>(smem_raw);  // S planes, then D (resident); 2 working planes otherwise
   const int n_planes = a.resident ? n_mats + 2 : 2;
@@ -230,29 +301,7 @@ __global__ void __launch_bounds__(kThreads, 1) hess_tc_kernel(const TcArgs a) {
         const int cb = l.warp + kWarps * cbl;
         if (cb >= n16) break;
         float v[NS][2][4];
-#pragma unroll
-        for (int t = 0; t < 2; ++t)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int c = frag_col(cb, t, i, l);
-            const int r = l.g + 8 * (i >> 1);
-            float w0[SI];
-            float z = 0.f;
-#pragma unroll
-            for (int k = 0; k < SI; ++k) {
-              w0[k] = c < n ? W0f[k * n + c] : 0.f;
-              z = fmaf(__bfloat162float(X[r * SI + k]), w0[k], z);
-            }
-            z += c < n ? B0f[c] : 0.f;
-            float d1, d2;
-            v[0][t][i] = sine3(z, deg9, &d1, &d2);
-#pragma unroll
-            for (int k = 0; k < SI; ++k) v[1 + k][t][i] = d1 * w0[k];
-            static_for<0, NP>([&](auto pc) {
-              constexpr int pa = decltype(pc)::value;
-              v[NVT + pa][t][i] = d2 * (w0[pair_j(pa, SI)] * w0[pair_k(pa, SI)]);
-            });
-          }
+        first_layer_stack<SI>(X, W0f, B0f, n, cb, l, sp, v);
         store_stack<NS>(fwd_plane(0), n_mats > 0 ? gplanes : nullptr, ld, n, cb, l, v);
         if (RES) carry_store<NS>(carry_slot<NS>(carry, 0, cbl, n_cb), v);
       }
@@ -279,35 +328,8 @@ __global__ void __launch_bounds__(kThreads, 1) hess_tc_kernel(const TcArgs a) {
           if (cb >= n16) break;
           float z[NS][2][4];
           stack_mma<NS, false>(fwd_plane(m), ld, 0, ws, Wm, n, n16, cb, l, z);
-#pragma unroll
-          for (int t = 0; t < 2; ++t)
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const int c = frag_col(cb, t, i, l);
-              float gd, hd;
-              const float av = sine3(z[0][t][i] + (c < n ? bm[c] : 0.f), deg9,
-                                     &gd, &hd);
-              static_for<0, NP>([&](auto pc) {
-                constexpr int pa = decltype(pc)::value;
-                z[NVT + pa][t][i] = gd * z[NVT + pa][t][i] +
-                                    hd * z[1 + pair_j(pa, SI)][t][i] * z[1 + pair_k(pa, SI)][t][i];
-              });
-#pragma unroll
-              for (int k = 0; k < SI; ++k) z[1 + k][t][i] = gd * z[1 + k][t][i];
-              z[0][t][i] = av;
-            }
-          if (res_second) {
-            float u[NS][2][4];
-            float* cs = carry_slot<NS>(carry, 0, cbl, n_cb);
-            carry_load<NS>(cs, u);
-#pragma unroll
-            for (int st = 0; st < NS; ++st)
-#pragma unroll
-              for (int t = 0; t < 2; ++t)
-#pragma unroll
-                for (int i = 0; i < 4; ++i) z[st][t][i] = 0.5f * (u[st][t][i] + z[st][t][i]);
-            carry_store<NS>(cs, z);
-          }
+          hidden_epilogue<SI>(bm, n, cb, l, sp, z);
+          if (res_second) res_average<NS>(carry_slot<NS>(carry, 0, cbl, n_cb), z);
           store_stack<NS>(fwd_plane(m + 1), copy, ld, n, cb, l, z);
         }
         __syncthreads();  // S_{m+1} is complete; every read of S_m is done
@@ -462,7 +484,7 @@ __global__ void __launch_bounds__(kThreads, 1) hess_tc_kernel(const TcArgs a) {
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
               const int c = frag_col(cb, t, i, l);
-              sine_d123(zvt[0][t][i] + (c < n ? bm[c] : 0.f), deg9, &gdv[t][i],
+              sine_d123(zvt[0][t][i] + (c < n ? bm[c] : 0.f), sp, &gdv[t][i],
                         &hdv[t][i], &qdv[t][i]);
               float d = (scale * ds[0][t][i]) * gdv[t][i];
 #pragma unroll
@@ -575,7 +597,7 @@ __global__ void __launch_bounds__(kThreads, 1) hess_tc_kernel(const TcArgs a) {
               }
               z += b0;
               float gd, hd, qd;
-              sine_d123(z, deg9, &gd, &hd, &qd);
+              sine_d123(z, sp, &gd, &hd, &qd);
               float d = ds[0][t][i] * gd;
 #pragma unroll
               for (int k = 0; k < SI; ++k) {
@@ -649,6 +671,289 @@ int launch_si(int si, const StackGeometry& geo, const TcArgs& a, cudaStream_t st
     case 2: return launch_tc<2, RES>(geo, a, stream);
     case 3: return launch_tc<3, RES>(geo, a, stream);
     case 4: return launch_tc<4, RES>(geo, a, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// ---------------------------------------------------------------------- K7
+// K7's bf16 path: replaces nif_tpu/ops/pallas_shapenet.py::_fwd_hess_kernel
+// (reached through shapenet_fwd_hess; the chain is _hess_fwd_layers) for
+// bfloat16 inputs: wb' [G, po] and x [G, P, si] -> y [G, P, so], jac [G, P,
+// so, si] and the unique-pair columns hp [G, P, so, np], in bf16; the
+// wrapper mirrors hp into the symmetric Hessian. float32 stays on
+// shapenet_hess.cu, whose f32 products must not round to TF32. It rounds
+// where that kernel rounds: S, the input of each product, is stored in bf16;
+// the raw products Z and a resblock's running state U stay f32 and every
+// epilogue runs in f32 from Z; the sine is the bf16 polynomial (act',
+// act'', no act'''), its coefficients chosen once (stack_tc.cuh's
+// SinePoly: no evaluation branches on the degree); each output is rounded
+// once, at its store.
+//
+// What bounds it on an H100 SXM: operations. At the flagship evaluation
+// shape (G=32, P=32768, width 128, two hidden layers, si=3, so=1) its
+// products are 690.7 GFLOP, ~0.70 ms at the 989 TFLOP/s bf16 tensor-core
+// peak.
+//
+// Design: K8's forward (hess_tc_kernel above) without what only the
+// backward needs: no S residual planes (two working planes, ping-ponged),
+// no Z recompute, no targets, partials or reduce. Tiles of 16 points stacked
+// stream-major (ten slabs at si = 3); warp w owns the column blocks w, w +
+// 8, ... of every product over all slabs, so the tangent and pair product
+// rules run in registers. 16 points, not 32: at 32 the flagship's twenty
+// slabs put 160 f32 accumulators in each thread beside the epilogue's and
+// the addresses (a spill at 255 registers is near), and si = 4's thirty
+// slabs would both spill and need two planes of 480 x 136 bf16 (261 KB, more
+// than a block's 227); two blocks of 16-point tiles per SM would leave 128
+// registers and ~113 KB each, too few for the ten slabs' accumulators and W.
+// So one 8-warp block per SM, and 16-point tiles take every si <= 4 at the
+// widths K8's do. Shared memory holds the two planes, the group's hidden
+// W_m (all of them, staged once a group, where they fit: the flagship's two
+// planes of 160 x 136 bf16 and two W of 35 KB are 157 KB; otherwise one at
+// a time, or none, read from global memory), W0, the biases and W_last in
+// f32, and the last product. A resblock's f32 running state lives in a
+// per-thread carry in a per-block global scratch. The last product (so <=
+// a few columns) runs on the tensor cores too, a slab a warp
+// (last_product_mma). The grid is (S, G) with S = SMs / G splits: one wave
+// of one block per SM.
+
+namespace {
+
+struct EvalArgs {
+  const bf16* wb;          // wb' [G, wb_ld] (rows of po, padded to 16 bytes)
+  const bf16* x;           // [G, P, si]
+  bf16* y;                 // [G, P, so]
+  bf16* jac;               // [G, P, so, si]
+  bf16* hp;                // [G, P, so, np], the unique pairs
+  unsigned char* scratch;  // per block: a resblock's f32 running state (the carry)
+  int G, P, so, n, n_mats, n16, ld, n_cb, stage_w, stage_all;
+  bool deg9;
+  long long wb_ld, block_bytes;
+};
+
+// Built with -DK7_PHASE_CLOCKS (by scripts/port_phase_probe.py only), thread
+// 0 of every block adds the clock64() cycles from one barrier to the next
+// into four phase counters, which split the block's critical path.
+#ifdef K7_PHASE_CLOCKS
+constexpr int kEvalPhases = 4;
+__device__ unsigned long long k7_phase_cycles[kEvalPhases];
+#define K7_PHASE(i)                                        \
+  do {                                                     \
+    if (threadIdx.x == 0) {                                \
+      const long long now = clock64();                     \
+      phase_sum[i] += (unsigned long long)(now - phase_t); \
+      phase_t = now;                                       \
+    }                                                      \
+  } while (0)
+#else
+#define K7_PHASE(i) \
+  do {              \
+  } while (0)
+#endif
+
+template <int SI, bool RES>
+__global__ void __launch_bounds__(kThreads, 1) fwd_hess_tc_kernel(const EvalArgs a) {
+  constexpr int NP = SI * (SI + 1) / 2;
+  constexpr int NS = 1 + SI + NP;
+  constexpr int TR = NS * kTp;
+  constexpr int NVT = 1 + SI;  // value and tangent slabs
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int n = a.n, so = a.so, n_mats = a.n_mats, ld = a.ld, n16 = a.n16, n_cb = a.n_cb;
+  const SinePoly sp = sine_poly(a.deg9);
+  const size_t plane = (size_t)TR * ld;
+  const size_t wsz = (size_t)n16 * 16 * ld;  // one staged matrix
+  bf16* planes = reinterpret_cast<bf16*>(smem_raw);  // two working planes
+  bf16* WS = planes + 2 * plane;  // [16 n16, ld] the staged W_m, or every W_m (stage_all)
+  // [TR, so] the last product
+  float* O = reinterpret_cast<float*>(WS + (a.stage_w ? (a.stage_all ? n_mats : 1) * wsz : 0));
+  float* W0f = O + TR * so;       // [si, n] the group's first layer, f32
+  float* B0f = W0f + SI * n;      // [n]
+  float* BHf = B0f + n;           // [n_mats, n] hidden biases
+  float* WLf = BHf + n_mats * n;  // [n, so] last layer
+  float* BLf = WLf + n * so;      // [so]
+  bf16* X = reinterpret_cast<bf16*>(BLf + so);  // [kTp, si]
+  // the weight operand's source in stack_mma for app m
+  auto ws = [&](int m) -> const bf16* {
+    return a.stage_all ? WS + m * wsz : (a.stage_w ? WS : nullptr);
+  };
+  // the input plane of app m (m = n_mats: the last product's)
+  auto fwd_plane = [&](int m) { return planes + (m & 1) * plane; };
+  const Lane l = lane_of_thread();
+
+  const int S = gridDim.x, s = blockIdx.x;
+  const int n_tiles = (a.P + kTp - 1) / kTp;
+  const int t_begin = (int)((long long)s * n_tiles / S);
+  const int t_end = (int)((long long)(s + 1) * n_tiles / S);
+  const long long o_wh = (long long)SI * n;
+  const long long o_wl = o_wh + (long long)n_mats * n * n;
+  const long long o_b0 = o_wl + (long long)n * so;
+  const long long o_bh = o_b0 + n;
+  const long long o_bl = o_bh + (long long)n_mats * n;
+  float* carry = reinterpret_cast<float*>(
+      a.scratch + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * a.block_bytes);
+#ifdef K7_PHASE_CLOCKS
+  unsigned long long phase_sum[kEvalPhases] = {};
+  long long phase_t = clock64();
+#endif
+
+  for (int gi = blockIdx.y; gi < a.G; gi += gridDim.y) {
+    const bf16* wg = a.wb + (long long)gi * a.wb_ld;
+    __syncthreads();  // the previous group is done with the staged parameters and W
+    for (int i = threadIdx.x; i < SI * n; i += kThreads) W0f[i] = __bfloat162float(wg[i]);
+    for (int i = threadIdx.x; i < n; i += kThreads) B0f[i] = __bfloat162float(wg[o_b0 + i]);
+    for (int i = threadIdx.x; i < n_mats * n; i += kThreads) BHf[i] = __bfloat162float(wg[o_bh + i]);
+    for (int i = threadIdx.x; i < n * so; i += kThreads) WLf[i] = __bfloat162float(wg[o_wl + i]);
+    for (int i = threadIdx.x; i < so; i += kThreads) BLf[i] = __bfloat162float(wg[o_bl + i]);
+    if (a.stage_all) {  // every hidden matrix, once a group (shown by the first tile's barrier)
+      for (int m = 0; m < n_mats; ++m)
+        stage_matrix(WS + m * wsz, ld, wg + o_wh + (long long)m * n * n, n, n, n16 * 16, n16 * 16);
+      cp_async_wait_all();
+    }
+    int staged = -1;  // the hidden matrix in WS (one staged at a time)
+    for (int tile = t_begin; tile < t_end; ++tile) {
+      const int p0 = tile * kTp;
+      const int rows = min(kTp, a.P - p0);
+      const long long row0 = (long long)gi * a.P + p0;
+      __syncthreads();  // the previous tile is done with X and O
+      K7_PHASE(3);      // the previous tile's stores (and the group's set-up)
+      const bf16* xg = a.x + row0 * SI;
+      for (int idx = threadIdx.x; idx < kTp * SI; idx += kThreads)
+        X[idx] = idx < rows * SI ? xg[idx] : __float2bfloat16_rn(0.f);
+      __syncthreads();
+
+      // ---- first layer: z0 = x @ W0' + b0; values f(z0), tangent seeds
+      // f'(z0) W0'[k], pair seeds f''(z0) (W0'[j] W0'[k])
+      for (int cbl = 0; cbl < n_cb; ++cbl) {
+        const int cb = l.warp + kWarps * cbl;
+        if (cb >= n16) break;
+        float v[NS][2][4];
+        first_layer_stack<SI>(X, W0f, B0f, n, cb, l, sp, v);
+        store_stack<NS>(fwd_plane(0), nullptr, ld, n, cb, l, v);
+        if (RES) carry_store<NS>(carry_slot<NS>(carry, 0, cbl, n_cb), v);
+      }
+      __syncthreads();  // S_0 is complete
+      K7_PHASE(0);      // the x tile and the first layer
+
+      // ---- hidden apps: Z = S_m @ W_m on the tensor cores, then the
+      // epilogue in registers: new value f(z), tangent f' Z_k, pair f' Z_a +
+      // f'' Z_j Z_k (a resblock's h feeds its second matrix as it is; the
+      // second app averages with the block's input)
+      for (int m = 0; m < n_mats; ++m) {
+        const bool res_second = RES && m % 2 == 1;
+        const bf16* Wm = wg + o_wh + (long long)m * n * n;
+        const float* bm = BHf + m * n;
+        if (a.stage_w && !a.stage_all && staged != m) {  // every read of the previous W is done
+          stage_matrix(WS, ld, Wm, n, n, n16 * 16, n16 * 16);
+          staged = m;
+          cp_async_wait_all();
+          __syncthreads();
+        }
+        for (int cbl = 0; cbl < n_cb; ++cbl) {
+          const int cb = l.warp + kWarps * cbl;
+          if (cb >= n16) break;
+          float z[NS][2][4];
+          stack_mma<NS, false>(fwd_plane(m), ld, 0, ws(m), Wm, n, n16, cb, l, z);
+          hidden_epilogue<SI>(bm, n, cb, l, sp, z);
+          if (res_second) res_average<NS>(carry_slot<NS>(carry, 0, cbl, n_cb), z);
+          store_stack<NS>(fwd_plane(m + 1), nullptr, ld, n, cb, l, z);
+        }
+        __syncthreads();  // S_{m+1} is complete; every read of S_m is done
+      }
+      K7_PHASE(1);  // the hidden forward
+
+      // ---- last product O = S_last @ W_last over all TR rows on the tensor
+      // cores, a slab a warp
+      last_product_mma(fwd_plane(n_mats), ld, TR, n, n16, WLf, so, O, l);
+      __syncthreads();  // O is complete
+      K7_PHASE(2);      // the last product
+
+      // ---- y = O[values] + b_last; jac[r][j][k] = O[tangent k][r][j];
+      // hp[r][j][a] = O[pair a][r][j], each rounded once
+      bf16* yg = a.y + row0 * so;
+      for (int idx = threadIdx.x; idx < rows * so; idx += kThreads)
+        yg[idx] = __float2bfloat16_rn(O[idx] + BLf[idx % so]);
+      bf16* jg = a.jac + row0 * so * SI;
+      for (int idx = threadIdx.x; idx < rows * so * SI; idx += kThreads) {
+        const int r = idx / (so * SI);
+        const int rem = idx - r * so * SI;
+        const int j = rem / SI;
+        const int k = rem - j * SI;
+        jg[idx] = __float2bfloat16_rn(O[((1 + k) * kTp + r) * so + j]);
+      }
+      bf16* hg = a.hp + row0 * so * NP;
+      for (int idx = threadIdx.x; idx < rows * so * NP; idx += kThreads) {
+        const int r = idx / (so * NP);
+        const int rem = idx - r * so * NP;
+        const int j = rem / NP;
+        const int pa = rem - j * NP;
+        hg[idx] = __float2bfloat16_rn(O[((NVT + pa) * kTp + r) * so + j]);
+      }
+    }
+  }
+#ifdef K7_PHASE_CLOCKS
+  if (threadIdx.x == 0)
+    for (int i = 0; i < kEvalPhases; ++i) atomicAdd(&k7_phase_cycles[i], phase_sum[i]);
+#endif
+}
+
+struct EvalGeometry {
+  int n16, ld, n_cb, splits, grid_g, stage_w, stage_all;
+  size_t smem, block_bytes;
+};
+
+// K7's layout at [G, P] (status: 0 = it fits, 2 = even the two working
+// planes exceed a block's shared memory, 3 = a shape, chain or si it does
+// not take): two working planes of 16-point tiles, then every hidden W_m
+// where they all fit beside them (staged once a group), else one at a time,
+// else none (W from global memory); W0, the biases, W_last and the last
+// product in f32. A resblock's running state is a per-thread f32 carry of
+// every slab's fragment for each of a warp's column blocks, in a per-block
+// global scratch. The grid is (S, G) with S = SMs / G splits, as K8's.
+int eval_geometry(int n, int si, int so, int n_mats, int chain, int G, int P, EvalGeometry* g) {
+  if (n < 1 || si < 1 || si > kMaxSiTc || so < 1 || n_mats < 0 || G < 1 || P < 1 ||
+      (chain != kSirenPlain && chain != kSirenResblock) || (chain == kSirenResblock && n_mats % 2))
+    return 3;
+  const int ns = 1 + si + si * (si + 1) / 2;
+  const int tr = ns * kTp;
+  g->n16 = round16(n) / 16;
+  g->ld = round16(n) + 8;
+  g->n_cb = (g->n16 + kWarps - 1) / kWarps;
+  const size_t plane = 2 * (size_t)tr * g->ld;
+  const size_t wsz = 2 * (size_t)g->n16 * 16 * g->ld;
+  const size_t params = (size_t)(si + 1 + n_mats + so) * n + so;
+  const size_t base = 2 * plane + 4 * ((size_t)tr * so + params) + 2 * (size_t)kTp * si;
+  g->stage_all = n_mats > 0 && base + (size_t)n_mats * wsz <= kMaxSmem;
+  g->stage_w = g->stage_all || (n_mats > 0 && base + wsz <= kMaxSmem);
+  g->smem = base + (g->stage_all ? n_mats : (g->stage_w ? 1 : 0)) * wsz;
+  const size_t carry = chain == kSirenResblock ? 4 * (size_t)g->n_cb * ns * 8 * kThreads : 0;
+  g->block_bytes = (carry + 15) / 16 * 16;
+  const int n_tiles = (P + kTp - 1) / kTp;
+  const int sms = sm_count();
+  int splits = sms > G ? sms / G : 1;
+  splits = splits < kMaxStackSplits ? splits : kMaxStackSplits;
+  g->splits = splits < n_tiles ? splits : n_tiles;
+  g->grid_g = G < 65535 ? G : 65535;
+  return g->smem > kMaxSmem ? 2 : 0;
+}
+
+template <int SI, bool RES>
+int launch_eval(const EvalGeometry& geo, const EvalArgs& a, cudaStream_t stream) {
+  auto kernel = fwd_hess_tc_kernel<SI, RES>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)geo.smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3(geo.splits, geo.grid_g), kThreads, geo.smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <bool RES>
+int launch_eval_si(int si, const EvalGeometry& geo, const EvalArgs& a, cudaStream_t stream) {
+  switch (si) {
+    case 1: return launch_eval<1, RES>(geo, a, stream);
+    case 2: return launch_eval<2, RES>(geo, a, stream);
+    case 3: return launch_eval<3, RES>(geo, a, stream);
+    case 4: return launch_eval<4, RES>(geo, a, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -731,7 +1036,7 @@ int nif_shapenet_hessian_grads_tc(const void* wb, const void* x, const void* tar
                                           : launch_si<false>(si, geo, a, s);
   if (err != 0) return err;
   const LossNorms norms{{n_y, n_j, n_h}};
-  return launch_stack_reduce<3>(a.partials, G, geo.splits, po, n_scaled, omega, norms,
+  return launch_stack_reduce<3>(a.partials, G, geo.splits, po, n_scaled, omega, 1.f, norms,
                                 static_cast<bf16*>(d_wb), static_cast<float*>(losses), s);
 }
 
@@ -743,6 +1048,70 @@ int nif_hess_tc_phase_cycles(unsigned long long* out) {
   if (err != cudaSuccess) return (int)err;
   const unsigned long long zero[kPhases] = {};
   return (int)cudaMemcpyToSymbol(k8_phase_cycles, zero, sizeof(zero));
+}
+#endif
+
+// The geometry of the tensor-core K7 at [G, P] (a status as eval_geometry()
+// returns; on 0 and 2 the outputs are written), in the layout of K8's entry:
+// points per tile, P splits per group, dynamic shared memory per block, 1
+// (the working planes are always in shared memory), whether W_m is staged
+// there, 0 partials (K7 reduces nothing) and the bytes of the per-block
+// global scratch (a resblock's f32 carry).
+int nif_shapenet_fwd_hess_tc_workspace(int n, int si, int so, int n_mats, int chain, int G,
+                                       int P, int* tile, int* splits, long long* smem_bytes,
+                                       int* resident, int* staged_w, long long* partial_floats,
+                                       long long* scratch_bytes) {
+  EvalGeometry g{};
+  const int status = eval_geometry(n, si, so, n_mats, chain, G, P, &g);
+  if (status == 3) return status;
+  *tile = kTp;
+  *splits = g.splits;
+  *smem_bytes = (long long)g.smem;
+  *resident = 1;
+  *staged_w = g.stage_w;
+  *partial_floats = 0;
+  *scratch_bytes = (long long)g.grid_g * g.splits * (long long)g.block_bytes;
+  return status;
+}
+
+// K7 in bf16 on the tensor cores (wb', x, y, jac and hp are bf16; wb' has
+// rows of wb_ld >= po elements). chain: kSirenPlain or kSirenResblock; act:
+// kSinePoly7 or kSinePoly9 (the bf16 sine). Returns the CUDA error of the
+// launch (0 on success); the kernel runs asynchronously on `stream`.
+int nif_shapenet_fwd_hess_tc(const void* wb, const void* x, void* y, void* jac, void* hp,
+                             void* scratch, int G, int P, int si, int so, int n, int n_mats,
+                             int chain, int act, long long po, long long wb_ld, void* stream) {
+  EvalGeometry geo{};
+  if ((act != kSinePoly7 && act != kSinePoly9) || wb_ld < po ||
+      eval_geometry(n, si, so, n_mats, chain, G, P, &geo) != 0)
+    return (int)cudaErrorInvalidValue;
+  EvalArgs a{};
+  a.wb = static_cast<const bf16*>(wb);
+  a.x = static_cast<const bf16*>(x);
+  a.y = static_cast<bf16*>(y);
+  a.jac = static_cast<bf16*>(jac);
+  a.hp = static_cast<bf16*>(hp);
+  a.scratch = static_cast<unsigned char*>(scratch);
+  a.G = G; a.P = P; a.so = so; a.n = n; a.n_mats = n_mats;
+  a.n16 = geo.n16; a.ld = geo.ld; a.n_cb = geo.n_cb;
+  a.stage_w = geo.stage_w;
+  a.stage_all = geo.stage_all;
+  a.deg9 = act == kSinePoly9;
+  a.wb_ld = wb_ld;
+  a.block_bytes = (long long)geo.block_bytes;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return chain == kSirenResblock ? launch_eval_si<true>(si, geo, a, s)
+                                 : launch_eval_si<false>(si, geo, a, s);
+}
+
+#ifdef K7_PHASE_CLOCKS
+// K7's phase counters summed over every block since the last call, then
+// zeroed (the probe build only).
+int nif_fwd_hess_tc_phase_cycles(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, k7_phase_cycles, sizeof(k7_phase_cycles));
+  if (err != cudaSuccess) return (int)err;
+  const unsigned long long zero[kEvalPhases] = {};
+  return (int)cudaMemcpyToSymbol(k7_phase_cycles, zero, sizeof(zero));
 }
 #endif
 

@@ -1,17 +1,21 @@
-// The stacked-stream tensor-core machinery of the fused derivative train
-// passes on Hopper (sm_90a): K6's bf16 path (shapenet_jac_tc.cu) and K8's
-// (shapenet_hess_tc.cu). A tile of points is stacked stream-major, each
-// stream's rows forming whole 16-row mma slabs; warp w owns the 16-column
-// blocks w, w + 8, ... of every product over all slabs, so a thread holds the
-// same (point, column) of every stream and the epilogues run in registers.
-// Here: the warp-level product over a run of slabs (stack_mma), W staging
+// The stacked-stream tensor-core machinery of the fused ShapeNet kernels on
+// Hopper (sm_90a): the bf16 paths of K6 (shapenet_jac_tc.cu), K7 and K8
+// (shapenet_hess_tc.cu) and K2 (shapenet_bwd_tc.cu). A tile of points is
+// stacked stream-major, each stream's rows forming whole 16-row mma slabs;
+// warp w owns the 16-column blocks w, w + 8, ... of every product over all
+// slabs, so a thread holds the same (point, column) of every stream and the
+// epilogues run in registers.
+// Here: the bf16 sine with its coefficients chosen once (SinePoly), the
+// warp-level product over a run of slabs (stack_mma), W staging
 // (stage_matrix), the weight grads over all stacked rows into a block's
 // even-stride f32 partial (weight_grad_stack), the per-thread f32 carry in a
 // block's global scratch, the stores of a stacked bf16 plane, the launch
-// geometry (stack_geometry) and the ordered split reduce over NL losses
-// (stack_reduce_kernel). Each kernel keeps its own body, tile and C entries.
-// ops/_build.py hashes this header with the sources that include it, so an
-// edit here rebuilds K6's and K8's tensor-core libraries and no other.
+// geometry (stack_geometry), the ordered split reduce over NL losses
+// (stack_reduce_kernel) and the last product of a stacked plane on the
+// tensor cores (last_product_mma, K2's and K7's). Each kernel keeps its own
+// body, tile and C entries. ops/_build.py hashes this header with the
+// sources that include it, so an edit here rebuilds the tensor-core
+// libraries of K2, K6, K7 and K8 and no other.
 #pragma once
 
 #include "mma_sm90.cuh"
@@ -36,15 +40,74 @@ __device__ __forceinline__ Lane lane_of_thread() {
   return l;
 }
 
-// The bf16 sine (the polynomial of degree 7 or 9) with its derivatives, the
-// only activation these kernels take: act3's and sine4's kSinePoly7/9 cases
-// without their switch, which inlined at every epilogue would swell the code.
-__device__ __forceinline__ float sine3(float z, bool deg9, float* d1, float* d2) {
+// The bf16 sine (the polynomial of degree 7 or 9 of shapenet_common.cuh's
+// sin_poly, sin_poly_dt, sin_poly_dt2 and sin_poly_dt3), the only activation
+// these kernels take, with its coefficients chosen once a kernel
+// (sine_poly): act3's and sine4's kSinePoly7/9 cases without their switch,
+// which inlined at every epilogue would swell the code. The degree-7
+// polynomial is the degree-9 one with zero top coefficients, and those give
+// its bits exactly (the innermost step s * 0 + c is c), so no evaluation
+// branches on the degree and a thread's independent evaluations interleave.
+struct SinePoly {
+  float c1, c3, c5, c7, c9;  // sin(2 pi t) ~ t (c1 + s (c3 + s (c5 + s (c7 + s c9)))), s = t t
+  float d0, d2, d4, d6, d8;  // its derivative in t
+  float e1, e3, e5, e7;      // its second derivative in t, over t
+  float f0, f2, f4, f6;      // its third derivative in t
+};
+
+__device__ __forceinline__ SinePoly sine_poly(bool deg9) {
+  if (deg9)
+    return {6.28308846f, -41.33324754f, 81.40008977f, -74.67588387f, 33.16809461f,
+            6.28308846f, -123.99974262f, 407.00044885f, -522.73118709f, 298.51285149f,
+            (float)(6.0 * -41.33324754), (float)(20.0 * 81.40008977),
+            (float)(42.0 * -74.67588387), (float)(72.0 * 33.16809461),
+            (float)(6.0 * -41.33324754), (float)(60.0 * 81.40008977),
+            (float)(210.0 * -74.67588387), (float)(504.0 * 33.16809461)};
+  return {6.27863546f, -41.09373072f, 77.93034984f, -56.08639487f, 0.f,
+          6.27863546f, -123.28119216f, 389.6517492f, -392.60476409f, 0.f,
+          (float)(6.0 * -41.09373072), (float)(20.0 * 77.93034984),
+          (float)(42.0 * -56.08639487), 0.f,
+          (float)(6.0 * -41.09373072), (float)(60.0 * 77.93034984),
+          (float)(210.0 * -56.08639487), 0.f};
+}
+
+__device__ __forceinline__ float sine_value(float t, float s, const SinePoly& k) {
+  return t * (k.c1 + s * (k.c3 + s * (k.c5 + s * (k.c7 + s * k.c9))));
+}
+
+__device__ __forceinline__ float sine_dt(float s, const SinePoly& k) {
+  return k.d0 + s * (k.d2 + s * (k.d4 + s * (k.d6 + s * k.d8)));
+}
+
+// The bf16 sine of z.
+__device__ __forceinline__ float sine_of(float z, const SinePoly& k) {
+  const float t = sin_turns(z);
+  return sine_value(t, t * t, k);
+}
+
+// Its derivative in z.
+__device__ __forceinline__ float sine_slope(float z, const SinePoly& k) {
+  const float t = sin_turns(z);
+  return sine_dt(t * t, k) * kInv2Pi;
+}
+
+// The sine with its first two derivatives in z from one range reduction.
+__device__ __forceinline__ float sine3(float z, const SinePoly& k, float* d1, float* d2) {
   const float t = sin_turns(z);
   const float s = t * t;
-  *d1 = sin_poly_dt(s, deg9) * kInv2Pi;
-  *d2 = sin_poly_dt2(t, s, deg9) * kInv2Pi2;
-  return sin_poly(t, s, deg9);
+  *d1 = sine_dt(s, k) * kInv2Pi;
+  *d2 = t * (k.e1 + s * (k.e3 + s * (k.e5 + s * k.e7))) * kInv2Pi2;
+  return sine_value(t, s, k);
+}
+
+// Its first three derivatives in z from one range reduction (K8's backward).
+__device__ __forceinline__ void sine_d123(float z, const SinePoly& k, float* d1, float* d2,
+                                          float* d3) {
+  const float t = sin_turns(z);
+  const float s = t * t;
+  *d1 = sine_dt(s, k) * kInv2Pi;
+  *d2 = t * (k.e1 + s * (k.e3 + s * (k.e5 + s * k.e7))) * kInv2Pi2;
+  *d3 = (k.f0 + s * (k.f2 + s * (k.f4 + s * k.f6))) * kInv2Pi3;
 }
 
 // f(std::integral_constant<int, I>{}) for I = B .. E - 1, unrolled at
@@ -317,15 +380,17 @@ __device__ __forceinline__ int frag_col(int cb, int t, int i, const Lane& l) {
 
 // The split reduce of shapenet_common.cuh (split_reduce_kernel) over
 // partials whose rows have the even stride ps >= po: d_wb[g][p] =
-// bf16((sum_s partial[g][s][p]) * (p < n_scaled ? omega : 1)), the S splits
-// in order; then one thread per loss sums its G*S partials (laid out [G, S,
-// NL] after the [G, S, ps] weight grads) in order and divides by its norm.
-// No float atomics: two runs give the same bits.
+// bf16((sum_s partial[g][s][p]) * (p < n_scaled ? omega : 1) / grad_norm),
+// the S splits in order (grad_norm is 1 for K6 and K8, whose partials are
+// already divided, and exact: x / 1 is x); then one thread per loss sums its
+// G*S partials (laid out [G, S, NL] after the [G, S, ps] weight grads) in
+// order and divides by its norm. No float atomics: two runs give the same
+// bits.
 template <int NL>
 __global__ void __launch_bounds__(kThreads)
     stack_reduce_kernel(const float* __restrict__ partials, int G, int S, long long po,
-                        long long ps, long long n_scaled, float omega, LossNorms norms,
-                        bf16* __restrict__ d_wb, float* __restrict__ losses) {
+                        long long ps, long long n_scaled, float omega, float grad_norm,
+                        LossNorms norms, bf16* __restrict__ d_wb, float* __restrict__ losses) {
   const long long total = (long long)G * po;
   for (long long idx = (long long)blockIdx.x * kThreads + threadIdx.x; idx < total;
        idx += (long long)gridDim.x * kThreads) {
@@ -335,7 +400,7 @@ __global__ void __launch_bounds__(kThreads)
     float sum = 0.f;
     for (int s = 0; s < S; ++s) sum += src[s * ps];
     if (p < n_scaled) sum = sum * omega;
-    d_wb[idx] = __float2bfloat16_rn(sum);
+    d_wb[idx] = __float2bfloat16_rn(sum / grad_norm);
   }
   if (blockIdx.x == 0 && threadIdx.x < NL) {
     const float* lp = partials + (long long)G * S * ps + threadIdx.x;
@@ -349,10 +414,10 @@ __global__ void __launch_bounds__(kThreads)
 // the CUDA error of the launch.
 template <int NL>
 int launch_stack_reduce(const float* partials, int G, int S, long long po, long long n_scaled,
-                        float omega, LossNorms norms, bf16* d_wb, float* losses,
-                        cudaStream_t stream) {
+                        float omega, float grad_norm, LossNorms norms, bf16* d_wb,
+                        float* losses, cudaStream_t stream) {
   stack_reduce_kernel<NL><<<stride_blocks((long long)G * po), kThreads, 0, stream>>>(
-      partials, G, S, po, po + (po & 1), n_scaled, omega, norms, d_wb, losses);
+      partials, G, S, po, po + (po & 1), n_scaled, omega, grad_norm, norms, d_wb, losses);
   return (int)cudaGetLastError();
 }
 
@@ -398,6 +463,40 @@ int stack_geometry(int n, int si, int so, int n_mats, int chain, int G, int P, i
   g->splits = splits < n_tiles ? splits : n_tiles;
   g->grid_g = G < 65535 ? G : 65535;
   return g->smem > kMaxSmem ? 2 : 0;
+}
+
+// O[r][j] = sum over k < n of S[r][k] WL[k][j] for the tr stacked rows of a
+// bf16 plane S (row stride ld, columns from n to 16 n16 zero) and j < so:
+// warp w takes the 16-row slabs w, w + 8, ..., each an mma.m16n8k16 chain
+// per 8 columns of WL (the group's f32 last layer in shared memory, [n, so],
+// whose values are bf16 ones, so its bf16 operand is exact). O is f32 [tr,
+// so]; the caller's barrier shows it to the block.
+__device__ __forceinline__ void last_product_mma(const bf16* S, int ld, int tr, int n, int n16,
+                                                 const float* WL, int so, float* O,
+                                                 const Lane& l) {
+  auto wl = [&](int k, int j) {
+    return __float2bfloat16_rn(k < n && j < so ? WL[k * so + j] : 0.f);
+  };
+  for (int sl = l.warp; sl < tr / 16; sl += kWarps) {
+    const bf16* a_row = S + (sl * 16 + (l.lane & 15)) * ld + 8 * (l.lane >> 4);
+    for (int jb = 0; jb < so; jb += 8) {
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      const int j = jb + l.g;  // B's column of this lane
+      for (int kk = 0; kk < n16; ++kk) {
+        uint32_t af[4];
+        ldsm_x4(af, a_row + kk * 16);
+        const int k0 = kk * 16 + 2 * l.q;
+        mma_bf16_16816(acc, af, pack_bf16(wl(k0, j), wl(k0 + 1, j)),
+                       pack_bf16(wl(k0 + 8, j), wl(k0 + 9, j)));
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = sl * 16 + l.g + 8 * (i >> 1);
+        const int c = jb + 2 * l.q + (i & 1);
+        if (c < so) O[r * so + c] = acc[i];
+      }
+    }
+  }
 }
 
 }  // namespace

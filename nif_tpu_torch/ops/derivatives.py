@@ -14,6 +14,7 @@ it off the card).
 """
 from __future__ import annotations
 
+import functools
 import logging
 from typing import Callable, Optional, Sequence, Tuple, Union
 
@@ -188,7 +189,9 @@ def output_jacobian_hessian_grouped(model, t, x, y_index: Index = None,
     eager nested ``jacfwd`` path (param dtype, differentiable in the
     parameters); ``fused=True`` forces the kernel path (plain K7 on the
     CPU)."""
-    if _fusable(model, x, fused, "K7", fwd_hess_unsupported_reason):
+    # K7's limits are those of the kernel the compute dtype runs (k7_variant)
+    k7_gate = functools.partial(fwd_hess_unsupported_reason, dtype=model.policy.compute_dtype)
+    if _fusable(model, x, fused, "K7", k7_gate):
         cfg, variant = model._derivative_kernel_cfg()
         wb = model._derivative_weights(t)  # the hypernetwork runs once per group
         y, jac, hess = shapenet_fwd_hess(wb, model._compute(x), cfg, variant)

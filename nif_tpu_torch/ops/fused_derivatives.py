@@ -55,6 +55,7 @@ from .fused_shapenet import (
     _n_scaled,
     _prescale,
     _raise_on_error,
+    _stack_tc_status,
     _unscale_grads,
     _train_act_code,
     fused_unsupported_reason,
@@ -110,23 +111,6 @@ def _library(kernel: str = "simt") -> ctypes.CDLL:
         lib.nif_cuda_error_string.argtypes = [c_int]
         lib.nif_cuda_error_string.restype = ctypes.c_char_p
     return lib
-
-
-def _stack_tc_status(workspace, mode: str, cfg: ShapeNetConfig, variant: str, si: int, G: int,
-                     P: int):
-    """``(status, geometry)`` of a stacked-stream tensor-core kernel (K6 or
-    K8) from its library's ``workspace`` entry."""
-    tile, splits, resident, staged_w = (ctypes.c_int() for _ in range(4))
-    smem, partial_floats, scratch = ctypes.c_longlong(), ctypes.c_longlong(), ctypes.c_longlong()
-    status = workspace(
-        cfg.units, si, cfg.output_dim, _n_mats(cfg), _chain_code(cfg, variant), G, P,
-        ctypes.byref(tile), ctypes.byref(splits), ctypes.byref(smem), ctypes.byref(resident),
-        ctypes.byref(staged_w), ctypes.byref(partial_floats), ctypes.byref(scratch))
-    geo = {"mode": mode, "kernel": "tc", "tile": tile.value, "splits": splits.value,
-           "smem_bytes": smem.value, "residuals": "shared" if resident.value else "global",
-           "weights": "shared" if staged_w.value else "global",
-           "partial_floats": partial_floats.value, "scratch_bytes": scratch.value}
-    return status, geo
 
 
 def _tc_status(cfg: ShapeNetConfig, variant: str, si: int, G: int, P: int):

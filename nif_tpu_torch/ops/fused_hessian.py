@@ -20,14 +20,14 @@ before its product, the bias gradients sum the unrounded dz, the targets
 are rounded to x's dtype and K7's outputs are cast to it.
 
 On a CUDA tensor each entry launches its hand-written kernel, or raises. K7
-runs ``nif_tpu_torch/csrc/shapenet_hess.cu``. K8 has two variants
-(:func:`k8_variant`): bfloat16 runs the tensor-core kernel
-(``csrc/shapenet_hess_tc.cu``, variant ``"tc"``) wherever its geometry takes
-the shape, and the CUDA-core one (``csrc/shapenet_hess.cu``, variant
-``"simt"``) otherwise and for float32, whose f32 products never round to
-TF32. On a CPU tensor it runs the plain PyTorch version (``*_reference``),
-which the CPU tests hold against the JAX package's interpret-mode kernels
-and ``chip_smoke.py`` holds the CUDA kernels against. Nothing here falls
+and K8 have two variants each (:func:`k7_variant`, :func:`k8_variant`):
+bfloat16 runs the tensor-core kernel (``csrc/shapenet_hess_tc.cu``, variant
+``"tc"``) wherever its geometry takes the shape, and the CUDA-core one
+(``csrc/shapenet_hess.cu``, variant ``"simt"``) otherwise and for float32,
+whose f32 products never round to TF32. On a CPU tensor it runs the plain
+PyTorch version (``*_reference``), which the CPU tests hold against the JAX
+package's interpret-mode kernels and ``chip_smoke.py`` holds the CUDA
+kernels against. Nothing here falls
 back to another path: callers route (``ops.derivatives``,
 ``NIF.sobolev_value_and_grad``) with the ``*_supported`` gates.
 """
@@ -48,7 +48,6 @@ from .fused_derivatives import (
     _mask_tensor,
     _sobolev_backward,
     _sobolev_scales,
-    _stack_tc_status,
     _tangent_forward,
 )
 from .fused_shapenet import (
@@ -61,6 +60,7 @@ from .fused_shapenet import (
     _n_scaled,
     _prescale,
     _raise_on_error,
+    _stack_tc_status,
     _unscale_grads,
     fused_unsupported_reason,
 )
@@ -77,6 +77,7 @@ __all__ = [
     "hessian_fused_supported",
     "hessian_fused_unsupported_reason",
     "hessian_geometry",
+    "k7_variant",
     "k8_variant",
 ]
 
@@ -98,6 +99,20 @@ def _mirror(hp: torch.Tensor, si: int) -> torch.Tensor:
 
 
 # --------------------------------------------------------------- geometry
+def k7_variant(dtype: torch.dtype, cfg: Optional[ShapeNetConfig] = None, variant: str = "siren",
+               si: Optional[int] = None) -> str:
+    """Which CUDA kernel K7 runs for inputs of ``dtype``: ``"tc"`` (the
+    tensor-core kernel, ``csrc/shapenet_hess_tc.cu``) for bfloat16 and
+    ``"simt"`` (the CUDA-core kernel, ``csrc/shapenet_hess.cu``) for
+    float32, whose products stay full f32 (and for any other dtype, which
+    the wrapper refuses). Given a chain (``cfg``, ``variant``, ``si``; this
+    asks the tensor-core kernel's library, so it needs nvcc), bfloat16 runs
+    the CUDA-core kernel where the tensor-core one does not take the shape:
+    a vanilla chain, si > 4, or a width whose two working planes exceed a
+    block's shared memory."""
+    return _variant("eval", dtype, cfg, variant, si)
+
+
 def k8_variant(dtype: torch.dtype, cfg: Optional[ShapeNetConfig] = None, variant: str = "siren",
                si: Optional[int] = None) -> str:
     """Which CUDA kernel K8 runs for inputs of ``dtype``: ``"tc"`` (the
@@ -109,12 +124,17 @@ def k8_variant(dtype: torch.dtype, cfg: Optional[ShapeNetConfig] = None, variant
     the CUDA-core kernel where the tensor-core one does not take the shape:
     a width whose two working planes exceed a block's shared memory (above
     544 at si = 2, 336 at si = 3, 224 at si = 4 with two hidden layers)."""
+    return _variant("train", dtype, cfg, variant, si)
+
+
+def _variant(mode: str, dtype: torch.dtype, cfg: Optional[ShapeNetConfig], variant: str,
+             si: Optional[int]) -> str:
     if dtype != torch.bfloat16:
         return "simt"
     if cfg is None:
         return "tc"
     si = cfg.input_dim if si is None else si
-    return "tc" if _tc_status(cfg, variant, si, 1, 1)[0] == 0 else "simt"
+    return "tc" if _tc_status(mode, cfg, variant, si, 1, 1)[0] == 0 else "simt"
 
 
 def _library(kernel: str = "simt") -> ctypes.CDLL:
@@ -127,6 +147,10 @@ def _library(kernel: str = "simt") -> ctypes.CDLL:
             lib.nif_shapenet_hessian_grads_tc.argtypes = (
                 [ptr] * 13 + [c_int] * 8 + [c_ll] * 3 + [c_f] * 7 + [ptr])
             lib.nif_shapenet_hessian_grads_tc.restype = c_int
+            lib.nif_shapenet_fwd_hess_tc_workspace.argtypes = [c_int] * 7 + [ptr] * 7
+            lib.nif_shapenet_fwd_hess_tc_workspace.restype = c_int
+            lib.nif_shapenet_fwd_hess_tc.argtypes = [ptr] * 6 + [c_int] * 8 + [c_ll, c_ll, ptr]
+            lib.nif_shapenet_fwd_hess_tc.restype = c_int
     else:
         lib = _build.load_library("shapenet_hess")
         if lib.nif_shapenet_fwd_hess.argtypes is None:
@@ -143,18 +167,22 @@ def _library(kernel: str = "simt") -> ctypes.CDLL:
     return lib
 
 
-def _tc_status(cfg: ShapeNetConfig, variant: str, si: int, G: int, P: int):
-    """``(status, geometry)`` of the tensor-core K8 (``csrc/shapenet_hess_tc.cu``)."""
-    return _stack_tc_status(_library("tc").nif_shapenet_hess_tc_workspace, "train", cfg, variant,
-                            si, G, P)
+def _tc_status(mode: str, cfg: ShapeNetConfig, variant: str, si: int, G: int, P: int):
+    """``(status, geometry)`` of the tensor-core K7 ("eval") or K8 ("train")
+    (``csrc/shapenet_hess_tc.cu``)."""
+    lib = _library("tc")
+    workspace = (lib.nif_shapenet_fwd_hess_tc_workspace if mode == "eval" else
+                 lib.nif_shapenet_hess_tc_workspace)
+    return _stack_tc_status(workspace, mode, cfg, variant, si, G, P)
 
 
 def _geometry_status(mode: str, cfg: ShapeNetConfig, variant: str, si: int, G: int, P: int,
                      dtype: torch.dtype, kernel: Optional[str] = None):
-    """K7 ("eval") always runs the CUDA-core kernel, K8 ("train") ``kernel``
-    or the variant :func:`k8_variant` picks."""
-    if mode == "train" and (kernel or k8_variant(dtype, cfg, variant, si)) == "tc":
-        return _tc_status(cfg, variant, si, G, P)
+    """K7 ("eval") runs ``kernel`` or the variant :func:`k7_variant` picks,
+    K8 ("train") ``kernel`` or the one :func:`k8_variant` picks."""
+    pick = k7_variant if mode == "eval" else k8_variant
+    if (kernel or pick(dtype, cfg, variant, si)) == "tc":
+        return _tc_status(mode, cfg, variant, si, G, P)
     tile, splits = ctypes.c_int(), ctypes.c_int()
     smem, partial_floats, scratch = ctypes.c_longlong(), ctypes.c_longlong(), ctypes.c_longlong()
     status = _library("simt").nif_shapenet_hess_workspace(
@@ -172,11 +200,12 @@ def _status_reason(status: int, cfg: ShapeNetConfig, si: int, geo: dict) -> Opti
     if status == 0:
         return None
     if geo["kernel"] == "tc":
+        what = "evaluation" if geo["mode"] == "eval" else "train"
         if status == 2:
             return (f"units={cfg.units} with si={si} needs {geo['smem_bytes']} bytes of shared "
-                    f"memory per block in the tensor-core Hessian kernel (two stacked planes "
-                    f"of 16 points), more than a block may have")
-        return (f"the tensor-core Hessian kernel cannot take {cfg} with si={si} "
+                    f"memory per block in the tensor-core Hessian {what} kernel (two stacked "
+                    f"planes of 16 points), more than a block may have")
+        return (f"the tensor-core Hessian {what} kernel cannot take {cfg} with si={si} "
                 f"(status {status})")
     if status == 1:
         return (f"units={cfg.units} is wider than the CUDA Hessian kernels take (a "
@@ -194,12 +223,12 @@ def _status_reason(status: int, cfg: ShapeNetConfig, si: int, geo: dict) -> Opti
 def hessian_geometry(mode: str, cfg: ShapeNetConfig, variant: str, G: int, P: int,
                      dtype: torch.dtype, si: Optional[int] = None) -> dict:
     """The launch geometry of one body ("eval" for K7, "train" for K8) at
-    ``[G, P]`` in ``dtype``, from its kernel's library (it needs nvcc): K7's
-    from ``csrc/shapenet_hess.cu``, K8's from the library of its variant
-    (:func:`k8_variant`, which asks the shape): the kernel, points per tile,
-    P splits per group, shared memory per block, whether a tile's residuals
-    and the staged weights sit in shared memory or in global memory, and the
-    workspace sizes the wrappers allocate."""
+    ``[G, P]`` in ``dtype``, from the library of its variant
+    (:func:`k7_variant`, :func:`k8_variant`, which ask the shape; it needs
+    nvcc): the kernel, points per tile, P splits per group, shared memory
+    per block, whether a tile's residuals and the staged weights sit in
+    shared memory or in global memory, and the workspace sizes the wrappers
+    allocate."""
     return _geometry(mode, cfg, variant, G, P, dtype, si)
 
 
@@ -242,16 +271,22 @@ def _unsupported(mode: str, not_sine: str, cfg: ShapeNetConfig, variant: str, P:
     return None
 
 
+_K7_NOT_SINE = ("the fused hessian evaluation runs sine chains only (vanilla f'' stays on "
+                "the XLA path)")
+
+
 def fwd_hess_unsupported_reason(cfg: ShapeNetConfig, variant: str, P: int, si: int,
-                                device=None) -> Optional[str]:
-    """Why K7 can NOT take this config (None = it can)."""
-    return _unsupported("eval", "the fused hessian evaluation runs sine chains only "
-                        "(vanilla f'' stays on the XLA path)", cfg, variant, P, si, device)
+                                device=None,
+                                dtype: torch.dtype = torch.bfloat16) -> Optional[str]:
+    """Why K7 can NOT take this config (None = it can): the JAX package's
+    reasons, then on a CUDA ``device`` the limits of the kernel that
+    ``dtype`` runs (:func:`k7_variant`)."""
+    return _unsupported("eval", _K7_NOT_SINE, cfg, variant, P, si, device, dtype)
 
 
 def fwd_hess_supported(cfg: ShapeNetConfig, variant: str, P: int, si: int,
-                       device=None) -> bool:
-    return fwd_hess_unsupported_reason(cfg, variant, P, si, device) is None
+                       device=None, dtype: torch.dtype = torch.bfloat16) -> bool:
+    return fwd_hess_unsupported_reason(cfg, variant, P, si, device, dtype) is None
 
 
 _K8_NOT_SINE = ("the hessian kernel runs sine chains only (f''' of the vanilla "
@@ -368,14 +403,14 @@ def _workspace(mode: str, cfg: ShapeNetConfig, variant: str, x: torch.Tensor,
     return partials, scratch
 
 
-def shapenet_fwd_hess_cuda(wb: torch.Tensor, x: torch.Tensor, cfg: ShapeNetConfig,
-                           variant: str = "siren"):
-    """Launch K7 on ``torch.cuda.current_stream()``: ``(y, jac, hess)`` as
-    :func:`shapenet_fwd_hess_reference` computes them. Raises on anything
-    the kernel does not take; never falls back."""
+def _launch_k7(kernel: str, wb: torch.Tensor, x: torch.Tensor, cfg: ShapeNetConfig,
+               variant: str):
+    """K7 through the library of ``kernel`` ("tc" or "simt"), after the
+    wrapper's checks; counts the launch."""
     si = x.shape[-1] if x.dim() == 3 else cfg.input_dim
     _check_cuda_inputs("shapenet_fwd_hess_cuda", wb, x, cfg, variant,
-                       lambda c, v, P, d: fwd_hess_unsupported_reason(c, v, P, si, d))
+                       lambda c, v, P, d: _unsupported("eval", _K7_NOT_SINE, c, v, P, si, d,
+                                                       x.dtype, kernel))
     G, P, si = x.shape
     so = cfg.output_dim
     y = torch.empty((G, P, so), dtype=x.dtype, device=x.device)
@@ -384,20 +419,45 @@ def shapenet_fwd_hess_cuda(wb: torch.Tensor, x: torch.Tensor, cfg: ShapeNetConfi
     if G == 0 or P == 0:
         return y, jac, _mirror(hp, si)
     wbp = _prescale(wb, cfg, variant).contiguous()
+    if kernel == "tc":  # rows padded to 16 bytes, so every group's W_m stages with cp.async
+        wbp = torch.nn.functional.pad(wbp, (0, -wbp.shape[1] % 8))
     x = x.contiguous()
-    lib = _library()
+    lib = _library(kernel)
     with torch.cuda.device(x.device):  # the geometry reads this device's SM count
-        _, scratch = _workspace("eval", cfg, variant, x)
+        _, scratch = _workspace("eval", cfg, variant, x, kernel)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.nif_shapenet_fwd_hess(
-            wbp.data_ptr(), x.data_ptr(), y.data_ptr(), jac.data_ptr(), hp.data_ptr(),
-            scratch.data_ptr(), G, P, si, so, cfg.units, _n_mats(cfg),
-            _chain_code(cfg, variant), _act_code(cfg, variant, x.dtype), wb.shape[1],
-            _DTYPE_CODES[x.dtype], stream,
-        )
+        args = (wbp.data_ptr(), x.data_ptr(), y.data_ptr(), jac.data_ptr(), hp.data_ptr(),
+                scratch.data_ptr(), G, P, si, so, cfg.units, _n_mats(cfg),
+                _chain_code(cfg, variant), _act_code(cfg, variant, x.dtype), wb.shape[1])
+        if kernel == "tc":
+            err = lib.nif_shapenet_fwd_hess_tc(*args, wbp.shape[1], stream)
+        else:
+            err = lib.nif_shapenet_fwd_hess(*args, _DTYPE_CODES[x.dtype], stream)
     _raise_on_error(lib, "shapenet_fwd_hess", err)
     _build.LAUNCHES["shapenet_fwd_hess"] += 1
+    if kernel == "tc":
+        _build.LAUNCHES["shapenet_fwd_hess_tc"] += 1
     return y, jac, _mirror(hp, si)
+
+
+def shapenet_fwd_hess_cuda(wb: torch.Tensor, x: torch.Tensor, cfg: ShapeNetConfig,
+                           variant: str = "siren"):
+    """Launch K7 on ``torch.cuda.current_stream()``: ``(y, jac, hess)`` as
+    :func:`shapenet_fwd_hess_reference` computes them, through the kernel
+    :func:`k7_variant` picks for the dtype and the chain. Raises on anything
+    that kernel does not take; never falls back."""
+    si = x.shape[-1] if x.dim() == 3 else cfg.input_dim
+    # off the card the wrapper's checks refuse x without asking a library
+    kernel = k7_variant(x.dtype, cfg, variant, si) if x.is_cuda else "simt"
+    return _launch_k7(kernel, wb, x, cfg, variant)
+
+
+def _shapenet_fwd_hess_simt(wb: torch.Tensor, x: torch.Tensor, cfg: ShapeNetConfig,
+                            variant: str = "siren"):
+    """K7 on the CUDA-core kernel whatever the dtype and width.
+    ``chip_smoke.py`` times its bf16 instance beside the tensor-core kernel
+    on the same inputs."""
+    return _launch_k7("simt", wb, x, cfg, variant)
 
 
 def _launch_k8(kernel: str, wb: torch.Tensor, x: torch.Tensor, target: torch.Tensor,

@@ -30,10 +30,14 @@ Rounding points, shared by all three:
 
 On a CUDA tensor each entry launches its hand-written kernel
 (``nif_tpu_torch/csrc/shapenet_fwd.cu`` for K1, ``shapenet_bwd.cu`` for K2
-and K3), or raises. On a CPU tensor it runs the plain PyTorch version of the
-same function (``*_reference``), which the CPU tests hold against the JAX
-package's interpret-mode kernels and ``chip_smoke.py`` holds the CUDA
-kernels against. A config the kernels cannot take goes to the eager
+and K3), or raises. K2 has two variants (:func:`k2_variant`): bfloat16 sine
+chains run the tensor-core kernel (``csrc/shapenet_bwd_tc.cu``, variant
+``"tc"``) wherever its geometry takes the shape, and the CUDA-core one
+(``shapenet_bwd.cu``, variant ``"simt"``) otherwise and for float32, whose
+f32 products never round to TF32. On a CPU tensor it runs the plain PyTorch
+version of the same function (``*_reference``), which the CPU tests hold
+against the JAX package's interpret-mode kernels and ``chip_smoke.py`` holds
+the CUDA kernels against. A config the kernels cannot take goes to the eager
 :func:`~nif_tpu_torch.ops.shapenet.shapenet_grouped` (and autograd), as in
 the JAX package.
 """
@@ -70,6 +74,8 @@ __all__ = [
     "fast_sin_grad2",
     "fast_sin_grad3",
     "kernel_geometry",
+    "k2_geometry",
+    "k2_variant",
     "train_geometry",
 ]
 
@@ -577,9 +583,79 @@ def _bwd_library() -> ctypes.CDLL:
     return lib
 
 
+def _bwd_tc_library() -> ctypes.CDLL:
+    lib = _build.load_library("shapenet_bwd_tc")
+    if lib.nif_shapenet_mse_grads_tc.argtypes is None:
+        c_int, ptr, c_ll = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
+        lib.nif_shapenet_mse_tc_workspace.argtypes = [c_int] * 7 + [ptr] * 7
+        lib.nif_shapenet_mse_tc_workspace.restype = c_int
+        lib.nif_shapenet_mse_grads_tc.argtypes = (
+            [ptr] * 8 + [c_int] * 8 + [c_ll] * 3 + [ctypes.c_float, ptr])
+        lib.nif_shapenet_mse_grads_tc.restype = c_int
+        lib.nif_cuda_error_string.argtypes = [c_int]
+        lib.nif_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _stack_tc_status(workspace, mode: str, cfg: ShapeNetConfig, variant: str, si: int, G: int,
+                     P: int):
+    """``(status, geometry)`` of a stacked-stream tensor-core kernel (K2, K6,
+    K7 or K8) from its library's ``workspace`` entry."""
+    tile, splits, resident, staged_w = (ctypes.c_int() for _ in range(4))
+    smem, partial_floats, scratch = ctypes.c_longlong(), ctypes.c_longlong(), ctypes.c_longlong()
+    status = workspace(
+        cfg.units, si, cfg.output_dim, _n_mats(cfg), _chain_code(cfg, variant), G, P,
+        ctypes.byref(tile), ctypes.byref(splits), ctypes.byref(smem), ctypes.byref(resident),
+        ctypes.byref(staged_w), ctypes.byref(partial_floats), ctypes.byref(scratch))
+    geo = {"mode": mode, "kernel": "tc", "tile": tile.value, "splits": splits.value,
+           "smem_bytes": smem.value, "residuals": "shared" if resident.value else "global",
+           "weights": "shared" if staged_w.value else "global",
+           "partial_floats": partial_floats.value, "scratch_bytes": scratch.value}
+    return status, geo
+
+
+def _k2_tc_status(cfg: ShapeNetConfig, variant: str, G: int, P: int):
+    """``(status, geometry)`` of the tensor-core K2 (``csrc/shapenet_bwd_tc.cu``)."""
+    return _stack_tc_status(_bwd_tc_library().nif_shapenet_mse_tc_workspace, "train", cfg,
+                            variant, cfg.input_dim, G, P)
+
+
+def k2_variant(dtype: torch.dtype, cfg: Optional[ShapeNetConfig] = None,
+               variant: str = "siren") -> str:
+    """Which CUDA kernel K2 runs for inputs of ``dtype``: ``"tc"`` (the
+    tensor-core kernel, ``csrc/shapenet_bwd_tc.cu``) for bfloat16 and
+    ``"simt"`` (the CUDA-core kernel, ``csrc/shapenet_bwd.cu``) for float32,
+    whose products stay full f32 (and for any other dtype, which the wrapper
+    refuses). Given a chain (``cfg``, ``variant``; this asks the
+    tensor-core kernel's library, so it needs nvcc), bfloat16 runs the
+    CUDA-core kernel where the tensor-core one does not take it: a vanilla
+    chain, si > 4, or a width whose two working planes exceed a block's
+    shared memory."""
+    if dtype != torch.bfloat16:
+        return "simt"
+    if cfg is None:
+        return "tc"
+    return "tc" if _k2_tc_status(cfg, variant, 1, 1)[0] == 0 else "simt"
+
+
+def k2_geometry(cfg: ShapeNetConfig, variant: str, G: int, P: int, dtype: torch.dtype,
+                kernel: Optional[str] = None) -> dict:
+    """The launch geometry of K2 at ``[G, P]`` in ``dtype`` on ``kernel`` or
+    the variant :func:`k2_variant` picks (it needs nvcc): the kernel, points
+    per tile, P splits per group, shared memory per block, where a tile's
+    residuals sit, and the workspace sizes the wrapper allocates."""
+    if (kernel or k2_variant(dtype, cfg, variant)) == "tc":
+        status, geo = _k2_tc_status(cfg, variant, G, P)
+        if status != 0:
+            raise ValueError(f"the tensor-core K2 cannot take {cfg} at G={G}, P={P} "
+                             f"(geometry status {status})")
+        return geo
+    return {"kernel": "simt", **train_geometry(cfg, G, P, dtype)}
+
+
 def train_geometry(cfg: ShapeNetConfig, G: int, P: int, dtype: torch.dtype) -> dict:
-    """The launch geometry K2 and K3 take for ``[G, P]`` at this width and
-    dtype, from the kernels' library (it needs nvcc): points per tile, P
+    """The launch geometry the CUDA-core K2 and K3 take for ``[G, P]`` at
+    this width and dtype, from the kernels' library (it needs nvcc): points per tile, P
     splits per group, shared memory per block, whether the residuals of a
     tile sit in shared memory or in a per-block global scratch, and the
     workspace sizes the wrappers allocate."""
@@ -681,13 +757,13 @@ def _shape_args(cfg: ShapeNetConfig, variant: str, x: torch.Tensor, po: int):
             float(cfg.omega_0) if variant == "siren" else 1.0, _DTYPE_CODES[x.dtype])
 
 
-def shapenet_mse_grads_cuda(wb: torch.Tensor, x: torch.Tensor, target: torch.Tensor,
-                            cfg: ShapeNetConfig, variant: str = "siren",
-                            weight: Optional[torch.Tensor] = None):
-    """Launch K2 on ``torch.cuda.current_stream()``: ``(loss, d_wb)`` as
-    :func:`shapenet_mse_grads_reference` computes them. ``target`` must be
-    ``[G, P, so]`` and ``weight`` (optional) ``[G, P]``; both are cast to x's
-    dtype. Raises on anything the kernel does not take; never falls back."""
+def _launch_k2(tensor_cores: bool, wb: torch.Tensor, x: torch.Tensor, target: torch.Tensor,
+               cfg: ShapeNetConfig, variant: str, weight: Optional[torch.Tensor]):
+    """K2 after the wrapper's checks, counting the launch: on the
+    tensor-core kernel where ``tensor_cores`` allows it and
+    :func:`k2_variant` would pick it (one geometry query at this shape
+    decides, and gives the launch its workspace sizes), else on the
+    CUDA-core kernel."""
     _check_cuda_inputs("shapenet_mse_grads_cuda", wb, x, cfg, variant)
     G, P, _ = x.shape
     if tuple(target.shape) != (G, P, cfg.output_dim) or target.device != x.device:
@@ -700,23 +776,58 @@ def shapenet_mse_grads_cuda(wb: torch.Tensor, x: torch.Tensor, target: torch.Ten
     loss = torch.empty((), dtype=torch.float32, device=x.device)
     if G == 0 or P == 0:
         return loss.fill_(float("nan")), d_wb.zero_()
-    wbp = _prescale(wb, cfg, variant).contiguous()
-    x = x.contiguous()
-    target = target.to(x.dtype).contiguous()
-    weight = None if weight is None else weight.to(x.dtype).contiguous()
-    partials, scratch = _workspace(cfg, x)
-    lib = _bwd_library()
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(x.device):  # the geometry reads this device's SM count
+        geo = None
+        if tensor_cores and x.dtype == torch.bfloat16:
+            status, geo = _k2_tc_status(cfg, variant, G, P)
+            geo = geo if status == 0 else None
+        if geo is None:
+            geo = {"kernel": "simt", **train_geometry(cfg, G, P, x.dtype)}
+        kernel = geo["kernel"]
+        wbp = _prescale(wb, cfg, variant).contiguous()
+        if kernel == "tc":  # rows padded to 16 bytes, so every group's W_m stages with cp.async
+            wbp = F.pad(wbp, (0, -wbp.shape[1] % 8))
+        x = x.contiguous()
+        target = target.to(x.dtype).contiguous()
+        weight = None if weight is None else weight.to(x.dtype).contiguous()
+        lib = _bwd_tc_library() if kernel == "tc" else _bwd_library()
+        partials = torch.empty(geo["partial_floats"], dtype=torch.float32, device=x.device)
+        scratch = torch.empty(max(geo["scratch_bytes"], 1), dtype=torch.uint8, device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.nif_shapenet_mse_grads(
-            wbp.data_ptr(), x.data_ptr(), target.data_ptr(),
-            None if weight is None else weight.data_ptr(), loss.data_ptr(), d_wb.data_ptr(),
-            partials.data_ptr(), scratch.data_ptr(), *_shape_args(cfg, variant, x, wb.shape[1]),
-            stream,
-        )
+        args = (wbp.data_ptr(), x.data_ptr(), target.data_ptr(),
+                None if weight is None else weight.data_ptr(), loss.data_ptr(), d_wb.data_ptr(),
+                partials.data_ptr(), scratch.data_ptr())
+        shape = _shape_args(cfg, variant, x, wb.shape[1])
+        if kernel == "tc":  # (G, P, si, so, n, n_mats, chain, act, po), wb_ld, n_scaled, omega
+            err = lib.nif_shapenet_mse_grads_tc(*args, *shape[:9], wbp.shape[1], *shape[9:11],
+                                                stream)
+        else:
+            err = lib.nif_shapenet_mse_grads(*args, *shape, stream)
     _raise_on_error(lib, "shapenet_mse_grads", err)
     _build.LAUNCHES["shapenet_mse_grads"] += 1
+    if kernel == "tc":
+        _build.LAUNCHES["shapenet_mse_grads_tc"] += 1
     return loss, d_wb
+
+
+def shapenet_mse_grads_cuda(wb: torch.Tensor, x: torch.Tensor, target: torch.Tensor,
+                            cfg: ShapeNetConfig, variant: str = "siren",
+                            weight: Optional[torch.Tensor] = None):
+    """Launch K2 on ``torch.cuda.current_stream()``: ``(loss, d_wb)`` as
+    :func:`shapenet_mse_grads_reference` computes them, through the kernel
+    :func:`k2_variant` picks for the dtype and the chain. ``target`` must be
+    ``[G, P, so]`` and ``weight`` (optional) ``[G, P]``; both are cast to x's
+    dtype. Raises on anything that kernel does not take; never falls back."""
+    return _launch_k2(True, wb, x, target, cfg, variant, weight)
+
+
+def _shapenet_mse_grads_simt(wb: torch.Tensor, x: torch.Tensor, target: torch.Tensor,
+                             cfg: ShapeNetConfig, variant: str = "siren",
+                             weight: Optional[torch.Tensor] = None):
+    """K2 on the CUDA-core kernel whatever the dtype and chain.
+    ``chip_smoke.py`` times its bf16 instance beside the tensor-core kernel
+    on the same inputs."""
+    return _launch_k2(False, wb, x, target, cfg, variant, weight)
 
 
 def shapenet_bwd_cuda(wb: torch.Tensor, x: torch.Tensor, g_out: torch.Tensor,

@@ -1,20 +1,24 @@
 #!/usr/bin/env python3
-"""Hold the tensor-core K8 built from another checkout's sources against
+"""Hold tensor-core kernels built from another checkout's sources against
 this checkout's, on a CUDA card: the same flagship inputs through both
 libraries must give the same bits, and the two are timed in turns.
 
-    python3 scripts/port_parent_check.py --csrc DIR
+    python3 scripts/port_parent_check.py --csrc DIR [--kernel k2 k6 k7 k8]
 
 ``DIR`` holds the other checkout's ``nif_tpu_torch/csrc`` (for example that
-of a parent commit, unpacked with ``git archive`` under ``build/``); its
-``shapenet_hess_tc.cu`` is built with this checkout's nvcc flags into
-``build/nif_tpu_torch/other/`` and must have this checkout's C interface.
-Both libraries run ``shapenet_hessian_grads_cuda`` on the flagship chain
-(G=32, P=32768, width 128, two hidden layers, si=3, bf16, random weights,
-targets and point weights from a seed): the three terms and ``d_wb`` must
-be bitwise equal (exit 1 otherwise). Then each is timed with CUDA events in
-the order other, this, this, other, and the card's name and power limit are
-printed beside the times.
+of a parent commit, unpacked with ``git archive`` under ``build/``). Each
+kernel's source there (``shapenet_bwd_tc.cu`` for K2, ``shapenet_jac_tc.cu``
+for K6, ``shapenet_hess_tc.cu`` for K7 and K8) is built with this
+checkout's nvcc flags into ``build/nif_tpu_torch/other/``, all sources at
+once, and must define the kernel's C entries with this checkout's
+signatures (the other library takes this checkout's argument types, so an
+older one may lack the entries of kernels this check is not asked for).
+Each kernel runs through its wrapper on the flagship chain (G=32, P=32768,
+width 128, two hidden layers, si=3, bf16, random weights, targets and
+point weights from a seed): every output must be bitwise equal (exit 1
+otherwise). Then each is timed with CUDA events in the order other, this,
+this, other, and the card's name and power limit are printed beside the
+times.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import argparse
 import ctypes
 import subprocess
 import sys
+import threading
 from pathlib import Path
 
 import torch
@@ -32,27 +37,84 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
 from nif_tpu_torch.config import ShapeNetConfig  # noqa: E402
 from nif_tpu_torch.ops import _build  # noqa: E402
+from nif_tpu_torch.ops import fused_derivatives as fd  # noqa: E402
 from nif_tpu_torch.ops import fused_hessian as fh  # noqa: E402
+from nif_tpu_torch.ops import fused_shapenet as fs  # noqa: E402
 from nif_tpu_torch.utils.bench import FLAGSHIP_SHAPE, cuda_ms  # noqa: E402
 
-NAME = "shapenet_hess_tc"
+G, P, SEED = 32, 32768, 203
 
 
-def build_other(csrc: Path) -> ctypes.CDLL:
-    out = _build.BUILD_DIR / "other" / f"lib{NAME}.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
-                           str(csrc / f"{NAME}.cu")],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {csrc / NAME}.cu:\n{proc.stdout}")
-    return ctypes.CDLL(str(out))
+def _k2(cfg):
+    wb, x = chip_smoke.chain_data(torch, cfg, G, P, torch.bfloat16, seed=SEED)
+    tgt, w, _ = chip_smoke.side_data(torch, cfg, G, P, seed=SEED)
+    return lambda: fs.shapenet_mse_grads_cuda(wb, x, tgt, cfg, "siren", w)
+
+
+def _k6(cfg):
+    wb, x = chip_smoke.chain_data(torch, cfg, G, P, torch.bfloat16, seed=SEED)
+    tgt, w, jt = chip_smoke.sobolev_data(torch, cfg, G, P, seed=SEED)
+    return lambda: fd.shapenet_sobolev_grads_cuda(wb, x, tgt, jt, cfg, "siren", w_value=0.7,
+                                                  w_jac=1.3, weight=w)
+
+
+def _k7(cfg):
+    wb, x = chip_smoke.chain_data(torch, cfg, G, P, torch.bfloat16, seed=SEED)
+    return lambda: fh.shapenet_fwd_hess_cuda(wb, x, cfg, "siren")
+
+
+def _k8(cfg):
+    wb, x = chip_smoke.chain_data(torch, cfg, G, P, torch.bfloat16, seed=SEED)
+    tgt, w, jt, ht = chip_smoke.hessian_data(torch, cfg, G, P, seed=SEED)
+    return lambda: fh.shapenet_hessian_grads_cuda(wb, x, tgt, jt, ht, cfg, "siren", weight=w)
+
+
+# kernel: (library, its C entries, this checkout's loader (sets the argument
+# types), the wrapper call on the flagship inputs, the names of its outputs)
+KERNELS = {
+    "k2": ("shapenet_bwd_tc", ("nif_shapenet_mse_tc_workspace", "nif_shapenet_mse_grads_tc"),
+           fs._bwd_tc_library, _k2, ("loss", "d_wb")),
+    "k6": ("shapenet_jac_tc", ("nif_shapenet_sobolev_tc_workspace",
+                               "nif_shapenet_sobolev_grads_tc"),
+           lambda: fd._library("tc"), _k6, ("value_mse", "jac_mse", "d_wb")),
+    "k7": ("shapenet_hess_tc", ("nif_shapenet_fwd_hess_tc_workspace", "nif_shapenet_fwd_hess_tc"),
+           lambda: fh._library("tc"), _k7, ("y", "jac", "hess")),
+    "k8": ("shapenet_hess_tc", ("nif_shapenet_hess_tc_workspace", "nif_shapenet_hessian_grads_tc"),
+           lambda: fh._library("tc"), _k8, ("value_mse", "jac_mse", "hess_mse", "d_wb")),
+}
+
+
+def build_other(csrc: Path, names) -> dict:
+    """``{name: CDLL}`` of ``csrc/<name>.cu`` for every name, one nvcc each,
+    all started together."""
+    outs, errors = {}, []
+
+    def one(name):
+        out = _build.BUILD_DIR / "other" / f"lib{name}.so"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
+                               str(csrc / f"{name}.cu")],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed on {csrc / name}.cu:\n{proc.stdout}")
+        outs[name] = out
+
+    threads = [threading.Thread(target=one, args=(n,)) for n in names]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if errors:
+        raise RuntimeError(errors[0])
+    return {name: ctypes.CDLL(str(out)) for name, out in outs.items()}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--csrc", type=Path, required=True,
                     help="the other checkout's nif_tpu_torch/csrc directory")
+    ap.add_argument("--kernel", nargs="+", choices=sorted(KERNELS), default=["k8"],
+                    help="the tensor-core kernels to hold against the other build (default k8)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -60,35 +122,46 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(f"card: {smi}")
-    libs = {"other": build_other(args.csrc.resolve()), "this": _build.load_library(NAME)}
+    names = sorted({KERNELS[k][0] for k in args.kernel})
+    chip_smoke.build_all(names)
+    other = build_other(args.csrc.resolve(), names)
+    this = {name: _build.load_library(name) for name in names}
     cfg = ShapeNetConfig.from_dict(FLAGSHIP_SHAPE)
-    G, P = 32, 32768
-    wb, x = chip_smoke.chain_data(torch, cfg, G, P, torch.bfloat16, seed=203)
-    tgt, w, jt, ht = chip_smoke.hessian_data(torch, cfg, G, P, seed=203)
+    ok = True
+    for kernel in args.kernel:
+        name, entries, load, make, out_names = KERNELS[kernel]
+        load()  # this library's argument types
+        for entry in (*entries, "nif_cuda_error_string"):  # ... given to the other library
+            mine, theirs = getattr(this[name], entry), getattr(other[name], entry)
+            theirs.argtypes, theirs.restype = mine.argtypes, mine.restype
+        run = make(cfg)
+        libs = {"other": other[name], "this": this[name]}
 
-    def run():
-        return fh.shapenet_hessian_grads_cuda(wb, x, tgt, jt, ht, cfg, "siren", weight=w)
+        def use(label):
+            _build._LIBS[name] = libs[label]
 
-    def use(label):
-        _build._LIBS[NAME] = libs[label]
-        fh._library("tc")  # its argument types
-
-    outs = {}
-    for label in libs:
-        use(label)
-        outs[label] = [t.clone() for t in run()]
-    torch.cuda.synchronize()
-    same = [torch.equal(a, b) for a, b in zip(outs["other"], outs["this"])]
-    names = ("value_mse", "jac_mse", "hess_mse", "d_wb")
-    print("bitwise equal: " + ", ".join(f"{n} {s}" for n, s in zip(names, same)))
-    print("terms other " + ", ".join(f"{float(v):.9e}" for v in outs["other"][:3])
-          + "; this " + ", ".join(f"{float(v):.9e}" for v in outs["this"][:3]))
-    for label in ("other", "this", "this", "other"):
-        use(label)
-        print(f"K8 bf16 tc, {label:5s} build: {cuda_ms(run, reps=5, warmup=1):.4f} ms "
-              f"({smi})", flush=True)
-    use("this")
-    return 0 if all(same) else 1
+        outs = {}
+        for label in libs:
+            use(label)
+            outs[label] = [t.clone() for t in run()]
+        torch.cuda.synchronize()
+        same = [torch.equal(a, b) for a, b in zip(outs["other"], outs["this"])]
+        ok = ok and all(same)
+        print(f"{kernel.upper()} bitwise equal: "
+              + ", ".join(f"{n} {s}" for n, s in zip(out_names, same)))
+        scalars = [i for i, t in enumerate(outs["this"]) if t.dim() == 0]
+        if scalars:
+            print(f"{kernel.upper()} terms other "
+                  + ", ".join(f"{float(outs['other'][i]):.9e}" for i in scalars)
+                  + "; this " + ", ".join(f"{float(outs['this'][i]):.9e}" for i in scalars))
+        for label in ("other", "this", "this", "other"):
+            use(label)
+            print(f"{kernel.upper()} bf16 tc, {label:5s} build: "
+                  f"{cuda_ms(run, reps=5, warmup=1):.4f} ms ({smi})", flush=True)
+        use("this")
+        del outs, run
+        torch.cuda.empty_cache()
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":

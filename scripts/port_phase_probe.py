@@ -1,23 +1,26 @@
 #!/usr/bin/env python3
 """Where a tensor-core kernel spends its time, phase by phase, on a CUDA
-card: K4 (``nif_tpu_torch/csrc/shapenet_linear_tc.cu``), K6
-(``csrc/shapenet_jac_tc.cu``) or K8 (``csrc/shapenet_hess_tc.cu``).
+card: K2 (``nif_tpu_torch/csrc/shapenet_bwd_tc.cu``), K4
+(``csrc/shapenet_linear_tc.cu``), K6 (``csrc/shapenet_jac_tc.cu``), K7 or K8
+(``csrc/shapenet_hess_tc.cu``).
 
-    python3 scripts/port_phase_probe.py [--kernel k4|k6|k8] [--ablate]
+    python3 scripts/port_phase_probe.py [--kernel k2|k4|k6|k7|k8] [--ablate]
 
-Builds the kernel's source once more with ``-DK4_PHASE_CLOCKS``,
-``-DK6_PHASE_CLOCKS`` or ``-DK8_PHASE_CLOCKS`` (into
-``build/nif_tpu_torch/probe/``), in which thread 0 of every block adds the
-``clock64()`` cycles between consecutive barriers into eight phase counters,
-and runs it through the usual wrapper at the kernel's flagship shape (G=32,
-P=32768, bf16, random weights from a seed: the NIF-linear trunk for K4, the
-flagship chain with Jacobian targets for K6 and with Jacobian and Hessian
-targets for K8). Prints the kernel's time (CUDA events, the instrumented build beside
-the plain one) and each phase's share of the blocks' critical path. The
-counters cost a few instructions at each barrier; the plain build's time says
-how much. Nothing is asserted.
+Builds the kernel's source once more with ``-DK2_PHASE_CLOCKS``,
+``-DK4_PHASE_CLOCKS``, ``-DK6_PHASE_CLOCKS``, ``-DK7_PHASE_CLOCKS`` or
+``-DK8_PHASE_CLOCKS`` (into ``build/nif_tpu_torch/probe/``), in which thread
+0 of every block adds the ``clock64()`` cycles between consecutive barriers
+into phase counters (four for K7, eight for the others), and runs it through
+the usual wrapper at the kernel's flagship shape (G=32, P=32768, bf16,
+random weights from a seed: the NIF-linear trunk for K4, the flagship chain
+with targets and point weights for K2, with Jacobian targets for K6, alone
+for K7, and with Jacobian and Hessian targets for K8). Prints the kernel's
+time (CUDA events, the instrumented build beside the plain one) and each
+phase's share of the blocks' critical path. The counters cost a few
+instructions at each barrier; the plain build's time says how much. Nothing
+is asserted.
 
-With ``--kernel k6|k8 --ablate`` it also builds three variants of the
+With ``--kernel k2|k6|k8 --ablate`` it also builds three variants of the
 kernel's source and its shared header ``stack_tc.cuh`` (text edits of a copy,
 checked to apply) and times them beside the source as it is, in turns:
 without the loads of the f32 dW partials, without their loads and stores (the
@@ -43,10 +46,21 @@ from nif_tpu_torch.ops import _build  # noqa: E402
 from nif_tpu_torch.ops import fused_derivatives as fd  # noqa: E402
 from nif_tpu_torch.ops import fused_hessian as fh  # noqa: E402
 from nif_tpu_torch.ops import fused_linear as fl  # noqa: E402
+from nif_tpu_torch.ops import fused_shapenet as fs  # noqa: E402
 from nif_tpu_torch.utils.bench import FLAGSHIP_SHAPE, cuda_ms  # noqa: E402
 
 # source, its define, its counter entry, and the phases in counter order
 KERNELS = {
+    "k2": ("shapenet_bwd_tc", "K2_PHASE_CLOCKS", "nif_mse_tc_phase_cycles", [
+        "x tile + first layer",
+        "hidden forward (products + sine)",
+        "last product + loss",
+        "last layer's backward (dW_l, db_l, du)",
+        "S copy-back + Z recompute + epilogue",
+        "hidden dW (thread 0's own tasks)",
+        "du = D @ W^T (and the wait for dW)",
+        "first layer's backward (dW0, db0)",
+    ]),
     "k4": ("shapenet_linear_tc", "K4_PHASE_CLOCKS", "nif_linear_tc_phase_cycles", [
         "x tile",
         "first layer + hidden forward",
@@ -66,6 +80,12 @@ KERNELS = {
         "hidden dW (thread 0's own tasks)",
         "dS = D @ W^T (and the wait for dW)",
         "first layer's backward (dW0, db0)",
+    ]),
+    "k7": ("shapenet_hess_tc", "K7_PHASE_CLOCKS", "nif_fwd_hess_tc_phase_cycles", [
+        "x tile + first layer (all streams)",
+        "hidden forward (products + epilogues)",
+        "last product",
+        "y, jac, hp stores (and the group's set-up)",
     ]),
     "k8": ("shapenet_hess_tc", "K8_PHASE_CLOCKS", "nif_hess_tc_phase_cycles", [
         "x tile + first layer (all streams)",
@@ -97,9 +117,9 @@ def build_probe(name: str, define: str, entry: str) -> ctypes.CDLL:
     return lib
 
 
-# The ablation variants of K6 and K8: (file, snippet, replacement) edits of
-# their shared header (the dW partials) or of the kernel's own source (the
-# hidden dW call, the same line in both)
+# The ablation variants of K2, K6 and K8: (file, snippet, replacement) edits
+# of their shared header (the dW partials) or of the kernel's own source (the
+# hidden dW call, the same line in all three)
 _LOAD = ("""          const float2 w = !first && o[0] >= 0 ? *reinterpret_cast<const float2*>(out + o[0])
                                                : make_float2(0.f, 0.f);""",
          "          const float2 w = make_float2(0.f, 0.f);")
@@ -136,17 +156,26 @@ def build_variant(name: str, label: str, edits) -> ctypes.CDLL:
     return ctypes.CDLL(str(out / f"lib{name}.so"))
 
 
-def ablate(name: str, module, run) -> None:
+def ablate(name: str, argtypes, run) -> None:
     """Time the kernel as built and its ablation variants, in turns, twice."""
     libs = {"as built": _build.load_library(name)}
     libs.update((label, build_variant(name, label, edits)) for label, edits in ABLATIONS.items())
     for rnd in range(2):
         for label, lib in libs.items():
             _build._LIBS[name] = lib
-            module._library("tc")  # its argument types
+            argtypes()
             print(f"ablation round {rnd}: {label:32s} {cuda_ms(run, reps=5, warmup=1):.4f} ms",
                   flush=True)
     _build._LIBS[name] = libs["as built"]
+
+
+def k2_case(G: int, P: int):
+    """K2's launcher and (tile, splits) at the flagship chain."""
+    cfg = ShapeNetConfig.from_dict(FLAGSHIP_SHAPE)
+    wb, x = chip_smoke.chain_data(torch, cfg, G, P, torch.bfloat16, seed=204)
+    tgt, w, _ = chip_smoke.side_data(torch, cfg, G, P, seed=204)
+    geo = fs.k2_geometry(cfg, "siren", G, P, torch.bfloat16)
+    return lambda: fs.shapenet_mse_grads_cuda(wb, x, tgt, cfg, "siren", w), geo
 
 
 def k4_case(G: int, P: int):
@@ -166,6 +195,14 @@ def k6_case(G: int, P: int):
     return lambda: fd.shapenet_sobolev_grads_cuda(wb, x, tgt, jt, cfg, "siren", weight=w), geo
 
 
+def k7_case(G: int, P: int):
+    """K7's launcher and (tile, splits) at the flagship chain."""
+    cfg = ShapeNetConfig.from_dict(FLAGSHIP_SHAPE)
+    wb, x = chip_smoke.chain_data(torch, cfg, G, P, torch.bfloat16, seed=205)
+    geo = fh.hessian_geometry("eval", cfg, "siren", G, P, torch.bfloat16)
+    return lambda: fh.shapenet_fwd_hess_cuda(wb, x, cfg, "siren"), geo
+
+
 def k8_case(G: int, P: int):
     """K8's launcher and (tile, splits) at the flagship chain."""
     cfg = ShapeNetConfig.from_dict(FLAGSHIP_SHAPE)
@@ -180,10 +217,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", choices=sorted(KERNELS), default="k4")
     ap.add_argument("--ablate", action="store_true",
-                    help="K6 and K8 only: also time variants without parts of their dW")
+                    help="K2, K6 and K8 only: also time variants without parts of their dW")
     args = ap.parse_args()
-    if args.ablate and args.kernel == "k4":
-        ap.error("--ablate takes --kernel k6 or k8")
+    if args.ablate and args.kernel in ("k4", "k7"):
+        ap.error("--ablate takes --kernel k2, k6 or k8")
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 1
@@ -192,15 +229,19 @@ def main() -> int:
     print(f"card: {smi}")
     name, define, entry, phases = KERNELS[args.kernel]
     G, P = 32, 32768
-    run, geo = {"k4": k4_case, "k6": k6_case, "k8": k8_case}[args.kernel](G, P)
+    cases = {"k2": k2_case, "k4": k4_case, "k6": k6_case, "k7": k7_case, "k8": k8_case}
+    run, geo = cases[args.kernel](G, P)
     reps = 3 if args.kernel == "k8" else 10
     plain_build_ms = cuda_ms(run, reps=reps, warmup=1)
-    module = {"k4": fl, "k6": fd, "k8": fh}[args.kernel]
+    # registers the argument types of the library now in _build._LIBS
+    argtypes = {"k2": fs._bwd_tc_library, "k4": lambda: fl._library("tc"),
+                "k6": lambda: fd._library("tc"), "k7": lambda: fh._library("tc"),
+                "k8": lambda: fh._library("tc")}[args.kernel]
     if args.ablate:
-        ablate(name, module, run)
+        ablate(name, argtypes, run)
     probe = build_probe(name, define, entry)
     _build._LIBS[name] = probe  # the wrapper now launches the probe build
-    module._library("tc")  # its argument types
+    argtypes()
     counters = (ctypes.c_ulonglong * len(phases))()
     read = getattr(probe, entry)
     run()

@@ -2,6 +2,8 @@
 name hashes its source and the ``csrc`` headers the source includes,
 followed transitively, so editing a header rebuilds only the libraries that
 include it."""
+import re
+
 import pytest
 
 from nif_tpu_torch.ops import _build
@@ -50,30 +52,77 @@ def test_port_sources_include_what_they_use():
     assert "mma_sm90.cuh" not in {p.name for p in _build._sources("shapenet_linear")}
 
 
-TC_HEADERS = {"stack_tc.cuh", "mma_sm90.cuh"}
+# Each tensor-core header and the sources that include it, directly or not.
+TC_USERS = {
+    "mma_sm90.cuh": {"shapenet_bwd_tc", "shapenet_hess_tc", "shapenet_jac_tc",
+                     "shapenet_linear_tc"},
+    "stack_tc.cuh": {"shapenet_bwd_tc", "shapenet_hess_tc", "shapenet_jac_tc"},
+}
+TC_HEADERS = set(TC_USERS)
+
+
+def _entries(name):
+    """The C entries ``int nif_...(`` that ``csrc/<name>.cu`` defines."""
+    return set(re.findall(r"^int (nif_\w+)\(", (_build.CSRC / f"{name}.cu").read_text(),
+                          re.MULTILINE))
 
 
 def test_k8_tensor_core_sources():
-    """The tensor-core K8 builds against the stacked-stream machinery it
-    shares with the tensor-core K6, the mma helpers and the shared header;
-    the CUDA-core K7/K8 library includes neither tensor-core header."""
+    """The tensor-core K8 and K7 build into one library, against the
+    stacked-stream machinery they share with the tensor-core K6 and K2, the
+    mma helpers and the shared header; the CUDA-core K7/K8 library includes
+    no tensor-core header and keeps its own K7 entry."""
     names = {p.name for p in _build._sources("shapenet_hess_tc")}
     assert names == {"shapenet_hess_tc.cu", "stack_tc.cuh", "mma_sm90.cuh",
                      "shapenet_common.cuh"}
     assert not TC_HEADERS & {p.name for p in _build._sources("shapenet_hess")}
+    assert {"nif_shapenet_hess_tc_workspace", "nif_shapenet_hessian_grads_tc",
+            "nif_shapenet_fwd_hess_tc_workspace", "nif_shapenet_fwd_hess_tc"} <= _entries(
+                "shapenet_hess_tc")
+    assert {"nif_shapenet_fwd_hess", "nif_shapenet_hessian_grads"} <= _entries("shapenet_hess")
 
 
 def test_k6_tensor_core_sources():
-    """The tensor-core K6 builds against the same headers as the tensor-core
-    K8; the CUDA-core K5/K6 library and the header every kernel includes
-    include neither tensor-core header, so an edit to those rebuilds only
-    the two tensor-core libraries."""
+    """The tensor-core K6 builds against the stacked-stream machinery, the mma
+    helpers and the shared header; the CUDA-core K5/K6 library and the header every kernel includes include no
+    tensor-core header, so an edit to one rebuilds only its users."""
     names = {p.name for p in _build._sources("shapenet_jac_tc")}
     assert names == {"shapenet_jac_tc.cu", "stack_tc.cuh", "mma_sm90.cuh",
                      "shapenet_common.cuh"}
     assert not TC_HEADERS & {p.name for p in _build._sources("shapenet_jac")}
     common = (_build.CSRC / "shapenet_common.cuh").read_bytes()
     assert not TC_HEADERS & {inc.decode() for inc in _build._INCLUDE.findall(common)}
-    users = {path.stem for path in _build.CSRC.glob("*.cu")
-             if "stack_tc.cuh" in {p.name for p in _build._sources(path.stem)}}
-    assert users == {"shapenet_hess_tc", "shapenet_jac_tc"}
+    for header, expected in TC_USERS.items():
+        users = {path.stem for path in _build.CSRC.glob("*.cu")
+                 if header in {p.name for p in _build._sources(path.stem)}}
+        assert users == expected, header
+
+
+def test_k2_tensor_core_sources():
+    """The tensor-core K2 builds against the same headers as the tensor-core
+    K7 and K8; the CUDA-core K2/K3 library includes no tensor-core header,
+    so an edit to one rebuilds the tensor-core libraries and not it, and
+    each library defines the entries its wrapper loads."""
+    names = {p.name for p in _build._sources("shapenet_bwd_tc")}
+    assert names == {"shapenet_bwd_tc.cu", "stack_tc.cuh", "mma_sm90.cuh",
+                     "shapenet_common.cuh"}
+    assert not TC_HEADERS & {p.name for p in _build._sources("shapenet_bwd")}
+    assert {"nif_shapenet_mse_tc_workspace", "nif_shapenet_mse_grads_tc"} <= _entries(
+        "shapenet_bwd_tc")
+    assert {"nif_shapenet_mse_grads", "nif_shapenet_bwd"} <= _entries("shapenet_bwd")
+
+
+@pytest.mark.parametrize("header", sorted(TC_HEADERS))
+def test_tensor_core_header_edit_renames_only_the_tensor_core_libraries(header, tmp_path,
+                                                                       monkeypatch):
+    """On a copy of the port's sources: editing a tensor-core header renames
+    the libraries of the tensor-core sources that include it, and no
+    CUDA-core one."""
+    for path in _build.CSRC.iterdir():
+        (tmp_path / path.name).write_bytes(path.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    names = sorted(path.stem for path in tmp_path.glob("*.cu"))
+    before = {name: _build._target(name) for name in names}
+    (tmp_path / header).write_text((tmp_path / header).read_text() + "// edited\n")
+    renamed = {name for name in names if _build._target(name) != before[name]}
+    assert renamed == TC_USERS[header]

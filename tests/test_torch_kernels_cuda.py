@@ -25,13 +25,15 @@ gradient max|d| <= 5e-5 of its max|plain| (the JAX package's bound for its
 fused NIF-linear kernel: the trunk grads sum over every group); bf16 as K2.
 bf16 K4 runs the tensor-core kernel (``shapenet_linear_tc.cu``), f32 K4 the
 CUDA-core one (``shapenet_linear.cu``); both are held to the same bounds.
-Likewise bf16 K8 runs the tensor-core kernel (``shapenet_hess_tc.cu``), f32 K8
-the CUDA-core one (``shapenet_hess.cu``), and bf16 K6 on sine chains the
-tensor-core kernel (``shapenet_jac_tc.cu``), f32 K6 and vanilla chains the
-CUDA-core one (``shapenet_jac.cu``), each checked by its launch counter; the
-tensor-core kernels' terms within rel 1e-4 of the plain version's. A bf16
-chain the tensor-core kernel refuses for shared memory runs on the CUDA-core
-one."""
+Likewise bf16 K7 and K8 run the tensor-core kernels (``shapenet_hess_tc.cu``),
+f32 K7 and K8 the CUDA-core ones (``shapenet_hess.cu``); bf16 K6 on sine
+chains the tensor-core kernel (``shapenet_jac_tc.cu``), f32 K6 and vanilla
+chains the CUDA-core one (``shapenet_jac.cu``); bf16 K2 on sine chains the
+tensor-core kernel (``shapenet_bwd_tc.cu``), f32 K2 and vanilla chains the
+CUDA-core one (``shapenet_bwd.cu``); each checked by its launch counter; the
+tensor-core K6's terms within rel 1e-4 of the plain version's, the
+tensor-core K2 and K7 within the bf16 bounds above. A bf16 chain a
+tensor-core kernel refuses for shared memory runs on the CUDA-core one."""
 import numpy as np
 import pytest
 import torch
@@ -181,9 +183,11 @@ def test_k2_matches_plain(card, variant, args, dtype, weighted):
     wb, x = _data(cfg, 3, 256, dtype, seed=9)
     tgt, w, _ = _side(cfg, 3, 256, dtype, seed=9)
     w = w if weighted else None
-    before = _build.LAUNCHES["shapenet_mse_grads"]
+    before = dict(_build.LAUNCHES)
     loss, d_wb = fs.shapenet_mse_grads(wb, x, tgt, cfg, variant, w)
-    assert _build.LAUNCHES["shapenet_mse_grads"] == before + 1
+    assert _build.LAUNCHES["shapenet_mse_grads"] == before["shapenet_mse_grads"] + 1
+    tc = int(dtype == torch.bfloat16 and variant == "siren")
+    assert _build.LAUNCHES["shapenet_mse_grads_tc"] == before["shapenet_mse_grads_tc"] + tc
     l_ref, g_ref = fs.shapenet_mse_grads_reference(wb, x, tgt, cfg, variant, w)
     l_rel, g_bound, _ = _bounds(dtype)
     assert loss.dtype == torch.float32 and d_wb.dtype == dtype
@@ -287,8 +291,17 @@ def test_model_train_step_on_the_card_launches_k2(card):
     before = dict(_build.LAUNCHES)
     state, loss = trainer.step(state, t, x, u)
     assert _build.LAUNCHES["shapenet_mse_grads"] == before["shapenet_mse_grads"] + 1
+    assert _build.LAUNCHES["shapenet_mse_grads_tc"] == before["shapenet_mse_grads_tc"] + 1
     assert _build.LAUNCHES["shapenet_fwd"] == before["shapenet_fwd"]
     assert bool(torch.isfinite(loss)) and trainer.history["path"] == "fused"
+    # the float32 policy runs the CUDA-core K2
+    f32 = GroupedTrainer(nif_tpu_torch.NIFMultiScale(cfg_s, cfg_p, "float32", seed=0),
+                         lambda p: torch.optim.Adam(p, lr=1e-4))
+    before = dict(_build.LAUNCHES)
+    _, loss = f32.step(f32.init(0), t, x, u)
+    assert _build.LAUNCHES["shapenet_mse_grads"] == before["shapenet_mse_grads"] + 1
+    assert _build.LAUNCHES["shapenet_mse_grads_tc"] == before["shapenet_mse_grads_tc"]
+    assert bool(torch.isfinite(loss))
 
 
 # Widths past the flagship run the wider template instances (8, 16 and 32
@@ -463,9 +476,11 @@ def _hessian_side(cfg, G, P, seed):
 def test_k7_matches_plain(card, variant, args, dtype):
     cfg = ShapeNetConfig(*args)
     wb, x = _data(cfg, 3, 264, dtype, seed=19)
-    before = _build.LAUNCHES["shapenet_fwd_hess"]
+    before = dict(_build.LAUNCHES)
     y, jac, hess = fh.shapenet_fwd_hess(wb, x, cfg, variant)
-    assert _build.LAUNCHES["shapenet_fwd_hess"] == before + 1
+    assert _build.LAUNCHES["shapenet_fwd_hess"] == before["shapenet_fwd_hess"] + 1
+    assert (_build.LAUNCHES["shapenet_fwd_hess_tc"]
+            == before["shapenet_fwd_hess_tc"] + int(dtype == torch.bfloat16))
     refs = fh.shapenet_fwd_hess_reference(wb, x, cfg, variant)
     si, so = cfg.input_dim, cfg.output_dim
     assert y.dtype == jac.dtype == hess.dtype == dtype and hess.shape == (3, 264, so, si, si)
@@ -525,14 +540,15 @@ def test_k8_flagship_width_is_deterministic(card):
 
 
 def test_hessian_geometry(card):
-    """At the flagship width (si = 3: ten streams) bf16 K8 takes the
-    tensor-core kernel: 16-point tiles (160 stacked rows) with every S plane
-    and the staged W in shared memory, and one wave of SMs / G splits per
-    group; its f32 body (the CUDA-core kernel) and K7 take 6-point tiles (60
-    of 64 rows), f32 K8's residuals in the global scratch. At si = 4 (15
-    streams) the tensor-core kernel's S planes go to the global scratch. At
-    width 1024 the tensor-core kernel's two planes exceed shared memory, and
-    the CUDA-core kernels' 8-row tile cannot hold 15 streams."""
+    """At the flagship width (si = 3: ten streams) bf16 K7 and K8 take the
+    tensor-core kernels: 16-point tiles (160 stacked rows) with every S plane
+    (K8) or both working planes (K7) and the staged W in shared memory, and
+    one wave of SMs / G splits per group; their f32 bodies (the CUDA-core
+    kernels) take 6-point tiles (60 of 64 rows), f32 K8's residuals in the
+    global scratch. At si = 4 (15 streams) the tensor-core K8's S planes go to
+    the global scratch. At width 1024 the tensor-core kernels' two planes
+    exceed shared memory, and the CUDA-core kernels' 8-row tile cannot hold 15
+    streams."""
     cfg = ShapeNetConfig(3, 1, 128, 2, "sine", False, 30.0)
     train = fh.hessian_geometry("train", cfg, "siren", 32, 32768, torch.bfloat16)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -542,7 +558,12 @@ def test_hessian_geometry(card):
     f32 = fh.hessian_geometry("train", cfg, "siren", 32, 32768, torch.float32)
     assert (f32["kernel"], f32["tile"]) == ("simt", 6)
     assert f32["residuals"] == "global" and f32["scratch_bytes"] > 0
-    assert fh.hessian_geometry("eval", cfg, "siren", 32, 32768, torch.bfloat16)["tile"] == 6
+    ev = fh.hessian_geometry("eval", cfg, "siren", 32, 32768, torch.bfloat16)
+    assert (ev["kernel"], ev["tile"], ev["weights"], ev["partial_floats"]) == (
+        "tc", 16, "shared", 0)
+    assert ev["splits"] == train["splits"]
+    ev32 = fh.hessian_geometry("eval", cfg, "siren", 32, 32768, torch.float32)
+    assert (ev32["kernel"], ev32["tile"]) == ("simt", 6)
     si4 = fh.hessian_geometry("train", ShapeNetConfig(4, 1, 128, 2, "sine"), "siren", 2, 64,
                               torch.bfloat16)
     assert (si4["tile"], si4["residuals"]) == (16, "global")
@@ -550,6 +571,7 @@ def test_hessian_geometry(card):
     # bf16 falls back to the CUDA-core kernel, whose 8-row tile refuses too
     assert "tensor-core" in fh._cuda_reason("train", wide, "siren", 4, torch.bfloat16, "tc")
     assert fh.k8_variant(torch.bfloat16, wide, "siren", 4) == "simt"
+    assert fh.k7_variant(torch.bfloat16, wide, "siren", 4) == "simt"
     assert "streams" in fh.hessian_fused_unsupported_reason(wide, "siren", 256, 4, card)
     assert "streams" in fh.hessian_fused_unsupported_reason(wide, "siren", 256, 4, card,
                                                             torch.float32)
@@ -660,6 +682,165 @@ def test_k6_cuda_core_kernel_on_bf16_inputs(card):
     assert err <= 2.0 ** -6 * scale, (err, scale)
 
 
+@pytest.mark.parametrize("args", K8_TC_SHAPES, ids=["n24", "n40-res", "si1", "si4",
+                                                    "n128-res", "n256-res", "n512"])
+def test_k7_tc_padded_and_ragged_shapes(card, args):
+    """The tensor-core K7 on the shapes the tensor-core K8 is checked on
+    (padded widths, si = 1, 2, 4, resblock chains, widths whose W is staged
+    one at a time or read from global memory), at P = 200 (a ragged last
+    tile), against plain K7: y, jac and hess within 2^-6 of max|plain|, the
+    Hessian exactly symmetric."""
+    cfg = ShapeNetConfig(*args)
+    wb, x = _data(cfg, 3, 200, torch.bfloat16, seed=30)
+    assert fh.hessian_geometry("eval", cfg, "siren", 3, 200, torch.bfloat16)["kernel"] == "tc"
+    before = dict(_build.LAUNCHES)
+    y, jac, hess = fh.shapenet_fwd_hess_cuda(wb, x, cfg, "siren")
+    assert _build.LAUNCHES["shapenet_fwd_hess_tc"] == before["shapenet_fwd_hess_tc"] + 1
+    assert _build.LAUNCHES["shapenet_fwd_hess"] == before["shapenet_fwd_hess"] + 1
+    assert torch.equal(hess, hess.transpose(-1, -2))
+    for mine, ref in zip((y, jac, hess), fh.shapenet_fwd_hess_reference(wb, x, cfg, "siren")):
+        assert mine.dtype == torch.bfloat16 and mine.shape == ref.shape
+        err, scale = _max_diff(mine, ref)
+        assert err <= 2.0 ** -6 * scale, (err, scale)
+
+
+def test_k7_cuda_core_kernel_on_bf16_inputs(card):
+    """The private launcher that times the CUDA-core K7 beside the
+    tensor-core one on the same bf16 inputs: it launches the CUDA-core
+    kernel and agrees with plain K7 within the bf16 bounds."""
+    cfg = ShapeNetConfig(3, 1, 128, 2, "sine", False, 30.0)
+    wb, x = _data(cfg, 2, 256, torch.bfloat16, seed=31)
+    before = dict(_build.LAUNCHES)
+    outs = fh._shapenet_fwd_hess_simt(wb, x, cfg, "siren")
+    assert _build.LAUNCHES["shapenet_fwd_hess"] == before["shapenet_fwd_hess"] + 1
+    assert _build.LAUNCHES["shapenet_fwd_hess_tc"] == before["shapenet_fwd_hess_tc"]
+    for mine, ref in zip(outs, fh.shapenet_fwd_hess_reference(wb, x, cfg, "siren")):
+        err, scale = _max_diff(mine, ref)
+        assert err <= 2.0 ** -6 * scale, (err, scale)
+
+
+def test_k7_flagship_is_deterministic(card):
+    """The flagship chain at G=8, P=32768 in bf16 on the tensor-core K7: two
+    runs give the same bits and agree with plain K7 within 2^-6 of
+    max|plain|."""
+    cfg = ShapeNetConfig(3, 1, 128, 2, "sine", False, 30.0)
+    wb, x = _data(cfg, 8, 32768, torch.bfloat16, seed=32)
+    before = _build.LAUNCHES["shapenet_fwd_hess_tc"]
+    runs = [fh.shapenet_fwd_hess_cuda(wb, x, cfg, "siren") for _ in range(2)]
+    assert _build.LAUNCHES["shapenet_fwd_hess_tc"] == before + 2
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    for mine, ref in zip(runs[0], fh.shapenet_fwd_hess_reference(wb, x, cfg, "siren")):
+        err, scale = _max_diff(mine, ref)
+        assert err <= 2.0 ** -6 * scale, (err, scale)
+
+
+# K8's shapes for the tensor-core K2, whose two working planes of 128 rows
+# exceed shared memory at width 512: width 384 (three column blocks a warp)
+# takes that case's place. At width 256 (resblock) its S planes go to the
+# global scratch and W is read from global memory.
+K2_TC_SHAPES = K8_TC_SHAPES[:-1] + [(1, 1, 384, 1, "sine", False, 30.0)]
+
+
+@pytest.mark.parametrize("weighted", [False, True], ids=["unweighted", "weighted"])
+@pytest.mark.parametrize("args", K2_TC_SHAPES, ids=["n24", "n40-res", "si1", "si4",
+                                                    "n128-res", "n256-res", "n384"])
+def test_k2_tc_padded_and_ragged_shapes(card, args, weighted):
+    """The tensor-core K2 on the shapes the tensor-core K6 and K8 are checked
+    on, at P = 200 (a ragged last tile of its 128-point tiles), weighted or
+    not, against plain K2: loss rel 1e-3, d_wb within 2^-6 of max|plain|."""
+    cfg = ShapeNetConfig(*args)
+    wb, x = _data(cfg, 3, 200, torch.bfloat16, seed=33)
+    tgt, w, _ = _side(cfg, 3, 200, torch.bfloat16, seed=33)
+    w = w if weighted else None
+    assert fs.k2_geometry(cfg, "siren", 3, 200, torch.bfloat16)["kernel"] == "tc"
+    before = dict(_build.LAUNCHES)
+    loss, d_wb = fs.shapenet_mse_grads_cuda(wb, x, tgt, cfg, "siren", w)
+    assert _build.LAUNCHES["shapenet_mse_grads_tc"] == before["shapenet_mse_grads_tc"] + 1
+    assert _build.LAUNCHES["shapenet_mse_grads"] == before["shapenet_mse_grads"] + 1
+    l_ref, g_ref = fs.shapenet_mse_grads_reference(wb, x, tgt, cfg, "siren", w)
+    assert loss.dtype == torch.float32 and d_wb.dtype == torch.bfloat16
+    assert float(loss) == pytest.approx(float(l_ref), rel=1e-3)
+    err, scale = _max_diff(d_wb, g_ref)
+    assert err <= 2.0 ** -6 * scale, (err, scale)
+
+
+def test_k2_cuda_core_kernel_on_bf16_inputs(card):
+    """The private launcher that times the CUDA-core K2 beside the
+    tensor-core one on the same bf16 inputs: it launches the CUDA-core
+    kernel and agrees with plain K2 within the bf16 bounds."""
+    cfg = ShapeNetConfig(3, 1, 128, 2, "sine", False, 30.0)
+    wb, x = _data(cfg, 2, 256, torch.bfloat16, seed=34)
+    tgt, w, _ = _side(cfg, 2, 256, torch.bfloat16, seed=34)
+    before = dict(_build.LAUNCHES)
+    loss, d_wb = fs._shapenet_mse_grads_simt(wb, x, tgt, cfg, "siren", w)
+    assert _build.LAUNCHES["shapenet_mse_grads"] == before["shapenet_mse_grads"] + 1
+    assert _build.LAUNCHES["shapenet_mse_grads_tc"] == before["shapenet_mse_grads_tc"]
+    l_ref, g_ref = fs.shapenet_mse_grads_reference(wb, x, tgt, cfg, "siren", w)
+    assert float(loss) == pytest.approx(float(l_ref), rel=1e-3)
+    err, scale = _max_diff(d_wb, g_ref)
+    assert err <= 2.0 ** -6 * scale, (err, scale)
+
+
+def test_k2_flagship_is_deterministic(card):
+    """The flagship chain at G=8, P=32768 in bf16, weighted, on the
+    tensor-core K2: 128-point tiles with every S plane, D and both hidden W
+    in shared memory; two runs give the same bits (fixed P splits, an
+    ordered reduce) and agree with plain K2."""
+    cfg = ShapeNetConfig(3, 1, 128, 2, "sine", False, 30.0)
+    geo = fs.k2_geometry(cfg, "siren", 8, 32768, torch.bfloat16)
+    assert (geo["kernel"], geo["tile"], geo["residuals"], geo["weights"]) == (
+        "tc", 128, "shared", "shared")
+    wb, x = _data(cfg, 8, 32768, torch.bfloat16, seed=35)
+    tgt, w, _ = _side(cfg, 8, 32768, torch.bfloat16, seed=35)
+    before = _build.LAUNCHES["shapenet_mse_grads_tc"]
+    runs = [fs.shapenet_mse_grads_cuda(wb, x, tgt, cfg, "siren", w) for _ in range(2)]
+    assert _build.LAUNCHES["shapenet_mse_grads_tc"] == before + 2
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+    l_ref, g_ref = fs.shapenet_mse_grads_reference(wb, x, tgt, cfg, "siren", w)
+    assert float(runs[0][0]) == pytest.approx(float(l_ref), rel=1e-3)
+    err, scale = _max_diff(runs[0][1], g_ref)
+    assert err <= 2.0 ** -6 * scale, (err, scale)
+
+
+def test_bf16_chains_the_tensor_core_k2_and_k7_refuse_run_on_the_cuda_core_kernels(card):
+    """Width 384 at si = 3 with two hidden layers: the tensor-core K7's two
+    working planes of ten streams exceed shared memory, so bf16 K7 takes the
+    CUDA-core kernel; the tensor-core K2's two planes of one stream still
+    fit there, and at width 512 they do not, so bf16 K2 takes the CUDA-core
+    kernel; a vanilla bf16 chain and si = 5 take it too. Each agrees with
+    its plain version within the bf16 bounds."""
+    cfg = ShapeNetConfig(3, 1, 384, 2, "sine", False, 30.0)
+    assert fh.k7_variant(torch.bfloat16, cfg, "siren") == "simt"
+    assert fh.fwd_hess_unsupported_reason(cfg, "siren", 96, 3, card) is None
+    wb, x = _data(cfg, 2, 96, torch.bfloat16, seed=36)
+    before = dict(_build.LAUNCHES)
+    outs = fh.shapenet_fwd_hess(wb, x, cfg, "siren")
+    assert _build.LAUNCHES["shapenet_fwd_hess"] == before["shapenet_fwd_hess"] + 1
+    assert _build.LAUNCHES["shapenet_fwd_hess_tc"] == before["shapenet_fwd_hess_tc"]
+    for mine, ref in zip(outs, fh.shapenet_fwd_hess_reference(wb, x, cfg, "siren")):
+        err, scale = _max_diff(mine, ref)
+        assert err <= 2.0 ** -6 * scale, (err, scale)
+    cases = [("siren", (3, 1, 384, 2, "sine", False, 30.0), "tc"),
+             ("siren", (3, 1, 512, 2, "sine", False, 30.0), "simt"),
+             ("siren", (5, 1, 64, 2, "sine", False, 30.0), "simt"),
+             ("vanilla", (2, 1, 64, 2, "sine"), "simt")]
+    for variant, args, kernel in cases:
+        cfg = ShapeNetConfig(*args)
+        assert fs.k2_variant(torch.bfloat16, cfg, variant) == kernel
+        wb, x = _data(cfg, 2, 96, torch.bfloat16, seed=37)
+        tgt, w, _ = _side(cfg, 2, 96, torch.bfloat16, seed=37)
+        before = dict(_build.LAUNCHES)
+        loss, d_wb = fs.shapenet_mse_grads(wb, x, tgt, cfg, variant, w)
+        assert _build.LAUNCHES["shapenet_mse_grads"] == before["shapenet_mse_grads"] + 1
+        assert (_build.LAUNCHES["shapenet_mse_grads_tc"]
+                == before["shapenet_mse_grads_tc"] + int(kernel == "tc"))
+        l_ref, g_ref = fs.shapenet_mse_grads_reference(wb, x, tgt, cfg, variant, w)
+        assert float(loss) == pytest.approx(float(l_ref), rel=1e-3)
+        err, scale = _max_diff(d_wb, g_ref)
+        assert err <= 2.0 ** -6 * scale, (err, scale)
+
+
 def test_bf16_chains_the_tensor_core_kernels_refuse_train_on_the_cuda_core_kernels(card):
     """Width 384 at si = 3 with two hidden layers: the tensor-core K8's two
     working planes of ten streams exceed shared memory, so bf16 K8 takes the
@@ -758,6 +939,7 @@ def test_model_hessian_step_on_the_card_launches_k8(card):
     assert bool(torch.isfinite(loss)) and trainer.history["sobolev_path"] == "fused"
     out = trainer.evaluate_sobolev(state, t, x, u, jt, group_batch=2, target_hess=ht)
     assert _build.LAUNCHES["shapenet_fwd_hess"] == after["shapenet_fwd_hess"] + 2
+    assert _build.LAUNCHES["shapenet_fwd_hess_tc"] == after["shapenet_fwd_hess_tc"] + 2
     assert all(np.isfinite(v) for v in out.values()) and "hessian_mse" in out
     f32 = GroupedTrainer(nif_tpu_torch.NIFMultiScale(cfg_s, cfg_p, "float32", seed=0),
                          lambda p: torch.optim.Adam(p, lr=1e-4), w_jac=0.1, w_hess=0.01)
@@ -796,6 +978,40 @@ def test_hessian_evaluation_routing_logs_eager_fallbacks(card, caplog):
     _, _, hess = output_jacobian_hessian_grouped(siren, t, x)
     assert _build.LAUNCHES["shapenet_fwd_hess"] == before["shapenet_fwd_hess"] + 1
     assert hess.shape == (2, 64, 1, 2, 2) and bool(torch.isfinite(hess).all())
+
+
+def test_hessian_evaluation_is_gated_on_the_compute_dtypes_kernel(card, caplog):
+    """A model's ``(y, jac, hess)`` is gated on the limits of the K7 its
+    compute dtype runs. At width 1032 (si = 1) the tensor-core K7 takes
+    bfloat16, while the CUDA-core K7, which float32 runs, refuses the width
+    (a thread keeps its columns of a layer in registers): the float32 model
+    goes eager with one WARNING and launches nothing, the bfloat16 model
+    launches the tensor-core K7."""
+    import logging
+
+    from nif_tpu_torch.ops.derivatives import output_jacobian_hessian_grouped
+
+    wide = ShapeNetConfig(1, 1, 1032, 1, "sine")
+    assert fh.fwd_hess_unsupported_reason(wide, "siren", 64, 1, card, torch.bfloat16) is None
+    assert "wider" in fh.fwd_hess_unsupported_reason(wide, "siren", 64, 1, card, torch.float32)
+    cfg_s = {"input_dim": 1, "output_dim": 1, "units": 1032, "nlayers": 1, "activation": "sine"}
+    cfg_p = {"input_dim": 2, "latent_dim": 3, "units": 16, "nlayers": 1, "activation": "swish"}
+    rng = np.random.default_rng(25)
+    t = torch.from_numpy(rng.standard_normal((2, 2)).astype(np.float32)).cuda()
+    x = torch.from_numpy(rng.uniform(-1, 1, (2, 64, 1)).astype(np.float32)).cuda()
+    f32 = nif_tpu_torch.NIFMultiScale(cfg_s, cfg_p, "float32", seed=0)
+    before = dict(_build.LAUNCHES)
+    with caplog.at_level(logging.WARNING, logger="nif_tpu_torch"):
+        _, _, hess = output_jacobian_hessian_grouped(f32, t, x)
+    assert _build.LAUNCHES == before
+    msgs = [r.getMessage() for r in caplog.records if "K7 path FALLING BACK" in r.getMessage()]
+    assert len(msgs) == 1 and "wider" in msgs[0]
+    assert hess.shape == (2, 64, 1, 1, 1) and bool(torch.isfinite(hess).all())
+    bf16 = nif_tpu_torch.NIFMultiScale(cfg_s, cfg_p, "mixed_bfloat16", seed=0)
+    _, _, hess = output_jacobian_hessian_grouped(bf16, t, x)
+    assert _build.LAUNCHES["shapenet_fwd_hess_tc"] == before["shapenet_fwd_hess_tc"] + 1
+    assert _build.LAUNCHES["shapenet_fwd_hess"] == before["shapenet_fwd_hess"] + 1
+    assert hess.shape == (2, 64, 1, 1, 1) and bool(torch.isfinite(hess).all())
 
 
 # K4's trunks: the SIREN configs above with a bottleneck of so * K outputs,

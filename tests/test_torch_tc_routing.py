@@ -1,0 +1,176 @@
+"""The routing of the port's kernel wrappers between their variants, and
+their ctypes bindings, on the CPU (no nvcc needed).
+
+K2 and K7, like K4, K6 and K8, have a tensor-core variant for bfloat16 and a
+CUDA-core one for float32: without a chain the choice reads the dtype alone,
+and a float32 input never asks a library. On CPU tensors the entries run the
+plain versions and launch nothing, and the CUDA wrappers refuse CPU tensors
+before they load a library. Each wrapper's ``argtypes`` must match the C
+signature of the entry in its source (a ctypes mismatch passes a pointer as
+a 32-bit int and would show only on the card)."""
+import ctypes
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from nif_tpu_torch.config import ShapeNetConfig, shapenet_param_count
+from nif_tpu_torch.ops import _build
+from nif_tpu_torch.ops import fused_derivatives as fd
+from nif_tpu_torch.ops import fused_hessian as fh
+from nif_tpu_torch.ops import fused_linear as fl
+from nif_tpu_torch.ops import fused_shapenet as fs
+
+torch.set_num_threads(1)
+
+SIREN = (3, 1, 16, 2, "sine", False, 30.0)
+RESBLOCK = (2, 2, 16, 1, "sine", True, 10.0)
+
+
+def _data(cfg, G, P, dtype, seed):
+    rng = np.random.default_rng(seed)
+    wb = rng.standard_normal((G, shapenet_param_count(cfg, 0))) * (0.3 / cfg.omega_0)
+    x = rng.standard_normal((G, P, cfg.input_dim))
+    tgt = rng.standard_normal((G, P, cfg.output_dim))
+    w = rng.uniform(0.5, 1.5, (G, P))
+    to = lambda a, dt=dtype: torch.from_numpy(a.astype(np.float32)).to(dt)  # noqa: E731
+    return to(wb), to(x), to(tgt, torch.float32), to(w, torch.float32)
+
+
+@pytest.mark.parametrize("pick", [fs.k2_variant, fh.k7_variant], ids=["k2", "k7"])
+@pytest.mark.parametrize("dtype,variant", [(torch.bfloat16, "tc"), (torch.float32, "simt"),
+                                           (torch.float64, "simt")], ids=["bf16", "f32", "f64"])
+def test_variant_by_dtype_asks_no_library(pick, dtype, variant, monkeypatch):
+    """bfloat16 prefers the tensor-core kernel; float32 (and any other dtype,
+    which the wrappers refuse) runs the CUDA-core one, and with a chain given
+    it still asks no kernel library."""
+    def no_library(name):
+        raise AssertionError(f"asked the {name} library")
+
+    monkeypatch.setattr(_build, "load_library", no_library)
+    assert pick(dtype) == variant
+    if dtype != torch.bfloat16:
+        assert pick(dtype, ShapeNetConfig(*SIREN), "siren") == "simt"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("args", [SIREN, RESBLOCK], ids=["siren", "resblock"])
+def test_cpu_entries_run_the_plain_versions(args, dtype):
+    """On CPU tensors ``shapenet_mse_grads`` and ``shapenet_fwd_hess`` return
+    exactly what their plain versions return, and launch no kernel."""
+    cfg = ShapeNetConfig(*args)
+    wb, x, tgt, w = _data(cfg, 2, 24, dtype, seed=1)
+    before = dict(_build.LAUNCHES)
+    loss, d_wb = fs.shapenet_mse_grads(wb, x, tgt, cfg, "siren", w)
+    l_ref, g_ref = fs.shapenet_mse_grads_reference(wb, x, tgt, cfg, "siren", w)
+    assert torch.equal(loss, l_ref) and torch.equal(d_wb, g_ref) and d_wb.dtype == dtype
+    outs = fh.shapenet_fwd_hess(wb, x, cfg, "siren")
+    for mine, ref in zip(outs, fh.shapenet_fwd_hess_reference(wb, x, cfg, "siren")):
+        assert torch.equal(mine, ref) and mine.dtype == dtype
+    assert _build.LAUNCHES == before
+
+
+@pytest.mark.parametrize("launch", [
+    lambda wb, x, tgt, cfg: fs.shapenet_mse_grads_cuda(wb, x, tgt, cfg, "siren"),
+    lambda wb, x, tgt, cfg: fs._shapenet_mse_grads_simt(wb, x, tgt, cfg, "siren"),
+    lambda wb, x, tgt, cfg: fh.shapenet_fwd_hess_cuda(wb, x, cfg, "siren"),
+    lambda wb, x, tgt, cfg: fh._shapenet_fwd_hess_simt(wb, x, cfg, "siren"),
+], ids=["k2", "k2-simt", "k7", "k7-simt"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_wrappers_refuse_cpu_tensors_before_any_library(launch, dtype, monkeypatch):
+    def no_library(name):
+        raise AssertionError(f"asked the {name} library")
+
+    monkeypatch.setattr(_build, "load_library", no_library)
+    cfg = ShapeNetConfig(*SIREN)
+    wb, x, tgt, _ = _data(cfg, 2, 16, dtype, seed=2)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        launch(wb, x, tgt, cfg)
+
+
+class _FakeEntry:
+    argtypes = None
+    restype = None
+
+
+class _FakeLibrary:
+    """Stands in for a loaded library: any entry the wrapper names exists
+    and records the argument types the wrapper gives it."""
+
+    def __getattr__(self, name):
+        entry = _FakeEntry()
+        setattr(self, name, entry)
+        return entry
+
+
+_C_TYPES = {"int": ctypes.c_int, "long long": ctypes.c_longlong, "float": ctypes.c_float}
+
+
+def _c_signatures(source: str):
+    """``{entry: [ctypes type per parameter]}`` of the ``int nif_...``
+    entries of a source: pointers as ``c_void_p``."""
+    sigs = {}
+    for name, params in re.findall(r"^int (nif_\w+)\(([^)]*)\)", source, re.MULTILINE):
+        types = []
+        for param in params.split(","):
+            decl = param.strip().rsplit(" ", 1)[0].replace("const ", "").strip()
+            types.append(ctypes.c_void_p if decl.endswith("*") else _C_TYPES[decl])
+        sigs[name] = types
+    return sigs
+
+
+LOADERS = {
+    "shapenet_fwd": fs._library,
+    "shapenet_bwd": fs._bwd_library,
+    "shapenet_bwd_tc": fs._bwd_tc_library,
+    "shapenet_jac": lambda: fd._library("simt"),
+    "shapenet_jac_tc": lambda: fd._library("tc"),
+    "shapenet_hess": lambda: fh._library("simt"),
+    "shapenet_hess_tc": lambda: fh._library("tc"),
+    "shapenet_linear": lambda: fl._library("simt"),
+    "shapenet_linear_tc": lambda: fl._library("tc"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(LOADERS))
+def test_bindings_match_the_c_signatures(name, monkeypatch):
+    fake = _FakeLibrary()
+    monkeypatch.setattr(_build, "load_library", lambda lib: fake if lib == name else None)
+    LOADERS[name]()
+    sigs = _c_signatures((_build.CSRC / f"{name}.cu").read_text())
+    bound = {k: v for k, v in vars(fake).items() if k != "nif_cuda_error_string"}
+    assert bound, "the wrapper binds no entry"
+    for entry, fn in bound.items():
+        assert entry in sigs, f"{entry} is not defined in {name}.cu"
+        assert list(fn.argtypes) == sigs[entry], entry
+        assert fn.restype is ctypes.c_int, entry
+
+
+@pytest.mark.parametrize("policy,dtype", [("float32", torch.float32),
+                                          ("mixed_bfloat16", torch.bfloat16)],
+                         ids=["f32", "bf16"])
+def test_hessian_evaluation_gates_k7_on_the_compute_dtype(policy, dtype, monkeypatch):
+    """``output_jacobian_hessian_grouped`` asks K7's gate for the kernel of
+    the model's compute dtype (a float32 model is held to the CUDA-core
+    K7's limits, a bfloat16 one to the tensor-core K7's); a gate that
+    refuses sends the evaluation to the eager path."""
+    import nif_tpu_torch
+    from nif_tpu_torch.ops import derivatives
+
+    seen = []
+
+    def gate(cfg, variant, P, si, device=None, dtype=torch.bfloat16):
+        seen.append(dtype)
+        return "refused"
+
+    monkeypatch.setattr(derivatives, "fwd_hess_unsupported_reason", gate)
+    cfg_s = {"input_dim": 2, "output_dim": 1, "units": 16, "nlayers": 1, "activation": "sine"}
+    cfg_p = {"input_dim": 2, "latent_dim": 3, "units": 8, "nlayers": 1, "activation": "swish"}
+    model = nif_tpu_torch.NIFMultiScale(cfg_s, cfg_p, policy, device="cpu", seed=0)
+    rng = np.random.default_rng(26)
+    t = torch.from_numpy(rng.standard_normal((2, 2)).astype(np.float32))
+    x = torch.from_numpy(rng.uniform(-1, 1, (2, 8, 2)).astype(np.float32))
+    _, _, hess = derivatives.output_jacobian_hessian_grouped(model, t, x)
+    assert seen == [dtype]
+    assert hess.shape == (2, 8, 1, 2, 2) and bool(torch.isfinite(hess).all())
