@@ -10,7 +10,15 @@ Phases, each of which raises on failure:
    print each build's registers and spills.
 2. Hold K1 (the grouped ShapeNet forward) against its plain PyTorch version
    over the six chain configs of the JAX package's kernel tests at G=3,
-   P=256, and the flagship chain at G=32, P=32768, in float32 and bfloat16.
+   P=256, and the flagship chain at G=32, P=32768, in float32 and bfloat16:
+   bfloat16 sine chains through the tensor-core kernel
+   (``shapenet_fwd_tc.cu``), float32 and vanilla chains through the
+   CUDA-core one (``shapenet_fwd.cu``), each checked by its launch counter;
+   the tensor-core kernel also on the padded, narrow and wide shapes of K2's
+   (``K2_TC_EXTRA``, P = 200) and on the NIF-linear trunk's 128 output
+   columns (through the kernel ``k1_variant`` picks); at the flagship shape
+   in bfloat16 the CUDA-core kernel on the same inputs too; two bfloat16
+   flagship runs must give bitwise-equal results.
 2b. Hold K2 (forward + weighted MSE + backward) against plain K2 over the
    same configs, with and without point weights: bfloat16 sine chains
    through the tensor-core kernel (``shapenet_bwd_tc.cu``), float32 and
@@ -27,7 +35,8 @@ Phases, each of which raises on failure:
    weights from a seed) through ``serving.predict_grouped``: a full request, a
    ragged one (point padding) and a 70-snapshot one (chunking). Check shapes,
    finiteness, agreement with the plain K1 and the eager path, and that the
-   K1 launch count rose by the number of chunks served.
+   tensor-core K1 launched once per chunk served; then one full request of
+   the same model under the float32 policy (one launch of the CUDA-core K1).
 3b. Train the flagship: ``GroupedTrainer.step`` with Adam at G=32, P=32768
    (one launch of the tensor-core K2 per step, the first step's loss and
    gradients against plain K2 and autograd through the ParameterNet), one
@@ -35,8 +44,10 @@ Phases, each of which raises on failure:
    CUDA-core K2, none of the tensor-core one), then a short ``fit`` on a
    smooth traveling wave (60 tensor-core launches) whose last epoch loss
    must be below its first.
-4. Time K1, its plain version and the end-to-end ``apply_grouped`` with CUDA
-   events, and compute K1's bound on this card.
+4. Time the bfloat16 tensor-core K1, the CUDA-core K1 on the same bfloat16
+   inputs and in float32, their plain versions and the end-to-end
+   ``apply_grouped`` and ``predict_grouped`` with CUDA events, and compute
+   K1's bounds on this card.
 4b. Time the flagship train step and its stages, the bfloat16 tensor-core
    K2, the CUDA-core K2 on the same bfloat16 inputs and in float32, K3, with
    their plain versions, and compute their bounds on this card.
@@ -45,7 +56,14 @@ Phases of the Sobolev slice:
 
 2d. Hold K5 (the fused Jacobian) against plain K5 over the same configs and
    one more with so >= si (the forward-tangent body), in float32 and
-   bfloat16, and at the flagship shape in bfloat16 (the reverse body).
+   bfloat16: the reverse body (so < si) of bfloat16 sine chains through the
+   tensor-core kernel (``shapenet_fwd_tc.cu``), the rest through the
+   CUDA-core one (``shapenet_jac.cu``), each checked by its launch counter;
+   the tensor-core reverse body also on ``JAC_REV_TC`` (si = 3 with so = 2
+   on a resblock chain, si = 4 at width 16, widths 40 and 192; P = 200); at
+   the flagship shape in bfloat16 the tensor-core kernel and the CUDA-core
+   one on the same inputs, and the CUDA-core one in float32 at G=8; two
+   bfloat16 flagship runs must give bitwise-equal results.
 2e. Hold K6 (the fused Sobolev train pass) against plain K6 over the same
    configs, weighted or not, with value and Jacobian masks on the
    multi-output configs: bfloat16 sine chains through the tensor-core
@@ -63,10 +81,11 @@ Phases of the Sobolev slice:
    float32 policy (one of the CUDA-core K6, none of the tensor-core one), a
    short Sobolev ``fit`` on the traveling wave with its analytic Jacobian
    (60 tensor-core launches) that must lower both terms, and
-   ``evaluate_sobolev`` (one K5 launch per chunk).
-4c. Time the flagship Sobolev step, K5, the bfloat16 tensor-core K6, the
-   CUDA-core K6 on the same bfloat16 inputs and in float32, with their plain
-   versions, and compute their bounds on this card.
+   ``evaluate_sobolev`` (one tensor-core K5 launch per chunk; under the
+   float32 policy one CUDA-core K5 launch per chunk).
+4c. Time the flagship Sobolev step, the bfloat16 tensor-core K5 and K6, the
+   CUDA-core K5 and K6 on the same bfloat16 inputs and in float32, with
+   their plain versions, and compute their bounds on this card.
 
 Phases of the Hessian slice:
 
@@ -122,7 +141,9 @@ Phases of the NIF-linear slice:
    must lower the loss; one Sobolev step (one launch of the tensor-core K6
    on the effective chain, its terms and grads against plain K6 + autograd)
    and an
-   ``evaluate_sobolev`` that launches K5 once per chunk.
+   ``evaluate_sobolev`` that launches K5 once per chunk (the kernels
+   ``k1_variant`` and ``k5_variant`` pick for the trunk and the effective
+   chain).
 4e. Time the NIF-linear step, the bfloat16 tensor-core K4, the float32
    CUDA-core K4, plain K4 and the eager step (autograd over the eager trunk +
    Adam), and compute both K4 bounds on this card.
@@ -205,6 +226,16 @@ HESS_TC_EXTRA = [
 # exceed shared memory at width 512: width 384 (three column blocks a warp)
 # takes that case's place.
 K2_TC_EXTRA = HESS_TC_EXTRA[:-1] + [(1, 1, 384, 1, "sine", False, 30.0)]
+# Reverse-body shapes (so < si) of the tensor-core K5: si = 3 with so = 2 on
+# a resblock chain, si = 4 with so = 1 at width 16, a width that is no
+# multiple of 16 (40), and width 192 (two column blocks a warp, W read from
+# global memory); each run at P = 200 (a ragged last tile).
+JAC_REV_TC = [
+    (3, 2, 64, 1, "sine", True, 10.0),
+    (4, 1, 16, 2, "sine", False, 30.0),
+    (3, 1, 40, 2, "sine", False, 30.0),
+    (3, 1, 192, 1, "sine", False, 30.0),
+]
 # K4's trunks: the SIREN configs of CASES with a bottleneck of so * K outputs,
 # so in {1, 2, 3}, resblock and plain, so * K within the kernel's width:
 # (si, so, K, units, nlayers, resblock, omega_0).
@@ -252,20 +283,32 @@ def max_diff(torch, out, ref, what: str):
     return float((o - r).abs().max()), float(r.abs().max())
 
 
-def check_k1(torch, cfg, variant, G, P, dtype, seed) -> float:
+def check_k1(torch, cfg, variant, G, P, dtype, seed, simt=False) -> float:
     """Kernel vs plain version on one input; returns max |kernel - plain|.
+    The launch must take the kernel ``k1_variant`` picks (``simt``: the
+    CUDA-core kernel on the same inputs, through its private launcher).
 
     Tolerances: float32 rtol 2e-4, atol 1e-5 (the JAX package's kernel-test
     bound; both sides sum in f32, in different orders). bfloat16 max|d| <=
     1e-2 * max|plain| (about 2.5 bf16 ulps): a last-bit difference in an f32
     sum can flip the bf16 rounding of an activation before the next matmul."""
+    from nif_tpu_torch.ops import _build
     from nif_tpu_torch.ops.fused_shapenet import (
-        shapenet_fwd_cuda, shapenet_grouped_fused_reference)
+        _shapenet_fwd_simt, k1_variant, kernel_geometry, shapenet_fwd_cuda,
+        shapenet_grouped_fused_reference)
 
     wb, x = chain_data(torch, cfg, G, P, dtype, seed)
-    out = shapenet_fwd_cuda(wb, x, cfg, variant)
+    kernel = "simt" if simt else k1_variant(dtype, cfg, variant)
+    before = dict(_build.LAUNCHES)
+    out = (_shapenet_fwd_simt if simt else shapenet_fwd_cuda)(wb, x, cfg, variant)
     ref = shapenet_grouped_fused_reference(wb, x, cfg, variant)
     torch.cuda.synchronize()
+    what = f"K1 {describe(cfg, variant, G, P, dtype)}"
+    if (_build.LAUNCHES["shapenet_fwd"] != before["shapenet_fwd"] + 1
+            or _build.LAUNCHES["shapenet_fwd_tc"]
+            != before["shapenet_fwd_tc"] + int(kernel == "tc")):
+        raise AssertionError(f"{what}: launched {_build.LAUNCHES} after {before}, not one "
+                             f"{kernel} K1")
     if out.shape != ref.shape or out.dtype != ref.dtype:
         raise AssertionError(f"K1 {variant} {cfg}: {out.shape}/{out.dtype} vs {ref.shape}/{ref.dtype}")
     err, scale = max_diff(torch, out, ref, f"K1 {variant} {cfg} {dtype}")
@@ -273,7 +316,8 @@ def check_k1(torch, cfg, variant, G, P, dtype, seed) -> float:
         torch.testing.assert_close(out.float(), ref.float(), rtol=2e-4, atol=1e-5)
     elif err > 1e-2 * scale:
         raise AssertionError(f"K1 {variant} {cfg} bf16: max|d| {err} > 1e-2 * {scale}")
-    log(f"K1 {describe(cfg, variant, G, P, dtype)} max|d|={err:.3e} max|plain|={scale:.3e}")
+    log(f"{what} max|d|={err:.3e} max|plain|={scale:.3e} ({err / scale:.2e} of it); {kernel} "
+        f"kernel, {kernel_geometry(cfg, variant, kernel=kernel)[0]}-point tiles")
     return err
 
 
@@ -347,33 +391,46 @@ def check_k3(torch, cfg, variant, G, P, dtype, seed) -> float:
     return err
 
 
-def check_k5(torch, cfg, variant, G, P, dtype, seed) -> float:
-    """K5 vs plain K5 on y and jac; returns max |jac - plain jac|.
+def check_k5(torch, cfg, variant, G, P, dtype, seed, simt=False) -> float:
+    """K5 vs plain K5 on y and jac; returns the larger max|d| of the two.
+    The launch must take the kernel ``k5_variant`` picks (``simt``: the
+    CUDA-core kernel on the same inputs, through its private launcher).
 
     float32: max|d| <= 2e-4 max|plain| + 1e-5 (K1's bound; both sum in f32
     in other orders); bfloat16: BF16_REL of max|plain| (the sweeps round
     each dz, the tangents each stacked input, to bf16)."""
+    from nif_tpu_torch.ops import _build
     from nif_tpu_torch.ops.fused_derivatives import (
-        derivative_geometry, shapenet_fwd_jac_cuda, shapenet_fwd_jac_reference)
+        _geometry, _shapenet_fwd_jac_simt, k5_variant, shapenet_fwd_jac_cuda,
+        shapenet_fwd_jac_reference)
 
     wb, x = chain_data(torch, cfg, G, P, dtype, seed)
-    y, jac = shapenet_fwd_jac_cuda(wb, x, cfg, variant)
+    kernel = "simt" if simt else k5_variant(dtype, cfg, variant)
+    before = dict(_build.LAUNCHES)
+    y, jac = (_shapenet_fwd_jac_simt if simt else shapenet_fwd_jac_cuda)(wb, x, cfg, variant)
     y_ref, jac_ref = shapenet_fwd_jac_reference(wb, x, cfg, variant)
     torch.cuda.synchronize()
     mode = "reverse" if cfg.output_dim < cfg.input_dim else "tangent"
     what = f"K5 ({mode}) {describe(cfg, variant, G, P, dtype)}"
+    if (_build.LAUNCHES["shapenet_fwd_jac"] != before["shapenet_fwd_jac"] + 1
+            or _build.LAUNCHES["shapenet_fwd_jac_tc"]
+            != before["shapenet_fwd_jac_tc"] + int(kernel == "tc")):
+        raise AssertionError(f"{what}: launched {_build.LAUNCHES} after {before}, not one "
+                             f"{kernel} K5")
     if y.dtype != dtype or jac.shape != (G, P, cfg.output_dim, cfg.input_dim):
         raise AssertionError(f"{what}: y {y.dtype}, jac {jac.shape}/{jac.dtype}")
-    worst = 0.0
+    worst, rels = 0.0, []
     for name, out, ref in (("y", y, y_ref), ("jac", jac, jac_ref)):
         err, scale = max_diff(torch, out, ref, f"{what} {name}")
         bound = 2e-4 * scale + 1e-5 if dtype == torch.float32 else BF16_REL * scale
         if err > bound:
             raise AssertionError(f"{what}: {name} max|d| {err} > {bound}")
-        worst = err
-    geo = derivative_geometry(mode, cfg, variant, G, P, dtype)
-    log(f"{what} y/jac agree; jac max|d|={worst:.3e} ({worst / scale:.2e} of max|plain|); "
-        f"{geo['tile']}-point tiles, residuals in {geo['residuals']} memory")
+        worst = max(worst, err)
+        rels.append(f"{name} {err / max(scale, 1e-30):.2e}")
+    geo = _geometry(mode, cfg, variant, G, P, dtype, kernel=kernel)
+    log(f"{what} y/jac agree; max|d| of max|plain|: {', '.join(rels)}; {kernel} kernel, "
+        f"{geo['tile']}-point tiles, residuals in {geo['residuals']} memory, weights from "
+        f"{geo['weights']} memory, {geo['splits']} splits")
     return worst
 
 
@@ -803,9 +860,9 @@ def derivative_bounds(cfg, G, P, peak_mma, peak_f32, peak_bw, sobolev: bool, f32
     (si n + nm n^2 + n so))
     and so dx sweeps (2 G P (nm n^2 + n si) each), sine-with-derivative
     evaluations over the f32 peak, bytes of wb and x in, y and jac out.
-    ``f32``: the float32 K6, whose products must not use the tensor cores
-    (no TF32), so products and activations together over the f32 peak, and
-    4-byte inputs and outputs."""
+    ``f32``: the float32 K5 or K6, whose products must not use the tensor
+    cores (no TF32), so products and activations together over the f32
+    peak, and 4-byte inputs and outputs."""
     n, si, so = cfg.units, cfg.input_dim, cfg.output_dim
     nm = 2 * cfg.nlayers if cfg.use_resblock else cfg.nlayers
     po = nm * n * n + (si + so + 1 + nm) * n + so
@@ -817,7 +874,7 @@ def derivative_bounds(cfg, G, P, peak_mma, peak_f32, peak_bw, sobolev: bool, f32
     else:
         flops = 2 * G * P * (si * n + nm * n * n + n * so) + so * 2 * G * P * (nm * n * n + n * si)
         act = elems * SINE_GRAD_FLOPS
-        nbytes = 2 * (G * po + G * P * (si + so + so * si))
+        nbytes = (4 if f32 else 2) * (G * po + G * P * (si + so + so * si))
     t_ops = ((flops + act) / peak_f32 if f32 else max(flops / peak_mma, act / peak_f32)) * 1e3
     t_bytes = nbytes / peak_bw * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops / 1e9
@@ -891,17 +948,18 @@ def main() -> int:
     from nif_tpu_torch.config import ShapeNetConfig
     from nif_tpu_torch.ops import _build
     from nif_tpu_torch.ops.fused_derivatives import (
-        _shapenet_sobolev_grads_simt, shapenet_fwd_jac_cuda, shapenet_fwd_jac_reference,
-        shapenet_sobolev_grads_cuda, shapenet_sobolev_grads_reference)
+        _shapenet_fwd_jac_simt, _shapenet_sobolev_grads_simt, k5_variant, shapenet_fwd_jac_cuda,
+        shapenet_fwd_jac_reference, shapenet_sobolev_grads_cuda,
+        shapenet_sobolev_grads_reference)
     from nif_tpu_torch.ops.fused_hessian import (
         _shapenet_fwd_hess_simt, _shapenet_hessian_grads_simt, shapenet_fwd_hess_cuda,
         shapenet_hessian_grads_cuda)
     from nif_tpu_torch.ops.fused_linear import (
         niflinear_mse_grads_cuda, niflinear_mse_grads_reference)
     from nif_tpu_torch.ops.fused_shapenet import (
-        _shapenet_mse_grads_simt, shapenet_bwd_cuda, shapenet_fused_bwd_reference,
-        shapenet_fwd_cuda, shapenet_grouped_fused_reference, shapenet_mse_grads_cuda,
-        shapenet_mse_grads_reference)
+        _shapenet_fwd_simt, _shapenet_mse_grads_simt, k1_variant, shapenet_bwd_cuda,
+        shapenet_fused_bwd_reference, shapenet_fwd_cuda, shapenet_grouped_fused_reference,
+        shapenet_mse_grads_cuda, shapenet_mse_grads_reference)
     from nif_tpu_torch.ops.shapenet import shapenet_grouped
     from nif_tpu_torch.serving import predict_grouped, predict_shared_mesh
     from nif_tpu_torch.training import GroupedTrainer
@@ -923,18 +981,33 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {name}")
     log(f"card: {smi}")
-    build_all(["shapenet_fwd", "shapenet_bwd", "shapenet_bwd_tc", "shapenet_jac",
-               "shapenet_jac_tc", "shapenet_hess", "shapenet_hess_tc", "shapenet_linear",
-               "shapenet_linear_tc"])
+    build_all(["shapenet_fwd", "shapenet_fwd_tc", "shapenet_bwd", "shapenet_bwd_tc",
+               "shapenet_jac", "shapenet_jac_tc", "shapenet_hess", "shapenet_hess_tc",
+               "shapenet_linear", "shapenet_linear_tc"])
     peak_mma, peak_f32, peak_bw = PEAKS["H100 PCIe" if "PCIe" in name else "H100 SXM"]
     flag_cfg = ShapeNetConfig.from_dict(FLAGSHIP_SHAPE)
 
-    # ---- phase 2: K1 against its plain version
+    # ---- phase 2: K1 against its plain version, and its determinism
     for i, (variant, args) in enumerate(CASES):
         for dtype in (torch.float32, torch.bfloat16):
             check_k1(torch, ShapeNetConfig(*args), variant, 3, 256, dtype, seed=i)
-    check_k1(torch, flag_cfg, "siren", 32, 32768, torch.float32, seed=10)
+    for i, args in enumerate(K2_TC_EXTRA):
+        check_k1(torch, ShapeNetConfig(*args), "siren", 3, 200, torch.bfloat16, seed=160 + i)
+    # NIF-linear's trunk: so * K = 128 output columns of the last product
+    trunk_cfg = ShapeNetConfig(3, 128, 128, 2, "sine", False, 30.0)
+    check_k1(torch, trunk_cfg, "siren", 4, 4096, torch.bfloat16, seed=170)
+    k1f_err = check_k1(torch, flag_cfg, "siren", 32, 32768, torch.float32, seed=10)
     k1_err = check_k1(torch, flag_cfg, "siren", 32, 32768, torch.bfloat16, seed=11)
+    check_k1(torch, flag_cfg, "siren", 32, 32768, torch.bfloat16, seed=11, simt=True)
+    wb, x = chain_data(torch, flag_cfg, 32, 32768, torch.bfloat16, seed=15)
+    before = _build.LAUNCHES["shapenet_fwd_tc"]
+    runs = [shapenet_fwd_cuda(wb, x, flag_cfg, "siren") for _ in range(2)]
+    if _build.LAUNCHES["shapenet_fwd_tc"] != before + 2:
+        raise AssertionError("the flagship bf16 K1 runs did not take the tensor-core kernel")
+    if not torch.equal(runs[0], runs[1]):
+        raise AssertionError("K1 is not deterministic: two runs on one input differ")
+    log("K1 flagship bf16 (G=32, P=32768, tensor cores): two runs give bitwise-equal outputs")
+    del wb, x, runs
 
     # ---- phase 2b: K2 against its plain version, and its determinism
     for i, (variant, args) in enumerate(CASES):
@@ -981,9 +1054,10 @@ def main() -> int:
     torch.cuda.synchronize()
     bwd_path = dict(_build.LAUNCHES)
     eager_grads = torch.autograd.grad(model.apply_grouped(t_g, x_g, fused=False), params, g_g)
-    if bwd_path["shapenet_bwd"] != 1 or bwd_path["shapenet_fwd"] != 1:
+    if (bwd_path["shapenet_bwd"] != 1 or bwd_path["shapenet_fwd"] != 1
+            or bwd_path["shapenet_fwd_tc"] != 1):
         raise AssertionError(f"apply_grouped under autograd launched {bwd_path}, "
-                             f"not one K1 and one K3")
+                             f"not one tensor-core K1 and one K3")
     worst = 0.0
     for (path, _), a, b in zip(model.param_items(), fused_grads, eager_grads):
         if not bool(torch.isfinite(a).all()):
@@ -996,11 +1070,27 @@ def main() -> int:
     if worst > 0.15:
         raise AssertionError(f"fused and eager ParameterNet grads differ by rel-L2 {worst}")
 
-    # ---- phase 2d: K5 against its plain version (both bodies)
+    # ---- phase 2d: K5 against its plain version (both bodies), and its determinism
     for i, (variant, args) in enumerate(CASES + JAC_EXTRA):
         for dtype in (torch.float32, torch.bfloat16):
             check_k5(torch, ShapeNetConfig(*args), variant, 3, 256, dtype, seed=20 + i)
+    for i, args in enumerate(JAC_REV_TC):
+        cfg = ShapeNetConfig(*args)
+        if k5_variant(torch.bfloat16, cfg, "siren") != "tc":
+            raise AssertionError(f"the tensor-core K5 does not take {cfg}")
+        check_k5(torch, cfg, "siren", 3, 200, torch.bfloat16, seed=180 + i)
     k5_err = check_k5(torch, flag_cfg, "siren", 32, 32768, torch.bfloat16, seed=30)
+    check_k5(torch, flag_cfg, "siren", 32, 32768, torch.bfloat16, seed=30, simt=True)
+    k5f_err = check_k5(torch, flag_cfg, "siren", 8, 32768, torch.float32, seed=31)
+    wb, x = chain_data(torch, flag_cfg, 32, 32768, torch.bfloat16, seed=32)
+    before = _build.LAUNCHES["shapenet_fwd_jac_tc"]
+    runs = [shapenet_fwd_jac_cuda(wb, x, flag_cfg, "siren") for _ in range(2)]
+    if _build.LAUNCHES["shapenet_fwd_jac_tc"] != before + 2:
+        raise AssertionError("the flagship bf16 K5 runs did not take the tensor-core kernel")
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        raise AssertionError("K5 is not deterministic: two runs on one input differ")
+    log("K5 flagship bf16 (G=32, P=32768, tensor cores): two runs give bitwise-equal y and jac")
+    del wb, x, runs
 
     # ---- phase 2e: K6 against its plain version, and its determinism
     for i, (variant, args) in enumerate(CASES):
@@ -1111,8 +1201,9 @@ def main() -> int:
     serve_launches = dict(_build.LAUNCHES)
     log(f"served {len(requests)} requests ({sum(G * P for G, P in requests)} points) "
         f"in {serve_s:.3f} s; launches {serve_launches}, chunks {chunks}")
-    if serve_launches["shapenet_fwd"] != chunks:
-        raise AssertionError(f"K1 launched {serve_launches['shapenet_fwd']} times for {chunks} chunks")
+    if serve_launches["shapenet_fwd"] != chunks or serve_launches["shapenet_fwd_tc"] != chunks:
+        raise AssertionError(f"K1 launched {serve_launches} for {chunks} chunks, not one "
+                             f"tensor-core K1 each")
     with torch.inference_mode():
         for (G, P), (t, x), out in zip(requests, inputs, outs):
             if out.shape != (G, P, 1) or out.dtype != np.float32:
@@ -1138,6 +1229,28 @@ def main() -> int:
             # sine: 2-5% rel-L2 from the kernel at this width (H100 and CPU runs).
             if r_eager > 0.15 or d_eager > 0.3 * float(eager.abs().max()):
                 raise AssertionError(f"request G={G} P={P}: served output departs from eager")
+    # the float32 policy: the CUDA-core K1, full f32 products
+    f32_model = nif_tpu_torch.NIFMultiScale(FLAGSHIP_SHAPE, FLAGSHIP_PNET, "float32",
+                                            device="cuda", seed=0)
+    _build.reset_launches()
+    f32_out = predict_grouped(f32_model, *inputs[0])
+    torch.cuda.synchronize()
+    f32_serve_launches = dict(_build.LAUNCHES)
+    with torch.inference_mode():
+        t, x = inputs[0]
+        f32_plain = shapenet_grouped_fused_reference(
+            f32_model.p_to_w(t), f32_model.policy.cast_to_compute(x, device=f32_model.device),
+            f32_model.cfg_shape_net, "siren").float().cpu().numpy()
+    d_f32 = float(np.abs(f32_out - f32_plain).max())
+    log(f"served one request (G=32, P=32768) under the float32 policy: launches "
+        f"{f32_serve_launches}; max|d| vs plain K1 {d_f32:.3e} (max|u| "
+        f"{float(np.abs(f32_plain).max()):.4f})")
+    if (f32_serve_launches["shapenet_fwd"] != 1 or f32_serve_launches["shapenet_fwd_tc"]
+            or not np.isfinite(f32_out).all() or d_f32 > 2e-4 * float(np.abs(f32_plain).max())
+            + 1e-5):
+        raise AssertionError(f"a float32 request launched {f32_serve_launches} or departs from "
+                             f"plain K1 by {d_f32}")
+    del f32_model, f32_out, f32_plain
 
     # ---- phase 3b: train the flagship
     G, P = 32, 32768
@@ -1266,13 +1379,23 @@ def main() -> int:
     if (sf32_launches["shapenet_sobolev_grads"] != 1 or sf32_launches["shapenet_sobolev_grads_tc"]
             or not np.isfinite(float(sf32_loss))):
         raise AssertionError(f"a float32 Sobolev step launched {sf32_launches}")
-    del sf32_trainer, sf32_state
     j_w = wave_jacobian(t_w, x_w)
+    eval_chunks = 4
+    _build.reset_launches()
+    sf32_eval = sf32_trainer.evaluate_sobolev(sf32_state, t_w, x_w, u_w, j_w,
+                                              group_batch=16 // eval_chunks)
+    jf32_eval_launches = dict(_build.LAUNCHES)
+    log(f"float32-policy evaluate_sobolev ({eval_chunks} chunks): {sf32_eval}; launches "
+        f"{jf32_eval_launches}")
+    if (jf32_eval_launches["shapenet_fwd_jac"] != eval_chunks
+            or jf32_eval_launches["shapenet_fwd_jac_tc"]
+            or not all(np.isfinite(v) for v in sf32_eval.values())):
+        raise AssertionError(f"a float32 Jacobian evaluation launched {jf32_eval_launches}")
+    del sf32_trainer, sf32_state
     smodel_w = nif_tpu_torch.NIFMultiScale(FLAGSHIP_SHAPE, FLAGSHIP_PNET, FLAGSHIP_POLICY,
                                            device="cuda", seed=1)
     sfitter = GroupedTrainer(smodel_w, lambda p: torch.optim.Adam(p, lr=FLAGSHIP_TRAIN_LR))
     sfstate = sfitter.init(1)
-    eval_chunks = 4
     before = sfitter.evaluate_sobolev(sfstate, t_w, x_w, u_w, j_w, group_batch=16 // eval_chunks)
     _build.reset_launches()
     sfstate = sfitter.fit(sfstate, t_w, x_w, u_w, epochs=30, group_batch=8, point_batch=4096,
@@ -1293,9 +1416,10 @@ def main() -> int:
     if not (after["value_mse"] < before["value_mse"]
             and after["jacobian_mse"] < before["jacobian_mse"]):
         raise AssertionError(f"the Sobolev fit did not lower both terms: {before} -> {after}")
-    if eval_launches["shapenet_fwd_jac"] != eval_chunks:
-        raise AssertionError(f"evaluate_sobolev launched K5 {eval_launches['shapenet_fwd_jac']} "
-                             f"times for {eval_chunks} chunks")
+    if (eval_launches["shapenet_fwd_jac"] != eval_chunks
+            or eval_launches["shapenet_fwd_jac_tc"] != eval_chunks):
+        raise AssertionError(f"evaluate_sobolev launched {eval_launches} for {eval_chunks} "
+                             f"chunks, not one tensor-core K5 each")
 
     # ---- phase 3d: Hessian-train the flagship
     htrainer, hstate, (t_h, x_h, u_h, j_h, h_h) = flagship_hessian_step(G, P)
@@ -1422,11 +1546,16 @@ def main() -> int:
         raise AssertionError(f"NIF-linear apply_grouped(fused=True): {served.shape}, or not finite")
     d_plain = float((served - plain).abs().max())
     r_eager = float(rel_l2(served, eager))
-    log(f"NIF-linear apply_grouped(fused=True) G={G} P={P}: launches {lserve_launches}; "
-        f"max|u| {float(plain.abs().max()):.4f}, max|d| vs plain K1 trunk {d_plain:.3e}, "
-        f"rel-L2 vs the eager trunk {r_eager:.4f}")
-    if lserve_launches["shapenet_fwd"] != 1 or sum(lserve_launches.values()) != 1:
-        raise AssertionError(f"apply_grouped(fused=True) launched {lserve_launches}, not one K1")
+    trunk_kernel = k1_variant(x_lc.dtype, lmodel._trunk_cfg)
+    log(f"NIF-linear apply_grouped(fused=True) G={G} P={P}: launches {lserve_launches} (the "
+        f"{trunk_kernel} K1 for the trunk's {lmodel._trunk_cfg.output_dim} columns); max|u| "
+        f"{float(plain.abs().max()):.4f}, max|d| vs plain K1 trunk {d_plain:.3e}, rel-L2 vs the "
+        f"eager trunk {r_eager:.4f}")
+    tc_k1 = int(trunk_kernel == "tc")
+    if (lserve_launches["shapenet_fwd"] != 1 or lserve_launches["shapenet_fwd_tc"] != tc_k1
+            or sum(lserve_launches.values()) != 1 + tc_k1):
+        raise AssertionError(f"apply_grouped(fused=True) launched {lserve_launches}, not one "
+                             f"{trunk_kernel} K1")
     if d_plain > 1e-2 * float(plain.abs().max()) or r_eager > 0.15:
         raise AssertionError("NIF-linear apply_grouped(fused=True) departs from plain K1 or eager")
     del served, plain, eager, phi_plain, trunk_wb
@@ -1554,21 +1683,29 @@ def main() -> int:
     lafter = lfitter.evaluate_sobolev(lfstate, t_w, x_w, u_w, j_w,
                                       group_batch=16 // eval_chunks)
     leval_launches = dict(_build.LAUNCHES)
+    eff_kernel = k5_variant(x_lc.dtype, lmodel._derivative_kernel_cfg()[0], "siren", 3)
     log(f"NIF-linear evaluate_sobolev after the fit ({eval_chunks} chunks): {lafter}; "
-        f"launches {leval_launches}")
+        f"launches {leval_launches} (the {eff_kernel} K5 on the effective chain)")
     if (leval_launches["shapenet_fwd_jac"] != eval_chunks
+            or leval_launches["shapenet_fwd_jac_tc"] != eval_chunks * int(eff_kernel == "tc")
             or not all(np.isfinite(v) for v in lafter.values())):
         raise AssertionError(f"NIF-linear evaluate_sobolev launched {leval_launches}")
 
-    # ---- phase 4: K1 times at the flagship shape (bf16, as served)
+    # ---- phase 4: K1 times at the flagship shape (bf16, as served; the
+    # CUDA-core K1 on the same inputs and in float32)
     G, P = requests[0]
     t, x = inputs[0]
     with torch.inference_mode():
         wb = model.p_to_w(t)
         xc = model.policy.cast_to_compute(x, device=model.device)
         k1_ms = cuda_ms(lambda: shapenet_fwd_cuda(wb, xc, flag_cfg, "siren"), reps=20)
+        k1_simt_ms = cuda_ms(lambda: _shapenet_fwd_simt(wb, xc, flag_cfg, "siren"), reps=10)
         plain_ms = cuda_ms(lambda: shapenet_grouped_fused_reference(
             wb, xc, flag_cfg, "siren"), reps=5, warmup=1)
+        wbf, xf = wb.float(), xc.float()
+        k1f_ms = cuda_ms(lambda: shapenet_fwd_cuda(wbf, xf, flag_cfg, "siren"), reps=10)
+        k1f_plain_ms = cuda_ms(lambda: shapenet_grouped_fused_reference(
+            wbf, xf, flag_cfg, "siren"), reps=5, warmup=1)
         t_dev, x_dev = torch.from_numpy(t).cuda(), torch.from_numpy(x).cuda()
         e2e_ms = cuda_ms(lambda: model.apply_grouped(t_dev, x_dev), reps=20)
         t0 = time.perf_counter()
@@ -1582,11 +1719,21 @@ def main() -> int:
     t_ops = max(mma_flops / peak_mma, sine_flops / peak_f32) * 1e3
     t_bytes = nbytes / peak_bw * 1e3
     bound_ms = max(t_ops, t_bytes)
-    log(f"K1 {k1_ms:.4f} ms (wrapper incl. omega prescale), plain {plain_ms:.4f} ms, "
+    # the float32 K1: products and sines together over the f32 peak (no
+    # TF32), 4-byte inputs and output
+    k1f_ops = (mma_flops + sine_flops) / peak_f32 * 1e3
+    k1f_bytes = 2 * nbytes / peak_bw * 1e3
+    k1f_bound = max(k1f_ops, k1f_bytes)
+    del wbf, xf
+    log(f"K1 bf16, tensor cores: {k1_ms:.4f} ms (wrapper incl. omega prescale) = "
+        f"{mma_flops / 1e9 / k1_ms:.2f} TFLOP/s of products, the CUDA-core K1 on the same bf16 "
+        f"inputs {k1_simt_ms:.4f} ms ({k1_simt_ms / k1_ms:.2f}x), plain {plain_ms:.4f} ms, "
         f"bound {bound_ms:.4f} ms (products {mma_flops / 1e9:.1f} GFLOP -> "
         f"{mma_flops / peak_mma * 1e3:.4f} ms, sine {sine_flops / 1e9:.2f} GFLOP -> "
         f"{sine_flops / peak_f32 * 1e3:.4f} ms, {nbytes / 1e6:.2f} MB -> {t_bytes:.4f} ms); "
-        f"library_ms null: no single PyTorch call computes this chain")
+        f"K1 f32, CUDA cores: {k1f_ms:.4f} ms, plain {k1f_plain_ms:.4f} ms, bound "
+        f"{k1f_bound:.4f} ms (f32 peak); library_ms null: no single PyTorch call computes this "
+        f"chain")
     log(f"end to end apply_grouped (f32 inputs on the card) G={G} P={P}: {e2e_ms:.4f} ms = "
         f"{G * P / e2e_ms * 1e3:.4e} points/s; predict_grouped from host arrays: "
         f"{serve_ms:.4f} ms = {G * P / serve_ms * 1e3:.4e} points/s")
@@ -1645,8 +1792,15 @@ def main() -> int:
     wb, x = chain_data(torch, flag_cfg, G, P, torch.bfloat16, seed=52)
     tgt, _, jt = sobolev_data(torch, flag_cfg, G, P, seed=52)
     k5_ms = cuda_ms(lambda: shapenet_fwd_jac_cuda(wb, x, flag_cfg, "siren"), reps=10)
+    k5_simt_ms = cuda_ms(lambda: _shapenet_fwd_jac_simt(wb, x, flag_cfg, "siren"), reps=5,
+                         warmup=1)
     k5_plain_ms = cuda_ms(lambda: shapenet_fwd_jac_reference(wb, x, flag_cfg, "siren"),
                           reps=3, warmup=1)
+    wbf, xf = wb.float(), x.float()
+    k5f_ms = cuda_ms(lambda: shapenet_fwd_jac_cuda(wbf, xf, flag_cfg, "siren"), reps=5, warmup=1)
+    k5f_plain_ms = cuda_ms(lambda: shapenet_fwd_jac_reference(wbf, xf, flag_cfg, "siren"),
+                           reps=3, warmup=1)
+    del wbf, xf
     k6_ms = cuda_ms(lambda: shapenet_sobolev_grads_cuda(wb, x, tgt, jt, flag_cfg, "siren"),
                     reps=10, warmup=2)
     k6_simt_ms = cuda_ms(lambda: _shapenet_sobolev_grads_simt(wb, x, tgt, jt, flag_cfg,
@@ -1661,14 +1815,20 @@ def main() -> int:
     del wb, x, tgt, jt, f32_in
     k5_bound, k5_by, k5_gf = derivative_bounds(flag_cfg, G, P, peak_mma, peak_f32, peak_bw,
                                                sobolev=False)
+    k5f_bound, k5f_by, _ = derivative_bounds(flag_cfg, G, P, peak_mma, peak_f32, peak_bw,
+                                             sobolev=False, f32=True)
     k6_bound, k6_by, k6_gf = derivative_bounds(flag_cfg, G, P, peak_mma, peak_f32, peak_bw,
                                                sobolev=True)
     k6f_bound, k6f_by, _ = derivative_bounds(flag_cfg, G, P, peak_mma, peak_f32, peak_bw,
                                              sobolev=True, f32=True)
     log(f"flagship Sobolev step (GroupedTrainer.step with target_jac, Adam, bf16, G={G} "
         f"P={P}): {sstep_ms:.4f} ms = {G * P / sstep_ms * 1e3:.4e} train points/s")
-    log(f"K5 (reverse) {k5_ms:.4f} ms, plain {k5_plain_ms:.4f} ms, bound {k5_bound:.4f} ms by "
-        f"{k5_by} ({k5_gf:.1f} GFLOP of products); K6 bf16, tensor cores: {k6_ms:.4f} ms "
+    log(f"K5 (reverse) bf16, tensor cores: {k5_ms:.4f} ms = {k5_gf / k5_ms:.2f} TFLOP/s of "
+        f"products, the CUDA-core K5 on the same bf16 inputs {k5_simt_ms:.4f} ms "
+        f"({k5_simt_ms / k5_ms:.2f}x), plain {k5_plain_ms:.4f} ms, bound {k5_bound:.4f} ms by "
+        f"{k5_by} ({k5_gf:.1f} GFLOP of products); K5 (reverse) f32, CUDA cores: {k5f_ms:.4f} "
+        f"ms, plain {k5f_plain_ms:.4f} ms, bound {k5f_bound:.4f} ms by {k5f_by} (f32 peak); K6 "
+        f"bf16, tensor cores: {k6_ms:.4f} ms "
         f"(wrapper incl. prescale, workspace and reduce) = {k6_gf / k6_ms:.2f} TFLOP/s of "
         f"products, the CUDA-core K6 on the same bf16 inputs {k6_simt_ms:.4f} ms "
         f"({k6_simt_ms / k6_ms:.2f}x), plain {k6_plain_ms:.4f} ms, bound {k6_bound:.4f} ms by "
@@ -1770,14 +1930,26 @@ def main() -> int:
     log(json.dumps({"kernels": [{
         "name": "shapenet_fwd",
         "route": "cuda",
-        "source": "nif_tpu_torch/csrc/shapenet_fwd.cu",
+        "source": "nif_tpu_torch/csrc/shapenet_fwd_tc.cu",
         "replaces": "nif_tpu/ops/pallas_shapenet.py:489",
-        "launches": serve_launches["shapenet_fwd"],
+        "launches": serve_launches["shapenet_fwd_tc"],
         "max_abs_err": k1_err,
         "ms": k1_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": None,
+    }, {
+        "name": "shapenet_fwd_f32",
+        "route": "cuda",
+        "source": "nif_tpu_torch/csrc/shapenet_fwd.cu",
+        "replaces": "nif_tpu/ops/pallas_shapenet.py:489",
+        "launches": f32_serve_launches["shapenet_fwd"],
+        "max_abs_err": k1f_err,
+        "ms": k1f_ms,
+        "plain_ms": k1f_plain_ms,
+        "bound_ms": k1f_bound,
+        "bound_by": "operations" if k1f_ops >= k1f_bytes else "bytes",
         "library_ms": None,
     }, {
         "name": "shapenet_mse_grads",
@@ -1818,14 +1990,26 @@ def main() -> int:
     }, {
         "name": "shapenet_fwd_jac",
         "route": "cuda",
-        "source": "nif_tpu_torch/csrc/shapenet_jac.cu",
+        "source": "nif_tpu_torch/csrc/shapenet_fwd_tc.cu",
         "replaces": "nif_tpu/ops/pallas_shapenet.py:1445",
-        "launches": eval_launches["shapenet_fwd_jac"],
+        "launches": eval_launches["shapenet_fwd_jac_tc"],
         "max_abs_err": k5_err,
         "ms": k5_ms,
         "plain_ms": k5_plain_ms,
         "bound_ms": k5_bound,
         "bound_by": k5_by,
+        "library_ms": None,
+    }, {
+        "name": "shapenet_fwd_jac_f32",
+        "route": "cuda",
+        "source": "nif_tpu_torch/csrc/shapenet_jac.cu",
+        "replaces": "nif_tpu/ops/pallas_shapenet.py:1445",
+        "launches": jf32_eval_launches["shapenet_fwd_jac"],
+        "max_abs_err": k5f_err,
+        "ms": k5f_ms,
+        "plain_ms": k5f_plain_ms,
+        "bound_ms": k5f_bound,
+        "bound_by": k5f_by,
         "library_ms": None,
     }, {
         "name": "shapenet_sobolev_grads",

@@ -204,12 +204,13 @@ class NIF(nn.Module):
     def fast_path_info(self, P: int) -> Dict[str, Any]:
         """Which path a ``[G, P, ...]`` batch takes under auto selection:
         ``{"path": "fused"|"eager", "tile": int|None, "reason": str|None}``.
-        ``tile`` is the kernel's points per block; ``reason`` explains an
-        eager fallback — a config the kernel can't take, an awkward P, an f64
-        compute dtype, or simply not running on CUDA."""
-        reason = fused_unsupported_reason(self.cfg_shape_net, self.shapenet_variant, P,
-                                          self.device)
-        return self._path_info(reason, lambda: kernel_geometry(self.cfg_shape_net)[0])
+        ``tile`` is the points per block of the K1 the compute dtype runs
+        (``k1_variant``); ``reason`` explains an eager fallback — a config
+        the kernel can't take, an awkward P, an f64 compute dtype, or simply
+        not running on CUDA."""
+        cfg, variant, dtype = self.cfg_shape_net, self.shapenet_variant, self.policy.compute_dtype
+        reason = fused_unsupported_reason(cfg, variant, P, self.device, dtype)
+        return self._path_info(reason, lambda: kernel_geometry(cfg, variant, dtype)[0])
 
     def _path_info(self, reason: Optional[str], tile_fn) -> Dict[str, Any]:
         """A kernel gate's ``reason`` -> ``{"path", "tile", "reason"}``: the

@@ -36,9 +36,10 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-LAUNCHES: Dict[str, int] = {"shapenet_fwd": 0, "shapenet_mse_grads": 0,
+LAUNCHES: Dict[str, int] = {"shapenet_fwd": 0, "shapenet_fwd_tc": 0, "shapenet_mse_grads": 0,
                             "shapenet_mse_grads_tc": 0, "shapenet_bwd": 0,
-                            "shapenet_fwd_jac": 0, "shapenet_sobolev_grads": 0,
+                            "shapenet_fwd_jac": 0, "shapenet_fwd_jac_tc": 0,
+                            "shapenet_sobolev_grads": 0,
                             "shapenet_sobolev_grads_tc": 0,
                             "shapenet_fwd_hess": 0, "shapenet_fwd_hess_tc": 0,
                             "shapenet_hessian_grads": 0, "shapenet_hessian_grads_tc": 0,

@@ -153,11 +153,14 @@ def output_and_jacobian_grouped(model, t, x, y_index: Index = None, x_index: Ind
     ShapeNet chain in x.
 
     On the card ``(y, jac)`` runs in one launch of K5 (reverse cotangent
-    sweeps when so < si, the flagship's case; forward tangents otherwise),
-    in the compute dtype. ``fused=False`` forces the eager ``jacfwd`` path
+    sweeps when so < si, the flagship's case, on the tensor cores in
+    bfloat16; forward tangents otherwise), in the compute dtype, gated on
+    the limits of the kernel that dtype runs. ``fused=False`` forces the eager ``jacfwd`` path
     (param dtype, differentiable in the parameters); ``fused=True`` forces
     the kernel path (plain K5 on the CPU)."""
-    if _fusable(model, x, fused, "K5", fwd_jac_unsupported_reason):
+    # K5's limits are those of the kernel the compute dtype runs (k5_variant)
+    k5_gate = functools.partial(fwd_jac_unsupported_reason, dtype=model.policy.compute_dtype)
+    if _fusable(model, x, fused, "K5", k5_gate):
         cfg, variant = model._derivative_kernel_cfg()
         wb = model._derivative_weights(t)  # the hypernetwork runs once per group
         y, jac = shapenet_fwd_jac(wb, model._compute(x), cfg, variant)

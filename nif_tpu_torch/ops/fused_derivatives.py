@@ -20,14 +20,16 @@ products Z stay f32; the reverse sweeps carry ``du`` in f32 and round each
 outputs are cast to x's dtype; K6's bias gradients sum the unrounded ``dz``.
 
 On a CUDA tensor each entry launches its hand-written kernel
-(``nif_tpu_torch/csrc/shapenet_jac.cu``), or raises. K6 has two variants
-(:func:`k6_variant`): bfloat16 runs the tensor-core kernel
-(``csrc/shapenet_jac_tc.cu``, variant ``"tc"``) wherever its geometry takes
-the shape, and the CUDA-core one (``csrc/shapenet_jac.cu``, variant
-``"simt"``) otherwise and for float32, whose f32 products never round to
-TF32. On a CPU tensor it runs the plain PyTorch version (``*_reference``),
-which the CPU tests hold against the JAX package's interpret-mode kernels
-and ``chip_smoke.py`` holds the CUDA kernels against. Nothing here falls
+(``nif_tpu_torch/csrc/shapenet_jac.cu``), or raises. K5 and K6 have two
+variants (:func:`k5_variant`, :func:`k6_variant`): bfloat16 runs the
+tensor-core kernel (K5's reverse body in ``csrc/shapenet_fwd_tc.cu`` beside
+the tensor-core K1, K6 in ``csrc/shapenet_jac_tc.cu``; variant ``"tc"``)
+wherever its geometry takes the shape, and the CUDA-core one
+(``csrc/shapenet_jac.cu``, variant ``"simt"``) otherwise (K5's tangent body
+among them) and for float32, whose f32 products never round to TF32. On a
+CPU tensor it runs the plain PyTorch version (``*_reference``), which the
+CPU tests hold against the JAX package's interpret-mode kernels and
+``chip_smoke.py`` holds the CUDA kernels against. Nothing here falls
 back to another path: callers route (``ops.derivatives``,
 ``NIF.sobolev_value_and_grad``) with the ``*_supported`` gates.
 """
@@ -49,6 +51,7 @@ from .fused_shapenet import (
     _chain_code,
     _chain_lists,
     _check_cuda_inputs,
+    _fwd_tc_library,
     _flat_grads,
     _forward_saved,
     _n_mats,
@@ -74,6 +77,7 @@ __all__ = [
     "sobolev_fused_supported",
     "sobolev_fused_unsupported_reason",
     "derivative_geometry",
+    "k5_variant",
     "k6_variant",
 ]
 
@@ -119,6 +123,34 @@ def _tc_status(cfg: ShapeNetConfig, variant: str, si: int, G: int, P: int):
                             variant, si, G, P)
 
 
+def _k5_tc_status(cfg: ShapeNetConfig, variant: str, si: int, G: int, P: int):
+    """``(status, geometry)`` of the tensor-core K5 reverse body
+    (``csrc/shapenet_fwd_tc.cu``)."""
+    return _stack_tc_status(_fwd_tc_library().nif_shapenet_fwd_jac_tc_workspace, "reverse",
+                            cfg, variant, si, G, P)
+
+
+def k5_variant(dtype: torch.dtype, cfg: Optional[ShapeNetConfig] = None, variant: str = "siren",
+               si: Optional[int] = None) -> str:
+    """Which CUDA kernel K5 runs for inputs of ``dtype``: ``"tc"`` (the
+    tensor-core reverse body, ``csrc/shapenet_fwd_tc.cu``) for bfloat16 and
+    ``"simt"`` (the CUDA-core kernel, ``csrc/shapenet_jac.cu``) for float32,
+    whose products stay full f32 (and for any other dtype, which the wrapper
+    refuses). Given a chain (``cfg``, ``variant``, ``si``), bfloat16 runs
+    the CUDA-core kernel for the tangent body (so >= si, decided without a
+    library) and where the tensor-core one does not take the shape (asking
+    its library, so it needs nvcc): a vanilla chain, si > 4, or a width
+    whose planes exceed a block's shared memory."""
+    if dtype != torch.bfloat16:
+        return "simt"
+    if cfg is None:
+        return "tc"
+    si = cfg.input_dim if si is None else si
+    if _jac_mode(cfg, si) != "reverse":
+        return "simt"
+    return "tc" if _k5_tc_status(cfg, variant, si, 1, 1)[0] == 0 else "simt"
+
+
 def k6_variant(dtype: torch.dtype, cfg: Optional[ShapeNetConfig] = None, variant: str = "siren",
                si: Optional[int] = None) -> str:
     """Which CUDA kernel K6 runs for inputs of ``dtype``: ``"tc"`` (the
@@ -142,6 +174,8 @@ def _geometry_status(mode: str, cfg: ShapeNetConfig, variant: str, si: int, G: i
                      dtype: torch.dtype, kernel: Optional[str] = None):
     if mode == "sobolev" and (kernel or k6_variant(dtype, cfg, variant, si)) == "tc":
         return _tc_status(cfg, variant, si, G, P)
+    if mode == "reverse" and (kernel or k5_variant(dtype, cfg, variant, si)) == "tc":
+        return _k5_tc_status(cfg, variant, si, G, P)
     tile, splits = ctypes.c_int(), ctypes.c_int()
     smem, partial_floats, scratch = ctypes.c_longlong(), ctypes.c_longlong(), ctypes.c_longlong()
     status = _library().nif_shapenet_jac_workspace(
@@ -159,11 +193,14 @@ def _status_reason(status: int, cfg: ShapeNetConfig, si: int, geo: dict) -> Opti
     if status == 0:
         return None
     if geo["kernel"] == "tc":
+        what, planes = (("Jacobian", f"its planes of {geo['tile']} points")
+                        if geo["mode"] == "reverse" else
+                        ("Sobolev", "two stacked planes of 32 points"))
         if status == 2:
             return (f"units={cfg.units} with si={si} needs {geo['smem_bytes']} bytes of shared "
-                    f"memory per block in the tensor-core Sobolev kernel (two stacked planes "
-                    f"of 32 points), more than a block may have")
-        return (f"the tensor-core Sobolev kernel cannot take {cfg} with si={si} "
+                    f"memory per block in the tensor-core {what} kernel ({planes}), more than "
+                    f"a block may have")
+        return (f"the tensor-core {what} kernel cannot take {cfg} with si={si} "
                 f"(status {status})")
     if status == 1:
         return (f"units={cfg.units} is wider than the CUDA derivative kernels take (a "
@@ -180,12 +217,13 @@ def _status_reason(status: int, cfg: ShapeNetConfig, si: int, geo: dict) -> Opti
 def derivative_geometry(mode: str, cfg: ShapeNetConfig, variant: str, G: int, P: int,
                         dtype: torch.dtype, si: Optional[int] = None) -> dict:
     """The launch geometry of one body (``mode`` "reverse" or "tangent" for
-    K5, "sobolev" for K6) at ``[G, P]`` in ``dtype``, from its kernel's
-    library (it needs nvcc): K5's from ``csrc/shapenet_jac.cu``, K6's from
-    the library of its variant (:func:`k6_variant`): the kernel, points per
-    tile, P splits per group, shared memory per block, whether a tile's
-    residuals and the staged weights sit in shared memory or in global
-    memory, and the workspace sizes the wrappers allocate."""
+    K5, "sobolev" for K6) at ``[G, P]`` in ``dtype``, from the library of
+    the variant that runs it (it needs nvcc): K5's reverse body from
+    :func:`k5_variant`'s, its tangent body from ``csrc/shapenet_jac.cu``,
+    K6's from :func:`k6_variant`'s: the kernel, points per tile, P splits
+    per group, shared memory per block, whether a tile's residuals and the
+    staged weights sit in shared memory or in global memory, and the
+    workspace sizes the wrappers allocate."""
     return _geometry(mode, cfg, variant, G, P, dtype, si)
 
 
@@ -211,20 +249,22 @@ def _cuda_reason(mode: str, cfg: ShapeNetConfig, variant: str, si: int,
 
 
 def fwd_jac_unsupported_reason(cfg: ShapeNetConfig, variant: str, P: int, si: int,
-                               device=None) -> Optional[str]:
+                               device=None, dtype: torch.dtype = torch.bfloat16,
+                               kernel: Optional[str] = None) -> Optional[str]:
     """Why K5 can NOT take this config (None = it can). The reasons and
     their strings are the JAX package's (its P rule kept for routing
     parity, though the kernel masks a ragged tile); on a CUDA ``device``
-    the CUDA body's own limits apply too."""
+    the own limits of the CUDA body that ``dtype`` runs (:func:`k5_variant`)
+    or ``kernel`` apply too."""
     base = fused_unsupported_reason(cfg, variant, P)
     if base is None and device is not None and torch.device(device).type == "cuda":
-        return _cuda_reason(_jac_mode(cfg, si), cfg, variant, si)
+        return _cuda_reason(_jac_mode(cfg, si), cfg, variant, si, dtype, kernel)
     return base
 
 
 def fwd_jac_supported(cfg: ShapeNetConfig, variant: str, P: int, si: int,
-                      device=None) -> bool:
-    return fwd_jac_unsupported_reason(cfg, variant, P, si, device) is None
+                      device=None, dtype: torch.dtype = torch.bfloat16) -> bool:
+    return fwd_jac_unsupported_reason(cfg, variant, P, si, device, dtype) is None
 
 
 def sobolev_fused_unsupported_reason(cfg: ShapeNetConfig, variant: str, P: int, si: int,
@@ -536,14 +576,15 @@ def _workspace(mode: str, cfg: ShapeNetConfig, variant: str, x: torch.Tensor,
     return partials, scratch
 
 
-def shapenet_fwd_jac_cuda(wb: torch.Tensor, x: torch.Tensor, cfg: ShapeNetConfig,
-                          variant: str = "siren"):
-    """Launch K5 on ``torch.cuda.current_stream()``: ``(y, jac)`` as
-    :func:`shapenet_fwd_jac_reference` computes them. Raises on anything the
-    kernel does not take; never falls back."""
+def _launch_k5(kernel: str, wb: torch.Tensor, x: torch.Tensor, cfg: ShapeNetConfig,
+               variant: str):
+    """K5 through the library of ``kernel`` ("tc": the tensor-core reverse
+    body; "simt": the CUDA-core kernel, either body), after the wrapper's
+    checks; counts the launch."""
     si = x.shape[-1] if x.dim() == 3 else cfg.input_dim
     _check_cuda_inputs("shapenet_fwd_jac_cuda", wb, x, cfg, variant,
-                       lambda c, v, P, d: fwd_jac_unsupported_reason(c, v, P, si, d))
+                       lambda c, v, P, d: fwd_jac_unsupported_reason(c, v, P, si, d, x.dtype,
+                                                                     kernel))
     G, P, si = x.shape
     so = cfg.output_dim
     y = torch.empty((G, P, so), dtype=x.dtype, device=x.device)
@@ -554,19 +595,45 @@ def shapenet_fwd_jac_cuda(wb: torch.Tensor, x: torch.Tensor, cfg: ShapeNetConfig
     act = _train_act_code(cfg, variant, x.dtype) if mode == "reverse" else _act_code(
         cfg, variant, x.dtype)
     wbp = _prescale(wb, cfg, variant).contiguous()
+    if kernel == "tc":  # rows padded to 16 bytes, so every group's W_m stages with cp.async
+        wbp = torch.nn.functional.pad(wbp, (0, -wbp.shape[1] % 8))
     x = x.contiguous()
-    lib = _library()
+    lib = _fwd_tc_library() if kernel == "tc" else _library()
     with torch.cuda.device(x.device):  # the geometry reads this device's SM count
-        _, scratch = _workspace(mode, cfg, variant, x)
+        _, scratch = _workspace(mode, cfg, variant, x, kernel)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.nif_shapenet_fwd_jac(
-            wbp.data_ptr(), x.data_ptr(), y.data_ptr(), jac.data_ptr(), scratch.data_ptr(),
-            G, P, si, so, cfg.units, _n_mats(cfg), _chain_code(cfg, variant), act,
-            wb.shape[1], _DTYPE_CODES[x.dtype], stream,
-        )
+        args = (wbp.data_ptr(), x.data_ptr(), y.data_ptr(), jac.data_ptr(), scratch.data_ptr(),
+                G, P, si, so, cfg.units, _n_mats(cfg), _chain_code(cfg, variant), act,
+                wb.shape[1])
+        if kernel == "tc":
+            err = lib.nif_shapenet_fwd_jac_tc(*args, wbp.shape[1], stream)
+        else:
+            err = lib.nif_shapenet_fwd_jac(*args, _DTYPE_CODES[x.dtype], stream)
     _raise_on_error(lib, "shapenet_fwd_jac", err)
     _build.LAUNCHES["shapenet_fwd_jac"] += 1
+    if kernel == "tc":
+        _build.LAUNCHES["shapenet_fwd_jac_tc"] += 1
     return y, jac
+
+
+def shapenet_fwd_jac_cuda(wb: torch.Tensor, x: torch.Tensor, cfg: ShapeNetConfig,
+                          variant: str = "siren"):
+    """Launch K5 on ``torch.cuda.current_stream()``: ``(y, jac)`` as
+    :func:`shapenet_fwd_jac_reference` computes them, through the kernel
+    :func:`k5_variant` picks for the dtype, the body and the chain. Raises
+    on anything that kernel does not take; never falls back."""
+    si = x.shape[-1] if x.dim() == 3 else cfg.input_dim
+    # off the card the wrapper's checks refuse x without asking a library
+    kernel = k5_variant(x.dtype, cfg, variant, si) if x.is_cuda else "simt"
+    return _launch_k5(kernel, wb, x, cfg, variant)
+
+
+def _shapenet_fwd_jac_simt(wb: torch.Tensor, x: torch.Tensor, cfg: ShapeNetConfig,
+                           variant: str = "siren"):
+    """K5 on the CUDA-core kernel whatever the dtype and chain.
+    ``chip_smoke.py`` times its bf16 instance beside the tensor-core kernel
+    on the same inputs."""
+    return _launch_k5("simt", wb, x, cfg, variant)
 
 
 def _device_tensor(a, name: str, shape, x: torch.Tensor, dtype) -> torch.Tensor:

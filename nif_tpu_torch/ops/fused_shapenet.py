@@ -30,14 +30,16 @@ Rounding points, shared by all three:
 
 On a CUDA tensor each entry launches its hand-written kernel
 (``nif_tpu_torch/csrc/shapenet_fwd.cu`` for K1, ``shapenet_bwd.cu`` for K2
-and K3), or raises. K2 has two variants (:func:`k2_variant`): bfloat16 sine
-chains run the tensor-core kernel (``csrc/shapenet_bwd_tc.cu``, variant
-``"tc"``) wherever its geometry takes the shape, and the CUDA-core one
-(``shapenet_bwd.cu``, variant ``"simt"``) otherwise and for float32, whose
-f32 products never round to TF32. On a CPU tensor it runs the plain PyTorch
-version of the same function (``*_reference``), which the CPU tests hold
-against the JAX package's interpret-mode kernels and ``chip_smoke.py`` holds
-the CUDA kernels against. A config the kernels cannot take goes to the eager
+and K3), or raises. K1 and K2 have two variants (:func:`k1_variant`,
+:func:`k2_variant`): bfloat16 sine chains run the tensor-core kernel
+(``csrc/shapenet_fwd_tc.cu``, ``csrc/shapenet_bwd_tc.cu``, variant ``"tc"``)
+wherever its geometry takes the shape, and the CUDA-core one
+(``shapenet_fwd.cu``, ``shapenet_bwd.cu``, variant ``"simt"``) otherwise and
+for float32, whose f32 products never round to TF32. On a CPU tensor it
+runs the plain PyTorch version of the same function (``*_reference``),
+which the CPU tests hold against the JAX package's interpret-mode kernels
+and ``chip_smoke.py`` holds the CUDA kernels against. A config the kernels
+cannot take goes to the eager
 :func:`~nif_tpu_torch.ops.shapenet.shapenet_grouped` (and autograd), as in
 the JAX package.
 """
@@ -74,6 +76,7 @@ __all__ = [
     "fast_sin_grad2",
     "fast_sin_grad3",
     "kernel_geometry",
+    "k1_variant",
     "k2_geometry",
     "k2_variant",
     "train_geometry",
@@ -233,10 +236,23 @@ _CHAIN_CODES = {"siren": 0, "siren_resblock": 1, "vanilla": 2}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def kernel_geometry(cfg: ShapeNetConfig) -> Tuple[Optional[int], Optional[str]]:
-    """``(points per block, None)`` of the CUDA kernel at this width, or
-    ``(None, reason)`` when the kernel cannot take it. The kernel's library
-    owns the geometry, so this builds it on first use (it needs nvcc)."""
+def kernel_geometry(cfg: ShapeNetConfig, variant: str = "siren",
+                    dtype: Optional[torch.dtype] = None,
+                    kernel: Optional[str] = None) -> Tuple[Optional[int], Optional[str]]:
+    """``(points per block, None)`` of the CUDA K1 at this width, or ``(None,
+    reason)`` when it cannot take it: of ``kernel`` ("tc" or "simt"), else of
+    the variant :func:`k1_variant` picks for ``dtype`` (the CUDA-core K1 when
+    no dtype is given). The kernels' libraries own the geometry, so this
+    builds them on first use (it needs nvcc)."""
+    if (kernel or k1_variant(dtype, cfg, variant)) == "tc":
+        status, geo = _k1_tc_status(cfg, variant, 1, 1)
+        if status == 0:
+            return geo["tile"], None
+        if status == 2:
+            return None, (f"units={cfg.units} needs {geo['smem_bytes']} bytes of shared memory "
+                          f"per block in the tensor-core K1 (two planes of {geo['tile']} "
+                          f"points), more than a block may have")
+        return None, f"the tensor-core K1 cannot take {cfg} (status {status})"
     tile, smem = ctypes.c_int(), ctypes.c_longlong()
     status = _library().nif_shapenet_fwd_geometry(
         cfg.units, cfg.input_dim, ctypes.byref(tile), ctypes.byref(smem))
@@ -251,15 +267,16 @@ def kernel_geometry(cfg: ShapeNetConfig) -> Tuple[Optional[int], Optional[str]]:
     raise ValueError(f"the CUDA kernel cannot take {cfg} (geometry status {status})")
 
 
-def fused_unsupported_reason(cfg: ShapeNetConfig, variant: str, P: int,
-                             device=None) -> Optional[str]:
+def fused_unsupported_reason(cfg: ShapeNetConfig, variant: str, P: int, device=None,
+                             dtype: Optional[torch.dtype] = None) -> Optional[str]:
     """Why the fused kernel can NOT handle this config (None = it can).
 
     The reasons and their strings are the JAX package's; the P rule is kept
     for routing parity with it (its kernel tiles P in multiples of 8), though
-    this kernel masks a ragged edge. On a CUDA ``device`` the CUDA kernel's
-    own width limits (:func:`kernel_geometry`) apply too; the plain version
-    that runs elsewhere takes any width."""
+    this kernel masks a ragged edge. On a CUDA ``device`` the own width
+    limits of the CUDA K1 that ``dtype`` runs (:func:`kernel_geometry`; the
+    CUDA-core one when no dtype is given) apply too; the plain version that
+    runs elsewhere takes any width."""
     if cfg.connectivity != "full":
         return f"connectivity={cfg.connectivity!r} (fused kernel runs the full generated chain)"
     if variant == "vanilla" and cfg.activation not in _VANILLA_ACTS:
@@ -267,7 +284,7 @@ def fused_unsupported_reason(cfg: ShapeNetConfig, variant: str, P: int,
     if cfg.units < 8:
         return f"units={cfg.units} < 8 (tiny widths gain nothing from the kernel)"
     if device is not None and torch.device(device).type == "cuda":
-        reason = kernel_geometry(cfg)[1]
+        reason = kernel_geometry(cfg, variant, dtype)[1]
         if reason is not None:
             return reason
     if P % 8:
@@ -276,9 +293,10 @@ def fused_unsupported_reason(cfg: ShapeNetConfig, variant: str, P: int,
     return None
 
 
-def fused_supported(cfg: ShapeNetConfig, variant: str, P: int, device=None) -> bool:
+def fused_supported(cfg: ShapeNetConfig, variant: str, P: int, device=None,
+                    dtype: Optional[torch.dtype] = None) -> bool:
     """Whether the fused kernel handles this config (else the eager path)."""
-    return fused_unsupported_reason(cfg, variant, P, device) is None
+    return fused_unsupported_reason(cfg, variant, P, device, dtype) is None
 
 
 def _n_mats(cfg: ShapeNetConfig) -> int:
@@ -567,6 +585,24 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def _fwd_tc_library() -> ctypes.CDLL:
+    """The tensor-core K1 and K5's tensor-core reverse body
+    (``csrc/shapenet_fwd_tc.cu``)."""
+    lib = _build.load_library("shapenet_fwd_tc")
+    if lib.nif_shapenet_fwd_tc.argtypes is None:
+        c_int, ptr, c_ll = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
+        for entry in (lib.nif_shapenet_fwd_tc_workspace, lib.nif_shapenet_fwd_jac_tc_workspace):
+            entry.argtypes = [c_int] * 7 + [ptr] * 7
+            entry.restype = c_int
+        lib.nif_shapenet_fwd_tc.argtypes = [ptr] * 4 + [c_int] * 8 + [c_ll, c_ll, ptr]
+        lib.nif_shapenet_fwd_tc.restype = c_int
+        lib.nif_shapenet_fwd_jac_tc.argtypes = [ptr] * 5 + [c_int] * 8 + [c_ll, c_ll, ptr]
+        lib.nif_shapenet_fwd_jac_tc.restype = c_int
+        lib.nif_cuda_error_string.argtypes = [c_int]
+        lib.nif_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _bwd_library() -> ctypes.CDLL:
     lib = _build.load_library("shapenet_bwd")
     if lib.nif_shapenet_mse_grads.argtypes is None:
@@ -599,8 +635,8 @@ def _bwd_tc_library() -> ctypes.CDLL:
 
 def _stack_tc_status(workspace, mode: str, cfg: ShapeNetConfig, variant: str, si: int, G: int,
                      P: int):
-    """``(status, geometry)`` of a stacked-stream tensor-core kernel (K2, K6,
-    K7 or K8) from its library's ``workspace`` entry."""
+    """``(status, geometry)`` of a stacked-stream tensor-core kernel (K1, K2,
+    K5, K6, K7 or K8) from its library's ``workspace`` entry."""
     tile, splits, resident, staged_w = (ctypes.c_int() for _ in range(4))
     smem, partial_floats, scratch = ctypes.c_longlong(), ctypes.c_longlong(), ctypes.c_longlong()
     status = workspace(
@@ -612,6 +648,29 @@ def _stack_tc_status(workspace, mode: str, cfg: ShapeNetConfig, variant: str, si
            "weights": "shared" if staged_w.value else "global",
            "partial_floats": partial_floats.value, "scratch_bytes": scratch.value}
     return status, geo
+
+
+def _k1_tc_status(cfg: ShapeNetConfig, variant: str, G: int, P: int):
+    """``(status, geometry)`` of the tensor-core K1 (``csrc/shapenet_fwd_tc.cu``)."""
+    return _stack_tc_status(_fwd_tc_library().nif_shapenet_fwd_tc_workspace, "forward", cfg,
+                            variant, cfg.input_dim, G, P)
+
+
+def k1_variant(dtype: Optional[torch.dtype], cfg: Optional[ShapeNetConfig] = None,
+               variant: str = "siren") -> str:
+    """Which CUDA kernel K1 runs for inputs of ``dtype``: ``"tc"`` (the
+    tensor-core kernel, ``csrc/shapenet_fwd_tc.cu``) for bfloat16 and
+    ``"simt"`` (the CUDA-core kernel, ``csrc/shapenet_fwd.cu``) for float32,
+    whose products stay full f32 (and for any other dtype, which the wrapper
+    refuses). Given a chain (``cfg``, ``variant``; this asks the
+    tensor-core kernel's library, so it needs nvcc), bfloat16 runs the
+    CUDA-core kernel where the tensor-core one does not take it: a vanilla
+    chain, si > 4, or a width whose planes exceed a block's shared memory."""
+    if dtype != torch.bfloat16:
+        return "simt"
+    if cfg is None:
+        return "tc"
+    return "tc" if _k1_tc_status(cfg, variant, 1, 1)[0] == 0 else "simt"
 
 
 def _k2_tc_status(cfg: ShapeNetConfig, variant: str, G: int, P: int):
@@ -713,14 +772,13 @@ def _raise_on_error(lib: ctypes.CDLL, name: str, err: int) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} ({msg})")
 
 
-def shapenet_fwd_cuda(wb: torch.Tensor, x: torch.Tensor, cfg: ShapeNetConfig,
-                      variant: str = "siren") -> torch.Tensor:
-    """Launch K1 on ``torch.cuda.current_stream()``.
-
-    Raises on anything the kernel does not take (:func:`_check_cuda_inputs`),
-    including an input that requires grad: :func:`shapenet_grouped_fused`
-    is the differentiable entry. A build or launch failure raises too;
-    nothing here falls back to another path."""
+def _launch_k1(tensor_cores: bool, wb: torch.Tensor, x: torch.Tensor, cfg: ShapeNetConfig,
+               variant: str) -> torch.Tensor:
+    """K1 after the wrapper's checks, counting the launch: on the
+    tensor-core kernel where ``tensor_cores`` allows it and
+    :func:`k1_variant` would pick it (one geometry query at this shape
+    decides, and gives the launch its scratch size), else on the CUDA-core
+    kernel."""
     _check_cuda_inputs("shapenet_fwd_cuda", wb, x, cfg, variant)
     G, P, si = x.shape
     out = torch.empty((G, P, cfg.output_dim), dtype=x.dtype, device=x.device)
@@ -728,17 +786,51 @@ def shapenet_fwd_cuda(wb: torch.Tensor, x: torch.Tensor, cfg: ShapeNetConfig,
         return out
     wbp = _prescale(wb, cfg, variant).contiguous()
     x = x.contiguous()
-    lib = _library()
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(x.device):  # the geometry reads this device's SM count
+        geo = None
+        if tensor_cores and x.dtype == torch.bfloat16:
+            status, geo = _k1_tc_status(cfg, variant, G, P)
+            geo = geo if status == 0 else None
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.nif_shapenet_fwd(
-            wbp.data_ptr(), x.data_ptr(), out.data_ptr(), G, P, si, cfg.output_dim,
-            cfg.units, _n_mats(cfg), _n_mats(cfg), _chain_code(cfg, variant),
-            _act_code(cfg, variant, x.dtype), wb.shape[1], _DTYPE_CODES[x.dtype], stream,
-        )
+        shape = (G, P, si, cfg.output_dim, cfg.units, _n_mats(cfg))
+        codes = (_chain_code(cfg, variant), _act_code(cfg, variant, x.dtype), wb.shape[1])
+        if geo is not None:  # rows padded to 16 bytes, so every group's W_m stages with cp.async
+            wbp = F.pad(wbp, (0, -wbp.shape[1] % 8))
+            scratch = torch.empty(max(geo["scratch_bytes"], 1), dtype=torch.uint8,
+                                  device=x.device)
+            lib = _fwd_tc_library()
+            err = lib.nif_shapenet_fwd_tc(wbp.data_ptr(), x.data_ptr(), out.data_ptr(),
+                                          scratch.data_ptr(), *shape, *codes, wbp.shape[1],
+                                          stream)
+        else:
+            lib = _library()
+            err = lib.nif_shapenet_fwd(wbp.data_ptr(), x.data_ptr(), out.data_ptr(), *shape,
+                                       _n_mats(cfg), *codes, _DTYPE_CODES[x.dtype], stream)
     _raise_on_error(lib, "shapenet_fwd", err)
     _build.LAUNCHES["shapenet_fwd"] += 1
+    if geo is not None:
+        _build.LAUNCHES["shapenet_fwd_tc"] += 1
     return out
+
+
+def shapenet_fwd_cuda(wb: torch.Tensor, x: torch.Tensor, cfg: ShapeNetConfig,
+                      variant: str = "siren") -> torch.Tensor:
+    """Launch K1 on ``torch.cuda.current_stream()``, through the kernel
+    :func:`k1_variant` picks for the dtype and the chain.
+
+    Raises on anything the kernel does not take (:func:`_check_cuda_inputs`),
+    including an input that requires grad: :func:`shapenet_grouped_fused`
+    is the differentiable entry. A build or launch failure raises too;
+    nothing here falls back to another path."""
+    return _launch_k1(True, wb, x, cfg, variant)
+
+
+def _shapenet_fwd_simt(wb: torch.Tensor, x: torch.Tensor, cfg: ShapeNetConfig,
+                       variant: str = "siren") -> torch.Tensor:
+    """K1 on the CUDA-core kernel whatever the dtype and chain.
+    ``chip_smoke.py`` times its bf16 instance beside the tensor-core kernel
+    on the same inputs."""
+    return _launch_k1(False, wb, x, cfg, variant)
 
 
 def _workspace(cfg: ShapeNetConfig, x: torch.Tensor):
@@ -903,7 +995,7 @@ def shapenet_grouped_fused(wb: torch.Tensor, x: torch.Tensor, cfg: ShapeNetConfi
     the eager path, as the JAX package's does. Otherwise a CUDA tensor
     launches K1 (and K3 in the backward) and a CPU tensor runs the plain
     versions."""
-    if not fused_supported(cfg, variant, x.shape[1], x.device):
+    if not fused_supported(cfg, variant, x.shape[1], x.device, x.dtype):
         return shapenet_grouped(wb, x, cfg, variant)
     if torch.is_grad_enabled() and (wb.requires_grad or x.requires_grad):
         return _FusedShapeNet.apply(wb, x, cfg, variant)

@@ -1,24 +1,31 @@
 #!/usr/bin/env python3
 """Where a tensor-core kernel spends its time, phase by phase, on a CUDA
-card: K2 (``nif_tpu_torch/csrc/shapenet_bwd_tc.cu``), K4
-(``csrc/shapenet_linear_tc.cu``), K6 (``csrc/shapenet_jac_tc.cu``), K7 or K8
-(``csrc/shapenet_hess_tc.cu``).
+card: K1 or K5's reverse body (``nif_tpu_torch/csrc/shapenet_fwd_tc.cu``), K2
+(``csrc/shapenet_bwd_tc.cu``), K4 (``csrc/shapenet_linear_tc.cu``), K6
+(``csrc/shapenet_jac_tc.cu``), K7 or K8 (``csrc/shapenet_hess_tc.cu``).
 
-    python3 scripts/port_phase_probe.py [--kernel k2|k4|k6|k7|k8] [--ablate]
+    python3 scripts/port_phase_probe.py [--kernel k1|k2|k4|k5|k6|k7|k8] [--ablate]
+                                        [--one-block]
 
-Builds the kernel's source once more with ``-DK2_PHASE_CLOCKS``,
-``-DK4_PHASE_CLOCKS``, ``-DK6_PHASE_CLOCKS``, ``-DK7_PHASE_CLOCKS`` or
-``-DK8_PHASE_CLOCKS`` (into ``build/nif_tpu_torch/probe/``), in which thread
-0 of every block adds the ``clock64()`` cycles between consecutive barriers
-into phase counters (four for K7, eight for the others), and runs it through
-the usual wrapper at the kernel's flagship shape (G=32, P=32768, bf16,
-random weights from a seed: the NIF-linear trunk for K4, the flagship chain
-with targets and point weights for K2, with Jacobian targets for K6, alone
-for K7, and with Jacobian and Hessian targets for K8). Prints the kernel's
-time (CUDA events, the instrumented build beside the plain one) and each
-phase's share of the blocks' critical path. The counters cost a few
-instructions at each barrier; the plain build's time says how much. Nothing
-is asserted.
+Builds the kernel's source once more with ``-DK1_PHASE_CLOCKS``,
+``-DK2_PHASE_CLOCKS``, ``-DK4_PHASE_CLOCKS``, ``-DK5_PHASE_CLOCKS``,
+``-DK6_PHASE_CLOCKS``, ``-DK7_PHASE_CLOCKS`` or ``-DK8_PHASE_CLOCKS`` (into
+``build/nif_tpu_torch/probe/``), in which thread 0 of every block adds the
+``clock64()`` cycles between consecutive barriers into phase counters (four
+for K1 and K7, eight for the others), and runs it through the usual wrapper
+at the kernel's flagship shape (G=32, P=32768, bf16, random weights from a
+seed: the NIF-linear trunk for K4, the flagship chain alone for K1, K5 and
+K7, with targets and point weights for K2, with Jacobian targets for K6,
+and with Jacobian and Hessian targets for K8). Prints the kernel's time
+(CUDA events, the instrumented build beside the plain one) and each phase's
+share of the blocks' critical path. The counters cost a few instructions at
+each barrier; the plain build's time says how much. Nothing is asserted.
+
+With ``--kernel k1 --one-block`` it also builds a variant of the source (a
+text edit of a copy, as the ablations are) with K1 on 128-point tiles at up
+to 255 registers a thread, one block per SM, in place of 64-point tiles at
+128 registers, two blocks per SM, and times it beside the source as it is,
+in turns (as built, one block, one block, as built).
 
 With ``--kernel k2|k6|k8 --ablate`` it also builds three variants of the
 kernel's source and its shared header ``stack_tc.cuh`` (text edits of a copy,
@@ -51,6 +58,22 @@ from nif_tpu_torch.utils.bench import FLAGSHIP_SHAPE, cuda_ms  # noqa: E402
 
 # source, its define, its counter entry, and the phases in counter order
 KERNELS = {
+    "k1": ("shapenet_fwd_tc", "K1_PHASE_CLOCKS", "nif_fwd_tc_phase_cycles", [
+        "x tile + first layer",
+        "hidden forward (products + sine)",
+        "last product + thread 0's y stores",
+        "the other y stores (and the group's set-up)",
+    ]),
+    "k5": ("shapenet_fwd_tc", "K5_PHASE_CLOCKS", "nif_fwd_jac_tc_phase_cycles", [
+        "x tile + first layer",
+        "hidden forward (products + sine and act')",
+        "last product + thread 0's y stores",
+        "sweep: dz epilogues (act' from the planes)",
+        "sweep: du = D @ W^T",
+        "sweep: first layer's dz0 (z0 recomputed)",
+        "sweep: dx product + thread 0's jac stores",
+        "the other jac stores (and the group's set-up)",
+    ]),
     "k2": ("shapenet_bwd_tc", "K2_PHASE_CLOCKS", "nif_mse_tc_phase_cycles", [
         "x tile + first layer",
         "hidden forward (products + sine)",
@@ -153,6 +176,9 @@ def build_variant(name: str, label: str, edits) -> ctypes.CDLL:
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on ablation {label!r}:\n{proc.stdout}")
+    for line in proc.stdout.splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"{label} build ptxas: {line.strip()}")
     return ctypes.CDLL(str(out / f"lib{name}.so"))
 
 
@@ -167,6 +193,41 @@ def ablate(name: str, argtypes, run) -> None:
             print(f"ablation round {rnd}: {label:32s} {cuda_ms(run, reps=5, warmup=1):.4f} ms",
                   flush=True)
     _build._LIBS[name] = libs["as built"]
+
+
+def k1_case(G: int, P: int):
+    """K1's launcher and (tile, splits) at the flagship chain."""
+    cfg = ShapeNetConfig.from_dict(FLAGSHIP_SHAPE)
+    wb, x = chip_smoke.chain_data(torch, cfg, G, P, torch.bfloat16, seed=206)
+    return lambda: fs.shapenet_fwd_cuda(wb, x, cfg, "siren"), fs._k1_tc_status(cfg, "siren",
+                                                                               G, P)[1]
+
+
+def k5_case(G: int, P: int):
+    """K5's launcher and (tile, splits) at the flagship chain (the reverse body)."""
+    cfg = ShapeNetConfig.from_dict(FLAGSHIP_SHAPE)
+    wb, x = chip_smoke.chain_data(torch, cfg, G, P, torch.bfloat16, seed=207)
+    geo = fd.derivative_geometry("reverse", cfg, "siren", G, P, torch.bfloat16)
+    return lambda: fd.shapenet_fwd_jac_cuda(wb, x, cfg, "siren"), geo
+
+
+# K1 on 128-point tiles, one block per SM: the edits of its two constants
+ONE_BLOCK = [(None, "constexpr int kFwdTp = 64; ", "constexpr int kFwdTp = 128;"),
+             (None, "constexpr int kFwdBlocksPerSm = 2;", "constexpr int kFwdBlocksPerSm = 1;")]
+
+
+def one_block(run) -> None:
+    """K1 as built and on 128-point tiles at one block per SM, timed in turns."""
+    libs = {"as built": _build.load_library("shapenet_fwd_tc"),
+            "one block": build_variant("shapenet_fwd_tc", "k1 one block", ONE_BLOCK)}
+    for label in ("as built", "one block", "one block", "as built"):
+        _build._LIBS["shapenet_fwd_tc"] = libs[label]
+        fs._fwd_tc_library()
+        geo = fs._k1_tc_status(ShapeNetConfig.from_dict(FLAGSHIP_SHAPE), "siren", 32, 32768)[1]
+        print(f"K1 {label:10s} ({geo['tile']}-point tiles, {geo['splits']} splits, "
+              f"{geo['smem_bytes']} bytes of shared memory): {cuda_ms(run, reps=20):.4f} ms",
+              flush=True)
+    _build._LIBS["shapenet_fwd_tc"] = libs["as built"]
 
 
 def k2_case(G: int, P: int):
@@ -218,9 +279,13 @@ def main() -> int:
     ap.add_argument("--kernel", choices=sorted(KERNELS), default="k4")
     ap.add_argument("--ablate", action="store_true",
                     help="K2, K6 and K8 only: also time variants without parts of their dW")
+    ap.add_argument("--one-block", action="store_true",
+                    help="K1 only: also time K1 on 128-point tiles, one block per SM")
     args = ap.parse_args()
-    if args.ablate and args.kernel in ("k4", "k7"):
+    if args.ablate and args.kernel not in ("k2", "k6", "k8"):
         ap.error("--ablate takes --kernel k2, k6 or k8")
+    if args.one_block and args.kernel != "k1":
+        ap.error("--one-block takes --kernel k1")
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 1
@@ -229,20 +294,24 @@ def main() -> int:
     print(f"card: {smi}")
     name, define, entry, phases = KERNELS[args.kernel]
     G, P = 32, 32768
-    cases = {"k2": k2_case, "k4": k4_case, "k6": k6_case, "k7": k7_case, "k8": k8_case}
+    cases = {"k1": k1_case, "k2": k2_case, "k4": k4_case, "k5": k5_case, "k6": k6_case,
+             "k7": k7_case, "k8": k8_case}
     run, geo = cases[args.kernel](G, P)
     reps = 3 if args.kernel == "k8" else 10
     plain_build_ms = cuda_ms(run, reps=reps, warmup=1)
     # registers the argument types of the library now in _build._LIBS
-    argtypes = {"k2": fs._bwd_tc_library, "k4": lambda: fl._library("tc"),
+    argtypes = {"k1": fs._fwd_tc_library, "k2": fs._bwd_tc_library,
+                "k4": lambda: fl._library("tc"), "k5": fs._fwd_tc_library,
                 "k6": lambda: fd._library("tc"), "k7": lambda: fh._library("tc"),
                 "k8": lambda: fh._library("tc")}[args.kernel]
     if args.ablate:
         ablate(name, argtypes, run)
+    if args.one_block:
+        one_block(run)
     probe = build_probe(name, define, entry)
     _build._LIBS[name] = probe  # the wrapper now launches the probe build
     argtypes()
-    counters = (ctypes.c_ulonglong * len(phases))()
+    counters = (ctypes.c_ulonglong * 8)()  # room for every kernel's counters
     read = getattr(probe, entry)
     run()
     torch.cuda.synchronize()

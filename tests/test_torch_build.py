@@ -54,9 +54,10 @@ def test_port_sources_include_what_they_use():
 
 # Each tensor-core header and the sources that include it, directly or not.
 TC_USERS = {
-    "mma_sm90.cuh": {"shapenet_bwd_tc", "shapenet_hess_tc", "shapenet_jac_tc",
-                     "shapenet_linear_tc"},
-    "stack_tc.cuh": {"shapenet_bwd_tc", "shapenet_hess_tc", "shapenet_jac_tc"},
+    "mma_sm90.cuh": {"shapenet_bwd_tc", "shapenet_fwd_tc", "shapenet_hess_tc",
+                     "shapenet_jac_tc", "shapenet_linear_tc"},
+    "stack_tc.cuh": {"shapenet_bwd_tc", "shapenet_fwd_tc", "shapenet_hess_tc",
+                     "shapenet_jac_tc"},
 }
 TC_HEADERS = set(TC_USERS)
 
@@ -110,6 +111,24 @@ def test_k2_tensor_core_sources():
     assert {"nif_shapenet_mse_tc_workspace", "nif_shapenet_mse_grads_tc"} <= _entries(
         "shapenet_bwd_tc")
     assert {"nif_shapenet_mse_grads", "nif_shapenet_bwd"} <= _entries("shapenet_bwd")
+
+
+def test_k1_k5_tensor_core_sources():
+    """The tensor-core K1 and K5's tensor-core reverse body build into one
+    library against the same headers as the other tensor-core kernels; the
+    CUDA-core K1 and K5 libraries include no tensor-core header and keep
+    their entries, and the new library defines every entry its wrapper
+    loads."""
+    names = {p.name for p in _build._sources("shapenet_fwd_tc")}
+    assert names == {"shapenet_fwd_tc.cu", "stack_tc.cuh", "mma_sm90.cuh",
+                     "shapenet_common.cuh"}
+    for simt in ("shapenet_fwd", "shapenet_jac"):
+        assert not TC_HEADERS & {p.name for p in _build._sources(simt)}
+    assert {"nif_shapenet_fwd_tc_workspace", "nif_shapenet_fwd_tc",
+            "nif_shapenet_fwd_jac_tc_workspace", "nif_shapenet_fwd_jac_tc"} <= _entries(
+                "shapenet_fwd_tc")
+    assert {"nif_shapenet_fwd", "nif_shapenet_fwd_geometry"} <= _entries("shapenet_fwd")
+    assert {"nif_shapenet_fwd_jac", "nif_shapenet_jac_workspace"} <= _entries("shapenet_jac")
 
 
 @pytest.mark.parametrize("header", sorted(TC_HEADERS))

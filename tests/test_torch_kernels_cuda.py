@@ -30,10 +30,13 @@ f32 K7 and K8 the CUDA-core ones (``shapenet_hess.cu``); bf16 K6 on sine
 chains the tensor-core kernel (``shapenet_jac_tc.cu``), f32 K6 and vanilla
 chains the CUDA-core one (``shapenet_jac.cu``); bf16 K2 on sine chains the
 tensor-core kernel (``shapenet_bwd_tc.cu``), f32 K2 and vanilla chains the
-CUDA-core one (``shapenet_bwd.cu``); each checked by its launch counter; the
-tensor-core K6's terms within rel 1e-4 of the plain version's, the
-tensor-core K2 and K7 within the bf16 bounds above. A bf16 chain a
-tensor-core kernel refuses for shared memory runs on the CUDA-core one."""
+CUDA-core one (``shapenet_bwd.cu``); bf16 K1 and K5's reverse body on sine
+chains the tensor-core kernels (``shapenet_fwd_tc.cu``), f32, vanilla
+chains and K5's tangent body the CUDA-core ones (``shapenet_fwd.cu``,
+``shapenet_jac.cu``); each checked by its launch counter; the tensor-core
+K6's terms within rel 1e-4 of the plain version's, the tensor-core K1, K2,
+K5 and K7 within the bf16 bounds above. A bf16 chain a tensor-core kernel
+refuses for shared memory runs on the CUDA-core one."""
 import numpy as np
 import pytest
 import torch
@@ -85,7 +88,12 @@ def _max_diff(out, ref):
 def test_k1_matches_plain(card, variant, args, dtype):
     cfg = ShapeNetConfig(*args)
     wb, x = _data(cfg, 3, 256, dtype, seed=5)
+    before = dict(_build.LAUNCHES)
     out = fs.shapenet_fwd_cuda(wb, x, cfg, variant)
+    assert _build.LAUNCHES["shapenet_fwd"] == before["shapenet_fwd"] + 1
+    # bf16 sine chains on the tensor-core K1; f32 and vanilla chains on the CUDA-core one
+    tc = dtype == torch.bfloat16 and variant == "siren"
+    assert _build.LAUNCHES["shapenet_fwd_tc"] == before["shapenet_fwd_tc"] + int(tc)
     ref = fs.shapenet_grouped_fused_reference(wb, x, cfg, variant)
     assert out.dtype == dtype and out.shape == ref.shape
     if dtype == torch.float32:
@@ -144,12 +152,14 @@ def test_model_on_the_card_routes_through_k1(card):
     t = rng.standard_normal((4, 4)).astype(np.float32)
     x = rng.uniform(-1, 1, (4, 512, 3)).astype(np.float32)
     before = _build.LAUNCHES["shapenet_fwd"]
+    tc = _build.LAUNCHES["shapenet_fwd_tc"]
     with torch.inference_mode():
         out = model.apply_grouped(t, x)
         wb = model.p_to_w(t)
         ref = fs.shapenet_grouped_fused_reference(
             wb, model.policy.cast_to_compute(x, device="cuda"), model.cfg_shape_net, "siren")
     assert _build.LAUNCHES["shapenet_fwd"] == before + 1
+    assert _build.LAUNCHES["shapenet_fwd_tc"] == tc + 1
     err, scale = _max_diff(out, ref)
     assert out.dtype == torch.float32 and err <= 1e-2 * scale
     # with gradients needed, auto routing runs K1 forward and K3 backward;
@@ -353,9 +363,12 @@ def _close_rel(mine, ref, dtype):
 def test_k5_matches_plain(card, variant, args, dtype):
     cfg = ShapeNetConfig(*args)
     wb, x = _data(cfg, 3, 264, dtype, seed=15)
-    before = _build.LAUNCHES["shapenet_fwd_jac"]
+    before = dict(_build.LAUNCHES)
     y, jac = fd.shapenet_fwd_jac(wb, x, cfg, variant)
-    assert _build.LAUNCHES["shapenet_fwd_jac"] == before + 1
+    assert _build.LAUNCHES["shapenet_fwd_jac"] == before["shapenet_fwd_jac"] + 1
+    # the reverse body (so < si) of bf16 sine chains on the tensor-core K5
+    tc = dtype == torch.bfloat16 and variant == "siren" and cfg.output_dim < cfg.input_dim
+    assert _build.LAUNCHES["shapenet_fwd_jac_tc"] == before["shapenet_fwd_jac_tc"] + int(tc)
     y_ref, jac_ref = fd.shapenet_fwd_jac_reference(wb, x, cfg, variant)
     assert y.dtype == jac.dtype == dtype and jac.shape == (3, 264, cfg.output_dim, cfg.input_dim)
     _close_rel(y, y_ref, dtype)
@@ -423,8 +436,10 @@ def test_derivative_geometry(card):
     tiles (128 stacked rows) with every S plane and the staged W in shared
     memory, and one wave of SMs / G splits per group; f32 K6 takes the
     CUDA-core kernel, its residuals in the global scratch. The reverse K5
-    body takes K2's 64-point tile, and splits P to give about two blocks per
-    SM of this card (8 to 64 splits a group)."""
+    body in bf16 takes the tensor-core kernel: 128-point tiles, its planes
+    and both W in shared memory, one wave of SMs / G splits; the CUDA-core
+    reverse body (float32's) takes K2's 64-point tile, and splits P to give
+    about two blocks per SM of this card (8 to 64 splits a group)."""
     cfg = ShapeNetConfig(3, 1, 128, 2, "sine", False, 30.0)
     sms = torch.cuda.get_device_properties(card).multi_processor_count
     sob = fd.derivative_geometry("sobolev", cfg, "siren", 32, 32768, torch.bfloat16)
@@ -436,9 +451,16 @@ def test_derivative_geometry(card):
     assert f32["residuals"] == "global" and f32["scratch_bytes"] > 0
     for G in (1, 4, 32):
         rev = fd.derivative_geometry("reverse", cfg, "siren", G, 32768, torch.bfloat16)
-        assert rev["kernel"] == "simt"
-        assert rev["tile"] == 64
-        assert rev["splits"] == min(512, max(8, min(64, (2 * sms + G - 1) // G)))
+        assert (rev["kernel"], rev["tile"], rev["residuals"], rev["weights"]) == (
+            "tc", 128, "shared", "shared")
+        assert rev["splits"] == min(256, max(1, sms // G))
+        for dtype in (torch.float32, torch.bfloat16):
+            rev = fd._geometry("reverse", cfg, "siren", G, 32768, dtype, kernel="simt")
+            assert rev["kernel"] == "simt"
+            assert rev["tile"] == 64
+            assert rev["splits"] == min(512, max(8, min(64, (2 * sms + G - 1) // G)))
+    assert fd.derivative_geometry("reverse", cfg, "siren", 4, 32768,
+                                  torch.float32)["kernel"] == "simt"
     assert "streams" in fd.sobolev_fused_unsupported_reason(
         ShapeNetConfig(9, 1, 1024, 1, "sine"), "siren", 256, 9, card)
 
@@ -455,6 +477,193 @@ def test_derivative_wrappers_refuse_what_they_cannot_take(card):
         fd.shapenet_sobolev_grads_cuda(wb, x, tgt, jt, cfg, "siren", weight=w[:, :8])
     with pytest.raises(TypeError):
         fd.shapenet_sobolev_grads_cuda(wb, x.bfloat16(), tgt, jt, cfg, "siren")
+
+
+# Shapes the tensor-core K1 pads, tiles raggedly or lays out otherwise: the
+# tensor-core K2's (widths 24 and 40, si = 1 and 4, resblock chains, width 256
+# with W read from global memory, width 384) and NIF-linear's trunk, whose
+# last product has 128 columns.
+K1_TC_SHAPES = [
+    (3, 1, 24, 2, "sine", False, 30.0),
+    (2, 2, 40, 2, "sine", True, 10.0),
+    (1, 1, 64, 2, "sine", False, 30.0),
+    (4, 1, 128, 2, "sine", False, 30.0),
+    (3, 1, 128, 2, "sine", True, 30.0),
+    (3, 1, 256, 2, "sine", True, 30.0),
+    (1, 1, 384, 1, "sine", False, 30.0),
+    (3, 128, 128, 2, "sine", False, 30.0),
+]
+
+
+@pytest.mark.parametrize("args", K1_TC_SHAPES, ids=["n24", "n40-res", "si1", "si4", "n128-res",
+                                                    "n256-res", "n384", "so128"])
+def test_k1_tc_padded_and_ragged_shapes(card, args):
+    """The tensor-core K1 at P = 200 (a ragged last tile) and four groups,
+    against plain K1: within 1e-2 of max|plain|."""
+    cfg = ShapeNetConfig(*args)
+    assert fs.k1_variant(torch.bfloat16, cfg, "siren") == "tc"
+    wb, x = _data(cfg, 4, 200, torch.bfloat16, seed=40)
+    before = dict(_build.LAUNCHES)
+    out = fs.shapenet_fwd_cuda(wb, x, cfg, "siren")
+    assert _build.LAUNCHES["shapenet_fwd_tc"] == before["shapenet_fwd_tc"] + 1
+    assert _build.LAUNCHES["shapenet_fwd"] == before["shapenet_fwd"] + 1
+    err, scale = _max_diff(out, fs.shapenet_grouped_fused_reference(wb, x, cfg, "siren"))
+    assert out.dtype == torch.bfloat16 and bool(torch.isfinite(out).all())
+    assert err <= 1e-2 * scale, (err, scale)
+
+
+def test_k1_cuda_core_kernel_on_bf16_inputs(card):
+    """The private launcher that times the CUDA-core K1 beside the
+    tensor-core one on the same bf16 inputs: it launches the CUDA-core
+    kernel and agrees with plain K1 within the bf16 bound."""
+    cfg = ShapeNetConfig(3, 1, 128, 2, "sine", False, 30.0)
+    wb, x = _data(cfg, 2, 256, torch.bfloat16, seed=41)
+    before = dict(_build.LAUNCHES)
+    out = fs._shapenet_fwd_simt(wb, x, cfg, "siren")
+    assert _build.LAUNCHES["shapenet_fwd"] == before["shapenet_fwd"] + 1
+    assert _build.LAUNCHES["shapenet_fwd_tc"] == before["shapenet_fwd_tc"]
+    err, scale = _max_diff(out, fs.shapenet_grouped_fused_reference(wb, x, cfg, "siren"))
+    assert err <= 1e-2 * scale
+
+
+def test_k1_flagship_is_deterministic(card):
+    """The flagship chain at G=8, P=32768 in bf16 on the tensor-core K1
+    (64-point tiles, both W staged, two blocks per SM: 2 SMs / G splits):
+    two runs give the same bits and agree with plain K1."""
+    cfg = ShapeNetConfig(3, 1, 128, 2, "sine", False, 30.0)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    status, geo = fs._k1_tc_status(cfg, "siren", 8, 32768)
+    assert (status, geo["tile"], geo["weights"]) == (0, 64, "shared")
+    assert geo["splits"] == min(512, 2 * sms // 8)
+    wb, x = _data(cfg, 8, 32768, torch.bfloat16, seed=42)
+    before = _build.LAUNCHES["shapenet_fwd_tc"]
+    runs = [fs.shapenet_fwd_cuda(wb, x, cfg, "siren") for _ in range(2)]
+    assert _build.LAUNCHES["shapenet_fwd_tc"] == before + 2
+    assert torch.equal(runs[0], runs[1])
+    err, scale = _max_diff(runs[0], fs.shapenet_grouped_fused_reference(wb, x, cfg, "siren"))
+    assert err <= 1e-2 * scale
+
+
+# Reverse-body shapes (so < si) of the tensor-core K5: si = 3 with so = 2 on a
+# resblock chain, si = 4 at width 16, width 40 (no multiple of 16), width 192
+# (two column blocks a warp, W from global memory).
+K5_TC_SHAPES = [
+    (3, 2, 64, 1, "sine", True, 10.0),
+    (4, 1, 16, 2, "sine", False, 30.0),
+    (3, 1, 40, 2, "sine", False, 30.0),
+    (3, 1, 192, 1, "sine", False, 30.0),
+]
+
+
+@pytest.mark.parametrize("args", K5_TC_SHAPES, ids=["si3-so2-res", "si4-n16", "n40", "n192"])
+def test_k5_tc_reverse_shapes(card, args):
+    """The tensor-core K5 reverse body at P = 200 (a ragged last tile),
+    against plain K5: y and jac within 2^-6 of max|plain|."""
+    cfg = ShapeNetConfig(*args)
+    assert fd.k5_variant(torch.bfloat16, cfg, "siren") == "tc"
+    wb, x = _data(cfg, 3, 200, torch.bfloat16, seed=43)
+    before = dict(_build.LAUNCHES)
+    y, jac = fd.shapenet_fwd_jac_cuda(wb, x, cfg, "siren")
+    assert _build.LAUNCHES["shapenet_fwd_jac_tc"] == before["shapenet_fwd_jac_tc"] + 1
+    assert _build.LAUNCHES["shapenet_fwd_jac"] == before["shapenet_fwd_jac"] + 1
+    y_ref, jac_ref = fd.shapenet_fwd_jac_reference(wb, x, cfg, "siren")
+    assert jac.shape == (3, 200, cfg.output_dim, cfg.input_dim)
+    _close_rel(y, y_ref, torch.bfloat16)
+    _close_rel(jac, jac_ref, torch.bfloat16)
+
+
+def test_k5_cuda_core_kernel_on_bf16_inputs(card):
+    """The private launcher that times the CUDA-core K5 beside the
+    tensor-core one on the same bf16 inputs: it launches the CUDA-core
+    kernel and agrees with plain K5 within the bf16 bounds."""
+    cfg = ShapeNetConfig(3, 1, 128, 2, "sine", False, 30.0)
+    wb, x = _data(cfg, 2, 256, torch.bfloat16, seed=44)
+    before = dict(_build.LAUNCHES)
+    y, jac = fd._shapenet_fwd_jac_simt(wb, x, cfg, "siren")
+    assert _build.LAUNCHES["shapenet_fwd_jac"] == before["shapenet_fwd_jac"] + 1
+    assert _build.LAUNCHES["shapenet_fwd_jac_tc"] == before["shapenet_fwd_jac_tc"]
+    y_ref, jac_ref = fd.shapenet_fwd_jac_reference(wb, x, cfg, "siren")
+    _close_rel(y, y_ref, torch.bfloat16)
+    _close_rel(jac, jac_ref, torch.bfloat16)
+
+
+def test_k5_flagship_is_deterministic(card):
+    """The flagship chain at G=8, P=32768 in bf16 on the tensor-core K5
+    reverse body: two runs give the same bits and agree with plain K5."""
+    cfg = ShapeNetConfig(3, 1, 128, 2, "sine", False, 30.0)
+    wb, x = _data(cfg, 8, 32768, torch.bfloat16, seed=45)
+    before = _build.LAUNCHES["shapenet_fwd_jac_tc"]
+    runs = [fd.shapenet_fwd_jac_cuda(wb, x, cfg, "siren") for _ in range(2)]
+    assert _build.LAUNCHES["shapenet_fwd_jac_tc"] == before + 2
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+    y_ref, jac_ref = fd.shapenet_fwd_jac_reference(wb, x, cfg, "siren")
+    _close_rel(runs[0][0], y_ref, torch.bfloat16)
+    _close_rel(runs[0][1], jac_ref, torch.bfloat16)
+
+
+def test_bf16_chains_the_tensor_core_k1_and_k5_refuse_run_on_the_cuda_core_kernels(card):
+    """Width 1024 (two working planes of 64 points exceed shared memory) and
+    si = 5 send bf16 K1 to the CUDA-core kernel, and K5 at width 256 with two
+    hidden layers (four planes of 128 points) too; a vanilla bf16 chain
+    takes the CUDA-core kernels. Each agrees with its plain version within
+    the bf16 bounds."""
+    cases = [("siren", (3, 1, 1024, 1, "sine", False, 30.0), "simt", "simt"),
+             ("siren", (5, 1, 64, 2, "sine", False, 30.0), "simt", "simt"),
+             ("siren", (3, 1, 256, 2, "sine", False, 30.0), "tc", "simt"),
+             ("vanilla", (2, 1, 64, 2, "tanh"), "simt", "simt")]
+    for variant, args, k1, k5 in cases:
+        cfg = ShapeNetConfig(*args)
+        assert fs.k1_variant(torch.bfloat16, cfg, variant) == k1
+        assert fd.k5_variant(torch.bfloat16, cfg, variant) == k5
+        assert fd.fwd_jac_unsupported_reason(cfg, variant, 96, cfg.input_dim, card) is None
+        wb, x = _data(cfg, 2, 96, torch.bfloat16, seed=46)
+        before = dict(_build.LAUNCHES)
+        out = fs.shapenet_grouped_fused(wb, x, cfg, variant)
+        y, jac = fd.shapenet_fwd_jac(wb, x, cfg, variant)
+        assert _build.LAUNCHES["shapenet_fwd"] == before["shapenet_fwd"] + 1
+        assert _build.LAUNCHES["shapenet_fwd_tc"] == before["shapenet_fwd_tc"] + int(k1 == "tc")
+        assert _build.LAUNCHES["shapenet_fwd_jac"] == before["shapenet_fwd_jac"] + 1
+        assert _build.LAUNCHES["shapenet_fwd_jac_tc"] == before["shapenet_fwd_jac_tc"]
+        err, scale = _max_diff(out, fs.shapenet_grouped_fused_reference(wb, x, cfg, variant))
+        assert err <= 1e-2 * scale, (args, err, scale)
+        y_ref, jac_ref = fd.shapenet_fwd_jac_reference(wb, x, cfg, variant)
+        _close_rel(y, y_ref, torch.bfloat16)
+        _close_rel(jac, jac_ref, torch.bfloat16)
+
+
+def test_model_jacobian_evaluation_launches_one_tc_k5_per_chunk(card):
+    """``evaluate_sobolev`` on the card launches the tensor-core K5 once per
+    chunk under the bf16 policy, and the CUDA-core K5 once per chunk under
+    float32; ``output_and_jacobian_grouped`` agrees with plain K5."""
+    from nif_tpu_torch.ops.derivatives import output_and_jacobian_grouped
+    from nif_tpu_torch.training import GroupedTrainer
+
+    cfg_s = {"input_dim": 3, "output_dim": 1, "units": 128, "nlayers": 2,
+             "activation": "sine", "omega_0": 30.0}
+    cfg_p = {"input_dim": 4, "latent_dim": 128, "units": 128, "nlayers": 2,
+             "activation": "swish"}
+    rng = np.random.default_rng(47)
+    t = rng.standard_normal((4, 4)).astype(np.float32)
+    x = rng.uniform(-1, 1, (4, 512, 3)).astype(np.float32)
+    u = rng.standard_normal((4, 512, 1)).astype(np.float32)
+    jt = rng.standard_normal((4, 512, 1, 3)).astype(np.float32)
+    for policy, tc in (("mixed_bfloat16", 2), ("float32", 0)):
+        model = nif_tpu_torch.NIFMultiScale(cfg_s, cfg_p, policy, seed=0)
+        trainer = GroupedTrainer(model, lambda p: torch.optim.Adam(p, lr=1e-4))
+        before = dict(_build.LAUNCHES)
+        out = trainer.evaluate_sobolev(trainer.init(0), t, x, u, jt, group_batch=2)
+        assert _build.LAUNCHES["shapenet_fwd_jac"] == before["shapenet_fwd_jac"] + 2
+        assert _build.LAUNCHES["shapenet_fwd_jac_tc"] == before["shapenet_fwd_jac_tc"] + tc
+        assert all(np.isfinite(v) for v in out.values())
+    tt, xt = torch.from_numpy(t).cuda(), torch.from_numpy(x).cuda()
+    model = nif_tpu_torch.NIFMultiScale(cfg_s, cfg_p, "mixed_bfloat16", seed=0)
+    with torch.inference_mode():
+        y, jac = output_and_jacobian_grouped(model, tt, xt)
+        wb = model._derivative_weights(tt)
+        y_ref, jac_ref = fd.shapenet_fwd_jac_reference(wb, model._compute(xt),
+                                                       model.cfg_shape_net, "siren")
+    _close_rel(y, y_ref, torch.bfloat16)
+    _close_rel(jac, jac_ref, torch.bfloat16)
 
 
 # The Hessian kernels take sine chains only: the SIREN configs, and one with

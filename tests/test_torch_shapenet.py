@@ -169,7 +169,7 @@ def test_unsupported_reason_past_the_kernel_width(monkeypatch):
     library's answer is stood in for, since building it needs nvcc."""
     asked = []
 
-    def geometry(cfg):
+    def geometry(cfg, variant="siren", dtype=None):
         asked.append(cfg.units)
         return None, f"units={cfg.units} is wider than the CUDA kernel takes"
 

@@ -1,9 +1,10 @@
 """The routing of the port's kernel wrappers between their variants, and
 their ctypes bindings, on the CPU (no nvcc needed).
 
-K2 and K7, like K4, K6 and K8, have a tensor-core variant for bfloat16 and a
-CUDA-core one for float32: without a chain the choice reads the dtype alone,
-and a float32 input never asks a library. On CPU tensors the entries run the
+K1, K2, K5 and K7, like K4, K6 and K8, have a tensor-core variant for
+bfloat16 and a CUDA-core one for float32: without a chain the choice reads
+the dtype alone, and a float32 input never asks a library (nor does K5's
+tangent body, which the tensor-core K5 does not implement). On CPU tensors the entries run the
 plain versions and launch nothing, and the CUDA wrappers refuse CPU tensors
 before they load a library. Each wrapper's ``argtypes`` must match the C
 signature of the entry in its source (a ctypes mismatch passes a pointer as
@@ -38,7 +39,8 @@ def _data(cfg, G, P, dtype, seed):
     return to(wb), to(x), to(tgt, torch.float32), to(w, torch.float32)
 
 
-@pytest.mark.parametrize("pick", [fs.k2_variant, fh.k7_variant], ids=["k2", "k7"])
+@pytest.mark.parametrize("pick", [fs.k1_variant, fs.k2_variant, fd.k5_variant, fh.k7_variant],
+                         ids=["k1", "k2", "k5", "k7"])
 @pytest.mark.parametrize("dtype,variant", [(torch.bfloat16, "tc"), (torch.float32, "simt"),
                                            (torch.float64, "simt")], ids=["bf16", "f32", "f64"])
 def test_variant_by_dtype_asks_no_library(pick, dtype, variant, monkeypatch):
@@ -54,14 +56,37 @@ def test_variant_by_dtype_asks_no_library(pick, dtype, variant, monkeypatch):
         assert pick(dtype, ShapeNetConfig(*SIREN), "siren") == "simt"
 
 
+@pytest.mark.parametrize("args", [(2, 2, 16, 1, "sine", False, 30.0), RESBLOCK,
+                                  (1, 3, 16, 2, "sine", False, 30.0)],
+                         ids=["so2-si2", "resblock", "so3-si1"])
+def test_k5_tangent_body_runs_on_the_cuda_core_kernel_without_a_library(args, monkeypatch):
+    """so >= si takes K5's tangent body, which only the CUDA-core kernel
+    has: bfloat16 picks it without asking any library."""
+    def no_library(name):
+        raise AssertionError(f"asked the {name} library")
+
+    monkeypatch.setattr(_build, "load_library", no_library)
+    cfg = ShapeNetConfig(*args)
+    assert fd._jac_mode(cfg, cfg.input_dim) == "tangent"
+    assert fd.k5_variant(torch.bfloat16, cfg, "siren") == "simt"
+    assert fd.k5_variant(torch.bfloat16, cfg, "siren", cfg.input_dim) == "simt"
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("args", [SIREN, RESBLOCK], ids=["siren", "resblock"])
 def test_cpu_entries_run_the_plain_versions(args, dtype):
-    """On CPU tensors ``shapenet_mse_grads`` and ``shapenet_fwd_hess`` return
-    exactly what their plain versions return, and launch no kernel."""
+    """On CPU tensors ``shapenet_grouped_fused``, ``shapenet_mse_grads``,
+    ``shapenet_fwd_jac`` and ``shapenet_fwd_hess`` return exactly what their
+    plain versions return, and launch no kernel."""
     cfg = ShapeNetConfig(*args)
     wb, x, tgt, w = _data(cfg, 2, 24, dtype, seed=1)
     before = dict(_build.LAUNCHES)
+    out = fs.shapenet_grouped_fused(wb, x, cfg, "siren")
+    ref = fs.shapenet_grouped_fused_reference(wb, x, cfg, "siren")
+    assert torch.equal(out, ref) and out.dtype == dtype
+    for mine, ref in zip(fd.shapenet_fwd_jac(wb, x, cfg, "siren"),
+                         fd.shapenet_fwd_jac_reference(wb, x, cfg, "siren")):
+        assert torch.equal(mine, ref) and mine.dtype == dtype
     loss, d_wb = fs.shapenet_mse_grads(wb, x, tgt, cfg, "siren", w)
     l_ref, g_ref = fs.shapenet_mse_grads_reference(wb, x, tgt, cfg, "siren", w)
     assert torch.equal(loss, l_ref) and torch.equal(d_wb, g_ref) and d_wb.dtype == dtype
@@ -72,11 +97,15 @@ def test_cpu_entries_run_the_plain_versions(args, dtype):
 
 
 @pytest.mark.parametrize("launch", [
+    lambda wb, x, tgt, cfg: fs.shapenet_fwd_cuda(wb, x, cfg, "siren"),
+    lambda wb, x, tgt, cfg: fs._shapenet_fwd_simt(wb, x, cfg, "siren"),
+    lambda wb, x, tgt, cfg: fd.shapenet_fwd_jac_cuda(wb, x, cfg, "siren"),
+    lambda wb, x, tgt, cfg: fd._shapenet_fwd_jac_simt(wb, x, cfg, "siren"),
     lambda wb, x, tgt, cfg: fs.shapenet_mse_grads_cuda(wb, x, tgt, cfg, "siren"),
     lambda wb, x, tgt, cfg: fs._shapenet_mse_grads_simt(wb, x, tgt, cfg, "siren"),
     lambda wb, x, tgt, cfg: fh.shapenet_fwd_hess_cuda(wb, x, cfg, "siren"),
     lambda wb, x, tgt, cfg: fh._shapenet_fwd_hess_simt(wb, x, cfg, "siren"),
-], ids=["k2", "k2-simt", "k7", "k7-simt"])
+], ids=["k1", "k1-simt", "k5", "k5-simt", "k2", "k2-simt", "k7", "k7-simt"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_cuda_wrappers_refuse_cpu_tensors_before_any_library(launch, dtype, monkeypatch):
     def no_library(name):
@@ -122,6 +151,7 @@ def _c_signatures(source: str):
 
 LOADERS = {
     "shapenet_fwd": fs._library,
+    "shapenet_fwd_tc": fs._fwd_tc_library,
     "shapenet_bwd": fs._bwd_library,
     "shapenet_bwd_tc": fs._bwd_tc_library,
     "shapenet_jac": lambda: fd._library("simt"),
@@ -174,3 +204,33 @@ def test_hessian_evaluation_gates_k7_on_the_compute_dtype(policy, dtype, monkeyp
     _, _, hess = derivatives.output_jacobian_hessian_grouped(model, t, x)
     assert seen == [dtype]
     assert hess.shape == (2, 8, 1, 2, 2) and bool(torch.isfinite(hess).all())
+
+
+@pytest.mark.parametrize("policy,dtype", [("float32", torch.float32),
+                                          ("mixed_bfloat16", torch.bfloat16)],
+                         ids=["f32", "bf16"])
+def test_jacobian_evaluation_gates_k5_on_the_compute_dtype(policy, dtype, monkeypatch):
+    """``output_and_jacobian_grouped`` asks K5's gate for the kernel of the
+    model's compute dtype (a float32 model is held to the CUDA-core K5's
+    limits, a bfloat16 one to those of the kernel ``k5_variant`` picks); a
+    gate that refuses sends the evaluation to the eager path."""
+    import nif_tpu_torch
+    from nif_tpu_torch.ops import derivatives
+
+    seen = []
+
+    def gate(cfg, variant, P, si, device=None, dtype=torch.bfloat16, kernel=None):
+        seen.append(dtype)
+        return "refused"
+
+    monkeypatch.setattr(derivatives, "fwd_jac_unsupported_reason", gate)
+    cfg_s = {"input_dim": 3, "output_dim": 1, "units": 16, "nlayers": 1, "activation": "sine"}
+    cfg_p = {"input_dim": 2, "latent_dim": 3, "units": 8, "nlayers": 1, "activation": "swish"}
+    model = nif_tpu_torch.NIFMultiScale(cfg_s, cfg_p, policy, device="cpu", seed=0)
+    rng = np.random.default_rng(27)
+    t = torch.from_numpy(rng.standard_normal((2, 2)).astype(np.float32))
+    x = torch.from_numpy(rng.uniform(-1, 1, (2, 8, 3)).astype(np.float32))
+    y, jac = derivatives.output_and_jacobian_grouped(model, t, x)
+    assert seen == [dtype]
+    assert y.shape == (2, 8, 1) and jac.shape == (2, 8, 1, 3)
+    assert bool(torch.isfinite(jac).all())
