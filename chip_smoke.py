@@ -27,10 +27,15 @@ Phases, each of which raises on failure:
    narrow and wide shapes of K8's (``K2_TC_EXTRA``, P = 200); at the
    flagship shape in bfloat16 the tensor-core kernel and the CUDA-core one on
    the same inputs, and the CUDA-core kernel in float32 at G=8; two bfloat16
-   flagship runs must give bitwise-equal results.
-2c. Hold K3 (the backward of K1) against plain K3 over the same configs;
-   differentiate ``apply_grouped`` on the card through K1 + K3 and through
-   the eager path, and compare the ParameterNet gradients.
+   flagship runs, and two float32 ones at G=8, must give bitwise-equal
+   results.
+2c. Hold K3 (the backward of K1) against plain K3 over the same configs,
+   each call one launch (float32 within 5e-6 of max|plain|), and at the
+   flagship width in bfloat16 (G=32) and float32 (G=8), where two float32
+   runs must give the same bits; differentiate ``apply_grouped`` on the card
+   through K1 + K3 and through the eager path, and compare the ParameterNet
+   gradients, under the flagship's bfloat16 policy (the tensor-core K1) and
+   under the float32 policy (the CUDA-core K1 and the float32 K3).
 3. Serve the flagship NIFMultiScale (``nif_tpu_torch.utils.bench``, random
    weights from a seed) through ``serving.predict_grouped``: a full request, a
    ragged one (point padding) and a 70-snapshot one (chunking). Check shapes,
@@ -49,8 +54,10 @@ Phases, each of which raises on failure:
    ``apply_grouped`` and ``predict_grouped`` with CUDA events, and compute
    K1's bounds on this card.
 4b. Time the flagship train step and its stages, the bfloat16 tensor-core
-   K2, the CUDA-core K2 on the same bfloat16 inputs and in float32, K3, with
-   their plain versions, and compute their bounds on this card.
+   K2, the CUDA-core K2 on the same bfloat16 inputs and in float32, K3 in
+   both dtypes, with their plain versions, and compute their bounds on this
+   card; then the float32 policy's train step (the CUDA-core K2), mean of 10
+   on the device clock and on the host clock, and its stages.
 
 Phases of the Sobolev slice:
 
@@ -85,7 +92,9 @@ Phases of the Sobolev slice:
    float32 policy one CUDA-core K5 launch per chunk).
 4c. Time the flagship Sobolev step, the bfloat16 tensor-core K5 and K6, the
    CUDA-core K5 and K6 on the same bfloat16 inputs and in float32, with
-   their plain versions, and compute their bounds on this card.
+   their plain versions, and compute their bounds on this card; and K5's
+   tangent body (the CUDA-core kernel) at the flagship widths with so = 3,
+   in both dtypes.
 
 Phases of the Hessian slice:
 
@@ -365,25 +374,31 @@ def check_k2(torch, cfg, variant, G, P, dtype, weighted, seed, simt=False,
     return err
 
 
-def check_k3(torch, cfg, variant, G, P, dtype, seed) -> float:
-    """K3 vs plain K3 on d_wb and dx; returns max |d_wb - plain d_wb|.
+def check_k3(torch, cfg, variant, G, P, dtype, seed, f32_bound=5e-6) -> float:
+    """K3 vs plain K3 on d_wb and dx; returns max |d_wb - plain d_wb|. Each
+    call must launch the CUDA-core K3 once.
 
-    float32: max|d| <= 5e-5 max|plain| (the JAX package's bound for its
-    fused backward); bfloat16: BF16_REL."""
+    float32: max|d| <= f32_bound max|plain| for d_wb and dx (by default
+    5e-6, K2's bound at these shapes; 5e-5, the JAX package's bound for its
+    fused backward, at the flagship's scale); bfloat16: BF16_REL."""
+    from nif_tpu_torch.ops import _build
     from nif_tpu_torch.ops.fused_shapenet import (
         shapenet_bwd_cuda, shapenet_fused_bwd_reference)
 
     wb, x = chain_data(torch, cfg, G, P, dtype, seed)
     g = side_data(torch, cfg, G, P, seed)[2].to(dtype)
+    before = _build.LAUNCHES["shapenet_bwd"]
     d_wb, dx = shapenet_bwd_cuda(wb, x, g, cfg, variant)
     r_wb, r_dx = shapenet_fused_bwd_reference(wb, x, g, cfg, variant)
     torch.cuda.synchronize()
     what = f"K3 {describe(cfg, variant, G, P, dtype)}"
+    if _build.LAUNCHES["shapenet_bwd"] != before + 1:
+        raise AssertionError(f"{what}: launched {_build.LAUNCHES['shapenet_bwd'] - before} K3")
     if d_wb.dtype != wb.dtype or dx.dtype != x.dtype or dx.shape != x.shape:
         raise AssertionError(f"{what}: d_wb {d_wb.dtype}, dx {dx.shape}/{dx.dtype}")
     err, scale = max_diff(torch, d_wb, r_wb, what + " d_wb")
     e_dx, s_dx = max_diff(torch, dx, r_dx, what + " dx")
-    bound = 5e-5 if dtype == torch.float32 else BF16_REL
+    bound = f32_bound if dtype == torch.float32 else BF16_REL
     log(f"{what} d_wb max|d|={err:.3e} ({err / scale:.2e} of max|plain|), dx max|d|="
         f"{e_dx:.3e} ({e_dx / s_dx:.2e} of max|plain|)")
     if err > bound * scale or e_dx > bound * s_dx:
@@ -848,7 +863,8 @@ def wave_hessian(t, x):
     return h[:, :, None].astype(np.float32)
 
 
-def derivative_bounds(cfg, G, P, peak_mma, peak_f32, peak_bw, sobolev: bool, f32: bool = False):
+def derivative_bounds(cfg, G, P, peak_mma, peak_f32, peak_bw, sobolev: bool, f32: bool = False,
+                      tangent: bool = False):
     """(bound ms, bound_by, products GFLOP) of K6 (sobolev) or K5's reverse
     body at this shape in bf16. K6: three passes (forward, dW, dS) of the
     stacked chain's hidden and last products over all 1 + si streams, 3 x 2
@@ -860,6 +876,10 @@ def derivative_bounds(cfg, G, P, peak_mma, peak_f32, peak_bw, sobolev: bool, f32
     (si n + nm n^2 + n so))
     and so dx sweeps (2 G P (nm n^2 + n si) each), sine-with-derivative
     evaluations over the f32 peak, bytes of wb and x in, y and jac out.
+    ``tangent``: K5's tangent body (so >= si): the value stream's forward and
+    si tangent streams through the hidden and last products, 2 G P (si n +
+    (1 + si)(nm n^2 + n so)) (the first layer's tangents are W0's rows), and
+    per activation the sine with its slope and one product per tangent.
     ``f32``: the float32 K5 or K6, whose products must not use the tensor
     cores (no TF32), so products and activations together over the f32
     peak, and 4-byte inputs and outputs."""
@@ -871,6 +891,10 @@ def derivative_bounds(cfg, G, P, peak_mma, peak_f32, peak_bw, sobolev: bool, f32
         flops = 3 * 2 * G * P * (1 + si) * (nm * n * n + n * so) + 2 * 2 * G * P * si * n
         act = elems * (SINE_GRAD_FLOPS + SINE_GRAD2_FLOPS + 6 * si)
         nbytes = (4 if f32 else 2) * (2 * G * po + G * P * (si + so + si * so))
+    elif tangent:
+        flops = 2 * G * P * (si * n + (1 + si) * (nm * n * n + n * so))
+        act = elems * (SINE_GRAD_FLOPS + si)
+        nbytes = (4 if f32 else 2) * (G * po + G * P * (si + so + so * si))
     else:
         flops = 2 * G * P * (si * n + nm * n * n + n * so) + so * 2 * G * P * (nm * n * n + n * si)
         act = elems * SINE_GRAD_FLOPS
@@ -1020,11 +1044,13 @@ def main() -> int:
                      seed=140 + i)
     k2_err = check_k2(torch, flag_cfg, "siren", 32, 32768, torch.bfloat16, False, seed=12)
     check_k2(torch, flag_cfg, "siren", 32, 32768, torch.bfloat16, False, seed=12, simt=True)
-    # f32 at the flagship width over 262144 points a group: the weight grads
-    # sum that many f32 terms in another order than plain K2's, so the
+    # f32 at the flagship train shape (G=32 x P=32768, the float32-policy
+    # step's, so the kernel's splits and order of sums are the timed ones),
+    # unweighted as the step calls it and weighted: the weight grads sum
+    # 32768 f32 terms a group in another order than plain K2's, so the
     # fused backward's bound (K3's, the f32 K6's) holds there
-    k2f_err = check_k2(torch, flag_cfg, "siren", 8, 32768, torch.float32, False, seed=16,
-                       f32_bound=5e-5)
+    k2f_err = max(check_k2(torch, flag_cfg, "siren", 32, 32768, torch.float32, weighted,
+                           seed=16, f32_bound=5e-5) for weighted in (False, True))
     wb, x = chain_data(torch, flag_cfg, 32, 32768, torch.bfloat16, seed=13)
     tgt, w = side_data(torch, flag_cfg, 32, 32768, seed=13)[:2]
     before = _build.LAUNCHES["shapenet_mse_grads_tc"]
@@ -1035,6 +1061,17 @@ def main() -> int:
         raise AssertionError("K2 is not deterministic: two runs on one input differ")
     log("K2 flagship bf16 (G=32, P=32768, weighted, tensor cores): two runs give bitwise-equal "
         "loss and d_wb")
+    wb, x = chain_data(torch, flag_cfg, 32, 32768, torch.float32, seed=17)
+    tgt, w = side_data(torch, flag_cfg, 32, 32768, seed=17)[:2]
+    before = dict(_build.LAUNCHES)
+    runs = [shapenet_mse_grads_cuda(wb, x, tgt, flag_cfg, "siren", w) for _ in range(2)]
+    if (_build.LAUNCHES["shapenet_mse_grads"] != before["shapenet_mse_grads"] + 2
+            or _build.LAUNCHES["shapenet_mse_grads_tc"] != before["shapenet_mse_grads_tc"]):
+        raise AssertionError("the flagship f32 K2 runs did not take the CUDA-core kernel")
+    if not (torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])):
+        raise AssertionError("the f32 K2 is not deterministic: two runs on one input differ")
+    log("K2 flagship f32 (G=32, P=32768, weighted, CUDA cores): two runs give bitwise-equal "
+        "loss and d_wb")
     del wb, x, tgt, w, runs
 
     # ---- phase 2c: K3 against its plain version; autograd through K1 + K3
@@ -1042,6 +1079,16 @@ def main() -> int:
         for dtype in (torch.float32, torch.bfloat16):
             check_k3(torch, ShapeNetConfig(*args), variant, 3, 256, dtype, seed=i)
     k3_err = check_k3(torch, flag_cfg, "siren", 32, 32768, torch.bfloat16, seed=14)
+    # f32 at the flagship shape K3 is timed at (phase 4b)
+    k3f_err = check_k3(torch, flag_cfg, "siren", 32, 32768, torch.float32, seed=18,
+                       f32_bound=5e-5)
+    wb, x = chain_data(torch, flag_cfg, 32, 32768, torch.float32, seed=19)
+    g = side_data(torch, flag_cfg, 32, 32768, seed=19)[2]
+    runs = [shapenet_bwd_cuda(wb, x, g, flag_cfg, "siren") for _ in range(2)]
+    if not (torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])):
+        raise AssertionError("the f32 K3 is not deterministic: two runs on one input differ")
+    log("K3 flagship f32 (G=32, P=32768, CUDA cores): two runs give bitwise-equal d_wb and dx")
+    del wb, x, g, runs
     model = nif_tpu_torch.NIFMultiScale(FLAGSHIP_SHAPE, FLAGSHIP_PNET,
                                         mixed_policy=FLAGSHIP_POLICY, device="cuda", seed=0)
     rng = np.random.default_rng(1)
@@ -1069,6 +1116,40 @@ def main() -> int:
     # sine: the two paths' grads differ by 3-4% rel-L2 on the CPU at these widths.
     if worst > 0.15:
         raise AssertionError(f"fused and eager ParameterNet grads differ by rel-L2 {worst}")
+    # the float32 policy: the CUDA-core K1 forward and the f32 K3 backward,
+    # both exact-sine f32 like the eager chain
+    model_f32 = nif_tpu_torch.NIFMultiScale(FLAGSHIP_SHAPE, FLAGSHIP_PNET,
+                                            mixed_policy="float32", device="cuda", seed=0)
+    params = [p for _, p in model_f32.param_items()]
+    _build.reset_launches()
+    fused_grads = torch.autograd.grad(model_f32.apply_grouped(t_g, x_g), params, g_g)
+    torch.cuda.synchronize()
+    bwd_f32_path = dict(_build.LAUNCHES)
+    eager_grads = torch.autograd.grad(model_f32.apply_grouped(t_g, x_g, fused=False), params,
+                                      g_g)
+    if (bwd_f32_path["shapenet_bwd"] != 1 or bwd_f32_path["shapenet_fwd"] != 1
+            or bwd_f32_path["shapenet_fwd_tc"] != 0):
+        raise AssertionError(f"a float32 apply_grouped under autograd launched {bwd_f32_path}, "
+                             f"not one CUDA-core K1 and one K3")
+    worst = max(float(rel_l2(a, b)) for a, b in zip(fused_grads, eager_grads))
+    # the control: the same backward with K3's inputs rounded to bf16 (its
+    # bf16 instance), which the bound below must tell from an f32 K3
+    wb_c, _ = model_f32.pnet(model_f32._compute(t_g))
+    d_wb_bf = shapenet_bwd_cuda(wb_c.detach().bfloat16(), x_g.bfloat16(), g_g.bfloat16(),
+                                model_f32.cfg_shape_net, model_f32.shapenet_variant)[0]
+    control_grads = torch.autograd.grad(wb_c, params, d_wb_bf.float())
+    control = max(float(rel_l2(a, b)) for a, b in zip(control_grads, eager_grads))
+    log(f"apply_grouped backward on the card (G=8, P=4096, float32 policy): launches "
+        f"{bwd_f32_path}; ParameterNet grads fused (K1+K3) vs eager: worst rel-L2 {worst:.2e}; "
+        f"with a bf16 K3 in its place: {control:.2e}")
+    # both f32 with the true sine: only the order of the f32 sums and omega_0's
+    # rounding (folded into W0' on the fused path) differ (PERF.md §6: 1.85e-06)
+    if not all(bool(torch.isfinite(a).all()) for a in fused_grads) or worst > 1e-4:
+        raise AssertionError(f"float32 fused and eager ParameterNet grads differ by rel-L2 "
+                             f"{worst}")
+    if not control > 1e-4:
+        raise AssertionError(f"a bf16 K3 passes the float32 bound: rel-L2 {control}")
+    del model_f32, fused_grads, eager_grads, control_grads, wb_c, d_wb_bf
 
     # ---- phase 2d: K5 against its plain version (both bodies), and its determinism
     for i, (variant, args) in enumerate(CASES + JAC_EXTRA):
@@ -1305,7 +1386,6 @@ def main() -> int:
     if (mse_f32_launches["shapenet_mse_grads"] != 1 or mse_f32_launches["shapenet_mse_grads_tc"]
             or not np.isfinite(float(f32_mse_loss))):
         raise AssertionError(f"a float32 train step launched {mse_f32_launches}")
-    del f32_mse_trainer, f32_mse_state
     t_w, x_w, u_w = traveling_wave(16, 8192, seed=2)
     fmodel = nif_tpu_torch.NIFMultiScale(FLAGSHIP_SHAPE, FLAGSHIP_PNET, FLAGSHIP_POLICY,
                                          device="cuda", seed=1)
@@ -1765,10 +1845,31 @@ def main() -> int:
     k3_ms = cuda_ms(lambda: shapenet_bwd_cuda(wb, x, g, flag_cfg, "siren"), reps=10)
     k3_plain_ms = cuda_ms(lambda: shapenet_fused_bwd_reference(wb, x, g, flag_cfg, "siren"),
                           reps=3, warmup=1)
+    f32_in = (wb.float(), x.float(), g.float())
+    k3f_ms = cuda_ms(lambda: shapenet_bwd_cuda(*f32_in, flag_cfg, "siren"), reps=5, warmup=1)
+    k3f_plain_ms = cuda_ms(lambda: shapenet_fused_bwd_reference(*f32_in, flag_cfg, "siren"),
+                           reps=3, warmup=1)
+    del f32_in
+    # the float32 policy's step (the CUDA-core K2), on the device and the host clock
+    f32_box = [f32_mse_state]
+
+    def one_f32_step():
+        f32_box[0], _ = f32_mse_trainer.step(f32_box[0], t_tr, x_tr, u_tr)
+
+    f32_step_ms = cuda_ms(one_f32_step, reps=10)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        one_f32_step()
+        torch.cuda.synchronize()
+    f32_step_host_ms = (time.perf_counter() - t0) / 10 * 1e3
+    f32_stages = mse_step_stages(torch, f32_mse_trainer, f32_box[0], (t_tr, x_tr, u_tr))
+    del f32_mse_trainer, f32_mse_state, f32_box
     k2_bound, k2_by, k2_gf = train_bounds(flag_cfg, G, P, peak_mma, peak_f32, peak_bw, dx=False)
     k2f_bound, k2f_by, _ = train_bounds(flag_cfg, G, P, peak_mma, peak_f32, peak_bw, dx=False,
                                         f32=True)
     k3_bound, k3_by, k3_gf = train_bounds(flag_cfg, G, P, peak_mma, peak_f32, peak_bw, dx=True)
+    k3f_bound, k3f_by, _ = train_bounds(flag_cfg, G, P, peak_mma, peak_f32, peak_bw, dx=True,
+                                        f32=True)
     log(f"flagship train step (GroupedTrainer.step, Adam, bf16, G={G} P={P}): {step_ms:.4f} ms "
         f"= {G * P / step_ms * 1e3:.4e} train points/s; stages timed alone: "
         f"{', '.join(f'{k} {v:.4f} ms' for k, v in mstages.items())}")
@@ -1777,9 +1878,15 @@ def main() -> int:
         f"{k2_simt_ms:.4f} ms ({k2_simt_ms / k2_ms:.2f}x), plain {k2_plain_ms:.4f} ms, bound "
         f"{k2_bound:.4f} ms by {k2_by} ({k2_gf:.1f} GFLOP of products); K2 f32, CUDA cores: "
         f"{k2f_ms:.4f} ms, plain {k2f_plain_ms:.4f} ms, bound {k2f_bound:.4f} ms by {k2f_by} "
-        f"(f32 peak); K3 {k3_ms:.4f} ms, plain {k3_plain_ms:.4f} ms, bound {k3_bound:.4f} ms "
-        f"by {k3_by} ({k3_gf:.1f} GFLOP); library_ms null: no single PyTorch call computes "
-        f"these chains")
+        f"(f32 peak); K3 bf16 (CUDA cores) {k3_ms:.4f} ms, plain {k3_plain_ms:.4f} ms, bound "
+        f"{k3_bound:.4f} ms by {k3_by} ({k3_gf:.1f} GFLOP); K3 f32 {k3f_ms:.4f} ms, plain "
+        f"{k3f_plain_ms:.4f} ms, bound {k3f_bound:.4f} ms by {k3f_by} (f32 peak); library_ms "
+        f"null: no single PyTorch call computes these chains")
+    log(f"flagship train step, float32 policy (GroupedTrainer.step, Adam, the CUDA-core K2, "
+        f"G={G} P={P}): {f32_step_ms:.4f} ms on the device clock = "
+        f"{G * P / f32_step_ms * 1e3:.4e} train points/s, {f32_step_host_ms:.4f} ms on the host "
+        f"clock (each step synchronized); stages timed alone: "
+        f"{', '.join(f'{k} {v:.4f} ms' for k, v in f32_stages.items())}")
 
     # ---- phase 4c: Sobolev-step, K5 and K6 times at the flagship shape (bf16;
     # K6 also on the CUDA-core kernel on the same inputs, and in float32)
@@ -1813,6 +1920,26 @@ def main() -> int:
     k6f_plain_ms = cuda_ms(lambda: shapenet_sobolev_grads_reference(*f32_in, flag_cfg, "siren"),
                            reps=2, warmup=1)
     del wb, x, tgt, jt, f32_in
+    # K5's tangent body (so >= si; the CUDA-core kernel in both dtypes) at the
+    # flagship widths with so = 3
+    tan_cfg = ShapeNetConfig(3, 3, 128, 2, "sine", False, 30.0)
+    wb, x = chain_data(torch, tan_cfg, G, P, torch.bfloat16, seed=53)
+    before = dict(_build.LAUNCHES)
+    k5t_ms = cuda_ms(lambda: shapenet_fwd_jac_cuda(wb, x, tan_cfg, "siren"), reps=5, warmup=1)
+    if (_build.LAUNCHES["shapenet_fwd_jac"] != before["shapenet_fwd_jac"] + 6
+            or _build.LAUNCHES["shapenet_fwd_jac_tc"] != before["shapenet_fwd_jac_tc"]):
+        raise AssertionError("K5 at so = si did not take the CUDA-core tangent body")
+    k5t_plain_ms = cuda_ms(lambda: shapenet_fwd_jac_reference(wb, x, tan_cfg, "siren"), reps=2,
+                           warmup=1)
+    wbf, xf = wb.float(), x.float()
+    k5tf_ms = cuda_ms(lambda: shapenet_fwd_jac_cuda(wbf, xf, tan_cfg, "siren"), reps=5, warmup=1)
+    k5tf_plain_ms = cuda_ms(lambda: shapenet_fwd_jac_reference(wbf, xf, tan_cfg, "siren"),
+                            reps=2, warmup=1)
+    del wb, x, wbf, xf
+    k5t_bound, k5t_by, k5t_gf = derivative_bounds(tan_cfg, G, P, peak_mma, peak_f32, peak_bw,
+                                                  sobolev=False, tangent=True)
+    k5tf_bound, k5tf_by, _ = derivative_bounds(tan_cfg, G, P, peak_mma, peak_f32, peak_bw,
+                                               sobolev=False, f32=True, tangent=True)
     k5_bound, k5_by, k5_gf = derivative_bounds(flag_cfg, G, P, peak_mma, peak_f32, peak_bw,
                                                sobolev=False)
     k5f_bound, k5f_by, _ = derivative_bounds(flag_cfg, G, P, peak_mma, peak_f32, peak_bw,
@@ -1835,6 +1962,10 @@ def main() -> int:
         f"{k6_by} ({k6_gf:.1f} GFLOP); K6 f32, CUDA cores: {k6f_ms:.4f} ms, plain "
         f"{k6f_plain_ms:.4f} ms, bound {k6f_bound:.4f} ms by {k6f_by} (f32 peak); library_ms "
         f"null: no single PyTorch call computes these chains")
+    log(f"K5 (tangent body, si=3 so=3 n=128, CUDA cores) bf16: {k5t_ms:.4f} ms, plain "
+        f"{k5t_plain_ms:.4f} ms, bound {k5t_bound:.4f} ms by {k5t_by} ({k5t_gf:.1f} GFLOP of "
+        f"products); f32: {k5tf_ms:.4f} ms, plain {k5tf_plain_ms:.4f} ms, bound "
+        f"{k5tf_bound:.4f} ms by {k5tf_by} (f32 peak); no main path launches it")
 
     # ---- phase 4d: Hessian-step, K7 and K8 times at the flagship shape (bf16)
     hbox = [hstate]
@@ -1986,6 +2117,18 @@ def main() -> int:
         "plain_ms": k3_plain_ms,
         "bound_ms": k3_bound,
         "bound_by": k3_by,
+        "library_ms": None,
+    }, {
+        "name": "shapenet_bwd_f32",
+        "route": "cuda",
+        "source": "nif_tpu_torch/csrc/shapenet_bwd.cu",
+        "replaces": "nif_tpu/ops/pallas_shapenet.py:702",
+        "launches": bwd_f32_path["shapenet_bwd"],
+        "max_abs_err": k3f_err,
+        "ms": k3f_ms,
+        "plain_ms": k3f_plain_ms,
+        "bound_ms": k3f_bound,
+        "bound_by": k3f_by,
         "library_ms": None,
     }, {
         "name": "shapenet_fwd_jac",

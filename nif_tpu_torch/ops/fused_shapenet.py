@@ -607,12 +607,12 @@ def _bwd_library() -> ctypes.CDLL:
     lib = _build.load_library("shapenet_bwd")
     if lib.nif_shapenet_mse_grads.argtypes is None:
         c_int, ptr, c_ll = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
-        shape = [c_int] * 8 + [c_ll, c_ll, ctypes.c_float, c_int, ptr]
+        shape = [c_int] * 8 + [c_ll] * 3 + [ctypes.c_float, c_int, ptr]
         lib.nif_shapenet_mse_grads.argtypes = [ptr] * 8 + shape
         lib.nif_shapenet_mse_grads.restype = c_int
         lib.nif_shapenet_bwd.argtypes = [ptr] * 7 + shape
         lib.nif_shapenet_bwd.restype = c_int
-        lib.nif_shapenet_bwd_workspace.argtypes = [c_int] * 7 + [ptr] * 5
+        lib.nif_shapenet_bwd_workspace.argtypes = [c_int] * 8 + [ptr] * 5
         lib.nif_shapenet_bwd_workspace.restype = c_int
         lib.nif_cuda_error_string.argtypes = [c_int]
         lib.nif_cuda_error_string.restype = ctypes.c_char_p
@@ -709,19 +709,22 @@ def k2_geometry(cfg: ShapeNetConfig, variant: str, G: int, P: int, dtype: torch.
             raise ValueError(f"the tensor-core K2 cannot take {cfg} at G={G}, P={P} "
                              f"(geometry status {status})")
         return geo
-    return {"kernel": "simt", **train_geometry(cfg, G, P, dtype)}
+    return {"kernel": "simt", **train_geometry(cfg, G, P, dtype, variant)}
 
 
-def train_geometry(cfg: ShapeNetConfig, G: int, P: int, dtype: torch.dtype) -> dict:
+def train_geometry(cfg: ShapeNetConfig, G: int, P: int, dtype: torch.dtype,
+                   variant: str = "siren") -> dict:
     """The launch geometry the CUDA-core K2 and K3 take for ``[G, P]`` at
-    this width and dtype, from the kernels' library (it needs nvcc): points per tile, P
-    splits per group, shared memory per block, whether the residuals of a
-    tile sit in shared memory or in a per-block global scratch, and the
-    workspace sizes the wrappers allocate."""
+    this width, chain and dtype, from the kernels' library (it needs nvcc):
+    points per tile, P splits per group (SMs / G, one block per SM),
+    shared memory per block, whether the residuals of a tile sit in shared
+    memory or in a per-block global scratch, and the workspace sizes the
+    wrappers allocate."""
     tile, splits = ctypes.c_int(), ctypes.c_int()
     smem, partial_floats, scratch = ctypes.c_longlong(), ctypes.c_longlong(), ctypes.c_longlong()
     status = _bwd_library().nif_shapenet_bwd_workspace(
-        cfg.units, cfg.input_dim, cfg.output_dim, _n_mats(cfg), G, P, _DTYPE_CODES[dtype],
+        cfg.units, cfg.input_dim, cfg.output_dim, _n_mats(cfg), _chain_code(cfg, variant), G, P,
+        _DTYPE_CODES[dtype],
         ctypes.byref(tile), ctypes.byref(splits), ctypes.byref(smem),
         ctypes.byref(partial_floats), ctypes.byref(scratch))
     if status != 0:
@@ -833,13 +836,11 @@ def _shapenet_fwd_simt(wb: torch.Tensor, x: torch.Tensor, cfg: ShapeNetConfig,
     return _launch_k1(False, wb, x, cfg, variant)
 
 
-def _workspace(cfg: ShapeNetConfig, x: torch.Tensor):
-    """The f32 partials (weight grads and loss per group and P split) and
-    the residual scratch K2/K3 need, allocated on x's device."""
-    geo = train_geometry(cfg, x.shape[0], x.shape[1], x.dtype)
-    partials = torch.empty(geo["partial_floats"], dtype=torch.float32, device=x.device)
-    scratch = torch.empty(max(geo["scratch_bytes"], 1), dtype=torch.uint8, device=x.device)
-    return partials, scratch
+def _simt_weights(wbp: torch.Tensor) -> torch.Tensor:
+    """wb' as the CUDA-core K2/K3 read it: f32 (a bf16 value is exact in
+    f32), rows padded to a multiple of 4 floats so every group's W_m stages
+    with 16-byte cp.async copies."""
+    return F.pad(wbp.float(), (0, -wbp.shape[1] % 4)).contiguous()
 
 
 def _shape_args(cfg: ShapeNetConfig, variant: str, x: torch.Tensor, po: int):
@@ -874,11 +875,13 @@ def _launch_k2(tensor_cores: bool, wb: torch.Tensor, x: torch.Tensor, target: to
             status, geo = _k2_tc_status(cfg, variant, G, P)
             geo = geo if status == 0 else None
         if geo is None:
-            geo = {"kernel": "simt", **train_geometry(cfg, G, P, x.dtype)}
+            geo = {"kernel": "simt", **train_geometry(cfg, G, P, x.dtype, variant)}
         kernel = geo["kernel"]
         wbp = _prescale(wb, cfg, variant).contiguous()
         if kernel == "tc":  # rows padded to 16 bytes, so every group's W_m stages with cp.async
             wbp = F.pad(wbp, (0, -wbp.shape[1] % 8))
+        else:
+            wbp = _simt_weights(wbp)
         x = x.contiguous()
         target = target.to(x.dtype).contiguous()
         weight = None if weight is None else weight.to(x.dtype).contiguous()
@@ -889,12 +892,13 @@ def _launch_k2(tensor_cores: bool, wb: torch.Tensor, x: torch.Tensor, target: to
         args = (wbp.data_ptr(), x.data_ptr(), target.data_ptr(),
                 None if weight is None else weight.data_ptr(), loss.data_ptr(), d_wb.data_ptr(),
                 partials.data_ptr(), scratch.data_ptr())
+        # (G, P, si, so, n, n_mats, chain, act, po), wb_ld, n_scaled, omega[, dtype]
         shape = _shape_args(cfg, variant, x, wb.shape[1])
-        if kernel == "tc":  # (G, P, si, so, n, n_mats, chain, act, po), wb_ld, n_scaled, omega
+        if kernel == "tc":
             err = lib.nif_shapenet_mse_grads_tc(*args, *shape[:9], wbp.shape[1], *shape[9:11],
                                                 stream)
         else:
-            err = lib.nif_shapenet_mse_grads(*args, *shape, stream)
+            err = lib.nif_shapenet_mse_grads(*args, *shape[:9], wbp.shape[1], *shape[9:], stream)
     _raise_on_error(lib, "shapenet_mse_grads", err)
     _build.LAUNCHES["shapenet_mse_grads"] += 1
     if kernel == "tc":
@@ -937,16 +941,19 @@ def shapenet_bwd_cuda(wb: torch.Tensor, x: torch.Tensor, g_out: torch.Tensor,
     dx = torch.empty_like(x, memory_format=torch.contiguous_format)
     if G == 0 or P == 0:
         return d_wb.zero_(), dx
-    wbp = _prescale(wb, cfg, variant).contiguous()
+    wbp = _simt_weights(_prescale(wb, cfg, variant))
     x = x.contiguous()
     g_out = g_out.to(x.dtype).contiguous()
-    partials, scratch = _workspace(cfg, x)
     lib = _bwd_library()
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(x.device):  # the geometry reads this device's SM count
+        geo = train_geometry(cfg, G, P, x.dtype, variant)
+        partials = torch.empty(geo["partial_floats"], dtype=torch.float32, device=x.device)
+        scratch = torch.empty(max(geo["scratch_bytes"], 1), dtype=torch.uint8, device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
+        shape = _shape_args(cfg, variant, x, wb.shape[1])
         err = lib.nif_shapenet_bwd(
             wbp.data_ptr(), x.data_ptr(), g_out.data_ptr(), d_wb.data_ptr(), dx.data_ptr(),
-            partials.data_ptr(), scratch.data_ptr(), *_shape_args(cfg, variant, x, wb.shape[1]),
+            partials.data_ptr(), scratch.data_ptr(), *shape[:9], wbp.shape[1], *shape[9:],
             stream,
         )
     _raise_on_error(lib, "shapenet_bwd", err)

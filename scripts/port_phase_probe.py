@@ -1,25 +1,32 @@
 #!/usr/bin/env python3
-"""Where a tensor-core kernel spends its time, phase by phase, on a CUDA
-card: K1 or K5's reverse body (``nif_tpu_torch/csrc/shapenet_fwd_tc.cu``), K2
-(``csrc/shapenet_bwd_tc.cu``), K4 (``csrc/shapenet_linear_tc.cu``), K6
-(``csrc/shapenet_jac_tc.cu``), K7 or K8 (``csrc/shapenet_hess_tc.cu``).
+"""Where a hand-written kernel spends its time, phase by phase, on a CUDA
+card: the tensor-core K1 or K5's reverse body
+(``nif_tpu_torch/csrc/shapenet_fwd_tc.cu``), K2 (``csrc/shapenet_bwd_tc.cu``),
+K4 (``csrc/shapenet_linear_tc.cu``), K6 (``csrc/shapenet_jac_tc.cu``), K7 or
+K8 (``csrc/shapenet_hess_tc.cu``), or the float32 K2 or K3 on the CUDA cores
+(``csrc/shapenet_bwd.cu``).
 
-    python3 scripts/port_phase_probe.py [--kernel k1|k2|k4|k5|k6|k7|k8] [--ablate]
-                                        [--one-block]
+    python3 scripts/port_phase_probe.py [--kernel k1|k2|k2f32|k3f32|k4|k5|k6|k7|k8]
+                                        [--ablate] [--one-block]
 
 Builds the kernel's source once more with ``-DK1_PHASE_CLOCKS``,
-``-DK2_PHASE_CLOCKS``, ``-DK4_PHASE_CLOCKS``, ``-DK5_PHASE_CLOCKS``,
-``-DK6_PHASE_CLOCKS``, ``-DK7_PHASE_CLOCKS`` or ``-DK8_PHASE_CLOCKS`` (into
+``-DK2_PHASE_CLOCKS``, ``-DK2F_PHASE_CLOCKS`` (k2f32, k3f32),
+``-DK4_PHASE_CLOCKS``, ``-DK5_PHASE_CLOCKS``, ``-DK6_PHASE_CLOCKS``,
+``-DK7_PHASE_CLOCKS`` or ``-DK8_PHASE_CLOCKS`` (into
 ``build/nif_tpu_torch/probe/``), in which thread 0 of every block adds the
-``clock64()`` cycles between consecutive barriers into phase counters (four
-for K1 and K7, eight for the others), and runs it through the usual wrapper
-at the kernel's flagship shape (G=32, P=32768, bf16, random weights from a
-seed: the NIF-linear trunk for K4, the flagship chain alone for K1, K5 and
-K7, with targets and point weights for K2, with Jacobian targets for K6,
-and with Jacobian and Hessian targets for K8). Prints the kernel's time
-(CUDA events, the instrumented build beside the plain one) and each phase's
-share of the blocks' critical path. The counters cost a few instructions at
-each barrier; the plain build's time says how much. Nothing is asserted.
+``clock64()`` cycles between consecutive marks into phase counters (four
+for K1 and K7, ten for the float32 K2/K3, eight for the others), and runs it
+through the usual wrapper at the kernel's flagship shape (G=32, P=32768,
+bf16, random weights from a seed: the NIF-linear trunk for K4, the flagship
+chain alone for K1, K5 and K7, with targets and point weights for K2, with
+Jacobian targets for K6, and with Jacobian and Hessian targets for K8;
+float32 for k2f32, with targets and point weights, and k3f32, with an
+output cotangent). Prints the kernel's time (CUDA events, the instrumented
+build beside the plain one) and each phase's share of the blocks' critical
+path; for k2f32 and k3f32 also the plain build's ptxas lines and the device
+time of each kernel of a call (``torch.profiler``: the main kernel and the
+split reduce). The counters cost a few instructions at each mark; the plain
+build's time says how much. Nothing is asserted.
 
 With ``--kernel k1 --one-block`` it also builds a variant of the source (a
 text edit of a copy, as the ablations are) with K1 on 128-point tiles at up
@@ -55,6 +62,23 @@ from nif_tpu_torch.ops import fused_hessian as fh  # noqa: E402
 from nif_tpu_torch.ops import fused_linear as fl  # noqa: E402
 from nif_tpu_torch.ops import fused_shapenet as fs  # noqa: E402
 from nif_tpu_torch.utils.bench import FLAGSHIP_SHAPE, cuda_ms  # noqa: E402
+
+# The phases of the CUDA-core K2/K3 body (csrc/shapenet_bwd.cu)
+SIMT_PHASES = [
+    "x tile + first layer",
+    "hidden forward products",
+    "hidden forward epilogues (thread 0's)",
+    "last product + loss (or g_out)",
+    "last layer's backward (dW_l, db_l, du)",
+    "dz epilogues",
+    "hidden dW + db (partial updates included)",
+    "du products",
+    "first layer's backward (dW0, db0, dx)",
+    "the group's loss partial (and set-up)",
+]
+
+# The longest counter array a C entry copies out (shapenet_bwd.cu's kPhases)
+COUNTER_ROOM = 10
 
 # source, its define, its counter entry, and the phases in counter order
 KERNELS = {
@@ -110,6 +134,8 @@ KERNELS = {
         "last product",
         "y, jac, hp stores (and the group's set-up)",
     ]),
+    "k2f32": ("shapenet_bwd", "K2F_PHASE_CLOCKS", "nif_bwd_phase_cycles", SIMT_PHASES),
+    "k3f32": ("shapenet_bwd", "K2F_PHASE_CLOCKS", "nif_bwd_phase_cycles", SIMT_PHASES),
     "k8": ("shapenet_hess_tc", "K8_PHASE_CLOCKS", "nif_hess_tc_phase_cycles", [
         "x tile + first layer (all streams)",
         "hidden forward (products + epilogues)",
@@ -124,16 +150,19 @@ KERNELS = {
 
 
 def build_probe(name: str, define: str, entry: str) -> ctypes.CDLL:
-    out = _build.BUILD_DIR / "probe" / f"lib{name}_phases.so"
+    """The source built with ``-D<define>``, named by its library's hash, so
+    a second run on the same sources (k3f32 after k2f32) reuses it."""
+    out = _build.BUILD_DIR / "probe" / f"{_build._target(name).stem}-{define}.so"
     out.parent.mkdir(parents=True, exist_ok=True)
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, f"-D{define}", "-o", str(out),
-                           str(_build.CSRC / f"{name}.cu")],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed:\n{proc.stdout}")
-    for line in proc.stdout.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"probe build ptxas: {line.strip()}")
+    if not out.exists():
+        proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, f"-D{define}", "-o", str(out),
+                               str(_build.CSRC / f"{name}.cu")],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed:\n{proc.stdout}")
+        for line in proc.stdout.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"probe build ptxas: {line.strip()}")
     lib = ctypes.CDLL(str(out))
     getattr(lib, entry).argtypes = [ctypes.c_void_p]
     getattr(lib, entry).restype = ctypes.c_int
@@ -239,6 +268,40 @@ def k2_case(G: int, P: int):
     return lambda: fs.shapenet_mse_grads_cuda(wb, x, tgt, cfg, "siren", w), geo
 
 
+def k2f32_case(G: int, P: int):
+    """The float32 K2's launcher and geometry at the flagship chain (the
+    CUDA-core kernel, as the float32 policy's train step runs it)."""
+    cfg = ShapeNetConfig.from_dict(FLAGSHIP_SHAPE)
+    wb, x = chip_smoke.chain_data(torch, cfg, G, P, torch.float32, seed=204)
+    tgt, w, _ = chip_smoke.side_data(torch, cfg, G, P, seed=204)
+    geo = fs.k2_geometry(cfg, "siren", G, P, torch.float32)
+    return lambda: fs.shapenet_mse_grads_cuda(wb, x, tgt, cfg, "siren", w), geo
+
+
+def k3f32_case(G: int, P: int):
+    """The float32 K3's launcher and geometry at the flagship chain."""
+    cfg = ShapeNetConfig.from_dict(FLAGSHIP_SHAPE)
+    wb, x = chip_smoke.chain_data(torch, cfg, G, P, torch.float32, seed=208)
+    g = chip_smoke.side_data(torch, cfg, G, P, seed=208)[2]
+    geo = fs.train_geometry(cfg, G, P, torch.float32)
+    return lambda: fs.shapenet_bwd_cuda(wb, x, g, cfg, "siren"), geo
+
+
+def device_split(run, reps: int) -> None:
+    """Device time per kernel name over ``reps`` calls (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    for ev in sorted(prof.key_averages(), key=lambda e: -e.device_time_total):
+        if ev.device_time_total > 0:
+            print(f"  device: {ev.key[:60]:60s} {ev.device_time_total / reps:10.1f} us a call")
+
+
 def k4_case(G: int, P: int):
     """K4's launcher and (tile, splits) at the flagship NIF-linear trunk."""
     cfg, so, ws, bs, a, bias, x, tgt, _ = chip_smoke.linear_data(
@@ -294,16 +357,22 @@ def main() -> int:
     print(f"card: {smi}")
     name, define, entry, phases = KERNELS[args.kernel]
     G, P = 32, 32768
-    cases = {"k1": k1_case, "k2": k2_case, "k4": k4_case, "k5": k5_case, "k6": k6_case,
-             "k7": k7_case, "k8": k8_case}
+    cases = {"k1": k1_case, "k2": k2_case, "k2f32": k2f32_case, "k3f32": k3f32_case,
+             "k4": k4_case, "k5": k5_case, "k6": k6_case, "k7": k7_case, "k8": k8_case}
     run, geo = cases[args.kernel](G, P)
     reps = 3 if args.kernel == "k8" else 10
     plain_build_ms = cuda_ms(run, reps=reps, warmup=1)
     # registers the argument types of the library now in _build._LIBS
     argtypes = {"k1": fs._fwd_tc_library, "k2": fs._bwd_tc_library,
+                "k2f32": fs._bwd_library, "k3f32": fs._bwd_library,
                 "k4": lambda: fl._library("tc"), "k5": fs._fwd_tc_library,
                 "k6": lambda: fd._library("tc"), "k7": lambda: fh._library("tc"),
                 "k8": lambda: fh._library("tc")}[args.kernel]
+    if name == "shapenet_bwd":
+        for line in _build.BUILD_LOGS.get(name, "").splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"plain build ptxas: {line.strip()}")
+        device_split(run, reps)
     if args.ablate:
         ablate(name, argtypes, run)
     if args.one_block:
@@ -311,19 +380,23 @@ def main() -> int:
     probe = build_probe(name, define, entry)
     _build._LIBS[name] = probe  # the wrapper now launches the probe build
     argtypes()
-    counters = (ctypes.c_ulonglong * 8)()  # room for every kernel's counters
+    # each C entry copies its source's whole counter array (kPhases, up to
+    # ten), which may hold more counters than the kernel's phases use
+    buf = (ctypes.c_ulonglong * COUNTER_ROOM)()
     read = getattr(probe, entry)
     run()
     torch.cuda.synchronize()
-    read(counters)  # drop the warm-up's counts
+    read(buf)  # drop the warm-up's counts
     probe_ms = cuda_ms(run, reps=reps, warmup=0)
-    err = read(counters)
+    err = read(buf)
     if err:
         raise RuntimeError(f"reading the phase counters failed: CUDA error {err}")
+    counters = list(buf)[:len(phases)]
     blocks = G * geo["splits"]
     tiles = -(-P // geo["tile"]) / geo["splits"]
     total = sum(counters)
-    print(f"{args.kernel.upper()} tc at G={G} P={P} bf16: {plain_build_ms:.4f} ms (plain build), "
+    what = "f32, CUDA cores" if name == "shapenet_bwd" else "tc bf16"
+    print(f"{args.kernel.upper()} {what} at G={G} P={P}: {plain_build_ms:.4f} ms (plain build), "
           f"{probe_ms:.4f} ms (phase-clock build); {blocks} blocks of {tiles:.0f} "
           f"{geo['tile']}-point tiles")
     print(f"critical path of one block: {total / blocks / reps:.0f} cycles a call, "

@@ -52,12 +52,14 @@ def test_port_sources_include_what_they_use():
     assert "mma_sm90.cuh" not in {p.name for p in _build._sources("shapenet_linear")}
 
 
-# Each tensor-core header and the sources that include it, directly or not.
+# Each tensor-core header and the sources that include it, directly or not:
+# the tensor-core sources, and the CUDA-core K2/K3 body (shapenet_bwd), whose
+# bf16 instances take the bf16 sine from stack_tc.cuh.
 TC_USERS = {
     "mma_sm90.cuh": {"shapenet_bwd_tc", "shapenet_fwd_tc", "shapenet_hess_tc",
-                     "shapenet_jac_tc", "shapenet_linear_tc"},
+                     "shapenet_jac_tc", "shapenet_linear_tc", "shapenet_bwd"},
     "stack_tc.cuh": {"shapenet_bwd_tc", "shapenet_fwd_tc", "shapenet_hess_tc",
-                     "shapenet_jac_tc"},
+                     "shapenet_jac_tc", "shapenet_bwd"},
 }
 TC_HEADERS = set(TC_USERS)
 
@@ -101,13 +103,13 @@ def test_k6_tensor_core_sources():
 
 def test_k2_tensor_core_sources():
     """The tensor-core K2 builds against the same headers as the tensor-core
-    K7 and K8; the CUDA-core K2/K3 library includes no tensor-core header,
-    so an edit to one rebuilds the tensor-core libraries and not it, and
-    each library defines the entries its wrapper loads."""
+    K7 and K8; the CUDA-core K2/K3 library includes them too (its bf16
+    instances take stack_tc.cuh's bf16 sine), so an edit to one rebuilds
+    both, and each library defines the entries its wrapper loads."""
     names = {p.name for p in _build._sources("shapenet_bwd_tc")}
     assert names == {"shapenet_bwd_tc.cu", "stack_tc.cuh", "mma_sm90.cuh",
                      "shapenet_common.cuh"}
-    assert not TC_HEADERS & {p.name for p in _build._sources("shapenet_bwd")}
+    assert TC_HEADERS <= {p.name for p in _build._sources("shapenet_bwd")}
     assert {"nif_shapenet_mse_tc_workspace", "nif_shapenet_mse_grads_tc"} <= _entries(
         "shapenet_bwd_tc")
     assert {"nif_shapenet_mse_grads", "nif_shapenet_bwd"} <= _entries("shapenet_bwd")
@@ -131,12 +133,51 @@ def test_k1_k5_tensor_core_sources():
     assert {"nif_shapenet_fwd_jac", "nif_shapenet_jac_workspace"} <= _entries("shapenet_jac")
 
 
+def test_k2_k3_cuda_core_sources():
+    """The CUDA-core K2/K3 body builds against its own f32 tile header, the
+    shared one and stack_tc.cuh (one bf16 sine for every fused kernel on
+    Hopper, with what it includes); no other library includes the f32 tile
+    header, so an edit to it rebuilds this library alone; the library
+    defines the entries its wrapper loads."""
+    names = {p.name for p in _build._sources("shapenet_bwd")}
+    assert names == {"shapenet_bwd.cu", "stack_simt.cuh", "stack_tc.cuh", "mma_sm90.cuh",
+                     "shapenet_common.cuh"}
+    users = {path.stem for path in _build.CSRC.glob("*.cu")
+             if "stack_simt.cuh" in {p.name for p in _build._sources(path.stem)}}
+    assert users == {"shapenet_bwd"}
+    assert {"nif_shapenet_bwd_workspace", "nif_shapenet_mse_grads",
+            "nif_shapenet_bwd"} <= _entries("shapenet_bwd")
+
+
+def test_simt_header_edit_renames_only_the_k2_k3_library(tmp_path, monkeypatch):
+    """On a copy of the port's sources: editing the f32 tile header renames
+    the CUDA-core K2/K3 library and no other."""
+    for path in _build.CSRC.iterdir():
+        (tmp_path / path.name).write_bytes(path.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    names = sorted(path.stem for path in tmp_path.glob("*.cu"))
+    before = {name: _build._target(name) for name in names}
+    header = tmp_path / "stack_simt.cuh"
+    header.write_text(header.read_text() + "// edited\n")
+    assert {name for name in names if _build._target(name) != before[name]} == {"shapenet_bwd"}
+
+
+def test_phase_probe_reads_every_counter_array():
+    """The phase probe's counter buffer holds the longest array a probe
+    build's C entry copies out, so no read runs past it."""
+    probe = (_build.CSRC.parents[1] / "scripts" / "port_phase_probe.py").read_text()
+    room = int(re.search(r"^COUNTER_ROOM = (\d+)$", probe, re.MULTILINE).group(1))
+    counts = [int(n) for path in _build.CSRC.glob("*.cu")
+              for n in re.findall(r"constexpr int kPhases = (\d+);", path.read_text())]
+    assert counts and room >= max(counts)
+
+
 @pytest.mark.parametrize("header", sorted(TC_HEADERS))
 def test_tensor_core_header_edit_renames_only_the_tensor_core_libraries(header, tmp_path,
                                                                        monkeypatch):
     """On a copy of the port's sources: editing a tensor-core header renames
-    the libraries of the tensor-core sources that include it, and no
-    CUDA-core one."""
+    the libraries of the tensor-core sources that include it, and of the
+    CUDA-core K2/K3 body (its bf16 sine), and no other CUDA-core one."""
     for path in _build.CSRC.iterdir():
         (tmp_path / path.name).write_bytes(path.read_bytes())
     monkeypatch.setattr(_build, "CSRC", tmp_path)

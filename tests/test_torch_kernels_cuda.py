@@ -240,18 +240,23 @@ def test_k2_k3_ragged_tiles_and_determinism(card):
 
 
 def test_train_geometry(card):
-    """At the flagship width the bf16 residuals of a 64-point tile fit in
-    shared memory; f32 ones live in the per-block global scratch."""
+    """At the flagship width the f32 planes of a 64-point tile (the residuals
+    of the CUDA-core K2/K3, in f32 for both dtypes) fit in shared memory
+    beside the weight buffers, and the grid is one wave of one block per SM;
+    a third hidden layer, or width 512, puts them in the per-block global
+    scratch."""
     cfg = ShapeNetConfig(3, 1, 128, 2, "sine", False, 30.0)
-    bf16 = fs.train_geometry(cfg, 32, 32768, torch.bfloat16)
-    f32 = fs.train_geometry(cfg, 32, 32768, torch.float32)
-    assert (bf16["tile"], bf16["splits"], bf16["residuals"]) == (64, 8, "shared")
-    assert (f32["residuals"], bf16["scratch_bytes"]) == ("global", 0) and f32["scratch_bytes"] > 0
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for dtype in (torch.float32, torch.bfloat16):
+        geo = fs.train_geometry(cfg, 32, 32768, dtype)
+        assert (geo["tile"], geo["splits"], geo["residuals"], geo["scratch_bytes"]) == (
+            64, sms // 32, "shared", 0)
+        assert geo["smem_bytes"] <= 232448
     assert fs.train_geometry(cfg, 2, 100, torch.bfloat16)["splits"] == 2
-    # bf16 at width 256: four hidden layers fit beside the dz tile, five do not
-    deep = lambda l: ShapeNetConfig(3, 1, 256, l, "sine", False, 30.0)  # noqa: E731
-    assert fs.train_geometry(deep(4), 2, 64, torch.bfloat16)["residuals"] == "shared"
-    assert fs.train_geometry(deep(5), 2, 64, torch.bfloat16)["residuals"] == "global"
+    deep = lambda n, l: ShapeNetConfig(3, 1, n, l, "sine", False, 30.0)  # noqa: E731
+    geo = fs.train_geometry(deep(128, 3), 2, 64, torch.float32)
+    assert geo["residuals"] == "global" and geo["scratch_bytes"] > 0
+    assert fs.train_geometry(deep(512, 2), 2, 64, torch.float32)["residuals"] == "global"
 
 
 def test_train_wrappers_refuse_what_they_cannot_take(card):
@@ -315,13 +320,16 @@ def test_model_train_step_on_the_card_launches_k2(card):
 
 
 # Widths past the flagship run the wider template instances (8, 16 and 32
-# columns per thread; TP = 32, 16 and 8 points per tile) and, for the deep
-# resblock chain and every f32 chain here, the residuals in global scratch.
+# columns per thread; TP = 32, 16 and 8 points per tile); the last two
+# chains keep the CUDA-core K2/K3's residuals in the global scratch in both
+# dtypes (bf16 K3 on both, the bf16 CUDA-core K2 on the vanilla chain).
 WIDE = [
     ("siren", (3, 1, 256, 2, "sine", False, 30.0)),
     ("siren", (3, 1, 128, 2, "sine", True, 30.0)),
     ("siren", (2, 2, 512, 1, "sine", False, 30.0)),
     ("vanilla", (3, 2, 1024, 1, "tanh")),
+    ("siren", (3, 1, 128, 3, "sine", False, 30.0)),
+    ("vanilla", (3, 2, 1024, 2, "tanh")),
 ]
 
 
@@ -972,6 +980,68 @@ def test_k2_tc_padded_and_ragged_shapes(card, args, weighted):
     assert float(loss) == pytest.approx(float(l_ref), rel=1e-3)
     err, scale = _max_diff(d_wb, g_ref)
     assert err <= 2.0 ** -6 * scale, (err, scale)
+
+
+# The float32 K2/K3 body (csrc/shapenet_bwd.cu on stack_simt.cuh) on what
+# sets its tile apart: the flagship width with a ragged last tile (P = 200,
+# and P = 32768 + 40 at the flagship's scale), width 512 (the planes in the
+# global scratch), 1024 (the widest), resblock and vanilla chains, so = 3,
+# and width 50 (no multiple of 4: 4-byte weight copies, scalar partials).
+SIMT_F32 = [
+    ("siren", (3, 1, 128, 2, "sine", False, 30.0), 3, 200),
+    ("siren", (3, 1, 128, 2, "sine", False, 30.0), 2, 32768 + 40),
+    ("siren", (3, 1, 512, 2, "sine", False, 30.0), 2, 200),
+    ("vanilla", (3, 2, 1024, 1, "tanh"), 2, 200),
+    ("siren", (3, 1, 128, 2, "sine", True, 30.0), 3, 200),
+    ("vanilla", (2, 3, 128, 2, "swish"), 3, 200),
+    ("siren", (3, 3, 128, 2, "sine", False, 30.0), 3, 200),
+    ("siren", (2, 1, 50, 2, "sine", False, 30.0), 3, 200),
+]
+
+
+@pytest.mark.parametrize("variant,args,G,P", SIMT_F32,
+                         ids=["n128-p200", "n128-flagship-p", "n512-global", "n1024-vanilla",
+                              "n128-res", "n128-vanilla-so3", "n128-so3", "n50"])
+def test_simt_k2_k3_float32_shapes(card, variant, args, G, P):
+    """The float32 K2 (with point weights) and K3 against their plain
+    versions: loss rel 1e-5, d_wb and dx within 5e-6 of max|plain| at P =
+    200 and 5e-5 at the flagship's 32808 points (f32 sums over that many
+    terms in another order); one CUDA-core launch a call; two runs give the
+    same bits."""
+    cfg = ShapeNetConfig(*args)
+    wb, x = _data(cfg, G, P, torch.float32, seed=36)
+    tgt, w, g = _side(cfg, G, P, torch.float32, seed=36)
+    bound = 5e-6 if P <= 200 else 5e-5
+    before = dict(_build.LAUNCHES)
+    runs = [fs.shapenet_mse_grads_cuda(wb, x, tgt, cfg, variant, w) for _ in range(2)]
+    assert _build.LAUNCHES["shapenet_mse_grads"] == before["shapenet_mse_grads"] + 2
+    assert _build.LAUNCHES["shapenet_mse_grads_tc"] == before["shapenet_mse_grads_tc"]
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+    l_ref, g_ref = fs.shapenet_mse_grads_reference(wb, x, tgt, cfg, variant, w)
+    assert float(runs[0][0]) == pytest.approx(float(l_ref), rel=1e-5)
+    err, scale = _max_diff(runs[0][1], g_ref)
+    assert err <= bound * scale, (err, scale)
+    before = _build.LAUNCHES["shapenet_bwd"]
+    bwd = [fs.shapenet_bwd_cuda(wb, x, g, cfg, variant) for _ in range(2)]
+    assert _build.LAUNCHES["shapenet_bwd"] == before + 2
+    assert torch.equal(bwd[0][0], bwd[1][0]) and torch.equal(bwd[0][1], bwd[1][1])
+    r_wb, r_dx = fs.shapenet_fused_bwd_reference(wb, x, g, cfg, variant)
+    for mine, ref in ((bwd[0][0], r_wb), (bwd[0][1], r_dx)):
+        err, scale = _max_diff(mine, ref)
+        assert err <= bound * scale, (err, scale)
+
+
+def test_simt_geometry_by_width(card):
+    """Every width the CUDA-core K2/K3 took before runs on it: 8 rows a
+    thread up to width 128 (128- and 64-point tiles), then 32, 16 and 8
+    points up to width 1024; 1025 is refused."""
+    tiles = {16: 128, 32: 128, 64: 128, 128: 64, 256: 32, 512: 16, 1024: 8}
+    for n, tile in tiles.items():
+        cfg = ShapeNetConfig(3, 1, n, 1, "sine", False, 30.0)
+        assert fs.train_geometry(cfg, 2, 1000, torch.float32)["tile"] == tile, n
+    with pytest.raises(ValueError, match="status 1"):
+        fs.train_geometry(ShapeNetConfig(3, 1, 1025, 1, "sine", False, 30.0), 2, 1000,
+                          torch.float32)
 
 
 def test_k2_cuda_core_kernel_on_bf16_inputs(card):
