@@ -105,8 +105,10 @@ Phases of the Hessian slice:
    the tensor-core kernel also on the shapes of ``HESS_TC_EXTRA`` (P = 200);
    at the flagship width at G=8 (plain K7's f32 stacked tensors of ten
    streams take 1.3 GB each there) the tensor-core kernel, the CUDA-core one
-   on the same bfloat16 inputs, and the CUDA-core one in float32; two
-   bfloat16 flagship runs at G=32 must give bitwise-equal results.
+   on the same bfloat16 inputs, and the CUDA-core one in float32; the float32
+   one also at G=32, P=32768 (the shape phase 4d times, its plain version in
+   chunks of 8 groups); two bfloat16 flagship runs at G=32 must give
+   bitwise-equal results, and so must two float32 ones.
 2g. Hold K8 (the fused Hessian train pass) against plain K8 likewise, with
    value, Jacobian and Hessian masks on the multi-output configs: bfloat16
    through the tensor-core kernel (``shapenet_hess_tc.cu``), float32 through
@@ -114,8 +116,9 @@ Phases of the Hessian slice:
    counter; the tensor-core kernel also on padded and narrow shapes (widths
    24, 40, 256, 512; si = 1, 2, 4; resblock chains; P = 200, a ragged last
    tile), which take each of its geometries; the flagship width at G=8 in
-   both dtypes; two bfloat16 flagship runs at G=32, P=32768 must give
-   bitwise-equal results.
+   both dtypes, and in float32 at G=32, P=32768, unweighted and weighted
+   (plain K8 in chunks of 8 groups); two bfloat16 flagship runs at G=32,
+   P=32768 must give bitwise-equal results, and so must two float32 ones.
 3d. Hessian-train the flagship (``flagship_hessian_step``): step 0's terms
    and gradients against plain K8 (in chunks of 8 groups: each group's
    d_wb is its own) + autograd, five steps (five launches of the
@@ -128,7 +131,9 @@ Phases of the Hessian slice:
 4d. Time the flagship Hessian step and its stages, the bfloat16 tensor-core
    K7 and K8, the CUDA-core K7 and K8 on the same bfloat16 inputs and in
    float32 (G=32, P=32768), and their plain versions over the same inputs in
-   chunks of 8 groups, and compute their bounds on this card.
+   chunks of 8 groups, and compute their bounds on this card; then the
+   float32 policy's Hessian step (the CUDA-core K8), mean of 3 on the device
+   clock and on the host clock, and its stages.
 
 Phases of the NIF-linear slice:
 
@@ -501,13 +506,14 @@ def check_k6(torch, cfg, variant, G, P, dtype, weighted, masked, seed, simt=Fals
     return err
 
 
-def check_k7(torch, cfg, variant, G, P, dtype, seed, simt=False) -> float:
+def check_k7(torch, cfg, variant, G, P, dtype, seed, simt=False, chunk=None) -> float:
     """K7 vs plain K7 on y, jac and hess; returns the largest max|d| of the
     three. A bfloat16 call must launch the tensor-core kernel (``simt``: the
     CUDA-core kernel on the same inputs, through its private launcher), a
     float32 one the CUDA-core kernel. The Hessian must be exactly symmetric.
     Bounds as K5's: float32 max|d| <= 2e-4 max|plain| + 1e-5, bfloat16
-    BF16_REL of max|plain|."""
+    BF16_REL of max|plain|. ``chunk``: plain K7 in chunks of that many
+    groups (a flagship batch's stacked tensors would not fit the card)."""
     from nif_tpu_torch.ops import _build
     from nif_tpu_torch.ops.fused_hessian import (
         _geometry, _shapenet_fwd_hess_simt, shapenet_fwd_hess_cuda, shapenet_fwd_hess_reference)
@@ -515,7 +521,10 @@ def check_k7(torch, cfg, variant, G, P, dtype, seed, simt=False) -> float:
     wb, x = chain_data(torch, cfg, G, P, dtype, seed)
     before = dict(_build.LAUNCHES)
     outs = (_shapenet_fwd_hess_simt if simt else shapenet_fwd_hess_cuda)(wb, x, cfg, variant)
-    refs = shapenet_fwd_hess_reference(wb, x, cfg, variant)
+    if chunk:
+        refs = [torch.cat(parts) for parts in zip(*plain_k7_chunked(torch, wb, x, cfg, chunk))]
+    else:
+        refs = shapenet_fwd_hess_reference(wb, x, cfg, variant)
     torch.cuda.synchronize()
     tc = int(dtype == torch.bfloat16 and not simt)
     what = f"K7 {describe(cfg, variant, G, P, dtype)}{' (CUDA-core kernel)' if simt else ''}"
@@ -553,14 +562,15 @@ def hessian_data(torch, cfg, G, P, seed):
             to(rng.standard_normal((G, P, si * (si + 1) // 2 * so))))
 
 
-def check_k8(torch, cfg, variant, G, P, dtype, weighted, masked, seed) -> float:
+def check_k8(torch, cfg, variant, G, P, dtype, weighted, masked, seed, chunk=None) -> float:
     """K8 vs plain K8; returns max |d_wb - plain d_wb|. A bfloat16 call must
     launch the tensor-core kernel, a float32 one the CUDA-core kernel.
 
     float32: the three terms rel 1e-5, d_wb max|d| <= 1e-4 max|plain| (the
     JAX package's bound for its fused Hessian train pass: the backward sums
     ten times the rows at si = 3); bfloat16: terms rel BF16_LOSS_REL, d_wb
-    BF16_REL."""
+    BF16_REL. ``chunk``: plain K8 in chunks of that many groups
+    (:func:`plain_k8_chunked`)."""
     from nif_tpu_torch.ops import _build
     from nif_tpu_torch.ops.fused_hessian import (
         hessian_geometry, shapenet_hessian_grads_cuda, shapenet_hessian_grads_reference)
@@ -575,7 +585,10 @@ def check_k8(torch, cfg, variant, G, P, dtype, weighted, masked, seed) -> float:
                   hess_mask=(np.arange(si * (si + 1) // 2 * so) % 3 != 1).astype(np.float32))
     before = dict(_build.LAUNCHES)
     *terms, d_wb = shapenet_hessian_grads_cuda(wb, x, tgt, jt, ht, cfg, variant, **kw)
-    *refs, r_wb = shapenet_hessian_grads_reference(wb, x, tgt, jt, ht, cfg, variant, **kw)
+    if chunk:
+        refs, r_wb = plain_k8_chunked(torch, wb, x, tgt, jt, ht, cfg, chunk, **kw)
+    else:
+        *refs, r_wb = shapenet_hessian_grads_reference(wb, x, tgt, jt, ht, cfg, variant, **kw)
     torch.cuda.synchronize()
     what = f"K8 {describe(cfg, variant, G, P, dtype)} weighted={weighted} masked={masked}"
     tc = 1 if dtype == torch.bfloat16 else 0
@@ -605,13 +618,16 @@ def plain_k8_chunked(torch, wb, x, tgt, jt, ht, cfg, chunk=8, **kw):
     """Plain K8 over [G, P] in chunks of ``chunk`` groups (its f32 stacked
     tensors of a whole flagship batch would not fit the card): each group's
     d_wb is its own, scaled by chunk / G to the whole batch's mean, and the
-    terms are the means of the chunks' (equal chunks)."""
+    terms are the means of the chunks' (equal chunks); point weights
+    ``weight`` [G, P] are cut with the groups."""
     from nif_tpu_torch.ops.fused_hessian import shapenet_hessian_grads_reference
 
     G = x.shape[0]
+    w = kw.pop("weight", None)
     parts = [shapenet_hessian_grads_reference(wb[s:s + chunk], x[s:s + chunk],
                                               tgt[s:s + chunk], jt[s:s + chunk],
-                                              ht[s:s + chunk], cfg, "siren", **kw)
+                                              ht[s:s + chunk], cfg, "siren",
+                                              weight=None if w is None else w[s:s + chunk], **kw)
              for s in range(0, G, chunk)]
     terms = [sum(p[i] for p in parts) / len(parts) for i in range(3)]
     return terms, torch.cat([p[3] for p in parts]) * (chunk / G)
@@ -1210,16 +1226,25 @@ def main() -> int:
         check_k7(torch, ShapeNetConfig(*args), "siren", 3, 200, torch.bfloat16, seed=150 + i)
     k7_err = check_k7(torch, flag_cfg, "siren", 8, 32768, torch.bfloat16, seed=70)
     check_k7(torch, flag_cfg, "siren", 8, 32768, torch.bfloat16, seed=70, simt=True)
-    k7f_err = check_k7(torch, flag_cfg, "siren", 8, 32768, torch.float32, seed=71)
-    wb, x = chain_data(torch, flag_cfg, 32, 32768, torch.bfloat16, seed=72)
-    before = _build.LAUNCHES["shapenet_fwd_hess_tc"]
-    runs = [shapenet_fwd_hess_cuda(wb, x, flag_cfg, "siren") for _ in range(2)]
-    if _build.LAUNCHES["shapenet_fwd_hess_tc"] != before + 2:
-        raise AssertionError("the flagship bf16 K7 runs did not take the tensor-core kernel")
-    if not all(torch.equal(a, b) for a, b in zip(*runs)):
-        raise AssertionError("K7 is not deterministic: two runs on one input differ")
-    log("K7 flagship bf16 (G=32, P=32768, tensor cores): two runs give bitwise-equal y, jac "
-        "and hess")
+    # f32 at G=8 and at the shape phase 4d times and the float32 policy's
+    # evaluate_sobolev runs (G=32: the splits and order of sums timed there)
+    k7f_err = max(check_k7(torch, flag_cfg, "siren", 8, 32768, torch.float32, seed=71),
+                  check_k7(torch, flag_cfg, "siren", 32, 32768, torch.float32, seed=73,
+                           chunk=8))
+    for dtype, seed, kernel in ((torch.bfloat16, 72, "tensor-core"),
+                                (torch.float32, 74, "CUDA-core")):
+        wb, x = chain_data(torch, flag_cfg, 32, 32768, dtype, seed=seed)
+        before = dict(_build.LAUNCHES)
+        runs = [shapenet_fwd_hess_cuda(wb, x, flag_cfg, "siren") for _ in range(2)]
+        tc = 2 if dtype == torch.bfloat16 else 0
+        if (_build.LAUNCHES["shapenet_fwd_hess"] != before["shapenet_fwd_hess"] + 2
+                or _build.LAUNCHES["shapenet_fwd_hess_tc"] != before["shapenet_fwd_hess_tc"] + tc):
+            raise AssertionError(f"the flagship {dtype} K7 runs did not take the {kernel} kernel")
+        if not all(torch.equal(a, b) for a, b in zip(*runs)):
+            raise AssertionError(f"the {dtype} K7 is not deterministic: two runs on one input "
+                                 f"differ")
+        log(f"K7 flagship {dtype} (G=32, P=32768, {kernel} kernel): two runs give bitwise-equal "
+            f"y, jac and hess")
     del wb, x, runs
 
     # ---- phase 2g: K8 against its plain version, and its determinism
@@ -1235,14 +1260,29 @@ def main() -> int:
             check_k8(torch, cfg, "siren", 3, 200, torch.bfloat16, weighted, cfg.output_dim > 1,
                      seed=120 + i)
     k8_err = check_k8(torch, flag_cfg, "siren", 8, 32768, torch.bfloat16, False, False, seed=90)
-    k8f_err = check_k8(torch, flag_cfg, "siren", 8, 32768, torch.float32, False, False, seed=93)
-    wb, x = chain_data(torch, flag_cfg, 32, 32768, torch.bfloat16, seed=91)
-    tgt, w, jt, ht = hessian_data(torch, flag_cfg, 32, 32768, seed=91)
-    runs = [shapenet_hessian_grads_cuda(wb, x, tgt, jt, ht, flag_cfg, "siren", weight=w)
-            for _ in range(2)]
-    if not all(torch.equal(a, b) for a, b in zip(*runs)):
-        raise AssertionError("K8 is not deterministic: two runs on one input differ")
-    log("K8 flagship bf16 (G=32, P=32768, weighted): two runs give bitwise-equal terms and d_wb")
+    # f32 at G=8 and at the float32 policy's Hessian step shape (G=32, timed
+    # in phase 4d), unweighted as the step calls it and weighted
+    k8f_err = max([check_k8(torch, flag_cfg, "siren", 8, 32768, torch.float32, False, False,
+                            seed=93)]
+                  + [check_k8(torch, flag_cfg, "siren", 32, 32768, torch.float32, weighted, False,
+                              seed=94, chunk=8) for weighted in (False, True)])
+    for dtype, seed, kernel in ((torch.bfloat16, 91, "tensor-core"),
+                                (torch.float32, 95, "CUDA-core")):
+        wb, x = chain_data(torch, flag_cfg, 32, 32768, dtype, seed=seed)
+        tgt, w, jt, ht = hessian_data(torch, flag_cfg, 32, 32768, seed=seed)
+        before = dict(_build.LAUNCHES)
+        runs = [shapenet_hessian_grads_cuda(wb, x, tgt, jt, ht, flag_cfg, "siren", weight=w)
+                for _ in range(2)]
+        tc = 2 if dtype == torch.bfloat16 else 0
+        if (_build.LAUNCHES["shapenet_hessian_grads"] != before["shapenet_hessian_grads"] + 2
+                or _build.LAUNCHES["shapenet_hessian_grads_tc"]
+                != before["shapenet_hessian_grads_tc"] + tc):
+            raise AssertionError(f"the flagship {dtype} K8 runs did not take the {kernel} kernel")
+        if not all(torch.equal(a, b) for a, b in zip(*runs)):
+            raise AssertionError(f"the {dtype} K8 is not deterministic: two runs on one input "
+                                 f"differ")
+        log(f"K8 flagship {dtype} (G=32, P=32768, weighted, {kernel} kernel): two runs give "
+            f"bitwise-equal terms and d_wb")
     del wb, x, tgt, w, jt, ht, runs
 
     # ---- phase 2h: K4 against its plain version, and its determinism
@@ -1573,7 +1613,6 @@ def main() -> int:
             or hf32_eval_launches["shapenet_fwd_hess_tc"]
             or not all(np.isfinite(v) for v in hf32_eval.values())):
         raise AssertionError(f"a float32 Hessian evaluation launched {hf32_eval_launches}")
-    del hf32_trainer, hf32_state
     hmodel_w = nif_tpu_torch.NIFMultiScale(FLAGSHIP_SHAPE, FLAGSHIP_PNET, FLAGSHIP_POLICY,
                                            device="cuda", seed=1)
     hfitter = GroupedTrainer(hmodel_w, lambda p: torch.optim.Adam(p, lr=FLAGSHIP_TRAIN_LR), **hkw)
@@ -1992,14 +2031,31 @@ def main() -> int:
     torch.cuda.synchronize()
     plain_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     f32_in = (wb.float(), x.float(), tgt, jt, ht)
-    k7f_ms = cuda_ms(lambda: shapenet_fwd_hess_cuda(*f32_in[:2], flag_cfg, "siren"), reps=3,
+    k7f_ms = cuda_ms(lambda: shapenet_fwd_hess_cuda(*f32_in[:2], flag_cfg, "siren"), reps=5,
                      warmup=1)
     k7f_plain_ms = cuda_ms(lambda: plain_k7_chunked(torch, *f32_in[:2], flag_cfg), reps=2,
                            warmup=1)
-    k8f_ms = cuda_ms(lambda: shapenet_hessian_grads_cuda(*f32_in, flag_cfg, "siren"), reps=3,
+    k8f_ms = cuda_ms(lambda: shapenet_hessian_grads_cuda(*f32_in, flag_cfg, "siren"), reps=5,
                      warmup=1)
     k8f_plain_ms = cuda_ms(lambda: plain_k8_chunked(torch, *f32_in, flag_cfg), reps=2, warmup=1)
     del wb, x, tgt, jt, ht, f32_in
+    # the float32 policy's Hessian step (the CUDA-core K8), on the device and
+    # the host clock
+    hf32_box = [hf32_state]
+
+    def one_f32_hessian_step():
+        hf32_box[0], _ = hf32_trainer.step(hf32_box[0], t_h, x_h, u_h, target_jac=j_h,
+                                           target_hess=h_h)
+
+    hf32_step_ms = cuda_ms(one_f32_hessian_step, reps=3, warmup=1)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        one_f32_hessian_step()
+        torch.cuda.synchronize()
+    hf32_step_host_ms = (time.perf_counter() - t0) / 3 * 1e3
+    hf32_stages = hessian_step_stages(torch, hf32_trainer, hf32_box[0],
+                                      (t_h, x_h, u_h, j_h, h_h))
+    del hf32_trainer, hf32_state, hf32_box
     k7_bound, k7_by, k7_gf = hessian_bounds(flag_cfg, G, P, peak_mma, peak_f32, peak_bw,
                                             train=False)
     k7f_bound, k7f_by, _ = hessian_bounds(flag_cfg, G, P, peak_mma, peak_f32, peak_bw,
@@ -2024,6 +2080,11 @@ def main() -> int:
         f"(f32 peak); the plain versions ran in 4 chunks of 8 groups (peak {plain_peak_gb:.1f} "
         f"GB allocated for plain K8); library_ms null: no single PyTorch call computes these "
         f"chains")
+    log(f"flagship Hessian step, float32 policy (GroupedTrainer.step with target_jac and "
+        f"target_hess, Adam, the CUDA-core K8, G={G} P={P}): {hf32_step_ms:.4f} ms on the device "
+        f"clock = {G * P / hf32_step_ms * 1e3:.4e} train points/s, {hf32_step_host_ms:.4f} ms on "
+        f"the host clock (each step synchronized); stages timed alone: "
+        f"{', '.join(f'{k} {v:.4f} ms' for k, v in hf32_stages.items())}")
 
     # ---- phase 4e: NIF-linear step, K4 and eager-step times (bf16)
     lbox = [lstate]

@@ -172,9 +172,9 @@ __global__ void __launch_bounds__(kThreads, 1) simt_train_kernel(const Args a) {
     // next tile's step 0.
     auto stage_step = [&](int step, float* buf) {
       if (step == 0)
-        stage_fwd_head<L>(buf, st, wg, a.six, si, n);
+        stage_fwd_head<L>(buf, st, wg, n, a.six, si, n);
       else if (step <= nm)
-        stage_fwd_head<L>(buf, st, wg + o_wh + (long long)(step - 1) * n * n, n4, n, n);
+        stage_fwd_head<L>(buf, st, wg + o_wh + (long long)(step - 1) * n * n, n, n4, n, n);
       else
         stage_bwd_head<L>(buf, st, wg + o_wh + (long long)(2 * nm - step) * n * n, n, n);
     };
@@ -221,8 +221,8 @@ __global__ void __launch_bounds__(kThreads, 1) simt_train_kernel(const Args a) {
         // hidden ones (A the plane H[m], W_m [n, n]), so its code is inlined once
         const bool x_in = m < 0;
         product_fwd<L>(x_in ? X : H + m * plane, x_in ? a.six : LD, x_in ? a.six : n4,
-                       x_in ? wg : wg + o_wh + (long long)m * n * n, x_in ? si : n, n, st, sl,
-                       acc, after(m + 1));
+                       x_in ? wg : wg + o_wh + (long long)m * n * n, n, x_in ? si : n, n, st,
+                       sl, acc, after(m + 1));
         if (!x_in) K2F_PHASE(1);  // a hidden forward product
         const float* bg = B0 + (m < 0 ? 0 : n + (long long)m * n);
         float* Dm = D + (m + 1) * plane;

@@ -6,9 +6,15 @@
 // cp.async into two buffers, the activations as functors (the bf16 sine is
 // stack_tc.cuh's, so every fused kernel on Hopper evaluates one polynomial
 // with the same bits), and the tile layout each width takes.
-// shapenet_bwd.cu (K2, K3) includes it; ops/_build.py hashes it with that
-// source, so an edit here rebuilds that library and no other (an edit of
-// stack_tc.cuh rebuilds it too).
+// The Hessian kernels (K7, K8) stack the streams of a point on the rows of
+// one register tile (SimtTile<ns, 32, 1>: row st * 8 + p of a tile of 8
+// points is stream st of point p, and thread (rg, cg) owns point rg's ns
+// rows), so each of their epilogues runs in a thread's registers; here also
+// their sine with two or three derivatives and their weight grads over a
+// tile's stacked rows (weight_grad_rows).
+// shapenet_bwd.cu (K2, K3) and shapenet_hess.cu (K7, K8) include it;
+// ops/_build.py hashes it with those sources, so an edit here rebuilds those
+// two libraries and no other (an edit of stack_tc.cuh rebuilds them too).
 //
 // A thread (row group rg, column group cg) of a tile layout owns the rows
 // rg + RG i (i < RM) and, in the VALUE layout (the forward's outputs), the
@@ -98,25 +104,26 @@ __device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_grou
 __device__ __forceinline__ void cp_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
 
 // Stage rows r0 .. r0+nr-1 (nr a multiple of 4) of W [Kw, n] (row-major f32
-// in global) into ws [nr, COLS] with row stride ldw: rows from Kw and
-// columns from n zero. vec: n % 4 == 0 and W 16-byte aligned.
+// in global, row stride wld >= n: a block of columns of a wider matrix) into
+// ws [nr, COLS] with row stride ldw: rows from Kw and columns from n zero.
+// vec: n % 4 == 0, wld % 4 == 0 and W 16-byte aligned.
 template <class L>
-__device__ __forceinline__ void stage_rows(float* ws, int ldw, const float* __restrict__ W, int r0,
-                                           int nr, int Kw, int n, bool vec) {
+__device__ __forceinline__ void stage_rows(float* ws, int ldw, const float* __restrict__ W,
+                                           int wld, int r0, int nr, int Kw, int n, bool vec) {
   if (vec) {
     constexpr int segs = L::COLS / 4;
     for (int idx = threadIdx.x; idx < nr * segs; idx += kThreads) {
       const int r = idx / segs;
       const int c = (idx - r * segs) * 4;
       const bool valid = r0 + r < Kw && c < n;
-      cp16(ws + r * ldw + c, valid ? W + (size_t)(r0 + r) * n + c : W, valid);
+      cp16(ws + r * ldw + c, valid ? W + (size_t)(r0 + r) * wld + c : W, valid);
     }
   } else {
     for (int idx = threadIdx.x; idx < nr * L::COLS; idx += kThreads) {
       const int r = idx / L::COLS;
       const int c = idx - r * L::COLS;
       const bool valid = r0 + r < Kw && c < n;
-      cp4(ws + r * ldw + c, valid ? W + (size_t)(r0 + r) * n + c : W, valid);
+      cp4(ws + r * ldw + c, valid ? W + (size_t)(r0 + r) * wld + c : W, valid);
     }
   }
 }
@@ -159,13 +166,14 @@ struct WStage {
   int parity;
 };
 
-// Stage the first chunk of a forward product (A @ W, W [Kw, n], K sums) or
-// of a cotangent product (A @ W^T, W [Kin, n]) into buf; the caller commits.
+// Stage the first chunk of a forward product (A @ W, W [Kw, n] with row
+// stride wld, K sums) or of a cotangent product (A @ W^T, W [Kin, n]) into
+// buf; the caller commits.
 template <class L>
 __device__ __forceinline__ void stage_fwd_head(float* buf, const WStage& st,
-                                               const float* __restrict__ W, int K, int Kw,
-                                               int n) {
-  stage_rows<L>(buf, L::COLS + 4, W, 0, min(st.kc, K), Kw, n, st.vec);
+                                               const float* __restrict__ W, int wld, int K,
+                                               int Kw, int n) {
+  stage_rows<L>(buf, L::COLS + 4, W, wld, 0, min(st.kc, K), Kw, n, st.vec);
 }
 
 template <class L>
@@ -175,15 +183,15 @@ __device__ __forceinline__ void stage_bwd_head(float* buf, const WStage& st,
 }
 
 // acc (value layout) = A @ W: A an f32 plane (row stride lda, its K columns
-// a multiple of 4, rows 16-byte aligned), W [Kw, n] row-major f32 in global,
-// read as zero from row Kw and column n. Its first chunk is in flight in
-// buffer st.parity (stage_fwd_head); chunk c + 1 streams in while chunk c is
-// multiplied, and next(buf) stages the following product's first chunk
-// during the last: one barrier a chunk, whose first also shows A to the
-// block.
+// a multiple of 4, rows 16-byte aligned), W [Kw, n] row-major f32 in global
+// (row stride wld), read as zero from row Kw and column n. Its first chunk
+// is in flight in buffer st.parity (stage_fwd_head); chunk c + 1 streams in
+// while chunk c is multiplied, and next(buf) stages the following product's
+// first chunk during the last: one barrier a chunk, whose first also shows
+// A to the block.
 template <class L, class NEXT>
 __device__ __forceinline__ void product_fwd(const float* A, int lda, int K,
-                                            const float* __restrict__ W, int Kw, int n,
+                                            const float* __restrict__ W, int wld, int Kw, int n,
                                             WStage& st, const Slot<L>& sl, Acc<L>& acc,
                                             NEXT&& next) {
   constexpr int ldw = L::COLS + 4;
@@ -195,7 +203,7 @@ __device__ __forceinline__ void product_fwd(const float* A, int lda, int K,
     const int k0 = ch * st.kc;
     float* nb = st.ws + ((st.parity + ch + 1) & 1) * st.buf;
     if (ch + 1 < nch)
-      stage_rows<L>(nb, ldw, W, k0 + st.kc, min(st.kc, K - k0 - st.kc), Kw, n, st.vec);
+      stage_rows<L>(nb, ldw, W, wld, k0 + st.kc, min(st.kc, K - k0 - st.kc), Kw, n, st.vec);
     else
       next(nb);
     cp_commit();
@@ -384,6 +392,90 @@ __device__ __forceinline__ void weight_grad(const float* A, int lda, int K, cons
   }
 }
 
+// weight_grad over all a tile's stacked rows (the Hessian kernels): out[k][c]
+// (+)= the sum over rows r < L::TP of A[r][k] B[r][c], in passes of KM * RG
+// rows k (KM a thread, a multiple of 4: its A loads are float4 along k) by
+// COLS columns, column block by column block. A separate function: taking
+// K2/K3's weight_grad through it (KM = RM, one column block) kept their bits
+// but cost the f32 K2 and K3 7% on an H100 (PERF.md).
+template <int KM, class L>
+__device__ __forceinline__ void weight_grad_rows(const float* A, int lda, int K, const float* B,
+                                                 int ldb, int n, float* __restrict__ out,
+                                                 bool first, bool vec, const Slot<L>& sl) {
+  static_assert(KM % 4 == 0, "A is read as float4 along k");
+  for (int c0 = 0; c0 < n; c0 += L::COLS)
+    for (int kb = 0; kb < K; kb += KM * L::RG) {
+      const int k0 = kb + sl.rg * KM;
+      if (k0 >= K) continue;
+      float4 old[KM][L::NB];
+      if (!first) {
+#pragma unroll
+        for (int i = 0; i < KM; ++i)
+#pragma unroll
+          for (int b = 0; b < L::NB; ++b) {
+            const int c = c0 + sl.vcol(b, 0);
+            const float* o = out + (size_t)(k0 + i) * n + c;
+            if (k0 + i >= K || c >= n) {
+              old[i][b] = make_float4(0.f, 0.f, 0.f, 0.f);
+            } else if (vec) {
+              old[i][b] = *reinterpret_cast<const float4*>(o);
+            } else {
+              old[i][b] = make_float4(o[0], c + 1 < n ? o[1] : 0.f, c + 2 < n ? o[2] : 0.f,
+                                      c + 3 < n ? o[3] : 0.f);
+            }
+          }
+      }
+      float acc[KM][L::NB][4];
+#pragma unroll
+      for (int i = 0; i < KM; ++i)
+#pragma unroll
+        for (int b = 0; b < L::NB; ++b)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][b][e] = 0.f;
+      const float* a_col = A + k0;
+      const float* b_col = B + c0 + 4 * sl.cg;
+#pragma unroll 2
+      for (int p = 0; p < L::TP; ++p) {
+        float a[KM];
+#pragma unroll
+        for (int i = 0; i < KM; i += 4) {
+          const float4 v = *reinterpret_cast<const float4*>(a_col + p * lda + i);
+          a[i] = v.x; a[i + 1] = v.y; a[i + 2] = v.z; a[i + 3] = v.w;
+        }
+#pragma unroll
+        for (int b = 0; b < L::NB; ++b) {
+          const float4 d = *reinterpret_cast<const float4*>(b_col + p * ldb + 4 * L::CW * b);
+#pragma unroll
+          for (int i = 0; i < KM; ++i) {
+            acc[i][b][0] = fmaf(a[i], d.x, acc[i][b][0]);
+            acc[i][b][1] = fmaf(a[i], d.y, acc[i][b][1]);
+            acc[i][b][2] = fmaf(a[i], d.z, acc[i][b][2]);
+            acc[i][b][3] = fmaf(a[i], d.w, acc[i][b][3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < KM; ++i)
+#pragma unroll
+        for (int b = 0; b < L::NB; ++b) {
+          const int c = c0 + sl.vcol(b, 0);
+          if (k0 + i >= K || c >= n) continue;
+          float* o = out + (size_t)(k0 + i) * n + c;
+          const float4 v = added(
+              old[i][b], make_float4(acc[i][b][0], acc[i][b][1], acc[i][b][2], acc[i][b][3]),
+              first);
+          if (vec) {
+            *reinterpret_cast<float4*>(o) = v;
+          } else {
+            o[0] = v.x;
+            if (c + 1 < n) o[1] = v.y;
+            if (c + 2 < n) o[2] = v.z;
+            if (c + 3 < n) o[3] = v.w;
+          }
+        }
+    }
+}
+
 // The activations of the residual-saving forward, (act(z), act'(z)) on f32 z,
 // each made once a kernel from the chain's activation code: the true sine
 // (f32 sine chains), the polynomial (bf16 sine chains: stack_tc.cuh's
@@ -425,6 +517,39 @@ struct AnyAct {
     return act_grad(z, act, d);
   }
 };
+
+// The Hessian kernels' sine: d012 gives (f, f', f'') of f32 z (their
+// forward epilogues), d123 (f', f'', f''') (their backward). The true sine
+// from one non-inlined exact_sincos (f32 chains: f'' = -f, f''' = -f'), or
+// stack_tc.cuh's polynomial with its derivatives from one range reduction
+// (bf16 chains: the tensor-core K7's and K8's bits).
+struct ExactSineHess {
+  __device__ explicit ExactSineHess(int) {}
+  __device__ __forceinline__ float d012(float z, float* d1, float* d2) const {
+    const float2 sc = exact_sincos(z);
+    *d1 = sc.y;
+    *d2 = -sc.x;
+    return sc.x;
+  }
+  __device__ __forceinline__ void d123(float z, float* d1, float* d2, float* d3) const {
+    const float2 sc = exact_sincos(z);
+    *d1 = sc.y;
+    *d2 = -sc.x;
+    *d3 = -sc.y;
+  }
+};
+
+struct PolySineHess {
+  SinePoly k;
+  __device__ explicit PolySineHess(int act) : k(sine_poly(act == kSinePoly9)) {}
+  __device__ __forceinline__ float d012(float z, float* d1, float* d2) const {
+    return sine3(z, k, d1, d2);
+  }
+  __device__ __forceinline__ void d123(float z, float* d1, float* d2, float* d3) const {
+    sine_d123(z, k, d1, d2, d3);
+  }
+};
+
 
 // The tile layout for width n: 8 rows a thread up to width 128 (64-point
 // tiles at 128, 128 up to 64), then fewer rows and more column blocks, so a

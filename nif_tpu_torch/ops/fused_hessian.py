@@ -60,6 +60,7 @@ from .fused_shapenet import (
     _n_scaled,
     _prescale,
     _raise_on_error,
+    _simt_weights,
     _stack_tc_status,
     _unscale_grads,
     fused_unsupported_reason,
@@ -156,10 +157,11 @@ def _library(kernel: str = "simt") -> ctypes.CDLL:
         if lib.nif_shapenet_fwd_hess.argtypes is None:
             lib.nif_shapenet_hess_workspace.argtypes = [c_int] * 9 + [ptr] * 5
             lib.nif_shapenet_hess_workspace.restype = c_int
-            lib.nif_shapenet_fwd_hess.argtypes = [ptr] * 6 + [c_int] * 8 + [c_ll, c_int, ptr]
+            lib.nif_shapenet_fwd_hess.argtypes = (
+                [ptr] * 6 + [c_int] * 8 + [c_ll, c_ll, c_int, ptr])
             lib.nif_shapenet_fwd_hess.restype = c_int
             lib.nif_shapenet_hessian_grads.argtypes = (
-                [ptr] * 13 + [c_int] * 8 + [c_ll, c_ll] + [c_f] * 7 + [c_int, ptr])
+                [ptr] * 13 + [c_int] * 8 + [c_ll] * 3 + [c_f] * 7 + [c_int, ptr])
             lib.nif_shapenet_hessian_grads.restype = c_int
     if lib.nif_cuda_error_string.argtypes is None:
         lib.nif_cuda_error_string.argtypes = [c_int]
@@ -208,15 +210,11 @@ def _status_reason(status: int, cfg: ShapeNetConfig, si: int, geo: dict) -> Opti
         return (f"the tensor-core Hessian {what} kernel cannot take {cfg} with si={si} "
                 f"(status {status})")
     if status == 1:
-        return (f"units={cfg.units} is wider than the CUDA Hessian kernels take (a "
-                f"thread keeps its columns of a layer in registers)")
+        return (f"units={cfg.units} is wider than the CUDA-core Hessian kernels take "
+                f"(1024 columns, as the port's other CUDA-core kernels)")
     if status == 2:
         return (f"units={cfg.units} needs {geo['smem_bytes']} bytes of shared memory per "
                 f"block, more than a block may have")
-    if status == 4:
-        nst = 1 + si + len(_hess_pairs(si))
-        return (f"si={si}: {nst} stacked streams do not fit the CUDA kernel's point tile "
-                f"at units={cfg.units}")
     return f"the CUDA Hessian kernels cannot take {cfg} with si={si} (status {status})"
 
 
@@ -395,6 +393,16 @@ def shapenet_hessian_grads_reference(wb: torch.Tensor, x: torch.Tensor, target: 
 
 
 # ----------------------------------------------------------- CUDA wrappers
+def _hess_weights(kernel: str, wbp: torch.Tensor) -> torch.Tensor:
+    """wb' as the ``kernel``'s library reads it, rows padded so that every
+    group's W_m stages with 16-byte cp.async copies: the tensor-core
+    kernels' in wb's dtype, the CUDA-core body's widened to f32 (a bf16 value
+    is exact in f32)."""
+    if kernel == "tc":
+        return torch.nn.functional.pad(wbp, (0, -wbp.shape[1] % 8)).contiguous()
+    return _simt_weights(wbp)
+
+
 def _workspace(mode: str, cfg: ShapeNetConfig, variant: str, x: torch.Tensor,
                kernel: Optional[str] = None):
     geo = _geometry(mode, cfg, variant, x.shape[0], x.shape[1], x.dtype, kernel=kernel)
@@ -418,9 +426,7 @@ def _launch_k7(kernel: str, wb: torch.Tensor, x: torch.Tensor, cfg: ShapeNetConf
     hp = torch.empty((G, P, so, len(_hess_pairs(si))), dtype=x.dtype, device=x.device)
     if G == 0 or P == 0:
         return y, jac, _mirror(hp, si)
-    wbp = _prescale(wb, cfg, variant).contiguous()
-    if kernel == "tc":  # rows padded to 16 bytes, so every group's W_m stages with cp.async
-        wbp = torch.nn.functional.pad(wbp, (0, -wbp.shape[1] % 8))
+    wbp = _hess_weights(kernel, _prescale(wb, cfg, variant))
     x = x.contiguous()
     lib = _library(kernel)
     with torch.cuda.device(x.device):  # the geometry reads this device's SM count
@@ -428,9 +434,10 @@ def _launch_k7(kernel: str, wb: torch.Tensor, x: torch.Tensor, cfg: ShapeNetConf
         stream = torch.cuda.current_stream(x.device).cuda_stream
         args = (wbp.data_ptr(), x.data_ptr(), y.data_ptr(), jac.data_ptr(), hp.data_ptr(),
                 scratch.data_ptr(), G, P, si, so, cfg.units, _n_mats(cfg),
-                _chain_code(cfg, variant), _act_code(cfg, variant, x.dtype), wb.shape[1])
+                _chain_code(cfg, variant), _act_code(cfg, variant, x.dtype), wb.shape[1],
+                wbp.shape[1])
         if kernel == "tc":
-            err = lib.nif_shapenet_fwd_hess_tc(*args, wbp.shape[1], stream)
+            err = lib.nif_shapenet_fwd_hess_tc(*args, stream)
         else:
             err = lib.nif_shapenet_fwd_hess(*args, _DTYPE_CODES[x.dtype], stream)
     _raise_on_error(lib, "shapenet_fwd_hess", err)
@@ -488,9 +495,7 @@ def _launch_k8(kernel: str, wb: torch.Tensor, x: torch.Tensor, target: torch.Ten
         return losses[0], losses[1], losses[2], d_wb.zero_()
     n_y, n_j, ky, kj = _sobolev_scales(G, P, si, so, w_value, w_jac, y_mask, jac_mask)
     n_h, kh = _hess_scale(G, P, si, so, w_hess, hess_mask)
-    wbp = _prescale(wb, cfg, variant).contiguous()
-    if kernel == "tc":  # rows padded to 16 bytes, so every group's W_m stages with cp.async
-        wbp = torch.nn.functional.pad(wbp, (0, -wbp.shape[1] % 8))
+    wbp = _hess_weights(kernel, _prescale(wb, cfg, variant))
     x = x.contiguous()
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     lib = _library(kernel)
@@ -501,13 +506,13 @@ def _launch_k8(kernel: str, wb: torch.Tensor, x: torch.Tensor, target: torch.Ten
                 hess_target.data_ptr(), ptr(ym), ptr(jm), ptr(hm), ptr(weight),
                 losses.data_ptr(), d_wb.data_ptr(), partials.data_ptr(), scratch.data_ptr(), G,
                 P, si, so, cfg.units, _n_mats(cfg), _chain_code(cfg, variant),
-                _act_code(cfg, variant, x.dtype), wb.shape[1])
-        rest = (_n_scaled(cfg, variant), float(cfg.omega_0), ky, kj, kh, float(n_y), float(n_j),
-                float(n_h))
+                _act_code(cfg, variant, x.dtype), wb.shape[1], wbp.shape[1],
+                _n_scaled(cfg, variant), float(cfg.omega_0), ky, kj, kh, float(n_y),
+                float(n_j), float(n_h))
         if kernel == "tc":
-            err = lib.nif_shapenet_hessian_grads_tc(*args, wbp.shape[1], *rest, stream)
+            err = lib.nif_shapenet_hessian_grads_tc(*args, stream)
         else:
-            err = lib.nif_shapenet_hessian_grads(*args, *rest, _DTYPE_CODES[x.dtype], stream)
+            err = lib.nif_shapenet_hessian_grads(*args, _DTYPE_CODES[x.dtype], stream)
     _raise_on_error(lib, "shapenet_hessian_grads", err)
     _build.LAUNCHES["shapenet_hessian_grads"] += 1
     if kernel == "tc":

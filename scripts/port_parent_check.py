@@ -1,29 +1,31 @@
 #!/usr/bin/env python3
-"""Hold tensor-core kernels built from another checkout's sources against
-this checkout's, on a CUDA card: the same flagship inputs through both
-libraries must give the same bits, and the two are timed in turns.
+"""Hold kernels built from another checkout's sources against this
+checkout's, on a CUDA card: the same flagship inputs through both libraries
+must give the same bits, and the two are timed in turns.
 
-    python3 scripts/port_parent_check.py --csrc DIR [--kernel k2 k6 k7 k8]
+    python3 scripts/port_parent_check.py --csrc DIR [--kernel k2 k2f32 k3f32 k6 k7 k8]
 
 ``DIR`` holds the other checkout's ``nif_tpu_torch/csrc`` (for example that
 of a parent commit, unpacked with ``git archive`` under ``build/``). Each
-kernel's source there (``shapenet_bwd_tc.cu`` for K2, ``shapenet_jac_tc.cu``
-for K6, ``shapenet_hess_tc.cu`` for K7 and K8) is built with this
-checkout's nvcc flags into ``build/nif_tpu_torch/other/``, all sources at
+kernel's source there (``shapenet_bwd_tc.cu`` for K2, ``shapenet_bwd.cu``
+for the float32 K2 and K3 on the CUDA cores, ``shapenet_jac_tc.cu`` for K6,
+``shapenet_hess_tc.cu`` for K7 and K8) is built with this checkout's nvcc
+flags into ``build/nif_tpu_torch/other/``, all sources of both checkouts at
 once, and must define the kernel's C entries with this checkout's
 signatures (the other library takes this checkout's argument types, so an
-older one may lack the entries of kernels this check is not asked for).
-Each kernel runs through its wrapper on the flagship chain (G=32, P=32768,
-width 128, two hidden layers, si=3, bf16, random weights, targets and
-point weights from a seed): every output must be bitwise equal (exit 1
-otherwise). Then each is timed with CUDA events in the order other, this,
-this, other, and the card's name and power limit are printed beside the
-times.
+older one may lack the entries of kernels this check is not asked for). Each kernel runs through
+its wrapper on the flagship chain (G=32, P=32768, width 128, two hidden
+layers, si=3, random weights, targets, point weights or output cotangent
+from a seed; bf16 for the tensor-core kernels, f32 for k2f32 and k3f32):
+every output must be bitwise equal (exit 1 otherwise). Then each is timed
+with CUDA events in the order other, this, this, other, and the card's name
+and power limit are printed beside the times.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import subprocess
 import sys
 import threading
@@ -51,6 +53,18 @@ def _k2(cfg):
     return lambda: fs.shapenet_mse_grads_cuda(wb, x, tgt, cfg, "siren", w)
 
 
+def _k2f32(cfg):
+    wb, x = chip_smoke.chain_data(torch, cfg, G, P, torch.float32, seed=SEED)
+    tgt, w, _ = chip_smoke.side_data(torch, cfg, G, P, seed=SEED)
+    return lambda: fs.shapenet_mse_grads_cuda(wb, x, tgt, cfg, "siren", w)
+
+
+def _k3f32(cfg):
+    wb, x = chip_smoke.chain_data(torch, cfg, G, P, torch.float32, seed=SEED)
+    g = chip_smoke.side_data(torch, cfg, G, P, seed=SEED)[2]
+    return lambda: fs.shapenet_bwd_cuda(wb, x, g, cfg, "siren")
+
+
 def _k6(cfg):
     wb, x = chip_smoke.chain_data(torch, cfg, G, P, torch.bfloat16, seed=SEED)
     tgt, w, jt = chip_smoke.sobolev_data(torch, cfg, G, P, seed=SEED)
@@ -74,6 +88,10 @@ def _k8(cfg):
 KERNELS = {
     "k2": ("shapenet_bwd_tc", ("nif_shapenet_mse_tc_workspace", "nif_shapenet_mse_grads_tc"),
            fs._bwd_tc_library, _k2, ("loss", "d_wb")),
+    "k2f32": ("shapenet_bwd", ("nif_shapenet_bwd_workspace", "nif_shapenet_mse_grads"),
+              fs._bwd_library, _k2f32, ("loss", "d_wb")),
+    "k3f32": ("shapenet_bwd", ("nif_shapenet_bwd_workspace", "nif_shapenet_bwd"),
+              fs._bwd_library, _k3f32, ("d_wb", "dx")),
     "k6": ("shapenet_jac_tc", ("nif_shapenet_sobolev_tc_workspace",
                                "nif_shapenet_sobolev_grads_tc"),
            lambda: fd._library("tc"), _k6, ("value_mse", "jac_mse", "d_wb")),
@@ -86,18 +104,27 @@ KERNELS = {
 
 def build_other(csrc: Path, names) -> dict:
     """``{name: CDLL}`` of ``csrc/<name>.cu`` for every name, one nvcc each,
-    all started together."""
+    all started together; a library is named by a hash of the other
+    checkout's sources and reused when it is built."""
     outs, errors = {}, []
+    digest = hashlib.sha256()
+    for path in sorted(csrc.glob("*.cu*")):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
 
     def one(name):
-        out = _build.BUILD_DIR / "other" / f"lib{name}.so"
+        out = _build.BUILD_DIR / "other" / f"lib{name}-{digest.hexdigest()[:16]}.so"
         out.parent.mkdir(parents=True, exist_ok=True)
-        proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
+        outs[name] = out
+        if out.exists():
+            return
+        tmp = out.with_suffix(".tmp.so")  # renamed into place when complete
+        proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(tmp),
                                str(csrc / f"{name}.cu")],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if proc.returncode != 0:
             errors.append(f"nvcc failed on {csrc / name}.cu:\n{proc.stdout}")
-        outs[name] = out
+        else:
+            tmp.replace(out)
 
     threads = [threading.Thread(target=one, args=(n,)) for n in names]
     for th in threads:
@@ -114,7 +141,7 @@ def main() -> int:
     ap.add_argument("--csrc", type=Path, required=True,
                     help="the other checkout's nif_tpu_torch/csrc directory")
     ap.add_argument("--kernel", nargs="+", choices=sorted(KERNELS), default=["k8"],
-                    help="the tensor-core kernels to hold against the other build (default k8)")
+                    help="the kernels to hold against the other build (default k8)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -123,8 +150,14 @@ def main() -> int:
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(f"card: {smi}")
     names = sorted({KERNELS[k][0] for k in args.kernel})
+    # this checkout's libraries and the other's, all built at once
+    other = {}
+    th = threading.Thread(target=lambda: other.update(build_other(args.csrc.resolve(), names)))
+    th.start()
     chip_smoke.build_all(names)
-    other = build_other(args.csrc.resolve(), names)
+    th.join()
+    if set(other) != set(names):
+        raise RuntimeError("the other checkout's build failed (see above)")
     this = {name: _build.load_library(name) for name in names}
     cfg = ShapeNetConfig.from_dict(FLAGSHIP_SHAPE)
     ok = True
@@ -156,7 +189,8 @@ def main() -> int:
                   + "; this " + ", ".join(f"{float(outs['this'][i]):.9e}" for i in scalars))
         for label in ("other", "this", "this", "other"):
             use(label)
-            print(f"{kernel.upper()} bf16 tc, {label:5s} build: "
+            what = "f32 CUDA cores" if kernel.endswith("f32") else "bf16 tc"
+            print(f"{kernel.upper()} {what}, {label:5s} build: "
                   f"{cuda_ms(run, reps=5, warmup=1):.4f} ms ({smi})", flush=True)
         use("this")
         del outs, run

@@ -3,29 +3,33 @@
 card: the tensor-core K1 or K5's reverse body
 (``nif_tpu_torch/csrc/shapenet_fwd_tc.cu``), K2 (``csrc/shapenet_bwd_tc.cu``),
 K4 (``csrc/shapenet_linear_tc.cu``), K6 (``csrc/shapenet_jac_tc.cu``), K7 or
-K8 (``csrc/shapenet_hess_tc.cu``), or the float32 K2 or K3 on the CUDA cores
-(``csrc/shapenet_bwd.cu``).
+K8 (``csrc/shapenet_hess_tc.cu``), the float32 K2 or K3 on the CUDA cores
+(``csrc/shapenet_bwd.cu``), or the float32 K7 or K8 on the CUDA cores
+(``csrc/shapenet_hess.cu``).
 
-    python3 scripts/port_phase_probe.py [--kernel k1|k2|k2f32|k3f32|k4|k5|k6|k7|k8]
+    python3 scripts/port_phase_probe.py [--kernel k1|k2|k2f32|k3f32|k4|k5|k6|k7|k7f32|k8|k8f32]
                                         [--ablate] [--one-block]
 
 Builds the kernel's source once more with ``-DK1_PHASE_CLOCKS``,
-``-DK2_PHASE_CLOCKS``, ``-DK2F_PHASE_CLOCKS`` (k2f32, k3f32),
+``-DK2_PHASE_CLOCKS``, ``-DK2F_PHASE_CLOCKS`` (k2f32, k3f32), ``-DK8F_PHASE_CLOCKS``
+(k7f32, k8f32),
 ``-DK4_PHASE_CLOCKS``, ``-DK5_PHASE_CLOCKS``, ``-DK6_PHASE_CLOCKS``,
 ``-DK7_PHASE_CLOCKS`` or ``-DK8_PHASE_CLOCKS`` (into
 ``build/nif_tpu_torch/probe/``), in which thread 0 of every block adds the
 ``clock64()`` cycles between consecutive marks into phase counters (four
-for K1 and K7, ten for the float32 K2/K3, eight for the others), and runs it
+for K1, K7 and the float32 K7, ten for the float32 K2, K3 and K8, eight for
+the others), and runs it
 through the usual wrapper at the kernel's flagship shape (G=32, P=32768,
 bf16, random weights from a seed: the NIF-linear trunk for K4, the flagship
 chain alone for K1, K5 and K7, with targets and point weights for K2, with
 Jacobian targets for K6, and with Jacobian and Hessian targets for K8;
-float32 for k2f32, with targets and point weights, and k3f32, with an
-output cotangent). Prints the kernel's time (CUDA events, the instrumented
-build beside the plain one) and each phase's share of the blocks' critical
-path; for k2f32 and k3f32 also the plain build's ptxas lines and the device
-time of each kernel of a call (``torch.profiler``: the main kernel and the
-split reduce). The counters cost a few instructions at each mark; the plain
+float32 for k2f32, with targets and point weights, k3f32, with an output
+cotangent, k7f32, and k8f32, with Jacobian and Hessian targets). Prints the
+kernel's time (CUDA events, the instrumented build beside the plain one)
+and each phase's share of the blocks' critical path; for the float32
+kernels also the plain build's ptxas lines and the device time of each
+kernel of a call (``torch.profiler``: the main kernel and the split
+reduce). The counters cost a few instructions at each mark; the plain
 build's time says how much. Nothing is asserted.
 
 With ``--kernel k1 --one-block`` it also builds a variant of the source (a
@@ -77,7 +81,23 @@ SIMT_PHASES = [
     "the group's loss partial (and set-up)",
 ]
 
-# The longest counter array a C entry copies out (shapenet_bwd.cu's kPhases)
+# The phases of the CUDA-core K7/K8 body (csrc/shapenet_hess.cu); K7 marks
+# the first four
+HESS_PHASES = [
+    "x tile + first layer (all streams)",
+    "hidden forward products",
+    "hidden forward epilogues (thread 0's)",
+    "last product + loss (K7: y, jac, hp stores)",
+    "last layer's backward (dW_l, db_l, dS)",
+    "backward epilogues (D over Z; app 0's recomputes S_0)",
+    "hidden dW + db (partial updates included)",
+    "dS products",
+    "first layer's backward (dW0, db0)",
+    "the group's loss partials (and set-up)",
+]
+
+# The longest counter array a C entry copies out (the kPhases of
+# shapenet_bwd.cu and shapenet_hess.cu)
 COUNTER_ROOM = 10
 
 # source, its define, its counter entry, and the phases in counter order
@@ -136,6 +156,8 @@ KERNELS = {
     ]),
     "k2f32": ("shapenet_bwd", "K2F_PHASE_CLOCKS", "nif_bwd_phase_cycles", SIMT_PHASES),
     "k3f32": ("shapenet_bwd", "K2F_PHASE_CLOCKS", "nif_bwd_phase_cycles", SIMT_PHASES),
+    "k7f32": ("shapenet_hess", "K8F_PHASE_CLOCKS", "nif_hess_phase_cycles", HESS_PHASES[:4]),
+    "k8f32": ("shapenet_hess", "K8F_PHASE_CLOCKS", "nif_hess_phase_cycles", HESS_PHASES),
     "k8": ("shapenet_hess_tc", "K8_PHASE_CLOCKS", "nif_hess_tc_phase_cycles", [
         "x tile + first layer (all streams)",
         "hidden forward (products + epilogues)",
@@ -287,6 +309,27 @@ def k3f32_case(G: int, P: int):
     return lambda: fs.shapenet_bwd_cuda(wb, x, g, cfg, "siren"), geo
 
 
+def k7f32_case(G: int, P: int):
+    """The float32 K7's launcher and geometry at the flagship chain (the
+    CUDA-core kernel, as the float32 policy's evaluate_sobolev runs it)."""
+    cfg = ShapeNetConfig.from_dict(FLAGSHIP_SHAPE)
+    wb, x = chip_smoke.chain_data(torch, cfg, G, P, torch.float32, seed=209)
+    geo = fh.hessian_geometry("eval", cfg, "siren", G, P, torch.float32)
+    return lambda: fh.shapenet_fwd_hess_cuda(wb, x, cfg, "siren"), geo
+
+
+def k8f32_case(G: int, P: int):
+    """The float32 K8's launcher and geometry at the flagship chain, with
+    Jacobian and Hessian targets (as the float32 policy's Hessian step runs
+    it, unweighted)."""
+    cfg = ShapeNetConfig.from_dict(FLAGSHIP_SHAPE)
+    wb, x = chip_smoke.chain_data(torch, cfg, G, P, torch.float32, seed=210)
+    tgt, _, jt, ht = chip_smoke.hessian_data(torch, cfg, G, P, seed=210)
+    geo = fh.hessian_geometry("train", cfg, "siren", G, P, torch.float32)
+    return lambda: fh.shapenet_hessian_grads_cuda(wb, x, tgt, jt, ht, cfg, "siren", w_jac=0.1,
+                                                  w_hess=0.01), geo
+
+
 def device_split(run, reps: int) -> None:
     """Device time per kernel name over ``reps`` calls (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
@@ -358,17 +401,20 @@ def main() -> int:
     name, define, entry, phases = KERNELS[args.kernel]
     G, P = 32, 32768
     cases = {"k1": k1_case, "k2": k2_case, "k2f32": k2f32_case, "k3f32": k3f32_case,
-             "k4": k4_case, "k5": k5_case, "k6": k6_case, "k7": k7_case, "k8": k8_case}
+             "k4": k4_case, "k5": k5_case, "k6": k6_case, "k7": k7_case, "k8": k8_case,
+             "k7f32": k7f32_case, "k8f32": k8f32_case}
     run, geo = cases[args.kernel](G, P)
-    reps = 3 if args.kernel == "k8" else 10
+    reps = 3 if args.kernel in ("k8", "k7f32", "k8f32") else 10
     plain_build_ms = cuda_ms(run, reps=reps, warmup=1)
     # registers the argument types of the library now in _build._LIBS
     argtypes = {"k1": fs._fwd_tc_library, "k2": fs._bwd_tc_library,
                 "k2f32": fs._bwd_library, "k3f32": fs._bwd_library,
                 "k4": lambda: fl._library("tc"), "k5": fs._fwd_tc_library,
                 "k6": lambda: fd._library("tc"), "k7": lambda: fh._library("tc"),
-                "k8": lambda: fh._library("tc")}[args.kernel]
-    if name == "shapenet_bwd":
+                "k8": lambda: fh._library("tc"), "k7f32": lambda: fh._library("simt"),
+                "k8f32": lambda: fh._library("simt")}[args.kernel]
+    simt = name in ("shapenet_bwd", "shapenet_hess")
+    if simt:
         for line in _build.BUILD_LOGS.get(name, "").splitlines():
             if "registers" in line or "spill" in line:
                 print(f"plain build ptxas: {line.strip()}")
@@ -395,7 +441,7 @@ def main() -> int:
     blocks = G * geo["splits"]
     tiles = -(-P // geo["tile"]) / geo["splits"]
     total = sum(counters)
-    what = "f32, CUDA cores" if name == "shapenet_bwd" else "tc bf16"
+    what = "f32, CUDA cores" if simt else "tc bf16"
     print(f"{args.kernel.upper()} {what} at G={G} P={P}: {plain_build_ms:.4f} ms (plain build), "
           f"{probe_ms:.4f} ms (phase-clock build); {blocks} blocks of {tiles:.0f} "
           f"{geo['tile']}-point tiles")

@@ -2,6 +2,7 @@
 name hashes its source and the ``csrc`` headers the source includes,
 followed transitively, so editing a header rebuilds only the libraries that
 include it."""
+import importlib.util
 import re
 
 import pytest
@@ -52,14 +53,19 @@ def test_port_sources_include_what_they_use():
     assert "mma_sm90.cuh" not in {p.name for p in _build._sources("shapenet_linear")}
 
 
+# The sources that include the f32 tile header: the CUDA-core K2/K3 body and
+# the CUDA-core K7/K8 body.
+SIMT_USERS = {"shapenet_bwd", "shapenet_hess"}
+
 # Each tensor-core header and the sources that include it, directly or not:
-# the tensor-core sources, and the CUDA-core K2/K3 body (shapenet_bwd), whose
-# bf16 instances take the bf16 sine from stack_tc.cuh.
+# the tensor-core sources, and the CUDA-core bodies on the f32 tile header
+# (shapenet_bwd, shapenet_hess), whose bf16 instances take the bf16 sine
+# from stack_tc.cuh.
 TC_USERS = {
     "mma_sm90.cuh": {"shapenet_bwd_tc", "shapenet_fwd_tc", "shapenet_hess_tc",
-                     "shapenet_jac_tc", "shapenet_linear_tc", "shapenet_bwd"},
+                     "shapenet_jac_tc", "shapenet_linear_tc"} | SIMT_USERS,
     "stack_tc.cuh": {"shapenet_bwd_tc", "shapenet_fwd_tc", "shapenet_hess_tc",
-                     "shapenet_jac_tc", "shapenet_bwd"},
+                     "shapenet_jac_tc"} | SIMT_USERS,
 }
 TC_HEADERS = set(TC_USERS)
 
@@ -73,12 +79,15 @@ def _entries(name):
 def test_k8_tensor_core_sources():
     """The tensor-core K8 and K7 build into one library, against the
     stacked-stream machinery they share with the tensor-core K6 and K2, the
-    mma helpers and the shared header; the CUDA-core K7/K8 library includes
-    no tensor-core header and keeps its own K7 entry."""
+    mma helpers and the shared header; the CUDA-core K7/K8 library builds on
+    the f32 tile header, which includes the tensor-core headers for the bf16
+    sine (as the CUDA-core K2/K3 library does), and keeps its own entries."""
     names = {p.name for p in _build._sources("shapenet_hess_tc")}
     assert names == {"shapenet_hess_tc.cu", "stack_tc.cuh", "mma_sm90.cuh",
                      "shapenet_common.cuh"}
-    assert not TC_HEADERS & {p.name for p in _build._sources("shapenet_hess")}
+    assert {p.name for p in _build._sources("shapenet_hess")} == {
+        "shapenet_hess.cu", "stack_simt.cuh", "stack_tc.cuh", "mma_sm90.cuh",
+        "shapenet_common.cuh"}
     assert {"nif_shapenet_hess_tc_workspace", "nif_shapenet_hessian_grads_tc",
             "nif_shapenet_fwd_hess_tc_workspace", "nif_shapenet_fwd_hess_tc"} <= _entries(
                 "shapenet_hess_tc")
@@ -134,24 +143,27 @@ def test_k1_k5_tensor_core_sources():
 
 
 def test_k2_k3_cuda_core_sources():
-    """The CUDA-core K2/K3 body builds against its own f32 tile header, the
+    """The CUDA-core K2/K3 body builds against the f32 tile header, the
     shared one and stack_tc.cuh (one bf16 sine for every fused kernel on
-    Hopper, with what it includes); no other library includes the f32 tile
-    header, so an edit to it rebuilds this library alone; the library
-    defines the entries its wrapper loads."""
+    Hopper, with what it includes); the f32 tile header has two users, the
+    K2/K3 body and the K7/K8 body, so an edit to it rebuilds those two
+    libraries alone; each defines the entries its wrapper loads."""
     names = {p.name for p in _build._sources("shapenet_bwd")}
     assert names == {"shapenet_bwd.cu", "stack_simt.cuh", "stack_tc.cuh", "mma_sm90.cuh",
                      "shapenet_common.cuh"}
     users = {path.stem for path in _build.CSRC.glob("*.cu")
              if "stack_simt.cuh" in {p.name for p in _build._sources(path.stem)}}
-    assert users == {"shapenet_bwd"}
+    assert users == SIMT_USERS
     assert {"nif_shapenet_bwd_workspace", "nif_shapenet_mse_grads",
             "nif_shapenet_bwd"} <= _entries("shapenet_bwd")
+    assert {"nif_shapenet_hess_workspace", "nif_shapenet_fwd_hess",
+            "nif_shapenet_hessian_grads"} <= _entries("shapenet_hess")
 
 
 def test_simt_header_edit_renames_only_the_k2_k3_library(tmp_path, monkeypatch):
     """On a copy of the port's sources: editing the f32 tile header renames
-    the CUDA-core K2/K3 library and no other."""
+    the libraries of its two users, the CUDA-core K2/K3 and K7/K8 bodies,
+    and no other."""
     for path in _build.CSRC.iterdir():
         (tmp_path / path.name).write_bytes(path.read_bytes())
     monkeypatch.setattr(_build, "CSRC", tmp_path)
@@ -159,17 +171,31 @@ def test_simt_header_edit_renames_only_the_k2_k3_library(tmp_path, monkeypatch):
     before = {name: _build._target(name) for name in names}
     header = tmp_path / "stack_simt.cuh"
     header.write_text(header.read_text() + "// edited\n")
-    assert {name for name in names if _build._target(name) != before[name]} == {"shapenet_bwd"}
+    assert {name for name in names if _build._target(name) != before[name]} == SIMT_USERS
 
 
 def test_phase_probe_reads_every_counter_array():
     """The phase probe's counter buffer holds the longest array a probe
-    build's C entry copies out, so no read runs past it."""
-    probe = (_build.CSRC.parents[1] / "scripts" / "port_phase_probe.py").read_text()
+    build's C entry copies out, so no read runs past it; and each kernel the
+    probe splits (the float32 K7/K8 body's among them) names a source that
+    builds its counter array under the probe's define, defines the entry
+    the probe reads, and counts at least the phases the probe prints."""
+    path = _build.CSRC.parents[1] / "scripts" / "port_phase_probe.py"
+    probe = path.read_text()
     room = int(re.search(r"^COUNTER_ROOM = (\d+)$", probe, re.MULTILINE).group(1))
     counts = [int(n) for path in _build.CSRC.glob("*.cu")
               for n in re.findall(r"constexpr int kPhases = (\d+);", path.read_text())]
     assert counts and room >= max(counts)
+    spec = importlib.util.spec_from_file_location("port_phase_probe", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    assert {"k2f32", "k3f32", "k7f32", "k8f32"} <= set(module.KERNELS)
+    for kernel, (name, define, entry, phases) in module.KERNELS.items():
+        source = (_build.CSRC / f"{name}.cu").read_text()
+        block = source[source.index(f"#ifdef {define}"):]
+        assert re.search(rf"^int {entry}\(unsigned long long\* out\)", block, re.MULTILINE), kernel
+        n = re.search(r"constexpr int kPhases = (\d+);", source)
+        assert n and len(phases) <= int(n.group(1)) <= room, kernel
 
 
 @pytest.mark.parametrize("header", sorted(TC_HEADERS))

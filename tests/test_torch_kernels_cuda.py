@@ -761,11 +761,13 @@ def test_hessian_geometry(card):
     tensor-core kernels: 16-point tiles (160 stacked rows) with every S plane
     (K8) or both working planes (K7) and the staged W in shared memory, and
     one wave of SMs / G splits per group; their f32 bodies (the CUDA-core
-    kernels) take 6-point tiles (60 of 64 rows), f32 K8's residuals in the
-    global scratch. At si = 4 (15 streams) the tensor-core K8's S planes go to
-    the global scratch. At width 1024 the tensor-core kernels' two planes
-    exceed shared memory, and the CUDA-core kernels' 8-row tile cannot hold 15
-    streams."""
+    kernels) take 8-point tiles (80 stacked rows, a thread's ten rows one
+    point's streams), f32 K8's five planes and f32 K7's two in shared memory,
+    with the same splits. At si = 4 (15 streams) the tensor-core K8's S
+    planes go to the global scratch. At width 1024 the tensor-core kernels'
+    two planes exceed shared memory, so bf16 takes the CUDA-core kernels,
+    which loop over 128-column blocks and keep their planes in the global
+    scratch; so does f32 there."""
     cfg = ShapeNetConfig(3, 1, 128, 2, "sine", False, 30.0)
     train = fh.hessian_geometry("train", cfg, "siren", 32, 32768, torch.bfloat16)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -773,26 +775,115 @@ def test_hessian_geometry(card):
         "tc", 16, "shared", "shared")
     assert train["splits"] == max(1, min(64, sms // 32))
     f32 = fh.hessian_geometry("train", cfg, "siren", 32, 32768, torch.float32)
-    assert (f32["kernel"], f32["tile"]) == ("simt", 6)
-    assert f32["residuals"] == "global" and f32["scratch_bytes"] > 0
+    assert (f32["kernel"], f32["tile"], f32["splits"]) == ("simt", 8, train["splits"])
+    assert f32["residuals"] == "shared" and f32["scratch_bytes"] == 0
     ev = fh.hessian_geometry("eval", cfg, "siren", 32, 32768, torch.bfloat16)
     assert (ev["kernel"], ev["tile"], ev["weights"], ev["partial_floats"]) == (
         "tc", 16, "shared", 0)
     assert ev["splits"] == train["splits"]
     ev32 = fh.hessian_geometry("eval", cfg, "siren", 32, 32768, torch.float32)
-    assert (ev32["kernel"], ev32["tile"]) == ("simt", 6)
+    assert (ev32["kernel"], ev32["tile"], ev32["residuals"]) == ("simt", 8, "shared")
     si4 = fh.hessian_geometry("train", ShapeNetConfig(4, 1, 128, 2, "sine"), "siren", 2, 64,
                               torch.bfloat16)
     assert (si4["tile"], si4["residuals"]) == (16, "global")
     wide = ShapeNetConfig(4, 1, 1024, 1, "sine")
-    # bf16 falls back to the CUDA-core kernel, whose 8-row tile refuses too
+    # bf16 runs the CUDA-core kernel, which takes it with its planes in the
+    # global scratch, as f32 does
     assert "tensor-core" in fh._cuda_reason("train", wide, "siren", 4, torch.bfloat16, "tc")
     assert fh.k8_variant(torch.bfloat16, wide, "siren", 4) == "simt"
     assert fh.k7_variant(torch.bfloat16, wide, "siren", 4) == "simt"
-    assert "streams" in fh.hessian_fused_unsupported_reason(wide, "siren", 256, 4, card)
-    assert "streams" in fh.hessian_fused_unsupported_reason(wide, "siren", 256, 4, card,
-                                                            torch.float32)
-    assert "streams" in fh.fwd_hess_unsupported_reason(wide, "siren", 256, 4, card)
+    assert fh.hessian_fused_unsupported_reason(wide, "siren", 256, 4, card) is None
+    assert fh.hessian_fused_unsupported_reason(wide, "siren", 256, 4, card,
+                                               torch.float32) is None
+    assert fh.fwd_hess_unsupported_reason(wide, "siren", 256, 4, card) is None
+    for mode in ("train", "eval"):
+        for dtype in (torch.float32, torch.bfloat16):
+            geo = fh.hessian_geometry(mode, wide, "siren", 2, 256, dtype, si=4)
+            assert (geo["kernel"], geo["tile"], geo["residuals"]) == ("simt", 8, "global")
+
+
+# The float32 K7/K8 body (csrc/shapenet_hess.cu on stack_simt.cuh) on what
+# sets it apart: si = 1-4 (3, 6, 10 and 15 streams a point), resblock
+# chains, widths 24 and 40 (part of a 128-column block), 256 and 512 (two
+# and four column blocks, the planes in the global scratch), so = 2, at P =
+# 200 (a ragged last 8-point tile): (ShapeNetConfig args, where the planes
+# sit in f32).
+SIMT_HESS_F32 = [
+    ((3, 1, 24, 2, "sine", False, 30.0), "shared"),
+    ((2, 2, 40, 2, "sine", True, 10.0), "shared"),
+    ((1, 1, 64, 2, "sine", False, 30.0), "shared"),
+    ((4, 1, 128, 2, "sine", False, 30.0), "global"),
+    ((3, 1, 128, 2, "sine", True, 30.0), "global"),
+    ((3, 1, 128, 2, "sine", False, 30.0), "shared"),
+    ((3, 1, 256, 2, "sine", True, 30.0), "global"),
+    ((2, 1, 512, 1, "sine", False, 30.0), "global"),
+]
+
+
+@pytest.mark.parametrize("args,residuals", SIMT_HESS_F32,
+                         ids=["n24", "n40-res-so2", "si1", "si4", "n128-res", "n128",
+                              "n256-res", "n512"])
+def test_simt_k7_k8_float32_shapes(card, args, residuals):
+    """The float32 K7 and K8 (the CUDA-core body, full f32 FMAs) on each
+    shape, weighted, masked where so > 1, at P = 200: one launch each of the
+    CUDA-core kernel, K7's y, jac and hess within 2e-4 of max|plain| + 1e-5
+    (the Hessian exactly symmetric), K8's terms within rel 1e-5 and d_wb
+    within 1e-4 of max|plain|; the planes in shared memory or in the global
+    scratch as the geometry says (both instances of the body)."""
+    cfg = ShapeNetConfig(*args)
+    si, so = cfg.input_dim, cfg.output_dim
+    for mode in ("eval", "train"):
+        geo = fh.hessian_geometry(mode, cfg, "siren", 3, 200, torch.float32)
+        assert (geo["kernel"], geo["tile"]) == ("simt", 8)
+        if mode == "train":
+            assert geo["residuals"] == residuals
+    wb, x = _data(cfg, 3, 200, torch.float32, seed=38)
+    before = dict(_build.LAUNCHES)
+    outs = fh.shapenet_fwd_hess_cuda(wb, x, cfg, "siren")
+    assert _build.LAUNCHES["shapenet_fwd_hess"] == before["shapenet_fwd_hess"] + 1
+    assert _build.LAUNCHES["shapenet_fwd_hess_tc"] == before["shapenet_fwd_hess_tc"]
+    assert torch.equal(outs[2], outs[2].transpose(-1, -2))
+    for mine, ref in zip(outs, fh.shapenet_fwd_hess_reference(wb, x, cfg, "siren")):
+        assert mine.dtype == torch.float32 and mine.shape == ref.shape
+        _close_rel(mine, ref, torch.float32)
+    tgt, jt, ht, w = _hessian_side(cfg, 3, 200, seed=38)
+    kw = dict(w_value=0.7, w_jac=1.3, w_hess=0.4, weight=w)
+    if so > 1:
+        kw.update(y_mask=np.eye(1, so, dtype=np.float32)[0],
+                  jac_mask=(np.arange(si * so) % 2 == 0).astype(np.float32),
+                  hess_mask=(np.arange(si * (si + 1) // 2 * so) % 3 != 1).astype(np.float32))
+    before = dict(_build.LAUNCHES)
+    *terms, d_wb = fh.shapenet_hessian_grads_cuda(wb, x, tgt, jt, ht, cfg, "siren", **kw)
+    assert _build.LAUNCHES["shapenet_hessian_grads"] == before["shapenet_hessian_grads"] + 1
+    assert _build.LAUNCHES["shapenet_hessian_grads_tc"] == before["shapenet_hessian_grads_tc"]
+    *refs, r_wb = fh.shapenet_hessian_grads_reference(wb, x, tgt, jt, ht, cfg, "siren", **kw)
+    for mine, ref in zip(terms, refs):
+        assert float(mine) == pytest.approx(float(ref), rel=1e-5)
+    err, scale = _max_diff(d_wb, r_wb)
+    assert d_wb.dtype == torch.float32 and err <= 1e-4 * scale, (err, scale)
+
+
+def test_simt_k7_k8_float32_flagship_is_deterministic(card):
+    """The float32 K7 and K8 at the flagship shape (G=32, P=32768, the
+    float32 policy's Hessian step and evaluation): two runs each give the
+    same bits (fixed splits, an ordered reduce), finite and of the expected
+    shapes, each one launch of the CUDA-core kernel."""
+    cfg = ShapeNetConfig(3, 1, 128, 2, "sine", False, 30.0)
+    wb, x = _data(cfg, 32, 32768, torch.float32, seed=39)
+    tgt, jt, ht, w = _hessian_side(cfg, 32, 32768, seed=39)
+    before = dict(_build.LAUNCHES)
+    evals = [fh.shapenet_fwd_hess_cuda(wb, x, cfg, "siren") for _ in range(2)]
+    trains = [fh.shapenet_hessian_grads_cuda(wb, x, tgt, jt, ht, cfg, "siren", w_jac=0.1,
+                                             w_hess=0.01, weight=w) for _ in range(2)]
+    assert _build.LAUNCHES["shapenet_fwd_hess"] == before["shapenet_fwd_hess"] + 2
+    assert _build.LAUNCHES["shapenet_hessian_grads"] == before["shapenet_hessian_grads"] + 2
+    assert _build.LAUNCHES["shapenet_fwd_hess_tc"] == before["shapenet_fwd_hess_tc"]
+    assert _build.LAUNCHES["shapenet_hessian_grads_tc"] == before["shapenet_hessian_grads_tc"]
+    assert [tuple(t.shape) for t in evals[0]] == [(32, 32768, 1), (32, 32768, 1, 3),
+                                                 (32, 32768, 1, 3, 3)]
+    for a, b in zip(evals[0] + tuple(trains[0]), evals[1] + tuple(trains[1])):
+        assert torch.equal(a, b) and bool(torch.isfinite(a).all())
+    assert trains[0][3].shape == wb.shape
 
 
 # Shapes the tensor-core K8 pads, tiles raggedly or lays out otherwise

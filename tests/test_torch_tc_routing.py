@@ -234,3 +234,20 @@ def test_jacobian_evaluation_gates_k5_on_the_compute_dtype(policy, dtype, monkey
     assert seen == [dtype]
     assert y.shape == (2, 8, 1) and jac.shape == (2, 8, 1, 3)
     assert bool(torch.isfinite(jac).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_hessian_weights_stage_with_16_byte_copies(dtype):
+    """wb' as each Hessian kernel's library reads it: the tensor-core
+    kernels' in wb's dtype with rows padded to 8 values, the CUDA-core
+    body's widened to f32 with rows padded to 4 floats (its C entries refuse
+    another row stride); the padding is zero and the values exact."""
+    cfg = ShapeNetConfig(*SIREN)
+    wb = _data(cfg, 2, 4, dtype, seed=3)[0]
+    assert wb.shape[1] % 4 != 0  # po = 625: the padding is exercised
+    tc, simt = fh._hess_weights("tc", wb), fh._hess_weights("simt", wb)
+    assert tc.dtype == dtype and tc.shape[1] % 8 == 0 and tc.is_contiguous()
+    assert simt.dtype == torch.float32 and simt.shape[1] % 4 == 0 and simt.is_contiguous()
+    for padded in (tc, simt):
+        assert torch.equal(padded[:, :wb.shape[1]].float(), wb.float())
+        assert not padded[:, wb.shape[1]:].any()
