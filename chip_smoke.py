@@ -454,7 +454,8 @@ def check_k5(torch, cfg, variant, G, P, dtype, seed, simt=False) -> float:
     return worst
 
 
-def check_k6(torch, cfg, variant, G, P, dtype, weighted, masked, seed, simt=False) -> float:
+def check_k6(torch, cfg, variant, G, P, dtype, weighted, masked, seed, simt=False,
+             chunk=None) -> float:
     """K6 vs plain K6; returns max |d_wb - plain d_wb|. A bfloat16 call on a
     sine chain must launch the tensor-core kernel (``simt``: the CUDA-core
     kernel on the same inputs, through its private launcher), a float32 or
@@ -463,7 +464,8 @@ def check_k6(torch, cfg, variant, G, P, dtype, weighted, masked, seed, simt=Fals
     float32: both terms rel 1e-5, d_wb max|d| <= 5e-5 max|plain| (the fused
     backward's bound: the stacked backward sums (1 + si) times the rows);
     bfloat16: terms rel TC_LOSS_REL on the tensor-core kernel and
-    BF16_LOSS_REL on the CUDA-core one, d_wb BF16_REL."""
+    BF16_LOSS_REL on the CUDA-core one, d_wb BF16_REL. ``chunk``: plain K6
+    in chunks of that many groups (:func:`plain_k6_chunked`)."""
     from nif_tpu_torch.ops import _build
     from nif_tpu_torch.ops.fused_derivatives import (
         _geometry, _shapenet_sobolev_grads_simt, shapenet_sobolev_grads_cuda,
@@ -479,7 +481,10 @@ def check_k6(torch, cfg, variant, G, P, dtype, weighted, masked, seed, simt=Fals
     before = dict(_build.LAUNCHES)
     launch = _shapenet_sobolev_grads_simt if simt else shapenet_sobolev_grads_cuda
     lv, lj, d_wb = launch(wb, x, tgt, jt, cfg, variant, **kw)
-    rv, rj, r_wb = shapenet_sobolev_grads_reference(wb, x, tgt, jt, cfg, variant, **kw)
+    if chunk:
+        (rv, rj), r_wb = plain_k6_chunked(torch, wb, x, tgt, jt, cfg, chunk, **kw)
+    else:
+        rv, rj, r_wb = shapenet_sobolev_grads_reference(wb, x, tgt, jt, cfg, variant, **kw)
     torch.cuda.synchronize()
     tc = int(dtype == torch.bfloat16 and variant == "siren" and not simt)
     what = (f"K6 {describe(cfg, variant, G, P, dtype)} weighted={weighted} masked={masked}"
@@ -504,6 +509,23 @@ def check_k6(torch, cfg, variant, G, P, dtype, weighted, masked, seed, simt=Fals
         raise AssertionError(f"{what}: term rel {rels} (bound {l_bound}), d_wb max|d| {err} > "
                              f"{bound} * {scale}")
     return err
+
+
+def plain_k6_chunked(torch, wb, x, tgt, jt, cfg, chunk=8, **kw):
+    """Plain K6 over [G, P] in chunks of ``chunk`` groups (as
+    :func:`plain_k8_chunked`): each group's d_wb is its own, scaled by chunk
+    / G to the whole batch's mean, and the terms are the means of the
+    chunks'; point weights ``weight`` [G, P] are cut with the groups."""
+    from nif_tpu_torch.ops.fused_derivatives import shapenet_sobolev_grads_reference
+
+    G = x.shape[0]
+    w = kw.pop("weight", None)
+    parts = [shapenet_sobolev_grads_reference(wb[s:s + chunk], x[s:s + chunk],
+                                              tgt[s:s + chunk], jt[s:s + chunk], cfg, "siren",
+                                              weight=None if w is None else w[s:s + chunk], **kw)
+             for s in range(0, G, chunk)]
+    terms = [sum(p[i] for p in parts) / len(parts) for i in range(2)]
+    return terms, torch.cat([p[2] for p in parts]) * (chunk / G)
 
 
 def check_k7(torch, cfg, variant, G, P, dtype, seed, simt=False, chunk=None) -> float:
@@ -681,6 +703,81 @@ def hessian_step_stages(torch, trainer, state, batch):
     return {k: cuda_ms(f, reps=3, warmup=1) for k, f in stages.items()}
 
 
+def sobolev_step_stages(torch, trainer, state, batch):
+    """The flagship Sobolev step's stages, each timed alone with CUDA events
+    (ms): the input casts, the ParameterNet forward, K6's wrapper, the
+    ParameterNet backward and the Adam update (as
+    ``scripts/port_train_profile.py --sobolev`` splits it)."""
+    from nif_tpu_torch.ops.fused_derivatives import shapenet_sobolev_grads
+    from nif_tpu_torch.utils.bench import cuda_ms
+
+    model = trainer.model
+    t, x, u, jt = batch
+    G, P = x.shape[:2]
+    params = [p for _, p in model.param_items()]
+    tc, xc = model._compute(t), model._compute(x)
+    wb, _ = model.pnet(tc)
+    jt_flat = jt.transpose(2, 3).reshape(G, P, 3)  # column k*so + j
+    kernel = lambda: shapenet_sobolev_grads(  # noqa: E731
+        wb, xc, u, jt_flat, model.cfg_shape_net, "siren", w_value=trainer.w_value,
+        w_jac=trainer.w_jac)
+    d_wb = kernel()[2]
+    grads = torch.autograd.grad(wb, params, d_wb, retain_graph=True)
+
+    def adam():
+        for p, g in zip(params, grads):
+            p.grad = g
+        state.opt_state.step()
+
+    stages = {
+        "cast t, x": lambda: (model._compute(t), model._compute(x)),
+        "ParameterNet forward": lambda: model.pnet(tc),
+        "K6 wrapper": kernel,
+        "ParameterNet backward": lambda: torch.autograd.grad(wb, params, d_wb,
+                                                             retain_graph=True),
+        "Adam update": adam,
+    }
+    return {k: cuda_ms(f, reps=5, warmup=1) for k, f in stages.items()}
+
+
+def linear_step_stages(torch, trainer, state, batch):
+    """The flagship NIF-linear step's stages, each timed alone with CUDA
+    events (ms): the input casts, the ParameterNet forward (t -> a), K4's
+    wrapper, the ParameterNet backward (d_a -> grads) and the Adam update
+    (as ``scripts/port_train_profile.py --linear`` splits it)."""
+    from nif_tpu_torch.ops.fused_linear import niflinear_mse_grads
+    from nif_tpu_torch.utils.bench import cuda_ms
+
+    model = trainer.model
+    t, x, u = batch
+    params = [p for _, p in model.param_items()]
+    tc, xc = model._compute(t), model._compute(x)
+    a, _ = model.pnet(tc)
+    ws, bs = model._trunk_lists()
+    ws, bs = [w.detach().to(xc.dtype) for w in ws], [b.detach().to(xc.dtype) for b in bs]
+    bias = model.snet.bias.detach().to(xc.dtype)
+    kernel = lambda: niflinear_mse_grads(  # noqa: E731
+        ws, bs, a, bias, xc, u, model._trunk_cfg, model.so_dim)
+    d_a = kernel()[3]
+    pnet = list(model.pnet.params.parameters())
+    grads = torch.autograd.grad(a, pnet, d_a, retain_graph=True)
+    grads = grads + tuple(torch.zeros_like(p) for p in params[len(pnet):])
+
+    def adam():
+        for p, g in zip(params, grads):
+            p.grad = g
+        state.opt_state.step()
+
+    stages = {
+        "cast t, x": lambda: (model._compute(t), model._compute(x)),
+        "ParameterNet forward": lambda: model.pnet(tc),
+        "K4 wrapper": kernel,
+        "ParameterNet backward": lambda: torch.autograd.grad(a, pnet, d_a, retain_graph=True),
+        "Adam update": adam,
+    }
+    return {k: cuda_ms(f, reps=10, warmup=2) for k, f in stages.items()}
+
+
 def mse_step_stages(torch, trainer, state, batch):
     """The flagship MSE step's stages, each timed alone with CUDA events
     (ms): the input casts, the ParameterNet forward, K2's wrapper, the
@@ -778,9 +875,10 @@ def check_k4(torch, case, G, P, dtype, weighted, seed) -> float:
         if err > bound * scale + 1e-12:
             raise AssertionError(f"{what}: a gradient's max|d| {err} > {bound} * {scale}")
     geo = linear_geometry(cfg, so, G, P, dtype)
+    grid = f"{geo['blocks']} blocks" if "blocks" in geo else f"{geo['splits']} splits"
     log(f"{what} loss {float(outs[0]):.6e} (rel {l_rel:.2e}) grads worst max|d|={worst:.3e} "
         f"({worst_rel:.2e} of max|plain|); {geo['variant']} kernel, residuals in "
-        f"{geo['residuals']} memory, {geo['splits']} splits of {geo['tile']}-point tiles")
+        f"{geo['residuals']} memory, {grid} of {geo['tile']}-point tiles")
     if not np.isfinite(float(outs[0])) or l_rel > l_bound:
         raise AssertionError(f"{what}: loss rel {l_rel} (bound {l_bound})")
     return worst
@@ -795,13 +893,21 @@ def linear_bounds(cfg, so, G, P, peak_mma, peak_f32, peak_bw, f32=False):
     (5 G P nk) over the f32 peak; bytes of the trunk, a, bias, x and the
     target in and of the f32 grads and loss out. ``f32``: the float32 kernel,
     whose products must not use the tensor cores (no TF32), so products and
-    activations together over the f32 peak, and 4-byte inputs."""
+    activations together over the f32 peak, and 4-byte inputs; and, since
+    its d_phi = go_o a is an outer product for each output o, the
+    bottleneck's dW and du are no products but matrix-vector work: u_last^T
+    go and go (W_bot a)^T, 2 n so MACs a point, and W_bot a and the outer
+    product a (u_last^T go), n nk MACs each once a group."""
     n, si = cfg.units, cfg.input_dim
     nk = cfg.output_dim
     nm = 2 * cfg.nlayers if cfg.use_resblock else cfg.nlayers
     K = nk // so
     po = nm * n * n + (si + 1 + nm) * n + n * nk + nk
-    flops = 2 * G * P * (2 * (si * n + nm * n * n + n * nk) + nm * n * n + n * nk)
+    if f32:
+        flops = (2 * G * P * (2 * (si * n + nm * n * n) + n * nk + nm * n * n + 2 * n * so)
+                 + 2 * 2 * G * n * nk)
+    else:
+        flops = 2 * G * P * (2 * (si * n + nm * n * n + n * nk) + nm * n * n + n * nk)
     act = SINE_GRAD_FLOPS * G * P * n * (1 + nm) + 5 * G * P * nk
     nbytes = (4 if f32 else 2) * (po + G * K + so + G * P * (si + so)) + 4 * (po + G * K + so + 1)
     t_ops = ((flops + act) / peak_f32 if f32 else max(flops / peak_mma, act / peak_f32)) * 1e3
@@ -988,14 +1094,14 @@ def main() -> int:
     from nif_tpu_torch.config import ShapeNetConfig
     from nif_tpu_torch.ops import _build
     from nif_tpu_torch.ops.fused_derivatives import (
-        _shapenet_fwd_jac_simt, _shapenet_sobolev_grads_simt, k5_variant, shapenet_fwd_jac_cuda,
-        shapenet_fwd_jac_reference, shapenet_sobolev_grads_cuda,
+        _shapenet_fwd_jac_simt, _shapenet_sobolev_grads_simt, derivative_geometry, k5_variant,
+        shapenet_fwd_jac_cuda, shapenet_fwd_jac_reference, shapenet_sobolev_grads_cuda,
         shapenet_sobolev_grads_reference)
     from nif_tpu_torch.ops.fused_hessian import (
         _shapenet_fwd_hess_simt, _shapenet_hessian_grads_simt, shapenet_fwd_hess_cuda,
         shapenet_hessian_grads_cuda)
     from nif_tpu_torch.ops.fused_linear import (
-        niflinear_mse_grads_cuda, niflinear_mse_grads_reference)
+        linear_geometry, niflinear_mse_grads_cuda, niflinear_mse_grads_reference)
     from nif_tpu_torch.ops.fused_shapenet import (
         _shapenet_fwd_simt, _shapenet_mse_grads_simt, k1_variant, shapenet_bwd_cuda,
         shapenet_fused_bwd_reference, shapenet_fwd_cuda, shapenet_grouped_fused_reference,
@@ -1204,18 +1310,30 @@ def main() -> int:
     k6_err = check_k6(torch, flag_cfg, "siren", 32, 32768, torch.bfloat16, False, False, seed=50)
     check_k6(torch, flag_cfg, "siren", 32, 32768, torch.bfloat16, False, False, seed=50,
              simt=True)
-    k6f_err = check_k6(torch, flag_cfg, "siren", 8, 32768, torch.float32, False, False, seed=53)
-    wb, x = chain_data(torch, flag_cfg, 32, 32768, torch.bfloat16, seed=51)
-    tgt, w, jt = sobolev_data(torch, flag_cfg, 32, 32768, seed=51)
-    before = _build.LAUNCHES["shapenet_sobolev_grads_tc"]
-    runs = [shapenet_sobolev_grads_cuda(wb, x, tgt, jt, flag_cfg, "siren", weight=w)
-            for _ in range(2)]
-    if _build.LAUNCHES["shapenet_sobolev_grads_tc"] != before + 2:
-        raise AssertionError("the flagship bf16 K6 runs did not take the tensor-core kernel")
-    if not all(torch.equal(a, b) for a, b in zip(*runs)):
-        raise AssertionError("K6 is not deterministic: two runs on one input differ")
-    log("K6 flagship bf16 (G=32, P=32768, weighted, tensor cores): two runs give bitwise-equal "
-        "terms and d_wb")
+    # f32 at G=8 and at the float32 policy's Sobolev step shape (G=32, timed
+    # in phase 4c), unweighted as the step calls it and weighted (plain K6 in
+    # chunks of 8 groups)
+    k6f_err = max([check_k6(torch, flag_cfg, "siren", 8, 32768, torch.float32, False, False,
+                            seed=53)]
+                  + [check_k6(torch, flag_cfg, "siren", 32, 32768, torch.float32, weighted,
+                              False, seed=54, chunk=8) for weighted in (False, True)])
+    for dtype, seed, kernel in ((torch.bfloat16, 51, "tensor-core"),
+                                (torch.float32, 55, "CUDA-core")):
+        wb, x = chain_data(torch, flag_cfg, 32, 32768, dtype, seed=seed)
+        tgt, w, jt = sobolev_data(torch, flag_cfg, 32, 32768, seed=seed)
+        before = dict(_build.LAUNCHES)
+        runs = [shapenet_sobolev_grads_cuda(wb, x, tgt, jt, flag_cfg, "siren", weight=w)
+                for _ in range(2)]
+        tc = 2 if dtype == torch.bfloat16 else 0
+        if (_build.LAUNCHES["shapenet_sobolev_grads"] != before["shapenet_sobolev_grads"] + 2
+                or _build.LAUNCHES["shapenet_sobolev_grads_tc"]
+                != before["shapenet_sobolev_grads_tc"] + tc):
+            raise AssertionError(f"the flagship {dtype} K6 runs did not take the {kernel} kernel")
+        if not all(torch.equal(a, b) for a, b in zip(*runs)):
+            raise AssertionError(f"the {dtype} K6 is not deterministic: two runs on one input "
+                                 f"differ")
+        log(f"K6 flagship {dtype} (G=32, P=32768, weighted, {kernel} kernel): two runs give "
+            f"bitwise-equal terms and d_wb")
     del wb, x, tgt, w, jt, runs
 
     # ---- phase 2f: K7 against its plain version, and its determinism
@@ -1291,15 +1409,20 @@ def main() -> int:
             for weighted in (False, True):
                 check_k4(torch, case, 3, 256, dtype, weighted, seed=100 + i)
     k4_err = check_k4(torch, LINEAR_CASES[0], 32, 32768, torch.bfloat16, False, seed=110)
-    k4f_err = check_k4(torch, LINEAR_CASES[0], 32, 32768, torch.float32, False, seed=113)
-    lcfg, lso, lws, lbs, la, lbias, lx, ltgt, lw = linear_data(
-        torch, LINEAR_CASES[0], 32, 32768, torch.bfloat16, seed=111)
-    runs = [k4_outputs(niflinear_mse_grads_cuda(lws, lbs, la, lbias, lx, ltgt, lcfg, lso, lw))
-            for _ in range(2)]
-    if not all(torch.equal(a, b) for a, b in zip(*runs)):
-        raise AssertionError("K4 is not deterministic: two runs on one input differ")
-    log("K4 flagship trunk bf16 (G=32, P=32768, weighted): two runs give bitwise-equal loss "
-        "and grads")
+    # f32 at the float32 policy's NIF-linear step shape (timed in phase 4e),
+    # unweighted as the step calls it and weighted
+    k4f_err = max(check_k4(torch, LINEAR_CASES[0], 32, 32768, torch.float32, weighted, seed=113)
+                  for weighted in (False, True))
+    for dtype, seed in ((torch.bfloat16, 111), (torch.float32, 114)):
+        lcfg, lso, lws, lbs, la, lbias, lx, ltgt, lw = linear_data(
+            torch, LINEAR_CASES[0], 32, 32768, dtype, seed=seed)
+        runs = [k4_outputs(niflinear_mse_grads_cuda(lws, lbs, la, lbias, lx, ltgt, lcfg, lso,
+                                                    lw)) for _ in range(2)]
+        if not all(torch.equal(a, b) for a, b in zip(*runs)):
+            raise AssertionError(f"the {dtype} K4 is not deterministic: two runs on one input "
+                                 f"differ")
+        log(f"K4 flagship trunk {dtype} (G=32, P=32768, weighted): two runs give bitwise-equal "
+            f"loss and grads")
     del lws, lbs, la, lbias, lx, ltgt, lw, runs
 
     # ---- phase 3: serve the flagship model
@@ -1499,6 +1622,15 @@ def main() -> int:
     if (sf32_launches["shapenet_sobolev_grads"] != 1 or sf32_launches["shapenet_sobolev_grads_tc"]
             or not np.isfinite(float(sf32_loss))):
         raise AssertionError(f"a float32 Sobolev step launched {sf32_launches}")
+    # the launch went to the si <= 4 body on the f32 tile machinery: one wave
+    # of SMs / G splits, its planes in shared memory (the stacked_kernel body
+    # takes 8 splits and a global scratch)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sgeo = derivative_geometry("sobolev", flag_cfg, "siren", G, P, torch.float32)
+    log(f"the float32 K6's geometry at G={G} P={P}: {sgeo}")
+    if (sgeo["kernel"], sgeo["tile"], sgeo["residuals"], sgeo["splits"]) != (
+            "simt", 16, "shared", max(1, min(64, sms // G))):
+        raise AssertionError(f"the float32 Sobolev step did not take the redesigned K6: {sgeo}")
     j_w = wave_jacobian(t_w, x_w)
     eval_chunks = 4
     _build.reset_launches()
@@ -1511,7 +1643,6 @@ def main() -> int:
             or jf32_eval_launches["shapenet_fwd_jac_tc"]
             or not all(np.isfinite(v) for v in sf32_eval.values())):
         raise AssertionError(f"a float32 Jacobian evaluation launched {jf32_eval_launches}")
-    del sf32_trainer, sf32_state
     smodel_w = nif_tpu_torch.NIFMultiScale(FLAGSHIP_SHAPE, FLAGSHIP_PNET, FLAGSHIP_POLICY,
                                            device="cuda", seed=1)
     sfitter = GroupedTrainer(smodel_w, lambda p: torch.optim.Adam(p, lr=FLAGSHIP_TRAIN_LR))
@@ -1753,7 +1884,15 @@ def main() -> int:
     if (f32_launches["niflinear_mse_grads"] != 2 or f32_launches["niflinear_mse_grads_tc"]
             or not all(np.isfinite(f32_losses))):
         raise AssertionError(f"2 float32 NIF-linear steps launched {f32_launches}")
-    del f32_trainer, f32_state
+    # the launches went to the body on the f32 tile machinery: one wave of
+    # one block per SM over all groups' tiles, its planes in shared memory
+    # (a grid of 8 splits a group would not)
+    lgeo = linear_geometry(lmodel._trunk_cfg, 1, G, P, torch.float32)
+    log(f"the float32 K4's geometry at G={G} P={P}: {lgeo}")
+    if (lgeo["variant"], lgeo["tile"], lgeo["residuals"], lgeo["blocks"]) != (
+            "simt", 64, "shared", min(sms, G * (P // 64))):
+        raise AssertionError(f"the float32 NIF-linear step did not take the redesigned K4: "
+                             f"{lgeo}")
     lmodel_w = nif_tpu_torch.NIFMultiScaleLastLayerParameterized(
         LINEAR_SHAPE, FLAGSHIP_PNET, FLAGSHIP_POLICY, device="cuda", seed=1)
     lfitter = GroupedTrainer(lmodel_w, lambda p: torch.optim.Adam(p, lr=FLAGSHIP_TRAIN_LR))
@@ -1959,6 +2098,21 @@ def main() -> int:
     k6f_plain_ms = cuda_ms(lambda: shapenet_sobolev_grads_reference(*f32_in, flag_cfg, "siren"),
                            reps=2, warmup=1)
     del wb, x, tgt, jt, f32_in
+    # the float32 policy's Sobolev step (the CUDA-core K6), on the device and
+    # the host clock, with its stages
+    sf32_box = [sf32_state]
+
+    def one_f32_sobolev_step():
+        sf32_box[0], _ = sf32_trainer.step(sf32_box[0], t_s, x_s, u_s, target_jac=j_s)
+
+    sf32_step_ms = cuda_ms(one_f32_sobolev_step, reps=5, warmup=1)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        one_f32_sobolev_step()
+        torch.cuda.synchronize()
+    sf32_step_host_ms = (time.perf_counter() - t0) / 5 * 1e3
+    sf32_stages = sobolev_step_stages(torch, sf32_trainer, sf32_box[0], (t_s, x_s, u_s, j_s))
+    del sf32_trainer, sf32_state, sf32_box
     # K5's tangent body (so >= si; the CUDA-core kernel in both dtypes) at the
     # flagship widths with so = 3
     tan_cfg = ShapeNetConfig(3, 3, 128, 2, "sine", False, 30.0)
@@ -1998,9 +2152,15 @@ def main() -> int:
         f"(wrapper incl. prescale, workspace and reduce) = {k6_gf / k6_ms:.2f} TFLOP/s of "
         f"products, the CUDA-core K6 on the same bf16 inputs {k6_simt_ms:.4f} ms "
         f"({k6_simt_ms / k6_ms:.2f}x), plain {k6_plain_ms:.4f} ms, bound {k6_bound:.4f} ms by "
-        f"{k6_by} ({k6_gf:.1f} GFLOP); K6 f32, CUDA cores: {k6f_ms:.4f} ms, plain "
-        f"{k6f_plain_ms:.4f} ms, bound {k6f_bound:.4f} ms by {k6f_by} (f32 peak); library_ms "
-        f"null: no single PyTorch call computes these chains")
+        f"{k6_by} ({k6_gf:.1f} GFLOP); K6 f32, CUDA cores: {k6f_ms:.4f} ms = "
+        f"{k6_gf / k6f_ms:.2f} TFLOP/s of products, plain {k6f_plain_ms:.4f} ms, bound "
+        f"{k6f_bound:.4f} ms by {k6f_by} (f32 peak); library_ms null: no single PyTorch call "
+        f"computes these chains")
+    log(f"flagship Sobolev step, float32 policy (GroupedTrainer.step with target_jac, Adam, "
+        f"the CUDA-core K6, G={G} P={P}): {sf32_step_ms:.4f} ms on the device clock = "
+        f"{G * P / sf32_step_ms * 1e3:.4e} train points/s, {sf32_step_host_ms:.4f} ms on the "
+        f"host clock (each step synchronized); stages timed alone: "
+        f"{', '.join(f'{k} {v:.4f} ms' for k, v in sf32_stages.items())}")
     log(f"K5 (tangent body, si=3 so=3 n=128, CUDA cores) bf16: {k5t_ms:.4f} ms, plain "
         f"{k5t_plain_ms:.4f} ms, bound {k5t_bound:.4f} ms by {k5t_by} ({k5t_gf:.1f} GFLOP of "
         f"products); f32: {k5tf_ms:.4f} ms, plain {k5tf_plain_ms:.4f} ms, bound "
@@ -2107,16 +2267,44 @@ def main() -> int:
     k4f_plain_ms = cuda_ms(lambda: niflinear_mse_grads_reference(*f32_in, lcfg, lso), reps=3,
                            warmup=1)
     del lws, lbs, la, lbias, lx, ltgt, f32_in
+    # the float32 policy's NIF-linear step (the CUDA-core K4) on the device
+    # and the host clock, with its stages, and its eager step beside it
+    lf32_box = [f32_state]
+
+    def one_f32_linear_step():
+        lf32_box[0], _ = f32_trainer.step(lf32_box[0], t_l, x_l, u_l)
+
+    lf32_step_ms = cuda_ms(one_f32_linear_step, reps=10)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        one_f32_linear_step()
+        torch.cuda.synchronize()
+    lf32_step_host_ms = (time.perf_counter() - t0) / 10 * 1e3
+    lf32_stages = linear_step_stages(torch, f32_trainer, lf32_box[0], (t_l, x_l, u_l))
+    eager_f32 = GroupedTrainer(f32_trainer.model, f32_trainer.make_optimizer, fused=False)
+    eager_f32_ms = cuda_ms(lambda: eager_f32.step(lf32_box[0], t_l, x_l, u_l), reps=5, warmup=2)
+    del f32_trainer, f32_state, lf32_box, eager_f32
     k4_bound, k4_by, k4_gf = linear_bounds(lcfg, lso, G, P, peak_mma, peak_f32, peak_bw)
-    k4f_bound, k4f_by, _ = linear_bounds(lcfg, lso, G, P, peak_mma, peak_f32, peak_bw, f32=True)
+    k4f_bound, k4f_by, k4f_gf = linear_bounds(lcfg, lso, G, P, peak_mma, peak_f32, peak_bw,
+                                              f32=True)
     log(f"NIF-linear train step (GroupedTrainer.step, Adam, bf16, G={G} P={P}): {lstep_ms:.4f} "
         f"ms = {G * P / lstep_ms * 1e3:.4e} train points/s; eager step (autograd over the eager "
         f"trunk + Adam): {eager_ms:.4f} ms = {G * P / eager_ms * 1e3:.4e} train points/s")
     log(f"K4 bf16, tensor cores: {k4_ms:.4f} ms (wrapper incl. prescale, workspace and "
         f"reduce) = {k4_gf / k4_ms:.2f} TFLOP/s of products, plain {k4_plain_ms:.4f} ms, bound "
         f"{k4_bound:.4f} ms by {k4_by} ({k4_gf:.1f} GFLOP of products); K4 f32, CUDA cores: "
-        f"{k4f_ms:.4f} ms, plain {k4f_plain_ms:.4f} ms, bound {k4f_bound:.4f} ms by {k4f_by} "
-        f"(f32 peak); library_ms null: no single PyTorch call computes this pass")
+        f"{k4f_ms:.4f} ms = {k4f_gf / k4f_ms:.2f} TFLOP/s of products, plain "
+        f"{k4f_plain_ms:.4f} ms, bound {k4f_bound:.4f} ms by {k4f_by} (f32 peak; {k4f_gf:.1f} "
+        f"GFLOP of products and matrix-vector work: the bottleneck's backward as outer "
+        f"products); library_ms "
+        f"null: no single PyTorch call computes this pass")
+    log(f"NIF-linear train step, float32 policy (GroupedTrainer.step, Adam, the CUDA-core K4, "
+        f"G={G} P={P}): {lf32_step_ms:.4f} ms on the device clock = "
+        f"{G * P / lf32_step_ms * 1e3:.4e} train points/s, {lf32_step_host_ms:.4f} ms on the "
+        f"host clock (each step synchronized); stages timed alone: "
+        f"{', '.join(f'{k} {v:.4f} ms' for k, v in lf32_stages.items())}; the eager float32 "
+        f"step (autograd over the eager trunk + Adam): {eager_f32_ms:.4f} ms = "
+        f"{G * P / eager_f32_ms * 1e3:.4e} train points/s")
     log(f"card: {smi}")
     log(f"chip_smoke wall clock: {time.perf_counter() - wall0:.1f} s (builds included)")
     log(json.dumps({"kernels": [{
@@ -2231,6 +2419,7 @@ def main() -> int:
         "name": "shapenet_sobolev_grads_f32",
         "route": "cuda",
         "source": "nif_tpu_torch/csrc/shapenet_jac.cu",
+        "body": "sob_simt_kernel (on stack_simt.cuh)",
         "replaces": "nif_tpu/ops/pallas_shapenet.py:1698",
         "launches": sf32_launches["shapenet_sobolev_grads"],
         "max_abs_err": k6f_err,
@@ -2303,6 +2492,7 @@ def main() -> int:
         "name": "niflinear_mse_grads_f32",
         "route": "cuda",
         "source": "nif_tpu_torch/csrc/shapenet_linear.cu",
+        "body": "linear_simt_kernel (on stack_simt.cuh)",
         "replaces": "nif_tpu/ops/pallas_shapenet.py:1044",
         "launches": f32_launches["niflinear_mse_grads"],
         "max_abs_err": k4f_err,

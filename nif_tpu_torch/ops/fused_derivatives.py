@@ -58,6 +58,7 @@ from .fused_shapenet import (
     _n_scaled,
     _prescale,
     _raise_on_error,
+    _simt_weights,
     _stack_tc_status,
     _unscale_grads,
     _train_act_code,
@@ -109,7 +110,7 @@ def _library(kernel: str = "simt") -> ctypes.CDLL:
             lib.nif_shapenet_fwd_jac.argtypes = [ptr] * 5 + [c_int] * 8 + [c_ll, c_int, ptr]
             lib.nif_shapenet_fwd_jac.restype = c_int
             lib.nif_shapenet_sobolev_grads.argtypes = (
-                [ptr] * 11 + [c_int] * 8 + [c_ll, c_ll] + [c_f] * 5 + [c_int, ptr])
+                [ptr] * 11 + [c_int] * 8 + [c_ll] * 3 + [c_f] * 5 + [c_int, ptr])
             lib.nif_shapenet_sobolev_grads.restype = c_int
     if lib.nif_cuda_error_string.argtypes is None:
         lib.nif_cuda_error_string.argtypes = [c_int]
@@ -666,8 +667,10 @@ def _launch_k6(kernel: str, wb: torch.Tensor, x: torch.Tensor, target: torch.Ten
         return losses[0].fill_(float("nan")), losses[1].fill_(float("nan")), d_wb.zero_()
     n_y, n_j, ky, kj = _sobolev_scales(G, P, si, so, w_value, w_jac, y_mask, jac_mask)
     wbp = _prescale(wb, cfg, variant).contiguous()
-    if kernel == "tc":  # rows padded to 16 bytes, so every group's W_m stages with cp.async
-        wbp = torch.nn.functional.pad(wbp, (0, -wbp.shape[1] % 8))
+    # rows padded to 16 bytes, so every group's W_m stages with cp.async; the
+    # CUDA-core kernel reads them widened to f32 (a bf16 value is exact in f32)
+    wbp = (torch.nn.functional.pad(wbp, (0, -wbp.shape[1] % 8)) if kernel == "tc"
+           else _simt_weights(wbp))
     x = x.contiguous()
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     lib = _library(kernel)
@@ -683,7 +686,8 @@ def _launch_k6(kernel: str, wb: torch.Tensor, x: torch.Tensor, target: torch.Ten
         if kernel == "tc":
             err = lib.nif_shapenet_sobolev_grads_tc(*args, wbp.shape[1], *rest, stream)
         else:
-            err = lib.nif_shapenet_sobolev_grads(*args, *rest, _DTYPE_CODES[x.dtype], stream)
+            err = lib.nif_shapenet_sobolev_grads(*args, wbp.shape[1], *rest,
+                                                 _DTYPE_CODES[x.dtype], stream)
     _raise_on_error(lib, "shapenet_sobolev_grads", err)
     _build.LAUNCHES["shapenet_sobolev_grads"] += 1
     if kernel == "tc":

@@ -17,8 +17,9 @@ starts from its rounding to the compute dtype.
 
 On a CUDA tensor :func:`niflinear_mse_grads` launches a hand-written kernel,
 or raises: bfloat16 goes to the tensor-core kernel
-(``nif_tpu_torch/csrc/shapenet_linear_tc.cu``, variant ``"tc"``), float32 to
-the CUDA-core one (``csrc/shapenet_linear.cu``, variant ``"simt"``), whose f32
+(``nif_tpu_torch/csrc/shapenet_linear_tc.cu``, variant ``"tc"``) where its
+geometry takes the trunk, float32 and the bfloat16 trunks it refuses to the
+CUDA-core one (``csrc/shapenet_linear.cu``, variant ``"simt"``), whose f32
 products never round to TF32; :func:`k4_variant` names the variant. On a CPU
 tensor it runs the plain PyTorch version (:func:`niflinear_mse_grads_reference`),
 which the CPU tests hold against the JAX package's interpret-mode kernel and
@@ -59,13 +60,21 @@ __all__ = [
 
 
 # --------------------------------------------------------------- geometry
-def k4_variant(dtype: torch.dtype) -> str:
+def k4_variant(dtype: torch.dtype, trunk_cfg: Optional[ShapeNetConfig] = None,
+               so: Optional[int] = None) -> str:
     """Which CUDA kernel K4 runs for inputs of ``dtype``: ``"tc"`` (the
     tensor-core kernel, ``csrc/shapenet_linear_tc.cu``) for bfloat16,
     ``"simt"`` (the CUDA-core kernel, ``csrc/shapenet_linear.cu``) for
     float32, whose products stay full f32 (and for any other dtype, which
-    the wrapper refuses)."""
-    return "tc" if dtype == torch.bfloat16 else "simt"
+    the wrapper refuses). Given a trunk (``trunk_cfg``, ``so``; this asks the
+    tensor-core kernel's library, so it needs nvcc), bfloat16 runs the
+    CUDA-core kernel where the tensor-core one does not take the trunk (a
+    width whose planes exceed a block's shared memory or its registers)."""
+    if dtype != torch.bfloat16:
+        return "simt"
+    if trunk_cfg is None:
+        return "tc"
+    return "tc" if _tc_status(trunk_cfg, so, 1, 1)[0] == 0 else "simt"
 
 
 def _library(variant: str = "simt") -> ctypes.CDLL:
@@ -92,21 +101,34 @@ def _library(variant: str = "simt") -> ctypes.CDLL:
     return lib
 
 
-def _geometry_status(trunk_cfg: ShapeNetConfig, so: int, G: int, P: int, dtype: torch.dtype):
-    variant = k4_variant(dtype)
-    tile, splits = ctypes.c_int(), ctypes.c_int()
-    smem, partial_floats, scratch = ctypes.c_longlong(), ctypes.c_longlong(), ctypes.c_longlong()
-    dims = (trunk_cfg.units, trunk_cfg.input_dim, so, trunk_cfg.output_dim // so,
+def _dims(trunk_cfg: ShapeNetConfig, so: int, G: int, P: int):
+    return (trunk_cfg.units, trunk_cfg.input_dim, so, trunk_cfg.output_dim // so,
             _n_mats(trunk_cfg), G, P)
-    if variant == "tc":
-        status = _library("tc").nif_linear_tc_workspace(
-            *dims, ctypes.byref(tile), ctypes.byref(splits), ctypes.byref(smem),
-            ctypes.byref(partial_floats))
-    else:
-        status = _library("simt").nif_linear_workspace(
-            *dims, _DTYPE_CODES[dtype], ctypes.byref(tile), ctypes.byref(splits),
-            ctypes.byref(smem), ctypes.byref(partial_floats), ctypes.byref(scratch))
-    geo = {"variant": variant, "tile": tile.value, "splits": splits.value,
+
+
+def _tc_status(trunk_cfg: ShapeNetConfig, so: int, G: int, P: int):
+    """``(status, geometry)`` of the tensor-core K4 (``csrc/shapenet_linear_tc.cu``)."""
+    tile, splits = ctypes.c_int(), ctypes.c_int()
+    smem, partial_floats = ctypes.c_longlong(), ctypes.c_longlong()
+    status = _library("tc").nif_linear_tc_workspace(
+        *_dims(trunk_cfg, so, G, P), ctypes.byref(tile), ctypes.byref(splits),
+        ctypes.byref(smem), ctypes.byref(partial_floats))
+    return status, {"variant": "tc", "tile": tile.value, "splits": splits.value,
+                    "smem_bytes": smem.value, "residuals": "shared",
+                    "partial_floats": partial_floats.value, "scratch_bytes": 0}
+
+
+def _geometry_status(trunk_cfg: ShapeNetConfig, so: int, G: int, P: int, dtype: torch.dtype):
+    if k4_variant(dtype, trunk_cfg, so) == "tc":
+        return _tc_status(trunk_cfg, so, G, P)
+    tile, blocks = ctypes.c_int(), ctypes.c_int()
+    smem, partial_floats, scratch = ctypes.c_longlong(), ctypes.c_longlong(), ctypes.c_longlong()
+    status = _library("simt").nif_linear_workspace(
+        *_dims(trunk_cfg, so, G, P), _DTYPE_CODES[dtype], ctypes.byref(tile),
+        ctypes.byref(blocks), ctypes.byref(smem), ctypes.byref(partial_floats),
+        ctypes.byref(scratch))
+    # the CUDA-core kernel is one wave of blocks over all G x P / tile tiles
+    geo = {"variant": "simt", "tile": tile.value, "blocks": blocks.value,
            "smem_bytes": smem.value, "residuals": "global" if scratch.value else "shared",
            "partial_floats": partial_floats.value, "scratch_bytes": scratch.value}
     return status, geo
@@ -131,9 +153,11 @@ def _status_reason(status: int, trunk_cfg: ShapeNetConfig, geo: dict) -> Optiona
 def linear_geometry(trunk_cfg: ShapeNetConfig, so: int, G: int, P: int,
                     dtype: torch.dtype) -> dict:
     """The launch geometry K4 takes for ``[G, P]`` in ``dtype``, from the
-    library of its variant (it needs nvcc): the variant, points per tile, P
-    splits per group, shared memory per block, whether a tile's residuals
-    sit in shared memory or in a per-block global scratch, and the workspace
+    library of the variant :func:`k4_variant` picks (it needs nvcc): the
+    variant, points per tile, the tensor-core kernel's ``splits`` (P splits
+    per group) or the CUDA-core kernel's ``blocks`` (one wave over all G x
+    P / tile tiles), shared memory per block, whether a tile's residuals sit
+    in shared memory or in a per-block global scratch, and the workspace
     sizes the wrapper allocates."""
     status, geo = _geometry_status(trunk_cfg, so, G, P, dtype)
     if status != 0:
@@ -260,8 +284,9 @@ def niflinear_mse_grads_cuda(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tens
                              weight: Optional[torch.Tensor] = None):
     """Launch K4 on ``torch.cuda.current_stream()``: what
     :func:`niflinear_mse_grads_reference` computes, from the same arguments,
-    through the tensor-core kernel for bfloat16 and the CUDA-core kernel for
-    float32 (:func:`k4_variant`). Raises on anything the kernel does not
+    through the kernel :func:`k4_variant` picks for the dtype and the trunk
+    (the tensor-core kernel for bfloat16 where it takes the trunk, the
+    CUDA-core kernel otherwise). Raises on anything the kernel does not
     take (tensors off one CUDA
     device, a dtype other than float32/bfloat16 shared by x, the trunk, a
     and bias, inputs that require grad, mismatched shapes, a config the gate
@@ -281,10 +306,14 @@ def niflinear_mse_grads_cuda(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tens
                            "detached tensors")
     G, P, si = x.shape
     K = a.shape[-1]
-    reason = linear_fused_unsupported_reason(trunk_cfg, so, P, x.device, x.dtype)
+    dev = x.device
+    with torch.cuda.device(dev):  # the geometry reads this device's SM count
+        status, geo = _geometry_status(trunk_cfg, so, max(G, 1), max(P, 1), x.dtype)
+    reason = (linear_fused_unsupported_reason(trunk_cfg, so, P)
+              or _status_reason(status, trunk_cfg, geo))
     if reason is not None:
         raise ValueError(f"niflinear_mse_grads_cuda cannot take this config: {reason}")
-    dev = x.device
+    kernel = geo["variant"]
     loss = torch.empty((), dtype=torch.float32, device=dev)
     d_a = torch.empty((G, K), dtype=torch.float32, device=dev)
     d_bias = torch.empty((so,), dtype=torch.float32, device=dev)
@@ -293,22 +322,24 @@ def niflinear_mse_grads_cuda(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tens
     if G == 0 or P == 0:
         d_ws, d_bs = _split_trunk(d_flat.zero_(), ws, bs)
         return loss.fill_(float("nan")), d_ws, d_bs, d_a.zero_(), d_bias.zero_()
-    wbp = _prescale(flat, trunk_cfg, "siren").contiguous()
+    wbp = _prescale(flat, trunk_cfg, "siren")
+    # the CUDA-core kernel reads the trunk widened to f32 (a bf16 value is exact in f32)
+    wbp = (wbp if kernel == "tc" else wbp.float()).contiguous()
     a, bias, x = a.contiguous(), bias.contiguous(), x.contiguous()
     target = target.to(x.dtype).contiguous()
     weight = None if weight is None else weight.to(x.dtype).contiguous()
-    geo = linear_geometry(trunk_cfg, so, G, P, x.dtype)
-    partials = torch.empty(geo["partial_floats"], dtype=torch.float32, device=dev)
-    lib = _library(geo["variant"])
+    lib = _library(kernel)
     ptrs = (wbp.data_ptr(), a.data_ptr(), bias.data_ptr(), x.data_ptr(), target.data_ptr(),
             None if weight is None else weight.data_ptr(), loss.data_ptr(), d_flat.data_ptr(),
-            d_a.data_ptr(), d_bias.data_ptr(), partials.data_ptr())
+            d_a.data_ptr(), d_bias.data_ptr())
     dims = (G, P, si, so, K, trunk_cfg.units, _n_mats(trunk_cfg),
             _chain_code(trunk_cfg, "siren"), _train_act_code(trunk_cfg, "siren", x.dtype),
             _n_scaled(trunk_cfg, "siren"), float(trunk_cfg.omega_0))
     with torch.cuda.device(dev):
+        partials = torch.empty(geo["partial_floats"], dtype=torch.float32, device=dev)
+        ptrs = ptrs + (partials.data_ptr(),)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if geo["variant"] == "tc":
+        if kernel == "tc":
             err = lib.nif_linear_mse_grads_tc(*ptrs, *dims, stream)
         else:
             scratch = torch.empty(max(geo["scratch_bytes"], 1), dtype=torch.uint8, device=dev)
@@ -316,7 +347,7 @@ def niflinear_mse_grads_cuda(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tens
                                            _DTYPE_CODES[x.dtype], stream)
     _raise_on_error(lib, "niflinear_mse_grads", err)
     _build.LAUNCHES["niflinear_mse_grads"] += 1
-    if geo["variant"] == "tc":
+    if kernel == "tc":
         _build.LAUNCHES["niflinear_mse_grads_tc"] += 1
     d_ws, d_bs = _split_trunk(d_flat, ws, bs)
     return loss, d_ws, d_bs, d_a, d_bias

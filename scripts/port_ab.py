@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """Time kernels of this checkout against another checkout's on one CUDA
 card, in turns: the float32 K7 and K8 (the CUDA-core Hessian kernels,
-``nif_tpu_torch/csrc/shapenet_hess.cu``) at the flagship shape.
+``nif_tpu_torch/csrc/shapenet_hess.cu``), the float32 K6 (the CUDA-core
+Sobolev train pass, ``csrc/shapenet_jac.cu``) and the float32 K4 (the
+CUDA-core NIF-linear train pass, ``csrc/shapenet_linear.cu``) at the
+flagship shape.
 
-    python3 scripts/port_ab.py --other DIR [--kernel k7f32 k8f32] [--reps N]
+    python3 scripts/port_ab.py --other DIR [--kernel k4f32 k6f32 k7f32 k8f32] [--reps N]
 
 ``DIR`` is the root of another checkout (for example a parent commit,
 unpacked with ``git archive`` under ``build/``). Each checkout's package
@@ -14,7 +17,10 @@ through the package's wrapper (CUDA events, mean of ``--reps`` calls
 after one warm-up) on the same inputs, made with numpy from a seed: the
 flagship chain (G=32, P=32768, width 128, two hidden layers, si=3, so=1),
 float32, with Jacobian and Hessian targets for K8 and its float32-policy
-weights (w_jac=0.1, w_hess=0.01). Prints each turn's times, each kernel's
+weights (w_jac=0.1, w_hess=0.01), Jacobian targets for K6 (w_jac=0.1), and
+for K4 the flagship NIF-linear trunk (width 128, two hidden layers, a
+128-wide bottleneck, K=128, so=1) with a latent a, an output bias and value
+targets. Defaults to the four. Prints each turn's times, each kernel's
 mean over the two turns of each checkout with their ratio, the registers
 and spills ptxas reported for each build's instances, and the card's name
 and power limit. Nothing is asserted; the wrappers themselves raise on a
@@ -35,6 +41,11 @@ SHAPE = dict(input_dim=3, output_dim=1, units=128, nlayers=2, activation="sine",
              use_resblock=False, omega_0=30.0)
 
 
+# the libraries each kernel's turn builds
+LIBRARIES = {"k4f32": "shapenet_linear", "k6f32": "shapenet_jac", "k7f32": "shapenet_hess",
+             "k8f32": "shapenet_hess"}
+
+
 def _inputs(torch, cfg):
     """wb [G, po] (scaled as the kernel tests do), x, and K8's value,
     Jacobian and unique-pair Hessian targets, f32 on the card."""
@@ -49,6 +60,24 @@ def _inputs(torch, cfg):
             to(rng.standard_normal((G, P, 3))), to(rng.standard_normal((G, P, 6))))
 
 
+def _linear_inputs(torch):
+    """K4's trunk config, its chain-order weights and biases (SIREN-regime),
+    a [G, K], the output bias, x and value targets, f32 on the card."""
+    import numpy as np
+
+    from nif_tpu_torch.config import ShapeNetConfig
+
+    n, K, om = 128, 128, 30.0
+    cfg = ShapeNetConfig(3, K, n, 2, "sine", False, om)
+    rng = np.random.default_rng(SEED + 1)
+    to = lambda a: torch.from_numpy(np.asarray(a, np.float32)).cuda()  # noqa: E731
+    ws = [to(rng.standard_normal(s) * (0.3 / om)) for s in [(3, n), (n, n), (n, n), (n, K)]]
+    bs = [to(rng.standard_normal(s) * (0.3 / om)) for s in [(n,), (n,), (n,), (K,)]]
+    return (cfg, ws, bs, to(rng.standard_normal((G, K)) * 0.5),
+            to(rng.standard_normal(1) * 0.1), to(rng.standard_normal((G, P, 3))),
+            to(rng.standard_normal((G, P, 1))))
+
+
 def child(root: Path, kernels, reps: int, build_only: bool) -> int:
     """One turn in a process of its own: import the package of ``root``,
     build, time; one JSON line."""
@@ -57,22 +86,30 @@ def child(root: Path, kernels, reps: int, build_only: bool) -> int:
 
     from nif_tpu_torch.config import ShapeNetConfig
     from nif_tpu_torch.ops import _build
+    from nif_tpu_torch.ops import fused_derivatives as fd
     from nif_tpu_torch.ops import fused_hessian as fh
+    from nif_tpu_torch.ops import fused_linear as fl
     from nif_tpu_torch.utils.bench import cuda_ms
 
     if not Path(_build.__file__).resolve().is_relative_to(root.resolve()):
         raise RuntimeError(f"imported {_build.__file__}, not the package under {root}")
     if build_only:
-        _build.build("shapenet_hess")
-        log = (_build.BUILD_LOGS.get("shapenet_hess") or "").splitlines()
-        print(json.dumps({"ptxas": [ln.strip() for ln in log if "Compiling entry" in ln
-                                    or "registers" in ln or "spill" in ln]}))
+        ptxas = []
+        for name in sorted({LIBRARIES[k] for k in kernels}):
+            _build.build(name)
+            ptxas += [ln.strip() for ln in (_build.BUILD_LOGS.get(name) or "").splitlines()
+                      if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
+        print(json.dumps({"ptxas": ptxas}))
         return 0
     cfg = ShapeNetConfig(**SHAPE)
     wb, x, tgt, jt, ht = _inputs(torch, cfg)
+    lcfg, ws, bs, a, bias, lx, ltgt = _linear_inputs(torch)
     runs = {"k7f32": lambda: fh.shapenet_fwd_hess_cuda(wb, x, cfg, "siren"),
             "k8f32": lambda: fh.shapenet_hessian_grads_cuda(wb, x, tgt, jt, ht, cfg, "siren",
-                                                            w_jac=0.1, w_hess=0.01)}
+                                                            w_jac=0.1, w_hess=0.01),
+            "k6f32": lambda: fd.shapenet_sobolev_grads_cuda(wb, x, tgt, jt, cfg, "siren",
+                                                            w_jac=0.1),
+            "k4f32": lambda: fl.niflinear_mse_grads_cuda(ws, bs, a, bias, lx, ltgt, lcfg, 1)}
     print(json.dumps({k: cuda_ms(runs[k], reps=reps, warmup=1) for k in kernels}))
     return 0
 
@@ -80,8 +117,7 @@ def child(root: Path, kernels, reps: int, build_only: bool) -> int:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", type=Path, required=True, help="the other checkout's root")
-    ap.add_argument("--kernel", nargs="+", choices=["k7f32", "k8f32"],
-                    default=["k7f32", "k8f32"])
+    ap.add_argument("--kernel", nargs="+", choices=sorted(LIBRARIES), default=sorted(LIBRARIES))
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--child", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--build-only", action="store_true", help=argparse.SUPPRESS)

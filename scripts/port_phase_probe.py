@@ -4,27 +4,31 @@ card: the tensor-core K1 or K5's reverse body
 (``nif_tpu_torch/csrc/shapenet_fwd_tc.cu``), K2 (``csrc/shapenet_bwd_tc.cu``),
 K4 (``csrc/shapenet_linear_tc.cu``), K6 (``csrc/shapenet_jac_tc.cu``), K7 or
 K8 (``csrc/shapenet_hess_tc.cu``), the float32 K2 or K3 on the CUDA cores
-(``csrc/shapenet_bwd.cu``), or the float32 K7 or K8 on the CUDA cores
-(``csrc/shapenet_hess.cu``).
+(``csrc/shapenet_bwd.cu``), the float32 K7 or K8 on the CUDA cores
+(``csrc/shapenet_hess.cu``), the float32 K6 on the CUDA cores
+(``csrc/shapenet_jac.cu``) or the float32 K4 on the CUDA cores
+(``csrc/shapenet_linear.cu``).
 
-    python3 scripts/port_phase_probe.py [--kernel k1|k2|k2f32|k3f32|k4|k5|k6|k7|k7f32|k8|k8f32]
+    python3 scripts/port_phase_probe.py [--kernel k1|k2|k2f32|k3f32|k4|k4f32|k5|k6|k6f32|k7|
+                                                  k7f32|k8|k8f32]
                                         [--ablate] [--one-block]
 
 Builds the kernel's source once more with ``-DK1_PHASE_CLOCKS``,
 ``-DK2_PHASE_CLOCKS``, ``-DK2F_PHASE_CLOCKS`` (k2f32, k3f32), ``-DK8F_PHASE_CLOCKS``
-(k7f32, k8f32),
+(k7f32, k8f32), ``-DK6F_PHASE_CLOCKS`` (k6f32), ``-DK4F_PHASE_CLOCKS`` (k4f32),
 ``-DK4_PHASE_CLOCKS``, ``-DK5_PHASE_CLOCKS``, ``-DK6_PHASE_CLOCKS``,
 ``-DK7_PHASE_CLOCKS`` or ``-DK8_PHASE_CLOCKS`` (into
 ``build/nif_tpu_torch/probe/``), in which thread 0 of every block adds the
 ``clock64()`` cycles between consecutive marks into phase counters (four
-for K1, K7 and the float32 K7, ten for the float32 K2, K3 and K8, eight for
-the others), and runs it
+for K1, K7 and the float32 K7, ten for the float32 K2, K3, K4, K6 and K8,
+eight for the others), and runs it
 through the usual wrapper at the kernel's flagship shape (G=32, P=32768,
 bf16, random weights from a seed: the NIF-linear trunk for K4, the flagship
 chain alone for K1, K5 and K7, with targets and point weights for K2, with
 Jacobian targets for K6, and with Jacobian and Hessian targets for K8;
 float32 for k2f32, with targets and point weights, k3f32, with an output
-cotangent, k7f32, and k8f32, with Jacobian and Hessian targets). Prints the
+cotangent, k7f32, k8f32, with Jacobian and Hessian targets, k6f32, with
+Jacobian targets, and k4f32, the NIF-linear trunk). Prints the
 kernel's time (CUDA events, the instrumented build beside the plain one)
 and each phase's share of the blocks' critical path; for the float32
 kernels also the plain build's ptxas lines and the device time of each
@@ -96,8 +100,36 @@ HESS_PHASES = [
     "the group's loss partials (and set-up)",
 ]
 
+# The phases of the float32 K6 on the CUDA cores (csrc/shapenet_jac.cu)
+SOB_PHASES = [
+    "x tile + first layer (all streams)",
+    "hidden forward products",
+    "hidden forward epilogues (thread 0's)",
+    "last product + loss",
+    "last layer's backward (dW_l, db_l, dS)",
+    "backward epilogues (D over Z; app 0's recomputes S_0)",
+    "hidden dW + db (partial updates included)",
+    "dS products",
+    "first layer's backward (dW0, db0)",
+    "the group's loss partials (and set-up)",
+]
+
+# The phases of the float32 K4 on the CUDA cores (csrc/shapenet_linear.cu)
+LINEAR_PHASES = [
+    "x tile + first layer",
+    "hidden forward products",
+    "hidden forward epilogues (thread 0's)",
+    "bottleneck + contraction + loss",
+    "d_bias, d_a, d_phi, bottleneck dW/db, du",
+    "dz epilogues",
+    "hidden dW + db (partial updates included)",
+    "du products",
+    "first layer's backward (dW0, db0)",
+    "the group's loss partial (and set-up)",
+]
+
 # The longest counter array a C entry copies out (the kPhases of
-# shapenet_bwd.cu and shapenet_hess.cu)
+# shapenet_bwd.cu, shapenet_hess.cu, shapenet_jac.cu and shapenet_linear.cu)
 COUNTER_ROOM = 10
 
 # source, its define, its counter entry, and the phases in counter order
@@ -157,6 +189,8 @@ KERNELS = {
     "k2f32": ("shapenet_bwd", "K2F_PHASE_CLOCKS", "nif_bwd_phase_cycles", SIMT_PHASES),
     "k3f32": ("shapenet_bwd", "K2F_PHASE_CLOCKS", "nif_bwd_phase_cycles", SIMT_PHASES),
     "k7f32": ("shapenet_hess", "K8F_PHASE_CLOCKS", "nif_hess_phase_cycles", HESS_PHASES[:4]),
+    "k6f32": ("shapenet_jac", "K6F_PHASE_CLOCKS", "nif_jac_phase_cycles", SOB_PHASES),
+    "k4f32": ("shapenet_linear", "K4F_PHASE_CLOCKS", "nif_linear_phase_cycles", LINEAR_PHASES),
     "k8f32": ("shapenet_hess", "K8F_PHASE_CLOCKS", "nif_hess_phase_cycles", HESS_PHASES),
     "k8": ("shapenet_hess_tc", "K8_PHASE_CLOCKS", "nif_hess_tc_phase_cycles", [
         "x tile + first layer (all streams)",
@@ -330,6 +364,26 @@ def k8f32_case(G: int, P: int):
                                                   w_hess=0.01), geo
 
 
+def k6f32_case(G: int, P: int):
+    """The float32 K6's launcher and geometry at the flagship chain, with
+    Jacobian targets (as the float32 policy's Sobolev step runs it,
+    unweighted)."""
+    cfg = ShapeNetConfig.from_dict(FLAGSHIP_SHAPE)
+    wb, x = chip_smoke.chain_data(torch, cfg, G, P, torch.float32, seed=212)
+    tgt, _, jt = chip_smoke.sobolev_data(torch, cfg, G, P, seed=212)
+    geo = fd.derivative_geometry("sobolev", cfg, "siren", G, P, torch.float32)
+    return lambda: fd.shapenet_sobolev_grads_cuda(wb, x, tgt, jt, cfg, "siren", w_jac=0.1), geo
+
+
+def k4f32_case(G: int, P: int):
+    """The float32 K4's launcher and geometry at the flagship NIF-linear
+    trunk (as the float32 policy's NIF-linear step runs it, unweighted)."""
+    cfg, so, ws, bs, a, bias, x, tgt, _ = chip_smoke.linear_data(
+        torch, chip_smoke.LINEAR_CASES[0], G, P, torch.float32, seed=213)
+    geo = fl.linear_geometry(cfg, so, G, P, torch.float32)
+    return lambda: fl.niflinear_mse_grads_cuda(ws, bs, a, bias, x, tgt, cfg, so), geo
+
+
 def device_split(run, reps: int) -> None:
     """Device time per kernel name over ``reps`` calls (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
@@ -402,9 +456,10 @@ def main() -> int:
     G, P = 32, 32768
     cases = {"k1": k1_case, "k2": k2_case, "k2f32": k2f32_case, "k3f32": k3f32_case,
              "k4": k4_case, "k5": k5_case, "k6": k6_case, "k7": k7_case, "k8": k8_case,
-             "k7f32": k7f32_case, "k8f32": k8f32_case}
+             "k7f32": k7f32_case, "k8f32": k8f32_case, "k6f32": k6f32_case,
+             "k4f32": k4f32_case}
     run, geo = cases[args.kernel](G, P)
-    reps = 3 if args.kernel in ("k8", "k7f32", "k8f32") else 10
+    reps = 3 if args.kernel in ("k8", "k7f32", "k8f32", "k6f32") else 10
     plain_build_ms = cuda_ms(run, reps=reps, warmup=1)
     # registers the argument types of the library now in _build._LIBS
     argtypes = {"k1": fs._fwd_tc_library, "k2": fs._bwd_tc_library,
@@ -412,8 +467,9 @@ def main() -> int:
                 "k4": lambda: fl._library("tc"), "k5": fs._fwd_tc_library,
                 "k6": lambda: fd._library("tc"), "k7": lambda: fh._library("tc"),
                 "k8": lambda: fh._library("tc"), "k7f32": lambda: fh._library("simt"),
-                "k8f32": lambda: fh._library("simt")}[args.kernel]
-    simt = name in ("shapenet_bwd", "shapenet_hess")
+                "k8f32": lambda: fh._library("simt"), "k6f32": lambda: fd._library("simt"),
+                "k4f32": lambda: fl._library("simt")}[args.kernel]
+    simt = name in ("shapenet_bwd", "shapenet_hess", "shapenet_jac", "shapenet_linear")
     if simt:
         for line in _build.BUILD_LOGS.get(name, "").splitlines():
             if "registers" in line or "spill" in line:
@@ -438,8 +494,10 @@ def main() -> int:
     if err:
         raise RuntimeError(f"reading the phase counters failed: CUDA error {err}")
     counters = list(buf)[:len(phases)]
-    blocks = G * geo["splits"]
-    tiles = -(-P // geo["tile"]) / geo["splits"]
+    # the CUDA-core K4 is one wave of "blocks" over every group's tiles, the
+    # other kernels "splits" blocks a group
+    blocks = geo["blocks"] if "blocks" in geo else G * geo["splits"]
+    tiles = G * -(-P // geo["tile"]) / blocks
     total = sum(counters)
     what = "f32, CUDA cores" if simt else "tc bf16"
     print(f"{args.kernel.upper()} {what} at G={G} P={P}: {plain_build_ms:.4f} ms (plain build), "

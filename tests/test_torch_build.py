@@ -50,17 +50,21 @@ def test_new_header_renames_nothing(csrc):
 def test_port_sources_include_what_they_use():
     names = {p.name for p in _build._sources("shapenet_linear_tc")}
     assert names == {"shapenet_linear_tc.cu", "mma_sm90.cuh", "shapenet_common.cuh"}
-    assert "mma_sm90.cuh" not in {p.name for p in _build._sources("shapenet_linear")}
+    # the CUDA-core K4 reaches the mma helpers only through the f32 tile header
+    assert {p.name for p in _build._sources("shapenet_linear")} == {
+        "shapenet_linear.cu", "stack_simt.cuh", "stack_tc.cuh", "mma_sm90.cuh",
+        "shapenet_common.cuh"}
+    assert "mma_sm90.cuh" not in {p.name for p in _build._sources("shapenet_fwd")}
 
 
-# The sources that include the f32 tile header: the CUDA-core K2/K3 body and
-# the CUDA-core K7/K8 body.
-SIMT_USERS = {"shapenet_bwd", "shapenet_hess"}
+# The sources that include the f32 tile header: the CUDA-core K2/K3 body,
+# the CUDA-core K7/K8 body, the CUDA-core K5/K6 source (K6's body for si <= 4)
+# and the CUDA-core K4 body.
+SIMT_USERS = {"shapenet_bwd", "shapenet_hess", "shapenet_jac", "shapenet_linear"}
 
 # Each tensor-core header and the sources that include it, directly or not:
 # the tensor-core sources, and the CUDA-core bodies on the f32 tile header
-# (shapenet_bwd, shapenet_hess), whose bf16 instances take the bf16 sine
-# from stack_tc.cuh.
+# (SIMT_USERS), whose bf16 instances take the bf16 sine from stack_tc.cuh.
 TC_USERS = {
     "mma_sm90.cuh": {"shapenet_bwd_tc", "shapenet_fwd_tc", "shapenet_hess_tc",
                      "shapenet_jac_tc", "shapenet_linear_tc"} | SIMT_USERS,
@@ -96,12 +100,16 @@ def test_k8_tensor_core_sources():
 
 def test_k6_tensor_core_sources():
     """The tensor-core K6 builds against the stacked-stream machinery, the mma
-    helpers and the shared header; the CUDA-core K5/K6 library and the header every kernel includes include no
-    tensor-core header, so an edit to one rebuilds only its users."""
+    helpers and the shared header; the CUDA-core K5/K6 library reaches the
+    tensor-core headers only through the f32 tile header (K6's bf16 sine),
+    and the header every kernel includes includes none, so an edit to one
+    rebuilds only its users."""
     names = {p.name for p in _build._sources("shapenet_jac_tc")}
     assert names == {"shapenet_jac_tc.cu", "stack_tc.cuh", "mma_sm90.cuh",
                      "shapenet_common.cuh"}
-    assert not TC_HEADERS & {p.name for p in _build._sources("shapenet_jac")}
+    assert {p.name for p in _build._sources("shapenet_jac")} == {
+        "shapenet_jac.cu", "stack_simt.cuh", "stack_tc.cuh", "mma_sm90.cuh",
+        "shapenet_common.cuh"}
     common = (_build.CSRC / "shapenet_common.cuh").read_bytes()
     assert not TC_HEADERS & {inc.decode() for inc in _build._INCLUDE.findall(common)}
     for header, expected in TC_USERS.items():
@@ -127,14 +135,15 @@ def test_k2_tensor_core_sources():
 def test_k1_k5_tensor_core_sources():
     """The tensor-core K1 and K5's tensor-core reverse body build into one
     library against the same headers as the other tensor-core kernels; the
-    CUDA-core K1 and K5 libraries include no tensor-core header and keep
-    their entries, and the new library defines every entry its wrapper
+    CUDA-core K1 library includes no tensor-core header, the CUDA-core K5
+    library only through the f32 tile header (K6's body beside K5's), both
+    keep their entries, and the new library defines every entry its wrapper
     loads."""
     names = {p.name for p in _build._sources("shapenet_fwd_tc")}
     assert names == {"shapenet_fwd_tc.cu", "stack_tc.cuh", "mma_sm90.cuh",
                      "shapenet_common.cuh"}
-    for simt in ("shapenet_fwd", "shapenet_jac"):
-        assert not TC_HEADERS & {p.name for p in _build._sources(simt)}
+    assert not TC_HEADERS & {p.name for p in _build._sources("shapenet_fwd")}
+    assert "stack_simt.cuh" in {p.name for p in _build._sources("shapenet_jac")}
     assert {"nif_shapenet_fwd_tc_workspace", "nif_shapenet_fwd_tc",
             "nif_shapenet_fwd_jac_tc_workspace", "nif_shapenet_fwd_jac_tc"} <= _entries(
                 "shapenet_fwd_tc")
@@ -145,9 +154,9 @@ def test_k1_k5_tensor_core_sources():
 def test_k2_k3_cuda_core_sources():
     """The CUDA-core K2/K3 body builds against the f32 tile header, the
     shared one and stack_tc.cuh (one bf16 sine for every fused kernel on
-    Hopper, with what it includes); the f32 tile header has two users, the
-    K2/K3 body and the K7/K8 body, so an edit to it rebuilds those two
-    libraries alone; each defines the entries its wrapper loads."""
+    Hopper, with what it includes); the f32 tile header has four users, the
+    K2/K3, K7/K8, K5/K6 and K4 libraries, so an edit to it rebuilds those
+    alone; each defines the entries its wrapper loads."""
     names = {p.name for p in _build._sources("shapenet_bwd")}
     assert names == {"shapenet_bwd.cu", "stack_simt.cuh", "stack_tc.cuh", "mma_sm90.cuh",
                      "shapenet_common.cuh"}
@@ -158,12 +167,15 @@ def test_k2_k3_cuda_core_sources():
             "nif_shapenet_bwd"} <= _entries("shapenet_bwd")
     assert {"nif_shapenet_hess_workspace", "nif_shapenet_fwd_hess",
             "nif_shapenet_hessian_grads"} <= _entries("shapenet_hess")
+    assert {"nif_shapenet_jac_workspace", "nif_shapenet_sobolev_grads"} <= _entries(
+        "shapenet_jac")
+    assert {"nif_linear_workspace", "nif_linear_mse_grads"} <= _entries("shapenet_linear")
 
 
 def test_simt_header_edit_renames_only_the_k2_k3_library(tmp_path, monkeypatch):
     """On a copy of the port's sources: editing the f32 tile header renames
-    the libraries of its two users, the CUDA-core K2/K3 and K7/K8 bodies,
-    and no other."""
+    the libraries of its users, the CUDA-core K2/K3, K7/K8, K5/K6 and K4
+    sources, and no other."""
     for path in _build.CSRC.iterdir():
         (tmp_path / path.name).write_bytes(path.read_bytes())
     monkeypatch.setattr(_build, "CSRC", tmp_path)
@@ -177,7 +189,7 @@ def test_simt_header_edit_renames_only_the_k2_k3_library(tmp_path, monkeypatch):
 def test_phase_probe_reads_every_counter_array():
     """The phase probe's counter buffer holds the longest array a probe
     build's C entry copies out, so no read runs past it; and each kernel the
-    probe splits (the float32 K7/K8 body's among them) names a source that
+    probe splits (the float32 K4, K6 and K7/K8 bodies' among them) names a source that
     builds its counter array under the probe's define, defines the entry
     the probe reads, and counts at least the phases the probe prints."""
     path = _build.CSRC.parents[1] / "scripts" / "port_phase_probe.py"
@@ -189,7 +201,7 @@ def test_phase_probe_reads_every_counter_array():
     spec = importlib.util.spec_from_file_location("port_phase_probe", path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    assert {"k2f32", "k3f32", "k7f32", "k8f32"} <= set(module.KERNELS)
+    assert {"k2f32", "k3f32", "k4f32", "k6f32", "k7f32", "k8f32"} <= set(module.KERNELS)
     for kernel, (name, define, entry, phases) in module.KERNELS.items():
         source = (_build.CSRC / f"{name}.cu").read_text()
         block = source[source.index(f"#ifdef {define}"):]
@@ -203,7 +215,7 @@ def test_tensor_core_header_edit_renames_only_the_tensor_core_libraries(header, 
                                                                        monkeypatch):
     """On a copy of the port's sources: editing a tensor-core header renames
     the libraries of the tensor-core sources that include it, and of the
-    CUDA-core K2/K3 body (its bf16 sine), and no other CUDA-core one."""
+    CUDA-core sources on the f32 tile header (their bf16 sine), and no other."""
     for path in _build.CSRC.iterdir():
         (tmp_path / path.name).write_bytes(path.read_bytes())
     monkeypatch.setattr(_build, "CSRC", tmp_path)

@@ -447,7 +447,11 @@ def test_derivative_geometry(card):
     body in bf16 takes the tensor-core kernel: 128-point tiles, its planes
     and both W in shared memory, one wave of SMs / G splits; the CUDA-core
     reverse body (float32's) takes K2's 64-point tile, and splits P to give
-    about two blocks per SM of this card (8 to 64 splits a group)."""
+    about two blocks per SM of this card (8 to 64 splits a group). f32 K6
+    takes the CUDA-core body on the f32 tile machinery: 16-point tiles (64
+    stacked rows), its planes in shared memory, one wave of SMs / G splits
+    per group; at width 1024 its planes go to the global scratch; si > 4
+    keeps the stacked_kernel body."""
     cfg = ShapeNetConfig(3, 1, 128, 2, "sine", False, 30.0)
     sms = torch.cuda.get_device_properties(card).multi_processor_count
     sob = fd.derivative_geometry("sobolev", cfg, "siren", 32, 32768, torch.bfloat16)
@@ -456,7 +460,15 @@ def test_derivative_geometry(card):
     assert sob["splits"] == max(1, min(64, sms // 32))
     f32 = fd.derivative_geometry("sobolev", cfg, "siren", 32, 32768, torch.float32)
     assert f32["kernel"] == "simt" and fd.k6_variant(torch.float32, cfg) == "simt"
-    assert f32["residuals"] == "global" and f32["scratch_bytes"] > 0
+    assert (f32["tile"], f32["residuals"], f32["scratch_bytes"]) == (16, "shared", 0)
+    assert f32["splits"] == max(1, min(64, sms // 32))
+    assert f32["partial_floats"] == 32 * f32["splits"] * (-(-33665 // 4) * 4 + 2)
+    wide = fd.derivative_geometry("sobolev", ShapeNetConfig(3, 1, 1024, 1, "sine"), "siren",
+                                  4, 256, torch.float32)
+    assert wide["residuals"] == "global" and wide["scratch_bytes"] > 0
+    si5 = fd.derivative_geometry("sobolev", ShapeNetConfig(5, 1, 64, 1, "sine"), "siren", 4,
+                                 256, torch.float32)
+    assert si5["tile"] == 64 // 6 and si5["kernel"] == "simt"
     for G in (1, 4, 32):
         rev = fd.derivative_geometry("reverse", cfg, "siren", G, 32768, torch.bfloat16)
         assert (rev["kernel"], rev["tile"], rev["residuals"], rev["weights"]) == (
@@ -1488,16 +1500,21 @@ def test_k4_tc_padded_widths_and_ragged_tile(card, case):
 def test_linear_geometry(card):
     """At the flagship trunk bf16 takes the tensor-core kernel with 64-point
     tiles in shared memory and one wave of SMs / G splits per group; f32
-    takes the CUDA-core kernel, whose residuals live in the per-block global
-    scratch."""
+    takes the CUDA-core kernel with 64-point tiles, its planes in shared
+    memory, one wave of one block per SM over all the groups' tiles; at
+    width 1024 its planes go to the per-block global scratch."""
     cfg = ShapeNetConfig(3, 128, 128, 2, "sine", False, 30.0)
     bf16 = fl.linear_geometry(cfg, 1, 32, 32768, torch.bfloat16)
     f32 = fl.linear_geometry(cfg, 1, 32, 32768, torch.float32)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     assert (bf16["variant"], bf16["tile"], bf16["residuals"]) == ("tc", 64, "shared")
     assert bf16["splits"] == max(1, min(64, sms // 32))
-    assert f32["variant"] == "simt"
-    assert f32["residuals"] == "global" and f32["scratch_bytes"] > 0
+    assert (f32["variant"], f32["tile"], f32["residuals"]) == ("simt", 64, "shared")
+    assert f32["blocks"] == sms and f32["scratch_bytes"] == 0
+    wide = fl.linear_geometry(ShapeNetConfig(3, 128, 1024, 1, "sine"), 1, 2, 256,
+                              torch.float32)
+    assert wide["residuals"] == "global" and wide["scratch_bytes"] > 0
+    assert fl.linear_geometry(cfg, 1, 1, 64, torch.float32)["blocks"] == 1
     too_wide = ShapeNetConfig(3, 2048, 128, 2, "sine", False, 30.0)
     assert "wider" in fl.linear_fused_unsupported_reason(too_wide, 1, 256, "cuda")
 
@@ -1569,3 +1586,206 @@ def test_linear_model_on_the_card_launches_k4_and_k6(card):
     assert _build.LAUNCHES["shapenet_sobolev_grads"] == after["shapenet_sobolev_grads"] + 1
     assert _build.LAUNCHES["shapenet_sobolev_grads_tc"] == after["shapenet_sobolev_grads_tc"] + 1
     assert bool(torch.isfinite(loss)) and trainer.history["sobolev_path"] == "fused"
+
+
+# The float32 K6 body (csrc/shapenet_jac.cu on stack_simt.cuh, si <= 4) on
+# what sets it apart: si = 1-4 (2-5 streams a point, 32- or 16-point tiles),
+# resblock and vanilla chains, widths 24 and 40 (part of a 128-column block),
+# 256, 512 and 1024 (two to eight column blocks), so = 2 and 3, at P = 200 (a
+# ragged last tile) and P = 256: (ShapeNetConfig args, variant, where the
+# planes sit).
+SIMT_SOB_F32 = [
+    ((3, 1, 24, 2, "sine", False, 30.0), "siren", "shared"),
+    ((2, 2, 40, 2, "sine", True, 10.0), "siren", "shared"),
+    ((1, 1, 64, 2, "sine", False, 30.0), "siren", "shared"),
+    ((4, 1, 128, 2, "sine", False, 30.0), "siren", "shared"),
+    ((3, 1, 128, 2, "sine", True, 30.0), "siren", "global"),
+    ((2, 3, 32, 2, "swish"), "vanilla", "shared"),
+    ((1, 1, 16, 1, "tanh"), "vanilla", "shared"),
+    ((3, 1, 256, 1, "sine", False, 30.0), "siren", "shared"),
+    ((2, 1, 512, 1, "sine", False, 30.0), "siren", "global"),
+    ((1, 1, 1024, 1, "sine", False, 30.0), "siren", "global"),
+]
+
+
+@pytest.mark.parametrize("P", [200, 256])
+@pytest.mark.parametrize("args,variant,residuals", SIMT_SOB_F32,
+                         ids=["n24", "n40-res-so2", "si1", "si4", "n128-res", "vanilla-so3",
+                              "vanilla-tanh", "n256", "n512", "n1024"])
+def test_simt_k6_float32_shapes(card, args, variant, residuals, P):
+    """The float32 K6 (the CUDA-core body, full f32 FMAs) on each shape,
+    weighted, masked where so > 1: one launch of the CUDA-core kernel a
+    call, terms within rel 1e-5 and d_wb within 5e-5 of max|plain|, two
+    runs bitwise equal; the planes in shared memory or in the global
+    scratch as the geometry says (both instances of the body)."""
+    cfg = ShapeNetConfig(*args)
+    si, so = cfg.input_dim, cfg.output_dim
+    geo = fd.derivative_geometry("sobolev", cfg, variant, 3, P, torch.float32)
+    assert (geo["kernel"], geo["tile"], geo["residuals"]) == (
+        "simt", 32 if si == 1 else 16, residuals)
+    wb, x = _data(cfg, 3, P, torch.float32, seed=40)
+    tgt, jt, w = _sobolev_side(cfg, 3, P, seed=40)
+    kw = dict(w_value=0.7, w_jac=1.3, weight=w)
+    if so > 1:
+        kw.update(y_mask=np.eye(1, so, dtype=np.float32)[0],
+                  jac_mask=(np.arange(si * so) % 2 == 0).astype(np.float32))
+    before = dict(_build.LAUNCHES)
+    runs = [fd.shapenet_sobolev_grads_cuda(wb, x, tgt, jt, cfg, variant, **kw)
+            for _ in range(2)]
+    assert _build.LAUNCHES["shapenet_sobolev_grads"] == before["shapenet_sobolev_grads"] + 2
+    assert _build.LAUNCHES["shapenet_sobolev_grads_tc"] == before["shapenet_sobolev_grads_tc"]
+    assert all(torch.equal(a, b) for a, b in zip(runs[0], runs[1]))
+    lv, lj, d_wb = runs[0]
+    rv, rj, r_wb = fd.shapenet_sobolev_grads_reference(wb, x, tgt, jt, cfg, variant, **kw)
+    assert float(lv) == pytest.approx(float(rv), rel=1e-5)
+    assert float(lj) == pytest.approx(float(rj), rel=1e-5)
+    err, scale = _max_diff(d_wb, r_wb)
+    assert d_wb.dtype == torch.float32 and err <= 5e-5 * scale, (err, scale)
+
+
+SOB_WIDE_SI = [
+    ((5, 1, 64, 1, "sine", False, 30.0), "siren"),
+    ((6, 2, 40, 2, "sine", True, 10.0), "siren"),
+    ((5, 2, 24, 2, "swish"), "vanilla"),
+    ((7, 1, 1024, 1, "sine", False, 30.0), "siren"),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("args,variant", SOB_WIDE_SI,
+                         ids=["si5-n64", "si6-n40-res-so2", "si5-vanilla-so2", "si7-n1024"])
+def test_k6_above_four_inputs_matches_plain(card, args, variant, dtype):
+    """K6 for si > 4 (the first port's stacked body, which reads the f32 wb'
+    at its row stride ldwb), weighted, masked where so > 1, at P = 200: one
+    launch of the CUDA-core kernel in both dtypes, terms within the dtype's
+    rel bound and d_wb within 5e-5 (f32) or 2^-6 (bf16) of max|plain|."""
+    cfg = ShapeNetConfig(*args)
+    si, so = cfg.input_dim, cfg.output_dim
+    geo = fd.derivative_geometry("sobolev", cfg, variant, 3, 200, dtype)
+    assert geo["kernel"] == "simt" and geo["tile"] < 16
+    wb, x = _data(cfg, 3, 200, dtype, seed=45)
+    tgt, jt, w = _sobolev_side(cfg, 3, 200, seed=45)
+    kw = dict(w_value=0.7, w_jac=1.3, weight=w)
+    if so > 1:
+        kw.update(y_mask=np.eye(1, so, dtype=np.float32)[0],
+                  jac_mask=(np.arange(si * so) % 2 == 0).astype(np.float32))
+    before = dict(_build.LAUNCHES)
+    lv, lj, d_wb = fd.shapenet_sobolev_grads(wb, x, tgt, jt, cfg, variant, **kw)
+    assert _build.LAUNCHES["shapenet_sobolev_grads"] == before["shapenet_sobolev_grads"] + 1
+    assert _build.LAUNCHES["shapenet_sobolev_grads_tc"] == before["shapenet_sobolev_grads_tc"]
+    rv, rj, r_wb = fd.shapenet_sobolev_grads_reference(wb, x, tgt, jt, cfg, variant, **kw)
+    rel = 1e-5 if dtype == torch.float32 else 1e-3
+    assert float(lv) == pytest.approx(float(rv), rel=rel)
+    assert float(lj) == pytest.approx(float(rj), rel=rel)
+    err, scale = _max_diff(d_wb, r_wb)
+    bound = 5e-5 if dtype == torch.float32 else 2.0 ** -6
+    assert d_wb.dtype == dtype and err <= bound * scale, (err, scale)
+
+
+def test_simt_k6_runs_bf16_chains_the_tensor_core_k6_refuses(card):
+    """A bf16 sine chain whose planes the tensor-core K6 cannot hold (width
+    512) trains on the CUDA-core body, one launch, within the bf16 bounds."""
+    cfg = ShapeNetConfig(3, 1, 512, 1, "sine", False, 30.0)
+    assert fd.k6_variant(torch.bfloat16, cfg, "siren") == "simt"
+    wb, x = _data(cfg, 2, 200, torch.bfloat16, seed=41)
+    tgt, jt, w = _sobolev_side(cfg, 2, 200, seed=41)
+    before = dict(_build.LAUNCHES)
+    lv, lj, d_wb = fd.shapenet_sobolev_grads_cuda(wb, x, tgt, jt, cfg, "siren", weight=w)
+    assert _build.LAUNCHES["shapenet_sobolev_grads"] == before["shapenet_sobolev_grads"] + 1
+    assert _build.LAUNCHES["shapenet_sobolev_grads_tc"] == before["shapenet_sobolev_grads_tc"]
+    rv, rj, r_wb = fd.shapenet_sobolev_grads_reference(wb, x, tgt, jt, cfg, "siren", weight=w)
+    assert float(lv) == pytest.approx(float(rv), rel=1e-3)
+    assert float(lj) == pytest.approx(float(rj), rel=1e-3)
+    err, scale = _max_diff(d_wb, r_wb)
+    assert d_wb.dtype == torch.bfloat16 and err <= 2.0 ** -6 * scale, (err, scale)
+
+
+def test_simt_k6_float32_flagship_is_deterministic(card):
+    """The float32 K6 at the flagship shape (G=32, P=32768, the float32
+    policy's Sobolev step): two runs give the same bits (fixed splits, an
+    ordered reduce), finite and of the expected shapes, each one launch of
+    the CUDA-core kernel."""
+    cfg = ShapeNetConfig(3, 1, 128, 2, "sine", False, 30.0)
+    wb, x = _data(cfg, 32, 32768, torch.float32, seed=42)
+    tgt, jt, w = _sobolev_side(cfg, 32, 32768, seed=42)
+    before = dict(_build.LAUNCHES)
+    runs = [fd.shapenet_sobolev_grads_cuda(wb, x, tgt, jt, cfg, "siren", w_jac=0.1, weight=w)
+            for _ in range(2)]
+    assert _build.LAUNCHES["shapenet_sobolev_grads"] == before["shapenet_sobolev_grads"] + 2
+    assert _build.LAUNCHES["shapenet_sobolev_grads_tc"] == before["shapenet_sobolev_grads_tc"]
+    assert tuple(runs[0][2].shape) == tuple(wb.shape)
+    for a, b in zip(runs[0], runs[1]):
+        assert bool(torch.isfinite(a).all()) and torch.equal(a, b)
+
+
+# The float32 K4 body (csrc/shapenet_linear.cu on stack_simt.cuh) on what
+# sets it apart: trunk widths 24 and 40 and bottlenecks of 20, 15 and 1
+# columns (part of a column block, 4-byte weight copies where nk % 4 != 0),
+# so = 2 and 3, resblocks, widths 256 (nk or n), 512 and 1024 (fewer rows a
+# thread, more column blocks), at P = 200 (a ragged last tile): ((si, so, K,
+# units, nlayers, resblock, omega_0), points per tile, where the planes sit).
+SIMT_LINEAR_F32 = [
+    ((2, 1, 20, 24, 1, False, 5.0), 128, "shared"),
+    ((3, 3, 5, 40, 2, True, 10.0), 128, "global"),
+    ((2, 1, 1, 16, 1, False, 5.0), 128, "shared"),
+    ((3, 2, 128, 128, 2, False, 30.0), 32, "global"),
+    ((3, 1, 128, 128, 2, True, 30.0), 64, "global"),
+    ((3, 1, 256, 256, 1, False, 30.0), 32, "shared"),
+    ((2, 1, 128, 512, 1, False, 30.0), 16, "shared"),
+    ((1, 1, 64, 1024, 1, False, 30.0), 8, "global"),
+]
+
+
+@pytest.mark.parametrize("case,tile,residuals", SIMT_LINEAR_F32,
+                         ids=["n24-nk20", "n40-nk15-res-so3", "nk1", "so2-nk256", "n128-res",
+                              "n256", "n512", "n1024"])
+def test_simt_k4_float32_shapes(card, case, tile, residuals):
+    """The float32 K4 (the CUDA-core body, full f32 FMAs) on each trunk,
+    weighted, at G=3, P=200: one launch of the CUDA-core kernel a call, the
+    loss within rel 1e-5 and every gradient within 5e-5 of its max|plain|,
+    two runs bitwise equal; the planes where the geometry says."""
+    cfg, so, ws, bs, a, bias, x, tgt, w = _linear_data(case, 3, 200, torch.float32, seed=43)
+    geo = fl.linear_geometry(cfg, so, 3, 200, torch.float32)
+    assert (geo["variant"], geo["tile"], geo["residuals"]) == ("simt", tile, residuals)
+    before = dict(_build.LAUNCHES)
+    runs = [fl.niflinear_mse_grads_cuda(ws, bs, a, bias, x, tgt, cfg, so, w) for _ in range(2)]
+    assert _build.LAUNCHES["niflinear_mse_grads"] == before["niflinear_mse_grads"] + 2
+    assert _build.LAUNCHES["niflinear_mse_grads_tc"] == before["niflinear_mse_grads_tc"]
+    flat = lambda r: [r[0], *r[1], *r[2], r[3], r[4]]  # noqa: E731
+    assert all(torch.equal(p, q) for p, q in zip(flat(runs[0]), flat(runs[1])))
+    _k4_close(runs[0], fl.niflinear_mse_grads_reference(ws, bs, a, bias, x, tgt, cfg, so, w),
+              torch.float32)
+
+
+def test_k4_bf16_trunk_the_tensor_core_k4_refuses_runs_on_the_cuda_core_k4(card):
+    """A bf16 trunk the tensor-core K4 does not take (width 288 at si = 3,
+    K = 128, two hidden layers) trains on the CUDA-core K4, not eager: one
+    launch, within the bf16 bounds of plain K4."""
+    case = (3, 1, 128, 288, 2, False, 30.0)
+    cfg, so, ws, bs, a, bias, x, tgt, w = _linear_data(case, 2, 200, torch.bfloat16, seed=44)
+    assert fl._tc_status(cfg, so, 1, 1)[0] != 0
+    assert fl.k4_variant(torch.bfloat16, cfg, so) == "simt"
+    assert fl.linear_fused_unsupported_reason(cfg, so, 256, card, torch.bfloat16) is None
+    before = dict(_build.LAUNCHES)
+    outs = fl.niflinear_mse_grads(ws, bs, a, bias, x, tgt, cfg, so, w)
+    assert _build.LAUNCHES["niflinear_mse_grads"] == before["niflinear_mse_grads"] + 1
+    assert _build.LAUNCHES["niflinear_mse_grads_tc"] == before["niflinear_mse_grads_tc"]
+    _k4_close(outs, fl.niflinear_mse_grads_reference(ws, bs, a, bias, x, tgt, cfg, so, w),
+              torch.bfloat16)
+
+
+def test_simt_k4_float32_flagship_is_deterministic(card):
+    """The float32 K4 at the flagship NIF-linear shape (G=32, P=32768, the
+    float32 policy's NIF-linear step): two runs give the same bits (fixed
+    runs of tiles, ordered reduces), finite and of the expected shapes, each
+    one launch of the CUDA-core kernel."""
+    cfg, so, ws, bs, a, bias, x, tgt, w = _linear_data(LINEAR_CASES[0], 32, 32768,
+                                                       torch.float32, seed=45)
+    before = dict(_build.LAUNCHES)
+    runs = [fl.niflinear_mse_grads_cuda(ws, bs, a, bias, x, tgt, cfg, so) for _ in range(2)]
+    assert _build.LAUNCHES["niflinear_mse_grads"] == before["niflinear_mse_grads"] + 2
+    assert _build.LAUNCHES["niflinear_mse_grads_tc"] == before["niflinear_mse_grads_tc"]
+    flat = lambda r: [r[0], *r[1], *r[2], r[3], r[4]]  # noqa: E731
+    assert tuple(runs[0][3].shape) == (32, 128)
+    for p, q in zip(flat(runs[0]), flat(runs[1])):
+        assert bool(torch.isfinite(p).all()) and torch.equal(p, q)

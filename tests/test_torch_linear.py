@@ -260,6 +260,31 @@ def test_k4_variant_and_gate_per_dtype(dtype, variant):
                                      dtype)
 
 
+@pytest.mark.parametrize("tc_status,variant", [(0, "tc"), (2, "simt")],
+                         ids=["tc-takes-it", "tc-refuses"])
+def test_k4_variant_asks_the_tensor_core_library_for_bf16_trunks_only(tc_status, variant,
+                                                                      monkeypatch):
+    """Given a trunk, float32 runs the CUDA-core K4 without asking any
+    kernel library; bfloat16 asks the tensor-core K4's geometry and runs
+    the CUDA-core K4 where it refuses the trunk (a width beyond its shared
+    memory), so such a trunk trains on a fused kernel, not eager."""
+    from nif_tpu_torch.ops import _build
+
+    trunk = tcfg.ShapeNetConfig(3, 128, 288, 2, "sine", False, 30.0)
+    asked = []
+
+    def no_library(name):
+        raise AssertionError(f"asked the {name} library")
+
+    monkeypatch.setattr(_build, "load_library", no_library)
+    assert fl.k4_variant(torch.float32, trunk, 1) == "simt"
+    assert fl.k4_variant(torch.bfloat16) == "tc"
+    monkeypatch.setattr(fl, "_tc_status",
+                        lambda cfg, so, G, P: asked.append((cfg, so)) or (tc_status, {}))
+    assert fl.k4_variant(torch.bfloat16, trunk, 1) == variant
+    assert asked == [(trunk, 1)]
+
+
 # ------------------------------------------------------- mse_value_and_grad
 @pytest.mark.parametrize("fused", [False, True], ids=["eager", "plain-K4"])
 @pytest.mark.parametrize("so,resblock,weighted", [(1, False, False), (2, True, True)],
