@@ -13,12 +13,15 @@ Phases, each of which raises on failure:
    P=256, and the flagship chain at G=32, P=32768, in float32 and bfloat16:
    bfloat16 sine chains through the tensor-core kernel
    (``shapenet_fwd_tc.cu``), float32 and vanilla chains through the
-   CUDA-core one (``shapenet_fwd.cu``), each checked by its launch counter;
+   CUDA-core one (``shapenet_fwd.cu``, one body with K5's CUDA-core reverse
+   body), each checked by its launch counter and its geometry's ``body``;
    the tensor-core kernel also on the padded, narrow and wide shapes of K2's
    (``K2_TC_EXTRA``, P = 200) and on the NIF-linear trunk's 128 output
-   columns (through the kernel ``k1_variant`` picks); at the flagship shape
-   in bfloat16 the CUDA-core kernel on the same inputs too; two bfloat16
-   flagship runs must give bitwise-equal results.
+   columns (through the kernel ``k1_variant`` picks); the CUDA-core kernel
+   on ``SIMT_FWD_EXTRA`` (si 5-7, so 2-3, widths 24-1024; P = 200) in
+   float32 and in bfloat16, which the tensor-core kernel refuses there; at
+   the flagship shape in bfloat16 the CUDA-core kernel on the same inputs
+   too; two flagship runs in each dtype must give bitwise-equal results.
 2b. Hold K2 (forward + weighted MSE + backward) against plain K2 over the
    same configs, with and without point weights: bfloat16 sine chains
    through the tensor-core kernel (``shapenet_bwd_tc.cu``), float32 and
@@ -41,7 +44,8 @@ Phases, each of which raises on failure:
    ragged one (point padding) and a 70-snapshot one (chunking). Check shapes,
    finiteness, agreement with the plain K1 and the eager path, and that the
    tensor-core K1 launched once per chunk served; then one full request of
-   the same model under the float32 policy (one launch of the CUDA-core K1).
+   the same model under the float32 policy (one launch of the CUDA-core K1,
+   its geometry's body "simt").
 3b. Train the flagship: ``GroupedTrainer.step`` with Adam at G=32, P=32768
    (one launch of the tensor-core K2 per step, the first step's loss and
    gradients against plain K2 and autograd through the ParameterNet), one
@@ -52,7 +56,9 @@ Phases, each of which raises on failure:
 4. Time the bfloat16 tensor-core K1, the CUDA-core K1 on the same bfloat16
    inputs and in float32, their plain versions and the end-to-end
    ``apply_grouped`` and ``predict_grouped`` with CUDA events, and compute
-   K1's bounds on this card.
+   K1's bounds on this card; then the float32 policy's ``apply_grouped``
+   (mean of 20) and ``predict_grouped`` from host arrays (mean of 5), each on
+   the device clock and on the host clock.
 4b. Time the flagship train step and its stages, the bfloat16 tensor-core
    K2, the CUDA-core K2 on the same bfloat16 inputs and in float32, K3 in
    both dtypes, with their plain versions, and compute their bounds on this
@@ -65,12 +71,15 @@ Phases of the Sobolev slice:
    one more with so >= si (the forward-tangent body), in float32 and
    bfloat16: the reverse body (so < si) of bfloat16 sine chains through the
    tensor-core kernel (``shapenet_fwd_tc.cu``), the rest through the
-   CUDA-core one (``shapenet_jac.cu``), each checked by its launch counter;
-   the tensor-core reverse body also on ``JAC_REV_TC`` (si = 3 with so = 2
-   on a resblock chain, si = 4 at width 16, widths 40 and 192; P = 200); at
-   the flagship shape in bfloat16 the tensor-core kernel and the CUDA-core
-   one on the same inputs, and the CUDA-core one in float32 at G=8; two
-   bfloat16 flagship runs must give bitwise-equal results.
+   CUDA-core ones (the reverse body of ``shapenet_fwd.cu``, beside the
+   CUDA-core K1, and the tangent body of ``shapenet_jac.cu``), each checked
+   by its launch counter and its geometry's ``body``; the tensor-core
+   reverse body also on ``JAC_REV_TC`` (si = 3 with so = 2 on a resblock
+   chain, si = 4 at width 16, widths 40 and 192; P = 200); the CUDA-core
+   reverse body on ``SIMT_FWD_EXTRA`` (2-3 sweeps) in both dtypes; at the
+   flagship shape in bfloat16 the tensor-core kernel and the CUDA-core one
+   on the same inputs, and the CUDA-core one in float32 (G=32); two flagship
+   runs in each dtype must give bitwise-equal results.
 2e. Hold K6 (the fused Sobolev train pass) against plain K6 over the same
    configs, weighted or not, with value and Jacobian masks on the
    multi-output configs: bfloat16 sine chains through the tensor-core
@@ -89,12 +98,15 @@ Phases of the Sobolev slice:
    short Sobolev ``fit`` on the traveling wave with its analytic Jacobian
    (60 tensor-core launches) that must lower both terms, and
    ``evaluate_sobolev`` (one tensor-core K5 launch per chunk; under the
-   float32 policy one CUDA-core K5 launch per chunk).
+   float32 policy one CUDA-core K5 launch per chunk, its geometry's body
+   "simt").
 4c. Time the flagship Sobolev step, the bfloat16 tensor-core K5 and K6, the
    CUDA-core K5 and K6 on the same bfloat16 inputs and in float32, with
-   their plain versions, and compute their bounds on this card; and K5's
-   tangent body (the CUDA-core kernel) at the flagship widths with so = 3,
-   in both dtypes.
+   their plain versions, and compute their bounds on this card; the float32
+   policy's Jacobian ``evaluate_sobolev`` at G=32, P=32768 from host arrays
+   (one launch of the CUDA-core K5), mean of 3 on the device clock and on
+   the host clock; and K5's tangent body (the CUDA-core kernel) at the
+   flagship widths with so = 3, in both dtypes.
 
 Phases of the Hessian slice:
 
@@ -250,6 +262,20 @@ JAC_REV_TC = [
     (3, 1, 40, 2, "sine", False, 30.0),
     (3, 1, 192, 1, "sine", False, 30.0),
 ]
+# Shapes of the CUDA-core K1 and K5 reverse body (one body, shapenet_fwd.cu)
+# beyond CASES: so = 2-3 reverse sweeps, si 5-7 (x tiles of round4(si)
+# columns), widths 24-1024 (the five register tiles of stack_simt.cuh),
+# plain, resblock and vanilla chains; each run at P = 200 (a ragged last
+# tile) in float32, and in bfloat16, whose tensor-core kernels refuse every
+# one of them (si > 4, vanilla chains, K1 above width 800, K5 above 208).
+SIMT_FWD_EXTRA = [
+    ("siren", (5, 2, 24, 2, "sine", False, 30.0)),
+    ("siren", (6, 3, 40, 2, "sine", True, 10.0)),
+    ("siren", (7, 2, 256, 2, "sine", True, 30.0)),
+    ("siren", (5, 3, 1024, 1, "sine", False, 30.0)),
+    ("vanilla", (6, 2, 128, 2, "swish")),
+    ("vanilla", (7, 3, 512, 1, "tanh")),
+]
 # K4's trunks: the SIREN configs of CASES with a bottleneck of so * K outputs,
 # so in {1, 2, 3}, resblock and plain, so * K within the kernel's width:
 # (si, so, K, units, nlayers, resblock, omega_0).
@@ -297,6 +323,20 @@ def max_diff(torch, out, ref, what: str):
     return float((o - r).abs().max()), float(r.abs().max())
 
 
+def host_ms(torch, fn, reps: int) -> float:
+    """Mean host-clock ms of ``fn()`` over ``reps`` calls, each ending in a
+    synchronize, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        total += time.perf_counter() - t0
+    return total / reps * 1e3
+
+
 def check_k1(torch, cfg, variant, G, P, dtype, seed, simt=False) -> float:
     """Kernel vs plain version on one input; returns max |kernel - plain|.
     The launch must take the kernel ``k1_variant`` picks (``simt``: the
@@ -308,11 +348,12 @@ def check_k1(torch, cfg, variant, G, P, dtype, seed, simt=False) -> float:
     sum can flip the bf16 rounding of an activation before the next matmul."""
     from nif_tpu_torch.ops import _build
     from nif_tpu_torch.ops.fused_shapenet import (
-        _shapenet_fwd_simt, k1_variant, kernel_geometry, shapenet_fwd_cuda,
+        _shapenet_fwd_simt, k1_geometry, k1_variant, shapenet_fwd_cuda,
         shapenet_grouped_fused_reference)
 
     wb, x = chain_data(torch, cfg, G, P, dtype, seed)
     kernel = "simt" if simt else k1_variant(dtype, cfg, variant)
+    geo = k1_geometry(cfg, variant, G, P, dtype, kernel=kernel)
     before = dict(_build.LAUNCHES)
     out = (_shapenet_fwd_simt if simt else shapenet_fwd_cuda)(wb, x, cfg, variant)
     ref = shapenet_grouped_fused_reference(wb, x, cfg, variant)
@@ -320,9 +361,9 @@ def check_k1(torch, cfg, variant, G, P, dtype, seed, simt=False) -> float:
     what = f"K1 {describe(cfg, variant, G, P, dtype)}"
     if (_build.LAUNCHES["shapenet_fwd"] != before["shapenet_fwd"] + 1
             or _build.LAUNCHES["shapenet_fwd_tc"]
-            != before["shapenet_fwd_tc"] + int(kernel == "tc")):
+            != before["shapenet_fwd_tc"] + int(kernel == "tc") or geo["body"] != kernel):
         raise AssertionError(f"{what}: launched {_build.LAUNCHES} after {before}, not one "
-                             f"{kernel} K1")
+                             f"{kernel} K1 (geometry {geo})")
     if out.shape != ref.shape or out.dtype != ref.dtype:
         raise AssertionError(f"K1 {variant} {cfg}: {out.shape}/{out.dtype} vs {ref.shape}/{ref.dtype}")
     err, scale = max_diff(torch, out, ref, f"K1 {variant} {cfg} {dtype}")
@@ -330,9 +371,17 @@ def check_k1(torch, cfg, variant, G, P, dtype, seed, simt=False) -> float:
         torch.testing.assert_close(out.float(), ref.float(), rtol=2e-4, atol=1e-5)
     elif err > 1e-2 * scale:
         raise AssertionError(f"K1 {variant} {cfg} bf16: max|d| {err} > 1e-2 * {scale}")
-    log(f"{what} max|d|={err:.3e} max|plain|={scale:.3e} ({err / scale:.2e} of it); {kernel} "
-        f"kernel, {kernel_geometry(cfg, variant, kernel=kernel)[0]}-point tiles")
+    log(f"{what} max|d|={err:.3e} max|plain|={scale:.3e} ({err / scale:.2e} of it); "
+        f"{describe_geometry(geo)}")
     return err
+
+
+def describe_geometry(geo) -> str:
+    """A K1 or K5 geometry in a few words: its body, tiles and grid."""
+    grid = (f"{geo['blocks']} blocks ({geo['blocks_per_sm']} an SM)" if geo["body"] == "simt"
+            else f"{geo['splits']} splits")
+    return (f"{geo['body']} body, {geo['tile']}-point tiles, {grid}, planes in "
+            f"{geo['residuals']} memory, {geo['smem_bytes']} B of shared memory")
 
 
 def check_k2(torch, cfg, variant, G, P, dtype, weighted, seed, simt=False,
@@ -426,17 +475,21 @@ def check_k5(torch, cfg, variant, G, P, dtype, seed, simt=False) -> float:
 
     wb, x = chain_data(torch, cfg, G, P, dtype, seed)
     kernel = "simt" if simt else k5_variant(dtype, cfg, variant)
+    mode = "reverse" if cfg.output_dim < cfg.input_dim else "tangent"
+    geo = _geometry(mode, cfg, variant, G, P, dtype, kernel=kernel)
+    # the reverse body's kernel names its body; the tangent body is the
+    # first port's stacked one
+    body = kernel if mode == "reverse" else "stacked"
     before = dict(_build.LAUNCHES)
     y, jac = (_shapenet_fwd_jac_simt if simt else shapenet_fwd_jac_cuda)(wb, x, cfg, variant)
     y_ref, jac_ref = shapenet_fwd_jac_reference(wb, x, cfg, variant)
     torch.cuda.synchronize()
-    mode = "reverse" if cfg.output_dim < cfg.input_dim else "tangent"
     what = f"K5 ({mode}) {describe(cfg, variant, G, P, dtype)}"
     if (_build.LAUNCHES["shapenet_fwd_jac"] != before["shapenet_fwd_jac"] + 1
             or _build.LAUNCHES["shapenet_fwd_jac_tc"]
-            != before["shapenet_fwd_jac_tc"] + int(kernel == "tc")):
+            != before["shapenet_fwd_jac_tc"] + int(kernel == "tc") or geo["body"] != body):
         raise AssertionError(f"{what}: launched {_build.LAUNCHES} after {before}, not one "
-                             f"{kernel} K5")
+                             f"{kernel} K5 (geometry {geo})")
     if y.dtype != dtype or jac.shape != (G, P, cfg.output_dim, cfg.input_dim):
         raise AssertionError(f"{what}: y {y.dtype}, jac {jac.shape}/{jac.dtype}")
     worst, rels = 0.0, []
@@ -447,10 +500,10 @@ def check_k5(torch, cfg, variant, G, P, dtype, seed, simt=False) -> float:
             raise AssertionError(f"{what}: {name} max|d| {err} > {bound}")
         worst = max(worst, err)
         rels.append(f"{name} {err / max(scale, 1e-30):.2e}")
-    geo = _geometry(mode, cfg, variant, G, P, dtype, kernel=kernel)
-    log(f"{what} y/jac agree; max|d| of max|plain|: {', '.join(rels)}; {kernel} kernel, "
-        f"{geo['tile']}-point tiles, residuals in {geo['residuals']} memory, weights from "
-        f"{geo['weights']} memory, {geo['splits']} splits")
+    where = (describe_geometry(geo) if mode == "reverse" else
+             f"stacked body, {geo['tile']}-point tiles, residuals in {geo['residuals']} memory, "
+             f"{geo['splits']} splits")
+    log(f"{what} y/jac agree; max|d| of max|plain|: {', '.join(rels)}; {kernel} kernel, {where}")
     return worst
 
 
@@ -1103,7 +1156,8 @@ def main() -> int:
     from nif_tpu_torch.ops.fused_linear import (
         linear_geometry, niflinear_mse_grads_cuda, niflinear_mse_grads_reference)
     from nif_tpu_torch.ops.fused_shapenet import (
-        _shapenet_fwd_simt, _shapenet_mse_grads_simt, k1_variant, shapenet_bwd_cuda,
+        _shapenet_fwd_simt, _shapenet_mse_grads_simt, k1_geometry, k1_variant,
+        shapenet_bwd_cuda,
         shapenet_fused_bwd_reference, shapenet_fwd_cuda, shapenet_grouped_fused_reference,
         shapenet_mse_grads_cuda, shapenet_mse_grads_reference)
     from nif_tpu_torch.ops.shapenet import shapenet_grouped
@@ -1142,18 +1196,30 @@ def main() -> int:
     # NIF-linear's trunk: so * K = 128 output columns of the last product
     trunk_cfg = ShapeNetConfig(3, 128, 128, 2, "sine", False, 30.0)
     check_k1(torch, trunk_cfg, "siren", 4, 4096, torch.bfloat16, seed=170)
+    # the CUDA-core body (shapenet_fwd.cu) beyond CASES, in float32 and on
+    # bf16 shapes the tensor-core K1 refuses
+    for i, (variant, args) in enumerate(SIMT_FWD_EXTRA):
+        cfg = ShapeNetConfig(*args)
+        if k1_variant(torch.bfloat16, cfg, variant) != "simt":
+            raise AssertionError(f"the tensor-core K1 takes {cfg}, not the CUDA-core body")
+        for dtype in (torch.float32, torch.bfloat16):
+            check_k1(torch, cfg, variant, 3, 200, dtype, seed=190 + i)
     k1f_err = check_k1(torch, flag_cfg, "siren", 32, 32768, torch.float32, seed=10)
     k1_err = check_k1(torch, flag_cfg, "siren", 32, 32768, torch.bfloat16, seed=11)
     check_k1(torch, flag_cfg, "siren", 32, 32768, torch.bfloat16, seed=11, simt=True)
-    wb, x = chain_data(torch, flag_cfg, 32, 32768, torch.bfloat16, seed=15)
-    before = _build.LAUNCHES["shapenet_fwd_tc"]
-    runs = [shapenet_fwd_cuda(wb, x, flag_cfg, "siren") for _ in range(2)]
-    if _build.LAUNCHES["shapenet_fwd_tc"] != before + 2:
-        raise AssertionError("the flagship bf16 K1 runs did not take the tensor-core kernel")
-    if not torch.equal(runs[0], runs[1]):
-        raise AssertionError("K1 is not deterministic: two runs on one input differ")
-    log("K1 flagship bf16 (G=32, P=32768, tensor cores): two runs give bitwise-equal outputs")
-    del wb, x, runs
+    for dtype, tc in ((torch.bfloat16, 2), (torch.float32, 0)):
+        wb, x = chain_data(torch, flag_cfg, 32, 32768, dtype, seed=15)
+        before = dict(_build.LAUNCHES)
+        runs = [shapenet_fwd_cuda(wb, x, flag_cfg, "siren") for _ in range(2)]
+        kernel = "tensor-core" if tc else "CUDA-core"
+        if (_build.LAUNCHES["shapenet_fwd_tc"] != before["shapenet_fwd_tc"] + tc
+                or _build.LAUNCHES["shapenet_fwd"] != before["shapenet_fwd"] + 2):
+            raise AssertionError(f"the flagship {dtype} K1 runs did not take the {kernel} K1")
+        if not torch.equal(runs[0], runs[1]):
+            raise AssertionError(f"K1 ({dtype}) is not deterministic: two runs on one input differ")
+        log(f"K1 flagship {dtype} (G=32, P=32768, the {kernel} K1): two runs give bitwise-equal "
+            f"outputs")
+        del wb, x, runs
 
     # ---- phase 2b: K2 against its plain version, and its determinism
     for i, (variant, args) in enumerate(CASES):
@@ -1282,18 +1348,32 @@ def main() -> int:
         if k5_variant(torch.bfloat16, cfg, "siren") != "tc":
             raise AssertionError(f"the tensor-core K5 does not take {cfg}")
         check_k5(torch, cfg, "siren", 3, 200, torch.bfloat16, seed=180 + i)
+    # the CUDA-core reverse body (shapenet_fwd.cu, beside the CUDA-core K1)
+    # beyond CASES: so = 2-3 sweeps, si 5-7, widths 24-1024, in float32 and
+    # on bf16 shapes the tensor-core K5 refuses
+    for i, (variant, args) in enumerate(SIMT_FWD_EXTRA):
+        cfg = ShapeNetConfig(*args)
+        if k5_variant(torch.bfloat16, cfg, variant) != "simt":
+            raise AssertionError(f"the tensor-core K5 takes {cfg}, not the CUDA-core body")
+        for dtype in (torch.float32, torch.bfloat16):
+            check_k5(torch, cfg, variant, 3, 200, dtype, seed=200 + i)
     k5_err = check_k5(torch, flag_cfg, "siren", 32, 32768, torch.bfloat16, seed=30)
     check_k5(torch, flag_cfg, "siren", 32, 32768, torch.bfloat16, seed=30, simt=True)
-    k5f_err = check_k5(torch, flag_cfg, "siren", 8, 32768, torch.float32, seed=31)
-    wb, x = chain_data(torch, flag_cfg, 32, 32768, torch.bfloat16, seed=32)
-    before = _build.LAUNCHES["shapenet_fwd_jac_tc"]
-    runs = [shapenet_fwd_jac_cuda(wb, x, flag_cfg, "siren") for _ in range(2)]
-    if _build.LAUNCHES["shapenet_fwd_jac_tc"] != before + 2:
-        raise AssertionError("the flagship bf16 K5 runs did not take the tensor-core kernel")
-    if not all(torch.equal(a, b) for a, b in zip(*runs)):
-        raise AssertionError("K5 is not deterministic: two runs on one input differ")
-    log("K5 flagship bf16 (G=32, P=32768, tensor cores): two runs give bitwise-equal y and jac")
-    del wb, x, runs
+    k5f_err = check_k5(torch, flag_cfg, "siren", 32, 32768, torch.float32, seed=31)
+    for dtype, tc in ((torch.bfloat16, 2), (torch.float32, 0)):
+        wb, x = chain_data(torch, flag_cfg, 32, 32768, dtype, seed=32)
+        before = dict(_build.LAUNCHES)
+        runs = [shapenet_fwd_jac_cuda(wb, x, flag_cfg, "siren") for _ in range(2)]
+        kernel = "tensor-core" if tc else "CUDA-core"
+        if (_build.LAUNCHES["shapenet_fwd_jac_tc"] != before["shapenet_fwd_jac_tc"] + tc
+                or _build.LAUNCHES["shapenet_fwd_jac"] != before["shapenet_fwd_jac"] + 2):
+            raise AssertionError(f"the flagship {dtype} K5 runs did not take the {kernel} K5")
+        if not all(torch.equal(a, b) for a, b in zip(*runs)):
+            raise AssertionError(f"K5 ({dtype}) is not deterministic: two runs on one input "
+                                 f"differ")
+        log(f"K5 flagship {dtype} (G=32, P=32768, the {kernel} reverse body): two runs give "
+            f"bitwise-equal y and jac")
+        del wb, x, runs
 
     # ---- phase 2e: K6 against its plain version, and its determinism
     for i, (variant, args) in enumerate(CASES):
@@ -1489,11 +1569,17 @@ def main() -> int:
     log(f"served one request (G=32, P=32768) under the float32 policy: launches "
         f"{f32_serve_launches}; max|d| vs plain K1 {d_f32:.3e} (max|u| "
         f"{float(np.abs(f32_plain).max()):.4f})")
+    # the launch took the CUDA-core body of shapenet_fwd.cu: its geometry at
+    # the request's shape
+    f32_serve_geo = k1_geometry(f32_model.cfg_shape_net, "siren", *inputs[0][1].shape[:2],
+                                torch.float32)
+    log(f"the float32 request's K1 geometry: {describe_geometry(f32_serve_geo)}")
     if (f32_serve_launches["shapenet_fwd"] != 1 or f32_serve_launches["shapenet_fwd_tc"]
+            or f32_serve_geo["body"] != "simt"
             or not np.isfinite(f32_out).all() or d_f32 > 2e-4 * float(np.abs(f32_plain).max())
             + 1e-5):
-        raise AssertionError(f"a float32 request launched {f32_serve_launches} or departs from "
-                             f"plain K1 by {d_f32}")
+        raise AssertionError(f"a float32 request launched {f32_serve_launches} on "
+                             f"{f32_serve_geo} or departs from plain K1 by {d_f32}")
     del f32_model, f32_out, f32_plain
 
     # ---- phase 3b: train the flagship
@@ -1639,10 +1725,15 @@ def main() -> int:
     jf32_eval_launches = dict(_build.LAUNCHES)
     log(f"float32-policy evaluate_sobolev ({eval_chunks} chunks): {sf32_eval}; launches "
         f"{jf32_eval_launches}")
+    # each chunk's launch took the CUDA-core reverse body of shapenet_fwd.cu
+    jf32_geo = derivative_geometry("reverse", flag_cfg, "siren", 16 // eval_chunks,
+                                   x_w.shape[1], torch.float32)
+    log(f"the float32 Jacobian evaluation's K5 geometry: {describe_geometry(jf32_geo)}")
     if (jf32_eval_launches["shapenet_fwd_jac"] != eval_chunks
-            or jf32_eval_launches["shapenet_fwd_jac_tc"]
+            or jf32_eval_launches["shapenet_fwd_jac_tc"] or jf32_geo["body"] != "simt"
             or not all(np.isfinite(v) for v in sf32_eval.values())):
-        raise AssertionError(f"a float32 Jacobian evaluation launched {jf32_eval_launches}")
+        raise AssertionError(f"a float32 Jacobian evaluation launched {jf32_eval_launches} on "
+                             f"{jf32_geo}")
     smodel_w = nif_tpu_torch.NIFMultiScale(FLAGSHIP_SHAPE, FLAGSHIP_PNET, FLAGSHIP_POLICY,
                                            device="cuda", seed=1)
     sfitter = GroupedTrainer(smodel_w, lambda p: torch.optim.Adam(p, lr=FLAGSHIP_TRAIN_LR))
@@ -1995,6 +2086,25 @@ def main() -> int:
     log(f"end to end apply_grouped (f32 inputs on the card) G={G} P={P}: {e2e_ms:.4f} ms = "
         f"{G * P / e2e_ms * 1e3:.4e} points/s; predict_grouped from host arrays: "
         f"{serve_ms:.4f} ms = {G * P / serve_ms * 1e3:.4e} points/s")
+    # the float32 policy's serving (the CUDA-core K1): apply_grouped on inputs
+    # on the card and predict_grouped from host arrays, each on the device
+    # clock and on the host clock (each call synchronized)
+    f32_model = nif_tpu_torch.NIFMultiScale(FLAGSHIP_SHAPE, FLAGSHIP_PNET, "float32",
+                                            device="cuda", seed=0)
+    with torch.inference_mode():
+        f32_apply = lambda: f32_model.apply_grouped(t_dev, x_dev)  # noqa: E731
+        f32_apply_ms = cuda_ms(f32_apply, reps=20)
+        f32_apply_host_ms = host_ms(torch, f32_apply, reps=20)
+    f32_predict = lambda: predict_grouped(f32_model, t, x)  # noqa: E731
+    f32_predict_ms = cuda_ms(f32_predict, reps=5, warmup=1)
+    f32_predict_host_ms = host_ms(torch, f32_predict, reps=5)
+    del f32_model
+    log(f"float32 policy (the CUDA-core K1), G={G} P={P}: apply_grouped (inputs on the card) "
+        f"{f32_apply_ms:.4f} ms on the device clock = {G * P / f32_apply_ms * 1e3:.4e} points/s, "
+        f"{f32_apply_host_ms:.4f} ms on the host clock (mean of 20); predict_grouped from host "
+        f"arrays {f32_predict_ms:.4f} ms on the device clock = "
+        f"{G * P / f32_predict_ms * 1e3:.4e} points/s, {f32_predict_host_ms:.4f} ms on the host "
+        f"clock (mean of 5)")
 
     # ---- phase 4b: train-step, K2 and K3 times at the flagship shape (bf16)
     G, P = 32, 32768
@@ -2112,7 +2222,20 @@ def main() -> int:
         torch.cuda.synchronize()
     sf32_step_host_ms = (time.perf_counter() - t0) / 5 * 1e3
     sf32_stages = sobolev_step_stages(torch, sf32_trainer, sf32_box[0], (t_s, x_s, u_s, j_s))
-    del sf32_trainer, sf32_state, sf32_box
+    # the float32 policy's Jacobian evaluation at the flagship shape from host
+    # arrays (one launch of the CUDA-core K5 reverse body: one chunk of 32
+    # groups), on the device clock and on the host clock
+    eval_host = tuple(a.cpu().numpy() for a in (t_s, x_s, u_s, j_s))
+    jeval = lambda: sf32_trainer.evaluate_sobolev(sf32_box[0], *eval_host)  # noqa: E731
+    before = dict(_build.LAUNCHES)
+    jeval()
+    if (_build.LAUNCHES["shapenet_fwd_jac"] != before["shapenet_fwd_jac"] + 1
+            or _build.LAUNCHES["shapenet_fwd_jac_tc"] != before["shapenet_fwd_jac_tc"]):
+        raise AssertionError("the float32 flagship Jacobian evaluation did not launch the "
+                             "CUDA-core K5 once")
+    jeval_ms = cuda_ms(jeval, reps=3, warmup=0)
+    jeval_host_ms = host_ms(torch, jeval, reps=3)
+    del sf32_trainer, sf32_state, sf32_box, eval_host
     # K5's tangent body (so >= si; the CUDA-core kernel in both dtypes) at the
     # flagship widths with so = 3
     tan_cfg = ShapeNetConfig(3, 3, 128, 2, "sine", False, 30.0)
@@ -2161,6 +2284,10 @@ def main() -> int:
         f"{G * P / sf32_step_ms * 1e3:.4e} train points/s, {sf32_step_host_ms:.4f} ms on the "
         f"host clock (each step synchronized); stages timed alone: "
         f"{', '.join(f'{k} {v:.4f} ms' for k, v in sf32_stages.items())}")
+    log(f"flagship Jacobian evaluation, float32 policy (GroupedTrainer.evaluate_sobolev from "
+        f"host arrays, one launch of the CUDA-core K5, G={G} P={P}): {jeval_ms:.4f} ms on the "
+        f"device clock = {G * P / jeval_ms * 1e3:.4e} points/s, {jeval_host_ms:.4f} ms on the "
+        f"host clock (mean of 3)")
     log(f"K5 (tangent body, si=3 so=3 n=128, CUDA cores) bf16: {k5t_ms:.4f} ms, plain "
         f"{k5t_plain_ms:.4f} ms, bound {k5t_bound:.4f} ms by {k5t_by} ({k5t_gf:.1f} GFLOP of "
         f"products); f32: {k5tf_ms:.4f} ms, plain {k5tf_plain_ms:.4f} ms, bound "
@@ -2322,6 +2449,7 @@ def main() -> int:
     }, {
         "name": "shapenet_fwd_f32",
         "route": "cuda",
+        "body": f32_serve_geo["body"],
         "source": "nif_tpu_torch/csrc/shapenet_fwd.cu",
         "replaces": "nif_tpu/ops/pallas_shapenet.py:489",
         "launches": f32_serve_launches["shapenet_fwd"],
@@ -2394,7 +2522,8 @@ def main() -> int:
     }, {
         "name": "shapenet_fwd_jac_f32",
         "route": "cuda",
-        "source": "nif_tpu_torch/csrc/shapenet_jac.cu",
+        "body": jf32_geo["body"],
+        "source": "nif_tpu_torch/csrc/shapenet_fwd.cu",
         "replaces": "nif_tpu/ops/pallas_shapenet.py:1445",
         "launches": jf32_eval_launches["shapenet_fwd_jac"],
         "max_abs_err": k5f_err,

@@ -1,16 +1,14 @@
-// K5 and K6 on Hopper's CUDA cores: the fused Jacobian and the fused Sobolev
-// train pass of the grouped ShapeNet chain, in one source (one nvcc build).
+// K5's tangent body and K6 on Hopper's CUDA cores: the fused Jacobian for
+// so >= si and the fused Sobolev train pass of the grouped ShapeNet chain, in
+// one source (one nvcc build).
 //
-// K5 replaces nif_tpu/ops/pallas_shapenet.py::_fwd_jac_rev_kernel and
-// _fwd_jac_kernel (reached through shapenet_fwd_jac):
+// K5's tangent body replaces nif_tpu/ops/pallas_shapenet.py::_fwd_jac_kernel
+// (reached through shapenet_fwd_jac when so >= si):
 //   wb' [G, po] (omega_0 folded into the sine-fed weights by the wrapper),
-//   x [G, P, si]  ->  y [G, P, so], jac [G, P, so, si] in x's dtype T.
-// With so < si (the flagship's 1 < 3) the reverse body runs: the
-// residual-saving forward of K2 (keeping only the activation derivatives),
-// then so dx-only cotangent sweeps from the one-hot last-layer column, with
-// du in f32 and each dz rounded to T before its product (_jac_rev_layers).
-// Otherwise the tangent body runs the si forward tangent streams stacked
-// under the value rows of every product (_fwd_jac_layers).
+//   x [G, P, si]  ->  y [G, P, so], jac [G, P, so, si] in x's dtype T,
+// the si forward tangent streams stacked under the value rows of every
+// product (_fwd_jac_layers). K5's reverse body (so < si, the flagship's 1 < 3)
+// is shapenet_fwd.cu's, beside K1; nif_shapenet_fwd_jac refuses it.
 // K6 replaces _sobolev_kernel (reached through shapenet_sobolev_grads): the
 // stacked forward with its residuals, the masked and weighted value and
 // Jacobian squared errors, and the backward through the tangent chain
@@ -34,10 +32,10 @@
 // GFLOP of products: three passes (forward, dW, dS) of the hidden and last
 // products over all 1 + si streams, 3 x 276.0, and the first layer's x @ W0
 // on the value rows in the forward and in dW0, 2 x 0.8 (the tangent seeds are
-// elementwise, and no dx is formed); the K5 reverse body is 139.3 GFLOP.
-// Every product is an f32 FMA on the CUDA cores (a bf16 x bf16 product is
-// exact in f32, and the f32 path must not use TF32), so the 67 TFLOP/s f32
-// peak bounds K6 at ~12.8 ms and K5 at ~2.2 ms.
+// elementwise, and no dx is formed); K5's tangent body at si = so = 3 is
+// 278.9 GFLOP. Every product is an f32 FMA on the CUDA cores (a bf16 x bf16
+// product is exact in f32, and the f32 path must not use TF32), so the
+// 67 TFLOP/s f32 peak bounds K6 at ~12.8 ms.
 //
 // K6 for si <= 4 (sob_simt_kernel, the f32 tile machinery of
 // stack_simt.cuh, K8's design in shapenet_hess.cu without the pair streams):
@@ -66,11 +64,11 @@
 //   of one block per SM; a second kernel sums the S partials of each group,
 //   and the two losses, in a fixed order. No float atomics: two runs on the
 //   same inputs give the same bits.
-// K6 for si > 4 and both K5 bodies keep the first port's design
-// (stacked_kernel, jac_reverse_kernel): the tile products of
-// shapenet_common.cuh, a thread rows tr*RM .. by columns tc, tc+32, ...,
-// element-wise passes over the tile, residuals in shared memory where they
-// fit, K6's partials per block and the ordered split reduce.
+// K6 for si > 4 and K5's tangent body keep the first port's design
+// (stacked_kernel): the tile products of shapenet_common.cuh, a thread rows
+// tr*RM .. by columns tc, tc+32, ..., element-wise passes over the tile,
+// residuals in shared memory where they fit, K6's partials per block and the
+// ordered split reduce.
 // scripts/port_phase_probe.py --kernel k6f32 splits the f32 K6 tile's time
 // by phase; PERF.md has the split.
 #include "stack_simt.cuh"
@@ -78,10 +76,11 @@
 namespace {
 
 constexpr int kMaxSplits = 8;        // K6 point-tile runs per group
-constexpr int kMaxJacSplits = 64;    // K5 point-tile runs per group (no reduction)
+constexpr int kMaxJacSplits = 64;    // K5 tangent-body point-tile runs per group (no reduction)
 constexpr int kWChunkFloats = 4096;  // staged weight floats per chunk
 
-// Kernel bodies: keep in step with _MODES in ops/fused_derivatives.py.
+// Kernel bodies: keep in step with _MODES in ops/fused_derivatives.py
+// (kReverse runs in shapenet_fwd.cu; this source refuses it).
 enum Mode : int { kReverse = 0, kTangent = 1, kSobolev = 2 };
 
 struct Args {
@@ -101,178 +100,6 @@ struct Args {
   long long po, ldwb, resid_bytes;  // K6's wb' is f32 [G, ldwb]; resid_bytes per block
   int resid_in_smem;
 };
-
-// K5, reverse body. Per tile: the forward of K2, keeping the layer input H
-// (one buffer) and each activated layer's derivative D[m] rounded to T; y
-// from the last layer; then for each output j a dx-only sweep from du =
-// W_last[:, j] down to jac[:, j, :] = lift(du * D[0]) @ W0'^T.
-template <typename T, int RM, int RN>
-__global__ void __launch_bounds__(kThreads) jac_reverse_kernel(const Args a) {
-  constexpr int TP = RM * kWarps;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int n = a.n, si = a.si, so = a.so, n_mats = a.n_mats;
-  float* DZ = reinterpret_cast<float*>(smem_raw);  // [TP, n] lifted dz, f32
-  float* ws = DZ + TP * n;                          // [kc, n + 1] staged weights
-  T* X = reinterpret_cast<T*>(residuals(a, reinterpret_cast<unsigned char*>(ws + a.kc * (n + 1))));
-  T* H = X + TP * si;  // [TP, n] the current layer input
-  T* D = H + TP * n;   // [n_mats + 1][TP, n] activation derivatives
-  const size_t plane = (size_t)TP * n;
-
-  const int tc = threadIdx.x % kLanes;
-  const int warp = threadIdx.x / kLanes;
-  const int r0 = warp * RM;
-  const int S = gridDim.x, s = blockIdx.x;
-  const int n_tiles = (a.P + TP - 1) / TP;
-  const int t_begin = (int)((long long)s * n_tiles / S);
-  const int t_end = (int)((long long)(s + 1) * n_tiles / S);
-
-  const long long o_wh = (long long)si * n;
-  const long long o_wl = o_wh + (long long)n_mats * n * n;
-  const long long o_b0 = o_wl + (long long)n * so;
-  const long long o_bh = o_b0 + n;
-  const long long o_bl = o_bh + (long long)n_mats * n;
-
-  for (int g = blockIdx.y; g < a.G; g += gridDim.y) {
-    const T* wg = static_cast<const T*>(a.wb) + (long long)g * a.po;
-    const T* wl = wg + o_wl;
-    for (int tile = t_begin; tile < t_end; ++tile) {
-      const int p0 = tile * TP;
-      const int rows = min(TP, a.P - p0);
-      const long long row0 = (long long)g * a.P + p0;
-      __syncthreads();  // the previous tile has finished with every buffer
-      const T* xg = static_cast<const T*>(a.x) + row0 * si;
-      for (int idx = threadIdx.x; idx < TP * si; idx += kThreads)
-        X[idx] = idx < rows * si ? xg[idx] : from_f32<T>(0.f);
-
-      // ---- forward, saving D[m] and the current input H
-      float acc[RM][RN], u[RM][RN], bias[RN];
-      matmul_fwd<T, T, RM, RN>(X, si, si, TP, wg, n, ws, a.kc, r0, tc, acc);
-#pragma unroll
-      for (int j = 0; j < RN; ++j) {
-        const int c = tc + j * kLanes;
-        bias[j] = c < n ? to_f32(wg[o_b0 + c]) : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < RN; ++j) {
-          const int c = tc + j * kLanes;
-          float d, d2;
-          u[i][j] = act3(acc[i][j] + bias[j], a.act, &d, &d2);
-          if (c < n) {
-            D[(r0 + i) * n + c] = from_f32<T>(d);
-            H[(r0 + i) * n + c] = from_f32<T>(u[i][j]);
-          }
-        }
-      for (int m = 0; m < n_mats; ++m) {
-        // ends with a barrier: H may be overwritten below
-        matmul_fwd<T, T, RM, RN>(H, n, n, TP, wg + o_wh + (long long)m * n * n, n, ws, a.kc, r0,
-                                 tc, acc);
-#pragma unroll
-        for (int j = 0; j < RN; ++j) {
-          const int c = tc + j * kLanes;
-          bias[j] = c < n ? to_f32(wg[o_bh + (long long)m * n + c]) : 0.f;
-        }
-        T* Dm = D + (m + 1) * plane;
-#pragma unroll
-        for (int i = 0; i < RM; ++i)
-#pragma unroll
-          for (int j = 0; j < RN; ++j) {
-            const int c = tc + j * kLanes;
-            float d, d2;
-            const float y = act3(acc[i][j] + bias[j], a.act, &d, &d2);
-            float next;
-            if (a.chain == kSirenResblock && m % 2 == 0) {
-              next = y;  // h feeds the block's second matrix; u waits
-            } else if (a.chain == kSirenResblock) {
-              u[i][j] = 0.5f * (u[i][j] + y);
-              next = u[i][j];
-            } else if (a.chain == kVanilla) {
-              u[i][j] = y + u[i][j];
-              next = u[i][j];
-            } else {
-              u[i][j] = y;
-              next = y;
-            }
-            if (c < n) {
-              Dm[(r0 + i) * n + c] = from_f32<T>(d);
-              H[(r0 + i) * n + c] = from_f32<T>(next);
-            }
-          }
-      }
-      __syncthreads();  // H holds lift(u), the last layer's input
-
-      // ---- y = lift(u) @ W_last + b_last, one warp per (row, output)
-      T* yg = static_cast<T*>(a.y) + row0 * so;
-      for (int pr = warp; pr < rows * so; pr += kWarps) {
-        const int r = pr / so;
-        const int j = pr - r * so;
-        float sum = 0.f;
-        for (int k = tc; k < n; k += kLanes)
-          sum = fmaf(to_f32(H[r * n + k]), to_f32(wl[(long long)k * so + j]), sum);
-#pragma unroll
-        for (int off = kLanes / 2; off > 0; off >>= 1)
-          sum += __shfl_xor_sync(0xffffffffu, sum, off);
-        if (tc == 0) yg[pr] = from_f32<T>(sum + to_f32(wg[o_bl + j]));
-      }
-
-      // ---- one dx-only cotangent sweep per output
-      T* jg = static_cast<T*>(a.jac) + row0 * so * si;
-      for (int jo = 0; jo < so; ++jo) {
-        __syncthreads();  // the previous sweep has finished reading DZ
-        float du[RM][RN], dh[RM][RN];
-#pragma unroll
-        for (int i = 0; i < RM; ++i)
-#pragma unroll
-          for (int j = 0; j < RN; ++j) {
-            const int c = tc + j * kLanes;
-            du[i][j] = c < n ? to_f32(wl[(long long)c * so + jo]) : 0.f;
-            dh[i][j] = 0.f;
-          }
-        for (int m = n_mats - 1; m >= 0; --m) {
-          const T* Dm = D + (m + 1) * plane;
-          const bool res_second = a.chain == kSirenResblock && m % 2 == 1;
-          const bool res_first = a.chain == kSirenResblock && m % 2 == 0;
-          if (res_first) {
-            store_dz<T, RM, RN>(DZ, Dm, n, r0, tc, dh, 1.f);
-          } else {
-            store_dz<T, RM, RN>(DZ, Dm, n, r0, tc, du, res_second ? 0.5f : 1.f);
-          }
-          matmul_bwd<T, RM, RN>(DZ, n, wg + o_wh + (long long)m * n * n, n, TP, ws, a.kc, r0, tc,
-                                acc);
-#pragma unroll
-          for (int i = 0; i < RM; ++i)
-#pragma unroll
-            for (int j = 0; j < RN; ++j) {
-              if (res_second) {
-                dh[i][j] = acc[i][j];
-              } else if (res_first) {
-                du[i][j] = 0.5f * du[i][j] + acc[i][j];
-              } else if (a.chain == kVanilla) {
-                du[i][j] = du[i][j] + acc[i][j];
-              } else {
-                du[i][j] = acc[i][j];
-              }
-            }
-        }
-        store_dz<T, RM, RN>(DZ, D, n, r0, tc, du, 1.f);
-        __syncthreads();
-        // jac[r][jo][k] = dz0[r] . W0'[k], one warp per (row, input)
-        for (int pr = warp; pr < rows * si; pr += kWarps) {
-          const int r = pr / si;
-          const int k = pr - r * si;
-          float sum = 0.f;
-          for (int c = tc; c < n; c += kLanes)
-            sum = fmaf(DZ[r * n + c], to_f32(wg[(long long)k * n + c]), sum);
-#pragma unroll
-          for (int off = kLanes / 2; off > 0; off >>= 1)
-            sum += __shfl_xor_sync(0xffffffffu, sum, off);
-          if (tc == 0) jg[((long long)r * so + jo) * si + k] = from_f32<T>(sum);
-        }
-      }
-    }
-  }
-}
 
 // K5's tangent body (SOB = false) and K6 (SOB = true): the stacked forward;
 // then K5 writes y and jac, and K6 forms the two squared-error sums and runs
@@ -1247,33 +1074,27 @@ struct Geometry {
 };
 
 // Status of a shape: 0 = ok, 1 = too wide, 2 = the working buffers exceed a
-// block's shared memory, 3 = bad shape, 4 = the 1 + si stacked streams do
-// not fit the tile's rows.
+// block's shared memory, 3 = bad shape (the reverse body among them), 4 = the
+// 1 + si stacked streams do not fit the tile's rows.
 int geometry(int mode, int n, int si, int so, int n_mats, int chain, int G, int P, int elem,
              Geometry* g) {
-  if (n < 1 || si < 1 || so < 1 || n_mats < 0 || G < 1 || P < 1 || mode < 0 || mode > 2 ||
-      (chain == kSirenResblock && n_mats % 2))
+  if (n < 1 || si < 1 || so < 1 || n_mats < 0 || G < 1 || P < 1 || mode < kTangent ||
+      mode > kSobolev || (chain == kSirenResblock && n_mats % 2))
     return 3;
   const int rn = columns_per_thread(n);
   if (rn == 0) return 1;
   g->rn = rn;
   const int rows = rows_per_thread(rn) * kWarps;
   g->kc = kWChunkFloats / n > 1 ? kWChunkFloats / n : 1;
-  size_t work, resid;
-  if (mode == kReverse) {
-    g->tile = rows;
-    work = sizeof(float) * ((size_t)rows * n + (size_t)g->kc * (n + 1));
-    resid = (size_t)elem * ((size_t)rows * si + (size_t)(n_mats + 2) * rows * n);
-  } else {
-    const bool sob = mode == kSobolev;
-    g->tile = rows / (si + 1);
-    if (g->tile < 1) return 4;
-    const size_t tp = g->tile, tr = (size_t)(si + 1) * g->tile;
-    work = sizeof(float) * ((size_t)g->kc * (n + 1) + tr * n + tr * so +
-                            (sob ? tr * n + (chain == kSirenResblock ? tr * n : 0) + tp * n : 0));
-    resid = sizeof(float) * ((sob ? tp * n : 0) + (sob ? (size_t)n_mats : 1) * tr * n) +
-            (size_t)elem * (tp * si + (sob ? (size_t)n_mats + 1 : 2) * tr * n);
-  }
+  const bool sob = mode == kSobolev;
+  g->tile = rows / (si + 1);
+  if (g->tile < 1) return 4;
+  const size_t tp = g->tile, tr = (size_t)(si + 1) * g->tile;
+  size_t work = sizeof(float) * ((size_t)g->kc * (n + 1) + tr * n + tr * so +
+                                 (sob ? tr * n + (chain == kSirenResblock ? tr * n : 0) + tp * n
+                                      : 0));
+  size_t resid = sizeof(float) * ((sob ? tp * n : 0) + (sob ? (size_t)n_mats : 1) * tr * n) +
+                 (size_t)elem * (tp * si + (sob ? (size_t)n_mats + 1 : 2) * tr * n);
   work = (work + 15) / 16 * 16;
   resid = (resid + 15) / 16 * 16;
   const int n_tiles = (P + g->tile - 1) / g->tile;
@@ -1291,9 +1112,9 @@ int geometry(int mode, int n, int si, int so, int n_mats, int chain, int G, int 
 }
 
 template <typename T, int RN>
-int launch_jac(const Geometry& geo, Args a, int mode, cudaStream_t stream) {
+int launch_jac(const Geometry& geo, Args a, cudaStream_t stream) {
   constexpr int RM = rows_per_thread(RN);
-  auto kernel = mode == kReverse ? jac_reverse_kernel<T, RM, RN> : stacked_kernel<T, RM, RN, false>;
+  auto kernel = stacked_kernel<T, RM, RN, false>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)geo.smem);
   if (err != cudaSuccess) return (int)err;
@@ -1325,10 +1146,8 @@ Args prepared(Args a, const Geometry& g) {
 }
 
 template <typename T>
-int dispatch_jac(const Geometry& g, const Args& a, int mode, cudaStream_t s) {
-  return with_rn(g.rn, [&](auto rn) {
-    return launch_jac<T, decltype(rn)::value>(g, a, mode, s);
-  });
+int dispatch_jac(const Geometry& g, const Args& a, cudaStream_t s) {
+  return with_rn(g.rn, [&](auto rn) { return launch_jac<T, decltype(rn)::value>(g, a, s); });
 }
 
 template <typename T>
@@ -1345,7 +1164,8 @@ int dispatch_sobolev(const Geometry& g, const Args& a, void* d_wb, float* losses
 
 extern "C" {
 
-// The geometry of one body (mode 0 = K5 reverse, 1 = K5 tangent, 2 = K6) at
+// The geometry of one body (mode 1 = K5 tangent, 2 = K6; 0, K5's reverse
+// body, is shapenet_fwd.cu's and gets status 3) at
 // [G, P] (a status as geometry() returns; on 0, 2 and 4 the outputs are
 // written): points per tile, P splits per group, dynamic shared memory per
 // block, the f32 partials the caller allocates for K6 (G*S*po weight grads,
@@ -1379,16 +1199,16 @@ int nif_shapenet_jac_workspace(int mode, int n, int si, int so, int n_mats, int 
   return status;
 }
 
-// K5. dtype: 0 = float, 1 = bf16 (wb', x, y and jac share it). The body is
-// the reverse one when so < si. Returns the CUDA error of the launch (0 on
-// success); the kernel runs asynchronously on `stream`.
+// K5's tangent body (so >= si; so < si, the reverse body, is refused: it
+// runs in shapenet_fwd.cu). dtype: 0 = float, 1 = bf16 (wb', x, y and jac
+// share it). Returns the CUDA error of the launch (0 on success); the kernel
+// runs asynchronously on `stream`.
 int nif_shapenet_fwd_jac(const void* wb, const void* x, void* y, void* jac, void* scratch, int G,
                          int P, int si, int so, int n, int n_mats, int chain, int act,
                          long long po, int dtype, void* stream) {
-  const int mode = so < si ? kReverse : kTangent;
   Geometry g{};
-  if (dtype < 0 || dtype > 1 ||
-      geometry(mode, n, si, so, n_mats, chain, G, P, dtype == 0 ? 4 : 2, &g) != 0)
+  if (dtype < 0 || dtype > 1 || so < si ||
+      geometry(kTangent, n, si, so, n_mats, chain, G, P, dtype == 0 ? 4 : 2, &g) != 0)
     return (int)cudaErrorInvalidValue;
   Args a{};
   a.wb = wb;
@@ -1400,8 +1220,8 @@ int nif_shapenet_fwd_jac(const void* wb, const void* x, void* y, void* jac, void
   a.chain = chain; a.act = act; a.po = po;
   a = prepared(a, g);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_jac<float>(g, a, mode, s);
-  return dispatch_jac<__nv_bfloat16>(g, a, mode, s);
+  if (dtype == 0) return dispatch_jac<float>(g, a, s);
+  return dispatch_jac<__nv_bfloat16>(g, a, s);
 }
 
 // K6. wb' is f32 with row stride ldwb (a multiple of 4, >= po); dtype: 0 =

@@ -19,14 +19,15 @@ products Z stay f32; the reverse sweeps carry ``du`` in f32 and round each
 ``dz`` before its product; the targets are rounded to x's dtype; K5's
 outputs are cast to x's dtype; K6's bias gradients sum the unrounded ``dz``.
 
-On a CUDA tensor each entry launches its hand-written kernel
-(``nif_tpu_torch/csrc/shapenet_jac.cu``), or raises. K5 and K6 have two
-variants (:func:`k5_variant`, :func:`k6_variant`): bfloat16 runs the
-tensor-core kernel (K5's reverse body in ``csrc/shapenet_fwd_tc.cu`` beside
-the tensor-core K1, K6 in ``csrc/shapenet_jac_tc.cu``; variant ``"tc"``)
-wherever its geometry takes the shape, and the CUDA-core one
-(``csrc/shapenet_jac.cu``, variant ``"simt"``) otherwise (K5's tangent body
-among them) and for float32, whose f32 products never round to TF32. On a
+On a CUDA tensor each entry launches its hand-written kernel, or raises.
+K5 and K6 have two variants (:func:`k5_variant`, :func:`k6_variant`):
+bfloat16 runs the tensor-core kernel (K5's reverse body in
+``csrc/shapenet_fwd_tc.cu`` beside the tensor-core K1, K6 in
+``csrc/shapenet_jac_tc.cu``; variant ``"tc"``) wherever its geometry takes
+the shape, and the CUDA-core one (variant ``"simt"``) otherwise (K5's
+tangent body among them) and for float32, whose f32 products never round to
+TF32: K5's CUDA-core reverse body is ``csrc/shapenet_fwd.cu``'s, one body
+with the CUDA-core K1, its tangent body and K6 ``csrc/shapenet_jac.cu``'s. On a
 CPU tensor it runs the plain PyTorch version (``*_reference``), which the
 CPU tests hold against the JAX package's interpret-mode kernels and
 ``chip_smoke.py`` holds the CUDA kernels against. Nothing here falls
@@ -53,11 +54,14 @@ from .fused_shapenet import (
     _check_cuda_inputs,
     _fwd_tc_library,
     _flat_grads,
+    _library as _fwd_library,
     _forward_saved,
     _n_mats,
     _n_scaled,
     _prescale,
     _raise_on_error,
+    _simt_fwd_reason,
+    _simt_fwd_status,
     _simt_weights,
     _stack_tc_status,
     _unscale_grads,
@@ -82,7 +86,8 @@ __all__ = [
     "k6_variant",
 ]
 
-# Kernel bodies of csrc/shapenet_jac.cu (its enum Mode).
+# Kernel bodies of csrc/shapenet_jac.cu (its enum Mode; "reverse" runs in
+# csrc/shapenet_fwd.cu, and shapenet_jac.cu refuses it).
 _MODES = {"reverse": 0, "tangent": 1, "sobolev": 2}
 
 
@@ -135,13 +140,15 @@ def k5_variant(dtype: torch.dtype, cfg: Optional[ShapeNetConfig] = None, variant
                si: Optional[int] = None) -> str:
     """Which CUDA kernel K5 runs for inputs of ``dtype``: ``"tc"`` (the
     tensor-core reverse body, ``csrc/shapenet_fwd_tc.cu``) for bfloat16 and
-    ``"simt"`` (the CUDA-core kernel, ``csrc/shapenet_jac.cu``) for float32,
-    whose products stay full f32 (and for any other dtype, which the wrapper
-    refuses). Given a chain (``cfg``, ``variant``, ``si``), bfloat16 runs
-    the CUDA-core kernel for the tangent body (so >= si, decided without a
-    library) and where the tensor-core one does not take the shape (asking
-    its library, so it needs nvcc): a vanilla chain, si > 4, or a width
-    whose planes exceed a block's shared memory."""
+    ``"simt"`` (the CUDA-core kernels) for float32, whose products stay full
+    f32 (and for any other dtype, which the wrapper refuses). "simt" runs
+    the reverse body (so < si) in ``csrc/shapenet_fwd.cu``, one body with
+    the CUDA-core K1, and the tangent body (so >= si) in
+    ``csrc/shapenet_jac.cu``. Given a chain (``cfg``, ``variant``, ``si``),
+    bfloat16 runs the CUDA-core kernel for the tangent body (decided
+    without a library) and where the tensor-core one does not take the
+    shape (asking its library, so it needs nvcc): a vanilla chain, si > 4,
+    or a width whose planes exceed a block's shared memory."""
     if dtype != torch.bfloat16:
         return "simt"
     if cfg is None:
@@ -175,8 +182,11 @@ def _geometry_status(mode: str, cfg: ShapeNetConfig, variant: str, si: int, G: i
                      dtype: torch.dtype, kernel: Optional[str] = None):
     if mode == "sobolev" and (kernel or k6_variant(dtype, cfg, variant, si)) == "tc":
         return _tc_status(cfg, variant, si, G, P)
-    if mode == "reverse" and (kernel or k5_variant(dtype, cfg, variant, si)) == "tc":
-        return _k5_tc_status(cfg, variant, si, G, P)
+    if mode == "reverse":
+        if (kernel or k5_variant(dtype, cfg, variant, si)) == "tc":
+            status, geo = _k5_tc_status(cfg, variant, si, G, P)
+            return status, {**geo, "body": "tc"}
+        return _simt_fwd_status("reverse", cfg, variant, si, G, P, dtype)
     tile, splits = ctypes.c_int(), ctypes.c_int()
     smem, partial_floats, scratch = ctypes.c_longlong(), ctypes.c_longlong(), ctypes.c_longlong()
     status = _library().nif_shapenet_jac_workspace(
@@ -187,12 +197,16 @@ def _geometry_status(mode: str, cfg: ShapeNetConfig, variant: str, si: int, G: i
            "smem_bytes": smem.value, "residuals": "global" if scratch.value else "shared",
            "weights": "shared", "partial_floats": partial_floats.value,
            "scratch_bytes": scratch.value}
+    if mode == "tangent":  # the first port's stacked body
+        geo["body"] = "stacked"
     return status, geo
 
 
 def _status_reason(status: int, cfg: ShapeNetConfig, si: int, geo: dict) -> Optional[str]:
     if status == 0:
         return None
+    if geo.get("body") == "simt":
+        return _simt_fwd_reason(status, cfg, si, geo)
     if geo["kernel"] == "tc":
         what, planes = (("Jacobian", f"its planes of {geo['tile']} points")
                         if geo["mode"] == "reverse" else
@@ -220,11 +234,14 @@ def derivative_geometry(mode: str, cfg: ShapeNetConfig, variant: str, G: int, P:
     """The launch geometry of one body (``mode`` "reverse" or "tangent" for
     K5, "sobolev" for K6) at ``[G, P]`` in ``dtype``, from the library of
     the variant that runs it (it needs nvcc): K5's reverse body from
-    :func:`k5_variant`'s, its tangent body from ``csrc/shapenet_jac.cu``,
-    K6's from :func:`k6_variant`'s: the kernel, points per tile, P splits
-    per group, shared memory per block, whether a tile's residuals and the
-    staged weights sit in shared memory or in global memory, and the
-    workspace sizes the wrappers allocate."""
+    :func:`k5_variant`'s (``csrc/shapenet_fwd_tc.cu``, or
+    ``csrc/shapenet_fwd.cu`` for "simt"), its tangent body from
+    ``csrc/shapenet_jac.cu``, K6's from :func:`k6_variant`'s: the kernel and,
+    for K5, its body ("tc", "simt" or "stacked"), points per tile, P splits
+    per group (or, for the "simt" reverse body, the blocks of one wave over
+    every group's tiles), shared memory per block, whether a tile's
+    residuals and the staged weights sit in shared memory or in global
+    memory, and the workspace sizes the wrappers allocate."""
     return _geometry(mode, cfg, variant, G, P, dtype, si)
 
 
@@ -577,11 +594,27 @@ def _workspace(mode: str, cfg: ShapeNetConfig, variant: str, x: torch.Tensor,
     return partials, scratch
 
 
+def _k5_entry(kernel: str, mode: str):
+    """``(library, C entry)`` of K5's ``mode`` body on ``kernel``: "tc" the
+    tensor-core reverse body (``csrc/shapenet_fwd_tc.cu``); "simt" the
+    reverse body of ``csrc/shapenet_fwd.cu`` (beside the CUDA-core K1) or
+    the tangent body of ``csrc/shapenet_jac.cu``."""
+    if kernel == "tc":
+        lib = _fwd_tc_library()
+        return lib, lib.nif_shapenet_fwd_jac_tc
+    if mode == "reverse":
+        lib = _fwd_library()
+        return lib, lib.nif_shapenet_fwd_jac_rev
+    lib = _library()
+    return lib, lib.nif_shapenet_fwd_jac
+
+
 def _launch_k5(kernel: str, wb: torch.Tensor, x: torch.Tensor, cfg: ShapeNetConfig,
                variant: str):
     """K5 through the library of ``kernel`` ("tc": the tensor-core reverse
-    body; "simt": the CUDA-core kernel, either body), after the wrapper's
-    checks; counts the launch."""
+    body; "simt": the CUDA-core reverse or tangent body) and the body its
+    shape takes (:func:`_k5_entry`), after the wrapper's checks; counts the
+    launch."""
     si = x.shape[-1] if x.dim() == 3 else cfg.input_dim
     _check_cuda_inputs("shapenet_fwd_jac_cuda", wb, x, cfg, variant,
                        lambda c, v, P, d: fwd_jac_unsupported_reason(c, v, P, si, d, x.dtype,
@@ -598,8 +631,10 @@ def _launch_k5(kernel: str, wb: torch.Tensor, x: torch.Tensor, cfg: ShapeNetConf
     wbp = _prescale(wb, cfg, variant).contiguous()
     if kernel == "tc":  # rows padded to 16 bytes, so every group's W_m stages with cp.async
         wbp = torch.nn.functional.pad(wbp, (0, -wbp.shape[1] % 8))
+    elif mode == "reverse":  # f32, rows padded to 4 floats, as the CUDA-core K1 reads it
+        wbp = _simt_weights(wbp)
     x = x.contiguous()
-    lib = _fwd_tc_library() if kernel == "tc" else _library()
+    lib, entry = _k5_entry(kernel, mode)
     with torch.cuda.device(x.device):  # the geometry reads this device's SM count
         _, scratch = _workspace(mode, cfg, variant, x, kernel)
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -607,9 +642,11 @@ def _launch_k5(kernel: str, wb: torch.Tensor, x: torch.Tensor, cfg: ShapeNetConf
                 G, P, si, so, cfg.units, _n_mats(cfg), _chain_code(cfg, variant), act,
                 wb.shape[1])
         if kernel == "tc":
-            err = lib.nif_shapenet_fwd_jac_tc(*args, wbp.shape[1], stream)
+            err = entry(*args, wbp.shape[1], stream)
+        elif mode == "reverse":
+            err = entry(*args, wbp.shape[1], _DTYPE_CODES[x.dtype], stream)
         else:
-            err = lib.nif_shapenet_fwd_jac(*args, _DTYPE_CODES[x.dtype], stream)
+            err = entry(*args, _DTYPE_CODES[x.dtype], stream)
     _raise_on_error(lib, "shapenet_fwd_jac", err)
     _build.LAUNCHES["shapenet_fwd_jac"] += 1
     if kernel == "tc":

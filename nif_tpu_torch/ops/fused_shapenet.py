@@ -76,6 +76,7 @@ __all__ = [
     "fast_sin_grad2",
     "fast_sin_grad3",
     "kernel_geometry",
+    "k1_geometry",
     "k1_variant",
     "k2_geometry",
     "k2_variant",
@@ -253,18 +254,70 @@ def kernel_geometry(cfg: ShapeNetConfig, variant: str = "siren",
                           f"per block in the tensor-core K1 (two planes of {geo['tile']} "
                           f"points), more than a block may have")
         return None, f"the tensor-core K1 cannot take {cfg} (status {status})"
-    tile, smem = ctypes.c_int(), ctypes.c_longlong()
-    status = _library().nif_shapenet_fwd_geometry(
-        cfg.units, cfg.input_dim, ctypes.byref(tile), ctypes.byref(smem))
+    status, geo = _simt_fwd_status("forward", cfg, variant, cfg.input_dim, 1, 1,
+                                   dtype or torch.float32)
     if status == 0:
-        return tile.value, None
+        return geo["tile"], None
+    reason = _simt_fwd_reason(status, cfg, cfg.input_dim, geo)
+    if status in (1, 2):
+        return None, reason
+    raise ValueError(reason)
+
+
+def _simt_fwd_status(mode: str, cfg: ShapeNetConfig, variant: str, si: int, G: int, P: int,
+                     dtype: torch.dtype = torch.float32):
+    """``(status, geometry)`` of the CUDA-core forward body
+    (``csrc/shapenet_fwd.cu``) at ``[G, P]`` in ``dtype``: ``mode``
+    "forward" is K1, "reverse" K5's reverse body (so < si). The geometry
+    names the body ("simt"), points per tile, the blocks of its one wave
+    over every group's tiles and blocks per SM, shared memory per block, and
+    where the planes sit (bfloat16's always in the global scratch) with the
+    bytes of that scratch."""
+    lib = _library()
+    entry = (lib.nif_shapenet_fwd_geometry if mode == "forward"
+             else lib.nif_shapenet_fwd_jac_rev_workspace)
+    tile, blocks, per_sm = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    smem, scratch = ctypes.c_longlong(), ctypes.c_longlong()
+    status = entry(cfg.units, si, cfg.output_dim, _n_mats(cfg), _chain_code(cfg, variant), G, P,
+                   _DTYPE_CODES.get(dtype, 0), ctypes.byref(tile), ctypes.byref(blocks),
+                   ctypes.byref(per_sm), ctypes.byref(smem), ctypes.byref(scratch))
+    geo = {"mode": mode, "kernel": "simt", "body": "simt", "tile": tile.value,
+           "blocks": blocks.value, "blocks_per_sm": per_sm.value, "smem_bytes": smem.value,
+           "residuals": "global" if scratch.value else "shared", "weights": "shared",
+           "partial_floats": 0, "scratch_bytes": scratch.value}
+    return status, geo
+
+
+def _simt_fwd_reason(status: int, cfg: ShapeNetConfig, si: int, geo: dict) -> Optional[str]:
+    """Why the CUDA-core forward body cannot take a chain (None: it can)."""
+    if status == 0:
+        return None
     if status == 1:
-        return None, (f"units={cfg.units} is wider than the CUDA kernel takes (it "
-                      f"keeps a thread's columns of a layer in registers)")
+        return (f"units={cfg.units} is wider than the CUDA kernel takes (it "
+                f"keeps a thread's columns of a layer in registers)")
     if status == 2:
-        return None, (f"input_dim={cfg.input_dim} needs {smem.value} bytes of shared "
-                      f"memory per block, more than a block may have")
-    raise ValueError(f"the CUDA kernel cannot take {cfg} (geometry status {status})")
+        return (f"input_dim={si} needs {geo['smem_bytes']} bytes of shared "
+                f"memory per block, more than a block may have")
+    return f"the CUDA kernel cannot take {cfg} with si={si} (geometry status {status})"
+
+
+def k1_geometry(cfg: ShapeNetConfig, variant: str, G: int, P: int, dtype: torch.dtype,
+                kernel: Optional[str] = None) -> dict:
+    """The launch geometry of K1 at ``[G, P]`` in ``dtype`` on ``kernel`` or
+    the variant :func:`k1_variant` picks (it needs nvcc): the kernel and its
+    body ("tc" or "simt"), points per tile, shared memory per block, and the
+    workspace the wrapper allocates; the tensor-core K1's splits a group, the
+    CUDA-core one's blocks of one wave over every group's tiles."""
+    if (kernel or k1_variant(dtype, cfg, variant)) == "tc":
+        status, geo = _k1_tc_status(cfg, variant, G, P)
+        if status != 0:
+            raise ValueError(f"the tensor-core K1 cannot take {cfg} at G={G}, P={P} "
+                             f"(geometry status {status})")
+        return {**geo, "body": "tc"}
+    status, geo = _simt_fwd_status("forward", cfg, variant, cfg.input_dim, G, P, dtype)
+    if status != 0:
+        raise ValueError(_simt_fwd_reason(status, cfg, cfg.input_dim, geo))
+    return geo
 
 
 def fused_unsupported_reason(cfg: ShapeNetConfig, variant: str, P: int, device=None,
@@ -572,14 +625,18 @@ def shapenet_grouped_fused_reference(wb: torch.Tensor, x: torch.Tensor,
 
 
 def _library() -> ctypes.CDLL:
+    """The CUDA-core K1 and K5's CUDA-core reverse body
+    (``csrc/shapenet_fwd.cu``)."""
     lib = _build.load_library("shapenet_fwd")
-    fn = lib.nif_shapenet_fwd
-    if fn.argtypes is None:
-        c_int, ptr = ctypes.c_int, ctypes.c_void_p
-        fn.argtypes = [ptr, ptr, ptr] + [c_int] * 9 + [ctypes.c_longlong, c_int, ptr]
-        fn.restype = c_int
-        lib.nif_shapenet_fwd_geometry.argtypes = [c_int, c_int, ptr, ptr]
-        lib.nif_shapenet_fwd_geometry.restype = c_int
+    if lib.nif_shapenet_fwd.argtypes is None:
+        c_int, ptr, c_ll = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
+        for entry in (lib.nif_shapenet_fwd_geometry, lib.nif_shapenet_fwd_jac_rev_workspace):
+            entry.argtypes = [c_int] * 8 + [ptr] * 5
+            entry.restype = c_int
+        lib.nif_shapenet_fwd.argtypes = [ptr] * 4 + [c_int] * 8 + [c_ll, c_ll, c_int, ptr]
+        lib.nif_shapenet_fwd.restype = c_int
+        lib.nif_shapenet_fwd_jac_rev.argtypes = [ptr] * 5 + [c_int] * 8 + [c_ll, c_ll, c_int, ptr]
+        lib.nif_shapenet_fwd_jac_rev.restype = c_int
         lib.nif_cuda_error_string.argtypes = [c_int]
         lib.nif_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -794,24 +851,28 @@ def _launch_k1(tensor_cores: bool, wb: torch.Tensor, x: torch.Tensor, cfg: Shape
         if tensor_cores and x.dtype == torch.bfloat16:
             status, geo = _k1_tc_status(cfg, variant, G, P)
             geo = geo if status == 0 else None
+        tc = geo is not None
+        if not tc:
+            geo = k1_geometry(cfg, variant, G, P, x.dtype, kernel="simt")
         stream = torch.cuda.current_stream(x.device).cuda_stream
         shape = (G, P, si, cfg.output_dim, cfg.units, _n_mats(cfg))
         codes = (_chain_code(cfg, variant), _act_code(cfg, variant, x.dtype), wb.shape[1])
-        if geo is not None:  # rows padded to 16 bytes, so every group's W_m stages with cp.async
+        scratch = torch.empty(max(geo["scratch_bytes"], 1), dtype=torch.uint8, device=x.device)
+        if tc:  # rows padded to 16 bytes, so every group's W_m stages with cp.async
             wbp = F.pad(wbp, (0, -wbp.shape[1] % 8))
-            scratch = torch.empty(max(geo["scratch_bytes"], 1), dtype=torch.uint8,
-                                  device=x.device)
             lib = _fwd_tc_library()
             err = lib.nif_shapenet_fwd_tc(wbp.data_ptr(), x.data_ptr(), out.data_ptr(),
                                           scratch.data_ptr(), *shape, *codes, wbp.shape[1],
                                           stream)
         else:
+            wbp = _simt_weights(wbp)
             lib = _library()
-            err = lib.nif_shapenet_fwd(wbp.data_ptr(), x.data_ptr(), out.data_ptr(), *shape,
-                                       _n_mats(cfg), *codes, _DTYPE_CODES[x.dtype], stream)
+            err = lib.nif_shapenet_fwd(wbp.data_ptr(), x.data_ptr(), out.data_ptr(),
+                                       scratch.data_ptr(), *shape, *codes, wbp.shape[1],
+                                       _DTYPE_CODES[x.dtype], stream)
     _raise_on_error(lib, "shapenet_fwd", err)
     _build.LAUNCHES["shapenet_fwd"] += 1
-    if geo is not None:
+    if tc:
         _build.LAUNCHES["shapenet_fwd_tc"] += 1
     return out
 

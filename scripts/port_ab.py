@@ -2,11 +2,14 @@
 """Time kernels of this checkout against another checkout's on one CUDA
 card, in turns: the float32 K7 and K8 (the CUDA-core Hessian kernels,
 ``nif_tpu_torch/csrc/shapenet_hess.cu``), the float32 K6 (the CUDA-core
-Sobolev train pass, ``csrc/shapenet_jac.cu``) and the float32 K4 (the
-CUDA-core NIF-linear train pass, ``csrc/shapenet_linear.cu``) at the
-flagship shape.
+Sobolev train pass, ``csrc/shapenet_jac.cu``), the float32 K4 (the
+CUDA-core NIF-linear train pass, ``csrc/shapenet_linear.cu``), the float32
+K1 and K5's float32 reverse body (``csrc/shapenet_fwd.cu``) at the flagship
+shape, and the float32-policy calls that run the last two end to end.
 
-    python3 scripts/port_ab.py --other DIR [--kernel k4f32 k6f32 k7f32 k8f32] [--reps N]
+    python3 scripts/port_ab.py --other DIR [--kernel k1f32 k4f32 k5f32 k6f32 k7f32 k8f32
+                                            k5tan k5tanf32 apply_f32 predict_f32
+                                            jaceval_f32] [--reps N]
 
 ``DIR`` is the root of another checkout (for example a parent commit,
 unpacked with ``git archive`` under ``build/``). Each checkout's package
@@ -20,7 +23,17 @@ float32, with Jacobian and Hessian targets for K8 and its float32-policy
 weights (w_jac=0.1, w_hess=0.01), Jacobian targets for K6 (w_jac=0.1), and
 for K4 the flagship NIF-linear trunk (width 128, two hidden layers, a
 128-wide bottleneck, K=128, so=1) with a latent a, an output bias and value
-targets. Defaults to the four. Prints each turn's times, each kernel's
+targets; K1 and K5 on the chain alone, and K5's tangent body (``k5tan`` in
+bfloat16, ``k5tanf32``; ``csrc/shapenet_jac.cu``) on the same chain with
+so = 3. The end-to-end entries run the
+flagship model (``nif_tpu_torch.utils.bench``, random weights from seed 0)
+under the float32 policy at G=32 x P=32768: ``apply_f32`` one
+``apply_grouped`` on inputs on the card (mean of 20), ``predict_f32`` one
+``predict_grouped`` from host arrays (mean of 5), ``jaceval_f32`` one
+``GroupedTrainer.evaluate_sobolev`` with Jacobian targets (one K5 launch,
+mean of 3), each on the device clock (CUDA events) and, as ``*_host``, on
+the host clock around calls that each end in a synchronize. Defaults to
+the six kernels. Prints each turn's times, each kernel's
 mean over the two turns of each checkout with their ratio, the registers
 and spills ptxas reported for each build's instances, and the card's name
 and power limit. Nothing is asserted; the wrappers themselves raise on a
@@ -41,9 +54,67 @@ SHAPE = dict(input_dim=3, output_dim=1, units=128, nlayers=2, activation="sine",
              use_resblock=False, omega_0=30.0)
 
 
-# the libraries each kernel's turn builds
-LIBRARIES = {"k4f32": "shapenet_linear", "k6f32": "shapenet_jac", "k7f32": "shapenet_hess",
-             "k8f32": "shapenet_hess"}
+# the libraries each entry's turn builds (K5's reverse body moved from
+# shapenet_jac to shapenet_fwd, so both, for either checkout)
+LIBRARIES = {"k1f32": ("shapenet_fwd",), "k4f32": ("shapenet_linear",),
+             "k5f32": ("shapenet_fwd", "shapenet_jac"), "k6f32": ("shapenet_jac",),
+             "k7f32": ("shapenet_hess",), "k8f32": ("shapenet_hess",),
+             "apply_f32": ("shapenet_fwd",), "predict_f32": ("shapenet_fwd",),
+             "jaceval_f32": ("shapenet_fwd", "shapenet_jac"), "k5tan": ("shapenet_jac",),
+             "k5tanf32": ("shapenet_jac",)}
+KERNELS = ["k1f32", "k4f32", "k5f32", "k6f32", "k7f32", "k8f32"]
+END_TO_END = {"apply_f32": 20, "predict_f32": 5, "jaceval_f32": 3}  # calls a mean takes
+
+
+def _host_ms(torch, fn, reps: int) -> float:
+    """Mean host-clock ms of ``fn()`` over ``reps`` calls, each ending in a
+    synchronize, after one warm-up call."""
+    import time
+
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        total += time.perf_counter() - t0
+    return total / reps * 1e3
+
+
+def _end_to_end(torch, names):
+    """The float32-policy flagship model's calls of ``names``, as
+    ``{name: fn}``."""
+    import numpy as np
+
+    import nif_tpu_torch
+    from nif_tpu_torch.serving import predict_grouped
+    from nif_tpu_torch.training import GroupedTrainer
+    from nif_tpu_torch.utils.bench import FLAGSHIP_PNET, FLAGSHIP_SHAPE
+
+    model = nif_tpu_torch.NIFMultiScale(FLAGSHIP_SHAPE, FLAGSHIP_PNET, "float32", device="cuda",
+                                        seed=0)
+    rng = np.random.default_rng(SEED + 2)
+    t = rng.standard_normal((G, 4)).astype(np.float32)
+    x = rng.uniform(-1, 1, (G, P, 3)).astype(np.float32)
+    u = rng.standard_normal((G, P, 1)).astype(np.float32)
+    jt = rng.standard_normal((G, P, 1, 3)).astype(np.float32)
+    runs = {}
+    if "apply_f32" in names:
+        tc, xc = torch.from_numpy(t).cuda(), torch.from_numpy(x).cuda()
+
+        def apply():
+            with torch.inference_mode():
+                return model.apply_grouped(tc, xc)
+
+        runs["apply_f32"] = apply
+    if "predict_f32" in names:
+        runs["predict_f32"] = lambda: predict_grouped(model, t, x)
+    if "jaceval_f32" in names:
+        trainer = GroupedTrainer(model, lambda p: torch.optim.Adam(p, lr=1e-4), w_jac=0.1)
+        state = trainer.init(0)
+        runs["jaceval_f32"] = lambda: trainer.evaluate_sobolev(state, t, x, u, jt)
+    return runs
 
 
 def _inputs(torch, cfg):
@@ -89,13 +160,14 @@ def child(root: Path, kernels, reps: int, build_only: bool) -> int:
     from nif_tpu_torch.ops import fused_derivatives as fd
     from nif_tpu_torch.ops import fused_hessian as fh
     from nif_tpu_torch.ops import fused_linear as fl
+    from nif_tpu_torch.ops import fused_shapenet as fs
     from nif_tpu_torch.utils.bench import cuda_ms
 
     if not Path(_build.__file__).resolve().is_relative_to(root.resolve()):
         raise RuntimeError(f"imported {_build.__file__}, not the package under {root}")
     if build_only:
         ptxas = []
-        for name in sorted({LIBRARIES[k] for k in kernels}):
+        for name in sorted({lib for k in kernels for lib in LIBRARIES[k]}):
             _build.build(name)
             ptxas += [ln.strip() for ln in (_build.BUILD_LOGS.get(name) or "").splitlines()
                       if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
@@ -104,20 +176,32 @@ def child(root: Path, kernels, reps: int, build_only: bool) -> int:
     cfg = ShapeNetConfig(**SHAPE)
     wb, x, tgt, jt, ht = _inputs(torch, cfg)
     lcfg, ws, bs, a, bias, lx, ltgt = _linear_inputs(torch)
+    tcfg = ShapeNetConfig(**{**SHAPE, "output_dim": 3})
+    twb, tx = _inputs(torch, tcfg)[:2]
+    twb16, tx16 = twb.bfloat16(), tx.bfloat16()
     runs = {"k7f32": lambda: fh.shapenet_fwd_hess_cuda(wb, x, cfg, "siren"),
             "k8f32": lambda: fh.shapenet_hessian_grads_cuda(wb, x, tgt, jt, ht, cfg, "siren",
                                                             w_jac=0.1, w_hess=0.01),
             "k6f32": lambda: fd.shapenet_sobolev_grads_cuda(wb, x, tgt, jt, cfg, "siren",
                                                             w_jac=0.1),
-            "k4f32": lambda: fl.niflinear_mse_grads_cuda(ws, bs, a, bias, lx, ltgt, lcfg, 1)}
-    print(json.dumps({k: cuda_ms(runs[k], reps=reps, warmup=1) for k in kernels}))
+            "k4f32": lambda: fl.niflinear_mse_grads_cuda(ws, bs, a, bias, lx, ltgt, lcfg, 1),
+            "k1f32": lambda: fs.shapenet_fwd_cuda(wb, x, cfg, "siren"),
+            "k5f32": lambda: fd.shapenet_fwd_jac_cuda(wb, x, cfg, "siren"),
+            "k5tan": lambda: fd.shapenet_fwd_jac_cuda(twb16, tx16, tcfg, "siren"),
+            "k5tanf32": lambda: fd.shapenet_fwd_jac_cuda(twb, tx, tcfg, "siren")}
+    e2e = _end_to_end(torch, [k for k in kernels if k in END_TO_END])
+    out = {k: cuda_ms(runs[k], reps=reps, warmup=1) for k in kernels if k in runs}
+    for k, fn in e2e.items():
+        out[k] = cuda_ms(fn, reps=END_TO_END[k], warmup=1)
+        out[f"{k}_host"] = _host_ms(torch, fn, END_TO_END[k])
+    print(json.dumps(out))
     return 0
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", type=Path, required=True, help="the other checkout's root")
-    ap.add_argument("--kernel", nargs="+", choices=sorted(LIBRARIES), default=sorted(LIBRARIES))
+    ap.add_argument("--kernel", nargs="+", choices=sorted(LIBRARIES), default=KERNELS)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--child", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--build-only", action="store_true", help=argparse.SUPPRESS)
@@ -162,7 +246,7 @@ def main() -> int:
         times[label].append(ms)
         print(f"turn {label:5s}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items()),
               flush=True)
-    for k in args.kernel:
+    for k in times["this"][0]:
         mean = {label: sum(t[k] for t in times[label]) / 2 for label in roots}
         print(f"{k}: other {mean['other']:.4f} ms, this {mean['this']:.4f} ms, other / this "
               f"{mean['other'] / mean['this']:.3f} ({smi})")

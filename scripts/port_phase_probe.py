@@ -6,29 +6,33 @@ K4 (``csrc/shapenet_linear_tc.cu``), K6 (``csrc/shapenet_jac_tc.cu``), K7 or
 K8 (``csrc/shapenet_hess_tc.cu``), the float32 K2 or K3 on the CUDA cores
 (``csrc/shapenet_bwd.cu``), the float32 K7 or K8 on the CUDA cores
 (``csrc/shapenet_hess.cu``), the float32 K6 on the CUDA cores
-(``csrc/shapenet_jac.cu``) or the float32 K4 on the CUDA cores
-(``csrc/shapenet_linear.cu``).
+(``csrc/shapenet_jac.cu``), the float32 K4 on the CUDA cores
+(``csrc/shapenet_linear.cu``) or the float32 K1 or K5's float32 reverse
+body on the CUDA cores (one body, ``csrc/shapenet_fwd.cu``).
 
-    python3 scripts/port_phase_probe.py [--kernel k1|k2|k2f32|k3f32|k4|k4f32|k5|k6|k6f32|k7|
-                                                  k7f32|k8|k8f32]
+    python3 scripts/port_phase_probe.py [--kernel k1|k1f32|k2|k2f32|k3f32|k4|k4f32|k5|k5f32|k6|
+                                                  k6f32|k7|k7f32|k8|k8f32]
                                         [--ablate] [--one-block]
 
 Builds the kernel's source once more with ``-DK1_PHASE_CLOCKS``,
-``-DK2_PHASE_CLOCKS``, ``-DK2F_PHASE_CLOCKS`` (k2f32, k3f32), ``-DK8F_PHASE_CLOCKS``
+``-DK1F_PHASE_CLOCKS`` (k1f32, k5f32), ``-DK2_PHASE_CLOCKS``,
+``-DK2F_PHASE_CLOCKS`` (k2f32, k3f32), ``-DK8F_PHASE_CLOCKS``
 (k7f32, k8f32), ``-DK6F_PHASE_CLOCKS`` (k6f32), ``-DK4F_PHASE_CLOCKS`` (k4f32),
 ``-DK4_PHASE_CLOCKS``, ``-DK5_PHASE_CLOCKS``, ``-DK6_PHASE_CLOCKS``,
 ``-DK7_PHASE_CLOCKS`` or ``-DK8_PHASE_CLOCKS`` (into
 ``build/nif_tpu_torch/probe/``), in which thread 0 of every block adds the
 ``clock64()`` cycles between consecutive marks into phase counters (four
-for K1, K7 and the float32 K7, ten for the float32 K2, K3, K4, K6 and K8,
-eight for the others), and runs it
+for K1, K7, the float32 K1 and the float32 K7, seven for K5's float32
+reverse body, ten for the float32 K2, K3, K4, K6 and K8, eight for the
+others), and runs it
 through the usual wrapper at the kernel's flagship shape (G=32, P=32768,
 bf16, random weights from a seed: the NIF-linear trunk for K4, the flagship
 chain alone for K1, K5 and K7, with targets and point weights for K2, with
 Jacobian targets for K6, and with Jacobian and Hessian targets for K8;
 float32 for k2f32, with targets and point weights, k3f32, with an output
 cotangent, k7f32, k8f32, with Jacobian and Hessian targets, k6f32, with
-Jacobian targets, and k4f32, the NIF-linear trunk). Prints the
+Jacobian targets, k4f32, the NIF-linear trunk, and k1f32 and k5f32, the
+chain alone). Prints the
 kernel's time (CUDA events, the instrumented build beside the plain one)
 and each phase's share of the blocks' critical path; for the float32
 kernels also the plain build's ptxas lines and the device time of each
@@ -40,7 +44,9 @@ With ``--kernel k1 --one-block`` it also builds a variant of the source (a
 text edit of a copy, as the ablations are) with K1 on 128-point tiles at up
 to 255 registers a thread, one block per SM, in place of 64-point tiles at
 128 registers, two blocks per SM, and times it beside the source as it is,
-in turns (as built, one block, one block, as built).
+in turns (as built, one block, one block, as built); with ``--kernel k1f32
+--one-block`` likewise the float32 K1 at one block per SM (up to 255
+registers a thread) in place of two (up to 128).
 
 With ``--kernel k2|k6|k8 --ablate`` it also builds three variants of the
 kernel's source and its shared header ``stack_tc.cuh`` (text edits of a copy,
@@ -128,6 +134,18 @@ LINEAR_PHASES = [
     "the group's loss partial (and set-up)",
 ]
 
+# The phases of the float32 K1 and K5's float32 reverse body; K1 marks the
+# first four
+FWD_PHASES = [
+    "x tile (and the group's set-up)",
+    "forward products",
+    "forward epilogues",
+    "last layer (y)",
+    "sweep products",
+    "sweep epilogues",
+    "jac tail (dz0 @ W0'^T)",
+]
+
 # The longest counter array a C entry copies out (the kPhases of
 # shapenet_bwd.cu, shapenet_hess.cu, shapenet_jac.cu and shapenet_linear.cu)
 COUNTER_ROOM = 10
@@ -191,6 +209,8 @@ KERNELS = {
     "k7f32": ("shapenet_hess", "K8F_PHASE_CLOCKS", "nif_hess_phase_cycles", HESS_PHASES[:4]),
     "k6f32": ("shapenet_jac", "K6F_PHASE_CLOCKS", "nif_jac_phase_cycles", SOB_PHASES),
     "k4f32": ("shapenet_linear", "K4F_PHASE_CLOCKS", "nif_linear_phase_cycles", LINEAR_PHASES),
+    "k1f32": ("shapenet_fwd", "K1F_PHASE_CLOCKS", "nif_fwd_phase_cycles", FWD_PHASES[:4]),
+    "k5f32": ("shapenet_fwd", "K1F_PHASE_CLOCKS", "nif_fwd_phase_cycles", FWD_PHASES),
     "k8f32": ("shapenet_hess", "K8F_PHASE_CLOCKS", "nif_hess_phase_cycles", HESS_PHASES),
     "k8": ("shapenet_hess_tc", "K8_PHASE_CLOCKS", "nif_hess_tc_phase_cycles", [
         "x tile + first layer (all streams)",
@@ -240,12 +260,13 @@ ABLATIONS = {
         "        weight_grad_stack(Sm, Dp, ld, n, n16, TR, part + o_wh + (long long)m * n * n, first, l);",
         "")],
 }
-HEADERS = ("stack_tc.cuh", "mma_sm90.cuh", "shapenet_common.cuh")
+HEADERS = ("stack_simt.cuh", "stack_tc.cuh", "mma_sm90.cuh", "shapenet_common.cuh")
 
 
 def build_variant(name: str, label: str, edits) -> ctypes.CDLL:
     """``csrc/<name>.cu`` and its headers with ``edits`` applied (file None:
-    the source), built in a directory of their own."""
+    the source), built in a directory of their own (once: a directory that
+    holds the same texts and its library is reused)."""
     files = {f: (_build.CSRC / f).read_text() for f in (f"{name}.cu", *HEADERS)}
     for file, old, new in edits:
         file = file or f"{name}.cu"
@@ -254,6 +275,11 @@ def build_variant(name: str, label: str, edits) -> ctypes.CDLL:
         files[file] = files[file].replace(old, new)
     out = _build.BUILD_DIR / "probe" / "ablate" / label.replace(" ", "_")
     out.mkdir(parents=True, exist_ok=True)
+    lib = out / f"lib{name}.so"
+    if lib.exists() and all((out / f).exists() and (out / f).read_text() == text
+                            for f, text in files.items()):
+        return ctypes.CDLL(str(lib))
+    lib.unlink(missing_ok=True)
     for file, text in files.items():
         (out / file).write_text(text)
     proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out / f"lib{name}.so"),
@@ -296,23 +322,38 @@ def k5_case(G: int, P: int):
     return lambda: fd.shapenet_fwd_jac_cuda(wb, x, cfg, "siren"), geo
 
 
-# K1 on 128-point tiles, one block per SM: the edits of its two constants
-ONE_BLOCK = [(None, "constexpr int kFwdTp = 64; ", "constexpr int kFwdTp = 128;"),
-             (None, "constexpr int kFwdBlocksPerSm = 2;", "constexpr int kFwdBlocksPerSm = 1;")]
+# K1 at one block per SM: the tensor-core K1 on 128-point tiles (the edits
+# of its two constants), the float32 K1 on its own tiles at up to 255
+# registers a thread (the edit of its blocks-per-SM constant)
+ONE_BLOCK = {
+    "k1": ("shapenet_fwd_tc", [
+        (None, "constexpr int kFwdTp = 64; ", "constexpr int kFwdTp = 128;"),
+        (None, "constexpr int kFwdBlocksPerSm = 2;", "constexpr int kFwdBlocksPerSm = 1;")]),
+    "k1f32": ("shapenet_fwd", [
+        (None, "constexpr int kK1BlocksPerSm = 2;", "constexpr int kK1BlocksPerSm = 1;")]),
+}
 
 
-def one_block(run) -> None:
-    """K1 as built and on 128-point tiles at one block per SM, timed in turns."""
-    libs = {"as built": _build.load_library("shapenet_fwd_tc"),
-            "one block": build_variant("shapenet_fwd_tc", "k1 one block", ONE_BLOCK)}
+def one_block(kernel: str, run) -> None:
+    """K1 as built and at one block per SM, timed in turns."""
+    name, edits = ONE_BLOCK[kernel]
+    cfg = ShapeNetConfig.from_dict(FLAGSHIP_SHAPE)
+    libs = {"as built": _build.load_library(name),
+            "one block": build_variant(name, f"{kernel} one block", edits)}
     for label in ("as built", "one block", "one block", "as built"):
-        _build._LIBS["shapenet_fwd_tc"] = libs[label]
-        fs._fwd_tc_library()
-        geo = fs._k1_tc_status(ShapeNetConfig.from_dict(FLAGSHIP_SHAPE), "siren", 32, 32768)[1]
-        print(f"K1 {label:10s} ({geo['tile']}-point tiles, {geo['splits']} splits, "
+        _build._LIBS[name] = libs[label]
+        if kernel == "k1":
+            fs._fwd_tc_library()
+            geo = fs._k1_tc_status(cfg, "siren", 32, 32768)[1]
+            where = f"{geo['splits']} splits"
+        else:
+            fs._library()
+            geo = fs.k1_geometry(cfg, "siren", 32, 32768, torch.float32)
+            where = f"{geo['blocks']} blocks, {geo['blocks_per_sm']} an SM"
+        print(f"{kernel.upper()} {label:10s} ({geo['tile']}-point tiles, {where}, "
               f"{geo['smem_bytes']} bytes of shared memory): {cuda_ms(run, reps=20):.4f} ms",
               flush=True)
-    _build._LIBS["shapenet_fwd_tc"] = libs["as built"]
+    _build._LIBS[name] = libs["as built"]
 
 
 def k2_case(G: int, P: int):
@@ -384,6 +425,24 @@ def k4f32_case(G: int, P: int):
     return lambda: fl.niflinear_mse_grads_cuda(ws, bs, a, bias, x, tgt, cfg, so), geo
 
 
+def k1f32_case(G: int, P: int):
+    """The float32 K1's launcher and geometry at the flagship chain (as the
+    float32 policy's serving and evaluation run it)."""
+    cfg = ShapeNetConfig.from_dict(FLAGSHIP_SHAPE)
+    wb, x = chip_smoke.chain_data(torch, cfg, G, P, torch.float32, seed=214)
+    geo = fs.k1_geometry(cfg, "siren", G, P, torch.float32)
+    return lambda: fs.shapenet_fwd_cuda(wb, x, cfg, "siren"), geo
+
+
+def k5f32_case(G: int, P: int):
+    """K5's float32 reverse body's launcher and geometry at the flagship
+    chain (as the float32 policy's evaluate_sobolev runs it)."""
+    cfg = ShapeNetConfig.from_dict(FLAGSHIP_SHAPE)
+    wb, x = chip_smoke.chain_data(torch, cfg, G, P, torch.float32, seed=215)
+    geo = fd.derivative_geometry("reverse", cfg, "siren", G, P, torch.float32)
+    return lambda: fd.shapenet_fwd_jac_cuda(wb, x, cfg, "siren"), geo
+
+
 def device_split(run, reps: int) -> None:
     """Device time per kernel name over ``reps`` calls (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
@@ -440,12 +499,12 @@ def main() -> int:
     ap.add_argument("--ablate", action="store_true",
                     help="K2, K6 and K8 only: also time variants without parts of their dW")
     ap.add_argument("--one-block", action="store_true",
-                    help="K1 only: also time K1 on 128-point tiles, one block per SM")
+                    help="K1 only (k1, k1f32): also time K1 at one block per SM")
     args = ap.parse_args()
     if args.ablate and args.kernel not in ("k2", "k6", "k8"):
         ap.error("--ablate takes --kernel k2, k6 or k8")
-    if args.one_block and args.kernel != "k1":
-        ap.error("--one-block takes --kernel k1")
+    if args.one_block and args.kernel not in ONE_BLOCK:
+        ap.error("--one-block takes --kernel k1 or k1f32")
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 1
@@ -457,7 +516,7 @@ def main() -> int:
     cases = {"k1": k1_case, "k2": k2_case, "k2f32": k2f32_case, "k3f32": k3f32_case,
              "k4": k4_case, "k5": k5_case, "k6": k6_case, "k7": k7_case, "k8": k8_case,
              "k7f32": k7f32_case, "k8f32": k8f32_case, "k6f32": k6f32_case,
-             "k4f32": k4f32_case}
+             "k4f32": k4f32_case, "k1f32": k1f32_case, "k5f32": k5f32_case}
     run, geo = cases[args.kernel](G, P)
     reps = 3 if args.kernel in ("k8", "k7f32", "k8f32", "k6f32") else 10
     plain_build_ms = cuda_ms(run, reps=reps, warmup=1)
@@ -468,8 +527,10 @@ def main() -> int:
                 "k6": lambda: fd._library("tc"), "k7": lambda: fh._library("tc"),
                 "k8": lambda: fh._library("tc"), "k7f32": lambda: fh._library("simt"),
                 "k8f32": lambda: fh._library("simt"), "k6f32": lambda: fd._library("simt"),
-                "k4f32": lambda: fl._library("simt")}[args.kernel]
-    simt = name in ("shapenet_bwd", "shapenet_hess", "shapenet_jac", "shapenet_linear")
+                "k4f32": lambda: fl._library("simt"), "k1f32": fs._library,
+                "k5f32": fs._library}[args.kernel]
+    simt = name in ("shapenet_bwd", "shapenet_hess", "shapenet_jac", "shapenet_linear",
+                    "shapenet_fwd")
     if simt:
         for line in _build.BUILD_LOGS.get(name, "").splitlines():
             if "registers" in line or "spill" in line:
@@ -478,7 +539,7 @@ def main() -> int:
     if args.ablate:
         ablate(name, argtypes, run)
     if args.one_block:
-        one_block(run)
+        one_block(args.kernel, run)
     probe = build_probe(name, define, entry)
     _build._LIBS[name] = probe  # the wrapper now launches the probe build
     argtypes()

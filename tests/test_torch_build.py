@@ -54,13 +54,18 @@ def test_port_sources_include_what_they_use():
     assert {p.name for p in _build._sources("shapenet_linear")} == {
         "shapenet_linear.cu", "stack_simt.cuh", "stack_tc.cuh", "mma_sm90.cuh",
         "shapenet_common.cuh"}
-    assert "mma_sm90.cuh" not in {p.name for p in _build._sources("shapenet_fwd")}
+    # the CUDA-core K1 and K5 reverse body reach them only through it too
+    assert {p.name for p in _build._sources("shapenet_fwd")} == {
+        "shapenet_fwd.cu", "stack_simt.cuh", "stack_tc.cuh", "mma_sm90.cuh",
+        "shapenet_common.cuh"}
 
 
-# The sources that include the f32 tile header: the CUDA-core K2/K3 body,
-# the CUDA-core K7/K8 body, the CUDA-core K5/K6 source (K6's body for si <= 4)
-# and the CUDA-core K4 body.
-SIMT_USERS = {"shapenet_bwd", "shapenet_hess", "shapenet_jac", "shapenet_linear"}
+# The sources that include the f32 tile header: the CUDA-core K1 and K5
+# reverse body, the CUDA-core K2/K3 body, the CUDA-core K7/K8 body, the
+# CUDA-core K5 tangent body / K6 source (K6's body for si <= 4) and the
+# CUDA-core K4 body.
+SIMT_USERS = {"shapenet_fwd", "shapenet_bwd", "shapenet_hess", "shapenet_jac",
+              "shapenet_linear"}
 
 # Each tensor-core header and the sources that include it, directly or not:
 # the tensor-core sources, and the CUDA-core bodies on the f32 tile header
@@ -135,28 +140,31 @@ def test_k2_tensor_core_sources():
 def test_k1_k5_tensor_core_sources():
     """The tensor-core K1 and K5's tensor-core reverse body build into one
     library against the same headers as the other tensor-core kernels; the
-    CUDA-core K1 library includes no tensor-core header, the CUDA-core K5
-    library only through the f32 tile header (K6's body beside K5's), both
-    keep their entries, and the new library defines every entry its wrapper
-    loads."""
+    CUDA-core K1 and K5 reverse body (one body) reach the tensor-core headers
+    only through the f32 tile header (their bf16 sine), as the CUDA-core K5
+    tangent body / K6 library does; each library defines every entry its
+    wrapper loads, the reverse body's beside K1's."""
     names = {p.name for p in _build._sources("shapenet_fwd_tc")}
     assert names == {"shapenet_fwd_tc.cu", "stack_tc.cuh", "mma_sm90.cuh",
                      "shapenet_common.cuh"}
-    assert not TC_HEADERS & {p.name for p in _build._sources("shapenet_fwd")}
+    assert {p.name for p in _build._sources("shapenet_fwd")} == {
+        "shapenet_fwd.cu", "stack_simt.cuh", "stack_tc.cuh", "mma_sm90.cuh",
+        "shapenet_common.cuh"}
     assert "stack_simt.cuh" in {p.name for p in _build._sources("shapenet_jac")}
     assert {"nif_shapenet_fwd_tc_workspace", "nif_shapenet_fwd_tc",
             "nif_shapenet_fwd_jac_tc_workspace", "nif_shapenet_fwd_jac_tc"} <= _entries(
                 "shapenet_fwd_tc")
-    assert {"nif_shapenet_fwd", "nif_shapenet_fwd_geometry"} <= _entries("shapenet_fwd")
+    assert {"nif_shapenet_fwd", "nif_shapenet_fwd_geometry", "nif_shapenet_fwd_jac_rev",
+            "nif_shapenet_fwd_jac_rev_workspace"} <= _entries("shapenet_fwd")
     assert {"nif_shapenet_fwd_jac", "nif_shapenet_jac_workspace"} <= _entries("shapenet_jac")
 
 
 def test_k2_k3_cuda_core_sources():
     """The CUDA-core K2/K3 body builds against the f32 tile header, the
     shared one and stack_tc.cuh (one bf16 sine for every fused kernel on
-    Hopper, with what it includes); the f32 tile header has four users, the
-    K2/K3, K7/K8, K5/K6 and K4 libraries, so an edit to it rebuilds those
-    alone; each defines the entries its wrapper loads."""
+    Hopper, with what it includes); the f32 tile header has five users, the
+    K1/K5-reverse, K2/K3, K7/K8, K5-tangent/K6 and K4 libraries, so an edit to
+    it rebuilds those alone; each defines the entries its wrapper loads."""
     names = {p.name for p in _build._sources("shapenet_bwd")}
     assert names == {"shapenet_bwd.cu", "stack_simt.cuh", "stack_tc.cuh", "mma_sm90.cuh",
                      "shapenet_common.cuh"}
@@ -174,8 +182,8 @@ def test_k2_k3_cuda_core_sources():
 
 def test_simt_header_edit_renames_only_the_k2_k3_library(tmp_path, monkeypatch):
     """On a copy of the port's sources: editing the f32 tile header renames
-    the libraries of its users, the CUDA-core K2/K3, K7/K8, K5/K6 and K4
-    sources, and no other."""
+    the libraries of its users, the CUDA-core K1/K5-reverse, K2/K3, K7/K8,
+    K5-tangent/K6 and K4 sources, and no other."""
     for path in _build.CSRC.iterdir():
         (tmp_path / path.name).write_bytes(path.read_bytes())
     monkeypatch.setattr(_build, "CSRC", tmp_path)
@@ -189,9 +197,10 @@ def test_simt_header_edit_renames_only_the_k2_k3_library(tmp_path, monkeypatch):
 def test_phase_probe_reads_every_counter_array():
     """The phase probe's counter buffer holds the longest array a probe
     build's C entry copies out, so no read runs past it; and each kernel the
-    probe splits (the float32 K4, K6 and K7/K8 bodies' among them) names a source that
-    builds its counter array under the probe's define, defines the entry
-    the probe reads, and counts at least the phases the probe prints."""
+    probe splits (the float32 K1/K5-reverse, K4, K6 and K7/K8 bodies' among
+    them) names a source that builds its counter array under the probe's
+    define, defines the entry the probe reads, and counts at least the
+    phases the probe prints."""
     path = _build.CSRC.parents[1] / "scripts" / "port_phase_probe.py"
     probe = path.read_text()
     room = int(re.search(r"^COUNTER_ROOM = (\d+)$", probe, re.MULTILINE).group(1))
@@ -201,7 +210,8 @@ def test_phase_probe_reads_every_counter_array():
     spec = importlib.util.spec_from_file_location("port_phase_probe", path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    assert {"k2f32", "k3f32", "k4f32", "k6f32", "k7f32", "k8f32"} <= set(module.KERNELS)
+    assert {"k1f32", "k2f32", "k3f32", "k4f32", "k5f32", "k6f32", "k7f32",
+            "k8f32"} <= set(module.KERNELS)
     for kernel, (name, define, entry, phases) in module.KERNELS.items():
         source = (_build.CSRC / f"{name}.cu").read_text()
         block = source[source.index(f"#ifdef {define}"):]

@@ -126,12 +126,13 @@ def test_k1_refuses_what_it_cannot_take(card):
 
 
 def test_launch_shapes(card):
-    """The kernel's library owns its launch geometry: points per block by
-    width, and the widths it refuses."""
+    """The kernel's library owns its launch geometry: points per tile by
+    width (stack_simt.cuh's layouts: 128-point tiles up to width 64), and the
+    widths it refuses."""
     mk = lambda n, si=3: ShapeNetConfig(si, 1, n, 2, "sine")  # noqa: E731
     assert fs.kernel_geometry(mk(128)) == (64, None)
     assert fs.kernel_geometry(mk(256)) == (32, None)
-    assert fs.kernel_geometry(mk(16)) == (64, None)
+    assert fs.kernel_geometry(mk(16)) == (128, None)
     assert fs.kernel_geometry(mk(1024)) == (8, None)
     for n in (8, 30, 100, 500):
         assert fs.kernel_geometry(mk(n))[1] is None
@@ -446,8 +447,10 @@ def test_derivative_geometry(card):
     CUDA-core kernel, its residuals in the global scratch. The reverse K5
     body in bf16 takes the tensor-core kernel: 128-point tiles, its planes
     and both W in shared memory, one wave of SMs / G splits; the CUDA-core
-    reverse body (float32's) takes K2's 64-point tile, and splits P to give
-    about two blocks per SM of this card (8 to 64 splits a group). f32 K6
+    reverse body (float32's, shapenet_fwd.cu's, one body with the CUDA-core
+    K1) takes K2's 64-point tile, its four planes in shared memory (bf16's
+    in the global scratch), and one wave of one block per SM over every
+    group's tiles. f32 K6
     takes the CUDA-core body on the f32 tile machinery: 16-point tiles (64
     stacked rows), its planes in shared memory, one wave of SMs / G splits
     per group; at width 1024 its planes go to the global scratch; si > 4
@@ -476,9 +479,12 @@ def test_derivative_geometry(card):
         assert rev["splits"] == min(256, max(1, sms // G))
         for dtype in (torch.float32, torch.bfloat16):
             rev = fd._geometry("reverse", cfg, "siren", G, 32768, dtype, kernel="simt")
-            assert rev["kernel"] == "simt"
-            assert rev["tile"] == 64
-            assert rev["splits"] == min(512, max(8, min(64, (2 * sms + G - 1) // G)))
+            assert (rev["kernel"], rev["body"]) == ("simt", "simt")
+            # bf16 (the shapes the tensor-core K5 refuses) keeps its planes
+            # in the global scratch
+            planes = "shared" if dtype == torch.float32 else "global"
+            assert (rev["tile"], rev["residuals"], rev["blocks_per_sm"]) == (64, planes, 1)
+            assert rev["blocks"] == min(sms, G * 512)
     assert fd.derivative_geometry("reverse", cfg, "siren", 4, 32768,
                                   torch.float32)["kernel"] == "simt"
     assert "streams" in fd.sobolev_fused_unsupported_reason(
@@ -1789,3 +1795,146 @@ def test_simt_k4_float32_flagship_is_deterministic(card):
     assert tuple(runs[0][3].shape) == (32, 128)
     for p, q in zip(flat(runs[0]), flat(runs[1])):
         assert bool(torch.isfinite(p).all()) and torch.equal(p, q)
+
+
+# The CUDA-core K1 and K5's CUDA-core reverse body (one body, shapenet_fwd.cu)
+# in float32 over the shapes they take: widths 24, 40, 128, 256 and 1024 (the
+# five register tiles of stack_simt.cuh), si 1-7 (x tiles of round4(si)
+# columns), so 1-3 (so < si for K5), plain, resblock and vanilla chains;
+# W_last, the biases and W0' in shared memory or read from global memory, and
+# (K5 at width 1024 with four hidden matrices) the planes in the global
+# scratch. (ShapeNetConfig args, variant, where K5's planes sit.)
+SIMT_K1_F32 = [
+    ((1, 1, 24, 2, "sine", False, 30.0), "siren"),
+    ((2, 3, 40, 2, "sine", True, 10.0), "siren"),
+    ((3, 1, 128, 2, "sine", False, 30.0), "siren"),
+    ((4, 2, 256, 2, "sine", True, 30.0), "siren"),
+    ((7, 1, 1024, 1, "sine", False, 30.0), "siren"),
+    ((5, 2, 40, 2, "swish"), "vanilla"),
+    ((6, 3, 256, 1, "tanh"), "vanilla"),
+]
+SIMT_K5_F32 = [
+    ((2, 1, 24, 2, "sine", False, 30.0), "siren", "shared"),
+    ((3, 2, 40, 2, "sine", True, 10.0), "siren", "shared"),
+    ((3, 1, 128, 2, "sine", False, 30.0), "siren", "shared"),
+    ((4, 3, 256, 2, "sine", True, 30.0), "siren", "shared"),
+    ((7, 2, 1024, 2, "sine", True, 30.0), "siren", "global"),
+    ((5, 2, 40, 2, "swish"), "vanilla", "shared"),
+    ((6, 3, 128, 1, "relu"), "vanilla", "shared"),
+]
+
+
+def _simt_bound(mine, ref):
+    """float32: max|d| <= 2e-4 max|plain| + 1e-5 (the K1/K5 bound)."""
+    err, scale = _max_diff(mine, ref)
+    assert bool(torch.isfinite(mine.float()).all()) and err <= 2e-4 * scale + 1e-5, (err, scale)
+
+
+@pytest.mark.parametrize("P", [200, 256])
+@pytest.mark.parametrize("args,variant", SIMT_K1_F32,
+                         ids=["n24-si1", "n40-res-si2-so3", "n128", "n256-res-si4",
+                              "n1024-si7", "van-n40-si5", "van-n256-si6-so3"])
+def test_simt_k1_float32_shapes(card, args, variant, P):
+    """The float32 K1 on the CUDA-core body at P = 200 (a ragged last tile)
+    and 256 over three groups: one launch, the geometry's body "simt", within
+    2e-4 max|plain| + 1e-5 of plain K1."""
+    cfg = ShapeNetConfig(*args)
+    geo = fs.k1_geometry(cfg, variant, 3, P, torch.float32)
+    assert (geo["kernel"], geo["body"]) == ("simt", "simt")
+    wb, x = _data(cfg, 3, P, torch.float32, seed=60)
+    before = dict(_build.LAUNCHES)
+    out = fs.shapenet_fwd_cuda(wb, x, cfg, variant)
+    assert _build.LAUNCHES["shapenet_fwd"] == before["shapenet_fwd"] + 1
+    assert _build.LAUNCHES["shapenet_fwd_tc"] == before["shapenet_fwd_tc"]
+    assert out.dtype == torch.float32 and out.shape == (3, P, cfg.output_dim)
+    _simt_bound(out, fs.shapenet_grouped_fused_reference(wb, x, cfg, variant))
+
+
+@pytest.mark.parametrize("P", [200, 256])
+@pytest.mark.parametrize("args,variant,residuals", SIMT_K5_F32,
+                         ids=["n24-si2", "n40-res-si3-so2", "n128", "n256-res-si4-so3",
+                              "n1024-res-si7-so2", "van-n40-si5-so2", "van-n128-si6-so3"])
+def test_simt_k5_reverse_float32_shapes(card, args, variant, residuals, P):
+    """K5's float32 reverse body (so < si) on the CUDA-core body at P = 200
+    and 256: one launch, the geometry's body "simt" with its planes where
+    expected, y and jac within 2e-4 max|plain| + 1e-5 of plain K5."""
+    cfg = ShapeNetConfig(*args)
+    assert fd._jac_mode(cfg, cfg.input_dim) == "reverse"
+    geo = fd.derivative_geometry("reverse", cfg, variant, 3, P, torch.float32)
+    assert (geo["kernel"], geo["body"], geo["residuals"]) == ("simt", "simt", residuals)
+    wb, x = _data(cfg, 3, P, torch.float32, seed=61)
+    before = dict(_build.LAUNCHES)
+    y, jac = fd.shapenet_fwd_jac_cuda(wb, x, cfg, variant)
+    assert _build.LAUNCHES["shapenet_fwd_jac"] == before["shapenet_fwd_jac"] + 1
+    assert _build.LAUNCHES["shapenet_fwd_jac_tc"] == before["shapenet_fwd_jac_tc"]
+    assert jac.shape == (3, P, cfg.output_dim, cfg.input_dim)
+    y_ref, jac_ref = fd.shapenet_fwd_jac_reference(wb, x, cfg, variant)
+    _simt_bound(y, y_ref)
+    _simt_bound(jac, jac_ref)
+
+
+# bf16 shapes the tensor-core K1 and K5 refuse, on the CUDA-core body: a
+# vanilla chain, si > 4, K1 above width 800, K5 above 208.
+SIMT_BF16 = [
+    ("k1", "vanilla", (2, 1, 64, 2, "sigmoid")),
+    ("k1", "siren", (6, 2, 128, 2, "sine", True, 30.0)),
+    ("k1", "siren", (3, 1, 1024, 1, "sine", False, 30.0)),
+    ("k5", "vanilla", (3, 2, 64, 2, "swish")),
+    ("k5", "siren", (6, 2, 128, 2, "sine", True, 30.0)),
+    ("k5", "siren", (3, 1, 256, 2, "sine", False, 30.0)),
+]
+
+
+@pytest.mark.parametrize("kernel,variant,args", SIMT_BF16,
+                         ids=["k1-vanilla", "k1-si6-res", "k1-n1024", "k5-vanilla",
+                              "k5-si6-res", "k5-n256"])
+def test_simt_k1_k5_bf16_shapes_the_tensor_core_kernels_refuse(card, kernel, variant, args):
+    """bf16 chains the tensor-core K1 or K5 refuses run on the CUDA-core body
+    (geometry body "simt", one launch, no tensor-core launch), within 2^-6
+    of max|plain| (the bf16 bound)."""
+    cfg = ShapeNetConfig(*args)
+    wb, x = _data(cfg, 2, 200, torch.bfloat16, seed=62)
+    before = dict(_build.LAUNCHES)
+    if kernel == "k1":
+        assert fs.k1_variant(torch.bfloat16, cfg, variant) == "simt"
+        assert fs.k1_geometry(cfg, variant, 2, 200, torch.bfloat16)["body"] == "simt"
+        out = fs.shapenet_fwd_cuda(wb, x, cfg, variant)
+        assert _build.LAUNCHES["shapenet_fwd"] == before["shapenet_fwd"] + 1
+        assert _build.LAUNCHES["shapenet_fwd_tc"] == before["shapenet_fwd_tc"]
+        pairs = [(out, fs.shapenet_grouped_fused_reference(wb, x, cfg, variant))]
+    else:
+        assert fd.k5_variant(torch.bfloat16, cfg, variant) == "simt"
+        geo = fd.derivative_geometry("reverse", cfg, variant, 2, 200, torch.bfloat16)
+        assert geo["body"] == "simt"
+        outs = fd.shapenet_fwd_jac_cuda(wb, x, cfg, variant)
+        assert _build.LAUNCHES["shapenet_fwd_jac"] == before["shapenet_fwd_jac"] + 1
+        assert _build.LAUNCHES["shapenet_fwd_jac_tc"] == before["shapenet_fwd_jac_tc"]
+        pairs = list(zip(outs, fd.shapenet_fwd_jac_reference(wb, x, cfg, variant)))
+    for mine, ref in pairs:
+        assert mine.dtype == torch.bfloat16 and bool(torch.isfinite(mine.float()).all())
+        _close_rel(mine, ref, torch.bfloat16)
+
+
+def test_simt_k1_k5_float32_flagship_is_deterministic(card):
+    """The float32 K1 and K5 reverse body at the flagship chain (G=8,
+    P=32768): two runs of each give the same bits (per-point outputs, fixed
+    row sums), one launch each of the CUDA-core body, within the float32
+    bound of their plain versions."""
+    cfg = ShapeNetConfig(3, 1, 128, 2, "sine", False, 30.0)
+    wb, x = _data(cfg, 8, 32768, torch.float32, seed=63)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    k1 = fs.k1_geometry(cfg, "siren", 8, 32768, torch.float32)
+    assert (k1["body"], k1["tile"], k1["blocks_per_sm"], k1["blocks"]) == ("simt", 64, 2, 2 * sms)
+    before = dict(_build.LAUNCHES)
+    outs = [fs.shapenet_fwd_cuda(wb, x, cfg, "siren") for _ in range(2)]
+    jacs = [fd.shapenet_fwd_jac_cuda(wb, x, cfg, "siren") for _ in range(2)]
+    assert _build.LAUNCHES["shapenet_fwd"] == before["shapenet_fwd"] + 2
+    assert _build.LAUNCHES["shapenet_fwd_jac"] == before["shapenet_fwd_jac"] + 2
+    assert _build.LAUNCHES["shapenet_fwd_tc"] == before["shapenet_fwd_tc"]
+    assert _build.LAUNCHES["shapenet_fwd_jac_tc"] == before["shapenet_fwd_jac_tc"]
+    assert torch.equal(outs[0], outs[1])
+    assert torch.equal(jacs[0][0], jacs[1][0]) and torch.equal(jacs[0][1], jacs[1][1])
+    _simt_bound(outs[0], fs.shapenet_grouped_fused_reference(wb, x, cfg, "siren"))
+    y_ref, jac_ref = fd.shapenet_fwd_jac_reference(wb, x, cfg, "siren")
+    _simt_bound(jacs[0][0], y_ref)
+    _simt_bound(jacs[0][1], jac_ref)

@@ -177,6 +177,39 @@ def test_bindings_match_the_c_signatures(name, monkeypatch):
         assert fn.restype is ctypes.c_int, entry
 
 
+@pytest.mark.parametrize("args,dtype,library,entry", [
+    (SIREN, torch.float32, "shapenet_fwd", "nif_shapenet_fwd_jac_rev"),
+    (RESBLOCK, torch.float32, "shapenet_jac", "nif_shapenet_fwd_jac"),
+    ((1, 3, 16, 2, "sine", False, 30.0), torch.bfloat16, "shapenet_jac", "nif_shapenet_fwd_jac"),
+], ids=["f32-reverse", "f32-tangent", "bf16-tangent"])
+def test_k5_cuda_core_bodies_launch_from_their_libraries(args, dtype, library, entry,
+                                                          monkeypatch):
+    """K5 on the CUDA cores: the reverse body (so < si) launches the
+    ``shapenet_fwd`` library's reverse entry, one body with the CUDA-core
+    K1; the tangent body (so >= si) ``shapenet_jac``'s entry. Stub
+    libraries stand in for the built ones, and each loads only its own."""
+    libs = {name: _FakeLibrary() for name in ("shapenet_fwd", "shapenet_jac", "shapenet_fwd_tc")}
+    monkeypatch.setattr(_build, "load_library", lambda name: libs[name])
+    cfg = ShapeNetConfig(*args)
+    kernel = fd.k5_variant(dtype, cfg, "siren")
+    assert kernel == "simt"
+    lib, fn = fd._k5_entry(kernel, fd._jac_mode(cfg, cfg.input_dim))
+    assert lib is libs[library] and fn is getattr(libs[library], entry)
+    assert fn.argtypes is not None and fn.restype is ctypes.c_int
+    others = set(libs) - {library}
+    assert not any(vars(libs[name]) for name in others), "another library was bound"
+
+
+def test_k5_tensor_core_body_launches_from_the_tensor_core_library(monkeypatch):
+    """The tensor-core K5 reverse body launches ``shapenet_fwd_tc``'s entry,
+    whatever the mode the CUDA-core kernels would take."""
+    libs = {name: _FakeLibrary() for name in ("shapenet_fwd", "shapenet_jac", "shapenet_fwd_tc")}
+    monkeypatch.setattr(_build, "load_library", lambda name: libs[name])
+    lib, fn = fd._k5_entry("tc", "reverse")
+    assert lib is libs["shapenet_fwd_tc"] and fn is libs["shapenet_fwd_tc"].nif_shapenet_fwd_jac_tc
+    assert not vars(libs["shapenet_fwd"]) and not vars(libs["shapenet_jac"])
+
+
 @pytest.mark.parametrize("policy,dtype", [("float32", torch.float32),
                                           ("mixed_bfloat16", torch.bfloat16)],
                          ids=["f32", "bf16"])
