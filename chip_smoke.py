@@ -69,17 +69,25 @@ Phases of the Sobolev slice:
 
 2d. Hold K5 (the fused Jacobian) against plain K5 over the same configs and
    one more with so >= si (the forward-tangent body), in float32 and
-   bfloat16: the reverse body (so < si) of bfloat16 sine chains through the
-   tensor-core kernel (``shapenet_fwd_tc.cu``), the rest through the
-   CUDA-core ones (the reverse body of ``shapenet_fwd.cu``, beside the
-   CUDA-core K1, and the tangent body of ``shapenet_jac.cu``), each checked
-   by its launch counter and its geometry's ``body``; the tensor-core
-   reverse body also on ``JAC_REV_TC`` (si = 3 with so = 2 on a resblock
-   chain, si = 4 at width 16, widths 40 and 192; P = 200); the CUDA-core
-   reverse body on ``SIMT_FWD_EXTRA`` (2-3 sweeps) in both dtypes; at the
-   flagship shape in bfloat16 the tensor-core kernel and the CUDA-core one
-   on the same inputs, and the CUDA-core one in float32 (G=32); two flagship
-   runs in each dtype must give bitwise-equal results.
+   bfloat16: bfloat16 sine chains through the tensor-core kernels (the
+   reverse body, so < si, of ``shapenet_fwd_tc.cu``; the tangent body,
+   so >= si, of ``shapenet_jac_tc.cu``, K6's forward half), the rest
+   through the CUDA-core ones (the reverse body of ``shapenet_fwd.cu``,
+   beside the CUDA-core K1, and the tangent body of ``shapenet_jac.cu``,
+   the CUDA-core K6's forward half, or at si > 4 the first port's
+   "stacked" body), each checked by its launch counter and its geometry's
+   ``body``; the tangent body also on ``TANGENT_EXTRA`` (tutorial 8's
+   1 -> 1 chain of width 30, si = so = 2 on a resblock chain, si = so = 4
+   at widths 16 and 192, a vanilla chain, which bf16 runs on the CUDA-core
+   body, and si = so = 5 on the stacked body; P = 200) in both dtypes; the
+   tensor-core reverse body also on ``JAC_REV_TC`` (si = 3 with so = 2 on a
+   resblock chain, si = 4 at width 16, widths 40 and 192; P = 200); the
+   CUDA-core reverse body on ``SIMT_FWD_EXTRA`` (2-3 sweeps) in both
+   dtypes; at the flagship shape, and at si = so = 3 of the flagship widths
+   (the tangent body's timed shape), in bfloat16 the tensor-core kernel and
+   the CUDA-core one on the same inputs, and the CUDA-core one in float32
+   (G=32); two runs at each of the two shapes in each dtype must give
+   bitwise-equal results.
 2e. Hold K6 (the fused Sobolev train pass) against plain K6 over the same
    configs, weighted or not, with value and Jacobian masks on the
    multi-output configs: bfloat16 sine chains through the tensor-core
@@ -100,13 +108,27 @@ Phases of the Sobolev slice:
    ``evaluate_sobolev`` (one tensor-core K5 launch per chunk; under the
    float32 policy one CUDA-core K5 launch per chunk, its geometry's body
    "simt").
+3f. Evaluate tutorial 8's model (``examples/08_sobolev_training.py``:
+   SIREN 1 -> 1, width 30, two hidden layers, omega_0 = 30; random weights
+   from a seed) through ``GroupedTrainer.evaluate_sobolev`` with Jacobian
+   targets at G=32, P=32768: under the bfloat16 policy one launch of the
+   tensor-core tangent body for the one chunk and nothing else, under
+   float32 one launch of the CUDA-core one; each model's grouped ``(y,
+   jac)`` against plain K5. Then tutorial 3's NIF-linear model
+   (``examples/03_multi_scale_linear_nif.py``), whose effective chain is
+   si = so = 2: ``output_and_jacobian_grouped`` at G=8, P=4096 in both
+   policies through the kernel ``k5_variant`` picks, against plain K5.
 4c. Time the flagship Sobolev step, the bfloat16 tensor-core K5 and K6, the
    CUDA-core K5 and K6 on the same bfloat16 inputs and in float32, with
    their plain versions, and compute their bounds on this card; the float32
    policy's Jacobian ``evaluate_sobolev`` at G=32, P=32768 from host arrays
    (one launch of the CUDA-core K5), mean of 3 on the device clock and on
-   the host clock; and K5's tangent body (the CUDA-core kernel) at the
-   flagship widths with so = 3, in both dtypes.
+   the host clock; K5's tangent body at si = so = 3 of the flagship widths
+   (G=32, P=32768): bfloat16 on the tensor cores, the CUDA-core body on the
+   same inputs, float32 on the CUDA cores, with plain versions and bounds;
+   and tutorial 8's ``evaluate_sobolev`` under both policies, mean of 5 on
+   the device clock and on the host clock, beside the tangent body alone on
+   its weights and coordinates.
 
 Phases of the Hessian slice:
 
@@ -227,6 +249,35 @@ CASES = [
 # K5 takes its forward-tangent body where so >= si; of CASES only the
 # so=si ones do, so one more SIREN config with so > si.
 JAC_EXTRA = [("siren", (2, 3, 64, 2, "sine", False, 30.0))]
+# K5's tangent body (so >= si) beyond CASES + JAC_EXTRA: tutorial 8's chain
+# (1 -> 1, width 30; examples/08_sobolev_training.py), si = so = 2 on a
+# resblock chain, si = so = 4 at widths 16 and 192, a vanilla chain (bf16:
+# the CUDA-core body) and si = so = 5 (the stacked body in both dtypes);
+# each run at P = 200 (a ragged last tile). (variant, args, bf16 body)
+TANGENT_EXTRA = [
+    ("siren", (1, 1, 30, 2, "sine", False, 30.0), "tc"),
+    ("siren", (2, 2, 64, 2, "sine", True, 10.0), "tc"),
+    ("siren", (4, 4, 16, 2, "sine", False, 30.0), "tc"),
+    ("siren", (4, 4, 192, 1, "sine", False, 30.0), "tc"),
+    ("vanilla", (2, 3, 48, 2, "swish"), "simt"),
+    ("siren", (5, 5, 32, 1, "sine", False, 30.0), "stacked"),
+]
+# The tangent body's timed shape (PERF.md's K5 tangent rows): si = so = 3 at
+# the flagship widths.
+TANGENT_SHAPE = (3, 3, 128, 2, "sine", False, 30.0)
+# Tutorial 8's model (examples/08_sobolev_training.py, _CFG_S and _CFG_P).
+TUTORIAL8_S = {"connectivity": "full", "input_dim": 1, "output_dim": 1, "units": 30,
+               "nlayers": 2, "weight_init_factor": 0.01, "omega_0": 30.0,
+               "activation": "sine", "use_resblock": False}
+TUTORIAL8_P = {"input_dim": 1, "latent_dim": 1, "units": 30, "nlayers": 2,
+               "activation": "swish", "use_resblock": False, "omega_0": 30.0}
+# Tutorial 3's NIF-linear model (examples/03_multi_scale_linear_nif.py): its
+# effective chain for the derivative kernels is si = so = 2, width 30.
+TUTORIAL3_S = {"connectivity": "last_layer", "input_dim": 2, "output_dim": 2, "units": 30,
+               "nlayers": 2, "weight_init_factor": 0.01, "omega_0": 30.0,
+               "activation": "sine", "use_resblock": False}
+TUTORIAL3_P = {"input_dim": 1, "latent_dim": 10, "units": 30, "nlayers": 2,
+               "activation": "swish", "use_resblock": False, "omega_0": 30.0}
 # The Hessian kernels (K7, K8) take sine chains only.
 HESS_CASES = [c for c in CASES if c[0] == "siren"] + JAC_EXTRA
 # f32 operations of one bf16 sine with act' and act'' from one range
@@ -378,7 +429,7 @@ def check_k1(torch, cfg, variant, G, P, dtype, seed, simt=False) -> float:
 
 def describe_geometry(geo) -> str:
     """A K1 or K5 geometry in a few words: its body, tiles and grid."""
-    grid = (f"{geo['blocks']} blocks ({geo['blocks_per_sm']} an SM)" if geo["body"] == "simt"
+    grid = (f"{geo['blocks']} blocks ({geo['blocks_per_sm']} an SM)" if "blocks" in geo
             else f"{geo['splits']} splits")
     return (f"{geo['body']} body, {geo['tile']}-point tiles, {grid}, planes in "
             f"{geo['residuals']} memory, {geo['smem_bytes']} B of shared memory")
@@ -460,10 +511,13 @@ def check_k3(torch, cfg, variant, G, P, dtype, seed, f32_bound=5e-6) -> float:
     return err
 
 
-def check_k5(torch, cfg, variant, G, P, dtype, seed, simt=False) -> float:
+def check_k5(torch, cfg, variant, G, P, dtype, seed, simt=False, body=None) -> float:
     """K5 vs plain K5 on y and jac; returns the larger max|d| of the two.
     The launch must take the kernel ``k5_variant`` picks (``simt``: the
-    CUDA-core kernel on the same inputs, through its private launcher).
+    CUDA-core kernel on the same inputs, through its private launcher) and
+    the body its geometry names: ``body`` where given, else the kernel's
+    ("tc", or "simt"; the tangent body on the CUDA cores at si > 4, the
+    first port's "stacked" one).
 
     float32: max|d| <= 2e-4 max|plain| + 1e-5 (K1's bound; both sum in f32
     in other orders); bfloat16: BF16_REL of max|plain| (the sweeps round
@@ -477,9 +531,8 @@ def check_k5(torch, cfg, variant, G, P, dtype, seed, simt=False) -> float:
     kernel = "simt" if simt else k5_variant(dtype, cfg, variant)
     mode = "reverse" if cfg.output_dim < cfg.input_dim else "tangent"
     geo = _geometry(mode, cfg, variant, G, P, dtype, kernel=kernel)
-    # the reverse body's kernel names its body; the tangent body is the
-    # first port's stacked one
-    body = kernel if mode == "reverse" else "stacked"
+    if body is None:
+        body = "stacked" if kernel == "simt" and mode == "tangent" and cfg.input_dim > 4 else kernel
     before = dict(_build.LAUNCHES)
     y, jac = (_shapenet_fwd_jac_simt if simt else shapenet_fwd_jac_cuda)(wb, x, cfg, variant)
     y_ref, jac_ref = shapenet_fwd_jac_reference(wb, x, cfg, variant)
@@ -489,7 +542,7 @@ def check_k5(torch, cfg, variant, G, P, dtype, seed, simt=False) -> float:
             or _build.LAUNCHES["shapenet_fwd_jac_tc"]
             != before["shapenet_fwd_jac_tc"] + int(kernel == "tc") or geo["body"] != body):
         raise AssertionError(f"{what}: launched {_build.LAUNCHES} after {before}, not one "
-                             f"{kernel} K5 (geometry {geo})")
+                             f"{kernel} K5 on the {body} body (geometry {geo})")
     if y.dtype != dtype or jac.shape != (G, P, cfg.output_dim, cfg.input_dim):
         raise AssertionError(f"{what}: y {y.dtype}, jac {jac.shape}/{jac.dtype}")
     worst, rels = 0.0, []
@@ -500,10 +553,8 @@ def check_k5(torch, cfg, variant, G, P, dtype, seed, simt=False) -> float:
             raise AssertionError(f"{what}: {name} max|d| {err} > {bound}")
         worst = max(worst, err)
         rels.append(f"{name} {err / max(scale, 1e-30):.2e}")
-    where = (describe_geometry(geo) if mode == "reverse" else
-             f"stacked body, {geo['tile']}-point tiles, residuals in {geo['residuals']} memory, "
-             f"{geo['splits']} splits")
-    log(f"{what} y/jac agree; max|d| of max|plain|: {', '.join(rels)}; {kernel} kernel, {where}")
+    log(f"{what} y/jac agree; max|d| of max|plain|: {', '.join(rels)}; {kernel} kernel, "
+        f"{describe_geometry(geo)}")
     return worst
 
 
@@ -1007,6 +1058,17 @@ def build_all(names):
     return secs
 
 
+def tutorial8_data(G, P, seed):
+    """Host arrays of tutorial 8's shapes: parameters t [G, 1], coordinates
+    x [G, P, 1] in [-1, 1], values u [G, P, 1] and Jacobian targets
+    [G, P, 1, 1] of a traveling wave u = sin(pi (x - t))."""
+    rng = np.random.default_rng(seed)
+    t = rng.uniform(0, 1, (G, 1)).astype(np.float32)
+    x = rng.uniform(-1, 1, (G, P, 1)).astype(np.float32)
+    a = np.pi * (x - t[:, None, :])
+    return t, x, np.sin(a).astype(np.float32), (np.pi * np.cos(a))[..., None].astype(np.float32)
+
+
 def traveling_wave(G, P, seed):
     """A smooth field u = sin(pi (x0 - t/2)) cos(pi x1 / 2) on x in [-1, 1]^3
     at G times t in [0, 1] (t is the first of the 4 parameters)."""
@@ -1160,6 +1222,7 @@ def main() -> int:
         shapenet_bwd_cuda,
         shapenet_fused_bwd_reference, shapenet_fwd_cuda, shapenet_grouped_fused_reference,
         shapenet_mse_grads_cuda, shapenet_mse_grads_reference)
+    from nif_tpu_torch.ops.derivatives import output_and_jacobian_grouped
     from nif_tpu_torch.ops.shapenet import shapenet_grouped
     from nif_tpu_torch.serving import predict_grouped, predict_shared_mesh
     from nif_tpu_torch.training import GroupedTrainer
@@ -1357,23 +1420,38 @@ def main() -> int:
             raise AssertionError(f"the tensor-core K5 takes {cfg}, not the CUDA-core body")
         for dtype in (torch.float32, torch.bfloat16):
             check_k5(torch, cfg, variant, 3, 200, dtype, seed=200 + i)
+    # the tangent body (so >= si) beyond CASES + JAC_EXTRA: f32 on K6's
+    # forward half (si <= 4), bf16 on the body TANGENT_EXTRA names, si = 5 on
+    # the stacked body in both dtypes
+    for i, (variant, args, bf16_body) in enumerate(TANGENT_EXTRA):
+        cfg = ShapeNetConfig(*args)
+        for dtype in (torch.float32, torch.bfloat16):
+            body = bf16_body if dtype == torch.bfloat16 else None
+            check_k5(torch, cfg, variant, 3, 200, dtype, seed=220 + i, body=body)
     k5_err = check_k5(torch, flag_cfg, "siren", 32, 32768, torch.bfloat16, seed=30)
     check_k5(torch, flag_cfg, "siren", 32, 32768, torch.bfloat16, seed=30, simt=True)
     k5f_err = check_k5(torch, flag_cfg, "siren", 32, 32768, torch.float32, seed=31)
-    for dtype, tc in ((torch.bfloat16, 2), (torch.float32, 0)):
-        wb, x = chain_data(torch, flag_cfg, 32, 32768, dtype, seed=32)
-        before = dict(_build.LAUNCHES)
-        runs = [shapenet_fwd_jac_cuda(wb, x, flag_cfg, "siren") for _ in range(2)]
-        kernel = "tensor-core" if tc else "CUDA-core"
-        if (_build.LAUNCHES["shapenet_fwd_jac_tc"] != before["shapenet_fwd_jac_tc"] + tc
-                or _build.LAUNCHES["shapenet_fwd_jac"] != before["shapenet_fwd_jac"] + 2):
-            raise AssertionError(f"the flagship {dtype} K5 runs did not take the {kernel} K5")
-        if not all(torch.equal(a, b) for a, b in zip(*runs)):
-            raise AssertionError(f"K5 ({dtype}) is not deterministic: two runs on one input "
-                                 f"differ")
-        log(f"K5 flagship {dtype} (G=32, P=32768, the {kernel} reverse body): two runs give "
-            f"bitwise-equal y and jac")
-        del wb, x, runs
+    # the tangent body at its timed shape (si = so = 3, G=32, P=32768)
+    tan_cfg = ShapeNetConfig(*TANGENT_SHAPE)
+    k5t_err = check_k5(torch, tan_cfg, "siren", 32, 32768, torch.bfloat16, seed=33)
+    check_k5(torch, tan_cfg, "siren", 32, 32768, torch.bfloat16, seed=33, simt=True)
+    k5tf_err = check_k5(torch, tan_cfg, "siren", 32, 32768, torch.float32, seed=34)
+    for cfg, body in ((flag_cfg, "reverse"), (tan_cfg, "tangent")):
+        for dtype, tc in ((torch.bfloat16, 2), (torch.float32, 0)):
+            wb, x = chain_data(torch, cfg, 32, 32768, dtype, seed=32)
+            before = dict(_build.LAUNCHES)
+            runs = [shapenet_fwd_jac_cuda(wb, x, cfg, "siren") for _ in range(2)]
+            kernel = "tensor-core" if tc else "CUDA-core"
+            if (_build.LAUNCHES["shapenet_fwd_jac_tc"] != before["shapenet_fwd_jac_tc"] + tc
+                    or _build.LAUNCHES["shapenet_fwd_jac"] != before["shapenet_fwd_jac"] + 2):
+                raise AssertionError(f"the {dtype} K5 runs at {cfg} did not take the {kernel} "
+                                     f"K5")
+            if not all(torch.equal(a, b) for a, b in zip(*runs)):
+                raise AssertionError(f"K5 ({body}, {dtype}) is not deterministic: two runs on "
+                                     f"one input differ")
+            log(f"K5 {describe(cfg, 'siren', 32, 32768, dtype)} (the {kernel} {body} body): "
+                f"two runs give bitwise-equal y and jac")
+            del wb, x, runs
 
     # ---- phase 2e: K6 against its plain version, and its determinism
     for i, (variant, args) in enumerate(CASES):
@@ -2040,6 +2118,76 @@ def main() -> int:
             or not all(np.isfinite(v) for v in lafter.values())):
         raise AssertionError(f"NIF-linear evaluate_sobolev launched {leval_launches}")
 
+    # ---- phase 3f: the Jacobian evaluation of tutorial 8's model (si = so = 1,
+    # width 30, random weights from a seed) at G=32, P=32768 under both
+    # policies: one launch of K5's tangent body per chunk (one chunk), the
+    # tensor-core body in bf16 and none of the other bodies, K6's forward half
+    # on the CUDA cores in float32; then tutorial 3's NIF-linear model, whose
+    # effective chain (si = so = 2) takes the body k5_variant picks
+    t8_host = tutorial8_data(G, P, seed=60)
+    t8 = {}
+    for policy, dtype in ((FLAGSHIP_POLICY, torch.bfloat16), ("float32", torch.float32)):
+        t8_model = nif_tpu_torch.NIFMultiScale(TUTORIAL8_S, TUTORIAL8_P, policy, device="cuda",
+                                               seed=0)
+        t8_trainer = GroupedTrainer(t8_model, lambda p: torch.optim.Adam(p, lr=1e-4))
+        t8_state = t8_trainer.init(0)
+        t8_geo = derivative_geometry("tangent", t8_model.cfg_shape_net, "siren", G, P, dtype)
+        _build.reset_launches()
+        t8_out = t8_trainer.evaluate_sobolev(t8_state, *t8_host)
+        t8_launches = dict(_build.LAUNCHES)
+        tc = int(dtype == torch.bfloat16)
+        body = "tc" if tc else "simt"
+        log(f"tutorial 8 evaluate_sobolev, {policy} (G={G} P={P}, one chunk): {t8_out}; "
+            f"launches {t8_launches}; {describe_geometry(t8_geo)}")
+        if (t8_launches["shapenet_fwd_jac"] != 1 or t8_launches["shapenet_fwd_jac_tc"] != tc
+                or sum(t8_launches.values()) != 1 + tc or t8_geo["body"] != body
+                or not all(np.isfinite(v) for v in t8_out.values())):
+            raise AssertionError(f"tutorial 8's {policy} Jacobian evaluation launched "
+                                 f"{t8_launches} on {t8_geo}, not one {body} tangent body")
+        tt8, tx8 = (torch.as_tensor(a, device="cuda") for a in t8_host[:2])
+        with torch.inference_mode():
+            y8, jac8 = output_and_jacobian_grouped(t8_model, tt8, tx8)
+            y8_ref, jac8_ref = shapenet_fwd_jac_reference(
+                t8_model._derivative_weights(tt8), t8_model._compute(tx8), t8_model.cfg_shape_net,
+                "siren")
+        for what, out, ref in (("y", y8, y8_ref), ("jac", jac8, jac8_ref)):
+            err, scale = max_diff(torch, out, ref, f"tutorial 8 {policy} {what}")
+            bound = 2e-4 * scale + 1e-5 if dtype == torch.float32 else BF16_REL * scale
+            log(f"tutorial 8 {policy} grouped {what} against plain K5: max|d| {err:.3e} "
+                f"({err / max(scale, 1e-30):.2e} of max|plain|)")
+            if err > bound:
+                raise AssertionError(f"tutorial 8's {policy} {what} departs from plain K5")
+        t8[dtype] = (t8_trainer, t8_state, t8_launches, t8_geo)
+        del tt8, tx8, y8, jac8, y8_ref, jac8_ref
+    for policy, dtype in ((FLAGSHIP_POLICY, torch.bfloat16), ("float32", torch.float32)):
+        t3_model = nif_tpu_torch.NIFMultiScaleLastLayerParameterized(
+            TUTORIAL3_S, TUTORIAL3_P, policy, device="cuda", seed=0)
+        rng = np.random.default_rng(61)
+        tt3 = torch.as_tensor(rng.uniform(0, 1, (8, 1)).astype(np.float32), device="cuda")
+        tx3 = torch.as_tensor(rng.uniform(-1, 1, (8, 4096, 2)).astype(np.float32),
+                              device="cuda")
+        cfg3 = t3_model._derivative_kernel_cfg()[0]
+        kernel = k5_variant(dtype, cfg3, "siren", 2)
+        _build.reset_launches()
+        with torch.inference_mode():
+            y3, jac3 = output_and_jacobian_grouped(t3_model, tt3, tx3)
+            t3_launches = dict(_build.LAUNCHES)
+            y3_ref, jac3_ref = shapenet_fwd_jac_reference(
+                t3_model._derivative_weights(tt3), t3_model._compute(tx3), cfg3, "siren")
+        errs = [max_diff(torch, out, ref, f"tutorial 3 {policy}")
+                for out, ref in ((y3, y3_ref), (jac3, jac3_ref))]
+        rel = BF16_REL if dtype == torch.bfloat16 else 2e-4
+        log(f"tutorial 3 (NIF-linear, effective chain si=so=2 n=30) output_and_jacobian_grouped, "
+            f"{policy}, G=8 P=4096: the {kernel} K5 ({t3_launches}); y, jac max|d| of max|plain| "
+            f"{', '.join(f'{e / max(sc, 1e-30):.2e}' for e, sc in errs)}")
+        if (t3_launches["shapenet_fwd_jac"] != 1
+                or t3_launches["shapenet_fwd_jac_tc"] != int(kernel == "tc")
+                or any(e > rel * sc + (1e-5 if dtype == torch.float32 else 0.0)
+                       for e, sc in errs)):
+            raise AssertionError(f"tutorial 3's {policy} Jacobian launched {t3_launches} or "
+                                 f"departs from plain K5")
+        del t3_model, tt3, tx3, y3, jac3, y3_ref, jac3_ref
+
     # ---- phase 4: K1 times at the flagship shape (bf16, as served; the
     # CUDA-core K1 on the same inputs and in float32)
     G, P = requests[0]
@@ -2236,22 +2384,43 @@ def main() -> int:
     jeval_ms = cuda_ms(jeval, reps=3, warmup=0)
     jeval_host_ms = host_ms(torch, jeval, reps=3)
     del sf32_trainer, sf32_state, sf32_box, eval_host
-    # K5's tangent body (so >= si; the CUDA-core kernel in both dtypes) at the
-    # flagship widths with so = 3
-    tan_cfg = ShapeNetConfig(3, 3, 128, 2, "sine", False, 30.0)
+    # K5's tangent body (so >= si) at si = so = 3, the flagship widths: bf16 on
+    # the tensor cores, beside the CUDA-core body on the same inputs, and f32
+    # on the CUDA-core body (K6's forward half)
     wb, x = chain_data(torch, tan_cfg, G, P, torch.bfloat16, seed=53)
     before = dict(_build.LAUNCHES)
-    k5t_ms = cuda_ms(lambda: shapenet_fwd_jac_cuda(wb, x, tan_cfg, "siren"), reps=5, warmup=1)
-    if (_build.LAUNCHES["shapenet_fwd_jac"] != before["shapenet_fwd_jac"] + 6
-            or _build.LAUNCHES["shapenet_fwd_jac_tc"] != before["shapenet_fwd_jac_tc"]):
-        raise AssertionError("K5 at so = si did not take the CUDA-core tangent body")
+    k5t_ms = cuda_ms(lambda: shapenet_fwd_jac_cuda(wb, x, tan_cfg, "siren"), reps=10, warmup=2)
+    if (_build.LAUNCHES["shapenet_fwd_jac"] != before["shapenet_fwd_jac"] + 12
+            or _build.LAUNCHES["shapenet_fwd_jac_tc"] != before["shapenet_fwd_jac_tc"] + 12):
+        raise AssertionError("bf16 K5 at so = si did not take the tensor-core tangent body")
+    k5t_simt_ms = cuda_ms(lambda: _shapenet_fwd_jac_simt(wb, x, tan_cfg, "siren"), reps=5,
+                          warmup=1)
     k5t_plain_ms = cuda_ms(lambda: shapenet_fwd_jac_reference(wb, x, tan_cfg, "siren"), reps=2,
                            warmup=1)
     wbf, xf = wb.float(), x.float()
-    k5tf_ms = cuda_ms(lambda: shapenet_fwd_jac_cuda(wbf, xf, tan_cfg, "siren"), reps=5, warmup=1)
+    k5tf_ms = cuda_ms(lambda: shapenet_fwd_jac_cuda(wbf, xf, tan_cfg, "siren"), reps=10, warmup=2)
     k5tf_plain_ms = cuda_ms(lambda: shapenet_fwd_jac_reference(wbf, xf, tan_cfg, "siren"),
                             reps=2, warmup=1)
     del wb, x, wbf, xf
+    # tutorial 8's Jacobian evaluation from host arrays (one chunk, one
+    # tangent-body launch) under both policies, on the device and host clocks,
+    # and the tangent body alone on that call's weights and coordinates
+    t8_ms = {}
+    tt8, tx8 = (torch.as_tensor(a, device="cuda") for a in t8_host[:2])
+    for dtype, (t8_trainer, t8_state, _, _) in t8.items():
+        def t8_eval(tr=t8_trainer, st=t8_state):
+            return tr.evaluate_sobolev(st, *t8_host)
+
+        t8_model = t8_trainer.model
+        with torch.inference_mode():
+            wb8, x8 = t8_model._derivative_weights(tt8), t8_model._compute(tx8)
+
+        def t8_kernel(wb=wb8, x=x8, cfg=t8_model.cfg_shape_net):
+            return shapenet_fwd_jac_cuda(wb, x, cfg, "siren")
+
+        t8_ms[dtype] = (cuda_ms(t8_eval, reps=5, warmup=1), host_ms(torch, t8_eval, reps=5),
+                        cuda_ms(t8_kernel, reps=10, warmup=2))
+    del tt8, tx8, wb8, x8
     k5t_bound, k5t_by, k5t_gf = derivative_bounds(tan_cfg, G, P, peak_mma, peak_f32, peak_bw,
                                                   sobolev=False, tangent=True)
     k5tf_bound, k5tf_by, _ = derivative_bounds(tan_cfg, G, P, peak_mma, peak_f32, peak_bw,
@@ -2288,10 +2457,20 @@ def main() -> int:
         f"host arrays, one launch of the CUDA-core K5, G={G} P={P}): {jeval_ms:.4f} ms on the "
         f"device clock = {G * P / jeval_ms * 1e3:.4e} points/s, {jeval_host_ms:.4f} ms on the "
         f"host clock (mean of 3)")
-    log(f"K5 (tangent body, si=3 so=3 n=128, CUDA cores) bf16: {k5t_ms:.4f} ms, plain "
-        f"{k5t_plain_ms:.4f} ms, bound {k5t_bound:.4f} ms by {k5t_by} ({k5t_gf:.1f} GFLOP of "
-        f"products); f32: {k5tf_ms:.4f} ms, plain {k5tf_plain_ms:.4f} ms, bound "
-        f"{k5tf_bound:.4f} ms by {k5tf_by} (f32 peak); no main path launches it")
+    log(f"K5 (tangent body, si=3 so=3 n=128, G={G} P={P}) bf16, tensor cores: {k5t_ms:.4f} ms "
+        f"= {k5t_gf / k5t_ms:.2f} TFLOP/s of products, the CUDA-core body on the same bf16 "
+        f"inputs {k5t_simt_ms:.4f} ms ({k5t_simt_ms / k5t_ms:.2f}x), plain {k5t_plain_ms:.4f} "
+        f"ms, bound {k5t_bound:.4f} ms by {k5t_by} ({k5t_gf:.1f} GFLOP of products); f32, CUDA "
+        f"cores (K6's forward half): {k5tf_ms:.4f} ms = {k5t_gf / k5tf_ms:.2f} TFLOP/s of "
+        f"products, plain {k5tf_plain_ms:.4f} ms, bound {k5tf_bound:.4f} ms by {k5tf_by} (f32 "
+        f"peak); library_ms null: no single PyTorch call computes this chain")
+    for dtype, (dev, host, kernel_ms) in t8_ms.items():
+        policy = FLAGSHIP_POLICY if dtype == torch.bfloat16 else "float32"
+        log(f"tutorial 8 Jacobian evaluation ({policy} policy; GroupedTrainer.evaluate_sobolev "
+            f"from host arrays, one launch of the {t8[dtype][3]['body']} tangent body, G={G} "
+            f"P={P}): {dev:.4f} ms on the device clock = {G * P / dev * 1e3:.4e} points/s, "
+            f"{host:.4f} ms on the host clock (mean of 5); the tangent body alone on its "
+            f"weights and coordinates {kernel_ms:.4f} ms ({kernel_ms / dev:.1%} of the call)")
 
     # ---- phase 4d: Hessian-step, K7 and K8 times at the flagship shape (bf16)
     hbox = [hstate]
@@ -2531,6 +2710,32 @@ def main() -> int:
         "plain_ms": k5f_plain_ms,
         "bound_ms": k5f_bound,
         "bound_by": k5f_by,
+        "library_ms": None,
+    }, {
+        "name": "shapenet_fwd_jac_tangent",
+        "route": "cuda",
+        "body": t8[torch.bfloat16][3]["body"],
+        "source": "nif_tpu_torch/csrc/shapenet_jac_tc.cu",
+        "replaces": "nif_tpu/ops/pallas_shapenet.py:1375",
+        "launches": t8[torch.bfloat16][2]["shapenet_fwd_jac_tc"],
+        "max_abs_err": k5t_err,
+        "ms": k5t_ms,
+        "plain_ms": k5t_plain_ms,
+        "bound_ms": k5t_bound,
+        "bound_by": k5t_by,
+        "library_ms": None,
+    }, {
+        "name": "shapenet_fwd_jac_tangent_f32",
+        "route": "cuda",
+        "body": t8[torch.float32][3]["body"],
+        "source": "nif_tpu_torch/csrc/shapenet_jac.cu",
+        "replaces": "nif_tpu/ops/pallas_shapenet.py:1375",
+        "launches": t8[torch.float32][2]["shapenet_fwd_jac"],
+        "max_abs_err": k5tf_err,
+        "ms": k5tf_ms,
+        "plain_ms": k5tf_plain_ms,
+        "bound_ms": k5tf_bound,
+        "bound_by": k5tf_by,
         "library_ms": None,
     }, {
         "name": "shapenet_sobolev_grads",

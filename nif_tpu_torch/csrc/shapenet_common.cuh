@@ -24,6 +24,9 @@ constexpr int kThreads = 256;
 constexpr int kLanes = 32;
 constexpr int kWarps = kThreads / kLanes;
 constexpr size_t kMaxSmem = 232448;  // 227 KB, the most a block may opt in to
+// Shared memory a block may use when two share an SM: the SM's 228 KB less
+// the 1 KB the card reserves for each block, halved.
+constexpr size_t kHalfSmSmem = (233472 - 2 * 1024) / 2;
 constexpr int kMaxRn = 32;
 
 constexpr int rows_per_thread(int rn) { return rn <= 4 ? 8 : 32 / rn; }

@@ -68,9 +68,7 @@
 namespace {
 
 constexpr int kMaxChunk = 32;      // weight rows (or columns) per staged chunk
-constexpr int kRed = 4;            // outputs a pass of row sums takes
 constexpr int kK1BlocksPerSm = 2;  // K1's blocks per SM where shared memory allows
-constexpr size_t kHalfSmSmem = (233472 - 2 * 1024) / 2;  // a block's share of two
 
 __host__ __device__ constexpr long long round4(long long v) { return (v + 3) / 4 * 4; }
 
@@ -104,42 +102,6 @@ struct Args {
   int six, kc, stage_buf, params_in_smem;
   long long ldwb, resid_floats;
 };
-
-// The sums over a tile's rows of the threads' partials part[q][i] (output q
-// of the pass, the thread's row sl.row(i)): across the 8 lanes of a warp
-// that share a row (xor shuffles), then over the CW / 8 warps along the row
-// in order, through red [kRed][CW / 8][TP]; emit(r, q, sum) then runs for
-// the tile's rows r < rows and q < nq, a thread each. A fixed order: two runs
-// give the same bits.
-template <class L, class EMIT>
-__device__ __forceinline__ void row_sums(float (&part)[kRed][L::RM], int nq, int rows, float* red,
-                                         const Slot<L>& sl, EMIT&& emit) {
-  constexpr int WR = L::CW / 8;
-  const int wr = threadIdx.x / kLanes % WR;
-  __syncthreads();  // every thread is done with red
-#pragma unroll
-  for (int q = 0; q < kRed; ++q)
-    if (q < nq) {
-#pragma unroll
-      for (int i = 0; i < L::RM; ++i) {
-        float v = part[q][i];
-        v += __shfl_xor_sync(0xffffffffu, v, 1);
-        v += __shfl_xor_sync(0xffffffffu, v, 2);
-        v += __shfl_xor_sync(0xffffffffu, v, 4);
-        if (threadIdx.x % 8 == 0) red[(q * WR + wr) * L::TP + sl.row(i)] = v;
-      }
-    }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < nq * L::TP; idx += kThreads) {
-    const int q = idx / L::TP;
-    const int r = idx - q * L::TP;
-    if (r >= rows) continue;
-    float s = 0.f;
-#pragma unroll
-    for (int w = 0; w < WR; ++w) s += red[(q * WR + w) * L::TP + r];
-    emit(r, q, s);
-  }
-}
 
 // A forward epilogue on the product's registers (the value layout): z = acc
 // + bias, y = act(z) with act'(z); the first layer (m < 0) starts the running

@@ -78,9 +78,6 @@ constexpr int kFwdTp = 64;          // points of a K1 tile
 constexpr int kFwdBlocksPerSm = 2;  // blocks per SM its registers allow
 constexpr int kJacTp = 128;         // points of a K5 tile
 constexpr int kMaxSiTc = 4;
-// Shared memory a block may use when two share an SM: the SM's 228 KB less
-// the 1 KB the card reserves for each block, halved.
-constexpr size_t kHalfSmSmem = (233472 - 2 * 1024) / 2;
 
 struct FwdArgs {
   const bf16* wb;          // wb' [G, wb_ld] (rows of po, padded to 16 bytes)

@@ -1,14 +1,20 @@
 // K5's tangent body and K6 on Hopper's CUDA cores: the fused Jacobian for
 // so >= si and the fused Sobolev train pass of the grouped ShapeNet chain, in
-// one source (one nvcc build).
+// one source (one nvcc build) and, for si <= 4, one body template.
 //
 // K5's tangent body replaces nif_tpu/ops/pallas_shapenet.py::_fwd_jac_kernel
-// (reached through shapenet_fwd_jac when so >= si):
-//   wb' [G, po] (omega_0 folded into the sine-fed weights by the wrapper),
-//   x [G, P, si]  ->  y [G, P, so], jac [G, P, so, si] in x's dtype T,
+// :1375 (reached through shapenet_fwd_jac :1459, call :1524, when so >= si;
+// the chain is _fwd_jac_layers :1279):
+//   wb' [G, ldwb] f32 (omega_0 folded into the sine-fed weights by the
+//   wrapper, at wb's dtype, then widened to f32 and its rows padded to 4
+//   floats, as K1 and K7 read it), x [G, P, si]  ->  y [G, P, so],
+//   jac [G, P, so, si] in x's dtype T,
 // the si forward tangent streams stacked under the value rows of every
-// product (_fwd_jac_layers). K5's reverse body (so < si, the flagship's 1 < 3)
-// is shapenet_fwd.cu's, beside K1; nif_shapenet_fwd_jac refuses it.
+// product. K5's reverse body (so < si, the flagship's 1 < 3) is
+// shapenet_fwd.cu's, beside K1; nif_shapenet_fwd_jac refuses it. The float32
+// policy's Jacobian evaluation of every so >= si model runs this body;
+// bf16 runs the tensor-core one of shapenet_jac_tc.cu where its geometry
+// takes the chain, and this one on the rest (vanilla chains, wide planes).
 // K6 replaces _sobolev_kernel (reached through shapenet_sobolev_grads): the
 // stacked forward with its residuals, the masked and weighted value and
 // Jacobian squared errors, and the backward through the tangent chain
@@ -35,42 +41,58 @@
 // elementwise, and no dx is formed); K5's tangent body at si = so = 3 is
 // 278.9 GFLOP. Every product is an f32 FMA on the CUDA cores (a bf16 x bf16
 // product is exact in f32, and the f32 path must not use TF32), so the
-// 67 TFLOP/s f32 peak bounds K6 at ~12.8 ms.
+// 67 TFLOP/s f32 peak bounds K6 at ~12.8 ms and K5's tangent body at ~4.3.
 //
-// K6 for si <= 4 (sob_simt_kernel, the f32 tile machinery of
-// stack_simt.cuh, K8's design in shapenet_hess.cu without the pair streams):
+// K6 and K5's tangent body for si <= 4: one body template,
+// sob_simt_kernel<T, SI, ACT, TRAIN, RES>, on the f32 tile machinery of
+// stack_simt.cuh (K8's design in shapenet_hess.cu without the pair streams);
+// K5's tangent body is its forward half (TRAIN = false), as K7 is K8's.
 // - A tile is 16 points (32 at si = 1) of 1 + si stacked streams, row
 //   q * NPT + p stream q of point p; thread (rg, cg) of SimtTile<(1 + si)
 //   PPT, 32, 1> owns PPT points' streams by 4 columns of a 128-column block,
 //   so the forward epilogue (act, act' from one call) and the backward one
 //   (act', act'') run on the product's registers. The streams and the
-//   activation (the true sine for f32, the polynomial for bf16, act3's
-//   switch for vanilla chains) are compile-time; plain or resblock is a
-//   flag read once a layer. Wider chains loop over 128-column blocks.
-// - Planes [R, ld] f32: every hidden product's S input and the last one's
-//   and every hidden Z; the backward writes each layer's D over its Z in
-//   place; S_0 is elementwise in x, so from nm = 2 on it shares S_2's plane
-//   and app 0's epilogue recomputes it into S_1's (not for vanilla chains,
-//   whose shortcut cotangents, like a resblock's skip cotangents, wait in
-//   the S plane of the output they belong to once its dW has freed it).
-//   At the flagship four planes (135 KB) sit in shared memory beside two
-//   18 KB weight buffers (32-row chunks); wider or deeper chains, and bf16
-//   (its shapes are those the tensor-core K6 refuses), keep them in a
+//   activation (the true sine from one non-inlined exact sincosf for f32,
+//   the polynomial for bf16, act3's switch for vanilla chains) are
+//   compile-time; plain or resblock is a flag read once a layer. Wider
+//   chains loop over 128-column blocks. The forward half takes no act'':
+//   its d2 is dead code.
+// - K6's planes [R, ld] f32: every hidden product's S input and the last
+//   one's and every hidden Z; the backward writes each layer's D over its Z
+//   in place; S_0 is elementwise in x, so from nm = 2 on it shares S_2's
+//   plane and app 0's epilogue recomputes it into S_1's (not for vanilla
+//   chains, whose shortcut cotangents, like a resblock's skip cotangents,
+//   wait in the S plane of the output they belong to once its dW has freed
+//   it). At the flagship four planes (135 KB) sit in shared memory beside
+//   two 18 KB weight buffers (32-row chunks); wider or deeper chains, and
+//   bf16 (its shapes are those the tensor-core K6 refuses), keep them in a
 //   per-block slice of a global scratch (RES = 0).
+// - K5's planes: two S planes, ping-ponged (a resblock's second app reads
+//   the block's input from the plane its output overwrites, element by
+//   element), and U for bf16 resblock and vanilla chains; no Z, D, partials
+//   or reduce. Its last product and the y and jac
+//   stores read the thread's own rows of the last S plane (its own writes:
+//   no barrier): per-thread column sums, three xor shuffles and a
+//   fixed-order sum over the four warps along a row (stack_simt.cuh's
+//   row_sums, over stacked rows). At si = so = 3, width 128, its two planes
+//   (68 KB), two 18 KB weight buffers and the row sums fit two blocks an SM.
 // - The products of a tile form one stream of W chunks through cp.async,
 //   one barrier a chunk; dW = S^T D sums all stacked rows into the block's
 //   own f32 partial [po4], whose old values it loads before the products.
-// - The grid is (S, G) with S = SMs / G splits of a group's tiles: one wave
+// - K6's grid is (S, G) with S = SMs / G splits of a group's tiles: one wave
 //   of one block per SM; a second kernel sums the S partials of each group,
 //   and the two losses, in a fixed order. No float atomics: two runs on the
-//   same inputs give the same bits.
-// K6 for si > 4 and K5's tangent body keep the first port's design
-// (stacked_kernel): the tile products of shapenet_common.cuh, a thread rows
-// tr*RM .. by columns tc, tc+32, ..., element-wise passes over the tile,
-// residuals in shared memory where they fit, K6's partials per block and the
-// ordered split reduce.
-// scripts/port_phase_probe.py --kernel k6f32 splits the f32 K6 tile's time
-// by phase; PERF.md has the split.
+//   same inputs give the same bits. K5's is one wave of blocks (two an SM
+//   where their shared memory fits) over every group's tiles, each block a
+//   contiguous run; its outputs are per point, so two runs give the same
+//   bits whatever the split.
+// K6 and K5's tangent body for si > 4 keep the first port's design
+// (stacked_kernel; the register tile holds at most ten streams): the tile
+// products of shapenet_common.cuh, a thread rows tr*RM .. by columns tc,
+// tc+32, ..., element-wise passes over the tile, residuals in shared memory
+// where they fit, K6's partials per block and the ordered split reduce.
+// scripts/port_phase_probe.py --kernel k6f32 (or k5tanf32) splits the f32
+// K6 (or K5 tangent) tile's time by phase; PERF.md has the split.
 #include "stack_simt.cuh"
 
 namespace {
@@ -84,7 +106,7 @@ constexpr int kWChunkFloats = 4096;  // staged weight floats per chunk
 enum Mode : int { kReverse = 0, kTangent = 1, kSobolev = 2 };
 
 struct Args {
-  const void* wb;        // wb' [G, po], T
+  const float* wb;       // wb' [G, ldwb], f32
   const void* x;         // [G, P, si], T
   void* y;               // K5: [G, P, so], T
   void* jac;             // K5: [G, P, so, si], T
@@ -97,7 +119,7 @@ struct Args {
   void* scratch;         // residuals of each block when they live in global memory
   float ky, kj;          // K6: 2 w_value / n_y, 2 w_jac / n_j
   int G, P, si, so, n, n_mats, chain, act, kc, tile;
-  long long po, ldwb, resid_bytes;  // K6's wb' is f32 [G, ldwb]; resid_bytes per block
+  long long po, ldwb, resid_bytes;  // resid_bytes per block
   int resid_in_smem;
 };
 
@@ -106,7 +128,7 @@ struct Args {
 // the stacked backward into the block's partials.
 template <typename T, int RM, int RN, bool SOB>
 __global__ void __launch_bounds__(kThreads) stacked_kernel(const Args a) {
-  using TW = std::conditional_t<SOB, float, T>;  // K6's weights are f32 (exact for bf16 ones)
+  using TW = float;  // the weights are f32 (exact for bf16 ones)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int n = a.n, si = a.si, so = a.so, n_mats = a.n_mats;
   const int tp = a.tile, ns = si + 1, tr = ns * tp;
@@ -143,7 +165,7 @@ __global__ void __launch_bounds__(kThreads) stacked_kernel(const Args a) {
   const long long o_bl = o_bh + (long long)n_mats * n;
 
   for (int g = blockIdx.y; g < a.G; g += gridDim.y) {
-    const TW* wg = static_cast<const TW*>(a.wb) + (long long)g * (SOB ? a.ldwb : a.po);
+    const TW* wg = a.wb + (long long)g * a.ldwb;
     const TW* wl = wg + o_wl;
     float* part = SOB ? a.partials + ((long long)g * S + s) * a.po : nullptr;
     float loss[2] = {0.f, 0.f};  // value, Jacobian
@@ -402,12 +424,14 @@ __global__ void __launch_bounds__(kThreads) stacked_kernel(const Args a) {
   }
 }
 
-// ---- K6 for si <= 4 on the f32 tile machinery of stack_simt.cuh
+// ---- K6 and K5's tangent body for si <= 4 on the f32 tile machinery of
+// stack_simt.cuh
 
 constexpr int kSobMaxSi = 4;      // the stacked tile's streams, 1 + si, in registers
-constexpr int kSobMaxSplits = 64;  // point-tile runs per group
+constexpr int kSobMaxSplits = 64;  // K6's point-tile runs per group
 constexpr int kSobMaxChunk = 32;   // weight rows (or columns) per staged chunk
 constexpr int kSix = 4;            // the x tile's row stride
+constexpr int kTanBlocksPerSm = 2;  // K5's blocks per SM where their shared memory allows
 
 __host__ __device__ constexpr long long round4(long long v) { return (v + 3) / 4 * 4; }
 
@@ -423,12 +447,14 @@ struct SobTile {
   static constexpr int NPT = PPT * L::RG;
 };
 constexpr int kCols = SobTile<1>::L::COLS;  // the columns of a block of a product
+constexpr int kWarpsAlong = SobTile<1>::L::CW / 8;  // the warps along a row of a tile
 
 inline int sob_tile_points(int si) { return (si == 1 ? 4 : 2) * (kThreads / kLanes); }
 
 // Built with -DK6F_PHASE_CLOCKS (by scripts/port_phase_probe.py only), thread
 // 0 of every block adds the clock64() cycles from one mark to the next into
-// ten phase counters, which split the block's critical path.
+// ten phase counters (K5's tangent body the first four), which split the
+// block's critical path.
 constexpr int kPhases = 10;
 #ifdef K6F_PHASE_CLOCKS
 __device__ unsigned long long k6f_phase_cycles[kPhases];
@@ -460,14 +486,16 @@ struct AnyAct3 {
 struct SobArgs {
   const float* wb;        // wb' [G, ldwb], f32
   const void* x;          // [G, P, si], T
-  const void* target;     // [G, P, so], T
-  const void* jt;         // [G, P, si*so], T, column k*so + j = d y_j / d x_k
-  const float* y_mask;    // [so] 0/1, or null
-  const float* jac_mask;  // [si*so] 0/1, or null
-  const void* weight;     // [G, P], T, or null
-  float* partials;        // [G, S, po4] weight-grad partials, then [G, S, 2] loss partials
+  void* y;                // K5: [G, P, so], T
+  void* jac;              // K5: [G, P, so, si], T
+  const void* target;     // K6: [G, P, so], T
+  const void* jt;         // K6: [G, P, si*so], T, column k*so + j = d y_j / d x_k
+  const float* y_mask;    // K6: [so] 0/1, or null
+  const float* jac_mask;  // K6: [si*so] 0/1, or null
+  const void* weight;     // K6: [G, P], T, or null
+  float* partials;        // K6: [G, S, po4] weight-grad partials, then [G, S, 2] loss partials
   float* scratch;         // the planes of each block when they live in global memory
-  float ky, kj;           // 2 w_value / n_y, 2 w_jac / n_j
+  float ky, kj;           // K6: 2 w_value / n_y, 2 w_jac / n_j
   int G, P, so, n, n_mats, chain, act, ld, kc, stage_buf;
   long long ldwb, po4, resid_floats;  // resid_floats per block
 };
@@ -494,14 +522,17 @@ __device__ __forceinline__ void sob_first_layer(const ACT& act, const float* x,
   for (int k = 0; k < SI; ++k) v[1 + k] = d1 * w[k];
 }
 
-// K6 for si <= 4: the stacked forward with its residuals, the two
+// K6 (TRAIN = true): the stacked forward with its residuals, the two
 // squared-error sums and the stacked backward into the block's partials.
+// K5's tangent body (TRAIN = false): the stacked forward on two ping-ponged
+// S planes, then y and jac from the row sums of the last product.
 // ACT: the sine (the true one for f32, the polynomial for bf16) of a plain
 // or resblock SIREN chain (a flag read once a layer), or AnyAct3, the
 // vanilla chain. RES: 1 = the planes in shared memory, 0 = in the block's
 // slice of a global scratch.
-template <typename T, int SI, class ACT, int RES>
-__global__ void __launch_bounds__(kThreads, 1) sob_simt_kernel(const SobArgs a) {
+template <typename T, int SI, class ACT, bool TRAIN, int RES>
+__global__ void __launch_bounds__(kThreads, TRAIN ? 1 : kTanBlocksPerSm)
+    sob_simt_kernel(const SobArgs a) {
   using Tile = SobTile<SI>;
   using L = typename Tile::L;
   constexpr int NS = Tile::NS, PPT = Tile::PPT, NPT = Tile::NPT;
@@ -515,23 +546,24 @@ __global__ void __launch_bounds__(kThreads, 1) sob_simt_kernel(const SobArgs a) 
   const int n4 = (n + 3) / 4 * 4;
   const int ncb = (n + kCols - 1) / kCols;
   const size_t plane = (size_t)R * ld;
-  const int S = gridDim.x, s = blockIdx.x;
   const ACT act(a.act);
-  // the block's planes (sob_geometry() lays them out alike)
+  // the block's planes (sob_geometry() and tan_geometry() lay them out alike)
   float* res = RES == 1 ? smem
-                        : a.scratch + ((size_t)blockIdx.y * S + s) * (size_t)a.resid_floats;
-  const bool share = !kVan && nm >= 2;  // S_0 shares S_2's plane
-  const int n_s = share ? nm : nm + 1;
-  float* Sp = res;                                // the S planes
-  float* Zp = Sp + (size_t)n_s * plane;           // the raw products Z, then D
-  float* U = Zp + (size_t)nm * plane;             // bf16 resblock and vanilla: the f32 state
-  float* DZV = U + (carry_u ? plane : 0);         // bf16: [NPT, ld] the value rows' dz
-  float* X = DZV + (kF32 ? 0 : (size_t)NPT * ld);  // [NPT, kSix] the x tile
-  float* O = X + NPT * kSix;                      // [R, so] the last product, then D_out
+                        : a.scratch + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) *
+                                          (size_t)a.resid_floats;
+  const bool share = TRAIN && !kVan && nm >= 2;  // S_0 shares S_2's plane (K6)
+  const int n_s = TRAIN ? (share ? nm : nm + 1) : (nm > 0 ? 2 : 1);
+  float* Sp = res;                                   // the S planes
+  float* Zp = Sp + (size_t)n_s * plane;              // K6: the raw products Z, then D
+  float* U = Zp + (TRAIN ? (size_t)nm * plane : 0);  // bf16 resblock and vanilla: the f32 state
+  float* DZV = U + (carry_u ? plane : 0);            // bf16 K6: [NPT, ld] the value rows' dz
+  float* X = DZV + (!kF32 && TRAIN ? (size_t)NPT * ld : 0);  // [NPT, kSix] the x tile
+  float* O = X + NPT * kSix;  // K6: [R, so] the last product, then D_out
   float* wbuf = smem + (RES == 1 ? a.resid_floats : 0);
-  float* S0 = Sp;  // S_0's plane: S_2's in the forward, S_1's in the backward (share)
+  float* red = wbuf + 2 * a.stage_buf;  // K5: [kRed][CW / 8][R] the row sums
+  float* S0 = Sp;  // S_0's plane: S_2's in K6's forward, S_1's in its backward (share)
   auto Splane = [&](int m) {
-    return m == 0 ? S0 : Sp + (size_t)(share ? m - 1 : m) * plane;
+    return m == 0 ? S0 : Sp + (size_t)(TRAIN ? (share ? m - 1 : m) : (m & 1)) * plane;
   };
   auto Zplane = [&](int m) { return Zp + (size_t)m * plane; };
   const bool vec = n % 4 == 0;
@@ -542,59 +574,69 @@ __global__ void __launch_bounds__(kThreads, 1) sob_simt_kernel(const SobArgs a) 
 
   const int tc = threadIdx.x % kLanes;
   const int warp = threadIdx.x / kLanes;
-  const int n_tiles = (a.P + NPT - 1) / NPT;
-  const int t_begin = (int)((long long)s * n_tiles / S);
-  const int t_end = (int)((long long)(s + 1) * n_tiles / S);
+  const int tpg = (a.P + NPT - 1) / NPT;  // tiles a group
 
   const long long o_wh = (long long)SI * n;
   const long long o_wl = o_wh + (long long)nm * n * n;
   const long long o_b0 = o_wl + (long long)n * so;
   const long long o_bh = o_b0 + n;
   const long long o_bl = o_bh + (long long)nm * n;
-  const int nsteps = 2 * nm * ncb;  // the products of a tile
+  const int nsteps = (TRAIN ? 2 : 1) * nm * ncb;  // the products of a tile
 #ifdef K6F_PHASE_CLOCKS
   unsigned long long phase_sum[kPhases] = {};
   long long phase_t = clock64();
 #endif
+  // The products of a tile in order, each staging the next one's first
+  // chunk of W: steps 0 .. nm ncb - 1 the forward products (matrix m,
+  // column block cb), then (K6) the cotangent products of m = nm - 1 .. 0
+  // (output block cb), then the next tile's step 0 (of its own group).
+  auto stage_step = [&](const float* wg, int step, float* buf) {
+    if (step < nm * ncb) {
+      const int m = step / ncb, c0 = (step - m * ncb) * kCols;
+      stage_fwd_head<L>(buf, st, wg + o_wh + (long long)m * n * n + c0, n, n4, n, n - c0);
+    } else {
+      const int t = step - nm * ncb;
+      const int m = nm - 1 - t / ncb, c0 = (t % ncb) * kCols;
+      stage_bwd_head<L>(buf, st, wg + o_wh + (long long)m * n * n + (long long)c0 * n, n - c0,
+                        n);
+    }
+  };
 
-  for (int g = blockIdx.y; g < a.G; g += gridDim.y) {
-    const float* wg = a.wb + (long long)g * a.ldwb;
-    const float* W0 = wg;
-    const float* WL = wg + o_wl;
-    const float* B0 = wg + o_b0;
-    const float* BL = wg + o_bl;
-    float* part = a.partials + ((long long)g * S + s) * a.po4;
-    // The products of a tile in order, each staging the next one's first
-    // chunk of W: steps 0 .. nm ncb - 1 the forward products (matrix m,
-    // column block cb), then the cotangent products of m = nm - 1 .. 0
-    // (output block cb), then the next tile's step 0.
-    auto stage_step = [&](int step, float* buf) {
-      if (step < nm * ncb) {
-        const int m = step / ncb, c0 = (step - m * ncb) * kCols;
-        stage_fwd_head<L>(buf, st, wg + o_wh + (long long)m * n * n + c0, n, n4, n, n - c0);
-      } else {
-        const int t = step - nm * ncb;
-        const int m = nm - 1 - t / ncb, c0 = (t % ncb) * kCols;
-        stage_bwd_head<L>(buf, st, wg + o_wh + (long long)m * n * n + (long long)c0 * n, n - c0,
-                          n);
-      }
-    };
+  // K6: a run of tiles of each group gr = blockIdx.y, + gridDim.y, ...
+  // (split blockIdx.x of gridDim.x), t indexing the group's tiles; K5: one
+  // run over every group's tiles, t indexing them all
+  using TileIndex = std::conditional_t<TRAIN, int, long long>;
+  for (int gr = TRAIN ? blockIdx.y : 0; gr < (TRAIN ? a.G : 1); gr += TRAIN ? gridDim.y : 1) {
+    const long long total = TRAIN ? tpg : (long long)a.G * tpg;
+    const TileIndex t_begin = (TileIndex)(blockIdx.x * total / gridDim.x);
+    const TileIndex t_end = (TileIndex)((blockIdx.x + 1) * total / gridDim.x);
+    // the group of tile t, and the weights of a group
+    auto group = [&](TileIndex t) { return TRAIN ? gr : (int)(t / tpg); };
+    auto weights = [&](int g) { return a.wb + (long long)g * a.ldwb; };
+    float* part = TRAIN ? a.partials + ((long long)gr * gridDim.x + blockIdx.x) * a.po4 : nullptr;
+    const float* wg_run = weights(group(t_begin));  // K6: every tile's (its group's)
     __syncthreads();  // the previous group is done with the weight buffers
-    if (nsteps > 0) {
-      stage_step(0, st.ws + st.parity * st.buf);
+    if (nsteps > 0 && t_begin < t_end) {
+      stage_step(wg_run, 0, st.ws + st.parity * st.buf);
       cp_commit();
     }
-    float loss[2] = {0.f, 0.f};  // value, Jacobian
-    for (int tile = t_begin; tile < t_end; ++tile) {
-      const bool first = tile == t_begin;
+    float loss[2] = {0.f, 0.f};  // K6: value, Jacobian
+    for (TileIndex t = t_begin; t < t_end; ++t) {
+      const bool first = t == t_begin;
+      const int g = group(t);
+      const float* wg = TRAIN ? wg_run : weights(g);
+      const float* W0 = wg;
+      const float* WL = wg + o_wl;
+      const float* B0 = wg + o_b0;
+      const float* BL = wg + o_bl;
       int step = 0;
       const auto next = [&](float* buf) {  // stages the step after `step`
         if (step + 1 < nsteps)
-          stage_step(step + 1, buf);
-        else if (tile + 1 < t_end)
-          stage_step(0, buf);
+          stage_step(wg, step + 1, buf);
+        else if (t + 1 < t_end)
+          stage_step(TRAIN ? wg : weights(group(t + 1)), 0, buf);
       };
-      const int p0 = tile * NPT;
+      const int p0 = (int)(TRAIN ? t : t - (long long)g * tpg) * NPT;
       const int rows = min(NPT, a.P - p0);
       const long long row0 = (long long)g * a.P + p0;
       __syncthreads();  // the previous tile has finished with every plane
@@ -651,8 +693,8 @@ __global__ void __launch_bounds__(kThreads, 1) sob_simt_kernel(const SobArgs a) 
         const float* bm = wg + o_bh + (long long)m * n;
         float* Sn = Splane(m + 1);
         // the chain's state before this app: f32 chains keep it as their S
-        // plane (with share, resblock's S_0 is the plane this output
-        // overwrites, element by element)
+        // plane (with share, or K5's two planes, a resblock's block input lies
+        // in the plane this output overwrites, element by element)
         const float* u_in = carry_u ? U : Splane(kVan || m == 0 ? m : m - 1);
         for (int c0 = 0; c0 < n; c0 += kCols) {
           Acc<L> acc;
@@ -661,10 +703,12 @@ __global__ void __launch_bounds__(kThreads, 1) sob_simt_kernel(const SobArgs a) 
           K6F_PHASE(1);  // a hidden forward product
           const int c = c0 + sl.vcol(0, 0);
           if (c < n) {
+            if (TRAIN) {
 #pragma unroll
-            for (int i = 0; i < L::RM; ++i)
-              *reinterpret_cast<float4*>(Zplane(m) + (size_t)sl.row(i) * ld + c) =
-                  make_float4(acc[i][0][0], acc[i][0][1], acc[i][0][2], acc[i][0][3]);
+              for (int i = 0; i < L::RM; ++i)
+                *reinterpret_cast<float4*>(Zplane(m) + (size_t)sl.row(i) * ld + c) =
+                    make_float4(acc[i][0][0], acc[i][0][1], acc[i][0][2], acc[i][0][3]);
+            }
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
               const float bias = c + e < n ? bm[c + e] : 0.f;
@@ -696,11 +740,58 @@ __global__ void __launch_bounds__(kThreads, 1) sob_simt_kernel(const SobArgs a) 
           K6F_PHASE(2);  // thread 0's hidden forward epilogue
         }
       }
+      const float* Sl = Splane(nm);
+
+      if constexpr (!TRAIN) {
+        // ---- K5: O = lift(S) @ W_last from the thread's own rows of the
+        // last S plane (its own writes), summed across the row; y = O[values]
+        // + b_last, jac[r][j][k] = O[tangent k][r][j]
+        T* yg = static_cast<T*>(a.y) + row0 * so;
+        T* jg = static_cast<T*>(a.jac) + row0 * so * SI;
+        for (int j0 = 0; j0 < so; j0 += kRed) {
+          const int nq = min(kRed, so - j0);
+          float sums[kRed][L::RM];
+#pragma unroll
+          for (int q = 0; q < kRed; ++q)
+#pragma unroll
+            for (int i = 0; i < L::RM; ++i) sums[q][i] = 0.f;
+          for (int c0 = 0; c0 < n; c0 += kCols) {
+            const int c = c0 + sl.vcol(0, 0);
+            if (c >= n) continue;
+            float w[kRed][4];
+#pragma unroll
+            for (int q = 0; q < kRed; ++q)
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                w[q][e] = q < nq && c + e < n ? WL[(long long)(c + e) * so + j0 + q] : 0.f;
+#pragma unroll
+            for (int i = 0; i < L::RM; ++i) {
+              const float4 s = *reinterpret_cast<const float4*>(Sl + (size_t)sl.row(i) * ld + c);
+#pragma unroll
+              for (int q = 0; q < kRed; ++q) {
+                float v = fmaf(s.x, w[q][0], sums[q][i]);
+                v = fmaf(s.y, w[q][1], v);
+                v = fmaf(s.z, w[q][2], v);
+                sums[q][i] = fmaf(s.w, w[q][3], v);
+              }
+            }
+          }
+          row_sums<L>(sums, nq, R, red, sl, [&](int r, int q, float v) {
+            const int stream = r / NPT, p = r - stream * NPT;
+            if (p >= rows) return;
+            if (stream == 0)
+              yg[(long long)p * so + j0 + q] = from_f32<T>(v + BL[j0 + q]);
+            else
+              jg[((long long)p * so + j0 + q) * SI + stream - 1] = from_f32<T>(v);
+          });
+        }
+        K6F_PHASE(3);  // the last product and the y and jac stores
+        continue;
+      }
       __syncthreads();  // the last S plane is complete
 
       // ---- last product O = lift(S) @ W_last over all R rows, one warp per
       // (row, output)
-      const float* Sl = Splane(nm);
       for (int pr = warp; pr < R * so; pr += kWarps) {
         const int rr = pr / so;
         const int j = pr - rr * so;
@@ -917,16 +1008,19 @@ __global__ void __launch_bounds__(kThreads, 1) sob_simt_kernel(const SobArgs a) 
       }
     }
 
-    // the block's two loss partials, after the [G, S, po4] weight grads
-    store_loss_partials(loss, wbuf,
-                        a.partials + (long long)a.G * S * a.po4 + ((long long)g * S + s) * 2);
-    K6F_PHASE(9);  // the group's loss partials
+    if (TRAIN) {  // the block's two loss partials, after the [G, S, po4] weight grads
+      store_loss_partials(loss, wbuf,
+                          a.partials + (long long)a.G * gridDim.x * a.po4 +
+                              ((long long)gr * gridDim.x + blockIdx.x) * 2);
+      K6F_PHASE(9);  // the group's loss partials
+    }
   }
 #ifdef K6F_PHASE_CLOCKS
   if (threadIdx.x == 0)
     for (int i = 0; i < kPhases; ++i) atomicAdd(&k6f_phase_cycles[i], phase_sum[i]);
 #endif
 }
+
 
 // d_wb[g][p] = T((sum_s partial[g][s][p]) * (p < n_scaled ? omega : 1)), the
 // S splits summed in order; then one thread per loss sums its G*S partials
@@ -1013,9 +1107,9 @@ int sob_geometry(int n, int si, int so, int n_mats, int chain, int elem, int G, 
 template <typename T, int SI, class ACT>
 int launch_sob(const SobGeometry& geo, SobArgs a, T* d_wb, float* losses, long long po,
                long long n_scaled, float omega, LossNorms norms, cudaStream_t stream) {
-  void (*kernel)(SobArgs) = sob_simt_kernel<T, SI, ACT, 0>;
+  void (*kernel)(SobArgs) = sob_simt_kernel<T, SI, ACT, true, 0>;
   if constexpr (std::is_same<T, float>::value)
-    if (geo.resid_in_smem) kernel = sob_simt_kernel<T, SI, ACT, 1>;
+    if (geo.resid_in_smem) kernel = sob_simt_kernel<T, SI, ACT, true, 1>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)geo.smem);
   if (err != cudaSuccess) return (int)err;
@@ -1032,25 +1126,93 @@ int launch_sob(const SobGeometry& geo, SobArgs a, T* d_wb, float* losses, long l
   return (int)cudaGetLastError();
 }
 
+struct TanGeometry {
+  int tile, ld, kc, stage_buf, blocks, per_sm, resid_in_smem;
+  size_t smem, resid_floats;
+};
+
+// The geometry of K5's tangent body for si <= 4: the block's planes (floats,
+// laid out as the kernel reads them: two S planes, or one without hidden
+// layers, U for bf16 resblock and vanilla chains, and the x tile), in
+// shared memory beside the two weight buffers and the row sums where they
+// fit (f32 only; bf16's shapes are those the tensor-core body refuses), else
+// in a per-block slice of a global scratch; two blocks per SM where both fit
+// in an SM's shared memory, else one; the chunk is the largest of 32, 24,
+// 16, 8 rows that fits. One wave of blocks covers every group's tiles.
+// Status: 0 = ok, 1 = too wide (above 1024 columns), 2 = even the weight
+// buffers and the row sums exceed a block's shared memory, 3 = bad shape.
+int tan_geometry(int n, int si, int so, int n_mats, int chain, int elem, int G, int P,
+                 TanGeometry* g) {
+  if (n < 1 || si < 1 || si > kSobMaxSi || so < si || n_mats < 0 || G < 1 || P < 1 ||
+      (chain != kSirenPlain && chain != kSirenResblock && chain != kVanilla) ||
+      (chain == kSirenResblock && n_mats % 2))
+    return 3;
+  if (n > kMaxRn * kLanes) return 1;
+  const bool f32 = elem == 4;
+  const int npt = sob_tile_points(si);
+  const size_t rows = (size_t)(1 + si) * npt;
+  g->tile = npt;
+  g->ld = (n + 31) / 32 * 32 + 4;
+  const size_t plane = rows * g->ld;
+  g->resid_floats = ((n_mats > 0 ? 2 : 1) + (!f32 && chain != kSirenPlain ? 1 : 0)) * plane +
+                    (size_t)npt * kSix;
+  const size_t red = (size_t)kRed * kWarpsAlong * rows;
+  auto bytes = [&](bool resid, int kc) {
+    return sizeof(float) *
+           ((resid ? g->resid_floats : 0) + 2 * (size_t)stage_floats(kCols, kc) + red);
+  };
+  g->per_sm = kTanBlocksPerSm == 2 && bytes(f32, 8) <= kHalfSmSmem ? 2 : 1;
+  const size_t limit = g->per_sm == 2 ? kHalfSmSmem : kMaxSmem;
+  g->resid_in_smem = f32 && bytes(true, 8) <= limit;
+  const int widest = (n + 7) / 8 * 8;
+  g->kc = 0;
+  for (int kc = kSobMaxChunk; kc >= 8; kc -= 8)
+    if ((kc <= widest || kc == 8) && bytes(g->resid_in_smem, kc) <= limit) {
+      g->kc = kc;
+      break;
+    }
+  if (g->kc == 0) {
+    g->smem = bytes(false, 8);
+    return 2;
+  }
+  g->stage_buf = stage_floats(kCols, g->kc);
+  g->smem = bytes(g->resid_in_smem, g->kc);
+  const long long tiles = (long long)G * ((P + npt - 1) / npt);
+  const long long want = (long long)sm_count() * g->per_sm;
+  g->blocks = (int)(tiles < want ? tiles : want);
+  return 0;
+}
+
+template <typename T, int SI, class ACT>
+int launch_tan(const TanGeometry& geo, SobArgs a, cudaStream_t stream) {
+  void (*kernel)(SobArgs) = sob_simt_kernel<T, SI, ACT, false, 0>;
+  if constexpr (std::is_same<T, float>::value)  // bf16's planes sit in the scratch
+    if (geo.resid_in_smem) kernel = sob_simt_kernel<T, SI, ACT, false, 1>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)geo.smem);
+  if (err != cudaSuccess) return (int)err;
+  a.ld = geo.ld;
+  a.kc = geo.kc;
+  a.stage_buf = geo.stage_buf;
+  a.resid_floats = (long long)geo.resid_floats;
+  kernel<<<geo.blocks, kThreads, geo.smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 template <class A>
 struct ActTag {
   using type = A;
 };
 
-// The instance of a chain: f32 sine chains take the true sine, bf16 ones the
-// polynomial (its degree chosen once a kernel), the vanilla chain its
-// activation code; the streams are si's.
-int run_sob(const SobGeometry& geo, const SobArgs& a, int si, int dtype, void* d_wb,
-            float* losses, long long po, long long n_scaled, float omega, LossNorms norms,
-            cudaStream_t s) {
-  const bool vanilla = a.chain == kVanilla;
-  if (!vanilla && (dtype == 0 ? a.act != kSineExact : a.act != kSinePoly7 && a.act != kSinePoly9))
+// go(T{}, integral_constant<si>, ActTag<ACT>{}) for the instance of a chain:
+// f32 sine chains take the true sine, bf16 ones the polynomial (its degree
+// chosen once a kernel), the vanilla chain its activation code; the streams
+// are si's.
+template <typename GO>
+int with_instance(int si, int dtype, int chain, int act, GO&& go) {
+  const bool vanilla = chain == kVanilla;
+  if (!vanilla && (dtype == 0 ? act != kSineExact : act != kSinePoly7 && act != kSinePoly9))
     return (int)cudaErrorInvalidValue;
-  auto go = [&](auto t, auto si_c, auto act) {
-    using T = decltype(t);
-    return launch_sob<T, decltype(si_c)::value, typename decltype(act)::type>(
-        geo, a, static_cast<T*>(d_wb), losses, po, n_scaled, omega, norms, s);
-  };
   auto by_act = [&](auto t, auto si_c) {
     using Sine = std::conditional_t<std::is_same<decltype(t), float>::value, ExactSineHess,
                                     PolySineHess>;
@@ -1066,6 +1228,23 @@ int run_sob(const SobGeometry& geo, const SobArgs& a, int si, int dtype, void* d
     }
   };
   return dtype == 0 ? by_si(float{}) : by_si(__nv_bfloat16{});
+}
+
+int run_sob(const SobGeometry& geo, const SobArgs& a, int si, int dtype, void* d_wb,
+            float* losses, long long po, long long n_scaled, float omega, LossNorms norms,
+            cudaStream_t s) {
+  return with_instance(si, dtype, a.chain, a.act, [&](auto t, auto si_c, auto act) {
+    using T = decltype(t);
+    return launch_sob<T, decltype(si_c)::value, typename decltype(act)::type>(
+        geo, a, static_cast<T*>(d_wb), losses, po, n_scaled, omega, norms, s);
+  });
+}
+
+int run_tan(const TanGeometry& geo, const SobArgs& a, int si, int dtype, cudaStream_t s) {
+  return with_instance(si, dtype, a.chain, a.act, [&](auto t, auto si_c, auto act) {
+    return launch_tan<decltype(t), decltype(si_c)::value, typename decltype(act)::type>(geo, a,
+                                                                                        s);
+  });
 }
 
 struct Geometry {
@@ -1165,19 +1344,40 @@ int dispatch_sobolev(const Geometry& g, const Args& a, void* d_wb, float* losses
 extern "C" {
 
 // The geometry of one body (mode 1 = K5 tangent, 2 = K6; 0, K5's reverse
-// body, is shapenet_fwd.cu's and gets status 3) at
-// [G, P] (a status as geometry() returns; on 0, 2 and 4 the outputs are
-// written): points per tile, P splits per group, dynamic shared memory per
-// block, the f32 partials the caller allocates for K6 (G*S*po weight grads,
-// then G*S*2 losses; 0 for K5) and the bytes of residual scratch (0 when
-// the residuals fit in shared memory).
+// body, is shapenet_fwd.cu's and gets status 3) at [G, P] in dtype (0 =
+// float, 1 = bf16) (a status as the body's geometry returns; on 0, 2 and 4
+// the outputs are written): the body (1 = sob_simt_kernel, si <= 4; 0 =
+// stacked_kernel), points per tile, P splits per group (K5's si <= 4 body:
+// the blocks of its one wave over every group's tiles), blocks per SM,
+// dynamic shared memory per block, the f32 partials the caller allocates
+// for K6 (G*S*po weight grads, then G*S*2 losses; 0 for K5) and the bytes of
+// residual scratch (0 when the residuals fit in shared memory).
 int nif_shapenet_jac_workspace(int mode, int n, int si, int so, int n_mats, int chain, int G,
-                               int P, int dtype, int* tile, int* splits, long long* smem_bytes,
+                               int P, int dtype, int* body, int* tile, int* splits,
+                               int* blocks_per_sm, long long* smem_bytes,
                                long long* partial_floats, long long* scratch_bytes) {
   const long long po = (long long)n_mats * n * n + (long long)(si + so + 1 + n_mats) * n + so;
+  const int elem = dtype == 0 ? 4 : 2;
+  *body = si <= kSobMaxSi;
+  *blocks_per_sm = 1;
+  if (mode == kTangent && si <= kSobMaxSi) {
+    TanGeometry g{};
+    const int status = tan_geometry(n, si, so, n_mats, chain, elem, G, P, &g);
+    if (status != 0 && status != 2) return status;
+    *tile = g.tile;
+    *splits = status == 0 ? g.blocks : 0;
+    *blocks_per_sm = g.per_sm;
+    *smem_bytes = (long long)g.smem;
+    *partial_floats = 0;
+    *scratch_bytes = status != 0 || g.resid_in_smem
+                         ? 0
+                         : (long long)g.blocks * (long long)g.resid_floats *
+                               (long long)sizeof(float);
+    return status;
+  }
   if (mode == kSobolev && si <= kSobMaxSi) {
     SobGeometry g{};
-    const int status = sob_geometry(n, si, so, n_mats, chain, dtype == 0 ? 4 : 2, G, P, &g);
+    const int status = sob_geometry(n, si, so, n_mats, chain, elem, G, P, &g);
     if (status != 0 && status != 2) return status;
     *tile = g.tile;
     *splits = g.splits;
@@ -1189,7 +1389,7 @@ int nif_shapenet_jac_workspace(int mode, int n, int si, int so, int n_mats, int 
     return status;
   }
   Geometry g{};
-  const int status = geometry(mode, n, si, so, n_mats, chain, G, P, dtype == 0 ? 4 : 2, &g);
+  const int status = geometry(mode, n, si, so, n_mats, chain, G, P, elem, &g);
   if (status == 1 || status == 3) return status;
   *tile = g.tile;
   *splits = g.splits;
@@ -1200,26 +1400,43 @@ int nif_shapenet_jac_workspace(int mode, int n, int si, int so, int n_mats, int 
 }
 
 // K5's tangent body (so >= si; so < si, the reverse body, is refused: it
-// runs in shapenet_fwd.cu). dtype: 0 = float, 1 = bf16 (wb', x, y and jac
-// share it). Returns the CUDA error of the launch (0 on success); the kernel
-// runs asynchronously on `stream`.
+// runs in shapenet_fwd.cu). wb' is f32 with row stride ldwb (a multiple of
+// 4, >= po); dtype: 0 = float, 1 = bf16 (x, y and jac share it). si <= 4
+// runs sob_simt_kernel's forward half, wider inputs stacked_kernel. Returns
+// the CUDA error of the launch (0 on success); the kernel runs
+// asynchronously on `stream`.
 int nif_shapenet_fwd_jac(const void* wb, const void* x, void* y, void* jac, void* scratch, int G,
                          int P, int si, int so, int n, int n_mats, int chain, int act,
-                         long long po, int dtype, void* stream) {
+                         long long po, long long ldwb, int dtype, void* stream) {
+  if (dtype < 0 || dtype > 1 || so < si || ldwb < po || ldwb % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (si <= kSobMaxSi) {
+    TanGeometry tg{};
+    if (tan_geometry(n, si, so, n_mats, chain, dtype == 0 ? 4 : 2, G, P, &tg) != 0)
+      return (int)cudaErrorInvalidValue;
+    SobArgs a{};
+    a.wb = static_cast<const float*>(wb);
+    a.x = x;
+    a.y = y;
+    a.jac = jac;
+    a.scratch = static_cast<float*>(scratch);
+    a.G = G; a.P = P; a.so = so; a.n = n; a.n_mats = n_mats;
+    a.chain = chain; a.act = act; a.ldwb = ldwb;
+    return run_tan(tg, a, si, dtype, s);
+  }
   Geometry g{};
-  if (dtype < 0 || dtype > 1 || so < si ||
-      geometry(kTangent, n, si, so, n_mats, chain, G, P, dtype == 0 ? 4 : 2, &g) != 0)
+  if (geometry(kTangent, n, si, so, n_mats, chain, G, P, dtype == 0 ? 4 : 2, &g) != 0)
     return (int)cudaErrorInvalidValue;
   Args a{};
-  a.wb = wb;
+  a.wb = static_cast<const float*>(wb);
   a.x = x;
   a.y = y;
   a.jac = jac;
   a.scratch = scratch;
   a.G = G; a.P = P; a.si = si; a.so = so; a.n = n; a.n_mats = n_mats;
-  a.chain = chain; a.act = act; a.po = po;
+  a.chain = chain; a.act = act; a.po = po; a.ldwb = ldwb;
   a = prepared(a, g);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch_jac<float>(g, a, s);
   return dispatch_jac<__nv_bfloat16>(g, a, s);
 }
@@ -1263,7 +1480,7 @@ int nif_shapenet_sobolev_grads(const void* wb, const void* x, const void* target
       geometry(kSobolev, n, si, so, n_mats, chain, G, P, dtype == 0 ? 4 : 2, &g) != 0)
     return (int)cudaErrorInvalidValue;
   Args a{};
-  a.wb = wb;
+  a.wb = static_cast<const float*>(wb);
   a.x = x;
   a.target = target;
   a.jt = jt;

@@ -11,10 +11,13 @@
 // points is stream st of point p, and thread (rg, cg) owns point rg's ns
 // rows), so each of their epilogues runs in a thread's registers; here also
 // their sine with two or three derivatives and their weight grads over a
-// tile's stacked rows (weight_grad_rows).
-// shapenet_bwd.cu (K2, K3) and shapenet_hess.cu (K7, K8) include it;
-// ops/_build.py hashes it with those sources, so an edit here rebuilds those
-// two libraries and no other (an edit of stack_tc.cuh rebuilds them too).
+// tile's stacked rows (weight_grad_rows); and the row sums of a tile's
+// narrow tails (row_sums: the last layer of K1 and K5, K5's jac tails).
+// shapenet_fwd.cu (K1, K5's reverse body), shapenet_bwd.cu (K2, K3),
+// shapenet_hess.cu (K7, K8), shapenet_jac.cu (K5's tangent body, K6) and
+// shapenet_linear.cu (K4) include it; ops/_build.py hashes it with those
+// sources, so an edit here rebuilds those libraries and no other (an edit of
+// stack_tc.cuh rebuilds them too).
 //
 // A thread (row group rg, column group cg) of a tile layout owns the rows
 // rg + RG i (i < RM) and, in the VALUE layout (the forward's outputs), the
@@ -474,6 +477,46 @@ __device__ __forceinline__ void weight_grad_rows(const float* A, int lda, int K,
           }
         }
     }
+}
+
+constexpr int kRed = 4;  // outputs a pass of row sums takes
+
+// The sums over a tile's rows of the threads' partials part[q][i] (output q
+// of the pass, the thread's row sl.row(i)): across the 8 lanes of a warp
+// that share a row (xor shuffles), then over the CW / 8 warps along the row
+// in order, through red [kRed][CW / 8][TP]; emit(r, q, sum) then runs for
+// the tile's rows r < rows and q < nq, a thread each. A fixed order: two runs
+// give the same bits. The last layers and jac tails of K1 and K5's reverse
+// body (shapenet_fwd.cu) and of K5's tangent body (shapenet_jac.cu, over a
+// tile's stacked rows).
+template <class L, class EMIT>
+__device__ __forceinline__ void row_sums(float (&part)[kRed][L::RM], int nq, int rows, float* red,
+                                         const Slot<L>& sl, EMIT&& emit) {
+  constexpr int WR = L::CW / 8;
+  const int wr = threadIdx.x / kLanes % WR;
+  __syncthreads();  // every thread is done with red
+#pragma unroll
+  for (int q = 0; q < kRed; ++q)
+    if (q < nq) {
+#pragma unroll
+      for (int i = 0; i < L::RM; ++i) {
+        float v = part[q][i];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        v += __shfl_xor_sync(0xffffffffu, v, 4);
+        if (threadIdx.x % 8 == 0) red[(q * WR + wr) * L::TP + sl.row(i)] = v;
+      }
+    }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < nq * L::TP; idx += kThreads) {
+    const int q = idx / L::TP;
+    const int r = idx - q * L::TP;
+    if (r >= rows) continue;
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < WR; ++w) s += red[(q * WR + w) * L::TP + r];
+    emit(r, q, s);
+  }
 }
 
 // The activations of the residual-saving forward, (act(z), act'(z)) on f32 z,

@@ -21,13 +21,16 @@ outputs are cast to x's dtype; K6's bias gradients sum the unrounded ``dz``.
 
 On a CUDA tensor each entry launches its hand-written kernel, or raises.
 K5 and K6 have two variants (:func:`k5_variant`, :func:`k6_variant`):
-bfloat16 runs the tensor-core kernel (K5's reverse body in
-``csrc/shapenet_fwd_tc.cu`` beside the tensor-core K1, K6 in
-``csrc/shapenet_jac_tc.cu``; variant ``"tc"``) wherever its geometry takes
-the shape, and the CUDA-core one (variant ``"simt"``) otherwise (K5's
-tangent body among them) and for float32, whose f32 products never round to
+bfloat16 runs the tensor-core kernel (variant ``"tc"``: K5's reverse body
+in ``csrc/shapenet_fwd_tc.cu`` beside the tensor-core K1, K5's tangent body
+and K6 in ``csrc/shapenet_jac_tc.cu``, the former K6's forward half)
+wherever its geometry takes the shape, and the CUDA-core one (variant
+``"simt"``) otherwise and for float32, whose f32 products never round to
 TF32: K5's CUDA-core reverse body is ``csrc/shapenet_fwd.cu``'s, one body
-with the CUDA-core K1, its tangent body and K6 ``csrc/shapenet_jac.cu``'s. On a
+with the CUDA-core K1; its tangent body and K6 are ``csrc/shapenet_jac.cu``'s,
+one body template for si <= 4 (the tangent body its forward half; the
+geometry names it ``"simt"``) and the first port's ``"stacked"`` body past
+that. On a
 CPU tensor it runs the plain PyTorch version (``*_reference``), which the
 CPU tests hold against the JAX package's interpret-mode kernels and
 ``chip_smoke.py`` holds the CUDA kernels against. Nothing here falls
@@ -107,12 +110,16 @@ def _library(kernel: str = "simt") -> ctypes.CDLL:
             lib.nif_shapenet_sobolev_grads_tc.argtypes = (
                 [ptr] * 11 + [c_int] * 8 + [c_ll] * 3 + [c_f] * 5 + [ptr])
             lib.nif_shapenet_sobolev_grads_tc.restype = c_int
+            lib.nif_shapenet_fwd_jac_tan_tc_workspace.argtypes = [c_int] * 7 + [ptr] * 6
+            lib.nif_shapenet_fwd_jac_tan_tc_workspace.restype = c_int
+            lib.nif_shapenet_fwd_jac_tan_tc.argtypes = [ptr] * 5 + [c_int] * 8 + [c_ll, c_ll, ptr]
+            lib.nif_shapenet_fwd_jac_tan_tc.restype = c_int
     else:
         lib = _build.load_library("shapenet_jac")
         if lib.nif_shapenet_fwd_jac.argtypes is None:
-            lib.nif_shapenet_jac_workspace.argtypes = [c_int] * 9 + [ptr] * 5
+            lib.nif_shapenet_jac_workspace.argtypes = [c_int] * 9 + [ptr] * 7
             lib.nif_shapenet_jac_workspace.restype = c_int
-            lib.nif_shapenet_fwd_jac.argtypes = [ptr] * 5 + [c_int] * 8 + [c_ll, c_int, ptr]
+            lib.nif_shapenet_fwd_jac.argtypes = [ptr] * 5 + [c_int] * 8 + [c_ll, c_ll, c_int, ptr]
             lib.nif_shapenet_fwd_jac.restype = c_int
             lib.nif_shapenet_sobolev_grads.argtypes = (
                 [ptr] * 11 + [c_int] * 8 + [c_ll] * 3 + [c_f] * 5 + [c_int, ptr])
@@ -136,27 +143,46 @@ def _k5_tc_status(cfg: ShapeNetConfig, variant: str, si: int, G: int, P: int):
                             cfg, variant, si, G, P)
 
 
+def _k5_tan_tc_status(cfg: ShapeNetConfig, variant: str, si: int, G: int, P: int):
+    """``(status, geometry)`` of the tensor-core K5 tangent body
+    (``csrc/shapenet_jac_tc.cu``): points per tile, the blocks of its one
+    wave over every group's tiles and blocks per SM, shared memory per
+    block, whether W_m is staged there, and the bytes of its scratch (a
+    resblock's f32 carry)."""
+    tile, blocks, per_sm, staged_w = (ctypes.c_int() for _ in range(4))
+    smem, scratch = ctypes.c_longlong(), ctypes.c_longlong()
+    status = _library("tc").nif_shapenet_fwd_jac_tan_tc_workspace(
+        cfg.units, si, cfg.output_dim, _n_mats(cfg), _chain_code(cfg, variant), G, P,
+        ctypes.byref(tile), ctypes.byref(blocks), ctypes.byref(per_sm), ctypes.byref(smem),
+        ctypes.byref(staged_w), ctypes.byref(scratch))
+    geo = {"mode": "tangent", "kernel": "tc", "body": "tc", "tile": tile.value,
+           "blocks": blocks.value, "blocks_per_sm": per_sm.value, "smem_bytes": smem.value,
+           "residuals": "shared", "weights": "shared" if staged_w.value else "global",
+           "partial_floats": 0, "scratch_bytes": scratch.value}
+    return status, geo
+
+
 def k5_variant(dtype: torch.dtype, cfg: Optional[ShapeNetConfig] = None, variant: str = "siren",
                si: Optional[int] = None) -> str:
     """Which CUDA kernel K5 runs for inputs of ``dtype``: ``"tc"`` (the
-    tensor-core reverse body, ``csrc/shapenet_fwd_tc.cu``) for bfloat16 and
-    ``"simt"`` (the CUDA-core kernels) for float32, whose products stay full
-    f32 (and for any other dtype, which the wrapper refuses). "simt" runs
-    the reverse body (so < si) in ``csrc/shapenet_fwd.cu``, one body with
-    the CUDA-core K1, and the tangent body (so >= si) in
-    ``csrc/shapenet_jac.cu``. Given a chain (``cfg``, ``variant``, ``si``),
-    bfloat16 runs the CUDA-core kernel for the tangent body (decided
-    without a library) and where the tensor-core one does not take the
-    shape (asking its library, so it needs nvcc): a vanilla chain, si > 4,
-    or a width whose planes exceed a block's shared memory."""
+    tensor-core kernels: the reverse body, so < si, in
+    ``csrc/shapenet_fwd_tc.cu``, the tangent body, so >= si, in
+    ``csrc/shapenet_jac_tc.cu``) for bfloat16 and ``"simt"`` (the
+    CUDA-core kernels) for float32, whose products stay full f32 (and for
+    any other dtype, which the wrapper refuses). "simt" runs the reverse
+    body in ``csrc/shapenet_fwd.cu``, one body with the CUDA-core K1, and
+    the tangent body in ``csrc/shapenet_jac.cu``. Given a chain (``cfg``,
+    ``variant``, ``si``), bfloat16 runs the CUDA-core kernel where the
+    tensor-core body of its mode does not take the shape (asking that
+    body's library, so it needs nvcc): a vanilla chain, si > 4, or a width
+    whose planes exceed a block's shared memory."""
     if dtype != torch.bfloat16:
         return "simt"
     if cfg is None:
         return "tc"
     si = cfg.input_dim if si is None else si
-    if _jac_mode(cfg, si) != "reverse":
-        return "simt"
-    return "tc" if _k5_tc_status(cfg, variant, si, 1, 1)[0] == 0 else "simt"
+    status = _k5_tc_status if _jac_mode(cfg, si) == "reverse" else _k5_tan_tc_status
+    return "tc" if status(cfg, variant, si, 1, 1)[0] == 0 else "simt"
 
 
 def k6_variant(dtype: torch.dtype, cfg: Optional[ShapeNetConfig] = None, variant: str = "siren",
@@ -187,18 +213,24 @@ def _geometry_status(mode: str, cfg: ShapeNetConfig, variant: str, si: int, G: i
             status, geo = _k5_tc_status(cfg, variant, si, G, P)
             return status, {**geo, "body": "tc"}
         return _simt_fwd_status("reverse", cfg, variant, si, G, P, dtype)
-    tile, splits = ctypes.c_int(), ctypes.c_int()
+    if mode == "tangent" and (kernel or k5_variant(dtype, cfg, variant, si)) == "tc":
+        return _k5_tan_tc_status(cfg, variant, si, G, P)
+    body, tile, splits, per_sm = (ctypes.c_int() for _ in range(4))
     smem, partial_floats, scratch = ctypes.c_longlong(), ctypes.c_longlong(), ctypes.c_longlong()
     status = _library().nif_shapenet_jac_workspace(
         _MODES[mode], cfg.units, si, cfg.output_dim, _n_mats(cfg), _chain_code(cfg, variant),
-        G, P, _DTYPE_CODES[dtype], ctypes.byref(tile), ctypes.byref(splits),
-        ctypes.byref(smem), ctypes.byref(partial_floats), ctypes.byref(scratch))
+        G, P, _DTYPE_CODES[dtype], ctypes.byref(body), ctypes.byref(tile), ctypes.byref(splits),
+        ctypes.byref(per_sm), ctypes.byref(smem), ctypes.byref(partial_floats),
+        ctypes.byref(scratch))
     geo = {"mode": mode, "kernel": "simt", "tile": tile.value, "splits": splits.value,
            "smem_bytes": smem.value, "residuals": "global" if scratch.value else "shared",
            "weights": "shared", "partial_floats": partial_floats.value,
            "scratch_bytes": scratch.value}
-    if mode == "tangent":  # the first port's stacked body
-        geo["body"] = "stacked"
+    if mode == "tangent":
+        if body.value:  # K6's forward half: one wave of blocks over every group's tiles
+            geo.update(body="simt", blocks=geo.pop("splits"), blocks_per_sm=per_sm.value)
+        else:  # the first port's stacked body (si > 4)
+            geo["body"] = "stacked"
     return status, geo
 
 
@@ -208,9 +240,9 @@ def _status_reason(status: int, cfg: ShapeNetConfig, si: int, geo: dict) -> Opti
     if geo.get("body") == "simt":
         return _simt_fwd_reason(status, cfg, si, geo)
     if geo["kernel"] == "tc":
-        what, planes = (("Jacobian", f"its planes of {geo['tile']} points")
-                        if geo["mode"] == "reverse" else
-                        ("Sobolev", "two stacked planes of 32 points"))
+        what, planes = (("Sobolev", "two stacked planes of 32 points")
+                        if geo["mode"] == "sobolev" else
+                        ("Jacobian", f"its planes of {geo['tile']} points"))
         if status == 2:
             return (f"units={cfg.units} with si={si} needs {geo['smem_bytes']} bytes of shared "
                     f"memory per block in the tensor-core {what} kernel ({planes}), more than "
@@ -233,15 +265,17 @@ def derivative_geometry(mode: str, cfg: ShapeNetConfig, variant: str, G: int, P:
                         dtype: torch.dtype, si: Optional[int] = None) -> dict:
     """The launch geometry of one body (``mode`` "reverse" or "tangent" for
     K5, "sobolev" for K6) at ``[G, P]`` in ``dtype``, from the library of
-    the variant that runs it (it needs nvcc): K5's reverse body from
-    :func:`k5_variant`'s (``csrc/shapenet_fwd_tc.cu``, or
-    ``csrc/shapenet_fwd.cu`` for "simt"), its tangent body from
-    ``csrc/shapenet_jac.cu``, K6's from :func:`k6_variant`'s: the kernel and,
-    for K5, its body ("tc", "simt" or "stacked"), points per tile, P splits
-    per group (or, for the "simt" reverse body, the blocks of one wave over
-    every group's tiles), shared memory per block, whether a tile's
-    residuals and the staged weights sit in shared memory or in global
-    memory, and the workspace sizes the wrappers allocate."""
+    the variant that runs it (it needs nvcc): K5's from :func:`k5_variant`'s
+    (the reverse body from ``csrc/shapenet_fwd_tc.cu``, or
+    ``csrc/shapenet_fwd.cu`` for "simt"; the tangent body from
+    ``csrc/shapenet_jac_tc.cu``, or ``csrc/shapenet_jac.cu`` for "simt"),
+    K6's from :func:`k6_variant`'s: the kernel and, for K5, its body ("tc",
+    "simt" or, for the tangent body at si > 4, "stacked"), points per tile,
+    P splits per group (or, for the "simt" bodies and the "tc" tangent body,
+    the blocks of one wave over every group's tiles and blocks per SM),
+    shared memory per block, whether a tile's residuals and the staged
+    weights sit in shared memory or in global memory, and the workspace
+    sizes the wrappers allocate."""
     return _geometry(mode, cfg, variant, G, P, dtype, si)
 
 
@@ -596,25 +630,26 @@ def _workspace(mode: str, cfg: ShapeNetConfig, variant: str, x: torch.Tensor,
 
 def _k5_entry(kernel: str, mode: str):
     """``(library, C entry)`` of K5's ``mode`` body on ``kernel``: "tc" the
-    tensor-core reverse body (``csrc/shapenet_fwd_tc.cu``); "simt" the
-    reverse body of ``csrc/shapenet_fwd.cu`` (beside the CUDA-core K1) or
-    the tangent body of ``csrc/shapenet_jac.cu``."""
-    if kernel == "tc":
-        lib = _fwd_tc_library()
-        return lib, lib.nif_shapenet_fwd_jac_tc
+    tensor-core reverse body (``csrc/shapenet_fwd_tc.cu``, beside the
+    tensor-core K1) or tangent body (``csrc/shapenet_jac_tc.cu``, beside the
+    tensor-core K6); "simt" the reverse body of ``csrc/shapenet_fwd.cu``
+    (beside the CUDA-core K1) or the tangent body of
+    ``csrc/shapenet_jac.cu`` (beside the CUDA-core K6)."""
     if mode == "reverse":
+        if kernel == "tc":
+            lib = _fwd_tc_library()
+            return lib, lib.nif_shapenet_fwd_jac_tc
         lib = _fwd_library()
         return lib, lib.nif_shapenet_fwd_jac_rev
-    lib = _library()
-    return lib, lib.nif_shapenet_fwd_jac
+    lib = _library(kernel)
+    return lib, (lib.nif_shapenet_fwd_jac_tan_tc if kernel == "tc" else lib.nif_shapenet_fwd_jac)
 
 
 def _launch_k5(kernel: str, wb: torch.Tensor, x: torch.Tensor, cfg: ShapeNetConfig,
                variant: str):
-    """K5 through the library of ``kernel`` ("tc": the tensor-core reverse
-    body; "simt": the CUDA-core reverse or tangent body) and the body its
-    shape takes (:func:`_k5_entry`), after the wrapper's checks; counts the
-    launch."""
+    """K5 through the library of ``kernel`` ("tc" or "simt") and the body
+    its shape takes (:func:`_k5_entry`), after the wrapper's checks; counts
+    the launch."""
     si = x.shape[-1] if x.dim() == 3 else cfg.input_dim
     _check_cuda_inputs("shapenet_fwd_jac_cuda", wb, x, cfg, variant,
                        lambda c, v, P, d: fwd_jac_unsupported_reason(c, v, P, si, d, x.dtype,
@@ -629,10 +664,10 @@ def _launch_k5(kernel: str, wb: torch.Tensor, x: torch.Tensor, cfg: ShapeNetConf
     act = _train_act_code(cfg, variant, x.dtype) if mode == "reverse" else _act_code(
         cfg, variant, x.dtype)
     wbp = _prescale(wb, cfg, variant).contiguous()
-    if kernel == "tc":  # rows padded to 16 bytes, so every group's W_m stages with cp.async
-        wbp = torch.nn.functional.pad(wbp, (0, -wbp.shape[1] % 8))
-    elif mode == "reverse":  # f32, rows padded to 4 floats, as the CUDA-core K1 reads it
-        wbp = _simt_weights(wbp)
+    # rows padded to 16 bytes, so every group's W_m stages with cp.async; the
+    # CUDA-core bodies read them widened to f32 (a bf16 value is exact in f32)
+    wbp = (torch.nn.functional.pad(wbp, (0, -wbp.shape[1] % 8)) if kernel == "tc"
+           else _simt_weights(wbp))
     x = x.contiguous()
     lib, entry = _k5_entry(kernel, mode)
     with torch.cuda.device(x.device):  # the geometry reads this device's SM count
@@ -643,10 +678,8 @@ def _launch_k5(kernel: str, wb: torch.Tensor, x: torch.Tensor, cfg: ShapeNetConf
                 wb.shape[1])
         if kernel == "tc":
             err = entry(*args, wbp.shape[1], stream)
-        elif mode == "reverse":
-            err = entry(*args, wbp.shape[1], _DTYPE_CODES[x.dtype], stream)
         else:
-            err = entry(*args, _DTYPE_CODES[x.dtype], stream)
+            err = entry(*args, wbp.shape[1], _DTYPE_CODES[x.dtype], stream)
     _raise_on_error(lib, "shapenet_fwd_jac", err)
     _build.LAUNCHES["shapenet_fwd_jac"] += 1
     if kernel == "tc":

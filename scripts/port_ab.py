@@ -24,8 +24,10 @@ weights (w_jac=0.1, w_hess=0.01), Jacobian targets for K6 (w_jac=0.1), and
 for K4 the flagship NIF-linear trunk (width 128, two hidden layers, a
 128-wide bottleneck, K=128, so=1) with a latent a, an output bias and value
 targets; K1 and K5 on the chain alone, and K5's tangent body (``k5tan`` in
-bfloat16, ``k5tanf32``; ``csrc/shapenet_jac.cu``) on the same chain with
-so = 3. The end-to-end entries run the
+bfloat16, ``k5tanf32``) on the same chain with so = 3, through the body
+each checkout's wrapper picks (here: the tensor-core body of
+``csrc/shapenet_jac_tc.cu`` for bfloat16, K6's forward half in
+``csrc/shapenet_jac.cu`` for float32). The end-to-end entries run the
 flagship model (``nif_tpu_torch.utils.bench``, random weights from seed 0)
 under the float32 policy at G=32 x P=32768: ``apply_f32`` one
 ``apply_grouped`` on inputs on the card (mean of 20), ``predict_f32`` one
@@ -60,8 +62,8 @@ LIBRARIES = {"k1f32": ("shapenet_fwd",), "k4f32": ("shapenet_linear",),
              "k5f32": ("shapenet_fwd", "shapenet_jac"), "k6f32": ("shapenet_jac",),
              "k7f32": ("shapenet_hess",), "k8f32": ("shapenet_hess",),
              "apply_f32": ("shapenet_fwd",), "predict_f32": ("shapenet_fwd",),
-             "jaceval_f32": ("shapenet_fwd", "shapenet_jac"), "k5tan": ("shapenet_jac",),
-             "k5tanf32": ("shapenet_jac",)}
+             "jaceval_f32": ("shapenet_fwd", "shapenet_jac"),
+             "k5tan": ("shapenet_jac", "shapenet_jac_tc"), "k5tanf32": ("shapenet_jac",)}
 KERNELS = ["k1f32", "k4f32", "k5f32", "k6f32", "k7f32", "k8f32"]
 END_TO_END = {"apply_f32": 20, "predict_f32": 5, "jaceval_f32": 3}  # calls a mean takes
 

@@ -5,26 +5,29 @@ card: the tensor-core K1 or K5's reverse body
 K4 (``csrc/shapenet_linear_tc.cu``), K6 (``csrc/shapenet_jac_tc.cu``), K7 or
 K8 (``csrc/shapenet_hess_tc.cu``), the float32 K2 or K3 on the CUDA cores
 (``csrc/shapenet_bwd.cu``), the float32 K7 or K8 on the CUDA cores
-(``csrc/shapenet_hess.cu``), the float32 K6 on the CUDA cores
-(``csrc/shapenet_jac.cu``), the float32 K4 on the CUDA cores
-(``csrc/shapenet_linear.cu``) or the float32 K1 or K5's float32 reverse
-body on the CUDA cores (one body, ``csrc/shapenet_fwd.cu``).
+(``csrc/shapenet_hess.cu``), the float32 K6 or K5's float32 tangent body
+on the CUDA cores (one body template, ``csrc/shapenet_jac.cu``), K5's
+bf16 tangent body on the tensor cores (``csrc/shapenet_jac_tc.cu``), the
+float32 K4 on the CUDA cores (``csrc/shapenet_linear.cu``) or the float32
+K1 or K5's float32 reverse body on the CUDA cores (one body,
+``csrc/shapenet_fwd.cu``).
 
-    python3 scripts/port_phase_probe.py [--kernel k1|k1f32|k2|k2f32|k3f32|k4|k4f32|k5|k5f32|k6|
-                                                  k6f32|k7|k7f32|k8|k8f32]
+    python3 scripts/port_phase_probe.py [--kernel k1|k1f32|k2|k2f32|k3f32|k4|k4f32|k5|k5f32|k5tan|
+                                                  k5tanf32|k6|k6f32|k7|k7f32|k8|k8f32]
                                         [--ablate] [--one-block]
 
 Builds the kernel's source once more with ``-DK1_PHASE_CLOCKS``,
 ``-DK1F_PHASE_CLOCKS`` (k1f32, k5f32), ``-DK2_PHASE_CLOCKS``,
 ``-DK2F_PHASE_CLOCKS`` (k2f32, k3f32), ``-DK8F_PHASE_CLOCKS``
-(k7f32, k8f32), ``-DK6F_PHASE_CLOCKS`` (k6f32), ``-DK4F_PHASE_CLOCKS`` (k4f32),
+(k7f32, k8f32), ``-DK6F_PHASE_CLOCKS`` (k6f32, k5tanf32),
+``-DK4F_PHASE_CLOCKS`` (k4f32), ``-DK5T_PHASE_CLOCKS`` (k5tan),
 ``-DK4_PHASE_CLOCKS``, ``-DK5_PHASE_CLOCKS``, ``-DK6_PHASE_CLOCKS``,
 ``-DK7_PHASE_CLOCKS`` or ``-DK8_PHASE_CLOCKS`` (into
 ``build/nif_tpu_torch/probe/``), in which thread 0 of every block adds the
 ``clock64()`` cycles between consecutive marks into phase counters (four
-for K1, K7, the float32 K1 and the float32 K7, seven for K5's float32
-reverse body, ten for the float32 K2, K3, K4, K6 and K8, eight for the
-others), and runs it
+for K1, K7, K5's tangent bodies, the float32 K1 and the float32 K7, seven
+for K5's float32 reverse body, ten for the float32 K2, K3, K4, K6 and K8,
+eight for the others), and runs it
 through the usual wrapper at the kernel's flagship shape (G=32, P=32768,
 bf16, random weights from a seed: the NIF-linear trunk for K4, the flagship
 chain alone for K1, K5 and K7, with targets and point weights for K2, with
@@ -32,7 +35,8 @@ Jacobian targets for K6, and with Jacobian and Hessian targets for K8;
 float32 for k2f32, with targets and point weights, k3f32, with an output
 cotangent, k7f32, k8f32, with Jacobian and Hessian targets, k6f32, with
 Jacobian targets, k4f32, the NIF-linear trunk, and k1f32 and k5f32, the
-chain alone). Prints the
+chain alone; k5tan in bf16 and k5tanf32 on the chain alone with si = so =
+3, the shape PERF.md times K5's tangent body at). Prints the
 kernel's time (CUDA events, the instrumented build beside the plain one)
 and each phase's share of the blocks' critical path; for the float32
 kernels also the plain build's ptxas lines and the device time of each
@@ -46,7 +50,9 @@ to 255 registers a thread, one block per SM, in place of 64-point tiles at
 128 registers, two blocks per SM, and times it beside the source as it is,
 in turns (as built, one block, one block, as built); with ``--kernel k1f32
 --one-block`` likewise the float32 K1 at one block per SM (up to 255
-registers a thread) in place of two (up to 128).
+registers a thread) in place of two (up to 128), and with ``--kernel k5tan``
+or ``k5tanf32`` K5's tangent body at one block per SM (its geometry then
+stages every W_m once a group in the tensor-core body).
 
 With ``--kernel k2|k6|k8 --ablate`` it also builds three variants of the
 kernel's source and its shared header ``stack_tc.cuh`` (text edits of a copy,
@@ -134,6 +140,10 @@ LINEAR_PHASES = [
     "the group's loss partial (and set-up)",
 ]
 
+# The phases of K5's float32 tangent body (K6's forward half; the first
+# four marks of SOB_PHASES)
+TAN_PHASES = SOB_PHASES[:3] + ["last product + y, jac stores"]
+
 # The phases of the float32 K1 and K5's float32 reverse body; K1 marks the
 # first four
 FWD_PHASES = [
@@ -208,6 +218,13 @@ KERNELS = {
     "k3f32": ("shapenet_bwd", "K2F_PHASE_CLOCKS", "nif_bwd_phase_cycles", SIMT_PHASES),
     "k7f32": ("shapenet_hess", "K8F_PHASE_CLOCKS", "nif_hess_phase_cycles", HESS_PHASES[:4]),
     "k6f32": ("shapenet_jac", "K6F_PHASE_CLOCKS", "nif_jac_phase_cycles", SOB_PHASES),
+    "k5tanf32": ("shapenet_jac", "K6F_PHASE_CLOCKS", "nif_jac_phase_cycles", TAN_PHASES),
+    "k5tan": ("shapenet_jac_tc", "K5T_PHASE_CLOCKS", "nif_fwd_jac_tan_tc_phase_cycles", [
+        "x tile + first layer (all streams)",
+        "hidden forward (products + epilogues)",
+        "last product",
+        "y, jac stores (and the group's set-up)",
+    ]),
     "k4f32": ("shapenet_linear", "K4F_PHASE_CLOCKS", "nif_linear_phase_cycles", LINEAR_PHASES),
     "k1f32": ("shapenet_fwd", "K1F_PHASE_CLOCKS", "nif_fwd_phase_cycles", FWD_PHASES[:4]),
     "k5f32": ("shapenet_fwd", "K1F_PHASE_CLOCKS", "nif_fwd_phase_cycles", FWD_PHASES),
@@ -322,20 +339,26 @@ def k5_case(G: int, P: int):
     return lambda: fd.shapenet_fwd_jac_cuda(wb, x, cfg, "siren"), geo
 
 
-# K1 at one block per SM: the tensor-core K1 on 128-point tiles (the edits
-# of its two constants), the float32 K1 on its own tiles at up to 255
-# registers a thread (the edit of its blocks-per-SM constant)
+# One block per SM: the tensor-core K1 on 128-point tiles (the edits of its
+# two constants), the float32 K1 on its own tiles at up to 255 registers a
+# thread, and K5's tangent bodies likewise (the edit of their blocks-per-SM
+# constant)
+_TAN_ONE = (None, "constexpr int kTanBlocksPerSm = 2;", "constexpr int kTanBlocksPerSm = 1;")
 ONE_BLOCK = {
     "k1": ("shapenet_fwd_tc", [
         (None, "constexpr int kFwdTp = 64; ", "constexpr int kFwdTp = 128;"),
         (None, "constexpr int kFwdBlocksPerSm = 2;", "constexpr int kFwdBlocksPerSm = 1;")]),
     "k1f32": ("shapenet_fwd", [
         (None, "constexpr int kK1BlocksPerSm = 2;", "constexpr int kK1BlocksPerSm = 1;")]),
+    "k5tan": ("shapenet_jac_tc", [_TAN_ONE]),
+    "k5tanf32": ("shapenet_jac", [_TAN_ONE]),
 }
+# K5's tangent bodies are timed at si = so = 3, the flagship widths
+TANGENT_SHAPE = dict(FLAGSHIP_SHAPE, input_dim=3, output_dim=3)
 
 
 def one_block(kernel: str, run) -> None:
-    """K1 as built and at one block per SM, timed in turns."""
+    """A kernel as built and at one block per SM, timed in turns."""
     name, edits = ONE_BLOCK[kernel]
     cfg = ShapeNetConfig.from_dict(FLAGSHIP_SHAPE)
     libs = {"as built": _build.load_library(name),
@@ -346,10 +369,17 @@ def one_block(kernel: str, run) -> None:
             fs._fwd_tc_library()
             geo = fs._k1_tc_status(cfg, "siren", 32, 32768)[1]
             where = f"{geo['splits']} splits"
-        else:
+        elif kernel == "k1f32":
             fs._library()
             geo = fs.k1_geometry(cfg, "siren", 32, 32768, torch.float32)
             where = f"{geo['blocks']} blocks, {geo['blocks_per_sm']} an SM"
+        else:
+            fd._library("tc" if kernel == "k5tan" else "simt")
+            dtype = torch.bfloat16 if kernel == "k5tan" else torch.float32
+            geo = fd.derivative_geometry("tangent", ShapeNetConfig.from_dict(TANGENT_SHAPE),
+                                         "siren", 32, 32768, dtype)
+            where = (f"{geo['blocks']} blocks, {geo['blocks_per_sm']} an SM, weights from "
+                     f"{geo['weights']} memory")
         print(f"{kernel.upper()} {label:10s} ({geo['tile']}-point tiles, {where}, "
               f"{geo['smem_bytes']} bytes of shared memory): {cuda_ms(run, reps=20):.4f} ms",
               flush=True)
@@ -443,6 +473,16 @@ def k5f32_case(G: int, P: int):
     return lambda: fd.shapenet_fwd_jac_cuda(wb, x, cfg, "siren"), geo
 
 
+def k5tan_case(G: int, P: int, dtype=torch.bfloat16):
+    """K5's tangent body's launcher and geometry at si = so = 3, the
+    flagship widths: bf16 on the tensor cores (float32 for k5tanf32, on
+    K6's forward half)."""
+    cfg = ShapeNetConfig.from_dict(TANGENT_SHAPE)
+    wb, x = chip_smoke.chain_data(torch, cfg, G, P, dtype, seed=216)
+    geo = fd.derivative_geometry("tangent", cfg, "siren", G, P, dtype)
+    return lambda: fd.shapenet_fwd_jac_cuda(wb, x, cfg, "siren"), geo
+
+
 def device_split(run, reps: int) -> None:
     """Device time per kernel name over ``reps`` calls (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
@@ -499,12 +539,13 @@ def main() -> int:
     ap.add_argument("--ablate", action="store_true",
                     help="K2, K6 and K8 only: also time variants without parts of their dW")
     ap.add_argument("--one-block", action="store_true",
-                    help="K1 only (k1, k1f32): also time K1 at one block per SM")
+                    help="K1 and K5's tangent body only (k1, k1f32, k5tan, k5tanf32): "
+                         "also time it at one block per SM")
     args = ap.parse_args()
     if args.ablate and args.kernel not in ("k2", "k6", "k8"):
         ap.error("--ablate takes --kernel k2, k6 or k8")
     if args.one_block and args.kernel not in ONE_BLOCK:
-        ap.error("--one-block takes --kernel k1 or k1f32")
+        ap.error("--one-block takes --kernel k1, k1f32, k5tan or k5tanf32")
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 1
@@ -516,7 +557,9 @@ def main() -> int:
     cases = {"k1": k1_case, "k2": k2_case, "k2f32": k2f32_case, "k3f32": k3f32_case,
              "k4": k4_case, "k5": k5_case, "k6": k6_case, "k7": k7_case, "k8": k8_case,
              "k7f32": k7f32_case, "k8f32": k8f32_case, "k6f32": k6f32_case,
-             "k4f32": k4f32_case, "k1f32": k1f32_case, "k5f32": k5f32_case}
+             "k4f32": k4f32_case, "k1f32": k1f32_case, "k5f32": k5f32_case,
+             "k5tan": k5tan_case,
+             "k5tanf32": lambda G, P: k5tan_case(G, P, torch.float32)}
     run, geo = cases[args.kernel](G, P)
     reps = 3 if args.kernel in ("k8", "k7f32", "k8f32", "k6f32") else 10
     plain_build_ms = cuda_ms(run, reps=reps, warmup=1)
@@ -528,7 +571,8 @@ def main() -> int:
                 "k8": lambda: fh._library("tc"), "k7f32": lambda: fh._library("simt"),
                 "k8f32": lambda: fh._library("simt"), "k6f32": lambda: fd._library("simt"),
                 "k4f32": lambda: fl._library("simt"), "k1f32": fs._library,
-                "k5f32": fs._library}[args.kernel]
+                "k5f32": fs._library, "k5tan": lambda: fd._library("tc"),
+                "k5tanf32": lambda: fd._library("simt")}[args.kernel]
     simt = name in ("shapenet_bwd", "shapenet_hess", "shapenet_jac", "shapenet_linear",
                     "shapenet_fwd")
     if simt:

@@ -197,26 +197,27 @@ def test_simt_header_edit_renames_only_the_k2_k3_library(tmp_path, monkeypatch):
 def test_phase_probe_reads_every_counter_array():
     """The phase probe's counter buffer holds the longest array a probe
     build's C entry copies out, so no read runs past it; and each kernel the
-    probe splits (the float32 K1/K5-reverse, K4, K6 and K7/K8 bodies' among
-    them) names a source that builds its counter array under the probe's
-    define, defines the entry the probe reads, and counts at least the
-    phases the probe prints."""
+    probe splits (the float32 K1/K5-reverse, K4, K6 and K7/K8 bodies' and
+    K5's tangent bodies among them) names a source that builds its counter
+    array under the probe's define, defines the entry the probe reads, and
+    counts at least the phases the probe prints in that array."""
     path = _build.CSRC.parents[1] / "scripts" / "port_phase_probe.py"
     probe = path.read_text()
     room = int(re.search(r"^COUNTER_ROOM = (\d+)$", probe, re.MULTILINE).group(1))
     counts = [int(n) for path in _build.CSRC.glob("*.cu")
-              for n in re.findall(r"constexpr int kPhases = (\d+);", path.read_text())]
+              for n in re.findall(r"constexpr int k\w*Phases = (\d+);", path.read_text())]
     assert counts and room >= max(counts)
     spec = importlib.util.spec_from_file_location("port_phase_probe", path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    assert {"k1f32", "k2f32", "k3f32", "k4f32", "k5f32", "k6f32", "k7f32",
+    assert {"k1f32", "k2f32", "k3f32", "k4f32", "k5f32", "k5tan", "k5tanf32", "k6f32", "k7f32",
             "k8f32"} <= set(module.KERNELS)
     for kernel, (name, define, entry, phases) in module.KERNELS.items():
         source = (_build.CSRC / f"{name}.cu").read_text()
         block = source[source.index(f"#ifdef {define}"):]
         assert re.search(rf"^int {entry}\(unsigned long long\* out\)", block, re.MULTILINE), kernel
-        n = re.search(r"constexpr int kPhases = (\d+);", source)
+        size = re.search(r"__device__ unsigned long long \w+\[(\w+)\];", block).group(1)
+        n = re.search(rf"constexpr int {size} = (\d+);", source)
         assert n and len(phases) <= int(n.group(1)) <= room, kernel
 
 

@@ -504,3 +504,53 @@ def test_sobolev_fit_lowers_both_terms():
     assert after["jacobian_mse"] < before["jacobian_mse"]
     assert tt.history["loss"][-1] < tt.history["loss"][0]
     assert "path" not in tt.history and tt.history["sobolev_path"] == "eager"
+
+
+# Tutorial 8's model (examples/08_sobolev_training.py, _CFG_S / _CFG_P): a
+# 1 -> 1 SIREN ShapeNet of width 30, two hidden layers, omega_0 = 30, whose
+# Jacobian evaluation (so >= si) takes K5's tangent body.
+TUTORIAL8_S = {"connectivity": "full", "input_dim": 1, "output_dim": 1, "units": 30,
+               "nlayers": 2, "weight_init_factor": 0.01, "omega_0": 30.0,
+               "activation": "sine", "use_resblock": False}
+TUTORIAL8_P = {"input_dim": 1, "latent_dim": 1, "units": 30, "nlayers": 2,
+               "activation": "swish", "use_resblock": False, "omega_0": 30.0}
+
+
+def test_tutorial8_evaluate_sobolev_matches_jax():
+    """The slice end to end on the CPU, float32: tutorial 8's model (the
+    JAX model draws the parameters, ``from_jax_params`` carries them) under
+    ``GroupedTrainer.evaluate_sobolev`` at G = 3, P = 256 in chunks of two
+    groups, against the JAX package's, every term rel 1e-5; and its grouped
+    ``(y, jac)`` through plain K5's tangent body (``fused=True``) against
+    the JAX package's fused path, y and jac normalized by max|ref| atol
+    2e-5 (K5's bound above)."""
+    jm, _, tm = _models(TUTORIAL8_S, TUTORIAL8_P)
+    cfg = tcfg.ShapeNetConfig.from_dict(TUTORIAL8_S)
+    assert fd._jac_mode(cfg, cfg.input_dim) == "tangent"
+    rng = np.random.default_rng(88)
+    t = rng.uniform(-1, 1, (3, 1)).astype(np.float32)
+    x = rng.uniform(-1, 1, (3, 256, 1)).astype(np.float32)
+    u = rng.standard_normal((3, 256, 1)).astype(np.float32)
+    ju = rng.standard_normal((3, 256, 1, 1)).astype(np.float32)
+    jt = JaxGroupedTrainer(jm, optax.adam(1e-4), seed=0, w_jac=0.5)
+    js = jt.init(jax.random.key(8))
+    params = js.params
+    tt = GroupedTrainer(tm, lambda p: torch.optim.Adam(p, lr=1e-4), seed=0, w_jac=0.5)
+    ts = tt.init(0)
+    from_jax_params(tm, jax.tree_util.tree_map(np.asarray, params))
+    mine = tt.evaluate_sobolev(ts, t, x, u, ju, group_batch=2)
+    ref = jt.evaluate_sobolev(js, t, x, u, ju, group_batch=2)
+    assert mine.keys() == ref.keys() == {"value_mse", "jacobian_mse", "total"}
+    for k in ref:
+        assert mine[k] == pytest.approx(ref[k], rel=1e-5), k
+    before = dict(_build.LAUNCHES)
+    y, jac = td.output_and_jacobian_grouped(tm, torch.from_numpy(t), torch.from_numpy(x),
+                                            fused=True)
+    assert _build.LAUNCHES == before  # plain K5 on the CPU
+    y_ref, jac_ref = jd.output_and_jacobian_grouped(jm, params, jnp.asarray(t), jnp.asarray(x),
+                                                    fused=True)
+    for mine_a, ref_a in ((y, y_ref), (jac, jac_ref)):
+        ref_a = np.asarray(ref_a)
+        assert mine_a.shape == ref_a.shape
+        scale = np.abs(ref_a).max()
+        np.testing.assert_allclose(mine_a.detach().numpy() / scale, ref_a / scale, atol=2e-5)

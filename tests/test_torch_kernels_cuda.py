@@ -31,9 +31,12 @@ chains the tensor-core kernel (``shapenet_jac_tc.cu``), f32 K6 and vanilla
 chains the CUDA-core one (``shapenet_jac.cu``); bf16 K2 on sine chains the
 tensor-core kernel (``shapenet_bwd_tc.cu``), f32 K2 and vanilla chains the
 CUDA-core one (``shapenet_bwd.cu``); bf16 K1 and K5's reverse body on sine
-chains the tensor-core kernels (``shapenet_fwd_tc.cu``), f32, vanilla
-chains and K5's tangent body the CUDA-core ones (``shapenet_fwd.cu``,
-``shapenet_jac.cu``); each checked by its launch counter; the tensor-core
+chains the tensor-core kernels (``shapenet_fwd_tc.cu``), K5's tangent body
+(so >= si) the tensor-core one beside K6 (``shapenet_jac_tc.cu``), f32 and
+vanilla chains the CUDA-core ones (``shapenet_fwd.cu``; ``shapenet_jac.cu``,
+whose tangent body is K6's forward half, and the first port's stacked body
+at si > 4); each checked by its launch counter and, for K5's tangent body,
+the body its geometry names; the tensor-core
 K6's terms within rel 1e-4 of the plain version's, the tensor-core K1, K2,
 K5 and K7 within the bf16 bounds above. A bf16 chain a tensor-core kernel
 refuses for shared memory runs on the CUDA-core one."""
@@ -375,13 +378,78 @@ def test_k5_matches_plain(card, variant, args, dtype):
     before = dict(_build.LAUNCHES)
     y, jac = fd.shapenet_fwd_jac(wb, x, cfg, variant)
     assert _build.LAUNCHES["shapenet_fwd_jac"] == before["shapenet_fwd_jac"] + 1
-    # the reverse body (so < si) of bf16 sine chains on the tensor-core K5
-    tc = dtype == torch.bfloat16 and variant == "siren" and cfg.output_dim < cfg.input_dim
+    # both bodies of bf16 sine chains on the tensor-core K5 (the reverse body
+    # for so < si, the tangent body otherwise)
+    tc = dtype == torch.bfloat16 and variant == "siren"
     assert _build.LAUNCHES["shapenet_fwd_jac_tc"] == before["shapenet_fwd_jac_tc"] + int(tc)
     y_ref, jac_ref = fd.shapenet_fwd_jac_reference(wb, x, cfg, variant)
     assert y.dtype == jac.dtype == dtype and jac.shape == (3, 264, cfg.output_dim, cfg.input_dim)
     _close_rel(y, y_ref, dtype)
     _close_rel(jac, jac_ref, dtype)
+
+
+# K5's tangent body (so >= si) beyond CASES: tutorial 8's chain (1 -> 1,
+# width 30), si = so = 2 on a resblock chain, si = so = 4 at widths 16 and
+# 192 (two column blocks a warp in the tensor-core body), and a vanilla
+# chain, which bf16 runs on the CUDA-core body; si = so = 5 takes the
+# stacked body in both dtypes. (variant, args, body in f32, body in bf16)
+TANGENT_CASES = [
+    ("siren", (1, 1, 30, 2, "sine", False, 30.0), "simt", "tc"),
+    ("siren", (2, 2, 64, 2, "sine", True, 10.0), "simt", "tc"),
+    ("siren", (4, 4, 16, 2, "sine", False, 30.0), "simt", "tc"),
+    ("siren", (4, 4, 192, 1, "sine", False, 30.0), "simt", "tc"),
+    ("vanilla", (2, 3, 48, 2, "swish"), "simt", "simt"),
+    ("siren", (5, 5, 32, 1, "sine", False, 30.0), "stacked", "stacked"),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("variant,args,f32_body,bf16_body", TANGENT_CASES,
+                         ids=["tutorial8", "si2-res", "si4-n16", "si4-n192", "vanilla", "si5"])
+def test_k5_tangent_bodies_match_plain(card, variant, args, f32_body, bf16_body, dtype):
+    """K5's tangent body at P = 200 (a ragged last tile) against plain K5,
+    through the body its geometry names: the tensor-core one (counted under
+    ``shapenet_fwd_jac_tc`` too), the CUDA-core K6's forward half ("simt")
+    or, for si > 4, the first port's "stacked" body; y and jac within K5's
+    bounds."""
+    cfg = ShapeNetConfig(*args)
+    body = f32_body if dtype == torch.float32 else bf16_body
+    geo = fd.derivative_geometry("tangent", cfg, variant, 3, 200, dtype)
+    assert geo["body"] == body and fd.k5_variant(dtype, cfg, variant) == (
+        "tc" if body == "tc" else "simt")
+    wb, x = _data(cfg, 3, 200, dtype, seed=48)
+    before = dict(_build.LAUNCHES)
+    y, jac = fd.shapenet_fwd_jac(wb, x, cfg, variant)
+    assert _build.LAUNCHES["shapenet_fwd_jac"] == before["shapenet_fwd_jac"] + 1
+    assert (_build.LAUNCHES["shapenet_fwd_jac_tc"]
+            == before["shapenet_fwd_jac_tc"] + int(body == "tc"))
+    y_ref, jac_ref = fd.shapenet_fwd_jac_reference(wb, x, cfg, variant)
+    assert y.dtype == jac.dtype == dtype and jac.shape == (3, 200, cfg.output_dim, cfg.input_dim)
+    _close_rel(y, y_ref, dtype)
+    _close_rel(jac, jac_ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_k5_tangent_body_flagship_width_is_deterministic(card, dtype):
+    """si = so = 3 at the flagship width, G=4, P=8192: float32 on the
+    CUDA-core body (K6's forward half), bf16 on the tensor-core one; two
+    runs give the same bits and agree with plain K5; the CUDA-core body on
+    the same bf16 inputs agrees too."""
+    cfg = ShapeNetConfig(3, 3, 128, 2, "sine", False, 30.0)
+    wb, x = _data(cfg, 4, 8192, dtype, seed=49)
+    before = dict(_build.LAUNCHES)
+    runs = [fd.shapenet_fwd_jac_cuda(wb, x, cfg, "siren") for _ in range(2)]
+    tc = 2 * int(dtype == torch.bfloat16)
+    assert _build.LAUNCHES["shapenet_fwd_jac"] == before["shapenet_fwd_jac"] + 2
+    assert _build.LAUNCHES["shapenet_fwd_jac_tc"] == before["shapenet_fwd_jac_tc"] + tc
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+    y_ref, jac_ref = fd.shapenet_fwd_jac_reference(wb, x, cfg, "siren")
+    _close_rel(runs[0][0], y_ref, dtype)
+    _close_rel(runs[0][1], jac_ref, dtype)
+    if dtype == torch.bfloat16:
+        y, jac = fd._shapenet_fwd_jac_simt(wb, x, cfg, "siren")
+        _close_rel(y, y_ref, dtype)
+        _close_rel(jac, jac_ref, dtype)
 
 
 def _sobolev_side(cfg, G, P, seed):
@@ -487,6 +555,20 @@ def test_derivative_geometry(card):
             assert rev["blocks"] == min(sms, G * 512)
     assert fd.derivative_geometry("reverse", cfg, "siren", 4, 32768,
                                   torch.float32)["kernel"] == "simt"
+    # K5's tangent body at si = so = 3: float32 on K6's forward half, 16-point
+    # tiles, its two planes in shared memory, two blocks per SM in one wave;
+    # bf16 on the tensor-core body, 32-point tiles, two blocks per SM
+    tan = ShapeNetConfig(3, 3, 128, 2, "sine", False, 30.0)
+    t32 = fd.derivative_geometry("tangent", tan, "siren", 32, 32768, torch.float32)
+    assert (t32["kernel"], t32["body"], t32["tile"], t32["residuals"]) == (
+        "simt", "simt", 16, "shared")
+    assert t32["blocks"] == t32["blocks_per_sm"] * sms and t32["blocks_per_sm"] == 2
+    t16 = fd.derivative_geometry("tangent", tan, "siren", 32, 32768, torch.bfloat16)
+    assert (t16["kernel"], t16["body"], t16["tile"], t16["blocks_per_sm"]) == ("tc", "tc", 32, 2)
+    assert t16["blocks"] == 2 * sms and t16["scratch_bytes"] == 0
+    si5 = fd.derivative_geometry("tangent", ShapeNetConfig(5, 5, 64, 1, "sine"), "siren", 4,
+                                 256, torch.float32)
+    assert si5["body"] == "stacked" and si5["tile"] == 64 // 6
     assert "streams" in fd.sobolev_fused_unsupported_reason(
         ShapeNetConfig(9, 1, 1024, 1, "sine"), "siren", 256, 9, card)
 
@@ -690,6 +772,46 @@ def test_model_jacobian_evaluation_launches_one_tc_k5_per_chunk(card):
                                                        model.cfg_shape_net, "siren")
     _close_rel(y, y_ref, torch.bfloat16)
     _close_rel(jac, jac_ref, torch.bfloat16)
+
+
+def test_tutorial8_jacobian_evaluation_launches_one_tangent_body_per_chunk(card):
+    """Tutorial 8's model (1 -> 1, width 30, two hidden layers) under
+    ``evaluate_sobolev``: the tensor-core tangent body once per chunk under
+    the bf16 policy, the CUDA-core one (K6's forward half) once per chunk
+    under float32; its grouped ``(y, jac)`` agrees with plain K5."""
+    from nif_tpu_torch.ops.derivatives import output_and_jacobian_grouped
+    from nif_tpu_torch.training import GroupedTrainer
+
+    cfg_s = {"connectivity": "full", "input_dim": 1, "output_dim": 1, "units": 30,
+             "nlayers": 2, "weight_init_factor": 0.01, "omega_0": 30.0,
+             "activation": "sine", "use_resblock": False}
+    cfg_p = {"input_dim": 1, "latent_dim": 1, "units": 30, "nlayers": 2,
+             "activation": "swish", "use_resblock": False, "omega_0": 30.0}
+    rng = np.random.default_rng(50)
+    t = rng.uniform(-1, 1, (6, 1)).astype(np.float32)
+    x = rng.uniform(-1, 1, (6, 1024, 1)).astype(np.float32)
+    u = rng.standard_normal((6, 1024, 1)).astype(np.float32)
+    jt = rng.standard_normal((6, 1024, 1, 1)).astype(np.float32)
+    for policy, dtype in (("mixed_bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        model = nif_tpu_torch.NIFMultiScale(cfg_s, cfg_p, policy, seed=0)
+        body = fd.derivative_geometry("tangent", model.cfg_shape_net, "siren", 2, 1024,
+                                      dtype)["body"]
+        assert body == ("tc" if dtype == torch.bfloat16 else "simt")
+        trainer = GroupedTrainer(model, lambda p: torch.optim.Adam(p, lr=1e-4))
+        before = dict(_build.LAUNCHES)
+        out = trainer.evaluate_sobolev(trainer.init(0), t, x, u, jt, group_batch=2)
+        assert _build.LAUNCHES["shapenet_fwd_jac"] == before["shapenet_fwd_jac"] + 3
+        assert (_build.LAUNCHES["shapenet_fwd_jac_tc"]
+                == before["shapenet_fwd_jac_tc"] + 3 * int(body == "tc"))
+        assert all(np.isfinite(v) for v in out.values())
+        tt, xt = torch.from_numpy(t).cuda(), torch.from_numpy(x).cuda()
+        with torch.inference_mode():
+            y, jac = output_and_jacobian_grouped(model, tt, xt)
+            wb = model._derivative_weights(tt)
+            y_ref, jac_ref = fd.shapenet_fwd_jac_reference(wb, model._compute(xt),
+                                                           model.cfg_shape_net, "siren")
+        _close_rel(y, y_ref, dtype)
+        _close_rel(jac, jac_ref, dtype)
 
 
 # The Hessian kernels take sine chains only: the SIREN configs, and one with

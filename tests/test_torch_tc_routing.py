@@ -3,8 +3,9 @@ their ctypes bindings, on the CPU (no nvcc needed).
 
 K1, K2, K5 and K7, like K4, K6 and K8, have a tensor-core variant for
 bfloat16 and a CUDA-core one for float32: without a chain the choice reads
-the dtype alone, and a float32 input never asks a library (nor does K5's
-tangent body, which the tensor-core K5 does not implement). On CPU tensors the entries run the
+the dtype alone, a float32 input never asks a library, and a bfloat16 one
+with a chain asks only the library of the tensor-core body its mode takes
+(K5's reverse body, so < si, or its tangent body). On CPU tensors the entries run the
 plain versions and launch nothing, and the CUDA wrappers refuse CPU tensors
 before they load a library. Each wrapper's ``argtypes`` must match the C
 signature of the entry in its source (a ctypes mismatch passes a pointer as
@@ -56,20 +57,73 @@ def test_variant_by_dtype_asks_no_library(pick, dtype, variant, monkeypatch):
         assert pick(dtype, ShapeNetConfig(*SIREN), "siren") == "simt"
 
 
-@pytest.mark.parametrize("args", [(2, 2, 16, 1, "sine", False, 30.0), RESBLOCK,
-                                  (1, 3, 16, 2, "sine", False, 30.0)],
-                         ids=["so2-si2", "resblock", "so3-si1"])
+TANGENT_CHAINS = [(2, 2, 16, 1, "sine", False, 30.0), RESBLOCK, (1, 3, 16, 2, "sine", False, 30.0)]
+TANGENT_IDS = ["so2-si2", "resblock", "so3-si1"]
+
+
+@pytest.mark.parametrize("args", TANGENT_CHAINS, ids=TANGENT_IDS)
 def test_k5_tangent_body_runs_on_the_cuda_core_kernel_without_a_library(args, monkeypatch):
-    """so >= si takes K5's tangent body, which only the CUDA-core kernel
-    has: bfloat16 picks it without asking any library."""
+    """so >= si takes K5's tangent body: float32 runs it on the CUDA-core
+    kernel, decided without asking any library, with the chain given or not;
+    bfloat16 without a chain prefers the tensor-core kernel, also without a
+    library."""
     def no_library(name):
         raise AssertionError(f"asked the {name} library")
 
     monkeypatch.setattr(_build, "load_library", no_library)
     cfg = ShapeNetConfig(*args)
     assert fd._jac_mode(cfg, cfg.input_dim) == "tangent"
-    assert fd.k5_variant(torch.bfloat16, cfg, "siren") == "simt"
-    assert fd.k5_variant(torch.bfloat16, cfg, "siren", cfg.input_dim) == "simt"
+    assert fd.k5_variant(torch.float32, cfg, "siren") == "simt"
+    assert fd.k5_variant(torch.float32, cfg, "siren", cfg.input_dim) == "simt"
+    assert fd.k5_variant(torch.bfloat16) == "tc"
+
+
+class _StatusLibrary:
+    """A library whose workspace entries return a fixed status and record
+    their calls."""
+
+    def __init__(self, status):
+        self.status, self.calls = status, []
+
+    def __getattr__(self, name):
+        if not name.startswith("nif_"):
+            raise AttributeError(name)
+        entry = _StatusEntry(self, name)
+        setattr(self, name, entry)
+        return entry
+
+
+class _StatusEntry:
+    argtypes = None
+    restype = None
+
+    def __init__(self, lib, name):
+        self.lib, self.name = lib, name
+
+    def __call__(self, *args):
+        self.lib.calls.append(self.name)
+        return self.lib.status
+
+
+@pytest.mark.parametrize("status,kernel", [(0, "tc"), (2, "simt")], ids=["fits", "refused"])
+@pytest.mark.parametrize("args", TANGENT_CHAINS, ids=TANGENT_IDS)
+def test_k5_tangent_body_in_bf16_asks_only_the_tensor_core_library(args, status, kernel,
+                                                                   monkeypatch):
+    """Given a chain, bfloat16 K5 at so >= si asks the tensor-core tangent
+    body's workspace entry (``shapenet_jac_tc``), and nothing else, whether
+    it takes the shape: "tc" where it does, "simt" (the CUDA-core body)
+    where it does not."""
+    libs = {"shapenet_jac_tc": _StatusLibrary(status)}
+
+    def load(name):
+        if name not in libs:
+            raise AssertionError(f"asked the {name} library")
+        return libs[name]
+
+    monkeypatch.setattr(_build, "load_library", load)
+    cfg = ShapeNetConfig(*args)
+    assert fd.k5_variant(torch.bfloat16, cfg, "siren") == kernel
+    assert libs["shapenet_jac_tc"].calls == ["nif_shapenet_fwd_jac_tan_tc_workspace"]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -186,17 +240,23 @@ def test_k5_cuda_core_bodies_launch_from_their_libraries(args, dtype, library, e
                                                           monkeypatch):
     """K5 on the CUDA cores: the reverse body (so < si) launches the
     ``shapenet_fwd`` library's reverse entry, one body with the CUDA-core
-    K1; the tangent body (so >= si) ``shapenet_jac``'s entry. Stub
-    libraries stand in for the built ones, and each loads only its own."""
+    K1; the tangent body (so >= si) ``shapenet_jac``'s entry, one body
+    template with the CUDA-core K6 (bfloat16 where the tensor-core tangent
+    body refuses the shape: of its library only the workspace entry is
+    asked). Stub libraries stand in for the built ones, and each loads only
+    its own."""
     libs = {name: _FakeLibrary() for name in ("shapenet_fwd", "shapenet_jac", "shapenet_fwd_tc")}
+    libs["shapenet_jac_tc"] = _StatusLibrary(2)
     monkeypatch.setattr(_build, "load_library", lambda name: libs[name])
     cfg = ShapeNetConfig(*args)
     kernel = fd.k5_variant(dtype, cfg, "siren")
     assert kernel == "simt"
+    asked = [] if dtype == torch.float32 else ["nif_shapenet_fwd_jac_tan_tc_workspace"]
+    assert libs["shapenet_jac_tc"].calls == asked
     lib, fn = fd._k5_entry(kernel, fd._jac_mode(cfg, cfg.input_dim))
     assert lib is libs[library] and fn is getattr(libs[library], entry)
     assert fn.argtypes is not None and fn.restype is ctypes.c_int
-    others = set(libs) - {library}
+    others = set(libs) - {library, "shapenet_jac_tc"}
     assert not any(vars(libs[name]) for name in others), "another library was bound"
 
 
@@ -208,6 +268,28 @@ def test_k5_tensor_core_body_launches_from_the_tensor_core_library(monkeypatch):
     lib, fn = fd._k5_entry("tc", "reverse")
     assert lib is libs["shapenet_fwd_tc"] and fn is libs["shapenet_fwd_tc"].nif_shapenet_fwd_jac_tc
     assert not vars(libs["shapenet_fwd"]) and not vars(libs["shapenet_jac"])
+
+
+@pytest.mark.parametrize("args", TANGENT_CHAINS, ids=TANGENT_IDS)
+def test_k5_tensor_core_tangent_body_launches_from_the_k6_tensor_core_library(args,
+                                                                              monkeypatch):
+    """Where the tensor-core tangent body takes a bfloat16 chain
+    (so >= si), K5 launches ``shapenet_jac_tc``'s tangent entry, beside the
+    tensor-core K6, with the argument types of its C signature, and binds
+    no other library."""
+    names = ("shapenet_fwd", "shapenet_jac", "shapenet_fwd_tc")
+    libs = {name: _FakeLibrary() for name in names}
+    libs["shapenet_jac_tc"] = _StatusLibrary(0)
+    monkeypatch.setattr(_build, "load_library", lambda name: libs[name])
+    cfg = ShapeNetConfig(*args)
+    kernel = fd.k5_variant(torch.bfloat16, cfg, "siren")
+    assert kernel == "tc"
+    lib, fn = fd._k5_entry(kernel, fd._jac_mode(cfg, cfg.input_dim))
+    assert lib is libs["shapenet_jac_tc"] and fn is lib.nif_shapenet_fwd_jac_tan_tc
+    sig = _c_signatures((_build.CSRC / "shapenet_jac_tc.cu").read_text())
+    assert list(fn.argtypes) == sig["nif_shapenet_fwd_jac_tan_tc"]
+    assert fn.restype is ctypes.c_int
+    assert not any(vars(libs[name]) for name in names), "another library was bound"
 
 
 @pytest.mark.parametrize("policy,dtype", [("float32", torch.float32),
