@@ -196,6 +196,43 @@ Phases of the NIF-linear slice:
    CUDA-core K4, plain K4 and the eager step (autograd over the eager trunk +
    Adam), and compute both K4 bounds on this card.
 
+Phases of the resident slice:
+
+3g. Train the flagship resident (``GroupedTrainer.fit_resident``): a
+   traveling wave of G=64 x P=65536 (x 50.3 MB, u 16.8 MB of float32) staged
+   on the card, steps of the flagship shape [32, 32768] drawn there. In both
+   policies, three epochs (6 steps) through the CUDA graph against a loop of
+   ``GroupedTrainer.step`` on a copy of the model over the same batches
+   (re-drawn from the seed by ``ResidentData``, run after the fit and
+   outside its counts): the same losses and parameters bit for bit with a
+   capturable Adam (the whole step captured), with a plain Adam
+   (``opt.step()`` after each replay) and with a ``LearningRateScheduler``
+   over a capturable Adam and a capturable AdamW with weight decay (one
+   capture: the whole-step graph reads the learning rate from a device
+   tensor). Each ``fit_resident`` call runs alone under
+   ``torch.profiler`` with the launch counts reset just before it: its K2
+   wrapper launches once in the eager first step and once a capture, and
+   the trace counts one K2 a step (the tensor-core kernel in bf16, the
+   CUDA-core one in float32) and no K1, K3, K6 or K8. Resident Sobolev and
+   Hessian fits (random targets, G=16 x P=32768, [8, 16384] batches, 6
+   steps) count one K6 or K8 a step in both policies. Tutorial 8's
+   ``main_trainer`` and ``main_hessian`` at their own shapes (G=10, 256
+   points, full batch, 300 epochs) lower the loss through one K6 or K8 a
+   step. A residual resident fit (``resample_every=2``, 4 epochs) launches
+   K1 once per 4M-point chunk at each refresh, and 50000 residual draws of
+   one group follow its probabilities (chi-square over 100 equal-mass bins,
+   p > 1e-3). The point-wise ``Trainer`` with tutorial 1's model on
+   ``TravelingWave`` (1500 epochs of batch 512) halves its loss.
+4f. Time the resident MSE step over 50 steps in one chunk in both policies
+   and both graph forms (CUDA events around the replays, the host clock of
+   the whole call, the capture), the device's busy share over 10 replays,
+   the kernels a replay and the sampler alone; beside them
+   ``GroupedTrainer.step`` synchronized and ``fit`` from host arrays at the
+   same batch shape, with ``fit``'s host stages; the resident Sobolev and
+   Hessian steps (10 steps each); and tutorial 8's resident Sobolev step
+   (G=10 x 256, full batch, a step an epoch) in both graph forms, with and
+   without a learning-rate schedule.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the
 ``{"kernels": [...]}`` record, and before that the card's name and power
 limit and the run's wall-clock seconds. Exits non-zero without CUDA or
@@ -271,6 +308,11 @@ TUTORIAL8_S = {"connectivity": "full", "input_dim": 1, "output_dim": 1, "units":
                "activation": "sine", "use_resblock": False}
 TUTORIAL8_P = {"input_dim": 1, "latent_dim": 1, "units": 30, "nlayers": 2,
                "activation": "swish", "use_resblock": False, "omega_0": 30.0}
+# Tutorial 1's model (examples/01_simple_1d_wave.py).
+TUTORIAL1_S = {"input_dim": 1, "output_dim": 1, "units": 30, "nlayers": 2,
+               "activation": "swish"}
+TUTORIAL1_P = {"input_dim": 1, "latent_dim": 1, "units": 30, "nlayers": 2,
+               "activation": "swish"}
 # Tutorial 3's NIF-linear model (examples/03_multi_scale_linear_nif.py): its
 # effective chain for the derivative kernels is si = so = 2, width 30.
 TUTORIAL3_S = {"connectivity": "last_layer", "input_dim": 2, "output_dim": 2, "units": 30,
@@ -1196,6 +1238,493 @@ def train_bounds(cfg, G, P, peak_mma, peak_f32, peak_bw, dx: bool, f32: bool = F
     t_ops = ((flops + act) / peak_f32 if f32 else max(flops / peak_mma, act / peak_f32)) * 1e3
     t_bytes = nbytes / peak_bw * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops / 1e9
+
+
+# The resident dataset of phases 3g and 4f: the flagship's inputs at G=64
+# groups of P=65536 points (x 50.3 MB and u 16.8 MB of float32), trained at
+# the flagship step shape, 32 groups of 32768 points, drawn on the device.
+RESIDENT_G, RESIDENT_P = 64, 65536
+RESIDENT_GB, RESIDENT_PB = 32, 32768
+# The main kernel of each fused pass as a torch.profiler trace names it,
+# (tensor-core, CUDA-core); K3 shares K2's CUDA-core kernel, so a CUDA-core
+# count above the replays would be a K3.
+PASS_KERNELS = {
+    "K1": ("fwd_tc_kernel", "fwd_simt_kernel"),
+    "K2": ("mse_tc_kernel", "simt_train_kernel"),
+    "K6": ("sob_tc_kernel", "sob_simt_kernel"),
+    "K8": ("hess_tc_kernel", "hess_simt_kernel"),
+}
+
+
+def device_kernels(prof):
+    """``[(name, count, device us)]`` of the device kernels in a
+    ``torch.profiler`` trace: a CPU op's self device time repeats its
+    kernels', and a user annotation spans them, so both are left out."""
+    return [(e.key, e.count, e.self_device_time_total) for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def kernel_count(kernels, name: str) -> int:
+    """Launches of the kernel called ``name`` (the whole identifier: K7's
+    fwd_hess_tc_kernel is no hess_tc_kernel) among ``device_kernels``."""
+    import re
+
+    pattern = re.compile(r"(^|[^A-Za-z0-9_])" + name + r"([^A-Za-z0-9_]|$)")
+    return sum(c for k, c, _ in kernels if pattern.search(k))
+
+
+def pass_counts(kernels):
+    """``{"K1": (tc, simt), ...}``: launches of each pass's two kernels."""
+    return {p: tuple(kernel_count(kernels, n) for n in names)
+            for p, names in PASS_KERNELS.items()}
+
+
+def profiled_fit(torch, trainer, state, *args, **kw):
+    """One ``trainer.fit_resident(state, *args, **kw)`` call alone under
+    ``torch.profiler``, the launch counts reset just before it and read just
+    after: ``(state, device kernels, wrapper launch counts)``."""
+    from nif_tpu_torch.ops import _build
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        _build.reset_launches()
+        state = trainer.fit_resident(state, *args, **kw)
+        launches = dict(_build.LAUNCHES)
+        torch.cuda.synchronize()
+    return state, device_kernels(prof), launches
+
+
+def check_resident_launches(what, history, kernels, launches, pass_name, wrapper, steps, tc):
+    """A ``profiled_fit`` call went through ``pass_name``'s kernel once a
+    step (the tensor-core one when ``tc``) and through no other fused pass,
+    and its wrapper launched once in the eager first step and once a
+    capture (``history["resident_capture_ms"]`` lists the captures).
+    Returns the pass counts."""
+    counts = pass_counts(kernels)
+    captures = len(history["resident_capture_ms"])
+    others = {p: c for p, c in counts.items() if p != pass_name}
+    if (counts[pass_name] != ((steps, 0) if tc else (0, steps))
+            or any(sum(c) for c in others.values())
+            or launches[wrapper] != 1 + captures):
+        raise AssertionError(f"{what}: {steps} resident steps launched {counts} in the trace, "
+                             f"{wrapper} {launches[wrapper]} times with {captures} captures")
+    return counts
+
+
+def profile_replays(torch, trainer, state, data, n):
+    """Phase 4f's measure of the replays alone: the resident loop's eager
+    first step and its capture (with one replay), then ``n`` replays under
+    ``torch.profiler``: ``(kernels, busy share of the window, window ms)``,
+    the window timed by CUDA events and the busy time summed over the device
+    kernels."""
+    from nif_tpu_torch.training.resident import ResidentLoop
+
+    loop = ResidentLoop(trainer, state.opt_state, data, n + 2)
+    loop.run(1)
+    loop.run(1)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with torch.profiler.profile(activities=acts) as prof:
+        a.record()
+        loop.run(n)
+        b.record()
+        torch.cuda.synchronize()
+    losses = loop.losses(0, n + 2)
+    loop.close()
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"resident losses {losses}")
+    kernels = device_kernels(prof)
+    window_ms = a.elapsed_time(b)
+    return kernels, sum(us for _, _, us in kernels) / (window_ms * 1e3), window_ms
+
+
+def resident_trainer(torch, policy, seed, capturable=True, adamw=False, **weights):
+    """The flagship model (random weights from ``seed``) under a
+    ``GroupedTrainer`` with Adam (``adamw``: AdamW with weight decay 1e-2) at
+    the bench's lr: ``(trainer, state)``."""
+    import nif_tpu_torch
+    from nif_tpu_torch.training import GroupedTrainer
+    from nif_tpu_torch.utils.bench import FLAGSHIP_PNET, FLAGSHIP_SHAPE, FLAGSHIP_TRAIN_LR
+
+    model = nif_tpu_torch.NIFMultiScale(FLAGSHIP_SHAPE, FLAGSHIP_PNET, policy, device="cuda",
+                                        seed=seed)
+    if adamw:
+        make = lambda p: torch.optim.AdamW(  # noqa: E731
+            p, lr=FLAGSHIP_TRAIN_LR, weight_decay=1e-2, capturable=capturable)
+    else:
+        make = lambda p: torch.optim.Adam(  # noqa: E731
+            p, lr=FLAGSHIP_TRAIN_LR, capturable=capturable)
+    trainer = GroupedTrainer(model, make, **weights)
+    return trainer, trainer.init(seed)
+
+
+def resident_matches_eager(torch, policy, data_np, capturable, schedule=None, adamw=False,
+                           epochs=3):
+    """``fit_resident`` (the CUDA graph, alone under ``profiled_fit``)
+    against a loop of ``GroupedTrainer.step`` on a copy of the model over
+    the same batches, re-drawn from the same seed after the fit: ``(same
+    losses, same parameters and learning rates, history, eager losses,
+    kernels, launches)``, each "same" bit for bit."""
+    from nif_tpu_torch.training import LearningRateScheduler
+    from nif_tpu_torch.training.resident import ResidentData
+
+    t, x, u = data_np
+    seed = 11
+    trainer, state = resident_trainer(torch, policy, 5, capturable, adamw)
+    callbacks = [LearningRateScheduler(schedule)] if schedule else []
+    state, kernels, launches = profiled_fit(
+        torch, trainer, state, t, x, u, epochs=epochs, group_batch=RESIDENT_GB,
+        point_batch=RESIDENT_PB, seed=seed, callbacks=callbacks)
+    ref, rstate = resident_trainer(torch, policy, 5, capturable, adamw)
+    data = ResidentData(t, x, u, group_batch=RESIDENT_GB, point_batch=RESIDENT_PB, seed=seed,
+                        device="cuda")
+    spe = RESIDENT_G // RESIDENT_GB
+    eager = []
+    for e in range(epochs):
+        losses = []
+        for _ in range(spe):
+            rstate, loss = ref.step(rstate, **data.batch())
+            losses.append(loss)
+        eager.append(float(np.mean(torch.stack(losses).double().cpu().numpy())))
+        if schedule:
+            for g in rstate.opt_state.param_groups:
+                g["lr"] = schedule(e, float(g["lr"]))
+    # the parameters, and each param group's learning rate given back as
+    # the float the schedule wrote
+    lrs = [g["lr"] for g in state.opt_state.param_groups]
+    same_params = (all(torch.equal(a, b) for a, b in
+                       zip(trainer.model.parameters(), ref.model.parameters()))
+                   and all(type(v) is float for v in lrs)
+                   and lrs == [g["lr"] for g in rstate.opt_state.param_groups])
+    return (trainer.history["loss"] == eager, same_params, trainer.history, eager, kernels,
+            launches)
+
+
+def tutorial8_problem(G=10, n_xg=256):
+    """Tutorial 8's grouped problem (``examples/08_sobolev_training.py``,
+    ``_grouped_problem`` and ``main_hessian``), from the port's demo data:
+    the K=400 packet at G times on n_xg points, normalized, with its
+    analytic du/dx and d2u/dx2 chained through both normalizations."""
+    from nif_tpu_torch.demo import TravelingWaveHighFreq
+    from nif_tpu_torch.demo.datasets import traveling_wave_d2udx2, traveling_wave_dudx
+
+    tw = TravelingWaveHighFreq(n_t=G, n_x=n_xg)
+    data = np.asarray(tw.data, np.float32)
+    t = data[::n_xg, 0:1]
+    x = data[:, 1:2].reshape(G, n_xg, 1)
+    u = data[:, 2:3].reshape(G, n_xg, 1)
+    lo = tw.n_p + tw.n_x
+    t_raw, x_raw = tw.data_raw[:, 0], tw.data_raw[:, 1]
+    tj = (traveling_wave_dudx(t_raw, x_raw, tw.wavenumber) * tw.std[1] / tw.std[lo]).reshape(
+        G, n_xg, 1, 1).astype(np.float32)
+    th = (traveling_wave_d2udx2(t_raw, x_raw, tw.wavenumber) * tw.std[1] ** 2
+          / tw.std[lo]).reshape(G, n_xg, 1, 1, 1).astype(np.float32)
+    return t, x, u, tj, th
+
+
+def random_targets(G, P, seed):
+    """Random Jacobian targets ``[G, P, 1, 3]`` and symmetric Hessian
+    targets ``[G, P, 1, 3, 3]`` (the bench's), float32."""
+    rng = np.random.default_rng(seed)
+    jac = rng.standard_normal((G, P, 1, 3)).astype(np.float32)
+    h = rng.standard_normal((G, P, 1, 3, 3)).astype(np.float32)
+    return jac, 0.5 * (h + h.transpose(0, 1, 2, 4, 3))
+
+
+def equal_mass_chi2(draws, probs, n_bins=100):
+    """Chi-square p-value of ``draws`` (point indices) against ``probs``
+    over the row's points, in ``n_bins`` bins of about equal mass (each
+    point in the bin of its CDF midpoint)."""
+    from scipy.stats import chi2
+
+    cdf = np.cumsum(probs)
+    bins = np.minimum((n_bins * (cdf - 0.5 * probs) / cdf[-1]).astype(np.int64), n_bins - 1)
+    expected = np.bincount(bins, weights=probs / cdf[-1], minlength=n_bins) * len(draws)
+    observed = np.bincount(bins[draws], minlength=n_bins)
+    keep = expected > 0
+    stat = float(np.sum((observed[keep] - expected[keep]) ** 2 / expected[keep]))
+    return float(chi2.sf(stat, int(keep.sum()) - 1)), stat
+
+
+def phase_resident(torch, log):
+    """Phase 3g: ``GroupedTrainer.fit_resident`` on the card. Returns the
+    resident dataset for phase 4f."""
+    from nif_tpu_torch.ops import _build
+    from nif_tpu_torch.training import Trainer
+    from nif_tpu_torch.training.resident import ResidentData
+    from nif_tpu_torch.utils.bench import FLAGSHIP_POLICY
+    import nif_tpu_torch
+
+    data_np = traveling_wave(RESIDENT_G, RESIDENT_P, seed=21)
+    log(f"resident dataset: G={RESIDENT_G} P={RESIDENT_P}, x {data_np[1].nbytes / 1e6:.1f} MB, "
+        f"u {data_np[2].nbytes / 1e6:.1f} MB of float32; step shape [{RESIDENT_GB}, "
+        f"{RESIDENT_PB}] drawn on the device")
+    halve = lambda epoch, lr: lr * 0.5  # noqa: E731
+    steps = 3 * (RESIDENT_G // RESIDENT_GB)
+    for policy in (FLAGSHIP_POLICY, "float32"):
+        tc = policy == FLAGSHIP_POLICY
+        # (a) the whole step captured; (b) opt.step() after each replay, and
+        # a learning-rate schedule, which the whole-step graph reads from a
+        # device tensor; (c) one K2 a step in the trace of each call, no K1,
+        # K3, K6 or K8
+        for capturable, schedule, adamw, what in (
+                (True, None, False, "capturable Adam"),
+                (False, None, False, "plain Adam"),
+                (True, halve, False, "capturable Adam + LearningRateScheduler"),
+                (True, halve, True, "capturable AdamW + LearningRateScheduler")):
+            same_loss, same_params, hist, eager, kernels, launches = resident_matches_eager(
+                torch, policy, data_np, capturable, schedule, adamw)
+            counts = pass_counts(kernels)
+            log(f"3g {policy}, {what}: fit_resident 3 epochs ({hist['resident_graph']}: "
+                f"{hist['resident_graph_reason']}; captures {len(hist['resident_capture_ms'])}) "
+                f"vs the GroupedTrainer.step loop: losses {hist['loss']} vs {eager}, equal bit "
+                f"for bit {same_loss}; parameters and learning rates equal {same_params}; the "
+                f"fit alone: "
+                f"K2 wrapper launches {launches['shapenet_mse_grads']}, torch.profiler over its "
+                f"{steps} steps (tensor-core, CUDA-core) {counts}")
+            want_form = "step" if capturable else "forward_backward"
+            if (not (same_loss and same_params) or hist["resident_graph"] != want_form
+                    or not all(np.isfinite(hist["loss"]))):
+                raise AssertionError(f"the resident {policy} fit ({what}) departs from the "
+                                     f"eager loop")
+            if len(hist["resident_capture_ms"]) != 1:
+                raise AssertionError(f"the resident {policy} fit ({what}) captured "
+                                     f"{len(hist['resident_capture_ms'])} times")
+            check_resident_launches(f"the resident {policy} fit ({what})", hist,
+                                    kernels, launches, "K2", "shapenet_mse_grads", steps, tc)
+    # (d) Sobolev and Hessian resident fits: one K6 or K8 a step
+    G_s, P_s = 16, 32768
+    t_s, x_s, u_s = traveling_wave(G_s, P_s, seed=22)
+    jac_s, hess_s = random_targets(G_s, P_s, seed=23)
+    for policy in (FLAGSHIP_POLICY, "float32"):
+        tc = policy == FLAGSHIP_POLICY
+        for name, wrapper, extra in (
+                ("K6", "shapenet_sobolev_grads", {"target_jac": jac_s}),
+                ("K8", "shapenet_hessian_grads", {"target_jac": jac_s, "target_hess": hess_s})):
+            trainer, state = resident_trainer(torch, policy, 7, w_jac=0.1, w_hess=0.01)
+            state, kernels, launches = profiled_fit(
+                torch, trainer, state, t_s, x_s, u_s, epochs=3, group_batch=8,
+                point_batch=16384, seed=4, **extra)
+            counts = check_resident_launches(
+                f"the resident {policy} {name} fit", trainer.history, kernels, launches, name,
+                wrapper, 6, tc)
+            log(f"3g {policy}: resident {'Sobolev' if name == 'K6' else 'Hessian'} fit at "
+                f"G={G_s} P={P_s} ([8, 16384] batches, 3 epochs, "
+                f"{trainer.history['resident_graph']}): {wrapper} wrapper launches "
+                f"{launches[wrapper]}, torch.profiler over its 6 steps {counts}; losses "
+                f"{trainer.history['loss']}")
+            if not all(np.isfinite(trainer.history["loss"])):
+                raise AssertionError(f"the resident {policy} {name} fit diverged")
+            del trainer, state
+    # tutorial 8's product paths at their own shapes (float32, plain Adam)
+    from nif_tpu_torch.training import GroupedTrainer
+
+    t8 = tutorial8_problem()
+    for name, hess in (("main_trainer", False), ("main_hessian", True)):
+        model = nif_tpu_torch.NIFMultiScale(TUTORIAL8_S, TUTORIAL8_P, device="cuda", seed=0)
+        tr = GroupedTrainer(model, lambda p: torch.optim.Adam(p, lr=1e-4), w_jac=0.1,
+                            w_hess=1e-3)
+        st = tr.init(0)
+        st, kernels, launches = profiled_fit(
+            torch, tr, st, t8[0], t8[1], t8[2], target_jac=t8[3],
+            target_hess=t8[4] if hess else None, epochs=300, group_batch=10, point_batch=256,
+            seed=0)
+        h = tr.history["loss"]
+        p_name, key = ("K8", "shapenet_hessian_grads") if hess else ("K6", "shapenet_sobolev_grads")
+        counts = check_resident_launches(f"tutorial 8's {name}", tr.history, kernels, launches,
+                                         p_name, key, 300, False)
+        log(f"3g tutorial 8 {name} (G=10, 256 points, full batch, 300 epochs, "
+            f"{tr.history['resident_graph']}): loss {h[0]:.6e} -> {h[-1]:.6e}; path "
+            f"{tr.history['sobolev_path']}; {key} wrapper launches {launches[key]}, "
+            f"torch.profiler over its 300 steps {counts}")
+        if not h[-1] < h[0] or tr.history["sobolev_path"] != "fused":
+            raise AssertionError(f"tutorial 8's {name} did not train through its kernel")
+    # (e) residual sampling: K1 once per 4M-point chunk at each refresh
+    trainer, state = resident_trainer(torch, FLAGSHIP_POLICY, 8)
+    _build.reset_launches()
+    state = trainer.fit_resident(state, *data_np, epochs=4, group_batch=RESIDENT_GB,
+                                 point_batch=RESIDENT_PB, point_sampling="residual",
+                                 resample_every=2, seed=9)
+    launches = dict(_build.LAUNCHES)
+    chunks = -(-RESIDENT_G // (4_000_000 // RESIDENT_P))
+    log(f"3g residual fit_resident (resample_every=2, 4 epochs): losses "
+        f"{trainer.history['loss']}; K1 launches {launches['shapenet_fwd']} (tensor-core "
+        f"{launches['shapenet_fwd_tc']}) for 2 refreshes of {chunks} chunks; K2 wrapper "
+        f"launches {launches['shapenet_mse_grads']} with "
+        f"{len(trainer.history['resident_capture_ms'])} captures")
+    if (launches["shapenet_fwd"] != 2 * chunks or launches["shapenet_fwd_tc"] != 2 * chunks
+            or launches["shapenet_mse_grads"] != 1 + len(trainer.history["resident_capture_ms"])
+            or not all(np.isfinite(trainer.history["loss"]))):
+        raise AssertionError(f"the residual resident fit launched {launches}")
+    probs = trainer.residual_probs(state, *data_np)
+    data = ResidentData(*data_np, group_batch=RESIDENT_GB, point_batch=RESIDENT_PB, seed=10,
+                        residual=True, device="cuda")
+    data.set_probs(probs)
+    g, draws, step = 0, [], 0
+    while sum(len(d) for d in draws) < 50_000:
+        gsel, idx = data.indices()
+        rows = (gsel == g).nonzero().flatten()
+        draws += [idx[r].cpu().numpy() for r in rows]
+        step += 1
+    draws = np.concatenate(draws)[:50_000]
+    p_value, stat = equal_mass_chi2(draws, probs[g])
+    log(f"3g residual draws of group {g}: 50000 draws over {step} steps against its "
+        f"probabilities (max/min {probs[g].max() / probs[g].min():.2f}): chi-square {stat:.2f} "
+        f"in 100 equal-mass bins, p = {p_value:.4f}")
+    if not p_value > 1e-3:
+        raise AssertionError("residual draws do not follow the residual probabilities")
+    del trainer, state, data
+    # (f) the point-wise Trainer on TravelingWave, tutorial 1's model
+    tw = nif_tpu_torch.demo.TravelingWave()
+    inputs = np.asarray(tw.data[:, :2], np.float32)
+    targets = np.asarray(tw.u, np.float32)
+    pw = Trainer(nif_tpu_torch.NIF(TUTORIAL1_S, TUTORIAL1_P, device="cuda"),
+                 lambda p: torch.optim.Adam(p, lr=2e-3))
+    pw_state = pw.init(0)
+    t0 = time.perf_counter()
+    pw_state = pw.fit(pw_state, inputs, targets, epochs=1500, batch_size=512)
+    pw_s = time.perf_counter() - t0
+    h = pw.history["loss"]
+    mse = pw.evaluate(pw_state, inputs, targets)
+    log(f"3g point-wise Trainer, tutorial 1 (NIF swish 30x2, TravelingWave 2000 rows, batch "
+        f"512, Adam 2e-3): 1500 epochs in {pw_s:.2f} s = {pw_s / 6000 * 1e3:.4f} ms a step on "
+        f"the host clock; loss {h[0]:.6e} -> {h[-1]:.6e}, evaluate {mse:.6e}")
+    if not h[-1] < 0.5 * h[0]:
+        raise AssertionError("the point-wise Trainer did not halve tutorial 1's loss")
+    return data_np
+
+
+def phase_resident_timing(torch, log, data_np, smi):
+    """Phase 4f: the resident step's times beside ``GroupedTrainer.step``
+    and ``fit`` at the same batch shape."""
+    from nif_tpu_torch.training.resident import ResidentData
+    from nif_tpu_torch.utils.bench import FLAGSHIP_POLICY, cuda_ms
+
+    n_pts = RESIDENT_GB * RESIDENT_PB
+    t, x, u = data_np
+    jac, hess = random_targets(RESIDENT_G, RESIDENT_P, seed=24)
+    out = {}
+    for policy in (FLAGSHIP_POLICY, "float32"):
+        res = {}
+        for capturable in (True, False):
+            trainer, state = resident_trainer(torch, policy, 12, capturable)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = trainer.fit_resident(state, t, x, u, epochs=25, group_batch=RESIDENT_GB,
+                                         point_batch=RESIDENT_PB, seed=13)
+            host = (time.perf_counter() - t0) / 50 * 1e3
+            hist = trainer.history
+            res[hist["resident_graph"]] = (hist["resident_step_ms"][-1], host,
+                                           hist["resident_capture_ms"][-1])
+            log(f"4f {policy} resident MSE step ({hist['resident_graph']}), 50 steps in one "
+                f"chunk: {hist['resident_step_ms'][-1]:.4f} ms a replayed step on the device "
+                f"clock = {n_pts / hist['resident_step_ms'][-1] * 1e3:.4e} train points/s; "
+                f"{host:.4f} ms a step on the host clock of the whole call (staging, eager "
+                f"first step, capture and readback included); capture "
+                f"{hist['resident_capture_ms'][-1]:.2f} ms")
+            if capturable:
+                data = ResidentData(t, x, u, group_batch=RESIDENT_GB, point_batch=RESIDENT_PB,
+                                    seed=14, device="cuda")
+                kernels, busy, window = profile_replays(torch, trainer, state, data, 10)
+                top = sorted(kernels, key=lambda k: -k[2])[:4]
+                log(f"4f {policy} resident MSE step: torch.profiler over 10 replays: window "
+                    f"{window:.3f} ms, device busy share {busy:.4f}; largest kernels "
+                    + "; ".join(f"{k[:48]} {us / 10:.1f} us x{c // 10}" for k, c, us in top))
+                res["busy"] = busy
+                launches = sum(c for _, c, _ in kernels) / 10
+                idle_us = window / 10 * (1.0 - busy) * 1e3
+                sampler_eager_ms = cuda_ms(data.batch, reps=20)
+                sampler_graph = torch.cuda.CUDAGraph()
+                sampler_graph.register_generator_state(data.generator)
+                with torch.cuda.graph(sampler_graph):
+                    data.batch()
+                sampler_ms = cuda_ms(sampler_graph.replay, reps=20)
+                del sampler_graph
+                log(f"4f {policy} resident MSE step: {launches:.1f} kernels a replay, "
+                    f"{idle_us:.1f} us idle a replay = {idle_us / launches:.2f} us a kernel; "
+                    f"the sampler and gathers alone (ResidentData.batch, CUDA events, mean of "
+                    f"20): replayed as a graph {sampler_ms:.4f} ms, dispatched eagerly "
+                    f"{sampler_eager_ms:.4f} ms")
+                rng = np.random.default_rng(0)
+                draw = lambda: (rng.permutation(RESIDENT_G)[:RESIDENT_GB],  # noqa: E731
+                                rng.choice(RESIDENT_P, size=RESIDENT_PB, replace=False))
+                gsel, psel = draw()
+                gather = lambda: (t[gsel], x[gsel][:, psel], u[gsel][:, psel])  # noqa: E731
+                host_batch = gather()
+                fit_stages = {"draw": host_ms(torch, draw, 5),
+                              "host gather": host_ms(torch, gather, 5),
+                              "copy to the card": host_ms(
+                                  torch, lambda: trainer._put(*host_batch), 5)}
+                log(f"4f {policy} fit's host stages a step (host clock, mean of 5): "
+                    + ", ".join(f"{k} {v:.4f} ms" for k, v in fit_stages.items()))
+                batch = data.batch()
+                trainer.step(state, **batch)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(10):
+                    state, _ = trainer.step(state, **batch)
+                    torch.cuda.synchronize()
+                res["step_host"] = (time.perf_counter() - t0) / 10 * 1e3
+                t0 = time.perf_counter()
+                state = trainer.fit(state, t, x, u, epochs=3, group_batch=RESIDENT_GB,
+                                    point_batch=RESIDENT_PB)
+                res["fit_host"] = (time.perf_counter() - t0) / 6 * 1e3
+                log(f"4f {policy} at the same batch shape: GroupedTrainer.step synchronized "
+                    f"each step {res['step_host']:.4f} ms on the host clock (mean of 10, the "
+                    f"batch on the device); fit from host arrays (3 epochs, 6 steps) "
+                    f"{res['fit_host']:.4f} ms a step on the host clock")
+                del data, batch
+            del trainer, state
+        for name, extra in (("Sobolev", {"target_jac": jac}),
+                            ("Hessian", {"target_jac": jac, "target_hess": hess})):
+            trainer, state = resident_trainer(torch, policy, 15, w_jac=0.1, w_hess=0.01)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.fit_resident(state, t, x, u, epochs=5, group_batch=RESIDENT_GB,
+                                 point_batch=RESIDENT_PB, seed=16, **extra)
+            host = (time.perf_counter() - t0) / 10 * 1e3
+            dev = trainer.history["resident_step_ms"][-1]
+            res[name] = (dev, host)
+            log(f"4f {policy} resident {name} step, 10 steps: {dev:.4f} ms a replayed step on "
+                f"the device clock = {n_pts / dev * 1e3:.4e} train points/s; {host:.4f} ms a "
+                f"step on the host clock of the whole call")
+            del trainer, state
+        out[policy] = res
+    # tutorial 8's resident Sobolev step (G=10 x 256, full batch, float32) in
+    # both graph forms, and with a learning-rate schedule (1 step an epoch:
+    # the whole-step form captures anew every epoch)
+    from nif_tpu_torch.training import GroupedTrainer, LearningRateScheduler
+    import nif_tpu_torch
+
+    t8 = tutorial8_problem()
+    decay = lambda epoch, lr: lr * 0.99  # noqa: E731
+    for schedule, epochs in ((None, 300), (decay, 30)):
+        for capturable in (True, False):
+            model = nif_tpu_torch.NIFMultiScale(TUTORIAL8_S, TUTORIAL8_P, device="cuda", seed=0)
+            tr = GroupedTrainer(model, lambda p: torch.optim.Adam(
+                p, lr=1e-4, capturable=capturable), w_jac=0.1)
+            st = tr.init(0)
+            callbacks = [LearningRateScheduler(schedule)] if schedule else []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.fit_resident(st, t8[0], t8[1], t8[2], target_jac=t8[3], epochs=epochs,
+                            group_batch=10, point_batch=256, seed=0, callbacks=callbacks)
+            host = (time.perf_counter() - t0) / epochs * 1e3
+            h = tr.history
+            dev = float(np.mean(h["resident_step_ms"]))
+            out.setdefault("tutorial8", {})[(h["resident_graph"], bool(schedule))] = (dev, host)
+            log(f"4f tutorial 8 resident Sobolev step (float32, G=10 x 256, full batch, "
+                f"{h['resident_graph']}, {'LearningRateScheduler, ' if schedule else ''}"
+                f"{epochs} steps): {dev:.4f} ms a replayed step on the device clock (mean over "
+                f"{len(h['resident_step_ms'])} chunks); {host:.4f} ms a step on the host clock "
+                f"of the whole call; {len(h['resident_capture_ms'])} captures, "
+                f"{sum(h['resident_capture_ms']):.2f} ms in all")
+            del tr, st, model
+    log(f"4f card: {smi}")
+    return out
 
 
 def main() -> int:
@@ -2188,6 +2717,10 @@ def main() -> int:
                                  f"departs from plain K5")
         del t3_model, tt3, tx3, y3, jac3, y3_ref, jac3_ref
 
+    # ---- phase 3g: GroupedTrainer.fit_resident, the residual sampling and
+    # the point-wise Trainer
+    resident_np = phase_resident(torch, log)
+
     # ---- phase 4: K1 times at the flagship shape (bf16, as served; the
     # CUDA-core K1 on the same inputs and in float32)
     G, P = requests[0]
@@ -2611,6 +3144,9 @@ def main() -> int:
         f"{', '.join(f'{k} {v:.4f} ms' for k, v in lf32_stages.items())}; the eager float32 "
         f"step (autograd over the eager trunk + Adam): {eager_f32_ms:.4f} ms = "
         f"{G * P / eager_f32_ms * 1e3:.4e} train points/s")
+
+    # ---- phase 4f: the resident step's times beside step and fit
+    phase_resident_timing(torch, log, resident_np, smi)
     log(f"card: {smi}")
     log(f"chip_smoke wall clock: {time.perf_counter() - wall0:.1f} s (builds included)")
     log(json.dumps({"kernels": [{

@@ -15,13 +15,18 @@ Training: ``NIF.mse_value_and_grad`` through the fused train kernel (NIF-linear
 through its own fused train kernel),
 ``NIF.sobolev_value_and_grad`` (value and Jacobian targets) through the fused
 Sobolev train kernel, ``regularization_loss``, and
-``training.GroupedTrainer`` (``step``, ``fit``, ``evaluate``,
-``evaluate_sobolev``) with callbacks and checkpoints. Derivatives:
+``training.GroupedTrainer`` (``step``, ``fit`` with uniform or residual
+point sampling, the device-resident ``fit_resident``, replayed as CUDA graphs
+on the card, ``evaluate``, ``evaluate_sobolev``, ``init_or_restore``) and the
+point-wise ``training.Trainer``, with callbacks and checkpoints; ``data``
+(``PointWiseData``) and ``demo`` (the analytic demo datasets). Derivatives:
 ``ops.output_and_jacobian_grouped`` through the fused Jacobian kernel, and
 the eager ``torch.func`` derivatives and Sobolev losses of ``ops``.
 """
 from .__about__ import __version__
 from . import convert
+from . import data
+from . import demo
 from . import layers
 from . import models
 from . import ops
@@ -43,6 +48,8 @@ __all__ = [
     "Policy",
     "get_policy",
     "convert",
+    "data",
+    "demo",
     "layers",
     "models",
     "ops",

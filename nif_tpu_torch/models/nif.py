@@ -48,6 +48,7 @@ from ..ops.fused_shapenet import (
 )
 from ..ops.derivatives import sobolev_loss_grouped
 from ..ops.fused_derivatives import (
+    _device_constant,
     derivative_geometry,
     shapenet_sobolev_grads,
     sobolev_fused_unsupported_reason,
@@ -397,13 +398,13 @@ class NIF(nn.Module):
         if full_sel:
             hess_mask = None
         else:
-            o, j, k = (torch.as_tensor(c, device=dev) for c in cells)
+            o, j, k = (_device_constant(c, dev) for c in cells)
             full = torch.zeros((G, P, so, si, si), dtype=ht.dtype, device=dev)
             full[:, :, o, j, k] = ht
             ht = full
             hess_mask = np.concatenate([sel[:, j, k] for j, k in pairs])  # [n_pairs*so]
         ht_sym = 0.5 * (ht + ht.transpose(-1, -2))
-        asym = torch.square(ht - ht_sym) * torch.as_tensor(sel, device=dev)
+        asym = torch.square(ht - ht_sym) * _device_constant(sel, dev)
         if weight is not None:
             asym = asym * weight[..., None, None, None]
         asym_const = torch.sum(asym) / (G * P * int(np.sum(sel)))
@@ -483,7 +484,7 @@ class NIF(nn.Module):
             tgt, y_mask = u, None
         elif yi is not None and tuple(u.shape) == (G, P, len(yi)):
             tgt = torch.zeros((G, P, so), dtype=u.dtype, device=dev)
-            tgt[:, :, torch.as_tensor(yi, device=dev)] = u
+            tgt[:, :, _device_constant(yi, dev)] = u
             y_mask = np.zeros(so, np.float32)
             y_mask[yi] = 1.0
         else:
@@ -503,8 +504,8 @@ class NIF(nn.Module):
                 jac_mask = None
             else:
                 full = torch.zeros((G, P, so, si), dtype=jt.dtype, device=dev)
-                full[:, :, torch.as_tensor(yi_full, device=dev)[:, None],
-                     torch.as_tensor(xi_full, device=dev)[None, :]] = jt
+                full[:, :, _device_constant(yi_full, dev)[:, None],
+                     _device_constant(xi_full, dev)[None, :]] = jt
                 jt = full
                 mask = np.zeros((so, si), np.float32)
                 mask[yi_full[:, None], xi_full[None, :]] = 1.0

@@ -40,7 +40,7 @@ back to another path: callers route (``ops.derivatives``,
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -457,13 +457,29 @@ def shapenet_fwd_jac_reference(wb: torch.Tensor, x: torch.Tensor, cfg: ShapeNetC
     return out.to(x.dtype), jac.to(x.dtype)
 
 
+# index and mask constants of the Sobolev and Hessian steps on each device,
+# made once per value: a step that passes the same ones uploads nothing from
+# the host, so a CUDA graph can capture it
+_CONSTANTS: Dict[Tuple, torch.Tensor] = {}
+
+
+def _device_constant(array, device) -> torch.Tensor:
+    """``array`` on ``device``, uploaded on its first use (read only)."""
+    a = np.ascontiguousarray(array)
+    key = (a.dtype.str, a.shape, a.tobytes(), str(torch.device(device)))
+    t = _CONSTANTS.get(key)
+    if t is None:
+        t = _CONSTANTS[key] = torch.as_tensor(a, device=device)
+    return t
+
+
 def _mask_tensor(mask, n: int, like: torch.Tensor) -> Optional[torch.Tensor]:
     if mask is None:
         return None
-    m = torch.as_tensor(np.asarray(mask, np.float32).reshape(-1), device=like.device)
-    if m.numel() != n:
-        raise ValueError(f"mask has {m.numel()} entries, expected {n}")
-    return m
+    m = np.asarray(mask, np.float32).reshape(-1)
+    if m.size != n:
+        raise ValueError(f"mask has {m.size} entries, expected {n}")
+    return _device_constant(m, like.device)
 
 
 def _sobolev_scales(G, P, si, so, w_value, w_jac, y_mask, jac_mask):

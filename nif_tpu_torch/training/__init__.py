@@ -8,11 +8,16 @@ from .callbacks import (
 )
 from .checkpoint import FINAL_MARKER_OFFSET, Checkpointer
 from .grouped import GroupedTrainer
-from .trainer import TrainState, pad_batch, reg_row_weights
+from .trainer import (Trainer, TrainState, make_loss_fn, make_train_step, pad_batch,
+                      reg_row_weights, restore_or_init_state)
 
 __all__ = [
+    "Trainer",
     "GroupedTrainer",
     "TrainState",
+    "make_train_step",
+    "make_loss_fn",
+    "restore_or_init_state",
     "pad_batch",
     "reg_row_weights",
     "Checkpointer",

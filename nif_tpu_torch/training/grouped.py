@@ -18,9 +18,17 @@ so, si, si]`` adds ``w_hess * hessian_mse`` (one K8 launch per step on the
 card), and ``evaluate_sobolev(..., target_hess=...)`` evaluates the three
 terms through K7.
 
-Not ported yet, and refused with ``NotImplementedError``: residual point
-sampling and the device-resident ``fit_resident`` loop (ROADMAP Slice A2),
-and ``mesh``/``shard_model_axis`` (ROADMAP Slice G).
+Residual point sampling (``fit(point_sampling="residual")``) draws each
+group's points in proportion to the current squared residual, scored through
+``apply_grouped`` (K1 on the card) every ``resample_every`` epochs.
+
+``fit_resident`` stages the dataset on the device once and draws every
+batch there (``training/resident.py``); on the card its steps replay as a
+captured CUDA graph, the port's counterpart of the JAX package's scanned
+chunks.
+
+Not ported yet, and refused with ``NotImplementedError``:
+``mesh``/``shard_model_axis`` (ROADMAP Slice G).
 """
 from __future__ import annotations
 
@@ -31,13 +39,11 @@ import numpy as np
 import torch
 
 from .evaluation import global_sums, metrics_from_sums
-from .trainer import TrainState, pad_batch, reg_row_weights
+from .resident import ResidentData, ResidentLoop
+from .trainer import (TrainState, _not_ported, pad_batch, reg_row_weights,
+                      restore_or_init_state)
 
 __all__ = ["GroupedTrainer"]
-
-
-def _not_ported(what: str, where: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to nif_tpu_torch yet (ROADMAP {where})")
 
 
 class GroupedTrainer:
@@ -81,6 +87,10 @@ class GroupedTrainer:
         optimizer = self.make_optimizer([p for _, p in self.model.param_items()])
         return TrainState(self.model.param_tree(), optimizer, 0)
 
+    def init_or_restore(self, seed, ckpt_dir: str) -> TrainState:
+        """Resumable init (same semantics as ``Trainer.init_or_restore``)."""
+        return restore_or_init_state(self, seed, ckpt_dir)
+
     def _record_path(self, P: int, si: Optional[int] = None, sobolev: bool = False,
                      hess: bool = False) -> None:
         """Record once per mode which path P-point group batches take
@@ -113,7 +123,15 @@ class GroupedTrainer:
         with the loss as a 0-dim device tensor: no host sync."""
         sobolev = target_jac is not None or target_hess is not None
         self._record_path(x.shape[1], x.shape[2], sobolev, hess=target_hess is not None)
-        if sobolev:
+        loss = self._grads(t, x, u, w, rw, target_jac, target_hess)
+        state.opt_state.step()
+        return TrainState(state.params, state.opt_state, state.step + 1), loss
+
+    def _grads(self, t, x, u, w=None, rw=None, target_jac=None, target_hess=None):
+        """The loss of one batch, with its gradient left in each parameter's
+        ``.grad``: the step before the optimizer's update, with no host sync
+        (``fit_resident`` captures it in a CUDA graph on the card)."""
+        if target_jac is not None or target_hess is not None:
             loss, _terms, grads = self.model.sobolev_value_and_grad(
                 t, x, u, target_jac=target_jac, target_hess=target_hess,
                 w_value=self.w_value, w_jac=self.w_jac, w_hess=self.w_hess, weight=w,
@@ -126,8 +144,50 @@ class GroupedTrainer:
             for key in path:
                 g = g[key]
             p.grad = g
-        state.opt_state.step()
-        return TrainState(state.params, state.opt_state, state.step + 1), loss
+        return loss
+
+    def _residual_probs(self, state: TrainState, t, x, u, alpha: float,
+                        mix: float) -> np.ndarray:
+        """Per-point sampling distribution proportional to the current
+        squared residual (mixed with uniform for coverage): ``[G, P]``
+        float64. Evaluated in group chunks of about 4M points through
+        ``apply_grouped`` (one K1 launch per chunk on the card) under
+        ``torch.inference_mode``, so a refresh never needs more device
+        memory than a training step. ``t, x, u`` are arrays or tensors (a
+        resident dataset stays where it is)."""
+        G, P = x.shape[0], x.shape[1]
+        chunk = max(1, 4_000_000 // max(P, 1))
+        r = np.empty((G, P), np.float64)
+        with torch.inference_mode():
+            for s in range(0, G, chunk):
+                sl = slice(s, min(s + chunk, G))
+                bt, bx, bu = self._put(t[sl], x[sl], u[sl])
+                pred = self.model.apply_grouped(bt, bx)
+                r[sl] = torch.mean(torch.square(pred - bu.to(pred.dtype)),
+                                   dim=-1).double().cpu().numpy()
+        r = np.maximum(r, 0.0) ** alpha
+        rs = r.sum(axis=1, keepdims=True)
+        prop = np.where(rs > 0, r / np.maximum(rs, 1e-300), 1.0 / P)
+        return mix / P + (1.0 - mix) * prop
+
+    def residual_probs(self, state: TrainState, t, x, u, alpha: float = 1.0,
+                       mix: float = 0.5) -> np.ndarray:
+        """The residual sampling distribution ``[G, P]`` of
+        ``fit(point_sampling="residual")``: ``mix / P`` plus ``1 - mix``
+        times each group's squared residual to the power ``alpha``,
+        normalized over its points. Sampling by it optimizes a
+        residual-reweighted objective; evaluate final metrics on the full
+        set."""
+        return self._residual_probs(state, np.asarray(t), np.asarray(x), np.asarray(u),
+                                    alpha, mix)
+
+    @staticmethod
+    def _gumbel_topk(probs: np.ndarray, k: int, rng) -> np.ndarray:
+        """Vectorized without-replacement sampling: per-row top-k of
+        log p + Gumbel noise (one Gumbel-max draw per kept point)."""
+        g = rng.gumbel(size=probs.shape)
+        keys = np.log(np.maximum(probs, 1e-300)) + g
+        return np.argpartition(-keys, k - 1, axis=1)[:, :k]
 
     def fit(
         self,
@@ -144,6 +204,9 @@ class GroupedTrainer:
         callbacks: Sequence = (),
         verbose_every: int = 0,
         point_sampling: str = "uniform",
+        resample_every: int = 10,
+        residual_alpha: float = 1.0,
+        residual_mix: float = 0.5,
         validation_data=None,
         validation_every: int = 1,
     ) -> TrainState:
@@ -157,10 +220,16 @@ class GroupedTrainer:
         once per epoch. ``target_jac [G, P, so, si]`` switches every step to
         the Sobolev loss, and ``target_hess [G, P, so, si, si]`` adds the
         Hessian term (their batches drawn with no extra generator calls, as
-        in the JAX loop)."""
-        if point_sampling == "residual":
-            raise _not_ported("point_sampling='residual'", "Slice A2, after the step")
-        if point_sampling != "uniform":
+        in the JAX loop).
+
+        ``point_sampling="residual"`` draws each group's points without
+        replacement in proportion to :meth:`residual_probs` (``residual_alpha``,
+        ``residual_mix``), refreshed every ``resample_every`` epochs before
+        the epoch's permutation: hard-point mining for localized features,
+        which optimizes a residual-reweighted objective (evaluate final
+        metrics on the full set). The distribution stays value-MSE based
+        under Sobolev targets."""
+        if point_sampling not in ("uniform", "residual"):
             raise ValueError(f"unknown point_sampling {point_sampling!r}")
         t, x, u = np.asarray(t), np.asarray(x), np.asarray(u)
         target_jac = None if target_jac is None else np.asarray(target_jac)
@@ -175,18 +244,30 @@ class GroupedTrainer:
 
         for cb in callbacks:
             cb.on_train_begin(self)
+        probs = None
         for epoch in range(epochs):
             t0 = time.perf_counter()
+            if point_sampling == "residual" and epoch % resample_every == 0:
+                probs = self._residual_probs(state, t, x, u, residual_alpha, residual_mix)
             g_order = self._rng.permutation(G)
             losses, sizes = [], []
             for s in range(0, G, group_batch):
                 gsel = g_order[s: s + group_batch]
                 b = len(gsel)
-                psel = self._rng.choice(P, size=point_batch, replace=False)
-                w = None if sample_weight is None else sample_weight[gsel][:, psel]
-                bt, bx, bu = t[gsel], x[gsel][:, psel], u[gsel][:, psel]
-                bju = None if target_jac is None else target_jac[gsel][:, psel]
-                bhu = None if target_hess is None else target_hess[gsel][:, psel]
+                if probs is None:
+                    psel = self._rng.choice(P, size=point_batch, replace=False)
+                    w = None if sample_weight is None else sample_weight[gsel][:, psel]
+                    bt, bx, bu = t[gsel], x[gsel][:, psel], u[gsel][:, psel]
+                    bju = None if target_jac is None else target_jac[gsel][:, psel]
+                    bhu = None if target_hess is None else target_hess[gsel][:, psel]
+                else:
+                    # each group's own hard-point subsample: [b, point_batch]
+                    psel = self._gumbel_topk(probs[gsel], point_batch, self._rng)
+                    rows = gsel[:, None]
+                    w = None if sample_weight is None else sample_weight[rows, psel]
+                    bt, bx, bu = t[gsel], x[rows, psel], u[rows, psel]
+                    bju = None if target_jac is None else target_jac[rows, psel]
+                    bhu = None if target_hess is None else target_hess[rows, psel]
                 rw = None
                 if needs_pad:
                     opts = tuple(a for a in (bju, bhu) if a is not None)
@@ -228,9 +309,138 @@ class GroupedTrainer:
             cb.on_train_end(self, state)
         return state
 
-    def fit_resident(self, *args, **kwargs):
-        raise _not_ported("GroupedTrainer.fit_resident (the device-resident loop)",
-                          "Slice A2, after the step")
+    def fit_resident(
+        self,
+        state: TrainState,
+        t: np.ndarray,
+        x: np.ndarray,
+        u: np.ndarray,
+        sample_weight: Optional[np.ndarray] = None,
+        target_jac: Optional[np.ndarray] = None,
+        target_hess: Optional[np.ndarray] = None,
+        epochs: int = 1,
+        group_batch: Optional[int] = None,
+        point_batch: Optional[int] = None,
+        callbacks: Sequence = (),
+        verbose_every: int = 0,
+        seed: Optional[int] = None,
+        validation_data=None,
+        validation_every: int = 1,
+        point_sampling: str = "uniform",
+        resample_every: int = 10,
+        residual_alpha: float = 1.0,
+        residual_mix: float = 0.5,
+    ) -> TrainState:
+        """Device-resident training: stage the whole grouped dataset on the
+        model's device once and draw every batch there (no per-step host
+        traffic). An epoch is ``max(G // group_batch, 1)`` steps; each takes
+        ``group_batch`` groups without replacement (a prefix of a fresh
+        permutation) and ``point_batch`` points per group i.i.d. with
+        replacement (an unbiased SGD subsample), ``sample_weight``,
+        ``target_jac`` and ``target_hess`` gathered alongside; a full
+        ``group_batch`` takes the groups in order, a full ``point_batch``
+        under uniform sampling every point in order. The batches of step i
+        depend only on ``seed`` and i (``seed=None`` draws one from the
+        trainer's generator, as the JAX loop does).
+
+        ``point_sampling="residual"`` draws the points from each group's
+        :meth:`residual_probs` (``residual_alpha``, ``residual_mix``),
+        refreshed every ``resample_every`` epochs through K1, by inverse CDF
+        on the device. Like ``fit``'s variant it optimizes a
+        residual-reweighted objective.
+
+        Steps run in chunks that end where the host has work: on every
+        epoch when there are callbacks, on validation epochs, before a
+        residual refresh, and at least every 4096 steps; the losses of a
+        chunk are read back once. On the card the steps replay as a CUDA
+        graph (``training/resident.py``); ``history["resident_graph"]``
+        says which form ran and ``["resident_graph_reason"]`` why (the whole
+        step for an Adam or AdamW with ``capturable=True``, else
+        ``opt.step()`` after each replay), ``["resident_capture_ms"]`` the
+        host time of each capture and ``["resident_step_ms"]`` the device
+        time per replayed step of each chunk."""
+        t, x, u = np.asarray(t), np.asarray(x), np.asarray(u)
+        G, P = x.shape[0], x.shape[1]
+        group_batch = min(group_batch or G, G)
+        point_batch = min(point_batch or P, P)
+        if point_sampling not in ("uniform", "residual"):
+            raise ValueError(f"unknown point_sampling {point_sampling!r}")
+        residual = point_sampling == "residual"
+        self._record_path(point_batch, x.shape[2],
+                          target_jac is not None or target_hess is not None,
+                          hess=target_hess is not None)
+        steps_per_epoch = max(G // group_batch, 1)
+
+        # Chunk boundaries align with every host-side obligation: callbacks
+        # need end-of-epoch state (chunk = 1 epoch), validation needs state
+        # at its cadence, a residual refresh needs state every
+        # resample_every epochs, and the cap bounds each loss readback.
+        chunk_cap = max(1, min(epochs, -(-4096 // steps_per_epoch)))
+        if callbacks:
+            chunk_cap = 1
+        if residual:
+            chunk_cap = min(chunk_cap, max(1, resample_every))
+
+        base = self._rng.integers(2**63) if seed is None else seed
+        data = ResidentData(t, x, u, sample_weight, target_jac, target_hess,
+                            group_batch=group_batch, point_batch=point_batch, seed=base,
+                            residual=residual, device=self.model.device)
+        loop = ResidentLoop(self, state.opt_state, data, max(epochs, 0) * steps_per_epoch)
+        self.history["resident_graph"] = loop.form
+        self.history["resident_graph_reason"] = loop.reason
+        for cb in callbacks:
+            cb.on_train_begin(self)
+        step_i = 0
+        epoch = 0
+        refreshed = False
+        try:
+            while epoch < epochs:
+                n_ep = min(chunk_cap, epochs - epoch)
+                if validation_data is not None:
+                    nv = epoch + (-epoch) % validation_every
+                    if nv < epoch + n_ep:
+                        n_ep = nv - epoch + 1
+                if residual:
+                    if epoch % resample_every == 0 or not refreshed:
+                        data.set_probs(self._residual_probs(
+                            state, data.t, data.x, data.u, residual_alpha, residual_mix))
+                        refreshed = True
+                    # chunks must not cross a refresh boundary
+                    nr = epoch + (-epoch) % resample_every
+                    if nr == epoch:
+                        nr += resample_every
+                    n_ep = min(n_ep, nr - epoch)
+                t0 = time.perf_counter()
+                n = n_ep * steps_per_epoch
+                loop.run(n)
+                losses = loop.losses(step_i, n).reshape(n_ep, steps_per_epoch)
+                dt = (time.perf_counter() - t0) / n_ep
+                step_i += n
+                state = TrainState(state.params, state.opt_state, state.step + n)
+                for j in range(n_ep):
+                    e = epoch + j
+                    epoch_loss = float(losses[j].mean())
+                    self.history["epoch"].append(e)
+                    self.history["loss"].append(epoch_loss)
+                    logs = {"loss": epoch_loss, "epoch": e, "time": dt}
+                    if (validation_data is not None and j == n_ep - 1
+                            and e % validation_every == 0):
+                        vt, vx, vu = validation_data
+                        logs["val_loss"] = self.evaluate(state, vt, vx, vu)
+                        self.history.setdefault("val_loss", []).append(logs["val_loss"])
+                        self.history.setdefault("val_epoch", []).append(e)
+                    if verbose_every and e % verbose_every == 0:
+                        print(f"epoch {e:5d}  loss {epoch_loss:.6e}  ({dt:.3f}s)")
+                    for cb in callbacks:
+                        cb.on_epoch_end(self, state, e, logs)
+                epoch += n_ep
+        finally:
+            self.history.setdefault("resident_capture_ms", []).extend(loop.capture_ms)
+            self.history.setdefault("resident_step_ms", []).extend(loop.step_ms)
+            loop.close()
+        for cb in callbacks:
+            cb.on_train_end(self, state)
+        return state
 
     def _put(self, *arrays):
         """Host arrays to the model's device (None passes through)."""

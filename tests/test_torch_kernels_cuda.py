@@ -323,6 +323,84 @@ def test_model_train_step_on_the_card_launches_k2(card):
     assert bool(torch.isfinite(loss))
 
 
+@pytest.mark.parametrize("policy", ["mixed_bfloat16", "float32"])
+@pytest.mark.parametrize("capturable", [True, False], ids=["whole-step", "opt-after-replay"])
+def test_fit_resident_replays_match_the_eager_loop(card, policy, capturable):
+    """``fit_resident``'s CUDA-graph replays against a loop of
+    ``GroupedTrainer.step`` on a copy of the model over the same batches
+    (re-drawn from the seed): the same losses and parameters, bit for bit;
+    the whole step captured with a capturable Adam, else ``opt.step()``
+    after each replay."""
+    from nif_tpu_torch.training import GroupedTrainer
+    from nif_tpu_torch.training.resident import ResidentData
+
+    cfg_s = {"input_dim": 3, "output_dim": 1, "units": 128, "nlayers": 2,
+             "activation": "sine", "omega_0": 30.0}
+    cfg_p = {"input_dim": 4, "latent_dim": 128, "units": 128, "nlayers": 2,
+             "activation": "swish"}
+    rng = np.random.default_rng(17)
+    t = rng.standard_normal((8, 4)).astype(np.float32)
+    x = rng.uniform(-1, 1, (8, 1024, 3)).astype(np.float32)
+    u = rng.standard_normal((8, 1024, 1)).astype(np.float32)
+
+    def trainer():
+        tr = GroupedTrainer(nif_tpu_torch.NIFMultiScale(cfg_s, cfg_p, policy, seed=0),
+                            lambda p: torch.optim.Adam(p, lr=1e-4, capturable=capturable))
+        return tr, tr.init(0)
+
+    tr, st = trainer()
+    st = tr.fit_resident(st, t, x, u, epochs=3, group_batch=4, point_batch=512, seed=2)
+    assert tr.history["resident_graph"] == ("step" if capturable else "forward_backward")
+    assert len(tr.history["resident_capture_ms"]) == 1 and st.step == 6
+    ref, rst = trainer()
+    data = ResidentData(t, x, u, group_batch=4, point_batch=512, seed=2, device="cuda")
+    losses = []
+    for i in range(6):
+        rst, loss = ref.step(rst, **data.batch())
+        losses.append(loss)
+    eager = torch.stack(losses).double().cpu().numpy().reshape(3, 2).mean(axis=1)
+    assert tr.history["loss"] == list(eager)
+    for a, b in zip(tr.model.parameters(), ref.model.parameters()):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("residual", [False, True], ids=["uniform", "residual"])
+def test_resident_draws_replay_as_drawn_eagerly(card, residual):
+    """The resident sampler's batches, replayed as a CUDA graph with its
+    generator registered (after one eager draw, as ``fit_resident`` warms
+    up, and under ``torch.profiler``), are the batches an eager twin draws
+    from the same seed, in the same order, bit for bit."""
+    from nif_tpu_torch.training.resident import ResidentData
+
+    rng = np.random.default_rng(3)
+    G, P = 16, 4096
+    t = rng.standard_normal((G, 2)).astype(np.float32)
+    x = rng.uniform(-1, 1, (G, P, 3)).astype(np.float32)
+    u = rng.standard_normal((G, P, 1)).astype(np.float32)
+    kw = dict(group_batch=8, point_batch=1024, seed=2**63 - 5, residual=residual)
+    eager, graphed = ResidentData(t, x, u, **kw), ResidentData(t, x, u, **kw)
+    assert eager.device.type == "cuda"
+    if residual:
+        probs = rng.uniform(0.1, 1.0, (G, P))
+        eager.set_probs(probs)
+        graphed.set_probs(probs)
+    want = [eager.batch() for _ in range(4)]
+    got = [graphed.batch()]
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(graphed.generator)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts):
+        with torch.cuda.graph(graph):
+            out = graphed.batch()
+        for _ in range(3):
+            graph.replay()
+            got.append({k: None if v is None else v.clone() for k, v in out.items()})
+    for a, b in zip(want, got):
+        for k in ("t", "x", "u"):
+            assert torch.equal(a[k], b[k]), k
+    assert not torch.equal(want[0]["x"], want[1]["x"])
+
+
 # Widths past the flagship run the wider template instances (8, 16 and 32
 # columns per thread; TP = 32, 16 and 8 points per tile); the last two
 # chains keep the CUDA-core K2/K3's residuals in the global scratch in both

@@ -2,7 +2,9 @@
 ``mse_value_and_grad`` (fused: plain K2 + autograd through the ParameterNet;
 eager: autograd over the eager chain), ``regularization_loss``, the batch
 padding helpers, and ``GroupedTrainer`` (``fit``, ``evaluate``,
-``evaluate_metrics``, callbacks, the arguments not ported yet).
+``evaluate_metrics``, callbacks, the arguments not ported yet). Residual
+sampling, ``fit_resident`` and resumable init are held against the JAX
+package in ``tests/test_torch_resident.py``.
 
 The JAX model draws the parameters; they cross to the port as numpy arrays
 (``from_jax_params``), and both packages get the same numpy inputs. On the
@@ -363,16 +365,14 @@ def test_tb_events_is_a_copy_of_the_jax_module():
     # wrong shape are refused
     ({"target_jac": np.zeros((4, 32, 1, 3), np.float32)}, ValueError, "target_jac shape"),
     ({"target_hess": np.zeros((4, 32, 1, 3, 3), np.float32)}, ValueError, "target_hess shape"),
-    ({"point_sampling": "residual"}, NotImplementedError, "Slice A2"),
-], ids=["target_jac", "target_hess", "residual"])
+], ids=["target_jac", "target_hess"])
 def test_fit_refuses_what_is_not_ported(kwargs, error, match):
     t, x, u = _dataset(G=4, P=32)
     _, _, tt, ts = _trainers()
     with pytest.raises(error, match=match):
         tt.fit(ts, t, x, u, **kwargs)
-    if "point_sampling" not in kwargs:
-        with pytest.raises(error, match=match):
-            tt.step(ts, t, x, u, **kwargs)
+    with pytest.raises(error, match=match):
+        tt.step(ts, t, x, u, **kwargs)
     assert ts.step == 0
 
 
@@ -383,8 +383,6 @@ def test_trainer_refuses_mesh_and_fit_resident():
         GroupedTrainer(tm, adam, mesh=object())
     with pytest.raises(NotImplementedError, match="Slice G"):
         GroupedTrainer(tm, adam, shard_model_axis=True)
-    with pytest.raises(NotImplementedError, match="Slice A2"):
-        GroupedTrainer(tm, adam).fit_resident()
     with pytest.raises(ValueError, match="unknown point_sampling"):
         t, x, u = _dataset(G=2, P=8)
         GroupedTrainer(tm, adam).fit(None, t, x, u, point_sampling="stratified")
