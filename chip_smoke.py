@@ -233,6 +233,38 @@ Phases of the resident slice:
    (G=10 x 256, full batch, a step an epoch) in both graph forms, with and
    without a learning-rate schedule.
 
+Phases of the optimizer and streaming slice:
+
+3h. L-BFGS fine-tuning (``optimizers.GroupedLBFGS``) of the flagship at
+   G=32 x P=32768 in both policies, 10 iterations: every objective
+   evaluation launches one K2 (the tensor-core one in bf16), counted around
+   the call alone, and the accepted losses do not rise; the objective in 4
+   chunks of 8 groups equals the in-memory one at the start (value rel 1e-5,
+   gradient 5e-5 of max|g|: the sums' order; under the bf16 policy, whose
+   ParameterNet backward rounds each gradient product to bf16, BF16_REL). Tutorial 8's model at its own
+   shape (G=10 x 256) fits its Sobolev (one K6 an evaluation) and Hessian
+   (one K8) objectives in both policies; a ``dtype="float64"`` fit of the
+   flagship at G=4 launches no kernel and ``cast_parameters`` restores
+   float32; tutorial 1's point-wise ``LBFGS`` (200 iterations, float32 and
+   float64) lowers the MSE.
+3i. Streamed grouped training: a ``GroupedDataset`` of G=64 x P=65536 (x
+   50.3 MB, u 16.8 MB) in two shards under a temporary directory, the native
+   reader built, ``iter_batches(32, 32768)`` for 2 epochs through
+   ``prefetch_to_device`` into ``GroupedTrainer.step``: one K2 a step, each
+   loss bit for bit that of the step on the same batch as host arrays.
+4g. Times: each L-BFGS fit's ms an iteration (CUDA events and the host
+   clock), objective evaluations and host reads an iteration, and
+   ``torch.profiler`` over 5 iterations of the flagship MSE and tutorial 8's
+   Sobolev fits (busy share, kernels and host time an iteration); the
+   streamed step with and without ``prefetch_to_device`` (20 steps a run,
+   two runs each in turns, host clock) and the device's busy share over 10
+   prefetched steps (``torch.profiler``);
+   one flagship ``GroupedTrainer.step`` under ``torch.optim.Adam``,
+   ``adabelief_full``, ``lion``, a centralized capturable ``adam`` and a
+   capturable ``adam`` on ``warmup_linear_decay`` (CUDA events, mean of 5),
+   the form ``graph_form`` picks for each, and a 5-step ``fit_resident``
+   under each against the eager loop, bit for bit.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the
 ``{"kernels": [...]}`` record, and before that the card's name and power
 limit and the run's wall-clock seconds. Exits non-zero without CUDA or
@@ -243,6 +275,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -1727,6 +1760,391 @@ def phase_resident_timing(torch, log, data_np, smi):
     return out
 
 
+# The L-BFGS fits of phase 3h: iterations, and the group chunk of the
+# chunked objective (4 chunks of the flagship's 32 groups).
+LBFGS_ITERS = 10
+LBFGS_CHUNK = 8
+# The streamed dataset of phase 3i: the flagship's inputs (si=3, so=1) at
+# G=64 x P=65536 (x 50.3 MB, u 16.8 MB) in two shards of 32 groups, streamed
+# at the flagship step shape.
+STREAM_G, STREAM_P, STREAM_GB, STREAM_PB = 64, 65536, 32, 32768
+
+
+def timed(torch, fn):
+    """``(fn(), device ms, host ms)`` of one call: CUDA events around it on
+    the current stream, and the host clock from a synchronized start to a
+    synchronized end."""
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b), (time.perf_counter() - t0) * 1e3
+
+
+def lbfgs_fit(torch, log, what, opt, wrapper, tc, max_iter=LBFGS_ITERS, dtype=None,
+              per_eval=1):
+    """``opt.minimize(max_iter, dtype)`` alone, the launch counts reset just
+    before it and read just after: each objective evaluation launched
+    ``wrapper`` ``per_eval`` times (once a chunk; its tensor-core variant
+    too when ``tc``; with ``dtype`` float64, or no ``wrapper``, no kernel at
+    all) and no accepted loss rose by more than the line search's
+    approximate-decrease rule allows (1e-6 of the loss before it). Returns
+    ``{"ms_iter", "host_ms_iter", "evals_iter", "reads_iter", ...}``."""
+    from nif_tpu_torch.ops import _build
+
+    before = dict(opt.counts)
+    n_hist = len(opt.history["loss"])
+    _build.reset_launches()
+    _, dev_ms, host_ms = timed(torch, lambda: opt.minimize(max_iter=max_iter, dtype=dtype))
+    launches = dict(_build.LAUNCHES)
+    counts = {k: opt.counts[k] - before[k] for k in before}
+    h = opt.history["loss"][n_hist:]
+    its = counts["iterations"]
+    rec = {"ms_iter": dev_ms / its, "host_ms_iter": host_ms / its,
+           "evals_iter": counts["evaluations"] / its, "reads_iter": counts["host_reads"] / its,
+           "first": h[0], "last": h[-1], "iterations": its}
+    log(f"3h {what}: {its} L-BFGS iterations, losses {h[0]:.6e} -> {h[-1]:.6e}; "
+        f"{counts['evaluations']} objective evaluations, {counts['host_reads']} host reads; "
+        f"launches {({k: v for k, v in launches.items() if v})}; "
+        f"{rec['ms_iter']:.4f} ms an iteration on the device clock, "
+        f"{rec['host_ms_iter']:.4f} on the host clock")
+    if dtype is not None or wrapper is None:
+        want = {}
+    else:
+        want = {wrapper: per_eval * counts["evaluations"]}
+        if tc:
+            want[wrapper + "_tc"] = per_eval * counts["evaluations"]
+    got = {k: v for k, v in launches.items() if v}
+    rose = any(b > a + 1e-6 * abs(a) for a, b in zip(h, h[1:]))
+    if got != want or not all(np.isfinite(h)) or rose:
+        raise AssertionError(f"{what}: launches {got} for {counts['evaluations']} evaluations "
+                             f"(want {want}), losses {h}")
+    return rec
+
+
+def phase_lbfgs(torch, log):
+    """Phase 3h: L-BFGS fine-tuning on the card. Returns the fits' times for
+    phase 4g."""
+    import nif_tpu_torch
+    from nif_tpu_torch.optimizers import GroupedLBFGS, LBFGS, cast_parameters
+    from nif_tpu_torch.utils.bench import FLAGSHIP_PNET, FLAGSHIP_POLICY, FLAGSHIP_SHAPE
+
+    out = {}
+    G, P = 32, 32768
+    t, x, u = traveling_wave(G, P, seed=31)
+    for policy in (FLAGSHIP_POLICY, "float32"):
+        tc = policy == FLAGSHIP_POLICY
+        model = nif_tpu_torch.NIFMultiScale(FLAGSHIP_SHAPE, FLAGSHIP_PNET, policy, device="cuda",
+                                            seed=3)
+        opt = GroupedLBFGS(model, t, x, u)
+        chunked = GroupedLBFGS(model, t, x, u, chunk_groups=LBFGS_CHUNK)
+        v, g = opt._value_and_grads()
+        vc, gc = chunked._value_and_grads()
+        g, gc = torch.cat([a.reshape(-1) for a in g]), torch.cat([a.reshape(-1) for a in gc])
+        v_rel = abs(float(vc) - float(v)) / abs(float(v))
+        g_err = float(torch.max(torch.abs(gc - g))) / float(torch.max(torch.abs(g)))
+        # the sums' order; under the bf16 policy the ParameterNet's backward
+        # rounds each gradient product to bf16, so its bound is BF16_REL
+        g_bound = BF16_REL if tc else 5e-5
+        log(f"3h {policy} flagship G={G} x P={P}: the objective in {G // LBFGS_CHUNK} chunks "
+            f"of {LBFGS_CHUNK} groups vs in memory: value {float(vc):.8e} vs {float(v):.8e} "
+            f"(rel {v_rel:.2e}), gradient max|diff| / max|g| {g_err:.2e} (bound {g_bound:.2e})")
+        if not (v_rel <= 1e-5 and g_err <= g_bound):
+            raise AssertionError(f"the chunked {policy} objective departs from the in-memory one")
+        out[("MSE", policy)] = lbfgs_fit(torch, log, f"{policy} flagship MSE fit", opt,
+                                         "shapenet_mse_grads", tc)
+        out[("MSE chunked", policy)] = lbfgs_fit(
+            torch, log, f"{policy} flagship MSE fit, {LBFGS_CHUNK}-group chunks", chunked,
+            "shapenet_mse_grads", tc, max_iter=3, per_eval=G // LBFGS_CHUNK)
+        del model, opt, chunked, g, gc
+    # tutorial 8's shape: Sobolev (K6) and Hessian (K8) fits
+    t8 = tutorial8_problem()
+    for policy in (FLAGSHIP_POLICY, "float32"):
+        for name, wrapper, extra in (
+                ("Sobolev", "shapenet_sobolev_grads", {"target_jac": t8[3]}),
+                ("Hessian", "shapenet_hessian_grads", {"target_jac": t8[3],
+                                                       "target_hess": t8[4]})):
+            model = nif_tpu_torch.NIFMultiScale(TUTORIAL8_S, TUTORIAL8_P, policy, device="cuda",
+                                                seed=4)
+            info = model.sobolev_path_info(t8[1].shape[1], 1, hess=name == "Hessian")
+            if info["path"] != "fused":
+                raise AssertionError(f"tutorial 8's {name} fit would run eager: {info}")
+            tc = info["kernel"] == "tc"
+            opt = GroupedLBFGS(model, t8[0], t8[1], t8[2], w_jac=0.1, w_hess=1e-3, **extra)
+            out[(name, policy)] = lbfgs_fit(
+                torch, log, f"{policy} tutorial 8 {name} fit (G=10 x 256)", opt, wrapper, tc)
+    # float64 at G=4 of the flagship shape: eager, no kernel
+    model = nif_tpu_torch.NIFMultiScale(FLAGSHIP_SHAPE, FLAGSHIP_PNET, FLAGSHIP_POLICY,
+                                        device="cuda", seed=5)
+    opt = GroupedLBFGS(model, t[:4], x[:4], u[:4])
+    out[("MSE float64", FLAGSHIP_POLICY)] = lbfgs_fit(
+        torch, log, "float64 flagship MSE fit (G=4 x 32768)", opt, None, False, max_iter=5,
+        dtype="float64")
+    f64 = model._any_f64()
+    cast_parameters(model, "float32")
+    if not f64 or model._any_f64():
+        raise AssertionError("the float64 fit left the parameters in the wrong dtype")
+    del model, opt
+    # tutorial 1's point-wise fine-tune, float32 and float64
+    tw = nif_tpu_torch.demo.TravelingWave()
+    inputs = np.asarray(tw.data[:, :2], np.float32)
+    targets = np.asarray(tw.u, np.float32)
+    for dtype in (None, "float64"):
+        model = nif_tpu_torch.NIF(TUTORIAL1_S, TUTORIAL1_P, device="cuda", seed=6)
+        opt = LBFGS(model, inputs=inputs, targets=targets, reg=False)
+        with torch.no_grad():
+            before = float(torch.mean(torch.square(
+                model.apply(inputs) - torch.as_tensor(targets, device="cuda"))))
+        rec = lbfgs_fit(torch, log, f"tutorial 1 point-wise fit ({dtype or 'float32'})", opt,
+                        None, False, max_iter=200, dtype=dtype)
+        cast_parameters(model, "float32")
+        with torch.no_grad():
+            after = float(torch.mean(torch.square(
+                model.apply(inputs) - torch.as_tensor(targets, device="cuda"))))
+        log(f"3h tutorial 1 point-wise fit ({dtype or 'float32'}): MSE {before:.6e} -> "
+            f"{after:.6e}")
+        if not after < before:
+            raise AssertionError("the point-wise L-BFGS fit did not lower tutorial 1's MSE")
+        out[("point-wise", dtype or "float32")] = rec
+    return out
+
+
+def phase_stream(torch, log, root):
+    """Phase 3i: streamed grouped training from a sharded ``GroupedDataset``
+    in ``root`` through ``prefetch_to_device``. Returns the dataset."""
+    from nif_tpu_torch.data import GroupedDataset, nifio, prefetch_to_device
+    from nif_tpu_torch.ops import _build
+
+    if not nifio.native_available():
+        raise AssertionError("the native reader did not build on this machine")
+    t, x, u = traveling_wave(STREAM_G, STREAM_P, seed=41)
+    GroupedDataset.create_from_arrays(t, x, u, root, groups_per_file=STREAM_G // 2)
+    ds = GroupedDataset(root)
+    log(f"3i dataset: G={STREAM_G} x P={STREAM_P} in {len(ds.files)} shards, x "
+        f"{x.nbytes / 1e6:.1f} MB, u {u.nbytes / 1e6:.1f} MB of float32; native reader "
+        f"{nifio.native_available()} ({nifio._target().name})")
+    (tr, st), (ref, rst) = flagship_trainer(torch), flagship_trainer(torch)
+    host = []
+
+    def tee(it):
+        for item in it:
+            host.append(item)
+            yield item
+
+    losses, same = [], []
+    stream = prefetch_to_device(tee(ds.iter_batches(STREAM_GB, STREAM_PB, epochs=2, seed=7)))
+    for k, (_epoch, bt, bx, bu, bw) in enumerate(stream):
+        if not (bx.is_cuda and bw is None and tuple(bx.shape) == (STREAM_GB, STREAM_PB, 3)):
+            raise AssertionError(f"streamed batch {k}: {bx.device} {tuple(bx.shape)}")
+        _build.reset_launches()
+        st, loss = tr.step(st, bt, bx, bu, bw)
+        loss = float(loss)
+        launches = {k2: v for k2, v in _build.LAUNCHES.items() if v}
+        rst, ref_loss = ref.step(rst, *host[k][1:5])
+        same.append(loss == float(ref_loss))
+        losses.append(loss)
+        if launches != {"shapenet_mse_grads": 1, "shapenet_mse_grads_tc": 1}:
+            raise AssertionError(f"streamed step {k} launched {launches}")
+    same_params = all(torch.equal(a, b) for a, b in
+                      zip(tr.model.parameters(), ref.model.parameters()))
+    log(f"3i streamed GroupedTrainer.step x{len(losses)} (2 epochs of [{STREAM_GB}, "
+        f"{STREAM_PB}] batches through prefetch_to_device): losses {losses}; equal bit for "
+        f"bit to the steps on the same batches as host arrays {same}, parameters equal "
+        f"{same_params}; one tensor-core K2 a step")
+    if len(losses) != 4 or not all(same) or not same_params:
+        raise AssertionError("the streamed steps depart from the host-array steps")
+    return ds
+
+
+def phase_optimizer_timing(torch, log, lbfgs_times, ds, resident_np, smi):
+    """Phase 4g: L-BFGS, streamed-step and optimizer times."""
+    from nif_tpu_torch import optimizers
+    from nif_tpu_torch.data import prefetch_to_device
+    from nif_tpu_torch.training.resident import graph_form
+    from nif_tpu_torch.utils.bench import FLAGSHIP_POLICY, FLAGSHIP_TRAIN_LR, cuda_ms
+
+    for (what, policy), r in lbfgs_times.items():
+        log(f"4g L-BFGS {what} ({policy}): {r['ms_iter']:.4f} ms an iteration on the device "
+            f"clock, {r['host_ms_iter']:.4f} on the host clock; {r['evals_iter']:.3f} "
+            f"objective evaluations and {r['reads_iter']:.3f} host reads an iteration "
+            f"({r['iterations']} iterations; card {smi})")
+    # where an L-BFGS iteration's time goes: torch.profiler over 5 iterations
+    # of the flagship bf16 MSE fit and of tutorial 8's bf16 Sobolev fit
+    for what, make in lbfgs_profile_cases(torch):
+        opt = make()
+        opt.minimize(max_iter=1)
+        kernels, busy, window, host_ops, its = profiled_lbfgs(torch, opt, 5)
+        top = sorted(kernels, key=lambda k: -k[2])[:4]
+        log(f"4g L-BFGS {what}, torch.profiler over {its} iterations: window {window:.3f} ms "
+            f"= {window / its:.4f} ms an iteration, device busy share {busy:.4f}, "
+            f"{sum(c for _, c, _ in kernels) / its:.1f} kernels an iteration; largest kernels "
+            + "; ".join(f"{k[:40]} {us / its:.1f} us x{c / its:.1f}" for k, c, us in top)
+            + "; most host time (self, an iteration) "
+            + "; ".join(f"{k[:40]} {us / its / 1e3:.3f} ms x{c / its:.1f}"
+                        for k, c, us in host_ops[:5]) + f" (card {smi})")
+        del opt
+    # streamed steps, with and without prefetch, in turns (20 steps each: 10
+    # epochs of the two shards)
+    n_pts = STREAM_GB * STREAM_PB
+    tr, st = flagship_trainer(torch)
+    batches = ds.iter_batches(STREAM_GB, STREAM_PB, epochs=1, seed=11)
+    for _ in range(2):  # warm-up, the kernel loaded
+        st, _ = tr.step(st, *next(batches)[1:5])
+    res = {"prefetch_to_device": [], "host arrays": []}
+    for name in ("prefetch_to_device", "host arrays", "host arrays", "prefetch_to_device"):
+        stream = ds.iter_batches(STREAM_GB, STREAM_PB, epochs=10, seed=12)
+        if name == "prefetch_to_device":
+            stream = prefetch_to_device(stream)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = 0
+        for item in stream:
+            st, _ = tr.step(st, *item[1:5])
+            n += 1
+        torch.cuda.synchronize()
+        res[name].append((time.perf_counter() - t0) / n * 1e3)
+    for name, ms in res.items():
+        log(f"4g streamed GroupedTrainer.step ({name}), 20 steps of [{STREAM_GB}, "
+            f"{STREAM_PB}] a run, two runs in turns: {ms[0]:.4f} and {ms[1]:.4f} ms a step on "
+            f"the host clock = {n_pts / np.mean(ms) * 1e3:.4e} train points/s (card {smi})")
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        a.record()
+        for item in prefetch_to_device(ds.iter_batches(STREAM_GB, STREAM_PB, epochs=5, seed=13)):
+            st, _ = tr.step(st, *item[1:5])
+        b.record()
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    window = a.elapsed_time(b)
+    busy = sum(us for _, _, us in kernels) / (window * 1e3)
+    top = sorted(kernels, key=lambda k: -k[2])[:4]
+    log(f"4g streamed steps through prefetch_to_device, torch.profiler over 10 steps: window "
+        f"{window:.3f} ms, device busy share {busy:.4f}; largest kernels "
+        + "; ".join(f"{k[:40]} {us / 10:.1f} us x{c / 10:.1f}" for k, c, us in top))
+    del tr, st
+    # first-order optimizers at the flagship step shape, and fit_resident
+    # under each against the eager loop (5 steps: 32 groups, one step an epoch)
+    lr = FLAGSHIP_TRAIN_LR
+    cases = [
+        ("torch.optim.Adam", lambda p: torch.optim.Adam(p, lr=lr)),
+        ("adabelief_full", optimizers.adabelief_full(lr)),
+        ("lion", optimizers.lion(lr * 0.1)),
+        ("centralized adam (capturable)",
+         optimizers.centralize_gradients(optimizers.adam(lr, capturable=True))),
+        ("adam on warmup_linear_decay (capturable)",
+         optimizers.adam(optimizers.warmup_linear_decay(lr, 4, 0.5), capturable=True)),
+    ]
+    t, x, u = (a[:RESIDENT_GB] for a in resident_np)
+    for name, make in cases:
+        trainer, state = flagship_trainer(torch, make)
+        psel = np.random.default_rng(3).choice(x.shape[1], size=RESIDENT_PB, replace=False)
+        batch = tuple(torch.as_tensor(a, device="cuda") for a in (t, x[:, psel], u[:, psel]))
+        form = graph_form(state.opt_state, "cuda")[0]
+        step_ms = cuda_ms(lambda: trainer.step(state, *batch), reps=5, warmup=2)
+        opt_ms = cuda_ms(state.opt_state.step, reps=5, warmup=1)
+        same_loss, same_params, hist, eager = resident_vs_eager_with(torch, make, (t, x, u))
+        log(f"4g {FLAGSHIP_POLICY} GroupedTrainer.step under {name}: {step_ms:.4f} ms a step "
+            f"(CUDA events, mean of 5), opt.step() alone {opt_ms:.4f} ms; graph_form "
+            f"{form!r}; fit_resident 5 steps ({hist['resident_graph']}, "
+            f"{len(hist['resident_capture_ms'])} captures) vs the eager loop: losses equal "
+            f"bit for bit {same_loss}, parameters {same_params} (card {smi})")
+        if not (same_loss and same_params) or hist["resident_graph"] != form:
+            raise AssertionError(f"fit_resident under {name} departs from the eager loop: "
+                                 f"{hist['loss']} vs {eager}")
+        del trainer, state
+    return res
+
+
+def lbfgs_profile_cases(torch):
+    """``[(what, make)]``: the L-BFGS fits 4g profiles, each ``make()`` a
+    fresh ``GroupedLBFGS`` (bf16 policy)."""
+    import nif_tpu_torch
+    from nif_tpu_torch.optimizers import GroupedLBFGS
+    from nif_tpu_torch.utils.bench import FLAGSHIP_PNET, FLAGSHIP_POLICY, FLAGSHIP_SHAPE
+
+    def flagship():
+        model = nif_tpu_torch.NIFMultiScale(FLAGSHIP_SHAPE, FLAGSHIP_PNET, FLAGSHIP_POLICY,
+                                            device="cuda", seed=3)
+        return GroupedLBFGS(model, *traveling_wave(32, 32768, seed=31))
+
+    def tutorial8():
+        t8 = tutorial8_problem()
+        model = nif_tpu_torch.NIFMultiScale(TUTORIAL8_S, TUTORIAL8_P, FLAGSHIP_POLICY,
+                                            device="cuda", seed=4)
+        return GroupedLBFGS(model, t8[0], t8[1], t8[2], target_jac=t8[3], w_jac=0.1)
+
+    return [("flagship MSE fit (G=32 x P=32768)", flagship),
+            ("tutorial 8 Sobolev fit (G=10 x 256)", tutorial8)]
+
+
+def profiled_lbfgs(torch, opt, n):
+    """``opt.minimize(max_iter=n)`` under ``torch.profiler``: ``(device
+    kernels, busy share of the window, window ms, host ops [(name, count,
+    self host us)] by self host time, iterations)``."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    before = opt.counts["iterations"]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        a.record()
+        opt.minimize(max_iter=n)
+        b.record()
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    window = a.elapsed_time(b)
+    host_ops = sorted(((e.key, e.count, e.self_cpu_time_total) for e in prof.key_averages()
+                       if not str(e.device_type).endswith("CUDA")), key=lambda r: -r[2])
+    return (kernels, sum(us for _, _, us in kernels) / (window * 1e3), window, host_ops,
+            opt.counts["iterations"] - before)
+
+
+def flagship_trainer(torch, make=None, seed=9):
+    """The flagship model (bf16 policy, random weights from ``seed``) under a
+    ``GroupedTrainer`` with the optimizer factory ``make`` (default Adam at
+    the bench's lr): ``(trainer, state)``."""
+    import nif_tpu_torch
+    from nif_tpu_torch.training import GroupedTrainer
+    from nif_tpu_torch.utils.bench import (FLAGSHIP_PNET, FLAGSHIP_POLICY, FLAGSHIP_SHAPE,
+                                           FLAGSHIP_TRAIN_LR)
+
+    if make is None:
+        make = lambda p: torch.optim.Adam(p, lr=FLAGSHIP_TRAIN_LR)  # noqa: E731
+    model = nif_tpu_torch.NIFMultiScale(FLAGSHIP_SHAPE, FLAGSHIP_PNET, FLAGSHIP_POLICY,
+                                        device="cuda", seed=seed)
+    tr = GroupedTrainer(model, make)
+    return tr, tr.init(seed)
+
+
+def resident_vs_eager_with(torch, make, data_np, steps=5):
+    """``fit_resident`` for ``steps`` one-step epochs under the optimizer
+    factory ``make`` against a loop of ``GroupedTrainer.step`` on a copy
+    over the same batches: ``(same losses, same parameters and learning
+    rates, history, eager losses)``, each "same" bit for bit."""
+    from nif_tpu_torch.training.resident import ResidentData
+
+    t, x, u = data_np
+    trainer, state = flagship_trainer(torch, make, seed=5)
+    state = trainer.fit_resident(state, t, x, u, epochs=steps, group_batch=t.shape[0],
+                                 point_batch=RESIDENT_PB, seed=17)
+    ref, rstate = flagship_trainer(torch, make, seed=5)
+    data = ResidentData(t, x, u, group_batch=t.shape[0], point_batch=RESIDENT_PB, seed=17,
+                        device="cuda")
+    eager = []
+    for _ in range(steps):
+        rstate, loss = ref.step(rstate, **data.batch())
+        eager.append(float(loss))
+    lrs = [g["lr"] for g in state.opt_state.param_groups]
+    same_params = (all(torch.equal(a, b) for a, b in
+                       zip(trainer.model.parameters(), ref.model.parameters()))
+                   and lrs == [g["lr"] for g in rstate.opt_state.param_groups])
+    return trainer.history["loss"] == eager, same_params, trainer.history, eager
+
+
 def main() -> int:
     import torch
 
@@ -2721,6 +3139,14 @@ def main() -> int:
     # the point-wise Trainer
     resident_np = phase_resident(torch, log)
 
+    # ---- phase 3h: L-BFGS fine-tuning through K2, K6 and K8
+    lbfgs_times = phase_lbfgs(torch, log)
+
+    # ---- phase 3i: streamed grouped training from shards through
+    # prefetch_to_device
+    stream_dir = tempfile.TemporaryDirectory(prefix="nif_stream_")
+    stream_ds = phase_stream(torch, log, stream_dir.name)
+
     # ---- phase 4: K1 times at the flagship shape (bf16, as served; the
     # CUDA-core K1 on the same inputs and in float32)
     G, P = requests[0]
@@ -3147,6 +3573,10 @@ def main() -> int:
 
     # ---- phase 4f: the resident step's times beside step and fit
     phase_resident_timing(torch, log, resident_np, smi)
+
+    # ---- phase 4g: L-BFGS, streamed-step and first-order optimizer times
+    phase_optimizer_timing(torch, log, lbfgs_times, stream_ds, resident_np, smi)
+    stream_dir.cleanup()
     log(f"card: {smi}")
     log(f"chip_smoke wall clock: {time.perf_counter() - wall0:.1f} s (builds included)")
     log(json.dumps({"kernels": [{

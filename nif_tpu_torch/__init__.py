@@ -18,8 +18,13 @@ Sobolev train kernel, ``regularization_loss``, and
 ``training.GroupedTrainer`` (``step``, ``fit`` with uniform or residual
 point sampling, the device-resident ``fit_resident``, replayed as CUDA graphs
 on the card, ``evaluate``, ``evaluate_sobolev``, ``init_or_restore``) and the
-point-wise ``training.Trainer``, with callbacks and checkpoints; ``data``
-(``PointWiseData``) and ``demo`` (the analytic demo datasets). Derivatives:
+point-wise ``training.Trainer``, with callbacks and checkpoints;
+``optimizers`` (Adam, the AdaBelief forms, Lion, gradient centralization,
+the warmup + decay schedule, and L-BFGS fine-tuning, point-wise and grouped,
+whose grouped objective runs the fused train kernels); ``data``
+(``PointWiseData``, the sharded and grouped streaming datasets with the
+native reader, and ``prefetch_to_device``) and ``demo`` (the analytic demo
+datasets). Derivatives:
 ``ops.output_and_jacobian_grouped`` through the fused Jacobian kernel, and
 the eager ``torch.func`` derivatives and Sobolev losses of ``ops``.
 """
@@ -30,6 +35,7 @@ from . import demo
 from . import layers
 from . import models
 from . import ops
+from . import optimizers
 from . import serving
 from . import training
 from . import utils
@@ -53,6 +59,7 @@ __all__ = [
     "layers",
     "models",
     "ops",
+    "optimizers",
     "serving",
     "training",
     "utils",

@@ -1,6 +1,13 @@
 """Data containers (counterpart of ``nif_tpu/data``): the point-wise
-container. The sharded and grouped datasets, the native reader and the
-device prefetch are not ported yet (ROADMAP Queue 1 item 7)."""
+container, the sharded point-wise and grouped streaming datasets (with the
+native gather/permute reader of :mod:`.nifio`), and the device prefetch."""
 from .point_wise_data import PointWiseData
+from .prefetch import prefetch_to_device
+from .sharded_dataset import GroupedDataset, ShardedDataset
 
-__all__ = ["PointWiseData"]
+__all__ = [
+    "PointWiseData",
+    "ShardedDataset",
+    "GroupedDataset",
+    "prefetch_to_device",
+]

@@ -52,22 +52,18 @@ def unpack_shapenet_weights(wb: torch.Tensor, cfg: ShapeNetConfig) -> Dict[str, 
             f"for cfg {cfg}"
         )
 
-    ofs = 0
-
-    def take(count):
-        nonlocal ofs
-        seg = wb[..., ofs: ofs + count]
-        ofs += count
-        return seg
-
-    w_first = take(si * n).reshape(*batch, si, n)
+    # one split (its backward is one concatenation, where slices would each
+    # scatter into a zero-filled [*batch, po] gradient)
+    sizes = ([si * n] + [n * n] * n_hidden_mats + [n * so] + [n] * (1 + n_hidden_mats) + [so])
+    segs = list(torch.split(wb, sizes, dim=-1))
+    w_first = segs.pop(0).reshape(*batch, si, n)
     w_hidden: List[torch.Tensor] = [
-        take(n * n).reshape(*batch, n, n) for _ in range(n_hidden_mats)
+        segs.pop(0).reshape(*batch, n, n) for _ in range(n_hidden_mats)
     ]
-    w_last = take(n * so).reshape(*batch, n, so)
-    b_first = take(n)
-    b_hidden: List[torch.Tensor] = [take(n) for _ in range(n_hidden_mats)]
-    b_last = take(so)
+    w_last = segs.pop(0).reshape(*batch, n, so)
+    b_first = segs.pop(0)
+    b_hidden: List[torch.Tensor] = [segs.pop(0) for _ in range(n_hidden_mats)]
+    b_last = segs.pop(0)
     return {
         "w_first": w_first,
         "w_hidden": w_hidden,

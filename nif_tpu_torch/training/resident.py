@@ -22,7 +22,10 @@ loop captures anew for each call and keeps nothing across calls. The
 whole-step graph is captured with each param group's learning rate in a
 device tensor, which the loop fills from the group before its replays, so a
 learning-rate schedule needs no new capture; a change of another
-hyperparameter captures the whole step anew.
+hyperparameter captures the whole step anew. An optimizer on a per-update
+schedule (``optimizers.with_schedule``) has its learning rate evaluated on
+the host before every replay and filled into that tensor; in the other form
+``opt.step()`` evaluates it itself.
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ import numpy as np
 import torch
 
 from ..models.nif import resolve_device
+from ..optimizers.schedule import advance_schedule
 
 __all__ = ["ResidentData", "ResidentLoop", "graph_form"]
 
@@ -137,11 +141,12 @@ def graph_form(optimizer, device) -> Tuple[str, str]:
 
 
 def _hyperparameters(optimizer):
-    """Each param group's settings but its learning rate: a whole-step graph
-    holds them as they were at its capture (a tensor by identity: it is read
-    where it lies)."""
+    """Each param group's settings but its learning rate and its schedule's
+    count: a whole-step graph holds them as they were at its capture (a
+    tensor by identity: it is read where it lies)."""
     return [tuple(sorted((k, id(v) if isinstance(v, torch.Tensor) else v)
-                         for k, v in g.items() if k not in ("params", "lr")))
+                         for k, v in g.items()
+                         if k not in ("params", "lr", "schedule_count")))
             for g in optimizer.param_groups]
 
 
@@ -226,10 +231,18 @@ class ResidentLoop:
                                   and _hyperparameters(self.optimizer) != self._captured_with):
             self.graph = None
             self._capture()
+        # a per-update schedule (optimizers.with_schedule): the captured
+        # step's pre-hook did nothing, so each replay's learning rate is
+        # evaluated here and filled into the tensor the graph reads
+        scheduled = (self.form == "step"
+                     and getattr(self.optimizer, "lr_schedule", None) is not None)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(n):
+            if scheduled:
+                advance_schedule(self.optimizer)
+                self._fill_lr()
             self.graph.replay()
             if self.form == "forward_backward":
                 self.optimizer.step()

@@ -2138,3 +2138,81 @@ def test_simt_k1_k5_float32_flagship_is_deterministic(card):
     y_ref, jac_ref = fd.shapenet_fwd_jac_reference(wb, x, cfg, "siren")
     _simt_bound(jacs[0][0], y_ref)
     _simt_bound(jacs[0][1], jac_ref)
+
+
+# ------------------------------------------- GroupedLBFGS on the fused kernels
+LBFGS_S = {"input_dim": 2, "output_dim": 1, "units": 64, "nlayers": 2, "activation": "sine",
+           "use_resblock": False, "omega_0": 10.0, "connectivity": "full",
+           "weight_init_factor": 0.01}
+LBFGS_P = {"input_dim": 1, "latent_dim": 8, "units": 32, "nlayers": 1, "activation": "swish"}
+
+
+def _lbfgs_problem(G=6, P=2048, seed=40):
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    h = f(G, P, 1, 2, 2)
+    return (f(G, 1), f(G, P, 2), f(G, P, 1), rng.uniform(0.5, 1.5, (G, P)).astype(np.float32),
+            f(G, P, 1, 2), 0.5 * (h + h.transpose(0, 1, 2, 4, 3)))
+
+
+def _flat(grads):
+    return torch.cat([g.reshape(-1).float() for g in grads])
+
+
+@pytest.mark.parametrize("policy", ["float32", "mixed_bfloat16"])
+@pytest.mark.parametrize("kind,wrapper", [("mse", "shapenet_mse_grads"),
+                                          ("sobolev", "shapenet_sobolev_grads"),
+                                          ("hessian", "shapenet_hessian_grads")])
+@pytest.mark.parametrize("chunk_groups", [None, 4])
+def test_grouped_lbfgs_fused_objective_matches_eager(card, policy, kind, wrapper,
+                                                     chunk_groups):
+    """The fused objective (one K2, K6 or K8 launch an evaluation, or a
+    chunk) against the eager one on the same card: float32 value rel 1e-5
+    and gradient max|d| <= 1e-4 of max|eager| (K8's bound, the loosest of
+    the three passes'); bf16 value rel 1e-2 and gradient rel-L2 <= 0.15
+    (``chip_smoke.py``'s bound for bf16 fused against eager ParameterNet
+    gradients: the eager chain rounds omega*(u@W) to bf16 and takes the
+    exact sine, the kernels their own rounding points and polynomial sine)."""
+    from nif_tpu_torch.optimizers import GroupedLBFGS
+
+    t, x, u, w, tj, th = _lbfgs_problem()
+    extra = {"mse": {}, "sobolev": {"target_jac": tj},
+             "hessian": {"target_jac": tj, "target_hess": th}}[kind]
+    model = nif_tpu_torch.NIFMultiScale(LBFGS_S, LBFGS_P, policy, device="cuda", seed=2)
+    kw = dict(weight=w, w_jac=0.3, w_hess=0.1, chunk_groups=chunk_groups, **extra)
+    _build.reset_launches()
+    v_f, g_f = GroupedLBFGS(model, t, x, u, fused=True, **kw)._value_and_grads()
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    v_e, g_e = GroupedLBFGS(model, t, x, u, fused=False, **kw)._value_and_grads()
+    chunks = 1 if chunk_groups is None else -(-t.shape[0] // chunk_groups)
+    assert launches[wrapper] == chunks
+    assert sum(v for k, v in launches.items() if not k.startswith(wrapper)) == 0
+    g_f, g_e = _flat(g_f), _flat(g_e)
+    if policy == "float32":
+        assert float(v_f) == pytest.approx(float(v_e), rel=1e-5)
+        assert float(torch.max(torch.abs(g_f - g_e))) <= 1e-4 * float(torch.max(torch.abs(g_e)))
+    else:
+        assert float(v_f) == pytest.approx(float(v_e), rel=1e-2)
+        assert float(torch.linalg.vector_norm(g_f - g_e)) <= 0.15 * float(
+            torch.linalg.vector_norm(g_e))
+
+
+@pytest.mark.parametrize("policy", ["float32", "mixed_bfloat16"])
+def test_grouped_lbfgs_launches_k2_once_an_evaluation(card, policy):
+    from nif_tpu_torch.optimizers import GroupedLBFGS
+
+    t, x, u, w, _, _ = _lbfgs_problem()
+    model = nif_tpu_torch.NIFMultiScale(LBFGS_S, LBFGS_P, policy, device="cuda", seed=3)
+    opt = GroupedLBFGS(model, t, x, u, weight=w)
+    _build.reset_launches()
+    opt.minimize(max_iter=8)
+    torch.cuda.synchronize()
+    evaluations = opt.counts["evaluations"]
+    assert evaluations >= 8 and _build.LAUNCHES["shapenet_mse_grads"] == evaluations
+    assert _build.LAUNCHES["shapenet_mse_grads_tc"] == (0 if policy == "float32" else evaluations)
+    h = opt.history["loss"]
+    assert all(b <= a for a, b in zip(h, h[1:])) and h[-1] < h[0]
+    _build.reset_launches()
+    opt.minimize(max_iter=3, dtype="float64")
+    assert not any(_build.LAUNCHES.values()) and model._any_f64()

@@ -1,8 +1,9 @@
 """The port imports neither JAX nor the JAX package: every module of
 ``nif_tpu_torch/``, ``chip_smoke.py`` and the port's scripts
-(``scripts/port_*.py``) is parsed, and any import of ``jax``/``jaxlib`` or
-of ``nif_tpu`` (other than ``nif_tpu_torch``) fails, relative imports
-resolved against the module's package."""
+(``scripts/port_*.py``) is parsed, and any import of ``jax``/``jaxlib``, of
+the libraries of the JAX stack that import JAX (``optax``, ``flax``,
+``orbax``) or of ``nif_tpu`` (other than ``nif_tpu_torch``) fails, relative
+imports resolved against the module's package."""
 import ast
 import pathlib
 
@@ -14,7 +15,7 @@ FILES = sorted(
     + ["chip_smoke.py"]
     + [p.relative_to(REPO).as_posix() for p in (REPO / "scripts").glob("port_*.py")]
 )
-FORBIDDEN = {"jax", "jaxlib", "nif_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "optax", "flax", "orbax", "nif_tpu"}
 
 
 def _imports(root: pathlib.Path, rel: str):
@@ -44,6 +45,8 @@ def test_the_port_has_modules_to_check():
     assert "nif_tpu_torch/__init__.py" in FILES and "chip_smoke.py" in FILES
     assert "nif_tpu_torch/ops/fused_shapenet.py" in FILES
     assert "nif_tpu_torch/ops/fused_hessian.py" in FILES
+    assert "nif_tpu_torch/optimizers/lbfgs.py" in FILES
+    assert "nif_tpu_torch/data/sharded_dataset.py" in FILES
     assert any(f.startswith("scripts/port_") for f in FILES)
 
 
@@ -64,12 +67,13 @@ def test_the_check_catches_jax_imports(tmp_path):
         "from ..ops import _build\nfrom . import sibling\n")
     (sub / "bad.py").write_text(
         "import jax.numpy as jnp\nfrom nif_tpu.config import ShapeNetConfig\n"
-        "from jaxlib import xla_client\n")
+        "from jaxlib import xla_client\nimport optax\nfrom orbax import checkpoint\n"
+        "import flax.linen\n")
     (sub / "out.py").write_text("from ... import nif_tpu\n")
     assert _forbidden(_imports(tmp_path, "nif_tpu_torch/sub/ok.py")) == []
     assert "nif_tpu_torch.ops._build" in list(_imports(tmp_path, "nif_tpu_torch/sub/ok.py"))
     assert _forbidden(_imports(tmp_path, "nif_tpu_torch/sub/bad.py")) == [
         "jax.numpy", "nif_tpu.config", "nif_tpu.config.ShapeNetConfig", "jaxlib",
-        "jaxlib.xla_client"]
+        "jaxlib.xla_client", "optax", "orbax", "orbax.checkpoint", "flax.linen"]
     with pytest.raises(AssertionError, match="climbs out"):
         list(_imports(tmp_path, "nif_tpu_torch/sub/out.py"))
