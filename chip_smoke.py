@@ -265,6 +265,34 @@ Phases of the optimizer and streaming slice:
    the form ``graph_form`` picks for each, and a 5-step ``fit_resident``
    under each against the eager loop, bit for bit.
 
+Phases of the compression and export slice (after 4g):
+
+3j. The int8 ROM decode of the JAX bench's NIF-linear model (SIREN trunk
+   3 -> 128 x 2 -> 128, so = 1, K = 128; ``mlp_hyper`` ParameterNet; random
+   weights from a seed) at G=256 snapshots onto one mesh of P=32768 points,
+   in both policies: ``quantize_shared_mesh`` (q_phi 4.2 MB), the
+   ``torch._int_mm`` product bit for bit its float64 version, the decode
+   within 1e-6 of max of the float64 product of its dequantized operands,
+   within rel-L2 1e-2 of the float32 fixed-mesh decode and of
+   ``apply_shared_mesh`` and within 1.1x what int8 rounding predicts;
+   ``predict_shared_mesh(int8_pack=...)`` and the loaded ``shared_mesh_int8``
+   artifact bit for bit the decode; no hand-written kernel launched. Times:
+   the float32 decode (``phi`` precomputed), the int8 decode and the
+   artifact (CUDA events, mean of 50, and device time a call).
+3k. ``export_apply``/``load_exported`` on the card: the flagship's
+   ``grouped`` artifact at G=32 x P=32768 in both policies holds one call of
+   K1's registered op; a call launches K1 once (the tensor-core one in
+   bf16), a ``torch.profiler`` trace of one call holds one K1 kernel and no
+   other fused pass, and the output is ``apply_grouped``'s bit for bit
+   (times beside it); the ``pointwise`` (4096 rows) and NIF-linear
+   ``shared_mesh`` artifacts round-trip bit for bit.
+3l. ``MagnitudePruning(adam, 0.5, begin 0, end 4, every 2)``: six flagship
+   ``GroupedTrainer.step`` (six tensor-core K2) leave every prunable tensor
+   at most its kept count (sparsity >= 0.5 within one entry a tensor), the
+   masks frozen after step 4 and the pruned entries exactly 0; a 5-step
+   ``fit_resident`` (the ``forward_backward`` form) equals its eager loop
+   bit for bit.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the
 ``{"kernels": [...]}`` record, and before that the card's name and power
 limit and the run's wall-clock seconds. Exits non-zero without CUDA or
@@ -1298,6 +1326,19 @@ def device_kernels(prof):
             and not getattr(e, "is_user_annotation", False)]
 
 
+def device_ms(torch, fn, n: int):
+    """``fn()`` ``n`` times under ``torch.profiler``: ``(device ms a call,
+    kernels a call)``, summed over the device kernels."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    return sum(us for _, _, us in kernels) / n / 1e3, sum(c for _, c, _ in kernels) / n
+
+
 def kernel_count(kernels, name: str) -> int:
     """Launches of the kernel called ``name`` (the whole identifier: K7's
     fwd_hess_tc_kernel is no hess_tc_kernel) among ``device_kernels``."""
@@ -2143,6 +2184,247 @@ def resident_vs_eager_with(torch, make, data_np, steps=5):
                        zip(trainer.model.parameters(), ref.model.parameters()))
                    and lrs == [g["lr"] for g in rstate.opt_state.param_groups])
     return trainer.history["loss"] == eager, same_params, trainer.history, eager
+
+
+# The int8 ROM decode of phase 3j: the JAX bench's fixed-mesh decode
+# (bench.py:356-358), G=256 snapshots onto one mesh of P=32768 points of the
+# NIF-linear flagship (q_phi 4.2 MB of int8, the field 33.5 MB of float32).
+ROM_G, ROM_P = 256, 32768
+
+
+def rom_decode_phase(torch, log, smi, policy):
+    """Phase 3j under one policy: the NIF-linear flagship's int8 pack on a
+    fixed mesh; the int8 product against its float64 version (bit for bit);
+    the decode against the float64 product of its own dequantized operands
+    (rel 1e-6 of max: the rescale and bias add three float32 roundings) and
+    against the float32 fixed-mesh decode (``phi`` precomputed, the JAX
+    bench's ``romf_step`` with the bias) and ``apply_shared_mesh`` within
+    rel-L2 1e-2 (the JAX test's bound), and within 1.1x the rel-L2 that int8
+    rounding of these operands adds (each entry's rounding uniform over one
+    step: variance ``sum_k a_k^2 s_phi^2 / 12 + phi_k^2 s_a^2 / 12``);
+    ``predict_shared_mesh(int8_pack=...)`` and the loaded
+    ``shared_mesh_int8`` artifact bit for bit the decode. Then the float32
+    decode, the int8 decode and the artifact on CUDA events, and the device
+    time of each (``torch.profiler``, 10 calls). Returns ``{name: ms}``."""
+    import nif_tpu_torch
+    from nif_tpu_torch.compression import quantize_shared_mesh, rom_decode_int8
+    from nif_tpu_torch.compression.quantization import _int8_product, _quantize_rows
+    from nif_tpu_torch.models.parameter_net import parameter_net_apply
+    from nif_tpu_torch.ops import _build
+    from nif_tpu_torch.serving import export_apply, load_exported, predict_shared_mesh
+    from nif_tpu_torch.utils import rel_l2
+    from nif_tpu_torch.utils.bench import FLAGSHIP_PNET, LINEAR_SHAPE, cuda_ms
+
+    model = nif_tpu_torch.NIFMultiScaleLastLayerParameterized(LINEAR_SHAPE, FLAGSHIP_PNET,
+                                                              policy, device="cuda", seed=1)
+    rng = np.random.default_rng(7)
+    t = rng.standard_normal((ROM_G, 4)).astype(np.float32)
+    x = rng.standard_normal((ROM_P, 3)).astype(np.float32)
+    t_dev = torch.from_numpy(t).cuda()
+    pack = quantize_shared_mesh(model, x)
+    P, so, K = pack["shape"]
+    if pack["q_phi"].shape != (P * so, K) or pack["q_phi"].dtype != torch.int8:
+        raise AssertionError(f"the pack's q_phi is {pack['q_phi'].shape} {pack['q_phi'].dtype}")
+    _build.reset_launches()
+    with torch.no_grad():
+        phi = model.x_to_phi(x).float()  # [P, so, K], the pack's rows before rounding
+
+        def romf():  # the float32 decode on the fixed mesh, phi precomputed
+            a, _ = parameter_net_apply(model.pnet.params, t_dev, model.cfg_parameter_net,
+                                       model.pnet_kind)
+            return torch.einsum("pok,gk->gpo", phi, a.float()) + pack["bias"]
+
+        a, _ = parameter_net_apply(model.pnet.params, t_dev, model.cfg_parameter_net,
+                                   model.pnet_kind)
+        q_a, s_a = _quantize_rows(a.float())
+        acc = _int8_product(q_a, pack["q_phi_padded"], P * so)
+        same = torch.equal(acc.double(), q_a.double() @ pack["q_phi"].double().T)
+        u8 = rom_decode_int8(model, pack, t_dev)
+        deq = ((q_a.double() * s_a.double()[:, None])
+               @ (pack["q_phi"].double() * pack["s_phi"].double()[:, None]).T)
+        deq = deq.reshape(ROM_G, P, so) + pack["bias"].double()
+        d_deq = float((u8.double() - deq).abs().max() / deq.abs().max())
+        uf = romf()
+        rows = phi.reshape(P * so, K).double()
+        noise = ((a.double() ** 2).sum(1)[:, None] * pack["s_phi"].double()[None, :] ** 2
+                 + s_a.double()[:, None] ** 2 * (rows ** 2).sum(1)[None, :]) / 12
+        predicted = float(torch.sqrt(noise.sum()) / torch.linalg.vector_norm(uf.double()))
+        rel = float(rel_l2(u8, uf))
+        rel_apply = float(rel_l2(u8, model.apply_shared_mesh(t_dev, x).float()))
+    torch.cuda.synchronize()
+    decode_launches = dict(_build.LAUNCHES)
+    served = predict_shared_mesh(model, t, int8_pack=pack)
+    same_served = np.array_equal(served, u8.cpu().numpy())
+    loaded = load_exported(export_apply(model, batch_size=P, layout="shared_mesh_int8",
+                                        group_batch=ROM_G, int8_pack=pack))
+    same_loaded = torch.equal(loaded(t_dev), u8)
+    log(f"3j {policy} int8 ROM decode G={ROM_G} onto P={P} (so={so}, K={K}; q_phi "
+        f"{pack['q_phi'].numel() / 1e6:.2f} MB int8, the field {u8.numel() * 4 / 1e6:.1f} MB "
+        f"f32): torch._int_mm int32 equals the float64 product bit for bit {same}; max|d| vs "
+        f"the float64 dequantized product {d_deq:.3e} of max (bound 1e-6); rel-L2 vs the "
+        f"float32 fixed-mesh decode {rel:.4e} (bound 1e-2; int8 rounding predicts "
+        f"{predicted:.4e}, bound 1.1x), vs apply_shared_mesh {rel_apply:.4e} (bound 1e-2); "
+        f"predict_shared_mesh(int8_pack=...) equal {same_served}; the loaded "
+        f"shared_mesh_int8 artifact equal {same_loaded}; hand-written kernel launches "
+        f"{sum(decode_launches.values())} (the decode runs none)")
+    if (not (same and same_served and same_loaded) or d_deq > 1e-6 or rel > 1.1 * predicted
+            or max(rel, rel_apply) > 1e-2 or any(decode_launches.values())):
+        raise AssertionError(f"{policy} int8 ROM decode: product exact {same}, dequantized "
+                             f"{d_deq}, rel-L2 {rel} (predicted {predicted}), served "
+                             f"{same_served}, artifact {same_loaded}, launches "
+                             f"{decode_launches}")
+    del acc, deq, uf, served, rows, noise
+    with torch.no_grad():
+        calls = {"f32": romf, "int8": lambda: rom_decode_int8(model, pack, t_dev),
+                 "artifact": lambda: loaded(t_dev)}
+        times = {k: cuda_ms(f, reps=50, warmup=5) for k, f in calls.items()}
+        device = {k: device_ms(torch, f, 10) for k, f in calls.items()}
+    log(f"3j {policy} fixed-mesh decode times G={ROM_G} x P={P} (CUDA events, mean of 50; "
+        f"card {smi}): float32 (phi precomputed) {times['f32']:.4f} ms = "
+        f"{ROM_G * P / times['f32'] * 1e3:.4e} points/s; int8 {times['int8']:.4f} ms = "
+        f"{ROM_G * P / times['int8'] * 1e3:.4e} points/s; the loaded shared_mesh_int8 artifact "
+        f"{times['artifact']:.4f} ms; int8/f32 time ratio {times['int8'] / times['f32']:.3f}; "
+        f"device time a call (torch.profiler, 10 calls: kernels, count): "
+        + "; ".join(f"{k} {ms:.4f} ms ({n} kernels)" for k, (ms, n) in device.items()))
+    return times
+
+
+def export_phase(torch, log, smi):
+    """Phase 3k: the flagship's ``grouped`` artifact at G=32 x P=32768 in
+    both policies (one call of K1's registered op in its graph; a call
+    launches K1 once, the tensor-core one in bf16, bit for bit
+    ``apply_grouped``, and a ``torch.profiler`` trace of one call holds one
+    K1 kernel and no other fused pass), timed beside ``apply_grouped``;
+    then the NIF-linear ``shared_mesh`` and the flagship's ``pointwise``
+    artifacts round-trip bit for bit. Returns the K1 launches of the two
+    artifact calls and the times."""
+    import nif_tpu_torch
+    from nif_tpu_torch.ops import _build
+    from nif_tpu_torch.serving import export_apply, load_exported
+    from nif_tpu_torch.utils.bench import (FLAGSHIP_PNET, FLAGSHIP_SHAPE, LINEAR_SHAPE,
+                                           cuda_ms)
+
+    G, P = 32, 32768
+    rng = np.random.default_rng(11)
+    t = torch.from_numpy(rng.standard_normal((G, 4)).astype(np.float32)).cuda()
+    x = torch.from_numpy(rng.standard_normal((G, P, 3)).astype(np.float32)).cuda()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    res = {}
+    for policy in ("mixed_bfloat16", "float32"):
+        model = nif_tpu_torch.NIFMultiScale(FLAGSHIP_SHAPE, FLAGSHIP_PNET, policy,
+                                            device="cuda", seed=0)
+        t0 = time.perf_counter()
+        blob = export_apply(model, batch_size=P, layout="grouped", group_batch=G)
+        export_s = time.perf_counter() - t0
+        fn = load_exported(blob)
+        ops = [str(n.target) for n in fn.program.graph.nodes
+               if n.op == "call_function" and "nif_tpu_torch" in str(n.target)]
+        with torch.inference_mode():
+            ref = model.apply_grouped(t, x)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        out = fn(t, x)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        with torch.profiler.profile(activities=acts) as prof:
+            fn(t, x)
+            torch.cuda.synchronize()
+        counts = pass_counts(device_kernels(prof))
+        tc = policy == "mixed_bfloat16"
+        same = torch.equal(out, ref)
+        art_ms = cuda_ms(lambda: fn(t, x), reps=20)
+        art_dev = device_ms(torch, lambda: fn(t, x), 10)
+        with torch.inference_mode():
+            apply_ms = cuda_ms(lambda: model.apply_grouped(t, x), reps=20)
+            apply_dev = device_ms(torch, lambda: model.apply_grouped(t, x), 10)
+        log(f"3k {policy} grouped artifact G={G} P={P}: {len(blob) / 1e6:.2f} MB, exported in "
+            f"{export_s:.1f} s; its graph calls {ops}; a call launched {launches}; the trace of "
+            f"one call {counts}; bit for bit apply_grouped {same}; {art_ms:.4f} ms a call "
+            f"against apply_grouped's {apply_ms:.4f} (CUDA events, mean of 20; card {smi}); "
+            f"device time a call {art_dev[0]:.4f} ms ({art_dev[1]:.0f} kernels) against "
+            f"{apply_dev[0]:.4f} ({apply_dev[1]:.0f})")
+        if (ops != ["nif_tpu_torch.shapenet_fwd.default"] or not same
+                or launches["shapenet_fwd"] != 1 or launches["shapenet_fwd_tc"] != int(tc)
+                or sum(launches.values()) != 1 + int(tc)
+                or counts["K1"] != ((1, 0) if tc else (0, 1))
+                or any(sum(c) for p, c in counts.items() if p != "K1")):
+            raise AssertionError(f"the {policy} grouped artifact: graph {ops}, launches "
+                                 f"{launches}, trace {counts}, equal {same}")
+        res[policy] = {"launches": launches["shapenet_fwd"], "ms": art_ms, "apply_ms": apply_ms}
+        if tc:
+            rows = torch.cat([t.repeat_interleave(128, 0), x[:, :128].reshape(-1, 3)], 1)
+            pfn = load_exported(export_apply(model, batch_size=rows.shape[0]))
+            with torch.inference_mode():
+                same_pw = torch.equal(pfn(rows), model.apply(rows))
+            lin = nif_tpu_torch.NIFMultiScaleLastLayerParameterized(
+                LINEAR_SHAPE, FLAGSHIP_PNET, policy, device="cuda", seed=1)
+            xm = x[0, :8192]
+            sfn = load_exported(export_apply(lin, batch_size=8192, layout="shared_mesh",
+                                             group_batch=16))
+            with torch.inference_mode():
+                same_sm = torch.equal(sfn(t[:16], xm), lin.apply_shared_mesh(t[:16], xm))
+            log(f"3k {policy} pointwise artifact ({rows.shape[0]} rows) bit for bit apply "
+                f"{same_pw}; NIF-linear shared_mesh artifact (16 snapshots onto 8192 points) "
+                f"bit for bit apply_shared_mesh {same_sm}")
+            if not (same_pw and same_sm):
+                raise AssertionError("the pointwise or shared_mesh artifact departs")
+            del lin
+        del model, fn, ref, out
+    return res
+
+
+def pruning_phase(torch, log, smi, resident_np):
+    """Phase 3l: six flagship ``GroupedTrainer.step`` under
+    ``MagnitudePruning(adam, 0.5, begin 0, end 4, every 2)`` (one
+    tensor-core K2 a step): every prunable tensor keeps at most its kept
+    count (sparsity >= 0.5 within one entry a tensor), its mask frozen after
+    step 4 and the pruned entries exactly 0; then a 5-step ``fit_resident``
+    with that optimizer (the ``forward_backward`` graph form) against its
+    eager loop, bit for bit."""
+    from nif_tpu_torch import compression, optimizers
+    from nif_tpu_torch.compression.pruning import _kept_count
+    from nif_tpu_torch.ops import _build
+    from nif_tpu_torch.utils.bench import FLAGSHIP_TRAIN_LR
+
+    make = compression.MagnitudePruning(optimizers.adam(FLAGSHIP_TRAIN_LR), final_sparsity=0.5,
+                                        begin_step=0, end_step=4, update_every=2)
+    trainer, state = flagship_trainer(torch, make, seed=0)
+    t, x, u = (a[:RESIDENT_GB] for a in resident_np)
+    batch = tuple(torch.as_tensor(a[:, :RESIDENT_PB] if a.ndim == 3 else a, device="cuda")
+                  for a in (t, x, u))
+    _build.reset_launches()
+    losses, frozen = [], None
+    for step in range(6):
+        state, loss = trainer.step(state, *batch)
+        losses.append(float(loss))
+        if step == 3:
+            frozen = [None if m is None else m.clone() for m in state.opt_state.masks]
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    params = [p for _, p in trainer.model.param_items()]
+    worst, held = 1.0, True
+    for p, m, f in zip(params, state.opt_state.masks, frozen):
+        if m is None:
+            continue
+        k = _kept_count(p.numel(), 4, 0.5, 0, 4)
+        nonzero = int(torch.count_nonzero(p))
+        worst = min(worst, 1 - nonzero / p.numel())
+        held = held and torch.equal(m, f) and nonzero <= k and not bool((p[~m] != 0).any())
+        if p.numel() - nonzero < p.numel() * 0.5 - 1:
+            held = False
+    sp = compression.sparsity(trainer.model.param_tree())
+    log(f"3l MagnitudePruning(adam, 0.5, end_step=4, every 2) on the flagship, 6 steps G=32 "
+        f"P=32768: losses {losses}; launches {launches}; prunable sparsity {sp:.6f} (least of "
+        f"a tensor {worst:.6f}); masks frozen after step 4 and pruned entries exactly 0: {held}")
+    if (not held or launches["shapenet_mse_grads_tc"] != 6 or not np.all(np.isfinite(losses))):
+        raise AssertionError(f"pruned training: held {held}, launches {launches}")
+    del trainer, state, batch
+    same_loss, same_params, hist, eager = resident_vs_eager_with(torch, make, (t, x, u))
+    log(f"3l fit_resident 5 steps under MagnitudePruning(adam) ({hist['resident_graph']}) vs "
+        f"the eager loop: losses equal bit for bit {same_loss}, parameters {same_params} "
+        f"(card {smi})")
+    if not (same_loss and same_params) or hist["resident_graph"] != "forward_backward":
+        raise AssertionError(f"the pruned fit_resident departs: {hist['loss']} vs {eager}")
 
 
 def main() -> int:
@@ -3577,6 +3859,16 @@ def main() -> int:
     # ---- phase 4g: L-BFGS, streamed-step and first-order optimizer times
     phase_optimizer_timing(torch, log, lbfgs_times, stream_ds, resident_np, smi)
     stream_dir.cleanup()
+
+    # ---- phase 3j: the int8 ROM decode of the NIF-linear flagship, and its times
+    for policy in ("mixed_bfloat16", "float32"):
+        rom_decode_phase(torch, log, smi, policy)
+
+    # ---- phase 3k: export_apply/load_exported on the card (K1 as a registered op)
+    exported = export_phase(torch, log, smi)
+
+    # ---- phase 3l: MagnitudePruning in GroupedTrainer.step and fit_resident
+    pruning_phase(torch, log, smi, resident_np)
     log(f"card: {smi}")
     log(f"chip_smoke wall clock: {time.perf_counter() - wall0:.1f} s (builds included)")
     log(json.dumps({"kernels": [{
@@ -3585,6 +3877,8 @@ def main() -> int:
         "source": "nif_tpu_torch/csrc/shapenet_fwd_tc.cu",
         "replaces": "nif_tpu/ops/pallas_shapenet.py:489",
         "launches": serve_launches["shapenet_fwd_tc"],
+        "op": "torch.ops.nif_tpu_torch.shapenet_fwd",
+        "exported_launches": exported["mixed_bfloat16"]["launches"],
         "max_abs_err": k1_err,
         "ms": k1_ms,
         "plain_ms": plain_ms,
@@ -3598,6 +3892,8 @@ def main() -> int:
         "source": "nif_tpu_torch/csrc/shapenet_fwd.cu",
         "replaces": "nif_tpu/ops/pallas_shapenet.py:489",
         "launches": f32_serve_launches["shapenet_fwd"],
+        "op": "torch.ops.nif_tpu_torch.shapenet_fwd",
+        "exported_launches": exported["float32"]["launches"],
         "max_abs_err": k1f_err,
         "ms": k1f_ms,
         "plain_ms": k1f_plain_ms,

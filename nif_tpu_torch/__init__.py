@@ -10,7 +10,11 @@ Entry points run on CUDA unless the caller passes ``device="cpu"``.
 Serving: ``NIF``/``NIFMultiScale``/``NIFMultiScaleLastLayerParameterized``
 (NIF-linear) construction, init, point-wise and grouped forward, subnetwork
 extraction, config IO, ``serving.predict``/``predict_grouped`` through the
-fused forward kernel, and NIF-linear's ``predict_shared_mesh``.
+fused forward kernel, NIF-linear's ``predict_shared_mesh`` (float32 or int8),
+and ``serving.export_apply``/``load_exported`` on ``torch.export`` (the fused
+forward kernel a registered op, ``torch.ops.nif_tpu_torch.shapenet_fwd``).
+Compression: magnitude pruning (``compression.MagnitudePruning`` over any
+optimizer), int8 post-training quantization and NIF-linear's int8 ROM decode.
 Training: ``NIF.mse_value_and_grad`` through the fused train kernel (NIF-linear
 through its own fused train kernel),
 ``NIF.sobolev_value_and_grad`` (value and Jacobian targets) through the fused
@@ -29,6 +33,7 @@ datasets). Derivatives:
 the eager ``torch.func`` derivatives and Sobolev losses of ``ops``.
 """
 from .__about__ import __version__
+from . import compression
 from . import convert
 from . import data
 from . import demo
@@ -53,6 +58,7 @@ __all__ = [
     "ParameterNetConfig",
     "Policy",
     "get_policy",
+    "compression",
     "convert",
     "data",
     "demo",

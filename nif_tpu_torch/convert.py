@@ -27,7 +27,7 @@ def _load(module: nn.Module, tree: Dict[str, Any], path: str) -> None:
     for k, v in tree.items():
         target, where = module[k], f"{path}/{k}" if path else k
         if isinstance(target, nn.Parameter):
-            v = np.asarray(v)
+            v = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
             if tuple(v.shape) != tuple(target.shape):
                 raise ValueError(f"{where}: shape {v.shape} != {tuple(target.shape)}")
             with torch.no_grad():
@@ -37,8 +37,8 @@ def _load(module: nn.Module, tree: Dict[str, Any], path: str) -> None:
 
 
 def from_jax_params(model, params: Dict[str, Any]):
-    """Load a ``nif_tpu`` params tree (nested dicts of arrays, with the
-    model's own top-level keys) into ``model`` in place, casting to the
+    """Load a ``nif_tpu`` params tree (nested dicts of arrays or tensors,
+    with the model's own top-level keys) into ``model`` in place, casting to the
     model's param dtype and device. Returns the model. Raises on a missing or
     extra key or a shape mismatch."""
     _load(model.param_tree(), params, "")

@@ -4,7 +4,9 @@
 * **K1**, :func:`shapenet_grouped_fused`: ``wb [G, po]``, ``x [G, P, si]`` ->
   ``[G, P, so]`` in x's dtype (float32 or bfloat16), what the Pallas
   kernel's ``_forward_layers(save=False)`` computes. It is differentiable:
-  its backward is K3.
+  its backward is K3. Its forward is the registered op
+  ``torch.ops.nif_tpu_torch.shapenet_fwd``, so ``torch.export`` records it
+  as one call (``serving.export_apply``).
 * **K2**, :func:`shapenet_mse_grads`: forward + weighted MSE + backward in
   one pass, ``(loss, d_wb)`` (the Pallas ``_train_kernel``).
 * **K3**, the backward of K1 (the Pallas ``_bwd_kernel`` behind
@@ -1022,16 +1024,52 @@ def shapenet_bwd_cuda(wb: torch.Tensor, x: torch.Tensor, g_out: torch.Tensor,
     return d_wb, dx
 
 
-def _fused_forward(wb, x, cfg, variant):
-    """K1 with no graph: plain K1 on the CPU, the kernel on CUDA."""
-    if x.device.type == "cpu":
-        return shapenet_grouped_fused_reference(wb, x, cfg, variant)
+# K1's forward as a registered op, ``torch.ops.nif_tpu_torch.shapenet_fwd``,
+# so that ``torch.export`` (which traces with fake tensors, which have no
+# data_ptr) records one call where a CUDA tensor launches K1. The chain's
+# config travels as the schema's plain fields; the fields K1 does not read
+# (init factor, regularization) are left at their defaults.
+def _cfg_fields(cfg: ShapeNetConfig) -> tuple:
+    return (cfg.input_dim, cfg.output_dim, cfg.units, cfg.nlayers, cfg.activation,
+            cfg.use_resblock, float(cfg.omega_0))
+
+
+def _fields_cfg(input_dim, output_dim, units, nlayers, activation, use_resblock,
+                omega_0) -> ShapeNetConfig:
+    return ShapeNetConfig(input_dim=input_dim, output_dim=output_dim, units=units,
+                          nlayers=nlayers, activation=activation, use_resblock=use_resblock,
+                          omega_0=omega_0, connectivity="full")
+
+
+@torch.library.custom_op("nif_tpu_torch::shapenet_fwd", mutates_args=(), device_types="cpu")
+def _shapenet_fwd_op(wb: torch.Tensor, x: torch.Tensor, input_dim: int, output_dim: int,
+                     units: int, nlayers: int, activation: str, use_resblock: bool,
+                     omega_0: float, variant: str) -> torch.Tensor:
+    """K1 on CPU tensors: its plain version."""
+    cfg = _fields_cfg(input_dim, output_dim, units, nlayers, activation, use_resblock, omega_0)
+    return shapenet_grouped_fused_reference(wb, x, cfg, variant)
+
+
+@_shapenet_fwd_op.register_kernel("cuda")
+def _(wb, x, input_dim, output_dim, units, nlayers, activation, use_resblock, omega_0, variant):
+    cfg = _fields_cfg(input_dim, output_dim, units, nlayers, activation, use_resblock, omega_0)
     return shapenet_fwd_cuda(wb.detach(), x.detach(), cfg, variant)
 
 
+@_shapenet_fwd_op.register_fake
+def _(wb, x, input_dim, output_dim, units, nlayers, activation, use_resblock, omega_0, variant):
+    return x.new_empty((x.shape[0], x.shape[1], output_dim))
+
+
+def _fused_forward(wb, x, cfg, variant):
+    """K1 with no graph, through the registered op: plain K1 on the CPU, the
+    kernel on CUDA."""
+    return _shapenet_fwd_op(wb, x, *_cfg_fields(cfg), variant)
+
+
 class _FusedShapeNet(torch.autograd.Function):
-    """K1 forward, K3 backward (plain K1 and plain K3 on the CPU): the
-    counterpart of the JAX package's ``jax.custom_vjp`` around
+    """K1 forward (the registered op), K3 backward (plain K1 and plain K3 on
+    the CPU): the counterpart of the JAX package's ``jax.custom_vjp`` around
     ``shapenet_grouped_fused``. Only wb and x are saved; the backward
     recomputes the forward with its residuals, as the JAX kernel does."""
 

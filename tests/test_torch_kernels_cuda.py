@@ -2216,3 +2216,73 @@ def test_grouped_lbfgs_launches_k2_once_an_evaluation(card, policy):
     _build.reset_launches()
     opt.minimize(max_iter=3, dtype="float64")
     assert not any(_build.LAUNCHES.values()) and model._any_f64()
+
+
+# ------------------------------------- the int8 ROM decode and the export
+@pytest.mark.parametrize("G,P,so,K", [(6, 97, 1, 8), (6, 50, 3, 8), (20, 33, 1, 5),
+                                      (256, 4096, 1, 128)])
+def test_int8_product_padded_to_int_mm_rules_is_exact(card, G, P, so, K):
+    """``torch._int_mm`` on the card through the decode's padding, at shapes
+    that break its rules (at most 16 rows, P * so or K no multiple of 8) and
+    at the flagship's K: the int32 result equals the float64 product of the
+    same int8 values (exact: |sum| <= 127^2 K < 2^53)."""
+    from nif_tpu_torch.compression import quantization as tq
+
+    rng = np.random.default_rng(G * P + K)
+    q_a = torch.from_numpy(rng.integers(-127, 128, (G, K)).astype(np.int8)).to(card)
+    q_phi = torch.from_numpy(rng.integers(-127, 128, (P * so, K)).astype(np.int8)).to(card)
+    acc = tq._int8_product(q_a, tq._mm_operand(q_phi), P * so)
+    assert acc.is_cuda and acc.dtype == torch.int32 and acc.shape == (G, P * so)
+    assert torch.equal(acc.double(), q_a.double() @ q_phi.double().T)
+
+
+def test_rom_decode_int8_on_the_card_tracks_the_float32_decode(card):
+    from nif_tpu_torch.compression import quantize_shared_mesh, rom_decode_int8
+    from nif_tpu_torch.serving import predict_shared_mesh
+
+    cfg_s = {"input_dim": 1, "output_dim": 2, "units": 16, "nlayers": 1, "activation": "sine",
+             "omega_0": 30.0, "connectivity": "last_layer", "weight_init_factor": 0.1}
+    cfg_p = {"input_dim": 1, "latent_dim": 8, "units": 16, "nlayers": 1, "activation": "swish"}
+    model = nif_tpu_torch.NIFMultiScaleLastLayerParameterized(cfg_s, cfg_p, device="cuda")
+    rng = np.random.default_rng(0)
+    t = rng.standard_normal((6, 1)).astype(np.float32)
+    x = rng.uniform(-1, 1, (97, 1)).astype(np.float32)
+    pack = quantize_shared_mesh(model, x)
+    u8 = rom_decode_int8(model, pack, t)
+    with torch.no_grad():
+        uf = model.apply_shared_mesh(t, x)
+    assert u8.is_cuda and u8.shape == uf.shape == (6, 97, 2)
+    assert float(torch.linalg.vector_norm(u8 - uf) / torch.linalg.vector_norm(uf)) < 1e-2
+    out = predict_shared_mesh(model, t, int8_pack=pack, group_batch=4)
+    assert np.array_equal(out[:4], rom_decode_int8(model, pack, t[:4]).cpu().numpy())
+
+
+@pytest.mark.parametrize("policy", ["float32", "mixed_bfloat16"])
+def test_exported_grouped_artifact_launches_k1(card, policy):
+    """The ``grouped`` artifact holds one call of K1's registered op, which
+    launches K1 once a call (the tensor-core one under bf16), bit for bit
+    ``apply_grouped``."""
+    from nif_tpu_torch.serving import export_apply, load_exported
+
+    cfg_s = {"input_dim": 3, "output_dim": 1, "units": 64, "nlayers": 2, "activation": "sine",
+             "omega_0": 30.0}
+    cfg_p = {"input_dim": 4, "latent_dim": 16, "units": 32, "nlayers": 1, "activation": "swish"}
+    model = nif_tpu_torch.NIFMultiScale(cfg_s, cfg_p, policy, device="cuda", seed=0)
+    G, P = 4, 512
+    assert model.fast_path_info(P)["path"] == "fused"
+    fn = load_exported(export_apply(model, batch_size=P, layout="grouped", group_batch=G))
+    ops = [n.target for n in fn.program.graph.nodes
+           if n.op == "call_function" and "nif_tpu_torch" in str(n.target)]
+    assert ops == [torch.ops.nif_tpu_torch.shapenet_fwd.default]
+    rng = np.random.default_rng(1)
+    t = torch.from_numpy(rng.standard_normal((G, 4)).astype(np.float32)).to(card)
+    x = torch.from_numpy(rng.uniform(-1, 1, (G, P, 3)).astype(np.float32)).to(card)
+    with torch.inference_mode():
+        ref = model.apply_grouped(t, x)
+    _build.reset_launches()
+    out = fn(t, x)
+    torch.cuda.synchronize()
+    tc = int(policy == "mixed_bfloat16")
+    assert _build.LAUNCHES["shapenet_fwd"] == 1 and _build.LAUNCHES["shapenet_fwd_tc"] == tc
+    assert sum(_build.LAUNCHES.values()) == 1 + tc
+    assert torch.equal(out, ref)

@@ -4,7 +4,7 @@ JAX package on the CPU: its parameters, forward and serving paths, plain K4
 ``mse_value_and_grad`` (every leaf, the trunk's included, with and without
 regularization), the derivatives and Sobolev/Hessian gradients through the
 effective generated chain, ``GroupedTrainer`` and its checkpoints, and
-``predict_shared_mesh``.
+``predict_shared_mesh`` (float32 and int8).
 
 The JAX model draws the parameters; they cross to the port as numpy arrays
 (``from_jax_params``), and both packages get the same numpy inputs. On the
@@ -37,6 +37,7 @@ from nif_tpu.serving import predict_shared_mesh as jax_predict_shared_mesh
 from nif_tpu.training import GroupedTrainer as JaxGroupedTrainer
 import nif_tpu_torch
 import nif_tpu_torch.config as tcfg
+from nif_tpu_torch.compression import quantize_shared_mesh
 from nif_tpu_torch.convert import from_jax_params, to_numpy_params
 from nif_tpu_torch.ops import _build
 from nif_tpu_torch.ops import derivatives as td
@@ -463,8 +464,10 @@ def test_predict_shared_mesh_and_grouped_match_jax():
     grouped = predict_grouped(tm, t, np.broadcast_to(xm, (5, 100, 2)), group_batch=2)
     _close(grouped, out)
     assert predict_shared_mesh(tm, t[:0], xm).shape == (0, 100, 2)
-    with pytest.raises(NotImplementedError, match="Slice F"):
-        predict_shared_mesh(tm, t, xm, int8_pack={"shape": (100,)})
+    # the int8 decode (tests/test_serving.py:178-184): within 0.05 of max of float32
+    i8 = predict_shared_mesh(tm, t, xm, group_batch=2, int8_pack=quantize_shared_mesh(tm, xm))
+    assert i8.shape == out.shape and i8.dtype == np.float32
+    assert np.max(np.abs(i8 - out)) / max(np.max(np.abs(out)), 1e-6) < 0.05
     with pytest.raises(ValueError, match=r"\[P, si\]"):
         predict_shared_mesh(tm, t, xm[None])
     plain = nif_tpu_torch.NIFMultiScale({**CFG_S, "connectivity": "full"}, CFG_P, device="cpu")

@@ -47,6 +47,9 @@ def test_the_port_has_modules_to_check():
     assert "nif_tpu_torch/ops/fused_hessian.py" in FILES
     assert "nif_tpu_torch/optimizers/lbfgs.py" in FILES
     assert "nif_tpu_torch/data/sharded_dataset.py" in FILES
+    assert "nif_tpu_torch/compression/pruning.py" in FILES
+    assert "nif_tpu_torch/compression/quantization.py" in FILES
+    assert "nif_tpu_torch/serving/export.py" in FILES
     assert any(f.startswith("scripts/port_") for f in FILES)
 
 
