@@ -292,6 +292,24 @@ Phases of the compression and export slice (after 4g):
    masks frozen after step 4 and the pruned entries exactly 0; a 5-step
    ``fit_resident`` (the ``forward_backward`` form) equals its eager loop
    bit for bit.
+3m. The command line (``nif_tpu_torch.cli.main``) at the flagship's width:
+   a grouped dataset directory (64 groups x 32768 points), ``train`` at
+   ``--group-batch 32 --point-batch 32768`` (one tensor-core K2 a step, the
+   loss finite and falling), ``eval`` (one K1 a chunk; its JSON equal to
+   ``evaluate_metrics`` on the restored checkpoint) and ``export
+   --serving-layout grouped`` (the loaded artifact bit for bit
+   ``apply_grouped``).
+3n. Two ranks on the one card over gloo (``parallel.launch.run_ranks``,
+   each rank a process with a timeout): data-parallel
+   ``GroupedTrainer.step`` x5 at G=32 x P=32768 (16 groups a rank) against
+   the one-process step, parameters equal across ranks bit for bit; the
+   row-parallel head on a ('data', 'model') = (1, 2) mesh against data
+   parallelism; ZeRO-1 on the point-wise ``Trainer`` against the replicated
+   one; the meshed evaluation against the unmeshed; host-clock step times.
+3o. NCCL at world size 1 (its own process): meshed ``step`` and
+   ``fit_resident`` bit for bit the unmeshed, the resident step a CUDA
+   graph holding the gradient ``all_reduce`` (one NCCL kernel a step in
+   the trace); with two cards, 3n's data-parallel check over NCCL.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the
 ``{"kernels": [...]}`` record, and before that the card's name and power
@@ -2427,6 +2445,374 @@ def pruning_phase(torch, log, smi, resident_np):
         raise AssertionError(f"the pruned fit_resident departs: {hist['loss']} vs {eager}")
 
 
+# The grouped dataset of phase 3m: the flagship's inputs (si=3, so=1) at
+# G=64 x P=32768 (x 25.2 MB, u 8.4 MB of float32) in two shards of 32
+# groups, trained by the CLI at the flagship step shape.
+CLI_G, CLI_P, CLI_EPOCHS = 64, 32768, 3
+# Phases 3n and 3o: the flagship step's global batch, and the resident
+# dataset of 3o (32 groups of 65536 points, drawn at 16 x 32768).
+MESH_G, MESH_P, MESH_STEPS = 32, 32768, 5
+NCCL_RESIDENT = (32, 65536, 16, 32768)
+
+
+def _tf32_off(torch):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+
+def phase_cli(torch, log, smi):
+    """Phase 3m: ``python -m nif_tpu_torch`` in this process at the
+    flagship's full width: a grouped dataset directory (traveling wave,
+    G=64 x P=32768 in two shards), ``train`` at ``--group-batch 32
+    --point-batch 32768`` for three epochs (six steps, one tensor-core K2
+    each; the loss finite and falling), ``eval`` (one K1 a chunk of 32
+    groups; its JSON equal to ``evaluate_metrics`` on the restored
+    checkpoint, rel 1e-5: float64 sums there, float32 sums here) and
+    ``export --serving-layout grouped`` (the loaded artifact bit for bit
+    ``apply_grouped``, one K1 a call). Returns the train step's host ms."""
+    import contextlib
+    import io
+    import os
+
+    import nif_tpu_torch
+    from nif_tpu_torch import cli
+    from nif_tpu_torch.data import GroupedDataset
+    from nif_tpu_torch.ops import _build
+    from nif_tpu_torch.serving import load_exported
+    from nif_tpu_torch.training import Checkpointer, GroupedTrainer, TrainState
+    from nif_tpu_torch.utils.bench import FLAGSHIP_PNET, FLAGSHIP_POLICY, FLAGSHIP_SHAPE
+
+    root = tempfile.TemporaryDirectory(prefix="nif_cli_")
+    d = root.name
+    t, x, u = traveling_wave(CLI_G, CLI_P, 21)
+    GroupedDataset.create_from_arrays(t, x, u, os.path.join(d, "snaps"), groups_per_file=32)
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump({"cfg_shape_net": FLAGSHIP_SHAPE, "cfg_parameter_net": FLAGSHIP_PNET,
+                   "mixed_policy": FLAGSHIP_POLICY}, f)
+    base = ["--config", os.path.join(d, "config.json"), "--data", os.path.join(d, "snaps"),
+            "--model", "multiscale", "--ckpt-dir", os.path.join(d, "ckpt"), "--device", "cuda"]
+
+    def run(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out = cli.main(argv)
+        torch.cuda.synchronize()
+        return out, buf.getvalue()
+
+    phase0 = time.perf_counter()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    loss, printed = run(["train", *base, "--epochs", str(CLI_EPOCHS), "--lr", "1e-3",
+                         "--group-batch", "32", "--point-batch", str(CLI_P)])
+    train_s = time.perf_counter() - t0
+    train_launches = dict(_build.LAUNCHES)
+    epochs = [float(ln.split()[-1]) for ln in printed.splitlines() if ln.startswith("epoch")]
+    path = [ln for ln in printed.splitlines() if ln.startswith("compute path")]
+    steps = CLI_EPOCHS * CLI_G // 32
+    log(f"3m cli train (G={CLI_G} x P={CLI_P}, group batch 32, {steps} steps): epoch losses "
+        f"{epochs}, {path}; launches {train_launches}; {train_s:.2f} s, {train_s / steps * 1e3:.1f} "
+        f"ms a step on the host clock with the dataset stream, checkpoints each epoch and "
+        f"the first step's warm-up (card {smi})")
+    if (not np.all(np.isfinite(epochs)) or len(epochs) != CLI_EPOCHS
+            or not epochs[-1] < epochs[0] or train_launches["shapenet_mse_grads_tc"] != steps
+            or train_launches["shapenet_mse_grads"] != steps):
+        raise AssertionError(f"cli train: losses {epochs}, launches {train_launches}")
+
+    _build.reset_launches()
+    mse, printed = run(["eval", *base])
+    eval_launches = dict(_build.LAUNCHES)
+    got = json.loads(printed.strip().splitlines()[-1])
+    model = nif_tpu_torch.NIFMultiScale(FLAGSHIP_SHAPE, FLAGSHIP_PNET, FLAGSHIP_POLICY,
+                                        device="cuda")
+    model.param_tree().load_state_dict(Checkpointer(os.path.join(d, "ckpt")).restore())
+    ref = GroupedTrainer(model, lambda p: torch.optim.Adam(p)).evaluate_metrics(
+        TrainState(model.param_tree(), None), t, x, u, group_batch=32)
+    rel = max(abs(got[k] - ref[k]) / abs(ref[k]) for k in ("mse", "rel_l2"))
+    log(f"3m cli eval: {got}; evaluate_metrics on the restored checkpoint {ref} (rel {rel:.3e}); "
+        f"launches {eval_launches}")
+    if rel > 1e-5 or eval_launches["shapenet_fwd_tc"] != CLI_G // 32:
+        raise AssertionError(f"cli eval {got} vs {ref}, launches {eval_launches}")
+
+    art = os.path.join(d, "flagship.pt2")
+    _, printed = run(["export", *base, "--out", art, "--serving-layout", "grouped",
+                      "--batch-size", str(CLI_P), "--group-batch", "32"])
+    meta = json.loads(printed.strip().splitlines()[-1])
+    fn = load_exported(art)
+    tt, xx = (torch.from_numpy(a[:32]).cuda() for a in (t, x))
+    _build.reset_launches()
+    out = fn(tt, xx)
+    torch.cuda.synchronize()
+    art_launches = dict(_build.LAUNCHES)
+    with torch.inference_mode():
+        same = torch.equal(out, model.apply_grouped(tt, xx))
+    log(f"3m cli export: {meta}; the loaded artifact bit for bit apply_grouped: {same}; a "
+        f"call launched {art_launches}; the phase took {time.perf_counter() - phase0:.1f} s "
+        f"(train, eval, the reference evaluation, export and a call)")
+    if not same or art_launches["shapenet_fwd_tc"] != 1 or meta["layout"] != "grouped":
+        raise AssertionError(f"cli export: equal {same}, launches {art_launches}")
+    root.cleanup()
+    return train_s
+
+
+def _mesh_trainer(torch, mesh, seed, cls="GroupedTrainer", capturable=False, **kw):
+    import nif_tpu_torch
+    from nif_tpu_torch import training
+    from nif_tpu_torch.utils.bench import (FLAGSHIP_PNET, FLAGSHIP_POLICY, FLAGSHIP_SHAPE,
+                                           FLAGSHIP_TRAIN_LR)
+
+    dev = "cuda" if mesh is None else mesh.device
+    model = nif_tpu_torch.NIFMultiScale(FLAGSHIP_SHAPE, FLAGSHIP_PNET, FLAGSHIP_POLICY,
+                                        device=dev, seed=seed)
+    make = lambda p: torch.optim.Adam(p, lr=FLAGSHIP_TRAIN_LR, capturable=capturable)  # noqa: E731
+    tr = getattr(training, cls)(model, make, mesh=mesh, **kw)
+    return tr, tr.init(seed)
+
+
+def _steps(torch, tr, state, batch, n):
+    """``n`` steps on one batch, placed on the card once (the rank's block
+    under a mesh), so the times hold no host copy: (losses, host ms a step
+    after the first, each step ending in a synchronize)."""
+    batch = tr._put(*batch)
+    losses, ms = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        state, loss = tr.step(state, *batch)
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, float(np.mean(ms[1:]))
+
+
+def _flat_params(model):
+    """The parameters (a split head reassembled) as one float64 vector per
+    leaf, and a digest of their bits."""
+    import hashlib
+
+    from nif_tpu_torch.parallel.state import local_params
+
+    leaves, h = [], hashlib.sha256()
+
+    def walk(node):
+        for k in sorted(node):
+            if isinstance(node[k], dict):
+                walk(node[k])
+            else:
+                leaves.append(np.asarray(node[k], np.float64))
+                h.update(np.ascontiguousarray(node[k]).tobytes())
+
+    walk(local_params(model))
+    return leaves, h.hexdigest()
+
+
+def _param_gap(a, b) -> float:
+    """max|a - b| / max|b| over all the parameters."""
+    return (max(float(np.max(np.abs(x - y))) for x, y in zip(a, b))
+            / max(float(np.max(np.abs(y))) for y in b))
+
+
+def ranks_3n(seed: int) -> dict:
+    """One of phase 3n's two ranks on one card over gloo (its own process;
+    ``parallel.launch.run_ranks``): data-parallel ``GroupedTrainer.step`` x5
+    on the flagship's G=32 x P=32768 global batch (16 groups a rank) beside
+    the one-process step on the full batch, the row-parallel head on a
+    ('data', 'model') = (1, 2) mesh, ZeRO-1 on the point-wise ``Trainer``
+    against the replicated one, and the meshed evaluation against the
+    unmeshed one."""
+    import torch
+
+    from nif_tpu_torch.ops import _build
+    from nif_tpu_torch.parallel import make_mesh
+    from nif_tpu_torch.parallel.zero import ZeroOneOptimizer
+    from nif_tpu_torch.training import GroupedTrainer
+
+    _tf32_off(torch)
+    t, x, u = traveling_wave(MESH_G, MESH_P, seed)
+    out = {}
+    dp_mesh = make_mesh()
+    _build.reset_launches()
+    tr, state = _mesh_trainer(torch, dp_mesh, seed)
+    out["dp_losses"], out["dp_ms"] = _steps(torch, tr, state, (t, x, u), MESH_STEPS)
+    out["dp_launches"] = dict(_build.LAUNCHES)
+    dp_params, out["dp_digest"] = _flat_params(tr.model)
+    meshed = tr.evaluate_metrics(state, t, x, u)
+    unmeshed = GroupedTrainer(tr.model, lambda p: torch.optim.Adam(p)).evaluate_metrics(
+        state, t, x, u)
+    out["eval"] = [meshed, unmeshed]
+    del tr, state
+
+    one, ostate = _mesh_trainer(torch, None, seed)
+    out["one_losses"], out["one_ms"] = _steps(torch, one, ostate, (t, x, u), MESH_STEPS)
+    one_params, _ = _flat_params(one.model)
+    out["dp_vs_one"] = _param_gap(dp_params, one_params)
+    del one, ostate
+
+    tp_mesh = make_mesh(axis_names=("data", "model"), mesh_shape=(1, 2))
+    tp, tstate = _mesh_trainer(torch, tp_mesh, seed, shard_model_axis=True)
+    out["tp_head_rows"] = int(tp.model.pnet.params["last"]["w"].shape[0])
+    out["tp_losses"], out["tp_ms"] = _steps(torch, tp, tstate, (t, x, u), MESH_STEPS)
+    tp_params, out["tp_digest"] = _flat_params(tp.model)
+    out["tp_vs_dp"] = _param_gap(tp_params, dp_params)
+    del tp, tstate
+
+    # the point-wise Trainer on rows of two snapshots, 4 steps of 4096 rows
+    rows = np.concatenate([np.repeat(t[:2], 8192, 0),
+                           x[:2, :8192].reshape(-1, 3)], 1).astype(np.float32)
+    target = u[:2, :8192].reshape(-1, 1)
+    zero = {}
+    for name, shard in (("replicated", False), ("zero1", True)):
+        ptr, pstate = _mesh_trainer(torch, dp_mesh, seed, "Trainer", shard_opt_state=shard)
+        pstate = ptr.fit(pstate, rows, target, epochs=1, batch_size=4096)
+        zero[name] = (ptr.history["loss"], _flat_params(ptr.model)[0])
+        if shard:
+            opt = pstate.opt_state
+            out["zero1_owned"] = [len(opt.owned), len(opt.params),
+                                  isinstance(opt, ZeroOneOptimizer)]
+    out["zero1_losses"] = [zero["replicated"][0], zero["zero1"][0]]
+    out["zero1_vs_replicated"] = _param_gap(zero["zero1"][1], zero["replicated"][1])
+    return out
+
+
+def phase_two_ranks(torch, log, smi):
+    """Phase 3n: two ranks on the one card over gloo (NCCL refuses two ranks
+    on one device), each its own process with a timeout; see
+    :func:`ranks_3n`. The parameters equal across the ranks bit for bit; the
+    data-parallel losses and parameters within the bf16 bounds of the
+    one-process step (BF16_LOSS_REL, and BF16_REL of max|p|), the
+    row-parallel head and ZeRO-1 within them of data parallelism and the
+    replicated optimizer, the global evaluation rel 1e-5 of the unmeshed.
+    Returns the host ms of a data-parallel and a one-process step."""
+    import os
+
+    from nif_tpu_torch.parallel.launch import run_ranks
+
+    t0 = time.perf_counter()
+    r0, r1 = run_ranks(f"{os.path.abspath(__file__)}:ranks_3n", 2, {"seed": 23},
+                       backend="gloo", device="cuda:0", timeout=400)
+    wall = time.perf_counter() - t0
+    # the one-process step alone on the card (in the ranks two processes
+    # share it)
+    tr, state = _mesh_trainer(torch, None, 23)
+    _, alone_ms = _steps(torch, tr, state, traveling_wave(MESH_G, MESH_P, 23), MESH_STEPS)
+    del tr, state
+    rel = lambda a, b: float(np.max(np.abs(np.subtract(a, b)) / np.abs(b)))  # noqa: E731
+    ev = r0["eval"]
+    eval_rel = max(abs(ev[0][k] - ev[1][k]) / abs(ev[1][k]) for k in ("mse", "rel_l2"))
+    log(f"3n two ranks over gloo on one card ({wall:.1f} s, process starts included): "
+        f"data-parallel losses {r0['dp_losses']} (rank 1 {r1['dp_losses']}), one process "
+        f"{r0['one_losses']}; loss rel {rel(r0['dp_losses'], r0['one_losses']):.3e}, "
+        f"parameters {r0['dp_vs_one']:.3e} of max|p|; parameters equal across ranks "
+        f"{r0['dp_digest'] == r1['dp_digest']}; launches a rank {r0['dp_launches']}")
+    log(f"3n row-parallel head ({r0['tp_head_rows']} of 128 latent rows a rank): losses "
+        f"{r0['tp_losses']}, rel {rel(r0['tp_losses'], r0['dp_losses']):.3e} of data parallel, "
+        f"parameters {r0['tp_vs_dp']:.3e}; ZeRO-1 point-wise Trainer (rank 0 owns "
+        f"{r0['zero1_owned']}): losses {r0['zero1_losses'][1]} vs replicated "
+        f"{r0['zero1_losses'][0]}, parameters {r0['zero1_vs_replicated']:.3e}; global "
+        f"evaluation {ev[0]} vs unmeshed {ev[1]} (rel {eval_rel:.3e})")
+    log(f"3n host-clock step at G={MESH_G} x P={MESH_P}: data parallel over gloo "
+        f"{r0['dp_ms']:.4f} ms (rank 1 {r1['dp_ms']:.4f}), row-parallel head "
+        f"{r0['tp_ms']:.4f}, one process alone on the card {alone_ms:.4f} (and "
+        f"{r0['one_ms']:.4f} in each rank, both ranks running it at once; mean of "
+        f"{MESH_STEPS - 1} after the first; gloo's all_reduce goes through the host, so "
+        f"this times the collective's path, not the card; card {smi})")
+    if (r0["dp_digest"] != r1["dp_digest"] or r0["tp_digest"] != r1["tp_digest"]
+            or rel(r0["dp_losses"], r0["one_losses"]) > BF16_LOSS_REL
+            or r0["dp_vs_one"] > BF16_REL
+            or rel(r0["tp_losses"], r0["dp_losses"]) > BF16_LOSS_REL
+            or r0["tp_vs_dp"] > BF16_REL or r0["tp_head_rows"] != 64
+            or rel(r0["zero1_losses"][1], r0["zero1_losses"][0]) > BF16_LOSS_REL
+            or r0["zero1_vs_replicated"] > BF16_REL or not r0["zero1_owned"][2]
+            or not 0 < r0["zero1_owned"][0] < r0["zero1_owned"][1]
+            or eval_rel > 1e-5 or r0["dp_launches"]["shapenet_mse_grads_tc"] != MESH_STEPS
+            or not np.all(np.isfinite(r0["dp_losses"]))):
+        raise AssertionError(f"two ranks over gloo departs: {r0} / {r1}")
+    return r0["dp_ms"], alone_ms
+
+
+def ranks_3o(seed: int) -> dict:
+    """Phase 3o's rank: NCCL at world size 1. ``GroupedTrainer(mesh=...)``
+    steps and ``fit_resident`` (capturable Adam: the whole step a CUDA
+    graph, the gradient ``all_reduce`` in it; profiled, so the trace counts
+    the NCCL kernels a replay launches) beside the unmeshed runs."""
+    import torch
+
+    from nif_tpu_torch.parallel import collectives, make_mesh
+
+    _tf32_off(torch)
+    t, x, u = traveling_wave(MESH_G, MESH_P, seed)
+    mesh = make_mesh()
+    out = {}
+    for name, m in (("mesh", mesh), ("none", None)):
+        tr, state = _mesh_trainer(torch, m, seed)
+        out[name + "_losses"], out[name + "_ms"] = _steps(torch, tr, state, (t, x, u),
+                                                          MESH_STEPS)
+        out[name + "_digest"] = _flat_params(tr.model)[1]
+        del tr, state
+    G, P, gb, pb = NCCL_RESIDENT
+    rt, rx, ru = traveling_wave(G, P, seed + 1)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for name, m in (("mesh", mesh), ("none", None)):
+        tr, state = _mesh_trainer(torch, m, seed, capturable=True)
+        torch.cuda.synchronize()
+        before = dict(collectives.COUNTS)
+        with torch.profiler.profile(activities=acts) as prof:
+            tr.fit_resident(state, rt, rx, ru, epochs=3, group_batch=gb, point_batch=pb, seed=7)
+            torch.cuda.synchronize()
+        kernels = device_kernels(prof)
+        out["resident_" + name] = {
+            "losses": tr.history["loss"], "form": tr.history["resident_graph"],
+            "step_ms": tr.history["resident_step_ms"],
+            "all_reduce": {k: collectives.COUNTS[k] - before[k] for k in before},
+            "nccl_kernels": sum(c for k, c, _ in kernels if "nccl" in k.lower()),
+            "digest": _flat_params(tr.model)[1]}
+        del tr, state
+    return out
+
+
+def phase_nccl(torch, log, smi):
+    """Phase 3o: NCCL at world size 1 (``ranks_3o`` in its own process):
+    the meshed steps and ``fit_resident`` bit for bit the unmeshed ones, the
+    resident step captured whole with one NCCL all_reduce a step in the
+    trace; with two cards or more, 3n's data-parallel check on two ranks
+    over NCCL too. Returns the host ms of a meshed and an unmeshed step."""
+    import os
+
+    from nif_tpu_torch.parallel.launch import run_ranks
+
+    t0 = time.perf_counter()
+    (r,) = run_ranks(f"{os.path.abspath(__file__)}:ranks_3o", 1, {"seed": 29},
+                     backend="nccl", device="cuda:0", timeout=300)
+    wall = time.perf_counter() - t0
+    rm, rn = r["resident_mesh"], r["resident_none"]
+    steps = 3 * (NCCL_RESIDENT[0] // NCCL_RESIDENT[2])
+    log(f"3o NCCL at world size 1 ({wall:.1f} s, process start included): meshed steps "
+        f"{r['mesh_losses']} vs unmeshed {r['none_losses']}, parameters bit for bit "
+        f"{r['mesh_digest'] == r['none_digest']}; fit_resident ({rm['form']}) losses "
+        f"{rm['losses']} vs unmeshed ({rn['form']}) {rn['losses']}, parameters bit for bit "
+        f"{rm['digest'] == rn['digest']}; gradient all_reduce calls {rm['all_reduce']} (one "
+        f"in the eager first step, one captured; the graph replays it at each of the other "
+        f"{steps - 1} steps); kernels named nccl in the trace {rm['nccl_kernels']}")
+    log(f"3o host-clock step at G={MESH_G} x P={MESH_P}: meshed (NCCL, world 1) "
+        f"{r['mesh_ms']:.4f} ms vs unmeshed {r['none_ms']:.4f}; replayed resident step "
+        f"{rm['step_ms']} vs {rn['step_ms']} ms (CUDA events; card {smi})")
+    if (r["mesh_losses"] != r["none_losses"] or r["mesh_digest"] != r["none_digest"]
+            or rm["losses"] != rn["losses"] or rm["digest"] != rn["digest"]
+            or rm["form"] != "step" or rm["all_reduce"] != {"all_reduce": 2, "captured": 1}
+            or rn["all_reduce"] != {"all_reduce": 0, "captured": 0}):
+        raise AssertionError(f"NCCL at world size 1 departs: {r}")
+    if torch.cuda.device_count() >= 2:
+        r0, r1 = run_ranks(f"{os.path.abspath(__file__)}:ranks_3n", 2, {"seed": 23},
+                           backend="nccl", device="cuda", timeout=400)
+        log(f"3o data parallel on two cards over NCCL: losses {r0['dp_losses']} vs one "
+            f"process {r0['one_losses']}; parameters {r0['dp_vs_one']:.3e} of max|p|, equal "
+            f"across ranks {r0['dp_digest'] == r1['dp_digest']}; step {r0['dp_ms']:.4f} ms")
+        if r0["dp_digest"] != r1["dp_digest"] or r0["dp_vs_one"] > BF16_REL:
+            raise AssertionError("two ranks over NCCL depart")
+    else:
+        log("3o one card: the two-rank NCCL check needs two")
+    return r["mesh_ms"], r["none_ms"]
+
+
 def main() -> int:
     import torch
 
@@ -3869,6 +4255,15 @@ def main() -> int:
 
     # ---- phase 3l: MagnitudePruning in GroupedTrainer.step and fit_resident
     pruning_phase(torch, log, smi, resident_np)
+
+    # ---- phase 3m: the command line at the flagship's width
+    phase_cli(torch, log, smi)
+
+    # ---- phase 3n: two ranks on the one card over gloo
+    phase_two_ranks(torch, log, smi)
+
+    # ---- phase 3o: NCCL at world size 1, fit_resident's graph holding the all_reduce
+    phase_nccl(torch, log, smi)
     log(f"card: {smi}")
     log(f"chip_smoke wall clock: {time.perf_counter() - wall0:.1f} s (builds included)")
     log(json.dumps({"kernels": [{

@@ -31,6 +31,11 @@ native reader, and ``prefetch_to_device``) and ``demo`` (the analytic demo
 datasets). Derivatives:
 ``ops.output_and_jacobian_grouped`` through the fused Jacobian kernel, and
 the eager ``torch.func`` derivatives and Sobolev losses of ``ops``.
+Parallelism: ``parallel`` (one rank a device on ``torch.distributed``: data
+parallelism over a ``DeviceMesh``'s batch axes, the row-parallel
+hypernetwork head over its ``model`` axis, ZeRO-1, and the multi-host
+worker). The command line: ``python -m nif_tpu_torch train|eval|export``
+(``cli.py``); tracing, step timing and NaN checks in ``utils.profiling``.
 """
 from .__about__ import __version__
 from . import compression
@@ -41,6 +46,7 @@ from . import layers
 from . import models
 from . import ops
 from . import optimizers
+from . import parallel
 from . import serving
 from . import training
 from . import utils
@@ -66,6 +72,7 @@ __all__ = [
     "models",
     "ops",
     "optimizers",
+    "parallel",
     "serving",
     "training",
     "utils",

@@ -31,28 +31,37 @@ def prefetch_to_device(iterator, size: int = 2, device=None, mesh=None):
     ``size`` items in flight. Other elements (epoch counters, ``None``
     weights) pass through. ``size=2`` is the double buffer: one batch being
     consumed, one in flight. On the CPU the arrays become tensors without a
-    copy. ``mesh`` is not ported yet (raises ``NotImplementedError``)."""
-    if mesh is not None:
-        from ..training.trainer import _not_ported
+    copy.
 
-        raise _not_ported("prefetch_to_device over a mesh (mesh)", "Slice G: multi-GPU")
+    With ``mesh`` (``parallel.make_mesh``) each array's dim 0 is cut to this
+    rank's block on the host (all of it under ``local_batches``), only that
+    block is staged, onto the rank's device, and the tensors are marked as
+    placed, so the trainers' step takes them without a second cut."""
     if size < 1:
         raise ValueError(f"size must be >= 1, got {size}")
-    dev = resolve_device(device)
+    if mesh is not None:
+        from ..parallel.mesh import host_block, mark_placed
+
+        dev = mesh.device
+        cut = lambda a: host_block(a, mesh)  # noqa: E731
+        mark = lambda t: mark_placed(t, mesh)  # noqa: E731
+    else:
+        dev = resolve_device(device)
+        cut = mark = lambda a: a  # noqa: E731
     if dev.type != "cuda":
-        return _host(iterator, size, dev)
-    return _cuda(iterator, size, dev)
+        return _host(iterator, size, dev, cut, mark)
+    return _cuda(iterator, size, dev, cut, mark)
 
 
-def _host(iterator, size, dev):
+def _host(iterator, size, dev, cut, mark):
     def place(item):
-        return tuple(torch.as_tensor(a, device=dev) if isinstance(a, np.ndarray) else a
-                     for a in item)
+        return tuple(mark(torch.as_tensor(cut(a), device=dev)) if isinstance(a, np.ndarray)
+                     else a for a in item)
 
     return _pipeline(iterator, size, place, lambda out: out)
 
 
-def _cuda(iterator, size, dev):
+def _cuda(iterator, size, dev, cut, mark):
     side = torch.cuda.Stream(dev)
     n_slots = size + 1
     buffers = [dict() for _ in range(n_slots)]
@@ -70,12 +79,12 @@ def _cuda(iterator, size, dev):
                 if not isinstance(a, np.ndarray):
                     out.append(a)
                     continue
-                src = torch.from_numpy(np.ascontiguousarray(a))
+                src = torch.from_numpy(np.ascontiguousarray(cut(a)))
                 buf = bufs.get(j)
                 if buf is None or buf.shape != src.shape or buf.dtype != src.dtype:
                     buf = bufs[j] = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
                 buf.copy_(src)
-                out.append(buf.to(dev, non_blocking=True))
+                out.append(mark(buf.to(dev, non_blocking=True)))
             event = torch.cuda.Event()
             event.record(side)
         events[slot] = event

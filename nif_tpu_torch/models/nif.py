@@ -61,7 +61,8 @@ from ..ops.fused_hessian import (
 )
 from ..ops.shapenet import shapenet_grouped, shapenet_pointwise
 from ..utils.policy import get_policy
-from .parameter_net import ParameterNet, parameter_net_apply, parameter_net_kind, parameter_net_latent
+from .parameter_net import (ParameterNet, parameter_net_apply, parameter_net_kind,
+                            parameter_net_latent, parameter_sum)
 
 __all__ = ["NIF", "NIFMultiScale", "resolve_device"]
 
@@ -573,11 +574,12 @@ class NIF(nn.Module):
         cfg_p = self.cfg_parameter_net
         loss = torch.zeros((), dtype=self.policy.param_dtype, device=self.device)
         if parts in ("all", "params"):
-            leaves = list(self.pnet.params.parameters())
             if cfg_p.l2_reg is not None:
-                loss = loss + cfg_p.l2_reg * sum(torch.sum(torch.square(p)) for p in leaves)
+                loss = loss + cfg_p.l2_reg * parameter_sum(
+                    self.pnet.params, lambda p: torch.sum(torch.square(p)))
             elif cfg_p.l1_reg is not None:
-                loss = loss + cfg_p.l1_reg * sum(torch.sum(torch.abs(p)) for p in leaves)
+                loss = loss + cfg_p.l1_reg * parameter_sum(
+                    self.pnet.params, lambda p: torch.sum(torch.abs(p)))
         if parts == "params":
             return loss
         needs_act = cfg_p.act_l1_reg is not None or cfg_p.act_l2_reg is not None

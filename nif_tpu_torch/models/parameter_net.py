@@ -47,6 +47,7 @@ __all__ = [
     "parameter_net_apply",
     "parameter_net_latent",
     "parameter_net_head",
+    "parameter_sum",
 ]
 
 
@@ -134,7 +135,12 @@ def parameter_net_latent(params, t: torch.Tensor, cfg_p: ParameterNetConfig, kin
 
 
 def parameter_net_head(params, latent: torch.Tensor, kind: str):
-    """Final layer: latent -> flattened ShapeNet weight vector."""
+    """Final layer: latent -> flattened ShapeNet weight vector. A head split
+    row-parallel over a model group (``parallel.put_params_model_parallel``)
+    carries its ``row_parallel`` computation on the ``last`` module."""
+    row_parallel = getattr(params["last"], "row_parallel", None)
+    if row_parallel is not None:
+        return row_parallel(latent, params["last"])
     if kind == "vanilla":
         return dense_apply(params["last"], latent)
     return hyper_linear_apply(params["last"], latent)
@@ -146,6 +152,17 @@ def parameter_net_apply(
     """Full ParameterNet: returns (weight_vector, latent)."""
     latent = parameter_net_latent(params, t, cfg_p, kind)
     return parameter_net_head(params, latent, kind), latent
+
+
+def parameter_sum(params: nn.Module, fn) -> torch.Tensor:
+    """``sum(fn(p))`` over the ParameterNet's parameters (an L1/L2 term),
+    a row-parallel head's term summed over its model group."""
+    row_parallel = getattr(params["last"], "row_parallel", None)
+    head = params["last"]["w"] if row_parallel is not None else None
+    total = sum(fn(p) for p in params.parameters() if p is not head)
+    if head is not None:
+        total = total + row_parallel.reduce(fn(head))
+    return total
 
 
 def _as_module(tree) -> nn.Module:

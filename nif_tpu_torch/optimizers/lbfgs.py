@@ -419,10 +419,22 @@ def _params_key(model, dtype=None):
             None if dtype is None else _torch_dtype(dtype))
 
 
-def _not_ported_mesh(what: str):
-    from ..training.trainer import _not_ported
+def _check_mesh(model, mesh) -> None:
+    if mesh is not None and getattr(model.pnet.params["last"], "row_parallel", None) is not None:
+        raise ValueError(
+            "L-BFGS takes a model whose head is whole: its line search and curvature pairs "
+            "read the flat parameter vector, which a row-parallel head splits over the "
+            "model axis (load the full parameters into an unsplit model first)")
 
-    return _not_ported(what, "Slice G: multi-GPU")
+
+def _chunk_block(a: np.ndarray, mesh) -> np.ndarray:
+    """``[C, chunk, ...]`` chunks -> this rank's block of every chunk's rows
+    (all of them without a mesh or with local batches)."""
+    if mesh is None:
+        return a
+    from ..parallel.mesh import host_block
+
+    return np.moveaxis(host_block(np.moveaxis(a, 1, 0), mesh), 0, 1)
 
 
 def _as(scale: float, value: torch.Tensor) -> float:
@@ -452,15 +464,20 @@ class LBFGS:
         chunks (zero-weight padding; batch-mean regularization rows weighted
         by ``chunk_size / n``), so only one chunk's activations are live; the
         built-in weighted MSE only.
-      mesh: not ported yet (raises ``NotImplementedError``).
+      mesh: a ``parallel.make_mesh`` mesh. The chunks' rows split over its
+        batch axes (``chunk_size`` rounds up to a multiple of them; each
+        rank its block of every chunk), and every evaluation's objective and
+        gradient are averaged over them, so every rank reads the same values
+        and its line search takes the same trials. Unchunked, every rank
+        evaluates the whole set, as the JAX package does.
     """
 
     def __init__(self, model, loss_fn: Optional[Callable] = None, inputs=None, targets=None,
                  sample_weight=None, reg: bool = True, display_epoch: int = 0,
                  chunk_size: Optional[int] = None, mesh=None):
-        if mesh is not None:
-            raise _not_ported_mesh("LBFGS over a mesh (mesh)")
+        _check_mesh(model, mesh)
         self.model = model
+        self.mesh = mesh
         self.display_epoch = display_epoch
         self._base_loss = loss_fn
         self._reg = reg
@@ -480,6 +497,13 @@ class LBFGS:
             )
         inputs, targets = _to_f(inputs), _to_f(targets)
         n = inputs.shape[0]
+        n_div = 1
+        if mesh is not None and not mesh.local_batches:
+            from ..parallel.mesh import batch_axis_size
+
+            n_div = batch_axis_size(mesh)
+            chunk_size += (-chunk_size) % n_div
+            self.chunk_size = chunk_size
         pad = (-n) % chunk_size
         w = (np.ones(n, np.float32) if sample_weight is None
              else _to_f(sample_weight).reshape(n))
@@ -490,11 +514,11 @@ class LBFGS:
                 [targets, np.broadcast_to(targets[:1], (pad,) + targets.shape[1:])])
             w = np.concatenate([w, np.zeros(pad, np.float32)])
         C = inputs.shape[0] // chunk_size
-        self._n_real = n
+        self._n_real = n / n_div  # this rank's share of the mean's normalization
         mask = (w > 0) if sample_weight is None else np.concatenate(
             [np.ones(n, bool), np.zeros(pad, bool)])
         rw = mask.astype(np.float32) * (chunk_size / n)
-        self._chunks = tuple(put(a.reshape((C, chunk_size) + a.shape[1:]))
+        self._chunks = tuple(put(_chunk_block(a.reshape((C, chunk_size) + a.shape[1:]), mesh))
                              for a in (inputs, targets, w, rw))
 
     # ------------------------------------------------------------ objective
@@ -513,7 +537,20 @@ class LBFGS:
 
     def _value_and_grads(self) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         """The objective at the model's parameters and its gradient (in
-        ``param_items`` order)."""
+        ``param_items`` order), averaged over a mesh's batch axes (one flat
+        bucket), so every rank holds the same values."""
+        value, grads = self._local_value_and_grads()
+        if self.mesh is None:
+            return value, grads
+        from ..parallel.collectives import average_over
+        from ..parallel.mesh import batch_axes, batch_axis_size
+
+        out = average_over([value.reshape(())] + grads,
+                           [self.mesh.group(a) for a in batch_axes(self.mesh)],
+                           batch_axis_size(self.mesh))
+        return out[0], out[1:]
+
+    def _local_value_and_grads(self) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         with torch.enable_grad():
             if self.chunk_size is not None:
                 return self._chunked_value_and_grads()
@@ -550,7 +587,7 @@ class LBFGS:
                 part = part + r
             grads = [a + b for a, b in zip(grads, self._grads(part))]
         loss = err_sum / (self._n_real * so)
-        if self._reg:
+        if self._reg and self.model.has_regularization:
             params_reg = self.model.regularization_loss(parts="params")
             grads = [a + b for a, b in zip(grads, self._grads(params_reg))]
             loss = loss + reg_sum + params_reg.detach()
@@ -641,16 +678,19 @@ class GroupedLBFGS(LBFGS):
       chunk_groups: evaluate by accumulation over chunks of this many groups
         (zero-weight padded groups; each chunk's mean scaled by ``cG /
         G``), one kernel launch per chunk.
-      mesh: not ported yet (raises ``NotImplementedError``).
+      mesh: as :class:`LBFGS`'s: each chunk's groups split over the batch
+        axes (``chunk_groups`` rounds up to a multiple of them), each rank
+        runs its own kernel on its block, and the objective and gradient
+        are averaged.
     """
 
     def __init__(self, model, t, x, u, weight=None, target_jac=None, target_hess=None,
                  reg: bool = True, w_value: float = 1.0, w_jac: float = 1.0,
                  w_hess: float = 1.0, display_epoch: int = 0,
                  chunk_groups: Optional[int] = None, mesh=None, fused: Optional[bool] = None):
-        if mesh is not None:
-            raise _not_ported_mesh("GroupedLBFGS over a mesh (mesh)")
+        _check_mesh(model, mesh)
         self.model = model
+        self.mesh = mesh
         self.display_epoch = display_epoch
         self._base_loss = None
         self._reg = reg
@@ -684,6 +724,12 @@ class GroupedLBFGS(LBFGS):
         if chunk_groups is None:
             self._data = tuple(put(a) for a in (t, x, u, w, tj, th))
             return
+        if mesh is not None and not mesh.local_batches:
+            from ..parallel.mesh import batch_axis_size
+
+            chunk_groups += (-chunk_groups) % batch_axis_size(mesh)
+            self.chunk_groups = chunk_groups
+        self._chunk_scale = chunk_groups / G
         pad = (-G) % chunk_groups
         if w is None:
             w = np.ones((G, P), np.float32)
@@ -698,8 +744,10 @@ class GroupedLBFGS(LBFGS):
         rw = np.concatenate([np.ones(G, np.float32), np.zeros(pad, np.float32)]) * (
             chunk_groups / G)
         C = t.shape[0] // chunk_groups
-        self._chunks = tuple(None if a is None else put(a.reshape((C, chunk_groups) + a.shape[1:]))
-                             for a in (t, x, u, w, rw, tj, th))
+        self._chunks = tuple(
+            None if a is None
+            else put(_chunk_block(a.reshape((C, chunk_groups) + a.shape[1:]), mesh))
+            for a in (t, x, u, w, rw, tj, th))
 
     def _fused_flag(self) -> Optional[bool]:
         """The user's ``fused`` if given, eager once a parameter is float64
@@ -730,7 +778,7 @@ class GroupedLBFGS(LBFGS):
             grads.append(g)
         return value, grads
 
-    def _value_and_grads(self):
+    def _local_value_and_grads(self):
         acc = self._acc_dtype()
         has_reg = self._reg and self.model.has_regularization
         derivative = self._has_jac or self._has_hess
@@ -747,7 +795,7 @@ class GroupedLBFGS(LBFGS):
                 loss = loss + r.detach()
             return loss.to(acc), grads
         tC, xC, uC, wC, rwC, tjC, thC = self._chunks
-        scale = tC.shape[1] / self._n_real_groups
+        scale = self._chunk_scale
         if not derivative:
             scale = scale * self.w_value
         lsum = torch.zeros((), dtype=acc, device=self.model.device)

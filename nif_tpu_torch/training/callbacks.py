@@ -20,6 +20,19 @@ __all__ = [
 ]
 
 
+def save_state(ckpt, step: int, payload, mesh) -> None:
+    """``ckpt.save(step, payload)``; under a mesh rank 0 writes and every
+    rank waits for the file (a shared directory every rank then reads)."""
+    from ..parallel.collectives import barrier, is_primary
+
+    if mesh is None:
+        ckpt.save(step, payload)
+        return
+    if is_primary():
+        ckpt.save(step, payload)
+    barrier()
+
+
 class Callback:
     def on_train_begin(self, trainer):
         pass
@@ -74,7 +87,10 @@ class CheckpointCallback(Callback):
 
     By default it saves the full train state: ``{"params": the parameters'
     state dict, "opt_state": the optimizer's state dict, "step": int}``;
-    ``full_state=False`` saves the parameters' state dict alone."""
+    ``full_state=False`` saves the parameters' state dict alone. Under a
+    trainer's mesh the state is assembled whole first (a row-parallel head,
+    ZeRO-1 shares; ``parallel/state.py``), rank 0 writes it, and every rank
+    waits for the file."""
 
     def __init__(self, directory: str, every: int = 1000,
                  keep: Optional[int] = None, full_state: bool = True):
@@ -84,16 +100,20 @@ class CheckpointCallback(Callback):
         self.every = every
         self.full_state = full_state
 
-    def _payload(self, state):
-        params = state.params.state_dict()
+    def _payload(self, trainer, state):
+        from ..parallel.state import full_optimizer_state, full_param_state
+
+        params = full_param_state(trainer.model)
         if not self.full_state:
             return params
-        return {"params": params, "opt_state": state.opt_state.state_dict(),
+        return {"params": params,
+                "opt_state": full_optimizer_state(trainer.model, state.opt_state),
                 "step": int(state.step)}
 
     def on_epoch_end(self, trainer, state, epoch, logs):
         if epoch % self.every == 0:
-            self.ckpt.save(int(state.step), self._payload(state))
+            save_state(self.ckpt, int(state.step), self._payload(trainer, state),
+                       getattr(trainer, "mesh", None))
 
     def on_train_end(self, trainer, state):
         self.ckpt.wait()

@@ -1,10 +1,12 @@
 """Evaluation helpers (counterpart of ``nif_tpu/training/evaluation.py``).
 
-Each process accumulates LOCAL squared-error and target sums; the metrics
-come from the reduced sums. This slice runs one process: :func:`global_sums`
-is the identity there, and refuses to run under an initialized
-``torch.distributed`` process group until multi-GPU evaluation is ported
-(ROADMAP Slice G).
+Each rank accumulates LOCAL squared-error and target sums over its own
+groups or rows (coordinate points are independent, so evaluation needs no
+collective until then); :func:`global_sums` joins them with one float64
+``all_reduce``, so every rank gets the same global metric. Without a process
+group it is the identity. ``local_params`` (the model's parameters as a
+numpy tree, a tensor-parallel head reassembled) comes from
+``parallel/state.py``.
 """
 from __future__ import annotations
 
@@ -12,19 +14,28 @@ from typing import Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-__all__ = ["global_sums", "metrics_from_sums"]
+from ..parallel.state import local_params
+
+__all__ = ["global_sums", "local_params", "metrics_from_sums"]
 
 
-def global_sums(*partials: float) -> Tuple[float, ...]:
-    """Sum scalar partial sums across every process: the identity in a
-    single process. Raises under an initialized ``torch.distributed``."""
-    if torch.distributed.is_available() and torch.distributed.is_initialized():
-        raise NotImplementedError(
-            "global_sums across torch.distributed processes is not ported yet "
-            "(ROADMAP Slice G: multi-GPU)"
-        )
-    return tuple(float(p) for p in partials)
+def global_sums(*partials: float, mesh=None) -> Tuple[float, ...]:
+    """Sum scalar partial sums across the ranks: over every process (JAX's
+    ``process_allgather`` sum), or over the batch axes of ``mesh`` (the
+    ranks of a model group hold the same groups, so each counts once).
+    The identity without a process group. A collective: every rank calls
+    it the same number of times."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return tuple(float(p) for p in partials)
+    from ..parallel.collectives import collective_device, sum_over
+    from ..parallel.mesh import batch_axes
+
+    stacked = torch.tensor([float(p) for p in partials], dtype=torch.float64,
+                           device=collective_device())
+    groups = [None] if mesh is None else [mesh.group(a) for a in batch_axes(mesh)]
+    return tuple(float(v) for v in sum_over(stacked, groups).cpu())
 
 
 def metrics_from_sums(sse: float, sst: float, n_el: float) -> dict:

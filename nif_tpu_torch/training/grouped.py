@@ -27,8 +27,14 @@ batch there (``training/resident.py``); on the card its steps replay as a
 captured CUDA graph, the port's counterpart of the JAX package's scanned
 chunks.
 
-Not ported yet, and refused with ``NotImplementedError``:
-``mesh``/``shard_model_axis`` (ROADMAP Slice G).
+Under a mesh (``parallel.make_mesh``) every rank runs its own kernels on
+its block of each group batch, and the loss and gradients are averaged
+over the mesh's batch axes (one flat bucket, JAX's ``pmean``): the pad and
+regularization row weights carry the *global* ``n_target / n_real`` scale,
+so the average recovers the global mean exactly. ``shard_model_axis``
+splits the hypernetwork head row-parallel over the ``model`` axis
+(``parallel.RowParallelHead``). Evaluation runs each rank's K1, K5 or K7 on
+its block of the groups, and ``global_sums`` joins the sums.
 """
 from __future__ import annotations
 
@@ -40,8 +46,8 @@ import torch
 
 from .evaluation import global_sums, metrics_from_sums
 from .resident import ResidentData, ResidentLoop
-from .trainer import (TrainState, _not_ported, pad_batch, reg_row_weights,
-                      restore_or_init_state)
+from .trainer import (TrainState, _check_model_axis, average_gradients, pad_batch,
+                      place_model, reg_row_weights, restore_or_init_state)
 
 __all__ = ["GroupedTrainer"]
 
@@ -63,16 +69,22 @@ class GroupedTrainer:
     ``model.sobolev_path_info`` (Sobolev) says so. ``w_value``, ``w_jac``
     and ``w_hess`` weigh the Sobolev terms when a step gets ``target_jac``
     (or ``target_hess``).
+
+    ``mesh`` trains data-parallel over the mesh's batch axes (each rank its
+    block of every group batch; ``fit`` rounds ``group_batch`` up to a
+    multiple of them); ``shard_model_axis=True`` (a mesh with a ``'model'``
+    axis) splits the head kernel ``pnet.last.w`` row-parallel over the model
+    axis, its moments following it.
     """
 
     def __init__(self, model, optimizer: Callable, mesh=None, use_reg: bool = True,
                  seed: int = 0, fused: Optional[bool] = None,
                  shard_model_axis: bool = False, w_value: float = 1.0,
                  w_jac: float = 1.0, w_hess: float = 1.0):
-        if mesh is not None or shard_model_axis:
-            raise _not_ported("GroupedTrainer over a mesh (mesh / shard_model_axis)",
-                              "Slice G: multi-GPU")
+        _check_model_axis(mesh, shard_model_axis)
         self.model = model
+        self.mesh = mesh
+        self.shard_model_axis = shard_model_axis
         self.make_optimizer = optimizer
         self.use_reg = use_reg
         self.fused = fused
@@ -81,9 +93,11 @@ class GroupedTrainer:
         self.history: Dict[str, List] = {"epoch": [], "loss": []}
 
     def init(self, seed: int = 0) -> TrainState:
-        """Redraw the model's parameters from ``seed`` and build the
-        optimizer over them: step 0."""
+        """Redraw the model's parameters from ``seed`` (checked equal across
+        the ranks of a mesh, the head split under ``shard_model_axis``) and
+        build the optimizer over them: step 0."""
         self.model.init(seed)
+        place_model(self.model, self.mesh, self.shard_model_axis)
         optimizer = self.make_optimizer([p for _, p in self.model.param_items()])
         return TrainState(self.model.param_tree(), optimizer, 0)
 
@@ -119,8 +133,13 @@ class GroupedTrainer:
         are). ``w [Gb, Pb]`` weights the points, ``rw [Gb]`` the rows of the
         batch-mean regularization terms; ``target_jac [Gb, Pb, so, si]``
         (and/or ``target_hess [Gb, Pb, so, si, si]``) switches the step to the
-        Sobolev loss. Returns ``(state, loss)``
-        with the loss as a 0-dim device tensor: no host sync."""
+        Sobolev loss. Under a mesh the rank takes its block of the batch
+        (a batch ``prefetch_to_device(mesh=...)`` placed passes as it is),
+        and the loss and gradients are averaged over the batch axes.
+        Returns ``(state, loss)`` with the loss as a 0-dim device tensor: no
+        host sync."""
+        t, x, u, w, rw, target_jac, target_hess = self._put(
+            t, x, u, w, rw, target_jac, target_hess)
         sobolev = target_jac is not None or target_hess is not None
         self._record_path(x.shape[1], x.shape[2], sobolev, hess=target_hess is not None)
         loss = self._grads(t, x, u, w, rw, target_jac, target_hess)
@@ -129,8 +148,9 @@ class GroupedTrainer:
 
     def _grads(self, t, x, u, w=None, rw=None, target_jac=None, target_hess=None):
         """The loss of one batch, with its gradient left in each parameter's
-        ``.grad``: the step before the optimizer's update, with no host sync
-        (``fit_resident`` captures it in a CUDA graph on the card)."""
+        ``.grad`` (both averaged over a mesh's batch axes): the step before
+        the optimizer's update, with no host sync (``fit_resident`` captures
+        it in a CUDA graph on the card, the ``all_reduce`` with it)."""
         if target_jac is not None or target_hess is not None:
             loss, _terms, grads = self.model.sobolev_value_and_grad(
                 t, x, u, target_jac=target_jac, target_hess=target_hess,
@@ -144,7 +164,7 @@ class GroupedTrainer:
             for key in path:
                 g = g[key]
             p.grad = g
-        return loss
+        return average_gradients(self.model, self.mesh, loss)
 
     def _residual_probs(self, state: TrainState, t, x, u, alpha: float,
                         mix: float) -> np.ndarray:
@@ -161,7 +181,7 @@ class GroupedTrainer:
         with torch.inference_mode():
             for s in range(0, G, chunk):
                 sl = slice(s, min(s + chunk, G))
-                bt, bx, bu = self._put(t[sl], x[sl], u[sl])
+                bt, bx, bu = self._to_device(t[sl], x[sl], u[sl])
                 pred = self.model.apply_grouped(bt, bx)
                 r[sl] = torch.mean(torch.square(pred - bu.to(pred.dtype)),
                                    dim=-1).double().cpu().numpy()
@@ -237,6 +257,12 @@ class GroupedTrainer:
         G, P = x.shape[0], x.shape[1]
         group_batch = min(group_batch or G, G)
         point_batch = min(point_batch or P, P)
+        if self.mesh is not None:
+            from ..parallel.mesh import batch_axis_size
+
+            # round up so dim 0 splits over the batch axes; short batches
+            # pad with zero-weight groups (no snapshot is dropped)
+            group_batch += (-group_batch) % batch_axis_size(self.mesh)
         needs_pad = (G % group_batch != 0) or sample_weight is not None
         self._record_path(point_batch, x.shape[2],
                           target_jac is not None or target_hess is not None,
@@ -286,7 +312,7 @@ class GroupedTrainer:
                     w = np.ascontiguousarray(w_full, dtype=np.float32)
                     if self.use_reg:
                         rw = reg_row_weights(b, group_batch)
-                state, loss = self.step(state, *self._put(bt, bx, bu, w, rw, bju, bhu))
+                state, loss = self.step(state, bt, bx, bu, w, rw, bju, bhu)
                 losses.append(loss)
                 sizes.append(b)
             epoch_loss = (
@@ -358,7 +384,15 @@ class GroupedTrainer:
         step for an Adam or AdamW with ``capturable=True``, else
         ``opt.step()`` after each replay), ``["resident_capture_ms"]`` the
         host time of each capture and ``["resident_step_ms"]`` the device
-        time per replayed step of each chunk."""
+        time per replayed step of each chunk.
+
+        Under a mesh each rank keeps its block of the groups resident (``G``
+        must divide the batch axes; ``group_batch`` rounds up to a multiple
+        of them) and draws ``group_batch / n`` of them a step from a
+        generator seeded for its block; the gradient average over the batch
+        axes is part of the step, and on the card part of the captured
+        graph, which NCCL allows. A gloo collective cannot be captured: on
+        CUDA under gloo this raises, naming the backend."""
         t, x, u = np.asarray(t), np.asarray(x), np.asarray(u)
         G, P = x.shape[0], x.shape[1]
         group_batch = min(group_batch or G, G)
@@ -366,6 +400,28 @@ class GroupedTrainer:
         if point_sampling not in ("uniform", "residual"):
             raise ValueError(f"unknown point_sampling {point_sampling!r}")
         residual = point_sampling == "residual"
+        mesh, block_seed = self.mesh, 0
+        if mesh is not None:
+            from ..parallel.mesh import batch_block
+
+            if mesh.device.type == "cuda" and mesh.backend != "nccl":
+                raise RuntimeError(
+                    f"fit_resident under a mesh on CUDA captures the gradient all_reduce in "
+                    f"a CUDA graph, which the {mesh.backend!r} backend cannot run; use NCCL "
+                    f"(one rank a card) or GroupedTrainer.fit")
+            block_seed, n_div = batch_block(mesh)
+            if not mesh.local_batches:  # else the rank's own groups stay whole
+                if G % n_div:
+                    raise ValueError(f"fit_resident: G={G} groups must divide the mesh "
+                                     f"batch axes ({n_div}): the dataset itself splits over "
+                                     f"them")
+                group_batch = min(group_batch + (-group_batch) % n_div, G)
+                rows = slice(block_seed * (G // n_div), (block_seed + 1) * (G // n_div))
+                t, x, u = t[rows], x[rows], u[rows]
+                sample_weight, target_jac, target_hess = (
+                    None if a is None else np.asarray(a)[rows]
+                    for a in (sample_weight, target_jac, target_hess))
+                G, group_batch = G // n_div, group_batch // n_div
         self._record_path(point_batch, x.shape[2],
                           target_jac is not None or target_hess is not None,
                           hess=target_hess is not None)
@@ -382,6 +438,7 @@ class GroupedTrainer:
             chunk_cap = min(chunk_cap, max(1, resample_every))
 
         base = self._rng.integers(2**63) if seed is None else seed
+        base = (int(base) + 0x9E3779B97F4A7C15 * block_seed) % 2**64
         data = ResidentData(t, x, u, sample_weight, target_jac, target_hess,
                             group_batch=group_batch, point_batch=point_batch, seed=base,
                             residual=residual, device=self.model.device)
@@ -443,23 +500,37 @@ class GroupedTrainer:
         return state
 
     def _put(self, *arrays):
-        """Host arrays to the model's device (None passes through)."""
+        """A batch to the model's device, this rank's block of it under a
+        mesh (None passes through)."""
+        from ..parallel.mesh import put_batch_tuple
+
+        return put_batch_tuple(arrays, self.mesh, self.model.device)
+
+    def _to_device(self, *arrays):
+        """Arrays to the model's device whole (None passes through)."""
         return tuple(None if a is None else torch.as_tensor(a, device=self.model.device)
                      for a in arrays)
 
+    def _eval_groups(self, G: int) -> slice:
+        from ..parallel.mesh import eval_block
+
+        return eval_block(self.mesh, G)
+
     def _eval_sums(self, state: TrainState, t, x, u, sample_weight=None,
                    group_batch: Optional[int] = None):
-        """LOCAL ``(sse, sst, n_el)`` over the grouped dataset, in chunks of
-        ``group_batch`` groups (default: about 4M points per chunk), through
+        """LOCAL ``(sse, sst, n_el)`` over the grouped dataset (this rank's
+        block of the groups under a mesh), in chunks of ``group_batch``
+        groups (default: about 4M points per chunk), through
         ``apply_grouped`` (K1 on the card) under ``torch.inference_mode``."""
         t, x, u = np.asarray(t), np.asarray(x), np.asarray(u)
         G, P = x.shape[0], x.shape[1]
         gb = min(group_batch or max(1, 4_000_000 // max(P, 1)), G)
+        rows = self._eval_groups(G)
         sse = sst = 0.0
         with torch.inference_mode():
-            for s in range(0, G, gb):
-                sl = slice(s, min(s + gb, G))
-                bt, bx, bu = self._put(t[sl], x[sl], u[sl])
+            for s in range(rows.start, rows.stop, gb):
+                sl = slice(s, min(s + gb, rows.stop))
+                bt, bx, bu = self._to_device(t[sl], x[sl], u[sl])
                 pred = self.model.apply_grouped(bt, bx)
                 uc = bu.to(pred.dtype)
                 err = torch.square(pred - uc)
@@ -469,20 +540,20 @@ class GroupedTrainer:
                     err = err * w.unsqueeze(-1).to(pred.dtype)
                 sse += float(torch.sum(err.to(torch.float32)))
                 sst += float(torch.sum(torch.square(uc).to(torch.float32)))
-        return sse, sst, float(G * P * u.shape[-1])
+        return sse, sst, float((rows.stop - rows.start) * P * u.shape[-1])
 
     def evaluate(self, state: TrainState, t, x, u, sample_weight=None,
                  group_batch: Optional[int] = None) -> float:
         """Mean (weighted) MSE over the full grouped dataset."""
         sse, _sst, n_el = self._eval_sums(state, t, x, u, sample_weight, group_batch)
-        sse, n_el = global_sums(sse, n_el)
+        sse, n_el = global_sums(sse, n_el, mesh=self.mesh)
         return sse / max(n_el, 1.0)
 
     def evaluate_metrics(self, state: TrainState, t, x, u, sample_weight=None,
                          group_batch: Optional[int] = None) -> Dict[str, float]:
         """``{"mse", "rel_l2"}`` over the full grouped dataset."""
         sse, sst, n_el = self._eval_sums(state, t, x, u, sample_weight, group_batch)
-        sse, sst, n_el = global_sums(sse, sst, n_el)
+        sse, sst, n_el = global_sums(sse, sst, n_el, mesh=self.mesh)
         return metrics_from_sums(sse, sst, n_el)
 
     def evaluate_sobolev(self, state: TrainState, t, x, u, target_jac, sample_weight=None,
@@ -505,11 +576,12 @@ class GroupedTrainer:
         hu = None if target_hess is None else np.asarray(target_hess)
         G, P = x.shape[0], x.shape[1]
         gb = min(group_batch or max(1, 4_000_000 // max(P, 1)), G)
+        rows = self._eval_groups(G)
         se_y = se_j = se_h = 0.0
         with torch.no_grad():
-            for s in range(0, G, gb):
-                sl = slice(s, min(s + gb, G))
-                bt, bx, bu, bj = self._put(t[sl], x[sl], u[sl], ju[sl])
+            for s in range(rows.start, rows.stop, gb):
+                sl = slice(s, min(s + gb, rows.stop))
+                bt, bx, bu, bj = self._to_device(t[sl], x[sl], u[sl], ju[sl])
                 if hu is None:
                     y, jac = output_and_jacobian_grouped(self.model, bt, bx)
                 else:
@@ -526,16 +598,18 @@ class GroupedTrainer:
                 se_y += wsum(y, bu)
                 se_j += wsum(jac, bj)
                 if hu is not None:
-                    se_h += wsum(hess, self._put(hu[sl])[0])
-        n_y = float(G * P * u.shape[-1])
-        n_j = float(G * P * ju.shape[-2] * ju.shape[-1])
-        se_y, se_j, n_y, n_j = global_sums(se_y, se_j, n_y, n_j)
+                    se_h += wsum(hess, self._to_device(hu[sl])[0])
+        Gr = rows.stop - rows.start
+        n_y = float(Gr * P * u.shape[-1])
+        n_j = float(Gr * P * ju.shape[-2] * ju.shape[-1])
+        se_y, se_j, n_y, n_j = global_sums(se_y, se_j, n_y, n_j, mesh=self.mesh)
         value_mse = se_y / max(n_y, 1.0)
         jac_mse = se_j / max(n_j, 1.0)
         out = {"value_mse": value_mse, "jacobian_mse": jac_mse,
                "total": self.w_value * value_mse + self.w_jac * jac_mse}
         if hu is not None:
-            se_h, n_h = global_sums(se_h, float(G * P * int(np.prod(hu.shape[-3:]))))
+            se_h, n_h = global_sums(se_h, float(Gr * P * int(np.prod(hu.shape[-3:]))),
+                                    mesh=self.mesh)
             out["hessian_mse"] = se_h / max(n_h, 1.0)
             out["total"] += self.w_hess * out["hessian_mse"]
         return out

@@ -10,6 +10,12 @@ the JAX loop's calls and order, so one seed feeds both packages the same
 batches; a short tail batch (or every batch, when sample weights are given)
 is padded with zero-weight rows so the loss and gradient stay the exact
 means.
+
+Under a mesh (``parallel.make_mesh``) each rank takes its block of every
+batch, and the loss and gradients are averaged over the mesh's batch axes
+before the update; ``shard_opt_state`` splits the optimizer state over the
+data axis (ZeRO-1, ``parallel/zero.py``) and ``shard_model_axis`` the
+hypernetwork head over the model axis (``parallel.RowParallelHead``).
 """
 from __future__ import annotations
 
@@ -23,10 +29,6 @@ from .evaluation import global_sums, metrics_from_sums
 
 __all__ = ["TrainState", "Trainer", "make_loss_fn", "make_train_step", "pad_batch",
            "reg_row_weights", "restore_or_init_state"]
-
-
-def _not_ported(what: str, where: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to nif_tpu_torch yet (ROADMAP {where})")
 
 
 def pad_batch(arrays, weight, n_real: int, n_target: int):
@@ -79,6 +81,44 @@ class TrainState:
         self.step = step
 
 
+def _check_model_axis(mesh, shard_model_axis: bool) -> None:
+    if shard_model_axis and (mesh is None or "model" not in mesh.axis_names):
+        raise ValueError(
+            "shard_model_axis=True needs a mesh with a 'model' axis — "
+            "e.g. make_mesh(axis_names=('data', 'model'), "
+            "mesh_shape=(n_data, n_model))"
+        )
+
+
+def place_model(model, mesh, shard_model_axis: bool) -> None:
+    """After ``model.init``: check that every rank drew the same parameters,
+    then split the head over the model axis (``shard_model_axis``)."""
+    if mesh is None:
+        return
+    from ..parallel.mesh import put_params_model_parallel, put_replicated
+
+    put_replicated(model.param_tree(), mesh)
+    if shard_model_axis:
+        put_params_model_parallel(model, mesh)
+
+
+def average_gradients(model, mesh, loss: torch.Tensor) -> torch.Tensor:
+    """Average ``loss`` and every parameter's ``.grad`` over the mesh's batch
+    axes (JAX's ``pmean``; one flat bucket a dtype, no host sync); returns
+    the averaged loss. The identity without a mesh."""
+    if mesh is None:
+        return loss
+    from ..parallel.collectives import average_over
+    from ..parallel.mesh import batch_axes, batch_axis_size
+
+    params = [p for _, p in model.param_items()]
+    out = average_over([loss.detach().reshape(())] + [p.grad for p in params],
+                       [mesh.group(a) for a in batch_axes(mesh)], batch_axis_size(mesh))
+    for p, g in zip(params, out[1:]):
+        p.grad = g
+    return out[0]
+
+
 def _is_full_state(payload) -> bool:
     return isinstance(payload, dict) and set(payload) == {"params", "opt_state", "step"}
 
@@ -95,7 +135,9 @@ def restore_or_init_state(trainer, seed, ckpt_dir: str) -> TrainState:
     (``CheckpointCallback``'s ``{"params", "opt_state", "step"}``) restores
     the parameters, the optimizer's state and the step; a params-only
     payload (the parameters' state dict) restores the parameters under the
-    fresh optimizer, at the checkpoint's step."""
+    fresh optimizer, at the checkpoint's step. Checkpoints hold the unsplit
+    layout, so a mesh's head rows and ZeRO-1 shares are cut from it."""
+    from ..parallel.state import load_optimizer_state, load_param_state
     from .checkpoint import FINAL_MARKER_OFFSET, Checkpointer
 
     state = trainer.init(seed)
@@ -107,10 +149,10 @@ def restore_or_init_state(trainer, seed, ckpt_dir: str) -> TrainState:
     step = real[-1] if real else steps[-1]
     payload = ckpt.restore(step, map_location=trainer.model.device)
     if _is_full_state(payload):
-        state.params.load_state_dict(payload["params"])
-        state.opt_state.load_state_dict(payload["opt_state"])
+        load_param_state(trainer.model, payload["params"])
+        load_optimizer_state(trainer.model, state.opt_state, payload["opt_state"])
         return TrainState(state.params, state.opt_state, int(payload["step"]))
-    state.params.load_state_dict(payload)
+    load_param_state(trainer.model, payload)
     return TrainState(state.params, state.opt_state, step)
 
 
@@ -172,29 +214,68 @@ class Trainer:
         state = trainer.fit(state, inputs, targets, epochs=100, batch_size=512)
 
     ``optimizer`` is a factory, ``parameters -> torch.optim.Optimizer``, as
-    in ``GroupedTrainer``. ``mesh``, ``shard_opt_state`` and
-    ``shard_model_axis`` (data, ZeRO-1 and tensor parallelism in the JAX
-    package) are not ported yet and raise ``NotImplementedError``."""
+    in ``GroupedTrainer``.
+
+    ``mesh`` (``parallel.make_mesh``) trains data-parallel: each rank takes
+    its block of every batch (``batch_size`` rounds up to a multiple of the
+    batch axes), and the loss and gradients are averaged over them.
+    ``shard_opt_state=True`` (with a mesh; nothing without one, as in JAX)
+    splits the optimizer state over the ``data`` axis, ZeRO-1
+    (``parallel.zero.ZeroOneOptimizer``: each rank's optimizer holds its
+    share of the parameters; the parameters stay replicated).
+    ``shard_model_axis=True`` (a mesh with a ``'model'`` axis) splits the
+    hypernetwork head kernel ``pnet.last.w`` row-parallel over the model
+    axis, its moments following it. The three compose."""
 
     def __init__(self, model, optimizer: Callable, mesh=None, use_reg: bool = True,
                  seed: int = 0, shard_opt_state: bool = False,
                  shard_model_axis: bool = False):
-        if mesh is not None or shard_opt_state or shard_model_axis:
-            raise _not_ported("Trainer over a mesh (mesh / shard_opt_state / shard_model_axis)",
-                              "Slice G: multi-GPU")
+        _check_model_axis(mesh, shard_model_axis)
         self.model = model
         self.make_optimizer = optimizer
+        self.mesh = mesh
         self.use_reg = use_reg
+        self.shard_opt_state = shard_opt_state
+        self.shard_model_axis = shard_model_axis
         self._rng = np.random.default_rng(seed)
-        self._step = make_train_step(model, use_reg)
+        self._loss_fn = make_loss_fn(model, use_reg)
         self.history: Dict[str, List[float]] = {"epoch": [], "loss": []}
 
+    def _optimizer(self, params):
+        """The factory's optimizer, or under ``shard_opt_state`` on a mesh
+        with a ``data`` axis of more than one rank its ZeRO-1 split."""
+        mesh = self.mesh
+        if not (self.shard_opt_state and mesh is not None and mesh.shape.get("data", 1) > 1):
+            return self.make_optimizer(params)
+        import torch.distributed as dist
+
+        from ..parallel.zero import ZeroOneOptimizer
+
+        group = mesh.group("data")
+        return ZeroOneOptimizer(params, self.make_optimizer, group, mesh.coordinate("data"),
+                                mesh.shape["data"], dist.get_process_group_ranks(group))
+
     def init(self, seed: int = 0) -> TrainState:
-        """Redraw the model's parameters from ``seed`` and build the
-        optimizer over them: step 0."""
+        """Redraw the model's parameters from ``seed`` (checked equal across
+        the ranks of a mesh, the head split under ``shard_model_axis``) and
+        build the optimizer over them: step 0."""
         self.model.init(seed)
-        optimizer = self.make_optimizer([p for _, p in self.model.param_items()])
+        place_model(self.model, self.mesh, self.shard_model_axis)
+        optimizer = self._optimizer([p for _, p in self.model.param_items()])
         return TrainState(self.model.param_tree(), optimizer, 0)
+
+    def _step(self, state: TrainState, inputs, targets, weight=None, reg_w=None):
+        """:func:`make_train_step`'s step with the gradient averaged over the
+        mesh's batch axes before the update."""
+        params = [p for _, p in self.model.param_items()]
+        with torch.enable_grad():
+            loss = self._loss_fn(inputs, targets, weight, reg_w)
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+        for p, g in zip(params, grads):
+            p.grad = torch.zeros_like(p) if g is None else g
+        loss = average_gradients(self.model, self.mesh, loss.detach())
+        state.opt_state.step()
+        return TrainState(state.params, state.opt_state, state.step + 1), loss
 
     def init_or_restore(self, seed, ckpt_dir: str) -> TrainState:
         """Resumable init: the checkpoint of ``ckpt_dir`` a resume continues
@@ -204,9 +285,11 @@ class Trainer:
         return restore_or_init_state(self, seed, ckpt_dir)
 
     def _put(self, *arrays):
-        """Host arrays to the model's device (None passes through)."""
-        return tuple(None if a is None else torch.as_tensor(a, device=self.model.device)
-                     for a in arrays)
+        """A batch to the model's device, this rank's block of it under a
+        mesh (None passes through)."""
+        from ..parallel.mesh import put_batch_tuple
+
+        return put_batch_tuple(arrays, self.mesh, self.model.device)
 
     def fit(
         self,
@@ -225,9 +308,14 @@ class Trainer:
         """Train for ``epochs`` passes over the rows, ``batch_size`` rows a
         step in a fresh permutation each epoch (``shuffle``). The epoch loss
         is the row-weighted mean of the step losses, read from the device
-        once per epoch."""
+        once per epoch. Under a mesh ``batch_size`` rounds up to a multiple
+        of the batch axes and short batches pad with zero-weight rows."""
         n = inputs.shape[0]
         batch_size = min(batch_size or n, n)
+        if self.mesh is not None:
+            from ..parallel.mesh import batch_axis_size
+
+            batch_size += (-batch_size) % batch_axis_size(self.mesh)
         needs_pad = (n % batch_size != 0) or sample_weight is not None
         inputs = np.asarray(inputs)
         targets = np.asarray(targets)
@@ -275,21 +363,29 @@ class Trainer:
 
     def _eval_sums(self, state: TrainState, inputs, targets, sample_weight=None,
                    batch_size: int = 65536):
-        """LOCAL ``(sse, sst, n_el)`` over the rows, in batches of
-        ``batch_size``, through ``model.apply`` under
+        """LOCAL ``(sse, sst, n_el)`` over the rows (this rank's block of
+        them under a mesh, :func:`~nif_tpu_torch.parallel.mesh.eval_block`),
+        in batches of ``batch_size``, through ``model.apply`` under
         ``torch.inference_mode``."""
+        from ..parallel.mesh import eval_block
+
         inputs = np.asarray(inputs)
         targets = np.asarray(targets)
+        n = inputs.shape[0]
+        sw = (np.ones(n, np.float32) if sample_weight is None
+              else np.asarray(sample_weight, np.float32).reshape(n))
+        rows = eval_block(self.mesh, n)
+        inputs, targets, sw = inputs[rows], targets[rows], sw[rows]
         n = inputs.shape[0]
         if n == 0:
             return 0.0, 0.0, 0.0
         bs = min(batch_size, n)
-        sw = (np.ones(n, np.float32) if sample_weight is None
-              else np.asarray(sample_weight, np.float32).reshape(n))
+        dev = self.model.device
         sse = sst = 0.0
         with torch.inference_mode():
             for s in range(0, n, bs):
-                bi, bt, w = self._put(inputs[s: s + bs], targets[s: s + bs], sw[s: s + bs])
+                bi, bt, w = (torch.as_tensor(a[s: s + bs], device=dev)
+                             for a in (inputs, targets, sw))
                 pred = self.model.apply(bi)
                 bt = bt.to(pred.dtype)
                 err = torch.square(pred - bt) * w.unsqueeze(-1).to(pred.dtype)
@@ -301,12 +397,12 @@ class Trainer:
                  batch_size: int = 65536) -> float:
         """Mean (weighted) MSE over the whole dataset."""
         sse, _sst, n_el = self._eval_sums(state, inputs, targets, sample_weight, batch_size)
-        sse, n_el = global_sums(sse, n_el)
+        sse, n_el = global_sums(sse, n_el, mesh=self.mesh)
         return sse / n_el if n_el else float("nan")
 
     def evaluate_metrics(self, state: TrainState, inputs, targets, sample_weight=None,
                          batch_size: int = 65536) -> Dict[str, float]:
         """``{"mse", "rel_l2"}`` over the whole dataset."""
         sse, sst, n_el = self._eval_sums(state, inputs, targets, sample_weight, batch_size)
-        sse, sst, n_el = global_sums(sse, sst, n_el)
+        sse, sst, n_el = global_sums(sse, sst, n_el, mesh=self.mesh)
         return metrics_from_sums(sse, sst, n_el)

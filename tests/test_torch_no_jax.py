@@ -1,11 +1,17 @@
 """The port imports neither JAX nor the JAX package: every module of
-``nif_tpu_torch/``, ``chip_smoke.py`` and the port's scripts
+``nif_tpu_torch/`` (``parallel/``, ``cli.py``, ``__main__.py`` and
+``utils/profiling.py`` among them), ``chip_smoke.py`` and the port's scripts
 (``scripts/port_*.py``) is parsed, and any import of ``jax``/``jaxlib``, of
 the libraries of the JAX stack that import JAX (``optax``, ``flax``,
 ``orbax``) or of ``nif_tpu`` (other than ``nif_tpu_torch``) fails, relative
-imports resolved against the module's package."""
+imports resolved against the module's package. The worker's and the
+command line's entry points also run in a process where those imports
+raise."""
 import ast
+import os
 import pathlib
+import subprocess
+import sys
 
 import pytest
 
@@ -50,6 +56,10 @@ def test_the_port_has_modules_to_check():
     assert "nif_tpu_torch/compression/pruning.py" in FILES
     assert "nif_tpu_torch/compression/quantization.py" in FILES
     assert "nif_tpu_torch/serving/export.py" in FILES
+    for rel in ("parallel/__init__.py", "parallel/mesh.py", "parallel/multihost.py",
+                "parallel/launch.py", "parallel/state.py", "parallel/zero.py",
+                "parallel/collectives.py", "cli.py", "__main__.py", "utils/profiling.py"):
+        assert f"nif_tpu_torch/{rel}" in FILES, rel
     assert any(f.startswith("scripts/port_") for f in FILES)
 
 
@@ -80,3 +90,24 @@ def test_the_check_catches_jax_imports(tmp_path):
         "jaxlib.xla_client", "optax", "orbax", "orbax.checkpoint", "flax.linen"]
     with pytest.raises(AssertionError, match="climbs out"):
         list(_imports(tmp_path, "nif_tpu_torch/sub/out.py"))
+
+
+# JAX and the JAX package made unimportable: any import of them raises.
+_NO_JAX = ("import runpy, sys\n"
+           "for m in ('jax', 'jaxlib', 'optax', 'flax', 'orbax', 'nif_tpu'):\n"
+           "    sys.modules[m] = None\n"
+           "sys.argv = [sys.argv[1], '--help']\n"
+           "runpy.run_module(sys.argv[0], run_name='__main__')\n")
+
+
+@pytest.mark.parametrize("module", ["nif_tpu_torch.parallel.multihost", "nif_tpu_torch"])
+def test_entry_points_run_without_jax(module):
+    """``python -m nif_tpu_torch.parallel.multihost --help`` (the worker's
+    entry point) and ``python -m nif_tpu_torch --help`` (the command line)
+    run in a process where importing JAX or the JAX package raises."""
+    env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    out = subprocess.run([sys.executable, "-c", _NO_JAX, module], env=env, cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    want = "--coordinator" if module.endswith("multihost") else "{train,eval,export}"
+    assert "usage:" in out.stdout and want in out.stdout, out.stdout

@@ -487,14 +487,36 @@ def test_refusals_match_jax():
 
 
 def test_mesh_is_not_ported():
-    _, _, tm = _gr_models(GR_P, "float32")
+    """The ``mesh=`` of LBFGS, GroupedLBFGS and prefetch_to_device, once
+    refused, is ported: on a one-rank gloo mesh the chunked fine-tunes take
+    the unmeshed runs' steps bit for bit (the average over one rank is the
+    value itself), and prefetch_to_device(mesh=...) stages batches a
+    trainer's step takes as they are (multi-rank runs:
+    tests/test_torch_parallel.py)."""
+    from _torch_dist import one_rank_mesh
+    from nif_tpu_torch.parallel import put_batch
+
     d = _gr_data()
-    x, y, _ = _pw_data()
-    for call in (lambda: LBFGS(tm, inputs=x, targets=y, mesh=object()),
-                 lambda: GroupedLBFGS(tm, d["t"], d["x"], d["u"], mesh=object()),
-                 lambda: prefetch_to_device(iter(()), device="cpu", mesh=object())):
-        with pytest.raises(NotImplementedError, match="Slice G"):
-            call()
+    x, y, w = _pw_data()
+    runs = {}
+    with one_rank_mesh() as mesh:
+        for m in (None, mesh):
+            _, _, tm = _gr_models(GR_P, "float32")
+            pw = LBFGS(tm, inputs=np.concatenate([y, x], 1), targets=y, sample_weight=w,
+                       chunk_size=16, mesh=m)
+            pw.minimize(max_iter=3)
+            _, _, tm2 = _gr_models(GR_P, "float32")
+            gr = GroupedLBFGS(tm2, d["t"], d["x"], d["u"], weight=d["weight"], chunk_groups=2,
+                              mesh=m)
+            gr.minimize(max_iter=3)
+            runs[m is None] = (pw.history["loss"], gr.history["loss"])
+        batches = list(prefetch_to_device(iter([(0, d["x"], None)]), device="cpu", mesh=mesh))
+        staged = batches[0][1]
+        assert batches[0][0] == 0 and batches[0][2] is None
+        assert put_batch(staged, mesh) is staged
+        np.testing.assert_array_equal(staged.numpy(), d["x"])
+    assert len(runs[True][0]) == 3 and len(runs[True][1]) == 3
+    assert runs[True] == runs[False]
 
 
 def test_resident_fit_under_a_scheduled_optimizer_equals_the_step_loop():

@@ -264,9 +264,32 @@ def test_trainer_decreases_loss():
     assert trainer.history["loss"][-1] < trainer.history["loss"][0] * 0.7
 
 
-@pytest.mark.parametrize("kwargs", [{"mesh": object()}, {"shard_opt_state": True},
-                                    {"shard_model_axis": True}],
-                         ids=["mesh", "shard_opt_state", "shard_model_axis"])
-def test_trainer_refuses_the_mesh(kwargs):
-    with pytest.raises(NotImplementedError, match="Slice G"):
-        Trainer(_models()[2], lambda p: torch.optim.Adam(p), **kwargs)
+@pytest.mark.parametrize("case", ["mesh", "shard_opt_state", "shard_model_axis"])
+def test_trainer_refuses_the_mesh(case):
+    """The arguments once refused are ported (multi-rank runs:
+    tests/test_torch_parallel.py): ``mesh`` on a one-rank gloo mesh trains
+    as no mesh does, bit for bit; ``shard_opt_state`` without a mesh does
+    nothing, as JAX's (the factory's optimizer, moments whole);
+    ``shard_model_axis`` without a ``model`` axis raises JAX's ValueError."""
+    from _torch_dist import one_rank_mesh
+
+    adam = lambda p: torch.optim.Adam(p, lr=1e-2)  # noqa: E731
+    inputs, targets, _w = _rows(n=40)
+    if case == "shard_model_axis":
+        with pytest.raises(ValueError, match="'model' axis"):
+            Trainer(_models()[2], adam, shard_model_axis=True)
+        return
+    if case == "shard_opt_state":
+        tr = Trainer(_models()[2], adam, shard_opt_state=True)
+        state = tr.fit(tr.init(0), inputs, targets, epochs=1, batch_size=16)
+        assert type(state.opt_state) is torch.optim.Adam
+        for p in tr.model.parameters():
+            assert state.opt_state.state[p]["exp_avg"].shape == p.shape
+        return
+    hist = []
+    with one_rank_mesh() as mesh:
+        for m in (None, mesh):
+            tr = Trainer(_models()[2], adam, mesh=m, seed=2)
+            tr.fit(tr.init(0), inputs, targets, epochs=3, batch_size=16)
+            hist.append(tr.history["loss"])
+    assert hist[0] == hist[1]

@@ -2,7 +2,7 @@
 ``mse_value_and_grad`` (fused: plain K2 + autograd through the ParameterNet;
 eager: autograd over the eager chain), ``regularization_loss``, the batch
 padding helpers, and ``GroupedTrainer`` (``fit``, ``evaluate``,
-``evaluate_metrics``, callbacks, the arguments not ported yet). Residual
+``evaluate_metrics``, callbacks, the refusals, the mesh on one rank). Residual
 sampling, ``fit_resident`` and resumable init are held against the JAX
 package in ``tests/test_torch_resident.py``.
 
@@ -359,7 +359,7 @@ def test_tb_events_is_a_copy_of_the_jax_module():
         REPO / "nif_tpu/utils/tb_events.py")
 
 
-# ------------------------------------------------------- not ported: refusals
+# -------------------------------------------------------------- refusals
 @pytest.mark.parametrize("kwargs,error,match", [
     # Sobolev and Hessian training are ported; derivative targets of the
     # wrong shape are refused
@@ -377,12 +377,26 @@ def test_fit_refuses_what_is_not_ported(kwargs, error, match):
 
 
 def test_trainer_refuses_mesh_and_fit_resident():
+    """The mesh once refused is ported (multi-rank runs:
+    tests/test_torch_parallel.py): on a one-rank gloo mesh ``fit`` and
+    ``fit_resident`` train as no mesh does, bit for bit;
+    ``shard_model_axis`` without a ``model`` axis raises JAX's ValueError;
+    an unknown point sampling still raises."""
+    from _torch_dist import one_rank_mesh
+
     _, _, tm = _models()
     adam = lambda p: torch.optim.Adam(p, lr=1e-3)  # noqa: E731
-    with pytest.raises(NotImplementedError, match="Slice G"):
-        GroupedTrainer(tm, adam, mesh=object())
-    with pytest.raises(NotImplementedError, match="Slice G"):
+    with pytest.raises(ValueError, match="'model' axis"):
         GroupedTrainer(tm, adam, shard_model_axis=True)
+    t, x, u = _dataset(G=4, P=16)
+    hist = []
+    with one_rank_mesh() as mesh:
+        for m in (None, mesh):
+            tr = GroupedTrainer(_models()[2], adam, mesh=m, seed=1)
+            state = tr.fit(tr.init(0), t, x, u, epochs=2, group_batch=2, point_batch=8)
+            tr.fit_resident(state, t, x, u, epochs=2, group_batch=2, point_batch=8, seed=3)
+            hist.append(tr.history["loss"])
+    assert len(hist[0]) == 4 and hist[0] == hist[1]
     with pytest.raises(ValueError, match="unknown point_sampling"):
         t, x, u = _dataset(G=2, P=8)
         GroupedTrainer(tm, adam).fit(None, t, x, u, point_sampling="stratified")
