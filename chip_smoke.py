@@ -33,12 +33,18 @@ Phases, each of which raises on failure:
    flagship runs, and two float32 ones at G=8, must give bitwise-equal
    results.
 2c. Hold K3 (the backward of K1) against plain K3 over the same configs,
-   each call one launch (float32 within 5e-6 of max|plain|), and at the
-   flagship width in bfloat16 (G=32) and float32 (G=8), where two float32
-   runs must give the same bits; differentiate ``apply_grouped`` on the card
-   through K1 + K3 and through the eager path, and compare the ParameterNet
-   gradients, under the flagship's bfloat16 policy (the tensor-core K1) and
-   under the float32 policy (the CUDA-core K1 and the float32 K3).
+   each call one launch of the kernel ``k3_variant`` picks (bfloat16 sine
+   chains the tensor-core kernel of ``shapenet_bwd_tc.cu``, beside the
+   tensor-core K2; float32 and vanilla chains the CUDA-core one; float32
+   within 5e-6 of max|plain|), the tensor-core kernel also on
+   ``K2_TC_EXTRA`` (P = 200), and at the flagship shape (G=32) in bfloat16
+   (the tensor-core kernel, and the CUDA-core one on the same inputs; two
+   tensor-core runs must give the same bits and agree with the CUDA-core
+   one within BF16_REL) and float32, where two runs must give the same bits;
+   differentiate ``apply_grouped`` on the card through K1 + K3 and through
+   the eager path, and compare the ParameterNet gradients, under the
+   flagship's bfloat16 policy (one tensor-core K1 and one tensor-core K3)
+   and under the float32 policy (the CUDA-core K1 and the float32 K3).
 3. Serve the flagship NIFMultiScale (``nif_tpu_torch.utils.bench``, random
    weights from a seed) through ``serving.predict_grouped``: a full request, a
    ragged one (point padding) and a 70-snapshot one (chunking). Check shapes,
@@ -60,8 +66,9 @@ Phases, each of which raises on failure:
    (mean of 20) and ``predict_grouped`` from host arrays (mean of 5), each on
    the device clock and on the host clock.
 4b. Time the flagship train step and its stages, the bfloat16 tensor-core
-   K2, the CUDA-core K2 on the same bfloat16 inputs and in float32, K3 in
-   both dtypes, with their plain versions, and compute their bounds on this
+   K2, the CUDA-core K2 on the same bfloat16 inputs and in float32, the
+   bfloat16 tensor-core K3, the CUDA-core K3 on the same inputs and in
+   float32, with their plain versions, and compute their bounds on this
    card; then the float32 policy's train step (the CUDA-core K2), mean of 10
    on the device clock and on the host clock, and its stages.
 
@@ -600,26 +607,29 @@ def check_k2(torch, cfg, variant, G, P, dtype, weighted, seed, simt=False,
     return err
 
 
-def check_k3(torch, cfg, variant, G, P, dtype, seed, f32_bound=5e-6) -> float:
+def check_k3(torch, cfg, variant, G, P, dtype, seed, f32_bound=5e-6, simt=False) -> float:
     """K3 vs plain K3 on d_wb and dx; returns max |d_wb - plain d_wb|. Each
-    call must launch the CUDA-core K3 once.
+    call must launch the kernel ``k3_variant`` picks once (``simt``: the
+    CUDA-core kernel on the same inputs, through its private launcher).
 
     float32: max|d| <= f32_bound max|plain| for d_wb and dx (by default
     5e-6, K2's bound at these shapes; 5e-5, the JAX package's bound for its
     fused backward, at the flagship's scale); bfloat16: BF16_REL."""
     from nif_tpu_torch.ops import _build
     from nif_tpu_torch.ops.fused_shapenet import (
-        shapenet_bwd_cuda, shapenet_fused_bwd_reference)
+        _shapenet_bwd_simt, k3_variant, shapenet_bwd_cuda, shapenet_fused_bwd_reference)
 
     wb, x = chain_data(torch, cfg, G, P, dtype, seed)
     g = side_data(torch, cfg, G, P, seed)[2].to(dtype)
-    before = _build.LAUNCHES["shapenet_bwd"]
-    d_wb, dx = shapenet_bwd_cuda(wb, x, g, cfg, variant)
+    kernel = "simt" if simt else k3_variant(dtype, cfg, variant)
+    before = dict(_build.LAUNCHES)
+    d_wb, dx = (_shapenet_bwd_simt if simt else shapenet_bwd_cuda)(wb, x, g, cfg, variant)
     r_wb, r_dx = shapenet_fused_bwd_reference(wb, x, g, cfg, variant)
     torch.cuda.synchronize()
-    what = f"K3 {describe(cfg, variant, G, P, dtype)}"
-    if _build.LAUNCHES["shapenet_bwd"] != before + 1:
-        raise AssertionError(f"{what}: launched {_build.LAUNCHES['shapenet_bwd'] - before} K3")
+    what = f"K3 {describe(cfg, variant, G, P, dtype)} ({kernel})"
+    launched = {k: _build.LAUNCHES[k] - before[k] for k in ("shapenet_bwd", "shapenet_bwd_tc")}
+    if launched != {"shapenet_bwd": 1, "shapenet_bwd_tc": int(kernel == "tc")}:
+        raise AssertionError(f"{what}: launched {launched}, not one {kernel} K3")
     if d_wb.dtype != wb.dtype or dx.dtype != x.dtype or dx.shape != x.shape:
         raise AssertionError(f"{what}: d_wb {d_wb.dtype}, dx {dx.shape}/{dx.dtype}")
     err, scale = max_diff(torch, d_wb, r_wb, what + " d_wb")
@@ -1325,11 +1335,12 @@ def train_bounds(cfg, G, P, peak_mma, peak_f32, peak_bw, dx: bool, f32: bool = F
 RESIDENT_G, RESIDENT_P = 64, 65536
 RESIDENT_GB, RESIDENT_PB = 32, 32768
 # The main kernel of each fused pass as a torch.profiler trace names it,
-# (tensor-core, CUDA-core); K3 shares K2's CUDA-core kernel, so a CUDA-core
-# count above the replays would be a K3.
+# (tensor-core, CUDA-core); the CUDA-core K3 shares K2's CUDA-core kernel,
+# so a CUDA-core K2 count above the replays would be a K3.
 PASS_KERNELS = {
     "K1": ("fwd_tc_kernel", "fwd_simt_kernel"),
     "K2": ("mse_tc_kernel", "simt_train_kernel"),
+    "K3": ("bwd_tc_kernel", None),
     "K6": ("sob_tc_kernel", "sob_simt_kernel"),
     "K8": ("hess_tc_kernel", "hess_simt_kernel"),
 }
@@ -1368,7 +1379,7 @@ def kernel_count(kernels, name: str) -> int:
 
 def pass_counts(kernels):
     """``{"K1": (tc, simt), ...}``: launches of each pass's two kernels."""
-    return {p: tuple(kernel_count(kernels, n) for n in names)
+    return {p: tuple(kernel_count(kernels, n) if n else 0 for n in names)
             for p, names in PASS_KERNELS.items()}
 
 
@@ -2833,8 +2844,8 @@ def main() -> int:
     from nif_tpu_torch.ops.fused_linear import (
         linear_geometry, niflinear_mse_grads_cuda, niflinear_mse_grads_reference)
     from nif_tpu_torch.ops.fused_shapenet import (
-        _shapenet_fwd_simt, _shapenet_mse_grads_simt, k1_geometry, k1_variant,
-        shapenet_bwd_cuda,
+        _shapenet_bwd_simt, _shapenet_fwd_simt, _shapenet_mse_grads_simt, k1_geometry,
+        k1_variant, shapenet_bwd_cuda,
         shapenet_fused_bwd_reference, shapenet_fwd_cuda, shapenet_grouped_fused_reference,
         shapenet_mse_grads_cuda, shapenet_mse_grads_reference)
     from nif_tpu_torch.ops.derivatives import output_and_jacobian_grouped
@@ -2944,7 +2955,33 @@ def main() -> int:
     for i, (variant, args) in enumerate(CASES):
         for dtype in (torch.float32, torch.bfloat16):
             check_k3(torch, ShapeNetConfig(*args), variant, 3, 256, dtype, seed=i)
+    for i, args in enumerate(K2_TC_EXTRA):  # the tensor-core K3 on the tensor-core K2's shapes
+        check_k3(torch, ShapeNetConfig(*args), "siren", 3, 200, torch.bfloat16, seed=150 + i)
     k3_err = check_k3(torch, flag_cfg, "siren", 32, 32768, torch.bfloat16, seed=14)
+    k3_simt_err = check_k3(torch, flag_cfg, "siren", 32, 32768, torch.bfloat16, seed=14,
+                           simt=True)
+    # the tensor-core K3 against the CUDA-core one on the same bf16 inputs, and
+    # two tensor-core flagship runs
+    wb, x = chain_data(torch, flag_cfg, 32, 32768, torch.bfloat16, seed=20)
+    g = side_data(torch, flag_cfg, 32, 32768, seed=20)[2].to(torch.bfloat16)
+    before = _build.LAUNCHES["shapenet_bwd_tc"]
+    runs = [shapenet_bwd_cuda(wb, x, g, flag_cfg, "siren") for _ in range(2)]
+    if _build.LAUNCHES["shapenet_bwd_tc"] != before + 2:
+        raise AssertionError("the flagship bf16 K3 runs did not take the tensor-core kernel")
+    if not (torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])):
+        raise AssertionError("K3 is not deterministic: two runs on one input differ")
+    simt_out = _shapenet_bwd_simt(wb, x, g, flag_cfg, "siren")
+    gaps = []
+    for what, mine, other in zip(("d_wb", "dx"), runs[0], simt_out):
+        err, scale = max_diff(torch, mine, other, f"K3 flagship bf16 tc vs simt {what}")
+        gaps.append(err / scale)
+        if err > BF16_REL * scale:
+            raise AssertionError(f"the tensor-core K3's {what} is {err} from the CUDA-core "
+                                 f"K3's, beyond {BF16_REL} of {scale}")
+    log(f"K3 flagship bf16 (G=32, P=32768, tensor cores): two runs give bitwise-equal d_wb and "
+        f"dx; against the CUDA-core K3 on the same inputs d_wb {gaps[0]:.2e}, dx {gaps[1]:.2e} "
+        f"of max|CUDA-core| (plain: tensor cores {k3_err:.3e}, CUDA cores {k3_simt_err:.3e})")
+    del wb, x, g, runs, simt_out
     # f32 at the flagship shape K3 is timed at (phase 4b)
     k3f_err = check_k3(torch, flag_cfg, "siren", 32, 32768, torch.float32, seed=18,
                        f32_bound=5e-5)
@@ -2967,10 +3004,10 @@ def main() -> int:
     torch.cuda.synchronize()
     bwd_path = dict(_build.LAUNCHES)
     eager_grads = torch.autograd.grad(model.apply_grouped(t_g, x_g, fused=False), params, g_g)
-    if (bwd_path["shapenet_bwd"] != 1 or bwd_path["shapenet_fwd"] != 1
-            or bwd_path["shapenet_fwd_tc"] != 1):
+    if (bwd_path["shapenet_bwd"] != 1 or bwd_path["shapenet_bwd_tc"] != 1
+            or bwd_path["shapenet_fwd"] != 1 or bwd_path["shapenet_fwd_tc"] != 1):
         raise AssertionError(f"apply_grouped under autograd launched {bwd_path}, "
-                             f"not one tensor-core K1 and one K3")
+                             f"not one tensor-core K1 and one tensor-core K3")
     worst = 0.0
     for (path, _), a, b in zip(model.param_items(), fused_grads, eager_grads):
         if not bool(torch.isfinite(a).all()):
@@ -2993,13 +3030,13 @@ def main() -> int:
     bwd_f32_path = dict(_build.LAUNCHES)
     eager_grads = torch.autograd.grad(model_f32.apply_grouped(t_g, x_g, fused=False), params,
                                       g_g)
-    if (bwd_f32_path["shapenet_bwd"] != 1 or bwd_f32_path["shapenet_fwd"] != 1
-            or bwd_f32_path["shapenet_fwd_tc"] != 0):
+    if (bwd_f32_path["shapenet_bwd"] != 1 or bwd_f32_path["shapenet_bwd_tc"] != 0
+            or bwd_f32_path["shapenet_fwd"] != 1 or bwd_f32_path["shapenet_fwd_tc"] != 0):
         raise AssertionError(f"a float32 apply_grouped under autograd launched {bwd_f32_path}, "
-                             f"not one CUDA-core K1 and one K3")
+                             f"not one CUDA-core K1 and one CUDA-core K3")
     worst = max(float(rel_l2(a, b)) for a, b in zip(fused_grads, eager_grads))
-    # the control: the same backward with K3's inputs rounded to bf16 (its
-    # bf16 instance), which the bound below must tell from an f32 K3
+    # the control: the same backward with K3's inputs rounded to bf16 (the
+    # tensor-core K3), which the bound below must tell from an f32 K3
     wb_c, _ = model_f32.pnet(model_f32._compute(t_g))
     d_wb_bf = shapenet_bwd_cuda(wb_c.detach().bfloat16(), x_g.bfloat16(), g_g.bfloat16(),
                                 model_f32.cfg_shape_net, model_f32.shapenet_variant)[0]
@@ -3905,7 +3942,9 @@ def main() -> int:
     k2f_plain_ms = cuda_ms(lambda: shapenet_mse_grads_reference(*f32_in, flag_cfg, "siren"),
                            reps=3, warmup=1)
     del f32_in
-    k3_ms = cuda_ms(lambda: shapenet_bwd_cuda(wb, x, g, flag_cfg, "siren"), reps=10)
+    k3_ms = cuda_ms(lambda: shapenet_bwd_cuda(wb, x, g, flag_cfg, "siren"), reps=10, warmup=2)
+    k3_simt_ms = cuda_ms(lambda: _shapenet_bwd_simt(wb, x, g, flag_cfg, "siren"), reps=5,
+                         warmup=1)
     k3_plain_ms = cuda_ms(lambda: shapenet_fused_bwd_reference(wb, x, g, flag_cfg, "siren"),
                           reps=3, warmup=1)
     f32_in = (wb.float(), x.float(), g.float())
@@ -3941,7 +3980,9 @@ def main() -> int:
         f"{k2_simt_ms:.4f} ms ({k2_simt_ms / k2_ms:.2f}x), plain {k2_plain_ms:.4f} ms, bound "
         f"{k2_bound:.4f} ms by {k2_by} ({k2_gf:.1f} GFLOP of products); K2 f32, CUDA cores: "
         f"{k2f_ms:.4f} ms, plain {k2f_plain_ms:.4f} ms, bound {k2f_bound:.4f} ms by {k2f_by} "
-        f"(f32 peak); K3 bf16 (CUDA cores) {k3_ms:.4f} ms, plain {k3_plain_ms:.4f} ms, bound "
+        f"(f32 peak); K3 bf16, tensor cores: {k3_ms:.4f} ms = {k3_gf / k3_ms:.2f} TFLOP/s of "
+        f"products, the CUDA-core K3 on the same bf16 inputs {k3_simt_ms:.4f} ms "
+        f"({k3_simt_ms / k3_ms:.2f}x), plain {k3_plain_ms:.4f} ms, bound "
         f"{k3_bound:.4f} ms by {k3_by} ({k3_gf:.1f} GFLOP); K3 f32 {k3f_ms:.4f} ms, plain "
         f"{k3f_plain_ms:.4f} ms, bound {k3f_bound:.4f} ms by {k3f_by} (f32 peak); library_ms "
         f"null: no single PyTorch call computes these chains")
@@ -4322,9 +4363,9 @@ def main() -> int:
     }, {
         "name": "shapenet_bwd",
         "route": "cuda",
-        "source": "nif_tpu_torch/csrc/shapenet_bwd.cu",
+        "source": "nif_tpu_torch/csrc/shapenet_bwd_tc.cu",
         "replaces": "nif_tpu/ops/pallas_shapenet.py:702",
-        "launches": bwd_path["shapenet_bwd"],
+        "launches": bwd_path["shapenet_bwd_tc"],
         "max_abs_err": k3_err,
         "ms": k3_ms,
         "plain_ms": k3_plain_ms,

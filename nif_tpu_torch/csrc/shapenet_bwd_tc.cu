@@ -1,16 +1,23 @@
-// K2's bf16 path on Hopper's tensor cores: the fused MSE train pass of the
-// grouped ShapeNet chain (forward, weighted MSE and backward in one pass, no
-// dx), with every hidden product a warp-level mma.sync.m16n8k16 (bf16 in,
-// f32 accumulation).
+// K2's and K3's bf16 paths on Hopper's tensor cores: the fused MSE train
+// pass of the grouped ShapeNet chain (forward, weighted MSE and backward in
+// one pass, no dx) and the backward of the fused chain (the forward
+// recomputed with its residuals, then g_out back to d_wb and dx), one body
+// template, with every hidden product a warp-level mma.sync.m16n8k16 (bf16
+// in, f32 accumulation).
 //
-// Replaces nif_tpu/ops/pallas_shapenet.py::_train_kernel (reached through
+// K2 replaces nif_tpu/ops/pallas_shapenet.py::_train_kernel (reached through
 // shapenet_mse_grads) for bfloat16 inputs on sine chains (plain or resblock
 // SIREN, si <= 4): wb' [G, po] (omega_0 folded into the sine-fed weights by
 // the wrapper), x [G, P, si], target [G, P, so], weight [G, P] (optional)
 // -> loss (f32) and d_wb [G, po] in bf16, both / G*P*so, the sine-fed
-// weight grads multiplied back by omega_0 in f32. float32, vanilla chains
-// and K3 stay on shapenet_bwd.cu, whose f32 products must not round to
-// TF32.
+// weight grads multiplied back by omega_0 in f32.
+// K3 replaces _bwd_kernel (the backward of shapenet_grouped_fused, reached
+// through _fused_bwd) for the same inputs and chains: wb', x and g_out
+// [G, P, so] -> d_wb [G, po] (not divided; the sine-fed grads times omega_0
+// in f32, _unscale_grads) and dx [G, P, si], both bf16.
+// The mode is the body's compile-time TRAIN flag, so no epilogue branches on
+// it. float32, vanilla chains and si > 4 stay on shapenet_bwd.cu, whose f32
+// products must not round to TF32.
 //
 // Its rounding points are K2's, not the tensor-core K6's (see the header of
 // shapenet_bwd.cu; the reference's _forward_layers(save=True) and
@@ -19,7 +26,9 @@
 // backward carries du in f32 and rounds dz = (scale du) act' to bf16 before
 // both its weight product and its bias sum; for so == 1 du starts as the
 // f32 dL/dout times the last weight column, otherwise as the rounded dL/dout
-// times W_last^T; dW_last and db_last use the rounded dL/dout. The
+// times W_last^T; dW_last and db_last use the rounded dL/dout (K3: g_out,
+// a bf16 value, in its place; the first layer's dz0 is rounded too, and
+// dx = dz0 @ W0'^T sums in f32 and rounds to bf16). The
 // derivative is not kept from the forward: the backward recomputes Z_m =
 // S_m @ W_m with the same mma sequence (the same bits) and rounds act'(Z_m
 // + b_m) there. Every operand of a product is a bf16 value already, so each
@@ -27,10 +36,10 @@
 // CUDA-core kernel.
 //
 // What bounds it on an H100 SXM: operations. At the flagship train shape
-// (G=32, P=32768, width 128, two hidden layers, si=3, so=1) its products
+// (G=32, P=32768, width 128, two hidden layers, si=3, so=1) K2's products
 // are 208.6 GFLOP (forward, dW and du), ~0.21 ms at the 989 TFLOP/s bf16
 // tensor-core peak; the Z recompute adds 69.8 GFLOP that the bound does not
-// count.
+// count. K3's are 209.4 GFLOP (its dx 0.8 more), ~0.21 ms.
 //
 // Design: K6's (shapenet_jac_tc.cu) with one stream, on the machinery of
 // stack_tc.cuh.
@@ -43,7 +52,8 @@
 //   staged whole (cp.async): every hidden W_m once a group where they fit
 //   beside the planes (the flagship), else each W_m before its products,
 //   else W from global memory. The group's W0, biases and W_last (f32) and
-//   the tile's targets and point weights are staged too.
+//   the tile's targets and point weights (K3: its g_out, in the last
+//   product's place: K3 skips the last product and the loss) are staged too.
 // - Residuals: every S plane and D in shared memory where they fit (the
 //   flagship: four planes of 128 x 136 bf16, 139 KB, beside both W_m, 70
 //   KB), otherwise two working planes with the S planes in a per-block
@@ -54,11 +64,15 @@
 //   the block's even-stride f32 partial in tile order; the partials of the
 //   bias, first- and last-layer grads are read before the work that
 //   produces their sums. stack_tc.cuh's ordered split reduce, with K2's
-//   division by G*P*so, sums each group's partials. No float
-//   atomics: two runs on the same inputs give the same bits.
+//   division by G*P*so (K3: none, and no loss), sums each group's partials.
+//   No float atomics: two runs on the same inputs give the same bits.
 // - The first layer (si <= 4 columns) and the last layer's grads (so <= a
 //   few columns) stay f32 FMAs from shared memory; the last product runs on
-//   the tensor cores, a slab a warp (last_product_mma). The epilogues'
+//   the tensor cores, a slab a warp (last_product_mma). K3's dz0 goes into
+//   the D plane, which is free by then, and dx = dz0 @ W0'^T runs on the
+//   tensor cores a slab a warp over K = n (slab_product_mma, W0' the B
+//   operand, its si <= 4 columns padded to 8), rounded and stored from the
+//   accumulators: no plane, no cross-warp sum. The epilogues'
 //   sine takes its coefficients from registers, chosen once, so no
 //   evaluation branches on the polynomial's degree.
 // The grid is (S, G) with S = SMs / G splits: one wave of one block per SM.
@@ -70,12 +84,14 @@ constexpr int kTp = 128;        // points of a tile
 constexpr int kNsl = kTp / 16;  // its 16-row slabs
 constexpr int kMaxSiTc = 4;
 
-struct MseArgs {
+struct TcArgs {
   const bf16* wb;          // wb' [G, wb_ld] (rows of po, padded to 16 bytes)
   const bf16* x;           // [G, P, si]
-  const bf16* target;      // [G, P, so]
-  const bf16* weight;      // [G, P], or null
-  float* partials;         // [G, S, ps] weight-grad partials, then [G, S] loss partials
+  const bf16* target;      // K2: [G, P, so]
+  const bf16* weight;      // K2: [G, P], or null
+  const bf16* g_out;       // K3: [G, P, so]
+  bf16* dx;                // K3: [G, P, si]
+  float* partials;         // [G, S, ps] weight-grad partials, then (K2) [G, S] loss partials
   unsigned char* scratch;  // per block: the S planes (when not resident), then the carry
   int G, P, so, n, n_mats, n16, ld, n_cb, resident, stage_w, stage_all;
   bool deg9;
@@ -138,8 +154,10 @@ __device__ unsigned long long k2_phase_cycles[kPhases];
   } while (0)
 #endif
 
-template <int SI, bool RES>
-__global__ void __launch_bounds__(kThreads, 1) mse_tc_kernel(const MseArgs a) {
+// The body of both kernels: TRAIN is K2 (targets, loss, the mean), else K3
+// (g_out, dx).
+template <int SI, bool RES, bool TRAIN>
+__device__ __forceinline__ void chain_tc_body(const TcArgs& a) {
   constexpr int NSL = kNsl;  // slab h holds points 16h .. 16h+15
   constexpr int TR = kTp;    // stacked rows: the one stream
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -150,12 +168,12 @@ __global__ void __launch_bounds__(kThreads, 1) mse_tc_kernel(const MseArgs a) {
   const int n_planes = a.resident ? n_mats + 2 : 2;
   const size_t wsz = (size_t)n16 * 16 * ld;  // one staged matrix
   bf16* WS = planes + n_planes * plane;  // [16 n16, ld] the staged W_m, or every W_m (stage_all)
-  // [TR, so] last product, then dL/dout
+  // [TR, so] last product, then dL/dout (K3: the tile's g_out)
   float* O = reinterpret_cast<float*>(WS + (a.stage_w ? (a.stage_all ? n_mats : 1) * wsz : 0));
-  float* TT = O + TR * so;        // [TR, so] the tile's targets
-  float* TW = TT + TR * so;       // [kTp] the tile's point weights
-  float* LS = TW + kTp;           // [kWarps] loss sums
-  float* W0f = LS + kWarps;       // [si, n] the group's first layer, f32
+  float* TT = O + TR * so;                   // K2: [TR, so] the tile's targets
+  float* TW = TT + (TRAIN ? TR * so : 0);    // K2: [kTp] the tile's point weights
+  float* LS = TW + (TRAIN ? kTp : 0);        // K2: [kWarps] loss sums
+  float* W0f = LS + (TRAIN ? kWarps : 0);    // [si, n] the group's first layer, f32
   float* B0f = W0f + SI * n;      // [n]
   float* BHf = B0f + n;           // [n_mats, n] hidden biases
   float* WLf = BHf + n_mats * n;  // [n, so] last layer
@@ -212,16 +230,22 @@ __global__ void __launch_bounds__(kThreads, 1) mse_tc_kernel(const MseArgs a) {
       const long long row0 = (long long)gi * a.P + p0;
       __syncthreads();  // the previous tile is done with every buffer
       K2_PHASE(7);      // the first layer's backward (and the group's set-up)
-      // the x tile, and the targets and weights its loss will read, all
-      // loads in flight at once (zero past the ragged edge)
+      // the x tile, and the targets and weights its loss will read (K3: its
+      // g_out), all loads in flight at once (zero past the ragged edge)
       const bf16* xg = a.x + row0 * SI;
       for (int idx = threadIdx.x; idx < kTp * SI; idx += kThreads)
         X[idx] = idx < rows * SI ? xg[idx] : __float2bfloat16_rn(0.f);
-      const bf16* tg = a.target + row0 * so;
-      for (int idx = threadIdx.x; idx < TR * so; idx += kThreads)
-        TT[idx] = idx < rows * so ? __bfloat162float(tg[idx]) : 0.f;
-      for (int r = threadIdx.x; r < kTp; r += kThreads)
-        TW[r] = r < rows && a.weight ? __bfloat162float(a.weight[row0 + r]) : 1.f;
+      if constexpr (TRAIN) {
+        const bf16* tg = a.target + row0 * so;
+        for (int idx = threadIdx.x; idx < TR * so; idx += kThreads)
+          TT[idx] = idx < rows * so ? __bfloat162float(tg[idx]) : 0.f;
+        for (int r = threadIdx.x; r < kTp; r += kThreads)
+          TW[r] = r < rows && a.weight ? __bfloat162float(a.weight[row0 + r]) : 1.f;
+      } else {
+        const bf16* gg = a.g_out + row0 * so;
+        for (int idx = threadIdx.x; idx < TR * so; idx += kThreads)
+          O[idx] = idx < rows * so ? __bfloat162float(gg[idx]) : 0.f;
+      }
       __syncthreads();
 
       // ---- first layer: z0 = x @ W0' + b0, S_0 = f(z0); a thread's four
@@ -301,27 +325,29 @@ __global__ void __launch_bounds__(kThreads, 1) mse_tc_kernel(const MseArgs a) {
       }
       K2_PHASE(1);  // the hidden forward
 
-      // ---- last product O = S_last @ W_last on the tensor cores, a slab a
-      // warp
       const bf16* Sl = fwd_plane(n_mats);
-      last_product_mma(Sl, ld, TR, n, n16, WLf, so, O, l);
-      __syncthreads();  // O is complete
+      if constexpr (TRAIN) {
+        // ---- last product O = S_last @ W_last on the tensor cores, a slab a
+        // warp
+        last_product_mma(Sl, ld, TR, n, n16, WLf, so, O, l);
+        __syncthreads();  // O is complete
 
-      // ---- loss: err = out - t; sums w err^2; dL/dout = 2 w err (f32, 0
-      // past the ragged edge) in place of O
-      for (int idx = threadIdx.x; idx < TR * so; idx += kThreads) {
-        const int r = idx / so;
-        float go = 0.f;
-        if (r < rows) {
-          const float err = O[idx] + BLf[idx - r * so] - TT[idx];
-          const float w = TW[r];
-          loss[0] += err * err * w;
-          go = 2.f * err * w;
+        // ---- loss: err = out - t; sums w err^2; dL/dout = 2 w err (f32, 0
+        // past the ragged edge) in place of O
+        for (int idx = threadIdx.x; idx < TR * so; idx += kThreads) {
+          const int r = idx / so;
+          float go = 0.f;
+          if (r < rows) {
+            const float err = O[idx] + BLf[idx - r * so] - TT[idx];
+            const float w = TW[r];
+            loss[0] += err * err * w;
+            go = 2.f * err * w;
+          }
+          O[idx] = go;
         }
-        O[idx] = go;
+        __syncthreads();  // dL/dout is complete
       }
-      __syncthreads();  // dL/dout is complete
-      K2_PHASE(2);      // the last product and the loss
+      K2_PHASE(2);  // the last product and the loss
 
       // ---- last layer: dW_l = S_last^T lift(go), db_l = the sum of
       // lift(go), and du = go W_l^T (so == 1: the f32 go times the column)
@@ -466,7 +492,8 @@ __global__ void __launch_bounds__(kThreads, 1) mse_tc_kernel(const MseArgs a) {
       }
 
       // ---- first layer: dz0 = lift(du lift(f'(z0))); dW0 = x^T dz0, db0 the
-      // sum of dz0; each x row loaded once for the thread's four columns
+      // sum of dz0; each x row loaded once for the thread's four columns (K3:
+      // dz0 in place of du, then into the D plane, every read of it done)
       for (int cbl = 0; cbl < n_cb; ++cbl) {
         const int cb = l.warp + kWarps * cbl;
         if (cb >= n16) break;
@@ -512,6 +539,7 @@ __global__ void __launch_bounds__(kThreads, 1) mse_tc_kernel(const MseArgs a) {
 #pragma unroll
                 for (int k = 0; k < SI; ++k) dw0[j][k] = fmaf(xr[k], dz, dw0[j][k]);
                 db0[j] += dz;
+                if constexpr (!TRAIN) ds[h][t][2 * hh + e] = dz;
               }
           }
 #pragma unroll
@@ -528,11 +556,26 @@ __global__ void __launch_bounds__(kThreads, 1) mse_tc_kernel(const MseArgs a) {
             const float sum = quad_column_sum(db0[j]);
             if (l.g == 0 && c < n) add_partial(part + o_b0 + c, old_b0[j], sum, first);
           }
+        if constexpr (!TRAIN) store_stack<NSL>(Dp, nullptr, ld, n, cb, l, ds);
+      }
+      if constexpr (!TRAIN) {
+        // ---- dx = dz0 @ W0'^T on the tensor cores, a slab a warp, rounded
+        // to bf16 (rows past the ragged edge not stored)
+        __syncthreads();  // dz0 is complete
+        bf16* dxg = a.dx + row0 * SI;
+        slab_product_mma(
+            Dp, ld, TR, n16, SI,
+            [&](int k, int c) { return __float2bfloat16_rn(k < n && c < SI ? W0f[c * n + k] : 0.f); },
+            [&](int r, int c, float v) {
+              if (r < rows) dxg[r * SI + c] = __float2bfloat16_rn(v);
+            },
+            l);
       }
     }
 
     // the block's loss partial, after its [G, S, ps] weight grads
-    store_loss_partials(loss, LS, a.partials + (long long)a.G * S * a.ps + (long long)gi * S + s);
+    if constexpr (TRAIN)
+      store_loss_partials(loss, LS, a.partials + (long long)a.G * S * a.ps + (long long)gi * S + s);
   }
 #ifdef K2_PHASE_CLOCKS
   if (threadIdx.x == 0)
@@ -540,27 +583,39 @@ __global__ void __launch_bounds__(kThreads, 1) mse_tc_kernel(const MseArgs a) {
 #endif
 }
 
+template <int SI, bool RES>
+__global__ void __launch_bounds__(kThreads, 1) mse_tc_kernel(const TcArgs a) {
+  chain_tc_body<SI, RES, true>(a);
+}
+
+template <int SI, bool RES>
+__global__ void __launch_bounds__(kThreads, 1) bwd_tc_kernel(const TcArgs a) {
+  chain_tc_body<SI, RES, false>(a);
+}
+
 // Status of a shape: 0 = ok, 2 = even two working planes exceed a block's
 // shared memory, 3 = bad shape (or a chain or si the kernel does not take);
-// the layout is stack_geometry()'s, over 128-point tiles of one stream.
+// the layout is stack_geometry()'s, over 128-point tiles of one stream (K3
+// stages no targets, point weights or loss sums: train = false).
 // Where the planes are resident and every hidden matrix fits beside them too
 // (the flagship: 139 KB of planes and two W of 35 KB), each group's W_m are
 // staged once (stage_all) instead of one at a time, twice a tile.
-int tc_geometry(int n, int si, int so, int n_mats, int chain, int G, int P, StackGeometry* g,
-                int* stage_all) {
+int tc_geometry(bool train, int n, int si, int so, int n_mats, int chain, int G, int P,
+                StackGeometry* g, int* stage_all) {
   if (n < 1 || si < 1 || si > kMaxSiTc || so < 1 || n_mats < 0 || G < 1 || P < 1 ||
       (chain != kSirenPlain && chain != kSirenResblock) || (chain == kSirenResblock && n_mats % 2))
     return 3;
-  const int status = stack_geometry(n, si, so, n_mats, chain, G, P, kTp, kTp, 1, g);
+  const int status = stack_geometry(n, si, so, n_mats, chain, G, P, kTp, kTp, train ? 1 : 0, g,
+                                    train);
   const size_t all = g->smem + (size_t)(n_mats - 1) * 2 * g->n16 * 16 * g->ld;
   *stage_all = g->resident && n_mats > 1 && all <= kMaxSmem;
   if (*stage_all) g->smem = all;
   return status;
 }
 
-template <int SI, bool RES>
-int launch_tc(const StackGeometry& geo, const MseArgs& a, cudaStream_t stream) {
-  auto kernel = mse_tc_kernel<SI, RES>;
+template <int SI, bool RES, bool TRAIN>
+int launch_tc(const StackGeometry& geo, const TcArgs& a, cudaStream_t stream) {
+  auto kernel = TRAIN ? mse_tc_kernel<SI, RES> : bwd_tc_kernel<SI, RES>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)geo.smem);
   if (err != cudaSuccess) return (int)err;
@@ -568,15 +623,59 @@ int launch_tc(const StackGeometry& geo, const MseArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <bool RES>
-int launch_si(int si, const StackGeometry& geo, const MseArgs& a, cudaStream_t stream) {
+template <bool TRAIN, bool RES>
+int launch_si(int si, const StackGeometry& geo, const TcArgs& a, cudaStream_t stream) {
   switch (si) {
-    case 1: return launch_tc<1, RES>(geo, a, stream);
-    case 2: return launch_tc<2, RES>(geo, a, stream);
-    case 3: return launch_tc<3, RES>(geo, a, stream);
-    case 4: return launch_tc<4, RES>(geo, a, stream);
+    case 1: return launch_tc<1, RES, TRAIN>(geo, a, stream);
+    case 2: return launch_tc<2, RES, TRAIN>(geo, a, stream);
+    case 3: return launch_tc<3, RES, TRAIN>(geo, a, stream);
+    case 4: return launch_tc<4, RES, TRAIN>(geo, a, stream);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The geometry of a mode at [G, P] (a status as tc_geometry() returns; on 0
+// and 2 the outputs are written): see nif_shapenet_mse_tc_workspace.
+int workspace(bool train, int n, int si, int so, int n_mats, int chain, int G, int P, int* tile,
+              int* splits, long long* smem_bytes, int* resident, int* staged_w,
+              long long* partial_floats, long long* scratch_bytes) {
+  StackGeometry g{};
+  int stage_all = 0;
+  const int status = tc_geometry(train, n, si, so, n_mats, chain, G, P, &g, &stage_all);
+  if (status == 3) return status;
+  const long long po = (long long)n_mats * n * n + (long long)(si + so + 1 + n_mats) * n + so;
+  const long long ps = po + (po & 1);
+  *tile = kTp;
+  *splits = g.splits;
+  *smem_bytes = (long long)g.smem;
+  *resident = g.resident;
+  *staged_w = g.stage_w;
+  *partial_floats = (long long)G * g.splits * (ps + (train ? 1 : 0));
+  *scratch_bytes = (long long)g.grid_g * g.splits * (long long)g.block_bytes;
+  return status;
+}
+
+// Fills the arguments both modes share and launches the body of a mode;
+// returns the CUDA error of the launch, or cudaErrorInvalidValue for a shape
+// or an activation the kernel does not take.
+template <bool TRAIN>
+int launch_body(TcArgs& a, int G, int P, int si, int so, int n, int n_mats, int chain, int act,
+                long long po, long long wb_ld, StackGeometry* geo, cudaStream_t s) {
+  int stage_all = 0;
+  if ((act != kSinePoly7 && act != kSinePoly9) || wb_ld < po ||
+      tc_geometry(TRAIN, n, si, so, n_mats, chain, G, P, geo, &stage_all) != 0)
+    return (int)cudaErrorInvalidValue;
+  a.G = G; a.P = P; a.so = so; a.n = n; a.n_mats = n_mats;
+  a.n16 = geo->n16; a.ld = geo->ld; a.n_cb = geo->n_cb; a.resident = geo->resident;
+  a.stage_w = geo->stage_w;
+  a.stage_all = stage_all;
+  a.deg9 = act == kSinePoly9;
+  a.ps = po + (po & 1);
+  a.wb_ld = wb_ld;
+  a.block_bytes = (long long)geo->block_bytes;
+  a.carry_offset = (long long)geo->carry_offset;
+  return chain == kSirenResblock ? launch_si<TRAIN, true>(si, *geo, a, s)
+                                 : launch_si<TRAIN, false>(si, *geo, a, s);
 }
 
 }  // namespace
@@ -594,20 +693,19 @@ int nif_shapenet_mse_tc_workspace(int n, int si, int so, int n_mats, int chain, 
                                   int* tile, int* splits, long long* smem_bytes, int* resident,
                                   int* staged_w, long long* partial_floats,
                                   long long* scratch_bytes) {
-  StackGeometry g{};
-  int stage_all = 0;
-  const int status = tc_geometry(n, si, so, n_mats, chain, G, P, &g, &stage_all);
-  if (status == 3) return status;
-  const long long po = (long long)n_mats * n * n + (long long)(si + so + 1 + n_mats) * n + so;
-  const long long ps = po + (po & 1);
-  *tile = kTp;
-  *splits = g.splits;
-  *smem_bytes = (long long)g.smem;
-  *resident = g.resident;
-  *staged_w = g.stage_w;
-  *partial_floats = (long long)G * g.splits * (ps + 1);
-  *scratch_bytes = (long long)g.grid_g * g.splits * (long long)g.block_bytes;
-  return status;
+  return workspace(true, n, si, so, n_mats, chain, G, P, tile, splits, smem_bytes, resident,
+                   staged_w, partial_floats, scratch_bytes);
+}
+
+// The geometry of the tensor-core K3, as nif_shapenet_mse_tc_workspace's:
+// its shared memory holds no targets, point weights or loss sums, and its
+// partials no losses (G*S*ps floats).
+int nif_shapenet_bwd_tc_workspace(int n, int si, int so, int n_mats, int chain, int G, int P,
+                                  int* tile, int* splits, long long* smem_bytes, int* resident,
+                                  int* staged_w, long long* partial_floats,
+                                  long long* scratch_bytes) {
+  return workspace(false, n, si, so, n_mats, chain, G, P, tile, splits, smem_bytes, resident,
+                   staged_w, partial_floats, scratch_bytes);
 }
 
 // K2 in bf16 on the tensor cores (wb', x, target, weight and d_wb are bf16;
@@ -620,35 +718,45 @@ int nif_shapenet_mse_grads_tc(const void* wb, const void* x, const void* target,
                               void* scratch, int G, int P, int si, int so, int n, int n_mats,
                               int chain, int act, long long po, long long wb_ld,
                               long long n_scaled, float omega, void* stream) {
-  StackGeometry geo{};
-  int stage_all = 0;
-  if ((act != kSinePoly7 && act != kSinePoly9) || wb_ld < po ||
-      tc_geometry(n, si, so, n_mats, chain, G, P, &geo, &stage_all) != 0)
-    return (int)cudaErrorInvalidValue;
-  MseArgs a{};
+  TcArgs a{};
   a.wb = static_cast<const bf16*>(wb);
   a.x = static_cast<const bf16*>(x);
   a.target = static_cast<const bf16*>(target);
   a.weight = static_cast<const bf16*>(weight);
   a.partials = static_cast<float*>(partials);
   a.scratch = static_cast<unsigned char*>(scratch);
-  a.G = G; a.P = P; a.so = so; a.n = n; a.n_mats = n_mats;
-  a.n16 = geo.n16; a.ld = geo.ld; a.n_cb = geo.n_cb; a.resident = geo.resident;
-  a.stage_w = geo.stage_w;
-  a.stage_all = stage_all;
-  a.deg9 = act == kSinePoly9;
-  a.ps = po + (po & 1);
-  a.wb_ld = wb_ld;
-  a.block_bytes = (long long)geo.block_bytes;
-  a.carry_offset = (long long)geo.carry_offset;
+  StackGeometry geo{};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int err = chain == kSirenResblock ? launch_si<true>(si, geo, a, s)
-                                    : launch_si<false>(si, geo, a, s);
+  const int err = launch_body<true>(a, G, P, si, so, n, n_mats, chain, act, po, wb_ld, &geo, s);
   if (err != 0) return err;
   const float n_elem = (float)((long long)G * P * so);
   const LossNorms norms{{n_elem}};
   return launch_stack_reduce<1>(a.partials, G, geo.splits, po, n_scaled, omega, n_elem, norms,
                                 static_cast<bf16*>(d_wb), static_cast<float*>(loss), s);
+}
+
+// K3 in bf16 on the tensor cores (wb', x, g_out, d_wb and dx are bf16; wb'
+// has rows of wb_ld >= po elements, d_wb of po): d_wb not divided, the
+// n_scaled sine-fed weight grads times omega in f32; dx [G, P, si]. chain
+// and act as K2's. Returns the CUDA error of the launches (0 on success);
+// the kernels run asynchronously on `stream`.
+int nif_shapenet_bwd_tc(const void* wb, const void* x, const void* g_out, void* d_wb, void* dx,
+                        void* partials, void* scratch, int G, int P, int si, int so, int n,
+                        int n_mats, int chain, int act, long long po, long long wb_ld,
+                        long long n_scaled, float omega, void* stream) {
+  TcArgs a{};
+  a.wb = static_cast<const bf16*>(wb);
+  a.x = static_cast<const bf16*>(x);
+  a.g_out = static_cast<const bf16*>(g_out);
+  a.dx = static_cast<bf16*>(dx);
+  a.partials = static_cast<float*>(partials);
+  a.scratch = static_cast<unsigned char*>(scratch);
+  StackGeometry geo{};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int err = launch_body<false>(a, G, P, si, so, n, n_mats, chain, act, po, wb_ld, &geo, s);
+  if (err != 0) return err;
+  return launch_stack_reduce<0>(a.partials, G, geo.splits, po, n_scaled, omega, 1.f, LossNorms{},
+                                static_cast<bf16*>(d_wb), nullptr, s);
 }
 
 #ifdef K2_PHASE_CLOCKS

@@ -68,9 +68,11 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 // jnp.round does), then an odd minimax polynomial in t of degree 7 (_SIN_C7)
 // or 9 (_SIN_C), with s = t*t. sin_poly_dt and sin_poly_dt2 are its exact
 // first and second derivatives in t; times 1/2pi and (1/2pi)^2 they are the
-// derivatives in z.
+// derivatives in z (the third, stack_tc.cuh's sine_d123, times (1/2pi)^3).
 constexpr float kInv2Pi = 0.15915494309189535f;
 constexpr float kInv2Pi2 = (float)0.025330295910584444;
+constexpr float kInv2Pi3 =
+    (float)(0.15915494309189535 * 0.15915494309189535 * 0.15915494309189535);
 
 __device__ __forceinline__ float sin_turns(float z) {
   const float t = z * kInv2Pi;
@@ -98,23 +100,6 @@ __device__ __forceinline__ float sin_poly_dt2(float t, float s, bool degree9) {
                      s * ((float)(42.0 * -74.67588387) + s * (float)(72.0 * 33.16809461))));
   return t * ((float)(6.0 * -41.09373072) +
               s * ((float)(20.0 * 77.93034984) + s * (float)(42.0 * -56.08639487)));
-}
-
-// act(z) on f32 z, as the forward kernels evaluate it.
-__device__ __forceinline__ float activate(float z, int act) {
-  switch (act) {
-    case kSinePoly7:
-    case kSinePoly9: {
-      const float t = sin_turns(z);
-      return sin_poly(t, t * t, act == kSinePoly9);
-    }
-    case kSineExact: return sinf(z);
-    case kTanh: return tanhf(z);
-    case kRelu: return fmaxf(z, 0.f);
-    case kSwish: return z * (1.f / (1.f + expf(-z)));
-    case kSigmoid: return 1.f / (1.f + expf(-z));
-    default: return z;
-  }
 }
 
 // (act(z), act'(z), act''(z)) on f32 z: _act_triple (_act_with_grad for the
@@ -164,42 +149,6 @@ __device__ __forceinline__ float act3(float z, int act, float* d1, float* d2) {
       *d2 = 0.f;
       return z;
   }
-}
-
-// The polynomial's third derivative in t (_fast_sin_grad3): 6 c3 + 60 c5 s
-// + 210 c7 s^2 [+ 504 c9 s^3]; times (1/2pi)^3 it is the one in z.
-constexpr float kInv2Pi3 =
-    (float)(0.15915494309189535 * 0.15915494309189535 * 0.15915494309189535);
-
-__device__ __forceinline__ float sin_poly_dt3(float s, bool degree9) {
-  if (degree9)
-    return (float)(6.0 * -41.33324754) +
-           s * ((float)(60.0 * 81.40008977) +
-                s * ((float)(210.0 * -74.67588387) + s * (float)(504.0 * 33.16809461)));
-  return (float)(6.0 * -41.09373072) +
-         s * ((float)(60.0 * 77.93034984) + s * (float)(210.0 * -56.08639487));
-}
-
-// (act(z), act', act'', act''') of a sine activation on f32 z, the Hessian
-// kernels' _trig3_for: the polynomial with its exact derivatives from one
-// range reduction (kSinePoly7/9), or the true sine (kSineExact). The
-// Hessian kernels take sine chains only; their entries refuse other codes.
-__device__ __forceinline__ float sine4(float z, int act, float* d1, float* d2, float* d3) {
-  if (act == kSineExact) {
-    float sn, cs;
-    sincosf(z, &sn, &cs);
-    *d1 = cs;
-    *d2 = -sn;
-    *d3 = -cs;
-    return sn;
-  }
-  const bool deg9 = act == kSinePoly9;
-  const float t = sin_turns(z);
-  const float s = t * t;
-  *d1 = sin_poly_dt(s, deg9) * kInv2Pi;
-  *d2 = sin_poly_dt2(t, s, deg9) * kInv2Pi2;
-  *d3 = sin_poly_dt3(s, deg9) * kInv2Pi3;
-  return sin_poly(t, s, deg9);
 }
 
 // (act(z), act'(z)) on f32 z: _act_with_grad.
@@ -345,22 +294,6 @@ __device__ __forceinline__ void bias_grad(const float* __restrict__ DZ, int n, i
     for (int r = 0; r < rows; ++r) s += DZ[r * n + c];
     accumulate(out + c, s, first);
   }
-}
-
-// The thread's dz = lift(scale * g * D) into the DZ tile (g is du or dh).
-template <typename T, int RM, int RN>
-__device__ __forceinline__ void store_dz(float* __restrict__ DZ, const T* D, int n, int r0, int tc,
-                                         const float (&g)[RM][RN], float scale) {
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int j = 0; j < RN; ++j) {
-      const int c = tc + j * kLanes;
-      if (c < n) {
-        const int o = (r0 + i) * n + c;
-        DZ[o] = lift<T>(scale * g[i][j] * to_f32(D[o]));
-      }
-    }
 }
 
 // A block's residual region (the stacked train kernels, K6 and K8): in

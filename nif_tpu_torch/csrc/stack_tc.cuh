@@ -1,6 +1,6 @@
 // The stacked-stream tensor-core machinery of the fused ShapeNet kernels on
 // Hopper (sm_90a): the bf16 paths of K6 (shapenet_jac_tc.cu), K7 and K8
-// (shapenet_hess_tc.cu) and K2 (shapenet_bwd_tc.cu). A tile of points is
+// (shapenet_hess_tc.cu), K2 and K3 (shapenet_bwd_tc.cu). A tile of points is
 // stacked stream-major, each stream's rows forming whole 16-row mma slabs;
 // warp w owns the 16-column blocks w, w + 8, ... of every product over all
 // slabs, so a thread holds the same (point, column) of every stream and the
@@ -11,11 +11,12 @@
 // even-stride f32 partial (weight_grad_stack), the per-thread f32 carry in a
 // block's global scratch, the stores of a stacked bf16 plane, the launch
 // geometry (stack_geometry), the ordered split reduce over NL losses
-// (stack_reduce_kernel) and the last product of a stacked plane on the
-// tensor cores (last_product_mma, K2's and K7's). Each kernel keeps its own
-// body, tile and C entries. ops/_build.py hashes this header with the
-// sources that include it, so an edit here rebuilds the tensor-core
-// libraries of K2, K6, K7 and K8 and no other.
+// (stack_reduce_kernel) and a stacked plane's narrow products on the tensor
+// cores (slab_product_mma: the last products of K1, K2 and K5-K7, K3's dx).
+// Each kernel keeps its own body, tile and C entries. ops/_build.py hashes
+// this header with the sources that include it, so an edit here rebuilds
+// the libraries that include it (directly or through stack_simt.cuh) and no
+// other.
 #pragma once
 
 #include "mma_sm90.cuh"
@@ -41,10 +42,10 @@ __device__ __forceinline__ Lane lane_of_thread() {
 }
 
 // The bf16 sine (the polynomial of degree 7 or 9 of shapenet_common.cuh's
-// sin_poly, sin_poly_dt, sin_poly_dt2 and sin_poly_dt3), the only activation
-// these kernels take, with its coefficients chosen once a kernel
-// (sine_poly): act3's and sine4's kSinePoly7/9 cases without their switch,
-// which inlined at every epilogue would swell the code. The degree-7
+// sin_poly, sin_poly_dt and sin_poly_dt2, with its third derivative), the
+// only activation these kernels take, with its coefficients chosen once a
+// kernel (sine_poly): act3's kSinePoly7/9 case without its switch, which
+// inlined at every epilogue would swell the code. The degree-7
 // polynomial is the degree-9 one with zero top coefficients, and those give
 // its bits exactly (the innermost step s * 0 + c is c), so no evaluation
 // branches on the degree and a thread's independent evaluations interleave.
@@ -429,7 +430,9 @@ struct StackGeometry {
 constexpr int round16(int v) { return (v + 15) / 16 * 16; }
 
 // The layout of a kernel whose tiles of tp points stack into tr rows (tr / 16
-// slabs) at width n, with nl loss sums, on [G, P]: 0 = it fits, 2 = even two
+// slabs) at width n, with nl loss sums, on [G, P] (a tile's f32 staging: its
+// [tr, so] output and, with targets, [tr, so] targets and tp point weights;
+// K3 stages no targets): 0 = it fits, 2 = even two
 // working planes exceed a block's shared memory (the caller has checked the
 // rest of the shape). In order of preference: every S plane, D and the
 // staged W_m in shared memory (resident); two working planes and W_m, the S
@@ -438,15 +441,15 @@ constexpr int round16(int v) { return (v + 15) / 16 * 16; }
 // for each of a warp's column blocks (resblock chains, or widths above 128).
 // The grid is (S, G) with S = SMs / G splits: one wave of one block per SM.
 int stack_geometry(int n, int si, int so, int n_mats, int chain, int G, int P, int tp, int tr,
-                   int nl, StackGeometry* g) {
+                   int nl, StackGeometry* g, bool targets = true) {
   g->n16 = round16(n) / 16;
   g->ld = round16(n) + 8;
   g->n_cb = (g->n16 + kWarps - 1) / kWarps;
   const size_t plane = 2 * (size_t)tr * g->ld;
   const size_t wplane = 2 * (size_t)g->n16 * 16 * g->ld;
   const size_t params = (size_t)(si + 1 + n_mats + so) * n + so;
-  const size_t small =
-      4 * (2 * (size_t)tr * so + tp + (size_t)nl * kWarps + params) + 2 * (size_t)tp * si;
+  const size_t staged = targets ? 2 * (size_t)tr * so + tp : (size_t)tr * so;
+  const size_t small = 4 * (staged + (size_t)nl * kWarps + params) + 2 * (size_t)tp * si;
   const size_t resident = (n_mats + 2) * plane + wplane + small;
   g->resident = resident <= kMaxSmem;
   g->stage_w = g->resident || 2 * plane + wplane + small <= kMaxSmem;
@@ -465,38 +468,48 @@ int stack_geometry(int n, int si, int so, int n_mats, int chain, int G, int P, i
   return g->smem > kMaxSmem ? 2 : 0;
 }
 
-// O[r][j] = sum over k < n of S[r][k] WL[k][j] for the tr stacked rows of a
-// bf16 plane S (row stride ld, columns from n to 16 n16 zero) and j < so:
+// out(r, j, sum over k < 16 n16 of S[r][k] B(k, j)) for the tr stacked rows
+// of a bf16 plane S (row stride ld, columns from n to 16 n16 zero) and j < nc:
 // warp w takes the 16-row slabs w, w + 8, ..., each an mma.m16n8k16 chain
-// per 8 columns of WL (the group's f32 last layer in shared memory, [n, so],
-// whose values are bf16 ones, so its bf16 operand is exact). O is f32 [tr,
-// so]; the caller's barrier shows it to the block.
-__device__ __forceinline__ void last_product_mma(const bf16* S, int ld, int tr, int n, int n16,
-                                                 const float* WL, int so, float* O,
-                                                 const Lane& l) {
-  auto wl = [&](int k, int j) {
-    return __float2bfloat16_rn(k < n && j < so ? WL[k * so + j] : 0.f);
-  };
+// per 8 columns of B. b(k, j) gives B's element as a bf16 value (zero where
+// B has none); out(r, j, v) takes the f32 sum.
+template <typename BF, typename OUT>
+__device__ __forceinline__ void slab_product_mma(const bf16* S, int ld, int tr, int n16, int nc,
+                                                 BF b, OUT out, const Lane& l) {
   for (int sl = l.warp; sl < tr / 16; sl += kWarps) {
     const bf16* a_row = S + (sl * 16 + (l.lane & 15)) * ld + 8 * (l.lane >> 4);
-    for (int jb = 0; jb < so; jb += 8) {
+    for (int jb = 0; jb < nc; jb += 8) {
       float acc[4] = {0.f, 0.f, 0.f, 0.f};
       const int j = jb + l.g;  // B's column of this lane
       for (int kk = 0; kk < n16; ++kk) {
         uint32_t af[4];
         ldsm_x4(af, a_row + kk * 16);
         const int k0 = kk * 16 + 2 * l.q;
-        mma_bf16_16816(acc, af, pack_bf16(wl(k0, j), wl(k0 + 1, j)),
-                       pack_bf16(wl(k0 + 8, j), wl(k0 + 9, j)));
+        mma_bf16_16816(acc, af, pack_bf16(b(k0, j), b(k0 + 1, j)),
+                       pack_bf16(b(k0 + 8, j), b(k0 + 9, j)));
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int r = sl * 16 + l.g + 8 * (i >> 1);
         const int c = jb + 2 * l.q + (i & 1);
-        if (c < so) O[r * so + c] = acc[i];
+        if (c < nc) out(r, c, acc[i]);
       }
     }
   }
+}
+
+// O[r][j] = sum over k < n of S[r][k] WL[k][j] for the tr stacked rows of a
+// bf16 plane S (row stride ld, columns from n to 16 n16 zero) and j < so
+// (slab_product_mma): WL is the group's f32 last layer in shared memory,
+// [n, so], whose values are bf16 ones, so its bf16 operand is exact. O is
+// f32 [tr, so]; the caller's barrier shows it to the block.
+__device__ __forceinline__ void last_product_mma(const bf16* S, int ld, int tr, int n, int n16,
+                                                 const float* WL, int so, float* O,
+                                                 const Lane& l) {
+  slab_product_mma(
+      S, ld, tr, n16, so,
+      [&](int k, int j) { return __float2bfloat16_rn(k < n && j < so ? WL[k * so + j] : 0.f); },
+      [&](int r, int c, float v) { O[r * so + c] = v; }, l);
 }
 
 }  // namespace

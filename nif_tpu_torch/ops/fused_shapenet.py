@@ -687,6 +687,11 @@ def _bwd_tc_library() -> ctypes.CDLL:
         lib.nif_shapenet_mse_grads_tc.argtypes = (
             [ptr] * 8 + [c_int] * 8 + [c_ll] * 3 + [ctypes.c_float, ptr])
         lib.nif_shapenet_mse_grads_tc.restype = c_int
+        lib.nif_shapenet_bwd_tc_workspace.argtypes = [c_int] * 7 + [ptr] * 7
+        lib.nif_shapenet_bwd_tc_workspace.restype = c_int
+        lib.nif_shapenet_bwd_tc.argtypes = (
+            [ptr] * 7 + [c_int] * 8 + [c_ll] * 3 + [ctypes.c_float, ptr])
+        lib.nif_shapenet_bwd_tc.restype = c_int
         lib.nif_cuda_error_string.argtypes = [c_int]
         lib.nif_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -695,7 +700,7 @@ def _bwd_tc_library() -> ctypes.CDLL:
 def _stack_tc_status(workspace, mode: str, cfg: ShapeNetConfig, variant: str, si: int, G: int,
                      P: int):
     """``(status, geometry)`` of a stacked-stream tensor-core kernel (K1, K2,
-    K5, K6, K7 or K8) from its library's ``workspace`` entry."""
+    K3, K5, K6, K7 or K8) from its library's ``workspace`` entry."""
     tile, splits, resident, staged_w = (ctypes.c_int() for _ in range(4))
     smem, partial_floats, scratch = ctypes.c_longlong(), ctypes.c_longlong(), ctypes.c_longlong()
     status = workspace(
@@ -754,6 +759,31 @@ def k2_variant(dtype: torch.dtype, cfg: Optional[ShapeNetConfig] = None,
     if cfg is None:
         return "tc"
     return "tc" if _k2_tc_status(cfg, variant, 1, 1)[0] == 0 else "simt"
+
+
+def _k3_tc_status(cfg: ShapeNetConfig, variant: str, G: int, P: int):
+    """``(status, geometry)`` of the tensor-core K3 (``csrc/shapenet_bwd_tc.cu``,
+    beside the tensor-core K2)."""
+    return _stack_tc_status(_bwd_tc_library().nif_shapenet_bwd_tc_workspace, "backward", cfg,
+                            variant, cfg.input_dim, G, P)
+
+
+def k3_variant(dtype: torch.dtype, cfg: Optional[ShapeNetConfig] = None,
+               variant: str = "siren") -> str:
+    """Which CUDA kernel K3 runs for inputs of ``dtype``: ``"tc"`` (the
+    tensor-core kernel, ``csrc/shapenet_bwd_tc.cu``) for bfloat16 and
+    ``"simt"`` (the CUDA-core kernel, ``csrc/shapenet_bwd.cu``) for float32,
+    whose products stay full f32 (and for any other dtype, which the wrapper
+    refuses). Given a chain (``cfg``, ``variant``; this asks the
+    tensor-core kernel's library, so it needs nvcc), bfloat16 runs the
+    CUDA-core kernel where the tensor-core one does not take it: a vanilla
+    chain, si > 4, or a width whose two working planes exceed a block's
+    shared memory."""
+    if dtype != torch.bfloat16:
+        return "simt"
+    if cfg is None:
+        return "tc"
+    return "tc" if _k3_tc_status(cfg, variant, 1, 1)[0] == 0 else "simt"
 
 
 def k2_geometry(cfg: ShapeNetConfig, variant: str, G: int, P: int, dtype: torch.dtype,
@@ -913,13 +943,37 @@ def _shape_args(cfg: ShapeNetConfig, variant: str, x: torch.Tensor, po: int):
             float(cfg.omega_0) if variant == "siren" else 1.0, _DTYPE_CODES[x.dtype])
 
 
+def _train_launch_setup(tensor_cores: bool, tc_status: Callable, wb: torch.Tensor,
+                        x: torch.Tensor, cfg: ShapeNetConfig, variant: str):
+    """What a K2 or K3 launch takes, under the tensor's device (the geometry
+    reads its SM count): ``(kernel, wb', partials, scratch)``. The kernel is
+    the tensor-core one where ``tensor_cores`` allows it and ``tc_status``
+    (its library's geometry at this shape; one query decides and sizes the
+    workspace) takes the chain, else the CUDA-core one; wb' is prescaled as
+    that kernel reads it."""
+    G, P, _ = x.shape
+    geo = None
+    if tensor_cores and x.dtype == torch.bfloat16:
+        status, geo = tc_status(cfg, variant, G, P)
+        geo = geo if status == 0 else None
+    if geo is None:
+        geo = {"kernel": "simt", **train_geometry(cfg, G, P, x.dtype, variant)}
+    wbp = _prescale(wb, cfg, variant).contiguous()
+    if geo["kernel"] == "tc":  # rows padded to 16 bytes, so every group's W_m stages with cp.async
+        wbp = F.pad(wbp, (0, -wbp.shape[1] % 8))
+    else:
+        wbp = _simt_weights(wbp)
+    partials = torch.empty(geo["partial_floats"], dtype=torch.float32, device=x.device)
+    scratch = torch.empty(max(geo["scratch_bytes"], 1), dtype=torch.uint8, device=x.device)
+    return geo["kernel"], wbp, partials, scratch
+
+
 def _launch_k2(tensor_cores: bool, wb: torch.Tensor, x: torch.Tensor, target: torch.Tensor,
                cfg: ShapeNetConfig, variant: str, weight: Optional[torch.Tensor]):
     """K2 after the wrapper's checks, counting the launch: on the
     tensor-core kernel where ``tensor_cores`` allows it and
-    :func:`k2_variant` would pick it (one geometry query at this shape
-    decides, and gives the launch its workspace sizes), else on the
-    CUDA-core kernel."""
+    :func:`k2_variant` would pick it, else on the CUDA-core kernel
+    (:func:`_train_launch_setup`)."""
     _check_cuda_inputs("shapenet_mse_grads_cuda", wb, x, cfg, variant)
     G, P, _ = x.shape
     if tuple(target.shape) != (G, P, cfg.output_dim) or target.device != x.device:
@@ -932,25 +986,13 @@ def _launch_k2(tensor_cores: bool, wb: torch.Tensor, x: torch.Tensor, target: to
     loss = torch.empty((), dtype=torch.float32, device=x.device)
     if G == 0 or P == 0:
         return loss.fill_(float("nan")), d_wb.zero_()
-    with torch.cuda.device(x.device):  # the geometry reads this device's SM count
-        geo = None
-        if tensor_cores and x.dtype == torch.bfloat16:
-            status, geo = _k2_tc_status(cfg, variant, G, P)
-            geo = geo if status == 0 else None
-        if geo is None:
-            geo = {"kernel": "simt", **train_geometry(cfg, G, P, x.dtype, variant)}
-        kernel = geo["kernel"]
-        wbp = _prescale(wb, cfg, variant).contiguous()
-        if kernel == "tc":  # rows padded to 16 bytes, so every group's W_m stages with cp.async
-            wbp = F.pad(wbp, (0, -wbp.shape[1] % 8))
-        else:
-            wbp = _simt_weights(wbp)
+    with torch.cuda.device(x.device):
+        kernel, wbp, partials, scratch = _train_launch_setup(tensor_cores, _k2_tc_status, wb, x,
+                                                             cfg, variant)
         x = x.contiguous()
         target = target.to(x.dtype).contiguous()
         weight = None if weight is None else weight.to(x.dtype).contiguous()
         lib = _bwd_tc_library() if kernel == "tc" else _bwd_library()
-        partials = torch.empty(geo["partial_floats"], dtype=torch.float32, device=x.device)
-        scratch = torch.empty(max(geo["scratch_bytes"], 1), dtype=torch.uint8, device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         args = (wbp.data_ptr(), x.data_ptr(), target.data_ptr(),
                 None if weight is None else weight.data_ptr(), loss.data_ptr(), d_wb.data_ptr(),
@@ -989,12 +1031,12 @@ def _shapenet_mse_grads_simt(wb: torch.Tensor, x: torch.Tensor, target: torch.Te
     return _launch_k2(False, wb, x, target, cfg, variant, weight)
 
 
-def shapenet_bwd_cuda(wb: torch.Tensor, x: torch.Tensor, g_out: torch.Tensor,
-                      cfg: ShapeNetConfig, variant: str = "siren"):
-    """Launch K3 on ``torch.cuda.current_stream()``: ``(d_wb, dx)`` as
-    :func:`shapenet_fused_bwd_reference` computes them, from ``g_out
-    [G, P, so]`` (cast to x's dtype). Raises on anything the kernel does not
-    take; never falls back."""
+def _launch_k3(tensor_cores: bool, wb: torch.Tensor, x: torch.Tensor, g_out: torch.Tensor,
+               cfg: ShapeNetConfig, variant: str):
+    """K3 after the wrapper's checks, counting the launch: on the
+    tensor-core kernel where ``tensor_cores`` allows it and
+    :func:`k3_variant` would pick it, else on the CUDA-core kernel
+    (:func:`_train_launch_setup`)."""
     _check_cuda_inputs("shapenet_bwd_cuda", wb, x, cfg, variant)
     G, P, _ = x.shape
     if tuple(g_out.shape) != (G, P, cfg.output_dim) or g_out.device != x.device:
@@ -1004,24 +1046,44 @@ def shapenet_bwd_cuda(wb: torch.Tensor, x: torch.Tensor, g_out: torch.Tensor,
     dx = torch.empty_like(x, memory_format=torch.contiguous_format)
     if G == 0 or P == 0:
         return d_wb.zero_(), dx
-    wbp = _simt_weights(_prescale(wb, cfg, variant))
-    x = x.contiguous()
-    g_out = g_out.to(x.dtype).contiguous()
-    lib = _bwd_library()
-    with torch.cuda.device(x.device):  # the geometry reads this device's SM count
-        geo = train_geometry(cfg, G, P, x.dtype, variant)
-        partials = torch.empty(geo["partial_floats"], dtype=torch.float32, device=x.device)
-        scratch = torch.empty(max(geo["scratch_bytes"], 1), dtype=torch.uint8, device=x.device)
+    with torch.cuda.device(x.device):
+        kernel, wbp, partials, scratch = _train_launch_setup(tensor_cores, _k3_tc_status, wb, x,
+                                                             cfg, variant)
+        x = x.contiguous()
+        g_out = g_out.to(x.dtype).contiguous()
+        lib = _bwd_tc_library() if kernel == "tc" else _bwd_library()
         stream = torch.cuda.current_stream(x.device).cuda_stream
+        args = (wbp.data_ptr(), x.data_ptr(), g_out.data_ptr(), d_wb.data_ptr(), dx.data_ptr(),
+                partials.data_ptr(), scratch.data_ptr())
+        # (G, P, si, so, n, n_mats, chain, act, po), wb_ld, n_scaled, omega[, dtype]
         shape = _shape_args(cfg, variant, x, wb.shape[1])
-        err = lib.nif_shapenet_bwd(
-            wbp.data_ptr(), x.data_ptr(), g_out.data_ptr(), d_wb.data_ptr(), dx.data_ptr(),
-            partials.data_ptr(), scratch.data_ptr(), *shape[:9], wbp.shape[1], *shape[9:],
-            stream,
-        )
+        if kernel == "tc":
+            err = lib.nif_shapenet_bwd_tc(*args, *shape[:9], wbp.shape[1], *shape[9:11], stream)
+        else:
+            err = lib.nif_shapenet_bwd(*args, *shape[:9], wbp.shape[1], *shape[9:], stream)
     _raise_on_error(lib, "shapenet_bwd", err)
     _build.LAUNCHES["shapenet_bwd"] += 1
+    if kernel == "tc":
+        _build.LAUNCHES["shapenet_bwd_tc"] += 1
     return d_wb, dx
+
+
+def shapenet_bwd_cuda(wb: torch.Tensor, x: torch.Tensor, g_out: torch.Tensor,
+                      cfg: ShapeNetConfig, variant: str = "siren"):
+    """Launch K3 on ``torch.cuda.current_stream()``: ``(d_wb, dx)`` as
+    :func:`shapenet_fused_bwd_reference` computes them, from ``g_out
+    [G, P, so]`` (cast to x's dtype), through the kernel :func:`k3_variant`
+    picks for the dtype and the chain. Raises on anything that kernel does
+    not take; never falls back."""
+    return _launch_k3(True, wb, x, g_out, cfg, variant)
+
+
+def _shapenet_bwd_simt(wb: torch.Tensor, x: torch.Tensor, g_out: torch.Tensor,
+                       cfg: ShapeNetConfig, variant: str = "siren"):
+    """K3 on the CUDA-core kernel whatever the dtype and chain.
+    ``chip_smoke.py`` times its bf16 instance beside the tensor-core kernel
+    on the same inputs."""
+    return _launch_k3(False, wb, x, g_out, cfg, variant)
 
 
 # K1's forward as a registered op, ``torch.ops.nif_tpu_torch.shapenet_fwd``,

@@ -3,13 +3,14 @@
 checkout's, on a CUDA card: the same flagship inputs through both libraries
 must give the same bits, and the two are timed in turns.
 
-    python3 scripts/port_parent_check.py --csrc DIR [--kernel k2 k2f32 k3f32 k6 k7 k8]
+    python3 scripts/port_parent_check.py --csrc DIR [--kernel k1 k2 k2f32 k3f32 k5 k6 k7 k8]
 
 ``DIR`` holds the other checkout's ``nif_tpu_torch/csrc`` (for example that
 of a parent commit, unpacked with ``git archive`` under ``build/``). Each
-kernel's source there (``shapenet_bwd_tc.cu`` for K2, ``shapenet_bwd.cu``
-for the float32 K2 and K3 on the CUDA cores, ``shapenet_jac_tc.cu`` for K6,
-``shapenet_hess_tc.cu`` for K7 and K8) is built with this checkout's nvcc
+kernel's source there (``shapenet_fwd_tc.cu`` for K1 and K5's reverse body,
+``shapenet_bwd_tc.cu`` for K2, ``shapenet_bwd.cu`` for the float32 K2 and
+K3 on the CUDA cores, ``shapenet_jac_tc.cu`` for K6, ``shapenet_hess_tc.cu``
+for K7 and K8) is built with this checkout's nvcc
 flags into ``build/nif_tpu_torch/other/``, all sources of both checkouts at
 once, and must define the kernel's C entries with this checkout's
 signatures (the other library takes this checkout's argument types, so an
@@ -45,6 +46,16 @@ from nif_tpu_torch.ops import fused_shapenet as fs  # noqa: E402
 from nif_tpu_torch.utils.bench import FLAGSHIP_SHAPE, cuda_ms  # noqa: E402
 
 G, P, SEED = 32, 32768, 203
+
+
+def _k1(cfg):
+    wb, x = chip_smoke.chain_data(torch, cfg, G, P, torch.bfloat16, seed=SEED)
+    return lambda: (fs.shapenet_fwd_cuda(wb, x, cfg, "siren"),)
+
+
+def _k5(cfg):
+    wb, x = chip_smoke.chain_data(torch, cfg, G, P, torch.bfloat16, seed=SEED)
+    return lambda: fd.shapenet_fwd_jac_cuda(wb, x, cfg, "siren")
 
 
 def _k2(cfg):
@@ -86,6 +97,10 @@ def _k8(cfg):
 # kernel: (library, its C entries, this checkout's loader (sets the argument
 # types), the wrapper call on the flagship inputs, the names of its outputs)
 KERNELS = {
+    "k1": ("shapenet_fwd_tc", ("nif_shapenet_fwd_tc_workspace", "nif_shapenet_fwd_tc"),
+           fs._fwd_tc_library, _k1, ("y",)),
+    "k5": ("shapenet_fwd_tc", ("nif_shapenet_fwd_jac_tc_workspace", "nif_shapenet_fwd_jac_tc"),
+           fs._fwd_tc_library, _k5, ("y", "jac")),
     "k2": ("shapenet_bwd_tc", ("nif_shapenet_mse_tc_workspace", "nif_shapenet_mse_grads_tc"),
            fs._bwd_tc_library, _k2, ("loss", "d_wb")),
     "k2f32": ("shapenet_bwd", ("nif_shapenet_bwd_workspace", "nif_shapenet_mse_grads"),

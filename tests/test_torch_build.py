@@ -127,13 +127,14 @@ def test_k2_tensor_core_sources():
     """The tensor-core K2 builds against the same headers as the tensor-core
     K7 and K8; the CUDA-core K2/K3 library includes them too (its bf16
     instances take stack_tc.cuh's bf16 sine), so an edit to one rebuilds
-    both, and each library defines the entries its wrapper loads."""
+    both, and each library defines the entries its wrapper loads (the
+    tensor-core library K2's and K3's)."""
     names = {p.name for p in _build._sources("shapenet_bwd_tc")}
     assert names == {"shapenet_bwd_tc.cu", "stack_tc.cuh", "mma_sm90.cuh",
                      "shapenet_common.cuh"}
     assert TC_HEADERS <= {p.name for p in _build._sources("shapenet_bwd")}
-    assert {"nif_shapenet_mse_tc_workspace", "nif_shapenet_mse_grads_tc"} <= _entries(
-        "shapenet_bwd_tc")
+    assert {"nif_shapenet_mse_tc_workspace", "nif_shapenet_mse_grads_tc",
+            "nif_shapenet_bwd_tc_workspace", "nif_shapenet_bwd_tc"} <= _entries("shapenet_bwd_tc")
     assert {"nif_shapenet_mse_grads", "nif_shapenet_bwd"} <= _entries("shapenet_bwd")
 
 

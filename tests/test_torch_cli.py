@@ -4,7 +4,9 @@ then its parsers against the JAX package's flag for flag, ``eval`` of JAX's
 own trained parameters (crossed through ``convert.py``) against JAX's
 ``eval`` (mse and rel_l2 rel 1e-5: the same float64 sums of float32
 predictions that differ in the last bits), and ``--data-parallel`` on two
-ranks from torchrun's environment against one process (rel 1e-5).
+ranks from torchrun's environment against one process (float32 rel 1e-5;
+mixed_bfloat16 within what a rank split's bf16 rounding moves, see
+``DP_LOSS_REL``).
 """
 import argparse
 import json
@@ -505,15 +507,28 @@ def test_cli_eval_matches_jax_eval_on_jax_parameters(request, capsys, layout):
         assert got[k] == pytest.approx(want[k], rel=1e-5), k
 
 
-def test_cli_data_parallel_on_two_ranks_from_torchrun_env(grouped_workdir):
+# The final loss of two ranks against one process, by policy. float32: the
+# same global batches give the same loss up to f32 sum order (rel 1e-5).
+# mixed_bfloat16: each rank rounds its partial sums to bf16 (the
+# ParameterNet's weight gradients over its own groups) before the f32
+# average, where one process rounds the whole batch's sum once. On this
+# fixture that reads 1.05e-3, the same with the one process on 1, 2, 4 or 8
+# threads; the bound leaves 5x for another CPU's sum order. Ranks that draw
+# different batches after the first epoch move it 0.16-0.25.
+DP_LOSS_REL = {"float32": 1e-5, "mixed_bfloat16": 5e-3}
+
+
+@pytest.mark.parametrize("policy", sorted(DP_LOSS_REL))
+def test_cli_data_parallel_on_two_ranks_from_torchrun_env(grouped_workdir, policy):
     """``train --data-parallel`` on two processes with torchrun's variables
     (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT): the same
-    global batches as one process, so the same final loss (rel 1e-5); rank
-    0 alone prints and writes the checkpoint; ``python -m nif_tpu_torch``
-    runs the CLI."""
+    global batches as one process, so the same final loss (``DP_LOSS_REL``
+    of the policy); rank 0 alone prints and writes the checkpoint; ``python
+    -m nif_tpu_torch`` runs the CLI."""
     from nif_tpu_torch.parallel.launch import free_port, rank_env
 
     wd = grouped_workdir
+    (wd / "config.json").write_text(json.dumps(dict(GROUPED_CFG, mixed_policy=policy)))
     args = ["train", "--config", str(wd / "config.json"), "--data", str(wd / "snaps"),
             "--model", "multiscale", "--epochs", "3", "--lr", "5e-3",
             "--group-batch", "4", "--point-batch", "32", "--data-parallel"] + CPU
@@ -535,6 +550,7 @@ def test_cli_data_parallel_on_two_ranks_from_torchrun_env(grouped_workdir):
                 p.kill()
     assert [p.returncode for p in procs] == [0, 0], outs
     final = [ln for ln in outs[0].splitlines() if ln.startswith("final loss: ")]
-    assert len(final) == 1 and float(final[0].split()[-1]) == pytest.approx(one, rel=1e-5)
+    assert len(final) == 1
+    assert float(final[0].split()[-1]) == pytest.approx(one, rel=DP_LOSS_REL[policy])
     assert "final loss" not in outs[1]
     assert os.path.exists(wd / "ckpt_two" / "config.json")

@@ -30,7 +30,8 @@ f32 K7 and K8 the CUDA-core ones (``shapenet_hess.cu``); bf16 K6 on sine
 chains the tensor-core kernel (``shapenet_jac_tc.cu``), f32 K6 and vanilla
 chains the CUDA-core one (``shapenet_jac.cu``); bf16 K2 on sine chains the
 tensor-core kernel (``shapenet_bwd_tc.cu``), f32 K2 and vanilla chains the
-CUDA-core one (``shapenet_bwd.cu``); bf16 K1 and K5's reverse body on sine
+CUDA-core one (``shapenet_bwd.cu``), and K3 likewise (one body template
+with K2 in each source); bf16 K1 and K5's reverse body on sine
 chains the tensor-core kernels (``shapenet_fwd_tc.cu``), K5's tangent body
 (so >= si) the tensor-core one beside K6 (``shapenet_jac_tc.cu``), f32 and
 vanilla chains the CUDA-core ones (``shapenet_fwd.cu``; ``shapenet_jac.cu``,
@@ -38,7 +39,7 @@ whose tangent body is K6's forward half, and the first port's stacked body
 at si > 4); each checked by its launch counter and, for K5's tangent body,
 the body its geometry names; the tensor-core
 K6's terms within rel 1e-4 of the plain version's, the tensor-core K1, K2,
-K5 and K7 within the bf16 bounds above. A bf16 chain a tensor-core kernel
+K3, K5 and K7 within the bf16 bounds above. A bf16 chain a tensor-core kernel
 refuses for shared memory runs on the CUDA-core one."""
 import numpy as np
 import pytest
@@ -168,11 +169,13 @@ def test_model_on_the_card_routes_through_k1(card):
     assert out.dtype == torch.float32 and err <= 1e-2 * scale
     # with gradients needed, auto routing runs K1 forward and K3 backward;
     # fused=False is the eager autograd path and launches neither
-    bwd = _build.LAUNCHES["shapenet_bwd"]
+    bwd = dict(_build.LAUNCHES)
     out = model.apply_grouped(t, x)
     assert out.requires_grad and _build.LAUNCHES["shapenet_fwd"] == before + 2
     out.sum().backward()
-    assert _build.LAUNCHES["shapenet_bwd"] == bwd + 1
+    # the bf16 K3 on the tensor cores
+    assert _build.LAUNCHES["shapenet_bwd"] == bwd["shapenet_bwd"] + 1
+    assert _build.LAUNCHES["shapenet_bwd_tc"] == bwd["shapenet_bwd_tc"] + 1
     out = model.apply_grouped(t, x, fused=False)
     assert out.requires_grad and _build.LAUNCHES["shapenet_fwd"] == before + 2
 
@@ -216,7 +219,12 @@ def test_k3_matches_plain(card, variant, args, dtype):
     cfg = ShapeNetConfig(*args)
     wb, x = _data(cfg, 3, 256, dtype, seed=10)
     g = _side(cfg, 3, 256, dtype, seed=10)[2]
+    before = dict(_build.LAUNCHES)
     d_wb, dx = fs.shapenet_bwd_cuda(wb, x, g, cfg, variant)
+    # bf16 sine chains on the tensor-core K3; f32 and vanilla chains on the CUDA-core one
+    tc = int(dtype == torch.bfloat16 and variant == "siren")
+    assert _build.LAUNCHES["shapenet_bwd"] == before["shapenet_bwd"] + 1
+    assert _build.LAUNCHES["shapenet_bwd_tc"] == before["shapenet_bwd_tc"] + tc
     r_wb, r_dx = fs.shapenet_fused_bwd_reference(wb, x, g, cfg, variant)
     bound = _bounds(dtype)[2]
     assert d_wb.dtype == dtype and dx.dtype == dtype and dx.shape == x.shape
@@ -227,7 +235,9 @@ def test_k3_matches_plain(card, variant, args, dtype):
 
 def test_k2_k3_ragged_tiles_and_determinism(card):
     """P = 264 leaves 8 rows in the last tile; K2 twice on one input gives
-    the same bits (fixed P splits, no float atomics)."""
+    the same bits (fixed P splits, no float atomics), and so does the
+    tensor-core K3 (bf16), both within the bf16 bounds of their plain
+    versions; the float32 K3 within 5e-5 of its plain version."""
     cfg = ShapeNetConfig(3, 1, 128, 2, "sine", False, 30.0)
     wb, x = _data(cfg, 5, 264, torch.bfloat16, seed=11)
     tgt, w, g = _side(cfg, 5, 264, torch.bfloat16, seed=11)
@@ -236,6 +246,13 @@ def test_k2_k3_ragged_tiles_and_determinism(card):
     l_ref, g_ref = fs.shapenet_mse_grads_reference(wb, x, tgt, cfg, "siren", w)
     err, scale = _max_diff(runs[0][1], g_ref)
     assert float(runs[0][0]) == pytest.approx(float(l_ref), rel=1e-3) and err <= 2.0 ** -6 * scale
+    before = _build.LAUNCHES["shapenet_bwd_tc"]
+    bwd = [fs.shapenet_bwd_cuda(wb, x, g, cfg, "siren") for _ in range(2)]
+    assert _build.LAUNCHES["shapenet_bwd_tc"] == before + 2
+    assert torch.equal(bwd[0][0], bwd[1][0]) and torch.equal(bwd[0][1], bwd[1][1])
+    for mine, ref in zip(bwd[0], fs.shapenet_fused_bwd_reference(wb, x, g, cfg, "siren")):
+        err, scale = _max_diff(mine, ref)
+        assert err <= 2.0 ** -6 * scale, (err, scale)
     d_wb, dx = fs.shapenet_bwd_cuda(wb.float(), x.float(), g.float(), cfg, "siren")
     r_wb, r_dx = fs.shapenet_fused_bwd_reference(wb.float(), x.float(), g.float(), cfg, "siren")
     for mine, ref in ((d_wb, r_wb), (dx, r_dx)):
@@ -1391,6 +1408,59 @@ def test_k2_flagship_is_deterministic(card):
     assert err <= 2.0 ** -6 * scale, (err, scale)
 
 
+# The tensor-core K3 (K2's body with g_out in place of the loss, and dx) on
+# K2's shapes, and so = 2 and 3 at si = 4 and 2 (a resblock chain).
+K3_TC_SHAPES = K2_TC_SHAPES + [(4, 3, 64, 2, "sine", False, 30.0),
+                               (2, 2, 96, 2, "sine", True, 10.0)]
+
+
+@pytest.mark.parametrize("args", K3_TC_SHAPES, ids=["n24", "n40-res", "si1", "si4", "n128-res",
+                                                    "n256-res", "n384", "si4-so3",
+                                                    "si2-so2-res"])
+def test_k3_tc_padded_and_ragged_shapes(card, args):
+    """The tensor-core K3 at P = 200 (a ragged last tile of its 128-point
+    tiles) against plain K3: d_wb and dx within 2^-6 of max|plain|; one
+    tensor-core launch a call, and two runs give the same bits."""
+    cfg = ShapeNetConfig(*args)
+    wb, x = _data(cfg, 3, 200, torch.bfloat16, seed=38)
+    g = _side(cfg, 3, 200, torch.bfloat16, seed=38)[2]
+    assert fs.k3_variant(torch.bfloat16, cfg, "siren") == "tc"
+    before = dict(_build.LAUNCHES)
+    runs = [fs.shapenet_bwd_cuda(wb, x, g, cfg, "siren") for _ in range(2)]
+    assert _build.LAUNCHES["shapenet_bwd_tc"] == before["shapenet_bwd_tc"] + 2
+    assert _build.LAUNCHES["shapenet_bwd"] == before["shapenet_bwd"] + 2
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+    d_wb, dx = runs[0]
+    assert d_wb.dtype == dx.dtype == torch.bfloat16 and dx.shape == x.shape
+    for mine, ref in zip(runs[0], fs.shapenet_fused_bwd_reference(wb, x, g, cfg, "siren")):
+        err, scale = _max_diff(mine, ref)
+        assert err <= 2.0 ** -6 * scale, (err, scale)
+
+
+def test_k3_tensor_cores_against_the_cuda_core_kernel(card):
+    """The tensor-core K3 and the CUDA-core K3 (the private launcher
+    ``chip_smoke.py`` times beside it) on the same bf16 inputs of the
+    flagship chain at G=8, P=32768 + 40: each launches its own kernel, both
+    are within 2^-6 of max|plain|, and within 2^-6 of max|CUDA-core| of each
+    other; two tensor-core runs give the same bits."""
+    cfg = ShapeNetConfig(3, 1, 128, 2, "sine", False, 30.0)
+    wb, x = _data(cfg, 8, 32768 + 40, torch.bfloat16, seed=39)
+    g = _side(cfg, 8, 32768 + 40, torch.bfloat16, seed=39)[2]
+    geo = fs._k3_tc_status(cfg, "siren", 8, 32768 + 40)[1]
+    assert (geo["tile"], geo["residuals"], geo["weights"]) == (128, "shared", "shared")
+    before = dict(_build.LAUNCHES)
+    tc = [fs.shapenet_bwd_cuda(wb, x, g, cfg, "siren") for _ in range(2)]
+    simt = fs._shapenet_bwd_simt(wb, x, g, cfg, "siren")
+    assert _build.LAUNCHES["shapenet_bwd"] == before["shapenet_bwd"] + 3
+    assert _build.LAUNCHES["shapenet_bwd_tc"] == before["shapenet_bwd_tc"] + 2
+    assert torch.equal(tc[0][0], tc[1][0]) and torch.equal(tc[0][1], tc[1][1])
+    ref = fs.shapenet_fused_bwd_reference(wb, x, g, cfg, "siren")
+    for mine, other, plain in zip(tc[0], simt, ref):
+        for a, b in ((mine, plain), (other, plain), (mine, other)):
+            err, scale = _max_diff(a, b)
+            assert err <= 2.0 ** -6 * scale, (err, scale)
+
+
 def test_bf16_chains_the_tensor_core_k2_and_k7_refuse_run_on_the_cuda_core_kernels(card):
     """Width 384 at si = 3 with two hidden layers: the tensor-core K7's two
     working planes of ten streams exceed shared memory, so bf16 K7 takes the
@@ -1416,8 +1486,18 @@ def test_bf16_chains_the_tensor_core_k2_and_k7_refuse_run_on_the_cuda_core_kerne
     for variant, args, kernel in cases:
         cfg = ShapeNetConfig(*args)
         assert fs.k2_variant(torch.bfloat16, cfg, variant) == kernel
+        # the tensor-core K3 (K2's body) takes and refuses the same chains
+        assert fs.k3_variant(torch.bfloat16, cfg, variant) == kernel
         wb, x = _data(cfg, 2, 96, torch.bfloat16, seed=37)
-        tgt, w, _ = _side(cfg, 2, 96, torch.bfloat16, seed=37)
+        tgt, w, g = _side(cfg, 2, 96, torch.bfloat16, seed=37)
+        before = dict(_build.LAUNCHES)
+        for mine, ref in zip(fs.shapenet_bwd_cuda(wb, x, g, cfg, variant),
+                             fs.shapenet_fused_bwd_reference(wb, x, g, cfg, variant)):
+            err, scale = _max_diff(mine, ref)
+            assert err <= 2.0 ** -6 * scale, (err, scale)
+        assert _build.LAUNCHES["shapenet_bwd"] == before["shapenet_bwd"] + 1
+        assert (_build.LAUNCHES["shapenet_bwd_tc"]
+                == before["shapenet_bwd_tc"] + int(kernel == "tc"))
         before = dict(_build.LAUNCHES)
         loss, d_wb = fs.shapenet_mse_grads(wb, x, tgt, cfg, variant, w)
         assert _build.LAUNCHES["shapenet_mse_grads"] == before["shapenet_mse_grads"] + 1

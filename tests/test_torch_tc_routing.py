@@ -1,7 +1,7 @@
 """The routing of the port's kernel wrappers between their variants, and
 their ctypes bindings, on the CPU (no nvcc needed).
 
-K1, K2, K5 and K7, like K4, K6 and K8, have a tensor-core variant for
+K1, K2, K3, K5 and K7, like K4, K6 and K8, have a tensor-core variant for
 bfloat16 and a CUDA-core one for float32: without a chain the choice reads
 the dtype alone, a float32 input never asks a library, and a bfloat16 one
 with a chain asks only the library of the tensor-core body its mode takes
@@ -10,6 +10,7 @@ plain versions and launch nothing, and the CUDA wrappers refuse CPU tensors
 before they load a library. Each wrapper's ``argtypes`` must match the C
 signature of the entry in its source (a ctypes mismatch passes a pointer as
 a 32-bit int and would show only on the card)."""
+import contextlib
 import ctypes
 import re
 
@@ -40,8 +41,8 @@ def _data(cfg, G, P, dtype, seed):
     return to(wb), to(x), to(tgt, torch.float32), to(w, torch.float32)
 
 
-@pytest.mark.parametrize("pick", [fs.k1_variant, fs.k2_variant, fd.k5_variant, fh.k7_variant],
-                         ids=["k1", "k2", "k5", "k7"])
+@pytest.mark.parametrize("pick", [fs.k1_variant, fs.k2_variant, fs.k3_variant, fd.k5_variant,
+                                  fh.k7_variant], ids=["k1", "k2", "k3", "k5", "k7"])
 @pytest.mark.parametrize("dtype,variant", [(torch.bfloat16, "tc"), (torch.float32, "simt"),
                                            (torch.float64, "simt")], ids=["bf16", "f32", "f64"])
 def test_variant_by_dtype_asks_no_library(pick, dtype, variant, monkeypatch):
@@ -79,11 +80,11 @@ def test_k5_tangent_body_runs_on_the_cuda_core_kernel_without_a_library(args, mo
 
 
 class _StatusLibrary:
-    """A library whose workspace entries return a fixed status and record
-    their calls."""
+    """A library whose entries return a fixed status and record their calls
+    (the last arguments of each in ``args``)."""
 
     def __init__(self, status):
-        self.status, self.calls = status, []
+        self.status, self.calls, self.args = status, [], {}
 
     def __getattr__(self, name):
         if not name.startswith("nif_"):
@@ -102,6 +103,7 @@ class _StatusEntry:
 
     def __call__(self, *args):
         self.lib.calls.append(self.name)
+        self.lib.args[self.name] = args
         return self.lib.status
 
 
@@ -159,7 +161,9 @@ def test_cpu_entries_run_the_plain_versions(args, dtype):
     lambda wb, x, tgt, cfg: fs._shapenet_mse_grads_simt(wb, x, tgt, cfg, "siren"),
     lambda wb, x, tgt, cfg: fh.shapenet_fwd_hess_cuda(wb, x, cfg, "siren"),
     lambda wb, x, tgt, cfg: fh._shapenet_fwd_hess_simt(wb, x, cfg, "siren"),
-], ids=["k1", "k1-simt", "k5", "k5-simt", "k2", "k2-simt", "k7", "k7-simt"])
+    lambda wb, x, tgt, cfg: fs.shapenet_bwd_cuda(wb, x, tgt.to(x.dtype), cfg, "siren"),
+    lambda wb, x, tgt, cfg: fs._shapenet_bwd_simt(wb, x, tgt.to(x.dtype), cfg, "siren"),
+], ids=["k1", "k1-simt", "k5", "k5-simt", "k2", "k2-simt", "k7", "k7-simt", "k3", "k3-simt"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_cuda_wrappers_refuse_cpu_tensors_before_any_library(launch, dtype, monkeypatch):
     def no_library(name):
@@ -366,3 +370,110 @@ def test_hessian_weights_stage_with_16_byte_copies(dtype):
     for padded in (tc, simt):
         assert torch.equal(padded[:, :wb.shape[1]].float(), wb.float())
         assert not padded[:, wb.shape[1]:].any()
+
+
+class _GateLibrary(_StatusLibrary):
+    """The tensor-core K2/K3 library's workspace gate on the CPU: status 3
+    for what its C entries refuse outright (a chain other than sine or
+    resblock SIREN, si outside 1-4), else 0."""
+
+    def __init__(self):
+        super().__init__(0)
+
+    def __getattr__(self, name):
+        entry = super().__getattr__(name)
+        lib = self
+
+        def gate(n, si, so, n_mats, chain, *rest):
+            lib.calls.append(name)
+            sine = chain in (fs._CHAIN_CODES["siren"], fs._CHAIN_CODES["siren_resblock"])
+            return 0 if sine and 1 <= si <= 4 else 3
+
+        setattr(self, name, gate)
+        gate.argtypes, gate.restype = entry.argtypes, entry.restype
+        return gate
+
+
+@pytest.mark.parametrize("args,variant,kernel", [
+    (SIREN, "siren", "tc"),
+    (RESBLOCK, "siren", "tc"),
+    ((5, 1, 16, 2, "sine", False, 30.0), "siren", "simt"),
+    ((2, 1, 16, 2, "tanh"), "vanilla", "simt"),
+], ids=["siren", "resblock", "si5", "vanilla"])
+def test_k3_variant_follows_the_tensor_core_geometry(args, variant, kernel, monkeypatch):
+    """Given a bfloat16 chain, ``k3_variant`` asks the tensor-core K3's
+    workspace entry (beside the tensor-core K2's, ``shapenet_bwd_tc``) and
+    nothing else: a sine or resblock SIREN chain with si <= 4 takes the
+    tensor cores, a vanilla chain or si = 5 the CUDA-core body."""
+    libs = {"shapenet_bwd_tc": _GateLibrary()}
+
+    def load(name):
+        if name not in libs:
+            raise AssertionError(f"asked the {name} library")
+        return libs[name]
+
+    monkeypatch.setattr(_build, "load_library", load)
+    assert fs.k3_variant(torch.bfloat16, ShapeNetConfig(*args), variant) == kernel
+    assert libs["shapenet_bwd_tc"].calls == ["nif_shapenet_bwd_tc_workspace"]
+
+
+# (the launch, its tensor-core and CUDA-core C entries, pointers before the shape)
+TRAIN_LAUNCHES = {
+    "k2": (lambda wb, x, third, cfg: fs.shapenet_mse_grads_cuda(wb, x, third, cfg, "siren"),
+           "nif_shapenet_mse_grads_tc", "nif_shapenet_mse_grads", 8),
+    "k3": (lambda wb, x, third, cfg: fs.shapenet_bwd_cuda(wb, x, third, cfg, "siren"),
+           "nif_shapenet_bwd_tc", "nif_shapenet_bwd", 7),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kernel", sorted(TRAIN_LAUNCHES))
+def test_k2_k3_cuda_launch_asks_only_its_kernels_library(kernel, dtype, monkeypatch):
+    """A K2 or K3 launch (``shapenet_mse_grads_cuda``, ``shapenet_bwd_cuda``;
+    the device checks stubbed so CPU tensors stand in for the card's):
+    bfloat16 asks only ``shapenet_bwd_tc``, its geometry and then its
+    tensor-core entry with wb' in bf16 rows padded to 8 values (16 bytes);
+    float32 asks only ``shapenet_bwd``, its geometry and then its CUDA-core
+    entry with wb' widened to f32 rows padded to 4. Each call matches its
+    entry's argument types, and the launch counters count the kernel that
+    ran."""
+    launch, tc_entry, simt_entry, n_ptrs = TRAIN_LAUNCHES[kernel]
+    libs = {"shapenet_bwd_tc": _StatusLibrary(0), "shapenet_bwd": _StatusLibrary(0)}
+
+    def load(name):
+        if name not in libs:
+            raise AssertionError(f"asked the {name} library")
+        return libs[name]
+
+    class _Stream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(_build, "load_library", load)
+    monkeypatch.setattr(fs, "_check_cuda_inputs", lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: _Stream())
+    cfg = ShapeNetConfig(*SIREN)
+    wb, x, tgt, _ = _data(cfg, 2, 16, dtype, seed=4)
+    po = wb.shape[1]
+    assert po % 8 != 0  # the padding is exercised
+    counter = {"k2": "shapenet_mse_grads", "k3": "shapenet_bwd"}[kernel]
+    before = dict(_build.LAUNCHES)
+    outs = launch(wb, x, tgt.to(dtype), cfg)
+    assert outs[-1].dtype == dtype
+    tc = dtype == torch.bfloat16
+    name, other = ("shapenet_bwd_tc", "shapenet_bwd") if tc else ("shapenet_bwd", "shapenet_bwd_tc")
+    entry = tc_entry if tc else simt_entry
+    workspace = "nif_shapenet_mse_tc_workspace" if tc and kernel == "k2" else (
+        "nif_shapenet_bwd_tc_workspace" if tc else "nif_shapenet_bwd_workspace")
+    lib = libs[name]
+    assert lib.calls == [workspace, entry] and not libs[other].calls
+    call = lib.args[entry]
+    assert len(call) == len(getattr(lib, entry).argtypes)
+    assert call[n_ptrs:n_ptrs + 9] == (
+        2, 16, cfg.input_dim, cfg.output_dim, cfg.units, 2, fs._CHAIN_CODES["siren"],
+        fs._train_act_code(cfg, "siren", dtype), po)
+    assert call[n_ptrs + 9] == po + (-po % (8 if tc else 4))  # wb's row stride
+    if not tc:
+        assert call[-2] == fs._DTYPE_CODES[torch.float32]
+    assert _build.LAUNCHES[counter] == before[counter] + 1
+    assert _build.LAUNCHES[counter + "_tc"] == before[counter + "_tc"] + int(tc)

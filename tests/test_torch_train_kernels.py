@@ -202,7 +202,8 @@ def test_cpu_tensors_never_reach_the_cuda_wrappers(monkeypatch):
     assert _build.LAUNCHES == before
 
 
-@pytest.mark.parametrize("name", ["shapenet_mse_grads_cuda", "shapenet_bwd_cuda"])
+@pytest.mark.parametrize("name", ["shapenet_mse_grads_cuda", "shapenet_bwd_cuda",
+                                  "_shapenet_mse_grads_simt", "_shapenet_bwd_simt"])
 def test_train_wrappers_refuse_cpu_tensors(name):
     cfg = tcfg.ShapeNetConfig(2, 1, 16, 1, "sine")
     wb = torch.zeros(2, tcfg.shapenet_param_count(cfg, 0))
