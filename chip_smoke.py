@@ -317,6 +317,19 @@ Phases of the compression and export slice (after 4g):
    ``fit_resident`` bit for bit the unmeshed, the resident step a CUDA
    graph holding the gradient ``all_reduce`` (one NCCL kernel a step in
    the trace); with two cards, 3n's data-parallel check over NCCL.
+3p. The tutorials on the card (``nif_tpu_torch/examples``): tutorial 13 at
+   ``--paper`` (G=64 x P=262144, width 128, latent 128, mixed_bfloat16) for
+   3 epochs, under ``torch.profiler``: one tensor-core K2 a resident step,
+   the loss falling, the held-out ``apply_grouped`` one tensor-core K1, the
+   finer decode ``[8, 524288, 1]``, its points/s line beside the card;
+   ``entry()`` through ``torch.export`` and ``torch.compile`` (K1 as its
+   registered op); then at ``tests/test_examples.py``'s budgets and
+   thresholds tutorial 8's grouped, trainer and Hessian runs (the CUDA-core
+   K6 and K8, one a step), tutorial 5's grouped stream (the CUDA-core K2),
+   tutorial 1 (L-BFGS on the card) and tutorial 10 (the export artifact).
+   3n also holds ``GroupedLBFGS`` on the row-parallel head against one
+   unsplit process (3 iterations, losses within 1e-3, one K2 an evaluation
+   on each rank).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the
 ``{"kernels": [...]}`` record, and before that the card's name and power
@@ -2463,6 +2476,8 @@ CLI_G, CLI_P, CLI_EPOCHS = 64, 32768, 3
 # Phases 3n and 3o: the flagship step's global batch, and the resident
 # dataset of 3o (32 groups of 65536 points, drawn at 16 x 32768).
 MESH_G, MESH_P, MESH_STEPS = 32, 32768, 5
+# 3n's split-head GroupedLBFGS: iterations at the flagship step's shape
+MESH_LBFGS_ITERS = 3
 NCCL_RESIDENT = (32, 65536, 16, 32768)
 
 
@@ -2681,6 +2696,26 @@ def ranks_3n(seed: int) -> dict:
                                   isinstance(opt, ZeroOneOptimizer)]
     out["zero1_losses"] = [zero["replicated"][0], zero["zero1"][0]]
     out["zero1_vs_replicated"] = _param_gap(zero["zero1"][1], zero["replicated"][1])
+
+    # GroupedLBFGS on the row-parallel head (the whole head in the flat
+    # vector, gathered by all_reduce) against one unsplit process, from the
+    # same init; each rank's K2 launches counted against its evaluations
+    from nif_tpu_torch.optimizers import GroupedLBFGS
+
+    out["lbfgs"] = {}
+    for name, mesh in (("tp", tp_mesh), ("one", None)):
+        tr, _ = _mesh_trainer(torch, mesh, seed, shard_model_axis=mesh is not None)
+        opt = GroupedLBFGS(tr.model, t, x, u, mesh=mesh)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        opt.minimize(max_iter=MESH_LBFGS_ITERS)
+        torch.cuda.synchronize()
+        out["lbfgs"][name] = {
+            "loss": [float(v) for v in opt.history["loss"]], "counts": dict(opt.counts),
+            "k2": _build.LAUNCHES["shapenet_mse_grads_tc"],
+            "ms_iter": (time.perf_counter() - t0) * 1e3 / max(opt.counts["iterations"], 1),
+            "head_rows": int(tr.model.pnet.params["last"]["w"].shape[0])}
+        del tr, opt
     return out
 
 
@@ -2720,6 +2755,24 @@ def phase_two_ranks(torch, log, smi):
         f"{r0['zero1_owned']}): losses {r0['zero1_losses'][1]} vs replicated "
         f"{r0['zero1_losses'][0]}, parameters {r0['zero1_vs_replicated']:.3e}; global "
         f"evaluation {ev[0]} vs unmeshed {ev[1]} (rel {eval_rel:.3e})")
+    lb0, lb1 = r0["lbfgs"], r1["lbfgs"]
+    lb_rel = rel(lb0["tp"]["loss"], lb0["one"]["loss"])
+    log(f"3n GroupedLBFGS on the row-parallel head ({lb0['tp']['head_rows']} of 128 latent rows "
+        f"a rank), {MESH_LBFGS_ITERS} iterations at G={MESH_G} x P={MESH_P}: losses "
+        f"{lb0['tp']['loss']} (rank 1 {lb1['tp']['loss']}) vs one unsplit process "
+        f"{lb0['one']['loss']}, rel {lb_rel:.3e} (bound {BF16_LOSS_REL}); counts {lb0['tp']['counts']} "
+        f"vs {lb0['one']['counts']}; tensor-core K2 launches a rank {lb0['tp']['k2']}, "
+        f"{lb1['tp']['k2']} (one process {lb0['one']['k2']}); host ms an iteration "
+        f"{lb0['tp']['ms_iter']:.4f} split over gloo, {lb0['one']['ms_iter']:.4f} unsplit (both "
+        f"ranks running at once; card {smi})")
+    for lb in (lb0, lb1):
+        if (lb["tp"]["k2"] != lb["tp"]["counts"]["evaluations"]
+                or lb["one"]["k2"] != lb["one"]["counts"]["evaluations"]
+                or lb["tp"]["counts"]["iterations"] != MESH_LBFGS_ITERS
+                or lb["tp"]["head_rows"] != 64 or not np.all(np.isfinite(lb["tp"]["loss"]))):
+            raise AssertionError(f"split-head GroupedLBFGS: {lb}")
+    if lb0["tp"] != {**lb1["tp"], "ms_iter": lb0["tp"]["ms_iter"]} or lb_rel > BF16_LOSS_REL:
+        raise AssertionError(f"split-head GroupedLBFGS departs: {lb0} / {lb1}")
     log(f"3n host-clock step at G={MESH_G} x P={MESH_P}: data parallel over gloo "
         f"{r0['dp_ms']:.4f} ms (rank 1 {r1['dp_ms']:.4f}), row-parallel head "
         f"{r0['tp_ms']:.4f}, one process alone on the card {alone_ms:.4f} (and "
@@ -2822,6 +2875,220 @@ def phase_nccl(torch, log, smi):
     else:
         log("3o one card: the two-rank NCCL check needs two")
     return r["mesh_ms"], r["none_ms"]
+
+
+# Phase 3p: tutorial 13 at its --paper configuration (G=64 x P=262144, width
+# 128, latent 128, mixed_bfloat16, [8, 32768] batches) with the epochs cut to
+# 3: 56 training groups in batches of 8, 21 resident steps (the first eager,
+# then replays).
+PAPER_EPOCHS = 3
+# Tutorial 1's start point: the JAX package's init at jax.random.key(0) as
+# numpy (tests/test_torch_examples_lbfgs.py holds the file equal to it), the
+# start tests/test_examples.py's budget and threshold were set on.
+TUTORIAL1_INIT = "tests/data/tutorial1_jax_init_key0.npz"
+
+
+def _example(name):
+    import importlib
+
+    return importlib.import_module(f"nif_tpu_torch.examples.{name}")
+
+
+def _quiet(fn):
+    """``fn()`` with its standard output kept: ``(result, printed lines)``."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    return out, buf.getvalue().splitlines()
+
+
+def _profiled(torch, fn):
+    """``fn()`` alone under ``torch.profiler``, the launch counts reset just
+    before it and read just after: ``(result, device kernels, launches)``."""
+    from nif_tpu_torch.ops import _build
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        _build.reset_launches()
+        out = fn()
+        launches = dict(_build.LAUNCHES)
+        torch.cuda.synchronize()
+    return out, device_kernels(prof), launches
+
+
+def _carry_tutorial1_init(mod):
+    """Tutorial 1's trainer, starting from :data:`TUTORIAL1_INIT`."""
+    import os
+
+    import torch
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), TUTORIAL1_INIT)
+    with np.load(path) as z:
+        init = {k.replace("/", "."): torch.from_numpy(z[k]) for k in z.files}
+
+    class Carried(mod.Trainer):
+        def init(self, seed=0):
+            state = super().init(seed)
+            self.model.param_tree().load_state_dict(init)
+            return state
+
+    return Carried
+
+
+def phase_examples(torch, log, smi):
+    """Phase 3p: the tutorials on the card (``nif_tpu_torch/examples``).
+    Tutorial 13 at ``--paper`` with the epochs cut to :data:`PAPER_EPOCHS`,
+    run whole under ``torch.profiler``: one tensor-core K2 a resident step
+    (the wrapper once in the eager step and once a capture), the last epoch's
+    loss below the first, the held-out ``apply_grouped`` one tensor-core K1,
+    a finite rel-L2, the finer decode ``[8, 524288, 1]``. ``entry()``'s
+    function through ``torch.export`` and ``torch.compile``, each call one
+    launch of the tensor-core K1 through the registered op. Then at the
+    budgets and thresholds of ``tests/test_examples.py``: tutorial 8's
+    ``main_grouped`` (one CUDA-core K6 a step), ``main_trainer`` (one a
+    resident step) and ``main_hessian`` (one CUDA-core K8 a resident step,
+    K7 in its evaluation), tutorial 5's ``grouped_streaming_demo`` (one
+    CUDA-core K2 a step), tutorial 1 (L-BFGS on the card, from the JAX
+    package's init) and tutorial 10 (the export artifact loaded on the card).
+    Returns the phase's seconds."""
+    from nif_tpu_torch.ops import _build
+
+    phase0 = time.perf_counter()
+    m13 = _example("13_paper_scale_3d")
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        (r, printed), kernels, launches = _profiled(torch, lambda: _quiet(
+            lambda: m13.run(paper=True, epochs=PAPER_EPOCHS, workdir=work)))
+        wall13 = time.perf_counter() - t0
+    hist = r["trainer"].history
+    steps = int(r["state"].step)
+    counts = pass_counts(kernels)
+    captures = len(hist["resident_capture_ms"])
+    G, P = r["data"][1].shape[:2]
+    u_fine = tuple(r["u_fine"].shape)
+    for line in printed:
+        log(f"3p tutorial 13 --paper --epochs {PAPER_EPOCHS}: {line} (card {smi})")
+    log(f"3p tutorial 13: G={G} x P={P} ({r['n_train']} training groups), {steps} resident "
+        f"steps ({hist['resident_graph']}: {hist['resident_graph_reason']}), epoch losses "
+        f"{hist['loss']}; replayed step {hist['resident_step_ms']} ms (CUDA events) = "
+        f"{[8 * 32768 / (ms * 1e-3) for ms in hist['resident_step_ms']]} points/s, captures "
+        f"{captures} ({hist['resident_capture_ms']} ms); trace {counts}, wrapper launches "
+        f"{({k: v for k, v in launches.items() if v})}; held-out rel-L2 {r['err']:.4f}; finer "
+        f"decode {u_fine}; the whole run {wall13:.1f} s under torch.profiler, training "
+        f"{r['train_s']:.3f} s ({r['points'] / r['train_s']:.6e} points/s, capture and the "
+        f"eager first step included; card {smi})")
+    want = {p: (0, 0) for p in PASS_KERNELS}
+    want.update(K1=(1, 0), K2=(steps, 0))
+    if (steps != PAPER_EPOCHS * (r["n_train"] // 8) or counts != want
+            or launches["shapenet_mse_grads_tc"] != 1 + captures
+            or launches["shapenet_fwd_tc"] != 1 or not hist["loss"][-1] < hist["loss"][0]
+            or not np.isfinite(r["err"]) or u_fine != (G - r["n_train"], 2 * P, 1)
+            or (G, P) != (64, 262144)):
+        raise AssertionError(f"tutorial 13 --paper: {steps} steps, trace {counts}, launches "
+                             f"{launches}, losses {hist['loss']}, rel-L2 {r['err']}, "
+                             f"decode {u_fine}")
+    del r
+
+    # entry(): export and compile, K1 through its registered op
+    from nif_tpu_torch.entry import entry
+
+    fn, args = entry("cuda")
+    t0 = time.perf_counter()
+    program = torch.export.export(fn, args)
+    ops = [str(n.target) for n in program.graph.nodes if n.op == "call_function"]
+    compiled = torch.compile(fn)
+    _build.reset_launches()
+    with torch.no_grad():
+        eager = fn(*args)
+        exported = program.module()(*args)
+        comp = compiled(*args)
+    torch.cuda.synchronize()
+    entry_s = time.perf_counter() - t0
+    entry_launches = _build.LAUNCHES["shapenet_fwd_tc"]
+    comp_rel = float(torch.linalg.vector_norm(comp - eager) / torch.linalg.vector_norm(eager))
+    log(f"3p entry(): torch.export graph calls {[o for o in ops if 'nif_tpu_torch' in o]}; "
+        f"eager, exported and compiled calls launched the tensor-core K1 {entry_launches} "
+        f"times; exported bit for bit eager {torch.equal(exported, eager)}, compiled rel-L2 "
+        f"{comp_rel:.3e} from eager; export + compile + three calls {entry_s:.1f} s")
+    if (not any("shapenet_fwd" in o for o in ops) or entry_launches != 3
+            or not torch.equal(exported, eager) or comp_rel > 1e-2
+            or tuple(eager.shape) != (4, 64, 1)):
+        raise AssertionError(f"entry(): ops {ops}, launches {entry_launches}, rel {comp_rel}")
+
+    # tutorial 8: the grouped step through the CUDA-core K6 (float32 policy)
+    m08 = _example("08_sobolev_training")
+    t0 = time.perf_counter()
+    _build.reset_launches()
+    value_mse, _ = _quiet(lambda: m08.main_grouped(epochs=10))
+    got = dict(_build.LAUNCHES)
+    log(f"3p tutorial 8 main_grouped (10 epochs): value MSE {value_mse:.4e}; K6 launches "
+        f"{got['shapenet_sobolev_grads']} (tensor-core {got['shapenet_sobolev_grads_tc']}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    if (not value_mse < 5.0 or got["shapenet_sobolev_grads"] != 10
+            or got["shapenet_sobolev_grads_tc"]):
+        raise AssertionError(f"tutorial 8 main_grouped: {value_mse}, launches {got}")
+    for name, fn8, pass_name in (("main_trainer", m08.main_trainer, "K6"),
+                                 ("main_hessian", m08.main_hessian, "K8")):
+        t0 = time.perf_counter()
+        (loss, _), kernels, got = _profiled(torch, lambda: _quiet(lambda: fn8(epochs=10)))
+        c = pass_counts(kernels)
+        # the float32 K7 (the Hessian evaluation) shares the K8 body's
+        # kernel, and K5's float32 tangent body the K6 body's
+        want = {p: (0, 0) for p in PASS_KERNELS}
+        want["K6"] = (0, 10 * (pass_name == "K6") + got["shapenet_fwd_jac"])
+        want["K8"] = (0, 10 * (pass_name == "K8") + got["shapenet_fwd_hess"])
+        log(f"3p tutorial 8 {name} (10 resident epochs): final loss {loss:.4e}; trace "
+            f"{ {p: v for p, v in c.items() if sum(v)} }, wrapper launches "
+            f"{ {k: v for k, v in got.items() if v} }; {time.perf_counter() - t0:.1f} s; "
+            f"kernels {[(k[:90], n) for k, n, _ in kernels if 'sob' in k or 'hess' in k]}")
+        if not np.isfinite(loss) or c != want:
+            raise AssertionError(f"tutorial 8 {name}: loss {loss}, trace {c}, launches {got}")
+
+    # tutorial 5, part 2: streamed grouped steps through the CUDA-core K2
+    m05 = _example("05_large_scale_training")
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        _build.reset_launches()
+        final, _ = _quiet(lambda: m05.grouped_streaming_demo(workdir=work, epochs=2))
+        got = dict(_build.LAUNCHES)
+    log(f"3p tutorial 5 grouped_streaming_demo (2 epochs): final loss {final:.4e}; K2 launches "
+        f"{got['shapenet_mse_grads']} (tensor-core {got['shapenet_mse_grads_tc']}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not np.isfinite(final) or got["shapenet_mse_grads"] != 8 or got["shapenet_mse_grads_tc"]:
+        raise AssertionError(f"tutorial 5 grouped: {final}, launches {got}")
+
+    # tutorial 1: Adam, a checkpoint round trip and L-BFGS on the card
+    m01 = _example("01_simple_1d_wave")
+    own = m01.Trainer
+    m01.Trainer = _carry_tutorial1_init(m01)
+    try:
+        with tempfile.TemporaryDirectory() as work:
+            t0 = time.perf_counter()
+            mse1, printed = _quiet(lambda: m01.main(epochs=60, batch_size=512, lbfgs_iters=600,
+                                                    ckpt_dir=work))
+    finally:
+        m01.Trainer = own
+    log(f"3p tutorial 1 (60 epochs, 600 L-BFGS iterations, from the JAX init at key 0): "
+        f"{[ln for ln in printed if 'MSE' in ln or 'checkpoint' in ln]}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not mse1 < 0.5:
+        raise AssertionError(f"tutorial 1 on the card: MSE {mse1}")
+
+    # tutorial 10: predict and the torch.export artifact reloaded on the card
+    m10 = _example("10_serving")
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        rl2, printed = _quiet(lambda: m10.main(epochs=30, out_dir=work))
+    log(f"3p tutorial 10 (30 epochs): {printed[-2:]}; {time.perf_counter() - t0:.1f} s")
+    if not rl2 < 1.5:
+        raise AssertionError(f"tutorial 10 on the card: rel-L2 {rl2}")
+    seconds = time.perf_counter() - phase0
+    log(f"3p took {seconds:.1f} s (card {smi})")
+    return seconds
 
 
 def main() -> int:
@@ -4305,6 +4572,9 @@ def main() -> int:
 
     # ---- phase 3o: NCCL at world size 1, fit_resident's graph holding the all_reduce
     phase_nccl(torch, log, smi)
+
+    # ---- phase 3p: the tutorials on the card, tutorial 13 at paper scale
+    phase_examples(torch, log, smi)
     log(f"card: {smi}")
     log(f"chip_smoke wall clock: {time.perf_counter() - wall0:.1f} s (builds included)")
     log(json.dumps({"kernels": [{

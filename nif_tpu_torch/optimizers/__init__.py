@@ -14,6 +14,8 @@ the form the trainers take (the counterpart of an optax transformation):
   optimizer's step.
 * ``warmup_linear_decay``   — a ``step -> lr`` schedule; an optimizer given
   one evaluates it at its own update count (:mod:`.schedule`).
+* ``cosine_decay_schedule`` — optax's cosine decay, the same kind of
+  schedule.
 
 Full-batch fine-tuning: ``lbfgs_minimize`` (an L-BFGS loop with optax's zoom
 line search, on one flat parameter vector), ``LBFGS`` (point-wise) and
@@ -30,7 +32,7 @@ import torch
 from .adabelief import AdaBelief, adabelief_full
 from .lbfgs import LBFGS, GroupedLBFGS, cast_parameters, lbfgs_minimize
 from .lion import Lion
-from .schedule import factory
+from .schedule import cosine_decay_schedule, factory
 
 __all__ = [
     "adam",
@@ -39,6 +41,7 @@ __all__ = [
     "lion",
     "centralize_gradients",
     "warmup_linear_decay",
+    "cosine_decay_schedule",
     "get_optimizer",
     "AdaBelief",
     "Lion",

@@ -21,7 +21,9 @@ layout, in place: the objective reads the model's parameters, and the
 optimizer writes each trial point into them. ``GroupedLBFGS`` evaluates its
 objective through ``mse_value_and_grad`` / ``sobolev_value_and_grad``, one
 fused train kernel launch (K2, K4, K6 or K8) per evaluation, or per group
-chunk, on the card.
+chunk, on the card. A row-parallel head (split over a mesh's ``'model'``
+axis) enters the flat vector whole, gathered by ``all_reduce``; each rank
+writes back its own rows.
 
 ``dtype="float64"`` runs the optimizer's arithmetic and the parameters in
 float64 (the reference's float64 L-BFGS); the model's compute dtype still
@@ -419,14 +421,6 @@ def _params_key(model, dtype=None):
             None if dtype is None else _torch_dtype(dtype))
 
 
-def _check_mesh(model, mesh) -> None:
-    if mesh is not None and getattr(model.pnet.params["last"], "row_parallel", None) is not None:
-        raise ValueError(
-            "L-BFGS takes a model whose head is whole: its line search and curvature pairs "
-            "read the flat parameter vector, which a row-parallel head splits over the "
-            "model axis (load the full parameters into an unsplit model first)")
-
-
 def _chunk_block(a: np.ndarray, mesh) -> np.ndarray:
     """``[C, chunk, ...]`` chunks -> this rank's block of every chunk's rows
     (all of them without a mesh or with local batches)."""
@@ -469,13 +463,17 @@ class LBFGS:
         rank its block of every chunk), and every evaluation's objective and
         gradient are averaged over them, so every rank reads the same values
         and its line search takes the same trials. Unchunked, every rank
-        evaluates the whole set, as the JAX package does.
+        evaluates the whole set, as the JAX package does. A head split
+        row-parallel over the mesh's ``'model'`` axis
+        (``put_params_model_parallel``, ``shard_model_axis=True``) is taken
+        as the model holds it: the flat vector holds the whole head (its
+        rows and its gradient's gathered from the model group), every rank
+        the same copy, and each rank writes its own rows back.
     """
 
     def __init__(self, model, loss_fn: Optional[Callable] = None, inputs=None, targets=None,
                  sample_weight=None, reg: bool = True, display_epoch: int = 0,
                  chunk_size: Optional[int] = None, mesh=None):
-        _check_mesh(model, mesh)
         self.model = model
         self.mesh = mesh
         self.display_epoch = display_epoch
@@ -604,25 +602,40 @@ class LBFGS:
         params = self._params()
         if dtype is not None:
             cast_parameters(self.model, dtype)
+        # a row-parallel head enters the flat vector whole: its rows, and
+        # those of its gradient, gathered from the model group (an
+        # all_reduce of each rank's rows placed in zeros, exact), so every
+        # rank runs the same iterates and writes back its own rows
+        from ..parallel.state import _gather_rows, _head_index, _row_parallel
+
+        rp = _row_parallel(self.model)
+        head = None if rp is None else _head_index(self.model)
         shapes = [tuple(p.shape) for p in params]
+        if head is not None:
+            shapes[head] = (rp.full_rows,) + shapes[head][1:]
         opt_dtype = params[0].dtype
 
-        def vg(flat):
-            with torch.no_grad():
-                for p, v in zip(params, _split(flat, shapes)):
-                    p.copy_(v)
-            value, grads = self._value_and_grads()
-            return value.to(opt_dtype), torch.cat([g.reshape(-1).to(opt_dtype) for g in grads])
+        def whole(tensors):
+            return [_gather_rows(t, rp) if i == head else t for i, t in enumerate(tensors)]
 
-        x = torch.cat([p.detach().reshape(-1) for p in params])
+        def write(flat):
+            with torch.no_grad():
+                for i, (p, v) in enumerate(zip(params, _split(flat, shapes))):
+                    p.copy_(v[rp.rows] if i == head else v)
+
+        def vg(flat):
+            write(flat)
+            value, grads = self._value_and_grads()
+            return value.to(opt_dtype), torch.cat([g.reshape(-1).to(opt_dtype)
+                                                   for g in whole(grads)])
+
+        x = torch.cat([p.detach().reshape(-1) for p in whole(params)])
         with _highest_precision():
             if state is None:
                 state = LBFGSState(x, 20)
             before = (state.iterations, state.evaluations, state.host_reads)
             x, losses = _run(vg, x, max_iter, state, 1e-15, None, self.display_epoch)
-        with torch.no_grad():
-            for p, v in zip(params, _split(x, shapes)):
-                p.copy_(v)
+        write(x)
         for key, b in zip(("iterations", "evaluations", "host_reads"), before):
             self.counts[key] += getattr(state, key) - b
         self._history.extend(losses.tolist())
@@ -688,7 +701,6 @@ class GroupedLBFGS(LBFGS):
                  reg: bool = True, w_value: float = 1.0, w_jac: float = 1.0,
                  w_hess: float = 1.0, display_epoch: int = 0,
                  chunk_groups: Optional[int] = None, mesh=None, fused: Optional[bool] = None):
-        _check_mesh(model, mesh)
         self.model = model
         self.mesh = mesh
         self.display_epoch = display_epoch

@@ -16,9 +16,10 @@ from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 
-__all__ = ["with_schedule", "advance_schedule", "factory"]
+__all__ = ["with_schedule", "advance_schedule", "factory", "cosine_decay_schedule"]
 
 
 def advance_schedule(optimizer) -> None:
@@ -62,3 +63,23 @@ def factory(build: Callable, learning_rate):
         return build(params, learning_rate)
 
     return make
+
+
+def cosine_decay_schedule(init_value: float, decay_steps: int, alpha: float = 0.0,
+                          exponent: float = 1.0) -> Callable[[int], float]:
+    """optax's ``cosine_decay_schedule`` as a ``step -> lr`` function:
+    ``init_value * ((1 - alpha) * (0.5 * (1 + cos(pi * min(step, decay_steps)
+    / decay_steps))) ** exponent + alpha)``, in float32 as optax computes it.
+    Under ``fit_resident``'s whole-step graph it advances per replay."""
+    if not decay_steps > 0:
+        raise ValueError(f"cosine_decay_schedule needs positive decay_steps, got "
+                         f"decay_steps={decay_steps}")
+    f32 = np.float32
+
+    def schedule(step: int) -> float:
+        count = f32(min(float(step), float(decay_steps)))
+        cosine = f32(0.5) * (f32(1.0) + np.cos(f32(np.pi) * count / f32(decay_steps)))
+        decayed = f32(1.0 - alpha) * cosine ** f32(exponent) + f32(alpha)
+        return float(f32(init_value) * decayed)
+
+    return schedule

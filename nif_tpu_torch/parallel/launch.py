@@ -15,6 +15,7 @@ from __future__ import annotations
 import argparse
 import faulthandler
 import importlib
+import importlib.util
 import json
 import os
 import socket
@@ -103,8 +104,6 @@ def _resolve(target: str):
     """``"pkg.module:function"`` or ``"path/to/file.py:function"``."""
     module, name = target.rsplit(":", 1)
     if module.endswith(".py"):
-        import importlib.util
-
         spec = importlib.util.spec_from_file_location(
             os.path.splitext(os.path.basename(module))[0], module)
         mod = importlib.util.module_from_spec(spec)

@@ -1,12 +1,13 @@
 """The port imports neither JAX nor the JAX package: every module of
-``nif_tpu_torch/`` (``parallel/``, ``cli.py``, ``__main__.py`` and
-``utils/profiling.py`` among them), ``chip_smoke.py`` and the port's scripts
+``nif_tpu_torch/`` (``parallel/``, ``cli.py``, ``__main__.py``,
+``utils/profiling.py``, ``entry.py`` and the thirteen tutorials of
+``examples/`` among them), ``chip_smoke.py`` and the port's scripts
 (``scripts/port_*.py``) is parsed, and any import of ``jax``/``jaxlib``, of
 the libraries of the JAX stack that import JAX (``optax``, ``flax``,
 ``orbax``) or of ``nif_tpu`` (other than ``nif_tpu_torch``) fails, relative
 imports resolved against the module's package. The worker's and the
 command line's entry points also run in a process where those imports
-raise."""
+raise, and so do the entry module's and every tutorial's."""
 import ast
 import os
 import pathlib
@@ -60,6 +61,11 @@ def test_the_port_has_modules_to_check():
                 "parallel/launch.py", "parallel/state.py", "parallel/zero.py",
                 "parallel/collectives.py", "cli.py", "__main__.py", "utils/profiling.py"):
         assert f"nif_tpu_torch/{rel}" in FILES, rel
+    assert "nif_tpu_torch/entry.py" in FILES
+    examples = sorted(p.name for p in (REPO / "examples").glob("[0-9][0-9]_*.py"))
+    assert len(examples) == 13
+    for name in examples:  # each JAX tutorial has its port, under the same name
+        assert f"nif_tpu_torch/examples/{name}" in FILES, name
     assert any(f.startswith("scripts/port_") for f in FILES)
 
 
@@ -100,14 +106,42 @@ _NO_JAX = ("import runpy, sys\n"
            "runpy.run_module(sys.argv[0], run_name='__main__')\n")
 
 
-@pytest.mark.parametrize("module", ["nif_tpu_torch.parallel.multihost", "nif_tpu_torch"])
-def test_entry_points_run_without_jax(module):
+_EXAMPLES = sorted(p.stem for p in (REPO / "nif_tpu_torch" / "examples").glob("[0-9]*.py"))
+_ENTRY_POINTS = [
+    ("nif_tpu_torch.parallel.multihost", "--coordinator"),
+    ("nif_tpu_torch", "{train,eval,export}"),
+    ("nif_tpu_torch.entry", "--device"),
+] + [(f"nif_tpu_torch.examples.{name}", "--" if name.startswith("12_") else "--device")
+     for name in _EXAMPLES]
+
+
+@pytest.fixture(scope="module")
+def helps():
+    """Every entry point's ``--help`` without JAX, the processes started at
+    once: ``{module: (returncode, stdout, stderr)}``."""
+    env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               OMP_NUM_THREADS="1")
+    procs = {m: subprocess.Popen([sys.executable, "-c", _NO_JAX, m], env=env, cwd=REPO,
+                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for m, _ in _ENTRY_POINTS}
+    out = {}
+    try:
+        for m, p in procs.items():
+            stdout, stderr = p.communicate(timeout=120)
+            out[m] = (p.returncode, stdout, stderr)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+    return out
+
+
+@pytest.mark.parametrize("module, want", _ENTRY_POINTS, ids=[m for m, _ in _ENTRY_POINTS])
+def test_entry_points_run_without_jax(helps, module, want):
     """``python -m nif_tpu_torch.parallel.multihost --help`` (the worker's
-    entry point) and ``python -m nif_tpu_torch --help`` (the command line)
+    entry point), ``python -m nif_tpu_torch --help`` (the command line),
+    ``python -m nif_tpu_torch.entry --help`` and each tutorial's ``--help``
     run in a process where importing JAX or the JAX package raises."""
-    env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    out = subprocess.run([sys.executable, "-c", _NO_JAX, module], env=env, cwd=REPO,
-                         capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0, out.stderr[-2000:]
-    want = "--coordinator" if module.endswith("multihost") else "{train,eval,export}"
-    assert "usage:" in out.stdout and want in out.stdout, out.stdout
+    rc, stdout, stderr = helps[module]
+    assert rc == 0, stderr[-2000:]
+    assert "usage:" in stdout and want in stdout, stdout
