@@ -70,7 +70,9 @@ Phases, each of which raises on failure:
    bfloat16 tensor-core K3, the CUDA-core K3 on the same inputs and in
    float32, with their plain versions, and compute their bounds on this
    card; then the float32 policy's train step (the CUDA-core K2), mean of 10
-   on the device clock and on the host clock, and its stages.
+   on the device clock and on the host clock, and its stages; a
+   ``step_report`` line for each of the two steps (points/s, TFLOP/s and
+   ``mfu`` against the published bf16 tensor-core or f32 peak).
 
 Phases of the Sobolev slice:
 
@@ -232,7 +234,8 @@ Phases of the resident slice:
    ``TravelingWave`` (1500 epochs of batch 512) halves its loss.
 4f. Time the resident MSE step over 50 steps in one chunk in both policies
    and both graph forms (CUDA events around the replays, the host clock of
-   the whole call, the capture), the device's busy share over 10 replays,
+   the whole call, the capture; a ``step_report`` line for the whole-step
+   graph of each policy), the device's busy share over 10 replays,
    the kernels a replay and the sampler alone; beside them
    ``GroupedTrainer.step`` synchronized and ``fit`` from host arrays at the
    same batch shape, with ``fit``'s host stages; the resident Sobolev and
@@ -321,7 +324,8 @@ Phases of the compression and export slice (after 4g):
    ``--paper`` (G=64 x P=262144, width 128, latent 128, mixed_bfloat16) for
    3 epochs, under ``torch.profiler``: one tensor-core K2 a resident step,
    the loss falling, the held-out ``apply_grouped`` one tensor-core K1, the
-   finer decode ``[8, 524288, 1]``, its points/s line beside the card;
+   finer decode ``[8, 524288, 1]``, its points/s line beside the card, a
+   ``step_report`` line of the replayed step;
    ``entry()`` through ``torch.export`` and ``torch.compile`` (K1 as its
    registered op); then at ``tests/test_examples.py``'s budgets and
    thresholds tutorial 8's grouped, trainer and Hessian runs (the CUDA-core
@@ -331,10 +335,12 @@ Phases of the compression and export slice (after 4g):
    unsplit process (3 iterations, losses within 1e-3, one K2 an evaluation
    on each rank).
 
-The last line is ``{"ok": true, "device": {...}}``; the line before it is the
-``{"kernels": [...]}`` record, and before that the card's name and power
-limit and the run's wall-clock seconds. Exits non-zero without CUDA or
-without the package beside it.
+Every bound is ``nif_tpu_torch.utils.roofline``'s (``kernel_cost``,
+``kernel_bound_ms`` against ``card_peaks``), and every ``step_report`` line
+its ``step_report``. The last line is ``{"ok": true, "device": {...}}``; the
+line before it is the ``{"kernels": [...]}`` record, and before that the
+card's name and power limit and the run's wall-clock seconds. Exits non-zero
+without CUDA or without the package beside it.
 """
 from __future__ import annotations
 
@@ -347,23 +353,6 @@ import time
 
 import numpy as np
 
-# Published dense peaks (NVIDIA data sheets): bf16 tensor-core FLOP/s, f32
-# FLOP/s outside the tensor cores, device-memory bytes/s. A card set below
-# its maximum power runs slower under load; its limit is printed beside.
-PEAKS = {
-    "H100 SXM": (989e12, 67e12, 3.35e12),
-    "H100 PCIe": (756e12, 51e12, 2.0e12),
-}
-# f32 operations of one bf16 sine activation: bias add, range reduction
-# (mul, rint, sub), t*t, four Horner steps and the final product.
-SINE_FLOPS = 14
-# ... and of the sine with its derivative (K2, K3): the derivative adds three
-# Horner steps and the factor 1/2pi.
-SINE_GRAD_FLOPS = 21
-# ... and of the curvature act'' beside act' (K6's backward): the range
-# reduction again, the derivative's and the curvature's Horner steps and
-# their scale factors.
-SINE_GRAD2_FLOPS = 28
 # bf16 bounds on a kernel against its plain version: two bf16 ulps of the
 # largest entry (an f32 last-bit difference in a sum can flip the bf16
 # rounding of one activation, derivative or dz), and a relative loss bound.
@@ -421,12 +410,6 @@ TUTORIAL3_P = {"input_dim": 1, "latent_dim": 10, "units": 30, "nlayers": 2,
                "activation": "swish", "use_resblock": False, "omega_0": 30.0}
 # The Hessian kernels (K7, K8) take sine chains only.
 HESS_CASES = [c for c in CASES if c[0] == "siren"] + JAC_EXTRA
-# f32 operations of one bf16 sine with act' and act'' from one range
-# reduction (K7's epilogues, K8's forward), and with act''' too (K8's
-# backward): SINE_GRAD_FLOPS plus the curvature's and the third
-# derivative's Horner steps and scale factors.
-SINE3_FLOPS = 28
-SINE4_FLOPS = 34
 # Shapes the tensor-core K8 pads, tiles raggedly or lays out otherwise: widths
 # 24 and 40 (zero-padded to 16), si = 1, 2 and 4, resblock chains, and widths
 # 256 and 512, whose S planes go to the global scratch and whose W is read
@@ -1132,35 +1115,30 @@ def check_k4(torch, case, G, P, dtype, weighted, seed) -> float:
     return worst
 
 
-def linear_bounds(cfg, so, G, P, peak_mma, peak_f32, peak_bw, f32=False):
-    """(bound ms, bound_by, products GFLOP) of K4 at this shape: the trunk's
-    products forward (x @ W0, the hidden matrices, the bottleneck of nk =
-    so*K outputs), its weight grads and its du products (no dx), 2 G P (2
-    (si n + nm n^2 + n nk) + nm n^2 + n nk), over the bf16 tensor-core peak;
-    the sine-with-derivative evaluations and the contraction, d_a and d_phi
-    (5 G P nk) over the f32 peak; bytes of the trunk, a, bias, x and the
-    target in and of the f32 grads and loss out. ``f32``: the float32 kernel,
-    whose products must not use the tensor cores (no TF32), so products and
-    activations together over the f32 peak, and 4-byte inputs; and, since
-    its d_phi = go_o a is an outer product for each output o, the
-    bottleneck's dW and du are no products but matrix-vector work: u_last^T
-    go and go (W_bot a)^T, 2 n so MACs a point, and W_bot a and the outer
-    product a (u_last^T go), n nk MACs each once a group."""
-    n, si = cfg.units, cfg.input_dim
-    nk = cfg.output_dim
-    nm = 2 * cfg.nlayers if cfg.use_resblock else cfg.nlayers
-    K = nk // so
-    po = nm * n * n + (si + 1 + nm) * n + n * nk + nk
-    if f32:
-        flops = (2 * G * P * (2 * (si * n + nm * n * n) + n * nk + nm * n * n + 2 * n * so)
-                 + 2 * 2 * G * n * nk)
-    else:
-        flops = 2 * G * P * (2 * (si * n + nm * n * n + n * nk) + nm * n * n + n * nk)
-    act = SINE_GRAD_FLOPS * G * P * n * (1 + nm) + 5 * G * P * nk
-    nbytes = (4 if f32 else 2) * (po + G * K + so + G * P * (si + so)) + 4 * (po + G * K + so + 1)
-    t_ops = ((flops + act) / peak_f32 if f32 else max(flops / peak_mma, act / peak_f32)) * 1e3
-    t_bytes = nbytes / peak_bw * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops / 1e9
+def kernel_bound(kernel, cfg, G, P, peaks, f32=False, **kw):
+    """(bound ms, bound_by, products GFLOP) of ``kernel`` ("K1" ... "K8") at
+    this shape, from ``nif_tpu_torch.utils.roofline``'s count."""
+    from nif_tpu_torch.utils.roofline import kernel_bound_ms, kernel_cost
+
+    cost = kernel_cost(kernel, cfg, G, P, f32=f32, **kw)
+    return (*kernel_bound_ms(cost, peaks, f32), cost["products"] / 1e9)
+
+
+def log_step_report(what, model, G, P, step_ms, f32, smi):
+    """One ``nif_tpu_torch.utils.roofline.step_report`` line of a measured
+    step of ``model`` at G x P points: points/s, TFLOP/s and ``mfu`` against
+    the card's published bf16 tensor-core peak (``f32``: its f32 peak), with
+    the card's name and power limit."""
+    from nif_tpu_torch.utils.roofline import card_peaks, step_report
+
+    peak = card_peaks()[1 if f32 else 0] / 1e12
+    r = step_report(model.cfg_shape_net, model.cfg_parameter_net, G, P, step_ms / 1e3,
+                    peak_tflops=peak)
+    log(f"step_report {what} (G={G} P={P}, {step_ms:.4f} ms a step on the device clock): "
+        f"{r['points_per_sec']:.4e} points/s, {r['tflops_per_sec']:.4f} TFLOP/s, mfu "
+        f"{r['mfu']:.4f} of the published {peak:.0f} TFLOP/s "
+        f"{'f32' if f32 else 'bf16 tensor-core'} peak (ParameterNet "
+        f"{r['pnet_fraction']:.4f} of the FLOPs; card {smi})")
 
 
 def sobolev_data(torch, cfg, G, P, seed):
@@ -1242,104 +1220,6 @@ def wave_hessian(t, x):
     h[..., 0, 1] = h[..., 1, 0] = -0.5 * np.pi ** 2 * np.cos(a) * np.sin(b)
     h[..., 1, 1] = -0.25 * np.pi ** 2 * np.sin(a) * np.cos(b)
     return h[:, :, None].astype(np.float32)
-
-
-def derivative_bounds(cfg, G, P, peak_mma, peak_f32, peak_bw, sobolev: bool, f32: bool = False,
-                      tangent: bool = False):
-    """(bound ms, bound_by, products GFLOP) of K6 (sobolev) or K5's reverse
-    body at this shape in bf16. K6: three passes (forward, dW, dS) of the
-    stacked chain's hidden and last products over all 1 + si streams, 3 x 2
-    G P (1 + si)(nm n^2 + n so), and the first layer's x @ W0 on the value
-    rows only, in the forward and in dW0, 2 x 2 G P si n (the tangent seeds
-    are elementwise and no dx is formed); activations with derivative and
-    curvature and the tangent products over the f32 peak; bytes of wb, x,
-    the value and Jacobian targets in and d_wb out. K5: the forward (2 G P
-    (si n + nm n^2 + n so))
-    and so dx sweeps (2 G P (nm n^2 + n si) each), sine-with-derivative
-    evaluations over the f32 peak, bytes of wb and x in, y and jac out.
-    ``tangent``: K5's tangent body (so >= si): the value stream's forward and
-    si tangent streams through the hidden and last products, 2 G P (si n +
-    (1 + si)(nm n^2 + n so)) (the first layer's tangents are W0's rows), and
-    per activation the sine with its slope and one product per tangent.
-    ``f32``: the float32 K5 or K6, whose products must not use the tensor
-    cores (no TF32), so products and activations together over the f32
-    peak, and 4-byte inputs and outputs."""
-    n, si, so = cfg.units, cfg.input_dim, cfg.output_dim
-    nm = 2 * cfg.nlayers if cfg.use_resblock else cfg.nlayers
-    po = nm * n * n + (si + so + 1 + nm) * n + so
-    elems = G * P * n * (1 + nm)
-    if sobolev:
-        flops = 3 * 2 * G * P * (1 + si) * (nm * n * n + n * so) + 2 * 2 * G * P * si * n
-        act = elems * (SINE_GRAD_FLOPS + SINE_GRAD2_FLOPS + 6 * si)
-        nbytes = (4 if f32 else 2) * (2 * G * po + G * P * (si + so + si * so))
-    elif tangent:
-        flops = 2 * G * P * (si * n + (1 + si) * (nm * n * n + n * so))
-        act = elems * (SINE_GRAD_FLOPS + si)
-        nbytes = (4 if f32 else 2) * (G * po + G * P * (si + so + so * si))
-    else:
-        flops = 2 * G * P * (si * n + nm * n * n + n * so) + so * 2 * G * P * (nm * n * n + n * si)
-        act = elems * SINE_GRAD_FLOPS
-        nbytes = (4 if f32 else 2) * (G * po + G * P * (si + so + so * si))
-    t_ops = ((flops + act) / peak_f32 if f32 else max(flops / peak_mma, act / peak_f32)) * 1e3
-    t_bytes = nbytes / peak_bw * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops / 1e9
-
-
-def hessian_bounds(cfg, G, P, peak_mma, peak_f32, peak_bw, train: bool, f32: bool = False):
-    """(bound ms, bound_by, products GFLOP) of K8 (train) or K7 at this
-    shape in bf16, over ns = 1 + si + si(si+1)/2 stacked streams. K7: the
-    hidden and last products over all streams, 2 G P ns (nm n^2 + n so), and
-    x @ W0 on the value rows only, 2 G P si n (the stream seeds are
-    elementwise). K8: three passes (forward, dW, dS) of the former, and x @
-    W0 in the forward and in dW0 (no dx). Activations (with act', act''; in
-    K8's backward act''' too) and the stream epilogues over the f32 peak;
-    bytes of wb and x in and y, jac and the pair columns out (K7), or of wb,
-    x and the three targets in and d_wb out (K8). ``f32``: the float32 K8,
-    whose products must not use the tensor cores (no TF32), so products and
-    activations together over the f32 peak, and 4-byte inputs and outputs."""
-    n, si, so = cfg.units, cfg.input_dim, cfg.output_dim
-    nm = 2 * cfg.nlayers if cfg.use_resblock else cfg.nlayers
-    npairs = si * (si + 1) // 2
-    ns = 1 + si + npairs
-    po = nm * n * n + (si + so + 1 + nm) * n + so
-    elems = G * P * n * (1 + nm)
-    stacked = 2 * G * P * ns * (nm * n * n + n * so)
-    first = 2 * G * P * si * n
-    epilogue = si + 4 * npairs  # a tangent's product, a pair's three and a sum
-    elem = 4 if f32 else 2
-    if train:
-        flops = 3 * stacked + 2 * first
-        act = elems * (SINE3_FLOPS + SINE4_FLOPS + 3 * epilogue)
-        nbytes = elem * (2 * G * po + G * P * (si + so + si * so + npairs * so))
-    else:
-        flops = stacked + first
-        act = elems * (SINE3_FLOPS + epilogue)
-        nbytes = elem * (G * po + G * P * (si + so + si * so + npairs * so))
-    t_ops = ((flops + act) / peak_f32 if f32 else max(flops / peak_mma, act / peak_f32)) * 1e3
-    t_bytes = nbytes / peak_bw * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops / 1e9
-
-
-def train_bounds(cfg, G, P, peak_mma, peak_f32, peak_bw, dx: bool, f32: bool = False):
-    """(bound ms, bound_by, products GFLOP) of K2 (dx=False) or K3 (dx=True)
-    at this shape in bf16: products over the tensor-core peak, sine and
-    derivative evaluations over the f32 peak, bytes over bandwidth (wb, x
-    and the target or g_out in, d_wb and dx out, each once). ``f32``: the
-    float32 kernel, whose products must not use the tensor cores (no TF32),
-    so products and activations together over the f32 peak, and 4-byte
-    inputs and outputs."""
-    n, si, so, nm = cfg.units, cfg.input_dim, cfg.output_dim, 2 * cfg.nlayers if cfg.use_resblock else cfg.nlayers
-    fwd = 2 * G * P * (si * n + nm * n * n + n * so)
-    dw = fwd
-    du = 2 * G * P * (nm * n * n + n * so) + (2 * G * P * si * n if dx else 0)
-    flops = fwd + dw + du
-    act = SINE_GRAD_FLOPS * G * P * n * (1 + nm)
-    po = nm * n * n + (si + so + 1 + nm) * n + so
-    nbytes = ((4 if f32 else 2)
-              * (2 * G * po + G * P * si + G * P * so + (G * P * si if dx else 0)))
-    t_ops = ((flops + act) / peak_f32 if f32 else max(flops / peak_mma, act / peak_f32)) * 1e3
-    t_bytes = nbytes / peak_bw * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops / 1e9
 
 
 # The resident dataset of phases 3g and 4f: the flagship's inputs at G=64
@@ -1742,6 +1622,9 @@ def phase_resident_timing(torch, log, data_np, smi):
                 f"first step, capture and readback included); capture "
                 f"{hist['resident_capture_ms'][-1]:.2f} ms")
             if capturable:
+                log_step_report(f"4f {policy} resident MSE step ({hist['resident_graph']})",
+                                trainer.model, RESIDENT_GB, RESIDENT_PB,
+                                hist["resident_step_ms"][-1], policy == "float32", smi)
                 data = ResidentData(t, x, u, group_batch=RESIDENT_GB, point_batch=RESIDENT_PB,
                                     seed=14, device="cuda")
                 kernels, busy, window = profile_replays(torch, trainer, state, data, 10)
@@ -2981,6 +2864,8 @@ def phase_examples(torch, log, smi):
         f"decode {u_fine}; the whole run {wall13:.1f} s under torch.profiler, training "
         f"{r['train_s']:.3f} s ({r['points'] / r['train_s']:.6e} points/s, capture and the "
         f"eager first step included; card {smi})")
+    log_step_report("3p tutorial 13's replayed resident step, bf16", r["model"], 8, 32768,
+                    hist["resident_step_ms"][-1], False, smi)
     want = {p: (0, 0) for p in PASS_KERNELS}
     want.update(K1=(1, 0), K2=(steps, 0))
     if (steps != PAPER_EPOCHS * (r["n_train"] // 8) or counts != want
@@ -3124,6 +3009,7 @@ def main() -> int:
                                            FLAGSHIP_TRAIN_LR, LINEAR_SHAPE, cuda_ms,
                                            flagship_hessian_step, flagship_linear_step,
                                            flagship_sobolev_step, flagship_train_step)
+    from nif_tpu_torch.utils.roofline import card_peaks, kernel_bound_ms, kernel_cost
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3140,7 +3026,7 @@ def main() -> int:
     build_all(["shapenet_fwd", "shapenet_fwd_tc", "shapenet_bwd", "shapenet_bwd_tc",
                "shapenet_jac", "shapenet_jac_tc", "shapenet_hess", "shapenet_hess_tc",
                "shapenet_linear", "shapenet_linear_tc"])
-    peak_mma, peak_f32, peak_bw = PEAKS["H100 PCIe" if "PCIe" in name else "H100 SXM"]
+    peaks = card_peaks(name)
     flag_cfg = ShapeNetConfig.from_dict(FLAGSHIP_SHAPE)
 
     # ---- phase 2: K1 against its plain version, and its determinism
@@ -4140,25 +4026,18 @@ def main() -> int:
         for _ in range(3):
             predict_grouped(model, t, x)
         serve_ms = (time.perf_counter() - t0) / 3 * 1e3
-    n, si, so, steps = flag_cfg.units, flag_cfg.input_dim, flag_cfg.output_dim, flag_cfg.nlayers
-    mma_flops = 2 * G * P * (si * n + steps * n * n + n * so)
-    sine_flops = SINE_FLOPS * G * P * n * (1 + steps)
-    nbytes = (wb.numel() + xc.numel() + G * P * so) * 2
-    t_ops = max(mma_flops / peak_mma, sine_flops / peak_f32) * 1e3
-    t_bytes = nbytes / peak_bw * 1e3
-    bound_ms = max(t_ops, t_bytes)
-    # the float32 K1: products and sines together over the f32 peak (no
-    # TF32), 4-byte inputs and output
-    k1f_ops = (mma_flops + sine_flops) / peak_f32 * 1e3
-    k1f_bytes = 2 * nbytes / peak_bw * 1e3
-    k1f_bound = max(k1f_ops, k1f_bytes)
+    k1_cost = kernel_cost("K1", flag_cfg, G, P)
+    mma_flops, sine_flops, nbytes = (k1_cost[k] for k in ("products", "elementwise", "bytes"))
+    t_bytes = nbytes / peaks[2] * 1e3
+    bound_ms, k1_by = kernel_bound_ms(k1_cost, peaks)
+    k1f_bound, k1f_by, _ = kernel_bound("K1", flag_cfg, G, P, peaks, f32=True)
     del wbf, xf
     log(f"K1 bf16, tensor cores: {k1_ms:.4f} ms (wrapper incl. omega prescale) = "
         f"{mma_flops / 1e9 / k1_ms:.2f} TFLOP/s of products, the CUDA-core K1 on the same bf16 "
         f"inputs {k1_simt_ms:.4f} ms ({k1_simt_ms / k1_ms:.2f}x), plain {plain_ms:.4f} ms, "
         f"bound {bound_ms:.4f} ms (products {mma_flops / 1e9:.1f} GFLOP -> "
-        f"{mma_flops / peak_mma * 1e3:.4f} ms, sine {sine_flops / 1e9:.2f} GFLOP -> "
-        f"{sine_flops / peak_f32 * 1e3:.4f} ms, {nbytes / 1e6:.2f} MB -> {t_bytes:.4f} ms); "
+        f"{mma_flops / peaks[0] * 1e3:.4f} ms, sine {sine_flops / 1e9:.2f} GFLOP -> "
+        f"{sine_flops / peaks[1] * 1e3:.4f} ms, {nbytes / 1e6:.2f} MB -> {t_bytes:.4f} ms); "
         f"K1 f32, CUDA cores: {k1f_ms:.4f} ms, plain {k1f_plain_ms:.4f} ms, bound "
         f"{k1f_bound:.4f} ms (f32 peak); library_ms null: no single PyTorch call computes this "
         f"chain")
@@ -4233,12 +4112,10 @@ def main() -> int:
     f32_step_host_ms = (time.perf_counter() - t0) / 10 * 1e3
     f32_stages = mse_step_stages(torch, f32_mse_trainer, f32_box[0], (t_tr, x_tr, u_tr))
     del f32_mse_trainer, f32_mse_state, f32_box
-    k2_bound, k2_by, k2_gf = train_bounds(flag_cfg, G, P, peak_mma, peak_f32, peak_bw, dx=False)
-    k2f_bound, k2f_by, _ = train_bounds(flag_cfg, G, P, peak_mma, peak_f32, peak_bw, dx=False,
-                                        f32=True)
-    k3_bound, k3_by, k3_gf = train_bounds(flag_cfg, G, P, peak_mma, peak_f32, peak_bw, dx=True)
-    k3f_bound, k3f_by, _ = train_bounds(flag_cfg, G, P, peak_mma, peak_f32, peak_bw, dx=True,
-                                        f32=True)
+    k2_bound, k2_by, k2_gf = kernel_bound("K2", flag_cfg, G, P, peaks)
+    k2f_bound, k2f_by, _ = kernel_bound("K2", flag_cfg, G, P, peaks, f32=True)
+    k3_bound, k3_by, k3_gf = kernel_bound("K3", flag_cfg, G, P, peaks)
+    k3f_bound, k3f_by, _ = kernel_bound("K3", flag_cfg, G, P, peaks, f32=True)
     log(f"flagship train step (GroupedTrainer.step, Adam, bf16, G={G} P={P}): {step_ms:.4f} ms "
         f"= {G * P / step_ms * 1e3:.4e} train points/s; stages timed alone: "
         f"{', '.join(f'{k} {v:.4f} ms' for k, v in mstages.items())}")
@@ -4258,6 +4135,9 @@ def main() -> int:
         f"{G * P / f32_step_ms * 1e3:.4e} train points/s, {f32_step_host_ms:.4f} ms on the host "
         f"clock (each step synchronized); stages timed alone: "
         f"{', '.join(f'{k} {v:.4f} ms' for k, v in f32_stages.items())}")
+    log_step_report("4b GroupedTrainer.step, bf16", trainer.model, G, P, step_ms, False, smi)
+    log_step_report("4b GroupedTrainer.step, float32 policy", trainer.model, G, P, f32_step_ms,
+                    True, smi)
 
     # ---- phase 4c: Sobolev-step, K5 and K6 times at the flagship shape (bf16;
     # K6 also on the CUDA-core kernel on the same inputs, and in float32)
@@ -4356,18 +4236,12 @@ def main() -> int:
         t8_ms[dtype] = (cuda_ms(t8_eval, reps=5, warmup=1), host_ms(torch, t8_eval, reps=5),
                         cuda_ms(t8_kernel, reps=10, warmup=2))
     del tt8, tx8, wb8, x8
-    k5t_bound, k5t_by, k5t_gf = derivative_bounds(tan_cfg, G, P, peak_mma, peak_f32, peak_bw,
-                                                  sobolev=False, tangent=True)
-    k5tf_bound, k5tf_by, _ = derivative_bounds(tan_cfg, G, P, peak_mma, peak_f32, peak_bw,
-                                               sobolev=False, f32=True, tangent=True)
-    k5_bound, k5_by, k5_gf = derivative_bounds(flag_cfg, G, P, peak_mma, peak_f32, peak_bw,
-                                               sobolev=False)
-    k5f_bound, k5f_by, _ = derivative_bounds(flag_cfg, G, P, peak_mma, peak_f32, peak_bw,
-                                             sobolev=False, f32=True)
-    k6_bound, k6_by, k6_gf = derivative_bounds(flag_cfg, G, P, peak_mma, peak_f32, peak_bw,
-                                               sobolev=True)
-    k6f_bound, k6f_by, _ = derivative_bounds(flag_cfg, G, P, peak_mma, peak_f32, peak_bw,
-                                             sobolev=True, f32=True)
+    k5t_bound, k5t_by, k5t_gf = kernel_bound("K5", tan_cfg, G, P, peaks, body="tangent")
+    k5tf_bound, k5tf_by, _ = kernel_bound("K5", tan_cfg, G, P, peaks, f32=True, body="tangent")
+    k5_bound, k5_by, k5_gf = kernel_bound("K5", flag_cfg, G, P, peaks)
+    k5f_bound, k5f_by, _ = kernel_bound("K5", flag_cfg, G, P, peaks, f32=True)
+    k6_bound, k6_by, k6_gf = kernel_bound("K6", flag_cfg, G, P, peaks)
+    k6f_bound, k6f_by, _ = kernel_bound("K6", flag_cfg, G, P, peaks, f32=True)
     log(f"flagship Sobolev step (GroupedTrainer.step with target_jac, Adam, bf16, G={G} "
         f"P={P}): {sstep_ms:.4f} ms = {G * P / sstep_ms * 1e3:.4e} train points/s")
     log(f"K5 (reverse) bf16, tensor cores: {k5_ms:.4f} ms = {k5_gf / k5_ms:.2f} TFLOP/s of "
@@ -4457,14 +4331,10 @@ def main() -> int:
     hf32_stages = hessian_step_stages(torch, hf32_trainer, hf32_box[0],
                                       (t_h, x_h, u_h, j_h, h_h))
     del hf32_trainer, hf32_state, hf32_box
-    k7_bound, k7_by, k7_gf = hessian_bounds(flag_cfg, G, P, peak_mma, peak_f32, peak_bw,
-                                            train=False)
-    k7f_bound, k7f_by, _ = hessian_bounds(flag_cfg, G, P, peak_mma, peak_f32, peak_bw,
-                                          train=False, f32=True)
-    k8_bound, k8_by, k8_gf = hessian_bounds(flag_cfg, G, P, peak_mma, peak_f32, peak_bw,
-                                            train=True)
-    k8f_bound, k8f_by, _ = hessian_bounds(flag_cfg, G, P, peak_mma, peak_f32, peak_bw,
-                                          train=True, f32=True)
+    k7_bound, k7_by, k7_gf = kernel_bound("K7", flag_cfg, G, P, peaks)
+    k7f_bound, k7f_by, _ = kernel_bound("K7", flag_cfg, G, P, peaks, f32=True)
+    k8_bound, k8_by, k8_gf = kernel_bound("K8", flag_cfg, G, P, peaks)
+    k8f_bound, k8f_by, _ = kernel_bound("K8", flag_cfg, G, P, peaks, f32=True)
     log(f"flagship Hessian step (GroupedTrainer.step with target_jac and target_hess, Adam, "
         f"bf16, G={G} P={P}): {hstep_ms:.4f} ms = {G * P / hstep_ms * 1e3:.4e} train points/s; "
         f"stages timed alone: {', '.join(f'{k} {v:.4f} ms' for k, v in hstages.items())}")
@@ -4525,9 +4395,8 @@ def main() -> int:
     eager_f32 = GroupedTrainer(f32_trainer.model, f32_trainer.make_optimizer, fused=False)
     eager_f32_ms = cuda_ms(lambda: eager_f32.step(lf32_box[0], t_l, x_l, u_l), reps=5, warmup=2)
     del f32_trainer, f32_state, lf32_box, eager_f32
-    k4_bound, k4_by, k4_gf = linear_bounds(lcfg, lso, G, P, peak_mma, peak_f32, peak_bw)
-    k4f_bound, k4f_by, k4f_gf = linear_bounds(lcfg, lso, G, P, peak_mma, peak_f32, peak_bw,
-                                              f32=True)
+    k4_bound, k4_by, k4_gf = kernel_bound("K4", lcfg, G, P, peaks, so=lso)
+    k4f_bound, k4f_by, k4f_gf = kernel_bound("K4", lcfg, G, P, peaks, f32=True, so=lso)
     log(f"NIF-linear train step (GroupedTrainer.step, Adam, bf16, G={G} P={P}): {lstep_ms:.4f} "
         f"ms = {G * P / lstep_ms * 1e3:.4e} train points/s; eager step (autograd over the eager "
         f"trunk + Adam): {eager_ms:.4f} ms = {G * P / eager_ms * 1e3:.4e} train points/s")
@@ -4589,7 +4458,7 @@ def main() -> int:
         "ms": k1_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bound_by": k1_by,
         "library_ms": None,
     }, {
         "name": "shapenet_fwd_f32",
@@ -4604,7 +4473,7 @@ def main() -> int:
         "ms": k1f_ms,
         "plain_ms": k1f_plain_ms,
         "bound_ms": k1f_bound,
-        "bound_by": "operations" if k1f_ops >= k1f_bytes else "bytes",
+        "bound_by": k1f_by,
         "library_ms": None,
     }, {
         "name": "shapenet_mse_grads",

@@ -5,8 +5,9 @@ returns: the harness behind the multi-rank tests and the card smoke test.
 ``"path/to/file.py:function"``) starts ``world``
 processes of ``python -m nif_tpu_torch.parallel.launch``; each joins the
 process group over ``tcp://127.0.0.1:<free port>`` (``init_distributed``
-with the given backend and device), calls ``function(**kwargs)`` and writes
-its JSON-able result. Every rendezvous and collective has ``timeout``
+with the given backend and device: the card unless the caller asks for
+``device="cpu"``), calls ``function(**kwargs)`` and writes its JSON-able
+result. Every rendezvous and collective has ``timeout``
 seconds, and so has the wait for each process: a rank that fails or hangs
 fails the call (all ranks are killed), its output in the error.
 """
@@ -76,11 +77,14 @@ def spawn_all(cmds: List[List[str]], env: Dict[str, str], timeout: float, what: 
 
 
 def run_ranks(target: str, world: int, kwargs: Optional[Dict[str, Any]] = None,
-              backend: str = "gloo", device: str = "cpu", timeout: float = 300.0) -> List[Any]:
+              backend: Optional[str] = None, device: str = "cuda",
+              timeout: float = 300.0) -> List[Any]:
     """``[result of rank 0, ..., rank world-1]`` of ``target(**kwargs)``
-    run on ``world`` local ranks (``device`` a rank: ``"cuda"`` gives rank r
-    the card r, ``"cuda:0"`` puts every rank on one card, as two ranks over
-    gloo can share it). Raises ``RuntimeError`` with the ranks' output when one fails."""
+    run on ``world`` local ranks (``device`` a rank: ``"cuda"``, the default,
+    gives rank r the card r, ``"cuda:0"`` puts every rank on one card, as two
+    ranks over gloo can share it, ``"cpu"`` runs them on the CPU). ``backend``
+    defaults to ``init_distributed``'s: NCCL for CUDA ranks, gloo for CPU
+    ranks. Raises ``RuntimeError`` with the ranks' output when one fails."""
     port = free_port()
     with tempfile.TemporaryDirectory(prefix="nif_ranks_") as tmp:
         arg_path = os.path.join(tmp, "kwargs.json")
@@ -89,8 +93,9 @@ def run_ranks(target: str, world: int, kwargs: Optional[Dict[str, Any]] = None,
         outs = [os.path.join(tmp, f"rank_{r}.json") for r in range(world)]
         cmds = [[sys.executable, "-m", "nif_tpu_torch.parallel.launch", "--target", target,
                  "--rank", str(r), "--world", str(world), "--port", str(port),
-                 "--backend", backend, "--device", device, "--timeout", str(timeout),
+                 "--device", device, "--timeout", str(timeout),
                  "--kwargs", arg_path, "--out", outs[r]]
+                + (["--backend", backend] if backend else [])
                 for r in range(world)]
         spawn_all(cmds, rank_env(), timeout, f"{target} on {world} ranks")
         results = []
@@ -119,8 +124,9 @@ def main(argv=None) -> None:
     ap.add_argument("--rank", type=int, required=True)
     ap.add_argument("--world", type=int, required=True)
     ap.add_argument("--port", type=int, required=True)
-    ap.add_argument("--backend", default="gloo")
-    ap.add_argument("--device", default="cpu")
+    ap.add_argument("--backend", default=None,
+                    help="default: NCCL for CUDA ranks, gloo for CPU ranks")
+    ap.add_argument("--device", default="cuda", help="'cpu' runs the rank on the CPU")
     ap.add_argument("--timeout", type=float, default=300.0)
     ap.add_argument("--kwargs", required=True)
     ap.add_argument("--out", required=True)

@@ -99,7 +99,7 @@ def runs(tmp_path_factory):
         with concurrent.futures.ThreadPoolExecutor(2) as pool:
             futures = {name: pool.submit(run_ranks, f"{RANKS}:split_head", n_data * n_model,
                                          {"workdir": str(work), "mesh_shape": [n_data, n_model]},
-                                         timeout=TIMEOUT)
+                                         device="cpu", timeout=TIMEOUT)
                        for name, (n_data, n_model) in MESHES.items()}
             torch.set_num_threads(1)
             unsplit = ranks.fine_tune(flat)

@@ -67,7 +67,8 @@ def cluster(tmp_path_factory):
     work = tmp_path_factory.mktemp("parallel")
     model, params = _jax_params()
     np.savez(work / "params.npz", **_flat(params))
-    results = run_ranks(f"{RANKS}:scenarios", 2, {"workdir": str(work)}, timeout=240)
+    results = run_ranks(f"{RANKS}:scenarios", 2, {"workdir": str(work)}, device="cpu",
+                        timeout=240)
     return model, params, results
 
 
