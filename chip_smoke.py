@@ -24,23 +24,28 @@ Phases, each of which raises on failure:
    too; two flagship runs in each dtype must give bitwise-equal results.
 2b. Hold K2 (forward + weighted MSE + backward) against plain K2 over the
    same configs, with and without point weights: bfloat16 sine chains
-   through the tensor-core kernel (``shapenet_bwd_tc.cu``), float32 and
-   vanilla chains through the CUDA-core one (``shapenet_bwd.cu``), each
-   checked by its launch counter; the tensor-core kernel also on the padded,
-   narrow and wide shapes of K8's (``K2_TC_EXTRA``, P = 200); at the
-   flagship shape in bfloat16 the tensor-core kernel and the CUDA-core one on
-   the same inputs, and the CUDA-core kernel in float32 at G=8; two bfloat16
-   flagship runs, and two float32 ones at G=8, must give bitwise-equal
-   results.
+   through the tensor-core body ``k2_variant`` routes them to (the wgmma
+   body of ``shapenet_bwd_wgmma.cu`` at widths 64 and 128, the ``mma.sync``
+   body of ``shapenet_bwd_tc.cu`` else), float32 and vanilla chains through
+   the CUDA-core one (``shapenet_bwd.cu``), each checked by its launch
+   counters; the ``mma.sync`` body also on the padded, narrow and wide
+   shapes of K8's (``K2_TC_EXTRA``, P = 200); the wgmma and the ``mma.sync``
+   bodies each on the CASES chains the wgmma body takes (P = 200, weighted
+   and not) and at the flagship shape, their losses within TC_LOSS_REL of
+   each other; at the flagship shape in bfloat16 the CUDA-core kernel on the
+   same inputs, and the CUDA-core kernel in float32; two bfloat16 flagship
+   runs of each tensor-core body, and two float32 ones, must give
+   bitwise-equal results.
 2c. Hold K3 (the backward of K1) against plain K3 over the same configs,
    each call one launch of the kernel ``k3_variant`` picks (bfloat16 sine
-   chains the tensor-core kernel of ``shapenet_bwd_tc.cu``, beside the
-   tensor-core K2; float32 and vanilla chains the CUDA-core one; float32
-   within 5e-6 of max|plain|), the tensor-core kernel also on
-   ``K2_TC_EXTRA`` (P = 200), and at the flagship shape (G=32) in bfloat16
-   (the tensor-core kernel, and the CUDA-core one on the same inputs; two
-   tensor-core runs must give the same bits and agree with the CUDA-core
-   one within BF16_REL) and float32, where two runs must give the same bits;
+   chains a tensor-core body, as K2's; float32 and vanilla chains the
+   CUDA-core one; float32 within 5e-6 of max|plain|), the ``mma.sync`` body
+   also on ``K2_TC_EXTRA`` (P = 200), both tensor-core bodies on the CASES
+   chains the wgmma body takes (P = 200), and at the flagship shape (G=32)
+   in bfloat16 (each tensor-core body, and the CUDA-core one on the same
+   inputs; two runs of each tensor-core body must give the same bits and
+   agree with the CUDA-core one within BF16_REL) and float32, where two
+   runs must give the same bits;
    differentiate ``apply_grouped`` on the card through K1 + K3 and through
    the eager path, and compare the ParameterNet gradients, under the
    flagship's bfloat16 policy (one tensor-core K1 and one tensor-core K3)
@@ -53,23 +58,27 @@ Phases, each of which raises on failure:
    the same model under the float32 policy (one launch of the CUDA-core K1,
    its geometry's body "simt").
 3b. Train the flagship: ``GroupedTrainer.step`` with Adam at G=32, P=32768
-   (one launch of the tensor-core K2 per step, the first step's loss and
-   gradients against plain K2 and autograd through the ParameterNet), one
-   step of the same model under the float32 policy (one launch of the
-   CUDA-core K2, none of the tensor-core one), then a short ``fit`` on a
-   smooth traveling wave (60 tensor-core launches) whose last epoch loss
-   must be below its first.
+   (one launch of the routed tensor-core K2 body per step, the first step's
+   loss and gradients against plain K2 and autograd through the
+   ParameterNet); the ``mma.sync`` body's own path: one step of bench.py's
+   w256_d2 chain (width 256, which the wgmma body refuses) and one
+   ``apply_grouped`` backward of it, one ``mma.sync`` K2 and K3 launch; one
+   step of the flagship under the float32 policy (one launch of the
+   CUDA-core K2, none of a tensor-core one), then a short ``fit`` on a
+   smooth traveling wave (60 launches of the routed body) whose last epoch
+   loss must be below its first.
 4. Time the bfloat16 tensor-core K1, the CUDA-core K1 on the same bfloat16
    inputs and in float32, their plain versions and the end-to-end
    ``apply_grouped`` and ``predict_grouped`` with CUDA events, and compute
    K1's bounds on this card; then the float32 policy's ``apply_grouped``
    (mean of 20) and ``predict_grouped`` from host arrays (mean of 5), each on
    the device clock and on the host clock.
-4b. Time the flagship train step and its stages, the bfloat16 tensor-core
-   K2, the CUDA-core K2 on the same bfloat16 inputs and in float32, the
-   bfloat16 tensor-core K3, the CUDA-core K3 on the same inputs and in
-   float32, with their plain versions, and compute their bounds on this
-   card; then the float32 policy's train step (the CUDA-core K2), mean of 10
+4b. Time the flagship train step and its stages, the bfloat16 routed K2,
+   the CUDA-core K2 on the same bfloat16 inputs and in float32, the
+   bfloat16 routed K3, the CUDA-core K3 on the same inputs and in float32,
+   with their plain versions, the wgmma and the ``mma.sync`` K2 and K3 in
+   turns on the same inputs (tc, wgmma, wgmma, tc), and compute their bounds
+   on this card; then the float32 policy's train step (the CUDA-core K2), mean of 10
    on the device clock and on the host clock, and its stages; a
    ``step_report`` line for each of the two steps (points/s, TFLOP/s and
    ``mfu`` against the published bf16 tensor-core or f32 peak).
@@ -559,73 +568,122 @@ def describe_geometry(geo) -> str:
             f"{geo['residuals']} memory, {geo['smem_bytes']} B of shared memory")
 
 
-def check_k2(torch, cfg, variant, G, P, dtype, weighted, seed, simt=False,
+def _body_launches(base, before, body):
+    """``{counter: launches since before}`` of K2 (``base``
+    "shapenet_mse_grads") or K3 ("shapenet_bwd") beside what one launch on
+    ``body`` ("wgmma", "tc" or "simt") adds."""
+    from nif_tpu_torch.ops import _build
+
+    names = (base, base + "_tc", base + "_wg")
+    got = {k: _build.LAUNCHES[k] - before[k] for k in names}
+    want = {base: 1, base + "_tc": int(body == "tc"), base + "_wg": int(body == "wgmma")}
+    return got, want
+
+
+def check_k2(torch, cfg, variant, G, P, dtype, weighted, seed, kernel=None,
              f32_bound=5e-6) -> float:
-    """K2 vs plain K2; returns max |d_wb - plain d_wb|. A bfloat16 call on a
-    sine chain must launch the tensor-core kernel (``simt``: the CUDA-core
-    kernel on the same inputs, through its private launcher), a float32 or
-    vanilla one the CUDA-core kernel.
+    """K2 vs plain K2; returns max |d_wb - plain d_wb|. The call launches one
+    K2 on ``kernel`` ("wgmma", "tc" or "simt", through the private launcher
+    that names it) or, by default, on the body ``k2_variant`` routes the
+    chain to: a bfloat16 sine chain one of the tensor-core bodies, a float32
+    or vanilla one the CUDA-core kernel.
 
     float32: loss rel 1e-5 and max|d| <= f32_bound max|plain| for d_wb (by
     default 5e-6, the JAX kernel test's bound at its shapes). bfloat16: loss
     rel BF16_LOSS_REL and max|d| <= BF16_REL max|plain|."""
     from nif_tpu_torch.ops import _build
     from nif_tpu_torch.ops.fused_shapenet import (
-        _shapenet_mse_grads_simt, k2_geometry, shapenet_mse_grads_cuda,
+        _shapenet_mse_grads_on, k2_geometry, shapenet_mse_grads_cuda,
         shapenet_mse_grads_reference)
 
     wb, x = chain_data(torch, cfg, G, P, dtype, seed)
     tgt, w, _ = side_data(torch, cfg, G, P, seed)
     w = w if weighted else None
+    geo = k2_geometry(cfg, variant, G, P, dtype, kernel=kernel)
     before = dict(_build.LAUNCHES)
-    launch = _shapenet_mse_grads_simt if simt else shapenet_mse_grads_cuda
-    loss, d_wb = launch(wb, x, tgt, cfg, variant, w)
+    if kernel is None:
+        loss, d_wb = shapenet_mse_grads_cuda(wb, x, tgt, cfg, variant, w)
+    else:
+        loss, d_wb = _shapenet_mse_grads_on(kernel, wb, x, tgt, cfg, variant, w)
     l_ref, g_ref = shapenet_mse_grads_reference(wb, x, tgt, cfg, variant, w)
     torch.cuda.synchronize()
-    tc = int(dtype == torch.bfloat16 and variant == "siren" and not simt)
-    what = (f"K2 {describe(cfg, variant, G, P, dtype)} weighted={weighted}"
-            f"{' (CUDA-core kernel)' if simt else ''}")
-    if (_build.LAUNCHES["shapenet_mse_grads"] != before["shapenet_mse_grads"] + 1
-            or _build.LAUNCHES["shapenet_mse_grads_tc"] != before["shapenet_mse_grads_tc"] + tc):
-        raise AssertionError(f"{what}: launched {_build.LAUNCHES} after {before}")
+    what = (f"K2 {describe(cfg, variant, G, P, dtype)} weighted={weighted} "
+            f"({geo['kernel']} body{'' if kernel is None else ', named'})")
+    tensor_cores = dtype == torch.bfloat16 and variant == "siren" and kernel != "simt"
+    got, want = _body_launches("shapenet_mse_grads", before, geo["kernel"])
+    if got != want or tensor_cores != (geo["kernel"] != "simt"):
+        raise AssertionError(f"{what}: launched {got}, not {want}")
     if d_wb.dtype != wb.dtype or d_wb.shape != g_ref.shape or loss.dtype != torch.float32:
         raise AssertionError(f"{what}: {d_wb.shape}/{d_wb.dtype} vs {g_ref.shape}/{g_ref.dtype}")
     err, scale = max_diff(torch, d_wb, g_ref, what)
     l_rel = abs(float(loss) - float(l_ref)) / max(abs(float(l_ref)), 1e-30)
     bound, l_bound = (f32_bound, 1e-5) if dtype == torch.float32 else (BF16_REL, BF16_LOSS_REL)
-    geo = k2_geometry(cfg, variant, G, P, dtype, kernel="simt" if simt else None)
     log(f"{what} loss {float(loss):.6e} (rel {l_rel:.2e}) d_wb max|d|={err:.3e} "
-        f"max|plain|={scale:.3e} ({err / scale:.2e} of it); {geo['kernel']} kernel, residuals "
-        f"in {geo['residuals']} memory, {geo['splits']} splits of {geo['tile']}-point tiles")
+        f"max|plain|={scale:.3e} ({err / scale:.2e} of it); residuals in {geo['residuals']} "
+        f"memory, {geo['splits']} splits of {geo['tile']}-point tiles")
     if not np.isfinite(float(loss)) or l_rel > l_bound or err > bound * scale:
         raise AssertionError(f"{what}: loss rel {l_rel} (bound {l_bound}), d_wb max|d| "
                              f"{err} > {bound} * {scale}")
     return err
 
 
-def check_k3(torch, cfg, variant, G, P, dtype, seed, f32_bound=5e-6, simt=False) -> float:
+def _wg_takes(torch, cfg, k3=False) -> bool:
+    """Whether the wgmma K2 (``k3``: K3) body's geometry takes a bf16 sine
+    chain (at G = 3, P = 200; its layout does not depend on G or P)."""
+    from nif_tpu_torch.ops.fused_shapenet import _wg_status
+
+    return _wg_status("backward" if k3 else "train", cfg, "siren", 3, 200)[0] == 0
+
+
+def check_k2_bodies(torch, cfg, G, P, weighted, seed) -> dict:
+    """The wgmma and the mma.sync K2 on the same bf16 inputs: each against
+    plain K2 (``check_k2``), and their losses within TC_LOSS_REL of each
+    other (each product is exact in both; only the order of the f32 sums
+    differs). Returns ``{body: max |d_wb - plain d_wb|}``."""
+    from nif_tpu_torch.ops.fused_shapenet import _shapenet_mse_grads_on
+
+    errs = {body: check_k2(torch, cfg, "siren", G, P, torch.bfloat16, weighted, seed,
+                           kernel=body) for body in ("wgmma", "tc")}
+    wb, x = chain_data(torch, cfg, G, P, torch.bfloat16, seed)
+    tgt, w, _ = side_data(torch, cfg, G, P, seed)
+    w = w if weighted else None
+    losses = [float(_shapenet_mse_grads_on(body, wb, x, tgt, cfg, "siren", w)[0])
+              for body in ("wgmma", "tc")]
+    rel = abs(losses[0] - losses[1]) / max(abs(losses[1]), 1e-30)
+    log(f"K2 {describe(cfg, 'siren', G, P, torch.bfloat16)} weighted={weighted}: the wgmma "
+        f"body's loss {losses[0]:.8e} against the mma.sync body's {losses[1]:.8e}, rel {rel:.2e}")
+    if rel > TC_LOSS_REL:
+        raise AssertionError(f"the wgmma and mma.sync K2 losses differ by {rel} > {TC_LOSS_REL}")
+    return errs
+
+
+def check_k3(torch, cfg, variant, G, P, dtype, seed, f32_bound=5e-6, kernel=None) -> float:
     """K3 vs plain K3 on d_wb and dx; returns max |d_wb - plain d_wb|. Each
-    call must launch the kernel ``k3_variant`` picks once (``simt``: the
-    CUDA-core kernel on the same inputs, through its private launcher).
+    call must launch one K3 on ``kernel`` ("wgmma", "tc" or "simt", through
+    the private launcher that names it) or, by default, the body
+    ``k3_variant`` routes the chain to.
 
     float32: max|d| <= f32_bound max|plain| for d_wb and dx (by default
     5e-6, K2's bound at these shapes; 5e-5, the JAX package's bound for its
     fused backward, at the flagship's scale); bfloat16: BF16_REL."""
     from nif_tpu_torch.ops import _build
     from nif_tpu_torch.ops.fused_shapenet import (
-        _shapenet_bwd_simt, k3_variant, shapenet_bwd_cuda, shapenet_fused_bwd_reference)
+        _shapenet_bwd_on, k3_geometry, shapenet_bwd_cuda, shapenet_fused_bwd_reference)
 
     wb, x = chain_data(torch, cfg, G, P, dtype, seed)
     g = side_data(torch, cfg, G, P, seed)[2].to(dtype)
-    kernel = "simt" if simt else k3_variant(dtype, cfg, variant)
+    body = k3_geometry(cfg, variant, G, P, dtype, kernel=kernel)["kernel"]
     before = dict(_build.LAUNCHES)
-    d_wb, dx = (_shapenet_bwd_simt if simt else shapenet_bwd_cuda)(wb, x, g, cfg, variant)
+    if kernel is None:
+        d_wb, dx = shapenet_bwd_cuda(wb, x, g, cfg, variant)
+    else:
+        d_wb, dx = _shapenet_bwd_on(kernel, wb, x, g, cfg, variant)
     r_wb, r_dx = shapenet_fused_bwd_reference(wb, x, g, cfg, variant)
     torch.cuda.synchronize()
-    what = f"K3 {describe(cfg, variant, G, P, dtype)} ({kernel})"
-    launched = {k: _build.LAUNCHES[k] - before[k] for k in ("shapenet_bwd", "shapenet_bwd_tc")}
-    if launched != {"shapenet_bwd": 1, "shapenet_bwd_tc": int(kernel == "tc")}:
-        raise AssertionError(f"{what}: launched {launched}, not one {kernel} K3")
+    what = f"K3 {describe(cfg, variant, G, P, dtype)} ({body})"
+    got, want = _body_launches("shapenet_bwd", before, body)
+    if got != want:
+        raise AssertionError(f"{what}: launched {got}, not one {body} K3")
     if d_wb.dtype != wb.dtype or dx.dtype != x.dtype or dx.shape != x.shape:
         raise AssertionError(f"{what}: d_wb {d_wb.dtype}, dx {dx.shape}/{dx.dtype}")
     err, scale = max_diff(torch, d_wb, r_wb, what + " d_wb")
@@ -1180,6 +1238,24 @@ def build_all(names):
     return secs
 
 
+def bf16_body_counter(base: str) -> str:
+    """The launch counter of the bf16 body that K2 (``base``
+    "shapenet_mse_grads") or K3 ("shapenet_bwd") takes for a flagship-width
+    sine chain, which every model this script trains or differentiates in
+    bf16 is: ``base + "_wg"`` on the wgmma body, ``base + "_tc"`` on the
+    ``mma.sync`` body, as ``k2_variant``/``k3_variant`` route it (they ask
+    the built libraries)."""
+    import torch
+
+    from nif_tpu_torch.config import ShapeNetConfig
+    from nif_tpu_torch.ops.fused_shapenet import k2_variant, k3_variant
+    from nif_tpu_torch.utils.bench import FLAGSHIP_SHAPE
+
+    pick = k2_variant if base == "shapenet_mse_grads" else k3_variant
+    body = pick(torch.bfloat16, ShapeNetConfig.from_dict(FLAGSHIP_SHAPE), "siren")
+    return base + {"wgmma": "_wg", "tc": "_tc"}[body]
+
+
 def tutorial8_data(G, P, seed):
     """Host arrays of tutorial 8's shapes: parameters t [G, 1], coordinates
     x [G, P, 1] in [-1, 1], values u [G, P, 1] and Jacobian targets
@@ -1227,15 +1303,15 @@ def wave_hessian(t, x):
 # the flagship step shape, 32 groups of 32768 points, drawn on the device.
 RESIDENT_G, RESIDENT_P = 64, 65536
 RESIDENT_GB, RESIDENT_PB = 32, 32768
-# The main kernel of each fused pass as a torch.profiler trace names it,
-# (tensor-core, CUDA-core); the CUDA-core K3 shares K2's CUDA-core kernel,
-# so a CUDA-core K2 count above the replays would be a K3.
+# The main kernels of each fused pass as a torch.profiler trace names them,
+# (tensor-core bodies, CUDA-core); the CUDA-core K3 shares K2's CUDA-core
+# kernel, so a CUDA-core K2 count above the replays would be a K3.
 PASS_KERNELS = {
-    "K1": ("fwd_tc_kernel", "fwd_simt_kernel"),
-    "K2": ("mse_tc_kernel", "simt_train_kernel"),
-    "K3": ("bwd_tc_kernel", None),
-    "K6": ("sob_tc_kernel", "sob_simt_kernel"),
-    "K8": ("hess_tc_kernel", "hess_simt_kernel"),
+    "K1": (("fwd_tc_kernel",), "fwd_simt_kernel"),
+    "K2": (("mse_tc_kernel", "mse_wg_kernel"), "simt_train_kernel"),
+    "K3": (("bwd_tc_kernel", "bwd_wg_kernel"), None),
+    "K6": (("sob_tc_kernel",), "sob_simt_kernel"),
+    "K8": (("hess_tc_kernel",), "hess_simt_kernel"),
 }
 
 
@@ -1271,9 +1347,11 @@ def kernel_count(kernels, name: str) -> int:
 
 
 def pass_counts(kernels):
-    """``{"K1": (tc, simt), ...}``: launches of each pass's two kernels."""
-    return {p: tuple(kernel_count(kernels, n) if n else 0 for n in names)
-            for p, names in PASS_KERNELS.items()}
+    """``{"K1": (tc, simt), ...}``: launches of each pass's tensor-core
+    kernels (the wgmma and mma.sync bodies together) and its CUDA-core one."""
+    return {p: (sum(kernel_count(kernels, n) for n in tcs),
+                kernel_count(kernels, simt) if simt else 0)
+            for p, (tcs, simt) in PASS_KERNELS.items()}
 
 
 def profiled_fit(torch, trainer, state, *args, **kw):
@@ -1782,7 +1860,9 @@ def lbfgs_fit(torch, log, what, opt, wrapper, tc, max_iter=LBFGS_ITERS, dtype=No
     else:
         want = {wrapper: per_eval * counts["evaluations"]}
         if tc:
-            want[wrapper + "_tc"] = per_eval * counts["evaluations"]
+            tc_counter = (bf16_body_counter(wrapper)
+                          if wrapper in ("shapenet_mse_grads", "shapenet_bwd") else wrapper + "_tc")
+            want[tc_counter] = per_eval * counts["evaluations"]
     got = {k: v for k, v in launches.items() if v}
     rose = any(b > a + 1e-6 * abs(a) for a, b in zip(h, h[1:]))
     if got != want or not all(np.isfinite(h)) or rose:
@@ -1912,7 +1992,7 @@ def phase_stream(torch, log, root):
         rst, ref_loss = ref.step(rst, *host[k][1:5])
         same.append(loss == float(ref_loss))
         losses.append(loss)
-        if launches != {"shapenet_mse_grads": 1, "shapenet_mse_grads_tc": 1}:
+        if launches != {"shapenet_mse_grads": 1, bf16_body_counter("shapenet_mse_grads"): 1}:
             raise AssertionError(f"streamed step {k} launched {launches}")
     same_params = all(torch.equal(a, b) for a, b in
                       zip(tr.model.parameters(), ref.model.parameters()))
@@ -2341,7 +2421,8 @@ def pruning_phase(torch, log, smi, resident_np):
     log(f"3l MagnitudePruning(adam, 0.5, end_step=4, every 2) on the flagship, 6 steps G=32 "
         f"P=32768: losses {losses}; launches {launches}; prunable sparsity {sp:.6f} (least of "
         f"a tensor {worst:.6f}); masks frozen after step 4 and pruned entries exactly 0: {held}")
-    if (not held or launches["shapenet_mse_grads_tc"] != 6 or not np.all(np.isfinite(losses))):
+    if (not held or launches[bf16_body_counter("shapenet_mse_grads")] != 6
+            or not np.all(np.isfinite(losses))):
         raise AssertionError(f"pruned training: held {held}, launches {launches}")
     del trainer, state, batch
     same_loss, same_params, hist, eager = resident_vs_eager_with(torch, make, (t, x, u))
@@ -2424,7 +2505,8 @@ def phase_cli(torch, log, smi):
         f"ms a step on the host clock with the dataset stream, checkpoints each epoch and "
         f"the first step's warm-up (card {smi})")
     if (not np.all(np.isfinite(epochs)) or len(epochs) != CLI_EPOCHS
-            or not epochs[-1] < epochs[0] or train_launches["shapenet_mse_grads_tc"] != steps
+            or not epochs[-1] < epochs[0]
+            or train_launches[bf16_body_counter("shapenet_mse_grads")] != steps
             or train_launches["shapenet_mse_grads"] != steps):
         raise AssertionError(f"cli train: losses {epochs}, launches {train_launches}")
 
@@ -2595,7 +2677,7 @@ def ranks_3n(seed: int) -> dict:
         torch.cuda.synchronize()
         out["lbfgs"][name] = {
             "loss": [float(v) for v in opt.history["loss"]], "counts": dict(opt.counts),
-            "k2": _build.LAUNCHES["shapenet_mse_grads_tc"],
+            "k2": _build.LAUNCHES[bf16_body_counter("shapenet_mse_grads")],
             "ms_iter": (time.perf_counter() - t0) * 1e3 / max(opt.counts["iterations"], 1),
             "head_rows": int(tr.model.pnet.params["last"]["w"].shape[0])}
         del tr, opt
@@ -2670,7 +2752,8 @@ def phase_two_ranks(torch, log, smi):
             or rel(r0["zero1_losses"][1], r0["zero1_losses"][0]) > BF16_LOSS_REL
             or r0["zero1_vs_replicated"] > BF16_REL or not r0["zero1_owned"][2]
             or not 0 < r0["zero1_owned"][0] < r0["zero1_owned"][1]
-            or eval_rel > 1e-5 or r0["dp_launches"]["shapenet_mse_grads_tc"] != MESH_STEPS
+            or eval_rel > 1e-5
+            or r0["dp_launches"][bf16_body_counter("shapenet_mse_grads")] != MESH_STEPS
             or not np.all(np.isfinite(r0["dp_losses"]))):
         raise AssertionError(f"two ranks over gloo departs: {r0} / {r1}")
     return r0["dp_ms"], alone_ms
@@ -2869,7 +2952,7 @@ def phase_examples(torch, log, smi):
     want = {p: (0, 0) for p in PASS_KERNELS}
     want.update(K1=(1, 0), K2=(steps, 0))
     if (steps != PAPER_EPOCHS * (r["n_train"] // 8) or counts != want
-            or launches["shapenet_mse_grads_tc"] != 1 + captures
+            or launches[bf16_body_counter("shapenet_mse_grads")] != 1 + captures
             or launches["shapenet_fwd_tc"] != 1 or not hist["loss"][-1] < hist["loss"][0]
             or not np.isfinite(r["err"]) or u_fine != (G - r["n_train"], 2 * P, 1)
             or (G, P) != (64, 262144)):
@@ -2941,9 +3024,10 @@ def phase_examples(torch, log, smi):
         final, _ = _quiet(lambda: m05.grouped_streaming_demo(workdir=work, epochs=2))
         got = dict(_build.LAUNCHES)
     log(f"3p tutorial 5 grouped_streaming_demo (2 epochs): final loss {final:.4e}; K2 launches "
-        f"{got['shapenet_mse_grads']} (tensor-core {got['shapenet_mse_grads_tc']}); "
-        f"{time.perf_counter() - t0:.1f} s")
-    if not np.isfinite(final) or got["shapenet_mse_grads"] != 8 or got["shapenet_mse_grads_tc"]:
+        f"{got['shapenet_mse_grads']} (mma.sync {got['shapenet_mse_grads_tc']}, wgmma "
+        f"{got['shapenet_mse_grads_wg']}); {time.perf_counter() - t0:.1f} s")
+    if (not np.isfinite(final) or got["shapenet_mse_grads"] != 8 or got["shapenet_mse_grads_tc"]
+            or got["shapenet_mse_grads_wg"]):
         raise AssertionError(f"tutorial 5 grouped: {final}, launches {got}")
 
     # tutorial 1: Adam, a checkpoint round trip and L-BFGS on the card
@@ -2996,8 +3080,8 @@ def main() -> int:
     from nif_tpu_torch.ops.fused_linear import (
         linear_geometry, niflinear_mse_grads_cuda, niflinear_mse_grads_reference)
     from nif_tpu_torch.ops.fused_shapenet import (
-        _shapenet_bwd_simt, _shapenet_fwd_simt, _shapenet_mse_grads_simt, k1_geometry,
-        k1_variant, shapenet_bwd_cuda,
+        _shapenet_bwd_on, _shapenet_bwd_simt, _shapenet_fwd_simt, _shapenet_mse_grads_on,
+        _shapenet_mse_grads_simt, k1_geometry, k1_variant, shapenet_bwd_cuda,
         shapenet_fused_bwd_reference, shapenet_fwd_cuda, shapenet_grouped_fused_reference,
         shapenet_mse_grads_cuda, shapenet_mse_grads_reference)
     from nif_tpu_torch.ops.derivatives import output_and_jacobian_grouped
@@ -3024,8 +3108,8 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {name}")
     log(f"card: {smi}")
     build_all(["shapenet_fwd", "shapenet_fwd_tc", "shapenet_bwd", "shapenet_bwd_tc",
-               "shapenet_jac", "shapenet_jac_tc", "shapenet_hess", "shapenet_hess_tc",
-               "shapenet_linear", "shapenet_linear_tc"])
+               "shapenet_bwd_wgmma", "shapenet_jac", "shapenet_jac_tc", "shapenet_hess",
+               "shapenet_hess_tc", "shapenet_linear", "shapenet_linear_tc"])
     peaks = card_peaks(name)
     flag_cfg = ShapeNetConfig.from_dict(FLAGSHIP_SHAPE)
 
@@ -3068,12 +3152,12 @@ def main() -> int:
         for dtype in (torch.float32, torch.bfloat16):
             for weighted in (False, True):
                 check_k2(torch, ShapeNetConfig(*args), variant, 3, 256, dtype, weighted, seed=i)
-    for i, args in enumerate(K2_TC_EXTRA):
+    for i, args in enumerate(K2_TC_EXTRA):  # the mma.sync body, named
         for weighted in (False, True):
             check_k2(torch, ShapeNetConfig(*args), "siren", 3, 200, torch.bfloat16, weighted,
-                     seed=140 + i)
-    k2_err = check_k2(torch, flag_cfg, "siren", 32, 32768, torch.bfloat16, False, seed=12)
-    check_k2(torch, flag_cfg, "siren", 32, 32768, torch.bfloat16, False, seed=12, simt=True)
+                     seed=140 + i, kernel="tc")
+    check_k2(torch, flag_cfg, "siren", 32, 32768, torch.bfloat16, False, seed=12)
+    check_k2(torch, flag_cfg, "siren", 32, 32768, torch.bfloat16, False, seed=12, kernel="simt")
     # f32 at the flagship train shape (G=32 x P=32768, the float32-policy
     # step's, so the kernel's splits and order of sums are the timed ones),
     # unweighted as the step calls it and weighted: the weight grads sum
@@ -3081,22 +3165,36 @@ def main() -> int:
     # fused backward's bound (K3's, the f32 K6's) holds there
     k2f_err = max(check_k2(torch, flag_cfg, "siren", 32, 32768, torch.float32, weighted,
                            seed=16, f32_bound=5e-5) for weighted in (False, True))
-    wb, x = chain_data(torch, flag_cfg, 32, 32768, torch.bfloat16, seed=13)
-    tgt, w = side_data(torch, flag_cfg, 32, 32768, seed=13)[:2]
-    before = _build.LAUNCHES["shapenet_mse_grads_tc"]
-    runs = [shapenet_mse_grads_cuda(wb, x, tgt, flag_cfg, "siren", w) for _ in range(2)]
-    if _build.LAUNCHES["shapenet_mse_grads_tc"] != before + 2:
-        raise AssertionError("the flagship bf16 K2 runs did not take the tensor-core kernel")
-    if not (torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])):
-        raise AssertionError("K2 is not deterministic: two runs on one input differ")
-    log("K2 flagship bf16 (G=32, P=32768, weighted, tensor cores): two runs give bitwise-equal "
-        "loss and d_wb")
+    # the wgmma body and the mma.sync body on the CASES chains the wgmma body
+    # takes, with and without point weights, at a ragged P, each against
+    # plain K2 and the two losses against each other; then both at the
+    # flagship, and two runs of each there bit for bit
+    for i, (variant, args) in enumerate(CASES):
+        cfg = ShapeNetConfig(*args)
+        if variant == "siren" and _wg_takes(torch, cfg):
+            for weighted in (False, True):
+                check_k2_bodies(torch, cfg, 3, 200, weighted, seed=120 + i)
+    k2_body_errs = check_k2_bodies(torch, flag_cfg, 32, 32768, False, seed=12)
+    for body in ("wgmma", "tc"):
+        wb, x = chain_data(torch, flag_cfg, 32, 32768, torch.bfloat16, seed=13)
+        tgt, w = side_data(torch, flag_cfg, 32, 32768, seed=13)[:2]
+        before = dict(_build.LAUNCHES)
+        runs = [_shapenet_mse_grads_on(body, wb, x, tgt, flag_cfg, "siren", w) for _ in range(2)]
+        got, want = _body_launches("shapenet_mse_grads", before, body)
+        if {k: v // 2 for k, v in got.items()} != want:
+            raise AssertionError(f"the flagship bf16 {body} K2 runs launched {got}")
+        if not (torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])):
+            raise AssertionError(f"the {body} K2 is not deterministic: two runs on one input "
+                                 f"differ")
+        log(f"K2 flagship bf16 (G=32, P=32768, weighted, the {body} body): two runs give "
+            f"bitwise-equal loss and d_wb")
     wb, x = chain_data(torch, flag_cfg, 32, 32768, torch.float32, seed=17)
     tgt, w = side_data(torch, flag_cfg, 32, 32768, seed=17)[:2]
     before = dict(_build.LAUNCHES)
     runs = [shapenet_mse_grads_cuda(wb, x, tgt, flag_cfg, "siren", w) for _ in range(2)]
     if (_build.LAUNCHES["shapenet_mse_grads"] != before["shapenet_mse_grads"] + 2
-            or _build.LAUNCHES["shapenet_mse_grads_tc"] != before["shapenet_mse_grads_tc"]):
+            or _build.LAUNCHES["shapenet_mse_grads_tc"] != before["shapenet_mse_grads_tc"]
+            or _build.LAUNCHES["shapenet_mse_grads_wg"] != before["shapenet_mse_grads_wg"]):
         raise AssertionError("the flagship f32 K2 runs did not take the CUDA-core kernel")
     if not (torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])):
         raise AssertionError("the f32 K2 is not deterministic: two runs on one input differ")
@@ -3108,32 +3206,46 @@ def main() -> int:
     for i, (variant, args) in enumerate(CASES):
         for dtype in (torch.float32, torch.bfloat16):
             check_k3(torch, ShapeNetConfig(*args), variant, 3, 256, dtype, seed=i)
-    for i, args in enumerate(K2_TC_EXTRA):  # the tensor-core K3 on the tensor-core K2's shapes
-        check_k3(torch, ShapeNetConfig(*args), "siren", 3, 200, torch.bfloat16, seed=150 + i)
-    k3_err = check_k3(torch, flag_cfg, "siren", 32, 32768, torch.bfloat16, seed=14)
+    for i, args in enumerate(K2_TC_EXTRA):  # the mma.sync K3 on the mma.sync K2's shapes
+        check_k3(torch, ShapeNetConfig(*args), "siren", 3, 200, torch.bfloat16, seed=150 + i,
+                 kernel="tc")
+    # the wgmma body on the CASES chains it takes (ragged P), beside the
+    # mma.sync body
+    for i, (variant, args) in enumerate(CASES):
+        cfg = ShapeNetConfig(*args)
+        if variant == "siren" and _wg_takes(torch, cfg, k3=True):
+            for body in ("wgmma", "tc"):
+                check_k3(torch, cfg, variant, 3, 200, torch.bfloat16, seed=130 + i, kernel=body)
+    check_k3(torch, flag_cfg, "siren", 32, 32768, torch.bfloat16, seed=14)
+    k3_body_errs = {body: check_k3(torch, flag_cfg, "siren", 32, 32768, torch.bfloat16,
+                                   seed=14, kernel=body) for body in ("wgmma", "tc")}
     k3_simt_err = check_k3(torch, flag_cfg, "siren", 32, 32768, torch.bfloat16, seed=14,
-                           simt=True)
-    # the tensor-core K3 against the CUDA-core one on the same bf16 inputs, and
-    # two tensor-core flagship runs
+                           kernel="simt")
+    # each tensor-core K3 against the CUDA-core one on the same bf16 inputs,
+    # and two flagship runs of each
     wb, x = chain_data(torch, flag_cfg, 32, 32768, torch.bfloat16, seed=20)
     g = side_data(torch, flag_cfg, 32, 32768, seed=20)[2].to(torch.bfloat16)
-    before = _build.LAUNCHES["shapenet_bwd_tc"]
-    runs = [shapenet_bwd_cuda(wb, x, g, flag_cfg, "siren") for _ in range(2)]
-    if _build.LAUNCHES["shapenet_bwd_tc"] != before + 2:
-        raise AssertionError("the flagship bf16 K3 runs did not take the tensor-core kernel")
-    if not (torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])):
-        raise AssertionError("K3 is not deterministic: two runs on one input differ")
     simt_out = _shapenet_bwd_simt(wb, x, g, flag_cfg, "siren")
-    gaps = []
-    for what, mine, other in zip(("d_wb", "dx"), runs[0], simt_out):
-        err, scale = max_diff(torch, mine, other, f"K3 flagship bf16 tc vs simt {what}")
-        gaps.append(err / scale)
-        if err > BF16_REL * scale:
-            raise AssertionError(f"the tensor-core K3's {what} is {err} from the CUDA-core "
-                                 f"K3's, beyond {BF16_REL} of {scale}")
-    log(f"K3 flagship bf16 (G=32, P=32768, tensor cores): two runs give bitwise-equal d_wb and "
-        f"dx; against the CUDA-core K3 on the same inputs d_wb {gaps[0]:.2e}, dx {gaps[1]:.2e} "
-        f"of max|CUDA-core| (plain: tensor cores {k3_err:.3e}, CUDA cores {k3_simt_err:.3e})")
+    for body in ("wgmma", "tc"):
+        before = dict(_build.LAUNCHES)
+        runs = [_shapenet_bwd_on(body, wb, x, g, flag_cfg, "siren") for _ in range(2)]
+        got, want = _body_launches("shapenet_bwd", before, body)
+        if {k: v // 2 for k, v in got.items()} != want:
+            raise AssertionError(f"the flagship bf16 {body} K3 runs launched {got}")
+        if not (torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])):
+            raise AssertionError(f"the {body} K3 is not deterministic: two runs on one input "
+                                 f"differ")
+        gaps = []
+        for what, mine, other in zip(("d_wb", "dx"), runs[0], simt_out):
+            err, scale = max_diff(torch, mine, other, f"K3 flagship bf16 {body} vs simt {what}")
+            gaps.append(err / scale)
+            if err > BF16_REL * scale:
+                raise AssertionError(f"the {body} K3's {what} is {err} from the CUDA-core "
+                                     f"K3's, beyond {BF16_REL} of {scale}")
+        log(f"K3 flagship bf16 (G=32, P=32768, the {body} body): two runs give bitwise-equal "
+            f"d_wb and dx; against the CUDA-core K3 on the same inputs d_wb {gaps[0]:.2e}, dx "
+            f"{gaps[1]:.2e} of max|CUDA-core| (plain: {body} {k3_body_errs[body]:.3e}, CUDA "
+            f"cores {k3_simt_err:.3e})")
     del wb, x, g, runs, simt_out
     # f32 at the flagship shape K3 is timed at (phase 4b)
     k3f_err = check_k3(torch, flag_cfg, "siren", 32, 32768, torch.float32, seed=18,
@@ -3157,10 +3269,11 @@ def main() -> int:
     torch.cuda.synchronize()
     bwd_path = dict(_build.LAUNCHES)
     eager_grads = torch.autograd.grad(model.apply_grouped(t_g, x_g, fused=False), params, g_g)
-    if (bwd_path["shapenet_bwd"] != 1 or bwd_path["shapenet_bwd_tc"] != 1
+    k3_counter = bf16_body_counter("shapenet_bwd")
+    if (bwd_path["shapenet_bwd"] != 1 or bwd_path[k3_counter] != 1
             or bwd_path["shapenet_fwd"] != 1 or bwd_path["shapenet_fwd_tc"] != 1):
         raise AssertionError(f"apply_grouped under autograd launched {bwd_path}, "
-                             f"not one tensor-core K1 and one tensor-core K3")
+                             f"not one tensor-core K1 and one {k3_counter} K3")
     worst = 0.0
     for (path, _), a, b in zip(model.param_items(), fused_grads, eager_grads):
         if not bool(torch.isfinite(a).all()):
@@ -3184,6 +3297,7 @@ def main() -> int:
     eager_grads = torch.autograd.grad(model_f32.apply_grouped(t_g, x_g, fused=False), params,
                                       g_g)
     if (bwd_f32_path["shapenet_bwd"] != 1 or bwd_f32_path["shapenet_bwd_tc"] != 0
+            or bwd_f32_path["shapenet_bwd_wg"] != 0
             or bwd_f32_path["shapenet_fwd"] != 1 or bwd_f32_path["shapenet_fwd_tc"] != 0):
         raise AssertionError(f"a float32 apply_grouped under autograd launched {bwd_f32_path}, "
                              f"not one CUDA-core K1 and one CUDA-core K3")
@@ -3498,11 +3612,33 @@ def main() -> int:
     losses = [float(v) for v in losses]
     log(f"flagship train: {n_steps} steps, losses {losses}, launches {train_launches}, "
         f"path {trainer.history.get('path')}")
-    if (train_launches["shapenet_mse_grads"] != n_steps
-            or train_launches["shapenet_mse_grads_tc"] != n_steps
+    k2_counter = bf16_body_counter("shapenet_mse_grads")
+    if (train_launches["shapenet_mse_grads"] != n_steps or train_launches[k2_counter] != n_steps
             or not all(np.isfinite(losses))):
         raise AssertionError(f"{n_steps} train steps launched {train_launches}, losses {losses}")
     log(f"step 0's loss equals the K2 call above bit for bit: {losses[0] == float(loss_k)}")
+    # the mma.sync body's own path: bench.py's w256_d2 chain (width 256, whose
+    # weights alone exceed the wgmma body's shared memory) trains one step
+    # and differentiates apply_grouped, each through one mma.sync launch
+    w256_model = nif_tpu_torch.NIFMultiScale(dict(FLAGSHIP_SHAPE, units=256), FLAGSHIP_PNET,
+                                             mixed_policy=FLAGSHIP_POLICY, device="cuda", seed=3)
+    w256_trainer = GroupedTrainer(w256_model, lambda p: torch.optim.Adam(p, lr=FLAGSHIP_TRAIN_LR))
+    w256_state = w256_trainer.init(3)
+    _build.reset_launches()
+    w256_state, w256_loss = w256_trainer.step(w256_state, t_tr, x_tr, u_tr)
+    w256_params = [p for _, p in w256_model.param_items()]
+    w256_grads = torch.autograd.grad(w256_model.apply_grouped(t_g, x_g), w256_params, g_g)
+    torch.cuda.synchronize()
+    w256_launches = dict(_build.LAUNCHES)
+    log(f"w256_d2 (width 256, bf16): one GroupedTrainer.step at G={G} P={P}, loss "
+        f"{float(w256_loss):.6e}, and one apply_grouped backward at G=8 P=4096; launches "
+        f"{({k: v for k, v in w256_launches.items() if v})}")
+    if (w256_launches["shapenet_mse_grads_tc"] != 1 or w256_launches["shapenet_bwd_tc"] != 1
+            or w256_launches["shapenet_mse_grads_wg"] or w256_launches["shapenet_bwd_wg"]
+            or not np.isfinite(float(w256_loss))
+            or not all(bool(torch.isfinite(gr).all()) for gr in w256_grads)):
+        raise AssertionError(f"the w256_d2 step and backward launched {w256_launches}")
+    del w256_model, w256_trainer, w256_state, w256_params, w256_grads
     # the float32 policy: the CUDA-core K2, full f32 products
     f32_mse_trainer = GroupedTrainer(
         nif_tpu_torch.NIFMultiScale(FLAGSHIP_SHAPE, FLAGSHIP_PNET, "float32", device="cuda",
@@ -3516,7 +3652,7 @@ def main() -> int:
     log(f"flagship train, float32 policy: 1 step, loss {float(f32_mse_loss):.6e}, launches "
         f"{mse_f32_launches}")
     if (mse_f32_launches["shapenet_mse_grads"] != 1 or mse_f32_launches["shapenet_mse_grads_tc"]
-            or not np.isfinite(float(f32_mse_loss))):
+            or mse_f32_launches["shapenet_mse_grads_wg"] or not np.isfinite(float(f32_mse_loss))):
         raise AssertionError(f"a float32 train step launched {mse_f32_launches}")
     t_w, x_w, u_w = traveling_wave(16, 8192, seed=2)
     fmodel = nif_tpu_torch.NIFMultiScale(FLAGSHIP_SHAPE, FLAGSHIP_PNET, FLAGSHIP_POLICY,
@@ -3531,10 +3667,10 @@ def main() -> int:
     log(f"fit on a traveling wave (G=16, P=8192, 4096-point batches, 30 epochs): epoch "
         f"losses first {hist[0]:.6e} last {hist[-1]:.6e}; K2 launches {fit_launches}; "
         f"evaluate_metrics {metrics}")
-    if (fit_launches["shapenet_mse_grads"] != 60 or fit_launches["shapenet_mse_grads_tc"] != 60
+    if (fit_launches["shapenet_mse_grads"] != 60 or fit_launches[k2_counter] != 60
             or not hist[-1] < hist[0]):
-        raise AssertionError("the fit did not take the tensor-core K2 for every step or did not "
-                             "lower the loss")
+        raise AssertionError(f"the fit did not take the {k2_counter} K2 for every step or did "
+                             f"not lower the loss")
 
     # ---- phase 3c: Sobolev-train the flagship
     strainer, sstate, (t_s, x_s, u_s, j_s) = flagship_sobolev_step(G, P)
@@ -4089,6 +4225,15 @@ def main() -> int:
                            reps=3, warmup=1)
     del f32_in
     k3_ms = cuda_ms(lambda: shapenet_bwd_cuda(wb, x, g, flag_cfg, "siren"), reps=10, warmup=2)
+    # the wgmma and the mma.sync bodies on the same inputs, in turns
+    body_ms = {}
+    for kernel, body in (("K2", "tc"), ("K2", "wgmma"), ("K2", "wgmma"), ("K2", "tc"),
+                         ("K3", "tc"), ("K3", "wgmma"), ("K3", "wgmma"), ("K3", "tc")):
+        if kernel == "K2":
+            fn = lambda: _shapenet_mse_grads_on(body, wb, x, tgt, flag_cfg, "siren")  # noqa: E731
+        else:
+            fn = lambda: _shapenet_bwd_on(body, wb, x, g, flag_cfg, "siren")  # noqa: E731
+        body_ms.setdefault((kernel, body), []).append(cuda_ms(fn, reps=10, warmup=2))
     k3_simt_ms = cuda_ms(lambda: _shapenet_bwd_simt(wb, x, g, flag_cfg, "siren"), reps=5,
                          warmup=1)
     k3_plain_ms = cuda_ms(lambda: shapenet_fused_bwd_reference(wb, x, g, flag_cfg, "siren"),
@@ -4130,12 +4275,19 @@ def main() -> int:
         f"{k3_bound:.4f} ms by {k3_by} ({k3_gf:.1f} GFLOP); K3 f32 {k3f_ms:.4f} ms, plain "
         f"{k3f_plain_ms:.4f} ms, bound {k3f_bound:.4f} ms by {k3f_by} (f32 peak); library_ms "
         f"null: no single PyTorch call computes these chains")
+    log(f"K2 and K3 bf16 at G={G} P={P}, the wgmma body and the mma.sync body in turns (tc, "
+        f"wgmma, wgmma, tc; ms): K2 wgmma {body_ms[('K2', 'wgmma')]}, mma.sync "
+        f"{body_ms[('K2', 'tc')]}; K3 wgmma {body_ms[('K3', 'wgmma')]}, mma.sync "
+        f"{body_ms[('K3', 'tc')]}; routed: K2 {bf16_body_counter('shapenet_mse_grads')}, K3 "
+        f"{bf16_body_counter('shapenet_bwd')} (card {smi})")
     log(f"flagship train step, float32 policy (GroupedTrainer.step, Adam, the CUDA-core K2, "
         f"G={G} P={P}): {f32_step_ms:.4f} ms on the device clock = "
         f"{G * P / f32_step_ms * 1e3:.4e} train points/s, {f32_step_host_ms:.4f} ms on the host "
         f"clock (each step synchronized); stages timed alone: "
         f"{', '.join(f'{k} {v:.4f} ms' for k, v in f32_stages.items())}")
-    log_step_report("4b GroupedTrainer.step, bf16", trainer.model, G, P, step_ms, False, smi)
+    log_step_report(f"4b GroupedTrainer.step, bf16 (K2 counted as "
+                    f"{bf16_body_counter('shapenet_mse_grads')})", trainer.model, G, P, step_ms,
+                    False, smi)
     log_step_report("4b GroupedTrainer.step, float32 policy", trainer.model, G, P, f32_step_ms,
                     True, smi)
 
@@ -4478,11 +4630,29 @@ def main() -> int:
     }, {
         "name": "shapenet_mse_grads",
         "route": "cuda",
+        "body": "tc",
         "source": "nif_tpu_torch/csrc/shapenet_bwd_tc.cu",
         "replaces": "nif_tpu/ops/pallas_shapenet.py:786",
-        "launches": train_launches["shapenet_mse_grads_tc"],
-        "max_abs_err": k2_err,
-        "ms": k2_ms,
+        "launches": (train_launches["shapenet_mse_grads_tc"]
+                     or w256_launches["shapenet_mse_grads_tc"]),
+        "path": ("the flagship step" if train_launches["shapenet_mse_grads_tc"]
+                 else "the w256_d2 step"),
+        "max_abs_err": k2_body_errs["tc"],
+        "ms": float(np.mean(body_ms[("K2", "tc")])),
+        "plain_ms": k2_plain_ms,
+        "bound_ms": k2_bound,
+        "bound_by": k2_by,
+        "library_ms": None,
+    }, {
+        "name": "shapenet_mse_grads_wg",
+        "route": "cuda",
+        "body": "wgmma",
+        "source": "nif_tpu_torch/csrc/shapenet_bwd_wgmma.cu",
+        "replaces": "nif_tpu/ops/pallas_shapenet.py:786",
+        "launches": train_launches["shapenet_mse_grads_wg"],
+        "path": "the flagship step",
+        "max_abs_err": k2_body_errs["wgmma"],
+        "ms": float(np.mean(body_ms[("K2", "wgmma")])),
         "plain_ms": k2_plain_ms,
         "bound_ms": k2_bound,
         "bound_by": k2_by,
@@ -4502,11 +4672,28 @@ def main() -> int:
     }, {
         "name": "shapenet_bwd",
         "route": "cuda",
+        "body": "tc",
         "source": "nif_tpu_torch/csrc/shapenet_bwd_tc.cu",
         "replaces": "nif_tpu/ops/pallas_shapenet.py:702",
-        "launches": bwd_path["shapenet_bwd_tc"],
-        "max_abs_err": k3_err,
-        "ms": k3_ms,
+        "launches": bwd_path["shapenet_bwd_tc"] or w256_launches["shapenet_bwd_tc"],
+        "path": ("the flagship autograd phase" if bwd_path["shapenet_bwd_tc"]
+                 else "the w256_d2 backward"),
+        "max_abs_err": k3_body_errs["tc"],
+        "ms": float(np.mean(body_ms[("K3", "tc")])),
+        "plain_ms": k3_plain_ms,
+        "bound_ms": k3_bound,
+        "bound_by": k3_by,
+        "library_ms": None,
+    }, {
+        "name": "shapenet_bwd_wg",
+        "route": "cuda",
+        "body": "wgmma",
+        "source": "nif_tpu_torch/csrc/shapenet_bwd_wgmma.cu",
+        "replaces": "nif_tpu/ops/pallas_shapenet.py:702",
+        "launches": bwd_path["shapenet_bwd_wg"],
+        "path": "the flagship autograd phase",
+        "max_abs_err": k3_body_errs["wgmma"],
+        "ms": float(np.mean(body_ms[("K3", "wgmma")])),
         "plain_ms": k3_plain_ms,
         "bound_ms": k3_bound,
         "bound_by": k3_by,

@@ -1,0 +1,183 @@
+// Hopper's own tensor-core path (sm_90a), as inline PTX: the warpgroup
+// product wgmma.mma_async (bf16 in, f32 accumulation, both operands in
+// shared memory) with its fence, commit and wait; the shared-memory matrix
+// descriptor of the 128-byte swizzled layout; mbarriers (init, arrive,
+// arrive with an expected byte count, parity wait); the TMA tiled copy
+// (cp.async.bulk.tensor) that completes on an mbarrier; the proxy fence
+// between generic stores and the async proxy; named barriers; and
+// setmaxnreg. A source that includes this header builds against it alone;
+// ops/_build.py hashes it only with the sources that include it.
+//
+// Layout (the "128B swizzle" atom of the PTX ISA's wgmma section): a bf16
+// matrix is kept in chunks of 64 columns, each chunk rows of 128 bytes,
+// eight rows (1024 bytes, 1024-byte aligned) a swizzle atom, in which the
+// 16-byte unit u of row r sits at unit u ^ (r % 8). Element (r, c) of a
+// chunk lies at r * 128 + (((c / 8) ^ (r % 8)) * 16) + (c % 8) * 2. A chunk
+// read with its rows as the product's K dimension is "MN-major" (trans 1),
+// with its columns as K "K-major" (trans 0):
+// - K-major: rows of M (or N) 128 bytes apart, eight-row groups SBO = 1024
+//   apart; a K step of 16 columns is +32 bytes inside a chunk, the next 64
+//   columns the next chunk; LBO unused (1).
+// - MN-major: 64 M (or N) values contiguous in a row, the next 64 in the
+//   next chunk (LBO = the chunk stride); the K rows 128 bytes apart,
+//   eight-row groups SBO = 1024 apart; a K step of 16 rows is +2048 bytes.
+// The accumulator of m64nNk16 (warp w of the warpgroup, lane l, g = l / 4,
+// q = l % 4): d[4 i + e] is row 16 w + g + 8 (e / 2), column 8 i + 2 q +
+// (e % 2), the layout of mma.m16n8k16's C fragment per 8 columns.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace {
+
+// The 64-bit wgmma descriptor of a 128-byte swizzled operand at shared
+// address `addr` (1024-byte aligned atoms; lbo and sbo in bytes).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N of the warpgroup's committed product groups are in
+// flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Pin an accumulator's registers across an asynchronous product: the
+// compiler may not move a read or write of them over this point.
+template <int K>
+__device__ __forceinline__ void fence_acc(float (&d)[K]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= A (64 x 16) B (16 x N), both from shared memory by descriptor;
+// TA / TB: 0 K-major, 1 MN-major; scale_d = 0 ignores d's old value.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(bar))),
+               "r"(count)
+               : "memory");
+}
+
+// Makes the initialised mbarriers visible to the async proxy (TMA).
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(bar)))
+               : "memory");
+}
+
+// Arrive and add `bytes` to the phase's expected transaction count.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(bar))),
+               "r"(bytes)
+               : "memory");
+}
+
+// Spin until the phase of parity `parity` has completed (a fresh barrier
+// counts the phase before its first as complete: parity 1 passes at once).
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(static_cast<uint32_t>(__cvta_generic_to_shared(bar))),
+      "r"(parity)
+      : "memory");
+}
+
+// A 4-D TMA tile copy from global memory (the tensor map, a __grid_constant__
+// kernel parameter) into shared memory, completing `bytes` of `bar`'s
+// transaction count.
+__device__ __forceinline__ void tma_load_4d(void* dst, const void* tmap, uint64_t* bar, int c0,
+                                            int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(
+          static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+      "l"(reinterpret_cast<uint64_t>(tmap)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(static_cast<uint32_t>(__cvta_generic_to_shared(bar)))
+      : "memory");
+}
+
+// Orders this thread's generic shared-memory stores before later reads by
+// the async proxy (wgmma operands).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A named barrier over `count` threads (a multiple of 32); id 0 is
+// __syncthreads()'s.
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// Hand registers between warpgroups: every warp of a warpgroup runs the
+// same one.
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+}  // namespace

@@ -32,12 +32,15 @@ Rounding points, shared by all three:
 
 On a CUDA tensor each entry launches its hand-written kernel
 (``nif_tpu_torch/csrc/shapenet_fwd.cu`` for K1, ``shapenet_bwd.cu`` for K2
-and K3), or raises. K1 and K2 have two variants (:func:`k1_variant`,
-:func:`k2_variant`): bfloat16 sine chains run the tensor-core kernel
-(``csrc/shapenet_fwd_tc.cu``, ``csrc/shapenet_bwd_tc.cu``, variant ``"tc"``)
-wherever its geometry takes the shape, and the CUDA-core one
-(``shapenet_fwd.cu``, ``shapenet_bwd.cu``, variant ``"simt"``) otherwise and
-for float32, whose f32 products never round to TF32. On a CPU tensor it
+and K3), or raises. K1 has two variants (:func:`k1_variant`): bfloat16 sine
+chains run the tensor-core kernel (``csrc/shapenet_fwd_tc.cu``, variant
+``"tc"``) wherever its geometry takes the shape, and the CUDA-core one
+(``shapenet_fwd.cu``, ``"simt"``) otherwise and for float32, whose f32
+products never round to TF32. K2 and K3 have three (:func:`k2_variant`,
+:func:`k3_variant`): bfloat16 sine chains run the first body whose geometry
+takes the shape of ``"wgmma"`` (``csrc/shapenet_bwd_wgmma.cu``: warpgroup
+products fed by TMA), ``"tc"`` (``csrc/shapenet_bwd_tc.cu``: ``mma.sync``)
+and ``"simt"`` (``shapenet_bwd.cu``), float32 the last. On a CPU tensor it
 runs the plain PyTorch version of the same function (``*_reference``),
 which the CPU tests hold against the JAX package's interpret-mode kernels
 and ``chip_smoke.py`` holds the CUDA kernels against. A config the kernels
@@ -82,6 +85,8 @@ __all__ = [
     "k1_variant",
     "k2_geometry",
     "k2_variant",
+    "k3_geometry",
+    "k3_variant",
     "train_geometry",
 ]
 
@@ -697,17 +702,39 @@ def _bwd_tc_library() -> ctypes.CDLL:
     return lib
 
 
+def _bwd_wg_library() -> ctypes.CDLL:
+    """The wgmma K2 and K3 (``csrc/shapenet_bwd_wgmma.cu``): the C entries
+    of the ``mma.sync`` body's library, under their own names."""
+    lib = _build.load_library("shapenet_bwd_wgmma")
+    if lib.nif_shapenet_mse_grads_wg.argtypes is None:
+        c_int, ptr, c_ll = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
+        lib.nif_shapenet_mse_wg_workspace.argtypes = [c_int] * 7 + [ptr] * 7
+        lib.nif_shapenet_mse_wg_workspace.restype = c_int
+        lib.nif_shapenet_mse_grads_wg.argtypes = (
+            [ptr] * 8 + [c_int] * 8 + [c_ll] * 3 + [ctypes.c_float, ptr])
+        lib.nif_shapenet_mse_grads_wg.restype = c_int
+        lib.nif_shapenet_bwd_wg_workspace.argtypes = [c_int] * 7 + [ptr] * 7
+        lib.nif_shapenet_bwd_wg_workspace.restype = c_int
+        lib.nif_shapenet_bwd_wg.argtypes = (
+            [ptr] * 7 + [c_int] * 8 + [c_ll] * 3 + [ctypes.c_float, ptr])
+        lib.nif_shapenet_bwd_wg.restype = c_int
+        lib.nif_cuda_error_string.argtypes = [c_int]
+        lib.nif_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _stack_tc_status(workspace, mode: str, cfg: ShapeNetConfig, variant: str, si: int, G: int,
-                     P: int):
+                     P: int, kernel: str = "tc"):
     """``(status, geometry)`` of a stacked-stream tensor-core kernel (K1, K2,
-    K3, K5, K6, K7 or K8) from its library's ``workspace`` entry."""
+    K3, K5, K6, K7 or K8, or the wgmma K2 and K3: ``kernel="wgmma"``) from
+    its library's ``workspace`` entry."""
     tile, splits, resident, staged_w = (ctypes.c_int() for _ in range(4))
     smem, partial_floats, scratch = ctypes.c_longlong(), ctypes.c_longlong(), ctypes.c_longlong()
     status = workspace(
         cfg.units, si, cfg.output_dim, _n_mats(cfg), _chain_code(cfg, variant), G, P,
         ctypes.byref(tile), ctypes.byref(splits), ctypes.byref(smem), ctypes.byref(resident),
         ctypes.byref(staged_w), ctypes.byref(partial_floats), ctypes.byref(scratch))
-    geo = {"mode": mode, "kernel": "tc", "tile": tile.value, "splits": splits.value,
+    geo = {"mode": mode, "kernel": kernel, "tile": tile.value, "splits": splits.value,
            "smem_bytes": smem.value, "residuals": "shared" if resident.value else "global",
            "weights": "shared" if staged_w.value else "global",
            "partial_floats": partial_floats.value, "scratch_bytes": scratch.value}
@@ -743,24 +770,6 @@ def _k2_tc_status(cfg: ShapeNetConfig, variant: str, G: int, P: int):
                             variant, cfg.input_dim, G, P)
 
 
-def k2_variant(dtype: torch.dtype, cfg: Optional[ShapeNetConfig] = None,
-               variant: str = "siren") -> str:
-    """Which CUDA kernel K2 runs for inputs of ``dtype``: ``"tc"`` (the
-    tensor-core kernel, ``csrc/shapenet_bwd_tc.cu``) for bfloat16 and
-    ``"simt"`` (the CUDA-core kernel, ``csrc/shapenet_bwd.cu``) for float32,
-    whose products stay full f32 (and for any other dtype, which the wrapper
-    refuses). Given a chain (``cfg``, ``variant``; this asks the
-    tensor-core kernel's library, so it needs nvcc), bfloat16 runs the
-    CUDA-core kernel where the tensor-core one does not take it: a vanilla
-    chain, si > 4, or a width whose two working planes exceed a block's
-    shared memory."""
-    if dtype != torch.bfloat16:
-        return "simt"
-    if cfg is None:
-        return "tc"
-    return "tc" if _k2_tc_status(cfg, variant, 1, 1)[0] == 0 else "simt"
-
-
 def _k3_tc_status(cfg: ShapeNetConfig, variant: str, G: int, P: int):
     """``(status, geometry)`` of the tensor-core K3 (``csrc/shapenet_bwd_tc.cu``,
     beside the tensor-core K2)."""
@@ -768,37 +777,107 @@ def _k3_tc_status(cfg: ShapeNetConfig, variant: str, G: int, P: int):
                             variant, cfg.input_dim, G, P)
 
 
-def k3_variant(dtype: torch.dtype, cfg: Optional[ShapeNetConfig] = None,
-               variant: str = "siren") -> str:
-    """Which CUDA kernel K3 runs for inputs of ``dtype``: ``"tc"`` (the
-    tensor-core kernel, ``csrc/shapenet_bwd_tc.cu``) for bfloat16 and
-    ``"simt"`` (the CUDA-core kernel, ``csrc/shapenet_bwd.cu``) for float32,
-    whose products stay full f32 (and for any other dtype, which the wrapper
-    refuses). Given a chain (``cfg``, ``variant``; this asks the
-    tensor-core kernel's library, so it needs nvcc), bfloat16 runs the
-    CUDA-core kernel where the tensor-core one does not take it: a vanilla
-    chain, si > 4, or a width whose two working planes exceed a block's
-    shared memory."""
+#: The widths the wgmma K2/K3 body has instances for; its library's
+#: workspace entry decides the rest of the chain (and shared memory).
+_WGMMA_WIDTHS = (64, 128)
+
+
+def _wg_status(mode: str, cfg: ShapeNetConfig, variant: str, G: int, P: int):
+    """``(status, geometry)`` of the wgmma K2 (``mode="train"``) or K3
+    (``"backward"``) of ``csrc/shapenet_bwd_wgmma.cu``; a chain it has no
+    instance for (a width other than 64 or 128, a vanilla chain) is status
+    3 without asking its library."""
+    if variant != "siren" or cfg.units not in _WGMMA_WIDTHS:
+        return 3, None
+    lib = _bwd_wg_library()
+    entry = (lib.nif_shapenet_mse_wg_workspace if mode == "train"
+             else lib.nif_shapenet_bwd_wg_workspace)
+    return _stack_tc_status(entry, mode, cfg, variant, cfg.input_dim, G, P, kernel="wgmma")
+
+
+# K2's and K3's bf16 bodies, each with its geometry
+_BODY_STATUS = {
+    "train": {"wgmma": lambda *a: _wg_status("train", *a), "tc": _k2_tc_status},
+    "backward": {"wgmma": lambda *a: _wg_status("backward", *a), "tc": _k3_tc_status},
+}
+# ... and the bodies a launch routes to, in order of preference
+_ROUTE = {"train": ("wgmma", "tc"), "backward": ("wgmma", "tc")}
+
+
+def _train_variant(mode: str, dtype: torch.dtype, cfg: Optional[ShapeNetConfig],
+                   variant: str) -> str:
     if dtype != torch.bfloat16:
         return "simt"
     if cfg is None:
         return "tc"
-    return "tc" if _k3_tc_status(cfg, variant, 1, 1)[0] == 0 else "simt"
+    for body in _ROUTE[mode]:
+        if _BODY_STATUS[mode][body](cfg, variant, 1, 1)[0] == 0:
+            return body
+    return "simt"
+
+
+def k2_variant(dtype: torch.dtype, cfg: Optional[ShapeNetConfig] = None,
+               variant: str = "siren") -> str:
+    """Which CUDA kernel K2 runs for inputs of ``dtype``. bfloat16 sine
+    chains run, in order of preference, the body whose geometry takes the
+    chain: ``"wgmma"`` (``csrc/shapenet_bwd_wgmma.cu``, Hopper's warpgroup
+    products fed by TMA; widths 64 and 128 whose planes and weights fit its
+    shared memory), ``"tc"`` (the ``mma.sync`` body,
+    ``csrc/shapenet_bwd_tc.cu``; si <= 4 and a width whose two working
+    planes fit), then ``"simt"`` (the CUDA-core kernel,
+    ``csrc/shapenet_bwd.cu``). float32 (and any other dtype, which the
+    wrapper refuses) runs ``"simt"``, whose products stay full f32. Without a
+    chain bfloat16 names ``"tc"``, the body that takes every sine chain the
+    tensor cores do. Given a chain this asks the bodies' libraries (it needs
+    nvcc): the wgmma library only for a width it has instances for."""
+    return _train_variant("train", dtype, cfg, variant)
+
+
+def k3_variant(dtype: torch.dtype, cfg: Optional[ShapeNetConfig] = None,
+               variant: str = "siren") -> str:
+    """Which CUDA kernel K3 runs for inputs of ``dtype``: the bodies and the
+    order of :func:`k2_variant` (the K3 mode of each library; the wgmma,
+    ``mma.sync`` and CUDA-core bodies in ``shapenet_bwd_wgmma.cu``,
+    ``shapenet_bwd_tc.cu`` and ``shapenet_bwd.cu``)."""
+    return _train_variant("backward", dtype, cfg, variant)
+
+
+def _train_body_geometry(mode: str, cfg: ShapeNetConfig, variant: str, G: int, P: int,
+                         dtype: torch.dtype, kernel: Optional[str]) -> dict:
+    """The geometry of K2 (``mode="train"``) or K3 at ``[G, P]`` on
+    ``kernel`` ("wgmma", "tc" or "simt"; it raises if that body cannot take
+    the shape) or, with ``kernel=None``, on the first bf16 body of the
+    mode's route (:func:`k2_variant`, :func:`k3_variant`) whose geometry
+    takes this shape (one query a body), else the CUDA-core one."""
+    if kernel not in (None, "wgmma", "tc", "simt"):
+        raise ValueError(f"unknown K2/K3 body {kernel!r}")
+    if dtype == torch.bfloat16 and kernel != "simt":
+        for body in _ROUTE[mode] if kernel is None else (kernel,):
+            code, geo = _BODY_STATUS[mode][body](cfg, variant, G, P)
+            if code == 0:
+                return geo
+            if kernel is not None:
+                raise ValueError(f"the {body} K2/K3 body cannot take {cfg} at G={G}, "
+                                 f"P={P} (geometry status {code})")
+    elif kernel not in (None, "simt"):
+        raise ValueError(f"the {kernel} K2/K3 body takes bfloat16 inputs, not {dtype}")
+    return {"kernel": "simt", **train_geometry(cfg, G, P, dtype, variant)}
 
 
 def k2_geometry(cfg: ShapeNetConfig, variant: str, G: int, P: int, dtype: torch.dtype,
                 kernel: Optional[str] = None) -> dict:
-    """The launch geometry of K2 at ``[G, P]`` in ``dtype`` on ``kernel`` or
-    the variant :func:`k2_variant` picks (it needs nvcc): the kernel, points
-    per tile, P splits per group, shared memory per block, where a tile's
-    residuals sit, and the workspace sizes the wrapper allocates."""
-    if (kernel or k2_variant(dtype, cfg, variant)) == "tc":
-        status, geo = _k2_tc_status(cfg, variant, G, P)
-        if status != 0:
-            raise ValueError(f"the tensor-core K2 cannot take {cfg} at G={G}, P={P} "
-                             f"(geometry status {status})")
-        return geo
-    return {"kernel": "simt", **train_geometry(cfg, G, P, dtype, variant)}
+    """The launch geometry of K2 at ``[G, P]`` in ``dtype`` on ``kernel``
+    ("wgmma", "tc" or "simt") or the body a launch at this shape takes (it
+    needs nvcc): the kernel, points per tile, P splits per group, shared
+    memory per block, where a tile's residuals sit, and the workspace sizes
+    the wrapper allocates."""
+    return _train_body_geometry("train", cfg, variant, G, P, dtype, kernel)
+
+
+def k3_geometry(cfg: ShapeNetConfig, variant: str, G: int, P: int, dtype: torch.dtype,
+                kernel: Optional[str] = None) -> dict:
+    """The launch geometry of K3, as :func:`k2_geometry`'s."""
+    return _train_body_geometry("backward", cfg, variant, G, P, dtype, kernel)
 
 
 def train_geometry(cfg: ShapeNetConfig, G: int, P: int, dtype: torch.dtype,
@@ -943,37 +1022,39 @@ def _shape_args(cfg: ShapeNetConfig, variant: str, x: torch.Tensor, po: int):
             float(cfg.omega_0) if variant == "siren" else 1.0, _DTYPE_CODES[x.dtype])
 
 
-def _train_launch_setup(tensor_cores: bool, tc_status: Callable, wb: torch.Tensor,
-                        x: torch.Tensor, cfg: ShapeNetConfig, variant: str):
-    """What a K2 or K3 launch takes, under the tensor's device (the geometry
-    reads its SM count): ``(kernel, wb', partials, scratch)``. The kernel is
-    the tensor-core one where ``tensor_cores`` allows it and ``tc_status``
-    (its library's geometry at this shape; one query decides and sizes the
-    workspace) takes the chain, else the CUDA-core one; wb' is prescaled as
-    that kernel reads it."""
+def _train_launch_setup(kernel: Optional[str], mode: str, wb: torch.Tensor, x: torch.Tensor,
+                        cfg: ShapeNetConfig, variant: str):
+    """What a K2 (``mode="train"``) or K3 (``"backward"``) launch takes,
+    under the tensor's device (the geometry reads its SM count): ``(kernel,
+    wb', partials, scratch)``. The kernel is ``kernel`` or, for ``None``, the
+    body :func:`k2_variant`'s order picks at this shape (one geometry query a
+    body decides and sizes the workspace); wb' is prescaled as that kernel
+    reads it."""
     G, P, _ = x.shape
-    geo = None
-    if tensor_cores and x.dtype == torch.bfloat16:
-        status, geo = tc_status(cfg, variant, G, P)
-        geo = geo if status == 0 else None
-    if geo is None:
-        geo = {"kernel": "simt", **train_geometry(cfg, G, P, x.dtype, variant)}
+    geo = _train_body_geometry(mode, cfg, variant, G, P, x.dtype, kernel)
     wbp = _prescale(wb, cfg, variant).contiguous()
-    if geo["kernel"] == "tc":  # rows padded to 16 bytes, so every group's W_m stages with cp.async
-        wbp = F.pad(wbp, (0, -wbp.shape[1] % 8))
-    else:
+    if geo["kernel"] == "simt":
         wbp = _simt_weights(wbp)
+    else:  # rows padded to 16 bytes: W_m stages with cp.async (tc) or TMA (wgmma)
+        wbp = F.pad(wbp, (0, -wbp.shape[1] % 8))
     partials = torch.empty(geo["partial_floats"], dtype=torch.float32, device=x.device)
     scratch = torch.empty(max(geo["scratch_bytes"], 1), dtype=torch.uint8, device=x.device)
     return geo["kernel"], wbp, partials, scratch
 
 
-def _launch_k2(tensor_cores: bool, wb: torch.Tensor, x: torch.Tensor, target: torch.Tensor,
+# each body's library and its K2 and K3 C entries, and its launch counters' suffix
+_TRAIN_ENTRIES = {
+    "wgmma": (_bwd_wg_library, "nif_shapenet_mse_grads_wg", "nif_shapenet_bwd_wg", "_wg"),
+    "tc": (_bwd_tc_library, "nif_shapenet_mse_grads_tc", "nif_shapenet_bwd_tc", "_tc"),
+    "simt": (_bwd_library, "nif_shapenet_mse_grads", "nif_shapenet_bwd", None),
+}
+
+
+def _launch_k2(kernel: Optional[str], wb: torch.Tensor, x: torch.Tensor, target: torch.Tensor,
                cfg: ShapeNetConfig, variant: str, weight: Optional[torch.Tensor]):
-    """K2 after the wrapper's checks, counting the launch: on the
-    tensor-core kernel where ``tensor_cores`` allows it and
-    :func:`k2_variant` would pick it, else on the CUDA-core kernel
-    (:func:`_train_launch_setup`)."""
+    """K2 after the wrapper's checks, counting the launch: on ``kernel``
+    ("wgmma", "tc" or "simt"), or the body :func:`k2_variant`'s order picks
+    for ``None`` (:func:`_train_launch_setup`)."""
     _check_cuda_inputs("shapenet_mse_grads_cuda", wb, x, cfg, variant)
     G, P, _ = x.shape
     if tuple(target.shape) != (G, P, cfg.output_dim) or target.device != x.device:
@@ -987,27 +1068,26 @@ def _launch_k2(tensor_cores: bool, wb: torch.Tensor, x: torch.Tensor, target: to
     if G == 0 or P == 0:
         return loss.fill_(float("nan")), d_wb.zero_()
     with torch.cuda.device(x.device):
-        kernel, wbp, partials, scratch = _train_launch_setup(tensor_cores, _k2_tc_status, wb, x,
-                                                             cfg, variant)
+        kernel, wbp, partials, scratch = _train_launch_setup(kernel, "train", wb, x, cfg, variant)
         x = x.contiguous()
         target = target.to(x.dtype).contiguous()
         weight = None if weight is None else weight.to(x.dtype).contiguous()
-        lib = _bwd_tc_library() if kernel == "tc" else _bwd_library()
+        library, entry, _, suffix = _TRAIN_ENTRIES[kernel]
+        lib = library()
         stream = torch.cuda.current_stream(x.device).cuda_stream
         args = (wbp.data_ptr(), x.data_ptr(), target.data_ptr(),
                 None if weight is None else weight.data_ptr(), loss.data_ptr(), d_wb.data_ptr(),
                 partials.data_ptr(), scratch.data_ptr())
         # (G, P, si, so, n, n_mats, chain, act, po), wb_ld, n_scaled, omega[, dtype]
         shape = _shape_args(cfg, variant, x, wb.shape[1])
-        if kernel == "tc":
-            err = lib.nif_shapenet_mse_grads_tc(*args, *shape[:9], wbp.shape[1], *shape[9:11],
-                                                stream)
+        if suffix:
+            err = getattr(lib, entry)(*args, *shape[:9], wbp.shape[1], *shape[9:11], stream)
         else:
-            err = lib.nif_shapenet_mse_grads(*args, *shape[:9], wbp.shape[1], *shape[9:], stream)
+            err = getattr(lib, entry)(*args, *shape[:9], wbp.shape[1], *shape[9:], stream)
     _raise_on_error(lib, "shapenet_mse_grads", err)
     _build.LAUNCHES["shapenet_mse_grads"] += 1
-    if kernel == "tc":
-        _build.LAUNCHES["shapenet_mse_grads_tc"] += 1
+    if suffix:
+        _build.LAUNCHES["shapenet_mse_grads" + suffix] += 1
     return loss, d_wb
 
 
@@ -1019,7 +1099,16 @@ def shapenet_mse_grads_cuda(wb: torch.Tensor, x: torch.Tensor, target: torch.Ten
     :func:`k2_variant` picks for the dtype and the chain. ``target`` must be
     ``[G, P, so]`` and ``weight`` (optional) ``[G, P]``; both are cast to x's
     dtype. Raises on anything that kernel does not take; never falls back."""
-    return _launch_k2(True, wb, x, target, cfg, variant, weight)
+    return _launch_k2(None, wb, x, target, cfg, variant, weight)
+
+
+def _shapenet_mse_grads_on(kernel: str, wb: torch.Tensor, x: torch.Tensor, target: torch.Tensor,
+                           cfg: ShapeNetConfig, variant: str = "siren",
+                           weight: Optional[torch.Tensor] = None):
+    """K2 on one body ("wgmma", "tc" or "simt") whatever the routing
+    prefers; raises where that body cannot take the shape. ``chip_smoke.py``
+    and the probes time the bodies side by side on the same inputs."""
+    return _launch_k2(kernel, wb, x, target, cfg, variant, weight)
 
 
 def _shapenet_mse_grads_simt(wb: torch.Tensor, x: torch.Tensor, target: torch.Tensor,
@@ -1028,14 +1117,13 @@ def _shapenet_mse_grads_simt(wb: torch.Tensor, x: torch.Tensor, target: torch.Te
     """K2 on the CUDA-core kernel whatever the dtype and chain.
     ``chip_smoke.py`` times its bf16 instance beside the tensor-core kernel
     on the same inputs."""
-    return _launch_k2(False, wb, x, target, cfg, variant, weight)
+    return _launch_k2("simt", wb, x, target, cfg, variant, weight)
 
 
-def _launch_k3(tensor_cores: bool, wb: torch.Tensor, x: torch.Tensor, g_out: torch.Tensor,
+def _launch_k3(kernel: Optional[str], wb: torch.Tensor, x: torch.Tensor, g_out: torch.Tensor,
                cfg: ShapeNetConfig, variant: str):
-    """K3 after the wrapper's checks, counting the launch: on the
-    tensor-core kernel where ``tensor_cores`` allows it and
-    :func:`k3_variant` would pick it, else on the CUDA-core kernel
+    """K3 after the wrapper's checks, counting the launch: on ``kernel`` or
+    the body :func:`k3_variant`'s order picks for ``None``
     (:func:`_train_launch_setup`)."""
     _check_cuda_inputs("shapenet_bwd_cuda", wb, x, cfg, variant)
     G, P, _ = x.shape
@@ -1047,24 +1135,25 @@ def _launch_k3(tensor_cores: bool, wb: torch.Tensor, x: torch.Tensor, g_out: tor
     if G == 0 or P == 0:
         return d_wb.zero_(), dx
     with torch.cuda.device(x.device):
-        kernel, wbp, partials, scratch = _train_launch_setup(tensor_cores, _k3_tc_status, wb, x,
-                                                             cfg, variant)
+        kernel, wbp, partials, scratch = _train_launch_setup(kernel, "backward", wb, x, cfg,
+                                                             variant)
         x = x.contiguous()
         g_out = g_out.to(x.dtype).contiguous()
-        lib = _bwd_tc_library() if kernel == "tc" else _bwd_library()
+        library, _, entry, suffix = _TRAIN_ENTRIES[kernel]
+        lib = library()
         stream = torch.cuda.current_stream(x.device).cuda_stream
         args = (wbp.data_ptr(), x.data_ptr(), g_out.data_ptr(), d_wb.data_ptr(), dx.data_ptr(),
                 partials.data_ptr(), scratch.data_ptr())
         # (G, P, si, so, n, n_mats, chain, act, po), wb_ld, n_scaled, omega[, dtype]
         shape = _shape_args(cfg, variant, x, wb.shape[1])
-        if kernel == "tc":
-            err = lib.nif_shapenet_bwd_tc(*args, *shape[:9], wbp.shape[1], *shape[9:11], stream)
+        if suffix:
+            err = getattr(lib, entry)(*args, *shape[:9], wbp.shape[1], *shape[9:11], stream)
         else:
-            err = lib.nif_shapenet_bwd(*args, *shape[:9], wbp.shape[1], *shape[9:], stream)
+            err = getattr(lib, entry)(*args, *shape[:9], wbp.shape[1], *shape[9:], stream)
     _raise_on_error(lib, "shapenet_bwd", err)
     _build.LAUNCHES["shapenet_bwd"] += 1
-    if kernel == "tc":
-        _build.LAUNCHES["shapenet_bwd_tc"] += 1
+    if suffix:
+        _build.LAUNCHES["shapenet_bwd" + suffix] += 1
     return d_wb, dx
 
 
@@ -1075,7 +1164,14 @@ def shapenet_bwd_cuda(wb: torch.Tensor, x: torch.Tensor, g_out: torch.Tensor,
     [G, P, so]`` (cast to x's dtype), through the kernel :func:`k3_variant`
     picks for the dtype and the chain. Raises on anything that kernel does
     not take; never falls back."""
-    return _launch_k3(True, wb, x, g_out, cfg, variant)
+    return _launch_k3(None, wb, x, g_out, cfg, variant)
+
+
+def _shapenet_bwd_on(kernel: str, wb: torch.Tensor, x: torch.Tensor, g_out: torch.Tensor,
+                     cfg: ShapeNetConfig, variant: str = "siren"):
+    """K3 on one body ("wgmma", "tc" or "simt") whatever the routing
+    prefers; raises where that body cannot take the shape."""
+    return _launch_k3(kernel, wb, x, g_out, cfg, variant)
 
 
 def _shapenet_bwd_simt(wb: torch.Tensor, x: torch.Tensor, g_out: torch.Tensor,
@@ -1083,7 +1179,7 @@ def _shapenet_bwd_simt(wb: torch.Tensor, x: torch.Tensor, g_out: torch.Tensor,
     """K3 on the CUDA-core kernel whatever the dtype and chain.
     ``chip_smoke.py`` times its bf16 instance beside the tensor-core kernel
     on the same inputs."""
-    return _launch_k3(False, wb, x, g_out, cfg, variant)
+    return _launch_k3("simt", wb, x, g_out, cfg, variant)
 
 
 # K1's forward as a registered op, ``torch.ops.nif_tpu_torch.shapenet_fwd``,

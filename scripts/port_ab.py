@@ -9,7 +9,8 @@ shape, and the float32-policy calls that run the last two end to end.
 
     python3 scripts/port_ab.py --other DIR [--kernel k1f32 k4f32 k5f32 k6f32 k7f32 k8f32
                                             k5tan k5tanf32 apply_f32 predict_f32
-                                            jaceval_f32] [--reps N]
+                                            jaceval_f32 k2 k3 k2wg k3wg k2tc k3tc]
+                                           [--reps N]
 
 ``DIR`` is the root of another checkout (for example a parent commit,
 unpacked with ``git archive`` under ``build/``). Each checkout's package
@@ -35,7 +36,13 @@ under the float32 policy at G=32 x P=32768: ``apply_f32`` one
 ``GroupedTrainer.evaluate_sobolev`` with Jacobian targets (one K5 launch,
 mean of 3), each on the device clock (CUDA events) and, as ``*_host``, on
 the host clock around calls that each end in a synchronize. Defaults to
-the six kernels. Prints each turn's times, each kernel's
+the six kernels. ``k2`` and ``k3`` are the bfloat16 K2 (unweighted, as the
+train step calls it) and K3 on the flagship chain through the body each
+checkout's wrapper routes it to (here the wgmma body of
+``csrc/shapenet_bwd_wgmma.cu``, in a checkout before it the ``mma.sync`` body
+of ``csrc/shapenet_bwd_tc.cu``); ``k2wg``/``k3wg`` and ``k2tc``/``k3tc`` name
+the wgmma or the ``mma.sync`` body (both checkouts must have the private
+launchers that name a body). Prints each turn's times, each kernel's
 mean over the two turns of each checkout with their ratio, the registers
 and spills ptxas reported for each build's instances, and the card's name
 and power limit. Nothing is asserted; the wrappers themselves raise on a
@@ -63,7 +70,11 @@ LIBRARIES = {"k1f32": ("shapenet_fwd",), "k4f32": ("shapenet_linear",),
              "k7f32": ("shapenet_hess",), "k8f32": ("shapenet_hess",),
              "apply_f32": ("shapenet_fwd",), "predict_f32": ("shapenet_fwd",),
              "jaceval_f32": ("shapenet_fwd", "shapenet_jac"),
-             "k5tan": ("shapenet_jac", "shapenet_jac_tc"), "k5tanf32": ("shapenet_jac",)}
+             "k5tan": ("shapenet_jac", "shapenet_jac_tc"), "k5tanf32": ("shapenet_jac",),
+             "k2": ("shapenet_bwd_tc", "shapenet_bwd_wgmma"),
+             "k3": ("shapenet_bwd_tc", "shapenet_bwd_wgmma"),
+             "k2wg": ("shapenet_bwd_wgmma",), "k3wg": ("shapenet_bwd_wgmma",),
+             "k2tc": ("shapenet_bwd_tc",), "k3tc": ("shapenet_bwd_tc",)}
 KERNELS = ["k1f32", "k4f32", "k5f32", "k6f32", "k7f32", "k8f32"]
 END_TO_END = {"apply_f32": 20, "predict_f32": 5, "jaceval_f32": 3}  # calls a mean takes
 
@@ -170,6 +181,8 @@ def child(root: Path, kernels, reps: int, build_only: bool) -> int:
     if build_only:
         ptxas = []
         for name in sorted({lib for k in kernels for lib in LIBRARIES[k]}):
+            if not (_build.CSRC / f"{name}.cu").exists():  # a checkout before that source
+                continue
             _build.build(name)
             ptxas += [ln.strip() for ln in (_build.BUILD_LOGS.get(name) or "").splitlines()
                       if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
@@ -181,6 +194,7 @@ def child(root: Path, kernels, reps: int, build_only: bool) -> int:
     tcfg = ShapeNetConfig(**{**SHAPE, "output_dim": 3})
     twb, tx = _inputs(torch, tcfg)[:2]
     twb16, tx16 = twb.bfloat16(), tx.bfloat16()
+    wb16, x16, g16 = wb.bfloat16(), x.bfloat16(), (tgt * 0.1).bfloat16()
     runs = {"k7f32": lambda: fh.shapenet_fwd_hess_cuda(wb, x, cfg, "siren"),
             "k8f32": lambda: fh.shapenet_hessian_grads_cuda(wb, x, tgt, jt, ht, cfg, "siren",
                                                             w_jac=0.1, w_hess=0.01),
@@ -190,7 +204,15 @@ def child(root: Path, kernels, reps: int, build_only: bool) -> int:
             "k1f32": lambda: fs.shapenet_fwd_cuda(wb, x, cfg, "siren"),
             "k5f32": lambda: fd.shapenet_fwd_jac_cuda(wb, x, cfg, "siren"),
             "k5tan": lambda: fd.shapenet_fwd_jac_cuda(twb16, tx16, tcfg, "siren"),
-            "k5tanf32": lambda: fd.shapenet_fwd_jac_cuda(twb, tx, tcfg, "siren")}
+            "k5tanf32": lambda: fd.shapenet_fwd_jac_cuda(twb, tx, tcfg, "siren"),
+            "k2": lambda: fs.shapenet_mse_grads_cuda(wb16, x16, tgt, cfg, "siren"),
+            "k3": lambda: fs.shapenet_bwd_cuda(wb16, x16, g16, cfg, "siren")}
+    if hasattr(fs, "_shapenet_mse_grads_on"):  # a checkout whose launchers name a body
+        for body, tag in (("wgmma", "wg"), ("tc", "tc")):
+            runs[f"k2{tag}"] = lambda b=body: fs._shapenet_mse_grads_on(b, wb16, x16, tgt, cfg,
+                                                                          "siren")
+            runs[f"k3{tag}"] = lambda b=body: fs._shapenet_bwd_on(b, wb16, x16, g16, cfg,
+                                                                    "siren")
     e2e = _end_to_end(torch, [k for k in kernels if k in END_TO_END])
     out = {k: cuda_ms(runs[k], reps=reps, warmup=1) for k in kernels if k in runs}
     for k, fn in e2e.items():

@@ -3,12 +3,14 @@
 checkout's, on a CUDA card: the same flagship inputs through both libraries
 must give the same bits, and the two are timed in turns.
 
-    python3 scripts/port_parent_check.py --csrc DIR [--kernel k1 k2 k2f32 k3f32 k5 k6 k7 k8]
+    python3 scripts/port_parent_check.py --csrc DIR [--kernel k1 k2 k2wg k3wg k2f32 k3f32 k5 k6
+                                                            k7 k8]
 
 ``DIR`` holds the other checkout's ``nif_tpu_torch/csrc`` (for example that
 of a parent commit, unpacked with ``git archive`` under ``build/``). Each
 kernel's source there (``shapenet_fwd_tc.cu`` for K1 and K5's reverse body,
-``shapenet_bwd_tc.cu`` for K2, ``shapenet_bwd.cu`` for the float32 K2 and
+``shapenet_bwd_tc.cu`` for K2 on ``mma.sync``, ``shapenet_bwd_wgmma.cu``
+for the wgmma K2 and K3, ``shapenet_bwd.cu`` for the float32 K2 and
 K3 on the CUDA cores, ``shapenet_jac_tc.cu`` for K6, ``shapenet_hess_tc.cu``
 for K7 and K8) is built with this checkout's nvcc
 flags into ``build/nif_tpu_torch/other/``, all sources of both checkouts at
@@ -58,10 +60,19 @@ def _k5(cfg):
     return lambda: fd.shapenet_fwd_jac_cuda(wb, x, cfg, "siren")
 
 
-def _k2(cfg):
+def _k2_on(body):
+    """K2 on one bf16 body ("tc", the mma.sync one, or "wgmma")."""
+    def case(cfg):
+        wb, x = chip_smoke.chain_data(torch, cfg, G, P, torch.bfloat16, seed=SEED)
+        tgt, w, _ = chip_smoke.side_data(torch, cfg, G, P, seed=SEED)
+        return lambda: fs._shapenet_mse_grads_on(body, wb, x, tgt, cfg, "siren", w)
+    return case
+
+
+def _k3wg(cfg):
     wb, x = chip_smoke.chain_data(torch, cfg, G, P, torch.bfloat16, seed=SEED)
-    tgt, w, _ = chip_smoke.side_data(torch, cfg, G, P, seed=SEED)
-    return lambda: fs.shapenet_mse_grads_cuda(wb, x, tgt, cfg, "siren", w)
+    g = chip_smoke.side_data(torch, cfg, G, P, seed=SEED)[2].to(torch.bfloat16)
+    return lambda: fs._shapenet_bwd_on("wgmma", wb, x, g, cfg, "siren")
 
 
 def _k2f32(cfg):
@@ -102,7 +113,11 @@ KERNELS = {
     "k5": ("shapenet_fwd_tc", ("nif_shapenet_fwd_jac_tc_workspace", "nif_shapenet_fwd_jac_tc"),
            fs._fwd_tc_library, _k5, ("y", "jac")),
     "k2": ("shapenet_bwd_tc", ("nif_shapenet_mse_tc_workspace", "nif_shapenet_mse_grads_tc"),
-           fs._bwd_tc_library, _k2, ("loss", "d_wb")),
+           fs._bwd_tc_library, _k2_on("tc"), ("loss", "d_wb")),
+    "k2wg": ("shapenet_bwd_wgmma", ("nif_shapenet_mse_wg_workspace", "nif_shapenet_mse_grads_wg"),
+             fs._bwd_wg_library, _k2_on("wgmma"), ("loss", "d_wb")),
+    "k3wg": ("shapenet_bwd_wgmma", ("nif_shapenet_bwd_wg_workspace", "nif_shapenet_bwd_wg"),
+             fs._bwd_wg_library, _k3wg, ("d_wb", "dx")),
     "k2f32": ("shapenet_bwd", ("nif_shapenet_bwd_workspace", "nif_shapenet_mse_grads"),
               fs._bwd_library, _k2f32, ("loss", "d_wb")),
     "k3f32": ("shapenet_bwd", ("nif_shapenet_bwd_workspace", "nif_shapenet_bwd"),

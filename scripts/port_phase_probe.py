@@ -12,8 +12,9 @@ float32 K4 on the CUDA cores (``csrc/shapenet_linear.cu``) or the float32
 K1 or K5's float32 reverse body on the CUDA cores (one body,
 ``csrc/shapenet_fwd.cu``).
 
-    python3 scripts/port_phase_probe.py [--kernel k1|k1f32|k2|k2f32|k3f32|k4|k4f32|k5|k5f32|k5tan|
-                                                  k5tanf32|k6|k6f32|k7|k7f32|k8|k8f32]
+    python3 scripts/port_phase_probe.py [--kernel k1|k1f32|k2|k2f32|k2wg|k3f32|k3wg|k4|k4f32|k5|
+                                                  k5f32|k5tan|k5tanf32|k6|k6f32|k7|k7f32|k8|
+                                                  k8f32]
                                         [--ablate] [--one-block]
 
 Builds the kernel's source once more with ``-DK1_PHASE_CLOCKS``,
@@ -21,6 +22,10 @@ Builds the kernel's source once more with ``-DK1_PHASE_CLOCKS``,
 ``-DK2F_PHASE_CLOCKS`` (k2f32, k3f32), ``-DK8F_PHASE_CLOCKS``
 (k7f32, k8f32), ``-DK6F_PHASE_CLOCKS`` (k6f32, k5tanf32),
 ``-DK4F_PHASE_CLOCKS`` (k4f32), ``-DK5T_PHASE_CLOCKS`` (k5tan),
+``-DWG_PHASE_CLOCKS`` (k2wg, k3wg: the wgmma K2/K3 body of
+``csrc/shapenet_bwd_wgmma.cu``, whose thread 0 of each consumer warpgroup
+keeps the counters, so its split is of a consumer's time a tile: the
+products' share, the epilogues' and the dW and bias flushes'),
 ``-DK4_PHASE_CLOCKS``, ``-DK5_PHASE_CLOCKS``, ``-DK6_PHASE_CLOCKS``,
 ``-DK7_PHASE_CLOCKS`` or ``-DK8_PHASE_CLOCKS`` (into
 ``build/nif_tpu_torch/probe/``), in which thread 0 of every block adds the
@@ -54,7 +59,10 @@ registers a thread) in place of two (up to 128), and with ``--kernel k5tan``
 or ``k5tanf32`` K5's tangent body at one block per SM (its geometry then
 stages every W_m once a group in the tensor-core body).
 
-With ``--kernel k2|k6|k8 --ablate`` it also builds three variants of the
+With ``--kernel k2wg|k3wg --ablate`` it also builds the wgmma body without
+the loads and stores of its dW partial (the products kept alive) and times
+it beside the source as it is, in turns. With ``--kernel k2|k6|k8 --ablate``
+it also builds three variants of the
 kernel's source and its shared header ``stack_tc.cuh`` (text edits of a copy,
 checked to apply) and times them beside the source as it is, in turns:
 without the loads of the f32 dW partials, without their loads and stores (the
@@ -95,6 +103,19 @@ SIMT_PHASES = [
     "du products",
     "first layer's backward (dW0, db0, dx)",
     "the group's loss partial (and set-up)",
+]
+
+# The phases of a consumer warpgroup of the wgmma K2/K3 body
+# (csrc/shapenet_bwd_wgmma.cu), a consumer's half (64 points) of a tile
+WG_PHASES = [
+    "waiting for the tile's inputs (the ring)",
+    "first layer (x, sine, S_0 store)",
+    "forward products (issue, wait)",
+    "forward epilogues (bias, sine, S stores)",
+    "last layer, loss, dW_last product, du",
+    "backward products (recompute; du + dW)",
+    "dz epilogues (act', roundings, dz store)",
+    "dW stores, bias sums, first layer's backward",
 ]
 
 # The phases of the CUDA-core K7/K8 body (csrc/shapenet_hess.cu); K7 marks
@@ -214,6 +235,8 @@ KERNELS = {
         "last product",
         "y, jac, hp stores (and the group's set-up)",
     ]),
+    "k2wg": ("shapenet_bwd_wgmma", "WG_PHASE_CLOCKS", "nif_wg_phase_cycles", WG_PHASES),
+    "k3wg": ("shapenet_bwd_wgmma", "WG_PHASE_CLOCKS", "nif_wg_phase_cycles", WG_PHASES),
     "k2f32": ("shapenet_bwd", "K2F_PHASE_CLOCKS", "nif_bwd_phase_cycles", SIMT_PHASES),
     "k3f32": ("shapenet_bwd", "K2F_PHASE_CLOCKS", "nif_bwd_phase_cycles", SIMT_PHASES),
     "k7f32": ("shapenet_hess", "K8F_PHASE_CLOCKS", "nif_hess_phase_cycles", HESS_PHASES[:4]),
@@ -277,7 +300,16 @@ ABLATIONS = {
         "        weight_grad_stack(Sm, Dp, ld, n, n16, TR, part + o_wh + (long long)m * n * n, first, l);",
         "")],
 }
-HEADERS = ("stack_simt.cuh", "stack_tc.cuh", "mma_sm90.cuh", "shapenet_common.cuh")
+# The wgmma K2/K3 body's variant: without the loads and stores of its dW
+# partial (the products kept alive)
+WG_ABLATIONS = {
+    "wgmma no dW partial loads or stores": [
+        (None, "        if (owns && !first) dw_load<N>(dw, dw_c, th);\n", ""),
+        (None, "        if (owns) dw_store<N>(dw, dw_c, th);",
+         "        if (owns && dw[0] == 1.2345e30f) dw_store<N>(dw, dw_c, th);")],
+}
+HEADERS = ("stack_simt.cuh", "stack_tc.cuh", "mma_sm90.cuh", "shapenet_common.cuh",
+           "wgmma_sm90.cuh")
 
 
 def build_variant(name: str, label: str, edits) -> ctypes.CDLL:
@@ -310,10 +342,10 @@ def build_variant(name: str, label: str, edits) -> ctypes.CDLL:
     return ctypes.CDLL(str(out / f"lib{name}.so"))
 
 
-def ablate(name: str, argtypes, run) -> None:
+def ablate(name: str, argtypes, run, ablations=ABLATIONS) -> None:
     """Time the kernel as built and its ablation variants, in turns, twice."""
     libs = {"as built": _build.load_library(name)}
-    libs.update((label, build_variant(name, label, edits)) for label, edits in ABLATIONS.items())
+    libs.update((label, build_variant(name, label, edits)) for label, edits in ablations.items())
     for rnd in range(2):
         for label, lib in libs.items():
             _build._LIBS[name] = lib
@@ -387,12 +419,31 @@ def one_block(kernel: str, run) -> None:
 
 
 def k2_case(G: int, P: int):
-    """K2's launcher and (tile, splits) at the flagship chain."""
+    """The mma.sync K2's launcher and (tile, splits) at the flagship chain."""
     cfg = ShapeNetConfig.from_dict(FLAGSHIP_SHAPE)
     wb, x = chip_smoke.chain_data(torch, cfg, G, P, torch.bfloat16, seed=204)
     tgt, w, _ = chip_smoke.side_data(torch, cfg, G, P, seed=204)
-    geo = fs.k2_geometry(cfg, "siren", G, P, torch.bfloat16)
-    return lambda: fs.shapenet_mse_grads_cuda(wb, x, tgt, cfg, "siren", w), geo
+    geo = fs.k2_geometry(cfg, "siren", G, P, torch.bfloat16, kernel="tc")
+    return lambda: fs._shapenet_mse_grads_on("tc", wb, x, tgt, cfg, "siren", w), geo
+
+
+def k2wg_case(G: int, P: int):
+    """The wgmma K2's launcher and geometry at the flagship chain, with
+    point weights."""
+    cfg = ShapeNetConfig.from_dict(FLAGSHIP_SHAPE)
+    wb, x = chip_smoke.chain_data(torch, cfg, G, P, torch.bfloat16, seed=204)
+    tgt, w, _ = chip_smoke.side_data(torch, cfg, G, P, seed=204)
+    geo = fs.k2_geometry(cfg, "siren", G, P, torch.bfloat16, kernel="wgmma")
+    return lambda: fs._shapenet_mse_grads_on("wgmma", wb, x, tgt, cfg, "siren", w), geo
+
+
+def k3wg_case(G: int, P: int):
+    """The wgmma K3's launcher and geometry at the flagship chain."""
+    cfg = ShapeNetConfig.from_dict(FLAGSHIP_SHAPE)
+    wb, x = chip_smoke.chain_data(torch, cfg, G, P, torch.bfloat16, seed=208)
+    g = chip_smoke.side_data(torch, cfg, G, P, seed=208)[2].to(torch.bfloat16)
+    geo = fs.k3_geometry(cfg, "siren", G, P, torch.bfloat16, kernel="wgmma")
+    return lambda: fs._shapenet_bwd_on("wgmma", wb, x, g, cfg, "siren"), geo
 
 
 def k2f32_case(G: int, P: int):
@@ -537,13 +588,14 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", choices=sorted(KERNELS), default="k4")
     ap.add_argument("--ablate", action="store_true",
-                    help="K2, K6 and K8 only: also time variants without parts of their dW")
+                    help="K2, K6, K8 and the wgmma K2/K3 only: also time variants without "
+                         "parts of their dW")
     ap.add_argument("--one-block", action="store_true",
                     help="K1 and K5's tangent body only (k1, k1f32, k5tan, k5tanf32): "
                          "also time it at one block per SM")
     args = ap.parse_args()
-    if args.ablate and args.kernel not in ("k2", "k6", "k8"):
-        ap.error("--ablate takes --kernel k2, k6 or k8")
+    if args.ablate and args.kernel not in ("k2", "k6", "k8", "k2wg", "k3wg"):
+        ap.error("--ablate takes --kernel k2, k6, k8, k2wg or k3wg")
     if args.one_block and args.kernel not in ONE_BLOCK:
         ap.error("--one-block takes --kernel k1, k1f32, k5tan or k5tanf32")
     if not torch.cuda.is_available():
@@ -555,6 +607,7 @@ def main() -> int:
     name, define, entry, phases = KERNELS[args.kernel]
     G, P = 32, 32768
     cases = {"k1": k1_case, "k2": k2_case, "k2f32": k2f32_case, "k3f32": k3f32_case,
+             "k2wg": k2wg_case, "k3wg": k3wg_case,
              "k4": k4_case, "k5": k5_case, "k6": k6_case, "k7": k7_case, "k8": k8_case,
              "k7f32": k7f32_case, "k8f32": k8f32_case, "k6f32": k6f32_case,
              "k4f32": k4f32_case, "k1f32": k1f32_case, "k5f32": k5f32_case,
@@ -565,6 +618,7 @@ def main() -> int:
     plain_build_ms = cuda_ms(run, reps=reps, warmup=1)
     # registers the argument types of the library now in _build._LIBS
     argtypes = {"k1": fs._fwd_tc_library, "k2": fs._bwd_tc_library,
+                "k2wg": fs._bwd_wg_library, "k3wg": fs._bwd_wg_library,
                 "k2f32": fs._bwd_library, "k3f32": fs._bwd_library,
                 "k4": lambda: fl._library("tc"), "k5": fs._fwd_tc_library,
                 "k6": lambda: fd._library("tc"), "k7": lambda: fh._library("tc"),
@@ -581,7 +635,7 @@ def main() -> int:
                 print(f"plain build ptxas: {line.strip()}")
         device_split(run, reps)
     if args.ablate:
-        ablate(name, argtypes, run)
+        ablate(name, argtypes, run, WG_ABLATIONS if name == "shapenet_bwd_wgmma" else ABLATIONS)
     if args.one_block:
         one_block(args.kernel, run)
     probe = build_probe(name, define, entry)
@@ -603,15 +657,18 @@ def main() -> int:
     # other kernels "splits" blocks a group
     blocks = geo["blocks"] if "blocks" in geo else G * geo["splits"]
     tiles = G * -(-P // geo["tile"]) / blocks
+    # who keeps the counters: thread 0 of a block, or of each of the wgmma
+    # body's two consumer warpgroups (each a half of every tile of its block)
+    keepers = blocks * (2 if name == "shapenet_bwd_wgmma" else 1)
     total = sum(counters)
     what = "f32, CUDA cores" if simt else "tc bf16"
     print(f"{args.kernel.upper()} {what} at G={G} P={P}: {plain_build_ms:.4f} ms (plain build), "
           f"{probe_ms:.4f} ms (phase-clock build); {blocks} blocks of {tiles:.0f} "
           f"{geo['tile']}-point tiles")
-    print(f"critical path of one block: {total / blocks / reps:.0f} cycles a call, "
-          f"{total / blocks / reps / tiles:.0f} a tile")
+    print(f"critical path of one block{' (a consumer of it)' if keepers > blocks else ''}: "
+          f"{total / keepers / reps:.0f} cycles a call, {total / keepers / reps / tiles:.0f} a tile")
     for label, c in zip(phases, counters):
-        print(f"  {label:40s} {c / blocks / reps / tiles:9.0f} cycles a tile  {c / total:7.4f}  "
+        print(f"  {label:40s} {c / keepers / reps / tiles:9.0f} cycles a tile  {c / total:7.4f}  "
               f"~{c / total * probe_ms:.4f} ms")
     return 0
 

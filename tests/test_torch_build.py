@@ -69,12 +69,13 @@ SIMT_USERS = {"shapenet_fwd", "shapenet_bwd", "shapenet_hess", "shapenet_jac",
 
 # Each tensor-core header and the sources that include it, directly or not:
 # the tensor-core sources, and the CUDA-core bodies on the f32 tile header
-# (SIMT_USERS), whose bf16 instances take the bf16 sine from stack_tc.cuh.
+# (SIMT_USERS), whose bf16 instances take the bf16 sine from stack_tc.cuh;
+# the wgmma K2/K3 body takes the sine and the split reduce from it too.
 TC_USERS = {
     "mma_sm90.cuh": {"shapenet_bwd_tc", "shapenet_fwd_tc", "shapenet_hess_tc",
-                     "shapenet_jac_tc", "shapenet_linear_tc"} | SIMT_USERS,
+                     "shapenet_jac_tc", "shapenet_linear_tc", "shapenet_bwd_wgmma"} | SIMT_USERS,
     "stack_tc.cuh": {"shapenet_bwd_tc", "shapenet_fwd_tc", "shapenet_hess_tc",
-                     "shapenet_jac_tc"} | SIMT_USERS,
+                     "shapenet_jac_tc", "shapenet_bwd_wgmma"} | SIMT_USERS,
 }
 TC_HEADERS = set(TC_USERS)
 
@@ -136,6 +137,43 @@ def test_k2_tensor_core_sources():
     assert {"nif_shapenet_mse_tc_workspace", "nif_shapenet_mse_grads_tc",
             "nif_shapenet_bwd_tc_workspace", "nif_shapenet_bwd_tc"} <= _entries("shapenet_bwd_tc")
     assert {"nif_shapenet_mse_grads", "nif_shapenet_bwd"} <= _entries("shapenet_bwd")
+
+
+def test_k2_k3_wgmma_sources():
+    """The wgmma K2/K3 body builds against its PTX header (wgmma, TMA,
+    mbarriers, setmaxnreg) and the stacked-stream header (the bf16 sine and
+    the ordered split reduce, with what that includes); it defines the
+    entries its wrapper loads, K2's and K3's under the mma.sync entries'
+    signatures; and no other source includes the wgmma header, so an edit
+    to it rebuilds this library alone."""
+    names = {p.name for p in _build._sources("shapenet_bwd_wgmma")}
+    assert names == {"shapenet_bwd_wgmma.cu", "wgmma_sm90.cuh", "stack_tc.cuh", "mma_sm90.cuh",
+                     "shapenet_common.cuh"}
+    entries = _entries("shapenet_bwd_wgmma")
+    assert {"nif_shapenet_mse_wg_workspace", "nif_shapenet_mse_grads_wg",
+            "nif_shapenet_bwd_wg_workspace", "nif_shapenet_bwd_wg"} <= entries
+    signature = re.compile(r"^int (nif_\w+)\(([^)]*)\)", re.MULTILINE)
+    tc = dict(signature.findall((_build.CSRC / "shapenet_bwd_tc.cu").read_text()))
+    wg = dict(signature.findall((_build.CSRC / "shapenet_bwd_wgmma.cu").read_text()))
+    for mine, theirs in (("nif_shapenet_mse_grads_wg", "nif_shapenet_mse_grads_tc"),
+                         ("nif_shapenet_bwd_wg", "nif_shapenet_bwd_tc"),
+                         ("nif_shapenet_mse_wg_workspace", "nif_shapenet_mse_tc_workspace"),
+                         ("nif_shapenet_bwd_wg_workspace", "nif_shapenet_bwd_tc_workspace")):
+        assert " ".join(wg[mine].split()) == " ".join(tc[theirs].split()), mine
+
+
+def test_wgmma_header_edit_renames_only_the_wgmma_library(tmp_path, monkeypatch):
+    """On a copy of the port's sources: editing the wgmma/TMA/mbarrier
+    header renames the wgmma K2/K3 library and no other."""
+    for path in _build.CSRC.iterdir():
+        (tmp_path / path.name).write_bytes(path.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    names = sorted(path.stem for path in tmp_path.glob("*.cu"))
+    before = {name: _build._target(name) for name in names}
+    header = tmp_path / "wgmma_sm90.cuh"
+    header.write_text(header.read_text() + "// edited\n")
+    assert {name for name in names if _build._target(name) != before[name]} == {
+        "shapenet_bwd_wgmma"}
 
 
 def test_k1_k5_tensor_core_sources():

@@ -173,11 +173,22 @@ def test_model_on_the_card_routes_through_k1(card):
     out = model.apply_grouped(t, x)
     assert out.requires_grad and _build.LAUNCHES["shapenet_fwd"] == before + 2
     out.sum().backward()
-    # the bf16 K3 on the tensor cores
-    assert _build.LAUNCHES["shapenet_bwd"] == bwd["shapenet_bwd"] + 1
-    assert _build.LAUNCHES["shapenet_bwd_tc"] == bwd["shapenet_bwd_tc"] + 1
+    # the bf16 K3 on the tensor-core body its routing picks
+    body = fs.k3_variant(torch.bfloat16, model.cfg_shape_net, "siren")
+    assert body in ("wgmma", "tc")
+    got, want = _launched("shapenet_bwd", bwd, body)
+    assert got == want
     out = model.apply_grouped(t, x, fused=False)
     assert out.requires_grad and _build.LAUNCHES["shapenet_fwd"] == before + 2
+
+
+def _launched(base, before, body, n=1):
+    """(launches of K2, base "shapenet_mse_grads", or K3, "shapenet_bwd",
+    since ``before`` under the kernel's counter and each bf16 body's, and
+    what ``n`` launches on ``body`` ("wgmma", "tc" or "simt") add)."""
+    names = (base, base + "_tc", base + "_wg")
+    return ({k: _build.LAUNCHES[k] - before[k] for k in names},
+            {base: n, base + "_tc": n * (body == "tc"), base + "_wg": n * (body == "wgmma")})
 
 
 def _side(cfg, G, P, dtype, seed):
@@ -202,9 +213,12 @@ def test_k2_matches_plain(card, variant, args, dtype, weighted):
     w = w if weighted else None
     before = dict(_build.LAUNCHES)
     loss, d_wb = fs.shapenet_mse_grads(wb, x, tgt, cfg, variant, w)
-    assert _build.LAUNCHES["shapenet_mse_grads"] == before["shapenet_mse_grads"] + 1
-    tc = int(dtype == torch.bfloat16 and variant == "siren")
-    assert _build.LAUNCHES["shapenet_mse_grads_tc"] == before["shapenet_mse_grads_tc"] + tc
+    # bf16 sine chains on a tensor-core body (wgmma where its geometry takes
+    # the chain), f32 and vanilla chains on the CUDA-core one
+    body = fs.k2_geometry(cfg, variant, 3, 256, dtype)["kernel"]
+    assert (body != "simt") == (dtype == torch.bfloat16 and variant == "siren")
+    got, want = _launched("shapenet_mse_grads", before, body)
+    assert got == want
     l_ref, g_ref = fs.shapenet_mse_grads_reference(wb, x, tgt, cfg, variant, w)
     l_rel, g_bound, _ = _bounds(dtype)
     assert loss.dtype == torch.float32 and d_wb.dtype == dtype
@@ -221,10 +235,11 @@ def test_k3_matches_plain(card, variant, args, dtype):
     g = _side(cfg, 3, 256, dtype, seed=10)[2]
     before = dict(_build.LAUNCHES)
     d_wb, dx = fs.shapenet_bwd_cuda(wb, x, g, cfg, variant)
-    # bf16 sine chains on the tensor-core K3; f32 and vanilla chains on the CUDA-core one
-    tc = int(dtype == torch.bfloat16 and variant == "siren")
-    assert _build.LAUNCHES["shapenet_bwd"] == before["shapenet_bwd"] + 1
-    assert _build.LAUNCHES["shapenet_bwd_tc"] == before["shapenet_bwd_tc"] + tc
+    # bf16 sine chains on a tensor-core K3 body; f32 and vanilla chains on the CUDA-core one
+    body = fs.k3_geometry(cfg, variant, 3, 256, dtype)["kernel"]
+    assert (body != "simt") == (dtype == torch.bfloat16 and variant == "siren")
+    got, want = _launched("shapenet_bwd", before, body)
+    assert got == want
     r_wb, r_dx = fs.shapenet_fused_bwd_reference(wb, x, g, cfg, variant)
     bound = _bounds(dtype)[2]
     assert d_wb.dtype == dtype and dx.dtype == dtype and dx.shape == x.shape
@@ -246,9 +261,10 @@ def test_k2_k3_ragged_tiles_and_determinism(card):
     l_ref, g_ref = fs.shapenet_mse_grads_reference(wb, x, tgt, cfg, "siren", w)
     err, scale = _max_diff(runs[0][1], g_ref)
     assert float(runs[0][0]) == pytest.approx(float(l_ref), rel=1e-3) and err <= 2.0 ** -6 * scale
-    before = _build.LAUNCHES["shapenet_bwd_tc"]
+    before = dict(_build.LAUNCHES)
     bwd = [fs.shapenet_bwd_cuda(wb, x, g, cfg, "siren") for _ in range(2)]
-    assert _build.LAUNCHES["shapenet_bwd_tc"] == before + 2
+    got, want = _launched("shapenet_bwd", before, fs.k3_variant(torch.bfloat16, cfg, "siren"), 2)
+    assert got == want
     assert torch.equal(bwd[0][0], bwd[1][0]) and torch.equal(bwd[0][1], bwd[1][1])
     for mine, ref in zip(bwd[0], fs.shapenet_fused_bwd_reference(wb, x, g, cfg, "siren")):
         err, scale = _max_diff(mine, ref)
@@ -326,8 +342,9 @@ def test_model_train_step_on_the_card_launches_k2(card):
     state = trainer.init(0)
     before = dict(_build.LAUNCHES)
     state, loss = trainer.step(state, t, x, u)
-    assert _build.LAUNCHES["shapenet_mse_grads"] == before["shapenet_mse_grads"] + 1
-    assert _build.LAUNCHES["shapenet_mse_grads_tc"] == before["shapenet_mse_grads_tc"] + 1
+    got, want = _launched("shapenet_mse_grads", before,
+                          fs.k2_variant(torch.bfloat16, model.cfg_shape_net, "siren"))
+    assert got == want and want["shapenet_mse_grads_tc"] + want["shapenet_mse_grads_wg"] == 1
     assert _build.LAUNCHES["shapenet_fwd"] == before["shapenet_fwd"]
     assert bool(torch.isfinite(loss)) and trainer.history["path"] == "fused"
     # the float32 policy runs the CUDA-core K2
@@ -335,8 +352,8 @@ def test_model_train_step_on_the_card_launches_k2(card):
                          lambda p: torch.optim.Adam(p, lr=1e-4))
     before = dict(_build.LAUNCHES)
     _, loss = f32.step(f32.init(0), t, x, u)
-    assert _build.LAUNCHES["shapenet_mse_grads"] == before["shapenet_mse_grads"] + 1
-    assert _build.LAUNCHES["shapenet_mse_grads_tc"] == before["shapenet_mse_grads_tc"]
+    got, want = _launched("shapenet_mse_grads", before, "simt")
+    assert got == want
     assert bool(torch.isfinite(loss))
 
 
@@ -1296,11 +1313,11 @@ def test_k2_tc_padded_and_ragged_shapes(card, args, weighted):
     wb, x = _data(cfg, 3, 200, torch.bfloat16, seed=33)
     tgt, w, _ = _side(cfg, 3, 200, torch.bfloat16, seed=33)
     w = w if weighted else None
-    assert fs.k2_geometry(cfg, "siren", 3, 200, torch.bfloat16)["kernel"] == "tc"
+    assert fs.k2_geometry(cfg, "siren", 3, 200, torch.bfloat16, kernel="tc")["kernel"] == "tc"
     before = dict(_build.LAUNCHES)
-    loss, d_wb = fs.shapenet_mse_grads_cuda(wb, x, tgt, cfg, "siren", w)
-    assert _build.LAUNCHES["shapenet_mse_grads_tc"] == before["shapenet_mse_grads_tc"] + 1
-    assert _build.LAUNCHES["shapenet_mse_grads"] == before["shapenet_mse_grads"] + 1
+    loss, d_wb = fs._shapenet_mse_grads_on("tc", wb, x, tgt, cfg, "siren", w)
+    got, want = _launched("shapenet_mse_grads", before, "tc")
+    assert got == want
     l_ref, g_ref = fs.shapenet_mse_grads_reference(wb, x, tgt, cfg, "siren", w)
     assert loss.dtype == torch.float32 and d_wb.dtype == torch.bfloat16
     assert float(loss) == pytest.approx(float(l_ref), rel=1e-3)
@@ -1393,14 +1410,15 @@ def test_k2_flagship_is_deterministic(card):
     in shared memory; two runs give the same bits (fixed P splits, an
     ordered reduce) and agree with plain K2."""
     cfg = ShapeNetConfig(3, 1, 128, 2, "sine", False, 30.0)
-    geo = fs.k2_geometry(cfg, "siren", 8, 32768, torch.bfloat16)
+    geo = fs.k2_geometry(cfg, "siren", 8, 32768, torch.bfloat16, kernel="tc")
     assert (geo["kernel"], geo["tile"], geo["residuals"], geo["weights"]) == (
         "tc", 128, "shared", "shared")
     wb, x = _data(cfg, 8, 32768, torch.bfloat16, seed=35)
     tgt, w, _ = _side(cfg, 8, 32768, torch.bfloat16, seed=35)
-    before = _build.LAUNCHES["shapenet_mse_grads_tc"]
-    runs = [fs.shapenet_mse_grads_cuda(wb, x, tgt, cfg, "siren", w) for _ in range(2)]
-    assert _build.LAUNCHES["shapenet_mse_grads_tc"] == before + 2
+    before = dict(_build.LAUNCHES)
+    runs = [fs._shapenet_mse_grads_on("tc", wb, x, tgt, cfg, "siren", w) for _ in range(2)]
+    got, want = _launched("shapenet_mse_grads", before, "tc", 2)
+    assert got == want
     assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
     l_ref, g_ref = fs.shapenet_mse_grads_reference(wb, x, tgt, cfg, "siren", w)
     assert float(runs[0][0]) == pytest.approx(float(l_ref), rel=1e-3)
@@ -1424,11 +1442,11 @@ def test_k3_tc_padded_and_ragged_shapes(card, args):
     cfg = ShapeNetConfig(*args)
     wb, x = _data(cfg, 3, 200, torch.bfloat16, seed=38)
     g = _side(cfg, 3, 200, torch.bfloat16, seed=38)[2]
-    assert fs.k3_variant(torch.bfloat16, cfg, "siren") == "tc"
+    assert fs.k3_geometry(cfg, "siren", 3, 200, torch.bfloat16, kernel="tc")["kernel"] == "tc"
     before = dict(_build.LAUNCHES)
-    runs = [fs.shapenet_bwd_cuda(wb, x, g, cfg, "siren") for _ in range(2)]
-    assert _build.LAUNCHES["shapenet_bwd_tc"] == before["shapenet_bwd_tc"] + 2
-    assert _build.LAUNCHES["shapenet_bwd"] == before["shapenet_bwd"] + 2
+    runs = [fs._shapenet_bwd_on("tc", wb, x, g, cfg, "siren") for _ in range(2)]
+    got, want = _launched("shapenet_bwd", before, "tc", 2)
+    assert got == want
     assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
     d_wb, dx = runs[0]
     assert d_wb.dtype == dx.dtype == torch.bfloat16 and dx.shape == x.shape
@@ -1449,10 +1467,10 @@ def test_k3_tensor_cores_against_the_cuda_core_kernel(card):
     geo = fs._k3_tc_status(cfg, "siren", 8, 32768 + 40)[1]
     assert (geo["tile"], geo["residuals"], geo["weights"]) == (128, "shared", "shared")
     before = dict(_build.LAUNCHES)
-    tc = [fs.shapenet_bwd_cuda(wb, x, g, cfg, "siren") for _ in range(2)]
+    tc = [fs._shapenet_bwd_on("tc", wb, x, g, cfg, "siren") for _ in range(2)]
     simt = fs._shapenet_bwd_simt(wb, x, g, cfg, "siren")
-    assert _build.LAUNCHES["shapenet_bwd"] == before["shapenet_bwd"] + 3
-    assert _build.LAUNCHES["shapenet_bwd_tc"] == before["shapenet_bwd_tc"] + 2
+    got, want = _launched("shapenet_bwd", before, "tc", 2)
+    assert got == {**want, "shapenet_bwd": 3}
     assert torch.equal(tc[0][0], tc[1][0]) and torch.equal(tc[0][1], tc[1][1])
     ref = fs.shapenet_fused_bwd_reference(wb, x, g, cfg, "siren")
     for mine, other, plain in zip(tc[0], simt, ref):
@@ -2290,7 +2308,12 @@ def test_grouped_lbfgs_launches_k2_once_an_evaluation(card, policy):
     torch.cuda.synchronize()
     evaluations = opt.counts["evaluations"]
     assert evaluations >= 8 and _build.LAUNCHES["shapenet_mse_grads"] == evaluations
-    assert _build.LAUNCHES["shapenet_mse_grads_tc"] == (0 if policy == "float32" else evaluations)
+    # bf16: the tensor-core body K2's routing picks for the chain
+    body = fs.k2_variant(model.policy.compute_dtype, model.cfg_shape_net, "siren")
+    assert (body == "simt") == (policy == "float32")
+    got, want = _launched("shapenet_mse_grads", {k: 0 for k in _build.LAUNCHES}, body,
+                          evaluations)
+    assert got == want
     h = opt.history["loss"]
     assert all(b <= a for a, b in zip(h, h[1:])) and h[-1] < h[0]
     _build.reset_launches()
@@ -2366,3 +2389,130 @@ def test_exported_grouped_artifact_launches_k1(card, policy):
     assert _build.LAUNCHES["shapenet_fwd"] == 1 and _build.LAUNCHES["shapenet_fwd_tc"] == tc
     assert sum(_build.LAUNCHES.values()) == 1 + tc
     assert torch.equal(out, ref)
+
+
+# The wgmma K2/K3 body (csrc/shapenet_bwd_wgmma.cu): the CASES chains it
+# takes (sine chains at widths 64 and 128), then what sets it apart: si and
+# so from 1 to 4, a resblock chain of two blocks, width 64 with four hidden
+# layers, and P of one partial tile (8 points), one ragged tile (56), eight
+# points past a tile (72) and a ragged run (200); P stays a multiple of 8,
+# the fused path's rule.
+WG_CASES = [args for variant, args in CASES if variant == "siren" and args[2] in (64, 128)]
+WG_SHAPES = [((1, 1, 64, 2, "sine", False, 30.0), 2, 8),
+             ((4, 4, 64, 4, "sine", False, 30.0), 3, 56),
+             ((2, 3, 128, 1, "sine", True, 10.0), 2, 72),
+             ((3, 2, 64, 2, "sine", True, 10.0), 3, 200),
+             ((3, 1, 128, 2, "sine", False, 30.0), 40, 200)]
+# bf16 loss of one tensor-core body against the other: each product is
+# exact, only the order of the f32 sums differs (chip_smoke.py's TC_LOSS_REL)
+TC_LOSS_REL = 1e-4
+
+
+@pytest.mark.parametrize("weighted", [False, True], ids=["unweighted", "weighted"])
+@pytest.mark.parametrize("args", WG_CASES, ids=["n128", "n64-res"])
+def test_wgmma_k2_matches_plain_and_the_mma_sync_body(card, args, weighted):
+    """The wgmma K2 at P = 200 (a ragged last tile) against plain K2 (loss
+    rel 1e-3, d_wb within 2^-6 of max|plain|) and its loss against the
+    mma.sync body's on the same inputs (rel 1e-4); one wgmma launch a call."""
+    cfg = ShapeNetConfig(*args)
+    wb, x = _data(cfg, 3, 200, torch.bfloat16, seed=40)
+    tgt, w, _ = _side(cfg, 3, 200, torch.bfloat16, seed=40)
+    w = w if weighted else None
+    before = dict(_build.LAUNCHES)
+    loss, d_wb = fs._shapenet_mse_grads_on("wgmma", wb, x, tgt, cfg, "siren", w)
+    got, want = _launched("shapenet_mse_grads", before, "wgmma")
+    assert got == want
+    l_ref, g_ref = fs.shapenet_mse_grads_reference(wb, x, tgt, cfg, "siren", w)
+    assert loss.dtype == torch.float32 and d_wb.dtype == torch.bfloat16
+    assert float(loss) == pytest.approx(float(l_ref), rel=1e-3)
+    err, scale = _max_diff(d_wb, g_ref)
+    assert err <= 2.0 ** -6 * scale, (err, scale)
+    l_tc, _ = fs._shapenet_mse_grads_on("tc", wb, x, tgt, cfg, "siren", w)
+    assert float(loss) == pytest.approx(float(l_tc), rel=TC_LOSS_REL)
+
+
+@pytest.mark.parametrize("args", WG_CASES, ids=["n128", "n64-res"])
+def test_wgmma_k3_matches_plain(card, args):
+    """The wgmma K3 at P = 200 against plain K3: d_wb and dx within 2^-6 of
+    max|plain|; one wgmma launch a call."""
+    cfg = ShapeNetConfig(*args)
+    wb, x = _data(cfg, 3, 200, torch.bfloat16, seed=41)
+    g = _side(cfg, 3, 200, torch.bfloat16, seed=41)[2]
+    before = dict(_build.LAUNCHES)
+    d_wb, dx = fs._shapenet_bwd_on("wgmma", wb, x, g, cfg, "siren")
+    got, want = _launched("shapenet_bwd", before, "wgmma")
+    assert got == want
+    assert d_wb.dtype == dx.dtype == torch.bfloat16 and dx.shape == x.shape
+    for mine, ref in zip((d_wb, dx), fs.shapenet_fused_bwd_reference(wb, x, g, cfg, "siren")):
+        err, scale = _max_diff(mine, ref)
+        assert err <= 2.0 ** -6 * scale, (err, scale)
+
+
+@pytest.mark.parametrize("args,G,P", WG_SHAPES,
+                         ids=["si1-so1-p8", "si4-so4-d4-p56", "res-so3-p72", "res-n64-p200",
+                              "g40-p200"])
+def test_wgmma_k2_k3_shapes(card, args, G, P):
+    """The wgmma K2 (weighted) and K3 on the shapes that set it apart,
+    against their plain versions within the bf16 bounds; G = 40 puts more
+    groups than SMs / splits, so a block walks several groups."""
+    cfg = ShapeNetConfig(*args)
+    assert fs._wg_status("train", cfg, "siren", G, P)[0] == 0
+    wb, x = _data(cfg, G, P, torch.bfloat16, seed=42)
+    tgt, w, g = _side(cfg, G, P, torch.bfloat16, seed=42)
+    loss, d_wb = fs._shapenet_mse_grads_on("wgmma", wb, x, tgt, cfg, "siren", w)
+    l_ref, g_ref = fs.shapenet_mse_grads_reference(wb, x, tgt, cfg, "siren", w)
+    assert float(loss) == pytest.approx(float(l_ref), rel=1e-3)
+    err, scale = _max_diff(d_wb, g_ref)
+    assert err <= 2.0 ** -6 * scale, (err, scale)
+    for mine, ref in zip(fs._shapenet_bwd_on("wgmma", wb, x, g, cfg, "siren"),
+                         fs.shapenet_fused_bwd_reference(wb, x, g, cfg, "siren")):
+        err, scale = _max_diff(mine, ref)
+        assert err <= 2.0 ** -6 * scale, (err, scale)
+
+
+def test_wgmma_k2_k3_flagship_is_deterministic(card):
+    """The flagship chain at G=32, P=32768 in bf16 on the wgmma body: K2
+    (weighted) and K3 twice each on one input give the same bits (each
+    consumer adds its tiles in order into its own partial, an ordered
+    reduce), within the bf16 bounds of their plain versions; K2's loss
+    within 1e-4 of the mma.sync body's."""
+    cfg = ShapeNetConfig(3, 1, 128, 2, "sine", False, 30.0)
+    geo = fs.k2_geometry(cfg, "siren", 32, 32768, torch.bfloat16, kernel="wgmma")
+    assert (geo["kernel"], geo["tile"], geo["residuals"], geo["weights"]) == (
+        "wgmma", 128, "shared", "shared")
+    wb, x = _data(cfg, 32, 32768, torch.bfloat16, seed=43)
+    tgt, w, g = _side(cfg, 32, 32768, torch.bfloat16, seed=43)
+    runs = [fs._shapenet_mse_grads_on("wgmma", wb, x, tgt, cfg, "siren", w) for _ in range(2)]
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+    l_ref, g_ref = fs.shapenet_mse_grads_reference(wb, x, tgt, cfg, "siren", w)
+    assert float(runs[0][0]) == pytest.approx(float(l_ref), rel=1e-3)
+    err, scale = _max_diff(runs[0][1], g_ref)
+    assert err <= 2.0 ** -6 * scale, (err, scale)
+    l_tc, _ = fs._shapenet_mse_grads_on("tc", wb, x, tgt, cfg, "siren", w)
+    assert float(runs[0][0]) == pytest.approx(float(l_tc), rel=TC_LOSS_REL)
+    bwd = [fs._shapenet_bwd_on("wgmma", wb, x, g, cfg, "siren") for _ in range(2)]
+    assert torch.equal(bwd[0][0], bwd[1][0]) and torch.equal(bwd[0][1], bwd[1][1])
+    for mine, ref in zip(bwd[0], fs.shapenet_fused_bwd_reference(wb, x, g, cfg, "siren")):
+        err, scale = _max_diff(mine, ref)
+        assert err <= 2.0 ** -6 * scale, (err, scale)
+
+
+def test_wgmma_geometry_takes_and_refuses(card):
+    """The wgmma workspace entry: the flagship fits (128-point tiles, SMs //
+    32 splits, everything in shared memory, no scratch for a plain chain);
+    width 128 past two hidden matrices, and bench.py's w128_d4_resblock,
+    exceed shared memory (status 2); width 256 (bench.py's w256_d2), si 5
+    and so 5 have no instance (status 3), and route to the mma.sync body."""
+    flagship = ShapeNetConfig(3, 1, 128, 2, "sine", False, 30.0)
+    status, geo = fs._wg_status("train", flagship, "siren", 32, 32768)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert status == 0 and (geo["tile"], geo["splits"], geo["scratch_bytes"]) == (
+        128, min(sms // 32, 64), 0)
+    assert geo["smem_bytes"] <= 232448
+    for args in ((3, 1, 128, 3, "sine", False, 30.0), (3, 1, 128, 4, "sine", True, 30.0)):
+        assert fs._wg_status("train", ShapeNetConfig(*args), "siren", 32, 32768)[0] == 2
+        assert fs.k2_variant(torch.bfloat16, ShapeNetConfig(*args), "siren") == "tc"
+    for args in ((3, 1, 256, 2, "sine", False, 30.0), (5, 1, 64, 2, "sine", False, 30.0),
+                 (3, 5, 64, 2, "sine", False, 30.0)):
+        assert fs._wg_status("backward", ShapeNetConfig(*args), "siren", 32, 32768)[0] == 3
+        assert fs.k3_variant(torch.bfloat16, ShapeNetConfig(*args), "siren") != "wgmma"

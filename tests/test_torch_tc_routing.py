@@ -212,6 +212,7 @@ LOADERS = {
     "shapenet_fwd_tc": fs._fwd_tc_library,
     "shapenet_bwd": fs._bwd_library,
     "shapenet_bwd_tc": fs._bwd_tc_library,
+    "shapenet_bwd_wgmma": fs._bwd_wg_library,
     "shapenet_jac": lambda: fd._library("simt"),
     "shapenet_jac_tc": lambda: fd._library("tc"),
     "shapenet_hess": lambda: fh._library("simt"),
