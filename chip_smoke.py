@@ -11,17 +11,22 @@ Phases, each of which raises on failure:
 2. Hold K1 (the grouped ShapeNet forward) against its plain PyTorch version
    over the six chain configs of the JAX package's kernel tests at G=3,
    P=256, and the flagship chain at G=32, P=32768, in float32 and bfloat16:
-   bfloat16 sine chains through the tensor-core kernel
-   (``shapenet_fwd_tc.cu``), float32 and vanilla chains through the
-   CUDA-core one (``shapenet_fwd.cu``, one body with K5's CUDA-core reverse
-   body), each checked by its launch counter and its geometry's ``body``;
-   the tensor-core kernel also on the padded, narrow and wide shapes of K2's
+   bfloat16 sine chains through the tensor-core body ``k1_variant`` routes
+   them to (the wgmma body of ``shapenet_fwd_wgmma.cu`` at widths 64 and
+   128 with so <= 4, the ``mma.sync`` body of ``shapenet_fwd_tc.cu`` else),
+   float32 and vanilla chains through the CUDA-core one
+   (``shapenet_fwd.cu``, one body with K5's CUDA-core reverse body), each
+   checked by its launch counters and its geometry's ``body``; the routed
+   bodies also on the padded, narrow and wide shapes of K2's
    (``K2_TC_EXTRA``, P = 200) and on the NIF-linear trunk's 128 output
-   columns (through the kernel ``k1_variant`` picks); the CUDA-core kernel
-   on ``SIMT_FWD_EXTRA`` (si 5-7, so 2-3, widths 24-1024; P = 200) in
-   float32 and in bfloat16, which the tensor-core kernel refuses there; at
-   the flagship shape in bfloat16 the CUDA-core kernel on the same inputs
-   too; two flagship runs in each dtype must give bitwise-equal results.
+   columns (the ``mma.sync`` body); the CUDA-core kernel on
+   ``SIMT_FWD_EXTRA`` (si 5-7, so 2-3, widths 24-1024; P = 200) in float32
+   and in bfloat16, which the tensor-core bodies refuse there; the wgmma and
+   the ``mma.sync`` bodies each on the CASES chains the wgmma body takes
+   (P = 200) and at the flagship shape, against plain K1 and against each
+   other; at the flagship shape in bfloat16 the CUDA-core kernel on the same
+   inputs too; two flagship runs of the routed body in each dtype, and of
+   the ``mma.sync`` body, must give bitwise-equal results.
 2b. Hold K2 (forward + weighted MSE + backward) against plain K2 over the
    same configs, with and without point weights: bfloat16 sine chains
    through the tensor-core body ``k2_variant`` routes them to (the wgmma
@@ -54,7 +59,8 @@ Phases, each of which raises on failure:
    weights from a seed) through ``serving.predict_grouped``: a full request, a
    ragged one (point padding) and a 70-snapshot one (chunking). Check shapes,
    finiteness, agreement with the plain K1 and the eager path, and that the
-   tensor-core K1 launched once per chunk served; then one full request of
+   routed tensor-core K1 (the wgmma body) launched once per chunk served;
+   then one full request of
    the same model under the float32 policy (one launch of the CUDA-core K1,
    its geometry's body "simt").
 3b. Train the flagship: ``GroupedTrainer.step`` with Adam at G=32, P=32768
@@ -67,8 +73,9 @@ Phases, each of which raises on failure:
    CUDA-core K2, none of a tensor-core one), then a short ``fit`` on a
    smooth traveling wave (60 launches of the routed body) whose last epoch
    loss must be below its first.
-4. Time the bfloat16 tensor-core K1, the CUDA-core K1 on the same bfloat16
-   inputs and in float32, their plain versions and the end-to-end
+4. Time the bfloat16 routed K1, the wgmma and the ``mma.sync`` K1 in turns
+   on the same inputs (tc, wgmma, wgmma, tc), the CUDA-core K1 on the same
+   bfloat16 inputs and in float32, their plain versions and the end-to-end
    ``apply_grouped`` and ``predict_grouped`` with CUDA events, and compute
    K1's bounds on this card; then the float32 policy's ``apply_grouped``
    (mean of 20) and ``predict_grouped`` from host arrays (mean of 5), each on
@@ -88,7 +95,8 @@ Phases of the Sobolev slice:
 2d. Hold K5 (the fused Jacobian) against plain K5 over the same configs and
    one more with so >= si (the forward-tangent body), in float32 and
    bfloat16: bfloat16 sine chains through the tensor-core kernels (the
-   reverse body, so < si, of ``shapenet_fwd_tc.cu``; the tangent body,
+   reverse body, so < si, of ``shapenet_fwd_wgmma.cu`` where its geometry
+   takes the chain, else of ``shapenet_fwd_tc.cu``; the tangent body,
    so >= si, of ``shapenet_jac_tc.cu``, K6's forward half), the rest
    through the CUDA-core ones (the reverse body of ``shapenet_fwd.cu``,
    beside the CUDA-core K1, and the tangent body of ``shapenet_jac.cu``,
@@ -98,14 +106,17 @@ Phases of the Sobolev slice:
    1 -> 1 chain of width 30, si = so = 2 on a resblock chain, si = so = 4
    at widths 16 and 192, a vanilla chain, which bf16 runs on the CUDA-core
    body, and si = so = 5 on the stacked body; P = 200) in both dtypes; the
-   tensor-core reverse body also on ``JAC_REV_TC`` (si = 3 with so = 2 on a
-   resblock chain, si = 4 at width 16, widths 40 and 192; P = 200); the
+   ``mma.sync`` reverse body, by name, also on ``JAC_REV_TC`` (si = 3 with
+   so = 2 on a resblock chain, si = 4 at width 16, widths 40 and 192; P =
+   200); the wgmma and the ``mma.sync`` reverse bodies each on the chains
+   the wgmma body takes (P = 200) and at the flagship shape, against plain
+   K5 and against each other; the
    CUDA-core reverse body on ``SIMT_FWD_EXTRA`` (2-3 sweeps) in both
    dtypes; at the flagship shape, and at si = so = 3 of the flagship widths
    (the tangent body's timed shape), in bfloat16 the tensor-core kernel and
    the CUDA-core one on the same inputs, and the CUDA-core one in float32
-   (G=32); two runs at each of the two shapes in each dtype must give
-   bitwise-equal results.
+   (G=32); two runs at each of the two shapes in each dtype (and of the
+   ``mma.sync`` reverse body by name) must give bitwise-equal results.
 2e. Hold K6 (the fused Sobolev train pass) against plain K6 over the same
    configs, weighted or not, with value and Jacobian masks on the
    multi-output configs: bfloat16 sine chains through the tensor-core
@@ -123,9 +134,11 @@ Phases of the Sobolev slice:
    float32 policy (one of the CUDA-core K6, none of the tensor-core one), a
    short Sobolev ``fit`` on the traveling wave with its analytic Jacobian
    (60 tensor-core launches) that must lower both terms, and
-   ``evaluate_sobolev`` (one tensor-core K5 launch per chunk; under the
-   float32 policy one CUDA-core K5 launch per chunk, its geometry's body
-   "simt").
+   ``evaluate_sobolev`` (one launch of the routed tensor-core K5, the wgmma
+   reverse body, per chunk; under the float32 policy one CUDA-core K5
+   launch per chunk, its geometry's body "simt"); then one chunk of
+   ``evaluate_sobolev`` on a flagship-width chain of two resblocks, which
+   the wgmma body refuses: one launch of the ``mma.sync`` reverse body.
 3f. Evaluate tutorial 8's model (``examples/08_sobolev_training.py``:
    SIREN 1 -> 1, width 30, two hidden layers, omega_0 = 30; random weights
    from a seed) through ``GroupedTrainer.evaluate_sobolev`` with Jacobian
@@ -136,8 +149,10 @@ Phases of the Sobolev slice:
    (``examples/03_multi_scale_linear_nif.py``), whose effective chain is
    si = so = 2: ``output_and_jacobian_grouped`` at G=8, P=4096 in both
    policies through the kernel ``k5_variant`` picks, against plain K5.
-4c. Time the flagship Sobolev step, the bfloat16 tensor-core K5 and K6, the
-   CUDA-core K5 and K6 on the same bfloat16 inputs and in float32, with
+4c. Time the flagship Sobolev step, the bfloat16 routed K5 and K6, the
+   wgmma and the ``mma.sync`` K5 reverse bodies in turns on the same inputs
+   (tc, wgmma, wgmma, tc), the CUDA-core K5 and K6 on the same bfloat16
+   inputs and in float32, with
    their plain versions, and compute their bounds on this card; the float32
    policy's Jacobian ``evaluate_sobolev`` at G=32, P=32768 from host arrays
    (one launch of the CUDA-core K5), mean of 3 on the device clock and on
@@ -521,10 +536,11 @@ def host_ms(torch, fn, reps: int) -> float:
     return total / reps * 1e3
 
 
-def check_k1(torch, cfg, variant, G, P, dtype, seed, simt=False) -> float:
+def check_k1(torch, cfg, variant, G, P, dtype, seed, simt=False, kernel=None) -> float:
     """Kernel vs plain version on one input; returns max |kernel - plain|.
     The launch must take the kernel ``k1_variant`` picks (``simt``: the
-    CUDA-core kernel on the same inputs, through its private launcher).
+    CUDA-core kernel on the same inputs, through its private launcher;
+    ``kernel``: the body named, "wgmma", "tc" or "simt", likewise).
 
     Tolerances: float32 rtol 2e-4, atol 1e-5 (the JAX package's kernel-test
     bound; both sides sum in f32, in different orders). bfloat16 max|d| <=
@@ -532,22 +548,24 @@ def check_k1(torch, cfg, variant, G, P, dtype, seed, simt=False) -> float:
     sum can flip the bf16 rounding of an activation before the next matmul."""
     from nif_tpu_torch.ops import _build
     from nif_tpu_torch.ops.fused_shapenet import (
-        _shapenet_fwd_simt, k1_geometry, k1_variant, shapenet_fwd_cuda,
+        _shapenet_fwd_on, k1_geometry, k1_variant, shapenet_fwd_cuda,
         shapenet_grouped_fused_reference)
 
     wb, x = chain_data(torch, cfg, G, P, dtype, seed)
-    kernel = "simt" if simt else k1_variant(dtype, cfg, variant)
+    named = "simt" if simt else kernel
+    kernel = named or k1_variant(dtype, cfg, variant)
     geo = k1_geometry(cfg, variant, G, P, dtype, kernel=kernel)
     before = dict(_build.LAUNCHES)
-    out = (_shapenet_fwd_simt if simt else shapenet_fwd_cuda)(wb, x, cfg, variant)
+    if named is None:
+        out = shapenet_fwd_cuda(wb, x, cfg, variant)
+    else:
+        out = _shapenet_fwd_on(named, wb, x, cfg, variant)
     ref = shapenet_grouped_fused_reference(wb, x, cfg, variant)
     torch.cuda.synchronize()
     what = f"K1 {describe(cfg, variant, G, P, dtype)}"
-    if (_build.LAUNCHES["shapenet_fwd"] != before["shapenet_fwd"] + 1
-            or _build.LAUNCHES["shapenet_fwd_tc"]
-            != before["shapenet_fwd_tc"] + int(kernel == "tc") or geo["body"] != kernel):
-        raise AssertionError(f"{what}: launched {_build.LAUNCHES} after {before}, not one "
-                             f"{kernel} K1 (geometry {geo})")
+    got, want = _body_launches("shapenet_fwd", before, kernel)
+    if got != want or geo["body"] != kernel:
+        raise AssertionError(f"{what}: launched {got}, not one {kernel} K1 (geometry {geo})")
     if out.shape != ref.shape or out.dtype != ref.dtype:
         raise AssertionError(f"K1 {variant} {cfg}: {out.shape}/{out.dtype} vs {ref.shape}/{ref.dtype}")
     err, scale = max_diff(torch, out, ref, f"K1 {variant} {cfg} {dtype}")
@@ -568,16 +586,37 @@ def describe_geometry(geo) -> str:
             f"{geo['residuals']} memory, {geo['smem_bytes']} B of shared memory")
 
 
-def _body_launches(base, before, body):
-    """``{counter: launches since before}`` of K2 (``base``
-    "shapenet_mse_grads") or K3 ("shapenet_bwd") beside what one launch on
-    ``body`` ("wgmma", "tc" or "simt") adds."""
+def _body_launches(base, before, body, n=1):
+    """``{counter: launches since before}`` of K1 (``base``
+    "shapenet_fwd"), K2 ("shapenet_mse_grads"), K3 ("shapenet_bwd") or K5
+    ("shapenet_fwd_jac") beside what ``n`` launches on ``body`` ("wgmma",
+    "tc" or "simt"; K5's tangent body counts as "tc") add."""
     from nif_tpu_torch.ops import _build
 
     names = (base, base + "_tc", base + "_wg")
     got = {k: _build.LAUNCHES[k] - before[k] for k in names}
-    want = {base: 1, base + "_tc": int(body == "tc"), base + "_wg": int(body == "wgmma")}
+    want = {base: n, base + "_tc": n * (body == "tc"), base + "_wg": n * (body == "wgmma")}
     return got, want
+
+
+def check_k1_bodies(torch, cfg, G, P, seed) -> dict:
+    """The wgmma and the mma.sync K1 on the same bf16 inputs: each against
+    plain K1 (``check_k1``), and against each other within 1e-2 of the
+    mma.sync body's max|out| (each product is exact in both; only the order
+    of the f32 sums differs, and an f32 last bit can flip a bf16 rounding).
+    Returns ``{body: max |out - plain|}``."""
+    from nif_tpu_torch.ops.fused_shapenet import _shapenet_fwd_on
+
+    errs = {body: check_k1(torch, cfg, "siren", G, P, torch.bfloat16, seed, kernel=body)
+            for body in ("wgmma", "tc")}
+    wb, x = chain_data(torch, cfg, G, P, torch.bfloat16, seed)
+    outs = [_shapenet_fwd_on(body, wb, x, cfg, "siren") for body in ("wgmma", "tc")]
+    err, scale = max_diff(torch, outs[0], outs[1], "K1 wgmma vs mma.sync")
+    log(f"K1 {describe(cfg, 'siren', G, P, torch.bfloat16)}: the wgmma body against the "
+        f"mma.sync body's max|d| {err:.3e} ({err / scale:.2e} of its max|out|)")
+    if err > 1e-2 * scale:
+        raise AssertionError(f"the wgmma and mma.sync K1 differ by {err} > 1e-2 * {scale}")
+    return errs
 
 
 def check_k2(torch, cfg, variant, G, P, dtype, weighted, seed, kernel=None,
@@ -696,38 +735,43 @@ def check_k3(torch, cfg, variant, G, P, dtype, seed, f32_bound=5e-6, kernel=None
     return err
 
 
-def check_k5(torch, cfg, variant, G, P, dtype, seed, simt=False, body=None) -> float:
+def check_k5(torch, cfg, variant, G, P, dtype, seed, simt=False, body=None,
+             kernel=None) -> float:
     """K5 vs plain K5 on y and jac; returns the larger max|d| of the two.
     The launch must take the kernel ``k5_variant`` picks (``simt``: the
-    CUDA-core kernel on the same inputs, through its private launcher) and
-    the body its geometry names: ``body`` where given, else the kernel's
-    ("tc", or "simt"; the tangent body on the CUDA cores at si > 4, the
-    first port's "stacked" one).
+    CUDA-core kernel on the same inputs, through its private launcher;
+    ``kernel``: the body named, "wgmma", "tc" or "simt", likewise) and the
+    body its geometry names: ``body`` where given, else the kernel's
+    ("wgmma", "tc", or "simt"; the tangent body on the CUDA cores at si > 4,
+    the first port's "stacked" one).
 
     float32: max|d| <= 2e-4 max|plain| + 1e-5 (K1's bound; both sum in f32
     in other orders); bfloat16: BF16_REL of max|plain| (the sweeps round
     each dz, the tangents each stacked input, to bf16)."""
     from nif_tpu_torch.ops import _build
     from nif_tpu_torch.ops.fused_derivatives import (
-        _geometry, _shapenet_fwd_jac_simt, k5_variant, shapenet_fwd_jac_cuda,
+        _geometry, _shapenet_fwd_jac_on, k5_variant, shapenet_fwd_jac_cuda,
         shapenet_fwd_jac_reference)
 
     wb, x = chain_data(torch, cfg, G, P, dtype, seed)
-    kernel = "simt" if simt else k5_variant(dtype, cfg, variant)
+    named = "simt" if simt else kernel
+    kernel = named or k5_variant(dtype, cfg, variant)
     mode = "reverse" if cfg.output_dim < cfg.input_dim else "tangent"
     geo = _geometry(mode, cfg, variant, G, P, dtype, kernel=kernel)
     if body is None:
         body = "stacked" if kernel == "simt" and mode == "tangent" and cfg.input_dim > 4 else kernel
     before = dict(_build.LAUNCHES)
-    y, jac = (_shapenet_fwd_jac_simt if simt else shapenet_fwd_jac_cuda)(wb, x, cfg, variant)
+    if named is None:
+        y, jac = shapenet_fwd_jac_cuda(wb, x, cfg, variant)
+    else:
+        y, jac = _shapenet_fwd_jac_on(named, wb, x, cfg, variant)
     y_ref, jac_ref = shapenet_fwd_jac_reference(wb, x, cfg, variant)
     torch.cuda.synchronize()
     what = f"K5 ({mode}) {describe(cfg, variant, G, P, dtype)}"
-    if (_build.LAUNCHES["shapenet_fwd_jac"] != before["shapenet_fwd_jac"] + 1
-            or _build.LAUNCHES["shapenet_fwd_jac_tc"]
-            != before["shapenet_fwd_jac_tc"] + int(kernel == "tc") or geo["body"] != body):
-        raise AssertionError(f"{what}: launched {_build.LAUNCHES} after {before}, not one "
-                             f"{kernel} K5 on the {body} body (geometry {geo})")
+    got, want = _body_launches("shapenet_fwd_jac", before, kernel)
+    if got != want or geo["body"] != body:
+        raise AssertionError(f"{what}: launched {got}, not one {kernel} K5 on the {body} body "
+                             f"(geometry {geo})")
     if y.dtype != dtype or jac.shape != (G, P, cfg.output_dim, cfg.input_dim):
         raise AssertionError(f"{what}: y {y.dtype}, jac {jac.shape}/{jac.dtype}")
     worst, rels = 0.0, []
@@ -741,6 +785,27 @@ def check_k5(torch, cfg, variant, G, P, dtype, seed, simt=False, body=None) -> f
     log(f"{what} y/jac agree; max|d| of max|plain|: {', '.join(rels)}; {kernel} kernel, "
         f"{describe_geometry(geo)}")
     return worst
+
+
+def check_k5_bodies(torch, cfg, G, P, seed) -> dict:
+    """The wgmma and the mma.sync K5 reverse body on the same bf16 inputs:
+    each against plain K5 (``check_k5``), and y and jac against each other
+    within BF16_REL of the mma.sync body's max|out|. Returns ``{body: the
+    larger max|d| against plain}``."""
+    from nif_tpu_torch.ops.fused_derivatives import _shapenet_fwd_jac_on
+
+    errs = {body: check_k5(torch, cfg, "siren", G, P, torch.bfloat16, seed, kernel=body)
+            for body in ("wgmma", "tc")}
+    wb, x = chain_data(torch, cfg, G, P, torch.bfloat16, seed)
+    outs = [_shapenet_fwd_jac_on(body, wb, x, cfg, "siren") for body in ("wgmma", "tc")]
+    for i, name in enumerate(("y", "jac")):
+        err, scale = max_diff(torch, outs[0][i], outs[1][i], f"K5 wgmma vs mma.sync {name}")
+        log(f"K5 {describe(cfg, 'siren', G, P, torch.bfloat16)}: the wgmma body's {name} "
+            f"against the mma.sync body's max|d| {err:.3e} ({err / scale:.2e} of its max|out|)")
+        if err > BF16_REL * scale:
+            raise AssertionError(f"the wgmma and mma.sync K5 {name} differ by {err} > "
+                                 f"{BF16_REL} * {scale}")
+    return errs
 
 
 def check_k6(torch, cfg, variant, G, P, dtype, weighted, masked, seed, simt=False,
@@ -1238,21 +1303,26 @@ def build_all(names):
     return secs
 
 
-def bf16_body_counter(base: str) -> str:
-    """The launch counter of the bf16 body that K2 (``base``
-    "shapenet_mse_grads") or K3 ("shapenet_bwd") takes for a flagship-width
-    sine chain, which every model this script trains or differentiates in
-    bf16 is: ``base + "_wg"`` on the wgmma body, ``base + "_tc"`` on the
-    ``mma.sync`` body, as ``k2_variant``/``k3_variant`` route it (they ask
-    the built libraries)."""
+def bf16_body_counter(base: str, cfg=None) -> str:
+    """The launch counter of the bf16 body that K1 (``base``
+    "shapenet_fwd"), K2 ("shapenet_mse_grads"), K3 ("shapenet_bwd") or K5
+    ("shapenet_fwd_jac") takes for ``cfg``, by default a flagship-width sine
+    chain, which every model this script serves, trains or differentiates
+    in bf16 is: ``base + "_wg"`` on the wgmma body, ``base + "_tc"`` on the
+    ``mma.sync`` body (K5's tangent body too), as ``k1_variant``,
+    ``k2_variant``, ``k3_variant`` or ``k5_variant`` route it (they ask the
+    built libraries)."""
     import torch
 
     from nif_tpu_torch.config import ShapeNetConfig
-    from nif_tpu_torch.ops.fused_shapenet import k2_variant, k3_variant
+    from nif_tpu_torch.ops.fused_derivatives import k5_variant
+    from nif_tpu_torch.ops.fused_shapenet import k1_variant, k2_variant, k3_variant
     from nif_tpu_torch.utils.bench import FLAGSHIP_SHAPE
 
-    pick = k2_variant if base == "shapenet_mse_grads" else k3_variant
-    body = pick(torch.bfloat16, ShapeNetConfig.from_dict(FLAGSHIP_SHAPE), "siren")
+    pick = {"shapenet_fwd": k1_variant, "shapenet_mse_grads": k2_variant,
+            "shapenet_bwd": k3_variant, "shapenet_fwd_jac": k5_variant}[base]
+    cfg = cfg or ShapeNetConfig.from_dict(FLAGSHIP_SHAPE)
+    body = pick(torch.bfloat16, cfg, "siren")
     return base + {"wgmma": "_wg", "tc": "_tc"}[body]
 
 
@@ -1307,7 +1377,7 @@ RESIDENT_GB, RESIDENT_PB = 32, 32768
 # (tensor-core bodies, CUDA-core); the CUDA-core K3 shares K2's CUDA-core
 # kernel, so a CUDA-core K2 count above the replays would be a K3.
 PASS_KERNELS = {
-    "K1": (("fwd_tc_kernel",), "fwd_simt_kernel"),
+    "K1": (("fwd_tc_kernel", "fwd_wg_kernel"), "fwd_simt_kernel"),
     "K2": (("mse_tc_kernel", "mse_wg_kernel"), "simt_train_kernel"),
     "K3": (("bwd_tc_kernel", "bwd_wg_kernel"), None),
     "K6": (("sob_tc_kernel",), "sob_simt_kernel"),
@@ -1624,12 +1694,13 @@ def phase_resident(torch, log):
                                  resample_every=2, seed=9)
     launches = dict(_build.LAUNCHES)
     chunks = -(-RESIDENT_G // (4_000_000 // RESIDENT_P))
+    k1_counter = bf16_body_counter("shapenet_fwd")
     log(f"3g residual fit_resident (resample_every=2, 4 epochs): losses "
-        f"{trainer.history['loss']}; K1 launches {launches['shapenet_fwd']} (tensor-core "
-        f"{launches['shapenet_fwd_tc']}) for 2 refreshes of {chunks} chunks; K2 wrapper "
+        f"{trainer.history['loss']}; K1 launches {launches['shapenet_fwd']} ({k1_counter} "
+        f"{launches[k1_counter]}) for 2 refreshes of {chunks} chunks; K2 wrapper "
         f"launches {launches['shapenet_mse_grads']} with "
         f"{len(trainer.history['resident_capture_ms'])} captures")
-    if (launches["shapenet_fwd"] != 2 * chunks or launches["shapenet_fwd_tc"] != 2 * chunks
+    if (launches["shapenet_fwd"] != 2 * chunks or launches[k1_counter] != 2 * chunks
             or launches["shapenet_mse_grads"] != 1 + len(trainer.history["resident_capture_ms"])
             or not all(np.isfinite(trainer.history["loss"]))):
         raise AssertionError(f"the residual resident fit launched {launches}")
@@ -2348,8 +2419,9 @@ def export_phase(torch, log, smi):
             f"against apply_grouped's {apply_ms:.4f} (CUDA events, mean of 20; card {smi}); "
             f"device time a call {art_dev[0]:.4f} ms ({art_dev[1]:.0f} kernels) against "
             f"{apply_dev[0]:.4f} ({apply_dev[1]:.0f})")
+        body_counter = bf16_body_counter("shapenet_fwd") if tc else None
         if (ops != ["nif_tpu_torch.shapenet_fwd.default"] or not same
-                or launches["shapenet_fwd"] != 1 or launches["shapenet_fwd_tc"] != int(tc)
+                or launches["shapenet_fwd"] != 1 or (tc and launches[body_counter] != 1)
                 or sum(launches.values()) != 1 + int(tc)
                 or counts["K1"] != ((1, 0) if tc else (0, 1))
                 or any(sum(c) for p, c in counts.items() if p != "K1")):
@@ -2522,7 +2594,7 @@ def phase_cli(torch, log, smi):
     rel = max(abs(got[k] - ref[k]) / abs(ref[k]) for k in ("mse", "rel_l2"))
     log(f"3m cli eval: {got}; evaluate_metrics on the restored checkpoint {ref} (rel {rel:.3e}); "
         f"launches {eval_launches}")
-    if rel > 1e-5 or eval_launches["shapenet_fwd_tc"] != CLI_G // 32:
+    if rel > 1e-5 or eval_launches[bf16_body_counter("shapenet_fwd")] != CLI_G // 32:
         raise AssertionError(f"cli eval {got} vs {ref}, launches {eval_launches}")
 
     art = os.path.join(d, "flagship.pt2")
@@ -2540,7 +2612,8 @@ def phase_cli(torch, log, smi):
     log(f"3m cli export: {meta}; the loaded artifact bit for bit apply_grouped: {same}; a "
         f"call launched {art_launches}; the phase took {time.perf_counter() - phase0:.1f} s "
         f"(train, eval, the reference evaluation, export and a call)")
-    if not same or art_launches["shapenet_fwd_tc"] != 1 or meta["layout"] != "grouped":
+    if (not same or art_launches[bf16_body_counter("shapenet_fwd")] != 1
+            or meta["layout"] != "grouped"):
         raise AssertionError(f"cli export: equal {same}, launches {art_launches}")
     root.cleanup()
     return train_s
@@ -2953,7 +3026,8 @@ def phase_examples(torch, log, smi):
     want.update(K1=(1, 0), K2=(steps, 0))
     if (steps != PAPER_EPOCHS * (r["n_train"] // 8) or counts != want
             or launches[bf16_body_counter("shapenet_mse_grads")] != 1 + captures
-            or launches["shapenet_fwd_tc"] != 1 or not hist["loss"][-1] < hist["loss"][0]
+            or launches[bf16_body_counter("shapenet_fwd", r["model"].cfg_shape_net)] != 1
+            or not hist["loss"][-1] < hist["loss"][0]
             or not np.isfinite(r["err"]) or u_fine != (G - r["n_train"], 2 * P, 1)
             or (G, P) != (64, 262144)):
         raise AssertionError(f"tutorial 13 --paper: {steps} steps, trace {counts}, launches "
@@ -2976,10 +3050,12 @@ def phase_examples(torch, log, smi):
         comp = compiled(*args)
     torch.cuda.synchronize()
     entry_s = time.perf_counter() - t0
-    entry_launches = _build.LAUNCHES["shapenet_fwd_tc"]
+    entry_counter = bf16_body_counter("shapenet_fwd", fn.model.cfg_shape_net)
+    entry_launches = _build.LAUNCHES[entry_counter]
     comp_rel = float(torch.linalg.vector_norm(comp - eager) / torch.linalg.vector_norm(eager))
     log(f"3p entry(): torch.export graph calls {[o for o in ops if 'nif_tpu_torch' in o]}; "
-        f"eager, exported and compiled calls launched the tensor-core K1 {entry_launches} "
+        f"eager, exported and compiled calls launched the tensor-core K1 ({entry_counter}) "
+        f"{entry_launches} "
         f"times; exported bit for bit eager {torch.equal(exported, eager)}, compiled rel-L2 "
         f"{comp_rel:.3e} from eager; export + compile + three calls {entry_s:.1f} s")
     if (not any("shapenet_fwd" in o for o in ops) or entry_launches != 3
@@ -3071,7 +3147,8 @@ def main() -> int:
     from nif_tpu_torch.config import ShapeNetConfig
     from nif_tpu_torch.ops import _build
     from nif_tpu_torch.ops.fused_derivatives import (
-        _shapenet_fwd_jac_simt, _shapenet_sobolev_grads_simt, derivative_geometry, k5_variant,
+        _shapenet_fwd_jac_on, _shapenet_fwd_jac_simt, _shapenet_sobolev_grads_simt,
+        derivative_geometry, k5_variant,
         shapenet_fwd_jac_cuda, shapenet_fwd_jac_reference, shapenet_sobolev_grads_cuda,
         shapenet_sobolev_grads_reference)
     from nif_tpu_torch.ops.fused_hessian import (
@@ -3080,7 +3157,8 @@ def main() -> int:
     from nif_tpu_torch.ops.fused_linear import (
         linear_geometry, niflinear_mse_grads_cuda, niflinear_mse_grads_reference)
     from nif_tpu_torch.ops.fused_shapenet import (
-        _shapenet_bwd_on, _shapenet_bwd_simt, _shapenet_fwd_simt, _shapenet_mse_grads_on,
+        _shapenet_bwd_on, _shapenet_bwd_simt, _shapenet_fwd_on, _shapenet_fwd_simt,
+        _shapenet_mse_grads_on,
         _shapenet_mse_grads_simt, k1_geometry, k1_variant, shapenet_bwd_cuda,
         shapenet_fused_bwd_reference, shapenet_fwd_cuda, shapenet_grouped_fused_reference,
         shapenet_mse_grads_cuda, shapenet_mse_grads_reference)
@@ -3107,9 +3185,9 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {name}")
     log(f"card: {smi}")
-    build_all(["shapenet_fwd", "shapenet_fwd_tc", "shapenet_bwd", "shapenet_bwd_tc",
-               "shapenet_bwd_wgmma", "shapenet_jac", "shapenet_jac_tc", "shapenet_hess",
-               "shapenet_hess_tc", "shapenet_linear", "shapenet_linear_tc"])
+    build_all(["shapenet_fwd", "shapenet_fwd_tc", "shapenet_fwd_wgmma", "shapenet_bwd",
+               "shapenet_bwd_tc", "shapenet_bwd_wgmma", "shapenet_jac", "shapenet_jac_tc",
+               "shapenet_hess", "shapenet_hess_tc", "shapenet_linear", "shapenet_linear_tc"])
     peaks = card_peaks(name)
     flag_cfg = ShapeNetConfig.from_dict(FLAGSHIP_SHAPE)
 
@@ -3131,20 +3209,33 @@ def main() -> int:
         for dtype in (torch.float32, torch.bfloat16):
             check_k1(torch, cfg, variant, 3, 200, dtype, seed=190 + i)
     k1f_err = check_k1(torch, flag_cfg, "siren", 32, 32768, torch.float32, seed=10)
-    k1_err = check_k1(torch, flag_cfg, "siren", 32, 32768, torch.bfloat16, seed=11)
+    check_k1(torch, flag_cfg, "siren", 32, 32768, torch.bfloat16, seed=11)
     check_k1(torch, flag_cfg, "siren", 32, 32768, torch.bfloat16, seed=11, simt=True)
-    for dtype, tc in ((torch.bfloat16, 2), (torch.float32, 0)):
+    # the wgmma and the mma.sync bodies on the CASES chains the wgmma body
+    # takes (a ragged P) and at the flagship, each against plain K1 and
+    # against each other
+    for i, (variant, args) in enumerate(CASES):
+        cfg = ShapeNetConfig(*args)
+        if variant == "siren" and k1_variant(torch.bfloat16, cfg, variant) == "wgmma":
+            check_k1_bodies(torch, cfg, 3, 200, seed=230 + i)
+    k1_body_errs = check_k1_bodies(torch, flag_cfg, 32, 32768, seed=11)
+    # two runs on one input give the same bits: the routed bf16 body (wgmma
+    # at the flagship), the mma.sync body by name, the CUDA-core body in f32
+    for dtype, kernel in ((torch.bfloat16, None), (torch.bfloat16, "tc"),
+                          (torch.float32, None)):
         wb, x = chain_data(torch, flag_cfg, 32, 32768, dtype, seed=15)
+        body = kernel or k1_variant(dtype, flag_cfg, "siren")
         before = dict(_build.LAUNCHES)
-        runs = [shapenet_fwd_cuda(wb, x, flag_cfg, "siren") for _ in range(2)]
-        kernel = "tensor-core" if tc else "CUDA-core"
-        if (_build.LAUNCHES["shapenet_fwd_tc"] != before["shapenet_fwd_tc"] + tc
-                or _build.LAUNCHES["shapenet_fwd"] != before["shapenet_fwd"] + 2):
-            raise AssertionError(f"the flagship {dtype} K1 runs did not take the {kernel} K1")
+        runs = [shapenet_fwd_cuda(wb, x, flag_cfg, "siren") if kernel is None
+                else _shapenet_fwd_on(kernel, wb, x, flag_cfg, "siren") for _ in range(2)]
+        got, want = _body_launches("shapenet_fwd", before, body, n=2)
+        if got != want:
+            raise AssertionError(f"the flagship {dtype} K1 runs launched {got}, not two {body} K1")
         if not torch.equal(runs[0], runs[1]):
-            raise AssertionError(f"K1 ({dtype}) is not deterministic: two runs on one input differ")
-        log(f"K1 flagship {dtype} (G=32, P=32768, the {kernel} K1): two runs give bitwise-equal "
-            f"outputs")
+            raise AssertionError(f"K1 ({dtype}, {body}) is not deterministic: two runs on one "
+                                 f"input differ")
+        log(f"K1 flagship {dtype} (G=32, P=32768, the {body} body): two runs give "
+            f"bitwise-equal outputs")
         del wb, x, runs
 
     # ---- phase 2b: K2 against its plain version, and its determinism
@@ -3270,10 +3361,11 @@ def main() -> int:
     bwd_path = dict(_build.LAUNCHES)
     eager_grads = torch.autograd.grad(model.apply_grouped(t_g, x_g, fused=False), params, g_g)
     k3_counter = bf16_body_counter("shapenet_bwd")
+    k1_counter = bf16_body_counter("shapenet_fwd")
     if (bwd_path["shapenet_bwd"] != 1 or bwd_path[k3_counter] != 1
-            or bwd_path["shapenet_fwd"] != 1 or bwd_path["shapenet_fwd_tc"] != 1):
+            or bwd_path["shapenet_fwd"] != 1 or bwd_path[k1_counter] != 1):
         raise AssertionError(f"apply_grouped under autograd launched {bwd_path}, "
-                             f"not one tensor-core K1 and one {k3_counter} K3")
+                             f"not one {k1_counter} K1 and one {k3_counter} K3")
     worst = 0.0
     for (path, _), a, b in zip(model.param_items(), fused_grads, eager_grads):
         if not bool(torch.isfinite(a).all()):
@@ -3298,7 +3390,8 @@ def main() -> int:
                                       g_g)
     if (bwd_f32_path["shapenet_bwd"] != 1 or bwd_f32_path["shapenet_bwd_tc"] != 0
             or bwd_f32_path["shapenet_bwd_wg"] != 0
-            or bwd_f32_path["shapenet_fwd"] != 1 or bwd_f32_path["shapenet_fwd_tc"] != 0):
+            or bwd_f32_path["shapenet_fwd"] != 1 or bwd_f32_path["shapenet_fwd_tc"] != 0
+            or bwd_f32_path["shapenet_fwd_wg"] != 0):
         raise AssertionError(f"a float32 apply_grouped under autograd launched {bwd_f32_path}, "
                              f"not one CUDA-core K1 and one CUDA-core K3")
     worst = max(float(rel_l2(a, b)) for a, b in zip(fused_grads, eager_grads))
@@ -3325,11 +3418,18 @@ def main() -> int:
     for i, (variant, args) in enumerate(CASES + JAC_EXTRA):
         for dtype in (torch.float32, torch.bfloat16):
             check_k5(torch, ShapeNetConfig(*args), variant, 3, 256, dtype, seed=20 + i)
-    for i, args in enumerate(JAC_REV_TC):
+    for i, args in enumerate(JAC_REV_TC):  # the mma.sync reverse body, named
         cfg = ShapeNetConfig(*args)
-        if k5_variant(torch.bfloat16, cfg, "siren") != "tc":
-            raise AssertionError(f"the tensor-core K5 does not take {cfg}")
-        check_k5(torch, cfg, "siren", 3, 200, torch.bfloat16, seed=180 + i)
+        if k5_variant(torch.bfloat16, cfg, "siren") not in ("wgmma", "tc"):
+            raise AssertionError(f"no tensor-core K5 takes {cfg}")
+        check_k5(torch, cfg, "siren", 3, 200, torch.bfloat16, seed=180 + i, kernel="tc")
+    # the wgmma and the mma.sync reverse bodies on the CASES + JAC_EXTRA
+    # chains the wgmma body takes (a ragged P) and at the flagship
+    for i, (variant, args) in enumerate(CASES + JAC_EXTRA):
+        cfg = ShapeNetConfig(*args)
+        if variant == "siren" and k5_variant(torch.bfloat16, cfg, variant) == "wgmma":
+            check_k5_bodies(torch, cfg, 3, 200, seed=240 + i)
+    k5_body_errs = check_k5_bodies(torch, flag_cfg, 32, 32768, seed=30)
     # the CUDA-core reverse body (shapenet_fwd.cu, beside the CUDA-core K1)
     # beyond CASES: so = 2-3 sweeps, si 5-7, widths 24-1024, in float32 and
     # on bf16 shapes the tensor-core K5 refuses
@@ -3347,7 +3447,7 @@ def main() -> int:
         for dtype in (torch.float32, torch.bfloat16):
             body = bf16_body if dtype == torch.bfloat16 else None
             check_k5(torch, cfg, variant, 3, 200, dtype, seed=220 + i, body=body)
-    k5_err = check_k5(torch, flag_cfg, "siren", 32, 32768, torch.bfloat16, seed=30)
+    check_k5(torch, flag_cfg, "siren", 32, 32768, torch.bfloat16, seed=30)
     check_k5(torch, flag_cfg, "siren", 32, 32768, torch.bfloat16, seed=30, simt=True)
     k5f_err = check_k5(torch, flag_cfg, "siren", 32, 32768, torch.float32, seed=31)
     # the tangent body at its timed shape (si = so = 3, G=32, P=32768)
@@ -3356,15 +3456,19 @@ def main() -> int:
     check_k5(torch, tan_cfg, "siren", 32, 32768, torch.bfloat16, seed=33, simt=True)
     k5tf_err = check_k5(torch, tan_cfg, "siren", 32, 32768, torch.float32, seed=34)
     for cfg, body in ((flag_cfg, "reverse"), (tan_cfg, "tangent")):
-        for dtype, tc in ((torch.bfloat16, 2), (torch.float32, 0)):
+        for dtype, named in ((torch.bfloat16, None), (torch.bfloat16, "tc"),
+                             (torch.float32, None)):
+            if named and body == "tangent":  # the tangent body has one tensor-core body
+                continue
             wb, x = chain_data(torch, cfg, 32, 32768, dtype, seed=32)
+            kernel = named or k5_variant(dtype, cfg, "siren")
             before = dict(_build.LAUNCHES)
-            runs = [shapenet_fwd_jac_cuda(wb, x, cfg, "siren") for _ in range(2)]
-            kernel = "tensor-core" if tc else "CUDA-core"
-            if (_build.LAUNCHES["shapenet_fwd_jac_tc"] != before["shapenet_fwd_jac_tc"] + tc
-                    or _build.LAUNCHES["shapenet_fwd_jac"] != before["shapenet_fwd_jac"] + 2):
-                raise AssertionError(f"the {dtype} K5 runs at {cfg} did not take the {kernel} "
-                                     f"K5")
+            runs = [shapenet_fwd_jac_cuda(wb, x, cfg, "siren") if named is None
+                    else _shapenet_fwd_jac_on(named, wb, x, cfg, "siren") for _ in range(2)]
+            got, want = _body_launches("shapenet_fwd_jac", before, kernel, n=2)
+            if got != want:
+                raise AssertionError(f"the {dtype} K5 runs at {cfg} launched {got}, not two "
+                                     f"{kernel} K5")
             if not all(torch.equal(a, b) for a, b in zip(*runs)):
                 raise AssertionError(f"K5 ({body}, {dtype}) is not deterministic: two runs on "
                                      f"one input differ")
@@ -3522,9 +3626,10 @@ def main() -> int:
     serve_launches = dict(_build.LAUNCHES)
     log(f"served {len(requests)} requests ({sum(G * P for G, P in requests)} points) "
         f"in {serve_s:.3f} s; launches {serve_launches}, chunks {chunks}")
-    if serve_launches["shapenet_fwd"] != chunks or serve_launches["shapenet_fwd_tc"] != chunks:
+    serve_counter = bf16_body_counter("shapenet_fwd")
+    if serve_launches["shapenet_fwd"] != chunks or serve_launches[serve_counter] != chunks:
         raise AssertionError(f"K1 launched {serve_launches} for {chunks} chunks, not one "
-                             f"tensor-core K1 each")
+                             f"{serve_counter} K1 each")
     with torch.inference_mode():
         for (G, P), (t, x), out in zip(requests, inputs, outs):
             if out.shape != (G, P, 1) or out.dtype != np.float32:
@@ -3572,7 +3677,7 @@ def main() -> int:
                                 torch.float32)
     log(f"the float32 request's K1 geometry: {describe_geometry(f32_serve_geo)}")
     if (f32_serve_launches["shapenet_fwd"] != 1 or f32_serve_launches["shapenet_fwd_tc"]
-            or f32_serve_geo["body"] != "simt"
+            or f32_serve_launches["shapenet_fwd_wg"] or f32_serve_geo["body"] != "simt"
             or not np.isfinite(f32_out).all() or d_f32 > 2e-4 * float(np.abs(f32_plain).max())
             + 1e-5):
         raise AssertionError(f"a float32 request launched {f32_serve_launches} on "
@@ -3749,7 +3854,8 @@ def main() -> int:
                                    x_w.shape[1], torch.float32)
     log(f"the float32 Jacobian evaluation's K5 geometry: {describe_geometry(jf32_geo)}")
     if (jf32_eval_launches["shapenet_fwd_jac"] != eval_chunks
-            or jf32_eval_launches["shapenet_fwd_jac_tc"] or jf32_geo["body"] != "simt"
+            or jf32_eval_launches["shapenet_fwd_jac_tc"]
+            or jf32_eval_launches["shapenet_fwd_jac_wg"] or jf32_geo["body"] != "simt"
             or not all(np.isfinite(v) for v in sf32_eval.values())):
         raise AssertionError(f"a float32 Jacobian evaluation launched {jf32_eval_launches} on "
                              f"{jf32_geo}")
@@ -3777,10 +3883,31 @@ def main() -> int:
     if not (after["value_mse"] < before["value_mse"]
             and after["jacobian_mse"] < before["jacobian_mse"]):
         raise AssertionError(f"the Sobolev fit did not lower both terms: {before} -> {after}")
+    k5_counter = bf16_body_counter("shapenet_fwd_jac")
     if (eval_launches["shapenet_fwd_jac"] != eval_chunks
-            or eval_launches["shapenet_fwd_jac_tc"] != eval_chunks):
+            or eval_launches[k5_counter] != eval_chunks):
         raise AssertionError(f"evaluate_sobolev launched {eval_launches} for {eval_chunks} "
-                             f"chunks, not one tensor-core K5 each")
+                             f"chunks, not one {k5_counter} K5 each")
+    # the mma.sync reverse body's own path: a flagship-width chain of two
+    # resblocks (four hidden matrices, whose act' slots the wgmma body's
+    # shared memory cannot hold), one evaluation chunk of the traveling wave
+    res_shape = dict(FLAGSHIP_SHAPE, use_resblock=True)
+    res_cfg = ShapeNetConfig.from_dict(res_shape)
+    if k5_variant(torch.bfloat16, res_cfg, "siren") != "tc":
+        raise AssertionError(f"K5 does not route {res_cfg} to the mma.sync body")
+    rtrainer = GroupedTrainer(nif_tpu_torch.NIFMultiScale(res_shape, FLAGSHIP_PNET,
+                                                          FLAGSHIP_POLICY, device="cuda", seed=2),
+                              lambda p: torch.optim.Adam(p, lr=FLAGSHIP_TRAIN_LR))
+    _build.reset_launches()
+    res_eval = rtrainer.evaluate_sobolev(rtrainer.init(2), t_w, x_w, u_w, j_w, group_batch=16)
+    res_eval_launches = dict(_build.LAUNCHES)
+    log(f"evaluate_sobolev of a two-resblock flagship-width model (one chunk of G=16, P=8192): "
+        f"{res_eval}; launches {res_eval_launches}")
+    got, want = _body_launches("shapenet_fwd_jac", {k: 0 for k in res_eval_launches}, "tc")
+    if got != want or not all(np.isfinite(v) for v in res_eval.values()):
+        raise AssertionError(f"the resblock evaluation launched {res_eval_launches}, not one "
+                             f"mma.sync K5")
+    del rtrainer
 
     # ---- phase 3d: Hessian-train the flagship
     htrainer, hstate, (t_h, x_h, u_h, j_h, h_h) = flagship_hessian_step(G, P)
@@ -3911,9 +4038,8 @@ def main() -> int:
         f"{trunk_kernel} K1 for the trunk's {lmodel._trunk_cfg.output_dim} columns); max|u| "
         f"{float(plain.abs().max()):.4f}, max|d| vs plain K1 trunk {d_plain:.3e}, rel-L2 vs the "
         f"eager trunk {r_eager:.4f}")
-    tc_k1 = int(trunk_kernel == "tc")
-    if (lserve_launches["shapenet_fwd"] != 1 or lserve_launches["shapenet_fwd_tc"] != tc_k1
-            or sum(lserve_launches.values()) != 1 + tc_k1):
+    got, want = _body_launches("shapenet_fwd", {k: 0 for k in lserve_launches}, trunk_kernel)
+    if got != want or sum(lserve_launches.values()) != 1 + int(trunk_kernel != "simt"):
         raise AssertionError(f"apply_grouped(fused=True) launched {lserve_launches}, not one "
                              f"{trunk_kernel} K1")
     if d_plain > 1e-2 * float(plain.abs().max()) or r_eager > 0.15:
@@ -4054,9 +4180,9 @@ def main() -> int:
     eff_kernel = k5_variant(x_lc.dtype, lmodel._derivative_kernel_cfg()[0], "siren", 3)
     log(f"NIF-linear evaluate_sobolev after the fit ({eval_chunks} chunks): {lafter}; "
         f"launches {leval_launches} (the {eff_kernel} K5 on the effective chain)")
-    if (leval_launches["shapenet_fwd_jac"] != eval_chunks
-            or leval_launches["shapenet_fwd_jac_tc"] != eval_chunks * int(eff_kernel == "tc")
-            or not all(np.isfinite(v) for v in lafter.values())):
+    got, want = _body_launches("shapenet_fwd_jac", {k: 0 for k in leval_launches}, eff_kernel,
+                               n=eval_chunks)
+    if got != want or not all(np.isfinite(v) for v in lafter.values()):
         raise AssertionError(f"NIF-linear evaluate_sobolev launched {leval_launches}")
 
     # ---- phase 3f: the Jacobian evaluation of tutorial 8's model (si = so = 1,
@@ -4121,8 +4247,8 @@ def main() -> int:
         log(f"tutorial 3 (NIF-linear, effective chain si=so=2 n=30) output_and_jacobian_grouped, "
             f"{policy}, G=8 P=4096: the {kernel} K5 ({t3_launches}); y, jac max|d| of max|plain| "
             f"{', '.join(f'{e / max(sc, 1e-30):.2e}' for e, sc in errs)}")
-        if (t3_launches["shapenet_fwd_jac"] != 1
-                or t3_launches["shapenet_fwd_jac_tc"] != int(kernel == "tc")
+        got3, want3 = _body_launches("shapenet_fwd_jac", {k: 0 for k in t3_launches}, kernel)
+        if (got3 != want3
                 or any(e > rel * sc + (1e-5 if dtype == torch.float32 else 0.0)
                        for e, sc in errs)):
             raise AssertionError(f"tutorial 3's {policy} Jacobian launched {t3_launches} or "
@@ -4150,6 +4276,11 @@ def main() -> int:
         xc = model.policy.cast_to_compute(x, device=model.device)
         k1_ms = cuda_ms(lambda: shapenet_fwd_cuda(wb, xc, flag_cfg, "siren"), reps=20)
         k1_simt_ms = cuda_ms(lambda: _shapenet_fwd_simt(wb, xc, flag_cfg, "siren"), reps=10)
+        # the wgmma and the mma.sync bodies on the same inputs, in turns
+        k1_body_ms = {}
+        for body in ("tc", "wgmma", "wgmma", "tc"):
+            k1_body_ms.setdefault(body, []).append(
+                cuda_ms(lambda: _shapenet_fwd_on(body, wb, xc, flag_cfg, "siren"), reps=20))
         plain_ms = cuda_ms(lambda: shapenet_grouped_fused_reference(
             wb, xc, flag_cfg, "siren"), reps=5, warmup=1)
         wbf, xf = wb.float(), xc.float()
@@ -4177,6 +4308,9 @@ def main() -> int:
         f"K1 f32, CUDA cores: {k1f_ms:.4f} ms, plain {k1f_plain_ms:.4f} ms, bound "
         f"{k1f_bound:.4f} ms (f32 peak); library_ms null: no single PyTorch call computes this "
         f"chain")
+    log(f"K1 bf16 bodies in turns on the same inputs (tc, wgmma, wgmma, tc; ms): wgmma "
+        f"{k1_body_ms['wgmma']}, mma.sync {k1_body_ms['tc']}; routed: "
+        f"{bf16_body_counter('shapenet_fwd')} (card {smi})")
     log(f"end to end apply_grouped (f32 inputs on the card) G={G} P={P}: {e2e_ms:.4f} ms = "
         f"{G * P / e2e_ms * 1e3:.4e} points/s; predict_grouped from host arrays: "
         f"{serve_ms:.4f} ms = {G * P / serve_ms * 1e3:.4e} points/s")
@@ -4302,6 +4436,14 @@ def main() -> int:
     wb, x = chain_data(torch, flag_cfg, G, P, torch.bfloat16, seed=52)
     tgt, _, jt = sobolev_data(torch, flag_cfg, G, P, seed=52)
     k5_ms = cuda_ms(lambda: shapenet_fwd_jac_cuda(wb, x, flag_cfg, "siren"), reps=10)
+    # the wgmma and the mma.sync reverse bodies on the same inputs, in turns
+    k5_body_ms = {}
+    for body in ("tc", "wgmma", "wgmma", "tc"):
+        k5_body_ms.setdefault(body, []).append(
+            cuda_ms(lambda: _shapenet_fwd_jac_on(body, wb, x, flag_cfg, "siren"), reps=10))
+    log(f"K5 (reverse) bf16 bodies in turns on the same inputs (tc, wgmma, wgmma, tc; ms): "
+        f"wgmma {k5_body_ms['wgmma']}, mma.sync {k5_body_ms['tc']}; routed: "
+        f"{bf16_body_counter('shapenet_fwd_jac')} (card {smi})")
     k5_simt_ms = cuda_ms(lambda: _shapenet_fwd_jac_simt(wb, x, flag_cfg, "siren"), reps=5,
                          warmup=1)
     k5_plain_ms = cuda_ms(lambda: shapenet_fwd_jac_reference(wb, x, flag_cfg, "siren"),
@@ -4344,8 +4486,8 @@ def main() -> int:
     jeval = lambda: sf32_trainer.evaluate_sobolev(sf32_box[0], *eval_host)  # noqa: E731
     before = dict(_build.LAUNCHES)
     jeval()
-    if (_build.LAUNCHES["shapenet_fwd_jac"] != before["shapenet_fwd_jac"] + 1
-            or _build.LAUNCHES["shapenet_fwd_jac_tc"] != before["shapenet_fwd_jac_tc"]):
+    got, want = _body_launches("shapenet_fwd_jac", before, "simt")
+    if got != want:
         raise AssertionError("the float32 flagship Jacobian evaluation did not launch the "
                              "CUDA-core K5 once")
     jeval_ms = cuda_ms(jeval, reps=3, warmup=0)
@@ -4601,13 +4743,31 @@ def main() -> int:
     log(json.dumps({"kernels": [{
         "name": "shapenet_fwd",
         "route": "cuda",
+        "body": "tc",
         "source": "nif_tpu_torch/csrc/shapenet_fwd_tc.cu",
         "replaces": "nif_tpu/ops/pallas_shapenet.py:489",
-        "launches": serve_launches["shapenet_fwd_tc"],
+        "launches": lserve_launches["shapenet_fwd_tc"],
+        "path": "the NIF-linear trunk (so = 128)",
+        "op": "torch.ops.nif_tpu_torch.shapenet_fwd",
+        "max_abs_err": k1_body_errs["tc"],
+        "ms": float(np.mean(k1_body_ms["tc"])),
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": k1_by,
+        "library_ms": None,
+    }, {
+        "name": "shapenet_fwd_wg",
+        "route": "cuda",
+        "body": "wgmma",
+        "source": "nif_tpu_torch/csrc/shapenet_fwd_wgmma.cu",
+        "replaces": "nif_tpu/ops/pallas_shapenet.py:489",
+        "launches": serve_launches["shapenet_fwd_wg"],
+        "path": "the flagship served",
         "op": "torch.ops.nif_tpu_torch.shapenet_fwd",
         "exported_launches": exported["mixed_bfloat16"]["launches"],
-        "max_abs_err": k1_err,
-        "ms": k1_ms,
+        "max_abs_err": k1_body_errs["wgmma"],
+        "ms": float(np.mean(k1_body_ms["wgmma"])),
+        "routed_ms": k1_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": k1_by,
@@ -4713,11 +4873,28 @@ def main() -> int:
     }, {
         "name": "shapenet_fwd_jac",
         "route": "cuda",
+        "body": "tc",
         "source": "nif_tpu_torch/csrc/shapenet_fwd_tc.cu",
         "replaces": "nif_tpu/ops/pallas_shapenet.py:1445",
-        "launches": eval_launches["shapenet_fwd_jac_tc"],
-        "max_abs_err": k5_err,
-        "ms": k5_ms,
+        "launches": res_eval_launches["shapenet_fwd_jac_tc"],
+        "path": "the two-resblock model's evaluate_sobolev",
+        "max_abs_err": k5_body_errs["tc"],
+        "ms": float(np.mean(k5_body_ms["tc"])),
+        "plain_ms": k5_plain_ms,
+        "bound_ms": k5_bound,
+        "bound_by": k5_by,
+        "library_ms": None,
+    }, {
+        "name": "shapenet_fwd_jac_wg",
+        "route": "cuda",
+        "body": "wgmma",
+        "source": "nif_tpu_torch/csrc/shapenet_fwd_wgmma.cu",
+        "replaces": "nif_tpu/ops/pallas_shapenet.py:1445",
+        "launches": eval_launches["shapenet_fwd_jac_wg"],
+        "path": "the flagship's evaluate_sobolev",
+        "max_abs_err": k5_body_errs["wgmma"],
+        "ms": float(np.mean(k5_body_ms["wgmma"])),
+        "routed_ms": k5_ms,
         "plain_ms": k5_plain_ms,
         "bound_ms": k5_bound,
         "bound_by": k5_by,

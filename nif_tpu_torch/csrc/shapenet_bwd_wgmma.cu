@@ -76,8 +76,6 @@
 //   dz plane 48 KB, the ring 37 KB, the sums 11 KB: 218 KB. A chain whose
 //   layout exceeds the 227 KB a block may use (width 128 past two hidden
 //   matrices, width 256) is refused (status 2) and runs the mma.sync body.
-#include <cuda.h>
-
 #include "stack_tc.cuh"
 #include "wgmma_sm90.cuh"
 
@@ -127,34 +125,15 @@ __host__ __device__ inline WgLayout wg_layout(int n, int n_mats) {
   return L;
 }
 
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Element (r, c) of a 64-column swizzled chunk with 128-byte rows.
-__device__ __forceinline__ unsigned sw_off(int r, int c) {
-  return r * 128 + ((((c >> 3) ^ (r & 7)) << 4) | ((c & 7) << 1));
-}
-
-// Descriptors (see wgmma_sm90.cuh): a plane [64 points, width] read K-major
-// (the points as M, K step kk over the width), read MN-major (its 64-column
-// chunk j as M or its width as N, K step kp over the points), and a staged
-// W_m [n, n] read MN-major (Z = S W, K step over its rows) or K-major (du =
-// dz W^T, K step over its columns).
+// Descriptors (see wgmma_sm90.cuh, which has those of a staged W_m): a
+// plane [64 points, width] read K-major (the points as M, K step kk over the
+// width) or read MN-major (its 64-column chunk j as M or its width as N, K
+// step kp over the points).
 __device__ __forceinline__ uint64_t plane_k(uint32_t plane, int kk) {
   return sw128_desc(plane + (kk >> 2) * 8192 + (kk & 3) * 32, 16, 1024);
 }
 __device__ __forceinline__ uint64_t plane_mn(uint32_t plane, int j, int kp) {
   return sw128_desc(plane + j * 8192 + kp * 2048, 8192, 1024);
-}
-template <int N>
-__device__ __forceinline__ uint64_t w_mn(uint32_t w, int kk) {
-  return sw128_desc(w + kk * 2048, 128 * N, 1024);
-}
-template <int N>
-__device__ __forceinline__ uint64_t w_k(uint32_t w, int kk) {
-  return sw128_desc(w + (kk >> 2) * (128 * N) + (kk & 3) * 32, 16, 1024);
 }
 
 template <int N, int TA, int TB>
@@ -184,12 +163,6 @@ __device__ unsigned long long wg_phase_cycles[kWgPhases];
   do {              \
   } while (0)
 #endif
-
-// The tiles [t_begin, t_end) of split s of a group's n_tiles.
-__device__ __forceinline__ void split_tiles(int n_tiles, int S, int s, int* t_begin, int* t_end) {
-  *t_begin = (int)((long long)s * n_tiles / S);
-  *t_end = (int)((long long)(s + 1) * n_tiles / S);
-}
 
 template <int N, bool TRAIN>
 __device__ __forceinline__ void producer(const WgArgs& a, const CUtensorMap* wmap,
@@ -766,30 +739,6 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   wg_body<N, RES, false, DEG9>(&wmap, a);
 }
 
-// The driver's cuTensorMapEncodeTiled, reached through the runtime (no
-// link against libcuda); null when it is not there.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q{};
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-    cudaGetLastError();
-  }
-  return fn;
-}
-
 struct WgGeometry {
   int splits, grid_g;
   size_t smem, scratch;
@@ -874,20 +823,9 @@ int launch_body(WgArgs& a, int G, int P, int si, int so, int n, int n_mats, int 
   if ((act != kSinePoly7 && act != kSinePoly9) || wb_ld < po || wb_ld % 8 ||
       wg_geometry(n, si, so, n_mats, chain, G, P, geo) != 0)
     return (int)cudaErrorInvalidValue;
-  const EncodeTiled encode = encode_tiled();
-  if (!encode) return (int)cudaErrorNotSupported;
-  // W_m of every group as one 4-D tensor: (column, row, m, group), its
-  // 64-column chunks the TMA boxes
   CUtensorMap map;
-  const cuuint64_t dims[4] = {(cuuint64_t)n, (cuuint64_t)n, (cuuint64_t)n_mats, (cuuint64_t)G};
-  const cuuint64_t strides[3] = {(cuuint64_t)n * 2, (cuuint64_t)n * n * 2, (cuuint64_t)wb_ld * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)n, 1, 1};
-  const cuuint32_t estr[4] = {1, 1, 1, 1};
-  const CUresult r = encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                            const_cast<bf16*>(a.wb) + (long long)si * n, dims, strides, box, estr,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (r != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
+  const int map_err = encode_w_map(&map, a.wb, n, si, n_mats, G, wb_ld);
+  if (map_err != 0) return map_err;
   a.G = G; a.P = P; a.si = si; a.so = so; a.n_mats = n_mats;
   a.n_tiles = (P + kWgTile - 1) / kWgTile;
   a.ps = po + (po & 1);

@@ -36,10 +36,12 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-LAUNCHES: Dict[str, int] = {"shapenet_fwd": 0, "shapenet_fwd_tc": 0, "shapenet_mse_grads": 0,
+LAUNCHES: Dict[str, int] = {"shapenet_fwd": 0, "shapenet_fwd_tc": 0, "shapenet_fwd_wg": 0,
+                            "shapenet_mse_grads": 0,
                             "shapenet_mse_grads_tc": 0, "shapenet_mse_grads_wg": 0,
                             "shapenet_bwd": 0, "shapenet_bwd_tc": 0, "shapenet_bwd_wg": 0,
                             "shapenet_fwd_jac": 0, "shapenet_fwd_jac_tc": 0,
+                            "shapenet_fwd_jac_wg": 0,
                             "shapenet_sobolev_grads": 0,
                             "shapenet_sobolev_grads_tc": 0,
                             "shapenet_fwd_hess": 0, "shapenet_fwd_hess_tc": 0,

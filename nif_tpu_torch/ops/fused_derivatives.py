@@ -23,8 +23,9 @@ On a CUDA tensor each entry launches its hand-written kernel, or raises.
 K5 and K6 have two variants (:func:`k5_variant`, :func:`k6_variant`):
 bfloat16 runs the tensor-core kernel (variant ``"tc"``: K5's reverse body
 in ``csrc/shapenet_fwd_tc.cu`` beside the tensor-core K1, K5's tangent body
-and K6 in ``csrc/shapenet_jac_tc.cu``, the former K6's forward half)
-wherever its geometry takes the shape, and the CUDA-core one (variant
+and K6 in ``csrc/shapenet_jac_tc.cu``, the former K6's forward half;
+before it K5's reverse body prefers ``"wgmma"``, ``csrc/shapenet_fwd_wgmma.cu``
+beside the wgmma K1) wherever its geometry takes the shape, and the CUDA-core one (variant
 ``"simt"``) otherwise and for float32, whose f32 products never round to
 TF32: K5's CUDA-core reverse body is ``csrc/shapenet_fwd.cu``'s, one body
 with the CUDA-core K1; its tangent body and K6 are ``csrc/shapenet_jac.cu``'s,
@@ -57,6 +58,7 @@ from .fused_shapenet import (
     _check_cuda_inputs,
     _fwd_tc_library,
     _flat_grads,
+    _fwd_wg_library,
     _library as _fwd_library,
     _forward_saved,
     _n_mats,
@@ -69,6 +71,7 @@ from .fused_shapenet import (
     _stack_tc_status,
     _unscale_grads,
     _train_act_code,
+    _wg_fwd_status,
     fused_unsupported_reason,
 )
 from .shapenet import unpack_shapenet_weights
@@ -143,6 +146,18 @@ def _k5_tc_status(cfg: ShapeNetConfig, variant: str, si: int, G: int, P: int):
                             cfg, variant, si, G, P)
 
 
+def _k5_wg_status(cfg: ShapeNetConfig, variant: str, si: int, G: int, P: int):
+    """``(status, geometry)`` of the wgmma K5 reverse body
+    (``csrc/shapenet_fwd_wgmma.cu``; a chain it has no instance for is
+    status 3 without asking its library)."""
+    return _wg_fwd_status("reverse", cfg, variant, si, G, P)
+
+
+# K5's bf16 reverse bodies with their geometry, in the order a launch
+# prefers them
+_REVERSE_BODIES = {"wgmma": _k5_wg_status, "tc": _k5_tc_status}
+
+
 def _k5_tan_tc_status(cfg: ShapeNetConfig, variant: str, si: int, G: int, P: int):
     """``(status, geometry)`` of the tensor-core K5 tangent body
     (``csrc/shapenet_jac_tc.cu``): points per tile, the blocks of its one
@@ -172,17 +187,23 @@ def k5_variant(dtype: torch.dtype, cfg: Optional[ShapeNetConfig] = None, variant
     any other dtype, which the wrapper refuses). "simt" runs the reverse
     body in ``csrc/shapenet_fwd.cu``, one body with the CUDA-core K1, and
     the tangent body in ``csrc/shapenet_jac.cu``. Given a chain (``cfg``,
-    ``variant``, ``si``), bfloat16 runs the CUDA-core kernel where the
-    tensor-core body of its mode does not take the shape (asking that
-    body's library, so it needs nvcc): a vanilla chain, si > 4, or a width
-    whose planes exceed a block's shared memory."""
+    ``variant``, ``si``), bfloat16 runs the first body of its mode whose
+    geometry takes the shape (asking that body's library, so it needs
+    nvcc): the reverse body ``"wgmma"`` (``csrc/shapenet_fwd_wgmma.cu``,
+    widths 64 and 128; its library asked only for those), then ``"tc"``;
+    the tangent body ``"tc"``; then the CUDA-core kernel (a vanilla chain,
+    si > 4, or a width whose planes exceed a block's shared memory)."""
     if dtype != torch.bfloat16:
         return "simt"
     if cfg is None:
         return "tc"
     si = cfg.input_dim if si is None else si
-    status = _k5_tc_status if _jac_mode(cfg, si) == "reverse" else _k5_tan_tc_status
-    return "tc" if status(cfg, variant, si, 1, 1)[0] == 0 else "simt"
+    if _jac_mode(cfg, si) == "reverse":
+        for body, status in _REVERSE_BODIES.items():
+            if status(cfg, variant, si, 1, 1)[0] == 0:
+                return body
+        return "simt"
+    return "tc" if _k5_tan_tc_status(cfg, variant, si, 1, 1)[0] == 0 else "simt"
 
 
 def k6_variant(dtype: torch.dtype, cfg: Optional[ShapeNetConfig] = None, variant: str = "siren",
@@ -209,10 +230,13 @@ def _geometry_status(mode: str, cfg: ShapeNetConfig, variant: str, si: int, G: i
     if mode == "sobolev" and (kernel or k6_variant(dtype, cfg, variant, si)) == "tc":
         return _tc_status(cfg, variant, si, G, P)
     if mode == "reverse":
-        if (kernel or k5_variant(dtype, cfg, variant, si)) == "tc":
-            status, geo = _k5_tc_status(cfg, variant, si, G, P)
-            return status, {**geo, "body": "tc"}
+        kernel = kernel or k5_variant(dtype, cfg, variant, si)
+        if kernel in _REVERSE_BODIES:
+            status, geo = _REVERSE_BODIES[kernel](cfg, variant, si, G, P)
+            return status, {**geo, "body": kernel}
         return _simt_fwd_status("reverse", cfg, variant, si, G, P, dtype)
+    if kernel == "wgmma":  # the wgmma body has no tangent or Sobolev mode
+        return 3, {"mode": mode, "kernel": "wgmma", "body": "wgmma"}
     if mode == "tangent" and (kernel or k5_variant(dtype, cfg, variant, si)) == "tc":
         return _k5_tan_tc_status(cfg, variant, si, G, P)
     body, tile, splits, per_sm = (ctypes.c_int() for _ in range(4))
@@ -239,15 +263,17 @@ def _status_reason(status: int, cfg: ShapeNetConfig, si: int, geo: dict) -> Opti
         return None
     if geo.get("body") == "simt":
         return _simt_fwd_reason(status, cfg, si, geo)
-    if geo["kernel"] == "tc":
+    if geo["kernel"] in ("tc", "wgmma"):
         what, planes = (("Sobolev", "two stacked planes of 32 points")
                         if geo["mode"] == "sobolev" else
-                        ("Jacobian", f"its planes of {geo['tile']} points"))
+                        ("Jacobian", "every W_m and its act' slots" if geo["kernel"] == "wgmma"
+                         else f"its planes of {geo['tile']} points"))
+        name = "wgmma" if geo["kernel"] == "wgmma" else "tensor-core"
         if status == 2:
             return (f"units={cfg.units} with si={si} needs {geo['smem_bytes']} bytes of shared "
-                    f"memory per block in the tensor-core {what} kernel ({planes}), more than "
+                    f"memory per block in the {name} {what} kernel ({planes}), more than "
                     f"a block may have")
-        return (f"the tensor-core {what} kernel cannot take {cfg} with si={si} "
+        return (f"the {name} {what} kernel cannot take {cfg} with si={si} "
                 f"(status {status})")
     if status == 1:
         return (f"units={cfg.units} is wider than the CUDA derivative kernels take (a "
@@ -281,6 +307,13 @@ def derivative_geometry(mode: str, cfg: ShapeNetConfig, variant: str, G: int, P:
 
 def _geometry(mode: str, cfg: ShapeNetConfig, variant: str, G: int, P: int,
               dtype: torch.dtype, si: Optional[int] = None, kernel: Optional[str] = None) -> dict:
+    """:func:`derivative_geometry` on ``kernel`` ("wgmma", "tc" or "simt")
+    where one is named; a named tensor-core reverse body takes bfloat16
+    only, and nothing is asked of a library for a name it does not know."""
+    if kernel not in (None, *_REVERSE_BODIES, "simt"):
+        raise ValueError(f"unknown K5 body {kernel!r}")
+    if mode == "reverse" and kernel in _REVERSE_BODIES and dtype != torch.bfloat16:
+        raise ValueError(f"the {kernel} K5 reverse body takes bfloat16 inputs, not {dtype}")
     si = cfg.input_dim if si is None else si
     status, geo = _geometry_status(mode, cfg, variant, si, G, P, dtype, kernel)
     if status != 0:
@@ -645,13 +678,18 @@ def _workspace(mode: str, cfg: ShapeNetConfig, variant: str, x: torch.Tensor,
 
 
 def _k5_entry(kernel: str, mode: str):
-    """``(library, C entry)`` of K5's ``mode`` body on ``kernel``: "tc" the
-    tensor-core reverse body (``csrc/shapenet_fwd_tc.cu``, beside the
-    tensor-core K1) or tangent body (``csrc/shapenet_jac_tc.cu``, beside the
-    tensor-core K6); "simt" the reverse body of ``csrc/shapenet_fwd.cu``
-    (beside the CUDA-core K1) or the tangent body of
-    ``csrc/shapenet_jac.cu`` (beside the CUDA-core K6)."""
+    """``(library, C entry)`` of K5's ``mode`` body on ``kernel``: "wgmma"
+    the wgmma reverse body (``csrc/shapenet_fwd_wgmma.cu``, beside the
+    wgmma K1); "tc" the tensor-core reverse body
+    (``csrc/shapenet_fwd_tc.cu``, beside the tensor-core K1) or tangent body
+    (``csrc/shapenet_jac_tc.cu``, beside the tensor-core K6); "simt" the
+    reverse body of ``csrc/shapenet_fwd.cu`` (beside the CUDA-core K1) or
+    the tangent body of ``csrc/shapenet_jac.cu`` (beside the CUDA-core
+    K6)."""
     if mode == "reverse":
+        if kernel == "wgmma":
+            lib = _fwd_wg_library()
+            return lib, lib.nif_shapenet_fwd_jac_wg
         if kernel == "tc":
             lib = _fwd_tc_library()
             return lib, lib.nif_shapenet_fwd_jac_tc
@@ -661,11 +699,15 @@ def _k5_entry(kernel: str, mode: str):
     return lib, (lib.nif_shapenet_fwd_jac_tan_tc if kernel == "tc" else lib.nif_shapenet_fwd_jac)
 
 
+# the tensor-core bodies' own launch counters (beside "shapenet_fwd_jac")
+_TC_COUNTERS = {"wgmma": "shapenet_fwd_jac_wg", "tc": "shapenet_fwd_jac_tc"}
+
+
 def _launch_k5(kernel: str, wb: torch.Tensor, x: torch.Tensor, cfg: ShapeNetConfig,
                variant: str):
-    """K5 through the library of ``kernel`` ("tc" or "simt") and the body
-    its shape takes (:func:`_k5_entry`), after the wrapper's checks; counts
-    the launch."""
+    """K5 through the library of ``kernel`` ("wgmma", "tc" or "simt") and
+    the body its shape takes (:func:`_k5_entry`), after the wrapper's
+    checks; counts the launch."""
     si = x.shape[-1] if x.dim() == 3 else cfg.input_dim
     _check_cuda_inputs("shapenet_fwd_jac_cuda", wb, x, cfg, variant,
                        lambda c, v, P, d: fwd_jac_unsupported_reason(c, v, P, si, d, x.dtype,
@@ -680,9 +722,10 @@ def _launch_k5(kernel: str, wb: torch.Tensor, x: torch.Tensor, cfg: ShapeNetConf
     act = _train_act_code(cfg, variant, x.dtype) if mode == "reverse" else _act_code(
         cfg, variant, x.dtype)
     wbp = _prescale(wb, cfg, variant).contiguous()
-    # rows padded to 16 bytes, so every group's W_m stages with cp.async; the
-    # CUDA-core bodies read them widened to f32 (a bf16 value is exact in f32)
-    wbp = (torch.nn.functional.pad(wbp, (0, -wbp.shape[1] % 8)) if kernel == "tc"
+    # rows padded to 16 bytes, so every group's W_m stages with cp.async (tc)
+    # or TMA (wgmma); the CUDA-core bodies read them widened to f32 (a bf16
+    # value is exact in f32)
+    wbp = (torch.nn.functional.pad(wbp, (0, -wbp.shape[1] % 8)) if kernel in _TC_COUNTERS
            else _simt_weights(wbp))
     x = x.contiguous()
     lib, entry = _k5_entry(kernel, mode)
@@ -692,14 +735,14 @@ def _launch_k5(kernel: str, wb: torch.Tensor, x: torch.Tensor, cfg: ShapeNetConf
         args = (wbp.data_ptr(), x.data_ptr(), y.data_ptr(), jac.data_ptr(), scratch.data_ptr(),
                 G, P, si, so, cfg.units, _n_mats(cfg), _chain_code(cfg, variant), act,
                 wb.shape[1])
-        if kernel == "tc":
+        if kernel in _TC_COUNTERS:
             err = entry(*args, wbp.shape[1], stream)
         else:
             err = entry(*args, wbp.shape[1], _DTYPE_CODES[x.dtype], stream)
     _raise_on_error(lib, "shapenet_fwd_jac", err)
     _build.LAUNCHES["shapenet_fwd_jac"] += 1
-    if kernel == "tc":
-        _build.LAUNCHES["shapenet_fwd_jac_tc"] += 1
+    if kernel in _TC_COUNTERS:
+        _build.LAUNCHES[_TC_COUNTERS[kernel]] += 1
     return y, jac
 
 
@@ -712,6 +755,14 @@ def shapenet_fwd_jac_cuda(wb: torch.Tensor, x: torch.Tensor, cfg: ShapeNetConfig
     si = x.shape[-1] if x.dim() == 3 else cfg.input_dim
     # off the card the wrapper's checks refuse x without asking a library
     kernel = k5_variant(x.dtype, cfg, variant, si) if x.is_cuda else "simt"
+    return _launch_k5(kernel, wb, x, cfg, variant)
+
+
+def _shapenet_fwd_jac_on(kernel: str, wb: torch.Tensor, x: torch.Tensor, cfg: ShapeNetConfig,
+                         variant: str = "siren"):
+    """K5 on one body ("wgmma", "tc" or "simt") whatever the routing
+    prefers; raises where that body cannot take the shape. ``chip_smoke.py``
+    and the probes time the bodies side by side on the same inputs."""
     return _launch_k5(kernel, wb, x, cfg, variant)
 
 

@@ -32,15 +32,14 @@ Rounding points, shared by all three:
 
 On a CUDA tensor each entry launches its hand-written kernel
 (``nif_tpu_torch/csrc/shapenet_fwd.cu`` for K1, ``shapenet_bwd.cu`` for K2
-and K3), or raises. K1 has two variants (:func:`k1_variant`): bfloat16 sine
-chains run the tensor-core kernel (``csrc/shapenet_fwd_tc.cu``, variant
-``"tc"``) wherever its geometry takes the shape, and the CUDA-core one
-(``shapenet_fwd.cu``, ``"simt"``) otherwise and for float32, whose f32
-products never round to TF32. K2 and K3 have three (:func:`k2_variant`,
-:func:`k3_variant`): bfloat16 sine chains run the first body whose geometry
-takes the shape of ``"wgmma"`` (``csrc/shapenet_bwd_wgmma.cu``: warpgroup
-products fed by TMA), ``"tc"`` (``csrc/shapenet_bwd_tc.cu``: ``mma.sync``)
-and ``"simt"`` (``shapenet_bwd.cu``), float32 the last. On a CPU tensor it
+and K3), or raises. K1, K2 and K3 have three variants (:func:`k1_variant`,
+:func:`k2_variant`, :func:`k3_variant`): bfloat16 sine chains run the first
+body whose geometry takes the shape of ``"wgmma"`` (warpgroup products fed
+by TMA: ``csrc/shapenet_fwd_wgmma.cu`` for K1, with its A operand in
+registers, ``csrc/shapenet_bwd_wgmma.cu`` for K2 and K3), ``"tc"``
+(``mma.sync``: ``csrc/shapenet_fwd_tc.cu``, ``csrc/shapenet_bwd_tc.cu``)
+and ``"simt"`` (the CUDA-core ``shapenet_fwd.cu``, ``shapenet_bwd.cu``),
+float32 the last, whose f32 products never round to TF32. On a CPU tensor it
 runs the plain PyTorch version of the same function (``*_reference``),
 which the CPU tests hold against the JAX package's interpret-mode kernels
 and ``chip_smoke.py`` holds the CUDA kernels against. A config the kernels
@@ -248,19 +247,21 @@ def kernel_geometry(cfg: ShapeNetConfig, variant: str = "siren",
                     dtype: Optional[torch.dtype] = None,
                     kernel: Optional[str] = None) -> Tuple[Optional[int], Optional[str]]:
     """``(points per block, None)`` of the CUDA K1 at this width, or ``(None,
-    reason)`` when it cannot take it: of ``kernel`` ("tc" or "simt"), else of
-    the variant :func:`k1_variant` picks for ``dtype`` (the CUDA-core K1 when
-    no dtype is given). The kernels' libraries own the geometry, so this
-    builds them on first use (it needs nvcc)."""
-    if (kernel or k1_variant(dtype, cfg, variant)) == "tc":
-        status, geo = _k1_tc_status(cfg, variant, 1, 1)
+    reason)`` when it cannot take it: of ``kernel`` ("wgmma", "tc" or
+    "simt"), else of the variant :func:`k1_variant` picks for ``dtype`` (the
+    CUDA-core K1 when no dtype is given). The kernels' libraries own the
+    geometry, so this builds them on first use (it needs nvcc)."""
+    kernel = kernel or k1_variant(dtype, cfg, variant)
+    if kernel in _K1_BODIES:
+        status, geo = _K1_BODIES[kernel](cfg, variant, 1, 1)
+        name, holds = _K1_BODY_NAMES[kernel]
         if status == 0:
             return geo["tile"], None
         if status == 2:
             return None, (f"units={cfg.units} needs {geo['smem_bytes']} bytes of shared memory "
-                          f"per block in the tensor-core K1 (two planes of {geo['tile']} "
-                          f"points), more than a block may have")
-        return None, f"the tensor-core K1 cannot take {cfg} (status {status})"
+                          f"per block in the {name} ({holds.format(**geo)}), more than a block "
+                          f"may have")
+        return None, f"the {name} cannot take {cfg} (status {status})"
     status, geo = _simt_fwd_status("forward", cfg, variant, cfg.input_dim, 1, 1,
                                    dtype or torch.float32)
     if status == 0:
@@ -310,17 +311,24 @@ def _simt_fwd_reason(status: int, cfg: ShapeNetConfig, si: int, geo: dict) -> Op
 
 def k1_geometry(cfg: ShapeNetConfig, variant: str, G: int, P: int, dtype: torch.dtype,
                 kernel: Optional[str] = None) -> dict:
-    """The launch geometry of K1 at ``[G, P]`` in ``dtype`` on ``kernel`` or
-    the variant :func:`k1_variant` picks (it needs nvcc): the kernel and its
-    body ("tc" or "simt"), points per tile, shared memory per block, and the
-    workspace the wrapper allocates; the tensor-core K1's splits a group, the
-    CUDA-core one's blocks of one wave over every group's tiles."""
-    if (kernel or k1_variant(dtype, cfg, variant)) == "tc":
-        status, geo = _k1_tc_status(cfg, variant, G, P)
+    """The launch geometry of K1 at ``[G, P]`` in ``dtype`` on ``kernel``
+    ("wgmma", "tc" or "simt") or the variant :func:`k1_variant` picks (it
+    needs nvcc): the kernel and its body, points per tile, shared memory per
+    block, and the workspace the wrapper allocates; the tensor-core bodies'
+    splits a group, the CUDA-core one's blocks of one wave over every
+    group's tiles. It raises where the body cannot take the shape."""
+    if kernel not in (None, *_K1_BODIES, "simt"):
+        raise ValueError(f"unknown K1 body {kernel!r}")
+    kernel = kernel or k1_variant(dtype, cfg, variant)
+    if kernel in _K1_BODIES:
+        if dtype != torch.bfloat16:
+            raise ValueError(f"the {_K1_BODY_NAMES[kernel][0]} takes bfloat16 inputs, "
+                             f"not {dtype}")
+        status, geo = _K1_BODIES[kernel](cfg, variant, G, P)
         if status != 0:
-            raise ValueError(f"the tensor-core K1 cannot take {cfg} at G={G}, P={P} "
-                             f"(geometry status {status})")
-        return {**geo, "body": "tc"}
+            raise ValueError(f"the {_K1_BODY_NAMES[kernel][0]} cannot take {cfg} at G={G}, "
+                             f"P={P} (geometry status {status})")
+        return {**geo, "body": kernel}
     status, geo = _simt_fwd_status("forward", cfg, variant, cfg.input_dim, G, P, dtype)
     if status != 0:
         raise ValueError(_simt_fwd_reason(status, cfg, cfg.input_dim, geo))
@@ -667,6 +675,25 @@ def _fwd_tc_library() -> ctypes.CDLL:
     return lib
 
 
+def _fwd_wg_library() -> ctypes.CDLL:
+    """The wgmma K1 and K5's wgmma reverse body
+    (``csrc/shapenet_fwd_wgmma.cu``): the C entries of the ``mma.sync``
+    body's library, under their own names."""
+    lib = _build.load_library("shapenet_fwd_wgmma")
+    if lib.nif_shapenet_fwd_wg.argtypes is None:
+        c_int, ptr, c_ll = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
+        for entry in (lib.nif_shapenet_fwd_wg_workspace, lib.nif_shapenet_fwd_jac_wg_workspace):
+            entry.argtypes = [c_int] * 7 + [ptr] * 7
+            entry.restype = c_int
+        lib.nif_shapenet_fwd_wg.argtypes = [ptr] * 4 + [c_int] * 8 + [c_ll, c_ll, ptr]
+        lib.nif_shapenet_fwd_wg.restype = c_int
+        lib.nif_shapenet_fwd_jac_wg.argtypes = [ptr] * 5 + [c_int] * 8 + [c_ll, c_ll, ptr]
+        lib.nif_shapenet_fwd_jac_wg.restype = c_int
+        lib.nif_cuda_error_string.argtypes = [c_int]
+        lib.nif_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _bwd_library() -> ctypes.CDLL:
     lib = _build.load_library("shapenet_bwd")
     if lib.nif_shapenet_mse_grads.argtypes is None:
@@ -747,21 +774,60 @@ def _k1_tc_status(cfg: ShapeNetConfig, variant: str, G: int, P: int):
                             variant, cfg.input_dim, G, P)
 
 
+def _wg_fwd_status(mode: str, cfg: ShapeNetConfig, variant: str, si: int, G: int, P: int):
+    """``(status, geometry)`` of the wgmma K1 (``mode="forward"``) or K5
+    reverse body (``"reverse"``) of ``csrc/shapenet_fwd_wgmma.cu``; a chain
+    it has no instance for (a width other than 64 or 128, a vanilla chain)
+    is status 3 without asking its library."""
+    if variant != "siren" or cfg.units not in _WGMMA_WIDTHS:
+        return 3, {"mode": mode, "kernel": "wgmma"}
+    lib = _fwd_wg_library()
+    entry = (lib.nif_shapenet_fwd_wg_workspace if mode == "forward"
+             else lib.nif_shapenet_fwd_jac_wg_workspace)
+    return _stack_tc_status(entry, mode, cfg, variant, si, G, P, kernel="wgmma")
+
+
+def _k1_wg_status(cfg: ShapeNetConfig, variant: str, G: int, P: int):
+    """``(status, geometry)`` of the wgmma K1 (``csrc/shapenet_fwd_wgmma.cu``)."""
+    return _wg_fwd_status("forward", cfg, variant, cfg.input_dim, G, P)
+
+
+# K1's bf16 bodies with their geometry, in the order a launch prefers them,
+# and each one's name and what its shared memory holds (for a refusal)
+_K1_BODIES = {"wgmma": _k1_wg_status, "tc": _k1_tc_status}
+_K1_BODY_NAMES = {"wgmma": ("wgmma K1", "every W_m staged"),
+                  "tc": ("tensor-core K1", "two planes of {tile} points")}
+
+
+def _k1_routed(cfg: ShapeNetConfig, variant: str, G: int, P: int):
+    """``(body, geometry)`` of the first bf16 K1 body whose geometry takes
+    ``[G, P]`` (one query a body), or ``(None, None)``."""
+    for body, status in _K1_BODIES.items():
+        code, geo = status(cfg, variant, G, P)
+        if code == 0:
+            return body, {**geo, "body": body}
+    return None, None
+
+
 def k1_variant(dtype: Optional[torch.dtype], cfg: Optional[ShapeNetConfig] = None,
                variant: str = "siren") -> str:
-    """Which CUDA kernel K1 runs for inputs of ``dtype``: ``"tc"`` (the
-    tensor-core kernel, ``csrc/shapenet_fwd_tc.cu``) for bfloat16 and
-    ``"simt"`` (the CUDA-core kernel, ``csrc/shapenet_fwd.cu``) for float32,
-    whose products stay full f32 (and for any other dtype, which the wrapper
-    refuses). Given a chain (``cfg``, ``variant``; this asks the
-    tensor-core kernel's library, so it needs nvcc), bfloat16 runs the
-    CUDA-core kernel where the tensor-core one does not take it: a vanilla
-    chain, si > 4, or a width whose planes exceed a block's shared memory."""
+    """Which CUDA kernel K1 runs for inputs of ``dtype``. bfloat16 sine
+    chains run, in order of preference, the body whose geometry takes the
+    chain: ``"wgmma"`` (``csrc/shapenet_fwd_wgmma.cu``, Hopper's warpgroup
+    products with the activations in registers; widths 64 and 128, si and
+    so <= 4), ``"tc"`` (the ``mma.sync`` body, ``csrc/shapenet_fwd_tc.cu``;
+    si <= 4 and a width whose planes fit), then ``"simt"`` (the CUDA-core
+    kernel, ``csrc/shapenet_fwd.cu``). float32 (and any other dtype, which
+    the wrapper refuses) runs ``"simt"``, whose products stay full f32.
+    Without a chain bfloat16 names ``"tc"``, the body that takes every sine
+    chain the tensor cores do. Given a chain this asks the bodies' libraries
+    (it needs nvcc): the wgmma library only for a width it has instances
+    for."""
     if dtype != torch.bfloat16:
         return "simt"
     if cfg is None:
         return "tc"
-    return "tc" if _k1_tc_status(cfg, variant, 1, 1)[0] == 0 else "simt"
+    return _k1_routed(cfg, variant, 1, 1)[0] or "simt"
 
 
 def _k2_tc_status(cfg: ShapeNetConfig, variant: str, G: int, P: int):
@@ -777,8 +843,9 @@ def _k3_tc_status(cfg: ShapeNetConfig, variant: str, G: int, P: int):
                             variant, cfg.input_dim, G, P)
 
 
-#: The widths the wgmma K2/K3 body has instances for; its library's
-#: workspace entry decides the rest of the chain (and shared memory).
+#: The widths the wgmma bodies (K1 and K5's reverse body, K2 and K3) have
+#: instances for; each library's workspace entry decides the rest of the
+#: chain (and shared memory).
 _WGMMA_WIDTHS = (64, 128)
 
 
@@ -943,13 +1010,18 @@ def _raise_on_error(lib: ctypes.CDLL, name: str, err: int) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} ({msg})")
 
 
-def _launch_k1(tensor_cores: bool, wb: torch.Tensor, x: torch.Tensor, cfg: ShapeNetConfig,
+# each bf16 K1 body's library, its C entry and its launch counter
+_K1_ENTRIES = {"wgmma": (_fwd_wg_library, "nif_shapenet_fwd_wg", "shapenet_fwd_wg"),
+               "tc": (_fwd_tc_library, "nif_shapenet_fwd_tc", "shapenet_fwd_tc")}
+
+
+def _launch_k1(kernel: Optional[str], wb: torch.Tensor, x: torch.Tensor, cfg: ShapeNetConfig,
                variant: str) -> torch.Tensor:
-    """K1 after the wrapper's checks, counting the launch: on the
-    tensor-core kernel where ``tensor_cores`` allows it and
-    :func:`k1_variant` would pick it (one geometry query at this shape
-    decides, and gives the launch its scratch size), else on the CUDA-core
-    kernel."""
+    """K1 after the wrapper's checks, counting the launch: on ``kernel``
+    ("wgmma", "tc" or "simt"; it raises where that body cannot take the
+    shape) or, for ``None``, on the first bf16 body of :func:`k1_variant`'s
+    order whose geometry takes this shape (one query a body decides, and
+    gives the launch its scratch size), else on the CUDA-core kernel."""
     _check_cuda_inputs("shapenet_fwd_cuda", wb, x, cfg, variant)
     G, P, si = x.shape
     out = torch.empty((G, P, cfg.output_dim), dtype=x.dtype, device=x.device)
@@ -958,23 +1030,26 @@ def _launch_k1(tensor_cores: bool, wb: torch.Tensor, x: torch.Tensor, cfg: Shape
     wbp = _prescale(wb, cfg, variant).contiguous()
     x = x.contiguous()
     with torch.cuda.device(x.device):  # the geometry reads this device's SM count
-        geo = None
-        if tensor_cores and x.dtype == torch.bfloat16:
-            status, geo = _k1_tc_status(cfg, variant, G, P)
-            geo = geo if status == 0 else None
-        tc = geo is not None
-        if not tc:
+        body, geo = None, None
+        if kernel is None:
+            if x.dtype == torch.bfloat16:
+                body, geo = _k1_routed(cfg, variant, G, P)
+        elif kernel != "simt":
+            geo = k1_geometry(cfg, variant, G, P, x.dtype, kernel=kernel)
+            body = kernel
+        if body is None:
             geo = k1_geometry(cfg, variant, G, P, x.dtype, kernel="simt")
         stream = torch.cuda.current_stream(x.device).cuda_stream
         shape = (G, P, si, cfg.output_dim, cfg.units, _n_mats(cfg))
         codes = (_chain_code(cfg, variant), _act_code(cfg, variant, x.dtype), wb.shape[1])
         scratch = torch.empty(max(geo["scratch_bytes"], 1), dtype=torch.uint8, device=x.device)
-        if tc:  # rows padded to 16 bytes, so every group's W_m stages with cp.async
+        if body is not None:
+            # rows padded to 16 bytes: W_m stages with cp.async (tc) or TMA (wgmma)
             wbp = F.pad(wbp, (0, -wbp.shape[1] % 8))
-            lib = _fwd_tc_library()
-            err = lib.nif_shapenet_fwd_tc(wbp.data_ptr(), x.data_ptr(), out.data_ptr(),
-                                          scratch.data_ptr(), *shape, *codes, wbp.shape[1],
-                                          stream)
+            library, entry, counter = _K1_ENTRIES[body]
+            lib = library()
+            err = getattr(lib, entry)(wbp.data_ptr(), x.data_ptr(), out.data_ptr(),
+                                      scratch.data_ptr(), *shape, *codes, wbp.shape[1], stream)
         else:
             wbp = _simt_weights(wbp)
             lib = _library()
@@ -983,8 +1058,8 @@ def _launch_k1(tensor_cores: bool, wb: torch.Tensor, x: torch.Tensor, cfg: Shape
                                        _DTYPE_CODES[x.dtype], stream)
     _raise_on_error(lib, "shapenet_fwd", err)
     _build.LAUNCHES["shapenet_fwd"] += 1
-    if tc:
-        _build.LAUNCHES["shapenet_fwd_tc"] += 1
+    if body is not None:
+        _build.LAUNCHES[counter] += 1
     return out
 
 
@@ -997,7 +1072,15 @@ def shapenet_fwd_cuda(wb: torch.Tensor, x: torch.Tensor, cfg: ShapeNetConfig,
     including an input that requires grad: :func:`shapenet_grouped_fused`
     is the differentiable entry. A build or launch failure raises too;
     nothing here falls back to another path."""
-    return _launch_k1(True, wb, x, cfg, variant)
+    return _launch_k1(None, wb, x, cfg, variant)
+
+
+def _shapenet_fwd_on(kernel: str, wb: torch.Tensor, x: torch.Tensor, cfg: ShapeNetConfig,
+                     variant: str = "siren") -> torch.Tensor:
+    """K1 on one body ("wgmma", "tc" or "simt") whatever the routing
+    prefers; raises where that body cannot take the shape. ``chip_smoke.py``
+    and the probes time the bodies side by side on the same inputs."""
+    return _launch_k1(kernel, wb, x, cfg, variant)
 
 
 def _shapenet_fwd_simt(wb: torch.Tensor, x: torch.Tensor, cfg: ShapeNetConfig,
@@ -1005,7 +1088,7 @@ def _shapenet_fwd_simt(wb: torch.Tensor, x: torch.Tensor, cfg: ShapeNetConfig,
     """K1 on the CUDA-core kernel whatever the dtype and chain.
     ``chip_smoke.py`` times its bf16 instance beside the tensor-core kernel
     on the same inputs."""
-    return _launch_k1(False, wb, x, cfg, variant)
+    return _launch_k1("simt", wb, x, cfg, variant)
 
 
 def _simt_weights(wbp: torch.Tensor) -> torch.Tensor:

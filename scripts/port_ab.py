@@ -9,7 +9,8 @@ shape, and the float32-policy calls that run the last two end to end.
 
     python3 scripts/port_ab.py --other DIR [--kernel k1f32 k4f32 k5f32 k6f32 k7f32 k8f32
                                             k5tan k5tanf32 apply_f32 predict_f32
-                                            jaceval_f32 k2 k3 k2wg k3wg k2tc k3tc]
+                                            jaceval_f32 k1 k5 k1wg k5wg k1tc k5tc
+                                            k2 k3 k2wg k3wg k2tc k3tc]
                                            [--reps N]
 
 ``DIR`` is the root of another checkout (for example a parent commit,
@@ -42,7 +43,12 @@ checkout's wrapper routes it to (here the wgmma body of
 ``csrc/shapenet_bwd_wgmma.cu``, in a checkout before it the ``mma.sync`` body
 of ``csrc/shapenet_bwd_tc.cu``); ``k2wg``/``k3wg`` and ``k2tc``/``k3tc`` name
 the wgmma or the ``mma.sync`` body (both checkouts must have the private
-launchers that name a body). Prints each turn's times, each kernel's
+launchers that name a body). ``k1`` and ``k5`` are the bfloat16 K1 and
+K5's reverse body on the flagship chain through the body each checkout
+routes it to (here the wgmma body of ``csrc/shapenet_fwd_wgmma.cu``, in a
+checkout before it the ``mma.sync`` body of ``csrc/shapenet_fwd_tc.cu``);
+``k1wg``/``k5wg`` and ``k1tc``/``k5tc`` name the body, so ``--other .``
+times both bodies of this checkout, each turn a process. Prints each turn's times, each kernel's
 mean over the two turns of each checkout with their ratio, the registers
 and spills ptxas reported for each build's instances, and the card's name
 and power limit. Nothing is asserted; the wrappers themselves raise on a
@@ -74,7 +80,11 @@ LIBRARIES = {"k1f32": ("shapenet_fwd",), "k4f32": ("shapenet_linear",),
              "k2": ("shapenet_bwd_tc", "shapenet_bwd_wgmma"),
              "k3": ("shapenet_bwd_tc", "shapenet_bwd_wgmma"),
              "k2wg": ("shapenet_bwd_wgmma",), "k3wg": ("shapenet_bwd_wgmma",),
-             "k2tc": ("shapenet_bwd_tc",), "k3tc": ("shapenet_bwd_tc",)}
+             "k2tc": ("shapenet_bwd_tc",), "k3tc": ("shapenet_bwd_tc",),
+             "k1": ("shapenet_fwd_tc", "shapenet_fwd_wgmma"),
+             "k5": ("shapenet_fwd_tc", "shapenet_fwd_wgmma"),
+             "k1wg": ("shapenet_fwd_wgmma",), "k5wg": ("shapenet_fwd_wgmma",),
+             "k1tc": ("shapenet_fwd_tc",), "k5tc": ("shapenet_fwd_tc",)}
 KERNELS = ["k1f32", "k4f32", "k5f32", "k6f32", "k7f32", "k8f32"]
 END_TO_END = {"apply_f32": 20, "predict_f32": 5, "jaceval_f32": 3}  # calls a mean takes
 
@@ -206,13 +216,20 @@ def child(root: Path, kernels, reps: int, build_only: bool) -> int:
             "k5tan": lambda: fd.shapenet_fwd_jac_cuda(twb16, tx16, tcfg, "siren"),
             "k5tanf32": lambda: fd.shapenet_fwd_jac_cuda(twb, tx, tcfg, "siren"),
             "k2": lambda: fs.shapenet_mse_grads_cuda(wb16, x16, tgt, cfg, "siren"),
-            "k3": lambda: fs.shapenet_bwd_cuda(wb16, x16, g16, cfg, "siren")}
+            "k3": lambda: fs.shapenet_bwd_cuda(wb16, x16, g16, cfg, "siren"),
+            "k1": lambda: fs.shapenet_fwd_cuda(wb16, x16, cfg, "siren"),
+            "k5": lambda: fd.shapenet_fwd_jac_cuda(wb16, x16, cfg, "siren")}
     if hasattr(fs, "_shapenet_mse_grads_on"):  # a checkout whose launchers name a body
         for body, tag in (("wgmma", "wg"), ("tc", "tc")):
             runs[f"k2{tag}"] = lambda b=body: fs._shapenet_mse_grads_on(b, wb16, x16, tgt, cfg,
                                                                           "siren")
             runs[f"k3{tag}"] = lambda b=body: fs._shapenet_bwd_on(b, wb16, x16, g16, cfg,
                                                                     "siren")
+    if hasattr(fs, "_shapenet_fwd_on"):  # a checkout whose K1/K5 launchers name a body
+        for body, tag in (("wgmma", "wg"), ("tc", "tc")):
+            runs[f"k1{tag}"] = lambda b=body: fs._shapenet_fwd_on(b, wb16, x16, cfg, "siren")
+            runs[f"k5{tag}"] = lambda b=body: fd._shapenet_fwd_jac_on(b, wb16, x16, cfg,
+                                                                      "siren")
     e2e = _end_to_end(torch, [k for k in kernels if k in END_TO_END])
     out = {k: cuda_ms(runs[k], reps=reps, warmup=1) for k in kernels if k in runs}
     for k, fn in e2e.items():

@@ -41,7 +41,8 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     cs.log(f"torch {torch.__version__} cuda {torch.version.cuda} card: {smi}")
-    cs.build_all(["shapenet_fwd", "shapenet_fwd_tc", "shapenet_bwd", "shapenet_bwd_tc"])
+    cs.build_all(["shapenet_fwd", "shapenet_fwd_tc", "shapenet_fwd_wgmma", "shapenet_bwd",
+                  "shapenet_bwd_tc"])
     for policy in ("mixed_bfloat16", "float32"):
         cs.rom_decode_phase(torch, cs.log, smi, policy)
     cs.export_phase(torch, cs.log, smi)

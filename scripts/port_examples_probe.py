@@ -26,8 +26,8 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 import chip_smoke as cs  # noqa: E402
 
-SOURCES = ["shapenet_fwd", "shapenet_fwd_tc", "shapenet_bwd", "shapenet_bwd_tc",
-           "shapenet_jac", "shapenet_hess"]
+SOURCES = ["shapenet_fwd", "shapenet_fwd_tc", "shapenet_fwd_wgmma", "shapenet_bwd",
+           "shapenet_bwd_tc", "shapenet_jac", "shapenet_hess"]
 
 
 def main() -> int:

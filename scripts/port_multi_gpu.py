@@ -195,11 +195,12 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     # the CLI alone runs the fused K1 geometry and both K2s (the model's
     # gate asks the forward libraries)
-    cs.build_all(["shapenet_fwd", "shapenet_fwd_tc", "shapenet_bwd", "shapenet_bwd_tc"]
+    cs.build_all(["shapenet_fwd", "shapenet_fwd_tc", "shapenet_fwd_wgmma", "shapenet_bwd",
+                  "shapenet_bwd_tc"]
                  if args.only == "cli" else
-                 ["shapenet_fwd", "shapenet_fwd_tc", "shapenet_bwd", "shapenet_bwd_tc",
-                  "shapenet_jac", "shapenet_jac_tc", "shapenet_hess", "shapenet_hess_tc",
-                  "shapenet_linear", "shapenet_linear_tc"])
+                 ["shapenet_fwd", "shapenet_fwd_tc", "shapenet_fwd_wgmma", "shapenet_bwd",
+                  "shapenet_bwd_tc", "shapenet_jac", "shapenet_jac_tc", "shapenet_hess",
+                  "shapenet_hess_tc", "shapenet_linear", "shapenet_linear_tc"])
     oks = [] if args.only == "cli" else [check_cards(k, smi) for k in sorted({2, n})]
     if args.only != "cards":
         oks += [check_cli(n, smi, policy) for policy in args.policy]

@@ -3,12 +3,13 @@
 checkout's, on a CUDA card: the same flagship inputs through both libraries
 must give the same bits, and the two are timed in turns.
 
-    python3 scripts/port_parent_check.py --csrc DIR [--kernel k1 k2 k2wg k3wg k2f32 k3f32 k5 k6
-                                                            k7 k8]
+    python3 scripts/port_parent_check.py --csrc DIR [--kernel k1 k1wg k2 k2wg k3wg k2f32 k3f32
+                                                            k5 k5wg k6 k7 k8]
 
 ``DIR`` holds the other checkout's ``nif_tpu_torch/csrc`` (for example that
 of a parent commit, unpacked with ``git archive`` under ``build/``). Each
-kernel's source there (``shapenet_fwd_tc.cu`` for K1 and K5's reverse body,
+kernel's source there (``shapenet_fwd_tc.cu`` for K1 and K5's reverse body
+on ``mma.sync``, ``shapenet_fwd_wgmma.cu`` for the wgmma K1 and K5,
 ``shapenet_bwd_tc.cu`` for K2 on ``mma.sync``, ``shapenet_bwd_wgmma.cu``
 for the wgmma K2 and K3, ``shapenet_bwd.cu`` for the float32 K2 and
 K3 on the CUDA cores, ``shapenet_jac_tc.cu`` for K6, ``shapenet_hess_tc.cu``
@@ -50,14 +51,20 @@ from nif_tpu_torch.utils.bench import FLAGSHIP_SHAPE, cuda_ms  # noqa: E402
 G, P, SEED = 32, 32768, 203
 
 
-def _k1(cfg):
-    wb, x = chip_smoke.chain_data(torch, cfg, G, P, torch.bfloat16, seed=SEED)
-    return lambda: (fs.shapenet_fwd_cuda(wb, x, cfg, "siren"),)
+def _k1_on(body):
+    """K1 on one bf16 body ("tc", the mma.sync one, or "wgmma")."""
+    def case(cfg):
+        wb, x = chip_smoke.chain_data(torch, cfg, G, P, torch.bfloat16, seed=SEED)
+        return lambda: (fs._shapenet_fwd_on(body, wb, x, cfg, "siren"),)
+    return case
 
 
-def _k5(cfg):
-    wb, x = chip_smoke.chain_data(torch, cfg, G, P, torch.bfloat16, seed=SEED)
-    return lambda: fd.shapenet_fwd_jac_cuda(wb, x, cfg, "siren")
+def _k5_on(body):
+    """K5's reverse body on one bf16 body ("tc" or "wgmma")."""
+    def case(cfg):
+        wb, x = chip_smoke.chain_data(torch, cfg, G, P, torch.bfloat16, seed=SEED)
+        return lambda: fd._shapenet_fwd_jac_on(body, wb, x, cfg, "siren")
+    return case
 
 
 def _k2_on(body):
@@ -109,9 +116,14 @@ def _k8(cfg):
 # types), the wrapper call on the flagship inputs, the names of its outputs)
 KERNELS = {
     "k1": ("shapenet_fwd_tc", ("nif_shapenet_fwd_tc_workspace", "nif_shapenet_fwd_tc"),
-           fs._fwd_tc_library, _k1, ("y",)),
+           fs._fwd_tc_library, _k1_on("tc"), ("y",)),
+    "k1wg": ("shapenet_fwd_wgmma", ("nif_shapenet_fwd_wg_workspace", "nif_shapenet_fwd_wg"),
+             fs._fwd_wg_library, _k1_on("wgmma"), ("y",)),
     "k5": ("shapenet_fwd_tc", ("nif_shapenet_fwd_jac_tc_workspace", "nif_shapenet_fwd_jac_tc"),
-           fs._fwd_tc_library, _k5, ("y", "jac")),
+           fs._fwd_tc_library, _k5_on("tc"), ("y", "jac")),
+    "k5wg": ("shapenet_fwd_wgmma", ("nif_shapenet_fwd_jac_wg_workspace",
+                                    "nif_shapenet_fwd_jac_wg"),
+             fs._fwd_wg_library, _k5_on("wgmma"), ("y", "jac")),
     "k2": ("shapenet_bwd_tc", ("nif_shapenet_mse_tc_workspace", "nif_shapenet_mse_grads_tc"),
            fs._bwd_tc_library, _k2_on("tc"), ("loss", "d_wb")),
     "k2wg": ("shapenet_bwd_wgmma", ("nif_shapenet_mse_wg_workspace", "nif_shapenet_mse_grads_wg"),

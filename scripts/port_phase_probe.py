@@ -12,9 +12,9 @@ float32 K4 on the CUDA cores (``csrc/shapenet_linear.cu``) or the float32
 K1 or K5's float32 reverse body on the CUDA cores (one body,
 ``csrc/shapenet_fwd.cu``).
 
-    python3 scripts/port_phase_probe.py [--kernel k1|k1f32|k2|k2f32|k2wg|k3f32|k3wg|k4|k4f32|k5|
-                                                  k5f32|k5tan|k5tanf32|k6|k6f32|k7|k7f32|k8|
-                                                  k8f32]
+    python3 scripts/port_phase_probe.py [--kernel k1|k1f32|k1wg|k2|k2f32|k2wg|k3f32|k3wg|k4|k4f32|
+                                                  k5|k5f32|k5tan|k5tanf32|k5wg|k6|k6f32|k7|
+                                                  k7f32|k8|k8f32]
                                         [--ablate] [--one-block]
 
 Builds the kernel's source once more with ``-DK1_PHASE_CLOCKS``,
@@ -26,6 +26,9 @@ Builds the kernel's source once more with ``-DK1_PHASE_CLOCKS``,
 ``csrc/shapenet_bwd_wgmma.cu``, whose thread 0 of each consumer warpgroup
 keeps the counters, so its split is of a consumer's time a tile: the
 products' share, the epilogues' and the dW and bias flushes'),
+``-DFWG_PHASE_CLOCKS`` (k1wg, k5wg: the wgmma K1/K5 reverse body of
+``csrc/shapenet_fwd_wgmma.cu``, kept likewise by each consumer: its
+products, epilogues, first and last layers and K5's sweeps),
 ``-DK4_PHASE_CLOCKS``, ``-DK5_PHASE_CLOCKS``, ``-DK6_PHASE_CLOCKS``,
 ``-DK7_PHASE_CLOCKS`` or ``-DK8_PHASE_CLOCKS`` (into
 ``build/nif_tpu_torch/probe/``), in which thread 0 of every block adds the
@@ -59,7 +62,12 @@ registers a thread) in place of two (up to 128), and with ``--kernel k5tan``
 or ``k5tanf32`` K5's tangent body at one block per SM (its geometry then
 stages every W_m once a group in the tensor-core body).
 
-With ``--kernel k2wg|k3wg --ablate`` it also builds the wgmma body without
+With ``--kernel k1wg|k5wg --ablate`` it also builds the wgmma K1/K5 body
+with the sine's range reduction rounding by two adds of 1.5 * 2^23 in
+place of ``rintf`` (the same bits for |z| < 2^22 * 2 pi), with the hidden
+epilogue's sine left out, and with the hidden products left out, and times
+them beside the source as it is, in turns (the last two compute wrong
+values). With ``--kernel k2wg|k3wg --ablate`` it also builds the wgmma body without
 the loads and stores of its dW partial (the products kept alive) and times
 it beside the source as it is, in turns. With ``--kernel k2|k6|k8 --ablate``
 it also builds three variants of the
@@ -116,6 +124,20 @@ WG_PHASES = [
     "backward products (recompute; du + dW)",
     "dz epilogues (act', roundings, dz store)",
     "dW stores, bias sums, first layer's backward",
+]
+
+# The phases of a consumer warpgroup of the wgmma K1/K5 reverse body
+# (csrc/shapenet_fwd_wgmma.cu), a consumer's half (64 points) of a tile; K1
+# marks the first five
+FWG_PHASES = [
+    "waiting for the tile's x (and a group's W)",
+    "first layer (x rows, sine, pack)",
+    "hidden products (issue, wait)",
+    "hidden epilogues (bias, sine, K5 act', pack)",
+    "last product + y stores",
+    "sweep: dz epilogues (act' loads, pack)",
+    "sweep: du = dz W^T (issue, wait)",
+    "sweep: dz0 (act'(z0) kept), jac product, stores",
 ]
 
 # The phases of the CUDA-core K7/K8 body (csrc/shapenet_hess.cu); K7 marks
@@ -236,6 +258,8 @@ KERNELS = {
         "y, jac, hp stores (and the group's set-up)",
     ]),
     "k2wg": ("shapenet_bwd_wgmma", "WG_PHASE_CLOCKS", "nif_wg_phase_cycles", WG_PHASES),
+    "k1wg": ("shapenet_fwd_wgmma", "FWG_PHASE_CLOCKS", "nif_fwg_phase_cycles", FWG_PHASES[:5]),
+    "k5wg": ("shapenet_fwd_wgmma", "FWG_PHASE_CLOCKS", "nif_fwg_phase_cycles", FWG_PHASES),
     "k3wg": ("shapenet_bwd_wgmma", "WG_PHASE_CLOCKS", "nif_wg_phase_cycles", WG_PHASES),
     "k2f32": ("shapenet_bwd", "K2F_PHASE_CLOCKS", "nif_bwd_phase_cycles", SIMT_PHASES),
     "k3f32": ("shapenet_bwd", "K2F_PHASE_CLOCKS", "nif_bwd_phase_cycles", SIMT_PHASES),
@@ -307,6 +331,18 @@ WG_ABLATIONS = {
         (None, "        if (owns && !first) dw_load<N>(dw, dw_c, th);\n", ""),
         (None, "        if (owns) dw_store<N>(dw, dw_c, th);",
          "        if (owns && dw[0] == 1.2345e30f) dw_store<N>(dw, dw_c, th);")],
+}
+# The wgmma K1/K5 body's variants: rint by two adds, no hidden sine, no
+# hidden products
+FWG_ABLATIONS = {
+    "wgmma rint by two adds": [
+        ("shapenet_common.cuh", "  return t - rintf(t);",
+         "  return t - ((t + 12582912.f) - 12582912.f);")],
+    "wgmma no hidden sine": [
+        (None, "        v = sine_at<DEG9>(z, sp);", "        v = z;")],
+    "wgmma no hidden products": [
+        (None, "        for (int kk = 0; kk < KS; ++kk) mma_rs<N, 1>(acc, A + 4 * kk, w_mn<N>(w_u, kk), kk > 0);\n",
+         "")],
 }
 HEADERS = ("stack_simt.cuh", "stack_tc.cuh", "mma_sm90.cuh", "shapenet_common.cuh",
            "wgmma_sm90.cuh")
@@ -444,6 +480,23 @@ def k3wg_case(G: int, P: int):
     g = chip_smoke.side_data(torch, cfg, G, P, seed=208)[2].to(torch.bfloat16)
     geo = fs.k3_geometry(cfg, "siren", G, P, torch.bfloat16, kernel="wgmma")
     return lambda: fs._shapenet_bwd_on("wgmma", wb, x, g, cfg, "siren"), geo
+
+
+def k1wg_case(G: int, P: int):
+    """The wgmma K1's launcher and geometry at the flagship chain."""
+    cfg = ShapeNetConfig.from_dict(FLAGSHIP_SHAPE)
+    wb, x = chip_smoke.chain_data(torch, cfg, G, P, torch.bfloat16, seed=206)
+    geo = fs.k1_geometry(cfg, "siren", G, P, torch.bfloat16, kernel="wgmma")
+    return lambda: fs._shapenet_fwd_on("wgmma", wb, x, cfg, "siren"), geo
+
+
+def k5wg_case(G: int, P: int):
+    """The wgmma K5 reverse body's launcher and geometry at the flagship
+    chain."""
+    cfg = ShapeNetConfig.from_dict(FLAGSHIP_SHAPE)
+    wb, x = chip_smoke.chain_data(torch, cfg, G, P, torch.bfloat16, seed=207)
+    geo = fd._geometry("reverse", cfg, "siren", G, P, torch.bfloat16, kernel="wgmma")
+    return lambda: fd._shapenet_fwd_jac_on("wgmma", wb, x, cfg, "siren"), geo
 
 
 def k2f32_case(G: int, P: int):
@@ -588,14 +641,14 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", choices=sorted(KERNELS), default="k4")
     ap.add_argument("--ablate", action="store_true",
-                    help="K2, K6, K8 and the wgmma K2/K3 only: also time variants without "
-                         "parts of their dW")
+                    help="K2, K6, K8 and the wgmma K1/K2/K3/K5 only: also time variants "
+                         "without parts of their dW (K1/K5: of their epilogues or products)")
     ap.add_argument("--one-block", action="store_true",
                     help="K1 and K5's tangent body only (k1, k1f32, k5tan, k5tanf32): "
                          "also time it at one block per SM")
     args = ap.parse_args()
-    if args.ablate and args.kernel not in ("k2", "k6", "k8", "k2wg", "k3wg"):
-        ap.error("--ablate takes --kernel k2, k6, k8, k2wg or k3wg")
+    if args.ablate and args.kernel not in ("k2", "k6", "k8", "k2wg", "k3wg", "k1wg", "k5wg"):
+        ap.error("--ablate takes --kernel k2, k6, k8, k1wg, k2wg, k3wg or k5wg")
     if args.one_block and args.kernel not in ONE_BLOCK:
         ap.error("--one-block takes --kernel k1, k1f32, k5tan or k5tanf32")
     if not torch.cuda.is_available():
@@ -607,7 +660,7 @@ def main() -> int:
     name, define, entry, phases = KERNELS[args.kernel]
     G, P = 32, 32768
     cases = {"k1": k1_case, "k2": k2_case, "k2f32": k2f32_case, "k3f32": k3f32_case,
-             "k2wg": k2wg_case, "k3wg": k3wg_case,
+             "k2wg": k2wg_case, "k3wg": k3wg_case, "k1wg": k1wg_case, "k5wg": k5wg_case,
              "k4": k4_case, "k5": k5_case, "k6": k6_case, "k7": k7_case, "k8": k8_case,
              "k7f32": k7f32_case, "k8f32": k8f32_case, "k6f32": k6f32_case,
              "k4f32": k4f32_case, "k1f32": k1f32_case, "k5f32": k5f32_case,
@@ -619,6 +672,7 @@ def main() -> int:
     # registers the argument types of the library now in _build._LIBS
     argtypes = {"k1": fs._fwd_tc_library, "k2": fs._bwd_tc_library,
                 "k2wg": fs._bwd_wg_library, "k3wg": fs._bwd_wg_library,
+                "k1wg": fs._fwd_wg_library, "k5wg": fs._fwd_wg_library,
                 "k2f32": fs._bwd_library, "k3f32": fs._bwd_library,
                 "k4": lambda: fl._library("tc"), "k5": fs._fwd_tc_library,
                 "k6": lambda: fd._library("tc"), "k7": lambda: fh._library("tc"),
@@ -635,7 +689,8 @@ def main() -> int:
                 print(f"plain build ptxas: {line.strip()}")
         device_split(run, reps)
     if args.ablate:
-        ablate(name, argtypes, run, WG_ABLATIONS if name == "shapenet_bwd_wgmma" else ABLATIONS)
+        ablate(name, argtypes, run, {"shapenet_bwd_wgmma": WG_ABLATIONS,
+                                     "shapenet_fwd_wgmma": FWG_ABLATIONS}.get(name, ABLATIONS))
     if args.one_block:
         one_block(args.kernel, run)
     probe = build_probe(name, define, entry)
@@ -658,8 +713,8 @@ def main() -> int:
     blocks = geo["blocks"] if "blocks" in geo else G * geo["splits"]
     tiles = G * -(-P // geo["tile"]) / blocks
     # who keeps the counters: thread 0 of a block, or of each of the wgmma
-    # body's two consumer warpgroups (each a half of every tile of its block)
-    keepers = blocks * (2 if name == "shapenet_bwd_wgmma" else 1)
+    # bodies' two consumer warpgroups (each a half of every tile of its block)
+    keepers = blocks * (2 if name in ("shapenet_bwd_wgmma", "shapenet_fwd_wgmma") else 1)
     total = sum(counters)
     what = "f32, CUDA cores" if simt else "tc bf16"
     print(f"{args.kernel.upper()} {what} at G={G} P={P}: {plain_build_ms:.4f} ms (plain build), "

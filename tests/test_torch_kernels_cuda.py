@@ -32,7 +32,8 @@ chains the CUDA-core one (``shapenet_jac.cu``); bf16 K2 on sine chains the
 tensor-core kernel (``shapenet_bwd_tc.cu``), f32 K2 and vanilla chains the
 CUDA-core one (``shapenet_bwd.cu``), and K3 likewise (one body template
 with K2 in each source); bf16 K1 and K5's reverse body on sine
-chains the tensor-core kernels (``shapenet_fwd_tc.cu``), K5's tangent body
+chains the tensor-core kernels (``shapenet_fwd_wgmma.cu`` at widths 64 and
+128, else ``shapenet_fwd_tc.cu``), K5's tangent body
 (so >= si) the tensor-core one beside K6 (``shapenet_jac_tc.cu``), f32 and
 vanilla chains the CUDA-core ones (``shapenet_fwd.cu``; ``shapenet_jac.cu``,
 whose tangent body is K6's forward half, and the first port's stacked body
@@ -92,12 +93,15 @@ def _max_diff(out, ref):
 def test_k1_matches_plain(card, variant, args, dtype):
     cfg = ShapeNetConfig(*args)
     wb, x = _data(cfg, 3, 256, dtype, seed=5)
+    # bf16 sine chains on a tensor-core K1 (wgmma at widths 64 and 128, else
+    # mma.sync); f32 and vanilla chains on the CUDA-core one
+    body = fs.k1_variant(dtype, cfg, variant)
+    assert (body != "simt") == (dtype == torch.bfloat16 and variant == "siren")
+    assert (body == "wgmma") == (body != "simt" and cfg.units in (64, 128))
     before = dict(_build.LAUNCHES)
     out = fs.shapenet_fwd_cuda(wb, x, cfg, variant)
-    assert _build.LAUNCHES["shapenet_fwd"] == before["shapenet_fwd"] + 1
-    # bf16 sine chains on the tensor-core K1; f32 and vanilla chains on the CUDA-core one
-    tc = dtype == torch.bfloat16 and variant == "siren"
-    assert _build.LAUNCHES["shapenet_fwd_tc"] == before["shapenet_fwd_tc"] + int(tc)
+    got, want = _launched("shapenet_fwd", before, body)
+    assert got == want
     ref = fs.shapenet_grouped_fused_reference(wb, x, cfg, variant)
     assert out.dtype == dtype and out.shape == ref.shape
     if dtype == torch.float32:
@@ -157,14 +161,16 @@ def test_model_on_the_card_routes_through_k1(card):
     t = rng.standard_normal((4, 4)).astype(np.float32)
     x = rng.uniform(-1, 1, (4, 512, 3)).astype(np.float32)
     before = _build.LAUNCHES["shapenet_fwd"]
-    tc = _build.LAUNCHES["shapenet_fwd_tc"]
+    fwd = dict(_build.LAUNCHES)
     with torch.inference_mode():
         out = model.apply_grouped(t, x)
         wb = model.p_to_w(t)
         ref = fs.shapenet_grouped_fused_reference(
             wb, model.policy.cast_to_compute(x, device="cuda"), model.cfg_shape_net, "siren")
-    assert _build.LAUNCHES["shapenet_fwd"] == before + 1
-    assert _build.LAUNCHES["shapenet_fwd_tc"] == tc + 1
+    # the flagship chain's bf16 K1 on the wgmma body
+    assert fs.k1_variant(torch.bfloat16, model.cfg_shape_net, "siren") == "wgmma"
+    got, want = _launched("shapenet_fwd", fwd, "wgmma")
+    assert got == want
     err, scale = _max_diff(out, ref)
     assert out.dtype == torch.float32 and err <= 1e-2 * scale
     # with gradients needed, auto routing runs K1 forward and K3 backward;
@@ -183,9 +189,10 @@ def test_model_on_the_card_routes_through_k1(card):
 
 
 def _launched(base, before, body, n=1):
-    """(launches of K2, base "shapenet_mse_grads", or K3, "shapenet_bwd",
-    since ``before`` under the kernel's counter and each bf16 body's, and
-    what ``n`` launches on ``body`` ("wgmma", "tc" or "simt") add)."""
+    """(launches of K1, base "shapenet_fwd", K2, "shapenet_mse_grads", K3,
+    "shapenet_bwd", or K5, "shapenet_fwd_jac", since ``before`` under the
+    kernel's counter and each bf16 body's, and what ``n`` launches on
+    ``body`` ("wgmma", "tc" or "simt") add)."""
     names = (base, base + "_tc", base + "_wg")
     return ({k: _build.LAUNCHES[k] - before[k] for k in names},
             {base: n, base + "_tc": n * (body == "tc"), base + "_wg": n * (body == "wgmma")})
@@ -487,13 +494,16 @@ def _close_rel(mine, ref, dtype):
 def test_k5_matches_plain(card, variant, args, dtype):
     cfg = ShapeNetConfig(*args)
     wb, x = _data(cfg, 3, 264, dtype, seed=15)
+    # both bodies of bf16 sine chains on a tensor-core K5 (the reverse body
+    # for so < si, on wgmma at widths 64 and 128; the tangent body otherwise)
+    body = fd.k5_variant(dtype, cfg, variant)
+    assert (body != "simt") == (dtype == torch.bfloat16 and variant == "siren")
+    reverse = fd._jac_mode(cfg, cfg.input_dim) == "reverse"
+    assert (body == "wgmma") == (body != "simt" and reverse and cfg.units in (64, 128))
     before = dict(_build.LAUNCHES)
     y, jac = fd.shapenet_fwd_jac(wb, x, cfg, variant)
-    assert _build.LAUNCHES["shapenet_fwd_jac"] == before["shapenet_fwd_jac"] + 1
-    # both bodies of bf16 sine chains on the tensor-core K5 (the reverse body
-    # for so < si, the tangent body otherwise)
-    tc = dtype == torch.bfloat16 and variant == "siren"
-    assert _build.LAUNCHES["shapenet_fwd_jac_tc"] == before["shapenet_fwd_jac_tc"] + int(tc)
+    got, want = _launched("shapenet_fwd_jac", before, body)
+    assert got == want
     y_ref, jac_ref = fd.shapenet_fwd_jac_reference(wb, x, cfg, variant)
     assert y.dtype == jac.dtype == dtype and jac.shape == (3, 264, cfg.output_dim, cfg.input_dim)
     _close_rel(y, y_ref, dtype)
@@ -625,8 +635,9 @@ def test_derivative_geometry(card):
     tiles (128 stacked rows) with every S plane and the staged W in shared
     memory, and one wave of SMs / G splits per group; f32 K6 takes the
     CUDA-core kernel, its residuals in the global scratch. The reverse K5
-    body in bf16 takes the tensor-core kernel: 128-point tiles, its planes
-    and both W in shared memory, one wave of SMs / G splits; the CUDA-core
+    body in bf16 takes the wgmma body, and the mma.sync body by name, both
+    on 128-point tiles, their act' and both W in shared memory, one wave of
+    SMs / G splits; the CUDA-core
     reverse body (float32's, shapenet_fwd.cu's, one body with the CUDA-core
     K1) takes K2's 64-point tile, its four planes in shared memory (bf16's
     in the global scratch), and one wave of one block per SM over every
@@ -654,6 +665,10 @@ def test_derivative_geometry(card):
     assert si5["tile"] == 64 // 6 and si5["kernel"] == "simt"
     for G in (1, 4, 32):
         rev = fd.derivative_geometry("reverse", cfg, "siren", G, 32768, torch.bfloat16)
+        assert (rev["kernel"], rev["tile"], rev["residuals"], rev["weights"]) == (
+            "wgmma", 128, "shared", "shared")
+        assert rev["splits"] == min(256, max(1, sms // G))
+        rev = fd._geometry("reverse", cfg, "siren", G, 32768, torch.bfloat16, kernel="tc")
         assert (rev["kernel"], rev["tile"], rev["residuals"], rev["weights"]) == (
             "tc", 128, "shared", "shared")
         assert rev["splits"] == min(256, max(1, sms // G))
@@ -718,13 +733,16 @@ K1_TC_SHAPES = [
 @pytest.mark.parametrize("args", K1_TC_SHAPES, ids=["n24", "n40-res", "si1", "si4", "n128-res",
                                                     "n256-res", "n384", "so128"])
 def test_k1_tc_padded_and_ragged_shapes(card, args):
-    """The tensor-core K1 at P = 200 (a ragged last tile) and four groups,
-    against plain K1: within 1e-2 of max|plain|."""
+    """The tensor-core (mma.sync) K1 at P = 200 (a ragged last tile) and
+    four groups, against plain K1: within 1e-2 of max|plain|. The chains at
+    widths 64 and 128 route to the wgmma body, so the mma.sync body runs by
+    name."""
     cfg = ShapeNetConfig(*args)
-    assert fs.k1_variant(torch.bfloat16, cfg, "siren") == "tc"
+    assert fs.k1_variant(torch.bfloat16, cfg, "siren") == (
+        "wgmma" if cfg.units in (64, 128) and cfg.output_dim <= 4 else "tc")
     wb, x = _data(cfg, 4, 200, torch.bfloat16, seed=40)
     before = dict(_build.LAUNCHES)
-    out = fs.shapenet_fwd_cuda(wb, x, cfg, "siren")
+    out = fs._shapenet_fwd_on("tc", wb, x, cfg, "siren")
     assert _build.LAUNCHES["shapenet_fwd_tc"] == before["shapenet_fwd_tc"] + 1
     assert _build.LAUNCHES["shapenet_fwd"] == before["shapenet_fwd"] + 1
     err, scale = _max_diff(out, fs.shapenet_grouped_fused_reference(wb, x, cfg, "siren"))
@@ -747,9 +765,10 @@ def test_k1_cuda_core_kernel_on_bf16_inputs(card):
 
 
 def test_k1_flagship_is_deterministic(card):
-    """The flagship chain at G=8, P=32768 in bf16 on the tensor-core K1
-    (64-point tiles, both W staged, two blocks per SM: 2 SMs / G splits):
-    two runs give the same bits and agree with plain K1."""
+    """The flagship chain at G=8, P=32768 in bf16 on the tensor-core
+    (mma.sync) K1, by name (64-point tiles, both W staged, two blocks per
+    SM: 2 SMs / G splits): two runs give the same bits and agree with plain
+    K1."""
     cfg = ShapeNetConfig(3, 1, 128, 2, "sine", False, 30.0)
     sms = torch.cuda.get_device_properties(card).multi_processor_count
     status, geo = fs._k1_tc_status(cfg, "siren", 8, 32768)
@@ -757,7 +776,7 @@ def test_k1_flagship_is_deterministic(card):
     assert geo["splits"] == min(512, 2 * sms // 8)
     wb, x = _data(cfg, 8, 32768, torch.bfloat16, seed=42)
     before = _build.LAUNCHES["shapenet_fwd_tc"]
-    runs = [fs.shapenet_fwd_cuda(wb, x, cfg, "siren") for _ in range(2)]
+    runs = [fs._shapenet_fwd_on("tc", wb, x, cfg, "siren") for _ in range(2)]
     assert _build.LAUNCHES["shapenet_fwd_tc"] == before + 2
     assert torch.equal(runs[0], runs[1])
     err, scale = _max_diff(runs[0], fs.shapenet_grouped_fused_reference(wb, x, cfg, "siren"))
@@ -777,13 +796,15 @@ K5_TC_SHAPES = [
 
 @pytest.mark.parametrize("args", K5_TC_SHAPES, ids=["si3-so2-res", "si4-n16", "n40", "n192"])
 def test_k5_tc_reverse_shapes(card, args):
-    """The tensor-core K5 reverse body at P = 200 (a ragged last tile),
-    against plain K5: y and jac within 2^-6 of max|plain|."""
+    """The tensor-core (mma.sync) K5 reverse body at P = 200 (a ragged last
+    tile), against plain K5: y and jac within 2^-6 of max|plain|. A chain
+    at width 64 or 128 routes to the wgmma body, so this one runs by name."""
     cfg = ShapeNetConfig(*args)
-    assert fd.k5_variant(torch.bfloat16, cfg, "siren") == "tc"
+    assert fd.k5_variant(torch.bfloat16, cfg, "siren") == (
+        "wgmma" if cfg.units in (64, 128) else "tc")
     wb, x = _data(cfg, 3, 200, torch.bfloat16, seed=43)
     before = dict(_build.LAUNCHES)
-    y, jac = fd.shapenet_fwd_jac_cuda(wb, x, cfg, "siren")
+    y, jac = fd._shapenet_fwd_jac_on("tc", wb, x, cfg, "siren")
     assert _build.LAUNCHES["shapenet_fwd_jac_tc"] == before["shapenet_fwd_jac_tc"] + 1
     assert _build.LAUNCHES["shapenet_fwd_jac"] == before["shapenet_fwd_jac"] + 1
     y_ref, jac_ref = fd.shapenet_fwd_jac_reference(wb, x, cfg, "siren")
@@ -808,17 +829,155 @@ def test_k5_cuda_core_kernel_on_bf16_inputs(card):
 
 
 def test_k5_flagship_is_deterministic(card):
-    """The flagship chain at G=8, P=32768 in bf16 on the tensor-core K5
-    reverse body: two runs give the same bits and agree with plain K5."""
+    """The flagship chain at G=8, P=32768 in bf16 on the tensor-core
+    (mma.sync) K5 reverse body, by name: two runs give the same bits and
+    agree with plain K5."""
     cfg = ShapeNetConfig(3, 1, 128, 2, "sine", False, 30.0)
     wb, x = _data(cfg, 8, 32768, torch.bfloat16, seed=45)
     before = _build.LAUNCHES["shapenet_fwd_jac_tc"]
-    runs = [fd.shapenet_fwd_jac_cuda(wb, x, cfg, "siren") for _ in range(2)]
+    runs = [fd._shapenet_fwd_jac_on("tc", wb, x, cfg, "siren") for _ in range(2)]
     assert _build.LAUNCHES["shapenet_fwd_jac_tc"] == before + 2
     assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
     y_ref, jac_ref = fd.shapenet_fwd_jac_reference(wb, x, cfg, "siren")
     _close_rel(runs[0][0], y_ref, torch.bfloat16)
     _close_rel(runs[0][1], jac_ref, torch.bfloat16)
+
+
+# The wgmma K1 and K5 reverse body (csrc/shapenet_fwd_wgmma.cu): bf16 sine
+# chains at widths 64 and 128 with si and so <= 4 (K5: so < si). K1: the
+# flagship, resblock chains at both widths, width 64 at four hidden layers,
+# si = 1, si = 4 with so = 3, so = 4; K5: the flagship, a resblock chain at
+# each width (so = 2 at width 128), si = 4 with so = 3 at three hidden layers.
+WG_K1_SHAPES = [
+    (3, 1, 128, 2, "sine", False, 30.0),
+    (2, 2, 64, 1, "sine", True, 10.0),
+    (3, 2, 128, 1, "sine", True, 30.0),
+    (3, 1, 64, 4, "sine", False, 30.0),
+    (1, 1, 64, 2, "sine", False, 30.0),
+    (4, 3, 128, 2, "sine", False, 30.0),
+    (2, 4, 128, 2, "sine", False, 30.0),
+]
+WG_K1_IDS = ["flagship", "res-w64", "res-w128", "w64-d4", "si1", "si4-so3", "so4"]
+WG_K5_SHAPES = [
+    (3, 1, 128, 2, "sine", False, 30.0),
+    (3, 2, 128, 1, "sine", True, 30.0),
+    (2, 1, 64, 2, "sine", True, 10.0),
+    (4, 3, 64, 3, "sine", False, 30.0),
+]
+WG_K5_IDS = ["flagship", "res-w128-so2", "res-w64", "si4-so3-d3"]
+
+
+@pytest.mark.parametrize("args", WG_K1_SHAPES, ids=WG_K1_IDS)
+def test_k1_wgmma_matches_plain_and_the_mma_sync_body(card, args):
+    """The wgmma K1, where k1_variant routes these chains, at five groups of
+    P = 200 (a ragged last tile): within 1e-2 of max|plain| of plain K1, and
+    within 1e-2 of max|mma.sync| of the mma.sync body on the same inputs
+    (both sum exact bf16 products in f32, in other orders)."""
+    cfg = ShapeNetConfig(*args)
+    assert fs.k1_variant(torch.bfloat16, cfg, "siren") == "wgmma"
+    wb, x = _data(cfg, 5, 200, torch.bfloat16, seed=48)
+    before = dict(_build.LAUNCHES)
+    out = fs.shapenet_fwd_cuda(wb, x, cfg, "siren")
+    got, want = _launched("shapenet_fwd", before, "wgmma")
+    assert got == want
+    assert out.dtype == torch.bfloat16 and bool(torch.isfinite(out).all())
+    err, scale = _max_diff(out, fs.shapenet_grouped_fused_reference(wb, x, cfg, "siren"))
+    assert err <= 1e-2 * scale, (err, scale)
+    err, scale = _max_diff(out, fs._shapenet_fwd_on("tc", wb, x, cfg, "siren"))
+    assert err <= 1e-2 * scale, (err, scale)
+
+
+@pytest.mark.parametrize("args", WG_K5_SHAPES, ids=WG_K5_IDS)
+def test_k5_wgmma_reverse_matches_plain_and_the_mma_sync_body(card, args):
+    """The wgmma K5 reverse body, where k5_variant routes these chains, at
+    three groups of P = 200: y and jac within 2^-6 of max|plain| of plain
+    K5, and of the mma.sync body's on the same inputs."""
+    cfg = ShapeNetConfig(*args)
+    assert fd.k5_variant(torch.bfloat16, cfg, "siren") == "wgmma"
+    wb, x = _data(cfg, 3, 200, torch.bfloat16, seed=49)
+    before = dict(_build.LAUNCHES)
+    y, jac = fd.shapenet_fwd_jac_cuda(wb, x, cfg, "siren")
+    got, want = _launched("shapenet_fwd_jac", before, "wgmma")
+    assert got == want
+    assert jac.shape == (3, 200, cfg.output_dim, cfg.input_dim)
+    y_ref, jac_ref = fd.shapenet_fwd_jac_reference(wb, x, cfg, "siren")
+    _close_rel(y, y_ref, torch.bfloat16)
+    _close_rel(jac, jac_ref, torch.bfloat16)
+    y_tc, jac_tc = fd._shapenet_fwd_jac_on("tc", wb, x, cfg, "siren")
+    _close_rel(y, y_tc, torch.bfloat16)
+    _close_rel(jac, jac_tc, torch.bfloat16)
+
+
+def test_k1_k5_wgmma_flagship_is_deterministic(card):
+    """The flagship chain at G=8, P=32768 in bf16 on the wgmma K1 and K5
+    reverse body (128-point tiles, every W_m staged, no scratch, SMs / G
+    splits): two runs of each give the same bits and agree with their plain
+    versions."""
+    cfg = ShapeNetConfig(3, 1, 128, 2, "sine", False, 30.0)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    geo = fs.k1_geometry(cfg, "siren", 8, 32768, torch.bfloat16)
+    rev = fd.derivative_geometry("reverse", cfg, "siren", 8, 32768, torch.bfloat16)
+    for g in (geo, rev):
+        assert (g["body"], g["tile"], g["weights"], g["scratch_bytes"]) == (
+            "wgmma", 128, "shared", 0)
+        assert g["splits"] == sms // 8
+    wb, x = _data(cfg, 8, 32768, torch.bfloat16, seed=50)
+    before = dict(_build.LAUNCHES)
+    runs = [fs.shapenet_fwd_cuda(wb, x, cfg, "siren") for _ in range(2)]
+    jacs = [fd.shapenet_fwd_jac_cuda(wb, x, cfg, "siren") for _ in range(2)]
+    for base in ("shapenet_fwd", "shapenet_fwd_jac"):
+        got, want = _launched(base, before, "wgmma", 2)
+        assert got == want, base
+    assert torch.equal(runs[0], runs[1])
+    assert torch.equal(jacs[0][0], jacs[1][0]) and torch.equal(jacs[0][1], jacs[1][1])
+    err, scale = _max_diff(runs[0], fs.shapenet_grouped_fused_reference(wb, x, cfg, "siren"))
+    assert err <= 1e-2 * scale
+    y_ref, jac_ref = fd.shapenet_fwd_jac_reference(wb, x, cfg, "siren")
+    _close_rel(jacs[0][0], y_ref, torch.bfloat16)
+    _close_rel(jacs[0][1], jac_ref, torch.bfloat16)
+
+
+def test_k1_k5_wgmma_geometry_takes_and_refuses(card):
+    """The wgmma library's own geometry: the flagship at G = 1 and 32 (its
+    splits SMs / G, at most the group's tiles); status 3 for si = 5, so = 5
+    and K5 with so >= si; status 2 past its shared memory (K1: seven hidden
+    matrices at width 128; K5: three), where K1 and K5 route to the mma.sync
+    body: bench.py's w128_d4_resblock chain (eight matrices) for K1, a
+    resblock chain of two blocks for K5, each against its plain version."""
+    cfg = ShapeNetConfig(3, 1, 128, 2, "sine", False, 30.0)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    for G in (1, 32):
+        for status in (fs._k1_wg_status(cfg, "siren", G, 32768),
+                       fd._k5_wg_status(cfg, "siren", 3, G, 32768)):
+            assert status[0] == 0 and status[1]["splits"] == min(256, max(1, sms // G))
+    assert fs._k1_wg_status(ShapeNetConfig(5, 1, 64, 2, "sine"), "siren", 2, 64)[0] == 3
+    assert fs._k1_wg_status(ShapeNetConfig(3, 5, 64, 2, "sine"), "siren", 2, 64)[0] == 3
+    assert fd._k5_wg_status(ShapeNetConfig(2, 2, 64, 2, "sine"), "siren", 2, 2, 64)[0] == 3
+    deep = ShapeNetConfig(3, 1, 128, 7, "sine", False, 30.0)
+    assert fs._k1_wg_status(deep, "siren", 2, 64)[0] == 2
+    assert fs._k1_wg_status(ShapeNetConfig(3, 1, 128, 6, "sine"), "siren", 2, 64)[0] == 0
+    assert fd._k5_wg_status(ShapeNetConfig(3, 1, 128, 3, "sine"), "siren", 3, 2, 64)[0] == 2
+    res_d4 = ShapeNetConfig(3, 1, 128, 4, "sine", True, 30.0)
+    res_d2 = ShapeNetConfig(3, 1, 128, 2, "sine", True, 30.0)
+    assert fs._k1_wg_status(res_d4, "siren", 2, 64)[0] == 2
+    assert fd._k5_wg_status(res_d2, "siren", 3, 2, 64)[0] == 2
+    assert fs.k1_variant(torch.bfloat16, res_d4, "siren") == "tc"
+    assert fd.k5_variant(torch.bfloat16, res_d2, "siren") == "tc"
+    wb, x = _data(res_d4, 2, 96, torch.bfloat16, seed=51)
+    before = dict(_build.LAUNCHES)
+    err, scale = _max_diff(fs.shapenet_fwd_cuda(wb, x, res_d4, "siren"),
+                           fs.shapenet_grouped_fused_reference(wb, x, res_d4, "siren"))
+    assert err <= 1e-2 * scale
+    wb, x = _data(res_d2, 2, 96, torch.bfloat16, seed=52)
+    y, jac = fd.shapenet_fwd_jac_cuda(wb, x, res_d2, "siren")
+    y_ref, jac_ref = fd.shapenet_fwd_jac_reference(wb, x, res_d2, "siren")
+    _close_rel(y, y_ref, torch.bfloat16)
+    _close_rel(jac, jac_ref, torch.bfloat16)
+    for base in ("shapenet_fwd", "shapenet_fwd_jac"):
+        got, want = _launched(base, before, "tc")
+        assert got == want, base
+    with pytest.raises(ValueError, match="wgmma K1 cannot take"):
+        fs.k1_geometry(deep, "siren", 2, 96, torch.bfloat16, kernel="wgmma")
 
 
 def test_bf16_chains_the_tensor_core_k1_and_k5_refuse_run_on_the_cuda_core_kernels(card):
@@ -852,9 +1011,10 @@ def test_bf16_chains_the_tensor_core_k1_and_k5_refuse_run_on_the_cuda_core_kerne
 
 
 def test_model_jacobian_evaluation_launches_one_tc_k5_per_chunk(card):
-    """``evaluate_sobolev`` on the card launches the tensor-core K5 once per
-    chunk under the bf16 policy, and the CUDA-core K5 once per chunk under
-    float32; ``output_and_jacobian_grouped`` agrees with plain K5."""
+    """``evaluate_sobolev`` on the card launches the tensor-core K5 (its
+    wgmma reverse body at the flagship width) once per chunk under the bf16
+    policy, and the CUDA-core K5 once per chunk under float32;
+    ``output_and_jacobian_grouped`` agrees with plain K5."""
     from nif_tpu_torch.ops.derivatives import output_and_jacobian_grouped
     from nif_tpu_torch.training import GroupedTrainer
 
@@ -867,13 +1027,13 @@ def test_model_jacobian_evaluation_launches_one_tc_k5_per_chunk(card):
     x = rng.uniform(-1, 1, (4, 512, 3)).astype(np.float32)
     u = rng.standard_normal((4, 512, 1)).astype(np.float32)
     jt = rng.standard_normal((4, 512, 1, 3)).astype(np.float32)
-    for policy, tc in (("mixed_bfloat16", 2), ("float32", 0)):
+    for policy, body in (("mixed_bfloat16", "wgmma"), ("float32", "simt")):
         model = nif_tpu_torch.NIFMultiScale(cfg_s, cfg_p, policy, seed=0)
         trainer = GroupedTrainer(model, lambda p: torch.optim.Adam(p, lr=1e-4))
         before = dict(_build.LAUNCHES)
         out = trainer.evaluate_sobolev(trainer.init(0), t, x, u, jt, group_batch=2)
-        assert _build.LAUNCHES["shapenet_fwd_jac"] == before["shapenet_fwd_jac"] + 2
-        assert _build.LAUNCHES["shapenet_fwd_jac_tc"] == before["shapenet_fwd_jac_tc"] + tc
+        got, want = _launched("shapenet_fwd_jac", before, body, 2)
+        assert got == want
         assert all(np.isfinite(v) for v in out.values())
     tt, xt = torch.from_numpy(t).cuda(), torch.from_numpy(x).cuda()
     model = nif_tpu_torch.NIFMultiScale(cfg_s, cfg_p, "mixed_bfloat16", seed=0)
@@ -2385,9 +2545,12 @@ def test_exported_grouped_artifact_launches_k1(card, policy):
     _build.reset_launches()
     out = fn(t, x)
     torch.cuda.synchronize()
-    tc = int(policy == "mixed_bfloat16")
-    assert _build.LAUNCHES["shapenet_fwd"] == 1 and _build.LAUNCHES["shapenet_fwd_tc"] == tc
-    assert sum(_build.LAUNCHES.values()) == 1 + tc
+    # bf16 on the body K1 routes the width-64 chain to (wgmma), f32 on the CUDA cores
+    body = fs.k1_variant(model.policy.compute_dtype, model.cfg_shape_net, "siren")
+    assert body == ("wgmma" if policy == "mixed_bfloat16" else "simt")
+    got, want = _launched("shapenet_fwd", {k: 0 for k in _build.LAUNCHES}, body)
+    assert got == want
+    assert sum(_build.LAUNCHES.values()) == 1 + int(body != "simt")
     assert torch.equal(out, ref)
 
 

@@ -210,6 +210,7 @@ def _c_signatures(source: str):
 LOADERS = {
     "shapenet_fwd": fs._library,
     "shapenet_fwd_tc": fs._fwd_tc_library,
+    "shapenet_fwd_wgmma": fs._fwd_wg_library,
     "shapenet_bwd": fs._bwd_library,
     "shapenet_bwd_tc": fs._bwd_tc_library,
     "shapenet_bwd_wgmma": fs._bwd_wg_library,

@@ -1,12 +1,14 @@
-"""The routing of bf16 K2 and K3 to their wgmma body on the CPU (no nvcc
-needed): ``k2_variant``/``k3_variant`` and a launch take
-``csrc/shapenet_bwd_wgmma.cu`` where its library's geometry takes the chain,
-else the ``mma.sync`` body (``"tc"``), else the CUDA-core one (``"simt"``);
-a named body asks only its own library; float32 never reaches the wgmma
-body, a width it has no instance for never asks its library, and its
-private launchers refuse CPU tensors before any library loads. Stub
-libraries stand in for the built ones: each records the entries asked and
-returns a fixed status."""
+"""The routing of bf16 K1, K2, K3 and K5's reverse body to their wgmma
+bodies on the CPU (no nvcc needed): ``k1_variant``, ``k2_variant``,
+``k3_variant``, ``k5_variant`` and a launch take ``csrc/shapenet_fwd_wgmma.cu``
+(K1, K5) or ``csrc/shapenet_bwd_wgmma.cu`` (K2, K3) where that library's
+geometry takes the chain, else the ``mma.sync`` body (``"tc"``:
+``shapenet_fwd_tc.cu``, ``shapenet_bwd_tc.cu``), else the CUDA-core one
+(``"simt"``); a named body asks only its own library; float32 never
+reaches a wgmma body, a width it has no instance for never asks its
+library, and its private launchers refuse CPU tensors before any library
+loads. Stub libraries stand in for the built ones: each records the
+entries asked and returns a fixed status."""
 import contextlib
 
 import numpy as np
@@ -15,25 +17,43 @@ import torch
 
 from nif_tpu_torch.config import ShapeNetConfig, shapenet_param_count
 from nif_tpu_torch.ops import _build
+from nif_tpu_torch.ops import fused_derivatives as fd
 from nif_tpu_torch.ops import fused_shapenet as fs
 
 torch.set_num_threads(1)
 
 FLAGSHIP = (3, 1, 128, 2, "sine", False, 30.0)
 W64 = (3, 1, 64, 4, "sine", False, 30.0)
-RESBLOCK_128 = (2, 2, 128, 1, "sine", True, 10.0)
-RESBLOCK_64 = (2, 2, 64, 2, "sine", True, 10.0)
+# si = 3 > so = 2: K5's reverse body takes them too
+RESBLOCK_128 = (3, 2, 128, 1, "sine", True, 10.0)
+RESBLOCK_64 = (3, 2, 64, 2, "sine", True, 10.0)
 WGMMA_CHAINS = [FLAGSHIP, W64, RESBLOCK_128, RESBLOCK_64]
 WGMMA_IDS = ["flagship", "w64_d4", "resblock_w128", "resblock_w64"]
 # chains without a wgmma instance: bench.py's w256_d2, narrow widths, a vanilla chain
 NO_INSTANCE = [((3, 1, 256, 2, "sine", False, 30.0), "siren"),
                ((3, 1, 16, 2, "sine", False, 30.0), "siren"),
-               ((1, 1, 96, 2, "sine", False, 30.0), "siren"),
+               ((3, 1, 96, 2, "sine", False, 30.0), "siren"),
                ((2, 1, 64, 2, "relu"), "vanilla")]
 NO_INSTANCE_IDS = ["w256_d2", "w16", "w96", "vanilla_w64"]
 
-PICKS = {"k2": (fs.k2_variant, "nif_shapenet_mse_wg_workspace", "nif_shapenet_mse_tc_workspace"),
-         "k3": (fs.k3_variant, "nif_shapenet_bwd_wg_workspace", "nif_shapenet_bwd_tc_workspace")}
+# each kernel's routing, its wgmma and mma.sync libraries and their
+# workspace entries
+PICKS = {"k1": (fs.k1_variant, "shapenet_fwd_wgmma", "nif_shapenet_fwd_wg_workspace",
+                "shapenet_fwd_tc", "nif_shapenet_fwd_tc_workspace"),
+         "k2": (fs.k2_variant, "shapenet_bwd_wgmma", "nif_shapenet_mse_wg_workspace",
+                "shapenet_bwd_tc", "nif_shapenet_mse_tc_workspace"),
+         "k3": (fs.k3_variant, "shapenet_bwd_wgmma", "nif_shapenet_bwd_wg_workspace",
+                "shapenet_bwd_tc", "nif_shapenet_bwd_tc_workspace"),
+         "k5": (fd.k5_variant, "shapenet_fwd_wgmma", "nif_shapenet_fwd_jac_wg_workspace",
+                "shapenet_fwd_tc", "nif_shapenet_fwd_jac_tc_workspace")}
+# each kernel's geometry on a named body (or the routed one, body None)
+GEOMETRY = {
+    "k1": lambda cfg, G, P, dtype, body: fs.k1_geometry(cfg, "siren", G, P, dtype, kernel=body),
+    "k2": lambda cfg, G, P, dtype, body: fs.k2_geometry(cfg, "siren", G, P, dtype, kernel=body),
+    "k3": lambda cfg, G, P, dtype, body: fs.k3_geometry(cfg, "siren", G, P, dtype, kernel=body),
+    "k5": lambda cfg, G, P, dtype, body: fd._geometry("reverse", cfg, "siren", G, P, dtype,
+                                                      kernel=body),
+}
 
 
 class _Entry:
@@ -80,13 +100,13 @@ def _libraries(monkeypatch, **status):
 @pytest.mark.parametrize("args", WGMMA_CHAINS, ids=WGMMA_IDS)
 def test_bf16_chains_route_to_the_wgmma_body(args, kernel, monkeypatch):
     """Where the wgmma library's geometry takes a bf16 chain (the flagship,
-    width 64 with four hidden layers, resblock chains at both widths), K2
-    and K3 route to it, asking its workspace entry of their mode and no
-    other library."""
-    pick, wg_entry, _ = PICKS[kernel]
-    libs = _libraries(monkeypatch, shapenet_bwd_wgmma=0)
+    width 64 with four hidden layers, resblock chains at both widths), K1,
+    K2, K3 and K5's reverse body route to it, asking its workspace entry of
+    their mode and no other library."""
+    pick, wg_lib, wg_entry, _, _ = PICKS[kernel]
+    libs = _libraries(monkeypatch, **{wg_lib: 0})
     assert pick(torch.bfloat16, ShapeNetConfig(*args), "siren") == "wgmma"
-    assert libs["shapenet_bwd_wgmma"].calls == [wg_entry]
+    assert libs[wg_lib].calls == [wg_entry]
 
 
 @pytest.mark.parametrize("body", ["wgmma", "tc"])
@@ -94,13 +114,12 @@ def test_bf16_chains_route_to_the_wgmma_body(args, kernel, monkeypatch):
 def test_a_named_body_asks_only_its_library(kernel, body, monkeypatch):
     """Timing one body alone names it: its geometry asks that body's
     library for the mode's workspace entry, and no other library."""
-    _, wg_entry, tc_entry = PICKS[kernel]
-    libs = _libraries(monkeypatch, shapenet_bwd_wgmma=0, shapenet_bwd_tc=0)
-    geometry = fs.k2_geometry if kernel == "k2" else fs.k3_geometry
-    geo = geometry(ShapeNetConfig(*FLAGSHIP), "siren", 32, 32768, torch.bfloat16, kernel=body)
+    _, wg_lib, wg_entry, tc_lib, tc_entry = PICKS[kernel]
+    libs = _libraries(monkeypatch, **{wg_lib: 0, tc_lib: 0})
+    geo = GEOMETRY[kernel](ShapeNetConfig(*FLAGSHIP), 32, 32768, torch.bfloat16, body)
     assert geo["kernel"] == body
-    assert libs["shapenet_bwd_wgmma"].calls == ([wg_entry] if body == "wgmma" else [])
-    assert libs["shapenet_bwd_tc"].calls == ([tc_entry] if body == "tc" else [])
+    assert libs[wg_lib].calls == ([wg_entry] if body == "wgmma" else [])
+    assert libs[tc_lib].calls == ([tc_entry] if body == "tc" else [])
 
 
 @pytest.mark.parametrize("kernel", sorted(PICKS))
@@ -112,25 +131,25 @@ def test_chains_the_wgmma_body_refuses_route_to_tc_then_simt(tc_status, expected
     block's shared memory) goes to the ``mma.sync`` body where that one's
     geometry takes it, else to the CUDA-core body; each library is asked
     once, in that order."""
-    pick, wg_entry, tc_entry = PICKS[kernel]
-    libs = _libraries(monkeypatch, shapenet_bwd_wgmma=2, shapenet_bwd_tc=tc_status)
+    pick, wg_lib, wg_entry, tc_lib, tc_entry = PICKS[kernel]
+    libs = _libraries(monkeypatch, **{wg_lib: 2, tc_lib: tc_status})
     assert pick(torch.bfloat16, ShapeNetConfig(*FLAGSHIP), "siren") == expected
-    assert libs["shapenet_bwd_wgmma"].calls == [wg_entry]
-    assert libs["shapenet_bwd_tc"].calls == [tc_entry]
+    assert libs[wg_lib].calls == [wg_entry]
+    assert libs[tc_lib].calls == [tc_entry]
 
 
 @pytest.mark.parametrize("kernel", sorted(PICKS))
 @pytest.mark.parametrize("args,variant", NO_INSTANCE, ids=NO_INSTANCE_IDS)
 def test_widths_without_a_wgmma_instance_never_ask_its_library(args, variant, kernel,
                                                                monkeypatch):
-    """The wgmma body has instances for widths 64 and 128 of sine chains;
+    """The wgmma bodies have instances for widths 64 and 128 of sine chains;
     any other chain goes straight to the ``mma.sync`` body's geometry (which
     takes width 256 at two hidden layers) without loading the wgmma
     library."""
-    pick, _, tc_entry = PICKS[kernel]
-    libs = _libraries(monkeypatch, shapenet_bwd_tc=0)
+    pick, _, _, tc_lib, tc_entry = PICKS[kernel]
+    libs = _libraries(monkeypatch, **{tc_lib: 0})
     assert pick(torch.bfloat16, ShapeNetConfig(*args), variant) == "tc"
-    assert libs["shapenet_bwd_tc"].calls == [tc_entry]
+    assert libs[tc_lib].calls == [tc_entry]
 
 
 @pytest.mark.parametrize("kernel", sorted(PICKS))
@@ -142,9 +161,8 @@ def test_float32_never_reaches_the_wgmma_body(args, kernel, monkeypatch):
     _libraries(monkeypatch)
     cfg = ShapeNetConfig(*args)
     assert pick(torch.float32, cfg, "siren") == "simt"
-    geometry = fs.k2_geometry if kernel == "k2" else fs.k3_geometry
     with pytest.raises(ValueError, match="takes bfloat16"):
-        geometry(cfg, "siren", 2, 64, torch.float32, kernel="wgmma")
+        GEOMETRY[kernel](cfg, 2, 64, torch.float32, "wgmma")
 
 
 def _data(cfg, G, P, dtype, seed):
@@ -157,8 +175,10 @@ def _data(cfg, G, P, dtype, seed):
 
 
 LAUNCHERS = {
+    "k1": lambda wb, x, third, cfg: fs._shapenet_fwd_on("wgmma", wb, x, cfg),
     "k2": lambda wb, x, third, cfg: fs._shapenet_mse_grads_on("wgmma", wb, x, third, cfg),
     "k3": lambda wb, x, third, cfg: fs._shapenet_bwd_on("wgmma", wb, x, third, cfg),
+    "k5": lambda wb, x, third, cfg: fd._shapenet_fwd_jac_on("wgmma", wb, x, cfg),
 }
 
 
@@ -172,44 +192,62 @@ def test_wgmma_launchers_refuse_cpu_tensors_before_any_library(kernel, dtype, mo
         LAUNCHERS[kernel](wb, x, tgt.to(dtype), cfg)
 
 
+# what a refused named body's geometry says, and an unknown name's
+REFUSALS = {"k1": ("wgmma K1 cannot take", "unknown K1 body"),
+            "k2": ("wgmma K2/K3 body cannot take", "unknown K2/K3 body"),
+            "k3": ("wgmma K2/K3 body cannot take", "unknown K2/K3 body"),
+            "k5": ("shared memory per block in the wgmma Jacobian kernel", "unknown K5 body")}
+
+
 @pytest.mark.parametrize("kernel", sorted(PICKS))
 def test_a_refused_forced_body_raises(kernel, monkeypatch):
     """Timing one body alone names it; where its geometry refuses the shape
     the geometry (and so the launch) raises instead of running another."""
-    libs = _libraries(monkeypatch, shapenet_bwd_wgmma=2)
-    geometry = fs.k2_geometry if kernel == "k2" else fs.k3_geometry
-    with pytest.raises(ValueError, match="wgmma K2/K3 body cannot take"):
-        geometry(ShapeNetConfig(*FLAGSHIP), "siren", 32, 32768, torch.bfloat16, kernel="wgmma")
-    assert libs["shapenet_bwd_wgmma"].calls == [PICKS[kernel][1]]
-    with pytest.raises(ValueError, match="unknown K2/K3 body"):
-        geometry(ShapeNetConfig(*FLAGSHIP), "siren", 32, 32768, torch.bfloat16, kernel="mma")
+    _, wg_lib, wg_entry, _, _ = PICKS[kernel]
+    libs = _libraries(monkeypatch, **{wg_lib: 2})
+    refused, unknown = REFUSALS[kernel]
+    with pytest.raises(ValueError, match=refused):
+        GEOMETRY[kernel](ShapeNetConfig(*FLAGSHIP), 32, 32768, torch.bfloat16, "wgmma")
+    assert libs[wg_lib].calls == [wg_entry]
+    with pytest.raises(ValueError, match=unknown):
+        GEOMETRY[kernel](ShapeNetConfig(*FLAGSHIP), 32, 32768, torch.bfloat16, "mma")
 
 
-# (the routed launch, the wgmma C entry, its counter, pointers before the shape)
+# (the routed launch, the wgmma C entry, its counter, pointers before the
+# shape, the workspace queries a launch makes). K5's public wrapper routes
+# only CUDA tensors, so its stand-in routes as it does (k5_variant, then the
+# launch at [G, P]: two queries).
 ROUTED = {
+    "k1": (lambda wb, x, third, cfg: fs.shapenet_fwd_cuda(wb, x, cfg, "siren"),
+           "nif_shapenet_fwd_wg", "shapenet_fwd", 4, 1),
     "k2": (lambda wb, x, third, cfg: fs.shapenet_mse_grads_cuda(wb, x, third, cfg, "siren"),
-           "nif_shapenet_mse_grads_wg", "shapenet_mse_grads", 8),
+           "nif_shapenet_mse_grads_wg", "shapenet_mse_grads", 8, 1),
     "k3": (lambda wb, x, third, cfg: fs.shapenet_bwd_cuda(wb, x, third, cfg, "siren"),
-           "nif_shapenet_bwd_wg", "shapenet_bwd", 7),
+           "nif_shapenet_bwd_wg", "shapenet_bwd", 7, 1),
+    "k5": (lambda wb, x, third, cfg: fd._launch_k5(fd.k5_variant(x.dtype, cfg, "siren"), wb, x,
+                                                   cfg, "siren"),
+           "nif_shapenet_fwd_jac_wg", "shapenet_fwd_jac", 5, 2),
 }
 
 
 @pytest.mark.parametrize("args", [FLAGSHIP, RESBLOCK_64], ids=["flagship", "resblock_w64"])
 @pytest.mark.parametrize("kernel", sorted(ROUTED))
 def test_wgmma_launch_asks_only_its_library(kernel, args, monkeypatch):
-    """A routed bf16 K2 or K3 launch of a chain the wgmma geometry takes (the
-    device checks stubbed so CPU tensors stand in for the card's) asks only
-    ``shapenet_bwd_wgmma``: its geometry, then its entry, with wb' in bf16
-    rows padded to 8 values (16 bytes: the TMA tensor map's group stride)
-    and the mma.sync entry's arguments; the launch counts under the kernel's
-    name and its ``_wg`` counter, not the ``_tc`` one."""
-    launch, entry, counter, n_ptrs = ROUTED[kernel]
-    libs = _libraries(monkeypatch, shapenet_bwd_wgmma=0)
+    """A routed bf16 K1, K2, K3 or K5 launch of a chain the wgmma geometry
+    takes (the device checks stubbed so CPU tensors stand in for the
+    card's) asks only its wgmma library: its geometry, then its entry, with
+    wb' in bf16 rows padded to 8 values (16 bytes: the TMA tensor map's
+    group stride) and the mma.sync entry's arguments; the launch counts
+    under the kernel's name and its ``_wg`` counter, not the ``_tc`` one."""
+    launch, entry, counter, n_ptrs, queries = ROUTED[kernel]
+    _, wg_lib, workspace, _, _ = PICKS[kernel]
+    libs = _libraries(monkeypatch, **{wg_lib: 0})
 
     class _Stream:
         cuda_stream = 0
 
     monkeypatch.setattr(fs, "_check_cuda_inputs", lambda *a, **k: None)
+    monkeypatch.setattr(fd, "_check_cuda_inputs", lambda *a, **k: None)
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: _Stream())
     cfg = ShapeNetConfig(*args)
@@ -217,10 +255,9 @@ def test_wgmma_launch_asks_only_its_library(kernel, args, monkeypatch):
     po = wb.shape[1]
     before = dict(_build.LAUNCHES)
     outs = launch(wb, x, tgt.to(torch.bfloat16), cfg)
-    assert outs[-1].dtype == torch.bfloat16
-    workspace = PICKS[kernel][1]
-    lib = libs["shapenet_bwd_wgmma"]
-    assert lib.calls == [workspace, entry]
+    assert (outs[-1] if isinstance(outs, tuple) else outs).dtype == torch.bfloat16
+    lib = libs[wg_lib]
+    assert lib.calls == [workspace] * queries + [entry]
     call = lib.args[entry]
     assert len(call) == len(getattr(lib, entry).argtypes)
     assert call[n_ptrs:n_ptrs + 9] == (
