@@ -26,7 +26,11 @@ Phases, each of which raises on failure:
    (P = 200) and at the flagship shape, against plain K1 and against each
    other; at the flagship shape in bfloat16 the CUDA-core kernel on the same
    inputs too; two flagship runs of the routed body in each dtype, and of
-   the ``mma.sync`` body, must give bitwise-equal results.
+   the ``mma.sync`` body, must give bitwise-equal results; the ``mma.sync``
+   body on the deep plain chain of seven hidden matrices (``K1_DEEP_CHAIN``)
+   at each seed of ``tests/data/k1_deep_chain_bf16.npz`` (the reference's
+   output), within the largest distance the reference sits from plain K1
+   over those seeds.
 2b. Hold K2 (forward + weighted MSE + backward) against plain K2 over the
    same configs, with and without point weights: bfloat16 sine chains
    through the tensor-core body ``k2_variant`` routes them to (the wgmma
@@ -167,40 +171,52 @@ Phases of the Hessian slice:
 
 2f. Hold K7 (the fused Hessian evaluation) against plain K7 over the SIREN
    configs (the Hessian kernels take sine chains only): bfloat16 through the
-   tensor-core kernel (``shapenet_hess_tc.cu``), float32 through the
-   CUDA-core one (``shapenet_hess.cu``), each checked by its launch counter;
-   the tensor-core kernel also on the shapes of ``HESS_TC_EXTRA`` (P = 200);
-   at the flagship width at G=8 (plain K7's f32 stacked tensors of ten
-   streams take 1.3 GB each there) the tensor-core kernel, the CUDA-core one
-   on the same bfloat16 inputs, and the CUDA-core one in float32; the float32
-   one also at G=32, P=32768 (the shape phase 4d times, its plain version in
-   chunks of 8 groups); two bfloat16 flagship runs at G=32 must give
-   bitwise-equal results, and so must two float32 ones.
+   tensor-core body ``k7_variant`` routes the chain to (the wgmma body,
+   ``shapenet_hess_wgmma.cu``, at si = 3 and widths 64 and 128; else the
+   ``mma.sync`` body, ``shapenet_hess_tc.cu``), float32 through the
+   CUDA-core one (``shapenet_hess.cu``), each checked by its launch counters;
+   the ``mma.sync`` body by name on the shapes of ``HESS_TC_EXTRA`` and the
+   wgmma body by name on those of ``HESS_WG`` (P = 200); at the flagship
+   width at G=8 (plain K7's f32 stacked tensors of ten streams take 1.3 GB
+   each there) both bf16 bodies, the CUDA-core one on the same bfloat16
+   inputs, and the CUDA-core one in float32; the float32 one also at G=32,
+   P=32768 (the shape phase 4d times, its plain version in chunks of 8
+   groups); two runs of each body at G=32 must give bitwise-equal results,
+   and the two bf16 bodies must agree there.
 2g. Hold K8 (the fused Hessian train pass) against plain K8 likewise, with
    value, Jacobian and Hessian masks on the multi-output configs: bfloat16
-   through the tensor-core kernel (``shapenet_hess_tc.cu``), float32 through
-   the CUDA-core one (``shapenet_hess.cu``), each checked by its launch
-   counter; the tensor-core kernel also on padded and narrow shapes (widths
-   24, 40, 256, 512; si = 1, 2, 4; resblock chains; P = 200, a ragged last
-   tile), which take each of its geometries; the flagship width at G=8 in
-   both dtypes, and in float32 at G=32, P=32768, unweighted and weighted
-   (plain K8 in chunks of 8 groups); two bfloat16 flagship runs at G=32,
-   P=32768 must give bitwise-equal results, and so must two float32 ones.
+   through the routed body, float32 through the CUDA-core one, each checked
+   by its launch counters; the ``mma.sync`` body by name on padded and
+   narrow shapes (widths 24, 40, 256, 512; si = 1, 2, 4; resblock chains;
+   P = 200, a ragged last tile), which take each of its geometries; the
+   wgmma body by name on ``HESS_WG`` unweighted, weighted, and weighted and
+   masked; the flagship width at G=8 on both bf16 bodies and in float32,
+   and in float32 at G=32, P=32768, unweighted and weighted (plain K8 in
+   chunks of 8 groups); two runs of each body at G=32, P=32768 must give
+   bitwise-equal results, and the two bf16 bodies must agree there.
 3d. Hessian-train the flagship (``flagship_hessian_step``): step 0's terms
    and gradients against plain K8 (in chunks of 8 groups: each group's
-   d_wb is its own) + autograd, five steps (five launches of the
-   tensor-core K8, no K6, no K2), one step of the same model under the
-   float32 policy (one of the CUDA-core K8, none of the tensor-core one), a
-   short Hessian ``fit`` on the traveling wave with its analytic Jacobian
-   and Hessian that must lower the Hessian term of ``evaluate_sobolev``,
-   which launches the tensor-core K7 once per chunk (the float32 policy's
-   ``evaluate_sobolev``: the CUDA-core K7 once per chunk).
-4d. Time the flagship Hessian step and its stages, the bfloat16 tensor-core
-   K7 and K8, the CUDA-core K7 and K8 on the same bfloat16 inputs and in
-   float32 (G=32, P=32768), and their plain versions over the same inputs in
-   chunks of 8 groups, and compute their bounds on this card; then the
-   float32 policy's Hessian step (the CUDA-core K8), mean of 3 on the device
-   clock and on the host clock, and its stages.
+   d_wb is its own) + autograd, five steps (five launches of the routed
+   bf16 K8, no K6, no K2), one step of the same model under the float32
+   policy (one of the CUDA-core K8, none of a tensor-core one), a short
+   Hessian ``fit`` on the traveling wave with its analytic Jacobian and
+   Hessian that must lower the Hessian term of ``evaluate_sobolev``, which
+   launches the routed bf16 K7 once per chunk (the float32 policy's
+   ``evaluate_sobolev``: the CUDA-core K7 once per chunk); the ``mma.sync``
+   K7 and K8's own path: one Hessian step and one evaluation of a
+   flagship-width model of two inputs (si = 2, which the wgmma body has no
+   instance for), then those two kernels against plain K7 and K8 at that
+   path's shape (G=8, P=4096; K8 unweighted and weighted).
+4d. Time the flagship Hessian step and its stages, the bfloat16 K7 and K8
+   as routed and their wgmma and ``mma.sync`` bodies in turns (wgmma,
+   mma.sync, mma.sync, wgmma), the CUDA-core K7 and K8 on the same bfloat16
+   inputs and in float32 (G=32, P=32768), and their plain versions over the
+   same inputs in chunks of 8 groups, and compute their bounds on this
+   card; the ``mma.sync`` K7 and K8 (the kernels line's ``shapenet_fwd_hess``
+   and ``shapenet_hessian_grads``) and their plain versions at their own
+   path's shape (si = 2, G=8, P=4096), with their bounds there; then the
+   float32 policy's Hessian step (the CUDA-core K8), mean of 3 on the
+   device clock and on the host clock, and its stages.
 
 Phases of the NIF-linear slice:
 
@@ -451,6 +467,16 @@ HESS_TC_EXTRA = [
 # exceed shared memory at width 512: width 384 (three column blocks a warp)
 # takes that case's place.
 K2_TC_EXTRA = HESS_TC_EXTRA[:-1] + [(1, 1, 384, 1, "sine", False, 30.0)]
+# The chains the wgmma K7/K8 body takes (si = 3, widths 64 and 128, so <= 4):
+# the flagship, a resblock at width 128, width 64 with so = 3, a resblock at
+# width 64 with four hidden matrices and so = 4 (ShapeNetConfig args; each
+# run at P = 200, a ragged last 16-point tile)
+HESS_WG = [
+    (3, 1, 128, 2, "sine", False, 30.0),
+    (3, 2, 128, 1, "sine", True, 30.0),
+    (3, 3, 64, 2, "sine", False, 30.0),
+    (3, 4, 64, 2, "sine", True, 10.0),
+]
 # Reverse-body shapes (so < si) of the tensor-core K5: si = 3 with so = 2 on
 # a resblock chain, si = 4 with so = 1 at width 16, a width that is no
 # multiple of 16 (40), and width 192 (two column blocks a warp, W read from
@@ -588,9 +614,10 @@ def describe_geometry(geo) -> str:
 
 def _body_launches(base, before, body, n=1):
     """``{counter: launches since before}`` of K1 (``base``
-    "shapenet_fwd"), K2 ("shapenet_mse_grads"), K3 ("shapenet_bwd") or K5
-    ("shapenet_fwd_jac") beside what ``n`` launches on ``body`` ("wgmma",
-    "tc" or "simt"; K5's tangent body counts as "tc") add."""
+    "shapenet_fwd"), K2 ("shapenet_mse_grads"), K3 ("shapenet_bwd"), K5
+    ("shapenet_fwd_jac"), K7 ("shapenet_fwd_hess") or K8
+    ("shapenet_hessian_grads") beside what ``n`` launches on ``body``
+    ("wgmma", "tc" or "simt"; K5's tangent body counts as "tc") add."""
     from nif_tpu_torch.ops import _build
 
     names = (base, base + "_tc", base + "_wg")
@@ -617,6 +644,64 @@ def check_k1_bodies(torch, cfg, G, P, seed) -> dict:
     if err > 1e-2 * scale:
         raise AssertionError(f"the wgmma and mma.sync K1 differ by {err} > 1e-2 * {scale}")
     return errs
+
+
+# The reference's bf16 K1 on the deep plain chain (nif_tpu, interpret mode;
+# tests/test_torch_k1_deep_chain.py regenerates and pins it)
+K1_DEEP_FIXTURE = "tests/data/k1_deep_chain_bf16.npz"
+K1_DEEP_CHAIN = (3, 1, 128, 7, "sine", False, 30.0)
+
+
+def check_k1_deep_chain(torch) -> None:
+    """The mma.sync K1 (the wgmma body refuses seven hidden matrices) on the
+    deep plain chain at the fixture's G and P, a call for each of its seeds:
+    at every seed within the largest distance the reference itself sits
+    from plain K1 over the fixture's seeds (a seed's gap is one draw of the
+    chain's bf16 scatter, so the chain's bound is the reference's worst
+    reading). Logs every seed's figures (the kernel's distance from the
+    reference's output too), their medians, and plain K1 with its products
+    on the tensor cores (cuBLAS TF32, exact on bf16 operands) beside them."""
+    from nif_tpu_torch.config import ShapeNetConfig
+    from nif_tpu_torch.ops import _build
+    from nif_tpu_torch.ops.fused_shapenet import (
+        k1_variant, shapenet_fwd_cuda, shapenet_grouped_fused_reference)
+
+    cfg = ShapeNetConfig(*K1_DEEP_CHAIN)
+    if k1_variant(torch.bfloat16, cfg, "siren") != "tc":
+        raise AssertionError(f"K1 does not route {cfg} to the mma.sync body")
+    with np.load(K1_DEEP_FIXTURE) as z:
+        seeds, G, P = [int(v) for v in z["seeds"]], int(z["G"]), int(z["P"])
+        refs = torch.from_numpy(z["out_bits"].view(np.int16)).view(torch.bfloat16).cuda()
+    rows = []
+    for seed, ref in zip(seeds, refs):
+        wb, x = chain_data(torch, cfg, G, P, torch.bfloat16, seed)
+        before = dict(_build.LAUNCHES)
+        out = shapenet_fwd_cuda(wb, x, cfg, "siren")
+        got, want = _body_launches("shapenet_fwd", before, "tc")
+        if got != want:
+            raise AssertionError(f"the deep chain's K1 launched {got}, not one mma.sync K1")
+        plain = shapenet_grouped_fused_reference(wb, x, cfg, "siren")
+        was, torch.backends.cuda.matmul.allow_tf32 = torch.backends.cuda.matmul.allow_tf32, True
+        try:
+            tf32 = shapenet_grouped_fused_reference(wb, x, cfg, "siren")
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = was
+        scale = float(plain.float().abs().max())
+        rows.append([max_diff(torch, a, b, f"K1 deep chain seed {seed}")[0] / scale
+                     for a, b in ((out, plain), (ref, plain), (out, ref), (tf32, plain))])
+    rows = np.array(rows)
+    bound = float(rows[:, 1].max())
+    log(f"K1 deep plain chain {K1_DEEP_CHAIN} G={G} P={P} (mma.sync body), of max|plain|, a "
+        f"seed each (seed: kernel vs plain / the reference vs plain / kernel vs the reference / "
+        f"plain with cuBLAS TF32 products vs plain): "
+        + "; ".join(f"{s}: {a:.4e} / {b:.4e} / {c:.4e} / {d:.4e}"
+                    for s, (a, b, c, d) in zip(seeds, rows))
+        + f"; medians {' / '.join(f'{v:.4e}' for v in np.median(rows, 0))}; largest "
+        f"{' / '.join(f'{v:.4e}' for v in rows.max(0))}; bound (the reference's largest) "
+        f"{bound:.4e}")
+    if rows[:, 0].max() > bound:
+        raise AssertionError("the deep chain's K1 departs from plain K1 further than the "
+                             "reference's own largest gap")
 
 
 def check_k2(torch, cfg, variant, G, P, dtype, weighted, seed, kernel=None,
@@ -882,9 +967,10 @@ def plain_k6_chunked(torch, wb, x, tgt, jt, cfg, chunk=8, **kw):
     return terms, torch.cat([p[2] for p in parts]) * (chunk / G)
 
 
-def check_k7(torch, cfg, variant, G, P, dtype, seed, simt=False, chunk=None) -> float:
+def check_k7(torch, cfg, variant, G, P, dtype, seed, simt=False, chunk=None, body=None) -> float:
     """K7 vs plain K7 on y, jac and hess; returns the largest max|d| of the
-    three. A bfloat16 call must launch the tensor-core kernel (``simt``: the
+    three. A bfloat16 call must launch the tensor-core body ``k7_variant``
+    routes the chain to (``body``: that body by name; ``simt``: the
     CUDA-core kernel on the same inputs, through its private launcher), a
     float32 one the CUDA-core kernel. The Hessian must be exactly symmetric.
     Bounds as K5's: float32 max|d| <= 2e-4 max|plain| + 1e-5, bfloat16
@@ -892,21 +978,21 @@ def check_k7(torch, cfg, variant, G, P, dtype, seed, simt=False, chunk=None) -> 
     groups (a flagship batch's stacked tensors would not fit the card)."""
     from nif_tpu_torch.ops import _build
     from nif_tpu_torch.ops.fused_hessian import (
-        _geometry, _shapenet_fwd_hess_simt, shapenet_fwd_hess_cuda, shapenet_fwd_hess_reference)
+        _shapenet_fwd_hess_on, hessian_geometry, k7_variant, shapenet_fwd_hess_reference)
 
+    body = "simt" if simt else (body or k7_variant(dtype, cfg, variant))
     wb, x = chain_data(torch, cfg, G, P, dtype, seed)
     before = dict(_build.LAUNCHES)
-    outs = (_shapenet_fwd_hess_simt if simt else shapenet_fwd_hess_cuda)(wb, x, cfg, variant)
+    outs = _shapenet_fwd_hess_on(body, wb, x, cfg, variant)
     if chunk:
         refs = [torch.cat(parts) for parts in zip(*plain_k7_chunked(torch, wb, x, cfg, chunk))]
     else:
         refs = shapenet_fwd_hess_reference(wb, x, cfg, variant)
     torch.cuda.synchronize()
-    tc = int(dtype == torch.bfloat16 and not simt)
-    what = f"K7 {describe(cfg, variant, G, P, dtype)}{' (CUDA-core kernel)' if simt else ''}"
-    if (_build.LAUNCHES["shapenet_fwd_hess"] != before["shapenet_fwd_hess"] + 1
-            or _build.LAUNCHES["shapenet_fwd_hess_tc"] != before["shapenet_fwd_hess_tc"] + tc):
-        raise AssertionError(f"{what}: launched {_build.LAUNCHES} after {before}")
+    what = f"K7 {describe(cfg, variant, G, P, dtype)} ({body} body)"
+    got, want = _body_launches("shapenet_fwd_hess", before, body)
+    if got != want:
+        raise AssertionError(f"{what}: launched {got}, not {want}")
     si, so = cfg.input_dim, cfg.output_dim
     if outs[2].shape != (G, P, so, si, si) or any(o.dtype != dtype for o in outs):
         raise AssertionError(f"{what}: hess {outs[2].shape}/{outs[2].dtype}")
@@ -920,7 +1006,7 @@ def check_k7(torch, cfg, variant, G, P, dtype, seed, simt=False, chunk=None) -> 
             raise AssertionError(f"{what}: {name} max|d| {err} > {bound}")
         worst = max(worst, err)
         rels.append(f"{name} {err / max(scale, 1e-30):.2e}")
-    geo = _geometry("eval", cfg, variant, G, P, dtype, kernel="simt" if simt else None)
+    geo = hessian_geometry("eval", cfg, variant, G, P, dtype, kernel=body)
     log(f"{what} y/jac/hess agree, hess symmetric; max|d| of max|plain|: {', '.join(rels)}; "
         f"{geo['kernel']} kernel, {geo['tile']}-point tiles, weights from {geo['weights']} "
         f"memory, {geo['splits']} splits")
@@ -938,9 +1024,11 @@ def hessian_data(torch, cfg, G, P, seed):
             to(rng.standard_normal((G, P, si * (si + 1) // 2 * so))))
 
 
-def check_k8(torch, cfg, variant, G, P, dtype, weighted, masked, seed, chunk=None) -> float:
+def check_k8(torch, cfg, variant, G, P, dtype, weighted, masked, seed, chunk=None,
+             body=None) -> float:
     """K8 vs plain K8; returns max |d_wb - plain d_wb|. A bfloat16 call must
-    launch the tensor-core kernel, a float32 one the CUDA-core kernel.
+    launch the tensor-core body ``k8_variant`` routes the chain to (``body``:
+    that body by name), a float32 one the CUDA-core kernel.
 
     float32: the three terms rel 1e-5, d_wb max|d| <= 1e-4 max|plain| (the
     JAX package's bound for its fused Hessian train pass: the backward sums
@@ -949,8 +1037,9 @@ def check_k8(torch, cfg, variant, G, P, dtype, weighted, masked, seed, chunk=Non
     (:func:`plain_k8_chunked`)."""
     from nif_tpu_torch.ops import _build
     from nif_tpu_torch.ops.fused_hessian import (
-        hessian_geometry, shapenet_hessian_grads_cuda, shapenet_hessian_grads_reference)
+        _shapenet_hessian_grads_on, hessian_geometry, k8_variant, shapenet_hessian_grads_reference)
 
+    body = body or k8_variant(dtype, cfg, variant)
     wb, x = chain_data(torch, cfg, G, P, dtype, seed)
     tgt, w, jt, ht = hessian_data(torch, cfg, G, P, seed)
     si, so = cfg.input_dim, cfg.output_dim
@@ -960,24 +1049,23 @@ def check_k8(torch, cfg, variant, G, P, dtype, weighted, masked, seed, chunk=Non
                   jac_mask=(np.arange(si * so) % 2 == 0).astype(np.float32),
                   hess_mask=(np.arange(si * (si + 1) // 2 * so) % 3 != 1).astype(np.float32))
     before = dict(_build.LAUNCHES)
-    *terms, d_wb = shapenet_hessian_grads_cuda(wb, x, tgt, jt, ht, cfg, variant, **kw)
+    *terms, d_wb = _shapenet_hessian_grads_on(body, wb, x, tgt, jt, ht, cfg, variant, **kw)
     if chunk:
         refs, r_wb = plain_k8_chunked(torch, wb, x, tgt, jt, ht, cfg, chunk, **kw)
     else:
         *refs, r_wb = shapenet_hessian_grads_reference(wb, x, tgt, jt, ht, cfg, variant, **kw)
     torch.cuda.synchronize()
-    what = f"K8 {describe(cfg, variant, G, P, dtype)} weighted={weighted} masked={masked}"
-    tc = 1 if dtype == torch.bfloat16 else 0
-    if (_build.LAUNCHES["shapenet_hessian_grads"] != before["shapenet_hessian_grads"] + 1
-            or _build.LAUNCHES["shapenet_hessian_grads_tc"]
-            != before["shapenet_hessian_grads_tc"] + tc):
-        raise AssertionError(f"{what}: launched {_build.LAUNCHES} after {before}")
+    what = (f"K8 {describe(cfg, variant, G, P, dtype)} weighted={weighted} masked={masked} "
+            f"({body} body)")
+    got, want = _body_launches("shapenet_hessian_grads", before, body)
+    if got != want:
+        raise AssertionError(f"{what}: launched {got}, not {want}")
     if d_wb.dtype != wb.dtype or d_wb.shape != r_wb.shape:
         raise AssertionError(f"{what}: {d_wb.shape}/{d_wb.dtype} vs {r_wb.shape}")
     err, scale = max_diff(torch, d_wb, r_wb, what)
     rels = [abs(float(a) - float(b)) / max(abs(float(b)), 1e-30) for a, b in zip(terms, refs)]
     bound, l_bound = (1e-4, 1e-5) if dtype == torch.float32 else (BF16_REL, BF16_LOSS_REL)
-    geo = hessian_geometry("train", cfg, variant, G, P, dtype)
+    geo = hessian_geometry("train", cfg, variant, G, P, dtype, kernel=body)
     log(f"{what} terms {[f'{float(v):.6e}' for v in terms]} (rel "
         f"{', '.join(f'{r:.2e}' for r in rels)}) d_wb max|d|={err:.3e} ({err / scale:.2e} of "
         f"max|plain|); {geo['kernel']} kernel, {geo['tile']}-point tiles, residuals in "
@@ -1306,21 +1394,25 @@ def build_all(names):
 def bf16_body_counter(base: str, cfg=None) -> str:
     """The launch counter of the bf16 body that K1 (``base``
     "shapenet_fwd"), K2 ("shapenet_mse_grads"), K3 ("shapenet_bwd") or K5
-    ("shapenet_fwd_jac") takes for ``cfg``, by default a flagship-width sine
-    chain, which every model this script serves, trains or differentiates
-    in bf16 is: ``base + "_wg"`` on the wgmma body, ``base + "_tc"`` on the
-    ``mma.sync`` body (K5's tangent body too), as ``k1_variant``,
-    ``k2_variant``, ``k3_variant`` or ``k5_variant`` route it (they ask the
-    built libraries)."""
+    ("shapenet_fwd_jac"), K7 ("shapenet_fwd_hess") or K8
+    ("shapenet_hessian_grads") takes for ``cfg``, by default a flagship-width
+    sine chain, which every model this script serves, trains or
+    differentiates in bf16 is: ``base + "_wg"`` on the wgmma body, ``base +
+    "_tc"`` on the ``mma.sync`` body (K5's tangent body too), as
+    ``k1_variant``, ``k2_variant``, ``k3_variant``, ``k5_variant``,
+    ``k7_variant`` or ``k8_variant`` route it (they ask the built
+    libraries)."""
     import torch
 
     from nif_tpu_torch.config import ShapeNetConfig
     from nif_tpu_torch.ops.fused_derivatives import k5_variant
+    from nif_tpu_torch.ops.fused_hessian import k7_variant, k8_variant
     from nif_tpu_torch.ops.fused_shapenet import k1_variant, k2_variant, k3_variant
     from nif_tpu_torch.utils.bench import FLAGSHIP_SHAPE
 
     pick = {"shapenet_fwd": k1_variant, "shapenet_mse_grads": k2_variant,
-            "shapenet_bwd": k3_variant, "shapenet_fwd_jac": k5_variant}[base]
+            "shapenet_bwd": k3_variant, "shapenet_fwd_jac": k5_variant,
+            "shapenet_fwd_hess": k7_variant, "shapenet_hessian_grads": k8_variant}[base]
     cfg = cfg or ShapeNetConfig.from_dict(FLAGSHIP_SHAPE)
     body = pick(torch.bfloat16, cfg, "siren")
     return base + {"wgmma": "_wg", "tc": "_tc"}[body]
@@ -1381,7 +1473,7 @@ PASS_KERNELS = {
     "K2": (("mse_tc_kernel", "mse_wg_kernel"), "simt_train_kernel"),
     "K3": (("bwd_tc_kernel", "bwd_wg_kernel"), None),
     "K6": (("sob_tc_kernel",), "sob_simt_kernel"),
-    "K8": (("hess_tc_kernel",), "hess_simt_kernel"),
+    "K8": (("hess_tc_kernel", "hess_wg_kernel"), "hess_simt_kernel"),
 }
 
 
@@ -3152,7 +3244,8 @@ def main() -> int:
         shapenet_fwd_jac_cuda, shapenet_fwd_jac_reference, shapenet_sobolev_grads_cuda,
         shapenet_sobolev_grads_reference)
     from nif_tpu_torch.ops.fused_hessian import (
-        _shapenet_fwd_hess_simt, _shapenet_hessian_grads_simt, shapenet_fwd_hess_cuda,
+        _shapenet_fwd_hess_on, _shapenet_fwd_hess_simt, _shapenet_hessian_grads_on,
+        _shapenet_hessian_grads_simt, k7_variant, k8_variant, shapenet_fwd_hess_cuda,
         shapenet_hessian_grads_cuda)
     from nif_tpu_torch.ops.fused_linear import (
         linear_geometry, niflinear_mse_grads_cuda, niflinear_mse_grads_reference)
@@ -3187,7 +3280,8 @@ def main() -> int:
     log(f"card: {smi}")
     build_all(["shapenet_fwd", "shapenet_fwd_tc", "shapenet_fwd_wgmma", "shapenet_bwd",
                "shapenet_bwd_tc", "shapenet_bwd_wgmma", "shapenet_jac", "shapenet_jac_tc",
-               "shapenet_hess", "shapenet_hess_tc", "shapenet_linear", "shapenet_linear_tc"])
+               "shapenet_hess", "shapenet_hess_tc", "shapenet_hess_wgmma", "shapenet_linear",
+               "shapenet_linear_tc"])
     peaks = card_peaks(name)
     flag_cfg = ShapeNetConfig.from_dict(FLAGSHIP_SHAPE)
 
@@ -3219,6 +3313,7 @@ def main() -> int:
         if variant == "siren" and k1_variant(torch.bfloat16, cfg, variant) == "wgmma":
             check_k1_bodies(torch, cfg, 3, 200, seed=230 + i)
     k1_body_errs = check_k1_bodies(torch, flag_cfg, 32, 32768, seed=11)
+    check_k1_deep_chain(torch)
     # two runs on one input give the same bits: the routed bf16 body (wgmma
     # at the flagship), the mma.sync body by name, the CUDA-core body in f32
     for dtype, kernel in ((torch.bfloat16, None), (torch.bfloat16, "tc"),
@@ -3518,33 +3613,51 @@ def main() -> int:
     del wb, x, tgt, w, jt, runs
 
     # ---- phase 2f: K7 against its plain version, and its determinism
+    k7_body = k7_variant(torch.bfloat16, flag_cfg, "siren")
+    k8_body = k8_variant(torch.bfloat16, flag_cfg, "siren")
+    log(f"the flagship's bf16 K7 routes to the {k7_body} body, its K8 to the {k8_body} body")
     for i, (variant, args) in enumerate(HESS_CASES):
         for dtype in (torch.float32, torch.bfloat16):
             check_k7(torch, ShapeNetConfig(*args), variant, 3, 256, dtype, seed=60 + i)
-    for i, args in enumerate(HESS_TC_EXTRA):
-        check_k7(torch, ShapeNetConfig(*args), "siren", 3, 200, torch.bfloat16, seed=150 + i)
-    k7_err = check_k7(torch, flag_cfg, "siren", 8, 32768, torch.bfloat16, seed=70)
+    for i, args in enumerate(HESS_TC_EXTRA):  # the mma.sync body, named
+        check_k7(torch, ShapeNetConfig(*args), "siren", 3, 200, torch.bfloat16, seed=150 + i,
+                 body="tc")
+    for i, args in enumerate(HESS_WG):  # the wgmma body, named
+        check_k7(torch, ShapeNetConfig(*args), "siren", 3, 200, torch.bfloat16, seed=160 + i,
+                 body="wgmma")
+    k7_body_errs = {body: check_k7(torch, flag_cfg, "siren", 8, 32768, torch.bfloat16, seed=70,
+                                   body=body) for body in ("wgmma", "tc")}
     check_k7(torch, flag_cfg, "siren", 8, 32768, torch.bfloat16, seed=70, simt=True)
     # f32 at G=8 and at the shape phase 4d times and the float32 policy's
     # evaluate_sobolev runs (G=32: the splits and order of sums timed there)
     k7f_err = max(check_k7(torch, flag_cfg, "siren", 8, 32768, torch.float32, seed=71),
                   check_k7(torch, flag_cfg, "siren", 32, 32768, torch.float32, seed=73,
                            chunk=8))
-    for dtype, seed, kernel in ((torch.bfloat16, 72, "tensor-core"),
-                                (torch.float32, 74, "CUDA-core")):
+    # two runs of each body at the shape phase 4d times give the same bits;
+    # the two bf16 bodies agree with each other there
+    k7_runs = {}
+    for dtype, seed, body in ((torch.bfloat16, 72, "wgmma"), (torch.bfloat16, 72, "tc"),
+                              (torch.float32, 74, "simt")):
         wb, x = chain_data(torch, flag_cfg, 32, 32768, dtype, seed=seed)
         before = dict(_build.LAUNCHES)
-        runs = [shapenet_fwd_hess_cuda(wb, x, flag_cfg, "siren") for _ in range(2)]
-        tc = 2 if dtype == torch.bfloat16 else 0
-        if (_build.LAUNCHES["shapenet_fwd_hess"] != before["shapenet_fwd_hess"] + 2
-                or _build.LAUNCHES["shapenet_fwd_hess_tc"] != before["shapenet_fwd_hess_tc"] + tc):
-            raise AssertionError(f"the flagship {dtype} K7 runs did not take the {kernel} kernel")
+        runs = [_shapenet_fwd_hess_on(body, wb, x, flag_cfg, "siren") for _ in range(2)]
+        got, want = _body_launches("shapenet_fwd_hess", before, body, 2)
+        if got != want:
+            raise AssertionError(f"the flagship {dtype} K7 runs on the {body} body launched {got}")
         if not all(torch.equal(a, b) for a, b in zip(*runs)):
-            raise AssertionError(f"the {dtype} K7 is not deterministic: two runs on one input "
-                                 f"differ")
-        log(f"K7 flagship {dtype} (G=32, P=32768, {kernel} kernel): two runs give bitwise-equal "
+            raise AssertionError(f"the {dtype} K7 ({body} body) is not deterministic: two runs "
+                                 f"on one input differ")
+        log(f"K7 flagship {dtype} (G=32, P=32768, {body} body): two runs give bitwise-equal "
             f"y, jac and hess")
-    del wb, x, runs
+        if dtype == torch.bfloat16:
+            k7_runs[body] = runs[0]
+    for out, a, b in zip(("y", "jac", "hess"), k7_runs["wgmma"], k7_runs["tc"]):
+        err, scale = max_diff(torch, a, b, f"K7 flagship wgmma vs mma.sync {out}")
+        if err > BF16_REL * scale:
+            raise AssertionError(f"the wgmma and mma.sync K7 differ on {out}: {err} of {scale}")
+        log(f"K7 flagship wgmma vs mma.sync body {out}: max|d| {err:.3e} ({err / scale:.2e} of "
+            f"max|mma.sync|)")
+    del wb, x, runs, k7_runs
 
     # ---- phase 2g: K8 against its plain version, and its determinism
     for i, (variant, args) in enumerate(HESS_CASES):
@@ -3553,36 +3666,50 @@ def main() -> int:
             for weighted in (False, True):
                 check_k8(torch, cfg, variant, 3, 256, dtype, weighted, cfg.output_dim > 1,
                          seed=80 + i)
-    for i, args in enumerate(HESS_TC_EXTRA):
+    for i, args in enumerate(HESS_TC_EXTRA):  # the mma.sync body, named
         cfg = ShapeNetConfig(*args)
         for weighted in (False, True):
             check_k8(torch, cfg, "siren", 3, 200, torch.bfloat16, weighted, cfg.output_dim > 1,
-                     seed=120 + i)
-    k8_err = check_k8(torch, flag_cfg, "siren", 8, 32768, torch.bfloat16, False, False, seed=90)
+                     seed=120 + i, body="tc")
+    for i, args in enumerate(HESS_WG):  # the wgmma body, named: unweighted, weighted, masked
+        cfg = ShapeNetConfig(*args)
+        for weighted, masked in ((False, False), (True, False), (True, True)):
+            check_k8(torch, cfg, "siren", 3, 200, torch.bfloat16, weighted, masked,
+                     seed=130 + i, body="wgmma")
+    k8_body_errs = {body: check_k8(torch, flag_cfg, "siren", 8, 32768, torch.bfloat16, False,
+                                   False, seed=90, body=body) for body in ("wgmma", "tc")}
     # f32 at G=8 and at the float32 policy's Hessian step shape (G=32, timed
     # in phase 4d), unweighted as the step calls it and weighted
     k8f_err = max([check_k8(torch, flag_cfg, "siren", 8, 32768, torch.float32, False, False,
                             seed=93)]
                   + [check_k8(torch, flag_cfg, "siren", 32, 32768, torch.float32, weighted, False,
                               seed=94, chunk=8) for weighted in (False, True)])
-    for dtype, seed, kernel in ((torch.bfloat16, 91, "tensor-core"),
-                                (torch.float32, 95, "CUDA-core")):
+    k8_runs = {}
+    for dtype, seed, body in ((torch.bfloat16, 91, "wgmma"), (torch.bfloat16, 91, "tc"),
+                              (torch.float32, 95, "simt")):
         wb, x = chain_data(torch, flag_cfg, 32, 32768, dtype, seed=seed)
         tgt, w, jt, ht = hessian_data(torch, flag_cfg, 32, 32768, seed=seed)
         before = dict(_build.LAUNCHES)
-        runs = [shapenet_hessian_grads_cuda(wb, x, tgt, jt, ht, flag_cfg, "siren", weight=w)
-                for _ in range(2)]
-        tc = 2 if dtype == torch.bfloat16 else 0
-        if (_build.LAUNCHES["shapenet_hessian_grads"] != before["shapenet_hessian_grads"] + 2
-                or _build.LAUNCHES["shapenet_hessian_grads_tc"]
-                != before["shapenet_hessian_grads_tc"] + tc):
-            raise AssertionError(f"the flagship {dtype} K8 runs did not take the {kernel} kernel")
+        runs = [_shapenet_hessian_grads_on(body, wb, x, tgt, jt, ht, flag_cfg, "siren",
+                                           weight=w) for _ in range(2)]
+        got, want = _body_launches("shapenet_hessian_grads", before, body, 2)
+        if got != want:
+            raise AssertionError(f"the flagship {dtype} K8 runs on the {body} body launched {got}")
         if not all(torch.equal(a, b) for a, b in zip(*runs)):
-            raise AssertionError(f"the {dtype} K8 is not deterministic: two runs on one input "
-                                 f"differ")
-        log(f"K8 flagship {dtype} (G=32, P=32768, weighted, {kernel} kernel): two runs give "
+            raise AssertionError(f"the {dtype} K8 ({body} body) is not deterministic: two runs "
+                                 f"on one input differ")
+        log(f"K8 flagship {dtype} (G=32, P=32768, weighted, {body} body): two runs give "
             f"bitwise-equal terms and d_wb")
-    del wb, x, tgt, w, jt, ht, runs
+        if dtype == torch.bfloat16:
+            k8_runs[body] = runs[0]
+    rels = [abs(float(a) - float(b)) / abs(float(b))
+            for a, b in zip(k8_runs["wgmma"][:3], k8_runs["tc"][:3])]
+    err, scale = max_diff(torch, k8_runs["wgmma"][3], k8_runs["tc"][3], "K8 wgmma vs mma.sync")
+    log(f"K8 flagship wgmma vs mma.sync body: terms rel {', '.join(f'{r:.2e}' for r in rels)}, "
+        f"d_wb max|d| {err:.3e} ({err / scale:.2e} of max|mma.sync|)")
+    if max(rels) > BF16_LOSS_REL or err > BF16_REL * scale:
+        raise AssertionError("the wgmma and mma.sync K8 differ at the flagship")
+    del wb, x, tgt, w, jt, ht, runs, k8_runs
 
     # ---- phase 2h: K4 against its plain version, and its determinism
     for i, case in enumerate(LINEAR_CASES):
@@ -3949,10 +4076,10 @@ def main() -> int:
     hlosses = [float(v) for v in hlosses]
     log(f"flagship Hessian train: {n_steps} steps, losses {hlosses}, launches {hess_launches}, "
         f"path {htrainer.history.get('sobolev_path')}")
-    if (hess_launches["shapenet_hessian_grads"] != n_steps
-            or hess_launches["shapenet_hessian_grads_tc"] != n_steps
-            or hess_launches["shapenet_sobolev_grads"] or hess_launches["shapenet_mse_grads"]
-            or not all(np.isfinite(hlosses))):
+    got, want = _body_launches("shapenet_hessian_grads", {k: 0 for k in hess_launches}, k8_body,
+                               n_steps)
+    if (got != want or hess_launches["shapenet_sobolev_grads"]
+            or hess_launches["shapenet_mse_grads"] or not all(np.isfinite(hlosses))):
         raise AssertionError(f"{n_steps} Hessian steps launched {hess_launches}, losses {hlosses}")
     # the float32 policy: the CUDA-core K8, full f32 products
     hf32_trainer = GroupedTrainer(
@@ -3967,8 +4094,8 @@ def main() -> int:
     hf32_launches = dict(_build.LAUNCHES)
     log(f"flagship Hessian train, float32 policy: 1 step, loss {float(hf32_loss):.6e}, launches "
         f"{hf32_launches}")
-    if (hf32_launches["shapenet_hessian_grads"] != 1 or hf32_launches["shapenet_hessian_grads_tc"]
-            or not np.isfinite(float(hf32_loss))):
+    got, want = _body_launches("shapenet_hessian_grads", {k: 0 for k in hf32_launches}, "simt")
+    if got != want or not np.isfinite(float(hf32_loss)):
         raise AssertionError(f"a float32 Hessian step launched {hf32_launches}")
     h_w = wave_hessian(t_w, x_w)
     _build.reset_launches()
@@ -3977,9 +4104,9 @@ def main() -> int:
     hf32_eval_launches = dict(_build.LAUNCHES)
     log(f"float32-policy evaluate_sobolev with Hessian targets ({eval_chunks} chunks): "
         f"{hf32_eval}; launches {hf32_eval_launches}")
-    if (hf32_eval_launches["shapenet_fwd_hess"] != eval_chunks
-            or hf32_eval_launches["shapenet_fwd_hess_tc"]
-            or not all(np.isfinite(v) for v in hf32_eval.values())):
+    got, want = _body_launches("shapenet_fwd_hess", {k: 0 for k in hf32_eval_launches}, "simt",
+                               eval_chunks)
+    if got != want or not all(np.isfinite(v) for v in hf32_eval.values()):
         raise AssertionError(f"a float32 Hessian evaluation launched {hf32_eval_launches}")
     hmodel_w = nif_tpu_torch.NIFMultiScale(FLAGSHIP_SHAPE, FLAGSHIP_PNET, FLAGSHIP_POLICY,
                                            device="cuda", seed=1)
@@ -4006,10 +4133,56 @@ def main() -> int:
     if not hafter["hessian_mse"] < hbefore["hessian_mse"]:
         raise AssertionError(f"the Hessian fit did not lower the Hessian term: {hbefore} -> "
                              f"{hafter}")
-    if (heval_launches["shapenet_fwd_hess"] != eval_chunks
-            or heval_launches["shapenet_fwd_hess_tc"] != eval_chunks):
+    got, want = _body_launches("shapenet_fwd_hess", {k: 0 for k in heval_launches}, k7_body,
+                               eval_chunks)
+    if got != want:
         raise AssertionError(f"evaluate_sobolev launched {heval_launches} for {eval_chunks} "
-                             f"chunks, not one tensor-core K7 each")
+                             f"chunks, not one {k7_body} K7 each")
+    # the bodies the flagship does not route to, on their own paths: a
+    # flagship-width model of two inputs (si = 2: six streams, which the
+    # wgmma body has no instance for) takes the mma.sync K7 and K8; one
+    # Hessian step and one evaluation chunk (G=8, P=4096), each read alone
+    si2_shape = dict(FLAGSHIP_SHAPE, input_dim=2)
+    si2_cfg = ShapeNetConfig.from_dict(si2_shape)
+    if (k7_variant(torch.bfloat16, si2_cfg, "siren"), k8_variant(torch.bfloat16, si2_cfg,
+                                                                 "siren")) != ("tc", "tc"):
+        raise AssertionError(f"K7/K8 do not route {si2_cfg} to the mma.sync body")
+    si2_trainer = GroupedTrainer(nif_tpu_torch.NIFMultiScale(si2_shape, FLAGSHIP_PNET,
+                                                             FLAGSHIP_POLICY, device="cuda",
+                                                             seed=3),
+                                 lambda p: torch.optim.Adam(p, lr=FLAGSHIP_TRAIN_LR), **hkw)
+    rng = np.random.default_rng(17)
+    si2_np = [rng.standard_normal((8, t_h.shape[1])), rng.uniform(-1, 1, (8, 4096, 2)),
+              rng.standard_normal((8, 4096, 1)), rng.standard_normal((8, 4096, 1, 2)),
+              rng.standard_normal((8, 4096, 1, 2, 2))]
+    si2_np[4] = 0.5 * (si2_np[4] + si2_np[4].transpose(0, 1, 2, 4, 3))
+    si2_t, si2_x, si2_u, si2_j, si2_h = (a.astype(np.float32) for a in si2_np)
+    si2_state = si2_trainer.init(3)
+    _build.reset_launches()
+    si2_state, si2_loss = si2_trainer.step(
+        si2_state, *(torch.from_numpy(a).cuda() for a in (si2_t, si2_x, si2_u)),
+        target_jac=torch.from_numpy(si2_j).cuda(), target_hess=torch.from_numpy(si2_h).cuda())
+    torch.cuda.synchronize()
+    si2_step_launches = dict(_build.LAUNCHES)
+    got, want = _body_launches("shapenet_hessian_grads", {k: 0 for k in si2_step_launches}, "tc")
+    _build.reset_launches()
+    si2_eval = si2_trainer.evaluate_sobolev(si2_state, si2_t, si2_x, si2_u, si2_j,
+                                            target_hess=si2_h, group_batch=8)
+    si2_eval_launches = dict(_build.LAUNCHES)
+    log(f"the mma.sync K7/K8's own path (a flagship-width model of two inputs, G=8, P=4096): "
+        f"one Hessian step, loss {float(si2_loss):.6e}, launches {si2_step_launches}; "
+        f"evaluate_sobolev {si2_eval}, launches {si2_eval_launches}")
+    got7, want7 = _body_launches("shapenet_fwd_hess", {k: 0 for k in si2_eval_launches}, "tc")
+    if (got != want or got7 != want7 or not np.isfinite(float(si2_loss))
+            or not all(np.isfinite(v) for v in si2_eval.values())):
+        raise AssertionError("the two-input model did not take one mma.sync K8 and one mma.sync "
+                             "K7")
+    del si2_trainer, si2_state
+    # the mma.sync K7 and K8 against plain at this path's shape (G=8, P=4096,
+    # si = 2), K8 unweighted as the step calls it and weighted
+    k7_si2_err = check_k7(torch, si2_cfg, "siren", 8, 4096, torch.bfloat16, seed=75, body="tc")
+    k8_si2_err = max(check_k8(torch, si2_cfg, "siren", 8, 4096, torch.bfloat16, weighted, False,
+                              seed=96, body="tc") for weighted in (False, True))
 
     # ---- phase 3e: serve and train the NIF-linear model
     ltrainer, lstate, (t_l, x_l, u_l) = flagship_linear_step(G, P)
@@ -4595,6 +4768,35 @@ def main() -> int:
                                                               "siren"), reps=3, warmup=1)
     k8_plain_ms = cuda_ms(lambda: plain_k8_chunked(torch, wb, x, tgt, jt, ht, flag_cfg),
                           reps=2, warmup=1)
+    # the two bf16 bodies of K7 and K8 in turns (wgmma, mma.sync, mma.sync,
+    # wgmma) on the same inputs
+    hess_body_ms = {}
+    for kernel, reps, launch in (
+            ("K7", 10, lambda body: _shapenet_fwd_hess_on(body, wb, x, flag_cfg, "siren")),
+            ("K8", 5, lambda body: _shapenet_hessian_grads_on(body, wb, x, tgt, jt, ht, flag_cfg,
+                                                              "siren"))):
+        for body in ("wgmma", "tc", "tc", "wgmma"):
+            hess_body_ms.setdefault((kernel, body), []).append(
+                cuda_ms(lambda: launch(body), reps=reps, warmup=1))
+    # the mma.sync K7 and K8 at the shape of their own path (the two-input
+    # model, G=8, P=4096), beside their plain versions
+    wb2, x2 = chain_data(torch, si2_cfg, 8, 4096, torch.bfloat16, seed=97)
+    tgt2, _, jt2, ht2 = hessian_data(torch, si2_cfg, 8, 4096, seed=97)
+    k7_si2_ms = cuda_ms(lambda: shapenet_fwd_hess_cuda(wb2, x2, si2_cfg, "siren"), reps=10,
+                        warmup=2)
+    k7_si2_plain_ms = cuda_ms(lambda: plain_k7_chunked(torch, wb2, x2, si2_cfg), reps=3,
+                              warmup=1)
+    k8_si2_ms = cuda_ms(lambda: shapenet_hessian_grads_cuda(wb2, x2, tgt2, jt2, ht2, si2_cfg,
+                                                            "siren"), reps=10, warmup=2)
+    k8_si2_plain_ms = cuda_ms(lambda: plain_k8_chunked(torch, wb2, x2, tgt2, jt2, ht2, si2_cfg),
+                              reps=3, warmup=1)
+    del wb2, x2, tgt2, jt2, ht2
+    k7_si2_bound, k7_si2_by, _ = kernel_bound("K7", si2_cfg, 8, 4096, peaks)
+    k8_si2_bound, k8_si2_by, _ = kernel_bound("K8", si2_cfg, 8, 4096, peaks)
+    log(f"the mma.sync K7/K8 on their own path's shape (si = 2, G=8, P=4096, bf16): K7 "
+        f"{k7_si2_ms:.4f} ms, plain {k7_si2_plain_ms:.4f} ms, bound {k7_si2_bound:.4f} ms by "
+        f"{k7_si2_by}; K8 {k8_si2_ms:.4f} ms, plain {k8_si2_plain_ms:.4f} ms, bound "
+        f"{k8_si2_bound:.4f} ms by {k8_si2_by}")
     torch.cuda.reset_peak_memory_stats()
     plain_k8_chunked(torch, wb, x, tgt, jt, ht, flag_cfg)
     torch.cuda.synchronize()
@@ -4632,6 +4834,11 @@ def main() -> int:
     log(f"flagship Hessian step (GroupedTrainer.step with target_jac and target_hess, Adam, "
         f"bf16, G={G} P={P}): {hstep_ms:.4f} ms = {G * P / hstep_ms * 1e3:.4e} train points/s; "
         f"stages timed alone: {', '.join(f'{k} {v:.4f} ms' for k, v in hstages.items())}")
+    for kernel in ("K7", "K8"):
+        log(f"{kernel} bf16 bodies in turns (wgmma, mma.sync, mma.sync, wgmma): wgmma "
+            f"{', '.join(f'{v:.4f}' for v in hess_body_ms[(kernel, 'wgmma')])} ms against "
+            f"mma.sync {', '.join(f'{v:.4f}' for v in hess_body_ms[(kernel, 'tc')])} ms; "
+            f"routed to the {k7_body if kernel == 'K7' else k8_body} body")
     log(f"K7 bf16, tensor cores: {k7_ms:.4f} ms = {k7_gf / k7_ms:.2f} TFLOP/s of products, "
         f"the CUDA-core K7 on the same bf16 inputs {k7_simt_ms:.4f} ms "
         f"({k7_simt_ms / k7_ms:.2f}x), plain {k7_plain_ms:.4f} ms, bound {k7_bound:.4f} ms by "
@@ -4966,11 +5173,30 @@ def main() -> int:
     }, {
         "name": "shapenet_fwd_hess",
         "route": "cuda",
+        "body": "tc",
         "source": "nif_tpu_torch/csrc/shapenet_hess_tc.cu",
         "replaces": "nif_tpu/ops/pallas_shapenet.py:2223",
-        "launches": heval_launches["shapenet_fwd_hess_tc"],
-        "max_abs_err": k7_err,
-        "ms": k7_ms,
+        "launches": si2_eval_launches["shapenet_fwd_hess_tc"],
+        "path": "the two-input model's evaluate_sobolev (si = 2, G=8, P=4096)",
+        "max_abs_err": k7_si2_err,
+        "ms": k7_si2_ms,
+        "plain_ms": k7_si2_plain_ms,
+        "bound_ms": k7_si2_bound,
+        "bound_by": k7_si2_by,
+        "library_ms": None,
+    }, {
+        "name": "shapenet_fwd_hess_wg",
+        "route": "cuda",
+        "body": "wgmma",
+        "source": "nif_tpu_torch/csrc/shapenet_hess_wgmma.cu",
+        "replaces": "nif_tpu/ops/pallas_shapenet.py:2223",
+        "launches": heval_launches["shapenet_fwd_hess_wg"],
+        "path": "the flagship's evaluate_sobolev",
+        "max_abs_err": k7_body_errs["wgmma"],
+        "ms": float(np.mean(hess_body_ms[("K7", "wgmma")])),
+        "routed_ms": k7_ms,
+        "mma_sync_ms": float(np.mean(hess_body_ms[("K7", "tc")])),
+        "mma_sync_max_abs_err": k7_body_errs["tc"],
         "plain_ms": k7_plain_ms,
         "bound_ms": k7_bound,
         "bound_by": k7_by,
@@ -4990,11 +5216,30 @@ def main() -> int:
     }, {
         "name": "shapenet_hessian_grads",
         "route": "cuda",
+        "body": "tc",
         "source": "nif_tpu_torch/csrc/shapenet_hess_tc.cu",
         "replaces": "nif_tpu/ops/pallas_shapenet.py:2326",
-        "launches": hess_launches["shapenet_hessian_grads_tc"],
-        "max_abs_err": k8_err,
-        "ms": k8_ms,
+        "launches": si2_step_launches["shapenet_hessian_grads_tc"],
+        "path": "the two-input model's Hessian step (si = 2, G=8, P=4096)",
+        "max_abs_err": k8_si2_err,
+        "ms": k8_si2_ms,
+        "plain_ms": k8_si2_plain_ms,
+        "bound_ms": k8_si2_bound,
+        "bound_by": k8_si2_by,
+        "library_ms": None,
+    }, {
+        "name": "shapenet_hessian_grads_wg",
+        "route": "cuda",
+        "body": "wgmma",
+        "source": "nif_tpu_torch/csrc/shapenet_hess_wgmma.cu",
+        "replaces": "nif_tpu/ops/pallas_shapenet.py:2326",
+        "launches": hess_launches["shapenet_hessian_grads_wg"],
+        "path": "the flagship Hessian step",
+        "max_abs_err": k8_body_errs["wgmma"],
+        "ms": float(np.mean(hess_body_ms[("K8", "wgmma")])),
+        "routed_ms": k8_ms,
+        "mma_sync_ms": float(np.mean(hess_body_ms[("K8", "tc")])),
+        "mma_sync_max_abs_err": k8_body_errs["tc"],
         "plain_ms": k8_plain_ms,
         "bound_ms": k8_bound,
         "bound_by": k8_by,

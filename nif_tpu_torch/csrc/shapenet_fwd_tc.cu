@@ -12,7 +12,14 @@
 // (ops/fused_shapenet.py::shapenet_grouped_fused_reference): each layer's
 // input is stored in bf16 (the planes), z + b and every sum are f32, a
 // resblock's running state and average stay f32 (a per-thread carry), and
-// the last product is summed in f32 and rounded once, at its store.
+// the last product is summed in f32 and rounded once, at its store. A
+// hidden product's k16 blocks are each taken on a zero accumulator and
+// summed by f32 adds, which round to nearest (stack_mma's RN_BLOCKS), as
+// the plain K1's and the reference's sums do: the tensor core's own add
+// into a running accumulator truncates, and on the deep plain chain (seven
+// hidden matrices at omega_0 = 30) that bias doubled the bf16 output's
+// distance from plain K1 against the reference's own distance
+// (tests/test_torch_k1_deep_chain.py models both adds).
 //
 // K5's reverse body (fwd_jac_rev_tc_kernel) replaces _fwd_jac_rev_kernel
 // (reached through shapenet_fwd_jac; the chain is _jac_rev_layers) for
@@ -276,7 +283,7 @@ __device__ __forceinline__ void fwd_body(const FwdArgs& a) {
           const int cb = l.warp + kWarps * cbl;
           if (cb >= n16) break;
           float z[NSL][2][4];
-          stack_mma<NSL, false>(fwd_plane(m), ld, 0, ws(m), Wm, n, n16, cb, l, z);
+          stack_mma<NSL, false, true>(fwd_plane(m), ld, 0, ws(m), Wm, n, n16, cb, l, z);
 #pragma unroll
           for (int h = 0; h < NSL; ++h)
 #pragma unroll

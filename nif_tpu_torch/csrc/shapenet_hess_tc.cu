@@ -4,6 +4,13 @@
 // accumulation). K7's kernel (fwd_hess_tc_kernel, below K8's) is K8's
 // forward half; its own note follows K8's code.
 //
+// The bf16 route takes shapenet_hess_wgmma.cu (warpgroup wgmma products fed
+// by TMA) wherever that body's geometry takes the chain: si = 3 at widths 64
+// and 128, so <= 4, every W_m and both consumers' planes in shared memory
+// (the flagship among them). This body keeps the chains it refuses: si 1, 2
+// and 4, other widths (24 to 336 at si = 3 with two hidden layers), so
+// above 4, and width 128 past two hidden matrices (K8) or four (K7).
+//
 // K8 replaces nif_tpu/ops/pallas_shapenet.py::_hessian_kernel (reached through
 // shapenet_hessian_grads; its backward is _hessian_backward_chain) for
 // bfloat16 inputs; float32 stays on shapenet_hess.cu, whose f32 products
@@ -112,24 +119,6 @@ __device__ unsigned long long k8_phase_cycles[kPhases];
   do {              \
   } while (0)
 #endif
-
-// Pair a of si inputs is (pair_j, pair_k), j <= k, row-major.
-__host__ __device__ constexpr int pair_j(int a, int si) {
-  int j = 0;
-  while (a >= si - j) {
-    a -= si - j;
-    ++j;
-  }
-  return j;
-}
-__host__ __device__ constexpr int pair_k(int a, int si) {
-  int j = 0;
-  while (a >= si - j) {
-    a -= si - j;
-    ++j;
-  }
-  return j + a;
-}
 
 // The first layer of column block cb in the thread's fragment of every
 // stream: z0 = x @ W0' + b0 (f32 FMAs from the tile X and the group's f32

@@ -49,6 +49,8 @@ __device__ __forceinline__ Lane lane_of_thread() {
 // polynomial is the degree-9 one with zero top coefficients, and those give
 // its bits exactly (the innermost step s * 0 + c is c), so no evaluation
 // branches on the degree and a thread's independent evaluations interleave.
+// sine_poly runs on the host too: a kernel may take the coefficients as a
+// launch argument, where its products read them without registers.
 struct SinePoly {
   float c1, c3, c5, c7, c9;  // sin(2 pi t) ~ t (c1 + s (c3 + s (c5 + s (c7 + s c9)))), s = t t
   float d0, d2, d4, d6, d8;  // its derivative in t
@@ -56,7 +58,7 @@ struct SinePoly {
   float f0, f2, f4, f6;      // its third derivative in t
 };
 
-__device__ __forceinline__ SinePoly sine_poly(bool deg9) {
+__host__ __device__ __forceinline__ SinePoly sine_poly(bool deg9) {
   if (deg9)
     return {6.28308846f, -41.33324754f, 81.40008977f, -74.67588387f, 33.16809461f,
             6.28308846f, -123.99974262f, 407.00044885f, -522.73118709f, 298.51285149f,
@@ -122,6 +124,25 @@ __device__ __forceinline__ void static_for(F&& f) {
   }
 }
 
+// Pair a of si inputs is (pair_j, pair_k), j <= k, row-major: the
+// second-order streams of the Hessian kernels (K7, K8).
+__host__ __device__ constexpr int pair_j(int a, int si) {
+  int j = 0;
+  while (a >= si - j) {
+    a -= si - j;
+    ++j;
+  }
+  return j;
+}
+__host__ __device__ constexpr int pair_k(int a, int si) {
+  int j = 0;
+  while (a >= si - j) {
+    a -= si - j;
+    ++j;
+  }
+  return j + a;
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
   return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
 }
@@ -142,8 +163,12 @@ __device__ __forceinline__ void store_pair(bf16* p, float v0, float v1) {
 // zero-padded, row stride ld) where it is staged, else from W in global
 // memory. Accumulator tile t covers column cb 16 + 8 t + 2q (+1), rows g
 // (+8) of each slab: the layout of mma_sm90.cuh's C fragment. The same
-// operands in the same order give the same bits.
-template <int NSL, bool TRANS_W>
+// operands in the same order give the same bits. RN_BLOCKS: each k16
+// block's product is taken on a zero accumulator and added to acc by f32
+// adds, which round to nearest; by default the tensor core adds each block
+// to acc itself, and its add truncates (rounds toward zero), which on a
+// deep sine chain doubles the scatter of the bf16 output (shapenet_fwd_tc.cu).
+template <int NSL, bool TRANS_W, bool RN_BLOCKS = false>
 __device__ __forceinline__ void stack_mma(const bf16* A, int ld, int s0, const bf16* WS,
                                           const bf16* __restrict__ W, int n, int k16, int cb,
                                           const Lane& l, float (&acc)[NSL][2][4]) {
@@ -159,8 +184,18 @@ __device__ __forceinline__ void stack_mma(const bf16* A, int ld, int s0, const b
     for (int s = 0; s < NSL; ++s) {
       uint32_t af[4];
       ldsm_x4(af, a_row + s * 16 * ld + kk * 16);
-      mma_bf16_16816(acc[s][0], af, b[0][0], b[0][1]);
-      mma_bf16_16816(acc[s][1], af, b[1][0], b[1][1]);
+      if (RN_BLOCKS) {
+        float p[2][4] = {};
+        mma_bf16_16816(p[0], af, b[0][0], b[0][1]);
+        mma_bf16_16816(p[1], af, b[1][0], b[1][1]);
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[s][t][i] += p[t][i];
+      } else {
+        mma_bf16_16816(acc[s][0], af, b[0][0], b[0][1]);
+        mma_bf16_16816(acc[s][1], af, b[1][0], b[1][1]);
+      }
     }
   };
   if (WS) {

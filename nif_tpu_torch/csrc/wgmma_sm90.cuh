@@ -6,8 +6,10 @@
 // arrive, arrive with an expected byte count, parity wait); the TMA tiled
 // copy (cp.async.bulk.tensor) that completes on an mbarrier, and the host
 // side's tensor map of every group's W_m; the proxy fence between generic
-// stores and the async proxy; named barriers; and setmaxnreg. The wgmma
-// bodies (shapenet_bwd_wgmma.cu, shapenet_fwd_wgmma.cu) include it;
+// stores and the async proxy; named barriers; setmaxnreg; and the
+// transposing matrix store (stmatrix). The wgmma bodies
+// (shapenet_bwd_wgmma.cu, shapenet_fwd_wgmma.cu, shapenet_hess_wgmma.cu)
+// include it;
 // ops/_build.py hashes it only with the sources that include it.
 //
 // Layout (the "128B swizzle" atom of the PTX ISA's wgmma section): a bf16
@@ -109,6 +111,26 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
+// d (+)= A (64 x 16) B (16 x 80), both from shared memory by descriptor:
+// the Hessian bodies' products over a stacked plane of 80 rows (eight
+// points of ten streams) as the product's N; TA / TB as above.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n80k16(float (&d)[40], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, %40, %41, p, 1, 1, %43, %44;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
 // d (+)= A (64 x 16, from registers: four bf16x2 a thread, the layout
 // above) B (16 x N, from shared memory by descriptor); TB: 0 K-major, 1
 // MN-major; scale_d = 0 ignores d's old value.
@@ -150,6 +172,25 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
 }
 
+// ... and N = 80 (the Hessian bodies' last layer over a stacked plane).
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n80k16_rs(float (&d)[40], const uint32_t* a, uint64_t db,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, %46;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+}
+
 // The narrow products (N = 8, 16) with A from registers: d[4 i + e] as
 // above (i < N / 8).
 template <int TB>
@@ -178,6 +219,17 @@ __device__ __forceinline__ void wgmma_m64n16k16_rs(float (&d)[8], const uint32_t
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Four 8 x 8 bf16 matrices from the accumulator layout (a thread's r[k]:
+// row g, columns 2q, 2q + 1 of matrix k, packed) stored transposed: lane
+// 8 k + i gives the shared address of row i of matrix k, which receives
+// column i (eight bf16, 16 bytes).
+__device__ __forceinline__ void stsm_x4_trans(uint32_t addr, uint32_t r0, uint32_t r1, uint32_t r2,
+                                              uint32_t r3) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+               : "memory");
 }
 
 // Descriptors of a bf16 matrix staged in 64-column chunks (128-byte

@@ -45,7 +45,9 @@ LAUNCHES: Dict[str, int] = {"shapenet_fwd": 0, "shapenet_fwd_tc": 0, "shapenet_f
                             "shapenet_sobolev_grads": 0,
                             "shapenet_sobolev_grads_tc": 0,
                             "shapenet_fwd_hess": 0, "shapenet_fwd_hess_tc": 0,
+                            "shapenet_fwd_hess_wg": 0,
                             "shapenet_hessian_grads": 0, "shapenet_hessian_grads_tc": 0,
+                            "shapenet_hessian_grads_wg": 0,
                             "niflinear_mse_grads": 0, "niflinear_mse_grads_tc": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

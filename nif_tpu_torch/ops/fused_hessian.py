@@ -20,11 +20,13 @@ before its product, the bias gradients sum the unrounded dz, the targets
 are rounded to x's dtype and K7's outputs are cast to it.
 
 On a CUDA tensor each entry launches its hand-written kernel, or raises. K7
-and K8 have two variants each (:func:`k7_variant`, :func:`k8_variant`):
-bfloat16 runs the tensor-core kernel (``csrc/shapenet_hess_tc.cu``, variant
-``"tc"``) wherever its geometry takes the shape, and the CUDA-core one
-(``csrc/shapenet_hess.cu``, variant ``"simt"``) otherwise and for float32,
-whose f32 products never round to TF32. On a CPU tensor it runs the plain
+and K8 have three bodies each (:func:`k7_variant`, :func:`k8_variant`):
+bfloat16 runs, in order of preference, the first whose geometry takes the
+shape: the wgmma body (``csrc/shapenet_hess_wgmma.cu``, ``"wgmma"``:
+Hopper's warpgroup products fed by TMA; widths 64 and 128 at si = 3, so <=
+4), the ``mma.sync`` body (``csrc/shapenet_hess_tc.cu``, ``"tc"``), then the
+CUDA-core one (``csrc/shapenet_hess.cu``, ``"simt"``), which float32 always
+runs: its f32 products never round to TF32. On a CPU tensor it runs the plain
 PyTorch version (``*_reference``), which the CPU tests hold against the JAX
 package's interpret-mode kernels and ``chip_smoke.py`` holds the CUDA
 kernels against. Nothing here falls
@@ -102,30 +104,41 @@ def _mirror(hp: torch.Tensor, si: int) -> torch.Tensor:
 # --------------------------------------------------------------- geometry
 def k7_variant(dtype: torch.dtype, cfg: Optional[ShapeNetConfig] = None, variant: str = "siren",
                si: Optional[int] = None) -> str:
-    """Which CUDA kernel K7 runs for inputs of ``dtype``: ``"tc"`` (the
-    tensor-core kernel, ``csrc/shapenet_hess_tc.cu``) for bfloat16 and
-    ``"simt"`` (the CUDA-core kernel, ``csrc/shapenet_hess.cu``) for
-    float32, whose products stay full f32 (and for any other dtype, which
-    the wrapper refuses). Given a chain (``cfg``, ``variant``, ``si``; this
-    asks the tensor-core kernel's library, so it needs nvcc), bfloat16 runs
-    the CUDA-core kernel where the tensor-core one does not take the shape:
-    a vanilla chain, si > 4, or a width whose two working planes exceed a
-    block's shared memory."""
+    """Which CUDA kernel K7 runs for inputs of ``dtype``. bfloat16 runs, in
+    order of preference, the body whose geometry takes the chain:
+    ``"wgmma"`` (``csrc/shapenet_hess_wgmma.cu``; widths 64 and 128 at si =
+    3, so <= 4, every W_m and two stacked planes a consumer in shared
+    memory), ``"tc"`` (the ``mma.sync`` body, ``csrc/shapenet_hess_tc.cu``;
+    sine chains, si <= 4, a width whose two working planes fit), then
+    ``"simt"`` (the CUDA-core kernel, ``csrc/shapenet_hess.cu``). float32
+    (and any other dtype, which the wrapper refuses) runs ``"simt"``, whose
+    products stay full f32. Without a chain bfloat16 names ``"tc"``, the
+    body that takes every sine chain the tensor cores do. Given a chain
+    (``cfg``, ``variant``, ``si``) this asks the bodies' libraries (it needs
+    nvcc): the wgmma library only for a chain it has instances for."""
     return _variant("eval", dtype, cfg, variant, si)
 
 
 def k8_variant(dtype: torch.dtype, cfg: Optional[ShapeNetConfig] = None, variant: str = "siren",
                si: Optional[int] = None) -> str:
-    """Which CUDA kernel K8 runs for inputs of ``dtype``: ``"tc"`` (the
-    tensor-core kernel, ``csrc/shapenet_hess_tc.cu``) for bfloat16 and
-    ``"simt"`` (the CUDA-core kernel, ``csrc/shapenet_hess.cu``) for
-    float32, whose products stay full f32 (and for any other dtype, which
-    the wrapper refuses). Given a chain (``cfg``, ``variant``, ``si``; this
-    asks the tensor-core kernel's library, so it needs nvcc), bfloat16 runs
-    the CUDA-core kernel where the tensor-core one does not take the shape:
-    a width whose two working planes exceed a block's shared memory (above
-    544 at si = 2, 336 at si = 3, 224 at si = 4 with two hidden layers)."""
+    """Which CUDA kernel K8 runs for inputs of ``dtype``: the bodies and the
+    order of :func:`k7_variant` (the K8 mode of each library; the wgmma body
+    keeps every S plane of both consumers beside every W_m, so width 128
+    takes two hidden matrices; the ``mma.sync`` body takes widths whose two
+    working planes fit: up to 544 at si = 2, 336 at si = 3, 224 at si = 4
+    with two hidden layers)."""
     return _variant("train", dtype, cfg, variant, si)
+
+
+#: The widths and the si the wgmma K7/K8 body has instances for; its
+#: library's workspace entry decides the rest of the chain (so, depth and
+#: shared memory).
+_WGMMA_WIDTHS = (64, 128)
+_WGMMA_SI = 3
+# K7's and K8's bf16 bodies, in the order a launch prefers them, and each
+# one's suffix of its library's name and of its C entries and launch counters
+_ROUTE = ("wgmma", "tc")
+_BODY = {"wgmma": ("_wgmma", "_wg"), "tc": ("_tc", "_tc")}
 
 
 def _variant(mode: str, dtype: torch.dtype, cfg: Optional[ShapeNetConfig], variant: str,
@@ -135,23 +148,29 @@ def _variant(mode: str, dtype: torch.dtype, cfg: Optional[ShapeNetConfig], varia
     if cfg is None:
         return "tc"
     si = cfg.input_dim if si is None else si
-    return "tc" if _tc_status(mode, cfg, variant, si, 1, 1)[0] == 0 else "simt"
+    for body in _ROUTE:
+        if _body_status(body, mode, cfg, variant, si, 1, 1)[0] == 0:
+            return body
+    return "simt"
 
 
 def _library(kernel: str = "simt") -> ctypes.CDLL:
     c_int, ptr, c_ll, c_f = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
-    if kernel == "tc":
-        lib = _build.load_library("shapenet_hess_tc")
-        if lib.nif_shapenet_hessian_grads_tc.argtypes is None:
-            lib.nif_shapenet_hess_tc_workspace.argtypes = [c_int] * 7 + [ptr] * 7
-            lib.nif_shapenet_hess_tc_workspace.restype = c_int
-            lib.nif_shapenet_hessian_grads_tc.argtypes = (
-                [ptr] * 13 + [c_int] * 8 + [c_ll] * 3 + [c_f] * 7 + [ptr])
-            lib.nif_shapenet_hessian_grads_tc.restype = c_int
-            lib.nif_shapenet_fwd_hess_tc_workspace.argtypes = [c_int] * 7 + [ptr] * 7
-            lib.nif_shapenet_fwd_hess_tc_workspace.restype = c_int
-            lib.nif_shapenet_fwd_hess_tc.argtypes = [ptr] * 6 + [c_int] * 8 + [c_ll, c_ll, ptr]
-            lib.nif_shapenet_fwd_hess_tc.restype = c_int
+    if kernel in _BODY:
+        # the wgmma body's C entries are the mma.sync body's, under their own names
+        lib_sfx, sfx = _BODY[kernel]
+        lib = _build.load_library("shapenet_hess" + lib_sfx)
+        grads = getattr(lib, "nif_shapenet_hessian_grads" + sfx)
+        if grads.argtypes is None:
+            for entry in ("nif_shapenet_hess" + sfx + "_workspace",
+                          "nif_shapenet_fwd_hess" + sfx + "_workspace"):
+                getattr(lib, entry).argtypes = [c_int] * 7 + [ptr] * 7
+                getattr(lib, entry).restype = c_int
+            grads.argtypes = [ptr] * 13 + [c_int] * 8 + [c_ll] * 3 + [c_f] * 7 + [ptr]
+            grads.restype = c_int
+            evaluate = getattr(lib, "nif_shapenet_fwd_hess" + sfx)
+            evaluate.argtypes = [ptr] * 6 + [c_int] * 8 + [c_ll, c_ll, ptr]
+            evaluate.restype = c_int
     else:
         lib = _build.load_library("shapenet_hess")
         if lib.nif_shapenet_fwd_hess.argtypes is None:
@@ -169,22 +188,34 @@ def _library(kernel: str = "simt") -> ctypes.CDLL:
     return lib
 
 
-def _tc_status(mode: str, cfg: ShapeNetConfig, variant: str, si: int, G: int, P: int):
-    """``(status, geometry)`` of the tensor-core K7 ("eval") or K8 ("train")
-    (``csrc/shapenet_hess_tc.cu``)."""
-    lib = _library("tc")
-    workspace = (lib.nif_shapenet_fwd_hess_tc_workspace if mode == "eval" else
-                 lib.nif_shapenet_hess_tc_workspace)
-    return _stack_tc_status(workspace, mode, cfg, variant, si, G, P)
+def _body_status(body: str, mode: str, cfg: ShapeNetConfig, variant: str, si: int, G: int,
+                 P: int):
+    """``(status, geometry)`` of the bf16 K7 ("eval") or K8 ("train") on
+    ``body``: the wgmma one (``csrc/shapenet_hess_wgmma.cu``; a chain it has
+    no instance for, a width other than 64 or 128, si other than 3 or a
+    vanilla chain, is status 3 without asking its library) or the
+    ``mma.sync`` one (``csrc/shapenet_hess_tc.cu``)."""
+    if body == "wgmma" and (variant != "siren" or cfg.units not in _WGMMA_WIDTHS
+                            or si != _WGMMA_SI):
+        return 3, {"mode": mode, "kernel": "wgmma"}
+    workspace = getattr(_library(body), ("nif_shapenet_fwd_hess" if mode == "eval" else
+                                         "nif_shapenet_hess") + _BODY[body][1] + "_workspace")
+    return _stack_tc_status(workspace, mode, cfg, variant, si, G, P, kernel=body)
 
 
 def _geometry_status(mode: str, cfg: ShapeNetConfig, variant: str, si: int, G: int, P: int,
                      dtype: torch.dtype, kernel: Optional[str] = None):
     """K7 ("eval") runs ``kernel`` or the variant :func:`k7_variant` picks,
-    K8 ("train") ``kernel`` or the one :func:`k8_variant` picks."""
+    K8 ("train") ``kernel`` or the one :func:`k8_variant` picks. A named
+    tensor-core body takes bfloat16 only."""
+    if kernel not in (None, "wgmma", "tc", "simt"):
+        raise ValueError(f"unknown K7/K8 body {kernel!r}")
+    if kernel in ("wgmma", "tc") and dtype != torch.bfloat16:
+        raise ValueError(f"the {kernel} K7/K8 body takes bfloat16 inputs, not {dtype}")
     pick = k7_variant if mode == "eval" else k8_variant
-    if (kernel or pick(dtype, cfg, variant, si)) == "tc":
-        return _tc_status(mode, cfg, variant, si, G, P)
+    body = kernel or pick(dtype, cfg, variant, si)
+    if body != "simt":
+        return _body_status(body, mode, cfg, variant, si, G, P)
     tile, splits = ctypes.c_int(), ctypes.c_int()
     smem, partial_floats, scratch = ctypes.c_longlong(), ctypes.c_longlong(), ctypes.c_longlong()
     status = _library("simt").nif_shapenet_hess_workspace(
@@ -201,6 +232,15 @@ def _geometry_status(mode: str, cfg: ShapeNetConfig, variant: str, si: int, G: i
 def _status_reason(status: int, cfg: ShapeNetConfig, si: int, geo: dict) -> Optional[str]:
     if status == 0:
         return None
+    if geo["kernel"] == "wgmma":
+        what = "evaluation" if geo["mode"] == "eval" else "train"
+        if status == 2:
+            return (f"units={cfg.units} with {_n_mats(cfg)} hidden matrices needs "
+                    f"{geo['smem_bytes']} bytes of shared memory per block in the wgmma Hessian "
+                    f"{what} kernel (every W_m and the stacked planes of two consumers), more "
+                    f"than a block may have")
+        return (f"the wgmma Hessian {what} kernel has no instance for {cfg} with si={si} "
+                f"(status {status})")
     if geo["kernel"] == "tc":
         what = "evaluation" if geo["mode"] == "eval" else "train"
         if status == 2:
@@ -219,15 +259,17 @@ def _status_reason(status: int, cfg: ShapeNetConfig, si: int, geo: dict) -> Opti
 
 
 def hessian_geometry(mode: str, cfg: ShapeNetConfig, variant: str, G: int, P: int,
-                     dtype: torch.dtype, si: Optional[int] = None) -> dict:
+                     dtype: torch.dtype, si: Optional[int] = None,
+                     kernel: Optional[str] = None) -> dict:
     """The launch geometry of one body ("eval" for K7, "train" for K8) at
-    ``[G, P]`` in ``dtype``, from the library of its variant
-    (:func:`k7_variant`, :func:`k8_variant`, which ask the shape; it needs
-    nvcc): the kernel, points per tile, P splits per group, shared memory
-    per block, whether a tile's residuals and the staged weights sit in
-    shared memory or in global memory, and the workspace sizes the wrappers
-    allocate."""
-    return _geometry(mode, cfg, variant, G, P, dtype, si)
+    ``[G, P]`` in ``dtype``, from the library of ``kernel`` ("wgmma", "tc"
+    or "simt"; it raises where that body cannot take the shape) or of the
+    variant :func:`k7_variant`, :func:`k8_variant` pick (which ask the
+    shape; it needs nvcc): the kernel, points per tile, P splits per group,
+    shared memory per block, whether a tile's residuals and the staged
+    weights sit in shared memory or in global memory, and the workspace
+    sizes the wrappers allocate."""
+    return _geometry(mode, cfg, variant, G, P, dtype, si, kernel)
 
 
 def _geometry(mode: str, cfg: ShapeNetConfig, variant: str, G: int, P: int,
@@ -395,10 +437,10 @@ def shapenet_hessian_grads_reference(wb: torch.Tensor, x: torch.Tensor, target: 
 # ----------------------------------------------------------- CUDA wrappers
 def _hess_weights(kernel: str, wbp: torch.Tensor) -> torch.Tensor:
     """wb' as the ``kernel``'s library reads it, rows padded so that every
-    group's W_m stages with 16-byte cp.async copies: the tensor-core
-    kernels' in wb's dtype, the CUDA-core body's widened to f32 (a bf16 value
-    is exact in f32)."""
-    if kernel == "tc":
+    group's W_m stages with 16-byte copies (cp.async in the ``mma.sync``
+    body, TMA in the wgmma one): the tensor-core bodies' in wb's dtype, the
+    CUDA-core body's widened to f32 (a bf16 value is exact in f32)."""
+    if kernel in ("tc", "wgmma"):
         return torch.nn.functional.pad(wbp, (0, -wbp.shape[1] % 8)).contiguous()
     return _simt_weights(wbp)
 
@@ -413,8 +455,8 @@ def _workspace(mode: str, cfg: ShapeNetConfig, variant: str, x: torch.Tensor,
 
 def _launch_k7(kernel: str, wb: torch.Tensor, x: torch.Tensor, cfg: ShapeNetConfig,
                variant: str):
-    """K7 through the library of ``kernel`` ("tc" or "simt"), after the
-    wrapper's checks; counts the launch."""
+    """K7 through the library of ``kernel`` ("wgmma", "tc" or "simt"), after
+    the wrapper's checks; counts the launch."""
     si = x.shape[-1] if x.dim() == 3 else cfg.input_dim
     _check_cuda_inputs("shapenet_fwd_hess_cuda", wb, x, cfg, variant,
                        lambda c, v, P, d: _unsupported("eval", _K7_NOT_SINE, c, v, P, si, d,
@@ -436,14 +478,14 @@ def _launch_k7(kernel: str, wb: torch.Tensor, x: torch.Tensor, cfg: ShapeNetConf
                 scratch.data_ptr(), G, P, si, so, cfg.units, _n_mats(cfg),
                 _chain_code(cfg, variant), _act_code(cfg, variant, x.dtype), wb.shape[1],
                 wbp.shape[1])
-        if kernel == "tc":
-            err = lib.nif_shapenet_fwd_hess_tc(*args, stream)
+        if kernel in _BODY:
+            err = getattr(lib, "nif_shapenet_fwd_hess" + _BODY[kernel][1])(*args, stream)
         else:
             err = lib.nif_shapenet_fwd_hess(*args, _DTYPE_CODES[x.dtype], stream)
     _raise_on_error(lib, "shapenet_fwd_hess", err)
     _build.LAUNCHES["shapenet_fwd_hess"] += 1
-    if kernel == "tc":
-        _build.LAUNCHES["shapenet_fwd_hess_tc"] += 1
+    if kernel in _BODY:
+        _build.LAUNCHES["shapenet_fwd_hess" + _BODY[kernel][1]] += 1
     return y, jac, _mirror(hp, si)
 
 
@@ -459,6 +501,14 @@ def shapenet_fwd_hess_cuda(wb: torch.Tensor, x: torch.Tensor, cfg: ShapeNetConfi
     return _launch_k7(kernel, wb, x, cfg, variant)
 
 
+def _shapenet_fwd_hess_on(kernel: str, wb: torch.Tensor, x: torch.Tensor, cfg: ShapeNetConfig,
+                          variant: str = "siren"):
+    """K7 on one body ("wgmma", "tc" or "simt") whatever the routing
+    prefers; raises where that body cannot take the shape. ``chip_smoke.py``
+    and the probes time the bodies side by side on the same inputs."""
+    return _launch_k7(kernel, wb, x, cfg, variant)
+
+
 def _shapenet_fwd_hess_simt(wb: torch.Tensor, x: torch.Tensor, cfg: ShapeNetConfig,
                             variant: str = "siren"):
     """K7 on the CUDA-core kernel whatever the dtype and width.
@@ -471,8 +521,8 @@ def _launch_k8(kernel: str, wb: torch.Tensor, x: torch.Tensor, target: torch.Ten
                jac_target: torch.Tensor, hess_target: torch.Tensor, cfg: ShapeNetConfig,
                variant: str, w_value: float, w_jac: float, w_hess: float, y_mask, jac_mask,
                hess_mask, weight: Optional[torch.Tensor]):
-    """K8 through the library of ``kernel`` ("tc" or "simt"), after the
-    wrapper's checks; counts the launch."""
+    """K8 through the library of ``kernel`` ("wgmma", "tc" or "simt"), after
+    the wrapper's checks; counts the launch."""
     si = x.shape[-1] if x.dim() == 3 else cfg.input_dim
     _check_cuda_inputs("shapenet_hessian_grads_cuda", wb, x, cfg, variant,
                        lambda c, v, P, d: _unsupported("train", _K8_NOT_SINE, c, v, P, si, d,
@@ -509,14 +559,14 @@ def _launch_k8(kernel: str, wb: torch.Tensor, x: torch.Tensor, target: torch.Ten
                 _act_code(cfg, variant, x.dtype), wb.shape[1], wbp.shape[1],
                 _n_scaled(cfg, variant), float(cfg.omega_0), ky, kj, kh, float(n_y),
                 float(n_j), float(n_h))
-        if kernel == "tc":
-            err = lib.nif_shapenet_hessian_grads_tc(*args, stream)
+        if kernel in _BODY:
+            err = getattr(lib, "nif_shapenet_hessian_grads" + _BODY[kernel][1])(*args, stream)
         else:
             err = lib.nif_shapenet_hessian_grads(*args, _DTYPE_CODES[x.dtype], stream)
     _raise_on_error(lib, "shapenet_hessian_grads", err)
     _build.LAUNCHES["shapenet_hessian_grads"] += 1
-    if kernel == "tc":
-        _build.LAUNCHES["shapenet_hessian_grads_tc"] += 1
+    if kernel in _BODY:
+        _build.LAUNCHES["shapenet_hessian_grads" + _BODY[kernel][1]] += 1
     return losses[0], losses[1], losses[2], d_wb
 
 
@@ -534,6 +584,19 @@ def shapenet_hessian_grads_cuda(wb: torch.Tensor, x: torch.Tensor, target: torch
     si = x.shape[-1] if x.dim() == 3 else cfg.input_dim
     # off the card the wrapper's checks refuse x without asking a library
     kernel = k8_variant(x.dtype, cfg, variant, si) if x.is_cuda else "simt"
+    return _launch_k8(kernel, wb, x, target, jac_target, hess_target, cfg, variant, w_value,
+                      w_jac, w_hess, y_mask, jac_mask, hess_mask, weight)
+
+
+def _shapenet_hessian_grads_on(kernel: str, wb: torch.Tensor, x: torch.Tensor,
+                               target: torch.Tensor, jac_target: torch.Tensor,
+                               hess_target: torch.Tensor, cfg: ShapeNetConfig,
+                               variant: str = "siren", w_value: float = 1.0, w_jac: float = 1.0,
+                               w_hess: float = 1.0, y_mask=None, jac_mask=None, hess_mask=None,
+                               weight: Optional[torch.Tensor] = None):
+    """K8 on one body ("wgmma", "tc" or "simt") whatever the routing
+    prefers; raises where that body cannot take the shape. ``chip_smoke.py``
+    and the probes time the bodies side by side on the same inputs."""
     return _launch_k8(kernel, wb, x, target, jac_target, hess_target, cfg, variant, w_value,
                       w_jac, w_hess, y_mask, jac_mask, hess_mask, weight)
 

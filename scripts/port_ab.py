@@ -10,7 +10,8 @@ shape, and the float32-policy calls that run the last two end to end.
     python3 scripts/port_ab.py --other DIR [--kernel k1f32 k4f32 k5f32 k6f32 k7f32 k8f32
                                             k5tan k5tanf32 apply_f32 predict_f32
                                             jaceval_f32 k1 k5 k1wg k5wg k1tc k5tc
-                                            k2 k3 k2wg k3wg k2tc k3tc]
+                                            k2 k3 k2wg k3wg k2tc k3tc
+                                            k7 k8 k7wg k8wg k7tc k8tc]
                                            [--reps N]
 
 ``DIR`` is the root of another checkout (for example a parent commit,
@@ -48,7 +49,12 @@ K5's reverse body on the flagship chain through the body each checkout
 routes it to (here the wgmma body of ``csrc/shapenet_fwd_wgmma.cu``, in a
 checkout before it the ``mma.sync`` body of ``csrc/shapenet_fwd_tc.cu``);
 ``k1wg``/``k5wg`` and ``k1tc``/``k5tc`` name the body, so ``--other .``
-times both bodies of this checkout, each turn a process. Prints each turn's times, each kernel's
+times both bodies of this checkout, each turn a process. ``k7`` and ``k8``
+are the bfloat16 K7 and K8 (K8 with Jacobian and Hessian targets and the
+float32 weights above) on the flagship chain through the body each
+checkout routes it to (here the wgmma body of ``csrc/shapenet_hess_wgmma.cu``,
+in a checkout before it the ``mma.sync`` body of ``csrc/shapenet_hess_tc.cu``);
+``k7wg``/``k8wg`` and ``k7tc``/``k8tc`` name the body. Prints each turn's times, each kernel's
 mean over the two turns of each checkout with their ratio, the registers
 and spills ptxas reported for each build's instances, and the card's name
 and power limit. Nothing is asserted; the wrappers themselves raise on a
@@ -84,7 +90,11 @@ LIBRARIES = {"k1f32": ("shapenet_fwd",), "k4f32": ("shapenet_linear",),
              "k1": ("shapenet_fwd_tc", "shapenet_fwd_wgmma"),
              "k5": ("shapenet_fwd_tc", "shapenet_fwd_wgmma"),
              "k1wg": ("shapenet_fwd_wgmma",), "k5wg": ("shapenet_fwd_wgmma",),
-             "k1tc": ("shapenet_fwd_tc",), "k5tc": ("shapenet_fwd_tc",)}
+             "k1tc": ("shapenet_fwd_tc",), "k5tc": ("shapenet_fwd_tc",),
+             "k7": ("shapenet_hess_tc", "shapenet_hess_wgmma"),
+             "k8": ("shapenet_hess_tc", "shapenet_hess_wgmma"),
+             "k7wg": ("shapenet_hess_wgmma",), "k8wg": ("shapenet_hess_wgmma",),
+             "k7tc": ("shapenet_hess_tc",), "k8tc": ("shapenet_hess_tc",)}
 KERNELS = ["k1f32", "k4f32", "k5f32", "k6f32", "k7f32", "k8f32"]
 END_TO_END = {"apply_f32": 20, "predict_f32": 5, "jaceval_f32": 3}  # calls a mean takes
 
@@ -218,7 +228,10 @@ def child(root: Path, kernels, reps: int, build_only: bool) -> int:
             "k2": lambda: fs.shapenet_mse_grads_cuda(wb16, x16, tgt, cfg, "siren"),
             "k3": lambda: fs.shapenet_bwd_cuda(wb16, x16, g16, cfg, "siren"),
             "k1": lambda: fs.shapenet_fwd_cuda(wb16, x16, cfg, "siren"),
-            "k5": lambda: fd.shapenet_fwd_jac_cuda(wb16, x16, cfg, "siren")}
+            "k5": lambda: fd.shapenet_fwd_jac_cuda(wb16, x16, cfg, "siren"),
+            "k7": lambda: fh.shapenet_fwd_hess_cuda(wb16, x16, cfg, "siren"),
+            "k8": lambda: fh.shapenet_hessian_grads_cuda(wb16, x16, tgt, jt, ht, cfg, "siren",
+                                                         w_jac=0.1, w_hess=0.01)}
     if hasattr(fs, "_shapenet_mse_grads_on"):  # a checkout whose launchers name a body
         for body, tag in (("wgmma", "wg"), ("tc", "tc")):
             runs[f"k2{tag}"] = lambda b=body: fs._shapenet_mse_grads_on(b, wb16, x16, tgt, cfg,
@@ -230,6 +243,11 @@ def child(root: Path, kernels, reps: int, build_only: bool) -> int:
             runs[f"k1{tag}"] = lambda b=body: fs._shapenet_fwd_on(b, wb16, x16, cfg, "siren")
             runs[f"k5{tag}"] = lambda b=body: fd._shapenet_fwd_jac_on(b, wb16, x16, cfg,
                                                                       "siren")
+    if hasattr(fh, "_shapenet_hessian_grads_on"):  # a checkout whose K7/K8 launchers name a body
+        for body, tag in (("wgmma", "wg"), ("tc", "tc")):
+            runs[f"k7{tag}"] = lambda b=body: fh._shapenet_fwd_hess_on(b, wb16, x16, cfg, "siren")
+            runs[f"k8{tag}"] = lambda b=body: fh._shapenet_hessian_grads_on(
+                b, wb16, x16, tgt, jt, ht, cfg, "siren", w_jac=0.1, w_hess=0.01)
     e2e = _end_to_end(torch, [k for k in kernels if k in END_TO_END])
     out = {k: cuda_ms(runs[k], reps=reps, warmup=1) for k in kernels if k in runs}
     for k, fn in e2e.items():

@@ -4,7 +4,7 @@ checkout's, on a CUDA card: the same flagship inputs through both libraries
 must give the same bits, and the two are timed in turns.
 
     python3 scripts/port_parent_check.py --csrc DIR [--kernel k1 k1wg k2 k2wg k3wg k2f32 k3f32
-                                                            k5 k5wg k6 k7 k8]
+                                                            k5 k5wg k6 k7 k7wg k8 k8wg]
 
 ``DIR`` holds the other checkout's ``nif_tpu_torch/csrc`` (for example that
 of a parent commit, unpacked with ``git archive`` under ``build/``). Each
@@ -13,7 +13,8 @@ on ``mma.sync``, ``shapenet_fwd_wgmma.cu`` for the wgmma K1 and K5,
 ``shapenet_bwd_tc.cu`` for K2 on ``mma.sync``, ``shapenet_bwd_wgmma.cu``
 for the wgmma K2 and K3, ``shapenet_bwd.cu`` for the float32 K2 and
 K3 on the CUDA cores, ``shapenet_jac_tc.cu`` for K6, ``shapenet_hess_tc.cu``
-for K7 and K8) is built with this checkout's nvcc
+for K7 and K8 on ``mma.sync``, ``shapenet_hess_wgmma.cu`` for the wgmma K7
+and K8) is built with this checkout's nvcc
 flags into ``build/nif_tpu_torch/other/``, all sources of both checkouts at
 once, and must define the kernel's C entries with this checkout's
 signatures (the other library takes this checkout's argument types, so an
@@ -101,15 +102,22 @@ def _k6(cfg):
                                                   w_jac=1.3, weight=w)
 
 
-def _k7(cfg):
-    wb, x = chip_smoke.chain_data(torch, cfg, G, P, torch.bfloat16, seed=SEED)
-    return lambda: fh.shapenet_fwd_hess_cuda(wb, x, cfg, "siren")
+def _k7_on(body):
+    """K7 on one bf16 body ("tc", the mma.sync one, or "wgmma")."""
+    def case(cfg):
+        wb, x = chip_smoke.chain_data(torch, cfg, G, P, torch.bfloat16, seed=SEED)
+        return lambda: fh._shapenet_fwd_hess_on(body, wb, x, cfg, "siren")
+    return case
 
 
-def _k8(cfg):
-    wb, x = chip_smoke.chain_data(torch, cfg, G, P, torch.bfloat16, seed=SEED)
-    tgt, w, jt, ht = chip_smoke.hessian_data(torch, cfg, G, P, seed=SEED)
-    return lambda: fh.shapenet_hessian_grads_cuda(wb, x, tgt, jt, ht, cfg, "siren", weight=w)
+def _k8_on(body):
+    """K8 on one bf16 body, with point weights."""
+    def case(cfg):
+        wb, x = chip_smoke.chain_data(torch, cfg, G, P, torch.bfloat16, seed=SEED)
+        tgt, w, jt, ht = chip_smoke.hessian_data(torch, cfg, G, P, seed=SEED)
+        return lambda: fh._shapenet_hessian_grads_on(body, wb, x, tgt, jt, ht, cfg, "siren",
+                                                     weight=w)
+    return case
 
 
 # kernel: (library, its C entries, this checkout's loader (sets the argument
@@ -138,9 +146,16 @@ KERNELS = {
                                "nif_shapenet_sobolev_grads_tc"),
            lambda: fd._library("tc"), _k6, ("value_mse", "jac_mse", "d_wb")),
     "k7": ("shapenet_hess_tc", ("nif_shapenet_fwd_hess_tc_workspace", "nif_shapenet_fwd_hess_tc"),
-           lambda: fh._library("tc"), _k7, ("y", "jac", "hess")),
+           lambda: fh._library("tc"), _k7_on("tc"), ("y", "jac", "hess")),
+    "k7wg": ("shapenet_hess_wgmma", ("nif_shapenet_fwd_hess_wg_workspace",
+                                     "nif_shapenet_fwd_hess_wg"),
+             lambda: fh._library("wgmma"), _k7_on("wgmma"), ("y", "jac", "hess")),
     "k8": ("shapenet_hess_tc", ("nif_shapenet_hess_tc_workspace", "nif_shapenet_hessian_grads_tc"),
-           lambda: fh._library("tc"), _k8, ("value_mse", "jac_mse", "hess_mse", "d_wb")),
+           lambda: fh._library("tc"), _k8_on("tc"), ("value_mse", "jac_mse", "hess_mse", "d_wb")),
+    "k8wg": ("shapenet_hess_wgmma", ("nif_shapenet_hess_wg_workspace",
+                                     "nif_shapenet_hessian_grads_wg"),
+             lambda: fh._library("wgmma"), _k8_on("wgmma"),
+             ("value_mse", "jac_mse", "hess_mse", "d_wb")),
 }
 
 

@@ -3,7 +3,8 @@
 card: the tensor-core K1 or K5's reverse body
 (``nif_tpu_torch/csrc/shapenet_fwd_tc.cu``), K2 (``csrc/shapenet_bwd_tc.cu``),
 K4 (``csrc/shapenet_linear_tc.cu``), K6 (``csrc/shapenet_jac_tc.cu``), K7 or
-K8 (``csrc/shapenet_hess_tc.cu``), the float32 K2 or K3 on the CUDA cores
+K8 (``csrc/shapenet_hess_tc.cu``, the ``mma.sync`` body, or
+``csrc/shapenet_hess_wgmma.cu``, the wgmma one), the float32 K2 or K3 on the CUDA cores
 (``csrc/shapenet_bwd.cu``), the float32 K7 or K8 on the CUDA cores
 (``csrc/shapenet_hess.cu``), the float32 K6 or K5's float32 tangent body
 on the CUDA cores (one body template, ``csrc/shapenet_jac.cu``), K5's
@@ -14,7 +15,7 @@ K1 or K5's float32 reverse body on the CUDA cores (one body,
 
     python3 scripts/port_phase_probe.py [--kernel k1|k1f32|k1wg|k2|k2f32|k2wg|k3f32|k3wg|k4|k4f32|
                                                   k5|k5f32|k5tan|k5tanf32|k5wg|k6|k6f32|k7|
-                                                  k7f32|k8|k8f32]
+                                                  k7f32|k7wg|k8|k8f32|k8wg]
                                         [--ablate] [--one-block]
 
 Builds the kernel's source once more with ``-DK1_PHASE_CLOCKS``,
@@ -29,6 +30,10 @@ products' share, the epilogues' and the dW and bias flushes'),
 ``-DFWG_PHASE_CLOCKS`` (k1wg, k5wg: the wgmma K1/K5 reverse body of
 ``csrc/shapenet_fwd_wgmma.cu``, kept likewise by each consumer: its
 products, epilogues, first and last layers and K5's sweeps),
+``-DHWG_PHASE_CLOCKS`` (k7wg, k8wg: the wgmma K7/K8 body of
+``csrc/shapenet_hess_wgmma.cu``, kept likewise by each consumer, a
+consumer's eight points of each 16-point tile: products, epilogues, the
+last layer, the backward and the first layer's backward),
 ``-DK4_PHASE_CLOCKS``, ``-DK5_PHASE_CLOCKS``, ``-DK6_PHASE_CLOCKS``,
 ``-DK7_PHASE_CLOCKS`` or ``-DK8_PHASE_CLOCKS`` (into
 ``build/nif_tpu_torch/probe/``), in which thread 0 of every block adds the
@@ -67,7 +72,11 @@ with the sine's range reduction rounding by two adds of 1.5 * 2^23 in
 place of ``rintf`` (the same bits for |z| < 2^22 * 2 pi), with the hidden
 epilogue's sine left out, and with the hidden products left out, and times
 them beside the source as it is, in turns (the last two compute wrong
-values). With ``--kernel k2wg|k3wg --ablate`` it also builds the wgmma body without
+values). With ``--kernel k8wg --ablate`` it also builds the wgmma K7/K8
+body without the loads and stores of its dW partial (the products kept
+alive) and with the sine's range reduction rounding by two adds, and times
+them beside the source as it is, in turns. With ``--kernel k2wg|k3wg
+--ablate`` it also builds the wgmma body without
 the loads and stores of its dW partial (the products kept alive) and times
 it beside the source as it is, in turns. With ``--kernel k2|k6|k8 --ablate``
 it also builds three variants of the
@@ -139,6 +148,23 @@ FWG_PHASES = [
     "sweep: du = dz W^T (issue, wait)",
     "sweep: dz0 (act'(z0) kept), jac product, stores",
 ]
+
+# The phases of a consumer warpgroup of the wgmma K7/K8 body
+# (csrc/shapenet_hess_wgmma.cu), a consumer's eight points of a tile, in
+# counter order; K7 marks the first six (its counter 5: the stores)
+HWG_PHASES = [
+    "waiting for the tile's inputs (the ring)",
+    "first layer (all streams, S_0 store)",
+    "forward products (issue)",
+    "forward epilogues (waits, pair rules, sine, S stores)",
+    "last product (wgmma, O to shared memory)",
+    "backward: Z recomputed, D epilogues and stores",
+    "backward: dS + dW products, partial flush, waits",
+    "first layer's backward (dW0, db0)",
+    "loss and D_out",
+    "dW_l (wgmma), db_l, dS of the last layer",
+]
+HWG7_PHASES = HWG_PHASES[:5] + ["y, jac, hp stores"]
 
 # The phases of the CUDA-core K7/K8 body (csrc/shapenet_hess.cu); K7 marks
 # the first four
@@ -258,6 +284,8 @@ KERNELS = {
         "y, jac, hp stores (and the group's set-up)",
     ]),
     "k2wg": ("shapenet_bwd_wgmma", "WG_PHASE_CLOCKS", "nif_wg_phase_cycles", WG_PHASES),
+    "k7wg": ("shapenet_hess_wgmma", "HWG_PHASE_CLOCKS", "nif_hwg_phase_cycles", HWG7_PHASES),
+    "k8wg": ("shapenet_hess_wgmma", "HWG_PHASE_CLOCKS", "nif_hwg_phase_cycles", HWG_PHASES),
     "k1wg": ("shapenet_fwd_wgmma", "FWG_PHASE_CLOCKS", "nif_fwg_phase_cycles", FWG_PHASES[:5]),
     "k5wg": ("shapenet_fwd_wgmma", "FWG_PHASE_CLOCKS", "nif_fwg_phase_cycles", FWG_PHASES),
     "k3wg": ("shapenet_bwd_wgmma", "WG_PHASE_CLOCKS", "nif_wg_phase_cycles", WG_PHASES),
@@ -343,6 +371,15 @@ FWG_ABLATIONS = {
     "wgmma no hidden products": [
         (None, "        for (int kk = 0; kk < KS; ++kk) mma_rs<N, 1>(acc, A + 4 * kk, w_mn<N>(w_u, kk), kk > 0);\n",
          "")],
+}
+# The wgmma K7/K8 body's variants: without the loads and stores of its dW
+# partial (the products kept alive), and rint by two adds
+HWG_ABLATIONS = {
+    "hess wgmma no dW partial loads or stores": [
+        (None, "          if (owns && !first) dw_load<N>(dw, dw_c, th);\n", ""),
+        (None, "          if (owns) dw_store<N>(dw, dw_c, th);",
+         "          if (owns && dw[0] == 1.2345e30f) dw_store<N>(dw, dw_c, th);")],
+    "hess wgmma rint by two adds": FWG_ABLATIONS["wgmma rint by two adds"],
 }
 HEADERS = ("stack_simt.cuh", "stack_tc.cuh", "mma_sm90.cuh", "shapenet_common.cuh",
            "wgmma_sm90.cuh")
@@ -619,36 +656,39 @@ def k6_case(G: int, P: int):
     return lambda: fd.shapenet_sobolev_grads_cuda(wb, x, tgt, jt, cfg, "siren", weight=w), geo
 
 
-def k7_case(G: int, P: int):
-    """K7's launcher and (tile, splits) at the flagship chain."""
+def k7_case(G: int, P: int, body: str = "tc"):
+    """K7's launcher and geometry at the flagship chain, on ``body`` (the
+    ``mma.sync`` body; k7wg: the wgmma one)."""
     cfg = ShapeNetConfig.from_dict(FLAGSHIP_SHAPE)
     wb, x = chip_smoke.chain_data(torch, cfg, G, P, torch.bfloat16, seed=205)
-    geo = fh.hessian_geometry("eval", cfg, "siren", G, P, torch.bfloat16)
-    return lambda: fh.shapenet_fwd_hess_cuda(wb, x, cfg, "siren"), geo
+    geo = fh.hessian_geometry("eval", cfg, "siren", G, P, torch.bfloat16, kernel=body)
+    return lambda: fh._shapenet_fwd_hess_on(body, wb, x, cfg, "siren"), geo
 
 
-def k8_case(G: int, P: int):
-    """K8's launcher and (tile, splits) at the flagship chain."""
+def k8_case(G: int, P: int, body: str = "tc"):
+    """K8's launcher and geometry at the flagship chain, with point weights,
+    on ``body`` (the ``mma.sync`` body; k8wg: the wgmma one)."""
     cfg = ShapeNetConfig.from_dict(FLAGSHIP_SHAPE)
     wb, x = chip_smoke.chain_data(torch, cfg, G, P, torch.bfloat16, seed=201)
     tgt, w, jt, ht = chip_smoke.hessian_data(torch, cfg, G, P, seed=201)
-    geo = fh.hessian_geometry("train", cfg, "siren", G, P, torch.bfloat16)
-    return lambda: fh.shapenet_hessian_grads_cuda(wb, x, tgt, jt, ht, cfg, "siren",
-                                                  weight=w), geo
+    geo = fh.hessian_geometry("train", cfg, "siren", G, P, torch.bfloat16, kernel=body)
+    return lambda: fh._shapenet_hessian_grads_on(body, wb, x, tgt, jt, ht, cfg, "siren",
+                                                 weight=w), geo
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", choices=sorted(KERNELS), default="k4")
     ap.add_argument("--ablate", action="store_true",
-                    help="K2, K6, K8 and the wgmma K1/K2/K3/K5 only: also time variants "
+                    help="K2, K6, K8 and the wgmma K1/K2/K3/K5/K8 only: also time variants "
                          "without parts of their dW (K1/K5: of their epilogues or products)")
     ap.add_argument("--one-block", action="store_true",
                     help="K1 and K5's tangent body only (k1, k1f32, k5tan, k5tanf32): "
                          "also time it at one block per SM")
     args = ap.parse_args()
-    if args.ablate and args.kernel not in ("k2", "k6", "k8", "k2wg", "k3wg", "k1wg", "k5wg"):
-        ap.error("--ablate takes --kernel k2, k6, k8, k1wg, k2wg, k3wg or k5wg")
+    if args.ablate and args.kernel not in ("k2", "k6", "k8", "k2wg", "k3wg", "k1wg", "k5wg",
+                                           "k8wg"):
+        ap.error("--ablate takes --kernel k2, k6, k8, k1wg, k2wg, k3wg, k5wg or k8wg")
     if args.one_block and args.kernel not in ONE_BLOCK:
         ap.error("--one-block takes --kernel k1, k1f32, k5tan or k5tanf32")
     if not torch.cuda.is_available():
@@ -662,12 +702,14 @@ def main() -> int:
     cases = {"k1": k1_case, "k2": k2_case, "k2f32": k2f32_case, "k3f32": k3f32_case,
              "k2wg": k2wg_case, "k3wg": k3wg_case, "k1wg": k1wg_case, "k5wg": k5wg_case,
              "k4": k4_case, "k5": k5_case, "k6": k6_case, "k7": k7_case, "k8": k8_case,
+             "k7wg": lambda G, P: k7_case(G, P, "wgmma"),
+             "k8wg": lambda G, P: k8_case(G, P, "wgmma"),
              "k7f32": k7f32_case, "k8f32": k8f32_case, "k6f32": k6f32_case,
              "k4f32": k4f32_case, "k1f32": k1f32_case, "k5f32": k5f32_case,
              "k5tan": k5tan_case,
              "k5tanf32": lambda G, P: k5tan_case(G, P, torch.float32)}
     run, geo = cases[args.kernel](G, P)
-    reps = 3 if args.kernel in ("k8", "k7f32", "k8f32", "k6f32") else 10
+    reps = 3 if args.kernel in ("k8", "k8wg", "k7f32", "k8f32", "k6f32") else 10
     plain_build_ms = cuda_ms(run, reps=reps, warmup=1)
     # registers the argument types of the library now in _build._LIBS
     argtypes = {"k1": fs._fwd_tc_library, "k2": fs._bwd_tc_library,
@@ -677,6 +719,7 @@ def main() -> int:
                 "k4": lambda: fl._library("tc"), "k5": fs._fwd_tc_library,
                 "k6": lambda: fd._library("tc"), "k7": lambda: fh._library("tc"),
                 "k8": lambda: fh._library("tc"), "k7f32": lambda: fh._library("simt"),
+                "k7wg": lambda: fh._library("wgmma"), "k8wg": lambda: fh._library("wgmma"),
                 "k8f32": lambda: fh._library("simt"), "k6f32": lambda: fd._library("simt"),
                 "k4f32": lambda: fl._library("simt"), "k1f32": fs._library,
                 "k5f32": fs._library, "k5tan": lambda: fd._library("tc"),
@@ -690,7 +733,8 @@ def main() -> int:
         device_split(run, reps)
     if args.ablate:
         ablate(name, argtypes, run, {"shapenet_bwd_wgmma": WG_ABLATIONS,
-                                     "shapenet_fwd_wgmma": FWG_ABLATIONS}.get(name, ABLATIONS))
+                                     "shapenet_fwd_wgmma": FWG_ABLATIONS,
+                                     "shapenet_hess_wgmma": HWG_ABLATIONS}.get(name, ABLATIONS))
     if args.one_block:
         one_block(args.kernel, run)
     probe = build_probe(name, define, entry)
@@ -714,7 +758,8 @@ def main() -> int:
     tiles = G * -(-P // geo["tile"]) / blocks
     # who keeps the counters: thread 0 of a block, or of each of the wgmma
     # bodies' two consumer warpgroups (each a half of every tile of its block)
-    keepers = blocks * (2 if name in ("shapenet_bwd_wgmma", "shapenet_fwd_wgmma") else 1)
+    keepers = blocks * (2 if name in ("shapenet_bwd_wgmma", "shapenet_fwd_wgmma",
+                                      "shapenet_hess_wgmma") else 1)
     total = sum(counters)
     what = "f32, CUDA cores" if simt else "tc bf16"
     print(f"{args.kernel.upper()} {what} at G={G} P={P}: {plain_build_ms:.4f} ms (plain build), "

@@ -70,14 +70,15 @@ SIMT_USERS = {"shapenet_fwd", "shapenet_bwd", "shapenet_hess", "shapenet_jac",
 # Each tensor-core header and the sources that include it, directly or not:
 # the tensor-core sources, and the CUDA-core bodies on the f32 tile header
 # (SIMT_USERS), whose bf16 instances take the bf16 sine from stack_tc.cuh;
-# the wgmma K2/K3 body takes the sine and the split reduce from it too, the
-# wgmma K1/K5 body the sine.
+# the wgmma K2/K3 and K7/K8 bodies take the sine and the split reduce from it
+# too, the wgmma K1/K5 body the sine.
 TC_USERS = {
     "mma_sm90.cuh": {"shapenet_bwd_tc", "shapenet_fwd_tc", "shapenet_hess_tc",
                      "shapenet_jac_tc", "shapenet_linear_tc", "shapenet_bwd_wgmma",
-                     "shapenet_fwd_wgmma"} | SIMT_USERS,
+                     "shapenet_fwd_wgmma", "shapenet_hess_wgmma"} | SIMT_USERS,
     "stack_tc.cuh": {"shapenet_bwd_tc", "shapenet_fwd_tc", "shapenet_hess_tc",
-                     "shapenet_jac_tc", "shapenet_bwd_wgmma", "shapenet_fwd_wgmma"} | SIMT_USERS,
+                     "shapenet_jac_tc", "shapenet_bwd_wgmma", "shapenet_fwd_wgmma",
+                     "shapenet_hess_wgmma"} | SIMT_USERS,
 }
 TC_HEADERS = set(TC_USERS)
 
@@ -184,10 +185,34 @@ def test_k1_k5_wgmma_sources():
         assert " ".join(wg[mine].split()) == " ".join(tc[theirs].split()), mine
 
 
+def test_k7_k8_wgmma_sources():
+    """The wgmma K7/K8 body builds against the same headers as the other
+    wgmma bodies (the PTX header, and the stacked-stream header for the bf16
+    sine, the pair order and the ordered split reduce) and defines the
+    entries its wrapper loads, K7's and K8's under the mma.sync entries'
+    signatures (``shapenet_hess_tc.cu``), and the counter entry of its
+    phase-clock build."""
+    names = {p.name for p in _build._sources("shapenet_hess_wgmma")}
+    assert names == {"shapenet_hess_wgmma.cu", "wgmma_sm90.cuh", "stack_tc.cuh",
+                     "mma_sm90.cuh", "shapenet_common.cuh"}
+    assert {"nif_shapenet_hess_wg_workspace", "nif_shapenet_hessian_grads_wg",
+            "nif_shapenet_fwd_hess_wg_workspace", "nif_shapenet_fwd_hess_wg",
+            "nif_hwg_phase_cycles"} <= _entries("shapenet_hess_wgmma")
+    signature = re.compile(r"^int (nif_\w+)\(([^)]*)\)", re.MULTILINE)
+    tc = dict(signature.findall((_build.CSRC / "shapenet_hess_tc.cu").read_text()))
+    wg = dict(signature.findall((_build.CSRC / "shapenet_hess_wgmma.cu").read_text()))
+    for mine, theirs in (("nif_shapenet_hessian_grads_wg", "nif_shapenet_hessian_grads_tc"),
+                         ("nif_shapenet_fwd_hess_wg", "nif_shapenet_fwd_hess_tc"),
+                         ("nif_shapenet_hess_wg_workspace", "nif_shapenet_hess_tc_workspace"),
+                         ("nif_shapenet_fwd_hess_wg_workspace",
+                          "nif_shapenet_fwd_hess_tc_workspace")):
+        assert " ".join(wg[mine].split()) == " ".join(tc[theirs].split()), mine
+
+
 def test_wgmma_header_edit_renames_only_the_wgmma_library(tmp_path, monkeypatch):
     """On a copy of the port's sources: editing the wgmma/TMA/mbarrier
-    header renames the two wgmma libraries (K1/K5 and K2/K3) and no
-    other."""
+    header renames the three wgmma libraries (K1/K5, K2/K3 and K7/K8) and
+    no other."""
     for path in _build.CSRC.iterdir():
         (tmp_path / path.name).write_bytes(path.read_bytes())
     monkeypatch.setattr(_build, "CSRC", tmp_path)
@@ -196,7 +221,7 @@ def test_wgmma_header_edit_renames_only_the_wgmma_library(tmp_path, monkeypatch)
     header = tmp_path / "wgmma_sm90.cuh"
     header.write_text(header.read_text() + "// edited\n")
     assert {name for name in names if _build._target(name) != before[name]} == {
-        "shapenet_bwd_wgmma", "shapenet_fwd_wgmma"}
+        "shapenet_bwd_wgmma", "shapenet_fwd_wgmma", "shapenet_hess_wgmma"}
 
 
 def test_k1_k5_tensor_core_sources():

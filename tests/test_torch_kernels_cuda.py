@@ -42,6 +42,8 @@ the body its geometry names; the tensor-core
 K6's terms within rel 1e-4 of the plain version's, the tensor-core K1, K2,
 K3, K5 and K7 within the bf16 bounds above. A bf16 chain a tensor-core kernel
 refuses for shared memory runs on the CUDA-core one."""
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -190,9 +192,10 @@ def test_model_on_the_card_routes_through_k1(card):
 
 def _launched(base, before, body, n=1):
     """(launches of K1, base "shapenet_fwd", K2, "shapenet_mse_grads", K3,
-    "shapenet_bwd", or K5, "shapenet_fwd_jac", since ``before`` under the
-    kernel's counter and each bf16 body's, and what ``n`` launches on
-    ``body`` ("wgmma", "tc" or "simt") add)."""
+    "shapenet_bwd", K5, "shapenet_fwd_jac", K7, "shapenet_fwd_hess", or K8,
+    "shapenet_hessian_grads", since ``before`` under the kernel's counter and
+    each bf16 body's, and what ``n`` launches on ``body`` ("wgmma", "tc" or
+    "simt") add)."""
     names = (base, base + "_tc", base + "_wg")
     return ({k: _build.LAUNCHES[k] - before[k] for k in names},
             {base: n, base + "_tc": n * (body == "tc"), base + "_wg": n * (body == "wgmma")})
@@ -1105,11 +1108,14 @@ def _hessian_side(cfg, G, P, seed):
 def test_k7_matches_plain(card, variant, args, dtype):
     cfg = ShapeNetConfig(*args)
     wb, x = _data(cfg, 3, 264, dtype, seed=19)
+    # bf16 on the body k7_variant routes to (wgmma at si = 3, widths 64 and
+    # 128; else mma.sync), f32 on the CUDA-core one
+    body = fh.k7_variant(dtype, cfg, variant)
+    assert (body == "simt") == (dtype == torch.float32)
     before = dict(_build.LAUNCHES)
     y, jac, hess = fh.shapenet_fwd_hess(wb, x, cfg, variant)
-    assert _build.LAUNCHES["shapenet_fwd_hess"] == before["shapenet_fwd_hess"] + 1
-    assert (_build.LAUNCHES["shapenet_fwd_hess_tc"]
-            == before["shapenet_fwd_hess_tc"] + int(dtype == torch.bfloat16))
+    got, want = _launched("shapenet_fwd_hess", before, body)
+    assert got == want
     refs = fh.shapenet_fwd_hess_reference(wb, x, cfg, variant)
     si, so = cfg.input_dim, cfg.output_dim
     assert y.dtype == jac.dtype == hess.dtype == dtype and hess.shape == (3, 264, so, si, si)
@@ -1132,12 +1138,12 @@ def test_k8_matches_plain(card, variant, args, dtype, weighted):
         kw.update(y_mask=np.eye(1, so, dtype=np.float32)[0],
                   jac_mask=(np.arange(si * so) % 2 == 0).astype(np.float32),
                   hess_mask=(np.arange(npairs * so) % 3 != 1).astype(np.float32))
+    body = fh.k8_variant(dtype, cfg, variant)
+    assert (body == "simt") == (dtype == torch.float32)
     before = dict(_build.LAUNCHES)
     *terms, d_wb = fh.shapenet_hessian_grads(wb, x, tgt, jt, ht, cfg, variant, **kw)
-    assert _build.LAUNCHES["shapenet_hessian_grads"] == before["shapenet_hessian_grads"] + 1
-    tc = 1 if dtype == torch.bfloat16 else 0
-    assert (_build.LAUNCHES["shapenet_hessian_grads_tc"]
-            == before["shapenet_hessian_grads_tc"] + tc)
+    got, want = _launched("shapenet_hessian_grads", before, body)
+    assert got == want
     *refs, r_wb = fh.shapenet_hessian_grads_reference(wb, x, tgt, jt, ht, cfg, variant, **kw)
     rel = 1e-5 if dtype == torch.float32 else 1e-3
     for mine, ref in zip(terms, refs):
@@ -1147,17 +1153,19 @@ def test_k8_matches_plain(card, variant, args, dtype, weighted):
     assert err <= (1e-4 if dtype == torch.float32 else 2.0 ** -6) * scale, (err, scale)
 
 
-def test_k8_flagship_width_is_deterministic(card):
-    """G=4, P=2048 at the flagship width in bf16, on the tensor-core kernel:
-    two runs give the same bits (fixed P splits, an ordered reduce) and
-    agree with plain K8."""
+@pytest.mark.parametrize("body", ["tc", "wgmma"])
+def test_k8_flagship_width_is_deterministic(card, body):
+    """G=4, P=2048 at the flagship width in bf16, on each tensor-core body
+    (mma.sync and wgmma): two runs give the same bits (fixed P splits,
+    ordered partials and reduce) and agree with plain K8."""
     cfg = ShapeNetConfig(3, 1, 128, 2, "sine", False, 30.0)
     wb, x = _data(cfg, 4, 2048, torch.bfloat16, seed=21)
     tgt, jt, ht, w = _hessian_side(cfg, 4, 2048, seed=21)
-    before = _build.LAUNCHES["shapenet_hessian_grads_tc"]
-    runs = [fh.shapenet_hessian_grads_cuda(wb, x, tgt, jt, ht, cfg, "siren", weight=w)
+    before = dict(_build.LAUNCHES)
+    runs = [fh._shapenet_hessian_grads_on(body, wb, x, tgt, jt, ht, cfg, "siren", weight=w)
             for _ in range(2)]
-    assert _build.LAUNCHES["shapenet_hessian_grads_tc"] == before + 2
+    got, want = _launched("shapenet_hessian_grads", before, body, 2)
+    assert got == want
     for a, b in zip(runs[0], runs[1]):
         assert torch.equal(a, b)
     *refs, r_wb = fh.shapenet_hessian_grads_reference(wb, x, tgt, jt, ht, cfg, "siren",
@@ -1181,7 +1189,7 @@ def test_hessian_geometry(card):
     which loop over 128-column blocks and keep their planes in the global
     scratch; so does f32 there."""
     cfg = ShapeNetConfig(3, 1, 128, 2, "sine", False, 30.0)
-    train = fh.hessian_geometry("train", cfg, "siren", 32, 32768, torch.bfloat16)
+    train = fh.hessian_geometry("train", cfg, "siren", 32, 32768, torch.bfloat16, kernel="tc")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     assert (train["kernel"], train["tile"], train["residuals"], train["weights"]) == (
         "tc", 16, "shared", "shared")
@@ -1189,7 +1197,7 @@ def test_hessian_geometry(card):
     f32 = fh.hessian_geometry("train", cfg, "siren", 32, 32768, torch.float32)
     assert (f32["kernel"], f32["tile"], f32["splits"]) == ("simt", 8, train["splits"])
     assert f32["residuals"] == "shared" and f32["scratch_bytes"] == 0
-    ev = fh.hessian_geometry("eval", cfg, "siren", 32, 32768, torch.bfloat16)
+    ev = fh.hessian_geometry("eval", cfg, "siren", 32, 32768, torch.bfloat16, kernel="tc")
     assert (ev["kernel"], ev["tile"], ev["weights"], ev["partial_floats"]) == (
         "tc", 16, "shared", 0)
     assert ev["splits"] == train["splits"]
@@ -1328,9 +1336,10 @@ def test_k8_tc_padded_and_ragged_shapes(card, args):
         kw.update(y_mask=np.eye(1, so, dtype=np.float32)[0],
                   jac_mask=(np.arange(si * so) % 2 == 0).astype(np.float32),
                   hess_mask=(np.arange(si * (si + 1) // 2 * so) % 3 != 1).astype(np.float32))
-    assert fh.hessian_geometry("train", cfg, "siren", 3, 200, torch.bfloat16)["kernel"] == "tc"
+    geo = fh.hessian_geometry("train", cfg, "siren", 3, 200, torch.bfloat16, kernel="tc")
+    assert geo["kernel"] == "tc"
     before = _build.LAUNCHES["shapenet_hessian_grads_tc"]
-    *terms, d_wb = fh.shapenet_hessian_grads_cuda(wb, x, tgt, jt, ht, cfg, "siren", **kw)
+    *terms, d_wb = fh._shapenet_hessian_grads_on("tc", wb, x, tgt, jt, ht, cfg, "siren", **kw)
     assert _build.LAUNCHES["shapenet_hessian_grads_tc"] == before + 1
     *refs, r_wb = fh.shapenet_hessian_grads_reference(wb, x, tgt, jt, ht, cfg, "siren", **kw)
     for mine, ref in zip(terms, refs):
@@ -1412,9 +1421,10 @@ def test_k7_tc_padded_and_ragged_shapes(card, args):
     Hessian exactly symmetric."""
     cfg = ShapeNetConfig(*args)
     wb, x = _data(cfg, 3, 200, torch.bfloat16, seed=30)
-    assert fh.hessian_geometry("eval", cfg, "siren", 3, 200, torch.bfloat16)["kernel"] == "tc"
+    geo = fh.hessian_geometry("eval", cfg, "siren", 3, 200, torch.bfloat16, kernel="tc")
+    assert geo["kernel"] == "tc"
     before = dict(_build.LAUNCHES)
-    y, jac, hess = fh.shapenet_fwd_hess_cuda(wb, x, cfg, "siren")
+    y, jac, hess = fh._shapenet_fwd_hess_on("tc", wb, x, cfg, "siren")
     assert _build.LAUNCHES["shapenet_fwd_hess_tc"] == before["shapenet_fwd_hess_tc"] + 1
     assert _build.LAUNCHES["shapenet_fwd_hess"] == before["shapenet_fwd_hess"] + 1
     assert torch.equal(hess, hess.transpose(-1, -2))
@@ -1439,15 +1449,17 @@ def test_k7_cuda_core_kernel_on_bf16_inputs(card):
         assert err <= 2.0 ** -6 * scale, (err, scale)
 
 
-def test_k7_flagship_is_deterministic(card):
-    """The flagship chain at G=8, P=32768 in bf16 on the tensor-core K7: two
-    runs give the same bits and agree with plain K7 within 2^-6 of
-    max|plain|."""
+@pytest.mark.parametrize("body", ["tc", "wgmma"])
+def test_k7_flagship_is_deterministic(card, body):
+    """The flagship chain at G=8, P=32768 in bf16 on each tensor-core K7
+    body (mma.sync and wgmma): two runs give the same bits and agree with
+    plain K7 within 2^-6 of max|plain|."""
     cfg = ShapeNetConfig(3, 1, 128, 2, "sine", False, 30.0)
     wb, x = _data(cfg, 8, 32768, torch.bfloat16, seed=32)
-    before = _build.LAUNCHES["shapenet_fwd_hess_tc"]
-    runs = [fh.shapenet_fwd_hess_cuda(wb, x, cfg, "siren") for _ in range(2)]
-    assert _build.LAUNCHES["shapenet_fwd_hess_tc"] == before + 2
+    before = dict(_build.LAUNCHES)
+    runs = [fh._shapenet_fwd_hess_on(body, wb, x, cfg, "siren") for _ in range(2)]
+    got, want = _launched("shapenet_fwd_hess", before, body, 2)
+    assert got == want
     for a, b in zip(*runs):
         assert torch.equal(a, b)
     for mine, ref in zip(runs[0], fh.shapenet_fwd_hess_reference(wb, x, cfg, "siren")):
@@ -1752,10 +1764,11 @@ def test_hessian_wrappers_refuse_what_they_cannot_take(card):
 
 def test_model_hessian_step_on_the_card_launches_k8(card):
     """One GroupedTrainer step with Jacobian and Hessian targets at a small
-    shape: exactly one K8 launch (no K6, no K2), of the tensor-core kernel
-    under the bf16 policy and of the CUDA-core one under float32, recorded
-    as the Sobolev path; evaluate_sobolev with Hessian targets launches K7
-    once per chunk."""
+    shape: exactly one K8 launch (no K6, no K2), of the tensor-core body
+    k8_variant routes the chain to under the bf16 policy and of the
+    CUDA-core one under float32, recorded as the Sobolev path;
+    evaluate_sobolev with Hessian targets launches K7 once per chunk, on the
+    body k7_variant routes to."""
     from nif_tpu_torch.training import GroupedTrainer
 
     cfg_s = {"input_dim": 3, "output_dim": 1, "units": 128, "nlayers": 2,
@@ -1773,19 +1786,23 @@ def test_model_hessian_step_on_the_card_launches_k8(card):
     trainer = GroupedTrainer(model, lambda p: torch.optim.Adam(p, lr=1e-4), w_jac=0.1,
                              w_hess=0.01)
     state = trainer.init(0)
+    cfg = ShapeNetConfig(3, 1, 128, 2, "sine", False, 30.0)
+    k8_body = fh.k8_variant(torch.bfloat16, cfg, "siren")
+    k7_body = fh.k7_variant(torch.bfloat16, cfg, "siren")
+    assert "simt" not in (k7_body, k8_body)
     before = dict(_build.LAUNCHES)
     state, loss = trainer.step(state, *(torch.from_numpy(a).cuda() for a in (t, x, u)),
                                target_jac=torch.from_numpy(jt).cuda(),
                                target_hess=torch.from_numpy(ht).cuda())
     after = dict(_build.LAUNCHES)
-    assert after["shapenet_hessian_grads"] == before["shapenet_hessian_grads"] + 1
-    assert after["shapenet_hessian_grads_tc"] == before["shapenet_hessian_grads_tc"] + 1
+    got, want = _launched("shapenet_hessian_grads", before, k8_body)
+    assert got == want
     assert after["shapenet_sobolev_grads"] == before["shapenet_sobolev_grads"]
     assert after["shapenet_mse_grads"] == before["shapenet_mse_grads"]
     assert bool(torch.isfinite(loss)) and trainer.history["sobolev_path"] == "fused"
     out = trainer.evaluate_sobolev(state, t, x, u, jt, group_batch=2, target_hess=ht)
-    assert _build.LAUNCHES["shapenet_fwd_hess"] == after["shapenet_fwd_hess"] + 2
-    assert _build.LAUNCHES["shapenet_fwd_hess_tc"] == after["shapenet_fwd_hess_tc"] + 2
+    got, want = _launched("shapenet_fwd_hess", after, k7_body, 2)
+    assert got == want
     assert all(np.isfinite(v) for v in out.values()) and "hessian_mse" in out
     f32 = GroupedTrainer(nif_tpu_torch.NIFMultiScale(cfg_s, cfg_p, "float32", seed=0),
                          lambda p: torch.optim.Adam(p, lr=1e-4), w_jac=0.1, w_hess=0.01)
@@ -2679,3 +2696,173 @@ def test_wgmma_geometry_takes_and_refuses(card):
                  (3, 5, 64, 2, "sine", False, 30.0)):
         assert fs._wg_status("backward", ShapeNetConfig(*args), "siren", 32, 32768)[0] == 3
         assert fs.k3_variant(torch.bfloat16, ShapeNetConfig(*args), "siren") != "wgmma"
+
+
+# The chains the wgmma K7/K8 body takes (si = 3, widths 64 and 128, so <= 4,
+# every W_m and both consumers' planes in shared memory): the flagship, a
+# resblock at width 128 (two matrices), width 64 with so = 3, and a resblock
+# at width 64 with four matrices and so = 4.
+WG_HESS_SHAPES = [
+    (3, 1, 128, 2, "sine", False, 30.0),
+    (3, 2, 128, 1, "sine", True, 30.0),
+    (3, 3, 64, 2, "sine", False, 30.0),
+    (3, 4, 64, 2, "sine", True, 10.0),
+]
+WG_HESS_IDS = ["flagship", "res-w128-so2", "w64-so3", "res-w64-d4-so4"]
+
+
+@pytest.mark.parametrize("args", WG_HESS_SHAPES, ids=WG_HESS_IDS)
+def test_k7_wgmma_matches_plain_and_the_mma_sync_body(card, args):
+    """The wgmma K7 by name at three groups of P = 200 (a ragged last
+    16-point tile, one consumer's half of it empty): y, jac and hess within
+    2^-6 of max|plain| of plain K7 and of the mma.sync body's on the same
+    inputs, the Hessian exactly symmetric."""
+    cfg = ShapeNetConfig(*args)
+    wb, x = _data(cfg, 3, 200, torch.bfloat16, seed=53)
+    before = dict(_build.LAUNCHES)
+    outs = fh._shapenet_fwd_hess_on("wgmma", wb, x, cfg, "siren")
+    got, want = _launched("shapenet_fwd_hess", before, "wgmma")
+    assert got == want
+    si, so = cfg.input_dim, cfg.output_dim
+    assert outs[2].shape == (3, 200, so, si, si)
+    assert torch.equal(outs[2], outs[2].transpose(-1, -2))
+    for mine, ref in zip(outs, fh.shapenet_fwd_hess_reference(wb, x, cfg, "siren")):
+        assert mine.dtype == torch.bfloat16 and bool(torch.isfinite(mine).all())
+        _close_rel(mine, ref, torch.bfloat16)
+    for mine, other in zip(outs, fh._shapenet_fwd_hess_on("tc", wb, x, cfg, "siren")):
+        _close_rel(mine, other, torch.bfloat16)
+
+
+@pytest.mark.parametrize("weighted,masked", [(False, False), (True, False), (True, True)],
+                         ids=["unweighted", "weighted", "weighted-masked"])
+@pytest.mark.parametrize("args", WG_HESS_SHAPES, ids=WG_HESS_IDS)
+def test_k8_wgmma_matches_plain(card, args, weighted, masked):
+    """The wgmma K8 by name at three groups of P = 200, at the bounds of
+    test_k8_matches_plain (terms rel 1e-3, d_wb within 2^-6 of max|plain|),
+    unweighted, weighted, and weighted with the value, Jacobian and Hessian
+    masks (the first output, every other Jacobian entry, two of three
+    Hessian entries)."""
+    cfg = ShapeNetConfig(*args)
+    wb, x = _data(cfg, 3, 200, torch.bfloat16, seed=54)
+    tgt, jt, ht, w = _hessian_side(cfg, 3, 200, seed=54)
+    si, so = cfg.input_dim, cfg.output_dim
+    kw = dict(w_value=0.7, w_jac=1.3, w_hess=0.4, weight=w if weighted else None)
+    if masked:
+        kw.update(y_mask=np.eye(1, so, dtype=np.float32)[0],
+                  jac_mask=(np.arange(si * so) % 2 == 0).astype(np.float32),
+                  hess_mask=(np.arange(si * (si + 1) // 2 * so) % 3 != 1).astype(np.float32))
+    before = dict(_build.LAUNCHES)
+    *terms, d_wb = fh._shapenet_hessian_grads_on("wgmma", wb, x, tgt, jt, ht, cfg, "siren", **kw)
+    got, want = _launched("shapenet_hessian_grads", before, "wgmma")
+    assert got == want
+    *refs, r_wb = fh.shapenet_hessian_grads_reference(wb, x, tgt, jt, ht, cfg, "siren", **kw)
+    for mine, ref in zip(terms, refs):
+        assert float(mine) == pytest.approx(float(ref), rel=1e-3)
+    assert d_wb.dtype == torch.bfloat16 and d_wb.shape == r_wb.shape
+    err, scale = _max_diff(d_wb, r_wb)
+    assert err <= 2.0 ** -6 * scale, (err, scale)
+
+
+# the wgmma K7/K8's reason for each status it refuses with
+REFUSED_AS = {2: "bytes of shared memory per block in the wgmma Hessian",
+              3: "the wgmma Hessian (evaluation|train) kernel has no instance"}
+
+
+def test_k7_k8_wgmma_geometry_takes_and_refuses(card):
+    """The wgmma K7/K8 library's own geometry: the flagship at G = 1 and 32
+    (16-point tiles, SMs / G splits capped at 64 and at the group's tiles,
+    every W_m and the planes in shared memory, no scratch for a plain chain);
+    status 2 past shared memory (K8: width 128 with three hidden matrices,
+    and a resblock of two blocks; K7: five matrices, while it takes four);
+    status 3 for what it has no instance for (si = 2 and 4, so = 5, widths
+    96 and 256; asked of the library only where the width and si are the
+    instances'). Each refused chain routes to the mma.sync body and agrees
+    with its plain version."""
+    flagship = ShapeNetConfig(3, 1, 128, 2, "sine", False, 30.0)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    for G in (1, 32):
+        for mode in ("eval", "train"):
+            geo = fh.hessian_geometry(mode, flagship, "siren", G, 32768, torch.bfloat16,
+                                      kernel="wgmma")
+            assert (geo["tile"], geo["splits"], geo["weights"], geo["scratch_bytes"]) == (
+                16, min(64, max(1, sms // G)), "shared", 0)
+            assert geo["smem_bytes"] <= 232448
+    assert fh.hessian_geometry("eval", ShapeNetConfig(3, 1, 128, 4, "sine"), "siren", 2, 64,
+                               torch.bfloat16, kernel="wgmma")["kernel"] == "wgmma"
+    refused = [("train", (3, 1, 128, 3, "sine", False, 30.0), 2),
+               ("train", (3, 1, 128, 2, "sine", True, 30.0), 2),
+               ("eval", (3, 1, 128, 5, "sine", False, 30.0), 2),
+               ("train", (2, 2, 64, 1, "sine", True, 10.0), 3),
+               ("eval", (4, 1, 128, 2, "sine", False, 30.0), 3),
+               ("train", (3, 5, 64, 2, "sine", False, 30.0), 3),
+               ("eval", (3, 1, 96, 2, "sine", False, 30.0), 3),
+               ("train", (3, 1, 256, 2, "sine", False, 30.0), 3)]
+    for mode, args, code in refused:
+        cfg = ShapeNetConfig(*args)
+        with pytest.raises(ValueError, match=REFUSED_AS[code]):
+            fh.hessian_geometry(mode, cfg, "siren", 2, 96, torch.bfloat16, kernel="wgmma")
+        pick = fh.k7_variant if mode == "eval" else fh.k8_variant
+        body = pick(torch.bfloat16, cfg, "siren")
+        assert body == "tc", args
+        wb, x = _data(cfg, 2, 96, torch.bfloat16, seed=56)
+        before = dict(_build.LAUNCHES)
+        if mode == "eval":
+            outs = fh.shapenet_fwd_hess_cuda(wb, x, cfg, "siren")
+            for mine, ref in zip(outs, fh.shapenet_fwd_hess_reference(wb, x, cfg, "siren")):
+                _close_rel(mine, ref, torch.bfloat16)
+            got, want = _launched("shapenet_fwd_hess", before, "tc")
+        else:
+            tgt, jt, ht, w = _hessian_side(cfg, 2, 96, seed=56)
+            *terms, d_wb = fh.shapenet_hessian_grads_cuda(wb, x, tgt, jt, ht, cfg, "siren",
+                                                          weight=w)
+            *refs, r_wb = fh.shapenet_hessian_grads_reference(wb, x, tgt, jt, ht, cfg, "siren",
+                                                              weight=w)
+            for mine, ref in zip(terms, refs):
+                assert float(mine) == pytest.approx(float(ref), rel=1e-3)
+            err, scale = _max_diff(d_wb, r_wb)
+            assert err <= 2.0 ** -6 * scale, (err, scale)
+            got, want = _launched("shapenet_hessian_grads", before, "tc")
+        assert got == want, args
+    with pytest.raises(ValueError, match="wgmma Hessian train kernel"):
+        fh.hessian_geometry("train", ShapeNetConfig(3, 1, 128, 3, "sine"), "siren", 2, 96,
+                            torch.bfloat16, kernel="wgmma")
+    with pytest.raises(ValueError, match="takes bfloat16"):
+        fh.hessian_geometry("eval", flagship, "siren", 2, 96, torch.float32, kernel="wgmma")
+
+
+# The reference's K1 in bf16 on the deep plain chain (tests/test_torch_k1_deep_chain.py
+# regenerates it from nif_tpu and pins it)
+K1_DEEP_FIXTURE = Path(__file__).resolve().parent / "data" / "k1_deep_chain_bf16.npz"
+
+
+def test_k1_deep_plain_chain_against_the_reference_fixture(card):
+    """The mma.sync K1 on the deep plain chain ShapeNetConfig(3, 1, 128, 7,
+    "sine", False, 30.0) (seven hidden matrices, which the wgmma K1 refuses)
+    at the fixture's G = 2, P = 96 and each of its seeds, against plain K1,
+    with the committed output of nif_tpu's K1 on the same inputs setting the
+    bound. The reference itself sits 2.18e-3 to 7.32e-2 of max|plain| from plain
+    K1 over those seeds: seven sine layers at omega_0 = 30 amplify a bf16
+    rounding that flips with the order of an f32 sum, so a seed's gap is one
+    draw of the chain's scatter. So the kernel is held, at every seed,
+    within the largest distance the reference sits from plain K1 over the
+    seeds (its worst reading, no looser). A body whose product blocks are
+    added the tensor core's way (rounding toward zero) sits past it at six
+    of the seeds in the CPU model of tests/test_torch_k1_deep_chain.py."""
+    cfg = ShapeNetConfig(3, 1, 128, 7, "sine", False, 30.0)
+    assert fs.k1_variant(torch.bfloat16, cfg, "siren") == "tc"
+    with np.load(K1_DEEP_FIXTURE) as z:
+        seeds, G, P = [int(v) for v in z["seeds"]], int(z["G"]), int(z["P"])
+        refs = torch.from_numpy(z["out_bits"].view(np.int16)).view(torch.bfloat16)
+    errs, gaps = [], []
+    for seed, ref in zip(seeds, refs):
+        wb, x = _data(cfg, G, P, torch.bfloat16, seed=seed)
+        before = dict(_build.LAUNCHES)
+        out = fs.shapenet_fwd_cuda(wb, x, cfg, "siren")
+        got, want = _launched("shapenet_fwd", before, "tc")
+        assert got == want
+        assert out.shape == ref.shape and bool(torch.isfinite(out).all())
+        plain = fs.shapenet_grouped_fused_reference(wb, x, cfg, "siren")
+        gap, scale = _max_diff(ref, plain)  # the reference's own distance from plain K1
+        gaps.append(gap / scale)
+        errs.append(_max_diff(out, plain)[0] / scale)
+    assert max(errs) <= max(gaps), (errs, gaps)

@@ -218,6 +218,7 @@ LOADERS = {
     "shapenet_jac_tc": lambda: fd._library("tc"),
     "shapenet_hess": lambda: fh._library("simt"),
     "shapenet_hess_tc": lambda: fh._library("tc"),
+    "shapenet_hess_wgmma": lambda: fh._library("wgmma"),
     "shapenet_linear": lambda: fl._library("simt"),
     "shapenet_linear_tc": lambda: fl._library("tc"),
 }

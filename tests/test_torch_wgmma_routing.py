@@ -1,14 +1,16 @@
-"""The routing of bf16 K1, K2, K3 and K5's reverse body to their wgmma
-bodies on the CPU (no nvcc needed): ``k1_variant``, ``k2_variant``,
-``k3_variant``, ``k5_variant`` and a launch take ``csrc/shapenet_fwd_wgmma.cu``
-(K1, K5) or ``csrc/shapenet_bwd_wgmma.cu`` (K2, K3) where that library's
+"""The routing of bf16 K1, K2, K3, K5's reverse body, K7 and K8 to their
+wgmma bodies on the CPU (no nvcc needed): ``k1_variant``, ``k2_variant``,
+``k3_variant``, ``k5_variant``, ``k7_variant``, ``k8_variant`` and a launch
+take ``csrc/shapenet_fwd_wgmma.cu`` (K1, K5), ``csrc/shapenet_bwd_wgmma.cu``
+(K2, K3) or ``csrc/shapenet_hess_wgmma.cu`` (K7, K8) where that library's
 geometry takes the chain, else the ``mma.sync`` body (``"tc"``:
-``shapenet_fwd_tc.cu``, ``shapenet_bwd_tc.cu``), else the CUDA-core one
-(``"simt"``); a named body asks only its own library; float32 never
-reaches a wgmma body, a width it has no instance for never asks its
-library, and its private launchers refuse CPU tensors before any library
-loads. Stub libraries stand in for the built ones: each records the
-entries asked and returns a fixed status."""
+``shapenet_fwd_tc.cu``, ``shapenet_bwd_tc.cu``, ``shapenet_hess_tc.cu``),
+else the CUDA-core one (``"simt"``); a named body asks only its own
+library; float32 never reaches a wgmma body, a width (or, for K7 and K8,
+an si) it has no instance for never asks its library, and its private
+launchers refuse CPU tensors before any library loads. Stub libraries stand
+in for the built ones: each records the entries asked and returns a fixed
+status."""
 import contextlib
 
 import numpy as np
@@ -18,6 +20,7 @@ import torch
 from nif_tpu_torch.config import ShapeNetConfig, shapenet_param_count
 from nif_tpu_torch.ops import _build
 from nif_tpu_torch.ops import fused_derivatives as fd
+from nif_tpu_torch.ops import fused_hessian as fh
 from nif_tpu_torch.ops import fused_shapenet as fs
 
 torch.set_num_threads(1)
@@ -45,7 +48,11 @@ PICKS = {"k1": (fs.k1_variant, "shapenet_fwd_wgmma", "nif_shapenet_fwd_wg_worksp
          "k3": (fs.k3_variant, "shapenet_bwd_wgmma", "nif_shapenet_bwd_wg_workspace",
                 "shapenet_bwd_tc", "nif_shapenet_bwd_tc_workspace"),
          "k5": (fd.k5_variant, "shapenet_fwd_wgmma", "nif_shapenet_fwd_jac_wg_workspace",
-                "shapenet_fwd_tc", "nif_shapenet_fwd_jac_tc_workspace")}
+                "shapenet_fwd_tc", "nif_shapenet_fwd_jac_tc_workspace"),
+         "k7": (fh.k7_variant, "shapenet_hess_wgmma", "nif_shapenet_fwd_hess_wg_workspace",
+                "shapenet_hess_tc", "nif_shapenet_fwd_hess_tc_workspace"),
+         "k8": (fh.k8_variant, "shapenet_hess_wgmma", "nif_shapenet_hess_wg_workspace",
+                "shapenet_hess_tc", "nif_shapenet_hess_tc_workspace")}
 # each kernel's geometry on a named body (or the routed one, body None)
 GEOMETRY = {
     "k1": lambda cfg, G, P, dtype, body: fs.k1_geometry(cfg, "siren", G, P, dtype, kernel=body),
@@ -53,6 +60,10 @@ GEOMETRY = {
     "k3": lambda cfg, G, P, dtype, body: fs.k3_geometry(cfg, "siren", G, P, dtype, kernel=body),
     "k5": lambda cfg, G, P, dtype, body: fd._geometry("reverse", cfg, "siren", G, P, dtype,
                                                       kernel=body),
+    "k7": lambda cfg, G, P, dtype, body: fh.hessian_geometry("eval", cfg, "siren", G, P, dtype,
+                                                             kernel=body),
+    "k8": lambda cfg, G, P, dtype, body: fh.hessian_geometry("train", cfg, "siren", G, P, dtype,
+                                                             kernel=body),
 }
 
 
@@ -165,6 +176,18 @@ def test_float32_never_reaches_the_wgmma_body(args, kernel, monkeypatch):
         GEOMETRY[kernel](cfg, 2, 64, torch.float32, "wgmma")
 
 
+@pytest.mark.parametrize("kernel", ["k7", "k8"])
+@pytest.mark.parametrize("si", [1, 2, 4])
+def test_k7_k8_si_without_a_wgmma_instance_never_ask_its_library(si, kernel, monkeypatch):
+    """The wgmma K7/K8 body has instances for si = 3 (ten streams a point)
+    only: a flagship-width chain of any other si goes straight to the
+    ``mma.sync`` body's geometry without loading the wgmma library."""
+    pick, _, _, tc_lib, tc_entry = PICKS[kernel]
+    libs = _libraries(monkeypatch, **{tc_lib: 0})
+    assert pick(torch.bfloat16, ShapeNetConfig(si, 1, 128, 2, "sine", False, 30.0), "siren") == "tc"
+    assert libs[tc_lib].calls == [tc_entry]
+
+
 def _data(cfg, G, P, dtype, seed):
     rng = np.random.default_rng(seed)
     wb = rng.standard_normal((G, shapenet_param_count(cfg, 0))) * (0.3 / cfg.omega_0)
@@ -174,11 +197,22 @@ def _data(cfg, G, P, dtype, seed):
     return to(wb), to(x), to(tgt)
 
 
+def _hessian_targets(x, cfg):
+    """Zero Jacobian and unique-pair Hessian targets of x's shape."""
+    G, P, si = x.shape
+    so = cfg.output_dim
+    return (torch.zeros((G, P, si * so), dtype=x.dtype),
+            torch.zeros((G, P, si * (si + 1) // 2 * so), dtype=x.dtype))
+
+
 LAUNCHERS = {
     "k1": lambda wb, x, third, cfg: fs._shapenet_fwd_on("wgmma", wb, x, cfg),
     "k2": lambda wb, x, third, cfg: fs._shapenet_mse_grads_on("wgmma", wb, x, third, cfg),
     "k3": lambda wb, x, third, cfg: fs._shapenet_bwd_on("wgmma", wb, x, third, cfg),
     "k5": lambda wb, x, third, cfg: fd._shapenet_fwd_jac_on("wgmma", wb, x, cfg),
+    "k7": lambda wb, x, third, cfg: fh._shapenet_fwd_hess_on("wgmma", wb, x, cfg),
+    "k8": lambda wb, x, third, cfg: fh._shapenet_hessian_grads_on(
+        "wgmma", wb, x, third, *_hessian_targets(x, cfg), cfg),
 }
 
 
@@ -196,7 +230,11 @@ def test_wgmma_launchers_refuse_cpu_tensors_before_any_library(kernel, dtype, mo
 REFUSALS = {"k1": ("wgmma K1 cannot take", "unknown K1 body"),
             "k2": ("wgmma K2/K3 body cannot take", "unknown K2/K3 body"),
             "k3": ("wgmma K2/K3 body cannot take", "unknown K2/K3 body"),
-            "k5": ("shared memory per block in the wgmma Jacobian kernel", "unknown K5 body")}
+            "k5": ("shared memory per block in the wgmma Jacobian kernel", "unknown K5 body"),
+            "k7": ("shared memory per block in the wgmma Hessian evaluation kernel",
+                   "unknown K7/K8 body"),
+            "k8": ("shared memory per block in the wgmma Hessian train kernel",
+                   "unknown K7/K8 body")}
 
 
 @pytest.mark.parametrize("kernel", sorted(PICKS))
@@ -214,9 +252,10 @@ def test_a_refused_forced_body_raises(kernel, monkeypatch):
 
 
 # (the routed launch, the wgmma C entry, its counter, pointers before the
-# shape, the workspace queries a launch makes). K5's public wrapper routes
-# only CUDA tensors, so its stand-in routes as it does (k5_variant, then the
-# launch at [G, P]: two queries).
+# shape, the workspace queries a launch makes). The public wrappers of K5,
+# K7 and K8 route only CUDA tensors, so their stand-ins route as they do
+# (k5_variant, k7_variant or k8_variant, then the launch at [G, P]: two
+# queries).
 ROUTED = {
     "k1": (lambda wb, x, third, cfg: fs.shapenet_fwd_cuda(wb, x, cfg, "siren"),
            "nif_shapenet_fwd_wg", "shapenet_fwd", 4, 1),
@@ -227,13 +266,20 @@ ROUTED = {
     "k5": (lambda wb, x, third, cfg: fd._launch_k5(fd.k5_variant(x.dtype, cfg, "siren"), wb, x,
                                                    cfg, "siren"),
            "nif_shapenet_fwd_jac_wg", "shapenet_fwd_jac", 5, 2),
+    "k7": (lambda wb, x, third, cfg: fh._launch_k7(fh.k7_variant(x.dtype, cfg, "siren"), wb, x,
+                                                   cfg, "siren"),
+           "nif_shapenet_fwd_hess_wg", "shapenet_fwd_hess", 6, 2),
+    "k8": (lambda wb, x, third, cfg: fh._launch_k8(
+        fh.k8_variant(x.dtype, cfg, "siren"), wb, x, third, *_hessian_targets(x, cfg), cfg,
+        "siren", 1.0, 1.0, 1.0, None, None, None, None),
+           "nif_shapenet_hessian_grads_wg", "shapenet_hessian_grads", 13, 2),
 }
 
 
 @pytest.mark.parametrize("args", [FLAGSHIP, RESBLOCK_64], ids=["flagship", "resblock_w64"])
 @pytest.mark.parametrize("kernel", sorted(ROUTED))
 def test_wgmma_launch_asks_only_its_library(kernel, args, monkeypatch):
-    """A routed bf16 K1, K2, K3 or K5 launch of a chain the wgmma geometry
+    """A routed bf16 K1, K2, K3, K5, K7 or K8 launch of a chain the wgmma geometry
     takes (the device checks stubbed so CPU tensors stand in for the
     card's) asks only its wgmma library: its geometry, then its entry, with
     wb' in bf16 rows padded to 8 values (16 bytes: the TMA tensor map's
@@ -248,6 +294,7 @@ def test_wgmma_launch_asks_only_its_library(kernel, args, monkeypatch):
 
     monkeypatch.setattr(fs, "_check_cuda_inputs", lambda *a, **k: None)
     monkeypatch.setattr(fd, "_check_cuda_inputs", lambda *a, **k: None)
+    monkeypatch.setattr(fh, "_check_cuda_inputs", lambda *a, **k: None)
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: _Stream())
     cfg = ShapeNetConfig(*args)
